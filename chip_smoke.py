@@ -1,0 +1,511 @@
+#!/usr/bin/env python3
+"""Drive the torch port's serving path once on one CUDA card.
+
+    python3 chip_smoke.py              # everything (needs one CUDA card)
+    python3 chip_smoke.py --profile    # adds a profiled full-batch burst
+
+Phases, each raising on failure (non-zero exit, no final line):
+
+1. environment: card name and power limit (nvidia-smi), torch/CUDA/Triton;
+2. build: the CUDA C++ kernels from ``deepsearch_tts_tpu_torch/ops/csrc``
+   (nvcc, timed) and the Triton kernel's JIT;
+3. kernels: each kernel's wrapper against its plain PyTorch version on the
+   card at the serving path's shapes (qwen3-8b widths), with the tolerance
+   stated below, timed with CUDA events after warm-up;
+4. serve: ``deepsearch_tts_tpu_torch.cli.serve.build_engine`` builds
+   qwen3-8b (full width, bf16, random weights from a seed) on the card; an
+   ``OpenAIServer`` on an ephemeral localhost port answers chat and
+   completion requests over HTTP; the kernel launch counters, reset just
+   before, must show that decode and sampling went through the kernels;
+5. reference: the same weights' paged prefill + fused decode logits against
+   the plain no-cache forward on a short input.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# qwen3-8b widths (deepsearch_tts_tpu_torch/models/qwen3.py QWEN3_CONFIGS)
+E, H, KV, D, FF, V = 4096, 32, 8, 128, 12288, 151936
+V_ODD = 50257            # a vocab width that is not a multiple of 128
+SLOTS = 16               # the serve phase's max_slots: its decode batch
+# bf16 outputs of kernel and plain version differ by float32 summation order
+# and the resulting bf16 rounding of intermediates: the JAX suite's own bound
+# for the stacked fused kernels (tests/test_fused_layer.py:181,190)
+BF16_RTOL, BF16_ATOL = 2e-2, 1e-2
+# B5 is float32 end to end; only the order of the lse sum differs
+F32_RTOL, F32_ATOL = 1e-5, 1e-5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, calls: int = 1, iters: int = 50) -> tuple[float, float]:
+    """(device ms, eager ms) per call of a kernel, where ``fn`` makes
+    ``calls`` calls. Device time: ``fn`` captured once in a CUDA graph,
+    replayed ``iters`` times between two CUDA events (no host launch cost).
+    Eager time: ``iters`` back-to-back runs of ``fn`` between two events,
+    host launch cost included where the host is the bottleneck."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    out = []
+    for run in (graph.replay, fn):
+        run()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            run()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / (iters * calls))
+    return out[0], out[1]
+
+
+def phase_env() -> str:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
+                         "this script needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(smi.splitlines()[0] if smi else "nvidia-smi: no output")
+    import triton
+
+    log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"triton {triton.__version__} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    return smi.splitlines()[0]
+
+
+def phase_build() -> None:
+    from deepsearch_tts_tpu_torch.ops import _build
+
+    t0 = time.time()
+    _build.load_library("fused_layer")
+    log(f"[build] nvcc fused_layer.cu: {time.time() - t0:.2f} s")
+    for line in _build.build_log.get("fused_layer", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[build] {line.strip()}")
+
+
+def _err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def phase_kernels(gen) -> dict:
+    """Each wrapper vs its plain version; returns per-kernel results."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import rope_angles
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    # a four-layer stack: every layer is checked (the layer offsets), and the
+    # timed loop walks the layers, so each call reads its weights cold as in
+    # serving (4 x 386 MB of weights, far beyond the 50 MB L2)
+    L = 4
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    ln1, ln2 = rnd(L, E, scale=0.1) + 1, rnd(L, E, scale=0.1) + 1
+    qn, kn = rnd(L, D, scale=0.1) + 1, rnd(L, D, scale=0.1) + 1
+    wqkv = rnd(L, E, (H + 2 * KV) * D, scale=E ** -0.5)
+    wo = rnd(L, H * D, E, scale=(H * D) ** -0.5)
+    gateup = rnd(L, E, 2 * FF, scale=E ** -0.5)
+    wd = rnd(L, FF, E, scale=FF ** -0.5)
+    res = {"fused_qkv_stacked": {"err": 0.0}, "fused_out_mlp_stacked": {"err": 0.0},
+           "sampling_prep": {"err": 0.0}}
+    for B in (1, 8, SLOTS, 64):
+        x = rnd(B, E)
+        a = rnd(B, H * D)
+        pos = torch.randint(0, 4000, (B,), generator=gen, device=dev)
+        cos, sin = rope_angles(pos, D, 1_000_000.0)
+        kw = dict(n_heads=H, n_kv=KV, head_dim=D, eps=1e-6)
+        args3 = (x, ln1, wqkv, qn, kn, cos, sin)
+        args4 = (a, x, wo, ln2, gateup, wd)
+        e3 = e4 = 0.0
+        for layer in range(L):
+            got = fl.fused_qkv_stacked(*args3, layer, **kw)
+            ref = fl.fused_qkv_stacked_plain(*args3, layer, **kw)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g.float(), r.float(), rtol=BF16_RTOL,
+                                           atol=BF16_ATOL)
+                e3 = max(e3, _err(g, r))
+            got4 = fl.fused_out_mlp_stacked(*args4, layer, eps=1e-6)
+            ref4 = fl.fused_out_mlp_stacked_plain(*args4, layer, eps=1e-6)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got4.float(), ref4.float(), rtol=BF16_RTOL,
+                                       atol=BF16_ATOL)
+            e4 = max(e4, _err(got4, ref4))
+
+        def layers(f, args, **k):
+            return lambda: [f(*args, layer, **k) for layer in range(L)]
+
+        t3 = time_ms(layers(fl.fused_qkv_stacked, args3, **kw), calls=L)
+        p3 = time_ms(layers(fl.fused_qkv_stacked_plain, args3, **kw), calls=L)
+        t4 = time_ms(layers(fl.fused_out_mlp_stacked, args4, eps=1e-6), calls=L)
+        p4 = time_ms(layers(fl.fused_out_mlp_stacked_plain, args4, eps=1e-6), calls=L)
+        for name, e, t, p in (("B3 fused_qkv_stacked", e3, t3, p3),
+                              ("B4 fused_out_mlp_stacked", e4, t4, p4)):
+            log(f"[kernel] {name:25s} B={B:3d} max_abs_err={e:.3e} | device "
+                f"kernel {t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel "
+                f"{t[1]:.4f} ms plain {p[1]:.4f} ms")
+            name = name.split()[1]
+            res[name]["err"] = max(res[name]["err"], e)
+            if B == SLOTS:
+                res[name]["ms"], res[name]["plain_ms"] = t[0], p[0]
+
+    for Vw in (V, V_ODD):
+        eos = Vw - 1
+        for B in (1, SLOTS, 64):
+            logits = torch.randn((B, Vw), generator=gen, device=dev) * 3
+            seen = torch.rand((B, Vw), generator=gen, device=dev) < 0.1
+            pen = torch.tensor([1.0, 1.05, 1.3], device=dev).repeat(B)[:B].contiguous()
+            temp = torch.tensor([0.7, 1.0, 0.3, 1.5], device=dev).repeat(B)[:B].contiguous()
+            sup = (torch.arange(B, device=dev) % 2 == 0)
+            args5 = (logits, seen, pen, temp, sup, eos)
+            s_k, l_k = sp.sampling_prep(*args5)
+            s_r, l_r = sp.sampling_prep_plain(*args5)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(s_k, s_r, rtol=F32_RTOL, atol=F32_ATOL)
+            torch.testing.assert_close(l_k, l_r, rtol=F32_RTOL, atol=F32_ATOL)
+            e5 = max(_err(s_k, s_r), _err(l_k, l_r))
+            t5 = time_ms(lambda: sp.sampling_prep(*args5))
+            p5 = time_ms(lambda: sp.sampling_prep_plain(*args5))
+            log(f"[kernel] B5 sampling_prep V={Vw:6d} B={B:3d} max_abs_err={e5:.3e} "
+                f"| device kernel {t5[0]:.4f} ms plain {p5[0]:.4f} ms | eager "
+                f"kernel {t5[1]:.4f} ms plain {p5[1]:.4f} ms")
+            res["sampling_prep"]["err"] = max(res["sampling_prep"]["err"], e5)
+            if B == SLOTS and Vw == V:
+                res["sampling_prep"]["ms"] = t5[0]
+                res["sampling_prep"]["plain_ms"] = p5[0]
+    return res
+
+
+def _post(url: str, payload: dict, timeout: float = 600.0) -> tuple[int, dict, float]:
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = json.loads(r.read())
+        return r.status, body, time.perf_counter() - t0
+
+
+def _burst(chat, n: int, max_tokens: int) -> list:
+    """n concurrent chat requests; returns their (status, body, seconds)."""
+    results = [None] * n
+
+    def worker(i):
+        results[i] = chat(f"Burst {i}: write a long story.", max_tokens=max_tokens,
+                          temperature=0.7)
+
+    ths = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=600)
+    for r in results:
+        assert r is not None and r[0] == 200, r
+    return results
+
+
+def _profile_burst(chat, engine) -> None:
+    """One more full-batch burst under torch.profiler: device time by kernel
+    and the share of the window in which no kernel ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _burst(chat, SLOTS, 32)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events)
+    log(f"[profile] window {wall_us / 1e3:.1f} ms, kernels busy {busy / 1e3:.1f} ms, "
+        f"device idle share {1 - busy / wall_us:.3f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        log(f"[profile] {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} calls  "
+            f"{e.key[:90]}")
+    spans = engine.telemetry()["spans"]
+    log(f"[profile] engine spans {json.dumps(spans)}")
+
+
+def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
+    """Serve qwen3-8b over HTTP through the port's own construction."""
+    import asyncio
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
+    from deepsearch_tts_tpu_torch.engine.server import OpenAIServer
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    args = build_parser().parse_args([
+        "--model", "qwen3-8b", "--device", "cuda", "--seed", "0",
+        "--max_slots", str(SLOTS), "--page_size", "64", "--pages", "1024",
+        "--max_seq_len", "4096", "--decode_chunk", "8", "--warmup", "64"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine = build_engine(args)
+    torch.cuda.synchronize()
+    log(f"[serve] engine built (random qwen3-8b weights, warmup) in "
+        f"{time.time() - t0:.1f} s; layer_fusion={engine.layer_fusion}; "
+        f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if not engine.layer_fusion:
+        raise AssertionError("the qwen3-8b bf16 engine must run the fused decode layers")
+
+    loop = asyncio.new_event_loop()
+    server = OpenAIServer(engine, "127.0.0.1", 0)
+    loop.run_until_complete(server.start())
+    port = server._server.sockets[0].getsockname()[1]
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{port}/v1"
+    cfg = engine.cfg
+    out: dict = {}
+    try:
+        # counters are zeroed right before the main path runs
+        fl.fused_qkv_stacked.launches = 0
+        fl.fused_out_mlp_stacked.launches = 0
+        sp.sampling_prep.launches = 0
+        st0 = dict(engine.stats)
+
+        def chat(content, **kw):
+            payload = {"messages": [{"role": "user", "content": content}], **kw}
+            return _post(f"{base}/chat/completions", payload)
+
+        # (a) time to first token: single one-token requests, nothing else
+        # running (client-side request latency: HTTP + prefill + first sample)
+        ttfts = []
+        for i in range(5):
+            code, body, dt = chat(f"Time to first token, please ({i}).", max_tokens=1)
+            assert code == 200 and body["usage"]["completion_tokens"] == 1, body
+            ttfts.append(dt)
+        out["ttft_s"] = sorted(ttfts)[2]
+        out["ttft_max_s"] = max(ttfts)
+
+        # (b) four concurrent chat completions, default sampler
+        results = [None] * 4
+
+        def worker(i):
+            results[i] = chat(f"Request {i}: name three rivers of Europe.",
+                              max_tokens=48)
+
+        ths = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        for r in results:
+            assert r is not None and r[0] == 200, r
+            u = r[1]["usage"]
+            assert 1 <= u["completion_tokens"] <= 48 and u["prompt_tokens"] > 0, u
+        log(f"[serve] 4 concurrent chat: completion tokens "
+            f"{[r[1]['usage']['completion_tokens'] for r in results]}")
+
+        # (c) one greedy request twice: identical text (prompt under one
+        # page, so both runs take the same path)
+        greedy = dict(max_tokens=24, temperature=0.0, repetition_penalty=1.0)
+        r1 = chat("Greedy: count to five.", **greedy)
+        r2 = chat("Greedy: count to five.", **greedy)
+        assert r1[0] == 200 and r2[0] == 200
+        t1 = r1[1]["choices"][0]["message"]["content"]
+        t2 = r2[1]["choices"][0]["message"]["content"]
+        assert t1 == t2, (t1, t2)
+        assert r1[1]["usage"]["completion_tokens"] == r2[1]["usage"]["completion_tokens"]
+
+        # (d) min_tokens budget forcing
+        r = chat("Budget: think for a while.", max_tokens=40, min_tokens=32)
+        assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 32, r[1]["usage"]
+
+        # (e) multi-turn follow-up must reuse the cached conversation prefix
+        msgs = [{"role": "system", "content": "You are a careful search assistant. " * 8},
+                {"role": "user", "content": "Which river flows through Vienna?"}]
+        r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
+        assert r[0] == 200
+        msgs += [{"role": "assistant", "content": "The Danube."},
+                 {"role": "user", "content": "And through Budapest?"}]
+        r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
+        cached = r[1]["usage"]["prompt_tokens_details"]["cached_tokens"]
+        assert r[0] == 200 and cached > 0, r[1]["usage"]
+        log(f"[serve] multi-turn follow-up: prompt_tokens "
+            f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached}")
+
+        # (f) /v1/completions
+        r = _post(f"{base}/completions", {"prompt": "The capital of France is",
+                                          "max_tokens": 16})
+        assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 1, r[1]
+        assert isinstance(r[1]["choices"][0]["text"], str)
+
+        # (g) a long prompt (~3000 tokens): prefill attention in query blocks
+        long_text = "The search returned a page about the rivers of Europe. " * 55
+        r = chat(long_text, max_tokens=8)
+        u = r[1]["usage"]
+        assert r[0] == 200 and u["prompt_tokens"] > 2900 and u["completion_tokens"] >= 1, u
+        out["long_prompt_tokens"], out["long_prompt_s"] = u["prompt_tokens"], r[2]
+        log(f"[serve] long prompt: {u['prompt_tokens']} prompt tokens answered "
+            f"in {r[2] * 1000:.1f} ms; peak memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        # (h) a full batch: max_slots concurrent requests for decode tok/s
+        d0 = dict(engine.stats)
+        tb = time.perf_counter()
+        results = _burst(chat, SLOTS, 64)
+        wall = time.perf_counter() - tb
+        d1 = dict(engine.stats)
+        out["burst_decode_tok_s"] = ((d1["decode_tokens"] - d0["decode_tokens"])
+                                     / (d1["decode_time_s"] - d0["decode_time_s"]))
+        out["burst_step_ms"] = 1e3 * (d1["decode_time_s"] - d0["decode_time_s"]) / (
+            (d1["decode_steps"] - d0["decode_steps"]) * engine.decode_chunk_len)
+        out["burst_wall_s"] = wall
+        out["burst_tokens"] = sum(r[1]["usage"]["completion_tokens"] for r in results)
+        if profile:
+            _profile_burst(chat, engine)
+
+        st1 = dict(engine.stats)
+        steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
+        samples = steps + (st1["prefill_dispatches"] - st0["prefill_dispatches"])
+        launches = {"fused_qkv_stacked": fl.fused_qkv_stacked.launches,
+                    "fused_out_mlp_stacked": fl.fused_out_mlp_stacked.launches,
+                    "sampling_prep": sp.sampling_prep.launches}
+        log(f"[serve] decode steps {steps}, sample calls {samples}, launches {launches}")
+        assert launches["fused_qkv_stacked"] == cfg.n_layers * steps > 0, launches
+        assert launches["fused_out_mlp_stacked"] == cfg.n_layers * steps, launches
+        assert launches["sampling_prep"] == samples > 0, launches
+        out["launches"] = launches
+        out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
+                               / (st1["decode_time_s"] - st0["decode_time_s"]))
+        log(f"[serve] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms "
+            f"(max {out['ttft_max_s'] * 1000:.1f}) | decode "
+            f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch "
+            f"of {SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
+            f"({out['burst_step_ms']:.2f} ms per decode step), "
+            f"{out['burst_tokens']} tokens in {out['burst_wall_s']:.2f} s")
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+        loop.run_until_complete(server.stop())
+        loop.close()
+        engine.shutdown()
+    return out, engine
+
+
+def phase_reference(engine) -> None:
+    """Paged prefill + fused decode (the serving branches) vs the plain
+    no-cache forward, on the served weights, for a 24-token input."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages
+
+    cfg, dev = engine.cfg, engine.device
+    T0, T = 16, 24
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None]
+    with torch.no_grad():
+        ref, _ = engine.forward(engine.params, cfg, toks, pos)
+        kp, vp = init_kv_pages(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim,
+                               dtype=cfg.torch_dtype, device=dev)
+        table = torch.tensor([[1]], device=dev)
+        kw = dict(k_pages=kp, v_pages=vp, page_table=table)
+        got = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
+                              seq_lens=torch.tensor([T0], device=dev),
+                              logits_indices=torch.tensor([T0 - 1], device=dev),
+                              **kw)[0][:, 0]]
+        for t in range(T0, T):
+            got.append(engine.forward(
+                engine.params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                seq_lens=torch.tensor([t + 1], device=dev), fused_decode=True,
+                **kw)[0][:, 0])
+    got = torch.cat(got)                        # positions T0-1 .. T-1
+    want = ref[0, T0 - 1:]
+    assert got.shape == want.shape == (T - T0 + 1, cfg.vocab_size), got.shape
+    assert torch.isfinite(got).all()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    err = (got - want).abs().max().item()
+    log(f"[reference] serving-path logits vs no-cache forward: max_abs_err "
+        f"{err:.4f}, min cosine {cos.min().item():.5f}, argmax agreement {agree:.2f}")
+    # bf16 through 36 layers: the two paths round q/k/v at different points
+    # (the fused kernel keeps q/k in float32 until after norm and rope)
+    assert cos.min().item() > 0.99, cos
+    assert agree >= 0.75, agree
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true",
+                    help="add a full-batch burst under torch.profiler to the "
+                         "serve phase (device time by kernel, idle share)")
+    opts = ap.parse_args(argv)
+    # the port must run without JAX: deepsearch_tts_tpu/__init__.py imports
+    # jax when JAX_PLATFORMS=cpu is set, so make sure it is not
+    os.environ.pop("JAX_PLATFORMS", None)
+    if not os.path.isdir(os.path.join(HERE, "deepsearch_tts_tpu_torch")):
+        raise SystemExit("chip_smoke: deepsearch_tts_tpu_torch/ not found next to "
+                         "this script — run it from a checkout of the repository")
+    sys.path.insert(0, HERE)
+    import torch
+
+    card = phase_env()
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = phase_kernels(gen)
+    serve, engine = phase_serve(card, profile=opts.profile)
+    phase_reference(engine)
+    src = "deepsearch_tts_tpu_torch/ops/"
+    meta = {
+        "fused_qkv_stacked": ("cuda", src + "csrc/fused_layer.cu",
+                              "deepsearch_tts_tpu/ops/fused_layer.py:244"),
+        "fused_out_mlp_stacked": ("cuda", src + "csrc/fused_layer.cu",
+                                  "deepsearch_tts_tpu/ops/fused_layer.py:356"),
+        "sampling_prep": ("triton", src + "sampling_prep.py",
+                          "deepsearch_tts_tpu/ops/sampling_prep.py:30"),
+    }
+    kernels = [{"name": n, "route": r, "source": s, "replaces": rep,
+                "launches": serve["launches"][n],
+                "max_abs_err": res[n]["err"], "ms": res[n]["ms"],
+                "plain_ms": res[n]["plain_ms"]}
+               for n, (r, s, rep) in meta.items()]
+    print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "launches"},
+                      "card": card}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

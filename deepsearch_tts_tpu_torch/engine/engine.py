@@ -1,0 +1,781 @@
+"""Continuous-batching inference engine over a paged KV cache (port of
+``engine/engine.py``, paged mode).
+
+Behaviours carried over from the JAX engine:
+
+* ``submit`` returns a ``concurrent.futures.Future``; the scheduler loop
+  runs on a daemon thread.
+* Grouped prefill: queued requests are prepared on the host (pages, radix
+  prefix match), grouped by power-of-two prompt bucket, and each group runs
+  ONE batched forward plus first-token sample (``MAX_PREFILL_GROUP`` rows,
+  ``PREFILL_TOKEN_BUDGET`` rows x bucket). Engines with a prefix cache run
+  the non-fresh (re-prefill) branch for every group, as in JAX; without one,
+  groups take fresh causal prefill.
+* Decode chunks of ``decode_chunk_len`` steps over all ``max_slots`` rows
+  (inactive rows write nothing), with the page table sliced to the
+  power-of-two page bucket of the longest active row, so a step gathers the
+  context it needs and not the whole ``max_seq_len`` budget. T=1 layers run
+  the fused functions (``ops/fused_layer.py``) on packed bf16 weights.
+* Page allocation, LRU eviction of cached prefixes and preempt-by-requeue
+  under page pressure; finished sequences insert their full pages into the
+  radix prefix cache.
+* Seen masks: each row's token-presence mask is rebuilt on the device from
+  its whole prompt at admission and extended with every sampled token, so
+  it is always presence(prompt + generated) — there is no kept/stale mask
+  path to reconcile.
+* ``min_tokens`` budget forcing (``tokens_generated = lens - prompt_lens + 1``),
+  the host stop scan, finish reasons, ``abort`` and ``telemetry``.
+
+Left out, because they are JAX dispatch machinery: pipelined dispatch from
+the device carry, admission injection, the compile caches and warm-program
+bookkeeping. Eager CUDA launches are already asynchronous; each decode
+chunk is queued step after step and synchronised once, when its tokens are
+read back. Options of the JAX engine that this slice does not carry raise
+``NotImplementedError`` naming the ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import traceback
+import uuid
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from deepsearch_tts_tpu.engine.profiling import SpanTimer
+from deepsearch_tts_tpu.engine.stopping import StopState
+from deepsearch_tts_tpu.engine.tokenizer import IncrementalDetokenizer
+
+from ..device import resolve_device
+from ..models.registry import get_model
+from .kvcache import PageAllocator, init_kv_pages
+from .sampling import SamplingParams, sample, update_seen
+
+
+@dataclass
+class GenerationRequest:
+    prompt_ids: list[int]
+    max_tokens: int = 256
+    temperature: float = 0.7
+    top_k: int = 20
+    top_p: float = 0.8
+    min_p: float = 0.05
+    repetition_penalty: float = 1.05
+    min_tokens: int = 0            # logit-level budget forcing: suppress EOS
+    stop: tuple[str, ...] = ()
+    include_stop_str: bool = False
+    on_delta: Any = None           # optional callable(str) for token streaming
+    request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:16])
+
+
+@dataclass
+class GenerationResult:
+    request_id: str
+    token_ids: list[int]
+    text: str
+    finish_reason: str
+    prompt_tokens: int
+    completion_tokens: int
+    cached_prompt_tokens: int = 0
+
+
+class _Slot:
+    """Host-side state for one active sequence."""
+
+    def __init__(self, idx: int):
+        self.idx = idx
+        self.reset()
+
+    def reset(self):
+        self.req: GenerationRequest | None = None
+        self.future: Future | None = None
+        self.pages: list[int] = []
+        self.shared_pages: list[int] = []
+        self.prompt_tokens: list[int] = []
+        self.prompt_len = 0
+        self.cached_len = 0
+        self.generated: list[int] = []
+        self.stop: StopState | None = None
+        self.detok = None
+        self.active = False
+
+
+def _not_ported(option: str, item: str):
+    return NotImplementedError(
+        f"Engine option {option} is not ported to the torch package yet "
+        f"(ROADMAP.md {item})")
+
+
+class Engine:
+    # prefill rows per batched forward
+    MAX_PREFILL_GROUP = 16
+    # cap rows x bucket per prefill forward: causal scores are [G, H, T, S]
+    # float32, so long buckets at full group width would exhaust memory
+    PREFILL_TOKEN_BUDGET = 8192
+
+    def __init__(
+        self,
+        model_name: str,
+        tokenizer,
+        params: dict | None = None,
+        *,
+        device: str | torch.device,
+        max_slots: int = 8,
+        page_size: int = 16,
+        n_pages: int = 512,
+        max_seq_len: int = 1024,
+        decode_chunk_len: int = 8,
+        attn_impl: str | None = None,
+        cache_mode: str = "paged",
+        layer_fusion: bool | None = None,
+        seed: int = 0,
+        enable_prefix_cache: bool = True,
+        quantize: str | None = None,
+        kv_quantize: str | None = None,
+        mesh=None,
+        prefill_lane: int = 0,
+        speculative: str | None = None,
+        chunk_trim: bool = False,
+        ring_prefill_len: int | None = None,
+    ):
+        unported = [
+            (cache_mode != "paged", f"cache_mode={cache_mode!r}",
+             "A2/A4 (slot cache with kernels B1, B2)"),
+            (bool(prefill_lane), f"prefill_lane={prefill_lane}", "A4 (prefill lane)"),
+            (speculative is not None, f"speculative={speculative!r}",
+             "A11 (speculative decoding, kernel B9)"),
+            (bool(chunk_trim), "chunk_trim=True", "A4 (decode-chunk trim)"),
+            (quantize is not None, f"quantize={quantize!r}",
+             "A10 (int8 weights, kernel B10)"),
+            (kv_quantize is not None, f"kv_quantize={kv_quantize!r}",
+             "A10 (int8 KV)"),
+            (mesh is not None, "mesh", "A13 (parallel serving)"),
+            (ring_prefill_len is not None, "ring_prefill_len", "A13 (ring prefill)"),
+            (attn_impl not in (None, "xla"), f"attn_impl={attn_impl!r}",
+             "B2/B6 (flash and paged attention kernels)"),
+        ]
+        for bad, option, item in unported:
+            if bad:
+                raise _not_ported(option, item)
+        self.device = resolve_device(device)
+        fam = get_model(model_name)
+        self.cfg = cfg = fam.config
+        self.forward = fam.forward
+        self.tokenizer = tokenizer
+        self.max_slots = max_slots
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self.max_seq_len = max_seq_len
+        self.max_pages_per_seq = -(-max_seq_len // page_size)
+        self.decode_chunk_len = decode_chunk_len
+        if layer_fusion is None:
+            # as in JAX: on for single-device bf16 dense serving (the plain
+            # version on the CPU, the CUDA kernels where their shapes fit)
+            from ..ops.fused_layer import shapes_ok
+
+            layer_fusion = cfg.dtype == "bfloat16" and (
+                self.device.type == "cpu"
+                or shapes_ok(cfg.hidden, cfg.n_heads * cfg.head_dim,
+                             cfg.intermediate, cfg.head_dim))
+        self.layer_fusion = bool(layer_fusion)
+
+        from .weights import pack_matmul_params, random_params
+
+        if params is None:
+            params = random_params(cfg, device=self.device, seed=seed)
+        # single-device serving always packs QKV and gate|up (numerically the
+        # identity; the fused decode functions read this layout)
+        self.params = pack_matmul_params(params)
+        self.k_pages, self.v_pages = init_kv_pages(
+            cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
+            dtype=cfg.torch_dtype, device=self.device)
+        self.allocator = PageAllocator(n_pages, page_size)
+        if enable_prefix_cache:
+            from .prefix_cache import make_prefix_cache
+
+            self.prefix_cache = make_prefix_cache(self.allocator)
+        else:
+            self.prefix_cache = None
+
+        B, V = max_slots, cfg.vocab_size
+        self.slots = [_Slot(i) for i in range(B)]
+        self.page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
+        self.seq_lens = np.zeros((B,), np.int32)
+        self.last_tok = np.zeros((B,), np.int32)
+        self.seen = torch.zeros((B, V), dtype=torch.bool, device=self.device)
+        self.samp_host = {
+            "temperature": np.full((B,), 0.7, np.float32),
+            "top_k": np.full((B,), 20, np.int32),
+            "top_p": np.full((B,), 0.8, np.float32),
+            "min_p": np.full((B,), 0.05, np.float32),
+            "repetition_penalty": np.full((B,), 1.05, np.float32),
+        }
+        self.min_tokens = np.zeros((B,), np.int32)
+        self.prompt_lens = np.zeros((B,), np.int32)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+
+        self._queue: "queue.Queue" = queue.Queue()
+        self._deferred: list[tuple[GenerationRequest, Future]] = []
+        # preempted-sequence continuations keyed by future: generated tokens
+        # + stop/detok state restored at re-admission
+        self._resumes: dict[Future, dict] = {}
+        self._aborts: set[str] = set()
+        self._wake = threading.Event()
+        self._stopping = False
+        self._thread: threading.Thread | None = None
+        self.stats = {
+            "requests": 0, "prefill_tokens": 0, "decode_tokens": 0,
+            "decode_steps": 0, "decode_time_s": 0.0, "prefill_time_s": 0.0,
+            "preemptions": 0, "slot_steps": 0, "prefill_dispatches": 0,
+            "prefill_rows": 0,
+        }
+        self.spans = SpanTimer()
+
+    # ------------------------------------------------------------ public API
+
+    def submit(self, req: GenerationRequest) -> Future:
+        fut: Future = Future()
+        self._queue.put((req, fut))
+        self._wake.set()
+        self.start()
+        return fut
+
+    def submit_many(self, reqs: list[GenerationRequest]) -> list[Future]:
+        """Enqueue a batch atomically so one admission pass sees all of it."""
+        futs: list[Future] = [Future() for _ in reqs]
+        self._queue.put(list(zip(reqs, futs)))
+        self._wake.set()
+        self.start()
+        return futs
+
+    def generate(self, req: GenerationRequest) -> GenerationResult:
+        return self.submit(req).result()
+
+    def abort(self, request_id: str) -> bool:
+        """Cancel a queued or in-flight request: queued ones are dropped
+        (future cancelled), active ones finish at the next chunk boundary
+        with finish_reason='aborted'."""
+        self._aborts.add(request_id)
+        self._wake.set()
+        return True
+
+    def load_lora_adapter(self, lora_path: str, scale: float | None = None) -> None:
+        raise _not_ported("load_lora_adapter", "A12 (LoRA)")
+
+    @torch.no_grad()
+    def warmup(self, prompt_lens=(16,)) -> None:
+        """Build the CUDA kernels and JIT the Triton kernel before serving:
+        one prefill per prompt bucket and one decode step on dummy inputs
+        whose positions are all padding, so no KV is written and no engine
+        state changes. Call before submitting requests."""
+        dev = self.device
+        for plen in prompt_lens:
+            T = self._bucket(max(int(plen), 1))
+            logits, _ = self._forward(
+                torch.zeros((1, T), dtype=torch.int64, device=dev),
+                torch.full((1, T), -1, dtype=torch.int64, device=dev),
+                torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                torch.zeros((1,), dtype=torch.int64, device=dev),
+                logits_indices=torch.zeros((1,), dtype=torch.int64, device=dev),
+                fresh=self.prefix_cache is None)
+            sample(logits[:, 0], self._samp_params(np.arange(1)),
+                   torch.zeros_like(self.seen[:1]), self.generator)
+        B = self.max_slots
+        logits, _ = self._forward(
+            torch.zeros((B, 1), dtype=torch.int64, device=dev),
+            torch.full((B, 1), -1, dtype=torch.int64, device=dev),
+            torch.zeros((B, 1), dtype=torch.int64, device=dev),
+            torch.zeros((B,), dtype=torch.int64, device=dev))
+        sample(logits[:, 0], self._samp_params(np.arange(B)),
+               torch.zeros_like(self.seen), self.generator)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def start(self):
+        if self._thread is None or not self._thread.is_alive():
+            self._stopping = False
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+
+    def shutdown(self):
+        self._stopping = True
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+
+    def telemetry(self) -> dict:
+        out = dict(self.stats)
+        out["spans"] = self.spans.summary()
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = self.prefix_cache.stats()
+        if out["decode_time_s"] > 0:
+            out["decode_tokens_per_s"] = out["decode_tokens"] / out["decode_time_s"]
+        return out
+
+    # ------------------------------------------------------------- scheduler
+
+    def _loop(self):
+        while not self._stopping:
+            try:
+                with torch.no_grad():
+                    self._apply_aborts()
+                    admitted = self._admit()
+                    if not any(s.active for s in self.slots):
+                        if not admitted:
+                            self._wake.wait(timeout=0.05)
+                            self._wake.clear()
+                        continue
+                    self._decode_chunk()
+            except Exception as e:  # engine-step crash: fail in-flight work loudly
+                traceback.print_exc()
+                for s in self.slots:
+                    if s.future is not None and not s.future.done():
+                        s.future.set_exception(e)
+                    s.reset()
+                for _, fut in self._deferred:
+                    if not fut.done():
+                        fut.set_exception(e)
+                self._deferred.clear()
+                self._resumes.clear()
+                while not self._queue.empty():
+                    try:
+                        item = self._queue.get_nowait()
+                    except queue.Empty:
+                        break
+                    for _, fut in (item if isinstance(item, list) else [item]):
+                        if not fut.done():
+                            fut.set_exception(e)
+                return
+
+    def _bucket(self, n: int) -> int:
+        b = 16
+        while b < n:
+            b *= 2
+        return min(b, self.max_seq_len)
+
+    def _page_bucket(self, n_tokens: int) -> int:
+        """Power-of-two page count covering ``n_tokens`` (capped)."""
+        need = -(-n_tokens // self.page_size)
+        b = 1
+        while b < need:
+            b *= 2
+        return min(b, self.max_pages_per_seq)
+
+    def _group_cap(self, bucket: int) -> int:
+        return max(1, min(self.MAX_PREFILL_GROUP,
+                          self.PREFILL_TOKEN_BUDGET // max(bucket, 1)))
+
+    def _free_slot(self) -> _Slot | None:
+        for s in self.slots:
+            if not s.active and s.req is None:
+                return s
+        return None
+
+    def _ensure_pages(self, needed: int) -> bool:
+        if self.allocator.can_alloc(needed):
+            return True
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict_lru(needed)
+        return self.allocator.can_alloc(needed)
+
+    def _apply_aborts(self) -> None:
+        if not self._aborts:
+            return
+        for s in self.slots:
+            if s.active and s.req and s.req.request_id in self._aborts:
+                self._aborts.discard(s.req.request_id)
+                s.stop.finished, s.stop.finish_reason = True, "aborted"
+                self._finish_slot(s, reason="aborted")
+
+    def _admit(self) -> bool:
+        """Admit queued requests with batched prefill, one forward per
+        (prompt bucket, group of <= _group_cap rows)."""
+        prepared = []
+        while True:
+            slot = self._free_slot()
+            if slot is None:
+                break
+            if self._deferred:
+                req, fut = self._deferred.pop(0)
+            else:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if isinstance(item, list):  # submit_many batch
+                    self._deferred.extend(item)
+                    continue
+                req, fut = item
+            if req.request_id in self._aborts:
+                self._aborts.discard(req.request_id)
+                self._resumes.pop(fut, None)
+                fut.cancel()
+                continue
+            try:
+                prepared.append(self._prepare_request(slot, req, fut))
+            except MemoryError as e:
+                slot.reset()
+                prompt_need = -(-(min(len(req.prompt_ids), self.max_seq_len) + 1)
+                                // self.page_size)
+                if prompt_need >= self.n_pages:
+                    if not fut.done():   # the prompt alone can never fit
+                        fut.set_exception(e)
+                else:   # wait until in-flight sequences release pages
+                    self._deferred.append((req, fut))
+                    break
+            except Exception as e:  # surface failures to the caller
+                slot.reset()
+                if not fut.done():
+                    fut.set_exception(e)
+        if not prepared:
+            return False
+        groups: dict[int, list] = {}
+        for p in prepared:
+            groups.setdefault(self._bucket(max(len(p["suffix"]), 1)), []).append(p)
+        for bucket, grp in sorted(groups.items()):
+            cap = self._group_cap(bucket)
+            for i in range(0, len(grp), cap):
+                sub = grp[i: i + cap]
+                try:
+                    self._prefill_group(bucket, sub)
+                except Exception as e:  # fail this group, not the engine
+                    traceback.print_exc()
+                    for p in sub:
+                        self._fail_prepared(p, e)
+        return True
+
+    def _preempt_slot(self, s: _Slot) -> None:
+        """Evict an active sequence under page pressure without losing work:
+        its tokens and stop/stream state are kept and the request re-enters
+        the queue as a continuation; its full pages go to the prefix cache,
+        so the re-prefill normally re-adopts them."""
+        self.stats["preemptions"] += 1
+        req, fut = s.req, s.future
+        self._resumes[fut] = {
+            "generated": list(s.generated), "stop": s.stop, "detok": s.detok,
+            "orig_prompt": list(s.prompt_tokens),
+        }
+        if self.prefix_cache is not None:
+            full_tokens = list(s.prompt_tokens) + list(s.generated)
+            n_full = int(self.seq_lens[s.idx]) // self.page_size
+            pages = (s.shared_pages + s.pages)[:n_full]
+            if pages:
+                self.prefix_cache.insert(full_tokens, pages)
+        self._release(s)
+        self._deferred.append((req, fut))
+
+    def _release(self, s: _Slot) -> None:
+        self.allocator.free(s.shared_pages)
+        self.allocator.free(s.pages)
+        self.page_tables[s.idx, :] = 0
+        self.seq_lens[s.idx] = 0
+        s.reset()
+
+    def _fail_prepared(self, p: dict, exc: Exception) -> None:
+        """Release a prepared-but-unprefilled request after a group failure."""
+        fut = p["slot"].future
+        self._release(p["slot"])
+        if fut is not None and not fut.done():
+            fut.set_exception(exc)
+
+    def _prepare_request(self, slot: _Slot, req: GenerationRequest,
+                         fut: Future) -> dict:
+        """Host-side admission: pages, prefix match, slot state."""
+        resume = self._resumes.pop(fut, None)
+        if resume is not None:
+            # preempted continuation: re-prefill prompt + generated-so-far
+            prompt = resume["orig_prompt"] + resume["generated"]
+            eff_tokens = max(1, req.max_tokens - len(resume["generated"]))
+        else:
+            prompt = list(req.prompt_ids)
+            eff_tokens = req.max_tokens
+        if len(prompt) >= self.max_seq_len:
+            # keep the prompt tail, reserving room for generation
+            eff_max = max(1, min(eff_tokens, self.max_seq_len - 1))
+            keep = max(1, self.max_seq_len - eff_max - 1)
+            prompt = prompt[-keep:]
+        total_budget = min(len(prompt) + eff_tokens + self.decode_chunk_len,
+                           self.max_seq_len)
+
+        shared: list[int] = []
+        cached_len = 0
+        if self.prefix_cache is not None and len(prompt) > self.page_size:
+            # never match the whole prompt: one token must prefill for logits
+            shared, cached_len = self.prefix_cache.match(prompt[:-1])
+        n_new_pages = -(-total_budget // self.page_size) - len(shared)
+        if not self._ensure_pages(n_new_pages):
+            # admit with whatever fits beyond the prompt; decode-time
+            # exhaustion preempts by requeue
+            min_pages = -(-(len(prompt) + 1) // self.page_size) - len(shared)
+            if self._ensure_pages(min_pages):
+                n_new_pages = max(min_pages, self.allocator.num_free // 2)
+                n_new_pages = min(n_new_pages, self.allocator.num_free)
+            else:
+                if shared:
+                    self.allocator.free(shared)
+                raise MemoryError("KV pages exhausted")
+        own = self.allocator.alloc(max(n_new_pages, 0))
+
+        slot.req, slot.future = req, fut
+        slot.shared_pages, slot.pages = shared, own
+        slot.prompt_tokens, slot.prompt_len = prompt, len(prompt)
+        slot.cached_len = cached_len
+        slot.generated = []
+        eos_ids = tuple(i for i in (self.tokenizer.eos_id,) if i is not None)
+        slot.stop = StopState(tuple(req.stop), eos_ids, req.max_tokens,
+                              req.include_stop_str)
+        slot.detok = IncrementalDetokenizer(self.tokenizer)
+        if resume is not None:
+            slot.prompt_tokens = resume["orig_prompt"]
+            slot.prompt_len = len(resume["orig_prompt"])
+            slot.generated = resume["generated"]
+            slot.stop = resume["stop"]
+            slot.detok = resume["detok"]
+
+        b = slot.idx
+        all_pages = shared + own
+        self.page_tables[b, :] = 0
+        self.page_tables[b, : len(all_pages)] = all_pages
+        for k, v in (("temperature", req.temperature), ("top_k", req.top_k),
+                     ("top_p", req.top_p), ("min_p", req.min_p),
+                     ("repetition_penalty", req.repetition_penalty)):
+            self.samp_host[k][b] = v
+        self.min_tokens[b] = (req.min_tokens if resume is None else
+                              max(0, req.min_tokens - len(slot.generated)))
+        self.prompt_lens[b] = len(prompt)
+        return {"slot": slot, "req": req, "suffix": prompt[cached_len:],
+                "cached_len": cached_len, "prompt": prompt,
+                "pre_gen": len(slot.generated)}
+
+    # ------------------------------------------------------------ device work
+
+    def _t(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=self.device, dtype=dtype, non_blocking=True)
+
+    def _samp_params(self, rows: np.ndarray, min_tokens=None,
+                     tokens_generated=None) -> SamplingParams:
+        h = self.samp_host
+        return SamplingParams(
+            self._t(h["temperature"][rows], torch.float32),
+            self._t(h["top_k"][rows], torch.int32),
+            self._t(h["top_p"][rows], torch.float32),
+            self._t(h["min_p"][rows], torch.float32),
+            self._t(h["repetition_penalty"][rows], torch.float32),
+            min_tokens=min_tokens, tokens_generated=tokens_generated,
+            eos_id=-1 if self.tokenizer.eos_id is None else self.tokenizer.eos_id)
+
+    def _forward(self, tokens, positions, tables, seq_lens, *,
+                 logits_indices=None, fresh=False):
+        return self.forward(
+            self.params, self.cfg, tokens, positions,
+            k_pages=self.k_pages, v_pages=self.v_pages, page_table=tables,
+            seq_lens=seq_lens, logits_indices=logits_indices,
+            fresh_prefill=fresh, fused_decode=self.layer_fusion)
+
+    def _prefill_group(self, bucket: int, grp: list[dict]) -> None:
+        """One batched prefill forward + first-token sample for a group of
+        same-bucket requests; folds the first tokens into slot state."""
+        t0 = time.monotonic()
+        G = len(grp)
+        fresh = self.prefix_cache is None and all(p["cached_len"] == 0 for p in grp)
+        P = self._page_bucket(max(p["cached_len"] + len(p["suffix"]) for p in grp))
+        tokens = np.zeros((G, bucket), np.int64)
+        positions = np.full((G, bucket), -1, np.int64)
+        seq_lens = np.zeros((G,), np.int64)
+        logits_idx = np.zeros((G,), np.int64)
+        rows = np.zeros((G,), np.int64)
+        seen_r, seen_c = [], []
+        for g, p in enumerate(grp):
+            T = len(p["suffix"])
+            tokens[g, :T] = p["suffix"]
+            positions[g, :T] = np.arange(p["cached_len"], p["cached_len"] + T)
+            seq_lens[g] = len(p["prompt"])
+            logits_idx[g] = max(T - 1, 0)
+            rows[g] = p["slot"].idx
+            ids = np.asarray(p["prompt"], np.int64)
+            ids = ids[ids < self.cfg.vocab_size]
+            seen_r.append(np.full(ids.shape, g, np.int64))
+            seen_c.append(ids)
+        tables = self.page_tables[rows, :P]
+        with self.spans.span("prefill"):
+            logits, _ = self._forward(
+                self._t(tokens), self._t(positions), self._t(tables),
+                self._t(seq_lens), logits_indices=self._t(logits_idx),
+                fresh=fresh)
+            # token presence of each row's whole prompt, built on the device
+            seen_rows = torch.zeros((G, self.cfg.vocab_size), dtype=torch.bool,
+                                    device=self.device)
+            seen_rows[self._t(np.concatenate(seen_r)),
+                      self._t(np.concatenate(seen_c))] = True
+            min_toks = self._t(self.min_tokens[rows])
+            sp = self._samp_params(rows, min_tokens=min_toks,
+                                   tokens_generated=torch.zeros_like(min_toks))
+            first = sample(logits[:, 0], sp, seen_rows, self.generator)
+            rows_t = self._t(rows)
+            self.seen[rows_t] = seen_rows
+            self.seen[rows_t, first] = True
+            first_np = first.cpu().numpy()
+        self.stats["prefill_dispatches"] += 1
+        self.stats["prefill_rows"] += G
+
+        n_prefill = 0
+        for g, p in enumerate(grp):
+            slot, prompt = p["slot"], p["prompt"]
+            b = slot.idx
+            self.seq_lens[b] = len(prompt)
+            self.last_tok[b] = int(first_np[g])
+            slot.active = True
+            self._process_chunk(slot, first_np[g: g + 1])
+            n_prefill += len(p["suffix"])
+            self.stats["requests"] += 1
+            new_gen = len(slot.generated) - p["pre_gen"]
+            if slot.stop.finished or len(prompt) + new_gen >= self.max_seq_len:
+                self._finish_slot(slot)
+        self.stats["prefill_tokens"] += n_prefill
+        self.stats["prefill_time_s"] += time.monotonic() - t0
+
+    def _decode_chunk(self) -> None:
+        """Run one decode chunk over every slot row and fold its tokens in."""
+        t0 = time.monotonic()
+        chunk = self.decode_chunk_len
+        active = np.array([s.active for s in self.slots], bool)
+        # a row whose positions could leave the page budget is not stepped
+        active &= self.seq_lens + chunk + 1 <= self.max_seq_len
+        for s in self.slots:   # page headroom for this chunk
+            if not active[s.idx]:
+                continue
+            need_pages = -(-int(self.seq_lens[s.idx] + chunk + 1) // self.page_size)
+            have = len(s.shared_pages) + len(s.pages)
+            if need_pages > have:
+                extra = need_pages - have
+                if not self._ensure_pages(extra):
+                    if sum(1 for x in self.slots if x.active) > 1:
+                        self._preempt_slot(s)  # requeue behind the survivors
+                    else:   # nothing else will ever free pages
+                        self._finish_slot(s, reason="length")
+                        self.stats["preemptions"] += 1
+                    active[s.idx] = False
+                    continue
+                new = self.allocator.alloc(extra)
+                self.page_tables[s.idx, have: have + extra] = new
+                s.pages.extend(new)
+        if not active.any():
+            return
+        need = int(np.max(np.where(active, self.seq_lens, 0))) + chunk + 1
+        P = self._page_bucket(need)
+
+        rows = np.arange(self.max_slots)
+        with self.spans.span("decode"):
+            tables = self._t(self.page_tables[:, :P])
+            last = self._t(self.last_tok)
+            lens = self._t(self.seq_lens)
+            act = self._t(active, torch.bool)
+            act_i = act.long()
+            plens = self._t(self.prompt_lens)
+            min_toks = self._t(self.min_tokens)
+            samp = self._samp_params(rows)
+            toks = []
+            for _ in range(chunk):
+                sp = samp._replace(min_tokens=min_toks,
+                                   tokens_generated=lens - plens + 1)
+                pos = torch.where(act, lens, torch.full_like(lens, -1))[:, None]
+                logits, _ = self._forward(last[:, None], pos, tables, lens + act_i)
+                nxt = sample(logits[:, 0], sp, self.seen, self.generator)
+                nxt = torch.where(act, nxt, last)
+                update_seen(self.seen, nxt)
+                lens = lens + act_i
+                last = nxt
+                toks.append(nxt)
+            toks_np = torch.stack(toks, dim=1).cpu().numpy()   # the sync point
+            last_np = last.cpu().numpy()
+            lens_np = lens.cpu().numpy()
+        self.stats["slot_steps"] += int(active.sum()) * chunk
+
+        n_new = 0
+        for s in self.slots:
+            if not s.active or not active[s.idx]:
+                continue
+            self.last_tok[s.idx] = last_np[s.idx]
+            self.seq_lens[s.idx] = lens_np[s.idx]
+            consumed = self._process_chunk(s, toks_np[s.idx])
+            n_new += consumed
+            if s.stop.finished:
+                # over-generated tokens: their KV lies past seq_lens, masked
+                self.seq_lens[s.idx] -= chunk - consumed
+                self._finish_slot(s)
+            elif self.seq_lens[s.idx] + chunk >= self.max_seq_len:
+                self._finish_slot(s, reason="length")
+        self.stats["decode_tokens"] += n_new
+        self.stats["decode_steps"] += 1
+        self.stats["decode_time_s"] += time.monotonic() - t0
+
+    # ----------------------------------------------------------- host merge
+
+    def _record_token(self, slot: _Slot, tok: int):
+        piece = slot.detok.push(tok)
+        slot.generated.append(tok)
+        before = len(slot.stop.text)
+        slot.stop.feed(tok, piece)
+        cb = slot.req.on_delta if slot.req else None
+        if cb is not None:
+            emitted = slot.stop.text[before:]
+            if emitted:
+                try:
+                    cb(emitted)
+                except Exception:   # a client callback must not stop the engine
+                    traceback.print_exc()
+
+    def _process_chunk(self, s: _Slot, arr: np.ndarray) -> int:
+        """Fold one chunk of sampled tokens into slot state; returns tokens
+        consumed (including a terminating EOS). Without stop strings or
+        streaming this is pure numpy; text is decoded once at finish."""
+        st = s.stop
+        if st.stop_sequences or (s.req and s.req.on_delta):
+            for j in range(len(arr)):
+                self._record_token(s, int(arr[j]))
+                if st.finished:
+                    return j + 1
+            return len(arr)
+        room = st.max_tokens - st.n_tokens
+        take = arr[: max(room, 0)]
+        if st.eos_ids:
+            hits = np.isin(take, np.asarray(st.eos_ids))
+            if hits.any():
+                cut = int(np.argmax(hits))
+                s.generated.extend(int(t) for t in take[:cut])
+                st.n_tokens += cut + 1
+                st.finished, st.finish_reason = True, "stop"
+                return cut + 1
+        s.generated.extend(int(t) for t in take)
+        st.n_tokens += len(take)
+        if st.n_tokens >= st.max_tokens:
+            st.finished, st.finish_reason = True, "length"
+        return len(take)
+
+    def _finish_slot(self, slot: _Slot, reason: str | None = None):
+        fut = slot.future
+        st = slot.stop
+        finish = reason or st.finish_reason or "stop"
+        gen_ids = list(slot.generated)
+        if not st.text and gen_ids and not st.stop_sequences:
+            st.text = self.tokenizer.decode(gen_ids)   # deferred detokenization
+        result = GenerationResult(
+            request_id=slot.req.request_id, token_ids=gen_ids, text=st.text,
+            finish_reason=finish, prompt_tokens=slot.prompt_len,
+            completion_tokens=st.n_tokens, cached_prompt_tokens=slot.cached_len)
+        # the finished sequence's full pages go into the prefix cache
+        if self.prefix_cache is not None:
+            full_tokens = list(slot.prompt_tokens) + gen_ids
+            n_full = int(self.seq_lens[slot.idx]) // self.page_size
+            all_pages = (slot.shared_pages + slot.pages)[:n_full]
+            if all_pages:
+                self.prefix_cache.insert(full_tokens, all_pages)
+        self._release(slot)
+        if fut is not None and not fut.done():
+            fut.set_result(result)

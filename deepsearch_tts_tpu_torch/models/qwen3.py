@@ -1,0 +1,245 @@
+"""Qwen3 dense decoder family (port of ``models/qwen3.py``).
+
+Parameters stay *stacked* across layers (leading ``L`` dim) exactly as in the
+JAX package: the same dict tree (``embed``, ``final_norm``, optional
+``lm_head``, and ``layers`` holding ``ln1``, ``wq``/``wk``/``wv`` or packed
+``wqkv``, ...), so :func:`engine.weights.params_from_jax` is a leaf-by-leaf
+copy and the fused decode kernels take layer ``l``'s weights as a pointer
+offset into the stack.
+
+:func:`forward` carries the JAX function's no-cache mode and the three
+serving branches the paged engine runs: fresh prefill, non-fresh re-prefill
+over a cached prefix, and T=1 paged decode — the last through the fused
+layer functions (``ops/fused_layer.py``) when ``fused_decode`` is set and the
+weights are packed. The layer loop is a Python loop (the JAX ``lax.scan``);
+the KV pools are updated in place.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..engine.kvcache import kv_slots, write_kv_slots
+from ..ops import attention as attn_ops
+from ..ops.fused_layer import fused_out_mlp_stacked, fused_qkv_stacked
+from .common import apply_rope, dot_bf16, matmul_f32, rms_norm, rope_angles
+
+
+@dataclass(frozen=True)
+class Qwen3Config:
+    vocab_size: int = 151936
+    hidden: int = 4096
+    n_layers: int = 36
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    head_dim: int = 128
+    intermediate: int = 12288
+    rope_theta: float = 1_000_000.0
+    rms_eps: float = 1e-6
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+
+# Published size points of the family (head_dim is 128 across the board).
+QWEN3_CONFIGS = {
+    "qwen3-0.6b": Qwen3Config(hidden=1024, n_layers=28, n_heads=16, n_kv_heads=8,
+                              intermediate=3072, tie_embeddings=True),
+    "qwen3-1.7b": Qwen3Config(hidden=2048, n_layers=28, n_heads=16, n_kv_heads=8,
+                              intermediate=6144, tie_embeddings=True),
+    "qwen3-4b": Qwen3Config(hidden=2560, n_layers=36, n_heads=32, n_kv_heads=8,
+                            intermediate=9728, tie_embeddings=True),
+    "qwen3-8b": Qwen3Config(hidden=4096, n_layers=36, n_heads=32, n_kv_heads=8,
+                            intermediate=12288),
+    "qwen3-14b": Qwen3Config(hidden=5120, n_layers=40, n_heads=40, n_kv_heads=8,
+                             intermediate=17408),
+    "qwen3-32b": Qwen3Config(hidden=5120, n_layers=64, n_heads=64, n_kv_heads=8,
+                             intermediate=25600),
+    # tiny config for tests
+    "qwen3-test": Qwen3Config(vocab_size=512, hidden=128, n_layers=2, n_heads=4,
+                              n_kv_heads=2, head_dim=32, intermediate=256,
+                              tie_embeddings=True),
+}
+
+
+def _qkv(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor):
+    B, T, _ = h.shape
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if "wqkv" in lp:  # packed single-chip layout (engine pack_weights)
+        qkv = dot_bf16(h, lp["wqkv"][l])
+        q = qkv[..., : H * D].reshape(B, T, H, D)
+        k = qkv[..., H * D: (H + K) * D].reshape(B, T, K, D)
+        v = qkv[..., (H + K) * D:].reshape(B, T, K, D)
+    else:
+        q = dot_bf16(h, lp["wq"][l]).reshape(B, T, H, D)
+        k = dot_bf16(h, lp["wk"][l]).reshape(B, T, K, D)
+        v = dot_bf16(h, lp["wv"][l]).reshape(B, T, K, D)
+    return q, k, v
+
+
+def _mlp(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor) -> torch.Tensor:
+    if "w_gateup" in lp:
+        Fi = cfg.intermediate
+        gu = dot_bf16(h, lp["w_gateup"][l])
+        g, u = gu[..., :Fi], gu[..., Fi:]
+    else:
+        g = dot_bf16(h, lp["w_gate"][l])
+        u = dot_bf16(h, lp["w_up"][l])
+    return dot_bf16(F.silu(g.float()).to(u.dtype) * u, lp["w_down"][l])
+
+
+def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final projection with float32 logits (``preferred_element_type=f32``)."""
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].t()
+    logits = matmul_f32(x.reshape(-1, x.shape[-1]), head)
+    return logits.reshape(*x.shape[:-1], -1)
+
+
+def forward(
+    params: dict,
+    cfg: Qwen3Config,
+    tokens: torch.Tensor,            # [B, T] int
+    positions: torch.Tensor,         # [B, T] int absolute; <0 = padding
+    *,
+    k_pages: torch.Tensor | None = None,    # [L, N, ps, K, D] serving mode
+    v_pages: torch.Tensor | None = None,
+    page_table: torch.Tensor | None = None,  # [B, P] int
+    seq_lens: torch.Tensor | None = None,    # [B]
+    logits_indices: torch.Tensor | None = None,  # [B] position in T to project
+    fresh_prefill: bool = False,     # no cached prefix: attend over the chunk
+    fused_decode: bool = False,      # T=1 packed-weight fused layer functions
+):
+    """Run the decoder.
+
+    Serving mode (pages given): writes the chunk's KV into the paged cache
+    IN PLACE and attends over the cached sequence; returns
+    ``(logits [B,(T|1),V] f32, (k_pages, v_pages))`` with the same pool
+    tensors. Training mode (pages None): full causal attention, returns
+    ``(logits [B,T,V], None)``.
+    """
+    lp = params["layers"]
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    eps = cfg.rms_eps
+    x = params["embed"][tokens.long()]
+    cos, sin = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
+    B, T, E = x.shape
+    serving = k_pages is not None
+
+    if serving:
+        L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+        kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
+        vpf = v_pages.view((L * N,) + tuple(v_pages.shape[2:]))
+        page_table = page_table.long()
+        pos_c = positions.clamp(min=0)
+        # layer-invariant index math, computed once instead of per layer:
+        # each token's pool row in layer 0 (padding → the null row 0), the
+        # offset one layer adds to it, and the decode attention mask
+        slots0 = kv_slots(positions, page_table, ps)
+        layer_step = (positions >= 0).long() * (N * ps)
+        decode_mask = None
+        if not fresh_prefill and T == 1:
+            decode_mask = attn_ops.context_mask(seq_lens, pos_c, page_table.shape[1] * ps)
+        use_fused = (fused_decode and T == 1 and not fresh_prefill
+                     and "wqkv" in lp and "w_gateup" in lp)
+        if use_fused:
+            xf = x.reshape(B, E)
+            cosf = cos.reshape(B, -1)
+            sinf = sin.reshape(B, -1)
+        for l in range(cfg.n_layers):
+            table_l = page_table + l * N
+            slots_l = slots0 + l * layer_step
+            if use_fused:
+                qf, kf, vf = fused_qkv_stacked(
+                    xf, lp["ln1"], lp["wqkv"], lp["q_norm"], lp["k_norm"],
+                    cosf, sinf, l, n_heads=H, n_kv=K, head_dim=D, eps=eps)
+                q = qf.reshape(B, 1, H, D)
+                k = kf.reshape(B, 1, K, D)
+                v = vf.reshape(B, 1, K, D)
+            else:
+                h = rms_norm(x, lp["ln1"][l], eps)
+                q, k, v = _qkv(cfg, lp, l, h)
+                q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin).to(x.dtype)
+                k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin).to(x.dtype)
+                v = v.to(x.dtype)
+
+            if fresh_prefill:
+                # positions start at 0: causal attention over the chunk
+                # itself; padded tail rows are garbage that is never read
+                write_kv_slots(kpf, vpf, k, v, slots_l)
+                o = attn_ops.causal_attention(q, k, v)
+            elif T > 1:
+                # re-prefill over a cached prefix: read the prefix BEFORE
+                # this chunk's in-place write, take the chunk's K/V directly
+                P = table_l.shape[1]
+                k_old = attn_ops.gather_kv_rows(kpf, table_l).reshape(B, P * ps, K, D)
+                v_old = attn_ops.gather_kv_rows(vpf, table_l).reshape(B, P * ps, K, D)
+                write_kv_slots(kpf, vpf, k, v, slots_l)
+                o = attn_ops.prefix_chunk_attention(
+                    q, k_old, v_old, k, v, positions[:, 0], positions)
+            else:
+                write_kv_slots(kpf, vpf, k, v, slots_l)
+                o = attn_ops.paged_attention(q, kpf, vpf, table_l, seq_lens, pos_c,
+                                             mask=decode_mask)
+
+            if use_fused:
+                xf = fused_out_mlp_stacked(
+                    o.reshape(B, H * D).to(x.dtype), xf, lp["wo"], lp["ln2"],
+                    lp["w_gateup"], lp["w_down"], l, eps=eps)
+            else:
+                x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
+                h = rms_norm(x, lp["ln2"][l], eps)
+                x = x + _mlp(cfg, lp, l, h).to(x.dtype)
+        if use_fused:
+            x = xf.reshape(B, 1, E)
+    else:
+        for l in range(cfg.n_layers):
+            h = rms_norm(x, lp["ln1"][l], eps)
+            q, k, v = _qkv(cfg, lp, l, h)
+            q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin)
+            k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin)
+            o = attn_ops.causal_attention(q.to(x.dtype), k.to(x.dtype), v)
+            x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
+            h = rms_norm(x, lp["ln2"][l], eps)
+            x = x + _mlp(cfg, lp, l, h).to(x.dtype)
+
+    x = rms_norm(x, params["final_norm"], eps)
+    if logits_indices is not None:
+        x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
+    logits = _lm_head(params, x)
+    if not serving:
+        return logits, None
+    return logits, (k_pages, v_pages)
+
+
+class Qwen3(nn.Module):
+    """Qwen3 over a stacked param tree held as (non-trainable) buffers.
+
+    ``params`` is the JAX-layout dict; :meth:`params` hands the same tree
+    back to :func:`forward`, so the module and the functional form share
+    one code path."""
+
+    def __init__(self, cfg: Qwen3Config, params: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.layers = nn.Module()
+        for name, t in params["layers"].items():
+            self.layers.register_buffer(name, t, persistent=True)
+        for name in ("embed", "final_norm", "lm_head"):
+            if name in params:
+                self.register_buffer(name, params[name], persistent=True)
+
+    def params(self) -> dict:
+        out = {name: buf for name, buf in self.named_buffers(recurse=False)}
+        out["layers"] = dict(self.layers.named_buffers(recurse=False))
+        return out
+
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor, **serving):
+        return forward(self.params(), self.cfg, tokens, positions, **serving)

@@ -1,0 +1,412 @@
+// Fused decode-layer kernels for Hopper (sm_90a): the port of
+// deepsearch_tts_tpu/ops/fused_layer.py
+//   B3  fused_qkv_stacked      (_qkv_stacked_kernel,      fused_layer.py:244)
+//   B4  fused_out_mlp_stacked  (_out_mlp_stacked_kernel,  fused_layer.py:356)
+//
+// What bounds them on this card: at decode batch (B <= 64 rows) every
+// product here is a thin matrix product whose weights dominate the bytes:
+// (H+2K)*D*E*2 B for B3 (50 MB per layer at qwen3-8b) and
+// (H*D*E + 3*E*F)*2 B for B4 (336 MB). At B rows the work is B FLOP per
+// weight byte, far below the ~295 FLOP/byte ridge, so the goal is streaming
+// the weights at HBM rate. A first version that multiplied on the CUDA cores
+// (float32 FMA) was FMA-bound from B=16 on (B4 at B=16 moved 336 MB in
+// 0.33 ms); the products now run on the tensor cores.
+//
+// Design (simple first; wgmma/TMA come later):
+// * One split-K product kernel, gemm_partial<MT>, computes
+//   P[z, r, n] = sum_{k in slice z} X[r, k] * W[k, n] for all B rows
+//   (MT m-tiles of 16) and a 128-column tile. 4 warps, each owning 32
+//   columns; a 4-stage cp.async ring brings 32-row weight tiles (and the
+//   matching activation tiles) into padded shared memory, ldmatrix (.trans
+//   for the row-major weights) feeds mma.sync.m16n8k16 bf16 -> float32.
+//   Every weight byte is read once per call whatever B <= 64 is.
+// * Few column tiles would leave most of the 132 SMs idle, so the wrapper
+//   splits K over blockIdx.y until the grid has >= 2 blocks per SM (capped so
+//   the float32 partial sums stay well below the weight bytes); an epilogue
+//   kernel reduces the partial sums.
+// * The TPU kernels keep RMSNorm, per-head q/k norm, RoPE, residuals and
+//   SwiGLU inside VMEM-resident grid steps. Here a row kernel writes the
+//   normalised bf16 rows, and small epilogue kernels finish each product:
+//     B3: rms_norm_rows(x, ln1) -> gemm(wqkv) -> qkv_epilogue (q/k norm, rope)
+//     B4: gemm(a, wo) -> residual (x2 = x + a@wo)
+//         rms_norm_rows(x2, ln2) -> gemm(gate|up) -> swiglu (h = silu(g)*u)
+//         gemm(h, wd) -> residual (out = x2 + h@wd)
+//   B4's sequential grid on the TPU carried x2 through VMEM; Hopper blocks
+//   cannot, so x2, xn and h ([B,E], [B,E], [B,F] bf16, under 2 MB at B=64)
+//   go through device memory and stay in L2.
+// * bf16 round points match the TPU kernels: xn, x2, h and the outputs are
+//   rounded to bf16; every accumulator and the norm/rope math are float32.
+//
+// Interface: plain C, raw pointers, launched on the caller's stream; no
+// allocation (the wrapper passes outputs and scratch); each entry returns the
+// cudaGetLastError() code of its launches.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int TILE = 128;    // output columns per block: 4 warps x 32
+constexpr int GT = 128;      // threads per product block
+constexpr int KT = 32;       // k rows per pipeline stage
+constexpr int STAGES = 4;    // cp.async ring depth
+constexpr int WROW = TILE + 8;  // padded weight-tile row (272 B: ldmatrix without bank conflicts)
+constexpr int AROW = KT + 8;    // padded activation-tile row (80 B)
+constexpr int MAX_ROWS = 64;    // rows one block covers (MT = 4 m-tiles)
+constexpr int HEAD = 128;    // head_dim the q/k epilogue is written for
+constexpr int NT = 256;      // threads of the row kernels
+
+inline unsigned cdiv(long long a, long long b) { return (unsigned)((a + b - 1) / b); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+
+// d += a (16x16 bf16, row-major) * b (16x8 bf16, col-major), float32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// xn[r, :] = bf16(X[r, :] * rsqrt(mean(X[r, :]^2) + eps) * ln), one block per row
+__global__ void __launch_bounds__(NT)
+rms_norm_rows(const bf16* __restrict__ X, const bf16* __restrict__ ln, int K,
+              float eps, bf16* __restrict__ XN) {
+  __shared__ float part[NT / 32];
+  const bf16* xr = X + (long long)blockIdx.x * K;
+  float ss = 0.f;
+  for (int k = threadIdx.x * 8; k < K; k += NT * 8) {
+    float f[8];
+    bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ss += f[i] * f[i];
+  }
+  ss = warp_sum(ss);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) t += part[w];
+  const float inv = rsqrtf(t / (float)K + eps);
+  bf16* out = XN + (long long)blockIdx.x * K;
+  for (int k = threadIdx.x * 8; k < K; k += NT * 8) {
+    float f[8], g[8];
+    bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
+    bf16x8_to_float(*reinterpret_cast<const uint4*>(ln + k), g);
+    __align__(16) bf16 o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16((f[i] * inv) * g[i]);
+    *reinterpret_cast<uint4*>(out + k) = *reinterpret_cast<const uint4*>(o);
+  }
+}
+
+template <int MT>
+constexpr int gemm_smem_bytes() {
+  return STAGES * (KT * WROW + MT * 16 * AROW) * (int)sizeof(bf16);
+}
+
+// P[z, r, n] = sum_{k in [z*kps, (z+1)*kps)} X[r, k] * W[k, n] for the rows
+// r0 = blockIdx.z * MAX_ROWS ... (MT*16 of them, rows >= B read as zeros)
+// grid: (N/TILE, splits, ceil(B/MAX_ROWS)); block: GT threads.
+template <int MT>
+__global__ void __launch_bounds__(GT)
+gemm_partial(const bf16* __restrict__ X, const bf16* __restrict__ W,
+             float* __restrict__ P, int B, int K, int N, int kps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);               // [STAGES][KT][WROW]
+  bf16* as = ws + STAGES * KT * WROW;                     // [STAGES][MT*16][AROW]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = blockIdx.x * TILE;
+  const int kb = blockIdx.y * kps;
+  const int rb = blockIdx.z * MAX_ROWS;
+  const int nk = kps / KT;
+
+  auto load_stage = [&](int stage, int kt) {
+    const int k0 = kb + kt * KT;
+    bf16* wdst = ws + stage * KT * WROW;
+    for (int i = threadIdx.x; i < KT * (TILE / 8); i += GT) {
+      const int r = i / (TILE / 8), c = (i % (TILE / 8)) * 8;
+      cp_async16(wdst + r * WROW + c, W + (long long)(k0 + r) * N + col0 + c, 16);
+    }
+    bf16* adst = as + stage * MT * 16 * AROW;
+    for (int i = threadIdx.x; i < MT * 16 * (KT / 8); i += GT) {
+      const int r = i / (KT / 8), c = (i % (KT / 8)) * 8;
+      const int gr = rb + r;
+      const bool ok = gr < B;
+      cp_async16(adst + r * AROW + c, X + (long long)(ok ? gr : 0) * K + k0 + c,
+                 ok ? 16 : 0);
+    }
+  };
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nb][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  // ldmatrix lane roles: lane supplies row (lane % 8) of 8x8 matrix (lane / 8)
+  const int mi = lane >> 3, rr = lane & 7;
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt landed for every thread; stage kt-1 is consumed
+    {
+      const int nt = kt + STAGES - 1;
+      if (nt < nk) load_stage(nt % STAGES, nt);
+      cp_async_commit();
+    }
+    const bf16* wst = ws + (kt % STAGES) * KT * WROW;
+    const bf16* ast = as + (kt % STAGES) * MT * 16 * AROW;
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 16) {
+      // B fragments of this warp's 4 n-blocks: matrices (k lo, nb), (k hi, nb),
+      // (k lo, nb+1), (k hi, nb+1) per ldmatrix.x4.trans
+      uint32_t b[4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int krow = kk + rr + 8 * (mi & 1);
+        const int ncol = warp * 32 + (2 * h + (mi >> 1)) * 8;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, wst + krow * WROW + ncol);
+        b[2 * h][0] = r[0];
+        b[2 * h][1] = r[1];
+        b[2 * h + 1][0] = r[2];
+        b[2 * h + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint32_t a[4];
+        ldmatrix_x4(a, ast + (m * 16 + rr + 8 * (mi & 1)) * AROW + kk + 8 * (mi >> 1));
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) mma_bf16(acc[m][nb], a, b[nb]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int col = col0 + warp * 32 + nb * 8 + c2;
+      const int r0 = rb + m * 16 + g, r1 = r0 + 8;
+      if (r0 < B)
+        *reinterpret_cast<float2*>(P + ((long long)blockIdx.y * B + r0) * N + col) =
+            make_float2(acc[m][nb][0], acc[m][nb][1]);
+      if (r1 < B)
+        *reinterpret_cast<float2*>(P + ((long long)blockIdx.y * B + r1) * N + col) =
+            make_float2(acc[m][nb][2], acc[m][nb][3]);
+    }
+  }
+}
+
+template <int MT>
+void launch_gemm_mt(const bf16* X, const bf16* W, float* P, int B, int K, int N,
+                    int splits, cudaStream_t st) {
+  constexpr int bytes = gemm_smem_bytes<MT>();
+  if (bytes > 48 * 1024) {
+    static bool attr_set = false;  // the opt-in above 48 KB, once per process
+    if (!attr_set) {
+      cudaFuncSetAttribute(gemm_partial<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+      attr_set = true;
+    }
+  }
+  gemm_partial<MT><<<dim3(N / TILE, splits, cdiv(B, MAX_ROWS)), GT, bytes, st>>>(
+      X, W, P, B, K, N, K / splits);
+}
+
+// m-tiles per block: the fewest 16-row tiles that cover B (up to 4)
+void launch_gemm(const bf16* X, const bf16* W, float* P, int B, int K, int N,
+                 int splits, cudaStream_t st) {
+  if (B <= 16) launch_gemm_mt<1>(X, W, P, B, K, N, splits, st);
+  else if (B <= 32) launch_gemm_mt<2>(X, W, P, B, K, N, splits, st);
+  else launch_gemm_mt<4>(X, W, P, B, K, N, splits, st);
+}
+
+// B3 epilogue: one block per (row, head) of HEAD threads. q heads (< H) and
+// k heads (< H+KV) get RMSNorm with q_norm / k_norm then rotate-half RoPE;
+// v heads pass through. Sections are told apart by head index, as the TPU
+// kernel does by column (fused_layer.py:265-279).
+__global__ void __launch_bounds__(HEAD)
+qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
+             const bf16* __restrict__ qn, const bf16* __restrict__ kn,
+             const float* __restrict__ cosv, const float* __restrict__ sinv,
+             bf16* __restrict__ out, int H, int KV, float eps) {
+  __shared__ float part[HEAD / 32];
+  __shared__ float nrm[HEAD];
+  const int b = blockIdx.x, head = blockIdx.y, j = threadIdx.x;
+  const int col = head * HEAD + j;
+  float y = 0.f;
+  for (int s = 0; s < S; ++s) y += P[((long long)s * B + b) * C + col];
+  if (head >= H + KV) {  // v: uniform across the block, so no barrier is skipped
+    out[(long long)b * C + col] = __float2bfloat16(y);
+    return;
+  }
+  const float ss = warp_sum(y * y);
+  if ((j & 31) == 0) part[j >> 5] = ss;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < HEAD / 32; ++w) t += part[w];
+  const bf16* wn = head < H ? qn : kn;
+  const float n = (y * rsqrtf(t / (float)HEAD + eps)) * __bfloat162float(wn[j]);
+  nrm[j] = n;
+  __syncthreads();
+  constexpr int HALF = HEAD / 2;
+  float o;
+  if (j < HALF) {
+    o = n * cosv[b * HALF + j] - nrm[j + HALF] * sinv[b * HALF + j];
+  } else {
+    o = n * cosv[b * HALF + j - HALF] + nrm[j - HALF] * sinv[b * HALF + j - HALF];
+  }
+  out[(long long)b * C + col] = __float2bfloat16(o);
+}
+
+// out[b, n] = bf16(res[b, n] + sum_s P[s, b, n])
+__global__ void __launch_bounds__(256)
+residual_epilogue(const float* __restrict__ P, int S, int B, int N,
+                  const bf16* __restrict__ res, bf16* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  const long long total = (long long)B * N;
+  if (i >= total) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += P[(long long)s * total + i];
+  out[i] = __float2bfloat16(__bfloat162float(res[i]) + acc);
+}
+
+// h[b, f] = bf16(silu(g) * u), g = P[.., f], u = P[.., F + f] (P rows are 2F wide)
+__global__ void __launch_bounds__(256)
+swiglu_epilogue(const float* __restrict__ P, int S, int B, int F,
+                bf16* __restrict__ h) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)B * F) return;
+  const long long b = i / F, f = i % F;
+  float g = 0.f, u = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* row = P + ((long long)s * B + b) * (2LL * F);
+    g += row[f];
+    u += row[F + f];
+  }
+  const float silu = g / (1.f + __expf(-g));
+  h[i] = __float2bfloat16(silu * u);
+}
+
+}  // namespace
+
+extern "C" {
+
+// B3. x [B,E]; ln_all [L,E]; wqkv_all [L,E,C]; qn_all/kn_all [L,128];
+// cos/sin [B,64] f32; partial [splits,B,C] f32; xn [B,E] bf16 scratch;
+// out [B,C].
+int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
+                    const void* qn_all, const void* kn_all, const void* cosv,
+                    const void* sinv, void* partial, void* xn, void* out,
+                    int layer, int B, int E, int H, int KV, int splits,
+                    float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int C = (H + 2 * KV) * HEAD;
+  const bf16* X = static_cast<const bf16*>(x);
+  const bf16* ln = static_cast<const bf16*>(ln_all) + (long long)layer * E;
+  const bf16* W = static_cast<const bf16*>(wqkv_all) + (long long)layer * E * C;
+  const bf16* qn = static_cast<const bf16*>(qn_all) + (long long)layer * HEAD;
+  const bf16* kn = static_cast<const bf16*>(kn_all) + (long long)layer * HEAD;
+  float* P = static_cast<float*>(partial);
+  bf16* XN = static_cast<bf16*>(xn);
+
+  rms_norm_rows<<<B, NT, 0, st>>>(X, ln, E, eps, XN);
+  launch_gemm(XN, W, P, B, E, C, splits, st);
+  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(
+      P, splits, B, C, qn, kn, static_cast<const float*>(cosv),
+      static_cast<const float*>(sinv), static_cast<bf16*>(out), H, KV, eps);
+  return (int)cudaGetLastError();
+}
+
+// B4. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E]; gateup_all [L,E,2F];
+// wd_all [L,F,E]; partial f32 (>= max(s*B*N) over the three products);
+// x2, xn [B,E] and h [B,F] bf16 scratch; out [B,E].
+int dstts_fused_out_mlp(const void* a, const void* x, const void* wo_all,
+                        const void* ln_all, const void* gateup_all,
+                        const void* wd_all, void* partial, void* x2, void* xn,
+                        void* h, void* out, int layer, int B, int HD, int E,
+                        int F, int s_o, int s_gu, int s_d, float eps,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* X = static_cast<const bf16*>(x);
+  const bf16* Wo = static_cast<const bf16*>(wo_all) + (long long)layer * HD * E;
+  const bf16* ln = static_cast<const bf16*>(ln_all) + (long long)layer * E;
+  const bf16* Wgu = static_cast<const bf16*>(gateup_all) + (long long)layer * E * 2 * F;
+  const bf16* Wd = static_cast<const bf16*>(wd_all) + (long long)layer * F * E;
+  float* P = static_cast<float*>(partial);
+  bf16* X2 = static_cast<bf16*>(x2);
+  bf16* XN = static_cast<bf16*>(xn);
+  bf16* Hh = static_cast<bf16*>(h);
+  bf16* O = static_cast<bf16*>(out);
+
+  // (1) x2 = x + a @ wo
+  launch_gemm(A, Wo, P, B, HD, E, s_o, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_o, B, E, X, X2);
+  // (2) h = silu(xn @ Wg) * (xn @ Wu), xn = rmsnorm(x2) * ln2
+  rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, XN);
+  launch_gemm(XN, Wgu, P, B, E, 2 * F, s_gu, st);
+  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(P, s_gu, B, F, Hh);
+  // (3) out = x2 + h @ wd
+  launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, X2, O);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,209 @@
+"""Fused decode-layer functions (port of ``ops/fused_layer.py``, kernels B3/B4).
+
+Each T=1 decode layer of a packed bf16 dense model runs two functions:
+
+* :func:`fused_qkv_stacked` — rmsnorm(x)·ln1[l] → x@wqkv[l] → per-head q/k
+  RMSNorm → rotate-half RoPE (v passes through).
+* :func:`fused_out_mlp_stacked` — x2 = x + a@wo[l] → rmsnorm(x2)·ln2[l] →
+  SwiGLU over the packed gate|up stack → out = x2 + h@wd[l].
+
+Both take the FULL layer stacks plus the layer index, as the JAX kernels do.
+For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
+``csrc/fused_layer.cu`` (bf16 only) or raises; for a CPU tensor it runs the
+plain PyTorch version beside it (``*_plain``), which follows the dtype of
+``x`` and holds the kernel's bf16 round points. Each wrapper counts its
+kernel launches in its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from ..models.common import apply_rope, matmul_f32, rms_norm
+
+HEAD_DIM = 128     # head width the q/k epilogue kernel is written for
+_TILE = 128        # output columns per product block (csrc: TILE)
+_KT = 32           # k rows per pipeline stage (csrc: KT)
+_MAX_ROWS = 64     # activation rows per product block (csrc: MAX_ROWS)
+_TARGET_BLOCKS = 264  # >= 2 blocks per SM on a 132-SM H100
+
+
+# ----------------------------------------------------------------- plain torch
+
+def fused_qkv_stacked_plain(x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer,
+                            *, n_heads: int, n_kv: int, head_dim: int,
+                            eps: float = 1e-6):
+    """Reference for B3: same math and round points as
+    ``_qkv_stacked_kernel`` (xn rounded to x's dtype, float32 accumulator,
+    norm and rope in float32, one final rounding)."""
+    B, _ = x.shape
+    D = head_dim
+    H, K = n_heads, n_kv
+    xn = rms_norm(x, ln_all[layer], eps)
+    y = matmul_f32(xn, wqkv_all[layer]).view(B, H + 2 * K, D)
+    w = torch.cat([qn_all[layer].expand(H, D), kn_all[layer].expand(K, D)])
+    # y is float32, so the per-head norm and the rope stay float32
+    roped = apply_rope(rms_norm(y[:, : H + K], w, eps), cos, sin)
+    q = roped[:, :H].reshape(B, H * D).to(x.dtype)
+    k = roped[:, H:].reshape(B, K * D).to(x.dtype)
+    v = y[:, H + K:].reshape(B, K * D).to(x.dtype)
+    return q, k, v
+
+
+def fused_out_mlp_stacked_plain(attn_out, x, wo_all, ln_all, gateup_all, wd_all,
+                                layer, *, eps: float = 1e-6):
+    """Reference for B4: same math and round points as
+    ``_out_mlp_stacked_kernel`` (x2, xn, h and out rounded to x's dtype;
+    float32 accumulators)."""
+    dt = x.dtype
+    Fi = gateup_all.shape[-1] // 2
+    x2 = (x.float() + matmul_f32(attn_out, wo_all[layer])).to(dt)
+    xn = rms_norm(x2, ln_all[layer], eps)
+    gu = matmul_f32(xn, gateup_all[layer])
+    h = (F.silu(gu[:, :Fi]) * gu[:, Fi:]).to(dt)
+    return (x2.float() + matmul_f32(h, wd_all[layer])).to(dt)
+
+
+# ------------------------------------------------------------------- wrappers
+
+def _lib():
+    from ._build import load_library
+
+    lib = load_library("fused_layer")
+    if not getattr(lib, "_dstts_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dstts_fused_qkv.argtypes = [p] * 10 + [i] * 6 + [f, p]
+        lib.dstts_fused_qkv.restype = i
+        lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 8 + [f, p]
+        lib.dstts_fused_out_mlp.restype = i
+        lib._dstts_typed = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.bfloat16):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer must be 16-byte aligned")
+
+
+def _splits(B: int, N: int, K: int) -> int:
+    """K slices of one product: doubled until the grid holds
+    ``_TARGET_BLOCKS`` blocks, while every slice stays a whole number of
+    pipeline stages and the float32 partial sums (written and read once:
+    8·B·N·s bytes) stay within a quarter of the weight bytes (2·K·N)."""
+    base = (N // _TILE) * -(-B // _MAX_ROWS)
+    cap = max(1, K // (16 * B))
+    s = 1
+    while base * s < _TARGET_BLOCKS and 2 * s <= cap and K % (2 * s * _KT) == 0:
+        s *= 2
+    return s
+
+
+def shapes_ok(hidden: int, heads_dim: int, intermediate: int, head_dim: int) -> bool:
+    """Can the CUDA kernels take these widths? (the q/k epilogue is written
+    for head_dim 128; products need 128-column output tiles and whole
+    32-row pipeline stages)"""
+    return (head_dim == HEAD_DIM and hidden % _TILE == 0
+            and heads_dim % _TILE == 0 and intermediate % _TILE == 0)
+
+
+def _raise_if(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def fused_qkv_stacked(x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer,
+                      *, n_heads: int, n_kv: int, head_dim: int, eps: float = 1e-6):
+    """B3: ``(q [B,H·D], k [B,K·D], v [B,K·D])`` for layer ``layer`` of the
+    stacks. x [B,E]; ln_all [L,E]; wqkv_all [L,E,(H+2K)·D]; qn_all/kn_all
+    [L,D]; cos/sin [B,D/2] float32."""
+    if x.device.type == "cpu":
+        return fused_qkv_stacked_plain(x, ln_all, wqkv_all, qn_all, kn_all, cos,
+                                       sin, layer, n_heads=n_heads, n_kv=n_kv,
+                                       head_dim=head_dim, eps=eps)
+    B, E = x.shape
+    L = wqkv_all.shape[0]
+    D, H, K = head_dim, n_heads, n_kv
+    C = (H + 2 * K) * D
+    if not shapes_ok(E, H * D, _TILE, D) or not 0 <= int(layer) < L:
+        raise ValueError(f"fused_qkv_stacked kernel needs head_dim={HEAD_DIM}, "
+                         f"E % {_TILE} == 0 and 0 <= layer < L (got D={D}, E={E}, "
+                         f"layer={layer}, L={L})")
+    _check("x", x, (B, E))
+    _check("ln_all", ln_all, (L, E))
+    _check("wqkv_all", wqkv_all, (L, E, C))
+    _check("qn_all", qn_all, (L, D))
+    _check("kn_all", kn_all, (L, D))
+    _check("cos", cos, (B, D // 2), torch.float32)
+    _check("sin", sin, (B, D // 2), torch.float32)
+    s = _splits(B, C, E)
+    partial = torch.empty((s, B, C), dtype=torch.float32, device=x.device)
+    xn = torch.empty((B, E), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, C), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _lib().dstts_fused_qkv(
+        x.data_ptr(), ln_all.data_ptr(), wqkv_all.data_ptr(), qn_all.data_ptr(),
+        kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(), partial.data_ptr(),
+        xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s, float(eps),
+        stream)
+    _raise_if(err, "fused_qkv_stacked")
+    fused_qkv_stacked.launches += 1
+    HD, KD = H * D, K * D
+    return out[:, :HD], out[:, HD:HD + KD], out[:, HD + KD:]
+
+
+fused_qkv_stacked.launches = 0
+
+
+def fused_out_mlp_stacked(attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer,
+                          *, eps: float = 1e-6):
+    """B4: ``x2 + swiglu(rmsnorm(x2)·ln2[l]) @ wd[l]`` with
+    ``x2 = x + attn_out @ wo[l]``. attn_out [B,H·D]; x [B,E]; wo_all
+    [L,H·D,E]; ln_all [L,E]; gateup_all [L,E,2F] (gate first); wd_all
+    [L,F,E] → [B,E]."""
+    if x.device.type == "cpu":
+        return fused_out_mlp_stacked_plain(attn_out, x, wo_all, ln_all, gateup_all,
+                                           wd_all, layer, eps=eps)
+    B, E = x.shape
+    HD = attn_out.shape[1]
+    L, _, F2 = gateup_all.shape
+    Fi = F2 // 2
+    if not shapes_ok(E, HD, Fi, HEAD_DIM) or not 0 <= int(layer) < L:
+        raise ValueError(f"fused_out_mlp_stacked kernel needs E, H·D, F % {_TILE} "
+                         f"== 0 and 0 <= layer < L (got E={E}, HD={HD}, F={Fi}, "
+                         f"layer={layer}, L={L})")
+    _check("attn_out", attn_out, (B, HD))
+    _check("x", x, (B, E))
+    _check("wo_all", wo_all, (L, HD, E))
+    _check("ln_all", ln_all, (L, E))
+    _check("gateup_all", gateup_all, (L, E, 2 * Fi))
+    _check("wd_all", wd_all, (L, Fi, E))
+    s_o, s_gu, s_d = _splits(B, E, HD), _splits(B, 2 * Fi, E), _splits(B, E, Fi)
+    dev = x.device
+    partial = torch.empty((max(s_o * E, s_gu * 2 * Fi, s_d * E) * B,),
+                          dtype=torch.float32, device=dev)
+    x2 = torch.empty((B, E), dtype=x.dtype, device=dev)
+    xn = torch.empty((B, E), dtype=x.dtype, device=dev)
+    h = torch.empty((B, Fi), dtype=x.dtype, device=dev)
+    out = torch.empty((B, E), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().dstts_fused_out_mlp(
+        attn_out.data_ptr(), x.data_ptr(), wo_all.data_ptr(), ln_all.data_ptr(),
+        gateup_all.data_ptr(), wd_all.data_ptr(), partial.data_ptr(),
+        x2.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(), int(layer),
+        B, HD, E, Fi, s_o, s_gu, s_d, float(eps), stream)
+    _raise_if(err, "fused_out_mlp_stacked")
+    fused_out_mlp_stacked.launches += 1
+    return out
+
+
+fused_out_mlp_stacked.launches = 0
