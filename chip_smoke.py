@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
 """Drive the torch port's serving path once on one CUDA card.
 
-    python3 chip_smoke.py              # everything (needs one CUDA card)
-    python3 chip_smoke.py --profile    # adds a profiled full-batch burst
+    python3 chip_smoke.py                 # everything (needs one CUDA card)
+    python3 chip_smoke.py --profile       # adds profiled full-batch bursts
+    python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
 
 Phases, each raising on failure (non-zero exit, no final line):
 
 1. environment: card name and power limit (nvidia-smi), torch/CUDA/Triton;
-2. build: the CUDA C++ kernels from ``deepsearch_tts_tpu_torch/ops/csrc``
-   (nvcc, timed) and the Triton kernel's JIT;
+2. build: the CUDA C++ libraries from ``deepsearch_tts_tpu_torch/ops/csrc``
+   (one nvcc per source, started together, timed) and the Triton kernel's
+   JIT;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (qwen3-8b widths), with the tolerance
-   stated below, timed with CUDA events after warm-up;
+   stated below, timed with CUDA events after warm-up: B3, B4, B5, then
+   the attention kernels B1 (slot), B6 (the three paged entries) and B2
+   (flash prefill);
 4. serve: ``deepsearch_tts_tpu_torch.cli.serve.build_engine`` builds
    qwen3-8b (full width, bf16, random weights from a seed) on the card; an
    ``OpenAIServer`` on an ephemeral localhost port answers chat and
    completion requests over HTTP; the kernel launch counters, reset just
    before, must show that decode and sampling went through the kernels;
 5. reference: the same weights' paged prefill + fused decode logits against
-   the plain no-cache forward on a short input.
+   the plain no-cache forward on a short input;
+6. slot serve: ``Engine(cache_mode="slot")`` on the same weights, whose
+   ``attn_impl`` resolves to ``"pallas"`` on the card, over HTTP: decode
+   must run B1 once per layer and step, and a multi-turn follow-up must
+   re-enter its parked row;
+7. Pallas paged serve: ``Engine(attn_impl="pallas",
+   enable_prefix_cache=False)``: fresh prefill through B2 (a ~3000-token
+   prompt, timed beside phase 4's), decode through ``pallas_paged_attention``;
+   then short runs with ``attn_impl="pallas2"`` and ``"clamp"``;
+8. reference: slot prefill + B1 decode, and B2 fresh prefill + B6 decode,
+   against the plain no-cache forward.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -26,6 +40,8 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -33,6 +49,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -46,6 +63,18 @@ SLOTS = 16               # the serve phase's max_slots: its decode batch
 BF16_RTOL, BF16_ATOL = 2e-2, 1e-2
 # B5 is float32 end to end; only the order of the lse sum differs
 F32_RTOL, F32_ATOL = 1e-5, 1e-5
+# attention kernels against their plain versions: bf16 outputs, float32
+# scores in another summation order, and p rounded to bf16 where the plain
+# version keeps float32 (B2); the JAX suite's own bound for these kernels
+# (tests/test_kernels.py:131,166)
+ATTN_RTOL, ATTN_ATOL = 5e-2, 2e-2
+CTX = 4096               # max_seq_len of the serve phases: the slot row width
+# per-row limits / sequence lengths of the B1 and B6 checks: single keys,
+# page and tile edges, the full row, and inactive rows (0, clamped to 1)
+LIMITS = [1, 17, 500, 4095, 0, 4096, 2048, 64, 65, 1000, 3000, 129, 256, 4000, 7, 0]
+SEQS = [1, 17, 500, 4095, 64, 65, 4096, 2048, 129, 1000, 3000, 256, 7, 4000, 333, 2]
+LIBS = ("fused_layer", "attention")
+LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
 
 
 def log(msg: str) -> None:
@@ -105,12 +134,20 @@ def phase_env() -> str:
 def phase_build() -> None:
     from deepsearch_tts_tpu_torch.ops import _build
 
+    def build(name):
+        t = time.time()
+        _build.load_library(name)
+        return time.time() - t
+
     t0 = time.time()
-    _build.load_library("fused_layer")
-    log(f"[build] nvcc fused_layer.cu: {time.time() - t0:.2f} s")
-    for line in _build.build_log.get("fused_layer", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(LIBS)) as ex:
+        secs = dict(zip(LIBS, ex.map(build, LIBS)))
+    log(f"[build] nvcc " + ", ".join(f"{n}.cu {t:.2f} s" for n, t in secs.items())
+        + f" (started together; {time.time() - t0:.2f} s in all)")
+    for name in LIBS:
+        for line in _build.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] {name}: {line.strip()}")
 
 
 def _err(a, b) -> float:
@@ -211,6 +248,371 @@ def phase_kernels(gen) -> dict:
     return res
 
 
+def phase_attention_kernels(gen) -> dict:
+    """B1, the three B6 entries and B2 against their plain versions at
+    qwen3-8b attention widths (H=32, K=8, D=128, bf16); returns per-kernel
+    results (error, and device ms of kernel and plain at the shape noted)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    dev = torch.device("cuda")
+    res: dict = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def check(name, label, kernel, plain, timed=False, nbytes=0, flop=0):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), rtol=ATTN_RTOL,
+                                   atol=ATTN_ATOL)
+        e = _err(got, ref)
+        r = res.setdefault(name, {"err": 0.0})
+        r["err"] = max(r["err"], e)
+        msg = f"[kernel] {name:26s} {label:34s} max_abs_err={e:.3e}"
+        if timed:
+            t, p = time_ms(kernel, iters=20), time_ms(plain, iters=5)
+            r["ms"], r["plain_ms"], r["shape"] = t[0], p[0], label
+            msg += (f" | device kernel {t[0]:.4f} ms plain {p[0]:.4f} ms | eager "
+                    f"kernel {t[1]:.4f} ms plain {p[1]:.4f} ms")
+            if nbytes:
+                msg += f" | {nbytes / t[0] / 1e6:.1f} GB/s"
+            if flop:
+                msg += f" | {flop / t[0] / 1e9:.1f} TFLOP/s"
+        log(msg)
+
+    # B1: a two-layer slot pool of SLOTS rows x CTX tokens
+    L = 2
+    kp, vp = rnd(L * SLOTS, CTX, KV, D), rnd(L * SLOTS, CTX, KV, D)
+    q = rnd(SLOTS, H, D)
+    lim = torch.tensor(LIMITS, device=dev)
+    kw = dict(n_rows=SLOTS, slot_ctx=CTX)
+    read = sum(max(x, 1) for x in LIMITS) * KV * D * 2 * 2
+    for layer in range(L):
+        for v, tag in ((vp, ""), (None, " v=k")):
+            check("slot_attention", f"B={SLOTS} layer={layer} ctx={CTX}{tag}",
+                  lambda: sa.slot_attention(q, kp, v, lim, layer, **kw),
+                  lambda: sa.slot_attention_plain(q, kp, v, lim, layer, **kw),
+                  timed=layer == 1 and v is not None, nbytes=read)
+
+    # B6: ps=64, P=64 pages per row, page 0 the (zeroed) null page
+    ps, P = 64, CTX // 64
+    NP = 1 + SLOTS * P
+    kpg, vpg = rnd(NP, ps, KV, D), rnd(NP, ps, KV, D)
+    kpg[0], vpg[0] = 0, 0
+    seq = torch.tensor(SEQS, device=dev)
+    perm = torch.randperm(NP - 1, generator=gen, device=dev)[: SLOTS * P].view(SLOTS, P)
+    used = (seq + ps - 1) // ps
+    table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
+    read = int(seq.sum()) * KV * D * 2 * 2
+    q1 = rnd(SLOTS, 1, H, D)
+    qpos1 = (seq - 1)[:, None]
+    check("pallas_paged_attention", f"B={SLOTS} T=1 ps={ps} P={P}",
+          lambda: pa.pallas_paged_attention(q1, kpg, vpg, table, seq, qpos1),
+          lambda: pa.pallas_paged_attention_plain(q1, kpg, vpg, table, seq, qpos1),
+          timed=True, nbytes=read)
+    # chunks: T=4 (16 query rows a block) and T=16 (64, the most K1 holds)
+    for T in (4, 16):
+        seqT = seq.clamp(min=T)
+        qposT = seqT[:, None] - T + torch.arange(T, device=dev)[None]
+        qT = rnd(SLOTS, T, H, D)
+        check("pallas_paged_attention", f"B={SLOTS} T={T} ps={ps} P={P}",
+              lambda: pa.pallas_paged_attention(qT, kpg, vpg, table, seqT, qposT),
+              lambda: pa.pallas_paged_attention_plain(qT, kpg, vpg, table, seqT, qposT))
+    for name in ("pallas_paged_decode", "pallas_paged_decode_clamp"):
+        fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
+        check(name, f"B={SLOTS} T=1 ps={ps} P={P}",
+              lambda: fk(q1, kpg, vpg, table, seq), lambda: fp(q1, kpg, vpg, table, seq),
+              timed=True, nbytes=read)
+    del kp, vp, kpg, vpg
+
+    # B2: causal prefill, one length not a multiple of the 64-row tile
+    for B, T in ((1, 128), (4, 512), (1, 3030), (1, 3072)):
+        qf, kf, vf = rnd(B, T, H, D), rnd(B, T, KV, D), rnd(B, T, KV, D)
+        check("flash_attention", f"B={B} T={T}",
+              lambda: fa.flash_attention(qf, kf, vf),
+              lambda: fa.flash_attention_plain(qf, kf, vf),
+              timed=T == 3072, flop=4 * B * H * D * T * (T + 1) // 2)
+    return res
+
+
+@contextlib.contextmanager
+def _serve_http(engine):
+    """An ``OpenAIServer`` for ``engine`` on an ephemeral localhost port,
+    run on its own thread; yields the ``/v1`` base URL."""
+    import asyncio
+
+    from deepsearch_tts_tpu_torch.engine.server import OpenAIServer
+
+    loop = asyncio.new_event_loop()
+    server = OpenAIServer(engine, "127.0.0.1", 0)
+    loop.run_until_complete(server.start())
+    port = server._server.sockets[0].getsockname()[1]
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    try:
+        yield f"http://127.0.0.1:{port}/v1"
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+        loop.run_until_complete(server.stop())
+        loop.close()
+
+
+def _release(engine) -> dict:
+    """Stop ``engine`` and free its KV pools; returns its params."""
+    import torch
+
+    engine.shutdown()
+    params = engine.params
+    engine.k_pages = engine.v_pages = engine.seen = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return params
+
+
+def _engine(params, **kw):
+    """qwen3-8b on the card over the served weights, ``SLOTS`` rows."""
+    from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.engine.engine import Engine
+
+    return Engine("qwen3-8b", ByteTokenizer(), params=params, device="cuda",
+                  max_slots=SLOTS, max_seq_len=CTX, decode_chunk_len=8, **kw)
+
+
+def phase_slot_serve(card: str, params: dict, profile: bool = False) -> dict:
+    """The slot engine with parking, default ``attn_impl``, over HTTP."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.weights import pack_matmul_params
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    # the engine packs its params; on the served (packed) tree that is the
+    # identity, so the same weights are reused instead of drawn again
+    packed = pack_matmul_params(params)
+    assert all(packed["layers"][k] is t for k, t in params["layers"].items())
+    t0 = time.time()
+    engine = _engine(params, cache_mode="slot")
+    engine.warmup(prompt_lens=(64,))
+    log(f"[slot] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
+        f"{engine.attn_impl}; memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
+    cfg, out = engine.cfg, {}
+    try:
+        with _serve_http(engine) as base:
+            def chat(content, **kw):
+                payload = {"messages": [{"role": "user", "content": content}], **kw}
+                return _post(f"{base}/chat/completions", payload)
+
+            fl.fused_qkv_stacked.launches = fl.fused_out_mlp_stacked.launches = 0
+            sp.sampling_prep.launches = sa.slot_attention.launches = 0
+            st0 = dict(engine.stats)
+            ttfts = []
+            for i in range(5):
+                code, body, dt = chat(f"Time to first token, please ({i}).", max_tokens=1)
+                assert code == 200 and body["usage"]["completion_tokens"] == 1, body
+                ttfts.append(dt)
+            out["ttft_s"] = sorted(ttfts)[2]
+
+            results = _burst(chat, 4, 48)
+            log(f"[slot] 4 concurrent chat: completion tokens "
+                f"{[r[1]['usage']['completion_tokens'] for r in results]}")
+
+            # the same greedy request twice, sent together, so that both
+            # take the same path: a raw completion whose first byte no
+            # parked chat row shares re-enters no parked row (a parked
+            # prefix was computed by another prefill group, rounded
+            # otherwise), and neither can re-enter the other's row (sent one
+            # after the other, the second would)
+            pair: list = [None, None]
+            hits0 = engine.stats["slot_park_hits"]
+
+            def greedy(i):
+                pair[i] = _post(f"{base}/completions", {
+                    "prompt": "Greedy: count to five.", "max_tokens": 24,
+                    "temperature": 0.0, "repetition_penalty": 1.0})
+
+            ths = [threading.Thread(target=greedy, args=(i,)) for i in range(2)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            texts = [r[1]["choices"][0]["text"] for r in pair]
+            assert all(r[0] == 200 for r in pair) and texts[0] == texts[1], texts
+            assert engine.stats["slot_park_hits"] == hits0, "the greedy pair re-entered a row"
+
+            r = chat("Budget: think for a while.", max_tokens=40, min_tokens=32)
+            assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 32, r[1]["usage"]
+
+            hits0 = engine.stats["slot_park_hits"]
+            msgs = [{"role": "system",
+                     "content": "You are a careful search assistant. " * 8},
+                    {"role": "user", "content": "Which river flows through Vienna?"}]
+            r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
+            assert r[0] == 200
+            msgs += [{"role": "assistant", "content": "The Danube."},
+                     {"role": "user", "content": "And through Budapest?"}]
+            r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
+            cached = r[1]["usage"]["prompt_tokens_details"]["cached_tokens"]
+            hits = engine.stats["slot_park_hits"] - hits0
+            assert r[0] == 200 and cached > 0 and hits >= 1, (r[1]["usage"], hits)
+            log(f"[slot] multi-turn follow-up: prompt_tokens "
+                f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached} "
+                f"(parked-row re-entries {hits})")
+
+            d0 = dict(engine.stats)
+            results = _burst(chat, SLOTS, 64)
+            d1 = dict(engine.stats)
+            dt = d1["decode_time_s"] - d0["decode_time_s"]
+            out["burst_decode_tok_s"] = (d1["decode_tokens"] - d0["decode_tokens"]) / dt
+            out["burst_step_ms"] = 1e3 * dt / ((d1["decode_steps"] - d0["decode_steps"])
+                                               * engine.decode_chunk_len)
+            if profile:
+                _profile_burst(chat, engine)
+
+            st1 = dict(engine.stats)
+            steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
+            samples = steps + st1["prefill_dispatches"] - st0["prefill_dispatches"]
+            launches = {"slot_attention": sa.slot_attention.launches,
+                        "fused_qkv_stacked": fl.fused_qkv_stacked.launches,
+                        "fused_out_mlp_stacked": fl.fused_out_mlp_stacked.launches,
+                        "sampling_prep": sp.sampling_prep.launches}
+            log(f"[slot] decode steps {steps}, sample calls {samples}, launches "
+                f"{launches}, park hits {st1['slot_park_hits'] - st0['slot_park_hits']}")
+            for name in ("slot_attention", "fused_qkv_stacked", "fused_out_mlp_stacked"):
+                assert launches[name] == cfg.n_layers * steps > 0, launches
+            assert launches["sampling_prep"] == samples, launches
+            out["launches"] = launches
+            out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
+                                   / (st1["decode_time_s"] - st0["decode_time_s"]))
+        log(f"[slot] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms | decode "
+            f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch of "
+            f"{SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
+            f"({out['burst_step_ms']:.2f} ms per decode step)")
+    finally:
+        _release(engine)
+    return out
+
+
+def phase_pallas_serve(card: str, params: dict, xla_long_s: float) -> dict:
+    """The paged engine with ``attn_impl="pallas"`` and no prefix cache
+    (fresh prefill through B2, decode through ``pallas_paged_attention``),
+    then short runs with the other two B6 entries."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+
+    engine = _engine(params, attn_impl="pallas", enable_prefix_cache=False,
+                     page_size=64, n_pages=1024)
+    engine.warmup(prompt_lens=(64,))
+    cfg, out = engine.cfg, {}
+    try:
+        with _serve_http(engine) as base:
+            def chat(content, **kw):
+                payload = {"messages": [{"role": "user", "content": content}], **kw}
+                return _post(f"{base}/chat/completions", payload)
+
+            fa.flash_attention.launches = pa.pallas_paged_attention.launches = 0
+            st0 = dict(engine.stats)
+            r = chat(LONG_TEXT, max_tokens=8)
+            u = r[1]["usage"]
+            assert r[0] == 200 and u["prompt_tokens"] > 2900 and u["completion_tokens"] >= 1, u
+            out["long_prompt_s"] = r[2]
+            log(f"[pallas] {card} | long prompt: {u['prompt_tokens']} prompt tokens "
+                f"answered in {r[2] * 1000:.1f} ms (B2 prefill) against "
+                f"{xla_long_s * 1000:.1f} ms on the XLA engine of phase 4")
+            d0 = dict(engine.stats)
+            _burst(chat, SLOTS, 64)
+            d1 = dict(engine.stats)
+            dt = d1["decode_time_s"] - d0["decode_time_s"]
+            out["burst_decode_tok_s"] = (d1["decode_tokens"] - d0["decode_tokens"]) / dt
+            out["burst_step_ms"] = 1e3 * dt / ((d1["decode_steps"] - d0["decode_steps"])
+                                               * engine.decode_chunk_len)
+            steps = (d1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
+            prefills = d1["prefill_dispatches"] - st0["prefill_dispatches"]
+            launches = {"flash_attention": fa.flash_attention.launches,
+                        "pallas_paged_attention": pa.pallas_paged_attention.launches}
+            log(f"[pallas] decode steps {steps}, fresh prefill dispatches {prefills}, "
+                f"launches {launches} | full batch of {SLOTS}: "
+                f"{out['burst_decode_tok_s']:.1f} tok/s decode "
+                f"({out['burst_step_ms']:.2f} ms per decode step)")
+            assert launches["flash_attention"] == cfg.n_layers * prefills > 0, launches
+            assert launches["pallas_paged_attention"] == cfg.n_layers * steps > 0, launches
+            out["launches"] = launches
+    finally:
+        _release(engine)
+
+    for impl, name in (("pallas2", "pallas_paged_decode"),
+                       ("clamp", "pallas_paged_decode_clamp")):
+        engine = _engine(params, attn_impl=impl, page_size=64, n_pages=256)
+        try:
+            fn = getattr(pa, name)
+            fn.launches = 0
+            st0 = dict(engine.stats)
+            futs = engine.submit_many([
+                GenerationRequest(prompt_ids=list(range(40 + 9 * i, 90 + 13 * i)),
+                                  max_tokens=24) for i in range(4)])
+            res = [f.result(timeout=600) for f in futs]
+            steps = (engine.stats["decode_steps"] - st0["decode_steps"]) \
+                * engine.decode_chunk_len
+            assert all(len(r.token_ids) >= 1 for r in res)
+            assert fn.launches == cfg.n_layers * steps > 0, (name, fn.launches, steps)
+            out["launches"][name] = fn.launches
+            log(f"[pallas] attn_impl={impl}: {steps} decode steps, {name} launches "
+                f"{fn.launches}")
+        finally:
+            _release(engine)
+    return out
+
+
+def phase_attention_reference(params: dict) -> None:
+    """Slot prefill + B1 decode, and B2 fresh prefill + B6 decode, against
+    the plain no-cache forward on the served weights (24 tokens)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages
+    from deepsearch_tts_tpu_torch.models.qwen3 import QWEN3_CONFIGS, forward
+
+    cfg, dev = QWEN3_CONFIGS["qwen3-8b"], torch.device("cuda")
+    T0, T = 16, 24
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None]
+    one = lambda n: torch.tensor([n], device=dev)   # noqa: E731
+    with torch.no_grad():
+        ref, _ = forward(params, cfg, toks, pos)
+        want = ref[0, T0 - 1:]
+        for label, prefill_kw, decode_kw in (
+                ("slot prefill + B1 decode", {},
+                 dict(slot_decode=True, slot_ctx=64, page_table=None)),
+                ("B2 fresh prefill + B6 decode", dict(fresh_prefill=True), {})):
+            kp, vp = init_kv_pages(cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim,
+                                   dtype=cfg.torch_dtype, device=dev)
+            kw = dict(k_pages=kp, v_pages=vp, page_table=torch.tensor([[0]], device=dev),
+                      impl="pallas")
+            got = [forward(params, cfg, toks[:, :T0], pos[:, :T0], seq_lens=one(T0),
+                           logits_indices=one(T0 - 1), **kw, **prefill_kw)[0][:, 0]]
+            for t in range(T0, T):
+                got.append(forward(params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                                   seq_lens=one(t + 1), fused_decode=True,
+                                   **{**kw, **decode_kw})[0][:, 0])
+            got = torch.cat(got)
+            assert got.shape == want.shape and torch.isfinite(got).all()
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+            agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            log(f"[reference] {label} logits vs no-cache forward: max_abs_err "
+                f"{(got - want).abs().max().item():.4f}, min cosine "
+                f"{cos.min().item():.5f}, argmax agreement {agree:.2f}")
+            assert cos.min().item() > 0.99, cos
+            assert agree >= 0.75, agree
+
+
 def _post(url: str, payload: dict, timeout: float = 600.0) -> tuple[int, dict, float]:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -262,12 +664,9 @@ def _profile_burst(chat, engine) -> None:
 
 def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
     """Serve qwen3-8b over HTTP through the port's own construction."""
-    import asyncio
-
     import torch
 
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
-    from deepsearch_tts_tpu_torch.engine.server import OpenAIServer
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
@@ -285,138 +684,127 @@ def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
     if not engine.layer_fusion:
         raise AssertionError("the qwen3-8b bf16 engine must run the fused decode layers")
 
-    loop = asyncio.new_event_loop()
-    server = OpenAIServer(engine, "127.0.0.1", 0)
-    loop.run_until_complete(server.start())
-    port = server._server.sockets[0].getsockname()[1]
-    th = threading.Thread(target=loop.run_forever, daemon=True)
-    th.start()
-    base = f"http://127.0.0.1:{port}/v1"
     cfg = engine.cfg
     out: dict = {}
     try:
-        # counters are zeroed right before the main path runs
-        fl.fused_qkv_stacked.launches = 0
-        fl.fused_out_mlp_stacked.launches = 0
-        sp.sampling_prep.launches = 0
-        st0 = dict(engine.stats)
+        with _serve_http(engine) as base:
+            # counters are zeroed right before the main path runs
+            fl.fused_qkv_stacked.launches = 0
+            fl.fused_out_mlp_stacked.launches = 0
+            sp.sampling_prep.launches = 0
+            st0 = dict(engine.stats)
 
-        def chat(content, **kw):
-            payload = {"messages": [{"role": "user", "content": content}], **kw}
-            return _post(f"{base}/chat/completions", payload)
+            def chat(content, **kw):
+                payload = {"messages": [{"role": "user", "content": content}], **kw}
+                return _post(f"{base}/chat/completions", payload)
 
-        # (a) time to first token: single one-token requests, nothing else
-        # running (client-side request latency: HTTP + prefill + first sample)
-        ttfts = []
-        for i in range(5):
-            code, body, dt = chat(f"Time to first token, please ({i}).", max_tokens=1)
-            assert code == 200 and body["usage"]["completion_tokens"] == 1, body
-            ttfts.append(dt)
-        out["ttft_s"] = sorted(ttfts)[2]
-        out["ttft_max_s"] = max(ttfts)
+            # (a) time to first token: single one-token requests, nothing else
+            # running (client-side request latency: HTTP + prefill + first sample)
+            ttfts = []
+            for i in range(5):
+                code, body, dt = chat(f"Time to first token, please ({i}).", max_tokens=1)
+                assert code == 200 and body["usage"]["completion_tokens"] == 1, body
+                ttfts.append(dt)
+            out["ttft_s"] = sorted(ttfts)[2]
+            out["ttft_max_s"] = max(ttfts)
 
-        # (b) four concurrent chat completions, default sampler
-        results = [None] * 4
+            # (b) four concurrent chat completions, default sampler
+            results = [None] * 4
 
-        def worker(i):
-            results[i] = chat(f"Request {i}: name three rivers of Europe.",
-                              max_tokens=48)
+            def worker(i):
+                results[i] = chat(f"Request {i}: name three rivers of Europe.",
+                                  max_tokens=48)
 
-        ths = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
-        for t in ths:
-            t.start()
-        for t in ths:
-            t.join(timeout=600)
-        for r in results:
-            assert r is not None and r[0] == 200, r
+            ths = [threading.Thread(target=worker, args=(i,)) for i in range(4)]
+            for t in ths:
+                t.start()
+            for t in ths:
+                t.join(timeout=600)
+            for r in results:
+                assert r is not None and r[0] == 200, r
+                u = r[1]["usage"]
+                assert 1 <= u["completion_tokens"] <= 48 and u["prompt_tokens"] > 0, u
+            log(f"[serve] 4 concurrent chat: completion tokens "
+                f"{[r[1]['usage']['completion_tokens'] for r in results]}")
+
+            # (c) one greedy request twice: identical text (prompt under one
+            # page, so both runs take the same path)
+            greedy = dict(max_tokens=24, temperature=0.0, repetition_penalty=1.0)
+            r1 = chat("Greedy: count to five.", **greedy)
+            r2 = chat("Greedy: count to five.", **greedy)
+            assert r1[0] == 200 and r2[0] == 200
+            t1 = r1[1]["choices"][0]["message"]["content"]
+            t2 = r2[1]["choices"][0]["message"]["content"]
+            assert t1 == t2, (t1, t2)
+            assert r1[1]["usage"]["completion_tokens"] == r2[1]["usage"]["completion_tokens"]
+
+            # (d) min_tokens budget forcing
+            r = chat("Budget: think for a while.", max_tokens=40, min_tokens=32)
+            assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 32, r[1]["usage"]
+
+            # (e) multi-turn follow-up must reuse the cached conversation prefix
+            msgs = [{"role": "system", "content": "You are a careful search assistant. " * 8},
+                    {"role": "user", "content": "Which river flows through Vienna?"}]
+            r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
+            assert r[0] == 200
+            msgs += [{"role": "assistant", "content": "The Danube."},
+                     {"role": "user", "content": "And through Budapest?"}]
+            r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
+            cached = r[1]["usage"]["prompt_tokens_details"]["cached_tokens"]
+            assert r[0] == 200 and cached > 0, r[1]["usage"]
+            log(f"[serve] multi-turn follow-up: prompt_tokens "
+                f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached}")
+
+            # (f) /v1/completions
+            r = _post(f"{base}/completions", {"prompt": "The capital of France is",
+                                              "max_tokens": 16})
+            assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 1, r[1]
+            assert isinstance(r[1]["choices"][0]["text"], str)
+
+            # (g) a long prompt (~3000 tokens): prefill attention in query blocks
+            r = chat(LONG_TEXT, max_tokens=8)
             u = r[1]["usage"]
-            assert 1 <= u["completion_tokens"] <= 48 and u["prompt_tokens"] > 0, u
-        log(f"[serve] 4 concurrent chat: completion tokens "
-            f"{[r[1]['usage']['completion_tokens'] for r in results]}")
+            assert r[0] == 200 and u["prompt_tokens"] > 2900 and u["completion_tokens"] >= 1, u
+            out["long_prompt_tokens"], out["long_prompt_s"] = u["prompt_tokens"], r[2]
+            log(f"[serve] long prompt: {u['prompt_tokens']} prompt tokens answered "
+                f"in {r[2] * 1000:.1f} ms; peak memory allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-        # (c) one greedy request twice: identical text (prompt under one
-        # page, so both runs take the same path)
-        greedy = dict(max_tokens=24, temperature=0.0, repetition_penalty=1.0)
-        r1 = chat("Greedy: count to five.", **greedy)
-        r2 = chat("Greedy: count to five.", **greedy)
-        assert r1[0] == 200 and r2[0] == 200
-        t1 = r1[1]["choices"][0]["message"]["content"]
-        t2 = r2[1]["choices"][0]["message"]["content"]
-        assert t1 == t2, (t1, t2)
-        assert r1[1]["usage"]["completion_tokens"] == r2[1]["usage"]["completion_tokens"]
+            # (h) a full batch: max_slots concurrent requests for decode tok/s
+            d0 = dict(engine.stats)
+            tb = time.perf_counter()
+            results = _burst(chat, SLOTS, 64)
+            wall = time.perf_counter() - tb
+            d1 = dict(engine.stats)
+            out["burst_decode_tok_s"] = ((d1["decode_tokens"] - d0["decode_tokens"])
+                                         / (d1["decode_time_s"] - d0["decode_time_s"]))
+            out["burst_step_ms"] = 1e3 * (d1["decode_time_s"] - d0["decode_time_s"]) / (
+                (d1["decode_steps"] - d0["decode_steps"]) * engine.decode_chunk_len)
+            out["burst_wall_s"] = wall
+            out["burst_tokens"] = sum(r[1]["usage"]["completion_tokens"] for r in results)
+            if profile:
+                _profile_burst(chat, engine)
 
-        # (d) min_tokens budget forcing
-        r = chat("Budget: think for a while.", max_tokens=40, min_tokens=32)
-        assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 32, r[1]["usage"]
-
-        # (e) multi-turn follow-up must reuse the cached conversation prefix
-        msgs = [{"role": "system", "content": "You are a careful search assistant. " * 8},
-                {"role": "user", "content": "Which river flows through Vienna?"}]
-        r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
-        assert r[0] == 200
-        msgs += [{"role": "assistant", "content": "The Danube."},
-                 {"role": "user", "content": "And through Budapest?"}]
-        r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
-        cached = r[1]["usage"]["prompt_tokens_details"]["cached_tokens"]
-        assert r[0] == 200 and cached > 0, r[1]["usage"]
-        log(f"[serve] multi-turn follow-up: prompt_tokens "
-            f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached}")
-
-        # (f) /v1/completions
-        r = _post(f"{base}/completions", {"prompt": "The capital of France is",
-                                          "max_tokens": 16})
-        assert r[0] == 200 and r[1]["usage"]["completion_tokens"] >= 1, r[1]
-        assert isinstance(r[1]["choices"][0]["text"], str)
-
-        # (g) a long prompt (~3000 tokens): prefill attention in query blocks
-        long_text = "The search returned a page about the rivers of Europe. " * 55
-        r = chat(long_text, max_tokens=8)
-        u = r[1]["usage"]
-        assert r[0] == 200 and u["prompt_tokens"] > 2900 and u["completion_tokens"] >= 1, u
-        out["long_prompt_tokens"], out["long_prompt_s"] = u["prompt_tokens"], r[2]
-        log(f"[serve] long prompt: {u['prompt_tokens']} prompt tokens answered "
-            f"in {r[2] * 1000:.1f} ms; peak memory allocated "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-        # (h) a full batch: max_slots concurrent requests for decode tok/s
-        d0 = dict(engine.stats)
-        tb = time.perf_counter()
-        results = _burst(chat, SLOTS, 64)
-        wall = time.perf_counter() - tb
-        d1 = dict(engine.stats)
-        out["burst_decode_tok_s"] = ((d1["decode_tokens"] - d0["decode_tokens"])
-                                     / (d1["decode_time_s"] - d0["decode_time_s"]))
-        out["burst_step_ms"] = 1e3 * (d1["decode_time_s"] - d0["decode_time_s"]) / (
-            (d1["decode_steps"] - d0["decode_steps"]) * engine.decode_chunk_len)
-        out["burst_wall_s"] = wall
-        out["burst_tokens"] = sum(r[1]["usage"]["completion_tokens"] for r in results)
-        if profile:
-            _profile_burst(chat, engine)
-
-        st1 = dict(engine.stats)
-        steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
-        samples = steps + (st1["prefill_dispatches"] - st0["prefill_dispatches"])
-        launches = {"fused_qkv_stacked": fl.fused_qkv_stacked.launches,
-                    "fused_out_mlp_stacked": fl.fused_out_mlp_stacked.launches,
-                    "sampling_prep": sp.sampling_prep.launches}
-        log(f"[serve] decode steps {steps}, sample calls {samples}, launches {launches}")
-        assert launches["fused_qkv_stacked"] == cfg.n_layers * steps > 0, launches
-        assert launches["fused_out_mlp_stacked"] == cfg.n_layers * steps, launches
-        assert launches["sampling_prep"] == samples > 0, launches
-        out["launches"] = launches
-        out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
-                               / (st1["decode_time_s"] - st0["decode_time_s"]))
-        log(f"[serve] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms "
-            f"(max {out['ttft_max_s'] * 1000:.1f}) | decode "
-            f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch "
-            f"of {SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
-            f"({out['burst_step_ms']:.2f} ms per decode step), "
-            f"{out['burst_tokens']} tokens in {out['burst_wall_s']:.2f} s")
+            st1 = dict(engine.stats)
+            steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
+            samples = steps + (st1["prefill_dispatches"] - st0["prefill_dispatches"])
+            launches = {"fused_qkv_stacked": fl.fused_qkv_stacked.launches,
+                        "fused_out_mlp_stacked": fl.fused_out_mlp_stacked.launches,
+                        "sampling_prep": sp.sampling_prep.launches}
+            log(f"[serve] decode steps {steps}, sample calls {samples}, launches {launches}")
+            assert launches["fused_qkv_stacked"] == cfg.n_layers * steps > 0, launches
+            assert launches["fused_out_mlp_stacked"] == cfg.n_layers * steps, launches
+            assert launches["sampling_prep"] == samples > 0, launches
+            out["launches"] = launches
+            out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
+                                   / (st1["decode_time_s"] - st0["decode_time_s"]))
+            log(f"[serve] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms "
+                f"(max {out['ttft_max_s'] * 1000:.1f}) | decode "
+                f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch "
+                f"of {SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
+                f"({out['burst_step_ms']:.2f} ms per decode step), "
+                f"{out['burst_tokens']} tokens in {out['burst_wall_s']:.2f} s")
     finally:
-        loop.call_soon_threadsafe(loop.stop)
-        th.join(timeout=30)
-        loop.run_until_complete(server.stop())
-        loop.close()
         engine.shutdown()
     return out, engine
 
@@ -467,7 +855,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="add a full-batch burst under torch.profiler to the "
-                         "serve phase (device time by kernel, idle share)")
+                         "serve and slot serve phases (device time by kernel, "
+                         "idle share)")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build and the kernel checks (prints "
+                         "the kernel results, not the final line)")
     opts = ap.parse_args(argv)
     # the port must run without JAX: deepsearch_tts_tpu/__init__.py imports
     # jax when JAX_PLATFORMS=cpu is set, so make sure it is not
@@ -482,23 +874,43 @@ def main(argv=None) -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
+    res.update(phase_attention_kernels(gen))
+    if opts.kernels_only:
+        print(json.dumps({"kernels": res, "card": card}))
+        return 0
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
+    params = _release(engine)
+    slot = phase_slot_serve(card, params, profile=opts.profile)
+    pallas = phase_pallas_serve(card, params, serve["long_prompt_s"])
+    phase_attention_reference(params)
     src = "deepsearch_tts_tpu_torch/ops/"
+    jsrc = "deepsearch_tts_tpu/ops/"
+    attn = src + "csrc/attention.cu"
+    # name: (route, source, TPU kernel it replaces, the run whose launches count)
     meta = {
         "fused_qkv_stacked": ("cuda", src + "csrc/fused_layer.cu",
-                              "deepsearch_tts_tpu/ops/fused_layer.py:244"),
+                              jsrc + "fused_layer.py:244", serve),
         "fused_out_mlp_stacked": ("cuda", src + "csrc/fused_layer.cu",
-                                  "deepsearch_tts_tpu/ops/fused_layer.py:356"),
+                                  jsrc + "fused_layer.py:356", serve),
         "sampling_prep": ("triton", src + "sampling_prep.py",
-                          "deepsearch_tts_tpu/ops/sampling_prep.py:30"),
+                          jsrc + "sampling_prep.py:30", serve),
+        "slot_attention": ("cuda", attn, jsrc + "slot_attention.py:110", slot),
+        "pallas_paged_attention": ("cuda", attn, jsrc + "paged_attention.py:49", pallas),
+        "pallas_paged_decode": ("cuda", attn, jsrc + "paged_attention.py:117", pallas),
+        "pallas_paged_decode_clamp": ("cuda", attn, jsrc + "paged_attention.py:239",
+                                      pallas),
+        "flash_attention": ("cuda", attn, jsrc + "flash_attention.py:27", pallas),
     }
     kernels = [{"name": n, "route": r, "source": s, "replaces": rep,
-                "launches": serve["launches"][n],
+                "launches": run["launches"][n],
                 "max_abs_err": res[n]["err"], "ms": res[n]["ms"],
                 "plain_ms": res[n]["plain_ms"]}
-               for n, (r, s, rep) in meta.items()]
+               for n, (r, s, rep, run) in meta.items()]
     print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "launches"},
+                      "slot_serve": {k: v for k, v in slot.items() if k != "launches"},
+                      "pallas_serve": {k: v for k, v in pallas.items()
+                                       if k != "launches"},
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Continuous-batching inference engine over a paged KV cache (port of
-``engine/engine.py``, paged mode).
+"""Continuous-batching inference engine over a paged or contiguous-slot KV
+cache (port of ``engine/engine.py``).
 
 Behaviours carried over from the JAX engine:
 
@@ -8,9 +8,9 @@ Behaviours carried over from the JAX engine:
 * Grouped prefill: queued requests are prepared on the host (pages, radix
   prefix match), grouped by power-of-two prompt bucket, and each group runs
   ONE batched forward plus first-token sample (``MAX_PREFILL_GROUP`` rows,
-  ``PREFILL_TOKEN_BUDGET`` rows x bucket). Engines with a prefix cache run
-  the non-fresh (re-prefill) branch for every group, as in JAX; without one,
-  groups take fresh causal prefill.
+  ``PREFILL_TOKEN_BUDGET`` rows x bucket). Engines with prefix reuse (a
+  prefix cache, or slot parking) run the non-fresh (re-prefill) branch for
+  every group, as in JAX; without it, groups take fresh causal prefill.
 * Decode chunks of ``decode_chunk_len`` steps over all ``max_slots`` rows
   (inactive rows write nothing), with the page table sliced to the
   power-of-two page bucket of the longest active row, so a step gathers the
@@ -19,6 +19,16 @@ Behaviours carried over from the JAX engine:
 * Page allocation, LRU eviction of cached prefixes and preempt-by-requeue
   under page pressure; finished sequences insert their full pages into the
   radix prefix cache.
+* ``cache_mode="slot"``: a contiguous ``[L, max_slots, max_seq_len, K, D]``
+  pool (page size = ``max_seq_len``, identity page table, no allocator,
+  no page pressure). Decode reads the power-of-two context bucket of the
+  longest active row. Prefix reuse is *parking*: a finished row's KV stays
+  in place, and a request whose prompt extends its tokens re-enters that
+  row and prefills only the rest (token-exact match).
+* ``attn_impl``: ``None`` resolves as in JAX with the accelerator swapped
+  (:func:`resolve_attn_impl`); ``"pallas"`` runs the slot and paged decode
+  kernels and, for fresh prefill, flash attention; ``"pallas2"`` and
+  ``"clamp"`` pick the other paged decode entry points.
 * Seen masks: each row's token-presence mask is rebuilt on the device from
   its whole prompt at admission and extended with every sampled token, so
   it is always presence(prompt + generated) — there is no kept/stale mask
@@ -30,8 +40,11 @@ Left out, because they are JAX dispatch machinery: pipelined dispatch from
 the device carry, admission injection, the compile caches and warm-program
 bookkeeping. Eager CUDA launches are already asynchronous; each decode
 chunk is queued step after step and synchronised once, when its tokens are
-read back. Options of the JAX engine that this slice does not carry raise
-``NotImplementedError`` naming the ROADMAP.md item.
+read back. The seen mask of every admitted row is rebuilt from its whole
+prompt, parked re-entries included; JAX's keep/clear path for parked rows
+saves a host upload on the TPU and gives the same mask. Options of the JAX
+engine that the port does not carry yet raise ``NotImplementedError``
+naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -111,6 +124,21 @@ def _not_ported(option: str, item: str):
         f"(ROADMAP.md {item})")
 
 
+ATTN_IMPLS = ("xla", "pallas", "pallas2", "clamp")
+
+
+def resolve_attn_impl(attn_impl: str | None, cache_mode: str,
+                      device: torch.device) -> str:
+    """The engine's attention implementation. ``None`` resolves as the JAX
+    engine does (``engine.py:260-273``) with the accelerator swapped: the
+    slot kernel on CUDA for the slot cache, the plain gather otherwise."""
+    if attn_impl is None:
+        return "pallas" if cache_mode == "slot" and device.type == "cuda" else "xla"
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
+    return attn_impl
+
+
 class Engine:
     # prefill rows per batched forward
     MAX_PREFILL_GROUP = 16
@@ -143,9 +171,9 @@ class Engine:
         chunk_trim: bool = False,
         ring_prefill_len: int | None = None,
     ):
+        if cache_mode not in ("paged", "slot"):
+            raise ValueError(f"unknown cache_mode {cache_mode!r}")
         unported = [
-            (cache_mode != "paged", f"cache_mode={cache_mode!r}",
-             "A2/A4 (slot cache with kernels B1, B2)"),
             (bool(prefill_lane), f"prefill_lane={prefill_lane}", "A4 (prefill lane)"),
             (speculative is not None, f"speculative={speculative!r}",
              "A11 (speculative decoding, kernel B9)"),
@@ -156,13 +184,19 @@ class Engine:
              "A10 (int8 KV)"),
             (mesh is not None, "mesh", "A13 (parallel serving)"),
             (ring_prefill_len is not None, "ring_prefill_len", "A13 (ring prefill)"),
-            (attn_impl not in (None, "xla"), f"attn_impl={attn_impl!r}",
-             "B2/B6 (flash and paged attention kernels)"),
         ]
         for bad, option, item in unported:
             if bad:
                 raise _not_ported(option, item)
         self.device = resolve_device(device)
+        self.attn_impl = resolve_attn_impl(attn_impl, cache_mode, self.device)
+        self.cache_mode = cache_mode
+        # slot-mode prefix reuse is parking, not sharing (engine.py:373-381)
+        self._slot_park = bool(enable_prefix_cache) and cache_mode == "slot"
+        self._parked: dict[int, dict] = {}   # slot idx -> park record
+        if cache_mode == "slot":
+            page_size, n_pages = max_seq_len, max_slots
+            enable_prefix_cache = False
         fam = get_model(model_name)
         self.cfg = cfg = fam.config
         self.forward = fam.forward
@@ -171,7 +205,7 @@ class Engine:
         self.page_size = page_size
         self.n_pages = n_pages
         self.max_seq_len = max_seq_len
-        self.max_pages_per_seq = -(-max_seq_len // page_size)
+        self.max_pages_per_seq = -(-max_seq_len // page_size)   # 1 in slot mode
         self.decode_chunk_len = decode_chunk_len
         if layer_fusion is None:
             # as in JAX: on for single-device bf16 dense serving (the plain
@@ -201,10 +235,17 @@ class Engine:
             self.prefix_cache = make_prefix_cache(self.allocator)
         else:
             self.prefix_cache = None
+        # fresh causal prefill only without prefix reuse: engines with a
+        # prefix cache or slot parking run the non-fresh branch even for
+        # uncached groups, as JAX does (engine.py:1938-1941); without reuse
+        # nothing is ever cached
+        self.fresh_prefill = self.prefix_cache is None and not self._slot_park
 
         B, V = max_slots, cfg.vocab_size
         self.slots = [_Slot(i) for i in range(B)]
         self.page_tables = np.zeros((B, self.max_pages_per_seq), np.int32)
+        if cache_mode == "slot":
+            self.page_tables[:, 0] = np.arange(B)
         self.seq_lens = np.zeros((B,), np.int32)
         self.last_tok = np.zeros((B,), np.int32)
         self.seen = torch.zeros((B, V), dtype=torch.bool, device=self.device)
@@ -232,7 +273,7 @@ class Engine:
             "requests": 0, "prefill_tokens": 0, "decode_tokens": 0,
             "decode_steps": 0, "decode_time_s": 0.0, "prefill_time_s": 0.0,
             "preemptions": 0, "slot_steps": 0, "prefill_dispatches": 0,
-            "prefill_rows": 0,
+            "prefill_rows": 0, "slot_park_hits": 0, "slot_park_tokens": 0,
         }
         self.spans = SpanTimer()
 
@@ -282,15 +323,16 @@ class Engine:
                 torch.zeros((1, 1), dtype=torch.int64, device=dev),
                 torch.zeros((1,), dtype=torch.int64, device=dev),
                 logits_indices=torch.zeros((1,), dtype=torch.int64, device=dev),
-                fresh=self.prefix_cache is None)
+                fresh=self.fresh_prefill)
             sample(logits[:, 0], self._samp_params(np.arange(1)),
                    torch.zeros_like(self.seen[:1]), self.generator)
         B = self.max_slots
         logits, _ = self._forward(
             torch.zeros((B, 1), dtype=torch.int64, device=dev),
             torch.full((B, 1), -1, dtype=torch.int64, device=dev),
-            torch.zeros((B, 1), dtype=torch.int64, device=dev),
-            torch.zeros((B,), dtype=torch.int64, device=dev))
+            self._t(self.page_tables[:, :1]),
+            torch.zeros((B,), dtype=torch.int64, device=dev),
+            slot_ctx=self._slot_bucket(1))
         sample(logits[:, 0], self._samp_params(np.arange(B)),
                torch.zeros_like(self.seen), self.generator)
         if dev.type == "cuda":
@@ -370,11 +412,52 @@ class Engine:
         return max(1, min(self.MAX_PREFILL_GROUP,
                           self.PREFILL_TOKEN_BUDGET // max(bucket, 1)))
 
+    def _slot_bucket(self, n_tokens: int) -> int | None:
+        """Slot mode: the power-of-two context width from 64 covering
+        ``n_tokens`` (capped at ``max_seq_len``), which decode reads; None in
+        paged mode."""
+        if self.cache_mode != "slot":
+            return None
+        b = 64
+        while b < n_tokens:
+            b *= 2
+        return min(b, self.max_seq_len)
+
     def _free_slot(self) -> _Slot | None:
+        """A free row; in slot mode unparked rows first, so parked KV
+        survives for re-entry, then the least recently parked one."""
+        parked = None
         for s in self.slots:
             if not s.active and s.req is None:
-                return s
-        return None
+                if s.idx not in self._parked:
+                    return s
+                if parked is None or (self._parked[s.idx]["t"]
+                                      < self._parked[parked.idx]["t"]):
+                    parked = s
+        return parked
+
+    def _match_parked(self, prompt: list[int]) -> tuple[_Slot, int] | None:
+        """Longest parked row whose stored tokens prefix-match ``prompt``:
+        ``min(common prefix, usable, len(prompt) - 1)`` tokens, so at least
+        one prompt token prefills to produce logits (token-exact)."""
+        best, best_len = None, 0
+        limit = len(prompt) - 1
+        p = np.asarray(prompt[:limit], np.int64)
+        for idx, rec in self._parked.items():
+            s = self.slots[idx]
+            if s.active or s.req is not None:
+                continue
+            toks = rec["tokens"]
+            n = min(rec["usable"], limit, len(toks))
+            if n <= best_len:
+                continue
+            diff = toks[:n] != p[:n]
+            m = int(np.argmax(diff)) if diff.any() else n
+            if m > best_len:
+                best, best_len = s, m
+        if best is None or best_len <= 0:
+            return None
+        return best, best_len
 
     def _ensure_pages(self, needed: int) -> bool:
         if self.allocator.can_alloc(needed):
@@ -472,7 +555,7 @@ class Engine:
     def _release(self, s: _Slot) -> None:
         self.allocator.free(s.shared_pages)
         self.allocator.free(s.pages)
-        self.page_tables[s.idx, :] = 0
+        self.page_tables[s.idx, :] = s.idx if self.cache_mode == "slot" else 0
         self.seq_lens[s.idx] = 0
         s.reset()
 
@@ -503,23 +586,35 @@ class Engine:
                            self.max_seq_len)
 
         shared: list[int] = []
+        own: list[int] = []
         cached_len = 0
-        if self.prefix_cache is not None and len(prompt) > self.page_size:
-            # never match the whole prompt: one token must prefill for logits
-            shared, cached_len = self.prefix_cache.match(prompt[:-1])
-        n_new_pages = -(-total_budget // self.page_size) - len(shared)
-        if not self._ensure_pages(n_new_pages):
-            # admit with whatever fits beyond the prompt; decode-time
-            # exhaustion preempts by requeue
-            min_pages = -(-(len(prompt) + 1) // self.page_size) - len(shared)
-            if self._ensure_pages(min_pages):
-                n_new_pages = max(min_pages, self.allocator.num_free // 2)
-                n_new_pages = min(n_new_pages, self.allocator.num_free)
-            else:
-                if shared:
-                    self.allocator.free(shared)
-                raise MemoryError("KV pages exhausted")
-        own = self.allocator.alloc(max(n_new_pages, 0))
+        if self.cache_mode == "slot":
+            # the cache row is the slot row; a parked row whose tokens the
+            # prompt extends is re-entered instead of the free row
+            if self._slot_park:
+                best = self._match_parked(prompt)
+                if best is not None:
+                    slot, cached_len = best
+                    self.stats["slot_park_hits"] += 1
+                    self.stats["slot_park_tokens"] += cached_len
+            self._parked.pop(slot.idx, None)   # the row is being reused
+        else:
+            if self.prefix_cache is not None and len(prompt) > self.page_size:
+                # never match the whole prompt: one token must prefill for logits
+                shared, cached_len = self.prefix_cache.match(prompt[:-1])
+            n_new_pages = -(-total_budget // self.page_size) - len(shared)
+            if not self._ensure_pages(n_new_pages):
+                # admit with whatever fits beyond the prompt; decode-time
+                # exhaustion preempts by requeue
+                min_pages = -(-(len(prompt) + 1) // self.page_size) - len(shared)
+                if self._ensure_pages(min_pages):
+                    n_new_pages = max(min_pages, self.allocator.num_free // 2)
+                    n_new_pages = min(n_new_pages, self.allocator.num_free)
+                else:
+                    if shared:
+                        self.allocator.free(shared)
+                    raise MemoryError("KV pages exhausted")
+            own = self.allocator.alloc(max(n_new_pages, 0))
 
         slot.req, slot.future = req, fut
         slot.shared_pages, slot.pages = shared, own
@@ -538,9 +633,12 @@ class Engine:
             slot.detok = resume["detok"]
 
         b = slot.idx
-        all_pages = shared + own
-        self.page_tables[b, :] = 0
-        self.page_tables[b, : len(all_pages)] = all_pages
+        if self.cache_mode == "slot":
+            self.page_tables[b, 0] = b
+        else:
+            all_pages = shared + own
+            self.page_tables[b, :] = 0
+            self.page_tables[b, : len(all_pages)] = all_pages
         for k, v in (("temperature", req.temperature), ("top_k", req.top_k),
                      ("top_p", req.top_p), ("min_p", req.min_p),
                      ("repetition_penalty", req.repetition_penalty)):
@@ -571,11 +669,14 @@ class Engine:
             eos_id=-1 if self.tokenizer.eos_id is None else self.tokenizer.eos_id)
 
     def _forward(self, tokens, positions, tables, seq_lens, *,
-                 logits_indices=None, fresh=False):
+                 logits_indices=None, fresh=False, slot_ctx=None):
+        """One forward over the engine's pools; ``slot_ctx`` (slot mode, T=1
+        decode) makes it a slot decode reading that context bucket."""
         return self.forward(
             self.params, self.cfg, tokens, positions,
             k_pages=self.k_pages, v_pages=self.v_pages, page_table=tables,
-            seq_lens=seq_lens, logits_indices=logits_indices,
+            seq_lens=seq_lens, logits_indices=logits_indices, impl=self.attn_impl,
+            slot_decode=slot_ctx is not None, slot_ctx=slot_ctx,
             fresh_prefill=fresh, fused_decode=self.layer_fusion)
 
     def _prefill_group(self, bucket: int, grp: list[dict]) -> None:
@@ -583,7 +684,6 @@ class Engine:
         same-bucket requests; folds the first tokens into slot state."""
         t0 = time.monotonic()
         G = len(grp)
-        fresh = self.prefix_cache is None and all(p["cached_len"] == 0 for p in grp)
         P = self._page_bucket(max(p["cached_len"] + len(p["suffix"]) for p in grp))
         tokens = np.zeros((G, bucket), np.int64)
         positions = np.full((G, bucket), -1, np.int64)
@@ -607,7 +707,7 @@ class Engine:
             logits, _ = self._forward(
                 self._t(tokens), self._t(positions), self._t(tables),
                 self._t(seq_lens), logits_indices=self._t(logits_idx),
-                fresh=fresh)
+                fresh=self.fresh_prefill)
             # token presence of each row's whole prompt, built on the device
             seen_rows = torch.zeros((G, self.cfg.vocab_size), dtype=torch.bool,
                                     device=self.device)
@@ -647,8 +747,8 @@ class Engine:
         active = np.array([s.active for s in self.slots], bool)
         # a row whose positions could leave the page budget is not stepped
         active &= self.seq_lens + chunk + 1 <= self.max_seq_len
-        for s in self.slots:   # page headroom for this chunk
-            if not active[s.idx]:
+        for s in self.slots:   # page headroom for this chunk (paged mode only)
+            if not active[s.idx] or self.cache_mode == "slot":
                 continue
             need_pages = -(-int(self.seq_lens[s.idx] + chunk + 1) // self.page_size)
             have = len(s.shared_pages) + len(s.pages)
@@ -669,6 +769,7 @@ class Engine:
             return
         need = int(np.max(np.where(active, self.seq_lens, 0))) + chunk + 1
         P = self._page_bucket(need)
+        slot_ctx = self._slot_bucket(need)
 
         rows = np.arange(self.max_slots)
         with self.spans.span("decode"):
@@ -685,7 +786,8 @@ class Engine:
                 sp = samp._replace(min_tokens=min_toks,
                                    tokens_generated=lens - plens + 1)
                 pos = torch.where(act, lens, torch.full_like(lens, -1))[:, None]
-                logits, _ = self._forward(last[:, None], pos, tables, lens + act_i)
+                logits, _ = self._forward(last[:, None], pos, tables, lens + act_i,
+                                          slot_ctx=slot_ctx)
                 nxt = sample(logits[:, 0], sp, self.seen, self.generator)
                 nxt = torch.where(act, nxt, last)
                 update_seen(self.seen, nxt)
@@ -776,6 +878,14 @@ class Engine:
             all_pages = (slot.shared_pages + slot.pages)[:n_full]
             if all_pages:
                 self.prefix_cache.insert(full_tokens, all_pages)
+        if self._slot_park and finish != "aborted":
+            # park the row's KV for multi-turn re-entry. usable is one token
+            # short: the last kept token's KV is written only when it is fed
+            # (the step after sampling), which a chunk boundary can cut off
+            self._parked[slot.idx] = {
+                "tokens": np.asarray(list(slot.prompt_tokens) + gen_ids, np.int64),
+                "usable": slot.prompt_len + max(len(gen_ids) - 1, 0),
+                "t": time.monotonic()}
         self._release(slot)
         if fut is not None and not fut.done():
             fut.set_result(result)

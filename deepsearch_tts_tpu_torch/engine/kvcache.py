@@ -7,7 +7,12 @@ place); here :func:`write_kv_flat` writes into the pool tensors IN PLACE —
 the pools are engine-owned and no caller keeps an older version.
 
 Page 0 is the *null page*: unassigned page-table entries point at it, so
-device code never branches on validity; padding positions are dropped.
+device code never branches on validity. Padding positions are dropped, as
+in JAX: each pool's storage holds one spare row past its last token row,
+outside the ``[L, N, ps, K, D]`` view, and padding writes land there. In
+slot mode (``N`` = slots, ``ps`` = ``max_seq_len``) there is no null page —
+row 0 is slot 0's token 0 — so a padding write anywhere readable would
+corrupt a live sequence.
 """
 from __future__ import annotations
 
@@ -19,29 +24,46 @@ import torch
 def init_kv_pages(n_layers: int, n_pages: int, page_size: int, n_kv_heads: int,
                   head_dim: int, dtype=torch.bfloat16, device="cpu"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed ``[L, N, ps, K, D]`` key and value pools, each a view of a
+    storage with one spare ``[K, D]`` row at the end (the padding sink)."""
     shape = (n_layers, n_pages, page_size, n_kv_heads, head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    rows = n_layers * n_pages * page_size + 1
+
+    def pool():
+        flat = torch.zeros((rows, n_kv_heads, head_dim), dtype=dtype, device=device)
+        return flat[:-1].view(shape)
+
+    return pool(), pool()
 
 
-def kv_slots(positions: torch.Tensor, table_l: torch.Tensor, page_size: int
-             ) -> torch.Tensor:
+def _rows_with_spare(pool: torch.Tensor) -> torch.Tensor:
+    """``[L·N·ps + 1, K, D]`` view of a contiguous pool from
+    :func:`init_kv_pages`, its spare row included (raises for a pool whose
+    storage has none)."""
+    K, D = pool.shape[-2:]
+    rows = pool.numel() // (K * D)
+    return pool.as_strided((rows + 1, K, D), (K * D, D, 1), pool.storage_offset())
+
+
+def kv_slots(positions: torch.Tensor, table_l: torch.Tensor, page_size: int,
+             spare: int) -> torch.Tensor:
     """Row of each token in the flattened pool (``[L*N*ps]`` numbering):
-    ``table_l[pos // ps] * ps + pos % ps``; padding (position < 0) → 0."""
+    ``table_l[pos // ps] * ps + pos % ps``; padding (position < 0) → the
+    spare row ``spare`` (= L·N·ps)."""
     pos = positions.clamp(min=0).long()
     page = torch.gather(table_l.long(), 1, pos // page_size)
-    return torch.where(positions >= 0, page * page_size + pos % page_size, 0)
+    return torch.where(positions >= 0, page * page_size + pos % page_size, spare)
 
 
 def write_kv_slots(k_flat: torch.Tensor, v_flat: torch.Tensor,
                    k_new: torch.Tensor, v_new: torch.Tensor,
                    slots: torch.Tensor) -> None:
-    """Write [B, T, K, D] rows into the flattened pool at ``slots`` [B, T],
-    in place."""
-    LN, ps, K, D = k_flat.shape
+    """Write [B, T, K, D] rows into the flattened pool at ``slots`` [B, T]
+    (the spare row included), in place."""
+    K, D = k_flat.shape[-2:]
     idx = slots.reshape(-1)
-    k_flat.view(LN * ps, K, D).index_put_((idx,), k_new.reshape(-1, K, D).to(k_flat.dtype))
-    v_flat.view(LN * ps, K, D).index_put_((idx,), v_new.reshape(-1, K, D).to(v_flat.dtype))
+    _rows_with_spare(k_flat).index_put_((idx,), k_new.reshape(-1, K, D).to(k_flat.dtype))
+    _rows_with_spare(v_flat).index_put_((idx,), v_new.reshape(-1, K, D).to(v_flat.dtype))
 
 
 def write_kv_flat(
@@ -54,13 +76,14 @@ def write_kv_flat(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter a chunk's KV into the flattened all-layer pool, in place.
 
-    Padding rows are sent to row 0 of layer 0's null page instead of being
-    filtered out (a boolean filter would sync the host with the device).
-    The null page is only ever read under a mask, so its contents never
-    reach an output. Returns the same (mutated) pool tensors, mirroring the
-    JAX signature."""
+    The pools must come from :func:`init_kv_pages`: padding rows are sent
+    to the spare row past the view instead of being filtered out (a boolean
+    filter would sync the host with the device), so they land nowhere that
+    can be read — JAX drops them out of bounds. Returns the same (mutated)
+    pool tensors, mirroring the JAX signature."""
+    LN, ps = k_flat.shape[:2]
     write_kv_slots(k_flat, v_flat, k_new, v_new,
-                   kv_slots(positions, table_l, k_flat.shape[1]))
+                   kv_slots(positions, table_l, ps, LN * ps))
     return k_flat, v_flat
 
 

@@ -7,12 +7,15 @@ JAX package: the same dict tree (``embed``, ``final_norm``, optional
 copy and the fused decode kernels take layer ``l``'s weights as a pointer
 offset into the stack.
 
-:func:`forward` carries the JAX function's no-cache mode and the three
-serving branches the paged engine runs: fresh prefill, non-fresh re-prefill
-over a cached prefix, and T=1 paged decode — the last through the fused
-layer functions (``ops/fused_layer.py``) when ``fused_decode`` is set and the
-weights are packed. The layer loop is a Python loop (the JAX ``lax.scan``);
-the KV pools are updated in place.
+:func:`forward` carries the JAX function's no-cache mode and the serving
+branches the engine runs: fresh prefill, non-fresh re-prefill over a cached
+prefix, T=1 paged decode and contiguous-slot decode — decode through the
+fused layer functions (``ops/fused_layer.py``) when ``fused_decode`` is set
+and the weights are packed. ``impl`` selects the attention kernels where
+JAX selects its Pallas ones: flash attention for fresh prefill and the
+no-cache forward, the paged kernels for T=1 paged decode, and
+``slot_attention`` for T=1 slot decode. The layer loop is a Python loop
+(the JAX ``lax.scan``); the KV pools are updated in place.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from torch import nn
 from ..engine.kvcache import kv_slots, write_kv_slots
 from ..ops import attention as attn_ops
 from ..ops.fused_layer import fused_out_mlp_stacked, fused_qkv_stacked
+from ..ops.slot_attention import slot_attention
 from .common import apply_rope, dot_bf16, matmul_f32, rms_norm, rope_angles
 
 
@@ -114,6 +118,9 @@ def forward(
     page_table: torch.Tensor | None = None,  # [B, P] int
     seq_lens: torch.Tensor | None = None,    # [B]
     logits_indices: torch.Tensor | None = None,  # [B] position in T to project
+    impl: str = "xla",               # attention: "xla" | "pallas" | "pallas2" | "clamp"
+    slot_decode: bool = False,       # contiguous-slot decode: batch row == pool row
+    slot_ctx: int | None = None,     # context bucket the slot decode reads
     fresh_prefill: bool = False,     # no cached prefix: attend over the chunk
     fused_decode: bool = False,      # T=1 packed-weight fused layer functions
 ):
@@ -122,8 +129,10 @@ def forward(
     Serving mode (pages given): writes the chunk's KV into the paged cache
     IN PLACE and attends over the cached sequence; returns
     ``(logits [B,(T|1),V] f32, (k_pages, v_pages))`` with the same pool
-    tensors. Training mode (pages None): full causal attention, returns
-    ``(logits [B,T,V], None)``.
+    tensors. With ``slot_decode`` the pools are ``[L, B, max_seq_len, K,
+    D]``, row b's table is the identity and attention reads the first
+    ``slot_ctx`` positions of its row. Training mode (pages None): full
+    causal attention, returns ``(logits [B,T,V], None)``.
     """
     lp = params["layers"]
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -137,16 +146,29 @@ def forward(
         L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
         kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
         vpf = v_pages.view((L * N,) + tuple(v_pages.shape[2:]))
+        if slot_decode:
+            page_table = torch.arange(B, device=tokens.device)[:, None]
+            slot_ctx = min(slot_ctx or ps, ps)
         page_table = page_table.long()
         pos_c = positions.clamp(min=0)
         # layer-invariant index math, computed once instead of per layer:
-        # each token's pool row in layer 0 (padding → the null row 0), the
-        # offset one layer adds to it, and the decode attention mask
-        slots0 = kv_slots(positions, page_table, ps)
+        # each token's pool row in layer 0 (padding → the spare row past the
+        # pool), the offset one layer adds to it, and the decode attention
+        # mask or slot limit
+        slots0 = kv_slots(positions, page_table, ps, L * N * ps)
         layer_step = (positions >= 0).long() * (N * ps)
-        decode_mask = None
-        if not fresh_prefill and T == 1:
-            decode_mask = attn_ops.context_mask(seq_lens, pos_c, page_table.shape[1] * ps)
+        kernel_decode = T == 1 and impl in (("pallas",) if slot_decode
+                                            else ("pallas", "pallas2", "clamp"))
+        decode_mask = slot_limit = None
+        if slot_decode and T > 1 and impl == "pallas":
+            raise NotImplementedError(
+                "the slot verify window (slot_window_attention) is not ported to "
+                "the torch package yet (ROADMAP.md A11, kernel B9)")
+        if not fresh_prefill and T == 1 and not kernel_decode:
+            S = slot_ctx if slot_decode else page_table.shape[1] * ps
+            decode_mask = attn_ops.context_mask(seq_lens, pos_c, S)
+        elif slot_decode and kernel_decode:
+            slot_limit = torch.minimum(seq_lens.long(), pos_c[:, 0].long() + 1)
         use_fused = (fused_decode and T == 1 and not fresh_prefill
                      and "wqkv" in lp and "w_gateup" in lp)
         if use_fused:
@@ -174,7 +196,17 @@ def forward(
                 # positions start at 0: causal attention over the chunk
                 # itself; padded tail rows are garbage that is never read
                 write_kv_slots(kpf, vpf, k, v, slots_l)
-                o = attn_ops.causal_attention(q, k, v)
+                o = attn_ops.causal_attention(q, k, v, impl=impl)
+            elif slot_decode:
+                write_kv_slots(kpf, vpf, k, v, slots_l)
+                if slot_limit is not None:
+                    o = slot_attention(q[:, 0], kpf, vpf, slot_limit, l, n_rows=N,
+                                       slot_ctx=slot_ctx)[:, None]
+                else:
+                    rows = slice(l * N, (l + 1) * N)
+                    o = attn_ops.masked_context_attention(
+                        q, kpf[rows, :slot_ctx], vpf[rows, :slot_ctx], seq_lens, pos_c,
+                        mask=decode_mask)
             elif T > 1:
                 # re-prefill over a cached prefix: read the prefix BEFORE
                 # this chunk's in-place write, take the chunk's K/V directly
@@ -187,7 +219,7 @@ def forward(
             else:
                 write_kv_slots(kpf, vpf, k, v, slots_l)
                 o = attn_ops.paged_attention(q, kpf, vpf, table_l, seq_lens, pos_c,
-                                             mask=decode_mask)
+                                             mask=decode_mask, impl=impl)
 
             if use_fused:
                 xf = fused_out_mlp_stacked(
@@ -205,7 +237,7 @@ def forward(
             q, k, v = _qkv(cfg, lp, l, h)
             q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin)
             k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin)
-            o = attn_ops.causal_attention(q.to(x.dtype), k.to(x.dtype), v)
+            o = attn_ops.causal_attention(q.to(x.dtype), k.to(x.dtype), v, impl=impl)
             x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
             h = rms_norm(x, lp["ln2"][l], eps)
             x = x + _mlp(cfg, lp, l, h).to(x.dtype)

@@ -24,7 +24,8 @@ BUILD_DIR = os.path.join(_REPO, "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.Lock()                     # guards _locks
+_locks: dict[str, threading.Lock] = {}       # one per library: builds run in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}   # source name → nvcc's output of the last build
 
@@ -39,8 +40,10 @@ def _nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` once per process and source hash; return
-    the loaded library."""
+    the loaded library. Different libraries may build concurrently."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -1,10 +1,14 @@
-"""Attention paths in plain PyTorch (port of ``ops/attention.py``).
+"""Attention paths (port of ``ops/attention.py``).
 
-In the JAX package these are XLA code, not Pallas kernels, on the default
-paged serving path: fresh prefill runs :func:`causal_attention`, decode runs
-the gather branch of :func:`paged_attention`, and re-prefill over a cached
-prefix runs :func:`prefix_chunk_attention`. They stay plain torch here; the
-paged and flash kernels (queue B of ROADMAP.md) plug in later.
+In the JAX package these are XLA code on the default paged serving path:
+fresh prefill runs :func:`causal_attention`, decode runs the gather branch
+of :func:`paged_attention`, and re-prefill over a cached prefix runs
+:func:`prefix_chunk_attention`; they are plain torch here. The ``impl``
+switch selects the kernels exactly where JAX selects its Pallas ones:
+``causal_attention(impl="pallas")`` runs flash attention (B2,
+``ops/flash_attention.py``), and ``paged_attention`` with ``impl`` in
+``{"pallas", "pallas2", "clamp"}`` runs the paged kernels (B6,
+``ops/paged_attention.py``) at T=1 — T>1 always stays on the gather.
 
 GQA is computed by reshaping query heads into [kv_heads, group], as in JAX.
 Scores and softmax are float32; the value product takes the probabilities
@@ -48,8 +52,13 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     *, scale: float | None = None) -> torch.Tensor:
-    """Full causal self-attention. q,k,v: [B,T,{H|K},D] → [B,T,H,D]."""
+                     *, scale: float | None = None, impl: str = "xla") -> torch.Tensor:
+    """Full causal self-attention. q,k,v: [B,T,{H|K},D] → [B,T,H,D].
+    ``impl="pallas"`` runs :func:`.flash_attention.flash_attention`."""
+    if impl == "pallas":
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, scale=scale)
     D = q.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     T, S = q.shape[1], k.shape[1]
@@ -80,14 +89,29 @@ def paged_attention(
     seq_lens: torch.Tensor,     # [B] valid tokens incl. the current chunk
     q_positions: torch.Tensor,  # [B, T] absolute position of each query
     *, scale: float | None = None, mask: torch.Tensor | None = None,
+    impl: str = "xla",
 ) -> torch.Tensor:
     """Attend queries over their sequence's paged KV (causal by position).
 
-    The chunk's own KV must already be written to the pages. Gathers the
-    table's pages and runs :func:`masked_context_attention` — the XLA
-    reference branch of the JAX function (bf16 KV only). ``mask`` is
+    The chunk's own KV must already be written to the pages. At T=1,
+    ``impl`` "pallas" / "pallas2" / "clamp" runs ``pallas_paged_attention``
+    / ``pallas_paged_decode`` / ``pallas_paged_decode_clamp`` (B6).
+    Otherwise it gathers the table's pages and runs
+    :func:`masked_context_attention` — the XLA reference branch of the JAX
+    function (bf16 KV only); T>1 always takes it, as in JAX. ``mask`` is
     :func:`context_mask` of the same arguments, when the caller already
     has it (it is the same for every layer)."""
+    if impl in ("pallas", "pallas2", "clamp") and q.shape[1] == 1:
+        from . import paged_attention as pa
+
+        if impl == "clamp":
+            return pa.pallas_paged_decode_clamp(q, k_pages, v_pages, page_table,
+                                                seq_lens, scale=scale)
+        if impl == "pallas2":
+            return pa.pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens,
+                                          scale=scale)
+        return pa.pallas_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                                         q_positions, scale=scale)
     B, T, H, D = q.shape
     _, ps, K, _ = k_pages.shape
     S = page_table.shape[1] * ps

@@ -1,0 +1,209 @@
+"""Attention over a paged KV cache (port of ``ops/paged_attention.py``, B6).
+
+Three entry points, each a Pallas kernel in the JAX package:
+
+* :func:`pallas_paged_attention` — a T-token query chunk over the pages of a
+  ``[B, P]`` table, causal by absolute position (query t of row b sits at
+  ``q_positions[b, 0] + t``: the chunk is contiguous, as the TPU kernel
+  assumes), keys ``< seq_len``.
+* :func:`pallas_paged_decode` and :func:`pallas_paged_decode_clamp` — the
+  same math at T=1, keys ``< seq_len``. On the TPU they differ only in how
+  pages reach VMEM.
+
+On Hopper all three launch one kernel, ``decode_attention`` in
+``csrc/attention.cu`` (K1), which also serves the slot cache
+(:mod:`.slot_attention`): one block per (row, kv head) walks that row's
+pages up to its own limit. For a CPU tensor each wrapper runs its plain
+version (``*_plain``), which holds the TPU kernel's round points: float32
+scores and softmax, and p kept in float32 for the value product
+(``paged_attention.py:106``). Each wrapper counts its kernel launches in
+its ``launches`` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .attention import NEG_INF, gather_kv_rows
+
+HEAD_DIM = 128        # head width the kernels are written for
+MAX_QUERY_ROWS = 64   # T·H/K query rows one K1 block holds
+
+
+# ----------------------------------------------------------------- plain torch
+
+def _paged_plain(q, k_pages, v_pages, page_table, seq_lens, qpos0, scale):
+    """Query t of row b attends keys ``< min(seq_len, qpos0 + t + 1)`` of
+    the row's gathered pages; float32 scores, softmax and value product."""
+    B, T, H, D = q.shape
+    _, ps, K, _ = k_pages.shape
+    S = page_table.shape[1] * ps
+    scale = scale if scale is not None else D ** -0.5
+    k = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D).float()
+    v = gather_kv_rows(v_pages, page_table).reshape(B, S, K, D).float()
+    qg = (q.float() * scale).reshape(B, T, K, H // K, D)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k)
+    key = torch.arange(S, device=q.device)
+    lim = torch.minimum(seq_lens.long()[:, None],
+                        qpos0.long()[:, None] + torch.arange(1, T + 1, device=q.device))
+    mask = key[None, None, :] < lim[:, :, None]                     # [B,T,S]
+    s = s.masked_fill(~mask[:, None, None], NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask[:, None, None], torch.exp(s - m), 0.0)
+    out = torch.einsum("bkgts,bskd->btkgd", p, v)
+    out = out / p.sum(-1).clamp(min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def pallas_paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                 q_positions, *, scale=None):
+    """Reference for :func:`pallas_paged_attention` (``_paged_kernel``)."""
+    return _paged_plain(q, k_pages, v_pages, page_table, seq_lens,
+                        q_positions[:, 0], scale)
+
+
+def pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens, *,
+                              scale=None):
+    """Reference for :func:`pallas_paged_decode` (``_paged_decode_kernel``):
+    T=1, keys ``< seq_len``."""
+    if q.shape[1] != 1:
+        raise ValueError(f"the paged decode entries take T=1, got T={q.shape[1]}")
+    return _paged_plain(q, k_pages, v_pages, page_table, seq_lens,
+                        seq_lens.long() - 1, scale)
+
+
+def pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table, seq_lens, *,
+                                    scale=None):
+    """Reference for :func:`pallas_paged_decode_clamp`
+    (``_clamped_decode_kernel``): the same math as the decode kernel."""
+    return pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                     scale=scale)
+
+
+# ------------------------------------------------------------------- kernel K1
+
+def _lib():
+    from ._build import load_library
+
+    lib = load_library("attention")
+    if not getattr(lib, "_dstts_typed", False):
+        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.dstts_decode_attention.argtypes = [p, ll, p, p, p, i, ll, p, p, i, i, i,
+                                               p, i, i, i, i, i, f, i, p]
+        lib.dstts_decode_attention.restype = i
+        lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+        lib.dstts_flash_attention.restype = i
+        lib._dstts_typed = True
+    return lib
+
+
+def _check_index(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
+    if t.device != dev or t.dtype != torch.int64 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected int64 {tuple(shape)} on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: last dimension must be contiguous")
+
+
+def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
+                          row_offset: int = 0, q_positions=None, min_one=False,
+                          max_keys: int | None = None, scale=None, p_bf16=False):
+    """Launch K1. q [B,T,H,128] bf16 (any batch stride, the rest
+    contiguous); pools [R,ps,K,128] bf16 (``v_pool`` may be ``k_pool``);
+    ``page_table`` [B,P] int64 (None: the identity table, row
+    ``row_offset + b``); seq_lens [B] int64; ``q_positions`` [B,T] int64
+    (None: keys ``< seq_len`` at T=1). Query t of row b sees keys
+    ``< min(seq_len (>= 1 if min_one), q_positions[b,0] + t + 1,
+    max_keys)``. Returns [B,T,H,128] bf16."""
+    from .fused_layer import _check, _raise_if
+
+    B, T, H, D = q.shape
+    R, ps, K, _ = k_pool.shape
+    dev = q.device
+    if D != HEAD_DIM or H % K or T * (H // K) > MAX_QUERY_ROWS:
+        raise ValueError(f"decode attention kernel needs head_dim={HEAD_DIM} and "
+                         f"T*H/K <= {MAX_QUERY_ROWS} (got D={D}, T={T}, H={H}, K={K})")
+    if dev.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError(f"q: expected a CUDA bfloat16 tensor, got {q.dtype} on {dev}")
+    if q.stride(3) != 1 or q.stride(2) != D or (T > 1 and q.stride(1) != H * D):
+        raise ValueError(f"q: dimensions 1-3 must be contiguous, got strides {q.stride()}")
+    _check("k_pool", k_pool, (R, ps, K, D))
+    _check("v_pool", v_pool, (R, ps, K, D))
+    if v_pool.device != dev or k_pool.device != dev:
+        raise ValueError("decode attention: q and the pools must share a device")
+    _check_index("seq_lens", seq_lens, (B,), dev)
+    P = 1
+    if page_table is not None:
+        P = page_table.shape[1]
+        _check_index("page_table", page_table, (B, P), dev)
+        if not page_table.is_contiguous():
+            raise ValueError("page_table: must be contiguous")
+    qpos_stride = 0
+    if q_positions is not None:
+        _check_index("q_positions", q_positions, (B, T), dev)
+        qpos_stride = q_positions.stride(0)
+    elif T != 1:
+        raise ValueError("decode attention without q_positions takes T=1")
+    if max_keys is None:
+        max_keys = P * ps
+    scale = scale if scale is not None else D ** -0.5
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=dev)
+    err = _lib().dstts_decode_attention(
+        q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
+        None if page_table is None else page_table.data_ptr(), P, int(row_offset),
+        seq_lens.data_ptr(), None if q_positions is None else q_positions.data_ptr(),
+        qpos_stride, int(bool(min_one)), int(max_keys), out.data_ptr(), B, T, H, K,
+        ps, float(scale), int(bool(p_bf16)), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "decode_attention")
+    return out
+
+
+# ------------------------------------------------------------------- wrappers
+
+def pallas_paged_attention(q, k_pages, v_pages, page_table, seq_lens, q_positions,
+                           *, scale=None):
+    """B6 ``pallas_paged_attention``: q [B,T,H,D] over pages [N,ps,K,D] of
+    the ``[B,P]`` table (layer offset applied), query t at position
+    ``q_positions[b,0] + t``, keys ``< seq_lens[b]``. Returns [B,T,H,D]."""
+    if q.device.type == "cpu":
+        return pallas_paged_attention_plain(q, k_pages, v_pages, page_table,
+                                            seq_lens, q_positions, scale=scale)
+    out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
+                                page_table=page_table.long().contiguous(),
+                                q_positions=q_positions.long(), scale=scale)
+    pallas_paged_attention.launches += 1
+    return out
+
+
+pallas_paged_attention.launches = 0
+
+
+def pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens, *, scale=None):
+    """B6 ``pallas_paged_decode``: T=1, keys ``< seq_lens[b]``."""
+    if q.device.type == "cpu":
+        return pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                         scale=scale)
+    out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
+                                page_table=page_table.long().contiguous(), scale=scale)
+    pallas_paged_decode.launches += 1
+    return out
+
+
+pallas_paged_decode.launches = 0
+
+
+def pallas_paged_decode_clamp(q, k_pages, v_pages, page_table, seq_lens, *,
+                              scale=None):
+    """B6 ``pallas_paged_decode_clamp``: T=1, keys ``< seq_lens[b]``; every
+    K1 block reads exactly its row's used pages, the TPU kernel's clamp."""
+    if q.device.type == "cpu":
+        return pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table,
+                                               seq_lens, scale=scale)
+    out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
+                                page_table=page_table.long().contiguous(), scale=scale)
+    pallas_paged_decode_clamp.launches += 1
+    return out
+
+
+pallas_paged_decode_clamp.launches = 0

@@ -169,9 +169,10 @@ def test_preempted_sequence_resumes_token_identical():
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_mode": "slot"}, {"prefill_lane": 16}, {"speculative": "ngram"},
-    {"chunk_trim": True}, {"quantize": "int8"}, {"kv_quantize": "int8"},
-    {"mesh": object()}, {"ring_prefill_len": 64}, {"attn_impl": "pallas"},
+    {"cache_mode": "slot", "speculative": "ngram"}, {"prefill_lane": 16},
+    {"speculative": "ngram"}, {"chunk_trim": True}, {"quantize": "int8"},
+    {"kv_quantize": "int8"}, {"mesh": object()}, {"ring_prefill_len": 64},
+    {"cache_mode": "slot", "prefill_lane": 16},
 ])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -253,6 +254,15 @@ eng = build_engine(args)
 res = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
 eng.shutdown()
 assert len(res.token_ids) == 4, res
+# the slot cache and the attention kernels' plain versions, too
+from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer
+from deepsearch_tts_tpu_torch.engine.engine import Engine
+eng = Engine("qwen3-test", ByteTokenizer(), device="cpu", cache_mode="slot",
+             attn_impl="pallas", enable_prefix_cache=False, max_slots=2,
+             max_seq_len=128, decode_chunk_len=2)
+slot = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
+eng.shutdown()
+assert len(slot.token_ids) == 4, slot
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "transformers")
                 and sys.modules[m] is not None)
 assert not loaded, loaded

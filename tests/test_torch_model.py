@@ -130,11 +130,8 @@ def test_serving_forwards_match_jax(dtype):
             logits_indices=None if logits_idx is None else torch.from_numpy(logits_idx),
             **kw)
         np.testing.assert_allclose(_np(tl), _np(jl), atol=TOL[dtype], rtol=TOL[dtype])
-        # pools agree wherever a valid token was written (the port sends
-        # padding to the null page, which JAX drops; page 0 is never read
-        # unmasked)
-        np.testing.assert_allclose(_np(tk[:, 1:]), _np(jk[:, 1:]),
-                                   atol=TOL[dtype], rtol=TOL[dtype])
+        # the pools agree everywhere: padding is dropped in both packages
+        np.testing.assert_allclose(_np(tk), _np(jk), atol=TOL[dtype], rtol=TOL[dtype])
 
     # (1) fresh prefill of 8 / 6 tokens, bucketed to T=8
     T = 8
@@ -171,13 +168,16 @@ def test_write_kv_flat_matches_jax():
     jk, jvv = jkv.write_kv_flat(jnp.asarray(kpool), jnp.asarray(vpool), jnp.asarray(knew),
                                 jnp.asarray(vnew), jnp.asarray(positions),
                                 jnp.asarray(table_l))
-    tk, tv = torch.from_numpy(kpool.copy()), torch.from_numpy(vpool.copy())
+    tk5, tv5 = tkv.init_kv_pages(L, N, ps, K, D, dtype=torch.float32)
+    tk, tv = tk5.view(L * N, ps, K, D), tv5.view(L * N, ps, K, D)
+    tk.copy_(torch.from_numpy(kpool))
+    tv.copy_(torch.from_numpy(vpool))
     out = tkv.write_kv_flat(tk, tv, torch.from_numpy(knew), torch.from_numpy(vnew),
                             torch.from_numpy(positions), torch.from_numpy(table_l))
     assert out[0] is tk and out[1] is tv          # written in place
-    # identical everywhere but the null page of layer 0 (padding lands there)
-    assert np.array_equal(tk.numpy()[1:], np.asarray(jk)[1:])
-    assert np.array_equal(tv.numpy()[1:], np.asarray(jvv)[1:])
+    # identical everywhere: padding goes to the spare row past the pool
+    assert np.array_equal(tk.numpy(), np.asarray(jk))
+    assert np.array_equal(tv.numpy(), np.asarray(jvv))
 
 
 def test_page_allocator_matches_jax():
