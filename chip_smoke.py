@@ -15,7 +15,9 @@ Phases, each raising on failure (non-zero exit, no final line):
    card at the serving path's shapes (qwen3-8b widths), with the tolerance
    stated below, timed with CUDA events after warm-up: B3, B4, B5, then
    the attention kernels B1 (slot), B6 (the three paged entries) and B2
-   (flash prefill);
+   (flash prefill); then, at qwen3-30b-a3b widths, B7, both entries of the
+   grouped expert kernel (16 and 3072 tokens x top-8, one expert empty)
+   and B3 / B1 / B2 at its query group G = 8;
 4. serve: ``deepsearch_tts_tpu_torch.cli.serve.build_engine`` builds
    qwen3-8b (full width, bf16, random weights from a seed) on the card; an
    ``OpenAIServer`` on an ephemeral localhost port answers chat and
@@ -32,7 +34,19 @@ Phases, each raising on failure (non-zero exit, no final line):
    prompt, timed beside phase 4's), decode through ``pallas_paged_attention``;
    then short runs with ``attn_impl="pallas2"`` and ``"clamp"``;
 8. reference: slot prefill + B1 decode, and B2 fresh prefill + B6 decode,
-   against the plain no-cache forward.
+   against the plain no-cache forward;
+9. release: the qwen3-8b engines and weights are dropped; less than 1 GiB
+   may stay allocated on the card;
+10. MoE serve: phase 4 for qwen3-30b-a3b (full width, 61 GB of random bf16
+    weights): decode through B3, B7 and the grouped expert kernel, whose
+    counters must equal 48 x the decode steps (B3, B7) and 48 x (decode
+    steps + prefill forwards) (each expert entry); peak memory logged;
+11. MoE reference: phase 5 on the qwen3-30b-a3b weights, the no-cache
+    forward running the expert FFN's plain versions (``plain_experts``), so
+    that the check covers the grouped expert kernel too;
+12. MoE slot: phase 6 on the same weights after the paged pools are freed:
+    B1 decode at G = 8, B3, B7, the grouped expert kernel and a parked-row
+    re-entry.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -73,6 +87,10 @@ CTX = 4096               # max_seq_len of the serve phases: the slot row width
 # page and tile edges, the full row, and inactive rows (0, clamped to 1)
 LIMITS = [1, 17, 500, 4095, 0, 4096, 2048, 64, 65, 1000, 3000, 129, 256, 4000, 7, 0]
 SEQS = [1, 17, 500, 4095, 64, 65, 4096, 2048, 129, 1000, 3000, 256, 7, 4000, 333, 2]
+# qwen3-30b-a3b widths (models/qwen3_moe.py QWEN3_MOE_CONFIGS): hidden, q /
+# kv heads (G = 8), experts, top-k, expert width
+MOE_MODEL = "qwen3-30b-a3b"
+M_E, M_H, M_KV, M_NE, M_TOPK, M_F = 2048, 32, 4, 128, 8, 768
 LIBS = ("fused_layer", "attention")
 LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
 
@@ -111,6 +129,23 @@ def time_ms(fn, calls: int = 1, iters: int = 50) -> tuple[float, float]:
         b.synchronize()
         out.append(a.elapsed_time(b) / (iters * calls))
     return out[0], out[1]
+
+
+def time_eager_ms(fn, iters: int) -> float:
+    """ms per call of ``fn`` run eagerly between two CUDA events (for a
+    function that reads values back to the host, which no graph captures)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def phase_env() -> str:
@@ -248,6 +283,40 @@ def phase_kernels(gen) -> dict:
     return res
 
 
+def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: float,
+                  atol: float, timed: bool = False, nbytes: int = 0, flop: int = 0,
+                  plain_graph: bool = True) -> None:
+    """``kernel()`` against ``plain()`` (tensors or tuples of them) at the
+    stated tolerance; the largest error is kept in ``res[name]``. ``timed``
+    also records device ms of both (``plain_graph=False``: the plain
+    version syncs with the host, so its time is the eager one)."""
+    import torch
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    e = 0.0
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), rtol=rtol, atol=atol)
+        e = max(e, _err(g, r))
+    r = res.setdefault(name, {"err": 0.0})
+    r["err"] = max(r["err"], e)
+    msg = f"[kernel] {name:26s} {label:34s} max_abs_err={e:.3e}"
+    if timed:
+        t = time_ms(kernel, iters=20)
+        p = time_ms(plain, iters=5) if plain_graph else (time_eager_ms(plain, 5),) * 2
+        r["ms"], r["plain_ms"], r["shape"] = t[0], p[0], label
+        msg += (f" | device kernel {t[0]:.4f} ms plain {p[0]:.4f} ms"
+                f"{'' if plain_graph else ' (eager: it syncs)'} | eager "
+                f"kernel {t[1]:.4f} ms plain {p[1]:.4f} ms")
+        if nbytes:
+            msg += f" | {nbytes / t[0] / 1e6:.1f} GB/s"
+        if flop:
+            msg += f" | {flop / t[0] / 1e9:.1f} TFLOP/s"
+    log(msg)
+
+
 def phase_attention_kernels(gen) -> dict:
     """B1, the three B6 entries and B2 against their plain versions at
     qwen3-8b attention widths (H=32, K=8, D=128, bf16); returns per-kernel
@@ -264,25 +333,8 @@ def phase_attention_kernels(gen) -> dict:
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def check(name, label, kernel, plain, timed=False, nbytes=0, flop=0):
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), ref.float(), rtol=ATTN_RTOL,
-                                   atol=ATTN_ATOL)
-        e = _err(got, ref)
-        r = res.setdefault(name, {"err": 0.0})
-        r["err"] = max(r["err"], e)
-        msg = f"[kernel] {name:26s} {label:34s} max_abs_err={e:.3e}"
-        if timed:
-            t, p = time_ms(kernel, iters=20), time_ms(plain, iters=5)
-            r["ms"], r["plain_ms"], r["shape"] = t[0], p[0], label
-            msg += (f" | device kernel {t[0]:.4f} ms plain {p[0]:.4f} ms | eager "
-                    f"kernel {t[1]:.4f} ms plain {p[1]:.4f} ms")
-            if nbytes:
-                msg += f" | {nbytes / t[0] / 1e6:.1f} GB/s"
-            if flop:
-                msg += f" | {flop / t[0] / 1e9:.1f} TFLOP/s"
-        log(msg)
+    def check(*a, **k):
+        _check_kernel(res, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **k)
 
     # B1: a two-layer slot pool of SLOTS rows x CTX tokens
     L = 2
@@ -339,6 +391,134 @@ def phase_attention_kernels(gen) -> dict:
     return res
 
 
+def phase_moe_kernels(gen) -> dict:
+    """B7 and both entries of the grouped expert kernel against their plain
+    versions at qwen3-30b-a3b widths, and B3, K1 (B1) and K2 (B2) at its
+    query group G = H/K = 8; returns per-kernel results (the B3, B1 and B2
+    errors at G = 8 under ``"g8"``)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import rope_angles
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    res: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def check(*a, **k):
+        _check_kernel(res, *a, rtol=BF16_RTOL, atol=BF16_ATOL, **k)
+
+    # B7: the 2-layer check stack of the contract, then an 8-layer stack
+    # (138 MB, beyond the 50 MB L2) for the timing, walked layer by layer
+    for L, timed in ((2, False), (8, True)):
+        wo = rnd(L, M_H * D, M_E, scale=(M_H * D) ** -0.5)
+        ln = rnd(L, M_E, scale=0.1) + 1
+        router = rnd(L, M_E, M_NE, scale=M_E ** -0.5)
+        a, x = rnd(SLOTS, M_H * D), rnd(SLOTS, M_E)
+        for layer in range(L):
+            args = (a, x, wo, ln, router, layer)
+            check("fused_out_router_stacked", f"B={SLOTS} layer={layer} L={L}",
+                  lambda: fl.fused_out_router_stacked(*args),
+                  lambda: fl.fused_out_router_stacked_plain(*args),
+                  timed=False)
+        if timed:
+            def walk(f):
+                return lambda: [f(a, x, wo, ln, router, layer) for layer in range(L)]
+
+            t = time_ms(walk(fl.fused_out_router_stacked), calls=L)
+            p = time_ms(walk(fl.fused_out_router_stacked_plain), calls=L)
+            r = res["fused_out_router_stacked"]
+            r["ms"], r["plain_ms"], r["shape"] = t[0], p[0], f"B={SLOTS} (8 layers walked)"
+            nbytes = (M_H * D * M_E + M_E * M_NE) * 2
+            log(f"[kernel] B7 fused_out_router_stacked B={SLOTS} | device kernel "
+                f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain "
+                f"{p[1]:.4f} ms | {nbytes / t[0] / 1e6:.1f} GB/s")
+        del wo, ln, router
+
+    # grouped expert FFN over the rows of one layer of a 2-layer expert stack
+    # (layer 1: the layer offset); expert 7 gets no rows
+    wgu = rnd(2, M_NE, M_E, 2 * M_F, scale=M_E ** -0.5)[1]
+    wd = rnd(2, M_NE, M_F, M_E, scale=M_F ** -0.5)[1]
+    for T in (SLOTS, 3072):
+        logits = torch.randn((T, M_NE), generator=gen, device=dev) * 2
+        logits[:, 7] = -1e30
+        _, top_e = moe.route_topk(logits, M_TOPK)
+        flat_e = top_e.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        offsets = moe.group_offsets(flat_e, M_NE)
+        xs = rnd(T, M_E)[order // M_TOPK]
+        assert int(offsets[7]) == int(offsets[8]), "expert 7 must be empty"
+        touched = int(((offsets[1:] - offsets[:-1]) > 0).sum())
+        label = f"T={T} x top-{M_TOPK} ({touched} experts)"
+        h = moe.grouped_gateup_plain(xs, wgu, None, offsets)
+        decode = T == SLOTS
+        check("grouped_gateup", label, lambda: moe.grouped_gateup(xs, wgu, None, offsets),
+              lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets), timed=True,
+              nbytes=touched * M_E * 2 * M_F * 2, plain_graph=False)
+        check("grouped_down", label, lambda: moe.grouped_down(h, wd, offsets),
+              lambda: moe.grouped_down_plain(h, wd, offsets), timed=True,
+              nbytes=touched * M_F * M_E * 2, plain_graph=False)
+        if decode:
+            kept = {n: dict(res[n]) for n in ("grouped_gateup", "grouped_down")}
+            wg, wu = wgu[..., :M_F].contiguous(), wgu[..., M_F:].contiguous()
+            check("grouped_gateup", label + " unpacked",
+                  lambda: moe.grouped_gateup(xs, wg, wu, offsets),
+                  lambda: moe.grouped_gateup_plain(xs, wg, wu, offsets))
+            del wg, wu
+    # the decode shape is the one the JSON line reports
+    for n, r in kept.items():
+        res[n].update({k: r[k] for k in ("ms", "plain_ms", "shape")})
+    del wgu, wd
+
+    # B3 at G = 8: E = 2048, 32 q and 4 kv heads ((H + 2K)·D = 5120 columns,
+    # another split-K choice, per-head norm and rope over 4 kv heads), every
+    # layer of a 4-layer stack, at B = 1 and the decode batch
+    scratch: dict = {}
+    L = 4
+    ln = rnd(L, M_E, scale=0.1) + 1
+    qn, kn = rnd(L, D, scale=0.1) + 1, rnd(L, D, scale=0.1) + 1
+    wqkv = rnd(L, M_E, (M_H + 2 * M_KV) * D, scale=M_E ** -0.5)
+    kw3 = dict(n_heads=M_H, n_kv=M_KV, head_dim=D, eps=1e-6)
+    for B in (1, SLOTS):
+        x = rnd(B, M_E)
+        cos, sin = rope_angles(torch.randint(0, 4000, (B,), generator=gen, device=dev),
+                               D, 1_000_000.0)
+        for layer in range(L):
+            args3 = (x, ln, wqkv, qn, kn, cos, sin, layer)
+            _check_kernel(scratch, "fused_qkv_stacked", f"G=8 B={B} layer={layer} L={L}",
+                          lambda: fl.fused_qkv_stacked(*args3, **kw3),
+                          lambda: fl.fused_qkv_stacked_plain(*args3, **kw3),
+                          rtol=BF16_RTOL, atol=BF16_ATOL)
+    del ln, qn, kn, wqkv
+
+    # K1 (B1) and K2 (B2) at G = 8
+    L = 2
+    kp, vp = rnd(L * SLOTS, CTX, M_KV, D), rnd(L * SLOTS, CTX, M_KV, D)
+    q = rnd(SLOTS, M_H, D)
+    lim = torch.tensor(LIMITS, device=dev)
+    kw = dict(n_rows=SLOTS, slot_ctx=CTX)
+    for layer in range(L):
+        _check_kernel(scratch, "slot_attention", f"G=8 B={SLOTS} layer={layer} ctx={CTX}",
+                      lambda: sa.slot_attention(q, kp, vp, lim, layer, **kw),
+                      lambda: sa.slot_attention_plain(q, kp, vp, lim, layer, **kw),
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=layer == 1)
+    del kp, vp
+    for B, T in ((4, 512), (1, 3030), (1, 3072)):
+        qf, kf, vf = rnd(B, T, M_H, D), rnd(B, T, M_KV, D), rnd(B, T, M_KV, D)
+        _check_kernel(scratch, "flash_attention", f"G=8 B={B} T={T}",
+                      lambda: fa.flash_attention(qf, kf, vf),
+                      lambda: fa.flash_attention_plain(qf, kf, vf),
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=T == 3072,
+                      flop=4 * B * M_H * D * T * (T + 1) // 2)
+    res["g8"] = scratch
+    return res
+
+
 @contextlib.contextmanager
 def _serve_http(engine):
     """An ``OpenAIServer`` for ``engine`` on an ephemeral localhost port,
@@ -374,22 +554,22 @@ def _release(engine) -> dict:
     return params
 
 
-def _engine(params, **kw):
-    """qwen3-8b on the card over the served weights, ``SLOTS`` rows."""
+def _engine(params, model: str = "qwen3-8b", **kw):
+    """``model`` on the card over the served weights, ``SLOTS`` rows."""
     from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer
     from deepsearch_tts_tpu_torch.engine.engine import Engine
 
-    return Engine("qwen3-8b", ByteTokenizer(), params=params, device="cuda",
+    return Engine(model, ByteTokenizer(), params=params, device="cuda",
                   max_slots=SLOTS, max_seq_len=CTX, decode_chunk_len=8, **kw)
 
 
-def phase_slot_serve(card: str, params: dict, profile: bool = False) -> dict:
-    """The slot engine with parking, default ``attn_impl``, over HTTP."""
+def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
+                     profile: bool = False, tag: str = "slot") -> dict:
+    """The slot engine with parking, default ``attn_impl``, over HTTP, on
+    the served weights of ``model``."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.weights import pack_matmul_params
-    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
-    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
     from deepsearch_tts_tpu_torch.ops import slot_attention as sa
 
     # the engine packs its params; on the served (packed) tree that is the
@@ -397,21 +577,22 @@ def phase_slot_serve(card: str, params: dict, profile: bool = False) -> dict:
     packed = pack_matmul_params(params)
     assert all(packed["layers"][k] is t for k, t in params["layers"].items())
     t0 = time.time()
-    engine = _engine(params, cache_mode="slot")
+    engine = _engine(params, model=model, cache_mode="slot")
     engine.warmup(prompt_lens=(64,))
-    log(f"[slot] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
+    log(f"[{tag}] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
         f"{engine.attn_impl}; memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
-    cfg, out = engine.cfg, {}
+    counters = {**_counters(model), "slot_attention": sa.slot_attention}
+    out: dict = {}
     try:
         with _serve_http(engine) as base:
             def chat(content, **kw):
                 payload = {"messages": [{"role": "user", "content": content}], **kw}
                 return _post(f"{base}/chat/completions", payload)
 
-            fl.fused_qkv_stacked.launches = fl.fused_out_mlp_stacked.launches = 0
-            sp.sampling_prep.launches = sa.slot_attention.launches = 0
+            for f in counters.values():
+                f.launches = 0
             st0 = dict(engine.stats)
             ttfts = []
             for i in range(5):
@@ -421,7 +602,7 @@ def phase_slot_serve(card: str, params: dict, profile: bool = False) -> dict:
             out["ttft_s"] = sorted(ttfts)[2]
 
             results = _burst(chat, 4, 48)
-            log(f"[slot] 4 concurrent chat: completion tokens "
+            log(f"[{tag}] 4 concurrent chat: completion tokens "
                 f"{[r[1]['usage']['completion_tokens'] for r in results]}")
 
             # the same greedy request twice, sent together, so that both
@@ -462,7 +643,7 @@ def phase_slot_serve(card: str, params: dict, profile: bool = False) -> dict:
             cached = r[1]["usage"]["prompt_tokens_details"]["cached_tokens"]
             hits = engine.stats["slot_park_hits"] - hits0
             assert r[0] == 200 and cached > 0 and hits >= 1, (r[1]["usage"], hits)
-            log(f"[slot] multi-turn follow-up: prompt_tokens "
+            log(f"[{tag}] multi-turn follow-up: prompt_tokens "
                 f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached} "
                 f"(parked-row re-entries {hits})")
 
@@ -477,21 +658,11 @@ def phase_slot_serve(card: str, params: dict, profile: bool = False) -> dict:
                 _profile_burst(chat, engine)
 
             st1 = dict(engine.stats)
-            steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
-            samples = steps + st1["prefill_dispatches"] - st0["prefill_dispatches"]
-            launches = {"slot_attention": sa.slot_attention.launches,
-                        "fused_qkv_stacked": fl.fused_qkv_stacked.launches,
-                        "fused_out_mlp_stacked": fl.fused_out_mlp_stacked.launches,
-                        "sampling_prep": sp.sampling_prep.launches}
-            log(f"[slot] decode steps {steps}, sample calls {samples}, launches "
-                f"{launches}, park hits {st1['slot_park_hits'] - st0['slot_park_hits']}")
-            for name in ("slot_attention", "fused_qkv_stacked", "fused_out_mlp_stacked"):
-                assert launches[name] == cfg.n_layers * steps > 0, launches
-            assert launches["sampling_prep"] == samples, launches
-            out["launches"] = launches
+            out["launches"] = _check_launches(tag, engine, counters, st0, st1)
+            log(f"[{tag}] park hits {st1['slot_park_hits'] - st0['slot_park_hits']}")
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
                                    / (st1["decode_time_s"] - st0["decode_time_s"]))
-        log(f"[slot] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms | decode "
+        log(f"[{tag}] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms | decode "
             f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch of "
             f"{SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
             f"({out['burst_step_ms']:.2f} ms per decode step)")
@@ -662,36 +833,67 @@ def _profile_burst(chat, engine) -> None:
     log(f"[profile] engine spans {json.dumps(spans)}")
 
 
-def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
-    """Serve qwen3-8b over HTTP through the port's own construction."""
+def _counters(model: str) -> dict:
+    """The launch counters of ``model``'s fused decode path: name → wrapper
+    (B3, B5, and B4 for qwen3-8b or B7 and the grouped expert entries for
+    qwen3-30b-a3b)."""
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    fns = [fl.fused_qkv_stacked, sp.sampling_prep]
+    fns += ([fl.fused_out_router_stacked, moe.grouped_gateup, moe.grouped_down]
+            if model == MOE_MODEL else [fl.fused_out_mlp_stacked])
+    return {f.__name__: f for f in fns}
+
+
+def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict) -> dict:
+    """Read the counters after a phase and hold them to the phase's work:
+    B3, B4/B7 and B1 once per layer and decode step, each grouped expert
+    entry once per layer and forward (decode steps + prefill dispatches), B5
+    once per sample."""
+    L = engine.cfg.n_layers
+    steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
+    prefills = st1["prefill_dispatches"] - st0["prefill_dispatches"]
+    launches = {n: f.launches for n, f in counters.items()}
+    log(f"[{tag}] decode steps {steps}, prefill dispatches {prefills}, sample calls "
+        f"{steps + prefills}, launches {launches}")
+    for name, n in launches.items():
+        want = (steps + prefills if name == "sampling_prep"
+                else L * (steps + prefills) if name.startswith("grouped_")
+                else L * steps)
+        assert n == want > 0, (name, n, want)
+    return launches
+
+
+def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
+                tag: str = "serve") -> tuple[dict, object]:
+    """Serve ``model`` over HTTP through the port's own construction."""
     import torch
 
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
-    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
-    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
     args = build_parser().parse_args([
-        "--model", "qwen3-8b", "--device", "cuda", "--seed", "0",
+        "--model", model, "--device", "cuda", "--seed", "0",
         "--max_slots", str(SLOTS), "--page_size", "64", "--pages", "1024",
         "--max_seq_len", "4096", "--decode_chunk", "8", "--warmup", "64"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     engine = build_engine(args)
     torch.cuda.synchronize()
-    log(f"[serve] engine built (random qwen3-8b weights, warmup) in "
-        f"{time.time() - t0:.1f} s; layer_fusion={engine.layer_fusion}; "
+    out: dict = {"build_s": time.time() - t0}
+    log(f"[{tag}] engine built (random {model} weights, warmup) in "
+        f"{out['build_s']:.1f} s; layer_fusion={engine.layer_fusion}; "
         f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     if not engine.layer_fusion:
-        raise AssertionError("the qwen3-8b bf16 engine must run the fused decode layers")
+        raise AssertionError(f"the {model} bf16 engine must run the fused decode layers")
 
-    cfg = engine.cfg
-    out: dict = {}
+    counters = _counters(model)
     try:
         with _serve_http(engine) as base:
             # counters are zeroed right before the main path runs
-            fl.fused_qkv_stacked.launches = 0
-            fl.fused_out_mlp_stacked.launches = 0
-            sp.sampling_prep.launches = 0
+            for f in counters.values():
+                f.launches = 0
             st0 = dict(engine.stats)
 
             def chat(content, **kw):
@@ -724,7 +926,7 @@ def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
                 assert r is not None and r[0] == 200, r
                 u = r[1]["usage"]
                 assert 1 <= u["completion_tokens"] <= 48 and u["prompt_tokens"] > 0, u
-            log(f"[serve] 4 concurrent chat: completion tokens "
+            log(f"[{tag}] 4 concurrent chat: completion tokens "
                 f"{[r[1]['usage']['completion_tokens'] for r in results]}")
 
             # (c) one greedy request twice: identical text (prompt under one
@@ -752,7 +954,7 @@ def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
             r = _post(f"{base}/chat/completions", {"messages": msgs, "max_tokens": 16})
             cached = r[1]["usage"]["prompt_tokens_details"]["cached_tokens"]
             assert r[0] == 200 and cached > 0, r[1]["usage"]
-            log(f"[serve] multi-turn follow-up: prompt_tokens "
+            log(f"[{tag}] multi-turn follow-up: prompt_tokens "
                 f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached}")
 
             # (f) /v1/completions
@@ -766,9 +968,9 @@ def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
             u = r[1]["usage"]
             assert r[0] == 200 and u["prompt_tokens"] > 2900 and u["completion_tokens"] >= 1, u
             out["long_prompt_tokens"], out["long_prompt_s"] = u["prompt_tokens"], r[2]
-            log(f"[serve] long prompt: {u['prompt_tokens']} prompt tokens answered "
-                f"in {r[2] * 1000:.1f} ms; peak memory allocated "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[{tag}] long prompt: {u['prompt_tokens']} prompt tokens answered "
+                f"in {r[2] * 1000:.1f} ms; peak memory allocated {out['peak_gib']:.2f} GiB")
 
             # (h) a full batch: max_slots concurrent requests for decode tok/s
             d0 = dict(engine.stats)
@@ -786,19 +988,10 @@ def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
                 _profile_burst(chat, engine)
 
             st1 = dict(engine.stats)
-            steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
-            samples = steps + (st1["prefill_dispatches"] - st0["prefill_dispatches"])
-            launches = {"fused_qkv_stacked": fl.fused_qkv_stacked.launches,
-                        "fused_out_mlp_stacked": fl.fused_out_mlp_stacked.launches,
-                        "sampling_prep": sp.sampling_prep.launches}
-            log(f"[serve] decode steps {steps}, sample calls {samples}, launches {launches}")
-            assert launches["fused_qkv_stacked"] == cfg.n_layers * steps > 0, launches
-            assert launches["fused_out_mlp_stacked"] == cfg.n_layers * steps, launches
-            assert launches["sampling_prep"] == samples > 0, launches
-            out["launches"] = launches
+            out["launches"] = _check_launches(tag, engine, counters, st0, st1)
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
                                    / (st1["decode_time_s"] - st0["decode_time_s"]))
-            log(f"[serve] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms "
+            log(f"[{tag}] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms "
                 f"(max {out['ttft_max_s'] * 1000:.1f}) | decode "
                 f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch "
                 f"of {SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
@@ -809,9 +1002,11 @@ def phase_serve(card: str, profile: bool = False) -> tuple[dict, object]:
     return out, engine
 
 
-def phase_reference(engine) -> None:
+def phase_reference(engine, **plain_kw) -> None:
     """Paged prefill + fused decode (the serving branches) vs the plain
-    no-cache forward, on the served weights, for a 24-token input."""
+    no-cache forward, on the served weights, for a 24-token input.
+    ``plain_kw`` keeps the reference off the kernels the no-cache forward
+    would otherwise run (the MoE family's grouped expert kernel)."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages
@@ -822,7 +1017,7 @@ def phase_reference(engine) -> None:
     toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None]
     with torch.no_grad():
-        ref, _ = engine.forward(engine.params, cfg, toks, pos)
+        ref, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
         kp, vp = init_kv_pages(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim,
                                dtype=cfg.torch_dtype, device=dev)
         table = torch.tensor([[1]], device=dev)
@@ -855,7 +1050,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="add a full-batch burst under torch.profiler to the "
-                         "serve and slot serve phases (device time by kernel, "
+                         "qwen3-8b serve and slot serve phases and the "
+                         "qwen3-30b-a3b serve phase (device time by kernel, "
                          "idle share)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel checks (prints "
@@ -875,8 +1071,11 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
     res.update(phase_attention_kernels(gen))
+    moe_res = phase_moe_kernels(gen)
+    g8 = moe_res.pop("g8")
+    res.update(moe_res)
     if opts.kernels_only:
-        print(json.dumps({"kernels": res, "card": card}))
+        print(json.dumps({"kernels": res, "g8": g8, "card": card}))
         return 0
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
@@ -884,15 +1083,33 @@ def main(argv=None) -> int:
     slot = phase_slot_serve(card, params, profile=opts.profile)
     pallas = phase_pallas_serve(card, params, serve["long_prompt_s"])
     phase_attention_reference(params)
+
+    # the qwen3-30b-a3b phases need the card to themselves: 61 GB of weights
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[release] qwen3-8b engines and weights released: {held:.3f} GiB still allocated")
+    assert held < 1.0, held
+    moe_serve, engine = phase_serve(card, model=MOE_MODEL, profile=opts.profile, tag="moe")
+    phase_reference(engine, plain_experts=True)
+    params = _release(engine)
+    del engine
+    moe_slot = phase_slot_serve(card, params, model=MOE_MODEL, tag="moe-slot")
+
     src = "deepsearch_tts_tpu_torch/ops/"
     jsrc = "deepsearch_tts_tpu/ops/"
     attn = src + "csrc/attention.cu"
+    fused = src + "csrc/fused_layer.cu"
+    ragged = jsrc + "moe.py:81 _expert_ffn_ragged (lax.ragged_dot)"
     # name: (route, source, TPU kernel it replaces, the run whose launches count)
     meta = {
-        "fused_qkv_stacked": ("cuda", src + "csrc/fused_layer.cu",
-                              jsrc + "fused_layer.py:244", serve),
-        "fused_out_mlp_stacked": ("cuda", src + "csrc/fused_layer.cu",
-                                  jsrc + "fused_layer.py:356", serve),
+        "fused_qkv_stacked": ("cuda", fused, jsrc + "fused_layer.py:244", serve),
+        "fused_out_mlp_stacked": ("cuda", fused, jsrc + "fused_layer.py:356", serve),
+        "fused_out_router_stacked": ("cuda", fused, jsrc + "fused_layer.py:818",
+                                     moe_serve),
+        "grouped_gateup": ("cuda", fused, ragged, moe_serve),
+        "grouped_down": ("cuda", fused, ragged, moe_serve),
         "sampling_prep": ("triton", src + "sampling_prep.py",
                           jsrc + "sampling_prep.py:30", serve),
         "slot_attention": ("cuda", attn, jsrc + "slot_attention.py:110", slot),
@@ -911,7 +1128,9 @@ def main(argv=None) -> int:
                       "slot_serve": {k: v for k, v in slot.items() if k != "launches"},
                       "pallas_serve": {k: v for k, v in pallas.items()
                                        if k != "launches"},
-                      "card": card}))
+                      "moe_serve": {k: v for k, v in moe_serve.items() if k != "launches"},
+                      "moe_slot": {k: v for k, v in moe_slot.items() if k != "launches"},
+                      "g8": g8, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,8 @@
 Usage:
     python -m deepsearch_tts_tpu_torch.cli.serve --model qwen3-8b --device cuda \\
         --weights /path/to/safetensors --port 8000 --max_slots 64
+    python -m deepsearch_tts_tpu_torch.cli.serve --model qwen3-30b-a3b \\
+        --device cuda --pages 1024 --max_seq_len 4096 --max_slots 16
 
 The flags are the JAX CLI's, plus ``--device`` and ``--seed`` (random
 weights when ``--weights`` is empty). :func:`build_engine` is the engine

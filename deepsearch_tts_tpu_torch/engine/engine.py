@@ -208,14 +208,15 @@ class Engine:
         self.max_pages_per_seq = -(-max_seq_len // page_size)   # 1 in slot mode
         self.decode_chunk_len = decode_chunk_len
         if layer_fusion is None:
-            # as in JAX: on for single-device bf16 dense serving (the plain
-            # version on the CPU, the CUDA kernels where their shapes fit)
+            # as in JAX (engine.py:278-325): on for single-device bf16
+            # serving of a family with a fused decode layer (dense, ragged
+            # MoE) — the plain versions on the CPU, the CUDA kernels where
+            # their shapes fit
             from ..ops.fused_layer import shapes_ok
 
-            layer_fusion = cfg.dtype == "bfloat16" and (
-                self.device.type == "cpu"
-                or shapes_ok(cfg.hidden, cfg.n_heads * cfg.head_dim,
-                             cfg.intermediate, cfg.head_dim))
+            widths = cfg.fused_decode_widths()
+            layer_fusion = (cfg.dtype == "bfloat16" and widths is not None and (
+                self.device.type == "cpu" or shapes_ok(*widths, cfg.head_dim)))
         self.layer_fusion = bool(layer_fusion)
 
         from .weights import pack_matmul_params, random_params

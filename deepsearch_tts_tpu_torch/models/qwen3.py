@@ -50,6 +50,16 @@ class Qwen3Config:
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def mlp_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Per-layer MLP weights in the packed layout the engine serves."""
+        return {"w_gateup": (self.hidden, 2 * self.intermediate),
+                "w_down": (self.intermediate, self.hidden)}
+
+    def fused_decode_widths(self) -> tuple[int, int, int] | None:
+        """(E, H·D, N) of the fused T=1 decode layer's products, N being
+        B4's MLP width F; None where the family runs no fused decode."""
+        return self.hidden, self.n_heads * self.head_dim, self.intermediate
+
 
 # Published size points of the family (head_dim is 128 across the board).
 QWEN3_CONFIGS = {
@@ -107,6 +117,112 @@ def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
     return logits.reshape(*x.shape[:-1], -1)
 
 
+class ServingAttention:
+    """The attention half of a serving decoder layer, shared by the dense and
+    the MoE family (the JAX families each carry their own copy).
+
+    Built once per serving forward: the layer-invariant index math — each
+    token's pool row in layer 0 (padding → the spare row past the pool), the
+    offset one layer adds to it, and the decode attention mask or slot limit.
+    ``attend(l, x)`` then runs layer ``l``: q/k/v (the fused B3 kernel on
+    ``x`` [B,E] when ``fused``, else the plain chain on ``x`` [B,T,E]), the
+    in-place KV write and one of five branches — fresh causal prefill,
+    slot decode (B1 or the masked gather), re-prefill over a cached prefix,
+    and T=1 paged decode (B6 or the gather). Returns o [B,T,H,D]."""
+
+    def __init__(self, cfg, lp: dict, positions, cos, sin, *, k_pages, v_pages,
+                 page_table, seq_lens, impl: str, slot_decode: bool,
+                 slot_ctx: int | None, fresh_prefill: bool, fused: bool):
+        B, T = positions.shape
+        L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+        self.cfg, self.lp, self.cos, self.sin = cfg, lp, cos, sin
+        self.kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
+        self.vpf = v_pages.view((L * N,) + tuple(v_pages.shape[2:]))
+        if slot_decode:
+            page_table = torch.arange(B, device=positions.device)[:, None]
+            slot_ctx = min(slot_ctx or ps, ps)
+        self.page_table = page_table.long()
+        self.positions, self.seq_lens, self.impl = positions, seq_lens, impl
+        self.slot_decode, self.slot_ctx, self.fresh = slot_decode, slot_ctx, fresh_prefill
+        self.N, self.ps, self.fused = N, ps, fused
+        self.pos_c = positions.clamp(min=0)
+        self.slots0 = kv_slots(positions, self.page_table, ps, L * N * ps)
+        self.layer_step = (positions >= 0).long() * (N * ps)
+        kernel_decode = T == 1 and impl in (("pallas",) if slot_decode
+                                            else ("pallas", "pallas2", "clamp"))
+        self.decode_mask = self.slot_limit = None
+        if slot_decode and T > 1 and impl == "pallas":
+            raise NotImplementedError(
+                "the slot verify window (slot_window_attention) is not ported to "
+                "the torch package yet (ROADMAP.md A11, kernel B9)")
+        if not fresh_prefill and T == 1 and not kernel_decode:
+            S = slot_ctx if slot_decode else self.page_table.shape[1] * ps
+            self.decode_mask = attn_ops.context_mask(seq_lens, self.pos_c, S)
+        elif slot_decode and kernel_decode:
+            self.slot_limit = torch.minimum(seq_lens.long(), self.pos_c[:, 0].long() + 1)
+        if fused:
+            self.cosf, self.sinf = cos.reshape(B, -1), sin.reshape(B, -1)
+
+    def __call__(self, l: int, x: torch.Tensor) -> torch.Tensor:
+        cfg, lp = self.cfg, self.lp
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        B, T = self.positions.shape
+        if self.fused:
+            qf, kf, vf = fused_qkv_stacked(
+                x, lp["ln1"], lp["wqkv"], lp["q_norm"], lp["k_norm"], self.cosf,
+                self.sinf, l, n_heads=H, n_kv=K, head_dim=D, eps=cfg.rms_eps)
+            q, k, v = qf.reshape(B, 1, H, D), kf.reshape(B, 1, K, D), vf.reshape(B, 1, K, D)
+        else:
+            q, k, v = _qkv_roped(cfg, lp, l, x, self.cos, self.sin)
+            v = v.to(x.dtype)
+        kpf, vpf, N = self.kpf, self.vpf, self.N
+        table_l = self.page_table + l * N
+        slots_l = self.slots0 + l * self.layer_step
+        if self.fresh:
+            # positions start at 0: causal attention over the chunk itself;
+            # padded tail rows are garbage that is never read
+            write_kv_slots(kpf, vpf, k, v, slots_l)
+            return attn_ops.causal_attention(q, k, v, impl=self.impl)
+        if self.slot_decode:
+            write_kv_slots(kpf, vpf, k, v, slots_l)
+            if self.slot_limit is not None:
+                return slot_attention(q[:, 0], kpf, vpf, self.slot_limit, l, n_rows=N,
+                                      slot_ctx=self.slot_ctx)[:, None]
+            rows = slice(l * N, (l + 1) * N)
+            return attn_ops.masked_context_attention(
+                q, kpf[rows, :self.slot_ctx], vpf[rows, :self.slot_ctx], self.seq_lens,
+                self.pos_c, mask=self.decode_mask)
+        if T > 1:
+            # re-prefill over a cached prefix: read the prefix BEFORE this
+            # chunk's in-place write, take the chunk's K/V directly
+            P, ps = table_l.shape[1], self.ps
+            k_old = attn_ops.gather_kv_rows(kpf, table_l).reshape(B, P * ps, K, D)
+            v_old = attn_ops.gather_kv_rows(vpf, table_l).reshape(B, P * ps, K, D)
+            write_kv_slots(kpf, vpf, k, v, slots_l)
+            return attn_ops.prefix_chunk_attention(
+                q, k_old, v_old, k, v, self.positions[:, 0], self.positions)
+        write_kv_slots(kpf, vpf, k, v, slots_l)
+        return attn_ops.paged_attention(q, kpf, vpf, table_l, self.seq_lens, self.pos_c,
+                                        mask=self.decode_mask, impl=self.impl)
+
+
+def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin):
+    """Layer ``l``'s plain q/k/v: rmsnorm, projection, per-head q/k norm and
+    RoPE; q and k in x's dtype, v as the projection leaves it."""
+    eps = cfg.rms_eps
+    h = rms_norm(x, lp["ln1"][l], eps)
+    q, k, v = _qkv(cfg, lp, l, h)
+    q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin).to(x.dtype)
+    k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin).to(x.dtype)
+    return q, k, v
+
+
+def _fused_decode_on(fused_decode, T, fresh_prefill, lp) -> bool:
+    """Whether a serving forward takes the fused T=1 layer functions."""
+    return (fused_decode and T == 1 and not fresh_prefill
+            and "wqkv" in lp and "w_gateup" in lp)
+
+
 def forward(
     params: dict,
     cfg: Qwen3Config,
@@ -135,7 +251,7 @@ def forward(
     causal attention, returns ``(logits [B,T,V], None)``.
     """
     lp = params["layers"]
-    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, D = cfg.n_heads, cfg.head_dim
     eps = cfg.rms_eps
     x = params["embed"][tokens.long()]
     cos, sin = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
@@ -143,89 +259,22 @@ def forward(
     serving = k_pages is not None
 
     if serving:
-        L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
-        kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
-        vpf = v_pages.view((L * N,) + tuple(v_pages.shape[2:]))
-        if slot_decode:
-            page_table = torch.arange(B, device=tokens.device)[:, None]
-            slot_ctx = min(slot_ctx or ps, ps)
-        page_table = page_table.long()
-        pos_c = positions.clamp(min=0)
-        # layer-invariant index math, computed once instead of per layer:
-        # each token's pool row in layer 0 (padding → the spare row past the
-        # pool), the offset one layer adds to it, and the decode attention
-        # mask or slot limit
-        slots0 = kv_slots(positions, page_table, ps, L * N * ps)
-        layer_step = (positions >= 0).long() * (N * ps)
-        kernel_decode = T == 1 and impl in (("pallas",) if slot_decode
-                                            else ("pallas", "pallas2", "clamp"))
-        decode_mask = slot_limit = None
-        if slot_decode and T > 1 and impl == "pallas":
-            raise NotImplementedError(
-                "the slot verify window (slot_window_attention) is not ported to "
-                "the torch package yet (ROADMAP.md A11, kernel B9)")
-        if not fresh_prefill and T == 1 and not kernel_decode:
-            S = slot_ctx if slot_decode else page_table.shape[1] * ps
-            decode_mask = attn_ops.context_mask(seq_lens, pos_c, S)
-        elif slot_decode and kernel_decode:
-            slot_limit = torch.minimum(seq_lens.long(), pos_c[:, 0].long() + 1)
-        use_fused = (fused_decode and T == 1 and not fresh_prefill
-                     and "wqkv" in lp and "w_gateup" in lp)
+        use_fused = _fused_decode_on(fused_decode, T, fresh_prefill, lp)
+        attend = ServingAttention(
+            cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
+            page_table=page_table, seq_lens=seq_lens, impl=impl,
+            slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
+            fused=use_fused)
         if use_fused:
             xf = x.reshape(B, E)
-            cosf = cos.reshape(B, -1)
-            sinf = sin.reshape(B, -1)
         for l in range(cfg.n_layers):
-            table_l = page_table + l * N
-            slots_l = slots0 + l * layer_step
             if use_fused:
-                qf, kf, vf = fused_qkv_stacked(
-                    xf, lp["ln1"], lp["wqkv"], lp["q_norm"], lp["k_norm"],
-                    cosf, sinf, l, n_heads=H, n_kv=K, head_dim=D, eps=eps)
-                q = qf.reshape(B, 1, H, D)
-                k = kf.reshape(B, 1, K, D)
-                v = vf.reshape(B, 1, K, D)
-            else:
-                h = rms_norm(x, lp["ln1"][l], eps)
-                q, k, v = _qkv(cfg, lp, l, h)
-                q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin).to(x.dtype)
-                k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin).to(x.dtype)
-                v = v.to(x.dtype)
-
-            if fresh_prefill:
-                # positions start at 0: causal attention over the chunk
-                # itself; padded tail rows are garbage that is never read
-                write_kv_slots(kpf, vpf, k, v, slots_l)
-                o = attn_ops.causal_attention(q, k, v, impl=impl)
-            elif slot_decode:
-                write_kv_slots(kpf, vpf, k, v, slots_l)
-                if slot_limit is not None:
-                    o = slot_attention(q[:, 0], kpf, vpf, slot_limit, l, n_rows=N,
-                                       slot_ctx=slot_ctx)[:, None]
-                else:
-                    rows = slice(l * N, (l + 1) * N)
-                    o = attn_ops.masked_context_attention(
-                        q, kpf[rows, :slot_ctx], vpf[rows, :slot_ctx], seq_lens, pos_c,
-                        mask=decode_mask)
-            elif T > 1:
-                # re-prefill over a cached prefix: read the prefix BEFORE
-                # this chunk's in-place write, take the chunk's K/V directly
-                P = table_l.shape[1]
-                k_old = attn_ops.gather_kv_rows(kpf, table_l).reshape(B, P * ps, K, D)
-                v_old = attn_ops.gather_kv_rows(vpf, table_l).reshape(B, P * ps, K, D)
-                write_kv_slots(kpf, vpf, k, v, slots_l)
-                o = attn_ops.prefix_chunk_attention(
-                    q, k_old, v_old, k, v, positions[:, 0], positions)
-            else:
-                write_kv_slots(kpf, vpf, k, v, slots_l)
-                o = attn_ops.paged_attention(q, kpf, vpf, table_l, seq_lens, pos_c,
-                                             mask=decode_mask, impl=impl)
-
-            if use_fused:
+                o = attend(l, xf)
                 xf = fused_out_mlp_stacked(
                     o.reshape(B, H * D).to(x.dtype), xf, lp["wo"], lp["ln2"],
                     lp["w_gateup"], lp["w_down"], l, eps=eps)
             else:
+                o = attend(l, x)
                 x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
                 h = rms_norm(x, lp["ln2"][l], eps)
                 x = x + _mlp(cfg, lp, l, h).to(x.dtype)
@@ -233,11 +282,8 @@ def forward(
             x = xf.reshape(B, 1, E)
     else:
         for l in range(cfg.n_layers):
-            h = rms_norm(x, lp["ln1"][l], eps)
-            q, k, v = _qkv(cfg, lp, l, h)
-            q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin)
-            k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin)
-            o = attn_ops.causal_attention(q.to(x.dtype), k.to(x.dtype), v, impl=impl)
+            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin)
+            o = attn_ops.causal_attention(q, k, v, impl=impl)
             x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
             h = rms_norm(x, lp["ln2"][l], eps)
             x = x + _mlp(cfg, lp, l, h).to(x.dtype)

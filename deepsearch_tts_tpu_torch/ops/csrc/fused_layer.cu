@@ -1,7 +1,11 @@
 // Fused decode-layer kernels for Hopper (sm_90a): the port of
 // deepsearch_tts_tpu/ops/fused_layer.py
-//   B3  fused_qkv_stacked      (_qkv_stacked_kernel,      fused_layer.py:244)
-//   B4  fused_out_mlp_stacked  (_out_mlp_stacked_kernel,  fused_layer.py:356)
+//   B3  fused_qkv_stacked         (_qkv_stacked_kernel,        fused_layer.py:244)
+//   B4  fused_out_mlp_stacked     (_out_mlp_stacked_kernel,    fused_layer.py:356)
+//   B7  fused_out_router_stacked  (_out_router_stacked_kernel, fused_layer.py:818)
+// and the grouped expert FFN of the Qwen3-MoE layer, which the JAX package
+// leaves to lax.ragged_dot (ops/moe.py:81 _expert_ffn_ragged): grouped_expert,
+// at the end of this file.
 //
 // What bounds them on this card: at decode batch (B <= 64 rows) every
 // product here is a thin matrix product whose weights dominate the bytes:
@@ -31,6 +35,8 @@
 //     B4: gemm(a, wo) -> residual (x2 = x + a@wo)
 //         rms_norm_rows(x2, ln2) -> gemm(gate|up) -> swiglu (h = silu(g)*u)
 //         gemm(h, wd) -> residual (out = x2 + h@wd)
+//     B7: gemm(a, wo) -> residual (x2 = x + a@wo)
+//         rms_norm_rows(x2, ln2) -> hn -> gemm(router) -> sum_partials (f32 logits)
 //   B4's sequential grid on the TPU carried x2 through VMEM; Hopper blocks
 //   cannot, so x2, xn and h ([B,E], [B,E], [B,F] bf16, under 2 MB at B=64)
 //   go through device memory and stay in L2.
@@ -344,6 +350,201 @@ swiglu_epilogue(const float* __restrict__ P, int S, int B, int F,
   h[i] = __float2bfloat16(silu * u);
 }
 
+// out[i] = sum_s P[s * total + i] (float32: B7's router logits)
+__global__ void __launch_bounds__(256)
+sum_partials(const float* __restrict__ P, int S, long long total, float* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += P[(long long)s * total + i];
+  out[i] = acc;
+}
+
+// ------------------------------------------------------- grouped expert FFN
+//
+// The GPU counterpart of the three lax.ragged_dot calls of
+// _expert_ffn_ragged (deepsearch_tts_tpu/ops/moe.py:81) over expert-sorted
+// rows: rows offsets[e] .. offsets[e+1]-1 of X belong to expert e.
+//   SWIGLU = true   h = bf16(silu(bf16(X @ Wg[e])) * bf16(X @ Wu[e]))
+//   SWIGLU = false  y = bf16(X @ W[e])
+// (the bf16 roundings of g and u are ragged_dot's bf16 results).
+//
+// What bounds it: the expert weights. At a 16-row decode step a layer of
+// qwen3-30b-a3b touches ~81 of its 128 experts, 9.4 MB each (0.76 GB a
+// layer, 37 GB a step), against 1-2 rows per touched expert: B FLOP per
+// weight byte, far below the ridge, so the goal is streaming each touched
+// expert's weights once at HBM rate. At prefill (~190 rows an expert at 3000
+// tokens) the same launch loops over 64-row tiles and reads each weight tile
+// once per row tile, mostly from L2.
+//
+// Design: the gemm_partial pieces above (4-stage cp.async ring of 32-row
+// weight tiles, ldmatrix, mma.sync m16n8k16 bf16 -> float32), one block per
+// (column tile, expert, row split). The group offsets stay on the device: a
+// block reads its expert's two offsets and returns at once when the expert
+// has no rows, so no host ever learns the group sizes. The weight pointer is
+// offset by the expert; m-tiles past the tile's rows are neither loaded nor
+// multiplied. SWIGLU blocks hold 64 gate columns and the same 64 up columns
+// (warps 0-1 gate, 2-3 up) and meet in shared memory for the epilogue.
+// grid: (column tiles, NE, row splits); block: GT threads.
+constexpr int GROUP_MT = MAX_ROWS / 16;
+constexpr int BROW = TILE + 4;   // float row of the SwiGLU epilogue buffer
+
+template <bool SWIGLU>
+__global__ void __launch_bounds__(GT)
+grouped_expert(const bf16* __restrict__ X, const int* __restrict__ offsets,
+               const bf16* __restrict__ W0, const bf16* __restrict__ W1,
+               long long es, int ldw, int K, bf16* __restrict__ out, int ldo) {
+  constexpr int MT = GROUP_MT;
+  constexpr int HALF = TILE / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);               // [STAGES][KT][WROW]
+  bf16* as = ws + STAGES * KT * WROW;                     // [STAGES][MAX_ROWS][AROW]
+  const int e = blockIdx.y;
+  const int first = offsets[e], end = offsets[e + 1];
+  const int n0 = blockIdx.x * (SWIGLU ? HALF : TILE);
+  // columns [0, 64) of the block's weight tile come from seg0, [64, 128) from seg1
+  const bf16* seg0 = W0 + (long long)e * es + n0;
+  const bf16* seg1 = SWIGLU ? W1 + (long long)e * es + n0 : seg0 + HALF;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = K / KT;
+  const int mi = lane >> 3, rr = lane & 7;      // ldmatrix lane roles
+  const int g = lane >> 2, c2 = (lane & 3) * 2;  // accumulator lane roles
+
+  for (int rb = first + blockIdx.z * MAX_ROWS; rb < end; rb += gridDim.z * MAX_ROWS) {
+    const int rows = min(MAX_ROWS, end - rb);
+    const int mt_used = (rows + 15) / 16;
+
+    auto load_stage = [&](int stage, int kt) {
+      const int k0 = kt * KT;
+      bf16* wdst = ws + stage * KT * WROW;
+      for (int i = threadIdx.x; i < KT * (TILE / 8); i += GT) {
+        const int r = i / (TILE / 8), c = (i % (TILE / 8)) * 8;
+        const bf16* src = (c < HALF ? seg0 + c : seg1 + (c - HALF)) + (long long)(k0 + r) * ldw;
+        cp_async16(wdst + r * WROW + c, src, 16);
+      }
+      bf16* adst = as + stage * MAX_ROWS * AROW;
+      for (int i = threadIdx.x; i < mt_used * 16 * (KT / 8); i += GT) {
+        const int r = i / (KT / 8), c = (i % (KT / 8)) * 8;
+        const bool ok = r < rows;
+        cp_async16(adst + r * AROW + c, X + (long long)(rb + (ok ? r : 0)) * K + k0 + c,
+                   ok ? 16 : 0);
+      }
+    };
+
+    float acc[MT][4][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][nb][i] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) load_stage(s, s);
+      cp_async_commit();
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // stage kt landed for every thread; stage kt-1 is consumed
+      {
+        const int nt = kt + STAGES - 1;
+        if (nt < nk) load_stage(nt % STAGES, nt);
+        cp_async_commit();
+      }
+      const bf16* wst = ws + (kt % STAGES) * KT * WROW;
+      const bf16* ast = as + (kt % STAGES) * MAX_ROWS * AROW;
+#pragma unroll
+      for (int kk = 0; kk < KT; kk += 16) {
+        uint32_t b[4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int krow = kk + rr + 8 * (mi & 1);
+          const int ncol = warp * 32 + (2 * h + (mi >> 1)) * 8;
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, wst + krow * WROW + ncol);
+          b[2 * h][0] = r[0];
+          b[2 * h][1] = r[1];
+          b[2 * h + 1][0] = r[2];
+          b[2 * h + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m < mt_used) {
+            uint32_t a[4];
+            ldmatrix_x4(a, ast + (m * 16 + rr + 8 * (mi & 1)) * AROW + kk + 8 * (mi >> 1));
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) mma_bf16(acc[m][nb], a, b[nb]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring
+
+    if (SWIGLU) {
+      float* buf = reinterpret_cast<float*>(smem);        // [MAX_ROWS][BROW]
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m < mt_used) {
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int c = warp * 32 + nb * 8 + c2, r0 = m * 16 + g;
+            buf[r0 * BROW + c] = acc[m][nb][0];
+            buf[r0 * BROW + c + 1] = acc[m][nb][1];
+            buf[(r0 + 8) * BROW + c] = acc[m][nb][2];
+            buf[(r0 + 8) * BROW + c + 1] = acc[m][nb][3];
+          }
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < rows * HALF; i += GT) {
+        const int r = i / HALF, c = i % HALF;
+        const float gt = __bfloat162float(__float2bfloat16(buf[r * BROW + c]));
+        const float u = __bfloat162float(__float2bfloat16(buf[r * BROW + HALF + c]));
+        out[(long long)(rb + r) * ldo + n0 + c] = __float2bfloat16(gt / (1.f + __expf(-gt)) * u);
+      }
+      __syncthreads();  // the buffer is the next row tile's ring
+    } else {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m < mt_used) {
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int col = n0 + warp * 32 + nb * 8 + c2;
+            const int r0 = m * 16 + g, r1 = r0 + 8;
+            if (r0 < rows)
+              *reinterpret_cast<__nv_bfloat162*>(out + (long long)(rb + r0) * ldo + col) =
+                  __floats2bfloat162_rn(acc[m][nb][0], acc[m][nb][1]);
+            if (r1 < rows)
+              *reinterpret_cast<__nv_bfloat162*>(out + (long long)(rb + r1) * ldo + col) =
+                  __floats2bfloat162_rn(acc[m][nb][2], acc[m][nb][3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool SWIGLU>
+int launch_grouped(const void* x, const void* offsets, const bf16* w0, const bf16* w1,
+                   long long es, int ldw, int K, int col_tiles, int NE, int zsplit,
+                   void* out, int ldo, cudaStream_t st) {
+  constexpr int bytes = gemm_smem_bytes<GROUP_MT>();
+  static_assert(MAX_ROWS * BROW * (int)sizeof(float) <= bytes,
+                "the SwiGLU epilogue buffer must fit in the ring");
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(grouped_expert<SWIGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    attr_set = true;
+  }
+  grouped_expert<SWIGLU><<<dim3(col_tiles, NE, zsplit), GT, bytes, st>>>(
+      static_cast<const bf16*>(x), static_cast<const int*>(offsets), w0, w1, es, ldw, K,
+      static_cast<bf16*>(out), ldo);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -407,6 +608,55 @@ int dstts_fused_out_mlp(const void* a, const void* x, const void* wo_all,
   launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, X2, O);
   return (int)cudaGetLastError();
+}
+
+// B7. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E]; router_all [L,E,NE];
+// partial f32 (>= max(s_o*E, s_r*NE)*B); outputs x2, hn [B,E] bf16 and
+// logits [B,NE] f32.
+int dstts_fused_out_router(const void* a, const void* x, const void* wo_all,
+                           const void* ln_all, const void* router_all, void* partial,
+                           void* x2, void* hn, void* logits, int layer, int B, int HD,
+                           int E, int NE, int s_o, int s_r, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* Wo = static_cast<const bf16*>(wo_all) + (long long)layer * HD * E;
+  const bf16* ln = static_cast<const bf16*>(ln_all) + (long long)layer * E;
+  const bf16* Wr = static_cast<const bf16*>(router_all) + (long long)layer * E * NE;
+  float* P = static_cast<float*>(partial);
+  bf16* X2 = static_cast<bf16*>(x2);
+  bf16* HN = static_cast<bf16*>(hn);
+
+  // (1) x2 = x + a @ wo
+  launch_gemm(static_cast<const bf16*>(a), Wo, P, B, HD, E, s_o, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
+      P, s_o, B, E, static_cast<const bf16*>(x), X2);
+  // (2) hn = rmsnorm(x2) * ln2, (3) logits = hn @ router in float32
+  rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, HN);
+  launch_gemm(HN, Wr, P, B, E, NE, s_r, st);
+  sum_partials<<<cdiv((long long)B * NE, 256), 256, 0, st>>>(P, s_r, (long long)B * NE,
+                                                             static_cast<float*>(logits));
+  return (int)cudaGetLastError();
+}
+
+// Grouped expert FFN, entry 1: h [S,F] = silu(x @ Wg[e]) * (x @ Wu[e]) over
+// expert-sorted rows x [S,E]; offsets [NE+1] int32 (exclusive cumsum of the
+// group sizes, on the device); w_gate / w_up: expert e's [E,F] gate / up
+// matrices at w + e*expert_stride with row stride ldw (packed gate|up: ldw =
+// 2F and w_up = w_gate + F).
+int dstts_grouped_gateup(const void* x, const void* offsets, const void* w_gate,
+                         const void* w_up, long long expert_stride, int ldw, int NE,
+                         int E, int F, int zsplit, void* h, void* stream) {
+  return launch_grouped<true>(x, offsets, static_cast<const bf16*>(w_gate),
+                              static_cast<const bf16*>(w_up), expert_stride, ldw, E,
+                              F / (TILE / 2), NE, zsplit, h, F,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Grouped expert FFN, entry 2: y [S,E] = h @ Wd[e]; w_down [NE,F,E].
+int dstts_grouped_down(const void* h, const void* offsets, const void* w_down, int NE,
+                       int F, int E, int zsplit, void* y, void* stream) {
+  const bf16* W = static_cast<const bf16*>(w_down);
+  return launch_grouped<false>(h, offsets, W, W, (long long)F * E, E, F, E / TILE, NE,
+                               zsplit, y, E, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

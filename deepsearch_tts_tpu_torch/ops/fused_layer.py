@@ -1,11 +1,16 @@
-"""Fused decode-layer functions (port of ``ops/fused_layer.py``, kernels B3/B4).
+"""Fused decode-layer functions (port of ``ops/fused_layer.py``, kernels
+B3/B4/B7).
 
-Each T=1 decode layer of a packed bf16 dense model runs two functions:
+Each T=1 decode layer of a packed bf16 model runs two of them:
 
-* :func:`fused_qkv_stacked` — rmsnorm(x)·ln1[l] → x@wqkv[l] → per-head q/k
-  RMSNorm → rotate-half RoPE (v passes through).
-* :func:`fused_out_mlp_stacked` — x2 = x + a@wo[l] → rmsnorm(x2)·ln2[l] →
-  SwiGLU over the packed gate|up stack → out = x2 + h@wd[l].
+* :func:`fused_qkv_stacked` (B3, both families) — rmsnorm(x)·ln1[l] →
+  x@wqkv[l] → per-head q/k RMSNorm → rotate-half RoPE (v passes through).
+* :func:`fused_out_mlp_stacked` (B4, dense) — x2 = x + a@wo[l] →
+  rmsnorm(x2)·ln2[l] → SwiGLU over the packed gate|up stack → out = x2 +
+  h@wd[l].
+* :func:`fused_out_router_stacked` (B7, Qwen3-MoE) — x2 = x + a@wo[l], hn =
+  rmsnorm(x2)·ln2[l], float32 router logits hn@router[l]; the expert FFN
+  follows in ``ops/moe.py``.
 
 Both take the FULL layer stacks plus the layer index, as the JAX kernels do.
 For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
@@ -66,6 +71,17 @@ def fused_out_mlp_stacked_plain(attn_out, x, wo_all, ln_all, gateup_all, wd_all,
     return (x2.float() + matmul_f32(h, wd_all[layer])).to(dt)
 
 
+def fused_out_router_stacked_plain(attn_out, x, wo_all, ln_all, router_all, layer,
+                                   *, eps: float = 1e-6):
+    """Reference for B7: the round points of ``_out_router_stacked_kernel``
+    (``fused_layer.py:818-842``): x2 rounded to x's dtype, the norm in
+    float32, hn rounded to x's dtype, logits = hn @ router in float32."""
+    dt = x.dtype
+    x2 = (x.float() + matmul_f32(attn_out, wo_all[layer])).to(dt)
+    hn = rms_norm(x2, ln_all[layer], eps)
+    return x2, hn, matmul_f32(hn, router_all[layer])
+
+
 # ------------------------------------------------------------------- wrappers
 
 def _lib():
@@ -78,6 +94,13 @@ def _lib():
         lib.dstts_fused_qkv.restype = i
         lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 8 + [f, p]
         lib.dstts_fused_out_mlp.restype = i
+        lib.dstts_fused_out_router.argtypes = [p] * 9 + [i] * 7 + [f, p]
+        lib.dstts_fused_out_router.restype = i
+        ll = ctypes.c_longlong
+        lib.dstts_grouped_gateup.argtypes = [p] * 4 + [ll] + [i] * 5 + [p, p]
+        lib.dstts_grouped_gateup.restype = i
+        lib.dstts_grouped_down.argtypes = [p] * 3 + [i] * 4 + [p, p]
+        lib.dstts_grouped_down.restype = i
         lib._dstts_typed = True
     return lib
 
@@ -207,3 +230,43 @@ def fused_out_mlp_stacked(attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer
 
 
 fused_out_mlp_stacked.launches = 0
+
+
+def fused_out_router_stacked(attn_out, x, wo_all, ln_all, router_all, layer,
+                             *, eps: float = 1e-6):
+    """B7: ``(x2, hn, logits)`` with ``x2 = x + attn_out @ wo[l]``, ``hn =
+    rmsnorm(x2)·ln2[l]`` (the expert FFN's input) and float32 router
+    ``logits = hn @ router[l]``. attn_out [B,H·D]; x [B,E]; wo_all
+    [L,H·D,E]; ln_all [L,E]; router_all [L,E,NE] → [B,E], [B,E], [B,NE]."""
+    if x.device.type == "cpu":
+        return fused_out_router_stacked_plain(attn_out, x, wo_all, ln_all,
+                                              router_all, layer, eps=eps)
+    B, E = x.shape
+    HD = attn_out.shape[1]
+    L, _, NE = router_all.shape
+    if not shapes_ok(E, HD, NE, HEAD_DIM) or not 0 <= int(layer) < L:
+        raise ValueError(f"fused_out_router_stacked kernel needs E, H·D, NE % {_TILE} "
+                         f"== 0 and 0 <= layer < L (got E={E}, HD={HD}, NE={NE}, "
+                         f"layer={layer}, L={L})")
+    _check("attn_out", attn_out, (B, HD))
+    _check("x", x, (B, E))
+    _check("wo_all", wo_all, (L, HD, E))
+    _check("ln_all", ln_all, (L, E))
+    _check("router_all", router_all, (L, E, NE))
+    s_o, s_r = _splits(B, E, HD), _splits(B, NE, E)
+    dev = x.device
+    partial = torch.empty((max(s_o * E, s_r * NE) * B,), dtype=torch.float32, device=dev)
+    x2 = torch.empty((B, E), dtype=x.dtype, device=dev)
+    hn = torch.empty((B, E), dtype=x.dtype, device=dev)
+    logits = torch.empty((B, NE), dtype=torch.float32, device=dev)
+    err = _lib().dstts_fused_out_router(
+        attn_out.data_ptr(), x.data_ptr(), wo_all.data_ptr(), ln_all.data_ptr(),
+        router_all.data_ptr(), partial.data_ptr(), x2.data_ptr(), hn.data_ptr(),
+        logits.data_ptr(), int(layer), B, HD, E, NE, s_o, s_r, float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "fused_out_router_stacked")
+    fused_out_router_stacked.launches += 1
+    return x2, hn, logits
+
+
+fused_out_router_stacked.launches = 0

@@ -180,8 +180,8 @@ def test_unported_engine_options_raise(kw):
 
 
 def test_unported_models_lora_and_missing_card_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A8"):
-        tengine.Engine("qwen3-moe-test", ByteTokenizer(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A9"):
+        tengine.Engine("deepseek-v3-test", ByteTokenizer(), device="cpu")
     eng = tengine.Engine("qwen3-test", ByteTokenizer(), device="cpu", max_slots=1)
     with pytest.raises(NotImplementedError, match="A12"):
         eng.load_lora_adapter("/nonexistent")
@@ -263,6 +263,16 @@ eng = Engine("qwen3-test", ByteTokenizer(), device="cpu", cache_mode="slot",
 slot = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
 eng.shutdown()
 assert len(slot.token_ids) == 4, slot
+# the Qwen3-MoE family through the same construction (fused decode: B3, B7
+# and the grouped expert FFN's plain versions)
+args = build_parser().parse_args(["--model", "qwen3-moe-test", "--device", "cpu",
+    "--max_slots", "2", "--page_size", "8", "--pages", "32",
+    "--max_seq_len", "128", "--decode_chunk", "2"])
+eng = build_engine(args)
+assert eng.layer_fusion
+moe = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
+eng.shutdown()
+assert len(moe.token_ids) == 4, moe
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "transformers")
                 and sys.modules[m] is not None)
 assert not loaded, loaded

@@ -176,7 +176,10 @@ def test_fused_out_mlp_plain_matches_jax_kernel(layer):
 def test_fused_wrappers_never_fall_back_off_cpu():
     """A tensor that is not on the CPU never reaches the plain version: off
     the CPU the wrapper launches its CUDA kernel or raises (here: a meta
-    tensor, which is neither)."""
+    tensor, which is neither) — B3, B4, B7 and both entries of the grouped
+    expert kernel."""
+    from deepsearch_tts_tpu_torch.ops import moe as tmoe_ops
+
     p = _layer_inputs()
     cos, sin = tcommon.rope_angles(_t(p["pos"]), D, 1_000_000.0)
     meta = lambda a: _t(a).to("meta")
@@ -189,8 +192,23 @@ def test_fused_wrappers_never_fall_back_off_cpu():
         tfused.fused_out_mlp_stacked(meta(p["a"]), meta(p["x"]), meta(p["wo"]),
                                      meta(p["ln2"]), meta(p["gateup"]),
                                      meta(p["wd"]), 0)
+    router = torch.zeros((L, E, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        tfused.fused_out_router_stacked(meta(p["a"]), meta(p["x"]), meta(p["wo"]),
+                                        meta(p["ln2"]), router, 0)
+    NE = 4
+    offsets = torch.zeros((NE + 1,), dtype=torch.int32, device="meta")
+    w_gateup = torch.zeros((NE, E, 2 * F), dtype=torch.bfloat16, device="meta")
+    w_down = torch.zeros((NE, F, E), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        tmoe_ops.grouped_gateup(meta(p["x"]), w_gateup, None, offsets)
+    with pytest.raises(ValueError):
+        tmoe_ops.grouped_down(torch.zeros((B, F), dtype=torch.bfloat16, device="meta"),
+                              w_down, offsets)
     assert tfused.fused_qkv_stacked.launches == 0
     assert tfused.fused_out_mlp_stacked.launches == 0
+    assert tfused.fused_out_router_stacked.launches == 0
+    assert tmoe_ops.grouped_gateup.launches == tmoe_ops.grouped_down.launches == 0
 
 
 def test_fused_split_choice_covers_k_exactly():
