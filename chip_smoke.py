@@ -9,7 +9,7 @@ Phases, each raising on failure (non-zero exit, no final line):
 
 1. environment: card name and power limit (nvidia-smi), torch/CUDA/Triton;
 2. build: the CUDA C++ libraries from ``deepsearch_tts_tpu_torch/ops/csrc``
-   (one nvcc per source, started together, timed) and the Triton kernel's
+   (one nvcc per source, started together, timed) and the Triton kernels'
    JIT;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (qwen3-8b widths), with the tolerance
@@ -46,10 +46,26 @@ Phases, each raising on failure (non-zero exit, no final line):
     that the check covers the grouped expert kernel too;
 12. MoE slot: phase 6 on the same weights after the paged pools are freed:
     B1 decode at G = 8, B3, B7, the grouped expert kernel and a parked-row
-    re-entry.
+    re-entry;
+13. int8 kernels (run with phase 3): B10 (``fused_qkv_stacked_i8``,
+    ``fused_out_mlp_stacked_i8``) at qwen3-32b and qwen3-8b widths, B = 1
+    and 16, B10's bare int8 product at the qwen3-32b ``lm_head`` shape, and
+    B12 (``quantize_int8``): round to nearest bit-equal to its plain version
+    on a [5120, 51200] matrix, stochastic rounding held to its properties;
+14. int8 serve, after the qwen3-30b-a3b weights are released: qwen3-32b
+    (full width, random weights from seed 0 drawn and quantized one matrix
+    at a time, 33.6 GB) with ``quantize="int8"`` and ``kv_quantize="int8"``,
+    the CLI's paged cache and prefix cache, over HTTP as phase 4: B12 once
+    per quantized matrix at build, B10 once per layer and decode step;
+15. int8 reference: its serving logits against the no-cache forward on the
+    same int8 params with the plain int8 products.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Every kernel entry of the JSON line before the last carries its bound
+(``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
+over the peak rate of their type, from the timed call's inputs) and, where
+one PyTorch call computes the same function, that call's time
+(``library_ms``, timed here only). The last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +109,19 @@ MOE_MODEL = "qwen3-30b-a3b"
 M_E, M_H, M_KV, M_NE, M_TOPK, M_F = 2048, 32, 4, 128, 8, 768
 LIBS = ("fused_layer", "attention")
 LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
+# qwen3-32b widths (models/qwen3.py QWEN3_CONFIGS): the int8 slice's model
+I8_MODEL = "qwen3-32b"
+Q_E, Q_H, Q_KV, Q_F = 5120, 64, 8, 25600
+# the least time of a call: bytes over the HBM rate, operations over the
+# peak rate of their type (H100 SXM5 80 GB data sheet, dense, 700 W)
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12     # tensor cores, bf16 (B10 widens int8 to bf16)
+F32_FLOP_S = 67e12       # float32 outside the tensor cores
+# B12's stochastic rounding is unbiased: the mean of (q - x/s) over the
+# [5120, 51200] check matrix has a standard deviation below 0.5/sqrt(2.6e8)
+# = 3.1e-5; a bound 30 times that fails a biased rounding (round to
+# nearest of a uniform fraction is off by its mean, up to 0.5)
+STOCH_MEAN_BOUND = 1e-3
 
 
 def log(msg: str) -> None:
@@ -189,6 +218,14 @@ def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bound(nbytes: float, flop: float, rate: float = BF16_FLOP_S) -> dict:
+    """``bound_ms`` / ``bound_by`` of a call that must move ``nbytes`` (each
+    input read once, each output written once) and do ``flop`` operations
+    at ``rate``."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, flop / rate * 1e3
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
+
+
 def phase_kernels(gen) -> dict:
     """Each wrapper vs its plain version; returns per-kernel results."""
     import torch
@@ -246,15 +283,19 @@ def phase_kernels(gen) -> dict:
         p3 = time_ms(layers(fl.fused_qkv_stacked_plain, args3, **kw), calls=L)
         t4 = time_ms(layers(fl.fused_out_mlp_stacked, args4, eps=1e-6), calls=L)
         p4 = time_ms(layers(fl.fused_out_mlp_stacked_plain, args4, eps=1e-6), calls=L)
-        for name, e, t, p in (("B3 fused_qkv_stacked", e3, t3, p3),
-                              ("B4 fused_out_mlp_stacked", e4, t4, p4)):
+        C, W4 = (H + 2 * KV) * D, H * D * E + 3 * E * FF
+        b3 = bound(2 * (E * C + B * E + E + 2 * D + B * C) + 4 * B * D, 2 * B * E * C)
+        b4 = bound(2 * (W4 + B * H * D + 2 * B * E + E), 2 * B * W4)
+        for name, e, t, p, bd in (("B3 fused_qkv_stacked", e3, t3, p3, b3),
+                                  ("B4 fused_out_mlp_stacked", e4, t4, p4, b4)):
             log(f"[kernel] {name:25s} B={B:3d} max_abs_err={e:.3e} | device "
                 f"kernel {t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel "
-                f"{t[1]:.4f} ms plain {p[1]:.4f} ms")
+                f"{t[1]:.4f} ms plain {p[1]:.4f} ms | bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']})")
             name = name.split()[1]
             res[name]["err"] = max(res[name]["err"], e)
             if B == SLOTS:
-                res[name]["ms"], res[name]["plain_ms"] = t[0], p[0]
+                res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, **bd)
 
     for Vw in (V, V_ODD):
         eos = Vw - 1
@@ -278,18 +319,25 @@ def phase_kernels(gen) -> dict:
                 f"kernel {t5[1]:.4f} ms plain {p5[1]:.4f} ms")
             res["sampling_prep"]["err"] = max(res["sampling_prep"]["err"], e5)
             if B == SLOTS and Vw == V:
-                res["sampling_prep"]["ms"] = t5[0]
-                res["sampling_prep"]["plain_ms"] = p5[0]
+                # logits f32 + seen + 3 row values read, scaled f32 + lse
+                # written; ~8 float32 operations an element
+                res["sampling_prep"].update(
+                    ms=t5[0], plain_ms=p5[0], library_ms=None,
+                    **bound(B * Vw * 9 + B * 16, 8 * B * Vw, rate=F32_FLOP_S))
     return res
 
 
 def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: float,
                   atol: float, timed: bool = False, nbytes: int = 0, flop: int = 0,
-                  plain_graph: bool = True) -> None:
+                  plain_graph: bool = True, library=None, exact: bool = False,
+                  rate: float = BF16_FLOP_S) -> None:
     """``kernel()`` against ``plain()`` (tensors or tuples of them) at the
-    stated tolerance; the largest error is kept in ``res[name]``. ``timed``
-    also records device ms of both (``plain_graph=False``: the plain
-    version syncs with the host, so its time is the eager one)."""
+    stated tolerance (``exact``: bit for bit); the largest error is kept in
+    ``res[name]``. ``timed`` also records device ms of both
+    (``plain_graph=False``: the plain version syncs with the host, so its
+    time is the eager one), the bound from ``nbytes`` (every input read and
+    every output written once) and ``flop``, and the time of ``library``,
+    one PyTorch call computing the same function, where there is one."""
     import torch
 
     got, ref = kernel(), plain()
@@ -298,7 +346,11 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
     ref = ref if isinstance(ref, tuple) else (ref,)
     e = 0.0
     for g, r in zip(got, ref):
-        torch.testing.assert_close(g.float(), r.float(), rtol=rtol, atol=atol)
+        if exact:
+            assert g.dtype == r.dtype and torch.equal(g, r), (
+                name, label, f"{int((g != r).sum())} of {g.numel()} elements differ")
+        else:
+            torch.testing.assert_close(g.float(), r.float(), rtol=rtol, atol=atol)
         e = max(e, _err(g, r))
     r = res.setdefault(name, {"err": 0.0})
     r["err"] = max(r["err"], e)
@@ -306,10 +358,14 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
     if timed:
         t = time_ms(kernel, iters=20)
         p = time_ms(plain, iters=5) if plain_graph else (time_eager_ms(plain, 5),) * 2
-        r["ms"], r["plain_ms"], r["shape"] = t[0], p[0], label
+        r.update(ms=t[0], plain_ms=p[0], shape=label, **bound(nbytes, flop, rate),
+                 library_ms=None if library is None else time_ms(library, iters=20)[0])
         msg += (f" | device kernel {t[0]:.4f} ms plain {p[0]:.4f} ms"
                 f"{'' if plain_graph else ' (eager: it syncs)'} | eager "
-                f"kernel {t[1]:.4f} ms plain {p[1]:.4f} ms")
+                f"kernel {t[1]:.4f} ms plain {p[1]:.4f} ms | bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
+        if r["library_ms"] is not None:
+            msg += f" | library {r['library_ms']:.4f} ms"
         if nbytes:
             msg += f" | {nbytes / t[0] / 1e6:.1f} GB/s"
         if flop:
@@ -342,13 +398,22 @@ def phase_attention_kernels(gen) -> dict:
     q = rnd(SLOTS, H, D)
     lim = torch.tensor(LIMITS, device=dev)
     kw = dict(n_rows=SLOTS, slot_ctx=CTX)
-    read = sum(max(x, 1) for x in LIMITS) * KV * D * 2 * 2
+    keys = sum(max(x, 1) for x in LIMITS)
+    io = keys * KV * D * 2 * 2 + 2 * SLOTS * H * D * 2 + SLOTS * 8
+    # the yardstick: SDPA over layer 1's contiguous rows, keys masked past
+    # each row's limit (inactive rows keep one key, as B1 clamps them)
+    k1, v1 = (t[SLOTS:].transpose(1, 2).contiguous() for t in (kp, vp))
+    mask = (torch.arange(CTX, device=dev)[None] < lim.clamp(min=1)[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for layer in range(L):
         for v, tag in ((vp, ""), (None, " v=k")):
             check("slot_attention", f"B={SLOTS} layer={layer} ctx={CTX}{tag}",
                   lambda: sa.slot_attention(q, kp, v, lim, layer, **kw),
                   lambda: sa.slot_attention_plain(q, kp, v, lim, layer, **kw),
-                  timed=layer == 1 and v is not None, nbytes=read)
+                  timed=layer == 1 and v is not None, nbytes=io, flop=4 * H * D * keys,
+                  library=lambda: sdpa(q4, k1, v1, attn_mask=mask, enable_gqa=True))
+    del k1, v1
 
     # B6: ps=64, P=64 pages per row, page 0 the (zeroed) null page
     ps, P = 64, CTX // 64
@@ -359,13 +424,14 @@ def phase_attention_kernels(gen) -> dict:
     perm = torch.randperm(NP - 1, generator=gen, device=dev)[: SLOTS * P].view(SLOTS, P)
     used = (seq + ps - 1) // ps
     table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
-    read = int(seq.sum()) * KV * D * 2 * 2
+    read = int(seq.sum()) * KV * D * 2 * 2 + 2 * SLOTS * H * D * 2 + SLOTS * (P + 2) * 8
+    flop6 = 4 * H * D * int(seq.sum())
     q1 = rnd(SLOTS, 1, H, D)
     qpos1 = (seq - 1)[:, None]
     check("pallas_paged_attention", f"B={SLOTS} T=1 ps={ps} P={P}",
           lambda: pa.pallas_paged_attention(q1, kpg, vpg, table, seq, qpos1),
           lambda: pa.pallas_paged_attention_plain(q1, kpg, vpg, table, seq, qpos1),
-          timed=True, nbytes=read)
+          timed=True, nbytes=read, flop=flop6)
     # chunks: T=4 (16 query rows a block) and T=16 (64, the most K1 holds)
     for T in (4, 16):
         seqT = seq.clamp(min=T)
@@ -378,16 +444,19 @@ def phase_attention_kernels(gen) -> dict:
         fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
         check(name, f"B={SLOTS} T=1 ps={ps} P={P}",
               lambda: fk(q1, kpg, vpg, table, seq), lambda: fp(q1, kpg, vpg, table, seq),
-              timed=True, nbytes=read)
+              timed=True, nbytes=read, flop=flop6)
     del kp, vp, kpg, vpg
 
     # B2: causal prefill, one length not a multiple of the 64-row tile
     for B, T in ((1, 128), (4, 512), (1, 3030), (1, 3072)):
         qf, kf, vf = rnd(B, T, H, D), rnd(B, T, KV, D), rnd(B, T, KV, D)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
         check("flash_attention", f"B={B} T={T}",
               lambda: fa.flash_attention(qf, kf, vf),
               lambda: fa.flash_attention_plain(qf, kf, vf),
-              timed=T == 3072, flop=4 * B * H * D * T * (T + 1) // 2)
+              timed=T == 3072, flop=4 * B * H * D * T * (T + 1) // 2,
+              nbytes=2 * B * T * D * (2 * H + 2 * KV),
+              library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
     return res
 
 
@@ -433,11 +502,15 @@ def phase_moe_kernels(gen) -> dict:
             t = time_ms(walk(fl.fused_out_router_stacked), calls=L)
             p = time_ms(walk(fl.fused_out_router_stacked_plain), calls=L)
             r = res["fused_out_router_stacked"]
-            r["ms"], r["plain_ms"], r["shape"] = t[0], p[0], f"B={SLOTS} (8 layers walked)"
-            nbytes = (M_H * D * M_E + M_E * M_NE) * 2
+            w7 = M_H * D * M_E + M_E * M_NE
+            r.update(ms=t[0], plain_ms=p[0], shape=f"B={SLOTS} (8 layers walked)",
+                     library_ms=None,
+                     **bound(2 * (w7 + SLOTS * M_H * D + 3 * SLOTS * M_E + M_E)
+                             + 4 * SLOTS * M_NE, 2 * SLOTS * w7))
             log(f"[kernel] B7 fused_out_router_stacked B={SLOTS} | device kernel "
                 f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain "
-                f"{p[1]:.4f} ms | {nbytes / t[0] / 1e6:.1f} GB/s")
+                f"{p[1]:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
+                f"{2 * w7 / t[0] / 1e6:.1f} GB/s")
         del wo, ln, router
 
     # grouped expert FFN over the rows of one layer of a 2-layer expert stack
@@ -457,12 +530,15 @@ def phase_moe_kernels(gen) -> dict:
         label = f"T={T} x top-{M_TOPK} ({touched} experts)"
         h = moe.grouped_gateup_plain(xs, wgu, None, offsets)
         decode = T == SLOTS
+        rows = T * M_TOPK
         check("grouped_gateup", label, lambda: moe.grouped_gateup(xs, wgu, None, offsets),
               lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets), timed=True,
-              nbytes=touched * M_E * 2 * M_F * 2, plain_graph=False)
+              nbytes=2 * (touched * M_E * 2 * M_F + rows * (M_E + M_F)) + 4 * (M_NE + 1),
+              flop=2 * rows * M_E * 2 * M_F, plain_graph=False)
         check("grouped_down", label, lambda: moe.grouped_down(h, wd, offsets),
               lambda: moe.grouped_down_plain(h, wd, offsets), timed=True,
-              nbytes=touched * M_F * M_E * 2, plain_graph=False)
+              nbytes=2 * (touched * M_F * M_E + rows * (M_F + M_E)) + 4 * (M_NE + 1),
+              flop=2 * rows * M_F * M_E, plain_graph=False)
         if decode:
             kept = {n: dict(res[n]) for n in ("grouped_gateup", "grouped_down")}
             wg, wu = wgu[..., :M_F].contiguous(), wgu[..., M_F:].contiguous()
@@ -472,7 +548,8 @@ def phase_moe_kernels(gen) -> dict:
             del wg, wu
     # the decode shape is the one the JSON line reports
     for n, r in kept.items():
-        res[n].update({k: r[k] for k in ("ms", "plain_ms", "shape")})
+        res[n].update({k: r[k] for k in ("ms", "plain_ms", "shape", "bound_ms", "bound_by",
+                                         "library_ms")})
     del wgu, wd
 
     # B3 at G = 8: E = 2048, 32 q and 4 kv heads ((H + 2K)·D = 5120 columns,
@@ -503,10 +580,13 @@ def phase_moe_kernels(gen) -> dict:
     lim = torch.tensor(LIMITS, device=dev)
     kw = dict(n_rows=SLOTS, slot_ctx=CTX)
     for layer in range(L):
+        keys = sum(max(x, 1) for x in LIMITS)
         _check_kernel(scratch, "slot_attention", f"G=8 B={SLOTS} layer={layer} ctx={CTX}",
                       lambda: sa.slot_attention(q, kp, vp, lim, layer, **kw),
                       lambda: sa.slot_attention_plain(q, kp, vp, lim, layer, **kw),
-                      rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=layer == 1)
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=layer == 1,
+                      nbytes=keys * M_KV * D * 4 + 4 * SLOTS * M_H * D + 8 * SLOTS,
+                      flop=4 * M_H * D * keys)
     del kp, vp
     for B, T in ((4, 512), (1, 3030), (1, 3072)):
         qf, kf, vf = rnd(B, T, M_H, D), rnd(B, T, M_KV, D), rnd(B, T, M_KV, D)
@@ -514,8 +594,152 @@ def phase_moe_kernels(gen) -> dict:
                       lambda: fa.flash_attention(qf, kf, vf),
                       lambda: fa.flash_attention_plain(qf, kf, vf),
                       rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=T == 3072,
-                      flop=4 * B * M_H * D * T * (T + 1) // 2)
+                      flop=4 * B * M_H * D * T * (T + 1) // 2,
+                      nbytes=2 * B * T * D * (2 * M_H + 2 * M_KV))
     res["g8"] = scratch
+    return res
+
+
+def phase_int8_kernels(gen) -> dict:
+    """B10's two entries and its bare int8 product, and B12, against their
+    plain versions (B10 at qwen3-32b and qwen3-8b widths, B = 1 and 16;
+    the product at qwen3-32b's lm_head shape; B12 on one qwen3-32b gate|up
+    matrix, [5120, 51200]); returns per-kernel results, timed at qwen3-32b
+    widths and the decode batch."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import rope_angles
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import quant
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    res: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def i8(L, K, N):
+        """An int8 stack whose dequantized values have std ~K^-1/2, and its
+        [L,1,N] column scales (q uniform in [-127, 127]: std ~73)."""
+        q = torch.randint(-127, 128, (L, K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = (0.5 + torch.rand((L, 1, N), generator=gen, device=dev)) / (73 * K ** 0.5)
+        return q, s
+
+    def check(*a, **k):
+        _check_kernel(res, *a, rtol=BF16_RTOL, atol=BF16_ATOL, **k)
+
+    # a four-layer stack walked layer by layer, each call reading its
+    # weights cold (487 MB of int8 a layer at qwen3-32b, beyond the 50 MB L2)
+    L = 4
+    for model, (e, h, kv, f) in ((I8_MODEL, (Q_E, Q_H, Q_KV, Q_F)),
+                                 ("qwen3-8b", (E, H, KV, FF))):
+        C = (h + 2 * kv) * D
+        ln1, ln2 = rnd(L, e, scale=0.1) + 1, rnd(L, e, scale=0.1) + 1
+        qn, kn = rnd(L, D, scale=0.1) + 1, rnd(L, D, scale=0.1) + 1
+        wq, ws = i8(L, e, C)
+        woq, wos = i8(L, h * D, e)
+        guq, gus = i8(L, e, 2 * f)
+        wdq, wds = i8(L, f, e)
+        kw = dict(n_heads=h, n_kv=kv, head_dim=D, eps=1e-6)
+        for B in (1, SLOTS):
+            x, a = rnd(B, e), rnd(B, h * D)
+            cos, sin = rope_angles(torch.randint(0, 4000, (B,), generator=gen, device=dev),
+                                   D, 1_000_000.0)
+            args_q = (x, ln1, wq, ws, qn, kn, cos, sin)
+            args_o = (a, x, woq, wos, ln2, guq, gus, wdq, wds)
+            for layer in range(L):
+                label = f"{model} B={B} layer={layer}"
+                check("fused_qkv_stacked_i8", label,
+                      lambda: fl.fused_qkv_stacked_i8(*args_q, layer, **kw),
+                      lambda: fl.fused_qkv_stacked_i8_plain(*args_q, layer, **kw))
+                check("fused_out_mlp_stacked_i8", label,
+                      lambda: fl.fused_out_mlp_stacked_i8(*args_o, layer, eps=1e-6),
+                      lambda: fl.fused_out_mlp_stacked_i8_plain(*args_o, layer, eps=1e-6))
+
+            def walk(f, args, **k):
+                return lambda: [f(*args, layer, **k) for layer in range(L)]
+
+            wo_ = h * D * e + 3 * e * f
+            for name, fk, fp, args, k, nbytes, flop in (
+                    ("fused_qkv_stacked_i8", fl.fused_qkv_stacked_i8,
+                     fl.fused_qkv_stacked_i8_plain, args_q, kw,
+                     e * C + 4 * C + 2 * (B * e + e + 2 * D + B * C) + 4 * B * D,
+                     2 * B * e * C),
+                    ("fused_out_mlp_stacked_i8", fl.fused_out_mlp_stacked_i8,
+                     fl.fused_out_mlp_stacked_i8_plain, args_o, {"eps": 1e-6},
+                     wo_ + 4 * (2 * e + 2 * f) + 2 * (B * h * D + 2 * B * e + e),
+                     2 * B * wo_)):
+                t = time_ms(walk(fk, args, **k), calls=L)
+                p = time_ms(walk(fp, args, **k), calls=L)
+                bd = bound(nbytes, flop)
+                if model == I8_MODEL and B == SLOTS:   # the int8 serve phase's shape
+                    res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, **bd,
+                                     shape=f"{model} B={B} ({L} layers walked)")
+                log(f"[kernel] {name:26s} {model} B={B} | device kernel {t[0]:.4f} ms "
+                    f"plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain {p[1]:.4f} "
+                    f"ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) | "
+                    f"{nbytes / t[0] / 1e6:.1f} GB/s")
+        del wq, ws, woq, wos, guq, gus, wdq, wds
+
+    # the bare int8 product at the lm_head shape (778 MB of int8)
+    V32 = V
+    hq, hs = i8(1, Q_E, V32)
+    hq, hs = hq[0], hs[0]
+    for B in (1, SLOTS):
+        x = rnd(B, Q_E)
+        check("int8_product", f"lm_head B={B} [{Q_E}, {V32}]",
+              lambda: fl.int8_product(x, hq, hs), lambda: fl.int8_product_plain(x, hq, hs),
+              timed=B == SLOTS, nbytes=Q_E * V32 + 4 * V32 + 2 * B * (Q_E + V32),
+              flop=2 * B * Q_E * V32)
+    del hq, hs
+
+    # the bare product as int8_matmul runs it in a prefill of up to 64 rows,
+    # on each qwen3-32b layer shape: 17-32 rows take the kernel's MT=2
+    # instance, 33-64 its MT=4 one (48: a partly filled last m-tile)
+    for wname, (K8, N8) in (("wqkv", (Q_E, (Q_H + 2 * Q_KV) * D)), ("wo", (Q_H * D, Q_E)),
+                            ("w_gateup", (Q_E, 2 * Q_F)), ("w_down", (Q_F, Q_E))):
+        wq8, ws8 = i8(1, K8, N8)
+        wq8, ws8 = wq8[0], ws8[0]
+        for B in (32, 48, 64):
+            x = rnd(B, K8)
+            check("int8_product", f"{wname} B={B} [{K8}, {N8}]",
+                  lambda: fl.int8_product(x, wq8, ws8),
+                  lambda: fl.int8_product_plain(x, wq8, ws8))
+        del wq8, ws8
+
+    # B12 on one qwen3-32b gate|up matrix: round to nearest bit-equal
+    K12, N12 = Q_E, 2 * Q_F
+    w = rnd(K12, N12, scale=K12 ** -0.5)
+    check("quantize_int8", f"round to nearest [{K12}, {N12}] bf16",
+          lambda: quant.quantize_int8(w), lambda: quant.quantize_int8_plain(w),
+          timed=True, exact=True, nbytes=3 * K12 * N12 + 4 * N12, flop=6 * K12 * N12,
+          rate=F32_FLOP_S)
+    # stochastic rounding: the round-to-nearest scales, q in {floor(x/s),
+    # floor(x/s) + 1} (clipped), unbiased, and one stream per seed
+    q_rn, s_rn = quant.quantize_int8(w)
+    q1, s1 = quant.quantize_int8(w, seed=1, stochastic=True)
+    q1b, _ = quant.quantize_int8(w, seed=1, stochastic=True)
+    q2, _ = quant.quantize_int8(w, seed=2, stochastic=True)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s_rn), "stochastic scales differ from round-to-nearest's"
+    y = w.float() / s1
+    lo = torch.floor(y).clamp(-127, 127)
+    d = q1.float() - lo
+    assert bool(((d == 0) | (d == 1)).all()), "stochastic q outside {floor, floor + 1}"
+    mean_err = float((q1.float() - y).mean())
+    mean_up = float(d.mean() - (y - torch.floor(y)).mean())
+    assert abs(mean_err) < STOCH_MEAN_BOUND and abs(mean_up) < STOCH_MEAN_BOUND, (
+        mean_err, mean_up)
+    assert torch.equal(q1, q1b), "the same seed gave another q"
+    changed = float((q1 != q2).float().mean())
+    assert changed > 0.1, f"another seed changed only {changed:.4f} of q"
+    log(f"[kernel] quantize_int8 stochastic [{K12}, {N12}]: scales equal round to "
+        f"nearest's; q in {{floor, floor + 1}}; mean(q - x/s) {mean_err:.2e}, "
+        f"mean(q - floor) - mean(frac) {mean_up:.2e} (bound {STOCH_MEAN_BOUND}); "
+        f"seed 1 twice equal; seed 2 differs on {changed:.3f} of q; "
+        f"{float((q1 != q_rn).float().mean()):.3f} of q differ from round to nearest")
+    del w, y, lo, d, q_rn, q1, q1b, q2
     return res
 
 
@@ -548,7 +772,8 @@ def _release(engine) -> dict:
 
     engine.shutdown()
     params = engine.params
-    engine.k_pages = engine.v_pages = engine.seen = None
+    engine.k_pages = engine.v_pages = engine.k_scales = engine.v_scales = None
+    engine.seen = None
     gc.collect()
     torch.cuda.empty_cache()
     return params
@@ -556,8 +781,8 @@ def _release(engine) -> dict:
 
 def _engine(params, model: str = "qwen3-8b", **kw):
     """``model`` on the card over the served weights, ``SLOTS`` rows."""
-    from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer
     from deepsearch_tts_tpu_torch.engine.engine import Engine
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
 
     return Engine(model, ByteTokenizer(), params=params, device="cuda",
                   max_slots=SLOTS, max_seq_len=CTX, decode_chunk_len=8, **kw)
@@ -835,23 +1060,27 @@ def _profile_burst(chat, engine) -> None:
 
 def _counters(model: str) -> dict:
     """The launch counters of ``model``'s fused decode path: name → wrapper
-    (B3, B5, and B4 for qwen3-8b or B7 and the grouped expert entries for
-    qwen3-30b-a3b)."""
+    (B5, and B3 + B4 for qwen3-8b, B3 + B7 + the grouped expert entries for
+    qwen3-30b-a3b, B10's two entries + its int8 product for qwen3-32b)."""
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
     from deepsearch_tts_tpu_torch.ops import moe
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
-    fns = [fl.fused_qkv_stacked, sp.sampling_prep]
-    fns += ([fl.fused_out_router_stacked, moe.grouped_gateup, moe.grouped_down]
-            if model == MOE_MODEL else [fl.fused_out_mlp_stacked])
-    return {f.__name__: f for f in fns}
+    fns = {MOE_MODEL: [fl.fused_qkv_stacked, fl.fused_out_router_stacked,
+                       moe.grouped_gateup, moe.grouped_down],
+           I8_MODEL: [fl.fused_qkv_stacked_i8, fl.fused_out_mlp_stacked_i8,
+                      fl.int8_product]}.get(model, [fl.fused_qkv_stacked,
+                                                    fl.fused_out_mlp_stacked])
+    return {f.__name__: f for f in fns + [sp.sampling_prep]}
 
 
 def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict) -> dict:
     """Read the counters after a phase and hold them to the phase's work:
-    B3, B4/B7 and B1 once per layer and decode step, each grouped expert
-    entry once per layer and forward (decode steps + prefill dispatches), B5
-    once per sample."""
+    B3, B4/B7, B10 and B1 once per layer and decode step, each grouped
+    expert entry once per layer and forward (decode steps + prefill
+    dispatches), B5 once per sample, the int8 product at least once per
+    forward (the lm_head; and the layer products of prefills of up to 64
+    rows)."""
     L = engine.cfg.n_layers
     steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
     prefills = st1["prefill_dispatches"] - st0["prefill_dispatches"]
@@ -859,6 +1088,9 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict) -> d
     log(f"[{tag}] decode steps {steps}, prefill dispatches {prefills}, sample calls "
         f"{steps + prefills}, launches {launches}")
     for name, n in launches.items():
+        if name == "int8_product":
+            assert n >= steps + prefills > 0, (name, n, steps + prefills)
+            continue
         want = (steps + prefills if name == "sampling_prep"
                 else L * (steps + prefills) if name.startswith("grouped_")
                 else L * steps)
@@ -867,26 +1099,48 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict) -> d
 
 
 def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
-                tag: str = "serve") -> tuple[dict, object]:
-    """Serve ``model`` over HTTP through the port's own construction."""
+                tag: str = "serve", **quant_kw) -> tuple[dict, object]:
+    """Serve ``model`` over HTTP through the port's own construction:
+    ``cli/serve.py``'s ``build_engine``, or with ``quant_kw`` (``quantize``,
+    ``kv_quantize``: ``Engine`` arguments only, as in JAX) the same
+    ``Engine`` construction with them. With ``quantize`` B12's counter is
+    zeroed before the build and must count one launch per quantized
+    matrix."""
     import torch
 
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
+    from deepsearch_tts_tpu_torch.ops import quant
 
     args = build_parser().parse_args([
         "--model", model, "--device", "cuda", "--seed", "0",
         "--max_slots", str(SLOTS), "--page_size", "64", "--pages", "1024",
         "--max_seq_len", "4096", "--decode_chunk", "8", "--warmup", "64"])
     torch.cuda.reset_peak_memory_stats()
+    quant.quantize_int8.launches = 0
     t0 = time.time()
-    engine = build_engine(args)
+    if quant_kw:
+        engine = _engine(None, model=model, seed=args.seed, page_size=args.page_size,
+                         n_pages=args.pages, **quant_kw)
+        engine.warmup(prompt_lens=(args.warmup,))
+    else:
+        engine = build_engine(args)
     torch.cuda.synchronize()
-    out: dict = {"build_s": time.time() - t0}
+    out: dict = {"build_s": time.time() - t0,
+                 "allocated_gib": torch.cuda.memory_allocated() / 2**30}
     log(f"[{tag}] engine built (random {model} weights, warmup) in "
         f"{out['build_s']:.1f} s; layer_fusion={engine.layer_fusion}; "
-        f"memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"memory allocated {out['allocated_gib']:.2f} GiB")
     if not engine.layer_fusion:
-        raise AssertionError(f"the {model} bf16 engine must run the fused decode layers")
+        raise AssertionError(f"the {model} engine must run the fused decode layers")
+    if quant_kw.get("quantize"):
+        # every QUANT_KEYS matrix of the packed tree: wqkv, wo, w_gateup and
+        # w_down of each layer, and the untied lm_head
+        want = 4 * engine.cfg.n_layers + (not engine.cfg.tie_embeddings)
+        out["quantize_launches"] = quant.quantize_int8.launches
+        log(f"[{tag}] B12 quantize_int8 launches at build {quant.quantize_int8.launches} "
+            f"(matrices {want}); KV pools {engine.k_pages.dtype}, scales "
+            f"{None if engine.k_scales is None else engine.k_scales.dtype}")
+        assert quant.quantize_int8.launches == want, (quant.quantize_int8.launches, want)
 
     counters = _counters(model)
     try:
@@ -1002,26 +1256,32 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     return out, engine
 
 
-def phase_reference(engine, **plain_kw) -> None:
-    """Paged prefill + fused decode (the serving branches) vs the plain
-    no-cache forward, on the served weights, for a 24-token input.
-    ``plain_kw`` keeps the reference off the kernels the no-cache forward
-    would otherwise run (the MoE family's grouped expert kernel)."""
+def phase_reference(engine, tag: str = "reference", t0: int = 16, **plain_kw) -> None:
+    """Paged prefill of ``t0`` tokens + 8 fused decode steps (the serving
+    branches) vs the plain no-cache forward, on the served weights, into
+    pools like the engine's (int8 with scales under int8 KV). ``plain_kw``
+    keeps the reference off the kernels the no-cache forward would
+    otherwise run (the MoE family's grouped expert kernel, the int8
+    product)."""
     import torch
 
-    from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages
+    from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages, init_kv_scales
 
     cfg, dev = engine.cfg, engine.device
-    T0, T = 16, 24
+    T0, T = t0, t0 + 8
+    assert T <= 64, T                           # one 64-token page
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None]
     with torch.no_grad():
         ref, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
         kp, vp = init_kv_pages(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim,
-                               dtype=cfg.torch_dtype, device=dev)
+                               dtype=engine.k_pages.dtype, device=dev)
         table = torch.tensor([[1]], device=dev)
         kw = dict(k_pages=kp, v_pages=vp, page_table=table)
+        if engine.k_scales is not None:
+            kw["k_scales"], kw["v_scales"] = init_kv_scales(cfg.n_layers, 2, 64,
+                                                            cfg.n_kv_heads, device=dev)
         got = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
                               seq_lens=torch.tensor([T0], device=dev),
                               logits_indices=torch.tensor([T0 - 1], device=dev),
@@ -1038,10 +1298,13 @@ def phase_reference(engine, **plain_kw) -> None:
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     err = (got - want).abs().max().item()
-    log(f"[reference] serving-path logits vs no-cache forward: max_abs_err "
-        f"{err:.4f}, min cosine {cos.min().item():.5f}, argmax agreement {agree:.2f}")
-    # bf16 through 36 layers: the two paths round q/k/v at different points
-    # (the fused kernel keeps q/k in float32 until after norm and rope)
+    log(f"[{tag}] serving-path logits vs no-cache forward: max_abs_err "
+        f"{err:.4f}, min cosine {cos.min().item():.5f} (bound > 0.99), argmax "
+        f"agreement {agree:.2f} (bound >= 0.75)")
+    # bf16 through 36-64 layers: the two paths round q/k/v at different
+    # points (the fused kernels keep q/k in float32 until after norm and
+    # rope); under int8 KV the serving path also attends over int8 keys and
+    # values (one scale per token and head) where the reference keeps bf16
     assert cos.min().item() > 0.99, cos
     assert agree >= 0.75, agree
 
@@ -1057,9 +1320,6 @@ def main(argv=None) -> int:
                     help="stop after the build and the kernel checks (prints "
                          "the kernel results, not the final line)")
     opts = ap.parse_args(argv)
-    # the port must run without JAX: deepsearch_tts_tpu/__init__.py imports
-    # jax when JAX_PLATFORMS=cpu is set, so make sure it is not
-    os.environ.pop("JAX_PLATFORMS", None)
     if not os.path.isdir(os.path.join(HERE, "deepsearch_tts_tpu_torch")):
         raise SystemExit("chip_smoke: deepsearch_tts_tpu_torch/ not found next to "
                          "this script — run it from a checkout of the repository")
@@ -1074,6 +1334,7 @@ def main(argv=None) -> int:
     moe_res = phase_moe_kernels(gen)
     g8 = moe_res.pop("g8")
     res.update(moe_res)
+    res.update(phase_int8_kernels(gen))
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "card": card}))
         return 0
@@ -1097,6 +1358,21 @@ def main(argv=None) -> int:
     del engine
     moe_slot = phase_slot_serve(card, params, model=MOE_MODEL, tag="moe-slot")
 
+    # the qwen3-32b int8 phase needs the card to itself too
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[release] qwen3-30b-a3b engines and weights released: {held:.3f} GiB still "
+        f"allocated")
+    assert held < 1.0, held
+    i8_serve, engine = phase_serve(card, model=I8_MODEL, profile=opts.profile, tag="int8",
+                                   quantize="int8", kv_quantize="int8")
+    # a 48-row prefill: int8_matmul's kernel at its MT=4 instance
+    phase_reference(engine, tag="int8-reference", t0=48, plain_int8=True)
+    _release(engine)
+    del engine
+
     src = "deepsearch_tts_tpu_torch/ops/"
     jsrc = "deepsearch_tts_tpu/ops/"
     attn = src + "csrc/attention.cu"
@@ -1118,18 +1394,24 @@ def main(argv=None) -> int:
         "pallas_paged_decode_clamp": ("cuda", attn, jsrc + "paged_attention.py:239",
                                       pallas),
         "flash_attention": ("cuda", attn, jsrc + "flash_attention.py:27", pallas),
+        "fused_qkv_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:568", i8_serve),
+        "fused_out_mlp_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:669", i8_serve),
+        "int8_product": ("cuda", fused, jsrc + "quant.py:68 int8_matmul (XLA dot_general)",
+                         i8_serve),
+        "quantize_int8": ("triton", src + "quant.py", jsrc + "quant.py:24", i8_serve),
     }
+    i8_serve["launches"]["quantize_int8"] = i8_serve["quantize_launches"]
     kernels = [{"name": n, "route": r, "source": s, "replaces": rep,
                 "launches": run["launches"][n],
                 "max_abs_err": res[n]["err"], "ms": res[n]["ms"],
-                "plain_ms": res[n]["plain_ms"]}
+                "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
+                "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"]}
                for n, (r, s, rep, run) in meta.items()]
-    print(json.dumps({"serve": {k: v for k, v in serve.items() if k != "launches"},
-                      "slot_serve": {k: v for k, v in slot.items() if k != "launches"},
-                      "pallas_serve": {k: v for k, v in pallas.items()
-                                       if k != "launches"},
-                      "moe_serve": {k: v for k, v in moe_serve.items() if k != "launches"},
-                      "moe_slot": {k: v for k, v in moe_slot.items() if k != "launches"},
+    runs = {"serve": serve, "slot_serve": slot, "pallas_serve": pallas,
+            "moe_serve": moe_serve, "moe_slot": moe_slot, "int8_serve": i8_serve}
+    log(card)   # the card's name and power limit again, beside the result lines
+    print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
+                         for name, run in runs.items()},
                       "g8": g8, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -45,10 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_engine(args):
     """The engine ``main`` serves, built from parsed flags."""
-    from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer, HFTokenizer
-
     from ..device import resolve_device
     from ..engine.engine import Engine
+    from ..engine.tokenizer import ByteTokenizer, HFTokenizer
     from ..engine.weights import load_or_init_params
 
     if args.tp > 1:

@@ -35,6 +35,13 @@ Behaviours carried over from the JAX engine:
   path to reconcile.
 * ``min_tokens`` budget forcing (``tokens_generated = lens - prompt_lens + 1``),
   the host stop scan, finish reasons, ``abort`` and ``telemetry``.
+* ``quantize="int8"`` (dense family): the packed weights' matrices become
+  int8 ``{q, scales}`` (``ops/quant.py``; random init quantizes one matrix
+  at a time as it draws), and T=1 decode takes B10. ``kv_quantize`` in
+  ``{"int8", "int8-force"}``: int8 KV pools plus float32 scales pools,
+  paged cache and ``attn_impl="xla"`` only. JAX refuses ``"int8"`` on its
+  TPU for speed (``engine.py:411-421``), a TPU measurement; here both
+  spellings are accepted, as JAX accepts them on the CPU.
 
 Left out, because they are JAX dispatch machinery: pipelined dispatch from
 the device carry, admission injection, the compile caches and warm-program
@@ -60,14 +67,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from deepsearch_tts_tpu.engine.profiling import SpanTimer
-from deepsearch_tts_tpu.engine.stopping import StopState
-from deepsearch_tts_tpu.engine.tokenizer import IncrementalDetokenizer
-
 from ..device import resolve_device
 from ..models.registry import get_model
-from .kvcache import PageAllocator, init_kv_pages
+from .kvcache import PageAllocator, init_kv_pages, init_kv_scales
+from .profiling import SpanTimer
 from .sampling import SamplingParams, sample, update_seen
+from .stopping import StopState
+from .tokenizer import IncrementalDetokenizer
 
 
 @dataclass
@@ -178,16 +184,16 @@ class Engine:
             (speculative is not None, f"speculative={speculative!r}",
              "A11 (speculative decoding, kernel B9)"),
             (bool(chunk_trim), "chunk_trim=True", "A4 (decode-chunk trim)"),
-            (quantize is not None, f"quantize={quantize!r}",
-             "A10 (int8 weights, kernel B10)"),
-            (kv_quantize is not None, f"kv_quantize={kv_quantize!r}",
-             "A10 (int8 KV)"),
             (mesh is not None, "mesh", "A13 (parallel serving)"),
             (ring_prefill_len is not None, "ring_prefill_len", "A13 (ring prefill)"),
         ]
         for bad, option, item in unported:
             if bad:
                 raise _not_ported(option, item)
+        if quantize not in (None, "int8"):
+            raise ValueError(f"unknown quantize {quantize!r} (None or 'int8')")
+        if kv_quantize not in (None, "int8", "int8-force"):
+            raise ValueError(f"unknown kv_quantize {kv_quantize!r}")
         self.device = resolve_device(device)
         self.attn_impl = resolve_attn_impl(attn_impl, cache_mode, self.device)
         self.cache_mode = cache_mode
@@ -200,6 +206,21 @@ class Engine:
         fam = get_model(model_name)
         self.cfg = cfg = fam.config
         self.forward = fam.forward
+        if quantize and not cfg.int8_weights:
+            from .weights import INT8_EXPERTS_NOT_PORTED
+
+            raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+        if kv_quantize:
+            if not cfg.int8_kv:
+                # the JAX engine refuses it too (its MoE forward takes no scales)
+                raise ValueError(f"model family {model_name!r} does not support int8 KV")
+            if cache_mode == "slot":
+                raise ValueError("int8 KV requires the paged cache mode")
+            if self.attn_impl != "xla":
+                # JAX's Pallas decode ignores the scales and reads the
+                # int32-packed pages as bf16 (attention.py:88-109)
+                raise ValueError(f"int8 KV attends through the gather (attn_impl='xla'), "
+                                 f"not attn_impl={self.attn_impl!r}")
         self.tokenizer = tokenizer
         self.max_slots = max_slots
         self.page_size = page_size
@@ -210,8 +231,8 @@ class Engine:
         if layer_fusion is None:
             # as in JAX (engine.py:278-325): on for single-device bf16
             # serving of a family with a fused decode layer (dense, ragged
-            # MoE) — the plain versions on the CPU, the CUDA kernels where
-            # their shapes fit
+            # MoE; int8 weights, dense only, take B10) — the plain versions
+            # on the CPU, the CUDA kernels where their shapes fit
             from ..ops.fused_layer import shapes_ok
 
             widths = cfg.fused_decode_widths()
@@ -222,13 +243,23 @@ class Engine:
         from .weights import pack_matmul_params, random_params
 
         if params is None:
-            params = random_params(cfg, device=self.device, seed=seed)
+            params = random_params(cfg, device=self.device, seed=seed, quantize=quantize)
         # single-device serving always packs QKV and gate|up (numerically the
         # identity; the fused decode functions read this layout)
         self.params = pack_matmul_params(params)
+        if quantize:
+            # after packing, as JAX (engine.py:358-366); leaves that are
+            # already int8 (a quantized init or tree) pass through
+            from ..ops.quant import QUANT_KEYS, quantize_params
+
+            self.params = quantize_params(self.params, keys=QUANT_KEYS)
         self.k_pages, self.v_pages = init_kv_pages(
             cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
-            dtype=cfg.torch_dtype, device=self.device)
+            dtype=torch.int8 if kv_quantize else cfg.torch_dtype, device=self.device)
+        self.k_scales = self.v_scales = None
+        if kv_quantize:
+            self.k_scales, self.v_scales = init_kv_scales(
+                cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, device=self.device)
         self.allocator = PageAllocator(n_pages, page_size)
         if enable_prefix_cache:
             from .prefix_cache import make_prefix_cache
@@ -671,14 +702,17 @@ class Engine:
 
     def _forward(self, tokens, positions, tables, seq_lens, *,
                  logits_indices=None, fresh=False, slot_ctx=None):
-        """One forward over the engine's pools; ``slot_ctx`` (slot mode, T=1
-        decode) makes it a slot decode reading that context bucket."""
+        """One forward over the engine's pools (updated in place, int8 KV's
+        scales pools too); ``slot_ctx`` (slot mode, T=1 decode) makes it a
+        slot decode reading that context bucket."""
+        scales = ({} if self.k_scales is None
+                  else {"k_scales": self.k_scales, "v_scales": self.v_scales})
         return self.forward(
             self.params, self.cfg, tokens, positions,
             k_pages=self.k_pages, v_pages=self.v_pages, page_table=tables,
             seq_lens=seq_lens, logits_indices=logits_indices, impl=self.attn_impl,
             slot_decode=slot_ctx is not None, slot_ctx=slot_ctx,
-            fresh_prefill=fresh, fused_decode=self.layer_fusion)
+            fresh_prefill=fresh, fused_decode=self.layer_fusion, **scales)
 
     def _prefill_group(self, bucket: int, grp: list[dict]) -> None:
         """One batched prefill forward + first-token sample for a group of

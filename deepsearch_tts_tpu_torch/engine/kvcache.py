@@ -13,6 +13,14 @@ outside the ``[L, N, ps, K, D]`` view, and padding writes land there. In
 slot mode (``N`` = slots, ``ps`` = ``max_seq_len``) there is no null page —
 row 0 is slot 0's token 0 — so a padding write anywhere readable would
 corrupt a live sequence.
+
+int8 KV (``Engine(kv_quantize="int8")``): the pools hold int8 rows
+(:func:`quantize_kv_rows`, one symmetric scale per token and kv head) and
+float32 scales pools ``[L, N, ps, K]`` (:func:`init_kv_scales`, with their
+own spare row) that :func:`write_scales_flat` fills beside the rows. JAX
+packs the int8 lanes into int32 words only because a raw int8 gather is
+slow on its TPU (``ops/attention.py:123-127``); here they are stored as
+int8, so its ``unpack_int8_rows`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -36,13 +44,29 @@ def init_kv_pages(n_layers: int, n_pages: int, page_size: int, n_kv_heads: int,
     return pool(), pool()
 
 
-def _rows_with_spare(pool: torch.Tensor) -> torch.Tensor:
-    """``[L·N·ps + 1, K, D]`` view of a contiguous pool from
-    :func:`init_kv_pages`, its spare row included (raises for a pool whose
-    storage has none)."""
-    K, D = pool.shape[-2:]
-    rows = pool.numel() // (K * D)
-    return pool.as_strided((rows + 1, K, D), (K * D, D, 1), pool.storage_offset())
+def init_kv_scales(n_layers: int, n_pages: int, page_size: int, n_kv_heads: int,
+                   device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed float32 ``[L, N, ps, K]`` key and value scales pools of int8
+    KV, each with one spare ``[K]`` row at the end of its storage."""
+    rows = n_layers * n_pages * page_size + 1
+
+    def pool():
+        flat = torch.zeros((rows, n_kv_heads), dtype=torch.float32, device=device)
+        return flat[:-1].view(n_layers, n_pages, page_size, n_kv_heads)
+
+    return pool(), pool()
+
+
+def _rows_with_spare(pool: torch.Tensor, row_dims: int = 2) -> torch.Tensor:
+    """``[L·N·ps + 1, *row]`` view of a contiguous pool from
+    :func:`init_kv_pages` (a row: the last ``row_dims`` dims, [K, D]) or
+    :func:`init_kv_scales` ([K], ``row_dims=1``), its spare row included
+    (raises for a pool whose storage has none)."""
+    row = tuple(pool.shape[-row_dims:])
+    width = pool[(0,) * (pool.dim() - row_dims)].numel()
+    rows = pool.numel() // width
+    strides = torch.empty(row).stride()
+    return pool.as_strided((rows + 1,) + row, (width,) + strides, pool.storage_offset())
 
 
 def kv_slots(positions: torch.Tensor, table_l: torch.Tensor, page_size: int,
@@ -64,6 +88,34 @@ def write_kv_slots(k_flat: torch.Tensor, v_flat: torch.Tensor,
     idx = slots.reshape(-1)
     _rows_with_spare(k_flat).index_put_((idx,), k_new.reshape(-1, K, D).to(k_flat.dtype))
     _rows_with_spare(v_flat).index_put_((idx,), v_new.reshape(-1, K, D).to(v_flat.dtype))
+
+
+def quantize_kv_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, T, K, D] → (int8 [B, T, K, D], float32 scales [B, T, K]): one
+    symmetric scale per (token, head), round to nearest (the values of
+    ``engine/kvcache.py:63``, unpacked)."""
+    x = rows.float()
+    s = torch.clamp_min(x.abs().amax(dim=-1) / 127.0, 1e-8)
+    q = torch.round(x / s[..., None]).clamp_(-127, 127).to(torch.int8)
+    return q, s
+
+
+def write_scales_flat(s_flat: torch.Tensor, s_new: torch.Tensor,
+                      positions: torch.Tensor, table_l: torch.Tensor) -> torch.Tensor:
+    """Scatter per-row scales [B, T, K] into the flattened [L*N, ps, K]
+    scales pool beside :func:`write_kv_flat`, in place; padding lands in the
+    spare row (``engine/kvcache.py:90``). Returns the same pool."""
+    LN, ps = s_flat.shape[:2]
+    write_scales_slots(s_flat, s_new, kv_slots(positions, table_l, ps, LN * ps))
+    return s_flat
+
+
+def write_scales_slots(s_flat: torch.Tensor, s_new: torch.Tensor,
+                       slots: torch.Tensor) -> None:
+    """Write [B, T, K] scales into the flattened scales pool at ``slots``."""
+    K = s_flat.shape[-1]
+    _rows_with_spare(s_flat, row_dims=1).index_put_(
+        (slots.reshape(-1),), s_new.reshape(-1, K).to(s_flat.dtype))
 
 
 def write_kv_flat(

@@ -6,9 +6,9 @@ Granularity is one KV page: tree edges are page-sized token chunks, nodes
 hold refcounted page ids. Matching only returns whole pages — a partially
 filled tail page is re-prefilled by the caller. Eviction is LRU over leaves.
 
-The C++ index comes from the JAX package's ``native/`` module (host code,
-no JAX); the pure-Python tree is the reference and the fallback when g++
-cannot build it.
+The C++ index is the port's ``native/`` module (host code, a copy of the
+JAX package's); the pure-Python tree is the reference and what
+:func:`make_prefix_cache` keeps when g++ cannot build the index.
 """
 from __future__ import annotations
 
@@ -120,7 +120,7 @@ class NativePrefixCache:
     """Same contract as :class:`PrefixCache`, backed by the C++ radix index."""
 
     def __init__(self, allocator: PageAllocator):
-        from deepsearch_tts_tpu.native import NativeRadixIndex
+        from ..native import NativeRadixIndex
 
         self.alloc = allocator
         self.page_size = allocator.page_size

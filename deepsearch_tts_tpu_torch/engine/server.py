@@ -19,9 +19,8 @@ import json
 import time
 import uuid
 
-from deepsearch_tts_tpu.engine.tokenizer import parse_tool_calls
-
 from .engine import Engine, GenerationRequest
+from .tokenizer import parse_tool_calls
 
 
 def _chat_payload_to_request(engine: Engine, payload: dict) -> GenerationRequest:

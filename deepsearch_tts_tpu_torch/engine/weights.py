@@ -6,6 +6,16 @@ tensors stacked on a leading layer axis; MoE expert stacks [L,NE,...]) so
 that params convert leaf by leaf in both directions. Random init, used when
 no checkpoint is given, is drawn on the target device from a seeded
 ``torch.Generator``, directly in the packed single-device layout.
+
+Both random init and the checkpoint converters write the packed layout
+the engine serves (``wqkv``, ``w_gateup``), one layer matrix at a time.
+``quantize="int8"`` (random init and the dense converter): every matrix
+named in ``ops/quant.QUANT_KEYS`` is drawn or read one layer matrix at a
+time, packed, and quantized by B12 (round to nearest, per column) into a
+preallocated int8 stack with its float32 scales, so the bf16 tree of a
+large model never exists whole beside its int8 copy (qwen3-32b: 65.6 GB in
+bf16, 33.6 GB int8). Per-column scales make this equal to
+``quantize_params`` of the whole bf16 tree, bit for bit.
 """
 from __future__ import annotations
 
@@ -74,55 +84,121 @@ def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+class _Stack:
+    """A [*lead, K, N] weight stack filled one [K, N] matrix (or a column
+    block of one) at a time: plain in ``dtype``, or int8 ``{q, scales}``
+    with ``quantize="int8"``, each matrix rounded to ``dtype`` first and then
+    quantized by B12 once all its columns are in (the scratch holds one
+    matrix)."""
+
+    def __init__(self, shape, dtype, device, quantize: str | None):
+        self.dtype, self.quantize = dtype, quantize
+        if quantize is None:
+            self.out = torch.empty(shape, dtype=dtype, device=device)
+            return
+        if quantize != "int8":
+            raise ValueError(f"unknown quantize {quantize!r} (None or 'int8')")
+        K, N = shape[-2:]
+        self.q = torch.empty(shape, dtype=torch.int8, device=device)
+        self.s = torch.empty(tuple(shape[:-2]) + (1, N), dtype=torch.float32, device=device)
+        self.scratch = torch.empty((K, N), dtype=dtype, device=device)
+        self.out = {"q": self.q, "scales": self.s}
+
+    def set(self, idx: tuple, cols: slice, mat: torch.Tensor, last: bool = True) -> None:
+        """Columns ``cols`` of matrix ``idx``; ``last``: its final block."""
+        if self.quantize is None:
+            self.out[idx][..., cols].copy_(mat)
+            return
+        from ..ops.quant import quantize_int8
+
+        self.scratch[:, cols].copy_(mat)
+        if last:
+            quantize_int8(self.scratch, out=(self.q[idx], self.s[idx]))
+
+
 def _layer_stack(raw, L: int, fmt: str, dt, device, transpose=True) -> torch.Tensor:
     mats = [raw[fmt.format(i)] for i in range(L)]
     return _to_torch(np.stack([m.T if transpose else m for m in mats]), dt, device)
 
 
-def _convert_attention(raw: Mapping[str, np.ndarray], cfg, device, dt) -> dict:
-    """Embedding, norms, attention stacks and lm_head: what the dense and
-    the MoE family share."""
-    def stack(fmt, transpose=True):
-        return _layer_stack(raw, cfg.n_layers, fmt, dt, device, transpose)
+def _packed(raw: Mapping[str, np.ndarray], cfg, shape: tuple, parts: list, dt, device,
+            quantize: str | None):
+    """A [L, *shape] stack whose layer i holds the HF matrices ``parts``
+    ((name format, column count) pairs, transposed to right-multiply) side
+    by side: read, packed and, with ``quantize``, quantized one layer at a
+    time."""
+    st = _Stack((cfg.n_layers,) + shape, dt, device, quantize)
+    for i in range(cfg.n_layers):
+        c0 = 0
+        for j, (fmt, n) in enumerate(parts):
+            st.set((i,), slice(c0, c0 + n), _to_torch(raw[fmt.format(i)].T, dt, device),
+                   last=j == len(parts) - 1)
+            c0 += n
+    return st.out
+
+
+def _convert_attention(raw: Mapping[str, np.ndarray], cfg, device, dt,
+                       quantize: str | None = None) -> dict:
+    """Embedding, norms, the packed attention stacks (``wqkv``, ``wo``) and
+    lm_head: what the dense and the MoE family share."""
+    E, H, K, D = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = "model.layers.{}.self_attn."
+
+    def norms(fmt):
+        return _layer_stack(raw, cfg.n_layers, fmt, dt, device, transpose=False)
 
     params = {
         "embed": _to_torch(raw["model.embed_tokens.weight"], dt, device),
         "final_norm": _to_torch(raw["model.norm.weight"], dt, device),
         "layers": {
-            "ln1": stack("model.layers.{}.input_layernorm.weight", transpose=False),
-            "ln2": stack("model.layers.{}.post_attention_layernorm.weight", transpose=False),
-            "q_norm": stack("model.layers.{}.self_attn.q_norm.weight", transpose=False),
-            "k_norm": stack("model.layers.{}.self_attn.k_norm.weight", transpose=False),
-            "wq": stack("model.layers.{}.self_attn.q_proj.weight"),
-            "wk": stack("model.layers.{}.self_attn.k_proj.weight"),
-            "wv": stack("model.layers.{}.self_attn.v_proj.weight"),
-            "wo": stack("model.layers.{}.self_attn.o_proj.weight"),
+            "ln1": norms("model.layers.{}.input_layernorm.weight"),
+            "ln2": norms("model.layers.{}.post_attention_layernorm.weight"),
+            "q_norm": norms(attn + "q_norm.weight"),
+            "k_norm": norms(attn + "k_norm.weight"),
+            "wqkv": _packed(raw, cfg, (E, (H + 2 * K) * D),
+                            [(attn + "q_proj.weight", H * D), (attn + "k_proj.weight", K * D),
+                             (attn + "v_proj.weight", K * D)], dt, device, quantize),
+            "wo": _packed(raw, cfg, (H * D, E), [(attn + "o_proj.weight", E)],
+                          dt, device, quantize),
         },
     }
     if "lm_head.weight" in raw and not cfg.tie_embeddings:
-        params["lm_head"] = _to_torch(raw["lm_head.weight"].T, dt, device)
+        head = _Stack((E, cfg.vocab_size), dt, device, quantize)
+        head.set((), slice(None), _to_torch(raw["lm_head.weight"].T, dt, device))
+        params["lm_head"] = head.out
     return params
 
 
 def convert_qwen3_dense(raw: Mapping[str, np.ndarray], cfg, device="cpu",
-                        dtype: torch.dtype | None = None) -> dict:
-    """HF Qwen3 checkpoint → stacked param tree (models/qwen3.py layout)."""
+                        dtype: torch.dtype | None = None,
+                        quantize: str | None = None) -> dict:
+    """HF Qwen3 checkpoint → stacked param tree (models/qwen3.py layout), in
+    the packed layout the engine serves (``wqkv``, ``w_gateup``), each layer
+    matrix read and packed on its own. ``quantize="int8"``: ``wqkv``,
+    ``wo``, ``w_gateup``, ``w_down`` and an untied ``lm_head`` as ``{q,
+    scales}``, each quantized as it is packed."""
     dt = dtype or cfg.torch_dtype
-    params = _convert_attention(raw, cfg, device, dt)
-    for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"),
-                      ("w_down", "down_proj")):
-        params["layers"][key] = _layer_stack(
-            raw, cfg.n_layers, f"model.layers.{{}}.mlp.{proj}.weight", dt, device)
+    E, Fi = cfg.hidden, cfg.intermediate
+    mlp = "model.layers.{}.mlp."
+    params = _convert_attention(raw, cfg, device, dt, quantize)
+    params["layers"]["w_gateup"] = _packed(
+        raw, cfg, (E, 2 * Fi), [(mlp + "gate_proj.weight", Fi), (mlp + "up_proj.weight", Fi)],
+        dt, device, quantize)
+    params["layers"]["w_down"] = _packed(raw, cfg, (Fi, E), [(mlp + "down_proj.weight", E)],
+                                         dt, device, quantize)
     return params
 
 
 def convert_qwen3_moe(raw: Mapping[str, np.ndarray], cfg, device="cpu",
-                      dtype: torch.dtype | None = None) -> dict:
+                      dtype: torch.dtype | None = None,
+                      quantize: str | None = None) -> dict:
     """HF Qwen3-MoE checkpoint → stacked param tree (models/qwen3_moe.py
     layout, experts packed: ``w_gateup`` [L,NE,E,2F], gate first, and
     ``w_down`` [L,NE,F,E]). The expert stacks are filled one expert matrix
     at a time, straight into the layout the engine serves, so neither the
     host nor the card ever holds a second copy of them."""
+    if quantize is not None:
+        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
     L, NE, E, Fi = cfg.n_layers, cfg.n_experts, cfg.hidden, cfg.moe_intermediate
     dt = dtype or cfg.torch_dtype
     params = _convert_attention(raw, cfg, device, dt)
@@ -139,7 +215,14 @@ def convert_qwen3_moe(raw: Mapping[str, np.ndarray], cfg, device="cpu",
     return params
 
 
-def random_params(cfg, device="cpu", seed: int = 0) -> dict:
+# int8 routed experts run JAX's blocked grouped matmul (ops/moe.py
+# _expert_ffn_blocked), which the port does not carry yet
+INT8_EXPERTS_NOT_PORTED = ("int8 weights of the Qwen3-MoE family (the int8 expert FFN, "
+                           "ops/moe.py _expert_ffn_blocked) are not ported to the torch "
+                           "package yet (ROADMAP.md A8)")
+
+
+def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None) -> dict:
     """Random init on ``device`` in the packed layout the engine serves
     (``wqkv``, ``w_gateup``): normal·fan_in^-½ for matrices (the
     distribution of the JAX package's ``fast_random_params``: fan_in E for
@@ -147,20 +230,25 @@ def random_params(cfg, device="cpu", seed: int = 0) -> dict:
     on the device from a ``torch.Generator`` seeded with ``seed``, one
     matrix at a time, so the float32 draw never holds more than one [E,2F]
     (or [V,E]) slab — a whole qwen3-30b-a3b expert stack would take 38.7 GB
-    in float32 — and no host-side weight bytes at all."""
+    in float32 — and no host-side weight bytes at all. ``quantize="int8"``
+    draws the same numbers and quantizes each matrix of ``QUANT_KEYS`` as it
+    is drawn: the result equals ``quantize_params(random_params(...))``."""
+    from ..ops.quant import QUANT_KEYS
+
+    if quantize is not None and not cfg.int8_weights:
+        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dt = cfg.torch_dtype
     E, H, K, D, L = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
 
-    def mk(*shape, fan_in=None):
+    def mk(*shape, fan_in=None, key=None):
         fan = fan_in if fan_in is not None else shape[-2]
-        out = torch.empty(shape, dtype=dt, device=dev)
+        st = _Stack(shape, dt, dev, quantize if key in QUANT_KEYS else None)
         for idx in np.ndindex(*shape[:-2]):
-            dst = out[idx]
-            dst.copy_(torch.randn(dst.shape, generator=gen, device=dev,
-                                  dtype=torch.float32).mul_(fan ** -0.5))
-        return out
+            st.set(idx, slice(None), torch.randn(shape[-2:], generator=gen, device=dev,
+                                                 dtype=torch.float32).mul_(fan ** -0.5))
+        return st.out
 
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
@@ -168,29 +256,39 @@ def random_params(cfg, device="cpu", seed: int = 0) -> dict:
     layers = {
         "ln1": ones(L, E), "ln2": ones(L, E),
         "q_norm": ones(L, D), "k_norm": ones(L, D),
-        "wqkv": mk(L, E, (H + 2 * K) * D),
-        "wo": mk(L, H * D, E),
+        "wqkv": mk(L, E, (H + 2 * K) * D, key="wqkv"),
+        "wo": mk(L, H * D, E, key="wo"),
     }
     # the family's MLP stacks; every one has its fan_in second to last
-    layers.update({k: mk(L, *shape) for k, shape in cfg.mlp_shapes().items()})
+    layers.update({k: mk(L, *shape, key=k) for k, shape in cfg.mlp_shapes().items()})
     params = {"embed": mk(cfg.vocab_size, E, fan_in=E), "final_norm": ones(E),
               "layers": layers}
     if not cfg.tie_embeddings:
-        params["lm_head"] = mk(E, cfg.vocab_size)
+        params["lm_head"] = mk(E, cfg.vocab_size, key="lm_head")
     return params
+
+
+def _cat_columns(parts: list):
+    """Concat stacked matrices over output columns; int8 ``{q, scales}``
+    leaves concat both (per-column scales: quantizing the packed matrix
+    gives the same)."""
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([p[k] for p in parts], dim=-1) for k in ("q", "scales")}
+    return torch.cat(parts, dim=-1)
 
 
 def pack_matmul_params(params: dict) -> dict:
     """Fuse per-layer QKV and gate/up weights into one matrix each (a concat
     over output columns: numerically the identity) — dense [L,E,F] and
-    expert [L,NE,E,F] stacks alike. The fused decode kernels read this
-    packed layout. Tensors of an already-packed tree are handed back as they
-    are, so engines built on one tree share one copy of the weights."""
+    expert [L,NE,E,F] stacks, bf16 or int8 ``{q, scales}``, alike. The fused
+    decode kernels read this packed layout. Tensors of an already-packed
+    tree are handed back as they are, so engines built on one tree share
+    one copy of the weights."""
     lp = dict(params["layers"])
     if all(k in lp for k in ("wq", "wk", "wv")):
-        lp["wqkv"] = torch.cat([lp.pop("wq"), lp.pop("wk"), lp.pop("wv")], dim=-1)
+        lp["wqkv"] = _cat_columns([lp.pop("wq"), lp.pop("wk"), lp.pop("wv")])
     if "w_gate" in lp and "w_up" in lp:
-        lp["w_gateup"] = torch.cat([lp.pop("w_gate"), lp.pop("w_up")], dim=-1)
+        lp["w_gateup"] = _cat_columns([lp.pop("w_gate"), lp.pop("w_up")])
     out = dict(params)
     out["layers"] = lp
     return out
@@ -201,7 +299,8 @@ def params_from_jax(tree, device="cpu") -> dict:
 
     bfloat16 leaves (``ml_dtypes.bfloat16`` in numpy) are reinterpreted bit
     for bit — viewed as int16, then as ``torch.bfloat16`` — so this package
-    never imports ``ml_dtypes``; other float leaves keep their dtype."""
+    never imports ``ml_dtypes``; other leaves keep their dtype (int8 ``{q,
+    scales}`` leaves of a quantized tree included)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     a = np.array(tree)   # a writable, contiguous copy
@@ -213,12 +312,13 @@ def params_from_jax(tree, device="cpu") -> dict:
 
 
 def load_or_init_params(model_name: str, weights_path: str = "", seed: int = 0,
-                        device="cpu") -> tuple[dict, str]:
-    """Return (params, resolved model name). Random init when no weights."""
+                        device="cpu", quantize: str | None = None) -> tuple[dict, str]:
+    """Return (params, resolved model name). Random init when no weights;
+    ``quantize="int8"``: the int8 tree, built one matrix at a time."""
     from ..models.registry import get_model
 
     fam = get_model(model_name)
     if weights_path:
         raw = _load_safetensors_dir(weights_path)
-        return fam.convert(raw, fam.config, device=device), fam.name
-    return random_params(fam.config, device=device, seed=seed), fam.name
+        return fam.convert(raw, fam.config, device=device, quantize=quantize), fam.name
+    return random_params(fam.config, device=device, seed=seed, quantize=quantize), fam.name

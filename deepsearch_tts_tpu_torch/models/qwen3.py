@@ -16,20 +16,36 @@ JAX selects its Pallas ones: flash attention for fresh prefill and the
 no-cache forward, the paged kernels for T=1 paged decode, and
 ``slot_attention`` for T=1 slot decode. The layer loop is a Python loop
 (the JAX ``lax.scan``); the KV pools are updated in place.
+
+int8 (``ops/quant.py``): a matrix leaf may be ``{q, scales}`` (int8 stack +
+float32 per-column scales); every product then goes through
+``maybe_int8_dot`` / ``int8_matmul`` (``plain_int8``: their plain versions,
+on any device), and the fused T=1 layer takes B10 (``*_i8``) when ``wqkv``
+is quantized. int8 KV: given ``k_scales`` / ``v_scales`` pools, each
+layer's k/v rows are quantized and written with their scales; fresh
+prefill attends over the chunk's unquantized k/v, and re-prefill and decode
+read the dequantized pages through ``paged_attention``'s gather.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..engine.kvcache import kv_slots, write_kv_slots
+from ..engine.kvcache import kv_slots, quantize_kv_rows, write_kv_slots, write_scales_slots
 from ..ops import attention as attn_ops
-from ..ops.fused_layer import fused_out_mlp_stacked, fused_qkv_stacked
+from ..ops.fused_layer import (
+    fused_out_mlp_stacked,
+    fused_out_mlp_stacked_i8,
+    fused_qkv_stacked,
+    fused_qkv_stacked_i8,
+)
+from ..ops.quant import int8_matmul, is_quantized, maybe_int8_dot
 from ..ops.slot_attention import slot_attention
-from .common import apply_rope, dot_bf16, matmul_f32, rms_norm, rope_angles
+from .common import apply_rope, matmul_f32, rms_norm, rope_angles
 
 
 @dataclass(frozen=True)
@@ -45,6 +61,10 @@ class Qwen3Config:
     rms_eps: float = 1e-6
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
+    # int8 serving (ROADMAP A10): int8 weights through B10 / B12, and int8
+    # KV pools with their scales (``forward``'s ``k_scales`` / ``v_scales``)
+    int8_weights: ClassVar[bool] = True
+    int8_kv: ClassVar[bool] = True
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -82,38 +102,57 @@ QWEN3_CONFIGS = {
 }
 
 
-def _qkv(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor):
+def _at(w, l: int):
+    """Layer ``l`` of a stacked weight leaf, plain or int8 ``{q, scales}``."""
+    if is_quantized(w):
+        return {"q": w["q"][l], "scales": w["scales"][l]}
+    return w[l]
+
+
+def _dot(h: torch.Tensor, w, l: int, plain: bool = False) -> torch.Tensor:
+    """``maybe_int8_dot`` of h with layer ``l`` of a stacked weight."""
+    return maybe_int8_dot(h, _at(w, l), plain=plain)
+
+
+def _qkv(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor, plain: bool = False):
     B, T, _ = h.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if "wqkv" in lp:  # packed single-chip layout (engine pack_weights)
-        qkv = dot_bf16(h, lp["wqkv"][l])
+        qkv = _dot(h, lp["wqkv"], l, plain)
         q = qkv[..., : H * D].reshape(B, T, H, D)
         k = qkv[..., H * D: (H + K) * D].reshape(B, T, K, D)
         v = qkv[..., (H + K) * D:].reshape(B, T, K, D)
     else:
-        q = dot_bf16(h, lp["wq"][l]).reshape(B, T, H, D)
-        k = dot_bf16(h, lp["wk"][l]).reshape(B, T, K, D)
-        v = dot_bf16(h, lp["wv"][l]).reshape(B, T, K, D)
+        q = _dot(h, lp["wq"], l, plain).reshape(B, T, H, D)
+        k = _dot(h, lp["wk"], l, plain).reshape(B, T, K, D)
+        v = _dot(h, lp["wv"], l, plain).reshape(B, T, K, D)
     return q, k, v
 
 
-def _mlp(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor) -> torch.Tensor:
+def _mlp(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor,
+         plain: bool = False) -> torch.Tensor:
     if "w_gateup" in lp:
         Fi = cfg.intermediate
-        gu = dot_bf16(h, lp["w_gateup"][l])
+        gu = _dot(h, lp["w_gateup"], l, plain)
         g, u = gu[..., :Fi], gu[..., Fi:]
     else:
-        g = dot_bf16(h, lp["w_gate"][l])
-        u = dot_bf16(h, lp["w_up"][l])
-    return dot_bf16(F.silu(g.float()).to(u.dtype) * u, lp["w_down"][l])
+        g = _dot(h, lp["w_gate"], l, plain)
+        u = _dot(h, lp["w_up"], l, plain)
+    return _dot(F.silu(g.float()).to(u.dtype) * u, lp["w_down"], l, plain)
 
 
-def _lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Final projection with float32 logits (``preferred_element_type=f32``)."""
+def _lm_head(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Final projection with float32 logits (``preferred_element_type=f32``).
+    An int8 head rounds its product to x's dtype first, then widens
+    (``qwen3.py:530-533``): bf16-rounded logits on a bf16 model."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].t()
-    logits = matmul_f32(x.reshape(-1, x.shape[-1]), head)
+    x2 = x.reshape(-1, x.shape[-1])
+    if is_quantized(head):
+        logits = int8_matmul(x2, head["q"], head["scales"], plain=plain).float()
+    else:
+        logits = matmul_f32(x2, head)
     return logits.reshape(*x.shape[:-1], -1)
 
 
@@ -124,20 +163,34 @@ class ServingAttention:
     Built once per serving forward: the layer-invariant index math — each
     token's pool row in layer 0 (padding → the spare row past the pool), the
     offset one layer adds to it, and the decode attention mask or slot limit.
-    ``attend(l, x)`` then runs layer ``l``: q/k/v (the fused B3 kernel on
-    ``x`` [B,E] when ``fused``, else the plain chain on ``x`` [B,T,E]), the
-    in-place KV write and one of five branches — fresh causal prefill,
-    slot decode (B1 or the masked gather), re-prefill over a cached prefix,
-    and T=1 paged decode (B6 or the gather). Returns o [B,T,H,D]."""
+    ``attend(l, x)`` then runs layer ``l``: q/k/v (the fused B3 or B10
+    kernel on ``x`` [B,E] when ``fused``, else the plain chain on ``x``
+    [B,T,E]), the in-place KV write (quantized, with its scales, when the
+    scales pools are given) and one of five branches — fresh causal
+    prefill, slot decode (B1 or the masked gather), re-prefill over a
+    cached prefix, and T=1 paged decode (B6 or the gather). Returns o
+    [B,T,H,D].
+
+    int8 KV follows JAX's routing (``qwen3.py:297-400``): fresh prefill
+    attends over the chunk's unquantized k/v; re-prefill does not take
+    ``prefix_chunk_attention`` but reads the pages after the write, like
+    T=1 decode, through ``paged_attention``'s gather."""
 
     def __init__(self, cfg, lp: dict, positions, cos, sin, *, k_pages, v_pages,
                  page_table, seq_lens, impl: str, slot_decode: bool,
-                 slot_ctx: int | None, fresh_prefill: bool, fused: bool):
+                 slot_ctx: int | None, fresh_prefill: bool, fused: bool,
+                 k_scales=None, v_scales=None, plain: bool = False):
         B, T = positions.shape
         L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
-        self.cfg, self.lp, self.cos, self.sin = cfg, lp, cos, sin
+        self.cfg, self.lp, self.cos, self.sin, self.plain = cfg, lp, cos, sin, plain
         self.kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
         self.vpf = v_pages.view((L * N,) + tuple(v_pages.shape[2:]))
+        self.kv_int8 = k_scales is not None
+        if self.kv_int8:
+            if slot_decode:
+                raise ValueError("int8 KV runs on the paged cache, not slot decode")
+            self.ksf = k_scales.view((L * N,) + tuple(k_scales.shape[2:]))
+            self.vsf = v_scales.view((L * N,) + tuple(v_scales.shape[2:]))
         if slot_decode:
             page_table = torch.arange(B, device=positions.device)[:, None]
             slot_ctx = min(slot_ctx or ps, ps)
@@ -163,17 +216,34 @@ class ServingAttention:
         if fused:
             self.cosf, self.sinf = cos.reshape(B, -1), sin.reshape(B, -1)
 
+    def _write(self, k, v, slots_l) -> None:
+        """This layer's rows into the pools (int8 KV: quantized, with their
+        scales)."""
+        if self.kv_int8:
+            (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+            write_kv_slots(self.kpf, self.vpf, kq, vq, slots_l)
+            write_scales_slots(self.ksf, ks, slots_l)
+            write_scales_slots(self.vsf, vs, slots_l)
+        else:
+            write_kv_slots(self.kpf, self.vpf, k, v, slots_l)
+
     def __call__(self, l: int, x: torch.Tensor) -> torch.Tensor:
         cfg, lp = self.cfg, self.lp
         H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         B, T = self.positions.shape
         if self.fused:
-            qf, kf, vf = fused_qkv_stacked(
-                x, lp["ln1"], lp["wqkv"], lp["q_norm"], lp["k_norm"], self.cosf,
-                self.sinf, l, n_heads=H, n_kv=K, head_dim=D, eps=cfg.rms_eps)
+            kw = dict(n_heads=H, n_kv=K, head_dim=D, eps=cfg.rms_eps)
+            w = lp["wqkv"]
+            if is_quantized(w):
+                qf, kf, vf = fused_qkv_stacked_i8(
+                    x, lp["ln1"], w["q"], w["scales"], lp["q_norm"], lp["k_norm"],
+                    self.cosf, self.sinf, l, **kw)
+            else:
+                qf, kf, vf = fused_qkv_stacked(x, lp["ln1"], w, lp["q_norm"], lp["k_norm"],
+                                               self.cosf, self.sinf, l, **kw)
             q, k, v = qf.reshape(B, 1, H, D), kf.reshape(B, 1, K, D), vf.reshape(B, 1, K, D)
         else:
-            q, k, v = _qkv_roped(cfg, lp, l, x, self.cos, self.sin)
+            q, k, v = _qkv_roped(cfg, lp, l, x, self.cos, self.sin, self.plain)
             v = v.to(x.dtype)
         kpf, vpf, N = self.kpf, self.vpf, self.N
         table_l = self.page_table + l * N
@@ -181,7 +251,7 @@ class ServingAttention:
         if self.fresh:
             # positions start at 0: causal attention over the chunk itself;
             # padded tail rows are garbage that is never read
-            write_kv_slots(kpf, vpf, k, v, slots_l)
+            self._write(k, v, slots_l)
             return attn_ops.causal_attention(q, k, v, impl=self.impl)
         if self.slot_decode:
             write_kv_slots(kpf, vpf, k, v, slots_l)
@@ -192,6 +262,12 @@ class ServingAttention:
             return attn_ops.masked_context_attention(
                 q, kpf[rows, :self.slot_ctx], vpf[rows, :self.slot_ctx], self.seq_lens,
                 self.pos_c, mask=self.decode_mask)
+        if self.kv_int8:
+            # re-prefill and decode: the pages after the write, dequantized
+            self._write(k, v, slots_l)
+            return attn_ops.paged_attention(
+                q, kpf, vpf, table_l, self.seq_lens, self.pos_c, mask=self.decode_mask,
+                k_scales=self.ksf, v_scales=self.vsf)
         if T > 1:
             # re-prefill over a cached prefix: read the prefix BEFORE this
             # chunk's in-place write, take the chunk's K/V directly
@@ -206,12 +282,12 @@ class ServingAttention:
                                         mask=self.decode_mask, impl=self.impl)
 
 
-def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin):
+def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin, plain: bool = False):
     """Layer ``l``'s plain q/k/v: rmsnorm, projection, per-head q/k norm and
     RoPE; q and k in x's dtype, v as the projection leaves it."""
     eps = cfg.rms_eps
     h = rms_norm(x, lp["ln1"][l], eps)
-    q, k, v = _qkv(cfg, lp, l, h)
+    q, k, v = _qkv(cfg, lp, l, h, plain)
     q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin).to(x.dtype)
     k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin).to(x.dtype)
     return q, k, v
@@ -239,16 +315,22 @@ def forward(
     slot_ctx: int | None = None,     # context bucket the slot decode reads
     fresh_prefill: bool = False,     # no cached prefix: attend over the chunk
     fused_decode: bool = False,      # T=1 packed-weight fused layer functions
+    k_scales: torch.Tensor | None = None,   # int8 KV: [L, N, ps, K] f32 scales
+    v_scales: torch.Tensor | None = None,
+    plain_int8: bool = False,        # int8 products through their plain versions
 ):
     """Run the decoder.
 
     Serving mode (pages given): writes the chunk's KV into the paged cache
     IN PLACE and attends over the cached sequence; returns
     ``(logits [B,(T|1),V] f32, (k_pages, v_pages))`` with the same pool
-    tensors. With ``slot_decode`` the pools are ``[L, B, max_seq_len, K,
-    D]``, row b's table is the identity and attention reads the first
-    ``slot_ctx`` positions of its row. Training mode (pages None): full
-    causal attention, returns ``(logits [B,T,V], None)``.
+    tensors, and ``(k_pages, v_pages, k_scales, v_scales)`` with int8 KV
+    (int8 pools and their scales pools). With ``slot_decode`` the pools are
+    ``[L, B, max_seq_len, K, D]``, row b's table is the identity and
+    attention reads the first ``slot_ctx`` positions of its row. Training
+    mode (pages None): full causal attention, returns ``(logits [B,T,V],
+    None)``. ``plain_int8`` keeps every int8 product off the kernels (the
+    unfused chain with the plain int8 product): a reference on the card.
     """
     lp = params["layers"]
     H, D = cfg.n_heads, cfg.head_dim
@@ -258,42 +340,48 @@ def forward(
     B, T, E = x.shape
     serving = k_pages is not None
 
+    def layer_tail(l: int, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """x + o@wo, then the MLP block, unfused."""
+        x = x + _dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8).to(x.dtype)
+        return x + _mlp(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain_int8).to(x.dtype)
+
     if serving:
-        use_fused = _fused_decode_on(fused_decode, T, fresh_prefill, lp)
+        use_fused = _fused_decode_on(fused_decode, T, fresh_prefill, lp) and not plain_int8
         attend = ServingAttention(
             cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
-            fused=use_fused)
+            fused=use_fused, k_scales=k_scales, v_scales=v_scales, plain=plain_int8)
         if use_fused:
             xf = x.reshape(B, E)
         for l in range(cfg.n_layers):
-            if use_fused:
-                o = attend(l, xf)
-                xf = fused_out_mlp_stacked(
-                    o.reshape(B, H * D).to(x.dtype), xf, lp["wo"], lp["ln2"],
-                    lp["w_gateup"], lp["w_down"], l, eps=eps)
+            if not use_fused:
+                x = layer_tail(l, attend(l, x), x)
+                continue
+            a = attend(l, xf).reshape(B, H * D).to(x.dtype)
+            if is_quantized(lp["wqkv"]):
+                wo, gu, wd = lp["wo"], lp["w_gateup"], lp["w_down"]
+                xf = fused_out_mlp_stacked_i8(
+                    a, xf, wo["q"], wo["scales"], lp["ln2"], gu["q"], gu["scales"],
+                    wd["q"], wd["scales"], l, eps=eps)
             else:
-                o = attend(l, x)
-                x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
-                h = rms_norm(x, lp["ln2"][l], eps)
-                x = x + _mlp(cfg, lp, l, h).to(x.dtype)
+                xf = fused_out_mlp_stacked(a, xf, lp["wo"], lp["ln2"], lp["w_gateup"],
+                                           lp["w_down"], l, eps=eps)
         if use_fused:
             x = xf.reshape(B, 1, E)
     else:
         for l in range(cfg.n_layers):
-            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin)
-            o = attn_ops.causal_attention(q, k, v, impl=impl)
-            x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
-            h = rms_norm(x, lp["ln2"][l], eps)
-            x = x + _mlp(cfg, lp, l, h).to(x.dtype)
+            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain_int8)
+            x = layer_tail(l, attn_ops.causal_attention(q, k, v, impl=impl), x)
 
     x = rms_norm(x, params["final_norm"], eps)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
-    logits = _lm_head(params, x)
+    logits = _lm_head(params, x, plain_int8)
     if not serving:
         return logits, None
+    if k_scales is not None:
+        return logits, (k_pages, v_pages, k_scales, v_scales)
     return logits, (k_pages, v_pages)
 
 

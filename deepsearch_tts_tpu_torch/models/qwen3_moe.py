@@ -22,6 +22,7 @@ MoE family keeps XLA attention. The decode-step prefill lane is not carried
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import ClassVar
 
 import torch
 
@@ -50,6 +51,10 @@ class Qwen3MoeConfig:
     moe_impl: str = "ragged"
     capacity_factor: float = 1.25
     dtype: str = "bfloat16"
+    # int8 experts are ROADMAP A8's (``_expert_ffn_blocked``); the JAX
+    # family's forward takes no KV scales, so it has no int8 KV either
+    int8_weights: ClassVar[bool] = False
+    int8_kv: ClassVar[bool] = False
 
     @property
     def torch_dtype(self) -> torch.dtype:

@@ -18,6 +18,11 @@ Prefill attention materialises its float32 scores, so it runs over blocks
 of query rows sized to keep one block's scores within ``SCORES_BUDGET``
 elements: an 8192-token prompt would otherwise need [H, T, S] = 8.6 GB of
 scores, several times over, on top of the weights and the KV pool.
+
+int8 KV: :func:`paged_attention` given the scales pools gathers the int8
+pages and their scales, dequantizes in float32, rounds to q's dtype and
+runs :func:`masked_context_attention` (``attention.py:122-135``; plain XLA
+code in JAX too — no TPU kernel reads int8 KV).
 """
 from __future__ import annotations
 
@@ -90,17 +95,23 @@ def paged_attention(
     q_positions: torch.Tensor,  # [B, T] absolute position of each query
     *, scale: float | None = None, mask: torch.Tensor | None = None,
     impl: str = "xla",
+    k_scales: torch.Tensor | None = None,   # [N, ps, K] int8-KV scales
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attend queries over their sequence's paged KV (causal by position).
 
     The chunk's own KV must already be written to the pages. At T=1,
     ``impl`` "pallas" / "pallas2" / "clamp" runs ``pallas_paged_attention``
     / ``pallas_paged_decode`` / ``pallas_paged_decode_clamp`` (B6).
-    Otherwise it gathers the table's pages and runs
-    :func:`masked_context_attention` — the XLA reference branch of the JAX
-    function (bf16 KV only); T>1 always takes it, as in JAX. ``mask`` is
-    :func:`context_mask` of the same arguments, when the caller already
-    has it (it is the same for every layer)."""
+    Otherwise it gathers the table's pages — int8 pages dequantized with
+    their scales — and runs :func:`masked_context_attention`, the XLA
+    reference branch of the JAX function; T>1 always takes it, as in JAX.
+    ``mask`` is :func:`context_mask` of the same arguments, when the caller
+    already has it (it is the same for every layer)."""
+    if k_scales is not None and impl != "xla":
+        # JAX's Pallas branch ignores the scales and reads int32-packed
+        # pages (attention.py:88-109): no kernel reads int8 KV
+        raise ValueError(f"int8 KV attention runs the gather (impl='xla'), not {impl!r}")
     if impl in ("pallas", "pallas2", "clamp") and q.shape[1] == 1:
         from . import paged_attention as pa
 
@@ -117,6 +128,11 @@ def paged_attention(
     S = page_table.shape[1] * ps
     k_ctx = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D)
     v_ctx = gather_kv_rows(v_pages, page_table).reshape(B, S, K, D)
+    if k_scales is not None:
+        ks = gather_kv_rows(k_scales, page_table).reshape(B, S, K, 1)
+        vs = gather_kv_rows(v_scales, page_table).reshape(B, S, K, 1)
+        k_ctx = (k_ctx.float() * ks).to(q.dtype)
+        v_ctx = (v_ctx.float() * vs).to(q.dtype)
     return masked_context_attention(q, k_ctx, v_ctx, seq_lens, q_positions,
                                     scale=scale, mask=mask)
 
@@ -176,13 +192,18 @@ def masked_context_attention(
     q_positions: torch.Tensor,
     *, scale: float | None = None, mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Causal + length-masked GQA over per-row context buffers."""
+    """Causal + length-masked GQA over per-row context buffers, in query
+    blocks (a re-prefill over an int8 cache takes this path for the whole
+    prompt)."""
     B, T, H, D = q.shape
     S = k_ctx.shape[1]
     scale = scale if scale is not None else D ** -0.5
     if mask is None:
         mask = context_mask(seq_lens, q_positions, S)
-    scores = _gqa_scores(q * scale, k_ctx)                   # [B,K,G,T,S]
-    scores = scores.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    return _gqa_out(probs, v_ctx, q.dtype)
+
+    def block(t0, t1):
+        scores = _gqa_scores(q[:, t0:t1] * scale, k_ctx)     # [B,K,G,t,S]
+        scores = scores.masked_fill(~mask[..., t0:t1, :], NEG_INF)
+        return _gqa_out(torch.softmax(scores, dim=-1), v_ctx, q.dtype)
+
+    return _query_blocks(q, S, block)

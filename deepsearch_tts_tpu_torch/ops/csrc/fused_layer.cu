@@ -3,6 +3,9 @@
 //   B3  fused_qkv_stacked         (_qkv_stacked_kernel,        fused_layer.py:244)
 //   B4  fused_out_mlp_stacked     (_out_mlp_stacked_kernel,    fused_layer.py:356)
 //   B7  fused_out_router_stacked  (_out_router_stacked_kernel, fused_layer.py:818)
+//   B10 fused_qkv_stacked_i8      (_qkv_stacked_kernel_i8,     fused_layer.py:568)
+//       fused_out_mlp_stacked_i8  (_out_mlp_stacked_kernel_i8, fused_layer.py:669)
+//       and the bare int8 product of ops/quant.int8_matmul (quant.py:68)
 // and the grouped expert FFN of the Qwen3-MoE layer, which the JAX package
 // leaves to lax.ragged_dot (ops/moe.py:81 _expert_ffn_ragged): grouped_expert,
 // at the end of this file.
@@ -42,6 +45,17 @@
 //   go through device memory and stay in L2.
 // * bf16 round points match the TPU kernels: xn, x2, h and the outputs are
 //   rounded to bf16; every accumulator and the norm/rope math are float32.
+// * B10 (int8 weights, one float32 scale per output column): the same
+//   product with I8 = true. The cp.async ring brings 32x128 int8 weight
+//   tiles (4 KB a stage, half the bf16 bytes: decode streams half the
+//   weight bytes, its binding resource); after a stage lands the threads
+//   widen it to bf16 in one shared tile (exact: |q| <= 127) and the same
+//   ldmatrix.trans -> mma.sync path multiplies it with the bf16
+//   activations, as JAX multiplies bf16 x bf16(int8) (fused_layer.py:583,
+//   699-704). The column scales multiply the reduced float32 sum in the
+//   epilogues: before the q/k norm and rope (B10-qkv), before silu for g
+//   and u each (B10-out) and before the residual for wo and wd. A column
+//   scale commutes with the split-K sum up to float32 rounding.
 //
 // Interface: plain C, raw pointers, launched on the caller's stream; no
 // allocation (the wrapper passes outputs and scratch); each entry returns the
@@ -85,6 +99,17 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 int8 weights (16 bytes) -> 16 bf16 (32 bytes), exact
+__device__ __forceinline__ void widen16(const int8_t* src, bf16* dst) {
+  const int4 v = *reinterpret_cast<const int4*>(src);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+  __align__(16) bf16 o[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) o[i] = __float2bfloat16(static_cast<float>(b[i]));
+  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(o)[0];
+  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(o)[1];
 }
 
 // 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros
@@ -150,21 +175,26 @@ rms_norm_rows(const bf16* __restrict__ X, const bf16* __restrict__ ln, int K,
   }
 }
 
-template <int MT>
+// I8: the bf16 ring holds one widened tile, and an int8 ring follows the
+// activation stages
+template <int MT, bool I8 = false>
 constexpr int gemm_smem_bytes() {
-  return STAGES * (KT * WROW + MT * 16 * AROW) * (int)sizeof(bf16);
+  return ((I8 ? 1 : STAGES) * KT * WROW + STAGES * MT * 16 * AROW) * (int)sizeof(bf16) +
+         (I8 ? STAGES * KT * TILE : 0);
 }
 
 // P[z, r, n] = sum_{k in [z*kps, (z+1)*kps)} X[r, k] * W[k, n] for the rows
-// r0 = blockIdx.z * MAX_ROWS ... (MT*16 of them, rows >= B read as zeros)
+// r0 = blockIdx.z * MAX_ROWS ... (MT*16 of them, rows >= B read as zeros);
+// W is bf16, or int8 with I8 (widened to bf16 in shared memory).
 // grid: (N/TILE, splits, ceil(B/MAX_ROWS)); block: GT threads.
-template <int MT>
+template <int MT, bool I8>
 __global__ void __launch_bounds__(GT)
-gemm_partial(const bf16* __restrict__ X, const bf16* __restrict__ W,
+gemm_partial(const bf16* __restrict__ X, const void* __restrict__ Wv,
              float* __restrict__ P, int B, int K, int N, int kps) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ws = reinterpret_cast<bf16*>(smem);               // [STAGES][KT][WROW]
-  bf16* as = ws + STAGES * KT * WROW;                     // [STAGES][MT*16][AROW]
+  bf16* ws = reinterpret_cast<bf16*>(smem);               // [STAGES or 1][KT][WROW]
+  bf16* as = ws + (I8 ? 1 : STAGES) * KT * WROW;          // [STAGES][MT*16][AROW]
+  int8_t* w8 = reinterpret_cast<int8_t*>(as + STAGES * MT * 16 * AROW);  // I8: [STAGES][KT][TILE]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = blockIdx.x * TILE;
   const int kb = blockIdx.y * kps;
@@ -173,10 +203,20 @@ gemm_partial(const bf16* __restrict__ X, const bf16* __restrict__ W,
 
   auto load_stage = [&](int stage, int kt) {
     const int k0 = kb + kt * KT;
-    bf16* wdst = ws + stage * KT * WROW;
-    for (int i = threadIdx.x; i < KT * (TILE / 8); i += GT) {
-      const int r = i / (TILE / 8), c = (i % (TILE / 8)) * 8;
-      cp_async16(wdst + r * WROW + c, W + (long long)(k0 + r) * N + col0 + c, 16);
+    if constexpr (I8) {
+      const int8_t* W = static_cast<const int8_t*>(Wv);
+      int8_t* wdst = w8 + stage * KT * TILE;
+      for (int i = threadIdx.x; i < KT * (TILE / 16); i += GT) {
+        const int r = i / (TILE / 16), c = (i % (TILE / 16)) * 16;
+        cp_async16(wdst + r * TILE + c, W + (long long)(k0 + r) * N + col0 + c, 16);
+      }
+    } else {
+      const bf16* W = static_cast<const bf16*>(Wv);
+      bf16* wdst = ws + stage * KT * WROW;
+      for (int i = threadIdx.x; i < KT * (TILE / 8); i += GT) {
+        const int r = i / (TILE / 8), c = (i % (TILE / 8)) * 8;
+        cp_async16(wdst + r * WROW + c, W + (long long)(k0 + r) * N + col0 + c, 16);
+      }
     }
     bf16* adst = as + stage * MT * 16 * AROW;
     for (int i = threadIdx.x; i < MT * 16 * (KT / 8); i += GT) {
@@ -212,7 +252,17 @@ gemm_partial(const bf16* __restrict__ X, const bf16* __restrict__ W,
       if (nt < nk) load_stage(nt % STAGES, nt);
       cp_async_commit();
     }
-    const bf16* wst = ws + (kt % STAGES) * KT * WROW;
+    const bf16* wst = ws + (I8 ? 0 : (kt % STAGES) * KT * WROW);
+    if constexpr (I8) {
+      // widen stage kt into the bf16 tile (the barrier above also ends the
+      // previous stage's reads of it)
+      const int8_t* src = w8 + (kt % STAGES) * KT * TILE;
+      for (int i = threadIdx.x; i < KT * (TILE / 16); i += GT) {
+        const int r = i / (TILE / 16), c = (i % (TILE / 16)) * 16;
+        widen16(src + r * TILE + c, ws + r * WROW + c);
+      }
+      __syncthreads();
+    }
     const bf16* ast = as + (kt % STAGES) * MT * 16 * AROW;
 #pragma unroll
     for (int kk = 0; kk < KT; kk += 16) {
@@ -258,36 +308,40 @@ gemm_partial(const bf16* __restrict__ X, const bf16* __restrict__ W,
   }
 }
 
-template <int MT>
-void launch_gemm_mt(const bf16* X, const bf16* W, float* P, int B, int K, int N,
+template <int MT, bool I8>
+void launch_gemm_mt(const bf16* X, const void* W, float* P, int B, int K, int N,
                     int splits, cudaStream_t st) {
-  constexpr int bytes = gemm_smem_bytes<MT>();
+  constexpr int bytes = gemm_smem_bytes<MT, I8>();
   if (bytes > 48 * 1024) {
     static bool attr_set = false;  // the opt-in above 48 KB, once per process
     if (!attr_set) {
-      cudaFuncSetAttribute(gemm_partial<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(gemm_partial<MT, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes);
       attr_set = true;
     }
   }
-  gemm_partial<MT><<<dim3(N / TILE, splits, cdiv(B, MAX_ROWS)), GT, bytes, st>>>(
+  gemm_partial<MT, I8><<<dim3(N / TILE, splits, cdiv(B, MAX_ROWS)), GT, bytes, st>>>(
       X, W, P, B, K, N, K / splits);
 }
 
-// m-tiles per block: the fewest 16-row tiles that cover B (up to 4)
-void launch_gemm(const bf16* X, const bf16* W, float* P, int B, int K, int N,
+// m-tiles per block: the fewest 16-row tiles that cover B (up to 4); W is
+// bf16, or int8 with I8
+template <bool I8 = false>
+void launch_gemm(const bf16* X, const void* W, float* P, int B, int K, int N,
                  int splits, cudaStream_t st) {
-  if (B <= 16) launch_gemm_mt<1>(X, W, P, B, K, N, splits, st);
-  else if (B <= 32) launch_gemm_mt<2>(X, W, P, B, K, N, splits, st);
-  else launch_gemm_mt<4>(X, W, P, B, K, N, splits, st);
+  if (B <= 16) launch_gemm_mt<1, I8>(X, W, P, B, K, N, splits, st);
+  else if (B <= 32) launch_gemm_mt<2, I8>(X, W, P, B, K, N, splits, st);
+  else launch_gemm_mt<4, I8>(X, W, P, B, K, N, splits, st);
 }
 
 // B3 epilogue: one block per (row, head) of HEAD threads. q heads (< H) and
 // k heads (< H+KV) get RMSNorm with q_norm / k_norm then rotate-half RoPE;
 // v heads pass through. Sections are told apart by head index, as the TPU
-// kernel does by column (fused_layer.py:265-279).
+// kernel does by column (fused_layer.py:265-279). B10: the reduced sum is
+// first multiplied by its column's scale (colscale, null for bf16 weights).
 __global__ void __launch_bounds__(HEAD)
 qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
+             const float* __restrict__ colscale,
              const bf16* __restrict__ qn, const bf16* __restrict__ kn,
              const float* __restrict__ cosv, const float* __restrict__ sinv,
              bf16* __restrict__ out, int H, int KV, float eps) {
@@ -297,6 +351,7 @@ qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
   const int col = head * HEAD + j;
   float y = 0.f;
   for (int s = 0; s < S; ++s) y += P[((long long)s * B + b) * C + col];
+  if (colscale) y *= colscale[col];
   if (head >= H + KV) {  // v: uniform across the block, so no barrier is skipped
     out[(long long)b * C + col] = __float2bfloat16(y);
     return;
@@ -321,22 +376,26 @@ qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
   out[(long long)b * C + col] = __float2bfloat16(o);
 }
 
-// out[b, n] = bf16(res[b, n] + sum_s P[s, b, n])
+// out[b, n] = bf16(res[b, n] + sum_s P[s, b, n] * colscale[n]); res null:
+// no residual (B10's bare int8 product); colscale null: bf16 weights
 __global__ void __launch_bounds__(256)
 residual_epilogue(const float* __restrict__ P, int S, int B, int N,
+                  const float* __restrict__ colscale,
                   const bf16* __restrict__ res, bf16* __restrict__ out) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   const long long total = (long long)B * N;
   if (i >= total) return;
   float acc = 0.f;
   for (int s = 0; s < S; ++s) acc += P[(long long)s * total + i];
-  out[i] = __float2bfloat16(__bfloat162float(res[i]) + acc);
+  if (colscale) acc *= colscale[i % N];
+  out[i] = __float2bfloat16(res ? __bfloat162float(res[i]) + acc : acc);
 }
 
-// h[b, f] = bf16(silu(g) * u), g = P[.., f], u = P[.., F + f] (P rows are 2F wide)
+// h[b, f] = bf16(silu(g) * u), g = P[.., f], u = P[.., F + f] (P rows are 2F
+// wide); B10: g and u each times its column's scale first
 __global__ void __launch_bounds__(256)
 swiglu_epilogue(const float* __restrict__ P, int S, int B, int F,
-                bf16* __restrict__ h) {
+                const float* __restrict__ colscale, bf16* __restrict__ h) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= (long long)B * F) return;
   const long long b = i / F, f = i % F;
@@ -345,6 +404,10 @@ swiglu_epilogue(const float* __restrict__ P, int S, int B, int F,
     const float* row = P + ((long long)s * B + b) * (2LL * F);
     g += row[f];
     u += row[F + f];
+  }
+  if (colscale) {
+    g *= colscale[f];
+    u *= colscale[F + f];
   }
   const float silu = g / (1.f + __expf(-g));
   h[i] = __float2bfloat16(silu * u);
@@ -545,6 +608,42 @@ int launch_grouped(const void* x, const void* offsets, const bf16* w0, const bf1
   return (int)cudaGetLastError();
 }
 
+// B3 / B10-qkv: xn = rmsnorm(x)·ln -> xn @ W (bf16, or int8 with I8 and the
+// column scales ws) -> qkv_epilogue
+template <bool I8>
+int run_qkv(const bf16* X, const bf16* ln, const void* W, const float* ws,
+            const bf16* qn, const bf16* kn, const float* cosv, const float* sinv,
+            float* P, bf16* XN, bf16* out, int B, int E, int H, int KV, int splits,
+            float eps, cudaStream_t st) {
+  const int C = (H + 2 * KV) * HEAD;
+  rms_norm_rows<<<B, NT, 0, st>>>(X, ln, E, eps, XN);
+  launch_gemm<I8>(XN, W, P, B, E, C, splits, st);
+  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(P, splits, B, C, ws, qn, kn, cosv,
+                                                     sinv, out, H, KV, eps);
+  return (int)cudaGetLastError();
+}
+
+// B4 / B10-out over one layer's weights (int8 with I8 and column scales
+// wo_s, gu_s, wd_s; null for bf16)
+template <bool I8>
+int run_out_mlp(const bf16* A, const bf16* X, const void* Wo, const float* wo_s,
+                const bf16* ln, const void* Wgu, const float* gu_s, const void* Wd,
+                const float* wd_s, float* P, bf16* X2, bf16* XN, bf16* Hh, bf16* O,
+                int B, int HD, int E, int F, int s_o, int s_gu, int s_d, float eps,
+                cudaStream_t st) {
+  // (1) x2 = x + a @ wo
+  launch_gemm<I8>(A, Wo, P, B, HD, E, s_o, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_o, B, E, wo_s, X, X2);
+  // (2) h = silu(xn @ Wg) * (xn @ Wu), xn = rmsnorm(x2) * ln2
+  rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, XN);
+  launch_gemm<I8>(XN, Wgu, P, B, E, 2 * F, s_gu, st);
+  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(P, s_gu, B, F, gu_s, Hh);
+  // (3) out = x2 + h @ wd
+  launch_gemm<I8>(Hh, Wd, P, B, F, E, s_d, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, wd_s, X2, O);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -557,22 +656,33 @@ int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
                     const void* sinv, void* partial, void* xn, void* out,
                     int layer, int B, int E, int H, int KV, int splits,
                     float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int C = (H + 2 * KV) * HEAD;
-  const bf16* X = static_cast<const bf16*>(x);
-  const bf16* ln = static_cast<const bf16*>(ln_all) + (long long)layer * E;
-  const bf16* W = static_cast<const bf16*>(wqkv_all) + (long long)layer * E * C;
-  const bf16* qn = static_cast<const bf16*>(qn_all) + (long long)layer * HEAD;
-  const bf16* kn = static_cast<const bf16*>(kn_all) + (long long)layer * HEAD;
-  float* P = static_cast<float*>(partial);
-  bf16* XN = static_cast<bf16*>(xn);
+  const long long C = (H + 2 * KV) * HEAD;
+  return run_qkv<false>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + (long long)layer * E,
+      static_cast<const bf16*>(wqkv_all) + layer * E * C, nullptr,
+      static_cast<const bf16*>(qn_all) + (long long)layer * HEAD,
+      static_cast<const bf16*>(kn_all) + (long long)layer * HEAD,
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<float*>(partial), static_cast<bf16*>(xn), static_cast<bf16*>(out), B, E,
+      H, KV, splits, eps, static_cast<cudaStream_t>(stream));
+}
 
-  rms_norm_rows<<<B, NT, 0, st>>>(X, ln, E, eps, XN);
-  launch_gemm(XN, W, P, B, E, C, splits, st);
-  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(
-      P, splits, B, C, qn, kn, static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), static_cast<bf16*>(out), H, KV, eps);
-  return (int)cudaGetLastError();
+// B10-qkv: B3 with wq_all [L,E,C] int8 and ws_all [L,1,C] f32 column scales.
+int dstts_fused_qkv_i8(const void* x, const void* ln_all, const void* wq_all,
+                       const void* ws_all, const void* qn_all, const void* kn_all,
+                       const void* cosv, const void* sinv, void* partial, void* xn,
+                       void* out, int layer, int B, int E, int H, int KV, int splits,
+                       float eps, void* stream) {
+  const long long C = (H + 2 * KV) * HEAD;
+  return run_qkv<true>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + (long long)layer * E,
+      static_cast<const int8_t*>(wq_all) + layer * E * C,
+      static_cast<const float*>(ws_all) + layer * C,
+      static_cast<const bf16*>(qn_all) + (long long)layer * HEAD,
+      static_cast<const bf16*>(kn_all) + (long long)layer * HEAD,
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
+      static_cast<float*>(partial), static_cast<bf16*>(xn), static_cast<bf16*>(out), B, E,
+      H, KV, splits, eps, static_cast<cudaStream_t>(stream));
 }
 
 // B4. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E]; gateup_all [L,E,2F];
@@ -584,29 +694,49 @@ int dstts_fused_out_mlp(const void* a, const void* x, const void* wo_all,
                         void* h, void* out, int layer, int B, int HD, int E,
                         int F, int s_o, int s_gu, int s_d, float eps,
                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* A = static_cast<const bf16*>(a);
-  const bf16* X = static_cast<const bf16*>(x);
-  const bf16* Wo = static_cast<const bf16*>(wo_all) + (long long)layer * HD * E;
-  const bf16* ln = static_cast<const bf16*>(ln_all) + (long long)layer * E;
-  const bf16* Wgu = static_cast<const bf16*>(gateup_all) + (long long)layer * E * 2 * F;
-  const bf16* Wd = static_cast<const bf16*>(wd_all) + (long long)layer * F * E;
-  float* P = static_cast<float*>(partial);
-  bf16* X2 = static_cast<bf16*>(x2);
-  bf16* XN = static_cast<bf16*>(xn);
-  bf16* Hh = static_cast<bf16*>(h);
-  bf16* O = static_cast<bf16*>(out);
+  const long long l = layer;
+  return run_out_mlp<false>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(x),
+      static_cast<const bf16*>(wo_all) + l * HD * E, nullptr,
+      static_cast<const bf16*>(ln_all) + l * E,
+      static_cast<const bf16*>(gateup_all) + l * E * 2 * F, nullptr,
+      static_cast<const bf16*>(wd_all) + l * F * E, nullptr, static_cast<float*>(partial),
+      static_cast<bf16*>(x2), static_cast<bf16*>(xn), static_cast<bf16*>(h),
+      static_cast<bf16*>(out), B, HD, E, F, s_o, s_gu, s_d, eps,
+      static_cast<cudaStream_t>(stream));
+}
 
-  // (1) x2 = x + a @ wo
-  launch_gemm(A, Wo, P, B, HD, E, s_o, st);
-  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_o, B, E, X, X2);
-  // (2) h = silu(xn @ Wg) * (xn @ Wu), xn = rmsnorm(x2) * ln2
-  rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, XN);
-  launch_gemm(XN, Wgu, P, B, E, 2 * F, s_gu, st);
-  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(P, s_gu, B, F, Hh);
-  // (3) out = x2 + h @ wd
-  launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
-  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, X2, O);
+// B10-out: B4 with int8 wo_q [L,HD,E], gateup_q [L,E,2F], wd_q [L,F,E] and
+// f32 column scales wo_s [L,1,E], gateup_s [L,1,2F], wd_s [L,1,E].
+int dstts_fused_out_mlp_i8(const void* a, const void* x, const void* wo_q,
+                           const void* wo_s, const void* ln_all, const void* gateup_q,
+                           const void* gateup_s, const void* wd_q, const void* wd_s,
+                           void* partial, void* x2, void* xn, void* h, void* out,
+                           int layer, int B, int HD, int E, int F, int s_o, int s_gu,
+                           int s_d, float eps, void* stream) {
+  const long long l = layer;
+  return run_out_mlp<true>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(x),
+      static_cast<const int8_t*>(wo_q) + l * HD * E, static_cast<const float*>(wo_s) + l * E,
+      static_cast<const bf16*>(ln_all) + l * E,
+      static_cast<const int8_t*>(gateup_q) + l * E * 2 * F,
+      static_cast<const float*>(gateup_s) + l * 2 * F,
+      static_cast<const int8_t*>(wd_q) + l * F * E, static_cast<const float*>(wd_s) + l * E,
+      static_cast<float*>(partial), static_cast<bf16*>(x2), static_cast<bf16*>(xn),
+      static_cast<bf16*>(h), static_cast<bf16*>(out), B, HD, E, F, s_o, s_gu, s_d, eps,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The bare int8 product of B10 (ops/quant.int8_matmul at <= 64 rows):
+// out [B,N] bf16 = bf16((x [B,K] bf16 @ w_q [K,N] int8) * scales [1,N] f32);
+// partial [splits,B,N] f32.
+int dstts_int8_matmul(const void* x, const void* w_q, const void* scales, void* partial,
+                      void* out, int B, int K, int N, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* P = static_cast<float*>(partial);
+  launch_gemm<true>(static_cast<const bf16*>(x), w_q, P, B, K, N, splits, st);
+  residual_epilogue<<<cdiv((long long)B * N, 256), 256, 0, st>>>(
+      P, splits, B, N, static_cast<const float*>(scales), nullptr, static_cast<bf16*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -628,7 +758,7 @@ int dstts_fused_out_router(const void* a, const void* x, const void* wo_all,
   // (1) x2 = x + a @ wo
   launch_gemm(static_cast<const bf16*>(a), Wo, P, B, HD, E, s_o, st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
-      P, s_o, B, E, static_cast<const bf16*>(x), X2);
+      P, s_o, B, E, nullptr, static_cast<const bf16*>(x), X2);
   // (2) hn = rmsnorm(x2) * ln2, (3) logits = hn @ router in float32
   rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, HN);
   launch_gemm(HN, Wr, P, B, E, NE, s_r, st);

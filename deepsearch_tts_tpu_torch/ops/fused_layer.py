@@ -1,5 +1,5 @@
 """Fused decode-layer functions (port of ``ops/fused_layer.py``, kernels
-B3/B4/B7).
+B3/B4/B7/B10).
 
 Each T=1 decode layer of a packed bf16 model runs two of them:
 
@@ -11,8 +11,14 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
 * :func:`fused_out_router_stacked` (B7, Qwen3-MoE) — x2 = x + a@wo[l], hn =
   rmsnorm(x2)·ln2[l], float32 router logits hn@router[l]; the expert FFN
   follows in ``ops/moe.py``.
+* :func:`fused_qkv_stacked_i8` / :func:`fused_out_mlp_stacked_i8` (B10,
+  dense, int8 weights) — B3 / B4 over int8 stacks ``[L,K,N]`` with float32
+  per-column scales ``[L,1,N]`` (``ops/quant.quantize_params`` layout),
+  the scales applied to the float32 accumulators. :func:`int8_product` is
+  the same kernel's bare product, ``bf16((x @ w_q) * scales)``, which
+  ``ops/quant.int8_matmul`` runs at up to 64 rows.
 
-Both take the FULL layer stacks plus the layer index, as the JAX kernels do.
+All take the FULL layer stacks plus the layer index, as the JAX kernels do.
 For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
 ``csrc/fused_layer.cu`` (bf16 only) or raises; for a CPU tensor it runs the
 plain PyTorch version beside it (``*_plain``), which follows the dtype of
@@ -43,18 +49,60 @@ def fused_qkv_stacked_plain(x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer
     """Reference for B3: same math and round points as
     ``_qkv_stacked_kernel`` (xn rounded to x's dtype, float32 accumulator,
     norm and rope in float32, one final rounding)."""
-    B, _ = x.shape
-    D = head_dim
-    H, K = n_heads, n_kv
     xn = rms_norm(x, ln_all[layer], eps)
-    y = matmul_f32(xn, wqkv_all[layer]).view(B, H + 2 * K, D)
-    w = torch.cat([qn_all[layer].expand(H, D), kn_all[layer].expand(K, D)])
-    # y is float32, so the per-head norm and the rope stay float32
+    return _qkv_epilogue(matmul_f32(xn, wqkv_all[layer]), x, qn_all[layer],
+                         kn_all[layer], cos, sin, n_heads=n_heads, n_kv=n_kv,
+                         head_dim=head_dim, eps=eps)
+
+
+def _qkv_epilogue(y, x, qn, kn, cos, sin, *, n_heads: int, n_kv: int,
+                  head_dim: int, eps: float):
+    """B3's (and B10's) float32 epilogue over the projection y [B,C]:
+    per-head q/k RMSNorm and rope in float32, one rounding to x's dtype."""
+    B = y.shape[0]
+    H, K, D = n_heads, n_kv, head_dim
+    y = y.view(B, H + 2 * K, D)
+    w = torch.cat([qn.expand(H, D), kn.expand(K, D)])
     roped = apply_rope(rms_norm(y[:, : H + K], w, eps), cos, sin)
     q = roped[:, :H].reshape(B, H * D).to(x.dtype)
     k = roped[:, H:].reshape(B, K * D).to(x.dtype)
     v = y[:, H + K:].reshape(B, K * D).to(x.dtype)
     return q, k, v
+
+
+def fused_qkv_stacked_i8_plain(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin,
+                               layer, *, n_heads: int, n_kv: int, head_dim: int,
+                               eps: float = 1e-6):
+    """Reference for B10-qkv: the round points of ``_qkv_stacked_kernel_i8``
+    (``fused_layer.py:568``): xn rounded to x's dtype, xn @ widened int8
+    (exact) with a float32 accumulator, times the column scales, then B3's
+    epilogue."""
+    xn = rms_norm(x, ln_all[layer], eps)
+    y = matmul_f32(xn, wqkv_q[layer].to(xn.dtype)) * wqkv_s[layer].float()
+    return _qkv_epilogue(y, x, qn_all[layer], kn_all[layer], cos, sin, n_heads=n_heads,
+                         n_kv=n_kv, head_dim=head_dim, eps=eps)
+
+
+def fused_out_mlp_stacked_i8_plain(attn_out, x, wo_q, wo_s, ln_all, gateup_q, gateup_s,
+                                   wd_q, wd_s, layer, *, eps: float = 1e-6):
+    """Reference for B10-out: the round points of
+    ``_out_mlp_stacked_kernel_i8`` (``fused_layer.py:669``): each product
+    over the widened int8 matrix in float32 times its column scales; g and
+    u scaled before silu; x2, xn, h and out rounded to x's dtype."""
+    dt = x.dtype
+    Fi = gateup_q.shape[-1] // 2
+    x2 = (x.float() + matmul_f32(attn_out, wo_q[layer].to(dt)) * wo_s[layer].float()).to(dt)
+    xn = rms_norm(x2, ln_all[layer], eps)
+    gu = matmul_f32(xn, gateup_q[layer].to(dt)) * gateup_s[layer].float()
+    h = (F.silu(gu[:, :Fi]) * gu[:, Fi:]).to(dt)
+    return (x2.float() + matmul_f32(h, wd_q[layer].to(dt)) * wd_s[layer].float()).to(dt)
+
+
+def int8_product_plain(x, w_q, scales):
+    """Reference for :func:`int8_product`: ``((bf16(x) @ w_q) * scales)``
+    with a float32 accumulator, rounded to x's dtype (``quant.py:68-75``)."""
+    acc = matmul_f32(x.to(torch.bfloat16), w_q.to(torch.bfloat16))
+    return (acc * scales.float()).to(x.dtype)
 
 
 def fused_out_mlp_stacked_plain(attn_out, x, wo_all, ln_all, gateup_all, wd_all,
@@ -94,6 +142,12 @@ def _lib():
         lib.dstts_fused_qkv.restype = i
         lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 8 + [f, p]
         lib.dstts_fused_out_mlp.restype = i
+        lib.dstts_fused_qkv_i8.argtypes = [p] * 11 + [i] * 6 + [f, p]
+        lib.dstts_fused_qkv_i8.restype = i
+        lib.dstts_fused_out_mlp_i8.argtypes = [p] * 14 + [i] * 8 + [f, p]
+        lib.dstts_fused_out_mlp_i8.restype = i
+        lib.dstts_int8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.dstts_int8_matmul.restype = i
         lib.dstts_fused_out_router.argtypes = [p] * 9 + [i] * 7 + [f, p]
         lib.dstts_fused_out_router.restype = i
         ll = ctypes.c_longlong
@@ -118,13 +172,14 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.bfloat16):
         raise ValueError(f"{name}: data pointer must be 16-byte aligned")
 
 
-def _splits(B: int, N: int, K: int) -> int:
+def _splits(B: int, N: int, K: int, wbytes: int = 2) -> int:
     """K slices of one product: doubled until the grid holds
     ``_TARGET_BLOCKS`` blocks, while every slice stays a whole number of
     pipeline stages and the float32 partial sums (written and read once:
-    8·B·N·s bytes) stay within a quarter of the weight bytes (2·K·N)."""
+    8·B·N·s bytes) stay within a quarter of the weight bytes (wbytes·K·N:
+    2 for bf16, 1 for int8)."""
     base = (N // _TILE) * -(-B // _MAX_ROWS)
-    cap = max(1, K // (16 * B))
+    cap = max(1, wbytes * K // (32 * B))
     s = 1
     while base * s < _TARGET_BLOCKS and 2 * s <= cap and K % (2 * s * _KT) == 0:
         s *= 2
@@ -270,3 +325,118 @@ def fused_out_router_stacked(attn_out, x, wo_all, ln_all, router_all, layer,
 
 
 fused_out_router_stacked.launches = 0
+
+
+def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, layer,
+                         *, n_heads: int, n_kv: int, head_dim: int, eps: float = 1e-6):
+    """B10-qkv: :func:`fused_qkv_stacked` over an int8 stack. wqkv_q
+    [L,E,C] int8; wqkv_s [L,1,C] float32; the rest as B3."""
+    if x.device.type == "cpu":
+        return fused_qkv_stacked_i8_plain(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all,
+                                          cos, sin, layer, n_heads=n_heads, n_kv=n_kv,
+                                          head_dim=head_dim, eps=eps)
+    B, E = x.shape
+    L = wqkv_q.shape[0]
+    D, H, K = head_dim, n_heads, n_kv
+    C = (H + 2 * K) * D
+    if not shapes_ok(E, H * D, _TILE, D) or not 0 <= int(layer) < L:
+        raise ValueError(f"fused_qkv_stacked_i8 kernel needs head_dim={HEAD_DIM}, "
+                         f"E % {_TILE} == 0 and 0 <= layer < L (got D={D}, E={E}, "
+                         f"layer={layer}, L={L})")
+    _check("x", x, (B, E))
+    _check("ln_all", ln_all, (L, E))
+    _check("wqkv_q", wqkv_q, (L, E, C), torch.int8)
+    _check("wqkv_s", wqkv_s, (L, 1, C), torch.float32)
+    _check("qn_all", qn_all, (L, D))
+    _check("kn_all", kn_all, (L, D))
+    _check("cos", cos, (B, D // 2), torch.float32)
+    _check("sin", sin, (B, D // 2), torch.float32)
+    s = _splits(B, C, E, wbytes=1)
+    partial = torch.empty((s, B, C), dtype=torch.float32, device=x.device)
+    xn = torch.empty((B, E), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, C), dtype=x.dtype, device=x.device)
+    err = _lib().dstts_fused_qkv_i8(
+        x.data_ptr(), ln_all.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(),
+        qn_all.data_ptr(), kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        partial.data_ptr(), xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s,
+        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_if(err, "fused_qkv_stacked_i8")
+    fused_qkv_stacked_i8.launches += 1
+    HD, KD = H * D, K * D
+    return out[:, :HD], out[:, HD:HD + KD], out[:, HD + KD:]
+
+
+fused_qkv_stacked_i8.launches = 0
+
+
+def fused_out_mlp_stacked_i8(attn_out, x, wo_q, wo_s, ln_all, gateup_q, gateup_s, wd_q,
+                             wd_s, layer, *, eps: float = 1e-6):
+    """B10-out: :func:`fused_out_mlp_stacked` over int8 stacks. wo_q
+    [L,H·D,E], gateup_q [L,E,2F] (gate first), wd_q [L,F,E] int8; wo_s
+    [L,1,E], gateup_s [L,1,2F], wd_s [L,1,E] float32 → [B,E]."""
+    if x.device.type == "cpu":
+        return fused_out_mlp_stacked_i8_plain(attn_out, x, wo_q, wo_s, ln_all, gateup_q,
+                                              gateup_s, wd_q, wd_s, layer, eps=eps)
+    B, E = x.shape
+    HD = attn_out.shape[1]
+    L, _, F2 = gateup_q.shape
+    Fi = F2 // 2
+    if not shapes_ok(E, HD, Fi, HEAD_DIM) or not 0 <= int(layer) < L:
+        raise ValueError(f"fused_out_mlp_stacked_i8 kernel needs E, H·D, F % {_TILE} "
+                         f"== 0 and 0 <= layer < L (got E={E}, HD={HD}, F={Fi}, "
+                         f"layer={layer}, L={L})")
+    _check("attn_out", attn_out, (B, HD))
+    _check("x", x, (B, E))
+    _check("ln_all", ln_all, (L, E))
+    for name, t, shape in (("wo_q", wo_q, (L, HD, E)), ("gateup_q", gateup_q, (L, E, F2)),
+                           ("wd_q", wd_q, (L, Fi, E))):
+        _check(name, t, shape, torch.int8)
+    for name, t, n in (("wo_s", wo_s, E), ("gateup_s", gateup_s, F2), ("wd_s", wd_s, E)):
+        _check(name, t, (L, 1, n), torch.float32)
+    s_o, s_gu, s_d = (_splits(B, E, HD, wbytes=1), _splits(B, F2, E, wbytes=1),
+                      _splits(B, E, Fi, wbytes=1))
+    dev = x.device
+    partial = torch.empty((max(s_o * E, s_gu * F2, s_d * E) * B,), dtype=torch.float32,
+                          device=dev)
+    x2, xn = (torch.empty((B, E), dtype=x.dtype, device=dev) for _ in range(2))
+    h = torch.empty((B, Fi), dtype=x.dtype, device=dev)
+    out = torch.empty((B, E), dtype=x.dtype, device=dev)
+    err = _lib().dstts_fused_out_mlp_i8(
+        attn_out.data_ptr(), x.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(),
+        ln_all.data_ptr(), gateup_q.data_ptr(), gateup_s.data_ptr(), wd_q.data_ptr(),
+        wd_s.data_ptr(), partial.data_ptr(), x2.data_ptr(), xn.data_ptr(), h.data_ptr(),
+        out.data_ptr(), int(layer), B, HD, E, Fi, s_o, s_gu, s_d, float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "fused_out_mlp_stacked_i8")
+    fused_out_mlp_stacked_i8.launches += 1
+    return out
+
+
+fused_out_mlp_stacked_i8.launches = 0
+
+
+def int8_product(x, w_q, scales):
+    """B10's bare product: ``bf16((x @ w_q) * scales)``. x [B,K] bf16, B <=
+    64; w_q [K,N] int8; scales [1,N] float32 → [B,N] in x's dtype."""
+    if x.device.type == "cpu":
+        return int8_product_plain(x, w_q, scales)
+    B, Kd = x.shape
+    N = w_q.shape[1]
+    if B > _MAX_ROWS or N % _TILE or Kd % _KT:
+        raise ValueError(f"int8_product kernel needs <= {_MAX_ROWS} rows, N % {_TILE} "
+                         f"== 0 and K % {_KT} == 0 (got B={B}, K={Kd}, N={N})")
+    _check("x", x, (B, Kd))
+    _check("w_q", w_q, (Kd, N), torch.int8)
+    _check("scales", scales, (1, N), torch.float32)
+    s = _splits(B, N, Kd, wbytes=1)
+    partial = torch.empty((s, B, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, N), dtype=x.dtype, device=x.device)
+    err = _lib().dstts_int8_matmul(
+        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), B, Kd, N, s, torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_if(err, "int8_product")
+    int8_product.launches += 1
+    return out
+
+
+int8_product.launches = 0

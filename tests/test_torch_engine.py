@@ -6,7 +6,7 @@ the same params, with fused decode layers on (as
 same greedy token streams: three concurrent requests, a multi-turn prefix
 hit and a ``min_tokens`` request. Also: the options this slice does not
 carry raise, the OpenAI server round trip, and a subprocess that serves from
-the port with ``jax`` unimportable.
+the port with ``jax`` and ``deepsearch_tts_tpu`` unimportable.
 """
 import asyncio
 import dataclasses
@@ -170,8 +170,8 @@ def test_preempted_sequence_resumes_token_identical():
 
 @pytest.mark.parametrize("kw", [
     {"cache_mode": "slot", "speculative": "ngram"}, {"prefill_lane": 16},
-    {"speculative": "ngram"}, {"chunk_trim": True}, {"quantize": "int8"},
-    {"kv_quantize": "int8"}, {"mesh": object()}, {"ring_prefill_len": 64},
+    {"speculative": "ngram"}, {"chunk_trim": True},
+    {"mesh": object()}, {"ring_prefill_len": 64},
     {"cache_mode": "slot", "prefill_lane": 16},
 ])
 def test_unported_engine_options_raise(kw):
@@ -245,6 +245,7 @@ def test_openai_server_round_trip_on_cpu():
 JAX_FREE = r"""
 import sys
 sys.modules["jax"] = None      # any import of jax now raises ImportError
+sys.modules["deepsearch_tts_tpu"] = None      # and of the JAX package
 from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
 from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
 args = build_parser().parse_args(["--model", "qwen3-test", "--device", "cpu",
@@ -254,8 +255,9 @@ eng = build_engine(args)
 res = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
 eng.shutdown()
 assert len(res.token_ids) == 4, res
+assert type(eng.prefix_cache).__name__ == "NativePrefixCache"   # the port's C++ index
 # the slot cache and the attention kernels' plain versions, too
-from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer
+from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
 from deepsearch_tts_tpu_torch.engine.engine import Engine
 eng = Engine("qwen3-test", ByteTokenizer(), device="cpu", cache_mode="slot",
              attn_impl="pallas", enable_prefix_cache=False, max_slots=2,
@@ -273,8 +275,17 @@ assert eng.layer_fusion
 moe = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
 eng.shutdown()
 assert len(moe.token_ids) == 4, moe
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "transformers")
-                and sys.modules[m] is not None)
+# int8 weights and int8 KV on the paged path (B10 and B12's plain versions)
+eng = Engine("qwen3-test", ByteTokenizer(), device="cpu", quantize="int8",
+             kv_quantize="int8", max_slots=2, page_size=8, n_pages=32,
+             max_seq_len=128, decode_chunk_len=2)
+assert eng.k_pages.dtype.is_floating_point is False and eng.layer_fusion
+i8 = eng.generate(GenerationRequest(prompt_ids=list(range(30, 50)), max_tokens=4))
+eng.shutdown()
+assert len(i8.token_ids) == 4, i8
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "ml_dtypes", "transformers", "deepsearch_tts_tpu")
+    and sys.modules[m] is not None)
 assert not loaded, loaded
 print("OK", res.token_ids)
 """
