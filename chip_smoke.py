@@ -58,7 +58,26 @@ Phases, each raising on failure (non-zero exit, no final line):
     the CLI's paged cache and prefix cache, over HTTP as phase 4: B12 once
     per quantized matrix at build, B10 once per layer and decode step;
 15. int8 reference: its serving logits against the no-cache forward on the
-    same int8 params with the plain int8 products.
+    same int8 params with the plain int8 products;
+16. speculative kernels (run with phase 3): B9 (``slot_window_attention``,
+    K1 in its T-row mode) against its plain version on phase 3's slot pool,
+    W = 4 and 8 (qwen3-8b widths) and W = 4, 8 and 16 (G = 8; 16 splits
+    into two launches); B3 / B4 / B10 at 64 rows, a verify step's
+    16 x (3 + 1);
+17. speculative serve, after phase 6: ``Engine(cache_mode="slot",
+    speculative="ngram", spec_k=3)`` on the qwen3-8b weights over HTTP,
+    phase 6's requests, then a greedy full batch whose tokens per verify
+    step must exceed 1; B9, B3 and B4 once per layer and verify step, B1
+    never; a B=1 greedy run of 128 tokens beside phase 6's on the plain
+    slot engine; one greedy stream teacher-forced through the no-cache
+    forward;
+18. speculative reference: one 4-token window after a slot prefill, through
+    the fused layers and B9, against the no-cache forward on prompt +
+    window;
+19. MoE speculative, after phase 12 on the same weights: 8 greedy requests
+    x 32 tokens, B9 once per layer and verify step, the grouped expert
+    kernel on every forward (windows unfused, as in JAX), and phase 18 with
+    ``plain_experts``.
 
 Every kernel entry of the JSON line before the last carries its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
@@ -122,6 +141,10 @@ F32_FLOP_S = 67e12       # float32 outside the tensor cores
 # = 3.1e-5; a bound 30 times that fails a biased rounding (round to
 # nearest of a uniform fraction is off by its mean, up to 0.5)
 STOCH_MEAN_BOUND = 1e-3
+# the speculative engine of phases 17-19, and its verify window
+SPEC_KW = dict(speculative="ngram", spec_k=3)
+WIN = SPEC_KW["spec_k"] + 1
+GREEDY = dict(temperature=0.0, repetition_penalty=1.0)
 
 
 def log(msg: str) -> None:
@@ -252,7 +275,7 @@ def phase_kernels(gen) -> dict:
     wd = rnd(L, FF, E, scale=FF ** -0.5)
     res = {"fused_qkv_stacked": {"err": 0.0}, "fused_out_mlp_stacked": {"err": 0.0},
            "sampling_prep": {"err": 0.0}}
-    for B in (1, 8, SLOTS, 64):
+    for B in (1, 8, SLOTS, SLOTS * WIN):   # 64: a verify step's rows
         x = rnd(B, E)
         a = rnd(B, H * D)
         pos = torch.randint(0, 4000, (B,), generator=gen, device=dev)
@@ -327,12 +350,27 @@ def phase_kernels(gen) -> dict:
     return res
 
 
+def _x2_ulp(a, x, wo_q, wo_s):
+    """One bf16 ulp of each element of x2 = x + a @ wo (int8, scaled).
+    B10-out (like B4) rounds x2 to bf16 and then adds the MLP to it; a
+    kernel whose float32 sums run in another order can round x2 one ulp the
+    other way, and where the MLP cancels x2 that ulp (0.0156 for |x2| in
+    [2, 4)) is the whole difference of two outputs near 0, beyond the
+    relative bound. Over a 64-row check (327,680 outputs a layer at
+    qwen3-32b) such an element turns up."""
+    import torch
+
+    x2 = (x.float() + (a.float() @ wo_q.float()) * wo_s.float()).abs()
+    return torch.exp2(torch.floor(torch.log2(x2.clamp(min=1e-30))) - 7)
+
+
 def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: float,
                   atol: float, timed: bool = False, nbytes: int = 0, flop: int = 0,
                   plain_graph: bool = True, library=None, exact: bool = False,
-                  rate: float = BF16_FLOP_S) -> None:
+                  rate: float = BF16_FLOP_S, slack=None) -> None:
     """``kernel()`` against ``plain()`` (tensors or tuples of them) at the
-    stated tolerance (``exact``: bit for bit); the largest error is kept in
+    stated tolerance (``exact``: bit for bit; ``slack``: an absolute
+    allowance per element added to it); the largest error is kept in
     ``res[name]``. ``timed`` also records device ms of both
     (``plain_graph=False``: the plain version syncs with the host, so its
     time is the eager one), the bound from ``nbytes`` (every input read and
@@ -349,6 +387,11 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
         if exact:
             assert g.dtype == r.dtype and torch.equal(g, r), (
                 name, label, f"{int((g != r).sum())} of {g.numel()} elements differ")
+        elif slack is not None:
+            d = (g.float() - r.float()).abs()
+            bad = d > atol + rtol * r.float().abs() + slack
+            assert not bool(bad.any()), (name, label, f"{int(bad.sum())} of {g.numel()} "
+                                         f"elements beyond the bound, largest {float(d.max())}")
         else:
             torch.testing.assert_close(g.float(), r.float(), rtol=rtol, atol=atol)
         e = max(e, _err(g, r))
@@ -413,6 +456,8 @@ def phase_attention_kernels(gen) -> dict:
                   lambda: sa.slot_attention_plain(q, kp, v, lim, layer, **kw),
                   timed=layer == 1 and v is not None, nbytes=io, flop=4 * H * D * keys,
                   library=lambda: sdpa(q4, k1, v1, attn_mask=mask, enable_gqa=True))
+    _check_windows(check, rnd, kp, vp, H, KV, (4, 8), timed_w=WIN,
+                   library_kv=(k1, v1))
     del k1, v1
 
     # B6: ps=64, P=64 pages per row, page 0 the (zeroed) null page
@@ -458,6 +503,45 @@ def phase_attention_kernels(gen) -> dict:
               nbytes=2 * B * T * D * (2 * H + 2 * KV),
               library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
     return res
+
+
+def _check_windows(check, rnd, kp, vp, h, kv, widths, timed_w=None, library_kv=None):
+    """B9 on a two-layer slot pool of SLOTS rows x CTX tokens: windows of
+    each width in ``widths``, bases from LIMITS (limit 0: an inactive row,
+    base -1; 4096: a window that ends at the last slot position), seq_lens
+    covering each window; both layers, with v and with v = k. The layer-1
+    call at width ``timed_w`` is timed, beside SDPA over layer 1's rows
+    (``library_kv``) with each query's key mask."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    dev = kp.device
+    kw = dict(n_rows=SLOTS, slot_ctx=CTX)
+    for W in widths:
+        base = torch.tensor([min(x, CTX - W + 1) - 1 for x in LIMITS], device=dev)
+        seq = torch.where(base >= 0, base + W, 0)
+        # query t of row b sees keys < min(max(seq, 1), max(base, 0) + 1 + t)
+        lim = torch.minimum(seq.clamp(min=1)[:, None],
+                            base.clamp(min=0)[:, None] + torch.arange(1, W + 1, device=dev))
+        assert int((base < 0).sum()) >= 1 and int(lim[:, -1].max()) == CTX
+        qw = rnd(SLOTS, W, h, D)
+        # the context is read once per row, to its widest limit
+        io = int(lim[:, -1].sum()) * kv * D * 2 * 2 + 2 * SLOTS * W * h * D * 2 + 2 * SLOTS * 8
+        library = None
+        if library_kv is not None and W == timed_w:
+            mask = (torch.arange(CTX, device=dev)[None, None] < lim[:, :, None])[:, None]
+            qt = qw.transpose(1, 2)
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, *library_kv, attn_mask=mask, enable_gqa=True)
+        for layer in range(2):
+            for v, tag in ((vp, ""), (None, " v=k")):
+                check("slot_window_attention",
+                      f"G={h // kv} B={SLOTS} W={W} layer={layer} ctx={CTX}{tag}",
+                      lambda: sa.slot_window_attention(qw, kp, v, seq, base, layer, **kw),
+                      lambda: sa.slot_window_attention_plain(qw, kp, v, seq, base, layer, **kw),
+                      timed=W == timed_w and layer == 1 and v is not None, nbytes=io,
+                      flop=4 * h * D * int(lim.sum()), library=library)
 
 
 def phase_moe_kernels(gen) -> dict:
@@ -587,6 +671,9 @@ def phase_moe_kernels(gen) -> dict:
                       rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=layer == 1,
                       nbytes=keys * M_KV * D * 4 + 4 * SLOTS * M_H * D + 8 * SLOTS,
                       flop=4 * M_H * D * keys)
+    # B9 at G = 8: W = 16 holds 128 query rows a block, two K1 launches
+    _check_windows(lambda *a, **k: _check_kernel(
+        scratch, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **k), rnd, kp, vp, M_H, M_KV, (4, 8, 16))
     del kp, vp
     for B, T in ((4, 512), (1, 3030), (1, 3072)):
         qf, kf, vf = rnd(B, T, M_H, D), rnd(B, T, M_KV, D), rnd(B, T, M_KV, D)
@@ -642,7 +729,7 @@ def phase_int8_kernels(gen) -> dict:
         guq, gus = i8(L, e, 2 * f)
         wdq, wds = i8(L, f, e)
         kw = dict(n_heads=h, n_kv=kv, head_dim=D, eps=1e-6)
-        for B in (1, SLOTS):
+        for B in (1, SLOTS, SLOTS * WIN):
             x, a = rnd(B, e), rnd(B, h * D)
             cos, sin = rope_angles(torch.randint(0, 4000, (B,), generator=gen, device=dev),
                                    D, 1_000_000.0)
@@ -653,9 +740,13 @@ def phase_int8_kernels(gen) -> dict:
                 check("fused_qkv_stacked_i8", label,
                       lambda: fl.fused_qkv_stacked_i8(*args_q, layer, **kw),
                       lambda: fl.fused_qkv_stacked_i8_plain(*args_q, layer, **kw))
+                # the new 64-row check also allows one bf16 ulp of x2 (see
+                # _x2_ulp); the 1- and 16-row checks keep the plain bound
                 check("fused_out_mlp_stacked_i8", label,
                       lambda: fl.fused_out_mlp_stacked_i8(*args_o, layer, eps=1e-6),
-                      lambda: fl.fused_out_mlp_stacked_i8_plain(*args_o, layer, eps=1e-6))
+                      lambda: fl.fused_out_mlp_stacked_i8_plain(*args_o, layer, eps=1e-6),
+                      slack=(_x2_ulp(a, x, woq[layer], wos[layer]) if B == SLOTS * WIN
+                             else None))
 
             def walk(f, args, **k):
                 return lambda: [f(*args, layer, **k) for layer in range(L)]
@@ -789,9 +880,14 @@ def _engine(params, model: str = "qwen3-8b", **kw):
 
 
 def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
-                     profile: bool = False, tag: str = "slot") -> dict:
+                     profile: bool = False, tag: str = "slot", spec: bool = False,
+                     b1_tokens: int = 0, b1_plain_ms: float | None = None) -> dict:
     """The slot engine with parking, default ``attn_impl``, over HTTP, on
-    the served weights of ``model``."""
+    the served weights of ``model``; with ``spec`` the speculative engine
+    (``SPEC_KW``), whose full-batch burst is greedy and must emit more than
+    one token per verify step, and whose greedy stream is teacher-forced
+    through the no-cache forward. ``b1_tokens``: one more greedy request of
+    that many tokens alone (ms per token logged beside ``b1_plain_ms``)."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.weights import pack_matmul_params
@@ -802,13 +898,18 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     packed = pack_matmul_params(params)
     assert all(packed["layers"][k] is t for k, t in params["layers"].items())
     t0 = time.time()
-    engine = _engine(params, model=model, cache_mode="slot")
+    engine = _engine(params, model=model, cache_mode="slot", **(SPEC_KW if spec else {}))
     engine.warmup(prompt_lens=(64,))
     log(f"[{tag}] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
         f"{engine.attn_impl}; memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
+    # a speculative engine runs only verify windows: B9, never B1
     counters = {**_counters(model), "slot_attention": sa.slot_attention}
+    idle = ()
+    if spec:
+        counters["slot_window_attention"] = sa.slot_window_attention
+        idle = ("slot_attention",)
     out: dict = {}
     try:
         with _serve_http(engine) as base:
@@ -873,24 +974,165 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
                 f"(parked-row re-entries {hits})")
 
             d0 = dict(engine.stats)
-            results = _burst(chat, SLOTS, 64)
+            results = _burst(chat, SLOTS, 64, **(GREEDY if spec else {}))
             d1 = dict(engine.stats)
             dt = d1["decode_time_s"] - d0["decode_time_s"]
             out["burst_decode_tok_s"] = (d1["decode_tokens"] - d0["decode_tokens"]) / dt
             out["burst_step_ms"] = 1e3 * dt / ((d1["decode_steps"] - d0["decode_steps"])
                                                * engine.decode_chunk_len)
+            if spec:
+                # tokens emitted per row and verify step (JAX's telemetry key
+                # over the whole phase, and the greedy burst's own)
+                out["burst_spec_tokens_per_step"] = (
+                    (d1["decode_tokens"] - d0["decode_tokens"])
+                    / (d1["slot_steps"] - d0["slot_steps"]))
+                out["spec_tokens_per_step"] = engine.telemetry()["spec_tokens_per_step"]
+                log(f"[{tag}] greedy burst: {out['burst_spec_tokens_per_step']:.3f} tokens "
+                    f"per row and verify step (phase {out['spec_tokens_per_step']:.3f})")
+                assert out["burst_spec_tokens_per_step"] > 1.0, out
             if profile:
                 _profile_burst(chat, engine)
+            if b1_tokens:
+                out["b1_ms_per_token"] = _b1_run(tag, engine, b1_tokens, b1_plain_ms)
 
             st1 = dict(engine.stats)
-            out["launches"] = _check_launches(tag, engine, counters, st0, st1)
+            out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
             log(f"[{tag}] park hits {st1['slot_park_hits'] - st0['slot_park_hits']}")
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
                                    / (st1["decode_time_s"] - st0["decode_time_s"]))
+        step = "verify step" if spec else "decode step"
         log(f"[{tag}] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms | decode "
             f"{out['decode_tok_s']:.1f} tok/s over the whole phase | full batch of "
             f"{SLOTS}: {out['burst_decode_tok_s']:.1f} tok/s decode "
-            f"({out['burst_step_ms']:.2f} ms per decode step)")
+            f"({out['burst_step_ms']:.2f} ms per {step})")
+        if spec:
+            _teacher_forced(tag, engine)
+    finally:
+        _release(engine)
+    return out
+
+
+def _b1_run(tag: str, engine, n: int, plain_ms: float | None) -> float:
+    """One greedy request of ``n`` tokens alone on ``engine``: decode ms per
+    generated token (logged beside ``plain_ms``, the plain engine's)."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+
+    s0 = dict(engine.stats)
+    r = engine.generate(GenerationRequest(
+        prompt_ids=engine.tokenizer.encode("Alone: repeat the search results twice."),
+        max_tokens=n, **GREEDY))
+    s1 = dict(engine.stats)
+    ms = 1e3 * (s1["decode_time_s"] - s0["decode_time_s"]) / max(
+        s1["decode_tokens"] - s0["decode_tokens"], 1)
+    steps = s1["slot_steps"] - s0["slot_steps"]
+    log(f"[{tag}] B=1 greedy: {r.completion_tokens} tokens, {ms:.3f} ms per token "
+        f"({steps} row-steps)" + ("" if plain_ms is None else
+                                  f" against {plain_ms:.3f} ms on the plain slot engine"))
+    return ms
+
+
+def _teacher_forced(tag: str, engine) -> None:
+    """One greedy stream of ``engine`` fed whole through the no-cache
+    forward: each generated token must be that forward's argmax at its
+    position, for at least 90 % of them."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+
+    prompt = engine.tokenizer.encode("Teacher forcing: the rivers of Europe, again.")
+    r = engine.generate(GenerationRequest(prompt_ids=prompt, max_tokens=48, **GREEDY))
+    ids = torch.tensor([prompt + r.token_ids], device=engine.device)
+    assert len(r.token_ids) >= 8, r
+    with torch.no_grad():
+        logits, _ = engine.forward(engine.params, engine.cfg, ids[:, :-1],
+                                   torch.arange(ids.shape[1] - 1, device=engine.device)[None])
+    pred = logits[0, len(prompt) - 1:].argmax(-1)
+    agree = (pred == ids[0, len(prompt):]).float().mean().item()
+    log(f"[{tag}] teacher-forced greedy stream of {len(r.token_ids)} tokens: argmax "
+        f"agreement with the no-cache forward {agree:.3f} (bound >= 0.9)")
+    assert agree >= 0.9, agree
+
+
+def phase_spec_reference(params: dict, model: str = "qwen3-8b", tag: str = "spec-reference",
+                         **plain_kw) -> None:
+    """A 16-token slot prefill, then one ``WIN``-token verify window through
+    the serving path (fused layers where the family fuses windows, B9 for
+    attention) against the no-cache forward on prompt + window: every
+    window row's logits. ``plain_kw`` keeps the reference off the kernels
+    (``plain_experts``)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages
+    from deepsearch_tts_tpu_torch.models.registry import get_model
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    fam = get_model(model)
+    cfg, fwd, dev = fam.config, fam.forward, torch.device("cuda")
+    T0, T = 16, 16 + WIN
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None]
+    one = lambda n: torch.tensor([n], device=dev)   # noqa: E731
+    with torch.no_grad():
+        ref, _ = fwd(params, cfg, toks, pos, **plain_kw)
+        kp, vp = init_kv_pages(cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim,
+                               dtype=cfg.torch_dtype, device=dev)
+        kw = dict(k_pages=kp, v_pages=vp, impl="pallas")
+        fwd(params, cfg, toks[:, :T0], pos[:, :T0], page_table=torch.tensor([[0]], device=dev),
+            seq_lens=one(T0), logits_indices=one(T0 - 1), **kw)
+        n0 = sa.slot_window_attention.launches
+        got, _ = fwd(params, cfg, toks[:, T0:], pos[:, T0:], seq_lens=one(T), slot_decode=True,
+                     slot_ctx=64, fused_decode=True, **kw)
+        launched = sa.slot_window_attention.launches - n0
+    got, want = got[0], ref[0, T0:]
+    assert got.shape == want.shape == (WIN, cfg.vocab_size) and torch.isfinite(got).all()
+    assert launched == cfg.n_layers, launched
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"[{tag}] {WIN}-token verify window (B9 x {launched}) logits vs no-cache forward: "
+        f"max_abs_err {(got - want).abs().max().item():.4f}, min cosine "
+        f"{cos.min().item():.5f} (bound > 0.99), argmax agreement {agree:.2f} (bound >= 0.75)")
+    assert cos.min().item() > 0.99, cos
+    assert agree >= 0.75, agree
+
+
+def phase_moe_spec(card: str, params: dict) -> dict:
+    """The speculative slot engine on the qwen3-30b-a3b weights: 8 greedy
+    requests x 32 tokens; its windows run unfused (B3 and B7 idle, as in
+    JAX), attention through B9 and the expert FFN through the grouped
+    expert kernel."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    engine = _engine(params, model=MOE_MODEL, cache_mode="slot", **SPEC_KW)
+    engine.warmup(prompt_lens=(64,))
+    assert engine.attn_impl == "pallas", engine.attn_impl
+    counters = {**_counters(MOE_MODEL), "slot_window_attention": sa.slot_window_attention,
+                "slot_attention": sa.slot_attention}
+    idle = ("slot_attention", fl.fused_qkv_stacked.__name__,
+            fl.fused_out_router_stacked.__name__)
+    out: dict = {}
+    try:
+        for f in counters.values():
+            f.launches = 0
+        st0 = dict(engine.stats)
+        futs = engine.submit_many([GenerationRequest(
+            prompt_ids=engine.tokenizer.encode(f"MoE speculative {i}: the rivers of Europe."),
+            max_tokens=32, **GREEDY) for i in range(8)])
+        res = [f.result(timeout=600) for f in futs]
+        st1 = dict(engine.stats)
+        assert all(len(r.token_ids) >= 1 for r in res)
+        out["launches"] = _check_launches("moe-spec", engine, counters, st0, st1, idle)
+        dt = st1["decode_time_s"] - st0["decode_time_s"]
+        out["spec_tokens_per_step"] = engine.telemetry()["spec_tokens_per_step"]
+        out["step_ms"] = 1e3 * dt / ((st1["decode_steps"] - st0["decode_steps"])
+                                     * engine.decode_chunk_len)
+        out["decode_tok_s"] = (st1["decode_tokens"] - st0["decode_tokens"]) / dt
+        log(f"[moe-spec] {card} | 8 greedy requests: completion tokens "
+            f"{[r.completion_tokens for r in res]}, {out['spec_tokens_per_step']:.3f} tokens "
+            f"per row and verify step, {out['step_ms']:.2f} ms per verify step, "
+            f"{out['decode_tok_s']:.1f} tok/s decode")
     finally:
         _release(engine)
     return out
@@ -1018,13 +1260,14 @@ def _post(url: str, payload: dict, timeout: float = 600.0) -> tuple[int, dict, f
         return r.status, body, time.perf_counter() - t0
 
 
-def _burst(chat, n: int, max_tokens: int) -> list:
-    """n concurrent chat requests; returns their (status, body, seconds)."""
+def _burst(chat, n: int, max_tokens: int, **sampler) -> list:
+    """n concurrent chat requests (temperature 0.7 unless ``sampler`` says
+    otherwise); returns their (status, body, seconds)."""
     results = [None] * n
+    sampler = {"temperature": 0.7, **sampler}
 
     def worker(i):
-        results[i] = chat(f"Burst {i}: write a long story.", max_tokens=max_tokens,
-                          temperature=0.7)
+        results[i] = chat(f"Burst {i}: write a long story.", max_tokens=max_tokens, **sampler)
 
     ths = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
     for t in ths:
@@ -1074,13 +1317,14 @@ def _counters(model: str) -> dict:
     return {f.__name__: f for f in fns + [sp.sampling_prep]}
 
 
-def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict) -> dict:
+def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
+                    idle=()) -> dict:
     """Read the counters after a phase and hold them to the phase's work:
-    B3, B4/B7, B10 and B1 once per layer and decode step, each grouped
-    expert entry once per layer and forward (decode steps + prefill
-    dispatches), B5 once per sample, the int8 product at least once per
-    forward (the lm_head; and the layer products of prefills of up to 64
-    rows)."""
+    B3, B4/B7, B10, B1 and B9 once per layer and decode (or verify) step,
+    each grouped expert entry once per layer and forward (decode steps +
+    prefill dispatches), B5 once per sample, the int8 product at least once
+    per forward (the lm_head; and the layer products of prefills of up to
+    64 rows); the counters named in ``idle`` not at all."""
     L = engine.cfg.n_layers
     steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
     prefills = st1["prefill_dispatches"] - st0["prefill_dispatches"]
@@ -1088,6 +1332,9 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict) -> d
     log(f"[{tag}] decode steps {steps}, prefill dispatches {prefills}, sample calls "
         f"{steps + prefills}, launches {launches}")
     for name, n in launches.items():
+        if name in idle:
+            assert n == 0, (name, n)
+            continue
         if name == "int8_product":
             assert n >= steps + prefills > 0, (name, n, steps + prefills)
             continue
@@ -1313,9 +1560,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="add a full-batch burst under torch.profiler to the "
-                         "qwen3-8b serve and slot serve phases and the "
-                         "qwen3-30b-a3b serve phase (device time by kernel, "
-                         "idle share)")
+                         "qwen3-8b serve, slot serve and speculative serve "
+                         "phases and the qwen3-30b-a3b serve phase (device "
+                         "time by kernel, idle share)")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel checks (prints "
                          "the kernel results, not the final line)")
@@ -1341,7 +1588,10 @@ def main(argv=None) -> int:
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
     params = _release(engine)
-    slot = phase_slot_serve(card, params, profile=opts.profile)
+    slot = phase_slot_serve(card, params, profile=opts.profile, b1_tokens=128)
+    spec = phase_slot_serve(card, params, tag="spec", spec=True, b1_tokens=128,
+                            b1_plain_ms=slot["b1_ms_per_token"], profile=opts.profile)
+    phase_spec_reference(params)
     pallas = phase_pallas_serve(card, params, serve["long_prompt_s"])
     phase_attention_reference(params)
 
@@ -1357,6 +1607,8 @@ def main(argv=None) -> int:
     params = _release(engine)
     del engine
     moe_slot = phase_slot_serve(card, params, model=MOE_MODEL, tag="moe-slot")
+    moe_spec = phase_moe_spec(card, params)
+    phase_spec_reference(params, MOE_MODEL, tag="moe-spec-reference", plain_experts=True)
 
     # the qwen3-32b int8 phase needs the card to itself too
     del params
@@ -1389,6 +1641,8 @@ def main(argv=None) -> int:
         "sampling_prep": ("triton", src + "sampling_prep.py",
                           jsrc + "sampling_prep.py:30", serve),
         "slot_attention": ("cuda", attn, jsrc + "slot_attention.py:110", slot),
+        "slot_window_attention": ("cuda", attn, jsrc + "slot_attention.py:123 _slot_window_body",
+                                  spec),
         "pallas_paged_attention": ("cuda", attn, jsrc + "paged_attention.py:49", pallas),
         "pallas_paged_decode": ("cuda", attn, jsrc + "paged_attention.py:117", pallas),
         "pallas_paged_decode_clamp": ("cuda", attn, jsrc + "paged_attention.py:239",
@@ -1407,8 +1661,9 @@ def main(argv=None) -> int:
                 "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
                 "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"]}
                for n, (r, s, rep, run) in meta.items()]
-    runs = {"serve": serve, "slot_serve": slot, "pallas_serve": pallas,
-            "moe_serve": moe_serve, "moe_slot": moe_slot, "int8_serve": i8_serve}
+    runs = {"serve": serve, "slot_serve": slot, "spec_serve": spec, "pallas_serve": pallas,
+            "moe_serve": moe_serve, "moe_slot": moe_slot, "moe_spec": moe_spec,
+            "int8_serve": i8_serve}
     log(card)   # the card's name and power limit again, beside the result lines
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},

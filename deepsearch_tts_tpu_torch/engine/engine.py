@@ -42,16 +42,27 @@ Behaviours carried over from the JAX engine:
   paged cache and ``attn_impl="xla"`` only. JAX refuses ``"int8"`` on its
   TPU for speed (``engine.py:411-421``), a TPU measurement; here both
   spellings are accepted, as JAX accepts them on the CPU.
+* ``speculative="ngram"`` (slot cache only): each decode step drafts
+  ``spec_k`` tokens per row from a device token history
+  (``engine/speculative.py``), runs ONE forward over the row's
+  ``spec_k + 1``-token window (the fused layer over B·(K+1) rows, B9 for
+  attention), samples every window position in one batched pass and emits
+  the longest draft-matching prefix plus the first correction. Rejected
+  window KV needs no cleanup: the next window starts at the new length and
+  overwrites it before any read. A row advances up to
+  ``decode_chunk_len·(spec_k+1)`` positions a chunk (``_max_adv``), and
+  every length guard uses that.
 
 Left out, because they are JAX dispatch machinery: pipelined dispatch from
-the device carry, admission injection, the compile caches and warm-program
-bookkeeping. Eager CUDA launches are already asynchronous; each decode
-chunk is queued step after step and synchronised once, when its tokens are
-read back. The seen mask of every admitted row is rebuilt from its whole
-prompt, parked re-entries included; JAX's keep/clear path for parked rows
-saves a host upload on the TPU and gives the same mask. Options of the JAX
-engine that the port does not carry yet raise ``NotImplementedError``
-naming the ROADMAP.md item.
+the device carry (and ``_can_speculate``, which decides it), admission
+injection, the compile caches and warm-program bookkeeping. Eager CUDA
+launches are already asynchronous; each decode chunk is queued step after
+step and synchronised once, when its tokens are read back. The seen mask
+of every admitted row is rebuilt from its whole prompt, parked re-entries
+included (and so is a speculative engine's token history); JAX's
+keep/clear path for parked rows saves a host upload on the TPU and gives
+the same mask. Options of the JAX engine that the port does not carry yet
+raise ``NotImplementedError`` naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -72,6 +83,7 @@ from ..models.registry import get_model
 from .kvcache import PageAllocator, init_kv_pages, init_kv_scales
 from .profiling import SpanTimer
 from .sampling import SamplingParams, sample, update_seen
+from .speculative import accept_drafts, ngram_draft
 from .stopping import StopState
 from .tokenizer import IncrementalDetokenizer
 
@@ -124,6 +136,47 @@ class _Slot:
         self.active = False
 
 
+# H100 SXM data sheet (dense, 700 W): the speculative regime check's ridge
+H100_BF16_FLOP_S = 989e12
+H100_HBM_BYTES_S = 3.35e12
+
+
+def _check_speculative(speculative, cache_mode, kv_quantize, prefill_lane, spec_k,
+                       spec_ngram, max_slots, quantize) -> None:
+    """The JAX engine's checks of a speculative engine (``engine.py:201-235``),
+    its regime warning taken at the H100's ridge point."""
+    if speculative != "ngram":
+        raise ValueError(f"unknown speculative mode {speculative!r}")
+    if cache_mode != "slot":
+        raise ValueError(
+            "speculative decoding requires cache_mode='slot' (the "
+            "contiguous rows make rejected-window KV rewind free)")
+    if kv_quantize:
+        raise ValueError("speculative decoding excludes int8 KV")
+    if prefill_lane:
+        raise ValueError(
+            "speculative decoding and the prefill lane are mutually "
+            "exclusive decode-program variants")
+    if spec_k < 1 or spec_ngram < 1:
+        raise ValueError("spec_k and spec_ngram must be >= 1")
+    # a verify step pushes max_slots·(spec_k+1) rows through every weight
+    # product: 2 operations per row for each weight element read. Past the
+    # ridge (data-sheet peak over HBM rate, per weight byte) the step is
+    # bound by the tensor cores and no longer costs about one plain step
+    weight_bytes = 1 if quantize else 2
+    ridge = H100_BF16_FLOP_S / H100_HBM_BYTES_S * weight_bytes / 2
+    rows = max_slots * (spec_k + 1)
+    if rows > ridge:
+        import warnings
+
+        warnings.warn(
+            f"speculative decoding with max_slots={max_slots}, spec_k={spec_k} "
+            f"puts {rows} rows through each verify product, past the ~{ridge:.0f}-row "
+            "roofline ridge of an H100 (989 TFLOP/s bf16 over 3.35 TB/s): verify "
+            "steps are compute-bound there. Use speculation at small batch.",
+            stacklevel=3)
+
+
 def _not_ported(option: str, item: str):
     return NotImplementedError(
         f"Engine option {option} is not ported to the torch package yet "
@@ -174,15 +227,28 @@ class Engine:
         mesh=None,
         prefill_lane: int = 0,
         speculative: str | None = None,
+        spec_k: int = 3,
+        spec_ngram: int = 2,
         chunk_trim: bool = False,
         ring_prefill_len: int | None = None,
     ):
         if cache_mode not in ("paged", "slot"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if speculative is not None:
+            _check_speculative(speculative, cache_mode, kv_quantize, prefill_lane,
+                               spec_k, spec_ngram, max_slots, quantize)
+        if chunk_trim and (speculative or prefill_lane):
+            raise ValueError(
+                "chunk_trim is a plain-decode-program policy (mutually "
+                "exclusive with speculative decoding and the prefill lane)")
+        self.speculative = speculative
+        self.spec_k = int(spec_k)
+        self.spec_ngram = int(spec_ngram)
+        # the most positions a row advances in one decode chunk: each step
+        # emits 1..spec_k+1 tokens under speculation
+        self._max_adv = decode_chunk_len * (self.spec_k + 1 if speculative else 1)
         unported = [
             (bool(prefill_lane), f"prefill_lane={prefill_lane}", "A4 (prefill lane)"),
-            (speculative is not None, f"speculative={speculative!r}",
-             "A11 (speculative decoding, kernel B9)"),
             (bool(chunk_trim), "chunk_trim=True", "A4 (decode-chunk trim)"),
             (mesh is not None, "mesh", "A13 (parallel serving)"),
             (ring_prefill_len is not None, "ring_prefill_len", "A13 (ring prefill)"),
@@ -290,6 +356,11 @@ class Engine:
         }
         self.min_tokens = np.zeros((B,), np.int32)
         self.prompt_lens = np.zeros((B,), np.int32)
+        # speculative: token history for the n-gram drafts, hist[b, q] = the
+        # token at position q (valid up to seq_lens[b]), plus one spare
+        # column that takes the writes JAX drops out of bounds
+        self.hist = (torch.zeros((B, max_seq_len + 1), dtype=torch.int64, device=self.device)
+                     if speculative else None)
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
         self._queue: "queue.Queue" = queue.Queue()
@@ -343,9 +414,11 @@ class Engine:
     @torch.no_grad()
     def warmup(self, prompt_lens=(16,)) -> None:
         """Build the CUDA kernels and JIT the Triton kernel before serving:
-        one prefill per prompt bucket and one decode step on dummy inputs
-        whose positions are all padding, so no KV is written and no engine
-        state changes. Call before submitting requests."""
+        one prefill per prompt bucket and one decode step (a speculative
+        engine's verify step, on copies of its seen mask and history) on
+        dummy inputs whose positions are all padding, so no KV is written
+        and no engine state but the sampler's random stream changes. Call
+        before submitting requests."""
         dev = self.device
         for plen in prompt_lens:
             T = self._bucket(max(int(plen), 1))
@@ -359,14 +432,19 @@ class Engine:
             sample(logits[:, 0], self._samp_params(np.arange(1)),
                    torch.zeros_like(self.seen[:1]), self.generator)
         B = self.max_slots
-        logits, _ = self._forward(
-            torch.zeros((B, 1), dtype=torch.int64, device=dev),
-            torch.full((B, 1), -1, dtype=torch.int64, device=dev),
-            self._t(self.page_tables[:, :1]),
-            torch.zeros((B,), dtype=torch.int64, device=dev),
-            slot_ctx=self._slot_bucket(1))
-        sample(logits[:, 0], self._samp_params(np.arange(B)),
-               torch.zeros_like(self.seen), self.generator)
+        zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
+        tables = self._t(self.page_tables[:, :1])
+        if self.speculative:
+            # the verify step itself, on copies of the seen mask and history
+            rows_r = np.repeat(np.arange(B), self.spec_k + 1)
+            self._spec_step(zeros, zeros, torch.zeros((B,), dtype=torch.bool, device=dev),
+                            tables, self._slot_bucket(1), self._samp_params(rows_r),
+                            zeros, self.seen.clone(), self.hist.clone())
+        else:
+            logits, _ = self._forward(zeros[:, None], torch.full((B, 1), -1, device=dev),
+                                      tables, zeros, slot_ctx=self._slot_bucket(1))
+            sample(logits[:, 0], self._samp_params(np.arange(B)),
+                   torch.zeros_like(self.seen), self.generator)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -389,6 +467,9 @@ class Engine:
             out["prefix_cache"] = self.prefix_cache.stats()
         if out["decode_time_s"] > 0:
             out["decode_tokens_per_s"] = out["decode_tokens"] / out["decode_time_s"]
+        if self.speculative and out["slot_steps"] > 0:
+            # tokens emitted per row-step: 1.0 accepts no draft, spec_k+1 all
+            out["spec_tokens_per_step"] = out["decode_tokens"] / out["slot_steps"]
         return out
 
     # ------------------------------------------------------------- scheduler
@@ -614,8 +695,7 @@ class Engine:
             eff_max = max(1, min(eff_tokens, self.max_seq_len - 1))
             keep = max(1, self.max_seq_len - eff_max - 1)
             prompt = prompt[-keep:]
-        total_budget = min(len(prompt) + eff_tokens + self.decode_chunk_len,
-                           self.max_seq_len)
+        total_budget = min(len(prompt) + eff_tokens + self._max_adv, self.max_seq_len)
 
         shared: list[int] = []
         own: list[int] = []
@@ -703,8 +783,8 @@ class Engine:
     def _forward(self, tokens, positions, tables, seq_lens, *,
                  logits_indices=None, fresh=False, slot_ctx=None):
         """One forward over the engine's pools (updated in place, int8 KV's
-        scales pools too); ``slot_ctx`` (slot mode, T=1 decode) makes it a
-        slot decode reading that context bucket."""
+        scales pools too); ``slot_ctx`` (slot mode decode: T=1, or a verify
+        window) makes it a slot decode reading that context bucket."""
         scales = ({} if self.k_scales is None
                   else {"k_scales": self.k_scales, "v_scales": self.v_scales})
         return self.forward(
@@ -755,6 +835,11 @@ class Engine:
             rows_t = self._t(rows)
             self.seen[rows_t] = seen_rows
             self.seen[rows_t, first] = True
+            if self.hist is not None:
+                hist_rows = np.zeros((G, self.hist.shape[1]), np.int64)
+                for g, p in enumerate(grp):
+                    hist_rows[g, :len(p["prompt"])] = p["prompt"]
+                self.hist[rows_t] = self._t(hist_rows)
             first_np = first.cpu().numpy()
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += G
@@ -775,13 +860,44 @@ class Engine:
         self.stats["prefill_tokens"] += n_prefill
         self.stats["prefill_time_s"] += time.monotonic() - t0
 
+    def _spec_step(self, last, lens, act, tables, slot_ctx, samp, plens, seen, hist):
+        """One speculative verify step (JAX ``engine.py:814-864``): draft
+        ``spec_k`` tokens a row, one forward over the window ``[last,
+        drafts]`` at positions ``lens..lens+K`` (-1 on inactive rows), one
+        sampler pass over all B·(K+1) positions, exact-match acceptance.
+        ``samp`` holds the per-row sampler params and ``min_tokens``
+        repeated per window position. Marks the emitted tokens in ``seen``
+        and ``hist`` (in place); returns ``(next last token, lens + emitted,
+        window samples [B,K+1], emitted counts [B])``."""
+        K1 = self.spec_k + 1
+        B, S = last.shape[0], self.max_seq_len
+        off = torch.arange(K1, device=last.device)[None, :]
+        draft = ngram_draft(hist[:, :S], lens, self.spec_k, n=self.spec_ngram)
+        win = torch.cat([last[:, None], draft], dim=1)
+        pos = torch.where(act[:, None], lens[:, None] + off, -1)
+        logits, _ = self._forward(win, pos, tables, lens + K1 * act.long(), slot_ctx=slot_ctx)
+        # the window sees the window-start seen set (JAX's documented
+        # approximation); tokens_generated counts each position's own
+        sp = samp._replace(tokens_generated=((lens - plens + 1)[:, None] + off).reshape(-1))
+        t = sample(logits.reshape(B * K1, -1), sp, seen.repeat_interleave(K1, dim=0),
+                   self.generator).reshape(B, K1)
+        ncons, nxt, alive = accept_drafts(t, draft, act)
+        emit = alive & act[:, None]
+        # unemitted positions re-mark a token already present: the row's
+        # first sample (emitted) or, on an inactive row, its last token
+        fill = torch.where(act, t[:, 0], last)[:, None]
+        seen.scatter_(1, torch.where(emit, t, fill), True)
+        posw = lens[:, None] + 1 + off
+        hist.scatter_(1, torch.where(emit & (posw < S), posw, S), t)
+        return torch.where(act, nxt, last), lens + ncons, t, ncons
+
     def _decode_chunk(self) -> None:
         """Run one decode chunk over every slot row and fold its tokens in."""
         t0 = time.monotonic()
-        chunk = self.decode_chunk_len
+        chunk, adv = self.decode_chunk_len, self._max_adv
         active = np.array([s.active for s in self.slots], bool)
         # a row whose positions could leave the page budget is not stepped
-        active &= self.seq_lens + chunk + 1 <= self.max_seq_len
+        active &= self.seq_lens + adv + 1 <= self.max_seq_len
         for s in self.slots:   # page headroom for this chunk (paged mode only)
             if not active[s.idx] or self.cache_mode == "slot":
                 continue
@@ -802,34 +918,47 @@ class Engine:
                 s.pages.extend(new)
         if not active.any():
             return
-        need = int(np.max(np.where(active, self.seq_lens, 0))) + chunk + 1
+        need = int(np.max(np.where(active, self.seq_lens, 0))) + adv + 1
         P = self._page_bucket(need)
         slot_ctx = self._slot_bucket(need)
 
         rows = np.arange(self.max_slots)
+        spec = self.speculative is not None
         with self.spans.span("decode"):
             tables = self._t(self.page_tables[:, :P])
             last = self._t(self.last_tok)
             lens = self._t(self.seq_lens)
             act = self._t(active, torch.bool)
-            act_i = act.long()
             plens = self._t(self.prompt_lens)
-            min_toks = self._t(self.min_tokens)
-            samp = self._samp_params(rows)
-            toks = []
-            for _ in range(chunk):
-                sp = samp._replace(min_tokens=min_toks,
-                                   tokens_generated=lens - plens + 1)
-                pos = torch.where(act, lens, torch.full_like(lens, -1))[:, None]
-                logits, _ = self._forward(last[:, None], pos, tables, lens + act_i,
-                                          slot_ctx=slot_ctx)
-                nxt = sample(logits[:, 0], sp, self.seen, self.generator)
-                nxt = torch.where(act, nxt, last)
-                update_seen(self.seen, nxt)
-                lens = lens + act_i
-                last = nxt
-                toks.append(nxt)
-            toks_np = torch.stack(toks, dim=1).cpu().numpy()   # the sync point
+            toks, cnts = [], []
+            if spec:
+                rows_r = np.repeat(rows, self.spec_k + 1)
+                samp = self._samp_params(rows_r, min_tokens=self._t(self.min_tokens[rows_r]))
+                # invariant: hist[b, lens[b]] == last[b] (JAX engine.py:803-806)
+                self.hist[torch.arange(self.max_slots, device=self.device),
+                          lens.clamp(0, self.max_seq_len - 1)] = last
+                for _ in range(chunk):
+                    last, lens, t, ncons = self._spec_step(
+                        last, lens, act, tables, slot_ctx, samp, plens, self.seen, self.hist)
+                    toks.append(t)
+                    cnts.append(ncons)
+                cnts_np = torch.stack(cnts, dim=1).cpu().numpy()   # [B, chunk]
+            else:
+                samp = self._samp_params(rows, min_tokens=self._t(self.min_tokens))
+                act_i = act.long()
+                for _ in range(chunk):
+                    sp = samp._replace(tokens_generated=lens - plens + 1)
+                    pos = torch.where(act, lens, torch.full_like(lens, -1))[:, None]
+                    logits, _ = self._forward(last[:, None], pos, tables, lens + act_i,
+                                              slot_ctx=slot_ctx)
+                    nxt = sample(logits[:, 0], sp, self.seen, self.generator)
+                    nxt = torch.where(act, nxt, last)
+                    update_seen(self.seen, nxt)
+                    lens = lens + act_i
+                    last = nxt
+                    toks.append(nxt)
+            # the sync point: [B, chunk] tokens, [B, chunk, K+1] under speculation
+            toks_np = torch.stack(toks, dim=1).cpu().numpy()
             last_np = last.cpu().numpy()
             lens_np = lens.cpu().numpy()
         self.stats["slot_steps"] += int(active.sum()) * chunk
@@ -840,13 +969,20 @@ class Engine:
                 continue
             self.last_tok[s.idx] = last_np[s.idx]
             self.seq_lens[s.idx] = lens_np[s.idx]
-            consumed = self._process_chunk(s, toks_np[s.idx])
+            if spec:
+                # variable emission: each step's window tokens up to its count
+                c, wins = cnts_np[s.idx], toks_np[s.idx]
+                emitted = int(c.sum())
+                arr = wins[np.arange(wins.shape[1])[None, :] < c[:, None]]
+            else:
+                emitted, arr = chunk, toks_np[s.idx]
+            consumed = self._process_chunk(s, arr)
             n_new += consumed
             if s.stop.finished:
                 # over-generated tokens: their KV lies past seq_lens, masked
-                self.seq_lens[s.idx] -= chunk - consumed
+                self.seq_lens[s.idx] -= emitted - consumed
                 self._finish_slot(s)
-            elif self.seq_lens[s.idx] + chunk >= self.max_seq_len:
+            elif self.seq_lens[s.idx] + adv >= self.max_seq_len:
                 self._finish_slot(s, reason="length")
         self.stats["decode_tokens"] += n_new
         self.stats["decode_steps"] += 1

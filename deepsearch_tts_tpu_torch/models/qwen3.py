@@ -9,13 +9,15 @@ offset into the stack.
 
 :func:`forward` carries the JAX function's no-cache mode and the serving
 branches the engine runs: fresh prefill, non-fresh re-prefill over a cached
-prefix, T=1 paged decode and contiguous-slot decode — decode through the
-fused layer functions (``ops/fused_layer.py``) when ``fused_decode`` is set
-and the weights are packed. ``impl`` selects the attention kernels where
-JAX selects its Pallas ones: flash attention for fresh prefill and the
-no-cache forward, the paged kernels for T=1 paged decode, and
-``slot_attention`` for T=1 slot decode. The layer loop is a Python loop
-(the JAX ``lax.scan``); the KV pools are updated in place.
+prefix, T=1 paged decode and contiguous-slot decode (T=1, or a speculative
+verify window of T tokens a row) — decode through the fused layer functions
+(``ops/fused_layer.py``, a window flattened into B·T rows) when
+``fused_decode`` is set and the weights are packed. ``impl`` selects the
+attention kernels where JAX selects its Pallas ones: flash attention for
+fresh prefill and the no-cache forward, the paged kernels for T=1 paged
+decode, ``slot_attention`` for T=1 slot decode and
+``slot_window_attention`` for a slot verify window. The layer loop is a
+Python loop (the JAX ``lax.scan``); the KV pools are updated in place.
 
 int8 (``ops/quant.py``): a matrix leaf may be ``{q, scales}`` (int8 stack +
 float32 per-column scales); every product then goes through
@@ -44,7 +46,7 @@ from ..ops.fused_layer import (
     fused_qkv_stacked_i8,
 )
 from ..ops.quant import int8_matmul, is_quantized, maybe_int8_dot
-from ..ops.slot_attention import slot_attention
+from ..ops.slot_attention import slot_attention, slot_window_attention
 from .common import apply_rope, matmul_f32, rms_norm, rope_angles
 
 
@@ -164,12 +166,12 @@ class ServingAttention:
     token's pool row in layer 0 (padding → the spare row past the pool), the
     offset one layer adds to it, and the decode attention mask or slot limit.
     ``attend(l, x)`` then runs layer ``l``: q/k/v (the fused B3 or B10
-    kernel on ``x`` [B,E] when ``fused``, else the plain chain on ``x``
+    kernel on ``x`` [B·T,E] when ``fused``, else the plain chain on ``x``
     [B,T,E]), the in-place KV write (quantized, with its scales, when the
     scales pools are given) and one of five branches — fresh causal
-    prefill, slot decode (B1 or the masked gather), re-prefill over a
-    cached prefix, and T=1 paged decode (B6 or the gather). Returns o
-    [B,T,H,D].
+    prefill, slot decode (B1 at T=1, B9 over a speculative verify window,
+    or the masked gather), re-prefill over a cached prefix, and T=1 paged
+    decode (B6 or the gather). Returns o [B,T,H,D].
 
     int8 KV follows JAX's routing (``qwen3.py:297-400``): fresh prefill
     attends over the chunk's unquantized k/v; re-prefill does not take
@@ -203,18 +205,18 @@ class ServingAttention:
         self.layer_step = (positions >= 0).long() * (N * ps)
         kernel_decode = T == 1 and impl in (("pallas",) if slot_decode
                                             else ("pallas", "pallas2", "clamp"))
+        # a T > 1 slot decode is a speculative verify window: B9 with
+        # impl="pallas", else the masked gather with per-query positions
+        self.window_kernel = slot_decode and T > 1 and impl == "pallas"
         self.decode_mask = self.slot_limit = None
-        if slot_decode and T > 1 and impl == "pallas":
-            raise NotImplementedError(
-                "the slot verify window (slot_window_attention) is not ported to "
-                "the torch package yet (ROADMAP.md A11, kernel B9)")
-        if not fresh_prefill and T == 1 and not kernel_decode:
+        if (not fresh_prefill and (T == 1 or slot_decode) and not kernel_decode
+                and not self.window_kernel):
             S = slot_ctx if slot_decode else self.page_table.shape[1] * ps
             self.decode_mask = attn_ops.context_mask(seq_lens, self.pos_c, S)
         elif slot_decode and kernel_decode:
             self.slot_limit = torch.minimum(seq_lens.long(), self.pos_c[:, 0].long() + 1)
         if fused:
-            self.cosf, self.sinf = cos.reshape(B, -1), sin.reshape(B, -1)
+            self.cosf, self.sinf = cos.reshape(B * T, -1), sin.reshape(B * T, -1)
 
     def _write(self, k, v, slots_l) -> None:
         """This layer's rows into the pools (int8 KV: quantized, with their
@@ -241,7 +243,7 @@ class ServingAttention:
             else:
                 qf, kf, vf = fused_qkv_stacked(x, lp["ln1"], w, lp["q_norm"], lp["k_norm"],
                                                self.cosf, self.sinf, l, **kw)
-            q, k, v = qf.reshape(B, 1, H, D), kf.reshape(B, 1, K, D), vf.reshape(B, 1, K, D)
+            q, k, v = qf.reshape(B, T, H, D), kf.reshape(B, T, K, D), vf.reshape(B, T, K, D)
         else:
             q, k, v = _qkv_roped(cfg, lp, l, x, self.cos, self.sin, self.plain)
             v = v.to(x.dtype)
@@ -258,6 +260,9 @@ class ServingAttention:
             if self.slot_limit is not None:
                 return slot_attention(q[:, 0], kpf, vpf, self.slot_limit, l, n_rows=N,
                                       slot_ctx=self.slot_ctx)[:, None]
+            if self.window_kernel:
+                return slot_window_attention(q, kpf, vpf, self.seq_lens, self.positions[:, 0],
+                                             l, n_rows=N, slot_ctx=self.slot_ctx)
             rows = slice(l * N, (l + 1) * N)
             return attn_ops.masked_context_attention(
                 q, kpf[rows, :self.slot_ctx], vpf[rows, :self.slot_ctx], self.seq_lens,
@@ -293,9 +298,11 @@ def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin, plain: bool = F
     return q, k, v
 
 
-def _fused_decode_on(fused_decode, T, fresh_prefill, lp) -> bool:
-    """Whether a serving forward takes the fused T=1 layer functions."""
-    return (fused_decode and T == 1 and not fresh_prefill
+def _fused_decode_on(fused_decode, T, fresh_prefill, lp, slot_decode: bool = False) -> bool:
+    """Whether a serving forward takes the fused layer functions: at T=1,
+    and for a slot decode's verify window of up to 8 tokens, flattened into
+    B·T rows (JAX ``qwen3.py:275-280``)."""
+    return (fused_decode and (T == 1 or (slot_decode and T <= 8)) and not fresh_prefill
             and "wqkv" in lp and "w_gateup" in lp)
 
 
@@ -346,19 +353,20 @@ def forward(
         return x + _mlp(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain_int8).to(x.dtype)
 
     if serving:
-        use_fused = _fused_decode_on(fused_decode, T, fresh_prefill, lp) and not plain_int8
+        use_fused = (_fused_decode_on(fused_decode, T, fresh_prefill, lp, slot_decode)
+                     and not plain_int8)
         attend = ServingAttention(
             cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
             fused=use_fused, k_scales=k_scales, v_scales=v_scales, plain=plain_int8)
         if use_fused:
-            xf = x.reshape(B, E)
+            xf = x.reshape(B * T, E)
         for l in range(cfg.n_layers):
             if not use_fused:
                 x = layer_tail(l, attend(l, x), x)
                 continue
-            a = attend(l, xf).reshape(B, H * D).to(x.dtype)
+            a = attend(l, xf).reshape(B * T, H * D).to(x.dtype)
             if is_quantized(lp["wqkv"]):
                 wo, gu, wd = lp["wo"], lp["w_gateup"], lp["w_down"]
                 xf = fused_out_mlp_stacked_i8(
@@ -368,7 +376,7 @@ def forward(
                 xf = fused_out_mlp_stacked(a, xf, lp["wo"], lp["ln2"], lp["w_gateup"],
                                            lp["w_down"], l, eps=eps)
         if use_fused:
-            x = xf.reshape(B, 1, E)
+            x = xf.reshape(B, T, E)
     else:
         for l in range(cfg.n_layers):
             q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain_int8)

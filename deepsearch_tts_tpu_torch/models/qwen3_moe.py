@@ -14,10 +14,13 @@ decode layer is B3 (``fused_qkv_stacked``), attention, B7
 FFN on hn with those logits, then ``x2 + moe_out`` — on when
 ``fused_decode``, T == 1, not fresh, ``moe_impl == "ragged"`` and the
 weights are packed. The expert FFN runs through the grouped expert kernel
-on every path. One difference from JAX: with ``impl="pallas"`` fresh
-prefill runs flash attention (B2), as the dense family does, where the JAX
-MoE family keeps XLA attention. The decode-step prefill lane is not carried
-(the engine raises on ``prefill_lane``).
+on every path. A speculative verify window (T > 1 slot decode) runs
+unfused, as JAX's ``use_fused`` requires T == 1. Two differences from JAX,
+both with ``impl="pallas"``, where the port takes the dense family's
+kernels and the JAX MoE family keeps XLA attention: fresh prefill runs
+flash attention (B2), and a verify window attends through
+``slot_window_attention`` (B9). The decode-step prefill lane is not
+carried (the engine raises on ``prefill_lane``).
 """
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 // Pallas attention kernels.
 //
 // K1  decode_attention: T query tokens per row over a page table. It stands
-//     for five TPU entry points:
+//     for six TPU entry points:
 //       B1 slot_attention             (ops/slot_attention.py:301, body :55)
+//       B9 slot_window_attention      (ops/slot_attention.py:203, body :123),
+//          the speculative verify window: T = W, one context read per window
 //       B6 pallas_paged_attention     (ops/paged_attention.py:343, :49)
 //       B6 pallas_paged_decode        (ops/paged_attention.py:191, :117)
 //       B6 pallas_paged_decode_clamp  (ops/paged_attention.py:290, :239)
@@ -41,7 +43,8 @@
 // float32 product), which agrees within bf16 tolerance. p is rounded to bf16
 // before PV in K2 (mma operand) and, when p_bf16 is set, in K1 — the B1
 // round point (slot_attention.py:98); the B6 kernels keep p in float32
-// (paged_attention.py:106), and so does K1 with p_bf16 = 0. The softmax sum
+// (paged_attention.py:106), and so does K1 with p_bf16 = 0. B9 rounds p
+// like B1 (slot_attention.py:178). The softmax sum
 // always uses the unrounded p. Masked keys get p = 0 exactly; keys past the
 // sequence are loaded as zeros (flash_attention.py:58-61 zeroes such v rows).
 //

@@ -169,8 +169,8 @@ def test_preempted_sequence_resumes_token_identical():
 
 
 @pytest.mark.parametrize("kw", [
-    {"cache_mode": "slot", "speculative": "ngram"}, {"prefill_lane": 16},
-    {"speculative": "ngram"}, {"chunk_trim": True},
+    {"cache_mode": "slot", "chunk_trim": True}, {"prefill_lane": 16},
+    {"cache_mode": "slot", "mesh": object()}, {"chunk_trim": True},
     {"mesh": object()}, {"ring_prefill_len": 64},
     {"cache_mode": "slot", "prefill_lane": 16},
 ])
