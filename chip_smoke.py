@@ -77,7 +77,31 @@ Phases, each raising on failure (non-zero exit, no final line):
 19. MoE speculative, after phase 12 on the same weights: 8 greedy requests
     x 32 tokens, B9 once per layer and verify step, the grouped expert
     kernel on every forward (windows unfused, as in JAX), and phase 18 with
-    ``plain_experts``.
+    ``plain_experts``;
+20. MLA kernels (run with phase 3): B8 (``fused_mlp_stacked``) at
+    deepseek-v3 widths, E = 7168 with the dense F = 18432 (norm and
+    residual) and the shared-expert F = 2048 (neither), B = 1 and 16, both
+    layers of a two-layer stack; K3 (``latent_attention``) at D = 576 with
+    deepseek-v3's 128 and kimi-k2's 64 query heads over one cache head,
+    B = 16 and 4096-token rows with ragged limits and inactive rows, through
+    B1's entry (``slot_attention`` with ``v_pool=None``, the slot identity
+    table) and through the three B6 entries over a shuffled table of
+    64-token pages; the grouped expert kernel at E = 7168, F = 2048, 256
+    experts, top-8, gate and up unpacked;
+21. MLA serve, after the qwen3-32b int8 engine is released (less than
+    1 GiB may stay allocated): deepseek-v3 at its published widths cut to
+    5 of its 61 layers (3 dense + 2 MoE, 26.6 B parameters, 53.2 GB of
+    random bf16 weights drawn one matrix at a time), registered from this
+    script under its own name, served as phase 4 through ``build_engine``:
+    B8 on the three dense MLPs and the two shared experts of every decode
+    step, the grouped expert kernel on the routed experts; its serving
+    logits held to the no-cache forward with ``plain_experts``;
+22. MLA slot serve: phase 6 on the same weights, K3 through B1's entry
+    once per layer and decode step, K1 (B1 at D = 128) never;
+23. MLA paged ``attn_impl="pallas"``: a short run whose decode takes K3
+    through ``pallas_paged_attention``; then slot and paged prefill + K3
+    decode against the no-cache forward; the weights are released and
+    less than 1 GiB may stay allocated.
 
 Every kernel entry of the JSON line before the last carries its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
@@ -90,6 +114,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -145,6 +170,13 @@ STOCH_MEAN_BOUND = 1e-3
 SPEC_KW = dict(speculative="ngram", spec_k=3)
 WIN = SPEC_KW["spec_k"] + 1
 GREEDY = dict(temperature=0.0, repetition_penalty=1.0)
+# deepseek-v3 widths (models/deepseek_v3.py DEEPSEEK_V3_CONFIGS), the MLA
+# slice's model: served at its published widths with 5 of its 61 layers,
+# under a name this script registers (3 dense + 2 MoE layers)
+MLA_MODEL, MLA_LAYERS = "deepseek-v3-5-layers", 5
+X_E, X_FD, X_FS, X_NE, X_TOPK = 7168, 18432, 2048, 256, 8
+X_D, X_V = 576, 512      # latent row (kv_lora_rank 512 + rope 64), value columns
+X_SCALE = 192 ** -0.5    # MLA's softmax scale, (qk_nope 128 + qk_rope 64)^-1/2
 
 
 def log(msg: str) -> None:
@@ -180,7 +212,17 @@ def time_ms(fn, calls: int = 1, iters: int = 50) -> tuple[float, float]:
         b.record()
         b.synchronize()
         out.append(a.elapsed_time(b) / (iters * calls))
+    graph.reset()   # its private memory pool goes back at once
     return out[0], out[1]
+
+
+def _free() -> None:
+    """Give the memory of dropped tensors and CUDA graphs back to the card
+    (graph pools can sit in reference cycles until a collection)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_eager_ms(fn, iters: int) -> float:
@@ -834,6 +876,170 @@ def phase_int8_kernels(gen) -> dict:
     return res
 
 
+def phase_mla_kernels(gen) -> tuple[dict, dict]:
+    """B8 and K3 against their plain versions at deepseek-v3 widths (K3 also
+    at kimi-k2's 64 heads), and the grouped expert kernel at its expert
+    shape; returns the per-kernel results of the JSON line (B8 timed at the
+    dense width, K3 at H = 128) and the other timed shapes."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    res: dict = {}
+    other: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def check(name, *a, **k):
+        _check_kernel(res if k.get("timed") else other, name, *a, **k)
+
+    def attn_check(name, *a, **k):
+        check(name, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **k)
+
+    _free()   # the earlier kernel phases' tensors and graphs
+    # B8: two-layer stacks (793 MB a dense layer, 88 MB a shared expert:
+    # beyond the 50 MB L2), each layer checked at B = 1 and 16; the timing
+    # walks both layers, so each call reads its weights cold as in serving
+    L = 2
+    for F, norm, tag in ((X_FD, True, "dense"), (X_FS, False, "shared")):
+        ln = rnd(L, X_E, scale=0.1) + 1
+        wg, wu = rnd(L, X_E, F, scale=X_E ** -0.5), rnd(L, X_E, F, scale=X_E ** -0.5)
+        wd = rnd(L, F, X_E, scale=F ** -0.5)
+        kw = dict(eps=1e-6, norm=norm, residual=norm)
+        for B in (1, SLOTS):
+            x = rnd(B, X_E)
+            for layer in range(L):
+                _check_kernel(other, "fused_mlp_stacked", f"{tag} F={F} B={B} layer={layer}",
+                              lambda: fl.fused_mlp_stacked(x, ln, wg, wu, wd, layer, **kw),
+                              lambda: fl.fused_mlp_stacked_plain(x, ln, wg, wu, wd, layer, **kw),
+                              rtol=BF16_RTOL, atol=BF16_ATOL)
+
+            def walk(f):
+                return lambda: [f(x, ln, wg, wu, wd, layer, **kw) for layer in range(L)]
+
+            t = time_ms(walk(fl.fused_mlp_stacked), calls=L)
+            p = time_ms(walk(fl.fused_mlp_stacked_plain), calls=L)
+            bd = bound(2 * (3 * X_E * F + 2 * B * X_E + norm * X_E), 2 * B * 3 * X_E * F)
+            log(f"[kernel] B8 fused_mlp_stacked {tag} F={F} B={B} | device kernel "
+                f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain "
+                f"{p[1]:.4f} ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) | "
+                f"{6 * X_E * F / t[0] / 1e6:.1f} GB/s")
+            r = dict(ms=t[0], plain_ms=p[0], library_ms=None, **bd,
+                     shape=f"{tag} E={X_E} F={F} B={B} ({L} layers walked)")
+            if tag == "dense" and B == SLOTS:
+                res["fused_mlp_stacked"] = {"err": 0.0, **r}
+            other[f"fused_mlp_stacked {tag} B={B}"] = r
+        del ln, wg, wu, wd
+        _free()
+    res["fused_mlp_stacked"]["err"] = other.pop("fused_mlp_stacked")["err"]
+
+    # K3 through B1's entry: a two-layer slot pool of SLOTS rows x CTX
+    # tokens of one 576-column cache head, LIMITS as K1's check. The
+    # yardstick is SDPA over layer 1's rows with each row's key mask, the
+    # H heads of a row as its H query rows over the one cache head: the
+    # same function as enable_gqa over [B, H, 1, 576] queries, whose math
+    # path expands k and v to every head (over 60 GB at H = 128)
+    lim = torch.tensor(LIMITS, device=dev)
+    keys = sum(max(x, 1) for x in LIMITS)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(n_rows=SLOTS, slot_ctx=CTX, scale=X_SCALE, v_width=X_V)
+    pool = rnd(2 * SLOTS, CTX, 1, X_D)
+    k1 = pool[SLOTS:].transpose(1, 2)                         # [B, 1, CTX, 576]
+    mask = (torch.arange(CTX, device=dev)[None] < lim.clamp(min=1)[:, None])[:, None, None]
+    for h, model in ((128, "deepseek-v3"), (64, "kimi-k2")):
+        q = rnd(SLOTS, h, X_D)
+        q4 = q[:, None]                                       # [B, 1, H, 576]
+        io = keys * X_D * 2 + SLOTS * h * (X_D + X_V) * 2 + SLOTS * 8
+        for layer in range(2):
+            attn_check("slot_attention_latent", f"{model} H={h} B={SLOTS} layer={layer} "
+                       f"ctx={CTX}",
+                       lambda: sa.slot_attention(q, pool, None, lim, layer, **kw),
+                       lambda: sa.slot_attention_plain(q, pool, None, lim, layer, **kw),
+                       timed=layer == 1 and h == 128, nbytes=io,
+                       flop=2 * h * (X_D + X_V) * keys,
+                       library=lambda: sdpa(q4, k1, k1[..., :X_V], attn_mask=mask,
+                                            scale=X_SCALE))
+        if h == 64:   # the kimi-k2 time, for PERF.md
+            other["slot_attention_latent H=64"] = {
+                "ms": time_ms(lambda: sa.slot_attention(q, pool, None, lim, 1, **kw),
+                              iters=20)[0], **bound(io, 2 * h * (X_D + X_V) * keys)}
+    del pool, k1
+    _free()
+
+    # K3 through the three B6 entries: 64-token pages of a shuffled table
+    # (page 0 the zeroed null page), SEQS as K1's check; the pool is k and v
+    ps, P = 64, CTX // 64
+    NP = 1 + SLOTS * P
+    pages = rnd(NP, ps, 1, X_D)
+    pages[0] = 0
+    seq = torch.tensor(SEQS, device=dev)
+    perm = torch.randperm(NP - 1, generator=gen, device=dev)[: SLOTS * P].view(SLOTS, P)
+    used = (seq + ps - 1) // ps
+    table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
+    qpos = (seq - 1)[:, None]
+    nkeys = int(seq.sum())
+    for h, model in ((128, "deepseek-v3"), (64, "kimi-k2")):
+        q1 = rnd(SLOTS, 1, h, X_D)
+        io = nkeys * X_D * 2 + SLOTS * h * (X_D + X_V) * 2 + SLOTS * (P + 2) * 8
+        flop = 2 * h * (X_D + X_V) * nkeys
+        for name in ("pallas_paged_attention", "pallas_paged_decode",
+                     "pallas_paged_decode_clamp"):
+            extra = (qpos,) if name == "pallas_paged_attention" else ()
+            fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
+            timed = h == 128 and name == "pallas_paged_attention"
+            attn_check("paged_attention_latent", f"{name} {model} H={h} B={SLOTS} ps={ps} "
+                       f"P={P}",
+                       lambda: fk(q1, pages, pages, table, seq, *extra, scale=X_SCALE,
+                                  v_width=X_V),
+                       lambda: fp(q1, pages, pages, table, seq, *extra, scale=X_SCALE,
+                                  v_width=X_V), timed=timed, nbytes=io, flop=flop)
+            if h == 64 and name == "pallas_paged_attention":
+                other["paged_attention_latent H=64"] = {
+                    "ms": time_ms(lambda: fk(q1, pages, pages, table, seq, *extra,
+                                             scale=X_SCALE, v_width=X_V), iters=20)[0],
+                    **bound(io, flop)}
+    del pages
+    _free()
+    for name in ("slot_attention_latent", "paged_attention_latent"):
+        res[name]["err"] = max(res[name]["err"], other.pop(name)["err"])
+
+    # the grouped expert kernel at deepseek-v3's expert shape, gate and up
+    # unpacked (MLA's routed experts), over the rows of 16 tokens x top-8
+    wg = torch.empty((X_NE, X_E, X_FS), dtype=bf, device=dev)
+    wu, wd = torch.empty_like(wg), torch.empty((X_NE, X_FS, X_E), dtype=bf, device=dev)
+    for e in range(0, X_NE, 32):   # drawn 32 experts at a time
+        wg[e:e + 32], wu[e:e + 32] = (rnd(32, X_E, X_FS, scale=X_E ** -0.5) for _ in "gu")
+        wd[e:e + 32] = rnd(32, X_FS, X_E, scale=X_FS ** -0.5)
+    logits = torch.randn((SLOTS, X_NE), generator=gen, device=dev) * 2
+    _, top_e = moe.route_topk(logits, X_TOPK)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    offsets = moe.group_offsets(flat_e, X_NE)
+    xs = rnd(SLOTS, X_E)[order // X_TOPK]
+    touched = int(((offsets[1:] - offsets[:-1]) > 0).sum())
+    rows = SLOTS * X_TOPK
+    label = f"deepseek-v3 T={SLOTS} x top-{X_TOPK} ({touched} of {X_NE} experts) unpacked"
+    h = moe.grouped_gateup_plain(xs, wg, wu, offsets)
+    _check_kernel(other, "grouped_gateup", label,
+                  lambda: moe.grouped_gateup(xs, wg, wu, offsets),
+                  lambda: moe.grouped_gateup_plain(xs, wg, wu, offsets), rtol=BF16_RTOL,
+                  atol=BF16_ATOL, timed=True, plain_graph=False,
+                  nbytes=2 * (touched * X_E * 2 * X_FS + rows * (X_E + X_FS)) + 4 * (X_NE + 1),
+                  flop=2 * rows * X_E * 2 * X_FS)
+    _check_kernel(other, "grouped_down", label, lambda: moe.grouped_down(h, wd, offsets),
+                  lambda: moe.grouped_down_plain(h, wd, offsets), rtol=BF16_RTOL,
+                  atol=BF16_ATOL, timed=True, plain_graph=False,
+                  nbytes=2 * (touched * X_FS * X_E + rows * (X_FS + X_E)) + 4 * (X_NE + 1),
+                  flop=2 * rows * X_FS * X_E)
+    del wg, wu, wd, h
+    return res, other
+
+
 @contextlib.contextmanager
 def _serve_http(engine):
     """An ``OpenAIServer`` for ``engine`` on an ephemeral localhost port,
@@ -894,9 +1100,11 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     from deepsearch_tts_tpu_torch.ops import slot_attention as sa
 
     # the engine packs its params; on the served (packed) tree that is the
-    # identity, so the same weights are reused instead of drawn again
+    # identity (MLA's two-stack tree is handed back whole), so the same
+    # weights are reused instead of drawn again
     packed = pack_matmul_params(params)
-    assert all(packed["layers"][k] is t for k, t in params["layers"].items())
+    assert packed is params or all(packed["layers"][k] is t
+                                   for k, t in params["layers"].items())
     t0 = time.time()
     engine = _engine(params, model=model, cache_mode="slot", **(SPEC_KW if spec else {}))
     engine.warmup(prompt_lens=(64,))
@@ -907,6 +1115,10 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     # a speculative engine runs only verify windows: B9, never B1
     counters = {**_counters(model), "slot_attention": sa.slot_attention}
     idle = ()
+    if model == MLA_MODEL:
+        # MLA's 576-column latent rows take K3 through B1's entry; K1 idles
+        counters["slot_attention_latent"] = sa.slot_attention_latent
+        idle = ("slot_attention",)
     if spec:
         counters["slot_window_attention"] = sa.slot_window_attention
         idle = ("slot_attention",)
@@ -1209,46 +1421,88 @@ def phase_pallas_serve(card: str, params: dict, xla_long_s: float) -> dict:
     return out
 
 
-def phase_attention_reference(params: dict) -> None:
-    """Slot prefill + B1 decode, and B2 fresh prefill + B6 decode, against
-    the plain no-cache forward on the served weights (24 tokens)."""
+def phase_mla_pallas(card: str, params: dict) -> dict:
+    """The MLA model's paged engine with ``attn_impl="pallas"``: 16
+    concurrent requests whose decode takes K3 through
+    ``pallas_paged_attention`` (the pool as k and v) once per layer and
+    step, K1 never; B8 and the grouped expert kernel as in phase 21."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+
+    engine = _engine(params, model=MLA_MODEL, attn_impl="pallas", page_size=64, n_pages=256)
+    engine.warmup(prompt_lens=(64,))
+    counters = {**_counters(MLA_MODEL), "paged_attention_latent": pa.paged_attention_latent,
+                "pallas_paged_attention": pa.pallas_paged_attention}
+    out: dict = {}
+    try:
+        for f in counters.values():
+            f.launches = 0
+        st0 = dict(engine.stats)
+        futs = engine.submit_many([GenerationRequest(
+            prompt_ids=engine.tokenizer.encode(f"MLA paged {i}: " + "the rivers of Europe. "
+                                               * (1 + i % 5)), max_tokens=32)
+            for i in range(SLOTS)])
+        res = [f.result(timeout=600) for f in futs]
+        st1 = dict(engine.stats)
+        assert all(len(r.token_ids) >= 1 for r in res)
+        out["launches"] = _check_launches("mla-pallas", engine, counters, st0, st1,
+                                          idle=("pallas_paged_attention",))
+        dt = st1["decode_time_s"] - st0["decode_time_s"]
+        out["step_ms"] = 1e3 * dt / ((st1["decode_steps"] - st0["decode_steps"])
+                                     * engine.decode_chunk_len)
+        out["decode_tok_s"] = (st1["decode_tokens"] - st0["decode_tokens"]) / dt
+        log(f"[mla-pallas] {card} | {SLOTS} requests: {out['decode_tok_s']:.1f} tok/s "
+            f"decode, {out['step_ms']:.2f} ms per decode step")
+    finally:
+        _release(engine)
+    return out
+
+
+def phase_attention_reference(params: dict, model: str = "qwen3-8b", tag: str = "reference",
+                              **plain_kw) -> None:
+    """Slot prefill + B1 decode, and fresh prefill (B2 where the family runs
+    it) + B6 decode, against the plain no-cache forward on the served
+    weights (24 tokens); on the MLA model both decodes take K3. ``plain_kw``
+    keeps the reference off the kernels (``plain_experts``)."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages
-    from deepsearch_tts_tpu_torch.models.qwen3 import QWEN3_CONFIGS, forward
+    from deepsearch_tts_tpu_torch.models.registry import get_model
 
-    cfg, dev = QWEN3_CONFIGS["qwen3-8b"], torch.device("cuda")
+    fam, dev = get_model(model), params["embed"].device
+    cfg, forward = fam.config, fam.forward
     T0, T = 16, 24
     gen = torch.Generator(device=dev).manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None]
     one = lambda n: torch.tensor([n], device=dev)   # noqa: E731
+    latent = getattr(cfg, "latent_cache", False)
     with torch.no_grad():
-        ref, _ = forward(params, cfg, toks, pos)
-        want = ref[0, T0 - 1:]
+        free, _ = forward(params, cfg, toks, pos, **plain_kw)
         for label, prefill_kw, decode_kw in (
                 ("slot prefill + B1 decode", {},
                  dict(slot_decode=True, slot_ctx=64, page_table=None)),
-                ("B2 fresh prefill + B6 decode", dict(fresh_prefill=True), {})):
+                ("fresh prefill + B6 decode", dict(fresh_prefill=True), {})):
             kp, vp = init_kv_pages(cfg.n_layers, 1, 64, cfg.n_kv_heads, cfg.head_dim,
                                    dtype=cfg.torch_dtype, device=dev)
             kw = dict(k_pages=kp, v_pages=vp, page_table=torch.tensor([[0]], device=dev),
                       impl="pallas")
-            got = [forward(params, cfg, toks[:, :T0], pos[:, :T0], seq_lens=one(T0),
-                           logits_indices=one(T0 - 1), **kw, **prefill_kw)[0][:, 0]]
-            for t in range(T0, T):
-                got.append(forward(params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
-                                   seq_lens=one(t + 1), fused_decode=True,
-                                   **{**kw, **decode_kw})[0][:, 0])
-            got = torch.cat(got)
-            assert got.shape == want.shape and torch.isfinite(got).all()
-            cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
-            agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-            log(f"[reference] {label} logits vs no-cache forward: max_abs_err "
-                f"{(got - want).abs().max().item():.4f}, min cosine "
-                f"{cos.min().item():.5f}, argmax agreement {agree:.2f}")
-            assert cos.min().item() > 0.99, cos
-            assert agree >= 0.75, agree
+            replay = _RouteReplay(cfg) if latent else None
+            with replay.record() if replay else contextlib.nullcontext():
+                got = [forward(params, cfg, toks[:, :T0], pos[:, :T0], seq_lens=one(T0),
+                               logits_indices=one(T0 - 1), **kw, **prefill_kw)[0][:, 0]]
+                for t in range(T0, T):
+                    got.append(forward(params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                                       seq_lens=one(t + 1), fused_decode=True,
+                                       **{**kw, **decode_kw})[0][:, 0])
+            ref = free
+            if replay:
+                with replay.replay():
+                    ref, _ = forward(params, cfg, toks, pos, **plain_kw)
+                log(f"[{tag}] {label}: routing replayed, the reference's own expert set "
+                    f"differs on {replay.differ} of {replay.rows} rows")
+            _hold_to_reference(tag, label, torch.cat(got), ref[0, T0 - 1:],
+                               free[0, T0 - 1:] if replay else None)
 
 
 def _post(url: str, payload: dict, timeout: float = 600.0) -> tuple[int, dict, float]:
@@ -1304,7 +1558,8 @@ def _profile_burst(chat, engine) -> None:
 def _counters(model: str) -> dict:
     """The launch counters of ``model``'s fused decode path: name → wrapper
     (B5, and B3 + B4 for qwen3-8b, B3 + B7 + the grouped expert entries for
-    qwen3-30b-a3b, B10's two entries + its int8 product for qwen3-32b)."""
+    qwen3-30b-a3b, B10's two entries + its int8 product for qwen3-32b, B8 +
+    the grouped expert entries for the MLA model)."""
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
     from deepsearch_tts_tpu_torch.ops import moe
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
@@ -1312,20 +1567,24 @@ def _counters(model: str) -> dict:
     fns = {MOE_MODEL: [fl.fused_qkv_stacked, fl.fused_out_router_stacked,
                        moe.grouped_gateup, moe.grouped_down],
            I8_MODEL: [fl.fused_qkv_stacked_i8, fl.fused_out_mlp_stacked_i8,
-                      fl.int8_product]}.get(model, [fl.fused_qkv_stacked,
-                                                    fl.fused_out_mlp_stacked])
+                      fl.int8_product],
+           MLA_MODEL: [fl.fused_mlp_stacked, moe.grouped_gateup,
+                       moe.grouped_down]}.get(model, [fl.fused_qkv_stacked,
+                                                      fl.fused_out_mlp_stacked])
     return {f.__name__: f for f in fns + [sp.sampling_prep]}
 
 
 def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
                     idle=()) -> dict:
     """Read the counters after a phase and hold them to the phase's work:
-    B3, B4/B7, B10, B1 and B9 once per layer and decode (or verify) step,
-    each grouped expert entry once per layer and forward (decode steps +
-    prefill dispatches), B5 once per sample, the int8 product at least once
-    per forward (the lm_head; and the layer products of prefills of up to
-    64 rows); the counters named in ``idle`` not at all."""
+    B3, B4/B7, B10, B8 (MLA: 3 dense MLPs + 2 shared experts), B1, B9 and
+    K3 once per layer and decode (or verify) step, each grouped expert entry
+    once per MoE layer and forward (decode steps + prefill dispatches), B5
+    once per sample, the int8 product at least once per forward (the
+    lm_head; and the layer products of prefills of up to 64 rows); the
+    counters named in ``idle`` not at all."""
     L = engine.cfg.n_layers
+    L_moe = L - getattr(engine.cfg, "first_k_dense", 0)   # MLA leads with dense layers
     steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
     prefills = st1["prefill_dispatches"] - st0["prefill_dispatches"]
     launches = {n: f.launches for n, f in counters.items()}
@@ -1339,7 +1598,7 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
             assert n >= steps + prefills > 0, (name, n, steps + prefills)
             continue
         want = (steps + prefills if name == "sampling_prep"
-                else L * (steps + prefills) if name.startswith("grouped_")
+                else L_moe * (steps + prefills) if name.startswith("grouped_")
                 else L * steps)
         assert n == want > 0, (name, n, want)
     return launches
@@ -1503,6 +1762,84 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     return out, engine
 
 
+class _RouteReplay:
+    """MLA's expert choices on the serving path, replayed in its reference.
+
+    Group-limited top-k routing is discontinuous: where two experts' (or two
+    groups') scores lie within the rounding noise of the two paths — a
+    near-tie, common on random weights — the paths pick other experts, and
+    the logits part by far more than the numerics under test. ``record()``
+    keeps the expert ids of each ``route_v3`` call of the serving forwards;
+    ``replay()`` routes the reference's rows to the same experts, with
+    weights from the reference's own scores, and counts the rows whose own
+    choice would have differed."""
+
+    def __init__(self, cfg):
+        from deepsearch_tts_tpu_torch.models import deepseek_v3
+
+        self.mod, self.route = deepseek_v3, deepseek_v3.route_v3
+        self.n_moe = cfg.n_layers - cfg.first_k_dense
+        self.calls: list = []
+        self.differ = self.rows = 0
+
+    @contextlib.contextmanager
+    def _patched(self, fn):
+        self.mod.route_v3 = fn
+        try:
+            yield
+        finally:
+            self.mod.route_v3 = self.route
+
+    def record(self):
+        def route(x, router_w, bias, cfg):
+            w, ids = self.route(x, router_w, bias, cfg)
+            self.calls.append(ids)
+            return w, ids
+
+        return self._patched(route)
+
+    def replay(self):
+        """The reference runs one ``route_v3`` call per MoE layer over all
+        positions; layer j's rows are the serving calls of layer j, in
+        order (the prefill's rows, then one row a decode step)."""
+        import torch
+
+        from deepsearch_tts_tpu_torch.models.common import matmul_f32
+
+        layers = iter(range(self.n_moe))
+
+        def route(x, router_w, bias, cfg):
+            ids = torch.cat(self.calls[next(layers)::self.n_moe])
+            _, own = self.route(x, router_w, bias, cfg)
+            self.differ += int((own.sort(-1).values != ids.sort(-1).values).any(-1).sum())
+            self.rows += ids.shape[0]
+            w = torch.gather(torch.sigmoid(matmul_f32(x, router_w)), 1, ids)
+            return w / w.sum(-1, keepdim=True).clamp(min=1e-9) * cfg.routed_scaling_factor, ids
+
+        return self._patched(route)
+
+
+def _hold_to_reference(tag: str, label: str, got, want, free=None) -> None:
+    """Serving logits ``got`` against the reference's ``want`` (one row a
+    position): min cosine > 0.99 and argmax agreement >= 0.75. ``free``:
+    the same reference without the routing replay, logged beside it."""
+    import torch
+
+    assert got.shape == want.shape and torch.isfinite(got).all(), (got.shape, want.shape)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    msg = (f"[{tag}] {label} logits vs no-cache forward: max_abs_err "
+           f"{(got - want).abs().max().item():.4f}, min cosine {cos.min().item():.5f} "
+           f"(bound > 0.99), argmax agreement {agree:.2f} (bound >= 0.75)")
+    if free is not None:
+        cf = torch.nn.functional.cosine_similarity(got, free, dim=-1)
+        msg += (f" | routed on its own (not held): min cosine {cf.min().item():.5f}, "
+                f"argmax agreement {(got.argmax(-1) == free.argmax(-1)).float().mean().item():.2f}")
+    log(msg)
+    assert cos.min().item() > 0.99, cos
+    assert agree >= 0.75, agree
+
+
 def phase_reference(engine, tag: str = "reference", t0: int = 16, **plain_kw) -> None:
     """Paged prefill of ``t0`` tokens + 8 fused decode steps (the serving
     branches) vs the plain no-cache forward, on the served weights, into
@@ -1520,8 +1857,8 @@ def phase_reference(engine, tag: str = "reference", t0: int = 16, **plain_kw) ->
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None]
+    replay = _RouteReplay(cfg) if getattr(cfg, "latent_cache", False) else None
     with torch.no_grad():
-        ref, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
         kp, vp = init_kv_pages(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim,
                                dtype=engine.k_pages.dtype, device=dev)
         table = torch.tensor([[1]], device=dev)
@@ -1529,31 +1866,32 @@ def phase_reference(engine, tag: str = "reference", t0: int = 16, **plain_kw) ->
         if engine.k_scales is not None:
             kw["k_scales"], kw["v_scales"] = init_kv_scales(cfg.n_layers, 2, 64,
                                                             cfg.n_kv_heads, device=dev)
-        got = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
-                              seq_lens=torch.tensor([T0], device=dev),
-                              logits_indices=torch.tensor([T0 - 1], device=dev),
-                              **kw)[0][:, 0]]
-        for t in range(T0, T):
-            got.append(engine.forward(
-                engine.params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
-                seq_lens=torch.tensor([t + 1], device=dev), fused_decode=True,
-                **kw)[0][:, 0])
+        with replay.record() if replay else contextlib.nullcontext():
+            got = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
+                                  seq_lens=torch.tensor([T0], device=dev),
+                                  logits_indices=torch.tensor([T0 - 1], device=dev),
+                                  **kw)[0][:, 0]]
+            for t in range(T0, T):
+                got.append(engine.forward(
+                    engine.params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                    seq_lens=torch.tensor([t + 1], device=dev), fused_decode=True,
+                    **kw)[0][:, 0])
+        free, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
+        ref = free
+        if replay:
+            with replay.replay():
+                ref, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
+            log(f"[{tag}] routing: the reference's own expert set differs from the "
+                f"serving path's on {replay.differ} of {replay.rows} (position, MoE layer) "
+                f"rows; it routes all rows as the serving path did")
     got = torch.cat(got)                        # positions T0-1 .. T-1
-    want = ref[0, T0 - 1:]
-    assert got.shape == want.shape == (T - T0 + 1, cfg.vocab_size), got.shape
-    assert torch.isfinite(got).all()
-    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    err = (got - want).abs().max().item()
-    log(f"[{tag}] serving-path logits vs no-cache forward: max_abs_err "
-        f"{err:.4f}, min cosine {cos.min().item():.5f} (bound > 0.99), argmax "
-        f"agreement {agree:.2f} (bound >= 0.75)")
-    # bf16 through 36-64 layers: the two paths round q/k/v at different
+    assert got.shape == (T - T0 + 1, cfg.vocab_size), got.shape
+    # bf16 through 5-64 layers: the two paths round q/k/v at different
     # points (the fused kernels keep q/k in float32 until after norm and
     # rope); under int8 KV the serving path also attends over int8 keys and
     # values (one scale per token and head) where the reference keeps bf16
-    assert cos.min().item() > 0.99, cos
-    assert agree >= 0.75, agree
+    _hold_to_reference(tag, "serving-path", got, ref[0, T0 - 1:],
+                       free[0, T0 - 1:] if replay else None)
 
 
 def main(argv=None) -> int:
@@ -1582,8 +1920,12 @@ def main(argv=None) -> int:
     g8 = moe_res.pop("g8")
     res.update(moe_res)
     res.update(phase_int8_kernels(gen))
+    mla_res, mla_kernels = phase_mla_kernels(gen)
+    res.update(mla_res)
+    _free()
     if opts.kernels_only:
-        print(json.dumps({"kernels": res, "g8": g8, "card": card}))
+        print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
+                          "card": card}))
         return 0
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
@@ -1624,6 +1966,35 @@ def main(argv=None) -> int:
     phase_reference(engine, tag="int8-reference", t0=48, plain_int8=True)
     _release(engine)
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[release] qwen3-32b int8 engine and weights released: {held:.3f} GiB still "
+        f"allocated")
+    assert held < 1.0, held
+
+    # MLA: deepseek-v3's published widths, 5 of its 61 layers, registered
+    # here under a name of its own (the package's registry gains none)
+    from deepsearch_tts_tpu_torch.engine.weights import convert_deepseek_v3
+    from deepsearch_tts_tpu_torch.models import deepseek_v3, registry
+
+    mla_cfg = dataclasses.replace(deepseek_v3.DEEPSEEK_V3_CONFIGS["deepseek-v3"],
+                                  n_layers=MLA_LAYERS)
+    registry.register(MLA_MODEL, mla_cfg, deepseek_v3.forward, convert_deepseek_v3)
+    mla_serve, engine = phase_serve(card, model=MLA_MODEL, profile=opts.profile, tag="mla")
+    phase_reference(engine, tag="mla-reference", plain_experts=True)
+    params = _release(engine)
+    del engine
+    mla_slot = phase_slot_serve(card, params, model=MLA_MODEL, tag="mla-slot")
+    mla_pallas = phase_mla_pallas(card, params)
+    phase_attention_reference(params, MLA_MODEL, tag="mla-attention-reference",
+                              plain_experts=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[release] MLA engines and weights released: {held:.3f} GiB still allocated")
+    assert held < 1.0, held
 
     src = "deepsearch_tts_tpu_torch/ops/"
     jsrc = "deepsearch_tts_tpu/ops/"
@@ -1653,6 +2024,11 @@ def main(argv=None) -> int:
         "int8_product": ("cuda", fused, jsrc + "quant.py:68 int8_matmul (XLA dot_general)",
                          i8_serve),
         "quantize_int8": ("triton", src + "quant.py", jsrc + "quant.py:24", i8_serve),
+        "fused_mlp_stacked": ("cuda", fused, jsrc + "fused_layer.py:468", mla_serve),
+        "slot_attention_latent": ("cuda", attn, jsrc + "slot_attention.py:116 "
+                                  "_slot_attn_kernel_shared (D = 576)", mla_slot),
+        "paged_attention_latent": ("cuda", attn, jsrc + "paged_attention.py:49 _paged_kernel "
+                                   "(v = k, D = 576)", mla_pallas),
     }
     i8_serve["launches"]["quantize_int8"] = i8_serve["quantize_launches"]
     kernels = [{"name": n, "route": r, "source": s, "replaces": rep,
@@ -1663,11 +2039,12 @@ def main(argv=None) -> int:
                for n, (r, s, rep, run) in meta.items()]
     runs = {"serve": serve, "slot_serve": slot, "spec_serve": spec, "pallas_serve": pallas,
             "moe_serve": moe_serve, "moe_slot": moe_slot, "moe_spec": moe_spec,
-            "int8_serve": i8_serve}
+            "int8_serve": i8_serve, "mla_serve": mla_serve, "mla_slot": mla_slot,
+            "mla_pallas": mla_pallas}
     log(card)   # the card's name and power limit again, beside the result lines
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
-                      "g8": g8, "card": card}))
+                      "g8": g8, "mla_kernels": mla_kernels, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.registry import get_model
-from .kvcache import PageAllocator, init_kv_pages, init_kv_scales
+from .kvcache import PageAllocator, init_kv_pages, init_kv_scales, init_latent_pages
 from .profiling import SpanTimer
 from .sampling import SamplingParams, sample, update_seen
 from .speculative import accept_drafts, ngram_draft
@@ -297,13 +297,10 @@ class Engine:
         if layer_fusion is None:
             # as in JAX (engine.py:278-325): on for single-device bf16
             # serving of a family with a fused decode layer (dense, ragged
-            # MoE; int8 weights, dense only, take B10) — the plain versions
-            # on the CPU, the CUDA kernels where their shapes fit
-            from ..ops.fused_layer import shapes_ok
-
-            widths = cfg.fused_decode_widths()
-            layer_fusion = (cfg.dtype == "bfloat16" and widths is not None and (
-                self.device.type == "cpu" or shapes_ok(*widths, cfg.head_dim)))
+            # MoE: the plain versions on the CPU, the CUDA kernels where
+            # their shapes fit; int8 weights, dense only, take B10; MLA:
+            # where B8 takes its MLP widths, on any device, as JAX gates it)
+            layer_fusion = cfg.dtype == "bfloat16" and cfg.fused_decode_fits(self.device)
         self.layer_fusion = bool(layer_fusion)
 
         from .weights import pack_matmul_params, random_params
@@ -319,9 +316,16 @@ class Engine:
             from ..ops.quant import QUANT_KEYS, quantize_params
 
             self.params = quantize_params(self.params, keys=QUANT_KEYS)
-        self.k_pages, self.v_pages = init_kv_pages(
-            cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
-            dtype=torch.int8 if kv_quantize else cfg.torch_dtype, device=self.device)
+        self.latent_cache = bool(getattr(cfg, "latent_cache", False))
+        if self.latent_cache:
+            # MLA: one latent row per token in k_pages, a one-page dummy v pool
+            self.k_pages, self.v_pages = init_latent_pages(
+                cfg.n_layers, n_pages, page_size, cfg.head_dim, dtype=cfg.torch_dtype,
+                device=self.device)
+        else:
+            self.k_pages, self.v_pages = init_kv_pages(
+                cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
+                dtype=torch.int8 if kv_quantize else cfg.torch_dtype, device=self.device)
         self.k_scales = self.v_scales = None
         if kv_quantize:
             self.k_scales, self.v_scales = init_kv_scales(

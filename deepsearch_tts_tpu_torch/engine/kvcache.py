@@ -35,13 +35,26 @@ def init_kv_pages(n_layers: int, n_pages: int, page_size: int, n_kv_heads: int,
     """Zeroed ``[L, N, ps, K, D]`` key and value pools, each a view of a
     storage with one spare ``[K, D]`` row at the end (the padding sink)."""
     shape = (n_layers, n_pages, page_size, n_kv_heads, head_dim)
-    rows = n_layers * n_pages * page_size + 1
+    return _pool(shape, dtype, device), _pool(shape, dtype, device)
 
-    def pool():
-        flat = torch.zeros((rows, n_kv_heads, head_dim), dtype=dtype, device=device)
-        return flat[:-1].view(shape)
 
-    return pool(), pool()
+def _pool(shape: tuple, dtype, device) -> torch.Tensor:
+    """A zeroed ``[L, N, ps, K, D]`` pool viewing a storage with one spare
+    ``[K, D]`` row at the end."""
+    rows = shape[0] * shape[1] * shape[2] + 1
+    flat = torch.zeros((rows,) + tuple(shape[3:]), dtype=dtype, device=device)
+    return flat[:-1].view(shape)
+
+
+def init_latent_pages(n_layers: int, n_pages: int, page_size: int, row_dim: int,
+                      dtype=torch.bfloat16, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """MLA's pools (``latent_cache``): the latent rows ``[L, N, ps, 1, D]``
+    (with the spare row), and a one-page ``[L, 1, ps, 1, D]`` dummy v pool
+    that keeps the engine's (k, v) plumbing uniform — the MLA forward
+    writes and reads k_pages only (JAX ``engine.py:440-445``)."""
+    k = _pool((n_layers, n_pages, page_size, 1, row_dim), dtype, device)
+    v = torch.zeros((n_layers, 1, page_size, 1, row_dim), dtype=dtype, device=device)
+    return k, v
 
 
 def init_kv_scales(n_layers: int, n_pages: int, page_size: int, n_kv_heads: int,
@@ -84,10 +97,26 @@ def write_kv_slots(k_flat: torch.Tensor, v_flat: torch.Tensor,
                    slots: torch.Tensor) -> None:
     """Write [B, T, K, D] rows into the flattened pool at ``slots`` [B, T]
     (the spare row included), in place."""
-    K, D = k_flat.shape[-2:]
-    idx = slots.reshape(-1)
-    _rows_with_spare(k_flat).index_put_((idx,), k_new.reshape(-1, K, D).to(k_flat.dtype))
-    _rows_with_spare(v_flat).index_put_((idx,), v_new.reshape(-1, K, D).to(v_flat.dtype))
+    write_rows_slots(k_flat, k_new, slots)
+    write_rows_slots(v_flat, v_new, slots)
+
+
+def write_rows_slots(flat: torch.Tensor, rows: torch.Tensor, slots: torch.Tensor) -> None:
+    """Write [B, T, K, D] rows into ONE flattened pool at ``slots`` [B, T],
+    in place: MLA's latent pool, where k and v are the same row."""
+    K, D = flat.shape[-2:]
+    _rows_with_spare(flat).index_put_((slots.reshape(-1),),
+                                      rows.reshape(-1, K, D).to(flat.dtype))
+
+
+def write_rows_flat(flat: torch.Tensor, rows: torch.Tensor, positions: torch.Tensor,
+                    table_l: torch.Tensor) -> torch.Tensor:
+    """Single-pool :func:`write_kv_flat` (JAX ``kvcache.py:107``): the MLA
+    families' one latent row per token, padding to the spare row. Returns
+    the same (mutated) pool."""
+    LN, ps = flat.shape[:2]
+    write_rows_slots(flat, rows, kv_slots(positions, table_l, ps, LN * ps))
+    return flat
 
 
 def quantize_kv_rows(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,5 +1,7 @@
 """Weights: HF safetensors → the stacked-layer param tree (port of
-``engine/weights.py``, dense Qwen3 and Qwen3-MoE families).
+``engine/weights.py``: dense Qwen3, Qwen3-MoE, and DeepSeek-V3 / Kimi-K2,
+whose MLA tree has two stacks, ``dense_layers`` and ``moe_layers``, and is
+served unpacked).
 
 The tree has the JAX package's layout (right-multiply weights, per-layer
 tensors stacked on a leading layer axis; MoE expert stacks [L,NE,...]) so
@@ -215,11 +217,105 @@ def convert_qwen3_moe(raw: Mapping[str, np.ndarray], cfg, device="cpu",
     return params
 
 
+def _deinterleave_rope_cols(w: np.ndarray, r: int) -> np.ndarray:
+    """Permute the last ``r`` columns from interleaved (x0,y0,x1,y1,...) to
+    half-split (x0,x1,...,y0,y1,...) rope layout (JAX ``weights.py:261``).
+
+    Published DeepSeek-V3 / Kimi-K2 checkpoints store the rope columns of
+    q_b_proj and kv_a_proj_with_mqa interleaved; HF's modeling code
+    un-interleaves the activations at run time before rotate_half. This
+    package's ``apply_rope`` is half-split, so the permutation is folded
+    into the weights once, at conversion."""
+    perm = np.concatenate([np.arange(0, r, 2), np.arange(1, r, 2)])
+    out = np.array(w)
+    out[..., -r:] = out[..., -r:][..., perm]
+    return out
+
+
+def convert_deepseek_v3(raw: Mapping[str, np.ndarray], cfg, device="cpu",
+                        dtype: torch.dtype | None = None,
+                        quantize: str | None = None) -> dict:
+    """HF DeepSeek-V3 / Kimi-K2 checkpoint → the two-stack MLA tree
+    (models/deepseek_v3.py layout, JAX ``weights.py:278``): kv_b_proj split
+    into the absorbed key (``w_kb``) and the value (``w_vb``)
+    up-projections, the rope columns of ``w_qb`` / ``w_kva``
+    de-interleaved, the layers split into ``dense_layers`` (the first
+    ``first_k_dense``) and ``moe_layers``. Every stack is filled one layer
+    (or expert) matrix at a time."""
+    if quantize is not None:
+        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+    dt = dtype or cfg.torch_dtype
+    E, H, LD = cfg.hidden, cfg.n_heads, cfg.first_k_dense
+    QL, KL = cfg.q_lora_rank, cfg.kv_lora_rank
+    QN, QR, VD = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    NE, Fi, FS, FD = (cfg.n_routed_experts, cfg.moe_intermediate,
+                      cfg.moe_intermediate * cfg.n_shared_experts, cfg.dense_intermediate)
+
+    def g(i, name):
+        return raw[f"model.layers.{i}.{name}"]
+
+    def stack(layers, shape, fn, sdt=dt):
+        out = torch.empty((len(layers),) + shape, dtype=sdt, device=device)
+        for j, i in enumerate(layers):
+            out[j] = _to_torch(fn(i), sdt, device)
+        return out
+
+    def kv_b(i):
+        return g(i, "self_attn.kv_b_proj.weight").T.reshape(KL, H, QN + VD)
+
+    def q_b(i):
+        qb = g(i, "self_attn.q_b_proj.weight").T.reshape(QL, H, QN + QR)
+        return _deinterleave_rope_cols(qb, QR).reshape(QL, -1)
+
+    def attn(layers):
+        return {
+            "ln1": stack(layers, (E,), lambda i: g(i, "input_layernorm.weight")),
+            "ln2": stack(layers, (E,), lambda i: g(i, "post_attention_layernorm.weight")),
+            "w_qa": stack(layers, (E, QL), lambda i: g(i, "self_attn.q_a_proj.weight").T),
+            "q_a_norm": stack(layers, (QL,), lambda i: g(i, "self_attn.q_a_layernorm.weight")),
+            "w_qb": stack(layers, (QL, H * (QN + QR)), q_b),
+            "w_kva": stack(layers, (E, KL + QR), lambda i: _deinterleave_rope_cols(
+                g(i, "self_attn.kv_a_proj_with_mqa.weight").T, QR)),
+            "kv_a_norm": stack(layers, (KL,),
+                               lambda i: g(i, "self_attn.kv_a_layernorm.weight")),
+            "w_kb": stack(layers, (KL, H * QN), lambda i: kv_b(i)[:, :, :QN].reshape(KL, -1)),
+            "w_vb": stack(layers, (KL, H * VD), lambda i: kv_b(i)[:, :, QN:].reshape(KL, -1)),
+            "wo": stack(layers, (H * VD, E), lambda i: g(i, "self_attn.o_proj.weight").T),
+        }
+
+    def mlp(layers, prefix, keys, Fw):
+        return {key: stack(layers, (Fw, E) if proj == "down_proj" else (E, Fw),
+                           lambda i, p=proj: g(i, f"mlp.{prefix}{p}.weight").T)
+                for key, proj in zip(keys, ("gate_proj", "up_proj", "down_proj"))}
+
+    dense_ids, moe_ids = range(LD), range(LD, cfg.n_layers)
+    dense = {**attn(dense_ids), **mlp(dense_ids, "", ("d_gate", "d_up", "d_down"), FD)}
+    moe = {**attn(moe_ids),
+           "router": stack(moe_ids, (E, NE), lambda i: g(i, "mlp.gate.weight").T),
+           "router_bias": stack(moe_ids, (NE,),
+                                lambda i: g(i, "mlp.gate.e_score_correction_bias"),
+                                sdt=torch.float32),
+           **mlp(moe_ids, "shared_experts.", ("s_gate", "s_up", "s_down"), FS)}
+    for key, proj in (("w_gate", "gate_proj"), ("w_up", "up_proj"), ("w_down", "down_proj")):
+        shape = (Fi, E) if proj == "down_proj" else (E, Fi)
+        out = torch.empty((len(moe_ids), NE) + shape, dtype=dt, device=device)
+        for j, i in enumerate(moe_ids):
+            for e in range(NE):
+                out[j, e] = _to_torch(g(i, f"mlp.experts.{e}.{proj}.weight").T, dt, device)
+        moe[key] = out
+    params = {"embed": _to_torch(raw["model.embed_tokens.weight"], dt, device),
+              "final_norm": _to_torch(raw["model.norm.weight"], dt, device),
+              "dense_layers": dense, "moe_layers": moe}
+    if "lm_head.weight" in raw and not cfg.tie_embeddings:
+        params["lm_head"] = _to_torch(raw["lm_head.weight"].T, dt, device)
+    return params
+
+
 # int8 routed experts run JAX's blocked grouped matmul (ops/moe.py
 # _expert_ffn_blocked), which the port does not carry yet
-INT8_EXPERTS_NOT_PORTED = ("int8 weights of the Qwen3-MoE family (the int8 expert FFN, "
-                           "ops/moe.py _expert_ffn_blocked) are not ported to the torch "
-                           "package yet (ROADMAP.md A8)")
+INT8_EXPERTS_NOT_PORTED = ("int8 weights of the MoE families, Qwen3-MoE and DeepSeek-V3 / "
+                           "Kimi-K2 (the int8 expert FFN, ops/moe.py _expert_ffn_blocked), "
+                           "are not ported to the torch package yet (ROADMAP.md A8)")
 
 
 def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None) -> dict:
@@ -240,7 +336,7 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dt = cfg.torch_dtype
-    E, H, K, D, L = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    E = cfg.hidden
 
     def mk(*shape, fan_in=None, key=None):
         fan = fan_in if fan_in is not None else shape[-2]
@@ -253,6 +349,19 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
+    if getattr(cfg, "latent_cache", False):
+        params = _random_mla(cfg, mk, ones, dev)
+    else:
+        params = {"layers": _random_layers(cfg, mk, ones),
+                  "embed": mk(cfg.vocab_size, E, fan_in=E), "final_norm": ones(E)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = mk(E, cfg.vocab_size, key="lm_head")
+    return params
+
+
+def _random_layers(cfg, mk, ones) -> dict:
+    """The dense and the Qwen3-MoE families' ``layers`` stacks."""
+    E, H, K, D, L = cfg.hidden, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     layers = {
         "ln1": ones(L, E), "ln2": ones(L, E),
         "q_norm": ones(L, D), "k_norm": ones(L, D),
@@ -261,11 +370,35 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
     }
     # the family's MLP stacks; every one has its fan_in second to last
     layers.update({k: mk(L, *shape, key=k) for k, shape in cfg.mlp_shapes().items()})
-    params = {"embed": mk(cfg.vocab_size, E, fan_in=E), "final_norm": ones(E),
-              "layers": layers}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = mk(E, cfg.vocab_size, key="lm_head")
-    return params
+    return layers
+
+
+def _random_mla(cfg, mk, ones, dev) -> dict:
+    """The MLA family's two-stack tree (``models/deepseek_v3.py``): every
+    matrix drawn on its own (one [E,F] expert matrix at a time: a
+    deepseek-v3 expert stack is 11.3 B values, 45 GB in float32), the
+    router bias zero."""
+    E, H, L, LD = cfg.hidden, cfg.n_heads, cfg.n_layers, cfg.first_k_dense
+    QL, KL = cfg.q_lora_rank, cfg.kv_lora_rank
+    QN, QR, VD = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    NE, Fi, FS, FD = (cfg.n_routed_experts, cfg.moe_intermediate,
+                      cfg.moe_intermediate * cfg.n_shared_experts, cfg.dense_intermediate)
+
+    def attn(n):
+        return {"ln1": ones(n, E), "ln2": ones(n, E), "w_qa": mk(n, E, QL),
+                "q_a_norm": ones(n, QL), "w_qb": mk(n, QL, H * (QN + QR)),
+                "w_kva": mk(n, E, KL + QR), "kv_a_norm": ones(n, KL),
+                "w_kb": mk(n, KL, H * QN), "w_vb": mk(n, KL, H * VD), "wo": mk(n, H * VD, E)}
+
+    LM = L - LD
+    dense = {**attn(LD), "d_gate": mk(LD, E, FD), "d_up": mk(LD, E, FD),
+             "d_down": mk(LD, FD, E)}
+    moe = {**attn(LM), "router": mk(LM, E, NE),
+           "router_bias": torch.zeros((LM, NE), dtype=torch.float32, device=dev),
+           "w_gate": mk(LM, NE, E, Fi), "w_up": mk(LM, NE, E, Fi), "w_down": mk(LM, NE, Fi, E),
+           "s_gate": mk(LM, E, FS), "s_up": mk(LM, E, FS), "s_down": mk(LM, FS, E)}
+    return {"embed": mk(cfg.vocab_size, E, fan_in=E), "final_norm": ones(E),
+            "dense_layers": dense, "moe_layers": moe}
 
 
 def _cat_columns(parts: list):
@@ -283,7 +416,10 @@ def pack_matmul_params(params: dict) -> dict:
     expert [L,NE,E,F] stacks, bf16 or int8 ``{q, scales}``, alike. The fused
     decode kernels read this packed layout. Tensors of an already-packed
     tree are handed back as they are, so engines built on one tree share
-    one copy of the weights."""
+    one copy of the weights. The MLA families' two-stack tree (no
+    ``layers``) is handed back unchanged, as in JAX (``weights.py:374``)."""
+    if "layers" not in params:
+        return params
     lp = dict(params["layers"])
     if all(k in lp for k in ("wq", "wk", "wv")):
         lp["wqkv"] = _cat_columns([lp.pop("wq"), lp.pop("wk"), lp.pop("wv")])

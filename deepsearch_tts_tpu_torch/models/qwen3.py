@@ -44,6 +44,7 @@ from ..ops.fused_layer import (
     fused_out_mlp_stacked_i8,
     fused_qkv_stacked,
     fused_qkv_stacked_i8,
+    shapes_ok,
 )
 from ..ops.quant import int8_matmul, is_quantized, maybe_int8_dot
 from ..ops.slot_attention import slot_attention, slot_window_attention
@@ -81,6 +82,11 @@ class Qwen3Config:
         """(E, H·D, N) of the fused T=1 decode layer's products, N being
         B4's MLP width F; None where the family runs no fused decode."""
         return self.hidden, self.n_heads * self.head_dim, self.intermediate
+
+    def fused_decode_fits(self, device: torch.device) -> bool:
+        """Whether the fused decode layer can run on ``device``: its plain
+        versions on the CPU, the CUDA kernels where they take the widths."""
+        return device.type == "cpu" or shapes_ok(*self.fused_decode_widths(), self.head_dim)
 
 
 # Published size points of the family (head_dim is 128 across the board).

@@ -30,7 +30,7 @@ from typing import ClassVar
 import torch
 
 from ..ops import attention as attn_ops
-from ..ops.fused_layer import fused_out_router_stacked
+from ..ops.fused_layer import fused_out_router_stacked, shapes_ok
 from ..ops.moe import moe_capacity, moe_ragged
 from .common import dot_bf16, rms_norm, rope_angles
 from .qwen3 import ServingAttention, _fused_decode_on, _lm_head, _qkv_roped
@@ -76,6 +76,14 @@ class Qwen3MoeConfig:
         if self.moe_impl != "ragged":
             return None
         return self.hidden, self.n_heads * self.head_dim, self.n_experts
+
+    def fused_decode_fits(self, device: torch.device) -> bool:
+        """Whether the fused decode layer can run on ``device`` (the ragged
+        dispatch only): its plain versions on the CPU, the CUDA kernels
+        where they take the widths."""
+        widths = self.fused_decode_widths()
+        return widths is not None and (device.type == "cpu"
+                                       or shapes_ok(*widths, self.head_dim))
 
 
 QWEN3_MOE_CONFIGS = {

@@ -97,6 +97,7 @@ def paged_attention(
     impl: str = "xla",
     k_scales: torch.Tensor | None = None,   # [N, ps, K] int8-KV scales
     v_scales: torch.Tensor | None = None,
+    v_width: int | None = None,
 ) -> torch.Tensor:
     """Attend queries over their sequence's paged KV (causal by position).
 
@@ -107,7 +108,9 @@ def paged_attention(
     their scales — and runs :func:`masked_context_attention`, the XLA
     reference branch of the JAX function; T>1 always takes it, as in JAX.
     ``mask`` is :func:`context_mask` of the same arguments, when the caller
-    already has it (it is the same for every layer)."""
+    already has it (it is the same for every layer). ``v_width``: only the
+    first ``v_width`` columns of v and of the output (MLA's latent pool,
+    passed as both k and v: the gather then reads them alone)."""
     if k_scales is not None and impl != "xla":
         # JAX's Pallas branch ignores the scales and reads int32-packed
         # pages (attention.py:88-109): no kernel reads int8 KV
@@ -115,19 +118,19 @@ def paged_attention(
     if impl in ("pallas", "pallas2", "clamp") and q.shape[1] == 1:
         from . import paged_attention as pa
 
+        kw = dict(scale=scale, v_width=v_width)
         if impl == "clamp":
             return pa.pallas_paged_decode_clamp(q, k_pages, v_pages, page_table,
-                                                seq_lens, scale=scale)
+                                                seq_lens, **kw)
         if impl == "pallas2":
-            return pa.pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens,
-                                          scale=scale)
+            return pa.pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens, **kw)
         return pa.pallas_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
-                                         q_positions, scale=scale)
+                                         q_positions, **kw)
     B, T, H, D = q.shape
     _, ps, K, _ = k_pages.shape
     S = page_table.shape[1] * ps
     k_ctx = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D)
-    v_ctx = gather_kv_rows(v_pages, page_table).reshape(B, S, K, D)
+    v_ctx = gather_kv_rows(v_pages[..., :v_width], page_table).reshape(B, S, K, -1)
     if k_scales is not None:
         ks = gather_kv_rows(k_scales, page_table).reshape(B, S, K, 1)
         vs = gather_kv_rows(v_scales, page_table).reshape(B, S, K, 1)

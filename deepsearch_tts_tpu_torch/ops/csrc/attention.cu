@@ -14,6 +14,12 @@
 //     the slot cache and the paged cache.
 // K2  flash_attention: causal GQA prefill
 //       B2 flash_attention            (ops/flash_attention.py:73, :27)
+// K3  latent_attention: T=1 MQA decode over MLA's latent rows (v is k), at
+//     the DeepSeek-V3 / Kimi-K2 width D = 576 (kv_lora_rank 512 + rope 64):
+//       B1 slot_attention, v_pool=None (_slot_attn_kernel_shared, :116)
+//       B6's three entries above when the pool is both k and v
+//     (models/deepseek_v3.py:381-389, :409-413). Only the first 512 columns
+//     of the value product are computed: MLA keeps [..., :kv_lora_rank].
 //
 // What bounds them on this card, and what the design does about it:
 //
@@ -37,6 +43,21 @@
 //   causal skip). QK^T and PV run on mma.sync m16n8k16 bf16 -> float32
 //   from ldmatrix fragments, the online softmax lives in registers, K/V tiles
 //   are double-buffered with cp.async. Blocks start from the longest tiles.
+// * K3 sits near the card's ridge: per key it reads 1152 B once and does
+//   2*H*(576 + 512) FLOP (H = 128: 242 FLOP a byte). One block per (row,
+//   16 query heads): a 64-row stage of the row's context (72 KB,
+//   double-buffered with cp.async) feeds both contractions, QK over 576
+//   columns and PV over 512, on mma.sync m16n8k16 bf16 -> float32 (an f32
+//   accumulator of 128 heads x 512 columns would be 256 KB, past a
+//   register file). Warp w holds the 16 heads' scores of keys 16w..16w+15
+//   and their PV accumulator of value columns 128w..128w+127; scores and p
+//   meet in shared memory for the online softmax. The H/16 head tiles of a
+//   row re-read its context, mostly from L2 (8x at H = 128, 4x at H = 64).
+//
+// Numerics of K3: float32 scores scaled after the product, float32 softmax
+// sum. With p_bf16 (B1) PV takes p rounded to bf16; without it (B6, float32
+// p) PV runs twice, on bf16(p) and on the bf16 remainder p - bf16(p), which
+// carries p to ~16 significant bits in the float32 accumulator.
 //
 // Numerics. Scores are float32 and the scale D^-1/2 is applied to them: the
 // TPU kernels scale q in float32 first (K1 does the same; K2 scales the
@@ -71,6 +92,14 @@ constexpr int DSTAGES = 3;     // cp.async ring depth
 // K2
 constexpr int FBQ = 64;        // query rows per block (4 warps x 16)
 constexpr int FBK = 64;        // keys per tile
+
+// K3
+constexpr int LDK = 576;       // latent row: kv_lora_rank 512 + rope 64
+constexpr int LDV = 512;       // value columns (the latent part of the row)
+constexpr int LROW = LDK + 8;  // padded shared-memory row (1168 B: conflict-free)
+constexpr int LBH = 16;        // query heads per block: one m16 tile
+constexpr int LBK = 64;        // keys per tile: 4 warps x 16
+constexpr int PROW = LBK + 8;  // padded p row (144 B)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -525,6 +554,197 @@ flash_attention(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------------- K3
+
+constexpr int latent_smem_bytes() {
+  return (LBH + 2 * LBK) * LROW * (int)sizeof(bf16)    // q tile + 2 stages of rows
+         + 2 * LBH * PROW * (int)sizeof(bf16)           // p (hi, lo)
+         + LBH * LBK * (int)sizeof(float)               // scores
+         + 3 * LBH * (int)sizeof(float);                // m, l, alpha
+}
+
+// grid (B, H / LBH), NTH threads (4 warps). Block (b, hb) holds query heads
+// hb*16 .. hb*16 + 15 of row b (one m16 tile), which all see keys j < limit:
+//   limit = min(seq_len[b] (>= 1 if min_one), qpos[b*qpos_stride] + 1 (qpos
+//           not null), max_keys).
+// Key j lies at slot j % ps of page table[b*P + j/ps] (table == nullptr:
+// row_offset + b) of the [R, ps, 1, LDK] pool; its first LDV columns are its
+// value. One stage of LBK rows in shared memory feeds both products: QK over
+// all LDK columns (warp w: keys 16w .. 16w + 15), PV over the first LDV
+// (warp w: value columns 128w .. 128w + 127).
+__global__ void __launch_bounds__(NTH)
+latent_attention(const bf16* __restrict__ q, const bf16* __restrict__ pool,
+                 const long long* __restrict__ table, int P, long long row_offset,
+                 const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
+                 int qpos_stride, int min_one, int max_keys, bf16* __restrict__ out, int H,
+                 int ps, float scale, int p_bf16) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);                 // [LBH][LROW]
+  bf16* ks = qs + LBH * LROW;                               // [2][LBK][LROW]
+  bf16* pt = ks + 2 * LBK * LROW;                           // [2][LBH][PROW]: p hi, lo
+  float* ss = reinterpret_cast<float*>(pt + 2 * LBH * PROW);  // [LBH][LBK]
+  float* ms = ss + LBH * LBK;
+  float* ls = ms + LBH;
+  float* as = ls + LBH;
+
+  const int b = blockIdx.x, h0 = blockIdx.y * LBH;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  long long lim = seq_len[b];
+  if (min_one) lim = lim > 1 ? lim : 1;
+  if (qpos) {
+    const long long v = qpos[(long long)b * qpos_stride] + 1;
+    lim = lim < v ? lim : v;
+  }
+  lim = lim < max_keys ? lim : max_keys;
+  const int nkeys = lim > 0 ? (int)lim : 0;
+  const int ntiles = (nkeys + LBK - 1) / LBK;
+
+  for (int i = tid; i < LBH * (LDK / 8); i += NTH) {
+    const int r = i / (LDK / 8), c = (i % (LDK / 8)) * 8;
+    cp_async16(qs + r * LROW + c, q + ((long long)b * H + h0 + r) * LDK + c, 16);
+  }
+  // warp w copies rows w, w + 4, ...: one page lookup a row, 16 bytes a lane
+  auto load_tile = [&](int stage, int kt) {
+    bf16* dst = ks + stage * LBK * LROW;
+    for (int r = warp; r < LBK; r += NTH / 32) {
+      const int j = kt * LBK + r;
+      const bool ok = j < nkeys;                 // rows past the limit load as zeros
+      const bf16* src = pool;
+      if (ok) {
+        const long long page = table ? table[(long long)b * P + j / ps] : row_offset + b;
+        src = pool + (page * ps + j % ps) * LDK;
+      }
+      for (int c = lane * 8; c < LDK; c += 32 * 8)
+        cp_async16(dst + r * LROW + c, ok ? src + c : src, ok ? 16 : 0);
+    }
+  };
+  if (ntiles > 0) load_tile(0, 0);
+  cp_async_commit();   // the q tile and tile 0
+  if (tid < LBH) {
+    ms[tid] = -INFINITY;
+    ls[tid] = 0.f;
+    as[tid] = 1.f;
+  }
+
+  constexpr int NB = LDV / 4 / 8;   // this warp's n-blocks of 8 value columns
+  float o[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
+  const int mi = lane >> 3, rr = lane & 7;       // ldmatrix lane roles
+  const int g = lane >> 2, c2 = (lane & 3) * 2;  // accumulator lane roles
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    if (kt + 1 < ntiles) load_tile((kt + 1) & 1, kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // tile kt (and q) landed; tile kt-1's stage is refilled only now
+    const bf16* kst = ks + (kt & 1) * LBK * LROW;
+
+    // (1) scores of the 16 heads against this warp's 16 keys, 36 k-steps;
+    // even and odd k-steps accumulate apart (four independent mma chains)
+    float s[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < LDK / 16; ++kk) {
+      uint32_t a[4], r4[4];
+      ldmatrix_x4(a, qs + (rr + 8 * (mi & 1)) * LROW + kk * 16 + 8 * (mi >> 1));
+      ldmatrix_x4(r4, kst + (warp * 16 + 8 * (mi >> 1) + rr) * LROW + kk * 16 + 8 * (mi & 1));
+      const uint32_t b0[2] = {r4[0], r4[1]}, b1[2] = {r4[2], r4[3]};
+      mma_bf16(s[2 * (kk & 1)], a, b0);
+      mma_bf16(s[2 * (kk & 1) + 1], a, b1);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kl = warp * 16 + n * 8 + c2 + (i & 1);
+        ss[(g + 8 * (i >> 1)) * LBK + kl] =
+            kt * LBK + kl < nkeys ? (s[n][i] + s[2 + n][i]) * scale : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // (2) online softmax, one warp per row, two keys a lane; p is stored as
+    // bf16 (hi) and, for float32 p, its bf16 remainder (lo)
+    for (int r = warp; r < LBH; r += NTH / 32) {
+      const float s0 = ss[r * LBK + lane], s1 = ss[r * LBK + lane + 32];
+      const float m_old = ms[r];
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
+      float p0 = 0.f, p1 = 0.f, alpha = 1.f;
+      if (m_new != -INFINITY) {
+        p0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
+        p1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
+        alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
+      }
+      const float psum = warp_sum(p0 + p1);
+      const bf16 hi0 = __float2bfloat16(p0), hi1 = __float2bfloat16(p1);
+      pt[r * PROW + lane] = hi0;
+      pt[r * PROW + lane + 32] = hi1;
+      if (!p_bf16) {
+        pt[(LBH + r) * PROW + lane] = __float2bfloat16(p0 - __bfloat162float(hi0));
+        pt[(LBH + r) * PROW + lane + 32] = __float2bfloat16(p1 - __bfloat162float(hi1));
+      }
+      if (lane == 0) {
+        ls[r] = ls[r] * alpha + psum;
+        ms[r] = m_new;
+        as[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // (3) O = O * alpha + P V over this warp's 128 value columns
+    const float al0 = as[g], al1 = as[g + 8];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      o[n][0] *= al0;
+      o[n][1] *= al0;
+      o[n][2] *= al1;
+      o[n][3] *= al1;
+    }
+#pragma unroll
+    for (int j = 0; j < LBK / 16; ++j) {
+      uint32_t a[4], bv[NB][2];
+      ldmatrix_x4(a, pt + (rr + 8 * (mi & 1)) * PROW + j * 16 + 8 * (mi >> 1));
+#pragma unroll
+      for (int h = 0; h < NB / 2; ++h) {
+        uint32_t r4[4];
+        ldmatrix_x4_trans(r4, kst + (j * 16 + 8 * (mi & 1) + rr) * LROW + warp * (LDV / 4) +
+                                  (2 * h + (mi >> 1)) * 8);
+        bv[2 * h][0] = r4[0];
+        bv[2 * h][1] = r4[1];
+        bv[2 * h + 1][0] = r4[2];
+        bv[2 * h + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n) mma_bf16(o[n], a, bv[n]);
+      if (!p_bf16) {   // the remainder of float32 p, through the same fragments
+        ldmatrix_x4(a, pt + (LBH + rr + 8 * (mi & 1)) * PROW + j * 16 + 8 * (mi >> 1));
+#pragma unroll
+        for (int n = 0; n < NB; ++n) mma_bf16(o[n], a, bv[n]);
+      }
+    }
+    __syncthreads();   // every warp is done with this stage and the p tile
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // ls is initialised even when no tile ran
+
+  const float inv0 = 1.f / fmaxf(ls[g], 1e-30f), inv1 = 1.f / fmaxf(ls[g + 8], 1e-30f);
+  bf16* o0 = out + ((long long)b * H + h0 + g) * LDV + warp * (LDV / 4) + c2;
+  bf16* o1 = o0 + 8 * LDV;
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(o0 + n * 8) =
+        __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<__nv_bfloat162*>(o1 + n * 8) =
+        __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -551,6 +771,30 @@ int dstts_decode_attention(const void* q, long long q_bstride, const void* k,
       R <= 4 ? &launch_decode<2> : R <= 16 ? &launch_decode<8> : &launch_decode<32>;
   return launch(q, q_bstride, k, v, table, P, row_offset, seq_len, qpos, qpos_stride,
                 min_one, max_keys, out, B, T, H, KV, ps, scale, p_bf16, st);
+}
+
+// K3 (B1's shared variant and B6 at MLA's latent width). q [B,H,576] bf16
+// contiguous; pool [R,ps,1,576] bf16; table [B,P] int64 or null (identity:
+// page row_offset + b); seq_len [B] int64; qpos int64 with stride
+// qpos_stride or null; out [B,H,512] bf16 (the value columns only). H % 16 == 0.
+int dstts_latent_attention(const void* q, const void* pool, const void* table, int P,
+                           long long row_offset, const void* seq_len, const void* qpos,
+                           int qpos_stride, int min_one, int max_keys, void* out, int B,
+                           int H, int ps, float scale, int p_bf16, void* stream) {
+  if (H % LBH) return (int)cudaErrorInvalidValue;
+  constexpr int bytes = latent_smem_bytes();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(latent_attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    attr_set = true;
+  }
+  latent_attention<<<dim3(B, H / LBH), NTH, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
+      static_cast<const long long*>(table), P, row_offset,
+      static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos),
+      qpos_stride, min_one, max_keys, static_cast<bf16*>(out), H, ps, scale, p_bf16);
+  return (int)cudaGetLastError();
 }
 
 // K2 (B2). q, out [B,T,H,128]; k, v [B,S,KV,128]; all bf16.

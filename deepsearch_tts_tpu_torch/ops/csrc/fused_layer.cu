@@ -3,6 +3,7 @@
 //   B3  fused_qkv_stacked         (_qkv_stacked_kernel,        fused_layer.py:244)
 //   B4  fused_out_mlp_stacked     (_out_mlp_stacked_kernel,    fused_layer.py:356)
 //   B7  fused_out_router_stacked  (_out_router_stacked_kernel, fused_layer.py:818)
+//   B8  fused_mlp_stacked         (_mlp_stacked_kernel,        fused_layer.py:468)
 //   B10 fused_qkv_stacked_i8      (_qkv_stacked_kernel_i8,     fused_layer.py:568)
 //       fused_out_mlp_stacked_i8  (_out_mlp_stacked_kernel_i8, fused_layer.py:669)
 //       and the bare int8 product of ops/quant.int8_matmul (quant.py:68)
@@ -40,6 +41,11 @@
 //         gemm(h, wd) -> residual (out = x2 + h@wd)
 //     B7: gemm(a, wo) -> residual (x2 = x + a@wo)
 //         rms_norm_rows(x2, ln2) -> hn -> gemm(router) -> sum_partials (f32 logits)
+//     B8: [rms_norm_rows(x, ln)] -> gemm(wg), gemm(wu) -> swiglu -> gemm(wd)
+//         -> residual (out = [x +] h@wd); gate and up are two stacks read
+//         through two pointers, their partial sums side by side. MLA's
+//         dense-layer MLPs (E = 7168, F = 18432: 793 MB of weights a call)
+//         and shared experts (F = 2048: 88 MB), each weight byte read once.
 //   B4's sequential grid on the TPU carried x2 through VMEM; Hopper blocks
 //   cannot, so x2, xn and h ([B,E], [B,E], [B,F] bf16, under 2 MB at B=64)
 //   go through device memory and stay in L2.
@@ -391,19 +397,21 @@ residual_epilogue(const float* __restrict__ P, int S, int B, int N,
   out[i] = __float2bfloat16(res ? __bfloat162float(res[i]) + acc : acc);
 }
 
-// h[b, f] = bf16(silu(g) * u), g = P[.., f], u = P[.., F + f] (P rows are 2F
-// wide); B10: g and u each times its column's scale first
+// h[b, f] = bf16(silu(g) * u) with g = sum_s Pg[s*sstride + b*ld + f] and u
+// the same over Pu (B4: Pu = Pg + F in 2F-wide rows; B8: two [S,B,F]
+// blocks); B10: g and u each times its column's scale first
 __global__ void __launch_bounds__(256)
-swiglu_epilogue(const float* __restrict__ P, int S, int B, int F,
+swiglu_epilogue(const float* __restrict__ Pg, const float* __restrict__ Pu,
+                long long sstride, int ld, int S, int B, int F,
                 const float* __restrict__ colscale, bf16* __restrict__ h) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= (long long)B * F) return;
   const long long b = i / F, f = i % F;
   float g = 0.f, u = 0.f;
   for (int s = 0; s < S; ++s) {
-    const float* row = P + ((long long)s * B + b) * (2LL * F);
-    g += row[f];
-    u += row[F + f];
+    const long long off = s * sstride + b * ld + f;
+    g += Pg[off];
+    u += Pu[off];
   }
   if (colscale) {
     g *= colscale[f];
@@ -637,7 +645,8 @@ int run_out_mlp(const bf16* A, const bf16* X, const void* Wo, const float* wo_s,
   // (2) h = silu(xn @ Wg) * (xn @ Wu), xn = rmsnorm(x2) * ln2
   rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, XN);
   launch_gemm<I8>(XN, Wgu, P, B, E, 2 * F, s_gu, st);
-  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(P, s_gu, B, F, gu_s, Hh);
+  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
+      P, P + F, (long long)B * 2 * F, 2 * F, s_gu, B, F, gu_s, Hh);
   // (3) out = x2 + h @ wd
   launch_gemm<I8>(Hh, Wd, P, B, F, E, s_d, st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, wd_s, X2, O);
@@ -737,6 +746,37 @@ int dstts_int8_matmul(const void* x, const void* w_q, const void* scales, void* 
   launch_gemm<true>(static_cast<const bf16*>(x), w_q, P, B, K, N, splits, st);
   residual_epilogue<<<cdiv((long long)B * N, 256), 256, 0, st>>>(
       P, splits, B, N, static_cast<const float*>(scales), nullptr, static_cast<bf16*>(out));
+  return (int)cudaGetLastError();
+}
+
+// B8. out [B,E] = [x +] (silu(xn @ Wg) * (xn @ Wu)) @ Wd over layer `layer`
+// of wg_all, wu_all [L,E,F] and wd_all [L,F,E], xn = rmsnorm(x) * ln_all[l]
+// (norm) or x itself; residual adds x. partial f32 (>= max(2*s_gu*F,
+// s_d*E)*B); xn [B,E] (read only with norm) and h [B,F] bf16 scratch.
+int dstts_fused_mlp(const void* x, const void* ln_all, const void* wg_all,
+                    const void* wu_all, const void* wd_all, void* partial, void* xn,
+                    void* h, void* out, int layer, int B, int E, int F, int s_gu,
+                    int s_d, int norm, int residual, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long l = layer;
+  const bf16* X = static_cast<const bf16*>(x);
+  float* P = static_cast<float*>(partial);
+  bf16* Hh = static_cast<bf16*>(h);
+  const bf16* XN = X;
+  if (norm) {
+    rms_norm_rows<<<B, NT, 0, st>>>(X, static_cast<const bf16*>(ln_all) + l * E, E, eps,
+                                    static_cast<bf16*>(xn));
+    XN = static_cast<const bf16*>(xn);
+  }
+  // gate and up partials side by side: [s_gu, B, F] each
+  const long long gsz = (long long)s_gu * B * F;
+  launch_gemm(XN, static_cast<const bf16*>(wg_all) + l * E * F, P, B, E, F, s_gu, st);
+  launch_gemm(XN, static_cast<const bf16*>(wu_all) + l * E * F, P + gsz, B, E, F, s_gu, st);
+  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
+      P, P + gsz, (long long)B * F, F, s_gu, B, F, nullptr, Hh);
+  launch_gemm(Hh, static_cast<const bf16*>(wd_all) + l * F * E, P, B, F, E, s_d, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
+      P, s_d, B, E, nullptr, residual ? X : nullptr, static_cast<bf16*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 """Fused decode-layer functions (port of ``ops/fused_layer.py``, kernels
-B3/B4/B7/B10).
+B3/B4/B7/B8/B10).
 
 Each T=1 decode layer of a packed bf16 model runs two of them:
 
@@ -11,6 +11,10 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
 * :func:`fused_out_router_stacked` (B7, Qwen3-MoE) — x2 = x + a@wo[l], hn =
   rmsnorm(x2)·ln2[l], float32 router logits hn@router[l]; the expert FFN
   follows in ``ops/moe.py``.
+* :func:`fused_mlp_stacked` (B8, DeepSeek-V3 / Kimi-K2) — ``[x +] (silu(xn
+  @ wg[l]) · (xn @ wu[l])) @ wd[l]`` over unpacked gate and up stacks, xn =
+  rmsnorm(x)·ln[l] or x: the MLA family's dense-layer MLPs (norm and
+  residual) and shared experts (neither); its attention stays plain.
 * :func:`fused_qkv_stacked_i8` / :func:`fused_out_mlp_stacked_i8` (B10,
   dense, int8 weights) — B3 / B4 over int8 stacks ``[L,K,N]`` with float32
   per-column scales ``[L,1,N]`` (``ops/quant.quantize_params`` layout),
@@ -119,6 +123,19 @@ def fused_out_mlp_stacked_plain(attn_out, x, wo_all, ln_all, gateup_all, wd_all,
     return (x2.float() + matmul_f32(h, wd_all[layer])).to(dt)
 
 
+def fused_mlp_stacked_plain(x, ln_all, wg_all, wu_all, wd_all, layer, *,
+                            eps: float = 1e-6, residual: bool = True, norm: bool = True):
+    """Reference for B8: the round points of ``_mlp_stacked_kernel``
+    (``fused_layer.py:468-491``): xn = rmsnorm(x)·ln[l] rounded to x's dtype
+    (x itself without ``norm``), g and u in float32, h = silu(g)·u rounded,
+    float32 accumulator, out = x + acc (or acc) rounded once."""
+    dt = x.dtype
+    xn = rms_norm(x, ln_all[layer], eps) if norm else x
+    h = (F.silu(matmul_f32(xn, wg_all[layer])) * matmul_f32(xn, wu_all[layer])).to(dt)
+    acc = matmul_f32(h, wd_all[layer])
+    return (x.float() + acc if residual else acc).to(dt)
+
+
 def fused_out_router_stacked_plain(attn_out, x, wo_all, ln_all, router_all, layer,
                                    *, eps: float = 1e-6):
     """Reference for B7: the round points of ``_out_router_stacked_kernel``
@@ -150,6 +167,8 @@ def _lib():
         lib.dstts_int8_matmul.restype = i
         lib.dstts_fused_out_router.argtypes = [p] * 9 + [i] * 7 + [f, p]
         lib.dstts_fused_out_router.restype = i
+        lib.dstts_fused_mlp.argtypes = [p] * 9 + [i] * 8 + [f, p]
+        lib.dstts_fused_mlp.restype = i
         ll = ctypes.c_longlong
         lib.dstts_grouped_gateup.argtypes = [p] * 4 + [ll] + [i] * 5 + [p, p]
         lib.dstts_grouped_gateup.restype = i
@@ -325,6 +344,51 @@ def fused_out_router_stacked(attn_out, x, wo_all, ln_all, router_all, layer,
 
 
 fused_out_router_stacked.launches = 0
+
+
+def mlp_shapes_ok(hidden: int, intermediate: int) -> bool:
+    """Can B8 take these widths? (128-column output tiles of each product,
+    whole 32-row pipeline stages)"""
+    return hidden % _TILE == 0 and intermediate % _TILE == 0
+
+
+def fused_mlp_stacked(x, ln_all, wg_all, wu_all, wd_all, layer, *, eps: float = 1e-6,
+                      residual: bool = True, norm: bool = True):
+    """B8: ``[x +] (silu(xn @ wg[l]) · (xn @ wu[l])) @ wd[l]`` with ``xn =
+    rmsnorm(x)·ln[l]`` (``norm``) or x. x [B,E]; ln_all [L,E] (read only
+    with ``norm``); wg_all / wu_all [L,E,F]; wd_all [L,F,E] → [B,E]. MLA's
+    dense-layer MLPs take norm and residual, its shared experts neither."""
+    if x.device.type == "cpu":
+        return fused_mlp_stacked_plain(x, ln_all, wg_all, wu_all, wd_all, layer, eps=eps,
+                                       residual=residual, norm=norm)
+    B, E = x.shape
+    L, _, Fi = wg_all.shape
+    if not mlp_shapes_ok(E, Fi) or not 0 <= int(layer) < L:
+        raise ValueError(f"fused_mlp_stacked kernel needs E, F % {_TILE} == 0 and "
+                         f"0 <= layer < L (got E={E}, F={Fi}, layer={layer}, L={L})")
+    _check("x", x, (B, E))
+    _check("ln_all", ln_all, (L, E))
+    _check("wg_all", wg_all, (L, E, Fi))
+    _check("wu_all", wu_all, (L, E, Fi))
+    _check("wd_all", wd_all, (L, Fi, E))
+    s_gu, s_d = _splits(B, Fi, E), _splits(B, E, Fi)
+    dev = x.device
+    partial = torch.empty((max(2 * s_gu * Fi, s_d * E) * B,), dtype=torch.float32,
+                          device=dev)
+    xn = torch.empty((B, E), dtype=x.dtype, device=dev) if norm else x
+    h = torch.empty((B, Fi), dtype=x.dtype, device=dev)
+    out = torch.empty((B, E), dtype=x.dtype, device=dev)
+    err = _lib().dstts_fused_mlp(
+        x.data_ptr(), ln_all.data_ptr(), wg_all.data_ptr(), wu_all.data_ptr(),
+        wd_all.data_ptr(), partial.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(),
+        int(layer), B, E, Fi, s_gu, s_d, int(bool(norm)), int(bool(residual)), float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "fused_mlp_stacked")
+    fused_mlp_stacked.launches += 1
+    return out
+
+
+fused_mlp_stacked.launches = 0
 
 
 def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, layer,

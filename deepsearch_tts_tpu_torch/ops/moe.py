@@ -199,12 +199,21 @@ def moe_ragged(x, router_w, w_gate, w_up, w_down, top_k: int,
     given, as the fused decode path does); w_gate [NE,E,F] or packed
     [NE,E,2F] with ``w_up=None``; w_down [NE,F,E] → [T,E] in x's dtype.
     ``plain``: the expert FFN's plain versions (:func:`_expert_ffn_ragged`)."""
-    T, E = x.shape
     if router_logits is None:
         router_logits = matmul_f32(x, router_w)
-    n_exp = router_logits.shape[1]
     top_p, top_e = route_topk(router_logits, top_k, norm_topk_prob)
+    return dispatch_ragged(x, top_p, top_e, router_logits.shape[1], w_gate, w_up, w_down,
+                           plain)
 
+
+def dispatch_ragged(x, top_w, top_e, n_exp: int, w_gate, w_up, w_down, plain: bool = False):
+    """The dispatch half of :func:`moe_ragged`, shared by both routers (the
+    Qwen3-MoE softmax and DeepSeek-V3's sigmoid group routing): sort the
+    (token, expert) assignments of ``top_e`` [T,k] by expert, run the
+    grouped SwiGLU over the expert-sorted rows, un-sort and sum the k rows
+    of each token weighted by ``top_w`` [T,k] (cast to x's dtype first)."""
+    T, E = x.shape
+    top_k = top_e.shape[1]
     flat_e = top_e.reshape(-1)
     order = torch.argsort(flat_e, stable=True)         # assignments by expert
     inv = torch.empty_like(order)
@@ -213,7 +222,7 @@ def moe_ragged(x, router_w, w_gate, w_up, w_down, top_k: int,
     y_sorted = _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down,
                                   group_offsets(flat_e, n_exp), plain)
     y = y_sorted[inv].reshape(T, top_k, E)
-    return (y * top_p.to(y.dtype)[..., None]).sum(1).to(x.dtype)
+    return (y * top_w.to(y.dtype)[..., None]).sum(1).to(x.dtype)
 
 
 def _expert_dot(xe, w):

@@ -18,6 +18,14 @@ version (``*_plain``), which holds the TPU kernel's round points: float32
 scores and softmax, and p kept in float32 for the value product
 (``paged_attention.py:106``). Each wrapper counts its kernel launches in
 its ``launches`` attribute.
+
+MLA (``models/deepseek_v3.py``) calls the entries with the latent pool as
+both k and v (``v_pages is k_pages``) at D = 576 and keeps the first
+``v_width`` = 512 columns. K1 is written for D = 128 and 64 query rows a
+block; MLA has 128 or 64 query heads over one cache head. On the card those
+calls take K3 (``latent_attention`` in ``csrc/attention.cu``) through
+:func:`paged_attention_latent`, which counts them; K3 computes only the
+``v_width`` columns.
 """
 from __future__ import annotations
 
@@ -29,19 +37,24 @@ from .attention import NEG_INF, gather_kv_rows
 
 HEAD_DIM = 128        # head width the kernels are written for
 MAX_QUERY_ROWS = 64   # T·H/K query rows one K1 block holds
+LATENT_DIM = 576      # K3's row: DeepSeek-V3 / Kimi-K2 kv_lora_rank 512 + rope 64
+LATENT_V = 512        # K3's value columns (kv_lora_rank)
+LATENT_HEADS = 16     # query heads one K3 block holds
 
 
 # ----------------------------------------------------------------- plain torch
 
-def _paged_plain(q, k_pages, v_pages, page_table, seq_lens, qpos0, scale):
+def _paged_plain(q, k_pages, v_pages, page_table, seq_lens, qpos0, scale, v_width=None):
     """Query t of row b attends keys ``< min(seq_len, qpos0 + t + 1)`` of
-    the row's gathered pages; float32 scores, softmax and value product."""
+    the row's gathered pages; float32 scores, softmax and value product.
+    ``v_width``: only the first ``v_width`` columns of v (and of the
+    output)."""
     B, T, H, D = q.shape
     _, ps, K, _ = k_pages.shape
     S = page_table.shape[1] * ps
     scale = scale if scale is not None else D ** -0.5
     k = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D).float()
-    v = gather_kv_rows(v_pages, page_table).reshape(B, S, K, D).float()
+    v = gather_kv_rows(v_pages[..., :v_width], page_table).reshape(B, S, K, -1).float()
     qg = (q.float() * scale).reshape(B, T, K, H // K, D)
     s = torch.einsum("btkgd,bskd->bkgts", qg, k)
     key = torch.arange(S, device=q.device)
@@ -53,32 +66,32 @@ def _paged_plain(q, k_pages, v_pages, page_table, seq_lens, qpos0, scale):
     p = torch.where(mask[:, None, None], torch.exp(s - m), 0.0)
     out = torch.einsum("bkgts,bskd->btkgd", p, v)
     out = out / p.sum(-1).clamp(min=1e-30).permute(0, 3, 1, 2)[..., None]
-    return out.reshape(B, T, H, D).to(q.dtype)
+    return out.reshape(B, T, H, -1).to(q.dtype)
 
 
 def pallas_paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                 q_positions, *, scale=None):
+                                 q_positions, *, scale=None, v_width=None):
     """Reference for :func:`pallas_paged_attention` (``_paged_kernel``)."""
     return _paged_plain(q, k_pages, v_pages, page_table, seq_lens,
-                        q_positions[:, 0], scale)
+                        q_positions[:, 0], scale, v_width)
 
 
 def pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens, *,
-                              scale=None):
+                              scale=None, v_width=None):
     """Reference for :func:`pallas_paged_decode` (``_paged_decode_kernel``):
     T=1, keys ``< seq_len``."""
     if q.shape[1] != 1:
         raise ValueError(f"the paged decode entries take T=1, got T={q.shape[1]}")
     return _paged_plain(q, k_pages, v_pages, page_table, seq_lens,
-                        seq_lens.long() - 1, scale)
+                        seq_lens.long() - 1, scale, v_width)
 
 
 def pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table, seq_lens, *,
-                                    scale=None):
+                                    scale=None, v_width=None):
     """Reference for :func:`pallas_paged_decode_clamp`
     (``_clamped_decode_kernel``): the same math as the decode kernel."""
     return pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                     scale=scale)
+                                     scale=scale, v_width=v_width)
 
 
 # ------------------------------------------------------------------- kernel K1
@@ -94,6 +107,9 @@ def _lib():
         lib.dstts_decode_attention.restype = i
         lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
         lib.dstts_flash_attention.restype = i
+        lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, i,
+                                               f, i, p]
+        lib.dstts_latent_attention.restype = i
         lib._dstts_typed = True
     return lib
 
@@ -159,51 +175,143 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
     return out
 
 
+# ------------------------------------------------------------------- kernel K3
+
+def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int = 0,
+                          q_positions=None, min_one=False, max_keys: int | None = None,
+                          scale=None, p_bf16=False):
+    """Launch K3. q [B,H,576] bf16 (H a multiple of 16); pool [R,ps,1,576]
+    bf16, both k and v (MLA's latent rows); ``page_table`` [B,P] int64
+    (None: the identity table, row ``row_offset + b``); seq_lens [B] int64;
+    ``q_positions`` [B,1] int64 or None. Row b's heads see keys ``<
+    min(seq_len (>= 1 if min_one), q_positions[b,0] + 1, max_keys)``.
+    Returns [B,H,512] bf16: the value product over the latent columns only
+    (the 64 rope columns of v are never used by MLA)."""
+    from .fused_layer import _check, _raise_if
+
+    B, H, D = q.shape
+    R, ps, K, _ = pool.shape
+    dev = q.device
+    if D != LATENT_DIM or K != 1 or H % LATENT_HEADS:
+        raise ValueError(f"latent attention kernel needs D={LATENT_DIM}, one cache head "
+                         f"and H % {LATENT_HEADS} == 0 (got D={D}, K={K}, H={H})")
+    _check("q", q, (B, H, D))
+    _check("pool", pool, (R, ps, 1, D))
+    if pool.device != dev:
+        raise ValueError("latent attention: q and the pool must share a device")
+    _check_index("seq_lens", seq_lens, (B,), dev)
+    P = 1
+    if page_table is not None:
+        P = page_table.shape[1]
+        _check_index("page_table", page_table, (B, P), dev)
+        if not page_table.is_contiguous():
+            raise ValueError("page_table: must be contiguous")
+    qpos_stride = 0
+    if q_positions is not None:
+        _check_index("q_positions", q_positions, (B, 1), dev)
+        qpos_stride = q_positions.stride(0)
+    if max_keys is None:
+        max_keys = P * ps
+    scale = scale if scale is not None else D ** -0.5
+    out = torch.empty((B, H, LATENT_V), dtype=q.dtype, device=dev)
+    err = _lib().dstts_latent_attention(
+        q.data_ptr(), pool.data_ptr(), None if page_table is None else page_table.data_ptr(),
+        P, int(row_offset), seq_lens.data_ptr(),
+        None if q_positions is None else q_positions.data_ptr(), qpos_stride,
+        int(bool(min_one)), int(max_keys), out.data_ptr(), B, H, ps, float(scale),
+        int(bool(p_bf16)), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "latent_attention")
+    return out
+
+
+def _latent_kernel(q, k_pages, v_pages, v_width) -> bool:
+    """Whether a CUDA call of a B6 entry takes K3: v is k at a width other
+    than K1's (raises where K3 cannot take it either)."""
+    if v_pages is not k_pages or q.shape[-1] == HEAD_DIM:
+        return False
+    if q.shape[1] != 1 or v_width != LATENT_V:
+        raise ValueError(f"the latent paged kernel takes T=1 and v_width={LATENT_V} "
+                         f"(got T={q.shape[1]}, v_width={v_width})")
+    return True
+
+
+def paged_attention_latent(q, pool, page_table, seq_lens, q_positions=None, *,
+                           scale=None, v_width: int = LATENT_V):
+    """The three B6 entries at MLA's latent width, v = k: q [B,1,H,D] over
+    the pool's pages of the ``[B,P]`` table, keys ``< seq_lens[b]`` (and ``<=
+    q_positions[b,0]`` when given), float32 p. Returns [B,1,H,v_width]. On
+    the card K3, which computes only the first ``LATENT_V`` columns."""
+    if q.device.type == "cpu":
+        qpos0 = seq_lens.long() - 1 if q_positions is None else q_positions[:, 0]
+        return _paged_plain(q, pool, pool, page_table, seq_lens, qpos0, scale, v_width)
+    out = latent_attention_cuda(
+        q[:, 0].contiguous(), pool, seq_lens.long(), page_table=page_table.long().contiguous(),
+        q_positions=None if q_positions is None else q_positions.long()[:, :1],
+        scale=scale)
+    paged_attention_latent.launches += 1
+    return out[:, None]
+
+
+paged_attention_latent.launches = 0
+
+
 # ------------------------------------------------------------------- wrappers
 
 def pallas_paged_attention(q, k_pages, v_pages, page_table, seq_lens, q_positions,
-                           *, scale=None):
+                           *, scale=None, v_width=None):
     """B6 ``pallas_paged_attention``: q [B,T,H,D] over pages [N,ps,K,D] of
     the ``[B,P]`` table (layer offset applied), query t at position
-    ``q_positions[b,0] + t``, keys ``< seq_lens[b]``. Returns [B,T,H,D]."""
+    ``q_positions[b,0] + t``, keys ``< seq_lens[b]``. Returns [B,T,H,D]
+    (``v_width``: the first ``v_width`` columns). With ``v_pages is
+    k_pages`` at the latent width, :func:`paged_attention_latent` (K3)."""
     if q.device.type == "cpu":
-        return pallas_paged_attention_plain(q, k_pages, v_pages, page_table,
-                                            seq_lens, q_positions, scale=scale)
+        return pallas_paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
+                                            q_positions, scale=scale, v_width=v_width)
+    if _latent_kernel(q, k_pages, v_pages, v_width):
+        return paged_attention_latent(q, k_pages, page_table, seq_lens, q_positions,
+                                      scale=scale, v_width=v_width)
     out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
                                 page_table=page_table.long().contiguous(),
                                 q_positions=q_positions.long(), scale=scale)
     pallas_paged_attention.launches += 1
-    return out
+    return out[..., :v_width]
 
 
 pallas_paged_attention.launches = 0
 
 
-def pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens, *, scale=None):
+def pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens, *, scale=None,
+                        v_width=None):
     """B6 ``pallas_paged_decode``: T=1, keys ``< seq_lens[b]``."""
     if q.device.type == "cpu":
         return pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                         scale=scale)
+                                         scale=scale, v_width=v_width)
+    if _latent_kernel(q, k_pages, v_pages, v_width):
+        return paged_attention_latent(q, k_pages, page_table, seq_lens, scale=scale,
+                                      v_width=v_width)
     out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
                                 page_table=page_table.long().contiguous(), scale=scale)
     pallas_paged_decode.launches += 1
-    return out
+    return out[..., :v_width]
 
 
 pallas_paged_decode.launches = 0
 
 
 def pallas_paged_decode_clamp(q, k_pages, v_pages, page_table, seq_lens, *,
-                              scale=None):
+                              scale=None, v_width=None):
     """B6 ``pallas_paged_decode_clamp``: T=1, keys ``< seq_lens[b]``; every
-    K1 block reads exactly its row's used pages, the TPU kernel's clamp."""
+    K1 (K3) block reads exactly its row's used pages, the TPU kernel's clamp."""
     if q.device.type == "cpu":
         return pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table,
-                                               seq_lens, scale=scale)
+                                               seq_lens, scale=scale, v_width=v_width)
+    if _latent_kernel(q, k_pages, v_pages, v_width):
+        return paged_attention_latent(q, k_pages, page_table, seq_lens, scale=scale,
+                                      v_width=v_width)
     out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
                                 page_table=page_table.long().contiguous(), scale=scale)
     pallas_paged_decode_clamp.launches += 1
-    return out
+    return out[..., :v_width]
 
 
 pallas_paged_decode_clamp.launches = 0

@@ -19,8 +19,12 @@ the B1 / B9 round point (``slot_attention.py:98`` / :178). B9 takes K1's
 T-row mode: one block per (row, kv head) holds all W·G query rows of the
 window, so the window shares one read of the context, as B9 does on the TPU.
 A block holds at most 64 query rows, so a longer window is split into pieces
-of ⌊64/G⌋ queries, one launch each. For a CPU tensor each wrapper runs its
-plain version; ``launches`` on each wrapper counts kernel launches.
+of ⌊64/G⌋ queries, one launch each. B1's shared variant at MLA's latent
+width (D = 576, one cache head, 128 or 64 query heads) is past K1's shapes:
+:func:`slot_attention_latent` launches K3 instead (``latent_attention``,
+one block per row and 16 heads, the value product over the first 512
+columns only). For a CPU tensor each wrapper runs its plain version;
+``launches`` on each wrapper counts kernel launches.
 """
 from __future__ import annotations
 
@@ -59,32 +63,63 @@ def _slot_plain(q, k_pool, v_pool, limit, layer, n_rows: int, slot_ctx: int, sca
 
 
 def slot_attention_plain(q, k_pool, v_pool, limit, layer, *, n_rows: int,
-                         slot_ctx: int, scale: float | None = None):
-    """Reference for B1 with the kernel's round points."""
+                         slot_ctx: int, scale: float | None = None, v_width=None):
+    """Reference for B1 with the kernel's round points (``v_width``: the
+    first ``v_width`` columns of the output)."""
     lim = limit.long().clamp(min=1)[:, None]
     return _slot_plain(q[:, None], k_pool, v_pool, lim, layer, n_rows, slot_ctx,
-                       scale)[:, 0]
+                       scale)[:, 0, ..., :v_width]
 
 
 def slot_attention(q, k_pool, v_pool, limit, layer, *, n_rows: int, slot_ctx: int,
-                   scale: float | None = None):
+                   scale: float | None = None, v_width=None):
     """B1: q [B,H,D] (this step's queries), pools [L·N,ps,K,D] (``v_pool``
-    None: v is k), limit [B] int, ``layer`` int → [B,H,D]."""
+    None: v is k), limit [B] int, ``layer`` int → [B,H,D], or its first
+    ``v_width`` columns. On the card v = k at MLA's latent width takes
+    :func:`slot_attention_latent` (K3)."""
     _check_rows(q.shape[0], n_rows)
     if q.device.type == "cpu":
         return slot_attention_plain(q, k_pool, v_pool, limit, layer, n_rows=n_rows,
-                                    slot_ctx=slot_ctx, scale=scale)
-    from .paged_attention import decode_attention_cuda
+                                    slot_ctx=slot_ctx, scale=scale, v_width=v_width)
+    from .paged_attention import HEAD_DIM, decode_attention_cuda
 
+    if v_pool is None and q.shape[-1] != HEAD_DIM:
+        return slot_attention_latent(q, k_pool, limit, layer, n_rows=n_rows,
+                                     slot_ctx=slot_ctx, scale=scale, v_width=v_width)
     out = decode_attention_cuda(
         q[:, None], k_pool, k_pool if v_pool is None else v_pool, limit.long(),
         row_offset=int(layer) * n_rows, min_one=True,
         max_keys=min(int(slot_ctx), k_pool.shape[1]), scale=scale, p_bf16=True)
     slot_attention.launches += 1
-    return out[:, 0]
+    return out[:, 0, ..., :v_width]
 
 
 slot_attention.launches = 0
+
+
+def slot_attention_latent(q, pool, limit, layer, *, n_rows: int, slot_ctx: int,
+                          scale: float | None = None, v_width=None):
+    """B1's shared variant (``_slot_attn_kernel_shared``: v is k) at MLA's
+    latent width: q [B,H,D], pool [L·N,ps,1,D], limit [B] → [B,H,v_width].
+    On the card K3, which computes only the first ``LATENT_V`` (512)
+    columns: ``v_width`` must be 512 there."""
+    _check_rows(q.shape[0], n_rows)
+    if q.device.type == "cpu":
+        return slot_attention_plain(q, pool, None, limit, layer, n_rows=n_rows,
+                                    slot_ctx=slot_ctx, scale=scale, v_width=v_width)
+    from .paged_attention import LATENT_V, latent_attention_cuda
+
+    if v_width != LATENT_V:
+        raise ValueError(f"the latent slot kernel keeps v_width={LATENT_V} columns "
+                         f"(got {v_width})")
+    out = latent_attention_cuda(
+        q.contiguous(), pool, limit.long(), row_offset=int(layer) * n_rows, min_one=True,
+        max_keys=min(int(slot_ctx), pool.shape[1]), scale=scale, p_bf16=True)
+    slot_attention_latent.launches += 1
+    return out
+
+
+slot_attention_latent.launches = 0
 
 
 def _window_limits(seq_lens, base_pos, W: int):
