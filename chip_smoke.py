@@ -14,10 +14,20 @@ Phases, each raising on failure (non-zero exit, no final line):
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (qwen3-8b widths), with the tolerance
    stated below, timed with CUDA events after warm-up: B3, B4, B5, then
-   the attention kernels B1 (slot), B6 (the three paged entries) and B2
-   (flash prefill); then, at qwen3-30b-a3b widths, B7, both entries of the
-   grouped expert kernel (16 and 3072 tokens x top-8, one expert empty)
-   and B3 / B1 / B2 at its query group G = 8;
+   the attention kernels B1 (slot; also B = 1 over one full 4096-token row,
+   the case K1's context split is for, and B = 64, where one split fills
+   the card, both beside SDPA), B6 (the three paged
+   entries) and B2 (flash prefill: T = 1, 127, 128, 512, 3030 at B = 1
+   and 2, 3072, and G = 2), K1 and K2 held to a bound scaled by each
+   query position's output (``ATTN_RMS_FRAC``), which a plain attention
+   missing one split or tile of the B = 1 row must fail; then B11, the one-layer forms (``fused_mlp``, ``fused_qkv``,
+   ``fused_out_mlp`` with packed and unpacked gate/up) at qwen3-8b widths,
+   B = 1 and 16, and B11's own path: its counters set to 0, each entry
+   driven once on a 16-row decode layer, the counts read (no serving path
+   runs B11); then, at qwen3-30b-a3b widths, B7, both entries of the
+   grouped expert kernel (16 and 3072 tokens x top-8, one expert empty;
+   ``torch._grouped_mm`` timed beside it where this PyTorch has it) and
+   B3 / B1 / B2 at its query group G = 8;
 4. serve: ``deepsearch_tts_tpu_torch.cli.serve.build_engine`` builds
    qwen3-8b (full width, bf16, random weights from a seed) on the card; an
    ``OpenAIServer`` on an ephemeral localhost port answers chat and
@@ -117,6 +127,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -142,7 +153,17 @@ F32_RTOL, F32_ATOL = 1e-5, 1e-5
 # version keeps float32 (B2); the JAX suite's own bound for these kernels
 # (tests/test_kernels.py:131,166)
 ATTN_RTOL, ATTN_ATOL = 5e-2, 2e-2
-CTX = 4096               # max_seq_len of the serve phases: the slot row width
+# K1 and K2 (the split-context decode and the wgmma prefill) are held
+# tighter: the absolute part of the bound is at most this share of the
+# reference's root mean square over each query position's heads and
+# columns. Over a long row of randn keys the outputs are ~0.026 (a softmax
+# average of ~1500 effective keys), so ATTN_ATOL alone would pass a result
+# missing a whole 256-key split; a sound kernel uses ~0.16 of this bound
+# (its error is the bf16 rounding of the output), one that drops a 64-key
+# tile or weighs a split wrong ~9-17 times it (phase_attention_kernels
+# asserts the latter on the B = 1 row)
+ATTN_RMS_FRAC = 5e-2
+CTX = 4096              # max_seq_len of the serve phases: the slot row width
 # per-row limits / sequence lengths of the B1 and B6 checks: single keys,
 # page and tile edges, the full row, and inactive rows (0, clamped to 1)
 LIMITS = [1, 17, 500, 4095, 0, 4096, 2048, 64, 65, 1000, 3000, 129, 256, 4000, 7, 0]
@@ -277,6 +298,11 @@ def phase_build() -> None:
         for line in _build.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"[build] {name}: {line.strip()}")
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+
+    occ = pa.attention_occupancy()
+    log("[build] attention blocks an SM (runtime occupancy): " +
+        ", ".join(f"{k} {v}" for k, v in occ.items()))
 
 
 def _err(a, b) -> float:
@@ -392,6 +418,79 @@ def phase_kernels(gen) -> dict:
     return res
 
 
+def phase_one_layer_kernels(gen) -> tuple[dict, dict]:
+    """B11, the one-layer forms (``fused_mlp``, ``fused_qkv``,
+    ``fused_out_mlp`` with packed and unpacked gate/up), against their plain
+    versions at qwen3-8b widths, B = 1 and 16, timed at 16 with their bounds;
+    then B11's own path (no serving path calls it: the JAX package's tests
+    are its callers): the counters set to 0, each entry driven once on a
+    16-row decode layer, the counts read. Returns (per-kernel results, the
+    path's launches)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import rope_angles
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    dev = torch.device("cuda")
+    res: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    ln = rnd(E, scale=0.1) + 1
+    qn, kn = rnd(D, scale=0.1) + 1, rnd(D, scale=0.1) + 1
+    C = (H + 2 * KV) * D
+    wqkv, wo = rnd(E, C, scale=E ** -0.5), rnd(H * D, E, scale=(H * D) ** -0.5)
+    wg, wu = rnd(E, FF, scale=E ** -0.5), rnd(E, FF, scale=E ** -0.5)
+    wd = rnd(FF, E, scale=FF ** -0.5)
+    gateup = torch.cat([wg, wu], dim=1)   # the packed [E, 2F] layout
+    kw = dict(n_heads=H, n_kv=KV, head_dim=D, eps=1e-6)
+    w_mlp, w_out = 3 * E * FF, H * D * E + 3 * E * FF
+    for B in (1, SLOTS):
+        x, a = rnd(B, E), rnd(B, H * D)
+        cos, sin = (c.to(torch.bfloat16) for c in rope_angles(
+            torch.randint(0, 4000, (B,), generator=gen, device=dev), D, 1_000_000.0))
+        timed = B == SLOTS
+
+        def check(name, label, kernel, plain, nbytes, flop):
+            _check_kernel(res, name, f"B={B} {label}", kernel, plain, rtol=BF16_RTOL,
+                          atol=BF16_ATOL, timed=timed, nbytes=nbytes, flop=flop)
+
+        check("fused_mlp", "E=4096 F=12288", lambda: fl.fused_mlp(x, ln, wg, wu, wd),
+              lambda: fl.fused_mlp_plain(x, ln, wg, wu, wd),
+              2 * (w_mlp + 2 * B * E + E), 2 * B * w_mlp)
+        check("fused_qkv", "E=4096 H=32 KV=8",
+              lambda: fl.fused_qkv(x, ln, wqkv, qn, kn, cos, sin, **kw),
+              lambda: fl.fused_qkv_plain(x, ln, wqkv, qn, kn, cos, sin, **kw),
+              2 * (E * C + B * E + E + 2 * D + B * C + B * D), 2 * B * E * C)
+        nb_out = 2 * (w_out + B * H * D + 2 * B * E + E)
+        # packed first: the unpacked call's time is the one the row keeps
+        check("fused_out_mlp", "packed gate|up",
+              lambda: fl.fused_out_mlp(a, x, wo, ln, gateup, gateup, wd, packed_gateup=True),
+              lambda: fl.fused_out_mlp_plain(a, x, wo, ln, gateup, gateup, wd,
+                                             packed_gateup=True), nb_out, 2 * B * w_out)
+        check("fused_out_mlp", "unpacked gate, up",
+              lambda: fl.fused_out_mlp(a, x, wo, ln, wg, wu, wd),
+              lambda: fl.fused_out_mlp_plain(a, x, wo, ln, wg, wu, wd), nb_out, 2 * B * w_out)
+
+    # B11's path: its three entry points on one 16-row decode layer
+    fns = (fl.fused_qkv, fl.fused_out_mlp, fl.fused_mlp)
+    for f in fns:
+        f.launches = 0
+    x = rnd(SLOTS, E)
+    cos, sin = rope_angles(torch.arange(SLOTS, device=dev), D, 1_000_000.0)
+    q = fl.fused_qkv(x, ln, wqkv, qn, kn, cos, sin, **kw)[0].contiguous()
+    x2 = fl.fused_out_mlp(q, x, wo, ln, wg, wu, wd)
+    x3 = fl.fused_out_mlp(q, x2, wo, ln, gateup, gateup, wd, packed_gateup=True)
+    out = fl.fused_mlp(x3, ln, wg, wu, wd)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in fns}
+    assert bool(torch.isfinite(out.float()).all()) and out.shape == (SLOTS, E)
+    assert all(n > 0 for n in launches.values()), launches
+    log(f"[b11-path] one decode layer through the one-layer forms: launches {launches}")
+    return res, launches
+
+
 def _x2_ulp(a, x, wo_q, wo_s):
     """One bf16 ulp of each element of x2 = x + a @ wo (int8, scaled).
     B10-out (like B4) rounds x2 to bf16 and then adds the MLP to it; a
@@ -406,13 +505,28 @@ def _x2_ulp(a, x, wo_q, wo_s):
     return torch.exp2(torch.floor(torch.log2(x2.clamp(min=1e-30))) - 7)
 
 
+def _bound_use(got, ref, rtol: float, atol: float, rms_frac: float) -> float:
+    """The largest share of its bound that an element's error takes: the
+    bound is ``min(atol, rms_frac · rms) + rtol · |ref|``, rms taken over
+    the reference's last two dimensions (a query position's heads and
+    columns); above 1 the check fails."""
+    import torch
+
+    r = ref.float()
+    rms = r.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()
+    tol = torch.clamp(rms_frac * rms, max=atol) + rtol * r.abs()
+    return float(((got.float() - r).abs() / tol.clamp(min=1e-30)).max())
+
+
 def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: float,
                   atol: float, timed: bool = False, nbytes: int = 0, flop: int = 0,
                   plain_graph: bool = True, library=None, exact: bool = False,
-                  rate: float = BF16_FLOP_S, slack=None) -> None:
+                  rate: float = BF16_FLOP_S, slack=None, rms_frac=None) -> None:
     """``kernel()`` against ``plain()`` (tensors or tuples of them) at the
     stated tolerance (``exact``: bit for bit; ``slack``: an absolute
-    allowance per element added to it); the largest error is kept in
+    allowance per element added to it; ``rms_frac``: the absolute part is
+    at most that share of the reference's root mean square over its last
+    two dimensions, see ``_rms_bound``); the largest error is kept in
     ``res[name]``. ``timed`` also records device ms of both
     (``plain_graph=False``: the plain version syncs with the host, so its
     time is the eager one), the bound from ``nbytes`` (every input read and
@@ -424,9 +538,14 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
-    e = 0.0
+    e, use = 0.0, None
     for g, r in zip(got, ref):
-        if exact:
+        if rms_frac is not None:
+            u = _bound_use(g, r, rtol, atol, rms_frac)
+            assert u <= 1.0, (name, label, f"{u:.2f} times the bound (rms share "
+                              f"{rms_frac}), largest error {_err(g, r)}")
+            use = max(use or 0.0, u)
+        elif exact:
             assert g.dtype == r.dtype and torch.equal(g, r), (
                 name, label, f"{int((g != r).sum())} of {g.numel()} elements differ")
         elif slack is not None:
@@ -440,6 +559,8 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
     r = res.setdefault(name, {"err": 0.0})
     r["err"] = max(r["err"], e)
     msg = f"[kernel] {name:26s} {label:34s} max_abs_err={e:.3e}"
+    if use is not None:
+        msg += f" (bound use {use:.3f})"
     if timed:
         t = time_ms(kernel, iters=20)
         p = time_ms(plain, iters=5) if plain_graph else (time_eager_ms(plain, 5),) * 2
@@ -456,6 +577,41 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
         if flop:
             msg += f" | {flop / t[0] / 1e9:.1f} TFLOP/s"
     log(msg)
+
+
+def _bound_rejects_split_faults(ref, q, k, v) -> None:
+    """The K1 bound is tight enough to see a fault of the context split:
+    over one full row (q [1,H,D], k / v [1,KV,S,D], ``ref`` B1's plain
+    output) a plain attention with p rounded to bf16 passes the bound, and
+    the same with one 256-key split dropped, with the last 64-key tile
+    dropped, or with one split weighed twice, each fails it."""
+    import torch
+
+    H, D = q.shape[1], q.shape[2]
+    S = k.shape[2]
+    kk = k[0].float().repeat_interleave(H // k.shape[1], 0)    # [H,S,D]
+    vv = v[0].float().repeat_interleave(H // k.shape[1], 0)
+    s = torch.einsum("hd,hsd->hs", q[0].float() * D ** -0.5, kk)
+    chunk = S // 16
+
+    def attend(lo=0, hi=0, bias=-torch.inf):
+        b = torch.zeros(S, device=q.device)
+        b[lo:hi] = bias
+        p = torch.softmax(s + b, -1).to(torch.bfloat16).float()
+        return torch.einsum("hs,hsd->hd", p, vv).to(torch.bfloat16)[None]
+
+    uses, flat = {}, {}
+    for tag, fault in (("sound", dict()), ("one split dropped", dict(lo=chunk, hi=2 * chunk)),
+                       ("last 64-key tile dropped", dict(lo=S - 64, hi=S)),
+                       ("one split weighed twice",
+                        dict(lo=chunk, hi=2 * chunk, bias=math.log(2.0)))):
+        out = attend(**fault)
+        uses[tag] = _bound_use(out, ref, ATTN_RTOL, ATTN_ATOL, ATTN_RMS_FRAC)
+        flat[tag] = _bound_use(out, ref, ATTN_RTOL, ATTN_ATOL, math.inf)
+    log("[kernel] K1 bound over one full row, bound use: " +
+        ", ".join(f"{t} {u:.3f}" for t, u in uses.items()) +
+        " (ATTN_ATOL alone: " + ", ".join(f"{u:.3f}" for u in flat.values()) + ")")
+    assert uses.pop("sound") <= 1.0 and min(uses.values()) > 1.0, uses
 
 
 def phase_attention_kernels(gen) -> dict:
@@ -475,7 +631,7 @@ def phase_attention_kernels(gen) -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     def check(*a, **k):
-        _check_kernel(res, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **k)
+        _check_kernel(res, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, **k)
 
     # B1: a two-layer slot pool of SLOTS rows x CTX tokens
     L = 2
@@ -501,6 +657,40 @@ def phase_attention_kernels(gen) -> dict:
     _check_windows(check, rnd, kp, vp, H, KV, (4, 8), timed_w=WIN,
                    library_kv=(k1, v1))
     del k1, v1
+    # B1 at B = 1 over one full 4096-token row: the case the context split
+    # is for (16 splits of 256 keys), beside SDPA over the same row
+    row: dict = {}
+    qb, lb = rnd(1, H, D), torch.tensor([CTX], device=dev)
+    kb1, vb1 = (t[1:2].transpose(1, 2) for t in (kp, vp))
+    kw1 = dict(n_rows=1, slot_ctx=CTX)
+    _check_kernel(row, "slot_attention", f"B=1 layer=1 ctx={CTX} (one full row)",
+                  lambda: sa.slot_attention(qb, kp[:2], vp[:2], lb, 1, **kw1),
+                  lambda: sa.slot_attention_plain(qb, kp[:2], vp[:2], lb, 1, **kw1),
+                  rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                  nbytes=CTX * KV * D * 4 + 4 * H * D + 8, flop=4 * H * D * CTX,
+                  library=lambda: sdpa(qb[:, :, None], kb1, vb1, enable_gqa=True))
+    res["slot_attention_b1"] = row["slot_attention"]
+    _bound_rejects_split_faults(sa.slot_attention_plain(qb, kp[:2], vp[:2], lb, 1, **kw1),
+                                qb, kb1, vb1)
+    del kb1, vb1
+    # B1 at B = 64: B·KV = 512 blocks fill the card, so one split and no
+    # merge (LIMITS' rows four times over), beside SDPA over the same rows
+    n64, wide = 4 * SLOTS, {}
+    k64, v64, q64 = rnd(n64, CTX, KV, D), rnd(n64, CTX, KV, D), rnd(n64, H, D)
+    lim64 = torch.tensor(LIMITS * 4, device=dev)
+    mask64 = (torch.arange(CTX, device=dev)[None] < lim64.clamp(min=1)[:, None])[:, None, None]
+    kt64, vt64 = (t.transpose(1, 2) for t in (k64, v64))
+    kw64 = dict(n_rows=n64, slot_ctx=CTX)
+    _check_kernel(wide, "slot_attention", f"B={n64} layer=0 ctx={CTX} (one split)",
+                  lambda: sa.slot_attention(q64, k64, v64, lim64, 0, **kw64),
+                  lambda: sa.slot_attention_plain(q64, k64, v64, lim64, 0, **kw64),
+                  rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                  nbytes=4 * keys * KV * D * 4 + 2 * n64 * H * D * 2 + n64 * 8,
+                  flop=4 * H * D * 4 * keys,
+                  library=lambda: sdpa(q64[:, :, None], kt64, vt64, attn_mask=mask64,
+                                       enable_gqa=True))
+    res["slot_attention_b64"] = wide["slot_attention"]
+    del k64, v64, kt64, vt64
 
     # B6: ps=64, P=64 pages per row, page 0 the (zeroed) null page
     ps, P = 64, CTX // 64
@@ -534,8 +724,10 @@ def phase_attention_kernels(gen) -> dict:
               timed=True, nbytes=read, flop=flop6)
     del kp, vp, kpg, vpg
 
-    # B2: causal prefill, one length not a multiple of the 64-row tile
-    for B, T in ((1, 128), (4, 512), (1, 3030), (1, 3072)):
+    # B2: causal prefill: one query, a ragged 127 (one partial tile), lengths
+    # that are not a multiple of the tile (3030), and the timed 3072
+    # (and B = 2 at 3030: a ragged tail in a batch row that has a next one)
+    for B, T in ((1, 1), (1, 127), (1, 128), (4, 512), (1, 3030), (2, 3030), (1, 3072)):
         qf, kf, vf = rnd(B, T, H, D), rnd(B, T, KV, D), rnd(B, T, KV, D)
         qt, kt, vt = (t.transpose(1, 2) for t in (qf, kf, vf))
         check("flash_attention", f"B={B} T={T}",
@@ -544,6 +736,10 @@ def phase_attention_kernels(gen) -> dict:
               timed=T == 3072, flop=4 * B * H * D * T * (T + 1) // 2,
               nbytes=2 * B * T * D * (2 * H + 2 * KV),
               library=lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    # G = 2: 16 kv heads, a block's 128 rows hold 64 positions
+    qf, kf, vf = rnd(1, 1000, H, D), rnd(1, 1000, 16, D), rnd(1, 1000, 16, D)
+    check("flash_attention", "G=2 B=1 T=1000", lambda: fa.flash_attention(qf, kf, vf),
+          lambda: fa.flash_attention_plain(qf, kf, vf))
     return res
 
 
@@ -641,6 +837,9 @@ def phase_moe_kernels(gen) -> dict:
 
     # grouped expert FFN over the rows of one layer of a 2-layer expert stack
     # (layer 1: the layer offset); expert 7 gets no rows
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    log(f"[kernel] grouped expert yardstick: torch._grouped_mm "
+        f"{'present' if grouped_mm else 'absent'} in torch {torch.__version__}")
     wgu = rnd(2, M_NE, M_E, 2 * M_F, scale=M_E ** -0.5)[1]
     wd = rnd(2, M_NE, M_F, M_E, scale=M_F ** -0.5)[1]
     for T in (SLOTS, 3072):
@@ -657,14 +856,19 @@ def phase_moe_kernels(gen) -> dict:
         h = moe.grouped_gateup_plain(xs, wgu, None, offsets)
         decode = T == SLOTS
         rows = T * M_TOPK
+        # the yardstick: torch._grouped_mm, the same ragged products in one
+        # call (gate|up without the SwiGLU), where this PyTorch has it
+        ends = offsets[1:]
         check("grouped_gateup", label, lambda: moe.grouped_gateup(xs, wgu, None, offsets),
               lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets), timed=True,
               nbytes=2 * (touched * M_E * 2 * M_F + rows * (M_E + M_F)) + 4 * (M_NE + 1),
-              flop=2 * rows * M_E * 2 * M_F, plain_graph=False)
+              flop=2 * rows * M_E * 2 * M_F, plain_graph=False,
+              library=grouped_mm and (lambda: grouped_mm(xs, wgu, offs=ends)))
         check("grouped_down", label, lambda: moe.grouped_down(h, wd, offsets),
               lambda: moe.grouped_down_plain(h, wd, offsets), timed=True,
               nbytes=2 * (touched * M_F * M_E + rows * (M_F + M_E)) + 4 * (M_NE + 1),
-              flop=2 * rows * M_F * M_E, plain_graph=False)
+              flop=2 * rows * M_F * M_E, plain_graph=False,
+              library=grouped_mm and (lambda: grouped_mm(h, wd, offs=ends)))
         if decode:
             kept = {n: dict(res[n]) for n in ("grouped_gateup", "grouped_down")}
             wg, wu = wgu[..., :M_F].contiguous(), wgu[..., M_F:].contiguous()
@@ -710,19 +914,22 @@ def phase_moe_kernels(gen) -> dict:
         _check_kernel(scratch, "slot_attention", f"G=8 B={SLOTS} layer={layer} ctx={CTX}",
                       lambda: sa.slot_attention(q, kp, vp, lim, layer, **kw),
                       lambda: sa.slot_attention_plain(q, kp, vp, lim, layer, **kw),
-                      rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=layer == 1,
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC,
+                      timed=layer == 1,
                       nbytes=keys * M_KV * D * 4 + 4 * SLOTS * M_H * D + 8 * SLOTS,
                       flop=4 * M_H * D * keys)
     # B9 at G = 8: W = 16 holds 128 query rows a block, two K1 launches
     _check_windows(lambda *a, **k: _check_kernel(
-        scratch, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **k), rnd, kp, vp, M_H, M_KV, (4, 8, 16))
+        scratch, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, **k),
+        rnd, kp, vp, M_H, M_KV, (4, 8, 16))
     del kp, vp
-    for B, T in ((4, 512), (1, 3030), (1, 3072)):
+    for B, T in ((4, 512), (1, 3030), (2, 3030), (1, 3072)):
         qf, kf, vf = rnd(B, T, M_H, D), rnd(B, T, M_KV, D), rnd(B, T, M_KV, D)
         _check_kernel(scratch, "flash_attention", f"G=8 B={B} T={T}",
                       lambda: fa.flash_attention(qf, kf, vf),
                       lambda: fa.flash_attention_plain(qf, kf, vf),
-                      rtol=ATTN_RTOL, atol=ATTN_ATOL, timed=T == 3072,
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC,
+                      timed=T == 3072,
                       flop=4 * B * M_H * D * T * (T + 1) // 2,
                       nbytes=2 * B * T * D * (2 * M_H + 2 * M_KV))
     res["g8"] = scratch
@@ -1916,6 +2123,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
     res.update(phase_attention_kernels(gen))
+    k1_b1 = res.pop("slot_attention_b1")
+    k1_b64 = res.pop("slot_attention_b64")
+    b11_res, b11_launches = phase_one_layer_kernels(gen)
+    res.update(b11_res)
     moe_res = phase_moe_kernels(gen)
     g8 = moe_res.pop("g8")
     res.update(moe_res)
@@ -1925,6 +2136,7 @@ def main(argv=None) -> int:
     _free()
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
+                          "k1_b1": k1_b1, "k1_b64": k1_b64, "b11_launches": b11_launches,
                           "card": card}))
         return 0
     serve, engine = phase_serve(card, profile=opts.profile)
@@ -1996,6 +2208,7 @@ def main(argv=None) -> int:
     log(f"[release] MLA engines and weights released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
 
+    b11_path = {"launches": b11_launches}   # B11's own path (no serving path runs it)
     src = "deepsearch_tts_tpu_torch/ops/"
     jsrc = "deepsearch_tts_tpu/ops/"
     attn = src + "csrc/attention.cu"
@@ -2025,6 +2238,9 @@ def main(argv=None) -> int:
                          i8_serve),
         "quantize_int8": ("triton", src + "quant.py", jsrc + "quant.py:24", i8_serve),
         "fused_mlp_stacked": ("cuda", fused, jsrc + "fused_layer.py:468", mla_serve),
+        "fused_mlp": ("cuda", fused, jsrc + "fused_layer.py:112", b11_path),
+        "fused_qkv": ("cuda", fused, jsrc + "fused_layer.py:150", b11_path),
+        "fused_out_mlp": ("cuda", fused, jsrc + "fused_layer.py:975", b11_path),
         "slot_attention_latent": ("cuda", attn, jsrc + "slot_attention.py:116 "
                                   "_slot_attn_kernel_shared (D = 576)", mla_slot),
         "paged_attention_latent": ("cuda", attn, jsrc + "paged_attention.py:49 _paged_kernel "
@@ -2044,7 +2260,8 @@ def main(argv=None) -> int:
     log(card)   # the card's name and power limit again, beside the result lines
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
-                      "g8": g8, "mla_kernels": mla_kernels, "card": card}))
+                      "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

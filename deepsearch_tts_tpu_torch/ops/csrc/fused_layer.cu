@@ -4,6 +4,9 @@
 //   B4  fused_out_mlp_stacked     (_out_mlp_stacked_kernel,    fused_layer.py:356)
 //   B7  fused_out_router_stacked  (_out_router_stacked_kernel, fused_layer.py:818)
 //   B8  fused_mlp_stacked         (_mlp_stacked_kernel,        fused_layer.py:468)
+//   B11 fused_mlp / fused_qkv / fused_out_mlp, the one-layer forms
+//       (fused_layer.py:112, :150, :975): B8 / B3 / B4 at L = 1, and for
+//       fused_out_mlp with unpacked gate and up, dstts_fused_out_mlp_split
 //   B10 fused_qkv_stacked_i8      (_qkv_stacked_kernel_i8,     fused_layer.py:568)
 //       fused_out_mlp_stacked_i8  (_out_mlp_stacked_kernel_i8, fused_layer.py:669)
 //       and the bare int8 product of ops/quant.int8_matmul (quant.py:68)
@@ -653,6 +656,28 @@ int run_out_mlp(const bf16* A, const bf16* X, const void* Wo, const float* wo_s,
   return (int)cudaGetLastError();
 }
 
+// B8 (and B11's unpacked out-MLP) over one layer's weights: out = [x +]
+// (silu(xn @ Wg) * (xn @ Wu)) @ Wd, xn = rmsnorm(x) * ln (norm) or x
+int run_mlp(const bf16* X, const bf16* ln, const bf16* Wg, const bf16* Wu, const bf16* Wd,
+            float* P, bf16* xn, bf16* Hh, bf16* out, int B, int E, int F, int s_gu,
+            int s_d, int norm, int residual, float eps, cudaStream_t st) {
+  const bf16* XN = X;
+  if (norm) {
+    rms_norm_rows<<<B, NT, 0, st>>>(X, ln, E, eps, xn);
+    XN = xn;
+  }
+  // gate and up partials side by side: [s_gu, B, F] each
+  const long long gsz = (long long)s_gu * B * F;
+  launch_gemm(XN, Wg, P, B, E, F, s_gu, st);
+  launch_gemm(XN, Wu, P + gsz, B, E, F, s_gu, st);
+  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
+      P, P + gsz, (long long)B * F, F, s_gu, B, F, nullptr, Hh);
+  launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
+      P, s_d, B, E, nullptr, residual ? X : nullptr, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -757,27 +782,34 @@ int dstts_fused_mlp(const void* x, const void* ln_all, const void* wg_all,
                     const void* wu_all, const void* wd_all, void* partial, void* xn,
                     void* h, void* out, int layer, int B, int E, int F, int s_gu,
                     int s_d, int norm, int residual, float eps, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long l = layer;
-  const bf16* X = static_cast<const bf16*>(x);
+  return run_mlp(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + l * E,
+                 static_cast<const bf16*>(wg_all) + l * E * F,
+                 static_cast<const bf16*>(wu_all) + l * E * F,
+                 static_cast<const bf16*>(wd_all) + l * F * E, static_cast<float*>(partial),
+                 static_cast<bf16*>(xn), static_cast<bf16*>(h), static_cast<bf16*>(out), B,
+                 E, F, s_gu, s_d, norm, residual, eps, static_cast<cudaStream_t>(stream));
+}
+
+// B11 fused_out_mlp with unpacked gate and up (fused_layer.py:975): B4's
+// x2 = x + a @ wo, then B8's two-pointer path on x2 with norm and residual.
+// a [B,HD]; x [B,E]; wo [HD,E]; ln [E]; wg, wu [E,F]; wd [F,E]; partial f32
+// (>= max(s_o*E, 2*s_gu*F, s_d*E)*B); x2, xn [B,E] and h [B,F] bf16 scratch.
+int dstts_fused_out_mlp_split(const void* a, const void* x, const void* wo, const void* ln,
+                              const void* wg, const void* wu, const void* wd, void* partial,
+                              void* x2, void* xn, void* h, void* out, int B, int HD, int E,
+                              int F, int s_o, int s_gu, int s_d, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* P = static_cast<float*>(partial);
-  bf16* Hh = static_cast<bf16*>(h);
-  const bf16* XN = X;
-  if (norm) {
-    rms_norm_rows<<<B, NT, 0, st>>>(X, static_cast<const bf16*>(ln_all) + l * E, E, eps,
-                                    static_cast<bf16*>(xn));
-    XN = static_cast<const bf16*>(xn);
-  }
-  // gate and up partials side by side: [s_gu, B, F] each
-  const long long gsz = (long long)s_gu * B * F;
-  launch_gemm(XN, static_cast<const bf16*>(wg_all) + l * E * F, P, B, E, F, s_gu, st);
-  launch_gemm(XN, static_cast<const bf16*>(wu_all) + l * E * F, P + gsz, B, E, F, s_gu, st);
-  swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
-      P, P + gsz, (long long)B * F, F, s_gu, B, F, nullptr, Hh);
-  launch_gemm(Hh, static_cast<const bf16*>(wd_all) + l * F * E, P, B, F, E, s_d, st);
+  bf16* X2 = static_cast<bf16*>(x2);
+  launch_gemm(static_cast<const bf16*>(a), static_cast<const bf16*>(wo), P, B, HD, E, s_o,
+              st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
-      P, s_d, B, E, nullptr, residual ? X : nullptr, static_cast<bf16*>(out));
-  return (int)cudaGetLastError();
+      P, s_o, B, E, nullptr, static_cast<const bf16*>(x), X2);
+  return run_mlp(X2, static_cast<const bf16*>(ln), static_cast<const bf16*>(wg),
+                 static_cast<const bf16*>(wu), static_cast<const bf16*>(wd), P,
+                 static_cast<bf16*>(xn), static_cast<bf16*>(h), static_cast<bf16*>(out), B,
+                 E, F, s_gu, s_d, 1, 1, eps, st);
 }
 
 // B7. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E]; router_all [L,E,NE];

@@ -8,8 +8,10 @@ of :func:`.attention.causal_attention`. The two agree for T == S, the only
 case the engine and the no-cache forward use.
 
 For a CUDA tensor the wrapper launches K2 of ``csrc/attention.cu`` (bf16,
-head_dim 128; tensor-core QKᵀ and PV, online softmax in registers, the G
-query heads of a kv head folded into the tile rows); for a CPU tensor it
+head_dim 128, ``128 % G == 0``: a warp-specialised ``wgmma`` kernel fed by
+TMA loads through an ``mbarrier`` ring, 128 folded query rows a block on
+two consumer warpgroups, the G query heads of a kv head folded into the
+tile rows, online softmax in registers); for a CPU tensor it
 runs :func:`flash_attention_plain`, which holds the TPU kernel's numerics:
 q scaled in float32, float32 scores, p kept in float32 for the value
 product (the kernel rounds p to bf16 for its mma operand, within the bf16
@@ -22,6 +24,7 @@ import torch
 from .attention import NEG_INF, _query_blocks
 
 HEAD_DIM = 128
+TILE_ROWS = 128     # folded query rows t·G + g of one K2 block (csrc: FBM)
 
 
 def flash_attention_plain(q, k, v, *, scale: float | None = None):
@@ -54,9 +57,10 @@ def flash_attention(q, k, v, *, scale: float | None = None):
 
     B, T, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    if D != HEAD_DIM or H % K:
-        raise ValueError(f"flash attention kernel needs head_dim={HEAD_DIM} and "
-                         f"H % K == 0 (got D={D}, H={H}, K={K})")
+    if D != HEAD_DIM or H % K or TILE_ROWS % (H // K) or T < 1 or S < 1:
+        raise ValueError(f"flash attention kernel needs head_dim={HEAD_DIM}, H % K == 0, "
+                         f"{TILE_ROWS} % (H/K) == 0 and T, S >= 1 (got D={D}, H={H}, K={K}, "
+                         f"T={T}, S={S})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check("q", q, (B, T, H, D))
     _check("k", k, (B, S, K, D))

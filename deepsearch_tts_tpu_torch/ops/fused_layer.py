@@ -15,6 +15,11 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
   @ wg[l]) · (xn @ wu[l])) @ wd[l]`` over unpacked gate and up stacks, xn =
   rmsnorm(x)·ln[l] or x: the MLA family's dense-layer MLPs (norm and
   residual) and shared experts (neither); its attention stays plain.
+* :func:`fused_mlp` / :func:`fused_qkv` / :func:`fused_out_mlp` (B11) —
+  the JAX package's one-layer forms, which only its tests call: B8, B3 and
+  B4 at L = 1 over ``t[None]`` views of the single matrices; unpacked
+  gate/up in ``fused_out_mlp`` take B4's x2 phase and then B8's
+  two-pointer path (one C entry), so no packed copy is made.
 * :func:`fused_qkv_stacked_i8` / :func:`fused_out_mlp_stacked_i8` (B10,
   dense, int8 weights) — B3 / B4 over int8 stacks ``[L,K,N]`` with float32
   per-column scales ``[L,1,N]`` (``ops/quant.quantize_params`` layout),
@@ -169,6 +174,8 @@ def _lib():
         lib.dstts_fused_out_router.restype = i
         lib.dstts_fused_mlp.argtypes = [p] * 9 + [i] * 8 + [f, p]
         lib.dstts_fused_mlp.restype = i
+        lib.dstts_fused_out_mlp_split.argtypes = [p] * 12 + [i] * 7 + [f, p]
+        lib.dstts_fused_out_mlp_split.restype = i
         ll = ctypes.c_longlong
         lib.dstts_grouped_gateup.argtypes = [p] * 4 + [ll] + [i] * 5 + [p, p]
         lib.dstts_grouped_gateup.restype = i
@@ -227,12 +234,24 @@ def fused_qkv_stacked(x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer,
         return fused_qkv_stacked_plain(x, ln_all, wqkv_all, qn_all, kn_all, cos,
                                        sin, layer, n_heads=n_heads, n_kv=n_kv,
                                        head_dim=head_dim, eps=eps)
+    out = _launch_qkv("fused_qkv_stacked", x, ln_all, wqkv_all, qn_all, kn_all, cos,
+                      sin, layer, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps)
+    fused_qkv_stacked.launches += 1
+    return out
+
+
+fused_qkv_stacked.launches = 0
+
+
+def _launch_qkv(name, x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer, *,
+                n_heads: int, n_kv: int, head_dim: int, eps: float):
+    """B3's kernel on CUDA tensors (checks, scratch, launch)."""
     B, E = x.shape
     L = wqkv_all.shape[0]
     D, H, K = head_dim, n_heads, n_kv
     C = (H + 2 * K) * D
     if not shapes_ok(E, H * D, _TILE, D) or not 0 <= int(layer) < L:
-        raise ValueError(f"fused_qkv_stacked kernel needs head_dim={HEAD_DIM}, "
+        raise ValueError(f"{name} kernel needs head_dim={HEAD_DIM}, "
                          f"E % {_TILE} == 0 and 0 <= layer < L (got D={D}, E={E}, "
                          f"layer={layer}, L={L})")
     _check("x", x, (B, E))
@@ -252,13 +271,9 @@ def fused_qkv_stacked(x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer,
         kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(), partial.data_ptr(),
         xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s, float(eps),
         stream)
-    _raise_if(err, "fused_qkv_stacked")
-    fused_qkv_stacked.launches += 1
+    _raise_if(err, name)
     HD, KD = H * D, K * D
     return out[:, :HD], out[:, HD:HD + KD], out[:, HD + KD:]
-
-
-fused_qkv_stacked.launches = 0
 
 
 def fused_out_mlp_stacked(attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer,
@@ -270,12 +285,24 @@ def fused_out_mlp_stacked(attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer
     if x.device.type == "cpu":
         return fused_out_mlp_stacked_plain(attn_out, x, wo_all, ln_all, gateup_all,
                                            wd_all, layer, eps=eps)
+    out = _launch_out_mlp("fused_out_mlp_stacked", attn_out, x, wo_all, ln_all,
+                          gateup_all, wd_all, layer, eps=eps)
+    fused_out_mlp_stacked.launches += 1
+    return out
+
+
+fused_out_mlp_stacked.launches = 0
+
+
+def _launch_out_mlp(name, attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer, *,
+                    eps: float):
+    """B4's kernel on CUDA tensors (checks, scratch, launch)."""
     B, E = x.shape
     HD = attn_out.shape[1]
     L, _, F2 = gateup_all.shape
     Fi = F2 // 2
     if not shapes_ok(E, HD, Fi, HEAD_DIM) or not 0 <= int(layer) < L:
-        raise ValueError(f"fused_out_mlp_stacked kernel needs E, H·D, F % {_TILE} "
+        raise ValueError(f"{name} kernel needs E, H·D, F % {_TILE} "
                          f"== 0 and 0 <= layer < L (got E={E}, HD={HD}, F={Fi}, "
                          f"layer={layer}, L={L})")
     _check("attn_out", attn_out, (B, HD))
@@ -298,12 +325,8 @@ def fused_out_mlp_stacked(attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer
         gateup_all.data_ptr(), wd_all.data_ptr(), partial.data_ptr(),
         x2.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(), int(layer),
         B, HD, E, Fi, s_o, s_gu, s_d, float(eps), stream)
-    _raise_if(err, "fused_out_mlp_stacked")
-    fused_out_mlp_stacked.launches += 1
+    _raise_if(err, name)
     return out
-
-
-fused_out_mlp_stacked.launches = 0
 
 
 def fused_out_router_stacked(attn_out, x, wo_all, ln_all, router_all, layer,
@@ -361,10 +384,22 @@ def fused_mlp_stacked(x, ln_all, wg_all, wu_all, wd_all, layer, *, eps: float = 
     if x.device.type == "cpu":
         return fused_mlp_stacked_plain(x, ln_all, wg_all, wu_all, wd_all, layer, eps=eps,
                                        residual=residual, norm=norm)
+    out = _launch_mlp("fused_mlp_stacked", x, ln_all, wg_all, wu_all, wd_all, layer,
+                      eps=eps, residual=residual, norm=norm)
+    fused_mlp_stacked.launches += 1
+    return out
+
+
+fused_mlp_stacked.launches = 0
+
+
+def _launch_mlp(name, x, ln_all, wg_all, wu_all, wd_all, layer, *, eps: float,
+                residual: bool, norm: bool):
+    """B8's kernel on CUDA tensors (checks, scratch, launch)."""
     B, E = x.shape
     L, _, Fi = wg_all.shape
     if not mlp_shapes_ok(E, Fi) or not 0 <= int(layer) < L:
-        raise ValueError(f"fused_mlp_stacked kernel needs E, F % {_TILE} == 0 and "
+        raise ValueError(f"{name} kernel needs E, F % {_TILE} == 0 and "
                          f"0 <= layer < L (got E={E}, F={Fi}, layer={layer}, L={L})")
     _check("x", x, (B, E))
     _check("ln_all", ln_all, (L, E))
@@ -383,12 +418,145 @@ def fused_mlp_stacked(x, ln_all, wg_all, wu_all, wd_all, layer, *, eps: float = 
         wd_all.data_ptr(), partial.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(),
         int(layer), B, E, Fi, s_gu, s_d, int(bool(norm)), int(bool(residual)), float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(err, "fused_mlp_stacked")
-    fused_mlp_stacked.launches += 1
+    _raise_if(err, name)
     return out
 
 
-fused_mlp_stacked.launches = 0
+# ------------------------------------------------- B11: the one-layer forms
+
+def fused_mlp_plain(x, ln_w, w_gate, w_up, w_down, *, eps: float = 1e-6,
+                    block_f: int | None = None):
+    """Reference for B11 ``fused_mlp`` (``_mlp_kernel``, ``fused_layer.py:92``):
+    B8's round points at L = 1."""
+    return fused_mlp_stacked_plain(x, ln_w[None], w_gate[None], w_up[None], w_down[None],
+                                   0, eps=eps)
+
+
+def fused_qkv_plain(x, ln_w, wqkv, q_norm, k_norm, cos, sin, *, n_heads: int, n_kv: int,
+                    head_dim: int, eps: float = 1e-6):
+    """Reference for B11 ``fused_qkv`` (``_qkv_traced_kernel``,
+    ``fused_layer.py:207``): B3's round points at L = 1, cos/sin taken in
+    float32 as the kernel casts them."""
+    return fused_qkv_stacked_plain(x, ln_w[None], wqkv[None], q_norm[None], k_norm[None],
+                                   cos.float(), sin.float(), 0, n_heads=n_heads,
+                                   n_kv=n_kv, head_dim=head_dim, eps=eps)
+
+
+def _gate_up(w_gate, w_up, packed_gateup: bool):
+    """The [E,F] gate and up matrices: the halves of the packed [E,2F]
+    passed as both, or the two matrices as they are."""
+    if not packed_gateup:
+        return w_gate, w_up
+    Fi = w_gate.shape[1] // 2
+    return w_gate[:, :Fi].contiguous(), w_up[:, Fi:].contiguous()
+
+
+def fused_out_mlp_plain(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *,
+                        eps: float = 1e-6, packed_gateup: bool = False):
+    """Reference for B11 ``fused_out_mlp`` (``_out_mlp_kernel``,
+    ``fused_layer.py:930-972``): x2, xn, h and out rounded to x's dtype,
+    float32 accumulators. Packed and unpacked gate/up give the same bits."""
+    dt = x.dtype
+    wg, wu = _gate_up(w_gate, w_up, packed_gateup)
+    x2 = (x.float() + matmul_f32(attn_out, wo)).to(dt)
+    xn = rms_norm(x2, ln_w, eps)
+    h = (F.silu(matmul_f32(xn, wg)) * matmul_f32(xn, wu)).to(dt)
+    return (x2.float() + matmul_f32(h, w_down)).to(dt)
+
+
+def fused_mlp(x, ln_w, w_gate, w_up, w_down, *, eps: float = 1e-6,
+              block_f: int | None = None):
+    """B11 ``fused_mlp``: ``x + swiglu(rmsnorm(x)·ln_w) @ w_down``. x [B,E];
+    ln_w [E]; w_gate / w_up [E,F]; w_down [F,E] → [B,E]. On the card B8's
+    kernel at L = 1 over ``t[None]`` views (no copy). ``block_f`` is the TPU
+    kernel's VMEM tiling: accepted and ignored."""
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, ln_w, w_gate, w_up, w_down, eps=eps)
+    out = _launch_mlp("fused_mlp", x, ln_w[None], w_gate[None], w_up[None], w_down[None],
+                      0, eps=eps, residual=True, norm=True)
+    fused_mlp.launches += 1
+    return out
+
+
+fused_mlp.launches = 0
+
+
+def fused_qkv(x, ln_w, wqkv, q_norm, k_norm, cos, sin, *, n_heads: int, n_kv: int,
+              head_dim: int, eps: float = 1e-6):
+    """B11 ``fused_qkv``: ``(q [B,H·D], k [B,K·D], v [B,K·D])`` of one layer.
+    x [B,E]; ln_w [E]; wqkv [E,(H+2K)·D]; q_norm / k_norm [D]; cos / sin
+    [B,D/2] in any float dtype (B3 takes them in float32). On the card B3's
+    kernel at L = 1."""
+    if x.device.type == "cpu":
+        return fused_qkv_plain(x, ln_w, wqkv, q_norm, k_norm, cos, sin, n_heads=n_heads,
+                               n_kv=n_kv, head_dim=head_dim, eps=eps)
+    out = _launch_qkv("fused_qkv", x, ln_w[None], wqkv[None], q_norm[None], k_norm[None],
+                      cos.float().contiguous(), sin.float().contiguous(), 0,
+                      n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps)
+    fused_qkv.launches += 1
+    return out
+
+
+fused_qkv.launches = 0
+
+
+def fused_out_mlp(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *, eps: float = 1e-6,
+                  packed_gateup: bool = False):
+    """B11 ``fused_out_mlp``: ``x2 + swiglu(rmsnorm(x2)·ln_w) @ w_down`` with
+    ``x2 = x + attn_out @ wo``. attn_out [B,H·D]; x [B,E]; wo [H·D,E];
+    ln_w [E]; w_gate / w_up [E,F], or with ``packed_gateup`` the packed
+    [E,2F] passed as both; w_down [F,E] → [B,E]. On the card packed gate/up
+    is B4's kernel at L = 1; unpacked, ``dstts_fused_out_mlp_split`` (B4's
+    x2 phase, then B8's two-pointer gate/up path), so no gate|up copy is
+    made."""
+    if x.device.type == "cpu":
+        return fused_out_mlp_plain(attn_out, x, wo, ln_w, w_gate, w_up, w_down, eps=eps,
+                                   packed_gateup=packed_gateup)
+    if packed_gateup:
+        if w_up.data_ptr() != w_gate.data_ptr() or w_up.shape != w_gate.shape:
+            raise ValueError("fused_out_mlp with packed_gateup takes the packed [E,2F] "
+                             "matrix as both w_gate and w_up")
+        out = _launch_out_mlp("fused_out_mlp", attn_out, x, wo[None], ln_w[None],
+                              w_gate[None], w_down[None], 0, eps=eps)
+    else:
+        out = _launch_out_mlp_split(attn_out, x, wo, ln_w, w_gate, w_up, w_down, eps=eps)
+    fused_out_mlp.launches += 1
+    return out
+
+
+fused_out_mlp.launches = 0
+
+
+def _launch_out_mlp_split(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *, eps: float):
+    """``dstts_fused_out_mlp_split`` on CUDA tensors: B11's out-MLP over
+    unpacked gate and up."""
+    B, E = x.shape
+    HD = attn_out.shape[1]
+    Fi = w_gate.shape[1]
+    if not shapes_ok(E, HD, Fi, HEAD_DIM):
+        raise ValueError(f"fused_out_mlp kernel needs E, H·D, F % {_TILE} == 0 (got E={E}, "
+                         f"HD={HD}, F={Fi})")
+    _check("attn_out", attn_out, (B, HD))
+    _check("x", x, (B, E))
+    _check("wo", wo, (HD, E))
+    _check("ln_w", ln_w, (E,))
+    _check("w_gate", w_gate, (E, Fi))
+    _check("w_up", w_up, (E, Fi))
+    _check("w_down", w_down, (Fi, E))
+    s_o, s_gu, s_d = _splits(B, E, HD), _splits(B, Fi, E), _splits(B, E, Fi)
+    dev = x.device
+    partial = torch.empty((max(s_o * E, 2 * s_gu * Fi, s_d * E) * B,), dtype=torch.float32,
+                          device=dev)
+    x2, xn = (torch.empty((B, E), dtype=x.dtype, device=dev) for _ in range(2))
+    h = torch.empty((B, Fi), dtype=x.dtype, device=dev)
+    out = torch.empty((B, E), dtype=x.dtype, device=dev)
+    err = _lib().dstts_fused_out_mlp_split(
+        attn_out.data_ptr(), x.data_ptr(), wo.data_ptr(), ln_w.data_ptr(),
+        w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), partial.data_ptr(),
+        x2.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(), B, HD, E, Fi, s_o, s_gu,
+        s_d, float(eps), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "fused_out_mlp")
+    return out
 
 
 def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, layer,

@@ -12,9 +12,13 @@ Three entry points, each a Pallas kernel in the JAX package:
 
 On Hopper all three launch one kernel, ``decode_attention`` in
 ``csrc/attention.cu`` (K1), which also serves the slot cache
-(:mod:`.slot_attention`): one block per (row, kv head) walks that row's
-pages up to its own limit. For a CPU tensor each wrapper runs its plain
-version (``*_plain``), which holds the TPU kernel's round points: float32
+(:mod:`.slot_attention`): one block per (row, kv head, context split)
+walks its chunk of that row's pages up to the row's own limit, on the
+tensor cores, and a small kernel merges the splits' partials. The split
+(:func:`decode_splits`) is chosen from static sizes and the card's SM count
+only. For a CPU tensor
+each wrapper runs its plain version (``*_plain``), which holds the TPU
+kernel's round points: float32
 scores and softmax, and p kept in float32 for the value product
 (``paged_attention.py:106``). Each wrapper counts its kernel launches in
 its ``launches`` attribute.
@@ -30,6 +34,7 @@ calls take K3 (``latent_attention`` in ``csrc/attention.cu``) through
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +42,9 @@ from .attention import NEG_INF, gather_kv_rows
 
 HEAD_DIM = 128        # head width the kernels are written for
 MAX_QUERY_ROWS = 64   # T·H/K query rows one K1 block holds
+KEY_TILE = 64         # keys of one K1 pipeline stage (csrc: DBK)
+MIN_CHUNK_TILES = 4   # a K1 split holds at least 256 keys
+BLOCKS_PER_SM = 2     # K1 blocks resident on one SM (its 104.4 KB ring)
 LATENT_DIM = 576      # K3's row: DeepSeek-V3 / Kimi-K2 kv_lora_rank 512 + rope 64
 LATENT_V = 512        # K3's value columns (kv_lora_rank)
 LATENT_HEADS = 16     # query heads one K3 block holds
@@ -94,7 +102,33 @@ def pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table, seq_lens, *
                                      scale=scale, v_width=v_width)
 
 
+# ----------------------------------------------------- K1's split of the context
+
+def decode_splits(B: int, KV: int, s_max: int, sms: int) -> tuple[int, int]:
+    """``(splits, chunk)``: K1 cuts each row's context of at most ``s_max``
+    keys into ``splits`` chunks of ``chunk`` keys, one block each, from
+    static sizes alone (``seq_lens`` lie on the card and are never read
+    here) on a card of ``sms`` SMs. One split where the ``B·KV`` blocks
+    already fill it (``BLOCKS_PER_SM`` on each SM); otherwise enough to
+    reach twice that, with chunks of whole key tiles and at least
+    ``MIN_CHUNK_TILES`` of them; the chunks cover ``s_max`` and none lies
+    wholly past it."""
+    tiles = max(1, -(-s_max // KEY_TILE))
+    base, fill = B * KV, BLOCKS_PER_SM * sms
+    want = 1 if base >= fill else -(-2 * fill // base)
+    s = max(1, min(want, tiles // MIN_CHUNK_TILES))
+    per = -(-tiles // s)
+    return -(-tiles // per), per * KEY_TILE
+
+
 # ------------------------------------------------------------------- kernel K1
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA card ``index`` (a static property,
+    read once: no host sync)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def _lib():
     from ._build import load_library
@@ -103,15 +137,29 @@ def _lib():
     if not getattr(lib, "_dstts_typed", False):
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.dstts_decode_attention.argtypes = [p, ll, p, p, p, i, ll, p, p, i, i, i,
-                                               p, i, i, i, i, i, f, i, p]
+                                               p, i, i, i, i, i, f, i, i, i, p, p, p]
         lib.dstts_decode_attention.restype = i
         lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
         lib.dstts_flash_attention.restype = i
         lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, i,
                                                f, i, p]
         lib.dstts_latent_attention.restype = i
+        lib.dstts_attention_occupancy.argtypes = [p]
+        lib.dstts_attention_occupancy.restype = i
         lib._dstts_typed = True
     return lib
+
+
+def attention_occupancy() -> dict:
+    """Blocks an SM holds of each attention kernel, as the CUDA runtime
+    computes them from registers, threads and shared memory (the build's
+    ``-Xptxas -v`` report gives the registers)."""
+    from .fused_layer import _raise_if
+
+    out = (ctypes.c_int * 5)()
+    _raise_if(_lib().dstts_attention_occupancy(out), "attention_occupancy")
+    names = ("K1 (1 m-tile)", "K1 (2 m-tiles)", "K1 (4 m-tiles)", "K2", "K3")
+    return dict(zip(names, out))
 
 
 def _check_index(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
@@ -164,13 +212,23 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
     if max_keys is None:
         max_keys = P * ps
     scale = scale if scale is not None else D ** -0.5
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    splits, chunk = decode_splits(B, K, min(int(max_keys), P * ps), _sm_count(index))
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=dev)
+    o_part = ml_part = None
+    if splits > 1:
+        rows = B * K * splits * T * (H // K)
+        o_part = torch.empty((rows, D), dtype=torch.float32, device=dev)
+        ml_part = torch.empty((rows, 2), dtype=torch.float32, device=dev)
     err = _lib().dstts_decode_attention(
         q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
         None if page_table is None else page_table.data_ptr(), P, int(row_offset),
         seq_lens.data_ptr(), None if q_positions is None else q_positions.data_ptr(),
         qpos_stride, int(bool(min_one)), int(max_keys), out.data_ptr(), B, T, H, K,
-        ps, float(scale), int(bool(p_bf16)), torch.cuda.current_stream(dev).cuda_stream)
+        ps, float(scale), int(bool(p_bf16)), splits, chunk,
+        None if o_part is None else o_part.data_ptr(),
+        None if ml_part is None else ml_part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, "decode_attention")
     return out
 

@@ -16,8 +16,9 @@ On Hopper a slot row is one page of ``max_seq_len`` tokens, so both wrappers
 launch the paged decode kernel K1 (``csrc/attention.cu``) with the identity
 table ``row = layer·N + b`` and p rounded to bf16 before the value product,
 the B1 / B9 round point (``slot_attention.py:98`` / :178). B9 takes K1's
-T-row mode: one block per (row, kv head) holds all W·G query rows of the
-window, so the window shares one read of the context, as B9 does on the TPU.
+T-row mode: one block per (row, kv head, context split) holds all W·G query
+rows of the window, so the window shares one read of the context, as B9
+does on the TPU.
 A block holds at most 64 query rows, so a longer window is split into pieces
 of ⌊64/G⌋ queries, one launch each. B1's shared variant at MLA's latent
 width (D = 576, one cache head, 128 or 64 query heads) is past K1's shapes:

@@ -176,8 +176,8 @@ def test_fused_out_mlp_plain_matches_jax_kernel(layer):
 def test_fused_wrappers_never_fall_back_off_cpu():
     """A tensor that is not on the CPU never reaches the plain version: off
     the CPU the wrapper launches its CUDA kernel or raises (here: a meta
-    tensor, which is neither) — B3, B4, B7 and both entries of the grouped
-    expert kernel."""
+    tensor, which is neither) — B3, B4, B7, both entries of the grouped
+    expert kernel and B11's three one-layer forms."""
     from deepsearch_tts_tpu_torch.ops import moe as tmoe_ops
 
     p = _layer_inputs()
@@ -205,10 +205,25 @@ def test_fused_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError):
         tmoe_ops.grouped_down(torch.zeros((B, F), dtype=torch.bfloat16, device="meta"),
                               w_down, offsets)
+    # B11's one-layer forms: fused_mlp, fused_qkv, fused_out_mlp packed and not
+    one = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16, device="meta")  # noqa: E731
+    wg, wu, wd = one(E, F), one(E, F), one(F, E)
+    with pytest.raises(ValueError):
+        tfused.fused_mlp(meta(p["x"]), one(E), wg, wu, wd)
+    with pytest.raises(ValueError):
+        tfused.fused_qkv(meta(p["x"]), one(E), one(E, (H + 2 * K) * D), one(D), one(D),
+                         cos.to("meta"), sin.to("meta"), n_heads=H, n_kv=K, head_dim=D)
+    gu = one(E, 2 * F)
+    for args, packed in (((wg, wu), False), ((gu, gu), True)):
+        with pytest.raises(ValueError):
+            tfused.fused_out_mlp(meta(p["a"]), meta(p["x"]), one(H * D, E), one(E), *args,
+                                 wd, packed_gateup=packed)
     assert tfused.fused_qkv_stacked.launches == 0
     assert tfused.fused_out_mlp_stacked.launches == 0
     assert tfused.fused_out_router_stacked.launches == 0
     assert tmoe_ops.grouped_gateup.launches == tmoe_ops.grouped_down.launches == 0
+    assert tfused.fused_mlp.launches == tfused.fused_qkv.launches == 0
+    assert tfused.fused_out_mlp.launches == 0
 
 
 def test_fused_split_choice_covers_k_exactly():
