@@ -25,9 +25,12 @@ Phases, each raising on failure (non-zero exit, no final line):
    B = 1 and 16, and B11's own path: its counters set to 0, each entry
    driven once on a 16-row decode layer, the counts read (no serving path
    runs B11); then, at qwen3-30b-a3b widths, B7, both entries of the
-   grouped expert kernel (16 and 3072 tokens x top-8, one expert empty;
-   ``torch._grouped_mm`` timed beside it where this PyTorch has it) and
-   B3 / B1 / B2 at its query group G = 8;
+   grouped expert kernels, one expert empty: the decode kernel at 16
+   tokens x top-8 and one token below the wrappers' crossover
+   (``moe.PREFILL_ROWS_PER_EXPERT``), the prefill kernel at the crossover,
+   3072 and 3072 skewed (one expert over 256 rows), each timed shape beside
+   ``torch._grouped_mm`` where this PyTorch has it; and B3 / B1 / B2 at its
+   query group G = 8;
 4. serve: ``deepsearch_tts_tpu_torch.cli.serve.build_engine`` builds
    qwen3-8b (full width, bf16, random weights from a seed) on the card; an
    ``OpenAIServer`` on an ephemeral localhost port answers chat and
@@ -50,7 +53,9 @@ Phases, each raising on failure (non-zero exit, no final line):
 10. MoE serve: phase 4 for qwen3-30b-a3b (full width, 61 GB of random bf16
     weights): decode through B3, B7 and the grouped expert kernel, whose
     counters must equal 48 x the decode steps (B3, B7) and 48 x (decode
-    steps + prefill forwards) (each expert entry); peak memory logged;
+    steps + prefill forwards) (each expert entry, either kernel; the long
+    prompt's prefill takes the prefill kernel, the decode steps the decode
+    one, and the kernel line counts each); peak memory logged;
 11. MoE reference: phase 5 on the qwen3-30b-a3b weights, the no-cache
     forward running the expert FFN's plain versions (``plain_experts``), so
     that the check covers the grouped expert kernel too;
@@ -96,8 +101,12 @@ Phases, each raising on failure (non-zero exit, no final line):
     B = 16 and 4096-token rows with ragged limits and inactive rows, through
     B1's entry (``slot_attention`` with ``v_pool=None``, the slot identity
     table) and through the three B6 entries over a shuffled table of
-    64-token pages; the grouped expert kernel at E = 7168, F = 2048, 256
-    experts, top-8, gate and up unpacked;
+    64-token pages, and at B = 1 over one full 4096-key row and B = 64,
+    each beside SDPA, under the rms-scaled bound (a plain attention missing
+    a split of the B = 1 row must fail it); the grouped expert kernels at
+    E = 7168, F = 2048, 256 experts, top-8, gate and up unpacked: the decode
+    kernel at 16 tokens, the prefill kernel at 3072 (also packed, beside
+    ``torch._grouped_mm``);
 21. MLA serve, after the qwen3-32b int8 engine is released (less than
     1 GiB may stay allocated): deepseek-v3 at its published widths cut to
     5 of its 61 layers (3 dense + 2 MoE, 26.6 B parameters, 53.2 GB of
@@ -296,12 +305,17 @@ def phase_build() -> None:
         + f" (started together; {time.time() - t0:.2f} s in all)")
     for name in LIBS:
         for line in _build.build_log.get(name, "").splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "warning")):
                 log(f"[build] {name}: {line.strip()}")
     from deepsearch_tts_tpu_torch.ops import paged_attention as pa
 
+    from deepsearch_tts_tpu_torch.ops import moe
+
     occ = pa.attention_occupancy()
     log("[build] attention blocks an SM (runtime occupancy): " +
+        ", ".join(f"{k} {v}" for k, v in occ.items()))
+    occ = moe.grouped_occupancy()
+    log("[build] grouped expert blocks an SM (runtime occupancy): " +
         ", ".join(f"{k} {v}" for k, v in occ.items()))
 
 
@@ -579,19 +593,20 @@ def _check_kernel(res: dict, name: str, label: str, kernel, plain, *, rtol: floa
     log(msg)
 
 
-def _bound_rejects_split_faults(ref, q, k, v) -> None:
-    """The K1 bound is tight enough to see a fault of the context split:
-    over one full row (q [1,H,D], k / v [1,KV,S,D], ``ref`` B1's plain
-    output) a plain attention with p rounded to bf16 passes the bound, and
-    the same with one 256-key split dropped, with the last 64-key tile
-    dropped, or with one split weighed twice, each fails it."""
+def _bound_rejects_split_faults(ref, q, k, v, *, scale=None, tag: str = "K1") -> None:
+    """The rms-scaled attention bound is tight enough to see a fault of the
+    context split: over one full row (q [1,H,D], k [1,KV,S,D], v
+    [1,KV,S,Dv], ``ref`` B1's plain output) a plain attention with p
+    rounded to bf16 passes the bound, and the same with one 256-key split
+    dropped, with the last 64-key tile dropped, or with one split weighed
+    twice, each fails it."""
     import torch
 
     H, D = q.shape[1], q.shape[2]
     S = k.shape[2]
     kk = k[0].float().repeat_interleave(H // k.shape[1], 0)    # [H,S,D]
     vv = v[0].float().repeat_interleave(H // k.shape[1], 0)
-    s = torch.einsum("hd,hsd->hs", q[0].float() * D ** -0.5, kk)
+    s = torch.einsum("hd,hsd->hs", q[0].float() * (scale or D ** -0.5), kk)
     chunk = S // 16
 
     def attend(lo=0, hi=0, bias=-torch.inf):
@@ -601,14 +616,14 @@ def _bound_rejects_split_faults(ref, q, k, v) -> None:
         return torch.einsum("hs,hsd->hd", p, vv).to(torch.bfloat16)[None]
 
     uses, flat = {}, {}
-    for tag, fault in (("sound", dict()), ("one split dropped", dict(lo=chunk, hi=2 * chunk)),
-                       ("last 64-key tile dropped", dict(lo=S - 64, hi=S)),
-                       ("one split weighed twice",
-                        dict(lo=chunk, hi=2 * chunk, bias=math.log(2.0)))):
-        out = attend(**fault)
-        uses[tag] = _bound_use(out, ref, ATTN_RTOL, ATTN_ATOL, ATTN_RMS_FRAC)
-        flat[tag] = _bound_use(out, ref, ATTN_RTOL, ATTN_ATOL, math.inf)
-    log("[kernel] K1 bound over one full row, bound use: " +
+    for fault, kw in (("sound", dict()), ("one split dropped", dict(lo=chunk, hi=2 * chunk)),
+                      ("last 64-key tile dropped", dict(lo=S - 64, hi=S)),
+                      ("one split weighed twice",
+                       dict(lo=chunk, hi=2 * chunk, bias=math.log(2.0)))):
+        out = attend(**kw)
+        uses[fault] = _bound_use(out, ref, ATTN_RTOL, ATTN_ATOL, ATTN_RMS_FRAC)
+        flat[fault] = _bound_use(out, ref, ATTN_RTOL, ATTN_ATOL, math.inf)
+    log(f"[kernel] {tag} bound over one full row, bound use: " +
         ", ".join(f"{t} {u:.3f}" for t, u in uses.items()) +
         " (ATTN_ATOL alone: " + ", ".join(f"{u:.3f}" for u in flat.values()) + ")")
     assert uses.pop("sound") <= 1.0 and min(uses.values()) > 1.0, uses
@@ -783,10 +798,10 @@ def _check_windows(check, rnd, kp, vp, h, kv, widths, timed_w=None, library_kv=N
 
 
 def phase_moe_kernels(gen) -> dict:
-    """B7 and both entries of the grouped expert kernel against their plain
-    versions at qwen3-30b-a3b widths, and B3, K1 (B1) and K2 (B2) at its
-    query group G = H/K = 8; returns per-kernel results (the B3, B1 and B2
-    errors at G = 8 under ``"g8"``)."""
+    """B7 and both entries of the grouped expert kernels (decode and
+    prefill) against their plain versions at qwen3-30b-a3b widths, and B3,
+    K1 (B1) and K2 (B2) at its query group G = H/K = 8; returns per-kernel
+    results (the B3, B1 and B2 errors at G = 8 under ``"g8"``)."""
     import torch
 
     from deepsearch_tts_tpu_torch.models.common import rope_angles
@@ -836,50 +851,63 @@ def phase_moe_kernels(gen) -> dict:
         del wo, ln, router
 
     # grouped expert FFN over the rows of one layer of a 2-layer expert stack
-    # (layer 1: the layer offset); expert 7 gets no rows
+    # (layer 1: the layer offset); expert 7 gets no rows. The decode kernel
+    # at 16 tokens and one token below the prefill kernel's crossover (which
+    # the wrapper takes from static sizes), the prefill kernel at the
+    # crossover, at 3072 (timed) and at 3072 skewed (expert 3 over 256
+    # rows); the timed shapes beside torch._grouped_mm where this PyTorch
+    # has it
     grouped_mm = getattr(torch, "_grouped_mm", None)
     log(f"[kernel] grouped expert yardstick: torch._grouped_mm "
         f"{'present' if grouped_mm else 'absent'} in torch {torch.__version__}")
     wgu = rnd(2, M_NE, M_E, 2 * M_F, scale=M_E ** -0.5)[1]
     wd = rnd(2, M_NE, M_F, M_E, scale=M_F ** -0.5)[1]
-    for T in (SLOTS, 3072):
+    cross = moe.PREFILL_ROWS_PER_EXPERT * M_NE // M_TOPK   # tokens at the crossover
+    for T, tag in ((SLOTS, "decode"), (cross - 1, "below"), (cross, "above"),
+                   (3072, "prefill"), (3072, "skewed")):
         logits = torch.randn((T, M_NE), generator=gen, device=dev) * 2
         logits[:, 7] = -1e30
+        if tag == "skewed":
+            logits[:, 3] += 4.0
         _, top_e = moe.route_topk(logits, M_TOPK)
         flat_e = top_e.reshape(-1)
         order = torch.argsort(flat_e, stable=True)
         offsets = moe.group_offsets(flat_e, M_NE)
         xs = rnd(T, M_E)[order // M_TOPK]
-        assert int(offsets[7]) == int(offsets[8]), "expert 7 must be empty"
-        touched = int(((offsets[1:] - offsets[:-1]) > 0).sum())
-        label = f"T={T} x top-{M_TOPK} ({touched} experts)"
-        h = moe.grouped_gateup_plain(xs, wgu, None, offsets)
-        decode = T == SLOTS
+        sizes = offsets[1:] - offsets[:-1]
+        assert int(sizes[7]) == 0, "expert 7 must be empty"
         rows = T * M_TOPK
+        prefill = moe.grouped_prefill(rows, M_NE, M_E, M_F)
+        assert prefill == (tag in ("above", "prefill", "skewed")), (tag, rows)
+        if tag != "decode":   # ragged experts: rows not a multiple of 128
+            assert bool((sizes % 128 != 0).any())
+        if tag == "skewed":
+            assert int(sizes[3]) > 256, int(sizes[3])
+        touched = int((sizes > 0).sum())
+        label = (f"T={T} x top-{M_TOPK} ({touched} experts, largest {int(sizes.max())} rows)"
+                 f"{' skewed' if tag == 'skewed' else ''}")
+        sfx = "_prefill" if prefill else ""
+        timed = tag in ("decode", "prefill")
+        h = moe.grouped_gateup_plain(xs, wgu, None, offsets)
         # the yardstick: torch._grouped_mm, the same ragged products in one
         # call (gate|up without the SwiGLU), where this PyTorch has it
         ends = offsets[1:]
-        check("grouped_gateup", label, lambda: moe.grouped_gateup(xs, wgu, None, offsets),
-              lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets), timed=True,
+        check("grouped_gateup" + sfx, label, lambda: moe.grouped_gateup(xs, wgu, None, offsets),
+              lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets), timed=timed,
               nbytes=2 * (touched * M_E * 2 * M_F + rows * (M_E + M_F)) + 4 * (M_NE + 1),
               flop=2 * rows * M_E * 2 * M_F, plain_graph=False,
-              library=grouped_mm and (lambda: grouped_mm(xs, wgu, offs=ends)))
-        check("grouped_down", label, lambda: moe.grouped_down(h, wd, offsets),
-              lambda: moe.grouped_down_plain(h, wd, offsets), timed=True,
+              library=timed and grouped_mm and (lambda: grouped_mm(xs, wgu, offs=ends)) or None)
+        check("grouped_down" + sfx, label, lambda: moe.grouped_down(h, wd, offsets),
+              lambda: moe.grouped_down_plain(h, wd, offsets), timed=timed,
               nbytes=2 * (touched * M_F * M_E + rows * (M_F + M_E)) + 4 * (M_NE + 1),
               flop=2 * rows * M_F * M_E, plain_graph=False,
-              library=grouped_mm and (lambda: grouped_mm(h, wd, offs=ends)))
-        if decode:
-            kept = {n: dict(res[n]) for n in ("grouped_gateup", "grouped_down")}
+              library=timed and grouped_mm and (lambda: grouped_mm(h, wd, offs=ends)) or None)
+        if timed:   # gate and up unpacked, as MLA's experts are
             wg, wu = wgu[..., :M_F].contiguous(), wgu[..., M_F:].contiguous()
-            check("grouped_gateup", label + " unpacked",
+            check("grouped_gateup" + sfx, label + " unpacked",
                   lambda: moe.grouped_gateup(xs, wg, wu, offsets),
                   lambda: moe.grouped_gateup_plain(xs, wg, wu, offsets))
             del wg, wu
-    # the decode shape is the one the JSON line reports
-    for n, r in kept.items():
-        res[n].update({k: r[k] for k in ("ms", "plain_ms", "shape", "bound_ms", "bound_by",
-                                         "library_ms")})
     del wgu, wd
 
     # B3 at G = 8: E = 2048, 32 q and 4 kv heads ((H + 2K)·D = 5120 columns,
@@ -1085,9 +1113,10 @@ def phase_int8_kernels(gen) -> dict:
 
 def phase_mla_kernels(gen) -> tuple[dict, dict]:
     """B8 and K3 against their plain versions at deepseek-v3 widths (K3 also
-    at kimi-k2's 64 heads), and the grouped expert kernel at its expert
-    shape; returns the per-kernel results of the JSON line (B8 timed at the
-    dense width, K3 at H = 128) and the other timed shapes."""
+    at kimi-k2's 64 heads, and at B = 1 and 64 beside SDPA), and the grouped
+    expert kernels at its expert shape; returns the per-kernel results of
+    the JSON line (B8 timed at the dense width, K3 at H = 128, B = 16) and
+    the other timed shapes."""
     import torch
 
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
@@ -1106,7 +1135,7 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
         _check_kernel(res if k.get("timed") else other, name, *a, **k)
 
     def attn_check(name, *a, **k):
-        check(name, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **k)
+        check(name, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, **{"rms_frac": ATTN_RMS_FRAC, **k})
 
     _free()   # the earlier kernel phases' tensors and graphs
     # B8: two-layer stacks (793 MB a dense layer, 88 MB a shared expert:
@@ -1175,7 +1204,42 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
             other["slot_attention_latent H=64"] = {
                 "ms": time_ms(lambda: sa.slot_attention(q, pool, None, lim, 1, **kw),
                               iters=20)[0], **bound(io, 2 * h * (X_D + X_V) * keys)}
-    del pool, k1
+    # B = 1 over one full 4096-key row (16 splits of 256 keys), beside SDPA
+    # over the same row, and the bound's view of a split fault there
+    qb, lb = rnd(1, 128, X_D), torch.tensor([CTX], device=dev)
+    kb = pool[1:2].transpose(1, 2)                            # [1, 1, CTX, 576]
+    kw1 = dict(kw, n_rows=1)
+    row: dict = {}
+    _check_kernel(row, "slot_attention_latent",
+                  f"deepseek-v3 H=128 B=1 layer=1 ctx={CTX} (one full row)",
+                  lambda: sa.slot_attention(qb, pool[:2], None, lb, 1, **kw1),
+                  lambda: sa.slot_attention_plain(qb, pool[:2], None, lb, 1, **kw1),
+                  rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                  nbytes=CTX * X_D * 2 + 128 * (X_D + X_V) * 2 + 8,
+                  flop=2 * 128 * (X_D + X_V) * CTX,
+                  library=lambda: sdpa(qb[:, None], kb, kb[..., :X_V], scale=X_SCALE))
+    other["slot_attention_latent B=1"] = row.pop("slot_attention_latent")
+    _bound_rejects_split_faults(sa.slot_attention_plain(qb, pool[:2], None, lb, 1, **kw1),
+                                qb, kb, kb[..., :X_V], scale=X_SCALE, tag="K3")
+    del pool, k1, kb
+    _free()
+    # B = 64 (LIMITS four times over): 128 blocks of 64 heads, three splits
+    n64 = 4 * SLOTS
+    pool64 = rnd(n64, CTX, 1, X_D)
+    q64, lim64 = rnd(n64, 128, X_D), torch.tensor(LIMITS * 4, device=dev)
+    k64 = pool64.transpose(1, 2)
+    mask64 = (torch.arange(CTX, device=dev)[None] < lim64.clamp(min=1)[:, None])[:, None, None]
+    kw64 = dict(kw, n_rows=n64)
+    _check_kernel(row, "slot_attention_latent", f"deepseek-v3 H=128 B={n64} layer=0 ctx={CTX}",
+                  lambda: sa.slot_attention(q64, pool64, None, lim64, 0, **kw64),
+                  lambda: sa.slot_attention_plain(q64, pool64, None, lim64, 0, **kw64),
+                  rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                  nbytes=4 * keys * X_D * 2 + n64 * 128 * (X_D + X_V) * 2 + n64 * 8,
+                  flop=2 * 128 * (X_D + X_V) * 4 * keys,
+                  library=lambda: sdpa(q64[:, None], k64, k64[..., :X_V], attn_mask=mask64,
+                                       scale=X_SCALE))
+    other["slot_attention_latent B=64"] = row.pop("slot_attention_latent")
+    del pool64, q64, k64
     _free()
 
     # K3 through the three B6 entries: 64-token pages of a shuffled table
@@ -1214,36 +1278,63 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
     _free()
     for name in ("slot_attention_latent", "paged_attention_latent"):
         res[name]["err"] = max(res[name]["err"], other.pop(name)["err"])
+    res["slot_attention_latent"]["err"] = max(
+        res["slot_attention_latent"]["err"], *(other[f"slot_attention_latent B={n}"]["err"]
+                                               for n in (1, n64)))
 
-    # the grouped expert kernel at deepseek-v3's expert shape, gate and up
-    # unpacked (MLA's routed experts), over the rows of 16 tokens x top-8
+    # the grouped expert kernels at deepseek-v3's expert shape, gate and up
+    # unpacked (MLA's routed experts): the decode kernel over the rows of 16
+    # tokens x top-8, the prefill kernel over 3072 tokens x top-8, there
+    # also packed, beside torch._grouped_mm over the packed copy
     wg = torch.empty((X_NE, X_E, X_FS), dtype=bf, device=dev)
     wu, wd = torch.empty_like(wg), torch.empty((X_NE, X_FS, X_E), dtype=bf, device=dev)
+    wgu = torch.empty((X_NE, X_E, 2 * X_FS), dtype=bf, device=dev)
     for e in range(0, X_NE, 32):   # drawn 32 experts at a time
         wg[e:e + 32], wu[e:e + 32] = (rnd(32, X_E, X_FS, scale=X_E ** -0.5) for _ in "gu")
         wd[e:e + 32] = rnd(32, X_FS, X_E, scale=X_FS ** -0.5)
-    logits = torch.randn((SLOTS, X_NE), generator=gen, device=dev) * 2
-    _, top_e = moe.route_topk(logits, X_TOPK)
-    flat_e = top_e.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    offsets = moe.group_offsets(flat_e, X_NE)
-    xs = rnd(SLOTS, X_E)[order // X_TOPK]
-    touched = int(((offsets[1:] - offsets[:-1]) > 0).sum())
-    rows = SLOTS * X_TOPK
-    label = f"deepseek-v3 T={SLOTS} x top-{X_TOPK} ({touched} of {X_NE} experts) unpacked"
-    h = moe.grouped_gateup_plain(xs, wg, wu, offsets)
-    _check_kernel(other, "grouped_gateup", label,
-                  lambda: moe.grouped_gateup(xs, wg, wu, offsets),
-                  lambda: moe.grouped_gateup_plain(xs, wg, wu, offsets), rtol=BF16_RTOL,
-                  atol=BF16_ATOL, timed=True, plain_graph=False,
-                  nbytes=2 * (touched * X_E * 2 * X_FS + rows * (X_E + X_FS)) + 4 * (X_NE + 1),
-                  flop=2 * rows * X_E * 2 * X_FS)
-    _check_kernel(other, "grouped_down", label, lambda: moe.grouped_down(h, wd, offsets),
-                  lambda: moe.grouped_down_plain(h, wd, offsets), rtol=BF16_RTOL,
-                  atol=BF16_ATOL, timed=True, plain_graph=False,
-                  nbytes=2 * (touched * X_FS * X_E + rows * (X_FS + X_E)) + 4 * (X_NE + 1),
-                  flop=2 * rows * X_FS * X_E)
-    del wg, wu, wd, h
+        wgu[e:e + 32] = torch.cat([wg[e:e + 32], wu[e:e + 32]], dim=-1)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    for T in (SLOTS, 3072):
+        logits = torch.randn((T, X_NE), generator=gen, device=dev) * 2
+        _, top_e = moe.route_topk(logits, X_TOPK)
+        flat_e = top_e.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        offsets = moe.group_offsets(flat_e, X_NE)
+        xs = rnd(T, X_E)[order // X_TOPK]
+        sizes = offsets[1:] - offsets[:-1]
+        touched = int((sizes > 0).sum())
+        rows = T * X_TOPK
+        prefill = moe.grouped_prefill(rows, X_NE, X_E, X_FS)
+        assert prefill == (T != SLOTS), (T, prefill)
+        sfx = "_prefill" if prefill else ""
+        label = (f"deepseek-v3 T={T} x top-{X_TOPK} ({touched} of {X_NE} experts, largest "
+                 f"{int(sizes.max())} rows) unpacked")
+        h = moe.grouped_gateup_plain(xs, wg, wu, offsets)
+        ends = offsets[1:]
+        gu_bytes = 2 * (touched * X_E * 2 * X_FS + rows * (X_E + X_FS)) + 4 * (X_NE + 1)
+        _check_kernel(other, "grouped_gateup" + sfx, label,
+                      lambda: moe.grouped_gateup(xs, wg, wu, offsets),
+                      lambda: moe.grouped_gateup_plain(xs, wg, wu, offsets), rtol=BF16_RTOL,
+                      atol=BF16_ATOL, timed=True, plain_graph=False, nbytes=gu_bytes,
+                      flop=2 * rows * X_E * 2 * X_FS,
+                      library=prefill and grouped_mm and (lambda: grouped_mm(xs, wgu, offs=ends))
+                      or None)
+        _check_kernel(other, "grouped_down" + sfx, label,
+                      lambda: moe.grouped_down(h, wd, offsets),
+                      lambda: moe.grouped_down_plain(h, wd, offsets), rtol=BF16_RTOL,
+                      atol=BF16_ATOL, timed=True, plain_graph=False,
+                      nbytes=2 * (touched * X_FS * X_E + rows * (X_FS + X_E)) + 4 * (X_NE + 1),
+                      flop=2 * rows * X_FS * X_E,
+                      library=prefill and grouped_mm and (lambda: grouped_mm(h, wd, offs=ends))
+                      or None)
+        if prefill:
+            _check_kernel(other, "grouped_gateup_prefill", label[:-len("unpacked")] + "packed",
+                          lambda: moe.grouped_gateup(xs, wgu, None, offsets),
+                          lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets),
+                          rtol=BF16_RTOL, atol=BF16_ATOL)
+        for n in ("grouped_gateup", "grouped_down"):
+            other[f"{n} deepseek-v3 T={T}"] = other.pop(n + sfx)
+    del wg, wu, wd, wgu, h
     return res, other
 
 
@@ -1336,8 +1427,7 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
                 payload = {"messages": [{"role": "user", "content": content}], **kw}
                 return _post(f"{base}/chat/completions", payload)
 
-            for f in counters.values():
-                f.launches = 0
+            _zero(counters)
             st0 = dict(engine.stats)
             ttfts = []
             for i in range(5):
@@ -1533,8 +1623,7 @@ def phase_moe_spec(card: str, params: dict) -> dict:
             fl.fused_out_router_stacked.__name__)
     out: dict = {}
     try:
-        for f in counters.values():
-            f.launches = 0
+        _zero(counters)
         st0 = dict(engine.stats)
         futs = engine.submit_many([GenerationRequest(
             prompt_ids=engine.tokenizer.encode(f"MoE speculative {i}: the rivers of Europe."),
@@ -1642,8 +1731,7 @@ def phase_mla_pallas(card: str, params: dict) -> dict:
                 "pallas_paged_attention": pa.pallas_paged_attention}
     out: dict = {}
     try:
-        for f in counters.values():
-            f.launches = 0
+        _zero(counters)
         st0 = dict(engine.stats)
         futs = engine.submit_many([GenerationRequest(
             prompt_ids=engine.tokenizer.encode(f"MLA paged {i}: " + "the rivers of Europe. "
@@ -1781,6 +1869,14 @@ def _counters(model: str) -> dict:
     return {f.__name__: f for f in fns + [sp.sampling_prep]}
 
 
+def _zero(counters: dict) -> None:
+    """Set every launch counter of ``counters`` (name → wrapper) to 0."""
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "prefill_launches"):
+            f.prefill_launches = 0
+
+
 def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
                     idle=()) -> dict:
     """Read the counters after a phase and hold them to the phase's work:
@@ -1797,6 +1893,14 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
     launches = {n: f.launches for n, f in counters.items()}
     log(f"[{tag}] decode steps {steps}, prefill dispatches {prefills}, sample calls "
         f"{steps + prefills}, launches {launches}")
+    # the grouped expert entries count either kernel; of those, the prefill
+    # kernel's apart (a long prompt's forward takes it)
+    prefill = {n + "_prefill": counters[n].prefill_launches for n in launches
+               if n.startswith("grouped_")}
+    for name, n in prefill.items():
+        assert 0 <= n <= launches[name[:-len("_prefill")]], (name, n)
+    if prefill:
+        log(f"[{tag}] of which the grouped expert prefill kernel: {prefill}")
     for name, n in launches.items():
         if name in idle:
             assert n == 0, (name, n)
@@ -1808,7 +1912,7 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
                 else L_moe * (steps + prefills) if name.startswith("grouped_")
                 else L * steps)
         assert n == want > 0, (name, n, want)
-    return launches
+    return {**launches, **prefill}
 
 
 def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
@@ -1859,8 +1963,7 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     try:
         with _serve_http(engine) as base:
             # counters are zeroed right before the main path runs
-            for f in counters.values():
-                f.launches = 0
+            _zero(counters)
             st0 = dict(engine.stats)
 
             def chat(content, **kw):
@@ -2222,6 +2325,8 @@ def main(argv=None) -> int:
                                      moe_serve),
         "grouped_gateup": ("cuda", fused, ragged, moe_serve),
         "grouped_down": ("cuda", fused, ragged, moe_serve),
+        "grouped_gateup_prefill": ("cuda", fused, ragged, moe_serve),
+        "grouped_down_prefill": ("cuda", fused, ragged, moe_serve),
         "sampling_prep": ("triton", src + "sampling_prep.py",
                           jsrc + "sampling_prep.py:30", serve),
         "slot_attention": ("cuda", attn, jsrc + "slot_attention.py:110", slot),
@@ -2247,12 +2352,16 @@ def main(argv=None) -> int:
                                    "(v = k, D = 576)", mla_pallas),
     }
     i8_serve["launches"]["quantize_int8"] = i8_serve["quantize_launches"]
+    for n in ("grouped_gateup", "grouped_down"):   # the decode kernel's: all but the prefill's
+        moe_serve["launches"][n] -= moe_serve["launches"][n + "_prefill"]
     kernels = [{"name": n, "route": r, "source": s, "replaces": rep,
                 "launches": run["launches"][n],
                 "max_abs_err": res[n]["err"], "ms": res[n]["ms"],
                 "plain_ms": res[n]["plain_ms"], "bound_ms": res[n]["bound_ms"],
                 "bound_by": res[n]["bound_by"], "library_ms": res[n]["library_ms"]}
                for n, (r, s, rep, run) in meta.items()]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    assert not idle, f"kernels no run of their path launched: {idle}"
     runs = {"serve": serve, "slot_serve": slot, "spec_serve": spec, "pallas_serve": pallas,
             "moe_serve": moe_serve, "moe_slot": moe_slot, "moe_spec": moe_spec,
             "int8_serve": i8_serve, "mla_serve": mla_serve, "mla_slot": mla_slot,

@@ -3,15 +3,16 @@
 Each ``ops/csrc/*.cu`` exposes a plain C interface (raw pointers, ints,
 the CUDA stream; returns the ``cudaGetLastError()`` code), so nvcc compiles
 it in seconds without PyTorch's headers. The shared library goes to
-``build/torch_kernels/`` at the repo root, named by a hash of the source and
-flags, and is built on first use — ``python3 chip_smoke.py`` alone builds
-everything.
+``build/torch_kernels/`` at the repo root, named by a hash of the source,
+the headers beside it (``hopper.cuh``) and the flags, and is built on first
+use — ``python3 chip_smoke.py`` alone builds everything.
 
 Nothing here runs at import time; a failed build raises with nvcc's stderr.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -49,8 +50,10 @@ def load_library(name: str) -> ctypes.CDLL:
             return lib
         src = os.path.join(_CSRC, f"{name}.cu")
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        with open(src, "rb") as f:
-            h.update(f.read())
+        # the source and the headers beside it (every .cuh: any may be included)
+        for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
         so = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)

@@ -83,20 +83,47 @@
 //     24 (producer) and 240 (consumers) (NVIDIA H100 80GB HBM3, 700.00 W,
 //     CUDA 12.8).
 // * K3 sits near the card's ridge: per key it reads 1152 B once and does
-//   2*H*(576 + 512) FLOP (H = 128: 242 FLOP a byte). One block per (row,
-//   16 query heads): a 64-row stage of the row's context (72 KB,
-//   double-buffered with cp.async) feeds both contractions, QK over 576
-//   columns and PV over 512, on mma.sync m16n8k16 bf16 -> float32 (an f32
-//   accumulator of 128 heads x 512 columns would be 256 KB, past a
-//   register file). Warp w holds the 16 heads' scores of keys 16w..16w+15
-//   and their PV accumulator of value columns 128w..128w+127; scores and p
-//   meet in shared memory for the online softmax. The H/16 head tiles of a
-//   row re-read its context, mostly from L2 (8x at H = 128, 4x at H = 64).
+//   2*H*(576 + 512) FLOP (H = 128: 242 FLOP a byte), so it wants the
+//   tensor cores' full rate and every SM streaming. The design follows the
+//   published shape of FlashMLA (DeepSeek's MLA decode kernel):
+//   - one block holds 64 query heads (one wgmma m64 tile; H % 64 == 0 covers
+//     deepseek-v3's 128 and kimi-k2's 64) and one chunk of one row's
+//     context: grid (B, H/64, splits), the split chosen from static sizes
+//     and the SM count (ops/paged_attention.py latent_splits: K1's policy
+//     with one block an SM and chunks of >= 256 keys, the least chunk set by
+//     scripts/sweep_hopper_kernels.py). An empty split writes m = -inf and
+//     exits; decode_merge<512> combines the splits' (m, l, O) and never
+//     reads an empty one's O;
+//   - a producer warpgroup: one thread issues every TMA load, the q tile
+//     (nine 64-column boxes, 72 KB) once, then 64-key tiles (72 KB) into a
+//     2-stage full / empty mbarrier ring; a slot row's tile is one box
+//     column of 64 consecutive pool rows, a paged tile one box per page
+//     (pages of 64 keys or more: one; of 8 .. 32: several), and boxes wholly
+//     past the row's limit are not loaded;
+//   - consumer warpgroup 0 computes S = Q K^T (64 x 64, both K-major from
+//     shared memory, 36 k-steps) and the online softmax in registers (exp2,
+//     log2 e in the scale), hands p to warpgroup 1 as bf16 A fragments in
+//     shared memory (each thread's slots: the thread with the same rows
+//     reads its own fragment back) with the rescale factors, and
+//     accumulates O over value columns 0..255; warpgroup 1 accumulates
+//     columns 256..511 from the same p. PV takes p from registers and V
+//     from the same tile's first 512 columns (MN-major), so a tile is read
+//     once for both products; a 64 x 512 float32 accumulator would be 256
+//     registers a thread in one warpgroup, two hold 128 each;
+//   - shared memory: q 72 KB + 2 key tiles 144 KB + p 8 KB = 226 KB, one
+//     block an SM (12 warps), as the runtime's occupancy query reports;
+//     ptxas gives 168 registers a thread at entry, moved by setmaxnreg to
+//     24 (producer) and 240 (consumers) (NVIDIA H100 80GB HBM3, 700.00 W,
+//     CUDA 12.8).
 //
 // Numerics of K3: float32 scores scaled after the product, float32 softmax
 // sum. With p_bf16 (B1) PV takes p rounded to bf16; without it (B6, float32
 // p) PV runs twice, on bf16(p) and on the bf16 remainder p - bf16(p), which
-// carries p to ~16 significant bits in the float32 accumulator.
+// carries p to ~16 significant bits in the float32 accumulator; the
+// remainder goes to warpgroup 1 through the tile's rope box, which QK no
+// longer needs. Value rows past the limit are zeroed in shared memory
+// before PV: they weigh p = 0 but may hold anything (a never-written slot,
+// an unloaded box).
 //
 // Numerics. Scores are float32 and the scale D^-1/2 (times log2 e) is
 // applied to them: the TPU kernels scale q in float32 first, which agrees
@@ -115,11 +142,12 @@
 // Interface: plain C, raw pointers, launched on the caller's stream; no
 // allocation; each entry returns the cudaGetLastError() code.
 
-#include <cuda.h>   // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"   // mbarriers, TMA, wgmma
 
 namespace {
 
@@ -135,18 +163,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int DBK = 64;        // keys per stage
 constexpr int DSTAGES = 3;     // cp.async ring depth
 constexpr int DROWS = 64;      // query rows a block holds at most: 4 m-tiles of 16
-
-// K3
-constexpr int LDK = 576;       // latent row: kv_lora_rank 512 + rope 64
-constexpr int LDV = 512;       // value columns (the latent part of the row)
-constexpr int LROW = LDK + 8;  // padded shared-memory row (1168 B: conflict-free)
-constexpr int LBH = 16;        // query heads per block: one m16 tile
-constexpr int LBK = 64;        // keys per tile: 4 warps x 16
-constexpr int PROW = LBK + 8;  // padded p row (144 B)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -186,17 +202,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // ------------------------------------------------------------------- K1
@@ -474,9 +479,11 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
   }
 }
 
-// grid (R, KV, B), HD threads: out row r of (b, kv head) from the splits'
-// partials; splits with no key (m = -inf) are skipped, never read
-__global__ void __launch_bounds__(HD)
+// grid (R, KV, B), D threads: out row r of (b, kv head) from the splits'
+// partials (D columns: K1's HD, K3's LDV); splits with no key (m = -inf)
+// are skipped, never read
+template <int D>
+__global__ void __launch_bounds__(D)
 decode_merge(const float* __restrict__ o_part, const float* __restrict__ ml_part,
              bf16* __restrict__ out, int T, int H, int KV, int splits) {
   const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
@@ -492,11 +499,11 @@ decode_merge(const float* __restrict__ o_part, const float* __restrict__ ml_part
       if (m == -INFINITY) continue;
       const float w = exp2f(m - M);
       L += ml_part[2 * pr + 1] * w;
-      acc += o_part[pr * HD + d] * w;
+      acc += o_part[pr * D + d] * w;
     }
   }
   const int t = r / G, g = r % G;
-  out[(((long long)b * T + t) * H + kh * G + g) * HD + d] =
+  out[(((long long)b * T + t) * H + kh * G + g) * D + d] =
       __float2bfloat16(acc / fmaxf(L, 1e-30f));
 }
 
@@ -521,7 +528,7 @@ int launch_decode(const void* q, long long q_bstride, const void* k, const void*
       scale * LOG2E, p_bf16, chunk, static_cast<float*>(o_part),
       static_cast<float*>(ml_part));
   if (splits > 1) {
-    decode_merge<<<dim3(T * (H / KV), KV, B), HD, 0, st>>>(
+    decode_merge<HD><<<dim3(T * (H / KV), KV, B), HD, 0, st>>>(
         static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
         static_cast<bf16*>(out), T, H, KV, splits);
   }
@@ -529,140 +536,6 @@ int launch_decode(const void* q, long long q_bstride, const void* k, const void*
 }
 
 // ------------------------------------------------------------------- K2
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-// one arrival that also expects `bytes` from the TMA loads of this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-// wait for the completion of the phase of parity `parity`; a wait that lasts
-// ~10 s (a lost arrival) traps, so a fault fails the launch instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  long long t0 = 0;
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1), "r"(c2) : "memory");
-}
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile stored in 128-byte swizzle atoms
-// (8 rows of 128 B, as TMA's CU_TENSOR_MAP_SWIZZLE_128B writes them): start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// named barriers 1 and 2 order the two consumer warpgroups' products
-// (0 is __syncthreads'): 256 threads, one warpgroup syncing, the other
-// arriving
-__device__ __forceinline__ void bar_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
-}
-
-template <int N>   // at most N committed groups still running
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// pins the accumulators in place around the asynchronous products: no read
-// or write of them moves across this point
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
-}
-
-// d (+)= A B for a 64x128 tile of the warpgroup, K = 16: A and B from shared
-// memory by descriptor, both K-major (scale_d = 0: d = A B)
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d += A B with A (16 bf16 a thread, the m16n8k16 A fragment of its warp's
-// 16 rows) from registers and B from shared memory, transposed (MN-major)
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
 
 constexpr int FBM = 128;       // folded query rows a block: two consumer warpgroups x 64
 constexpr int FBN = 128;       // keys a K / V tile
@@ -783,7 +656,7 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 256);   // every consumer thread releases the stage
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -853,11 +726,11 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // and bar_arrive(2 - wg), so the two take turns on the tensor cores and
     // one's softmax runs under the other's products; warpgroup 1 lets
     // warpgroup 0 go first. Both run the same tiles, so turns pair up.
-    if (wg == 1) bar_arrive(1);
+    if (wg == 1) bar_arrive(1, 256);
     mbar_wait(q_full, 0);
-    bar_sync(1 + wg);
+    bar_sync(1 + wg, 256);
     issue_qk(0);
-    bar_arrive(2 - wg);
+    bar_arrive(2 - wg, 256);
     wgmma_wait<0>();
     fence_regs(sc);
     softmax_tile(sc, pk, m0, m1, l0, l1, al0, al1, 0, rows);
@@ -865,10 +738,10 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     // of tile kt, and the softmax of kt+1 runs while PV kt is on the tensor
     // cores (no branch inside, so ptxas sees which group each wait retires)
     for (int kt = 0; kt + 1 < ntiles; ++kt) {
-      bar_sync(1 + wg);
+      bar_sync(1 + wg, 256);
       issue_qk(kt + 1);
       issue_pv(kt);
-      bar_arrive(2 - wg);
+      bar_arrive(2 - wg, 256);
       wgmma_wait<1>();
       fence_regs(sc);
       softmax_tile(sc, pn, m0, m1, l0, l1, al0, al1, (kt + 1) * FBN, rows);
@@ -886,9 +759,9 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
       for (int i = 0; i < 32; ++i) pk[i] = pn[i];
     }
-    bar_sync(1 + wg);
+    bar_sync(1 + wg, 256);
     issue_pv(ntiles - 1);
-    bar_arrive(2 - wg);
+    bar_arrive(2 - wg, 256);
     wgmma_wait<0>();
     fence_regs(o);
     mbar_arrive(&empty[(ntiles - 1) % FSTAGES]);
@@ -914,70 +787,71 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a bf16 tensor map with 128-byte swizzle (zeros past the tensor's end)
-bool bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-              const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled enc = encode_tiled();
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  return enc && enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                    strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // ------------------------------------------------------------------- K3
 
-constexpr int latent_smem_bytes() {
-  return (LBH + 2 * LBK) * LROW * (int)sizeof(bf16)    // q tile + 2 stages of rows
-         + 2 * LBH * PROW * (int)sizeof(bf16)           // p (hi, lo)
-         + LBH * LBK * (int)sizeof(float)               // scores
-         + 3 * LBH * (int)sizeof(float);                // m, l, alpha
-}
+constexpr int LDK = 576;            // latent row: kv_lora_rank 512 + rope 64
+constexpr int LDV = 512;            // value columns (the latent part of the row)
+constexpr int LHB = 64;             // query heads a block: one wgmma m64 tile
+constexpr int LBK = 64;             // keys a tile
+constexpr int LCH = LDK / SWZ;      // 64-column boxes of a row: 8 value + 1 rope
+constexpr int LBOX = LBK * 128;     // bytes of one box of a key tile (and of the q tile)
+constexpr int LTILE = LCH * LBOX;   // one key tile (and the q tile): 72 KB
+constexpr int LSTAGES = 2;          // key-tile ring depth
+constexpr int LTH = 384;            // two consumer warpgroups + the producer warpgroup
+static_assert(LHB == LBK, "the q tile and a key tile share one box size");
 
-// grid (B, H / LBH), NTH threads (4 warps). Block (b, hb) holds query heads
-// hb*16 .. hb*16 + 15 of row b (one m16 tile), which all see keys j < limit:
-//   limit = min(seq_len[b] (>= 1 if min_one), qpos[b*qpos_stride] + 1 (qpos
-//           not null), max_keys).
-// Key j lies at slot j % ps of page table[b*P + j/ps] (table == nullptr:
-// row_offset + b) of the [R, ps, 1, LDK] pool; its first LDV columns are its
-// value. One stage of LBK rows in shared memory feeds both products: QK over
-// all LDK columns (warp w: keys 16w .. 16w + 15), PV over the first LDV
-// (warp w: value columns 128w .. 128w + 127).
-__global__ void __launch_bounds__(NTH)
-latent_attention(const bf16* __restrict__ q, const bf16* __restrict__ pool,
+constexpr int latent_smem_bytes() {
+  return 1024                       // slack: the tiles start 1024-byte aligned
+         + LTILE * (1 + LSTAGES)    // q, then LSTAGES key tiles
+         + LBOX                     // p as bf16 A fragments, warpgroup 0 -> 1
+         + 2 * 128 * 4              // the rescale factors of each thread's two rows
+         + 8 * (1 + 2 * LSTAGES);   // mbarriers
+}
+static_assert(latent_smem_bytes() <= 232448, "K3's shared memory exceeds a block's");
+
+// grid (B, H / LHB, splits), LTH threads, one block an SM. Block (b, hb, z)
+// holds query heads hb*64 .. hb*64 + 63 of row b, which all see keys
+//   j < limit = min(seq_len[b] (>= 1 if min_one), qpos[b*qpos_stride] + 1
+//               (qpos not null), max_keys),
+// and walks keys [z*chunk, (z+1)*chunk) of them in 64-key tiles. Key j is
+// row page*ps + j % ps of the pool seen as [R*ps, 576], page = table[b*P +
+// j/ps] (table == nullptr: row_offset + b, a slot row: a tile is 64
+// consecutive rows, TMA boxes of 64 keys); a paged tile is 64 / box_rows
+// boxes of one page each (box_rows = 64 where ps % 64 == 0, else ps), and
+// boxes wholly past the limit are not loaded. Warpgroup 2 is the producer:
+// one thread issues every TMA load (q once, then the key ring). Warpgroup 0
+// computes S = Q K^T over all 576 columns (both from shared memory), the
+// online softmax in registers (log2 units), hands p (bf16 A fragments: each
+// thread's slots, so warpgroup 1's thread with the same rows reads its own
+// fragment) and the rescale factors to warpgroup 1 through shared memory,
+// and accumulates O over value columns 0..255; warpgroup 1 accumulates
+// columns 256..511 from the same p. F32P (B6's float32 p): PV also runs on
+// the bf16 remainder of p, which warpgroup 0 writes into the tile's rope box
+// (QK is done with it). Value rows past the limit are zeroed in shared
+// memory before PV (whatever lies there, never-written pool slots or an
+// unloaded box, weighs p = 0 but must not be NaN). With one split the block
+// writes out; with more it writes its unnormalised O and (m, l) (m in log2
+// units) to o_part / ml_part, and decode_merge<LDV> finishes.
+template <bool F32P>
+__global__ void __launch_bounds__(LTH, 1)
+latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const long long* __restrict__ table, int P, long long row_offset,
                  const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
                  int qpos_stride, int min_one, int max_keys, bf16* __restrict__ out, int H,
-                 int ps, float scale, int p_bf16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);                 // [LBH][LROW]
-  bf16* ks = qs + LBH * LROW;                               // [2][LBK][LROW]
-  bf16* pt = ks + 2 * LBK * LROW;                           // [2][LBH][PROW]: p hi, lo
-  float* ss = reinterpret_cast<float*>(pt + 2 * LBH * PROW);  // [LBH][LBK]
-  float* ms = ss + LBH * LBK;
-  float* ls = ms + LBH;
-  float* as = ls + LBH;
+                 int ps, int box_rows, float scale_log2, int chunk, float* __restrict__ o_part,
+                 float* __restrict__ ml_part) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem;                                 // LCH boxes of 64 heads
+  unsigned char* ks = qs + LTILE;                           // [LSTAGES] key tiles
+  uint32_t* pbuf = reinterpret_cast<uint32_t*>(ks + LSTAGES * LTILE);   // [16][128]
+  float* abuf = reinterpret_cast<float*>(pbuf + LBOX / 4);               // [2][128]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(abuf + 256);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* empty = k_full + LSTAGES;
 
-  const int b = blockIdx.x, h0 = blockIdx.y * LBH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.x, h0 = blockIdx.y * LHB, z = blockIdx.z, splits = gridDim.z;
+  const int tid = threadIdx.x;
   long long lim = seq_len[b];
   if (min_one) lim = lim > 1 ? lim : 1;
   if (qpos) {
@@ -986,152 +860,274 @@ latent_attention(const bf16* __restrict__ q, const bf16* __restrict__ pool,
   }
   lim = lim < max_keys ? lim : max_keys;
   const int nkeys = lim > 0 ? (int)lim : 0;
-  const int ntiles = (nkeys + LBK - 1) / LBK;
-
-  for (int i = tid; i < LBH * (LDK / 8); i += NTH) {
-    const int r = i / (LDK / 8), c = (i % (LDK / 8)) * 8;
-    cp_async16(qs + r * LROW + c, q + ((long long)b * H + h0 + r) * LDK + c, 16);
-  }
-  // warp w copies rows w, w + 4, ...: one page lookup a row, 16 bytes a lane
-  auto load_tile = [&](int stage, int kt) {
-    bf16* dst = ks + stage * LBK * LROW;
-    for (int r = warp; r < LBK; r += NTH / 32) {
-      const int j = kt * LBK + r;
-      const bool ok = j < nkeys;                 // rows past the limit load as zeros
-      const bf16* src = pool;
-      if (ok) {
-        const long long page = table ? table[(long long)b * P + j / ps] : row_offset + b;
-        src = pool + (page * ps + j % ps) * LDK;
+  const int k0 = z * chunk;
+  const int k1 = min(k0 + chunk, nkeys);
+  const int ntiles = k1 > k0 ? (k1 - k0 + LBK - 1) / LBK : 0;
+  const long long prow = ((long long)b * splits + z) * H + h0;   // the block's partial rows
+  if (ntiles == 0) {   // no key here: an empty partial for the merge, or (unsplit) zeros
+    if (splits > 1) {
+      for (int r = tid; r < LHB; r += LTH) {
+        ml_part[2 * (prow + r)] = -INFINITY;
+        ml_part[2 * (prow + r) + 1] = 0.f;
       }
-      for (int c = lane * 8; c < LDK; c += 32 * 8)
-        cp_async16(dst + r * LROW + c, ok ? src + c : src, ok ? 16 : 0);
+    } else {
+      for (int i = tid; i < LHB * LDV / 2; i += LTH)
+        reinterpret_cast<__nv_bfloat162*>(out + ((long long)b * H + h0) * LDV)[i] =
+            __floats2bfloat162_rn(0.f, 0.f);
     }
-  };
-  if (ntiles > 0) load_tile(0, 0);
-  cp_async_commit();   // the q tile and tile 0
-  if (tid < LBH) {
-    ms[tid] = -INFINITY;
-    ls[tid] = 0.f;
-    as[tid] = 1.f;
+    return;
   }
 
-  constexpr int NB = LDV / 4 / 8;   // this warp's n-blocks of 8 value columns
-  float o[NB][4];
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  const int mi = lane >> 3, rr = lane & 7;       // ldmatrix lane roles
-  const int g = lane >> 2, c2 = (lane & 3) * 2;  // accumulator lane roles
-
-  for (int kt = 0; kt < ntiles; ++kt) {
-    if (kt + 1 < ntiles) load_tile((kt + 1) & 1, kt + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();   // tile kt (and q) landed; tile kt-1's stage is refilled only now
-    const bf16* kst = ks + (kt & 1) * LBK * LROW;
-
-    // (1) scores of the 16 heads against this warp's 16 keys, 36 k-steps;
-    // even and odd k-steps accumulate apart (four independent mma chains)
-    float s[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < LDK / 16; ++kk) {
-      uint32_t a[4], r4[4];
-      ldmatrix_x4(a, qs + (rr + 8 * (mi & 1)) * LROW + kk * 16 + 8 * (mi >> 1));
-      ldmatrix_x4(r4, kst + (warp * 16 + 8 * (mi >> 1) + rr) * LROW + kk * 16 + 8 * (mi & 1));
-      const uint32_t b0[2] = {r4[0], r4[1]}, b1[2] = {r4[2], r4[3]};
-      mma_bf16(s[2 * (kk & 1)], a, b0);
-      mma_bf16(s[2 * (kk & 1) + 1], a, b1);
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < LSTAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&empty[s], 256);   // every consumer thread releases the stage
     }
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kl = warp * 16 + n * 8 + c2 + (i & 1);
-        ss[(g + 8 * (i >> 1)) * LBK + kl] =
-            kt * LBK + kl < nkeys ? (s[n][i] + s[2 + n][i]) * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // (2) online softmax, one warp per row, two keys a lane; p is stored as
-    // bf16 (hi) and, for float32 p, its bf16 remainder (lo)
-    for (int r = warp; r < LBH; r += NTH / 32) {
-      const float s0 = ss[r * LBK + lane], s1 = ss[r * LBK + lane + 32];
-      const float m_old = ms[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      float p0 = 0.f, p1 = 0.f, alpha = 1.f;
-      if (m_new != -INFINITY) {
-        p0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
-        p1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
-        alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-      }
-      const float psum = warp_sum(p0 + p1);
-      const bf16 hi0 = __float2bfloat16(p0), hi1 = __float2bfloat16(p1);
-      pt[r * PROW + lane] = hi0;
-      pt[r * PROW + lane + 32] = hi1;
-      if (!p_bf16) {
-        pt[(LBH + r) * PROW + lane] = __float2bfloat16(p0 - __bfloat162float(hi0));
-        pt[(LBH + r) * PROW + lane + 32] = __float2bfloat16(p1 - __bfloat162float(hi1));
-      }
-      if (lane == 0) {
-        ls[r] = ls[r] * alpha + psum;
-        ms[r] = m_new;
-        as[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // (3) O = O * alpha + P V over this warp's 128 value columns
-    const float al0 = as[g], al1 = as[g + 8];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      o[n][0] *= al0;
-      o[n][1] *= al0;
-      o[n][2] *= al1;
-      o[n][3] *= al1;
-    }
-#pragma unroll
-    for (int j = 0; j < LBK / 16; ++j) {
-      uint32_t a[4], bv[NB][2];
-      ldmatrix_x4(a, pt + (rr + 8 * (mi & 1)) * PROW + j * 16 + 8 * (mi >> 1));
-#pragma unroll
-      for (int h = 0; h < NB / 2; ++h) {
-        uint32_t r4[4];
-        ldmatrix_x4_trans(r4, kst + (j * 16 + 8 * (mi & 1) + rr) * LROW + warp * (LDV / 4) +
-                                  (2 * h + (mi >> 1)) * 8);
-        bv[2 * h][0] = r4[0];
-        bv[2 * h][1] = r4[1];
-        bv[2 * h + 1][0] = r4[2];
-        bv[2 * h + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int n = 0; n < NB; ++n) mma_bf16(o[n], a, bv[n]);
-      if (!p_bf16) {   // the remainder of float32 p, through the same fragments
-        ldmatrix_x4(a, pt + (LBH + rr + 8 * (mi & 1)) * PROW + j * 16 + 8 * (mi >> 1));
-#pragma unroll
-        for (int n = 0; n < NB; ++n) mma_bf16(o[n], a, bv[n]);
-      }
-    }
-    __syncthreads();   // every warp is done with this stage and the p tile
+    mbar_init_fence();
   }
-  cp_async_wait<0>();
-  __syncthreads();     // ls is initialised even when no tile ran
+  __syncthreads();
+  const int wg = tid / 128;
 
-  const float inv0 = 1.f / fmaxf(ls[g], 1e-30f), inv1 = 1.f / fmaxf(ls[g + 8], 1e-30f);
-  bf16* o0 = out + ((long long)b * H + h0 + g) * LDV + warp * (LDV / 4) + c2;
-  bf16* o1 = o0 + 8 * LDV;
+  if (wg == 2) {
+    // ---- producer: registers go to the consumers; one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 256) {
+      mbar_expect_tx(q_full, LTILE);
+      for (int c = 0; c < LCH; ++c)
+        tma_load_2d(qs + c * LBOX, &tq, q_full, c * SWZ, b * H + h0);
+      for (int kt = 0; kt < ntiles; ++kt) {
+        const int s = kt % LSTAGES;
+        if (kt >= LSTAGES) mbar_wait(&empty[s], (kt / LSTAGES - 1) & 1);
+        unsigned char* dst = ks + s * LTILE;
+        const int j0 = k0 + kt * LBK;
+        if (!table) {
+          mbar_expect_tx(&k_full[s], LTILE);
+          const int row = (int)((row_offset + b) * ps + j0);
+          for (int c = 0; c < LCH; ++c) tma_load_2d(dst + c * LBOX, &tk, &k_full[s], c * SWZ, row);
+        } else {
+          const int nb = (min(LBK, k1 - j0) + box_rows - 1) / box_rows;
+          mbar_expect_tx(&k_full[s], nb * box_rows * 128 * LCH);
+          for (int i = 0; i < nb; ++i) {
+            const int j = j0 + i * box_rows;
+            const int row = (int)(table[(long long)b * P + j / ps] * ps + j % ps);
+            for (int c = 0; c < LCH; ++c)
+              tma_load_2d(dst + c * LBOX + i * box_rows * 128, &tk, &k_full[s], c * SWZ, row);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns value columns 256*wg .. 256*wg + 255
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int t = tid & 127, lane = tid & 31, wq = t >> 5;
+    const int c2 = (lane & 3) * 2;
+    const int r0 = wq * 16 + (lane >> 2);   // this thread's heads h0 + r0, h0 + r0 + 8
+    float o[128];
 #pragma unroll
-  for (int n = 0; n < NB; ++n) {
-    *reinterpret_cast<__nv_bfloat162*>(o0 + n * 8) =
-        __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(o1 + n * 8) =
-        __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    uint32_t pk[16], pl[16];
+
+    // zero the value rows of this warpgroup's four boxes past the limit
+    auto zero_tail = [&](unsigned char* kst, int valid) {
+      if (valid >= LBK) return;
+      const int n = 4 * (LBK - valid) * 8;   // 16-byte pieces
+      for (int i = t; i < n; i += 128) {
+        const int box = 4 * wg + i / ((LBK - valid) * 8), rem = i % ((LBK - valid) * 8);
+        *reinterpret_cast<uint4*>(kst + box * LBOX + (valid + rem / 8) * 128 + (rem % 8) * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();   // the zeros before the value product reads them
+      bar_sync(3 + wg, 128);
+    };
+    // O = O * alpha + P V over this warpgroup's columns (asynchronous, waited)
+    auto pv = [&](unsigned char* kst, float al0, float al1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o[4 * i] *= al0;
+        o[4 * i + 1] *= al0;
+        o[4 * i + 2] *= al1;
+        o[4 * i + 3] *= al1;
+      }
+      unsigned char* v = kst + 4 * wg * LBOX;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < LBK / 16; ++j)
+        wgmma_rs_n256_tb(o, pk[4 * j], pk[4 * j + 1], pk[4 * j + 2], pk[4 * j + 3],
+                         sw128_desc(v + j * 16 * 128, LBOX, 1024));
+      if (F32P) {
+#pragma unroll
+        for (int j = 0; j < LBK / 16; ++j)
+          wgmma_rs_n256_tb(o, pl[4 * j], pl[4 * j + 1], pl[4 * j + 2], pl[4 * j + 3],
+                           sw128_desc(v + j * 16 * 128, LBOX, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pk);
+      if (F32P) fence_regs(pl);
+    };
+
+    if (wg == 0) {
+      mbar_wait(q_full, 0);
+      for (int kt = 0; kt < ntiles; ++kt) {
+        const int s = kt % LSTAGES;
+        unsigned char* kst = ks + s * LTILE;
+        mbar_wait(&k_full[s], (kt / LSTAGES) & 1);
+        float sc[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < LDK / 16; ++kk) {   // box kk / 4, 32 bytes a k-step within it
+          const int off = (kk / 4) * LBOX + (kk % 4) * 32;
+          wgmma_ss_n64(sc, sw128_desc(qs + off, 16, 1024), sw128_desc(kst + off, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+
+        // mask and online softmax: row r0 in sc[4i], sc[4i+1], row r0 + 8 in
+        // sc[4i+2], sc[4i+3], key 8i + c2 (+1) of the tile
+        const int valid = k1 - (k0 + kt * LBK);
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = 8 * i + c2 + (e & 1) < valid ? sc[4 * i + e] * scale_log2 : -INFINITY;
+            sc[4 * i + e] = v;
+            if (e < 2) mx0 = fmaxf(mx0, v);
+            else mx1 = fmaxf(mx1, v);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);   // finite: the tile has a key
+        const float al0 = fast_exp2(m0 - mn0), al1 = fast_exp2(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float ms = (i & 1) ? mn1 : mn0;
+          const float p0 = fast_exp2(sc[2 * i] - ms), p1 = fast_exp2(sc[2 * i + 1] - ms);
+          if (i & 1) ps1 += p0 + p1;
+          else ps0 += p0 + p1;
+          pk[i] = pack_bf16(p0, p1);
+          if (F32P) pl[i] = pack_bf16(p0 - bf16_round(p0), p1 - bf16_round(p1));
+        }
+        l0 = l0 * al0 + ps0;   // per-thread partial sums; reduced over the quad at the end
+        l1 = l1 * al1 + ps1;
+
+        // hand p and the factors to warpgroup 1 once it has taken the last ones
+        bar_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) pbuf[i * 128 + t] = pk[i];
+        abuf[t] = al0;
+        abuf[128 + t] = al1;
+        if (F32P) {
+          uint32_t* lo = reinterpret_cast<uint32_t*>(kst + (LCH - 1) * LBOX);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) lo[i * 128 + t] = pl[i];
+        }
+        bar_arrive(2, 256);
+        zero_tail(kst, valid);
+        pv(kst, al0, al1);
+        if (F32P) fence_proxy_async();   // the remainder's bytes before the next TMA load there
+        mbar_arrive(&empty[s]);
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      // the sums to warpgroup 1 through the q tile, which no product reads now
+      bar_sync(1, 256);
+      float* lbuf = reinterpret_cast<float*>(qs);
+      lbuf[t] = l0;
+      lbuf[128 + t] = l1;
+      bar_arrive(2, 256);
+    } else {
+      bar_arrive(1, 256);   // the p buffer starts free
+      for (int kt = 0; kt < ntiles; ++kt) {
+        const int s = kt % LSTAGES;
+        unsigned char* kst = ks + s * LTILE;
+        bar_sync(2, 256);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) pk[i] = pbuf[i * 128 + t];
+        const float al0 = abuf[t], al1 = abuf[128 + t];
+        if (F32P) {
+          const uint32_t* lo = reinterpret_cast<const uint32_t*>(kst + (LCH - 1) * LBOX);
+#pragma unroll
+          for (int i = 0; i < 16; ++i) pl[i] = lo[i * 128 + t];
+        }
+        bar_arrive(1, 256);
+        mbar_wait(&k_full[s], (kt / LSTAGES) & 1);
+        zero_tail(kst, k1 - (k0 + kt * LBK));
+        pv(kst, al0, al1);
+        if (F32P) fence_proxy_async();
+        mbar_arrive(&empty[s]);
+      }
+      bar_sync(2, 256);
+      const float* lbuf = reinterpret_cast<const float*>(qs);
+      l0 = lbuf[t];
+      l1 = lbuf[128 + t];
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      const long long col0 = 256 * wg + c2;
+      if (splits == 1) {
+        const float inv = 1.f / fmaxf(half ? l1 : l0, 1e-30f);
+        bf16* orow = out + ((long long)b * H + h0 + r) * LDV + col0;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = __floats2bfloat162_rn(
+              o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
+      } else {
+        float* prw = o_part + (prow + r) * LDV + col0;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          *reinterpret_cast<float2*>(prw + 8 * i) =
+              make_float2(o[4 * i + 2 * half], o[4 * i + 2 * half + 1]);
+        if (wg == 0 && (lane & 3) == 0) {
+          ml_part[2 * (prow + r)] = half ? m1 : m0;
+          ml_part[2 * (prow + r) + 1] = half ? l1 : l0;
+        }
+      }
+    }
   }
+}
+
+template <bool F32P>
+int launch_latent(const CUtensorMap& tq, const CUtensorMap& tk, const void* table, int P,
+                  long long row_offset, const void* seq_len, const void* qpos, int qpos_stride,
+                  int min_one, int max_keys, void* out, int B, int H, int ps, int box_rows,
+                  float scale, int splits, int chunk, void* o_part, void* ml_part,
+                  cudaStream_t st) {
+  constexpr int bytes = latent_smem_bytes();
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(latent_attention<F32P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    attr_set = true;
+  }
+  latent_attention<F32P><<<dim3(B, H / LHB, splits), LTH, bytes, st>>>(
+      tq, tk, static_cast<const long long*>(table), P, row_offset,
+      static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos), qpos_stride,
+      min_one, max_keys, static_cast<bf16*>(out), H, ps, box_rows, scale * LOG2E, chunk,
+      static_cast<float*>(o_part), static_cast<float*>(ml_part));
+  if (splits > 1) {
+    decode_merge<LDV><<<dim3(H, 1, B), LDV, 0, st>>>(
+        static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+        static_cast<bf16*>(out), 1, H, 1, splits);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1168,27 +1164,32 @@ int dstts_decode_attention(const void* q, long long q_bstride, const void* k,
 }
 
 // K3 (B1's shared variant and B6 at MLA's latent width). q [B,H,576] bf16
-// contiguous; pool [R,ps,1,576] bf16; table [B,P] int64 or null (identity:
-// page row_offset + b); seq_len [B] int64; qpos int64 with stride
-// qpos_stride or null; out [B,H,512] bf16 (the value columns only). H % 16 == 0.
+// contiguous; pool [R,ps,1,576] bf16 contiguous; table [B,P] int64 or null
+// (identity: page row_offset + b); seq_len [B] int64; qpos int64 with
+// stride qpos_stride or null; out [B,H,512] bf16 (the value columns only).
+// H % 64 == 0; with a table, ps % 64 == 0 or ps a multiple of 8 dividing
+// 64. p_bf16: p rounded to bf16 for PV (B1), else float32 p (B6). The
+// context is cut into `splits` chunks of `chunk` keys (a multiple of 64),
+// one block each; with splits > 1, o_part [B,splits,H,512] and ml_part
+// [B,splits,H,2] are float32 scratch that decode_merge<512> reduces. The
+// TMA tensor maps are encoded here on each call (passed by value).
 int dstts_latent_attention(const void* q, const void* pool, const void* table, int P,
                            long long row_offset, const void* seq_len, const void* qpos,
-                           int qpos_stride, int min_one, int max_keys, void* out, int B,
-                           int H, int ps, float scale, int p_bf16, void* stream) {
-  if (H % LBH) return (int)cudaErrorInvalidValue;
-  constexpr int bytes = latent_smem_bytes();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaFuncSetAttribute(latent_attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         bytes);
-    attr_set = true;
-  }
-  latent_attention<<<dim3(B, H / LBH), NTH, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
-      static_cast<const long long*>(table), P, row_offset,
-      static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos),
-      qpos_stride, min_one, max_keys, static_cast<bf16*>(out), H, ps, scale, p_bf16);
-  return (int)cudaGetLastError();
+                           int qpos_stride, int min_one, int max_keys, void* out, int B, int H,
+                           long long R, int ps, float scale, int p_bf16, int splits, int chunk,
+                           void* o_part, void* ml_part, void* stream) {
+  const int box_rows = !table || ps % LBK == 0 ? LBK : (LBK % ps == 0 && ps % 8 == 0 ? ps : 0);
+  if (H % LHB || splits < 1 || chunk % LBK || box_rows == 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk;
+  const cuuint64_t qdim[2] = {LDK, (cuuint64_t)B * H}, kdim[2] = {LDK, (cuuint64_t)R * ps};
+  const cuuint64_t stride[1] = {LDK * 2};
+  const cuuint32_t qbox[2] = {SWZ, LHB}, kbox[2] = {SWZ, (cuuint32_t)box_rows};
+  if (!bf16_map(&tq, q, 2, qdim, stride, qbox) || !bf16_map(&tk, pool, 2, kdim, stride, kbox))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (p_bf16 ? &launch_latent<false> : &launch_latent<true>)(
+      tq, tk, table, P, row_offset, seq_len, qpos, qpos_stride, min_one, max_keys, out, B, H,
+      ps, box_rows, scale, splits, chunk, o_part, ml_part, st);
 }
 
 // K2 (B2). q, out [B,T,H,128]; k, v [B,S,KV,128]; all bf16, contiguous,
@@ -1226,8 +1227,8 @@ int dstts_flash_attention(const void* q, const void* k, const void* v, void* out
 }
 
 // Blocks an SM can hold, as the runtime computes them from each kernel's
-// registers, threads and shared memory: out[0..4] = K1 (1, 2 and 4 m-tiles),
-// K2, K3.
+// registers, threads and shared memory: out[0..5] = K1 (1, 2 and 4 m-tiles),
+// K2, K3 (bf16 p, float32 p).
 int dstts_attention_occupancy(int* out) {
   // the opt-in above 48 KB first: without it a block of this size fits nowhere
   cudaFuncSetAttribute(decode_attention<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1238,7 +1239,9 @@ int dstts_attention_occupancy(int* out) {
                        decode_smem_bytes());
   cudaFuncSetAttribute(flash_attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        flash_smem_bytes());
-  cudaFuncSetAttribute(latent_attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(latent_attention<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       latent_smem_bytes());
+  cudaFuncSetAttribute(latent_attention<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        latent_smem_bytes());
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], decode_attention<1>, NTH,
                                                 decode_smem_bytes());
@@ -1248,7 +1251,9 @@ int dstts_attention_occupancy(int* out) {
                                                 decode_smem_bytes());
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], flash_attention, FTH,
                                                 flash_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], latent_attention, NTH,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], latent_attention<false>, LTH,
+                                                latent_smem_bytes());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], latent_attention<true>, LTH,
                                                 latent_smem_bytes());
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,9 @@
 //   B10 fused_qkv_stacked_i8      (_qkv_stacked_kernel_i8,     fused_layer.py:568)
 //       fused_out_mlp_stacked_i8  (_out_mlp_stacked_kernel_i8, fused_layer.py:669)
 //       and the bare int8 product of ops/quant.int8_matmul (quant.py:68)
-// and the grouped expert FFN of the Qwen3-MoE layer, which the JAX package
-// leaves to lax.ragged_dot (ops/moe.py:81 _expert_ffn_ragged): grouped_expert,
-// at the end of this file.
+// and the grouped expert FFN of the MoE layers, which the JAX package leaves
+// to lax.ragged_dot (ops/moe.py:81 _expert_ffn_ragged): grouped_expert
+// (decode) and grouped_expert_tc (prefill), after the epilogue kernels.
 //
 // What bounds them on this card: at decode batch (B <= 64 rows) every
 // product here is a thin matrix product whose weights dominate the bytes:
@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"   // mbarriers, TMA, wgmma (the grouped expert prefill kernel)
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -104,10 +106,6 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
     f[2 * i] = t.x;
     f[2 * i + 1] = t.y;
   }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16 int8 weights (16 bytes) -> 16 bf16 (32 bytes), exact
@@ -619,6 +617,306 @@ int launch_grouped(const void* x, const void* offsets, const bf16* w0, const bf1
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- grouped expert FFN, prefill
+//
+// The same two functions at prefill, where an expert gets ~190 rows (3072
+// tokens x top-8 over 128 experts) and the products are no longer thin: the
+// decode kernel above re-reads each weight tile once per 64-row tile, on
+// mma.sync, at 14 % of the bf16 tensor peak. What bounds the prefill: the
+// bytes of every touched expert's weights (0.8 GB a gate|up call at
+// qwen3-30b-a3b: 0.24 ms at 3.35 TB/s) and the tensor operations (155
+// GFLOP: 0.16 ms at 989 TFLOP/s) are within 2x of each other, so the
+// weights must stream from HBM once while the tensor cores keep up. The
+// design, as K2's (attention.cu):
+// * a tile is up to 256 expert-sorted rows by 128 weight columns, so an
+//   expert of up to 256 rows reads each weight tile once, in one block:
+//   each weight stage feeds every row of the expert from shared memory.
+//   (128-row tiles read each weight tile in two blocks and count on L2 for
+//   the second read; a block whose tile holds 64 rows runs ahead of its
+//   twin, the two fall out of step and both read HBM.)
+//   SWIGLU holds 64 gate columns and the same 64 up columns, so the SwiGLU
+//   epilogue stays in registers (gate column c at acc[j][i], up column c at
+//   acc[j][32 + i]);
+// * two consumer warpgroups of 128 rows each, two wgmma m64n128k16
+//   accumulators a warpgroup (128 float32 registers a thread); an m64
+//   sub-tile with no row of the expert is neither loaded nor multiplied;
+// * a persistent grid (one block an SM) over a flat list of work items
+//   (expert, n-tile, m-tile), built by every block on the device from
+//   `offsets` (no host sync, CUDA-graph safe): expert e owns ceil(rows_e /
+//   256) m-tiles; its n-tiles run on neighbouring blocks at once, so its
+//   rows are read from HBM once and from L2 after;
+// * a producer warpgroup (setmaxnreg 40; the consumers 232, from ptxas'
+//   168 at entry): one thread issues every TMA load into a 4-stage
+//   full / empty mbarrier ring (128-byte swizzle) and runs ahead into the
+//   next item while the consumers finish one; x_sorted comes in as a 2-D map
+//   [S, K] in 64-row boxes, the weights as 3-D maps over [NE, K, N] (N
+//   contiguous: the MN-major B operand, as K2's V), the packed [NE, E, 2F]
+//   gate|up layout through two maps at base offsets 0 and F, the unpacked
+//   pair through two maps;
+// * a box that runs past an expert's last row reads the next expert's rows
+//   (or zeros past S). That is harmless only because the epilogue stores no
+//   row at or past offsets[e+1]: a row's products never mix with another's.
+//   The epilogue goes through shared memory, 8 rows a warp at a time, and
+//   leaves as whole rows in 16-byte stores (4-byte stores straight from the
+//   accumulators left y's writes the largest cost of the down entry).
+// What bounds it now (scripts/trace_grouped_prefill.py, PERF.md): a ring
+// stage's time is mostly the tensor cores running its wgmma products, at
+// about half their peak, while the producer waits for free stages; the
+// consumers rarely wait for data.
+// The wrapper (ops/moe.py grouped_prefill) takes this kernel or the decode
+// one from static sizes only (S = T*top_k, NE).
+constexpr int XBM = 256;              // expert-sorted rows a tile
+constexpr int XBN = 128;              // weight columns a tile
+constexpr int XBK = 64;               // k a stage: one 128-byte swizzle atom of bf16
+constexpr int XTH = 384;              // two consumer warpgroups + the producer warpgroup
+constexpr int XSTAGES = 4;            // ring depth
+constexpr int XBOX = 64 * 128;        // bytes of one 64 x 64 box
+constexpr int XA = 4 * XBOX;          // a row stage: four 64-row boxes
+constexpr int XB = 2 * XBOX;          // a weight stage: two 64-column boxes
+constexpr int XMAX_NE = 1024;         // experts the tile table holds
+constexpr int XTAB = XMAX_NE + 4;     // ints of one table (16-byte multiple)
+
+// a tile's output columns (h: 64, y: 128) and the padded bf16 row of the
+// epilogue's staging rows (16 bytes of padding: the accumulator writes are
+// free of bank conflicts)
+template <bool SWIGLU>
+struct XTile {
+  static constexpr int cols = SWIGLU ? XBN / 2 : XBN;
+  static constexpr int erow = cols + 8;
+};
+
+template <bool SWIGLU>
+constexpr int xpre_smem_bytes() {
+  return 1024                                       // slack: the tiles start 1024-byte aligned
+         + XSTAGES * (XA + XB)                      // the ring
+         + 8 * 2 * XSTAGES                          // mbarriers
+         + (2 * XTAB + 16) * 4                      // row offsets, m-tile cumsum, scan scratch
+         + 8 * 8 * XTile<SWIGLU>::erow * 2;         // 8 staging rows for each consumer warp
+}
+static_assert(xpre_smem_bytes<true>() <= 232448 && xpre_smem_bytes<false>() <= 232448,
+              "the grouped expert prefill kernel's shared memory exceeds a block's");
+
+// silu(g) * u with the fast division: the whole tile's SwiGLU runs between
+// two items with the tensor cores idle, and IEEE division made it a large
+// share of an item (bf16 output: the division's 2 ulp do not show)
+__device__ __forceinline__ float swiglu_fast(float g, float u) {
+  return __fdividef(g, 1.f + __expf(-g)) * u;
+}
+
+// grid: the card's SMs; XTH threads. SWIGLU: tw0 / tw1 are the gate / up
+// maps and n-tile t covers h columns t*64 .. t*64 + 63; else tw0 is W and
+// n-tile t covers y columns t*128 .. t*128 + 127.
+template <bool SWIGLU>
+__global__ void __launch_bounds__(XTH, 1)
+grouped_expert_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw0,
+                  const __grid_constant__ CUtensorMap tw1, const int* __restrict__ offsets,
+                  int NE, int K, int n_tiles, bf16* __restrict__ out, int ldo) {
+  constexpr int NCOL = XTile<SWIGLU>::cols, EROW = XTile<SWIGLU>::erow;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* as = smem;                                  // [XSTAGES] row stages
+  unsigned char* bs = as + XSTAGES * XA;                     // [XSTAGES] weight stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + XSTAGES * XB);
+  uint64_t* empty = full + XSTAGES;
+  int* off = reinterpret_cast<int*>(empty + XSTAGES);       // [NE + 1] row offsets
+  int* cum = off + XTAB;                                     // [NE + 1] m-tiles before e
+  int* wtot = cum + XTAB;                                    // [12] scan scratch
+  bf16* epi = reinterpret_cast<bf16*>(wtot + 16);           // [8 warps][8][EROW] staging
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  for (int e = tid; e <= NE; e += XTH) off[e] = offsets[e];
+  if (tid == 0) {
+    for (int s = 0; s < XSTAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // every consumer warp releases the stage
+    }
+    mbar_init_fence();
+    cum[0] = 0;
+  }
+  __syncthreads();
+  // cum[e + 1] = m-tiles of experts 0..e: a block-wide scan, XTH experts a pass
+  int carry = 0;
+  for (int base = 0; base < NE; base += XTH) {
+    const int e = base + tid;
+    int v = e < NE ? (off[e + 1] - off[e] + XBM - 1) / XBM : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane == 31) wtot[warp] = v;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < XTH / 32; ++w) {
+      before += w < warp ? wtot[w] : 0;
+      total += wtot[w];
+    }
+    if (e < NE) cum[e + 1] = carry + before + v;
+    carry += total;
+    __syncthreads();   // wtot is rewritten by the next pass
+  }
+  const int items = cum[NE] * n_tiles;
+  const int nk = K / XBK;
+  // work item w -> its expert e (the last with cum[e] * n_tiles <= w: an
+  // expert with no rows owns no item), n-tile, first row and row count
+  auto item = [&](int w, int& e, int& nt, int& row0, int& rows) {
+    int lo = 0, hi = NE - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (cum[mid] * n_tiles <= w) lo = mid;
+      else hi = mid - 1;
+    }
+    e = lo;
+    const int mt_e = cum[e + 1] - cum[e], local = w - cum[e] * n_tiles;
+    nt = local / mt_e;
+    row0 = off[e] + (local % mt_e) * XBM;
+    rows = min(XBM, off[e + 1] - row0);
+  };
+  // a consumer warp's release of stage s
+  auto release = [&](int s) {
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  const int wg = tid / 128;
+
+  if (wg == 2) {
+    // ---- producer: registers go to the consumers; one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      int it = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        int e, nt, row0, rows;
+        item(w, e, nt, row0, rows);
+        const int nbox = (rows + 63) / 64;   // 64-row boxes with a row of the expert
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % XSTAGES;
+          if (it >= XSTAGES) mbar_wait(&empty[s], (it / XSTAGES - 1) & 1);
+          unsigned char* a = as + s * XA;
+          unsigned char* b = bs + s * XB;
+          mbar_expect_tx(&full[s], nbox * XBOX + XB);
+          for (int i = 0; i < nbox; ++i)
+            tma_load_2d(a + i * XBOX, &tx, &full[s], kt * XBK, row0 + 64 * i);
+          if (SWIGLU) {
+            tma_load_3d(b, &tw0, &full[s], nt * 64, kt * XBK, e);
+            tma_load_3d(b + XBOX, &tw1, &full[s], nt * 64, kt * XBK, e);
+          } else {
+            for (int c = 0; c < 2; ++c)
+              tma_load_3d(b + c * XBOX, &tw0, &full[s], nt * XBN + c * 64, kt * XBK, e);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 128*wg .. 128*wg + 127 of a
+    // tile, as m64 sub-tiles j = 0, 1 (rows 128*wg + 64*j + ...)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wq = (tid >> 5) & 3, c2 = (lane & 3) * 2;
+    float acc[2][64];
+    int it = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      int e, nt, row0, rows;
+      item(w, e, nt, row0, rows);
+      const int subs = min(2, max(0, (rows - 128 * wg + 63) / 64));   // sub-tiles with rows
+      if (subs == 0) {   // no row of this warpgroup: release each stage as it lands
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          mbar_wait(&full[it % XSTAGES], (it / XSTAGES) & 1);
+          release(it % XSTAGES);
+        }
+        continue;
+      }
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % XSTAGES;
+        mbar_wait(&full[s], (it / XSTAGES) & 1);
+        const unsigned char* a = as + s * XA + 2 * wg * XBOX;
+        const unsigned char* b = bs + s * XB;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < XBK / 16; ++kk) {
+          const uint64_t db = sw128_desc(b + kk * 16 * 128, XBOX, 1024);
+          wgmma_ss_n128_tb(acc[0], sw128_desc(a + kk * 32, 16, 1024), db, kt > 0 || kk > 0);
+          if (subs == 2)
+            wgmma_ss_n128_tb(acc[1], sw128_desc(a + XBOX + kk * 32, 16, 1024), db,
+                             kt > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();   // this stage is read: release it at once (the other
+        release(s);        // warpgroup's products keep the tensor cores busy)
+      }
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
+
+      // the epilogue, 8 rows at a time through this warp's staging rows: the
+      // accumulators (row 16*wq + lane/4 (+8) of sub-tile j, columns 8i +
+      // c2) go in, whole rows come out in 16-byte pieces
+      bf16* stage = epi + (wg * 4 + wq) * 8 * EROW;
+      bf16* srow = stage + (lane >> 2) * EROW + c2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (j >= subs) break;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          if (SWIGLU) {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {   // g and u rounded to bf16 in pairs
+              const float* a = &acc[j][4 * i + 2 * half];
+              const float2 g = __bfloat1622float2(__floats2bfloat162_rn(a[0], a[1]));
+              const float2 u = __bfloat1622float2(__floats2bfloat162_rn(a[32], a[33]));
+              *reinterpret_cast<__nv_bfloat162*>(srow + 8 * i) =
+                  __floats2bfloat162_rn(swiglu_fast(g.x, u.x), swiglu_fast(g.y, u.y));
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              *reinterpret_cast<__nv_bfloat162*>(srow + 8 * i) = __floats2bfloat162_rn(
+                  acc[j][4 * i + 2 * half], acc[j][4 * i + 2 * half + 1]);
+          }
+          __syncwarp();
+          const int rbase = 128 * wg + 64 * j + 16 * wq + 8 * half;   // the tile rows staged
+#pragma unroll
+          for (int q = lane; q < NCOL; q += 32) {   // 8 rows x NCOL / 8 pieces
+            const int rr = q / (NCOL / 8), cc = (q % (NCOL / 8)) * 8;
+            // rows at or past the expert's end (the next expert's, or past
+            // S) are never stored
+            if (rbase + rr < rows)
+              *reinterpret_cast<uint4*>(out + (long long)(row0 + rbase + rr) * ldo +
+                                        nt * NCOL + cc) =
+                  *reinterpret_cast<const uint4*>(stage + rr * EROW + cc);
+          }
+          __syncwarp();   // the staging rows are rewritten next
+        }
+      }
+    }
+  }
+}
+
+// tx over x [S, K]; tw0 (tw1) over the [NE, K, ldw] stack at w0 (w1), its
+// first ncols columns
+template <bool SWIGLU>
+int launch_grouped_tc(const void* x, const void* offsets, const void* w0, const void* w1,
+                      int ldw, int ncols, int NE, int K, int S, int grid, void* out, int ldo,
+                      cudaStream_t st) {
+  if (NE > XMAX_NE || K % XBK || S < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw0, tw1;
+  const cuuint64_t xdim[2] = {(cuuint64_t)K, (cuuint64_t)S}, xstride[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t wdim[3] = {(cuuint64_t)ncols, (cuuint64_t)K, (cuuint64_t)NE};
+  const cuuint64_t wstride[2] = {(cuuint64_t)ldw * 2, (cuuint64_t)K * ldw * 2};
+  const cuuint32_t xbox[2] = {XBK, 64}, wbox[3] = {64, XBK, 1};
+  if (!bf16_map(&tx, x, 2, xdim, xstride, xbox) || !bf16_map(&tw0, w0, 3, wdim, wstride, wbox) ||
+      !bf16_map(&tw1, w1, 3, wdim, wstride, wbox))
+    return (int)cudaErrorInvalidValue;
+  constexpr int bytes = xpre_smem_bytes<SWIGLU>();
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(grouped_expert_tc<SWIGLU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    attr_set = true;
+  }
+  grouped_expert_tc<SWIGLU><<<grid, XTH, bytes, st>>>(tx, tw0, tw1,
+                                                      static_cast<const int*>(offsets), NE, K,
+                                                      ncols / XTile<SWIGLU>::cols,
+                                                      static_cast<bf16*>(out), ldo);
+  return (int)cudaGetLastError();
+}
+
 // B3 / B10-qkv: xn = rmsnorm(x)·ln -> xn @ W (bf16, or int8 with I8 and the
 // column scales ws) -> qkv_epilogue
 template <bool I8>
@@ -859,6 +1157,47 @@ int dstts_grouped_down(const void* h, const void* offsets, const void* w_down, i
   const bf16* W = static_cast<const bf16*>(w_down);
   return launch_grouped<false>(h, offsets, W, W, (long long)F * E, E, F, E / TILE, NE,
                                zsplit, y, E, static_cast<cudaStream_t>(stream));
+}
+
+// The prefill kernel of the grouped expert FFN (grouped_expert_tc), entry 1:
+// h [S,F] as dstts_grouped_gateup over x [S,E]; w_gate / w_up: expert e's
+// [E,F] matrices at w + e*E*ldw with row stride ldw (packed: ldw = 2F and
+// w_up = w_gate + F; both 16-byte aligned). E % 64 == 0, F % 64 == 0,
+// NE <= 1024; grid: the card's SMs.
+int dstts_grouped_gateup_tc(const void* x, const void* offsets, const void* w_gate,
+                            const void* w_up, int ldw, int NE, int E, int F, int S, int grid,
+                            void* h, void* stream) {
+  if (F % 64) return (int)cudaErrorInvalidValue;
+  return launch_grouped_tc<true>(x, offsets, w_gate, w_up, ldw, F, NE, E, S, grid, h, F,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Entry 2: y [S,E] = h [S,F] @ Wd[e] over w_down [NE,F,E]. F % 64 == 0,
+// E % 128 == 0.
+int dstts_grouped_down_tc(const void* h, const void* offsets, const void* w_down, int NE,
+                          int F, int E, int S, int grid, void* y, void* stream) {
+  if (E % XBN) return (int)cudaErrorInvalidValue;
+  return launch_grouped_tc<false>(h, offsets, w_down, w_down, E, E, NE, F, S, grid, y, E,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Blocks an SM can hold of the grouped expert kernels, as the runtime
+// computes them from registers, threads and shared memory: out[0..3] = the
+// decode kernel (gate|up, down), the prefill kernel (gate|up, down).
+int dstts_grouped_occupancy(int* out) {
+  constexpr int dec = gemm_smem_bytes<GROUP_MT>();
+  constexpr int pre_gu = xpre_smem_bytes<true>(), pre_dn = xpre_smem_bytes<false>();
+  cudaFuncSetAttribute(grouped_expert<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, dec);
+  cudaFuncSetAttribute(grouped_expert<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, dec);
+  cudaFuncSetAttribute(grouped_expert_tc<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       pre_gu);
+  cudaFuncSetAttribute(grouped_expert_tc<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       pre_dn);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], grouped_expert<true>, GT, dec);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], grouped_expert<false>, GT, dec);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], grouped_expert_tc<true>, XTH, pre_gu);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], grouped_expert_tc<false>, XTH, pre_dn);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -181,6 +181,12 @@ def _lib():
         lib.dstts_grouped_gateup.restype = i
         lib.dstts_grouped_down.argtypes = [p] * 3 + [i] * 4 + [p, p]
         lib.dstts_grouped_down.restype = i
+        lib.dstts_grouped_gateup_tc.argtypes = [p] * 4 + [i] * 6 + [p, p]
+        lib.dstts_grouped_gateup_tc.restype = i
+        lib.dstts_grouped_down_tc.argtypes = [p] * 3 + [i] * 5 + [p, p]
+        lib.dstts_grouped_down_tc.restype = i
+        lib.dstts_grouped_occupancy.argtypes = [p]
+        lib.dstts_grouped_occupancy.restype = i
         lib._dstts_typed = True
     return lib
 

@@ -7,9 +7,13 @@
   the grouped SwiGLU over the expert-sorted rows, un-sort and combine with
   the gate weights. The JAX package runs the grouped products through
   ``lax.ragged_dot`` (XLA); here :func:`_expert_ffn_ragged` runs them through
-  the hand-written grouped expert kernel in ``csrc/fused_layer.cu``
-  (``grouped_expert``): :func:`grouped_gateup` (h = silu(x@Wg[e])·(x@Wu[e]))
-  and :func:`grouped_down` (y = h@Wd[e]).
+  the hand-written grouped expert kernels in ``csrc/fused_layer.cu``:
+  :func:`grouped_gateup` (h = silu(x@Wg[e])·(x@Wu[e])) and
+  :func:`grouped_down` (y = h@Wd[e]) each launch ``grouped_expert`` (decode:
+  1-2 rows an expert, weights streamed once on ``mma.sync``) or
+  ``grouped_expert_tc`` (prefill: 128-row tiles on ``wgmma`` over a TMA
+  ring, a persistent grid over (expert, n-tile, m-tile) items built on the
+  card), chosen by :func:`grouped_prefill` from static sizes alone.
 * :func:`moe_capacity` — the GShard capacity-bounded one-hot dispatch, the
   other ``moe_impl`` (plain torch; tokens past an expert's capacity drop).
 
@@ -22,10 +26,11 @@ On the card the routing glue is plain torch that never syncs with the host:
 the group sizes are counted with ``scatter_add_`` (``torch.bincount`` on
 CUDA reads its maximum back to size the output) and their exclusive cumsum
 stays on the device, where each kernel block reads its expert's row range.
-For a CUDA tensor the grouped wrappers launch the kernel or raise; for a CPU
+For a CUDA tensor the grouped wrappers launch a kernel or raise; for a CPU
 tensor they run their plain versions, a per-expert loop that reads the
-group offsets on the host. Each wrapper counts its launches in
-``launches``. ``_expert_ffn_blocked`` (int8 experts, ROADMAP A10) and
+group offsets on the host. Each wrapper counts its launches of either
+kernel in ``launches`` and those of the prefill kernel in
+``prefill_launches``. ``_expert_ffn_blocked`` (int8 experts, ROADMAP A10) and
 ``moe_ep_alltoall`` (A13) are not ported yet.
 """
 from __future__ import annotations
@@ -33,11 +38,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+import ctypes
+
 from ..models.common import matmul_f32
 from .fused_layer import _TILE, _check, _lib, _raise_if
+from .paged_attention import _sm_count
 
-_ROWS = 64          # expert-sorted rows per block tile (csrc: MAX_ROWS)
+_ROWS = 64          # expert-sorted rows per block tile of the decode kernel (csrc: MAX_ROWS)
 _MAX_ROW_SPLITS = 8
+# experts the prefill kernel's tile table holds (csrc: XMAX_NE); its tiles
+# (128 y columns, 64 gate and 64 up columns, 64-deep k stages) take the
+# widths the decode kernel takes
+_PREFILL_MAX_NE = 1024
+# mean rows an expert from which the prefill kernel takes over
+PREFILL_ROWS_PER_EXPERT = 16
 
 
 def route_topk(router_logits: torch.Tensor, top_k: int, norm_topk_prob: bool = True
@@ -107,6 +121,22 @@ def grouped_shapes_ok(hidden: int, moe_intermediate: int) -> bool:
     return hidden % _TILE == 0 and moe_intermediate % (_TILE // 2) == 0
 
 
+def prefill_shapes_ok(hidden: int, moe_intermediate: int, n_exp: int) -> bool:
+    """Whether the prefill kernel takes these widths: the decode kernel's
+    widths, and no more experts than its tile table holds."""
+    return grouped_shapes_ok(hidden, moe_intermediate) and n_exp <= _PREFILL_MAX_NE
+
+
+def grouped_prefill(S: int, n_exp: int, hidden: int, moe_intermediate: int) -> bool:
+    """Whether the grouped wrappers launch the prefill kernel for ``S``
+    expert-sorted rows (T tokens x top-k) over ``n_exp`` experts: from
+    static sizes alone (the group offsets stay on the card), where an
+    expert gets ``PREFILL_ROWS_PER_EXPERT`` rows or more on average and the
+    widths suit it; else the decode kernel."""
+    return (S >= PREFILL_ROWS_PER_EXPERT * n_exp
+            and prefill_shapes_ok(hidden, moe_intermediate, n_exp))
+
+
 def _row_splits(S: int, n_exp: int) -> int:
     """Blocks per (column tile, expert) along the rows: twice the mean
     number of 64-row tiles an expert holds (so a skewed expert's rows are
@@ -125,7 +155,8 @@ def grouped_gateup(x_sorted, w_gate, w_up, offsets):
     """Entry 1: h [S,F] for expert-sorted rows x_sorted [S,E]; rows
     ``offsets[e] .. offsets[e+1]-1`` belong to expert e. ``w_up=None``:
     ``w_gate`` is the packed [NE,E,2F] gate|up stack (gate first);
-    otherwise both are [NE,E,F]."""
+    otherwise both are [NE,E,F]. The kernel is :func:`grouped_prefill`'s
+    choice."""
     if x_sorted.device.type == "cpu":
         return grouped_gateup_plain(x_sorted, w_gate, w_up, offsets)
     S, E = x_sorted.shape
@@ -143,21 +174,29 @@ def grouped_gateup(x_sorted, w_gate, w_up, offsets):
         _check("w_up", w_up, (NE, E, Fi))
         up_ptr, ldw = w_up.data_ptr(), Fi
     _check_offsets(offsets, NE, dev)
+    prefill = grouped_prefill(S, NE, E, Fi)
     h = torch.empty((S, Fi), dtype=x_sorted.dtype, device=dev)
-    err = _lib().dstts_grouped_gateup(
-        x_sorted.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(), up_ptr,
-        E * ldw, ldw, NE, E, Fi, _row_splits(S, NE), h.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prefill:
+        err = _lib().dstts_grouped_gateup_tc(
+            x_sorted.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(), up_ptr, ldw, NE, E,
+            Fi, S, _sm_count(dev), h.data_ptr(), stream)
+    else:
+        err = _lib().dstts_grouped_gateup(
+            x_sorted.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(), up_ptr,
+            E * ldw, ldw, NE, E, Fi, _row_splits(S, NE), h.data_ptr(), stream)
     _raise_if(err, "grouped_gateup")
     grouped_gateup.launches += 1
+    grouped_gateup.prefill_launches += int(prefill)
     return h
 
 
-grouped_gateup.launches = 0
+grouped_gateup.launches = grouped_gateup.prefill_launches = 0
 
 
 def grouped_down(h, w_down, offsets):
-    """Entry 2: y [S,E] = h [S,F] @ Wd[e] [NE,F,E] over each expert's rows."""
+    """Entry 2: y [S,E] = h [S,F] @ Wd[e] [NE,F,E] over each expert's rows;
+    the kernel as :func:`grouped_gateup` chooses it."""
     if h.device.type == "cpu":
         return grouped_down_plain(h, w_down, offsets)
     S, Fi = h.shape
@@ -169,16 +208,33 @@ def grouped_down(h, w_down, offsets):
     _check("h", h, (S, Fi))
     _check("w_down", w_down, (NE, Fi, E))
     _check_offsets(offsets, NE, dev)
+    prefill = grouped_prefill(S, NE, E, Fi)
     y = torch.empty((S, E), dtype=h.dtype, device=dev)
-    err = _lib().dstts_grouped_down(
-        h.data_ptr(), offsets.data_ptr(), w_down.data_ptr(), NE, Fi, E,
-        _row_splits(S, NE), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prefill:
+        err = _lib().dstts_grouped_down_tc(
+            h.data_ptr(), offsets.data_ptr(), w_down.data_ptr(), NE, Fi, E, S,
+            _sm_count(dev), y.data_ptr(), stream)
+    else:
+        err = _lib().dstts_grouped_down(
+            h.data_ptr(), offsets.data_ptr(), w_down.data_ptr(), NE, Fi, E,
+            _row_splits(S, NE), y.data_ptr(), stream)
     _raise_if(err, "grouped_down")
     grouped_down.launches += 1
+    grouped_down.prefill_launches += int(prefill)
     return y
 
 
-grouped_down.launches = 0
+grouped_down.launches = grouped_down.prefill_launches = 0
+
+
+def grouped_occupancy() -> dict:
+    """Blocks an SM holds of each grouped expert kernel, as the CUDA runtime
+    computes them from registers, threads and shared memory."""
+    out = (ctypes.c_int * 4)()
+    _raise_if(_lib().dstts_grouped_occupancy(out), "grouped_occupancy")
+    names = ("decode gate|up", "decode down", "prefill gate|up", "prefill down")
+    return dict(zip(names, out))
 
 
 def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):

@@ -29,7 +29,8 @@ both k and v (``v_pages is k_pages``) at D = 576 and keeps the first
 block; MLA has 128 or 64 query heads over one cache head. On the card those
 calls take K3 (``latent_attention`` in ``csrc/attention.cu``) through
 :func:`paged_attention_latent`, which counts them; K3 computes only the
-``v_width`` columns.
+``v_width`` columns, 64 query heads a block on ``wgmma`` over TMA tiles,
+the context split as :func:`latent_splits` chooses.
 """
 from __future__ import annotations
 
@@ -47,7 +48,8 @@ MIN_CHUNK_TILES = 4   # a K1 split holds at least 256 keys
 BLOCKS_PER_SM = 2     # K1 blocks resident on one SM (its 104.4 KB ring)
 LATENT_DIM = 576      # K3's row: DeepSeek-V3 / Kimi-K2 kv_lora_rank 512 + rope 64
 LATENT_V = 512        # K3's value columns (kv_lora_rank)
-LATENT_HEADS = 16     # query heads one K3 block holds
+LATENT_HEADS = 64     # query heads one K3 block holds: one wgmma m64 tile
+LATENT_MIN_CHUNK_TILES = 4   # a K3 split holds at least 256 keys
 
 
 # ----------------------------------------------------------------- plain torch
@@ -104,6 +106,19 @@ def pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table, seq_lens, *
 
 # ----------------------------------------------------- K1's split of the context
 
+def _context_splits(base: int, fill: int, s_max: int, min_tiles: int) -> tuple[int, int]:
+    """``(splits, chunk)`` for ``base`` blocks a split on a card that
+    ``fill`` resident blocks fill: one split where ``base`` already fills
+    it, otherwise enough to reach twice that, with chunks of whole key
+    tiles and at least ``min_tiles`` of them; the chunks cover ``s_max``
+    and none lies wholly past it."""
+    tiles = max(1, -(-s_max // KEY_TILE))
+    want = 1 if base >= fill else -(-2 * fill // base)
+    s = max(1, min(want, tiles // min_tiles))
+    per = -(-tiles // s)
+    return -(-tiles // per), per * KEY_TILE
+
+
 def decode_splits(B: int, KV: int, s_max: int, sms: int) -> tuple[int, int]:
     """``(splits, chunk)``: K1 cuts each row's context of at most ``s_max``
     keys into ``splits`` chunks of ``chunk`` keys, one block each, from
@@ -113,21 +128,29 @@ def decode_splits(B: int, KV: int, s_max: int, sms: int) -> tuple[int, int]:
     reach twice that, with chunks of whole key tiles and at least
     ``MIN_CHUNK_TILES`` of them; the chunks cover ``s_max`` and none lies
     wholly past it."""
-    tiles = max(1, -(-s_max // KEY_TILE))
-    base, fill = B * KV, BLOCKS_PER_SM * sms
-    want = 1 if base >= fill else -(-2 * fill // base)
-    s = max(1, min(want, tiles // MIN_CHUNK_TILES))
-    per = -(-tiles // s)
-    return -(-tiles // per), per * KEY_TILE
+    return _context_splits(B * KV, BLOCKS_PER_SM * sms, s_max, MIN_CHUNK_TILES)
+
+
+def latent_splits(B: int, head_tiles: int, s_max: int, sms: int) -> tuple[int, int]:
+    """``(splits, chunk)`` of K3 as :func:`decode_splits` chooses K1's, with
+    the ``B·head_tiles`` blocks of 64 query heads in place of ``B·KV``, one
+    block an SM (K3's 226 KB of shared memory) and chunks of at least
+    ``LATENT_MIN_CHUNK_TILES`` key tiles: a split's float32 partial (64 ×
+    512 × 4 B) is large next to its keys (256 keys × 1152 B)."""
+    return _context_splits(B * head_tiles, sms, s_max, LATENT_MIN_CHUNK_TILES)
 
 
 # ------------------------------------------------------------------- kernel K1
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA card ``index`` (a static property,
-    read once: no host sync)."""
+def _sm_count_of(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (a static property,
+    read once per card: no host sync)."""
+    return _sm_count_of(dev.index if dev.index is not None else torch.cuda.current_device())
 
 
 def _lib():
@@ -141,8 +164,8 @@ def _lib():
         lib.dstts_decode_attention.restype = i
         lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
         lib.dstts_flash_attention.restype = i
-        lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, i,
-                                               f, i, p]
+        lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, ll,
+                                               i, f, i, i, i, p, p, p]
         lib.dstts_latent_attention.restype = i
         lib.dstts_attention_occupancy.argtypes = [p]
         lib.dstts_attention_occupancy.restype = i
@@ -156,9 +179,10 @@ def attention_occupancy() -> dict:
     ``-Xptxas -v`` report gives the registers)."""
     from .fused_layer import _raise_if
 
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     _raise_if(_lib().dstts_attention_occupancy(out), "attention_occupancy")
-    names = ("K1 (1 m-tile)", "K1 (2 m-tiles)", "K1 (4 m-tiles)", "K2", "K3")
+    names = ("K1 (1 m-tile)", "K1 (2 m-tiles)", "K1 (4 m-tiles)", "K2", "K3 (bf16 p)",
+             "K3 (float32 p)")
     return dict(zip(names, out))
 
 
@@ -212,8 +236,7 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
     if max_keys is None:
         max_keys = P * ps
     scale = scale if scale is not None else D ** -0.5
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    splits, chunk = decode_splits(B, K, min(int(max_keys), P * ps), _sm_count(index))
+    splits, chunk = decode_splits(B, K, min(int(max_keys), P * ps), _sm_count(dev))
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=dev)
     o_part = ml_part = None
     if splits > 1:
@@ -238,11 +261,13 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
 def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int = 0,
                           q_positions=None, min_one=False, max_keys: int | None = None,
                           scale=None, p_bf16=False):
-    """Launch K3. q [B,H,576] bf16 (H a multiple of 16); pool [R,ps,1,576]
+    """Launch K3. q [B,H,576] bf16 (H a multiple of 64); pool [R,ps,1,576]
     bf16, both k and v (MLA's latent rows); ``page_table`` [B,P] int64
-    (None: the identity table, row ``row_offset + b``); seq_lens [B] int64;
-    ``q_positions`` [B,1] int64 or None. Row b's heads see keys ``<
-    min(seq_len (>= 1 if min_one), q_positions[b,0] + 1, max_keys)``.
+    (None: the identity table, row ``row_offset + b``; with a table, ps a
+    multiple of 64 or a multiple of 8 dividing 64: a 64-key tile is whole
+    pages); seq_lens [B] int64; ``q_positions`` [B,1] int64 or None. Row
+    b's heads see keys ``< min(seq_len (>= 1 if min_one), q_positions[b,0]
+    + 1, max_keys)``. The context is split as :func:`latent_splits` says.
     Returns [B,H,512] bf16: the value product over the latent columns only
     (the 64 rope columns of v are never used by MLA)."""
     from .fused_layer import _check, _raise_if
@@ -260,6 +285,10 @@ def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int
     _check_index("seq_lens", seq_lens, (B,), dev)
     P = 1
     if page_table is not None:
+        if ps % KEY_TILE and (KEY_TILE % ps or ps % 8):
+            raise ValueError(f"latent attention kernel over a page table needs ps % "
+                             f"{KEY_TILE} == 0 or ps a multiple of 8 dividing {KEY_TILE} "
+                             f"(got ps={ps})")
         P = page_table.shape[1]
         _check_index("page_table", page_table, (B, P), dev)
         if not page_table.is_contiguous():
@@ -271,13 +300,21 @@ def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int
     if max_keys is None:
         max_keys = P * ps
     scale = scale if scale is not None else D ** -0.5
+    splits, chunk = latent_splits(B, H // LATENT_HEADS, min(int(max_keys), P * ps),
+                                  _sm_count(dev))
     out = torch.empty((B, H, LATENT_V), dtype=q.dtype, device=dev)
+    o_part = ml_part = None
+    if splits > 1:
+        o_part = torch.empty((B * splits * H, LATENT_V), dtype=torch.float32, device=dev)
+        ml_part = torch.empty((B * splits * H, 2), dtype=torch.float32, device=dev)
     err = _lib().dstts_latent_attention(
         q.data_ptr(), pool.data_ptr(), None if page_table is None else page_table.data_ptr(),
         P, int(row_offset), seq_lens.data_ptr(),
         None if q_positions is None else q_positions.data_ptr(), qpos_stride,
-        int(bool(min_one)), int(max_keys), out.data_ptr(), B, H, ps, float(scale),
-        int(bool(p_bf16)), torch.cuda.current_stream(dev).cuda_stream)
+        int(bool(min_one)), int(max_keys), out.data_ptr(), B, H, R, ps, float(scale),
+        int(bool(p_bf16)), splits, chunk, None if o_part is None else o_part.data_ptr(),
+        None if ml_part is None else ml_part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, "latent_attention")
     return out
 

@@ -1,5 +1,6 @@
-"""K1's split of the context (``ops/paged_attention.py``): the host-side
-choice of splits, and the algebra of split partials and their merge.
+"""K1's and K3's split of the context (``ops/paged_attention.py``): the
+host-side choice of splits (``decode_splits``, ``latent_splits``), and the
+algebra of split partials and their merge.
 
 The CUDA kernel itself runs only on the card (``chip_smoke.py`` holds it to
 the plain versions there). Here the choice is checked as pure Python, and
@@ -152,3 +153,50 @@ def test_merge_never_reads_an_empty_split():
     dirty = merge_partials_plain(o, m, l)
     assert torch.equal(clean[0], dirty[0])
     assert bool((dirty[1] == 0).all())
+
+
+# ------------------------------------------------------------------ K3
+
+def _check_latent_cover(B, head_tiles, s_max, sms):
+    splits, chunk = pa.latent_splits(B, head_tiles, s_max, sms)
+    assert splits >= 1 and chunk % pa.KEY_TILE == 0
+    assert splits * chunk >= s_max                 # the chunks cover S_max
+    assert (splits - 1) * chunk < s_max            # and none lies wholly past it
+    if splits > 1:
+        assert chunk >= pa.LATENT_MIN_CHUNK_TILES * pa.KEY_TILE
+        assert B * head_tiles < sms                # one K3 block an SM
+        assert B * head_tiles * (splits - 1) < 2 * sms
+
+
+@pytest.mark.parametrize("sms", [H100_SXM_SMS, H100_PCIE_SMS])
+@pytest.mark.parametrize("B", [1, 2, 16, 64, 200])
+@pytest.mark.parametrize("head_tiles", [1, 2])     # kimi-k2's 64 heads, deepseek-v3's 128
+@pytest.mark.parametrize("s_max", [1, 63, 64, 255, 256, 1000, 4096, 32768])
+def test_latent_splits_cover_the_context_in_whole_tiles(sms, B, head_tiles, s_max):
+    _check_latent_cover(B, head_tiles, s_max, sms)
+
+
+def test_latent_splits_read_no_tensor_value():
+    """K3's choice takes sizes and the SM count only, as K1's does."""
+    params = list(inspect.signature(pa.latent_splits).parameters)
+    assert params == ["B", "head_tiles", "s_max", "sms"]
+
+
+def test_latent_splits_at_the_serving_shapes():
+    sms = H100_SXM_SMS
+    assert pa.LATENT_HEADS == 64                   # one wgmma m64 tile of query heads
+    # the MLA slot engine's decode batch: 16 rows x 2 head tiles, 4096-key rows
+    splits, chunk = pa.latent_splits(16, 2, 4096, sms)
+    assert splits > 1 and 16 * 2 * splits >= sms
+    # one long row: as many splits as the least chunk allows
+    assert pa.latent_splits(1, 2, 4096, sms) == (
+        4096 // (pa.LATENT_MIN_CHUNK_TILES * pa.KEY_TILE),
+        pa.LATENT_MIN_CHUNK_TILES * pa.KEY_TILE)
+    # B·head tiles that fill the card (one block an SM): no split
+    assert pa.latent_splits(66, 2, 4096, sms)[0] == 1
+    assert pa.latent_splits(65, 2, 4096, sms)[0] > 1
+    # a context shorter than one least chunk stays whole
+    assert pa.latent_splits(1, 2, 100, sms)[0] == 1
+    # a smaller card is filled by fewer blocks
+    assert pa.latent_splits(60, 2, 4096, H100_PCIE_SMS)[0] == 1
+    assert pa.latent_splits(60, 2, 4096, sms)[0] > 1

@@ -210,6 +210,12 @@ def test_mla_wrappers_never_fall_back_off_cpu():
         tsa.slot_attention(q, pool, None, lim, 1, n_rows=B, slot_ctx=64, v_width=512)
     with pytest.raises(ValueError):
         tsa.slot_attention(q, pool, None, lim, 1, n_rows=B, slot_ctx=64, v_width=576)
+    # 64 heads, the query heads of one K3 block (LATENT_HEADS): the shape
+    # suits K3, the device does not
+    assert tpa.LATENT_HEADS == 64
+    with pytest.raises(ValueError):
+        tsa.slot_attention(torch.zeros((B, 64, 576), **meta), pool, None, lim, 1, n_rows=B,
+                           slot_ctx=64, v_width=512)
     table = torch.zeros((B, 2), dtype=torch.int64, device="meta")
     qpos = torch.zeros((B, 1), dtype=torch.int64, device="meta")
     for name in ("pallas_paged_attention", "pallas_paged_decode", "pallas_paged_decode_clamp"):

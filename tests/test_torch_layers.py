@@ -222,6 +222,7 @@ def test_fused_wrappers_never_fall_back_off_cpu():
     assert tfused.fused_out_mlp_stacked.launches == 0
     assert tfused.fused_out_router_stacked.launches == 0
     assert tmoe_ops.grouped_gateup.launches == tmoe_ops.grouped_down.launches == 0
+    assert tmoe_ops.grouped_gateup.prefill_launches == tmoe_ops.grouped_down.prefill_launches == 0
     assert tfused.fused_mlp.launches == tfused.fused_qkv.launches == 0
     assert tfused.fused_out_mlp.launches == 0
 

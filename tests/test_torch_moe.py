@@ -162,6 +162,52 @@ def test_grouped_expert_plain_matches_ragged_dot(packed):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=RTOL, atol=ATOL)
 
 
+def test_grouped_prefill_choice_reads_sizes_only():
+    """The grouped wrappers take the decode or the prefill kernel from
+    static sizes alone: the group offsets stay on the card (no host sync,
+    CUDA-graph safe)."""
+    import inspect
+
+    params = list(inspect.signature(tmoe_ops.grouped_prefill).parameters)
+    assert params == ["S", "n_exp", "hidden", "moe_intermediate"]
+
+
+def _moe_widths(name):
+    from deepsearch_tts_tpu_torch.models.deepseek_v3 import DEEPSEEK_V3_CONFIGS
+
+    cfg = {**tmoe.QWEN3_MOE_CONFIGS, **DEEPSEEK_V3_CONFIGS}[name]
+    n_exp = getattr(cfg, "n_experts", None) or cfg.n_routed_experts
+    return n_exp, cfg.hidden, cfg.moe_intermediate, cfg.top_k
+
+
+@pytest.mark.parametrize("name", ["qwen3-30b-a3b", "qwen3-235b-a22b", "deepseek-v3", "kimi-k2",
+                                  "qwen3-moe-test", "deepseek-v3-test"])
+def test_grouped_prefill_choice_per_config(name):
+    """Every MoE config: a 16-slot decode step takes the decode kernel; a
+    3072-token prefill takes the prefill kernel wherever its widths suit
+    it (the test configs' narrow widths never do); the switch lies at
+    ``PREFILL_ROWS_PER_EXPERT`` rows an expert on average."""
+    n_exp, E, F, k = _moe_widths(name)
+    fits = tmoe_ops.prefill_shapes_ok(E, F, n_exp)
+    assert fits == (E % 128 == 0 and F % 64 == 0)
+    assert not tmoe_ops.grouped_prefill(16 * k, n_exp, E, F)
+    assert tmoe_ops.grouped_prefill(3072 * k, n_exp, E, F) == fits
+    cross = tmoe_ops.PREFILL_ROWS_PER_EXPERT * n_exp
+    assert not tmoe_ops.grouped_prefill(cross - 1, n_exp, E, F)
+    assert tmoe_ops.grouped_prefill(cross, n_exp, E, F) == fits
+
+
+def test_grouped_prefill_choice_refuses_what_the_kernel_cannot_take():
+    """Widths the prefill kernel's tiles do not divide, and more experts
+    than its tile table holds, stay on the decode kernel at any size."""
+    S = 1 << 20
+    assert tmoe_ops.grouped_prefill(S, 128, 2048, 768)
+    assert not tmoe_ops.grouped_prefill(S, 128, 2048 + 64, 768)      # E % 128
+    assert not tmoe_ops.grouped_prefill(S, 128, 2048, 768 + 32)      # F % 64
+    assert tmoe_ops.grouped_prefill(S, 1024, 2048, 768)
+    assert not tmoe_ops.grouped_prefill(S, 1025, 2048, 768)          # the tile table
+
+
 # ------------------------------------------------------------------- B7
 
 @pytest.mark.parametrize("layer", [0, 1])
