@@ -63,10 +63,14 @@ Phases, each raising on failure (non-zero exit, no final line):
     B1 decode at G = 8, B3, B7, the grouped expert kernel and a parked-row
     re-entry;
 13. int8 kernels (run with phase 3): B10 (``fused_qkv_stacked_i8``,
-    ``fused_out_mlp_stacked_i8``) at qwen3-32b and qwen3-8b widths, B = 1
-    and 16, B10's bare int8 product at the qwen3-32b ``lm_head`` shape, and
-    B12 (``quantize_int8``): round to nearest bit-equal to its plain version
-    on a [5120, 51200] matrix, stochastic rounding held to its properties;
+    ``fused_out_mlp_stacked_i8``) at qwen3-32b and qwen3-8b widths, B = 1,
+    16 and 64 on every layer of a four-layer stack, a plain output with one
+    ring stage of K or one column tile left out failing each check at B = 1
+    and 16; B10's bare int8 product at the qwen3-32b ``lm_head`` shape
+    beside ``torch._weight_int8pack_mm`` and at the layer shapes and a
+    ragged one from 1 to 64 rows; and B12 (``quantize_int8``): round to
+    nearest bit-equal to its plain version on a [5120, 51200] matrix,
+    stochastic rounding held to its properties;
 14. int8 serve, after the qwen3-30b-a3b weights are released: qwen3-32b
     (full width, random weights from seed 0 drawn and quantized one matrix
     at a time, 33.6 GB) with ``quantize="int8"`` and ``kv_quantize="int8"``,
@@ -964,12 +968,48 @@ def phase_moe_kernels(gen) -> dict:
     return res
 
 
+def _int8pack(x, w_t, scales):
+    """One PyTorch call that computes B10's bare product, the yardstick of
+    ``int8_product``: ``torch._weight_int8pack_mm`` with the [N, K] int8
+    weight and the scales rounded to x's dtype (its only difference), or
+    None where this PyTorch has no CUDA kernel for it."""
+    import torch
+
+    fn = getattr(torch, "_weight_int8pack_mm", None)
+    if fn is None:
+        return None
+    try:
+        fn(x, w_t, scales)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[kernel] torch._weight_int8pack_mm: no CUDA kernel here ({str(e)[:120]})")
+        return None
+    return lambda: fn(x, w_t, scales)
+
+
+def _i8_fault_uses(tag: str, ref, faults: dict) -> None:
+    """B10's bound sees a scheduling fault: each faulted plain output (one
+    ring stage of a product's K left out, or one column tile left out)
+    against the sound plain output ``ref`` takes more than its whole bound
+    (BF16_RTOL / BF16_ATOL)."""
+    uses = {name: _bound_use(got, ref, BF16_RTOL, BF16_ATOL, math.inf)
+            for name, got in faults.items()}
+    log(f"[kernel] {tag} faults, bound use: " +
+        ", ".join(f"{n} {u:.2f}" for n, u in uses.items()))
+    assert min(uses.values()) > 1.0, (tag, uses)
+
+
 def phase_int8_kernels(gen) -> dict:
     """B10's two entries and its bare int8 product, and B12, against their
-    plain versions (B10 at qwen3-32b and qwen3-8b widths, B = 1 and 16;
-    the product at qwen3-32b's lm_head shape; B12 on one qwen3-32b gate|up
-    matrix, [5120, 51200]); returns per-kernel results, timed at qwen3-32b
-    widths and the decode batch."""
+    plain versions (B10 at qwen3-32b and qwen3-8b widths, B = 1, 16 and 64,
+    every layer of a four-layer stack; the product at qwen3-32b's lm_head
+    shape (a half-filled last 256-column tile), at each qwen3-32b layer shape
+    and at qwen3-8b's down projection and a ragged [5120, 51328] at 1, 16,
+    32, 48 and 64 rows; B12 on one qwen3-32b gate|up matrix, [5120, 51200]); a plain
+    output with one ring stage of K or one column tile left out must fail
+    each B10 check at B = 1 and 16. Returns per-kernel results, timed at
+    qwen3-32b widths and the decode batch, ``int8_product`` beside
+    ``torch._weight_int8pack_mm``."""
     import torch
 
     from deepsearch_tts_tpu_torch.models.common import rope_angles
@@ -992,6 +1032,18 @@ def phase_int8_kernels(gen) -> dict:
 
     def check(*a, **k):
         _check_kernel(res, *a, rtol=BF16_RTOL, atol=BF16_ATOL, **k)
+
+    def drop(w, stage=None, tile=None):
+        """w [K,N] with one ring stage of rows (its tile width's k rows) or
+        one column tile zeroed: what a schedule that skipped it would sum."""
+        w = w.clone()
+        tw = fl.i8_tile_cols(w.shape[1])
+        if stage is not None:
+            rows = 8192 // tw
+            w[stage * rows:(stage + 1) * rows] = 0
+        if tile is not None:
+            w[:, tile * tw:(tile + 1) * tw] = 0
+        return w
 
     # a four-layer stack walked layer by layer, each call reading its
     # weights cold (487 MB of int8 a layer at qwen3-32b, beyond the 50 MB L2)
@@ -1024,6 +1076,27 @@ def phase_int8_kernels(gen) -> dict:
                       lambda: fl.fused_out_mlp_stacked_i8_plain(*args_o, layer, eps=1e-6),
                       slack=(_x2_ulp(a, x, woq[layer], wos[layer]) if B == SLOTS * WIN
                              else None))
+            if model == I8_MODEL and B in (1, SLOTS):
+                # faults of the schedule: a product of layer 0 with one ring
+                # stage left out (64 rows of wqkv's 5120, of wd's 25600),
+                # and one column tile of it left out
+                ref = torch.cat(fl.fused_qkv_stacked_i8_plain(*args_q, 0, **kw), 1)
+                faults = {}
+                for name, kw_drop in (("stage 17 of wqkv dropped", {"stage": 17}),
+                                      ("tile 5 of wqkv dropped", {"tile": 5})):
+                    wf = drop(wq[0], **kw_drop)[None]
+                    faults[name] = torch.cat(fl.fused_qkv_stacked_i8_plain(
+                        x, ln1, wf, ws, qn, kn, cos, sin, 0, **kw), 1)
+                _i8_fault_uses(f"fused_qkv_stacked_i8 B={B}", ref, faults)
+                ref = fl.fused_out_mlp_stacked_i8_plain(*args_o, 0, eps=1e-6)
+                faults = {}
+                for name, kw_drop in (("stage 201 of wd dropped", {"stage": 201}),
+                                      ("tile 7 of wd dropped", {"tile": 7})):
+                    wf = drop(wdq[0], **kw_drop)[None]
+                    faults[name] = fl.fused_out_mlp_stacked_i8_plain(
+                        a, x, woq, wos, ln2, guq, gus, wf, wds, 0, eps=1e-6)
+                _i8_fault_uses(f"fused_out_mlp_stacked_i8 B={B}", ref, faults)
+                del ref, faults, wf
 
             def walk(f, args, **k):
                 return lambda: [f(*args, layer, **k) for layer in range(L)]
@@ -1048,32 +1121,67 @@ def phase_int8_kernels(gen) -> dict:
                     f"plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain {p[1]:.4f} "
                     f"ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) | "
                     f"{nbytes / t[0] / 1e6:.1f} GB/s")
+            if model == I8_MODEL and B == SLOTS:
+                # for information: torch._weight_int8pack_mm on B10-out's three
+                # products, layer by layer (three calls and no epilogues: not
+                # one call computing the function, so no library_ms)
+                pk = [(w[l].t().contiguous(), s[l, 0].to(bf)) for l in range(L)
+                      for w, s in ((woq, wos), (guq, gus), (wdq, wds))]
+                xs = (a, rnd(B, e), rnd(B, f))
+                if _int8pack(a, *pk[0]) is not None:
+                    lib3 = time_ms(lambda: [torch._weight_int8pack_mm(xs[i % 3], *pk[i])
+                                            for i in range(3 * L)], calls=L)[0]
+                    log(f"[kernel] fused_out_mlp_stacked_i8 {model} B={B}: three "
+                        f"torch._weight_int8pack_mm calls a layer {lib3:.4f} ms")
+                del pk
         del wq, ws, woq, wos, guq, gus, wdq, wds
 
-    # the bare int8 product at the lm_head shape (778 MB of int8)
+    # the bare int8 product at the lm_head shape (778 MB of int8; 593.5
+    # 256-column tiles: the last half full), beside one library call
     V32 = V
     hq, hs = i8(1, Q_E, V32)
     hq, hs = hq[0], hs[0]
+    lib = None
     for B in (1, SLOTS):
         x = rnd(B, Q_E)
+        if B == SLOTS:
+            lib = _int8pack(x, hq.t().contiguous(), hs[0].to(bf))
         check("int8_product", f"lm_head B={B} [{Q_E}, {V32}]",
               lambda: fl.int8_product(x, hq, hs), lambda: fl.int8_product_plain(x, hq, hs),
               timed=B == SLOTS, nbytes=Q_E * V32 + 4 * V32 + 2 * B * (Q_E + V32),
-              flop=2 * B * Q_E * V32)
-    del hq, hs
+              flop=2 * B * Q_E * V32, library=lib)
+        ref = fl.int8_product_plain(x, hq, hs)
+        _i8_fault_uses(f"int8_product lm_head B={B}", ref, {
+            "stage 77 dropped": fl.int8_product_plain(x, drop(hq, stage=77), hs),
+            "tile 300 dropped": fl.int8_product_plain(x, drop(hq, tile=300), hs)})
+    if lib is None:
+        log("[kernel] int8_product: torch._weight_int8pack_mm has no CUDA kernel here")
+    del hq, hs, lib
 
     # the bare product as int8_matmul runs it in a prefill of up to 64 rows,
-    # on each qwen3-32b layer shape: 17-32 rows take the kernel's MT=2
-    # instance, 33-64 its MT=4 one (48: a partly filled last m-tile)
+    # on each qwen3-32b layer shape (B = 16 beside torch._weight_int8pack_mm,
+    # for information), qwen3-8b's down projection and [5120, 51328] (200.5
+    # 256-column tiles: a half-filled last one): 17-32 rows take the
+    # kernel's MT=2 instance, 33-64 its MT=4 one (48: a partly filled last
+    # m-tile)
     for wname, (K8, N8) in (("wqkv", (Q_E, (Q_H + 2 * Q_KV) * D)), ("wo", (Q_H * D, Q_E)),
-                            ("w_gateup", (Q_E, 2 * Q_F)), ("w_down", (Q_F, Q_E))):
+                            ("w_gateup", (Q_E, 2 * Q_F)), ("w_down", (Q_F, Q_E)),
+                            ("qwen3-8b w_down", (FF, E)), ("ragged", (Q_E, 51328))):
         wq8, ws8 = i8(1, K8, N8)
         wq8, ws8 = wq8[0], ws8[0]
-        for B in (32, 48, 64):
+        for B in (1, 16, 32, 48, 64):
             x = rnd(B, K8)
             check("int8_product", f"{wname} B={B} [{K8}, {N8}]",
                   lambda: fl.int8_product(x, wq8, ws8),
                   lambda: fl.int8_product_plain(x, wq8, ws8))
+            if B == SLOTS and not wname.startswith(("qwen3-8b", "ragged")):
+                t = time_ms(lambda: fl.int8_product(x, wq8, ws8), iters=20)[0]
+                lb = _int8pack(x, wq8.t().contiguous(), ws8[0].to(bf))
+                tl = time_ms(lb, iters=20)[0] if lb is not None else None
+                log(f"[kernel] int8_product {wname} B={B} [{K8}, {N8}] | device kernel "
+                    f"{t:.4f} ms | bound {K8 * N8 / HBM_BYTES_S * 1e3:.4f} ms (bytes) | "
+                    f"torch._weight_int8pack_mm "
+                    f"{'none' if tl is None else f'{tl:.4f} ms'}")
         del wq8, ws8
 
     # B12 on one qwen3-32b gate|up matrix: round to nearest bit-equal

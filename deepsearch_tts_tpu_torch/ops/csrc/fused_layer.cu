@@ -54,17 +54,47 @@
 //   go through device memory and stay in L2.
 // * bf16 round points match the TPU kernels: xn, x2, h and the outputs are
 //   rounded to bf16; every accumulator and the norm/rope math are float32.
-// * B10 (int8 weights, one float32 scale per output column): the same
-//   product with I8 = true. The cp.async ring brings 32x128 int8 weight
-//   tiles (4 KB a stage, half the bf16 bytes: decode streams half the
-//   weight bytes, its binding resource); after a stage lands the threads
-//   widen it to bf16 in one shared tile (exact: |q| <= 127) and the same
-//   ldmatrix.trans -> mma.sync path multiplies it with the bf16
-//   activations, as JAX multiplies bf16 x bf16(int8) (fused_layer.py:583,
-//   699-704). The column scales multiply the reduced float32 sum in the
-//   epilogues: before the q/k norm and rope (B10-qkv), before silu for g
-//   and u each (B10-out) and before the residual for wo and wd. A column
-//   scale commutes with the split-K sum up to float32 rounding.
+// * B10 (int8 weights, one float32 scale per output column) has its own
+//   product, i8_stream (below the grouped expert kernels). It multiplies
+//   bf16 activations by the int8 weights widened to bf16 (exact: |q| <=
+//   127), as JAX multiplies bf16 x bf16(int8) (fused_layer.py:583,
+//   699-704), sums in float32 and applies the column scale to the sum. What
+//   bounds it: the int8 weight bytes (one byte a weight; B FLOP a byte).
+//   What held the first port back (scripts/trace_int8_product.py, PERF.md):
+//   widening each 4 KB stage into a bf16 tile took ~70 % of a stage, since
+//   each byte went through I2F and a float->bf16 conversion, with two
+//   barriers a stage; and a chain of seven launches, 2.4 waves of uneven
+//   depth and float32 partials through memory. The design:
+//   - widening in registers at full rate: ldmatrix.trans reads the int8
+//     tile as 16-bit pairs, so a 32-bit register holds two k-rows of two
+//     neighbouring columns; widen4 splits it with byte permutes into the
+//     low mantissa of 2^23, one float subtract leaves each exact value,
+//     whose upper half is its bf16 (~3 integer / float ops a byte, no
+//     conversion unit, no bf16 tile, no second barrier). The two columns
+//     of a register feed two n8 blocks, so a warp's n8 block 2G + e holds
+//     columns 16G + 2i + e; the epilogue maps them back.
+//   - a persistent grid (the SM count, one block each) over a stream-K
+//     split of the (column tile, 8 KB k-stage) sequence: block b owns
+//     stages [b*total/G, (b+1)*total/G) in tile-major order, so the blocks'
+//     shares differ by at most one stage and no wave has a tail;
+//   - one producer warp issues TMA loads of 128-byte-wide weight boxes
+//     (128-byte swizzle, 128-byte L2 promotion: 256 fetched the next
+//     tile's bytes too) and of the activation stage into an mbarrier ring;
+//     one consumer warp per 32 columns widens and multiplies in registers;
+//   - tiles of 128 columns, and of 256 (256-byte runs of each weight row)
+//     for the lm_head and for SwiGLU's gate and up halves;
+//   - a tile split over blocks is finished inside the kernel: the other
+//     blocks leave their sums in a partial slot and count themselves on
+//     the tile's ticket (release); the block holding the tile's first
+//     stages (its share's last segment) waits for the count (acquire), adds
+//     the slots in block order and runs the tile's epilogue: the column
+//     scale, then the residual (wo, wd), SwiGLU over matching gate and up
+//     columns (the tile holds both), qkv's per-head RMSNorm and rope, or
+//     the plain product. The launch is cooperative, so all of a grid's
+//     blocks are resident at once and the wait always ends. The tickets are
+//     one buffer a device: the device's int8 products run on one stream.
+//   B10-out is four launches (wo, the norm of x2, gate|up, wd), B10-qkv two
+//   (the norm, the product) and the bare product one.
 //
 // Interface: plain C, raw pointers, launched on the caller's stream; no
 // allocation (the wrapper passes outputs and scratch); each entry returns the
@@ -108,17 +138,6 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   }
 }
 
-// 16 int8 weights (16 bytes) -> 16 bf16 (32 bytes), exact
-__device__ __forceinline__ void widen16(const int8_t* src, bf16* dst) {
-  const int4 v = *reinterpret_cast<const int4*>(src);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-  __align__(16) bf16 o[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) o[i] = __float2bfloat16(static_cast<float>(b[i]));
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(o)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(o)[1];
-}
-
 // 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
@@ -150,58 +169,79 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// xn[r, :] = bf16(X[r, :] * rsqrt(mean(X[r, :]^2) + eps) * ln), one block per row
-__global__ void __launch_bounds__(NT)
+// xn[r, :] = bf16(X[r, :] * rsqrt(mean(X[r, :]^2) + eps) * ln), one block a
+// row of norm_rows' threads (K % 8 == 0). A thread loads its first 8-value
+// chunk of X and of ln before the block's sum and keeps both in registers,
+// so up to K = 8192 (every model width) X is read once and the row's
+// latency is one load, one block sum and one store: at decode batch that
+// latency is the kernel's time. Wider rows read the rest of X twice.
+__device__ __forceinline__ void norm_put(bf16* out, int c, const uint4& x, const uint4& w,
+                                         float inv) {
+  float f[8], g[8];
+  bf16x8_to_float(x, f);
+  bf16x8_to_float(w, g);
+  __align__(16) bf16 o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16((f[i] * inv) * g[i]);
+  *reinterpret_cast<uint4*>(out + 8 * c) = *reinterpret_cast<const uint4*>(o);
+}
+
+__device__ __forceinline__ float sum_sq8(const uint4& x) {
+  float f[8], ss = 0.f;
+  bf16x8_to_float(x, f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) ss += f[i] * f[i];
+  return ss;
+}
+
+__global__ void __launch_bounds__(1024)
 rms_norm_rows(const bf16* __restrict__ X, const bf16* __restrict__ ln, int K,
               float eps, bf16* __restrict__ XN) {
-  __shared__ float part[NT / 32];
+  __shared__ float part[32];
   const bf16* xr = X + (long long)blockIdx.x * K;
-  float ss = 0.f;
-  for (int k = threadIdx.x * 8; k < K; k += NT * 8) {
-    float f[8];
-    bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) ss += f[i] * f[i];
-  }
+  bf16* out = XN + (long long)blockIdx.x * K;
+  const int n8 = K / 8, nt = blockDim.x, c0 = threadIdx.x;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const uint4 xv = c0 < n8 ? *reinterpret_cast<const uint4*>(xr + 8 * c0) : zero;
+  const uint4 wv = c0 < n8 ? *reinterpret_cast<const uint4*>(ln + 8 * c0) : zero;
+  float ss = sum_sq8(xv);
+  for (int c = c0 + nt; c < n8; c += nt) ss += sum_sq8(*reinterpret_cast<const uint4*>(xr + 8 * c));
   ss = warp_sum(ss);
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = ss;
   __syncthreads();
   float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) t += part[w];
+  for (int w = 0; w < nt / 32; ++w) t += part[w];
   const float inv = rsqrtf(t / (float)K + eps);
-  bf16* out = XN + (long long)blockIdx.x * K;
-  for (int k = threadIdx.x * 8; k < K; k += NT * 8) {
-    float f[8], g[8];
-    bf16x8_to_float(*reinterpret_cast<const uint4*>(xr + k), f);
-    bf16x8_to_float(*reinterpret_cast<const uint4*>(ln + k), g);
-    __align__(16) bf16 o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = __float2bfloat16((f[i] * inv) * g[i]);
-    *reinterpret_cast<uint4*>(out + k) = *reinterpret_cast<const uint4*>(o);
-  }
+  if (c0 < n8) norm_put(out, c0, xv, wv, inv);
+  for (int c = c0 + nt; c < n8; c += nt)
+    norm_put(out, c, *reinterpret_cast<const uint4*>(xr + 8 * c),
+             *reinterpret_cast<const uint4*>(ln + 8 * c), inv);
 }
 
-// I8: the bf16 ring holds one widened tile, and an int8 ring follows the
-// activation stages
-template <int MT, bool I8 = false>
+// rms_norm_rows over B rows of K: one thread an 8-value chunk, at most 1024
+void norm_rows(const bf16* X, const bf16* ln, int B, int K, float eps, bf16* XN,
+               cudaStream_t st) {
+  int nt = (K / 8 + 31) / 32 * 32;
+  nt = nt < 32 ? 32 : nt > 1024 ? 1024 : nt;
+  rms_norm_rows<<<B, nt, 0, st>>>(X, ln, K, eps, XN);
+}
+
+template <int MT>
 constexpr int gemm_smem_bytes() {
-  return ((I8 ? 1 : STAGES) * KT * WROW + STAGES * MT * 16 * AROW) * (int)sizeof(bf16) +
-         (I8 ? STAGES * KT * TILE : 0);
+  return (STAGES * KT * WROW + STAGES * MT * 16 * AROW) * (int)sizeof(bf16);
 }
 
 // P[z, r, n] = sum_{k in [z*kps, (z+1)*kps)} X[r, k] * W[k, n] for the rows
 // r0 = blockIdx.z * MAX_ROWS ... (MT*16 of them, rows >= B read as zeros);
-// W is bf16, or int8 with I8 (widened to bf16 in shared memory).
+// W is bf16.
 // grid: (N/TILE, splits, ceil(B/MAX_ROWS)); block: GT threads.
-template <int MT, bool I8>
+template <int MT>
 __global__ void __launch_bounds__(GT)
-gemm_partial(const bf16* __restrict__ X, const void* __restrict__ Wv,
+gemm_partial(const bf16* __restrict__ X, const bf16* __restrict__ W,
              float* __restrict__ P, int B, int K, int N, int kps) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ws = reinterpret_cast<bf16*>(smem);               // [STAGES or 1][KT][WROW]
-  bf16* as = ws + (I8 ? 1 : STAGES) * KT * WROW;          // [STAGES][MT*16][AROW]
-  int8_t* w8 = reinterpret_cast<int8_t*>(as + STAGES * MT * 16 * AROW);  // I8: [STAGES][KT][TILE]
+  bf16* as = ws + STAGES * KT * WROW;                     // [STAGES][MT*16][AROW]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = blockIdx.x * TILE;
   const int kb = blockIdx.y * kps;
@@ -210,20 +250,10 @@ gemm_partial(const bf16* __restrict__ X, const void* __restrict__ Wv,
 
   auto load_stage = [&](int stage, int kt) {
     const int k0 = kb + kt * KT;
-    if constexpr (I8) {
-      const int8_t* W = static_cast<const int8_t*>(Wv);
-      int8_t* wdst = w8 + stage * KT * TILE;
-      for (int i = threadIdx.x; i < KT * (TILE / 16); i += GT) {
-        const int r = i / (TILE / 16), c = (i % (TILE / 16)) * 16;
-        cp_async16(wdst + r * TILE + c, W + (long long)(k0 + r) * N + col0 + c, 16);
-      }
-    } else {
-      const bf16* W = static_cast<const bf16*>(Wv);
-      bf16* wdst = ws + stage * KT * WROW;
-      for (int i = threadIdx.x; i < KT * (TILE / 8); i += GT) {
-        const int r = i / (TILE / 8), c = (i % (TILE / 8)) * 8;
-        cp_async16(wdst + r * WROW + c, W + (long long)(k0 + r) * N + col0 + c, 16);
-      }
+    bf16* wdst = ws + stage * KT * WROW;
+    for (int i = threadIdx.x; i < KT * (TILE / 8); i += GT) {
+      const int r = i / (TILE / 8), c = (i % (TILE / 8)) * 8;
+      cp_async16(wdst + r * WROW + c, W + (long long)(k0 + r) * N + col0 + c, 16);
     }
     bf16* adst = as + stage * MT * 16 * AROW;
     for (int i = threadIdx.x; i < MT * 16 * (KT / 8); i += GT) {
@@ -259,17 +289,7 @@ gemm_partial(const bf16* __restrict__ X, const void* __restrict__ Wv,
       if (nt < nk) load_stage(nt % STAGES, nt);
       cp_async_commit();
     }
-    const bf16* wst = ws + (I8 ? 0 : (kt % STAGES) * KT * WROW);
-    if constexpr (I8) {
-      // widen stage kt into the bf16 tile (the barrier above also ends the
-      // previous stage's reads of it)
-      const int8_t* src = w8 + (kt % STAGES) * KT * TILE;
-      for (int i = threadIdx.x; i < KT * (TILE / 16); i += GT) {
-        const int r = i / (TILE / 16), c = (i % (TILE / 16)) * 16;
-        widen16(src + r * TILE + c, ws + r * WROW + c);
-      }
-      __syncthreads();
-    }
+    const bf16* wst = ws + (kt % STAGES) * KT * WROW;
     const bf16* ast = as + (kt % STAGES) * MT * 16 * AROW;
 #pragma unroll
     for (int kk = 0; kk < KT; kk += 16) {
@@ -315,40 +335,36 @@ gemm_partial(const bf16* __restrict__ X, const void* __restrict__ Wv,
   }
 }
 
-template <int MT, bool I8>
-void launch_gemm_mt(const bf16* X, const void* W, float* P, int B, int K, int N,
+template <int MT>
+void launch_gemm_mt(const bf16* X, const bf16* W, float* P, int B, int K, int N,
                     int splits, cudaStream_t st) {
-  constexpr int bytes = gemm_smem_bytes<MT, I8>();
+  constexpr int bytes = gemm_smem_bytes<MT>();
   if (bytes > 48 * 1024) {
     static bool attr_set = false;  // the opt-in above 48 KB, once per process
     if (!attr_set) {
-      cudaFuncSetAttribute(gemm_partial<MT, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cudaFuncSetAttribute(gemm_partial<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            bytes);
       attr_set = true;
     }
   }
-  gemm_partial<MT, I8><<<dim3(N / TILE, splits, cdiv(B, MAX_ROWS)), GT, bytes, st>>>(
+  gemm_partial<MT><<<dim3(N / TILE, splits, cdiv(B, MAX_ROWS)), GT, bytes, st>>>(
       X, W, P, B, K, N, K / splits);
 }
 
-// m-tiles per block: the fewest 16-row tiles that cover B (up to 4); W is
-// bf16, or int8 with I8
-template <bool I8 = false>
-void launch_gemm(const bf16* X, const void* W, float* P, int B, int K, int N,
+// m-tiles per block: the fewest 16-row tiles that cover B (up to 4)
+void launch_gemm(const bf16* X, const bf16* W, float* P, int B, int K, int N,
                  int splits, cudaStream_t st) {
-  if (B <= 16) launch_gemm_mt<1, I8>(X, W, P, B, K, N, splits, st);
-  else if (B <= 32) launch_gemm_mt<2, I8>(X, W, P, B, K, N, splits, st);
-  else launch_gemm_mt<4, I8>(X, W, P, B, K, N, splits, st);
+  if (B <= 16) launch_gemm_mt<1>(X, W, P, B, K, N, splits, st);
+  else if (B <= 32) launch_gemm_mt<2>(X, W, P, B, K, N, splits, st);
+  else launch_gemm_mt<4>(X, W, P, B, K, N, splits, st);
 }
 
 // B3 epilogue: one block per (row, head) of HEAD threads. q heads (< H) and
 // k heads (< H+KV) get RMSNorm with q_norm / k_norm then rotate-half RoPE;
 // v heads pass through. Sections are told apart by head index, as the TPU
-// kernel does by column (fused_layer.py:265-279). B10: the reduced sum is
-// first multiplied by its column's scale (colscale, null for bf16 weights).
+// kernel does by column (fused_layer.py:265-279).
 __global__ void __launch_bounds__(HEAD)
 qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
-             const float* __restrict__ colscale,
              const bf16* __restrict__ qn, const bf16* __restrict__ kn,
              const float* __restrict__ cosv, const float* __restrict__ sinv,
              bf16* __restrict__ out, int H, int KV, float eps) {
@@ -358,7 +374,6 @@ qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
   const int col = head * HEAD + j;
   float y = 0.f;
   for (int s = 0; s < S; ++s) y += P[((long long)s * B + b) * C + col];
-  if (colscale) y *= colscale[col];
   if (head >= H + KV) {  // v: uniform across the block, so no barrier is skipped
     out[(long long)b * C + col] = __float2bfloat16(y);
     return;
@@ -383,28 +398,24 @@ qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
   out[(long long)b * C + col] = __float2bfloat16(o);
 }
 
-// out[b, n] = bf16(res[b, n] + sum_s P[s, b, n] * colscale[n]); res null:
-// no residual (B10's bare int8 product); colscale null: bf16 weights
+// out[b, n] = bf16(res[b, n] + sum_s P[s, b, n]); res null: no residual
 __global__ void __launch_bounds__(256)
 residual_epilogue(const float* __restrict__ P, int S, int B, int N,
-                  const float* __restrict__ colscale,
                   const bf16* __restrict__ res, bf16* __restrict__ out) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   const long long total = (long long)B * N;
   if (i >= total) return;
   float acc = 0.f;
   for (int s = 0; s < S; ++s) acc += P[(long long)s * total + i];
-  if (colscale) acc *= colscale[i % N];
   out[i] = __float2bfloat16(res ? __bfloat162float(res[i]) + acc : acc);
 }
 
 // h[b, f] = bf16(silu(g) * u) with g = sum_s Pg[s*sstride + b*ld + f] and u
 // the same over Pu (B4: Pu = Pg + F in 2F-wide rows; B8: two [S,B,F]
-// blocks); B10: g and u each times its column's scale first
+// blocks)
 __global__ void __launch_bounds__(256)
 swiglu_epilogue(const float* __restrict__ Pg, const float* __restrict__ Pu,
-                long long sstride, int ld, int S, int B, int F,
-                const float* __restrict__ colscale, bf16* __restrict__ h) {
+                long long sstride, int ld, int S, int B, int F, bf16* __restrict__ h) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= (long long)B * F) return;
   const long long b = i / F, f = i % F;
@@ -413,10 +424,6 @@ swiglu_epilogue(const float* __restrict__ Pg, const float* __restrict__ Pu,
     const long long off = s * sstride + b * ld + f;
     g += Pg[off];
     u += Pu[off];
-  }
-  if (colscale) {
-    g *= colscale[f];
-    u *= colscale[F + f];
   }
   const float silu = g / (1.f + __expf(-g));
   h[i] = __float2bfloat16(silu * u);
@@ -917,40 +924,517 @@ int launch_grouped_tc(const void* x, const void* offsets, const void* w0, const 
   return (int)cudaGetLastError();
 }
 
-// B3 / B10-qkv: xn = rmsnorm(x)·ln -> xn @ W (bf16, or int8 with I8 and the
-// column scales ws) -> qkv_epilogue
-template <bool I8>
-int run_qkv(const bf16* X, const bf16* ln, const void* W, const float* ws,
-            const bf16* qn, const bf16* kn, const float* cosv, const float* sinv,
-            float* P, bf16* XN, bf16* out, int B, int E, int H, int KV, int splits,
-            float eps, cudaStream_t st) {
-  const int C = (H + 2 * KV) * HEAD;
-  rms_norm_rows<<<B, NT, 0, st>>>(X, ln, E, eps, XN);
-  launch_gemm<I8>(XN, W, P, B, E, C, splits, st);
-  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(P, splits, B, C, ws, qn, kn, cosv,
-                                                     sinv, out, H, KV, eps);
+// ------------------------------------------------ B10: the int8 product
+//
+// i8_stream<TW, MT, EPI>: y = (bf16 X [B, K] @ widened int8 W [K, N]) *
+// scales, float32 sums, then one of four epilogues over a tile (EPI):
+//   I8_SCALE   out = bf16(y)                          (int8_product)
+//   I8_RESID   out = bf16(res + y)                    (wo, wd of B10-out)
+//   I8_SWIGLU  h = bf16(silu(y_g) * y_u): the tile holds gate columns
+//              128t .. 128t + 127 and the matching up columns F + 128t ..
+//   I8_QKV     one head a 128 columns: per-head RMSNorm and rope for q / k
+//              heads, v as it is (B10-qkv)
+// Design notes at the head of the file ("B10").
+// A tile is TW = 128 or 256 int8 columns (TW-byte runs of each weight
+// row); the host picks TW from the sizes (launch_i8). Per TW:
+#define I8_TILE_CONSTANTS(TW)                                                  \
+  constexpr int QTW = TW;               /* int8 columns a tile */              \
+  constexpr int QKT = 8192 / QTW;       /* int8 k rows a stage: 8 KB a stage */ \
+  constexpr int QBOX = QTW / QBW;       /* weight boxes a stage */             \
+  constexpr int QAB = QKT * 2;          /* bytes an activation row of a stage */ \
+  constexpr int QCW = QTW / 32;         /* consumer warps, 32 columns each */  \
+  constexpr int QW_STAGE = QKT * QTW;   /* bytes of a weight stage */          \
+  constexpr int QEROW = QTW + 4;        /* float row of the epilogue tile */   \
+  (void)QBOX; (void)QAB; (void)QCW; (void)QW_STAGE; (void)QEROW;
+constexpr int QBW = 128;                // bytes a TMA weight box row (its swizzle span)
+constexpr int I8_MAX_TILES = 4096;      // tickets a call may use
+
+constexpr int i8_threads(int TW) { return (TW / 32 + 1) * 32; }   // consumers + the producer
+enum { I8_SCALE = 0, I8_RESID = 1, I8_SWIGLU = 2, I8_QKV = 3 };
+
+struct I8Args {
+  const float* scales;   // [N] column scales
+  const bf16* res;       // I8_RESID: [B, ldo]
+  bf16* out;             // [B, ldo]
+  const bf16* qn;        // I8_QKV: [128] q / k norm weights, cos / sin [B, 64]
+  const bf16* kn;
+  const float* cosv;
+  const float* sinv;
+  float* part;           // [grid][B][QTW] split-K partial sums
+  int* tickets;          // [tiles], zero between calls
+  long long total;       // tiles * nk stages, split evenly over the grid
+  int B, N, nk, ldo, half_n, H, KV, stages;
+  float eps;
+};
+
+// the byte offset of 16-byte chunk c of row r in a tile of rb-byte rows
+// that TMA wrote with an rb-byte swizzle (rb = 32, 64 or 128: the chunk
+// index XOR address bits 7.. above it)
+__device__ __forceinline__ int swz(int r, int c, int rb) {
+  return r * rb + ((c ^ (((r * rb) >> 7) & (rb / 16 - 1))) << 4);
+}
+
+template <int TW, int MT>
+constexpr int i8_smem_bytes(int stages) {
+  I8_TILE_CONSTANTS(TW)
+  return 1024 + stages * (QW_STAGE + MT * 16 * QAB) + MT * 16 * QEROW * 4 + 16 * stages;
+}
+
+// the block whose share of the (tile, stage) sequence holds stage i: block
+// b owns [floor(b * total / G), floor((b + 1) * total / G))
+__device__ __forceinline__ int i8_block_of(long long i, long long total, int G) {
+  return (int)(((i + 1) * G - 1) / total);
+}
+__device__ __forceinline__ long long i8_start(int b, long long total, int G) {
+  return (long long)b * total / G;
+}
+
+// four int8 weights (a 32-bit word) -> the bf16 pairs (bytes 0, 2) and
+// (bytes 1, 3), exact: the sign-flipped byte goes into the low mantissa of
+// 2^23, one subtract of 2^23 + 128 leaves the value, whose upper 16 bits
+// are its bf16 (|q| <= 128 needs 8 significant bits)
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& even, uint32_t& odd) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(f[i]) : "r"(u), "r"(0x4B000000u), "r"(0x7440 | i));
+    f[i] = __float_as_uint(__uint_as_float(f[i]) - 8388736.f);
+  }
+  asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(even) : "r"(f[0]), "r"(f[2]));
+  asm("prmt.b32 %0, %1, %2, 0x7632;" : "=r"(odd) : "r"(f[1]), "r"(f[3]));
+}
+
+
+__device__ __forceinline__ void store_bf16x4(bf16* dst, const float* o) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(o[0], o[1]), hi = __floats2bfloat162_rn(o[2], o[3]);
+  uint2 v;
+  v.x = *reinterpret_cast<uint32_t*>(&lo);
+  v.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = v;
+}
+
+// grid: G persistent blocks, one an SM (the host picks G from the SM
+// count), launched cooperatively; i8_threads(TW) threads
+template <int TW, int MT, int EPI>
+__global__ void __launch_bounds__(i8_threads(TW), 1)
+i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+          const __grid_constant__ I8Args p) {
+  I8_TILE_CONSTANTS(TW)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int ST = p.stages;
+  constexpr int ABYTES = MT * 16 * QAB;   // an activation stage: MT*16 rows x QKT bf16
+  unsigned char* wring = smem;                            // [ST][QBOX][QKT][QBW] int8
+  unsigned char* aring = wring + ST * QW_STAGE;           // [ST][MT*16][QKT] bf16
+  float* ys = reinterpret_cast<float*>(aring + ST * ABYTES);   // [MT*16][QEROW]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ys + MT * 16 * QEROW);
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = gridDim.x, blk = blockIdx.x;
+  const long long it0 = i8_start(blk, p.total, G), it1 = i8_start(blk + 1, p.total, G);
+  // the first column of box i of tile t
+  auto box_col = [&](int t, int i) {
+    constexpr int HB = QBOX > 1 ? QBOX / 2 : 1;   // boxes of gate (of up) columns
+    if (EPI == I8_SWIGLU) return (i < HB ? 0 : p.half_n) + t * (QTW / 2) + QBW * (i % HB);
+    return t * QTW + QBW * i;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], QCW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == QCW) {
+    // ---- producer: one thread issues every TMA load. Boxes past N (a
+    // ragged last tile) and rows past B read zeros and count their bytes.
+    if (lane == 0) {
+      const int n = (int)(it1 - it0), pre = n < ST ? n : ST;
+      const int kt_first = (int)(it0 % p.nk);
+      int t = (int)(it0 / p.nk), kt = kt_first;   // (tile, stage) of load j
+      for (int j = 0; j < pre; ++j) {
+        mbar_expect_tx(&full[j], QW_STAGE + ABYTES);
+#pragma unroll
+        for (int i = 0; i < QBOX; ++i)
+          tma_load_2d(wring + j * QW_STAGE + i * (QW_STAGE / QBOX), &tw, &full[j],
+                      box_col(t, i), kt * QKT);
+        tma_load_2d(aring + j * ABYTES, &tx, &full[j], kt * QKT, 0);
+        if (++kt == p.nk) kt = 0, ++t;
+      }
+      // from here on j >= ST: stage j reuses slot s once its consumers are done
+      for (int j = pre, s = 0, phase = 0; j < n; ++j) {
+        mbar_wait(&empty[s], phase);
+        mbar_expect_tx(&full[s], QW_STAGE + ABYTES);
+#pragma unroll
+        for (int i = 0; i < QBOX; ++i)
+          tma_load_2d(wring + s * QW_STAGE + i * (QW_STAGE / QBOX), &tw, &full[s],
+                      box_col(t, i), kt * QKT);
+        tma_load_2d(aring + s * ABYTES, &tx, &full[s], kt * QKT, 0);
+        if (++kt == p.nk) kt = 0, ++t;
+        if (++s == ST) s = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warp w multiplies tile columns 32w .. 32w + 31 (box
+  // w / (QBW / 32), bytes 32 * (w % (QBW / 32)) of its rows) over the stage
+  const int mi = lane >> 3, rr = lane & 7;        // ldmatrix lane roles
+  const int g = lane >> 2, t4 = lane & 3;         // accumulator lane roles
+  const int box = warp / (QBW / 32), chunk0 = (warp % (QBW / 32)) * 2;
+  int s = 0, phase = 0;   // ring slot and phase of the next stage
+  int left = (int)(it1 - it0), t = (int)(it0 / p.nk), kt0 = (int)(it0 % p.nk);
+  while (left > 0) {
+    // a segment: stages kt0 .. kt0 + len - 1 of tile t
+    const int len = left < p.nk - kt0 ? left : p.nk - kt0;
+    float acc[MT][4][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][nb][i] = 0.f;
+
+    for (int q2 = 0; q2 < len; ++q2) {
+      mbar_wait(&full[s], phase);
+      const unsigned char* wst = wring + s * QW_STAGE + box * (QW_STAGE / QBOX);
+      const unsigned char* ast = aring + s * ABYTES;
+#pragma unroll
+      for (int kk = 0; kk < QKT; kk += 16) {
+        // B fragments: ldmatrix.trans of the int8 box read as 16-bit pairs;
+        // matrix mi = (k half mi & 1, 16-byte chunk mi >> 1)
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, wst + swz(kk + 8 * (mi & 1) + rr, chunk0 + (mi >> 1), QBW));
+        // n8 block 2G + e holds columns 16G + 2i + e of this warp's 32
+        uint32_t b[4][2];
+        widen4(r[0], b[0][0], b[1][0]);
+        widen4(r[1], b[0][1], b[1][1]);
+        widen4(r[2], b[2][0], b[3][0]);
+        widen4(r[3], b[2][1], b[3][1]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          // A: rows m*16 .. of the activation stage
+          uint32_t a[4];
+          ldmatrix_x4(a, ast + swz(m * 16 + rr + 8 * (mi & 1), (kk >> 3) + (mi >> 1), QAB));
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) mma_bf16(acc[m][nb], a, b[nb]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == ST) s = 0, phase ^= 1;
+    }
+
+    // ---- the segment's sums (thread (g, t4) holds columns 32w + 16G +
+    // 4*t4 .. +3, rows g and g + 8 of each m-tile). A tile split over
+    // blocks b_lo .. b_hi is finished by b_lo, whose segment of it comes
+    // last in its share (the tile's first stages): the others' segments are
+    // the first of their shares and done early; each leaves its sums in its
+    // partial slot and counts itself in the tile's ticket; b_lo keeps its
+    // own sums, waits for the count, adds theirs in block order and runs the
+    // epilogue. The pull saves b_lo, on the kernel's critical path, a
+    // partial slot's round trip and the ticket's.
+    const int b_lo = i8_block_of((long long)t * p.nk, p.total, G);
+    const int b_hi = i8_block_of((long long)t * p.nk + p.nk - 1, p.total, G);
+    const bool split = b_hi > b_lo, last = !split || blk == b_lo;
+    // the epilogue's row-invariant loads, issued before the fix-up so that
+    // its wait hides them: scales (and q / k norm weights) of this lane's
+    // columns (4l .. 4l + 3 of each 128-column chunk of the tile)
+    constexpr int NCH = QTW / 128, NG = QTW / 256 > 0 ? QTW / 256 : 1;
+    float4 sc[NCH], su[NG];
+    float wn[NCH][4];
+    if (last) {
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) {
+        const int col = t * QTW + ch * 128 + 4 * lane;
+        const bool in = EPI == I8_SWIGLU ? ch < NG && t * (QTW / 2) + ch * 128 < p.half_n
+                                         : t * QTW + ch * 128 < p.N;
+        const int head = col / HEAD;
+        if (EPI == I8_SWIGLU) {
+          if (in) {
+            const int f = t * (QTW / 2) + ch * 128 + 4 * lane;
+            sc[ch] = *reinterpret_cast<const float4*>(p.scales + f);
+            su[ch < NG ? ch : 0] = *reinterpret_cast<const float4*>(p.scales + p.half_n + f);
+          }
+        } else if (in) {
+          sc[ch] = *reinterpret_cast<const float4*>(p.scales + col);
+          if (EPI == I8_QKV && head < p.H + p.KV) {
+            const bf16* w = (head < p.H ? p.qn : p.kn) + 4 * lane;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) wn[ch][i] = __bfloat162float(w[i]);
+          }
+        }
+      }
+    }
+    float* slot = p.part + (long long)blk * p.B * QTW;
+    bar_sync(1, QCW * 32);   // the tile is free (the previous epilogue is done)
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int G2 = 0; G2 < 2; ++G2)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m * 16 + g + 8 * h, col = warp * 32 + G2 * 16 + 4 * t4;
+          const float4 v = make_float4(acc[m][2 * G2][2 * h], acc[m][2 * G2 + 1][2 * h],
+                                       acc[m][2 * G2][2 * h + 1], acc[m][2 * G2 + 1][2 * h + 1]);
+          if (last)
+            *reinterpret_cast<float4*>(ys + row * QEROW + col) = v;
+          else if (row < p.B)
+            *reinterpret_cast<float4*>(slot + row * QTW + col) = v;
+        }
+    if (!last) {
+      // release: every thread's partial stores, then the ticket
+      __threadfence();
+      bar_sync(1, QCW * 32);
+      if (tid == 0) {
+        __threadfence();
+        asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" :: "l"(p.tickets + t) : "memory");
+      }
+    } else if (split) {
+      // acquire: the count of the other segments, then their slots (slot
+      // bb holds block bb's first segment, which is its segment of t)
+      if (tid == 0) {
+        const long long t0 = clock64();
+        int done = 0;
+        while (true) {
+          asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(done) : "l"(p.tickets + t)
+                       : "memory");
+          if (done == b_hi - b_lo) break;
+          if (clock64() - t0 > 20000000000LL) __trap();   // a lost segment: fail, not hang
+          __nanosleep(64);
+        }
+        p.tickets[t] = 0;   // ready for the next call
+        __threadfence();
+      }
+      bar_sync(1, QCW * 32);
+      __threadfence();
+      for (int i = tid; i < p.B * (QTW / 4); i += QCW * 32) {
+        const int row = i / (QTW / 4), c = (i % (QTW / 4)) * 4;
+        float4* y = reinterpret_cast<float4*>(ys + row * QEROW + c);
+        float4 v = *y;
+#pragma unroll 4
+        for (int bb = b_lo + 1; bb <= b_hi; ++bb) {
+          const float4 u = __ldcg(reinterpret_cast<const float4*>(
+              p.part + ((long long)bb * p.B + row) * QTW + c));
+          v.x += u.x;
+          v.y += u.y;
+          v.z += u.z;
+          v.w += u.w;
+        }
+        *y = v;
+      }
+    }
+    if (last) {
+      bar_sync(1, QCW * 32);   // the tile's sums are in ys
+      // ---- the epilogue: warp w takes rows w, w + QCW, ..., RB rows at a
+      // time, whose cos / sin (q / k heads) or residual it loads before it
+      // stores any of them
+      constexpr int RB = 4;
+      for (int r0 = warp; r0 < p.B; r0 += RB * QCW) {
+        float4 cs[RB], sn[RB];
+        uint2 rv[RB][NCH];
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const int row = r0 + i * QCW;
+          if (row >= p.B) break;
+          if (EPI == I8_QKV) {
+            const int j0 = (4 * lane) & 63;
+            cs[i] = *reinterpret_cast<const float4*>(p.cosv + row * 64 + j0);
+            sn[i] = *reinterpret_cast<const float4*>(p.sinv + row * 64 + j0);
+          }
+          if (EPI == I8_RESID) {
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch)
+              if (t * QTW + ch * 128 < p.N)
+                rv[i][ch] = *reinterpret_cast<const uint2*>(
+                    p.res + (long long)row * p.ldo + t * QTW + ch * 128 + 4 * lane);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          const int row = r0 + i * QCW;
+          if (row >= p.B) break;
+          const float* yr = ys + row * QEROW;
+          bf16* dst = p.out + (long long)row * p.ldo;
+          if (EPI == I8_SWIGLU) {
+            // gate chunk c pairs with up chunk c + QTW / 2
+#pragma unroll
+            for (int ch = 0; ch < NG; ++ch) {
+              const int c = ch * 128 + 4 * lane, f = t * (QTW / 2) + c;
+              if (t * (QTW / 2) + ch * 128 >= p.half_n) break;
+              const float gs[4] = {sc[ch].x, sc[ch].y, sc[ch].z, sc[ch].w};
+              const float us[4] = {su[ch].x, su[ch].y, su[ch].z, su[ch].w};
+              float o[4];
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float gv = yr[c + q] * gs[q], uv = yr[QTW / 2 + c + q] * us[q];
+                o[q] = gv / (1.f + __expf(-gv)) * uv;
+              }
+              store_bf16x4(dst + f, o);
+            }
+          } else {
+#pragma unroll
+            for (int ch = 0; ch < NCH; ++ch) {
+              const int c = ch * 128 + 4 * lane, col = t * QTW + c;
+              if (t * QTW + ch * 128 >= p.N) break;   // a ragged last tile (uniform per warp)
+              float o[4] = {yr[c] * sc[ch].x, yr[c + 1] * sc[ch].y, yr[c + 2] * sc[ch].z,
+                            yr[c + 3] * sc[ch].w};
+              if (EPI == I8_RESID) {
+                const __nv_bfloat162* r = reinterpret_cast<const __nv_bfloat162*>(&rv[i][ch]);
+                const float2 r01 = __bfloat1622float2(r[0]), r23 = __bfloat1622float2(r[1]);
+                o[0] = r01.x + o[0];
+                o[1] = r01.y + o[1];
+                o[2] = r23.x + o[2];
+                o[3] = r23.y + o[3];
+              }
+              const int head = col / HEAD;
+              if (EPI == I8_QKV && head < p.H + p.KV) {
+                // q / k head: RMSNorm over its 128 columns, then rotate-half
+                // rope (column j pairs with j +- 64, held by lane l ^ 16)
+                const int j = 4 * lane;
+                const float c4[4] = {cs[i].x, cs[i].y, cs[i].z, cs[i].w};
+                const float s4[4] = {sn[i].x, sn[i].y, sn[i].z, sn[i].w};
+                float ss = o[0] * o[0] + o[1] * o[1] + o[2] * o[2] + o[3] * o[3];
+                ss = warp_sum(ss);
+                const float hinv = rsqrtf(ss / (float)HEAD + p.eps);
+                float n[4], pr[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) n[q] = (o[q] * hinv) * wn[ch][q];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) pr[q] = __shfl_xor_sync(0xffffffffu, n[q], 16);
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                  o[q] = j < 64 ? n[q] * c4[q] - pr[q] * s4[q] : n[q] * c4[q] + pr[q] * s4[q];
+              }
+              store_bf16x4(dst + col, o);
+            }
+          }
+        }
+      }
+    }
+    left -= len;
+    kt0 = 0;
+    ++t;
+  }
+}
+
+// a 2-D tensor map of a [rows, cols] matrix of `dtype` (row stride ld
+// bytes), boxes of box_cols x box_rows whose rows (box_bytes = 32, 64 or
+// 128) are also the swizzle span; zeros past the matrix's end
+bool map_sw(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int rows, int cols,
+            long long ld, int box_cols, int box_rows, int box_bytes) {
+  const EncodeTiled enc = encode_tiled();
+  const CUtensorMapSwizzle sw = box_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+                                : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_128B;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)ld};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, ones[2] = {1, 1};
+  return enc && enc(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, ones,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+                    CUDA_SUCCESS;
+}
+
+// the int8 product of x [B, K] and w [K, N] (int8, row stride N) over `grid`
+// persistent blocks with `stages` ring stages; a.out .. as I8Args
+template <int TW, int MT, int EPI>
+int launch_i8_mt(const bf16* x, const int8_t* w, int K, int N, int grid,
+                 I8Args a, cudaStream_t st) {
+  I8_TILE_CONSTANTS(TW)
+  CUtensorMap tx, tw;
+  if (!map_sw(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, a.B, K, (long long)K * 2, QKT, MT * 16,
+              QAB) ||
+      !map_sw(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, N, QBW, QKT, QBW))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = i8_smem_bytes<TW, MT>(a.stages);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  static int attr_bytes = 0;   // the opt-in above 48 KB, raised as needed
+  if (bytes > attr_bytes) {
+    cudaFuncSetAttribute(i8_stream<TW, MT, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    attr_bytes = bytes;
+  }
+  a.nk = K / QKT;
+  a.total = (long long)((EPI == I8_SWIGLU ? N / 2 + QTW / 2 - 1 : N + QTW - 1) /
+                        (EPI == I8_SWIGLU ? QTW / 2 : QTW)) * a.nk;
+  if (grid > a.total) grid = (int)a.total;
+  // a tile's finishing block waits for the other blocks' segments, so every
+  // block must be resident at once: a cooperative launch, which the runtime
+  // refuses for a grid the card cannot hold at once
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(i8_threads(TW));
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, i8_stream<TW, MT, EPI>, tx, tw, a);
   return (int)cudaGetLastError();
 }
 
-// B4 / B10-out over one layer's weights (int8 with I8 and column scales
-// wo_s, gu_s, wd_s; null for bf16)
-template <bool I8>
-int run_out_mlp(const bf16* A, const bf16* X, const void* Wo, const float* wo_s,
-                const bf16* ln, const void* Wgu, const float* gu_s, const void* Wd,
-                const float* wd_s, float* P, bf16* X2, bf16* XN, bf16* Hh, bf16* O,
-                int B, int HD, int E, int F, int s_o, int s_gu, int s_d, float eps,
-                cudaStream_t st) {
+// the tile width: 256 columns for SwiGLU (a gate box and an up box) and
+// for the widest products (N > 51200: the lm_head), else 128, which gives
+// the split more tiles to balance (scripts/sweep_hopper_kernels.py times
+// both widths); the m-tiles per block: the fewest 16-row tiles that cover B
+// (up to 4); a ragged last tile where N % TW != 0
+int i8_tile_cols(int N, bool swiglu) { return !swiglu && N <= 51200 ? 128 : 256; }
+
+template <int TW, int EPI>
+int launch_i8_tw(const bf16* x, const int8_t* w, int K, int N, int grid, I8Args a,
+                 cudaStream_t st) {
+  if (K % (8192 / TW)) return (int)cudaErrorInvalidValue;
+  if (a.B <= 16) return launch_i8_mt<TW, 1, EPI>(x, w, K, N, grid, a, st);
+  if (a.B <= 32) return launch_i8_mt<TW, 2, EPI>(x, w, K, N, grid, a, st);
+  return launch_i8_mt<TW, 4, EPI>(x, w, K, N, grid, a, st);
+}
+
+template <int EPI>
+int launch_i8(const bf16* x, const int8_t* w, int K, int N, int grid, I8Args a,
+              cudaStream_t st) {
+  if (N % 128 || N / 128 > I8_MAX_TILES || a.B < 1 || a.B > MAX_ROWS || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  a.N = N;
+  if constexpr (EPI != I8_SWIGLU) {
+    if (i8_tile_cols(N, false) == 128)
+      return launch_i8_tw<128, EPI>(x, w, K, N, grid, a, st);
+  }
+  return launch_i8_tw<256, EPI>(x, w, K, N, grid, a, st);
+}
+
+// B3: xn = rmsnorm(x)·ln -> xn @ W -> qkv_epilogue
+int run_qkv(const bf16* X, const bf16* ln, const bf16* W, const bf16* qn, const bf16* kn,
+            const float* cosv, const float* sinv, float* P, bf16* XN, bf16* out, int B, int E,
+            int H, int KV, int splits, float eps, cudaStream_t st) {
+  const int C = (H + 2 * KV) * HEAD;
+  norm_rows(X, ln, B, E, eps, XN, st);
+  launch_gemm(XN, W, P, B, E, C, splits, st);
+  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(P, splits, B, C, qn, kn, cosv, sinv, out,
+                                                     H, KV, eps);
+  return (int)cudaGetLastError();
+}
+
+// B4 over one layer's weights
+int run_out_mlp(const bf16* A, const bf16* X, const bf16* Wo, const bf16* ln, const bf16* Wgu,
+                const bf16* Wd, float* P, bf16* X2, bf16* XN, bf16* Hh, bf16* O, int B, int HD,
+                int E, int F, int s_o, int s_gu, int s_d, float eps, cudaStream_t st) {
   // (1) x2 = x + a @ wo
-  launch_gemm<I8>(A, Wo, P, B, HD, E, s_o, st);
-  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_o, B, E, wo_s, X, X2);
+  launch_gemm(A, Wo, P, B, HD, E, s_o, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_o, B, E, X, X2);
   // (2) h = silu(xn @ Wg) * (xn @ Wu), xn = rmsnorm(x2) * ln2
-  rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, XN);
-  launch_gemm<I8>(XN, Wgu, P, B, E, 2 * F, s_gu, st);
+  norm_rows(X2, ln, B, E, eps, XN, st);
+  launch_gemm(XN, Wgu, P, B, E, 2 * F, s_gu, st);
   swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
-      P, P + F, (long long)B * 2 * F, 2 * F, s_gu, B, F, gu_s, Hh);
+      P, P + F, (long long)B * 2 * F, 2 * F, s_gu, B, F, Hh);
   // (3) out = x2 + h @ wd
-  launch_gemm<I8>(Hh, Wd, P, B, F, E, s_d, st);
-  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, wd_s, X2, O);
+  launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
+  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, X2, O);
   return (int)cudaGetLastError();
 }
 
@@ -961,7 +1445,7 @@ int run_mlp(const bf16* X, const bf16* ln, const bf16* Wg, const bf16* Wu, const
             int s_d, int norm, int residual, float eps, cudaStream_t st) {
   const bf16* XN = X;
   if (norm) {
-    rms_norm_rows<<<B, NT, 0, st>>>(X, ln, E, eps, xn);
+    norm_rows(X, ln, B, E, eps, xn, st);
     XN = xn;
   }
   // gate and up partials side by side: [s_gu, B, F] each
@@ -969,10 +1453,10 @@ int run_mlp(const bf16* X, const bf16* ln, const bf16* Wg, const bf16* Wu, const
   launch_gemm(XN, Wg, P, B, E, F, s_gu, st);
   launch_gemm(XN, Wu, P + gsz, B, E, F, s_gu, st);
   swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
-      P, P + gsz, (long long)B * F, F, s_gu, B, F, nullptr, Hh);
+      P, P + gsz, (long long)B * F, F, s_gu, B, F, Hh);
   launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
-      P, s_d, B, E, nullptr, residual ? X : nullptr, out);
+      P, s_d, B, E, residual ? X : nullptr, out);
   return (int)cudaGetLastError();
 }
 
@@ -989,9 +1473,9 @@ int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
                     int layer, int B, int E, int H, int KV, int splits,
                     float eps, void* stream) {
   const long long C = (H + 2 * KV) * HEAD;
-  return run_qkv<false>(
+  return run_qkv(
       static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + (long long)layer * E,
-      static_cast<const bf16*>(wqkv_all) + layer * E * C, nullptr,
+      static_cast<const bf16*>(wqkv_all) + layer * E * C,
       static_cast<const bf16*>(qn_all) + (long long)layer * HEAD,
       static_cast<const bf16*>(kn_all) + (long long)layer * HEAD,
       static_cast<const float*>(cosv), static_cast<const float*>(sinv),
@@ -999,22 +1483,37 @@ int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
       H, KV, splits, eps, static_cast<cudaStream_t>(stream));
 }
 
-// B10-qkv: B3 with wq_all [L,E,C] int8 and ws_all [L,1,C] f32 column scales.
+// B10-qkv: B3 over int8 wq_all [L,E,C] with ws_all [L,1,C] f32 column
+// scales in two launches: rms_norm_rows (xn [B,E] bf16 scratch), then
+// i8_stream<I8_QKV> over `grid` blocks and `stages` ring stages. partial
+// f32 [grid, B, 256]; tickets int32 [I8_MAX_TILES], zero (and left zero).
 int dstts_fused_qkv_i8(const void* x, const void* ln_all, const void* wq_all,
                        const void* ws_all, const void* qn_all, const void* kn_all,
-                       const void* cosv, const void* sinv, void* partial, void* xn,
-                       void* out, int layer, int B, int E, int H, int KV, int splits,
-                       float eps, void* stream) {
+                       const void* cosv, const void* sinv, void* partial, void* tickets,
+                       void* xn, void* out, int layer, int B, int E, int H, int KV, int grid,
+                       int stages, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long C = (H + 2 * KV) * HEAD;
-  return run_qkv<true>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + (long long)layer * E,
-      static_cast<const int8_t*>(wq_all) + layer * E * C,
-      static_cast<const float*>(ws_all) + layer * C,
-      static_cast<const bf16*>(qn_all) + (long long)layer * HEAD,
-      static_cast<const bf16*>(kn_all) + (long long)layer * HEAD,
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<float*>(partial), static_cast<bf16*>(xn), static_cast<bf16*>(out), B, E,
-      H, KV, splits, eps, static_cast<cudaStream_t>(stream));
+  bf16* XN = static_cast<bf16*>(xn);
+  norm_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + (long long)layer * E,
+            B, E, eps, XN, st);
+  I8Args a = {};
+  a.scales = static_cast<const float*>(ws_all) + layer * C;
+  a.out = static_cast<bf16*>(out);
+  a.qn = static_cast<const bf16*>(qn_all) + (long long)layer * HEAD;
+  a.kn = static_cast<const bf16*>(kn_all) + (long long)layer * HEAD;
+  a.cosv = static_cast<const float*>(cosv);
+  a.sinv = static_cast<const float*>(sinv);
+  a.part = static_cast<float*>(partial);
+  a.tickets = static_cast<int*>(tickets);
+  a.B = B;
+  a.ldo = (int)C;
+  a.H = H;
+  a.KV = KV;
+  a.stages = stages;
+  a.eps = eps;
+  return launch_i8<I8_QKV>(XN, static_cast<const int8_t*>(wq_all) + layer * E * C, E, (int)C,
+                           grid, a, st);
 }
 
 // B4. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E]; gateup_all [L,E,2F];
@@ -1027,49 +1526,83 @@ int dstts_fused_out_mlp(const void* a, const void* x, const void* wo_all,
                         int F, int s_o, int s_gu, int s_d, float eps,
                         void* stream) {
   const long long l = layer;
-  return run_out_mlp<false>(
+  return run_out_mlp(
       static_cast<const bf16*>(a), static_cast<const bf16*>(x),
-      static_cast<const bf16*>(wo_all) + l * HD * E, nullptr,
-      static_cast<const bf16*>(ln_all) + l * E,
-      static_cast<const bf16*>(gateup_all) + l * E * 2 * F, nullptr,
-      static_cast<const bf16*>(wd_all) + l * F * E, nullptr, static_cast<float*>(partial),
+      static_cast<const bf16*>(wo_all) + l * HD * E, static_cast<const bf16*>(ln_all) + l * E,
+      static_cast<const bf16*>(gateup_all) + l * E * 2 * F,
+      static_cast<const bf16*>(wd_all) + l * F * E, static_cast<float*>(partial),
       static_cast<bf16*>(x2), static_cast<bf16*>(xn), static_cast<bf16*>(h),
       static_cast<bf16*>(out), B, HD, E, F, s_o, s_gu, s_d, eps,
       static_cast<cudaStream_t>(stream));
 }
 
-// B10-out: B4 with int8 wo_q [L,HD,E], gateup_q [L,E,2F], wd_q [L,F,E] and
-// f32 column scales wo_s [L,1,E], gateup_s [L,1,2F], wd_s [L,1,E].
-int dstts_fused_out_mlp_i8(const void* a, const void* x, const void* wo_q,
-                           const void* wo_s, const void* ln_all, const void* gateup_q,
-                           const void* gateup_s, const void* wd_q, const void* wd_s,
-                           void* partial, void* x2, void* xn, void* h, void* out,
-                           int layer, int B, int HD, int E, int F, int s_o, int s_gu,
-                           int s_d, float eps, void* stream) {
+// B10-out: B4 over int8 wo_q [L,HD,E], gateup_q [L,E,2F], wd_q [L,F,E] and
+// f32 column scales wo_s [L,1,E], gateup_s [L,1,2F], wd_s [L,1,E], in four
+// launches: i8_stream<I8_RESID> (x2 = x + a @ wo), rms_norm_rows (xn),
+// i8_stream<I8_SWIGLU> (h), i8_stream<I8_RESID> (out = x2 + h @ wd).
+// partial f32 [grid, B, 256]; tickets int32 [I8_MAX_TILES] zero; x2, xn
+// [B,E] and h [B,F] bf16 scratch.
+int dstts_fused_out_mlp_i8(const void* a, const void* x, const void* wo_q, const void* wo_s,
+                           const void* ln_all, const void* gateup_q, const void* gateup_s,
+                           const void* wd_q, const void* wd_s, void* partial, void* tickets,
+                           void* x2, void* xn, void* h, void* out, int layer, int B, int HD,
+                           int E, int F, int grid, int stages, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long l = layer;
-  return run_out_mlp<true>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(x),
-      static_cast<const int8_t*>(wo_q) + l * HD * E, static_cast<const float*>(wo_s) + l * E,
-      static_cast<const bf16*>(ln_all) + l * E,
-      static_cast<const int8_t*>(gateup_q) + l * E * 2 * F,
-      static_cast<const float*>(gateup_s) + l * 2 * F,
-      static_cast<const int8_t*>(wd_q) + l * F * E, static_cast<const float*>(wd_s) + l * E,
-      static_cast<float*>(partial), static_cast<bf16*>(x2), static_cast<bf16*>(xn),
-      static_cast<bf16*>(h), static_cast<bf16*>(out), B, HD, E, F, s_o, s_gu, s_d, eps,
-      static_cast<cudaStream_t>(stream));
+  bf16* X2 = static_cast<bf16*>(x2);
+  bf16* XN = static_cast<bf16*>(xn);
+  bf16* Hh = static_cast<bf16*>(h);
+  I8Args p = {};
+  p.part = static_cast<float*>(partial);
+  p.tickets = static_cast<int*>(tickets);
+  p.B = B;
+  p.stages = stages;
+  p.eps = eps;
+  // (1) x2 = x + a @ wo
+  I8Args o = p;
+  o.scales = static_cast<const float*>(wo_s) + l * E;
+  o.res = static_cast<const bf16*>(x);
+  o.out = X2;
+  o.ldo = E;
+  int err = launch_i8<I8_RESID>(static_cast<const bf16*>(a),
+                                static_cast<const int8_t*>(wo_q) + l * HD * E, HD, E, grid, o, st);
+  if (err) return err;
+  // (2) xn = rmsnorm(x2) * ln2; h = silu(xn @ Wg) * (xn @ Wu)
+  norm_rows(X2, static_cast<const bf16*>(ln_all) + l * E, B, E, eps, XN, st);
+  I8Args g = p;
+  g.scales = static_cast<const float*>(gateup_s) + l * 2 * F;
+  g.out = Hh;
+  g.ldo = F;
+  g.half_n = F;
+  err = launch_i8<I8_SWIGLU>(XN, static_cast<const int8_t*>(gateup_q) + l * E * 2 * F, E, 2 * F,
+                             grid, g, st);
+  if (err) return err;
+  // (3) out = x2 + h @ wd
+  I8Args d = p;
+  d.scales = static_cast<const float*>(wd_s) + l * E;
+  d.res = X2;
+  d.out = static_cast<bf16*>(out);
+  d.ldo = E;
+  return launch_i8<I8_RESID>(Hh, static_cast<const int8_t*>(wd_q) + l * F * E, F, E, grid, d, st);
 }
 
 // The bare int8 product of B10 (ops/quant.int8_matmul at <= 64 rows):
-// out [B,N] bf16 = bf16((x [B,K] bf16 @ w_q [K,N] int8) * scales [1,N] f32);
-// partial [splits,B,N] f32.
+// out [B,N] bf16 = bf16((x [B,K] bf16 @ w_q [K,N] int8) * scales [1,N] f32),
+// one launch of i8_stream<I8_SCALE>; partial f32 [grid, B, 256]; tickets
+// int32 [I8_MAX_TILES] zero.
 int dstts_int8_matmul(const void* x, const void* w_q, const void* scales, void* partial,
-                      void* out, int B, int K, int N, int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* P = static_cast<float*>(partial);
-  launch_gemm<true>(static_cast<const bf16*>(x), w_q, P, B, K, N, splits, st);
-  residual_epilogue<<<cdiv((long long)B * N, 256), 256, 0, st>>>(
-      P, splits, B, N, static_cast<const float*>(scales), nullptr, static_cast<bf16*>(out));
-  return (int)cudaGetLastError();
+                      void* tickets, void* out, int B, int K, int N, int grid, int stages,
+                      void* stream) {
+  I8Args a = {};
+  a.scales = static_cast<const float*>(scales);
+  a.out = static_cast<bf16*>(out);
+  a.part = static_cast<float*>(partial);
+  a.tickets = static_cast<int*>(tickets);
+  a.B = B;
+  a.ldo = N;
+  a.stages = stages;
+  return launch_i8<I8_SCALE>(static_cast<const bf16*>(x), static_cast<const int8_t*>(w_q), K, N,
+                             grid, a, static_cast<cudaStream_t>(stream));
 }
 
 // B8. out [B,E] = [x +] (silu(xn @ Wg) * (xn @ Wu)) @ Wd over layer `layer`
@@ -1103,7 +1636,7 @@ int dstts_fused_out_mlp_split(const void* a, const void* x, const void* wo, cons
   launch_gemm(static_cast<const bf16*>(a), static_cast<const bf16*>(wo), P, B, HD, E, s_o,
               st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
-      P, s_o, B, E, nullptr, static_cast<const bf16*>(x), X2);
+      P, s_o, B, E, static_cast<const bf16*>(x), X2);
   return run_mlp(X2, static_cast<const bf16*>(ln), static_cast<const bf16*>(wg),
                  static_cast<const bf16*>(wu), static_cast<const bf16*>(wd), P,
                  static_cast<bf16*>(xn), static_cast<bf16*>(h), static_cast<bf16*>(out), B,
@@ -1128,9 +1661,9 @@ int dstts_fused_out_router(const void* a, const void* x, const void* wo_all,
   // (1) x2 = x + a @ wo
   launch_gemm(static_cast<const bf16*>(a), Wo, P, B, HD, E, s_o, st);
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
-      P, s_o, B, E, nullptr, static_cast<const bf16*>(x), X2);
+      P, s_o, B, E, static_cast<const bf16*>(x), X2);
   // (2) hn = rmsnorm(x2) * ln2, (3) logits = hn @ router in float32
-  rms_norm_rows<<<B, NT, 0, st>>>(X2, ln, E, eps, HN);
+  norm_rows(X2, ln, B, E, eps, HN, st);
   launch_gemm(HN, Wr, P, B, E, NE, s_r, st);
   sum_partials<<<cdiv((long long)B * NE, 256), 256, 0, st>>>(P, s_r, (long long)B * NE,
                                                              static_cast<float*>(logits));

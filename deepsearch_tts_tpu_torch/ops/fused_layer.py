@@ -24,8 +24,12 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
   dense, int8 weights) — B3 / B4 over int8 stacks ``[L,K,N]`` with float32
   per-column scales ``[L,1,N]`` (``ops/quant.quantize_params`` layout),
   the scales applied to the float32 accumulators. :func:`int8_product` is
-  the same kernel's bare product, ``bf16((x @ w_q) * scales)``, which
-  ``ops/quant.int8_matmul`` runs at up to 64 rows.
+  the bare product, ``bf16((x @ w_q) * scales)``, which
+  ``ops/quant.int8_matmul`` runs at up to 64 rows. All three run one
+  kernel, ``i8_stream``: a persistent grid over a stream-K split of
+  (column tile, ring stage) pairs (``i8_partition``), the int8 widened in
+  registers, split tiles summed and finished (epilogue included) inside
+  the kernel.
 
 All take the FULL layer stacks plus the layer index, as the JAX kernels do.
 For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
@@ -48,6 +52,15 @@ _TILE = 128        # output columns per product block (csrc: TILE)
 _KT = 32           # k rows per pipeline stage (csrc: KT)
 _MAX_ROWS = 64     # activation rows per product block (csrc: MAX_ROWS)
 _TARGET_BLOCKS = 264  # >= 2 blocks per SM on a 132-SM H100
+# B10's int8 product (csrc i8_stream, one persistent block an SM): the widest
+# tile (columns), the k rows every product's K must be a multiple of (a
+# 128-column tile's ring stage) and ring stages by m-tiles (16-row tiles
+# that cover B); scripts/sweep_hopper_kernels.py times the last
+I8_TILE = 256
+I8_STAGE_ROWS = 64
+I8_STAGES = {1: 6, 2: 6, 4: 4}
+_I8_MAX_TILES = 4096   # 128-column tiles the ticket buffer holds (csrc I8_MAX_TILES)
+_i8_tickets: dict = {}
 
 
 # ----------------------------------------------------------------- plain torch
@@ -164,11 +177,11 @@ def _lib():
         lib.dstts_fused_qkv.restype = i
         lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 8 + [f, p]
         lib.dstts_fused_out_mlp.restype = i
-        lib.dstts_fused_qkv_i8.argtypes = [p] * 11 + [i] * 6 + [f, p]
+        lib.dstts_fused_qkv_i8.argtypes = [p] * 12 + [i] * 7 + [f, p]
         lib.dstts_fused_qkv_i8.restype = i
-        lib.dstts_fused_out_mlp_i8.argtypes = [p] * 14 + [i] * 8 + [f, p]
+        lib.dstts_fused_out_mlp_i8.argtypes = [p] * 15 + [i] * 7 + [f, p]
         lib.dstts_fused_out_mlp_i8.restype = i
-        lib.dstts_int8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.dstts_int8_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.dstts_int8_matmul.restype = i
         lib.dstts_fused_out_router.argtypes = [p] * 9 + [i] * 7 + [f, p]
         lib.dstts_fused_out_router.restype = i
@@ -204,18 +217,88 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.bfloat16):
         raise ValueError(f"{name}: data pointer must be 16-byte aligned")
 
 
-def _splits(B: int, N: int, K: int, wbytes: int = 2) -> int:
-    """K slices of one product: doubled until the grid holds
+def _splits(B: int, N: int, K: int) -> int:
+    """K slices of one bf16 product: doubled until the grid holds
     ``_TARGET_BLOCKS`` blocks, while every slice stays a whole number of
     pipeline stages and the float32 partial sums (written and read once:
-    8·B·N·s bytes) stay within a quarter of the weight bytes (wbytes·K·N:
-    2 for bf16, 1 for int8)."""
+    8·B·N·s bytes) stay within a quarter of the weight bytes (2·K·N)."""
     base = (N // _TILE) * -(-B // _MAX_ROWS)
-    cap = max(1, wbytes * K // (32 * B))
+    cap = max(1, 2 * K // (32 * B))
     s = 1
     while base * s < _TARGET_BLOCKS and 2 * s <= cap and K % (2 * s * _KT) == 0:
         s *= 2
     return s
+
+
+def i8_tile_cols(N: int, swiglu: bool = False) -> int:
+    """Columns a tile of the int8 product (csrc i8_tile_cols): 256 for
+    SwiGLU (its gate and up halves) and the widest products (N > 51200: the
+    lm_head), else 128; a ring stage is 8 KB, so 8192 / width k rows."""
+    return 128 if not swiglu and N <= 51200 else 256
+
+
+def i8_tiles(K: int, N: int, swiglu: bool = False) -> tuple[int, int]:
+    """(tiles, stages a tile) of an int8 product x @ w [K, N]: SwiGLU tiles
+    hold width/2 gate columns and the matching up columns of N = 2F."""
+    tw = i8_tile_cols(N, swiglu)
+    cols, width = (N // 2, tw // 2) if swiglu else (N, tw)
+    return -(-cols // width), K // (8192 // tw)
+
+
+def i8_m_tiles(B: int) -> int:
+    """16-row m-tiles of an int8 product block (csrc launch_i8): the fewest
+    of 1, 2, 4 that cover B <= 64."""
+    return 1 if B <= 16 else 2 if B <= 32 else 4
+
+
+def i8_plan(B: int, device) -> tuple[int, int]:
+    """(persistent blocks, ring stages) of an int8 product at B rows: one
+    block an SM, and ``I8_STAGES`` by m-tiles."""
+    from .paged_attention import _sm_count
+
+    return _sm_count(device), I8_STAGES[i8_m_tiles(B)]
+
+
+def i8_scratch(device, B: int, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 product's scratch: float32 split-K partial sums, one
+    [B, I8_TILE] slot a block, and the device's ticket counters, one a tile
+    (zero between calls: the block that finishes a tile resets its
+    counter). The tickets are one buffer a device, so they assume that the
+    device's int8 products run on one stream, as the port's do."""
+    t = _i8_tickets.get(device)
+    if t is None:
+        t = _i8_tickets[device] = torch.zeros(_I8_MAX_TILES, dtype=torch.int32, device=device)
+    return torch.empty((grid, B, I8_TILE), dtype=torch.float32, device=device), t
+
+
+def i8_block_of(i: int, total: int, grid: int) -> int:
+    """The block whose share of the (tile, stage) sequence holds stage i
+    (csrc i8_block_of): block b owns [b·total//grid, (b+1)·total//grid)."""
+    return ((i + 1) * grid - 1) // total
+
+
+def i8_partition(tiles: int, nk: int, grid: int) -> list[list[tuple[int, int, int]]]:
+    """Each block's segments ``(tile, first stage, end stage)`` in the order
+    ``i8_stream`` walks them: the tiles·nk (column tile, k stage) pairs,
+    tile-major, split into ``min(grid, tiles·nk)`` runs whose lengths differ
+    by at most one. A tile met by several blocks is finished by the block
+    that holds its first stage (``i8_block_of(t·nk)``), for which the tile
+    is the last segment of its run; for every other block that meets it,
+    the tile is its first segment, whose sums it leaves in its one partial
+    slot."""
+    total = tiles * nk
+    grid = min(grid, total)
+    out = []
+    for b in range(grid):
+        it, end = b * total // grid, (b + 1) * total // grid
+        segs = []
+        while it < end:
+            t, kt0 = divmod(it, nk)
+            kt1 = min(nk, kt0 + end - it)
+            segs.append((t, kt0, kt1))
+            it += kt1 - kt0
+        out.append(segs)
+    return out
 
 
 def shapes_ok(hidden: int, heads_dim: int, intermediate: int, head_dim: int) -> bool:
@@ -565,6 +648,17 @@ def _launch_out_mlp_split(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *, eps: f
     return out
 
 
+def _check_i8(B: int, K: int, N: int) -> None:
+    """Raise unless the int8 product takes x [B,K] @ w [K,N]: 1..64 rows,
+    whole ring stages, N a multiple of 128 (the last ``I8_TILE``-column
+    tile may be half full), at most ``_I8_MAX_TILES`` 128-column tiles."""
+    if not (1 <= B <= _MAX_ROWS and K % I8_STAGE_ROWS == 0 and N % _TILE == 0
+            and N // _TILE <= _I8_MAX_TILES):
+        raise ValueError(f"int8 product kernel needs 1..{_MAX_ROWS} rows, K % "
+                         f"{I8_STAGE_ROWS} == 0 and N % {_TILE} == 0, N / {_TILE} <= "
+                         f"{_I8_MAX_TILES} (got B={B}, K={K}, N={N})")
+
+
 def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, layer,
                          *, n_heads: int, n_kv: int, head_dim: int, eps: float = 1e-6):
     """B10-qkv: :func:`fused_qkv_stacked` over an int8 stack. wqkv_q
@@ -589,15 +683,16 @@ def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, la
     _check("kn_all", kn_all, (L, D))
     _check("cos", cos, (B, D // 2), torch.float32)
     _check("sin", sin, (B, D // 2), torch.float32)
-    s = _splits(B, C, E, wbytes=1)
-    partial = torch.empty((s, B, C), dtype=torch.float32, device=x.device)
+    _check_i8(B, E, C)
+    grid, stages = i8_plan(B, x.device)
+    partial, tickets = i8_scratch(x.device, B, grid)
     xn = torch.empty((B, E), dtype=x.dtype, device=x.device)
     out = torch.empty((B, C), dtype=x.dtype, device=x.device)
     err = _lib().dstts_fused_qkv_i8(
         x.data_ptr(), ln_all.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(),
         qn_all.data_ptr(), kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        partial.data_ptr(), xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s,
-        float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+        partial.data_ptr(), tickets.data_ptr(), xn.data_ptr(), out.data_ptr(), int(layer), B,
+        E, H, K, grid, stages, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _raise_if(err, "fused_qkv_stacked_i8")
     fused_qkv_stacked_i8.launches += 1
     HD, KD = H * D, K * D
@@ -631,19 +726,18 @@ def fused_out_mlp_stacked_i8(attn_out, x, wo_q, wo_s, ln_all, gateup_q, gateup_s
         _check(name, t, shape, torch.int8)
     for name, t, n in (("wo_s", wo_s, E), ("gateup_s", gateup_s, F2), ("wd_s", wd_s, E)):
         _check(name, t, (L, 1, n), torch.float32)
-    s_o, s_gu, s_d = (_splits(B, E, HD, wbytes=1), _splits(B, F2, E, wbytes=1),
-                      _splits(B, E, Fi, wbytes=1))
+    for kd, nd in ((HD, E), (E, F2), (Fi, E)):
+        _check_i8(B, kd, nd)
     dev = x.device
-    partial = torch.empty((max(s_o * E, s_gu * F2, s_d * E) * B,), dtype=torch.float32,
-                          device=dev)
-    x2, xn = (torch.empty((B, E), dtype=x.dtype, device=dev) for _ in range(2))
+    grid, stages = i8_plan(B, dev)
+    partial, tickets = i8_scratch(dev, B, grid)
+    x2, xn, out = (torch.empty((B, E), dtype=x.dtype, device=dev) for _ in range(3))
     h = torch.empty((B, Fi), dtype=x.dtype, device=dev)
-    out = torch.empty((B, E), dtype=x.dtype, device=dev)
     err = _lib().dstts_fused_out_mlp_i8(
         attn_out.data_ptr(), x.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(),
         ln_all.data_ptr(), gateup_q.data_ptr(), gateup_s.data_ptr(), wd_q.data_ptr(),
-        wd_s.data_ptr(), partial.data_ptr(), x2.data_ptr(), xn.data_ptr(), h.data_ptr(),
-        out.data_ptr(), int(layer), B, HD, E, Fi, s_o, s_gu, s_d, float(eps),
+        wd_s.data_ptr(), partial.data_ptr(), tickets.data_ptr(), x2.data_ptr(), xn.data_ptr(),
+        h.data_ptr(), out.data_ptr(), int(layer), B, HD, E, Fi, grid, stages, float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, "fused_out_mlp_stacked_i8")
     fused_out_mlp_stacked_i8.launches += 1
@@ -660,18 +754,17 @@ def int8_product(x, w_q, scales):
         return int8_product_plain(x, w_q, scales)
     B, Kd = x.shape
     N = w_q.shape[1]
-    if B > _MAX_ROWS or N % _TILE or Kd % _KT:
-        raise ValueError(f"int8_product kernel needs <= {_MAX_ROWS} rows, N % {_TILE} "
-                         f"== 0 and K % {_KT} == 0 (got B={B}, K={Kd}, N={N})")
     _check("x", x, (B, Kd))
     _check("w_q", w_q, (Kd, N), torch.int8)
     _check("scales", scales, (1, N), torch.float32)
-    s = _splits(B, N, Kd, wbytes=1)
-    partial = torch.empty((s, B, N), dtype=torch.float32, device=x.device)
+    _check_i8(B, Kd, N)
+    grid, stages = i8_plan(B, x.device)
+    partial, tickets = i8_scratch(x.device, B, grid)
     out = torch.empty((B, N), dtype=x.dtype, device=x.device)
     err = _lib().dstts_int8_matmul(
         x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), B, Kd, N, s, torch.cuda.current_stream(x.device).cuda_stream)
+        tickets.data_ptr(), out.data_ptr(), B, Kd, N, grid, stages,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _raise_if(err, "int8_product")
     int8_product.launches += 1
     return out
