@@ -154,6 +154,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # qwen3-8b widths (deepsearch_tts_tpu_torch/models/qwen3.py QWEN3_CONFIGS)
 E, H, KV, D, FF, V = 4096, 32, 8, 128, 12288, 151936
 V_ODD = 50257            # a vocab width that is not a multiple of 128
+V_MLA = 129280           # deepseek-v3's vocab width
 SLOTS = 16               # the serve phase's max_slots: its decode batch
 # bf16 outputs of kernel and plain version differ by float32 summation order
 # and the resulting bf16 rounding of intermediates: the JAX suite's own bound
@@ -406,33 +407,56 @@ def phase_kernels(gen) -> dict:
             if B == SLOTS:
                 res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, **bd)
 
-    for Vw in (V, V_ODD):
+    # B5 over the three vocab widths at B = 1, 16, 64 (a verify step's
+    # rows) and 65 (a ragged split), timed at each B; the same inputs twice
+    # give the same bits (the lse merged in one fixed order), and an lse
+    # that leaves out one chunk's partial fails the F32 bound. Shapes that
+    # earlier versions of this script did not check draw their inputs from
+    # a generator of their own, so every later phase sees the same inputs
+    aux = torch.Generator(device=dev).manual_seed(1)
+    for Vw in (V, V_MLA, V_ODD):
         eos = Vw - 1
-        for B in (1, SLOTS, 64):
-            logits = torch.randn((B, Vw), generator=gen, device=dev) * 3
-            seen = torch.rand((B, Vw), generator=gen, device=dev) < 0.1
+        for B in (1, SLOTS, 64, 65):
+            g = gen if Vw in (V, V_ODD) and B in (1, SLOTS, 64) else aux
+            logits = torch.randn((B, Vw), generator=g, device=dev) * 3
+            seen = torch.rand((B, Vw), generator=g, device=dev) < 0.1
             pen = torch.tensor([1.0, 1.05, 1.3], device=dev).repeat(B)[:B].contiguous()
             temp = torch.tensor([0.7, 1.0, 0.3, 1.5], device=dev).repeat(B)[:B].contiguous()
             sup = (torch.arange(B, device=dev) % 2 == 0)
             args5 = (logits, seen, pen, temp, sup, eos)
             s_k, l_k = sp.sampling_prep(*args5)
             s_r, l_r = sp.sampling_prep_plain(*args5)
+            s_2, l_2 = sp.sampling_prep(*args5)
             torch.cuda.synchronize()
             torch.testing.assert_close(s_k, s_r, rtol=F32_RTOL, atol=F32_ATOL)
             torch.testing.assert_close(l_k, l_r, rtol=F32_RTOL, atol=F32_ATOL)
+            assert torch.equal(s_k, s_2) and torch.equal(l_k, l_2), (
+                "sampling_prep: two calls on the same inputs differ", Vw, B)
             e5 = max(_err(s_k, s_r), _err(l_k, l_r))
+            S, chunk = sp.prep_splits(B, Vw, torch.cuda.get_device_properties(0)
+                                      .multi_processor_count)
+            drop = S // 2   # the lse without chunk `drop`'s partial
+            keep = torch.ones(Vw, dtype=torch.bool, device=dev)
+            keep[drop * chunk:(drop + 1) * chunk] = False
+            fault = torch.logsumexp(s_r[:, keep], dim=-1, keepdim=True)
+            use = _bound_use(fault[:, :, None], l_r[:, :, None], F32_RTOL, F32_ATOL, math.inf)
+            assert S == 1 or use > 1.0, ("B5 lse fault passed the bound", Vw, B, use)
             t5 = time_ms(lambda: sp.sampling_prep(*args5))
             p5 = time_ms(lambda: sp.sampling_prep_plain(*args5))
-            log(f"[kernel] B5 sampling_prep V={Vw:6d} B={B:3d} max_abs_err={e5:.3e} "
-                f"| device kernel {t5[0]:.4f} ms plain {p5[0]:.4f} ms | eager "
-                f"kernel {t5[1]:.4f} ms plain {p5[1]:.4f} ms")
+            # logits f32 + seen + 3 row values read, scaled f32 + lse
+            # written; ~8 float32 operations an element
+            bd5 = bound(B * Vw * 9 + B * 16, 8 * B * Vw, rate=F32_FLOP_S)
+            log(f"[kernel] B5 sampling_prep V={Vw:6d} B={B:3d} S={S:3d} chunk={chunk:6d} "
+                f"max_abs_err={e5:.3e} (lse without chunk {drop}: "
+                f"{'one chunk, no fault' if S == 1 else f'bound use {use:.1f}'}) | device "
+                f"kernel {t5[0]:.4f} ms plain {p5[0]:.4f} ms | eager kernel {t5[1]:.4f} ms "
+                f"plain {p5[1]:.4f} ms | bound "
+                f"{bd5['bound_ms']:.4f} ms ({bd5['bound_by']}) | "
+                f"{(B * Vw * 9 + B * 16) / t5[0] / 1e6:.1f} GB/s")
             res["sampling_prep"]["err"] = max(res["sampling_prep"]["err"], e5)
             if B == SLOTS and Vw == V:
-                # logits f32 + seen + 3 row values read, scaled f32 + lse
-                # written; ~8 float32 operations an element
-                res["sampling_prep"].update(
-                    ms=t5[0], plain_ms=p5[0], library_ms=None,
-                    **bound(B * Vw * 9 + B * 16, 8 * B * Vw, rate=F32_FLOP_S))
+                res["sampling_prep"].update(ms=t5[0], plain_ms=p5[0], library_ms=None,
+                                            shape=f"B={B} V={Vw}", **bd5)
     return res
 
 
@@ -801,6 +825,49 @@ def _check_windows(check, rnd, kp, vp, h, kv, widths, timed_w=None, library_kv=N
                       flop=4 * h * D * int(lim.sum()), library=library)
 
 
+def _b7_faults(a, x, wo, ln, router) -> None:
+    """B7's bound (BF16_RTOL / BF16_ATOL on x2, hn and the logits) sees a
+    fault of its schedule: against the sound plain output of layer 0, a
+    plain output with one ring stage (32 k rows) of one split wo tile left
+    out, one with one router partial left out (a phase-2 warp's share of
+    K: k-step pairs 1, 5, 9, ... of one block's 8 expert columns), and one
+    with hn normalised by a sum of squares missing one tile each take more
+    than the whole bound."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import matmul_f32
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+
+    grid = pa._sm_count(a.device)
+    E = x.shape[1]
+    tiles, nk = fl.b7_tiles(E, a.shape[1])
+    runs = fl.i8_partition(tiles, nk, grid)
+    # a tile that more than one block streams, and a ring stage of it
+    t = next(t for t in range(tiles) if sum(any(s[0] == t for s in r) for r in runs) > 1)
+    ref = fl.fused_out_router_stacked_plain(a, x, wo, ln, router, 0)
+    w = wo[:1].clone()
+    w[0, 5 * fl._KT:6 * fl._KT, t * fl._TILE:(t + 1) * fl._TILE] = 0
+    r = router[:1].clone()
+    warp1 = (torch.arange(E, device=a.device) // 32) % 4 == 1   # warp 1's k rows
+    r[0, warp1, fl.B7_BAND:2 * fl.B7_BAND] = 0                   # of expert columns 8 .. 15
+    x2 = ref[0]
+    ss = x2.float().square()
+    ss[:, t * fl._TILE:(t + 1) * fl._TILE] = 0
+    hn = ((x2.float() * torch.rsqrt(ss.sum(-1, keepdim=True) / E + 1e-6))
+          * ln[0].float()).to(x2.dtype)
+    faults = {f"stage 5 of wo tile {t} dropped": fl.fused_out_router_stacked_plain(
+                  a, x, w, ln, router, 0),
+              "router partial (warp 1 of expert columns 8 .. 15) dropped":
+                  fl.fused_out_router_stacked_plain(a, x, wo, ln, r, 0),
+              f"sum of squares of tile {t} dropped": (x2, hn, matmul_f32(hn, router[0]))}
+    uses = {n: max(_bound_use(g, w_, BF16_RTOL, BF16_ATOL, math.inf) for g, w_ in zip(f, ref))
+            for n, f in faults.items()}
+    log("[kernel] fused_out_router_stacked B=16 faults, bound use: " +
+        ", ".join(f"{n} {u:.2f}" for n, u in uses.items()))
+    assert min(uses.values()) > 1.0, uses
+
+
 def phase_moe_kernels(gen) -> dict:
     """B7 and both entries of the grouped expert kernels (decode and
     prefill) against their plain versions at qwen3-30b-a3b widths, and B3,
@@ -824,34 +891,68 @@ def phase_moe_kernels(gen) -> dict:
         _check_kernel(res, *a, rtol=BF16_RTOL, atol=BF16_ATOL, **k)
 
     # B7: the 2-layer check stack of the contract, then an 8-layer stack
-    # (138 MB, beyond the 50 MB L2) for the timing, walked layer by layer
+    # (138 MB, beyond the 50 MB L2) for the timing, walked layer by layer;
+    # B = 1, 16, 64 (a verify step's rows) and 80 (two row groups, the last
+    # ragged; all but B = 16 from a generator of their own, so that later
+    # phases see the inputs they saw before); the same inputs twice give the
+    # same bits
+    aux = torch.Generator(device=dev).manual_seed(1)
     for L, timed in ((2, False), (8, True)):
         wo = rnd(L, M_H * D, M_E, scale=(M_H * D) ** -0.5)
         ln = rnd(L, M_E, scale=0.1) + 1
         router = rnd(L, M_E, M_NE, scale=M_E ** -0.5)
-        a, x = rnd(SLOTS, M_H * D), rnd(SLOTS, M_E)
-        for layer in range(L):
-            args = (a, x, wo, ln, router, layer)
-            check("fused_out_router_stacked", f"B={SLOTS} layer={layer} L={L}",
-                  lambda: fl.fused_out_router_stacked(*args),
-                  lambda: fl.fused_out_router_stacked_plain(*args),
-                  timed=False)
-        if timed:
-            def walk(f):
-                return lambda: [f(a, x, wo, ln, router, layer) for layer in range(L)]
+        for B in (1, SLOTS, 64, 80):
+            g = gen if B == SLOTS else aux
+            a = (torch.randn((B, M_H * D), generator=g, device=dev)).to(bf)
+            x = (torch.randn((B, M_E), generator=g, device=dev)).to(bf)
+            for layer in range(L):
+                args = (a, x, wo, ln, router, layer)
+                check("fused_out_router_stacked", f"B={B} layer={layer} L={L}",
+                      lambda: fl.fused_out_router_stacked(*args),
+                      lambda: fl.fused_out_router_stacked_plain(*args))
+                once, twice = fl.fused_out_router_stacked(*args), fl.fused_out_router_stacked(*args)
+                assert all(torch.equal(u, v) for u, v in zip(once, twice)), (
+                    "fused_out_router_stacked: two calls on the same inputs differ", B, layer)
+            if timed and B == SLOTS:
+                _b7_faults(a, x, wo, ln, router)
+            if timed and B <= 64:
+                def walk(f):
+                    return lambda: [f(a, x, wo, ln, router, layer) for layer in range(L)]
 
-            t = time_ms(walk(fl.fused_out_router_stacked), calls=L)
-            p = time_ms(walk(fl.fused_out_router_stacked_plain), calls=L)
-            r = res["fused_out_router_stacked"]
-            w7 = M_H * D * M_E + M_E * M_NE
-            r.update(ms=t[0], plain_ms=p[0], shape=f"B={SLOTS} (8 layers walked)",
-                     library_ms=None,
-                     **bound(2 * (w7 + SLOTS * M_H * D + 3 * SLOTS * M_E + M_E)
-                             + 4 * SLOTS * M_NE, 2 * SLOTS * w7))
-            log(f"[kernel] B7 fused_out_router_stacked B={SLOTS} | device kernel "
-                f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain "
-                f"{p[1]:.4f} ms | bound {r['bound_ms']:.4f} ms ({r['bound_by']}) | "
-                f"{2 * w7 / t[0] / 1e6:.1f} GB/s")
+                t = time_ms(walk(fl.fused_out_router_stacked), calls=L)
+                p = time_ms(walk(fl.fused_out_router_stacked_plain), calls=L)
+                w7 = M_H * D * M_E + M_E * M_NE
+                nb = 2 * (w7 + B * M_H * D + 3 * B * M_E + M_E) + 4 * B * M_NE
+                bd = bound(nb, 2 * B * w7)
+                if B == SLOTS:
+                    res["fused_out_router_stacked"].update(
+                        ms=t[0], plain_ms=p[0], shape=f"B={B} (8 layers walked)",
+                        library_ms=None, **bd)
+                log(f"[kernel] B7 fused_out_router_stacked B={B} | device kernel "
+                    f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager "
+                    f"kernel {t[1]:.4f} ms plain {p[1]:.4f} ms | bound {bd['bound_ms']:.4f} "
+                    f"ms ({bd['bound_by']}) | {nb / t[0] / 1e6:.1f} GB/s")
+        del wo, ln, router
+    # B7 at widths beyond the served configs' that the fused layer's gate
+    # (shapes_ok) takes: E not a multiple of 1024 with 512 experts (phase 2's
+    # items outnumber the grid: blocks take several), E above one phase-2 K
+    # chunk (two chunks), and a wo smaller than the grid (blocks with empty
+    # shares, a tile spanning more blocks than one batch of slots); layer 1
+    # of a 2-layer stack, from the generator of the new shapes
+    for E7, HD7, NE7 in ((2560, 4096, 512), (5120, 1024, 128), (256, 256, 128)):
+        wo = (torch.randn((2, HD7, E7), generator=aux, device=dev) * HD7 ** -0.5).to(bf)
+        ln = (torch.randn((2, E7), generator=aux, device=dev) * 0.1 + 1).to(bf)
+        router = (torch.randn((2, E7, NE7), generator=aux, device=dev) * E7 ** -0.5).to(bf)
+        for B in (1, SLOTS, 64, 80):
+            a = torch.randn((B, HD7), generator=aux, device=dev).to(bf)
+            x = torch.randn((B, E7), generator=aux, device=dev).to(bf)
+            args = (a, x, wo, ln, router, 1)
+            check("fused_out_router_stacked", f"B={B} E={E7} H*D={HD7} NE={NE7} layer=1 L=2",
+                  lambda: fl.fused_out_router_stacked(*args),
+                  lambda: fl.fused_out_router_stacked_plain(*args))
+            once, twice = fl.fused_out_router_stacked(*args), fl.fused_out_router_stacked(*args)
+            assert all(torch.equal(u, v) for u, v in zip(once, twice)), (
+                "fused_out_router_stacked: two calls on the same inputs differ", B, E7, NE7)
         del wo, ln, router
 
     # grouped expert FFN over the rows of one layer of a 2-layer expert stack

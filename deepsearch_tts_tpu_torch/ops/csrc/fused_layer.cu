@@ -42,8 +42,7 @@
 //     B4: gemm(a, wo) -> residual (x2 = x + a@wo)
 //         rms_norm_rows(x2, ln2) -> gemm(gate|up) -> swiglu (h = silu(g)*u)
 //         gemm(h, wd) -> residual (out = x2 + h@wd)
-//     B7: gemm(a, wo) -> residual (x2 = x + a@wo)
-//         rms_norm_rows(x2, ln2) -> hn -> gemm(router) -> sum_partials (f32 logits)
+//     B7: one launch of i8_stream<I8_ROUTER> (below; see "B7")
 //     B8: [rms_norm_rows(x, ln)] -> gemm(wg), gemm(wu) -> swiglu -> gemm(wd)
 //         -> residual (out = [x +] h@wd); gate and up are two stacks read
 //         through two pointers, their partial sums side by side. MLA's
@@ -95,6 +94,55 @@
 //     one buffer a device: the device's int8 products run on one stream.
 //   B10-out is four launches (wo, the norm of x2, gate|up, wd), B10-qkv two
 //   (the norm, the product) and the bare product one.
+// * B7 runs on the same kernel: i8_stream takes its weight type from its
+//   epilogue, and I8_ROUTER streams bf16 (64 columns a 128-byte box row, no
+//   widening, the same 8 KB ring stages). What bounds B7: the weight bytes
+//   (16.8 MB of wo and 0.5 MB of router at qwen3-30b-a3b, B FLOP a byte).
+//   What held its first port back was not the product but a chain of five
+//   launches passing float32 partial sums through memory (each launch of
+//   such a chain waits ~1.5 us for its first stage and ends 3-5 us after its
+//   last; PERF.md). The design is one cooperative launch, one block an SM
+//   (scripts/trace_b7.py times each step of it):
+//   - phase 1, wo: B10's stream-K walk (TMA ring), but every block leaves
+//     each of its segments' sums (two at most at these widths) in a slot
+//     of its own: a tile spans ~8 blocks at these widths, and a block that
+//     finished a tile in B10's way summed ~8 slots alone, latency bound
+//     (5 us at B = 16, 13 us at B = 64);
+//   - the router is prefetched: each block of phase 2 loads its 8 expert
+//     columns of it (E rows of 16 bytes) by TMA into its own shared memory
+//     once its wo loads are issued (issued first, they held the first wo
+//     stages back ~2 us), so they land during the stream's tail;
+//   - a grid-wide barrier (one 64-bit arrival count that only grows, read
+//     at the launch's start for its base; sound since a cooperative grid is
+//     all resident; one release fence a block, not one a thread; arrival
+//     and wait apart, so that the index work of what follows needs no wait),
+//     then every warp of the grid finishes (row, tile) units: x2
+//     = bf16(x + the tile's slots in block order) and the sum of squares of
+//     the rounded x2 over the tile's 128 columns into the unit's own slot
+//     (b7_x2), and a second barrier;
+//   - phase 2: the block of (8 expert columns, B * bands / grid rows, at
+//     most 16) forms each row's 1/rms from the unit slots in tile order,
+//     normalises its x2 rows into an hn tile in shared memory (writing its
+//     band's share of the columns out: each hn element once) and
+//     multiplies them by its router columns over the whole K on mma.sync:
+//     each logit is summed by one block in one fixed order, with no float
+//     atomics, so the engine's top-k sees the same logits for the same
+//     inputs. Its loops divide no index: at 4 warps a block, runtime
+//     divisions cost ~1 us a step. (Splitting K over 8 slices a band and
+//     letting the last slice to arrive add the 8 partials cost ~2.5 us
+//     more; running the two phases as two launches was slower at B = 1,
+//     16 and 64: PERF.md.)
+//   It takes every width the other kernels take (E % 128, any NE % 8, any
+//   SM count): the grid is always the card's SMs, a block whose share is
+//   empty (wo smaller than the grid) leaves a zero slot, the slots a tile
+//   spans are added in batches, phase 2's (band, row group) items beyond
+//   the grid are walked by the blocks in turn and K in chunks of B7_KC
+//   rows, each (item, chunk) after a block's first loading its router
+//   columns itself. At qwen3-30b-a3b and qwen3-235b-a22b widths every
+//   block has one item and one chunk, all prefetched, and that phase 2 is
+//   compiled as a kernel of its own (I8_ROUTER; the general one is
+//   I8_ROUTER_ANY): with both in one kernel, B = 64 took 4-12 % longer.
+//   Above 64 rows the wrapper runs groups of 64.
 //
 // Interface: plain C, raw pointers, launched on the caller's stream; no
 // allocation (the wrapper passes outputs and scratch); each entry returns the
@@ -427,16 +475,6 @@ swiglu_epilogue(const float* __restrict__ Pg, const float* __restrict__ Pu,
   }
   const float silu = g / (1.f + __expf(-g));
   h[i] = __float2bfloat16(silu * u);
-}
-
-// out[i] = sum_s P[s * total + i] (float32: B7's router logits)
-__global__ void __launch_bounds__(256)
-sum_partials(const float* __restrict__ P, int S, long long total, float* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (i >= total) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += P[(long long)s * total + i];
-  out[i] = acc;
 }
 
 // ------------------------------------------------------- grouped expert FFN
@@ -924,33 +962,53 @@ int launch_grouped_tc(const void* x, const void* offsets, const void* w0, const 
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ B10: the int8 product
+// ------------------------------------- B10: the int8 product (and B7)
 //
 // i8_stream<TW, MT, EPI>: y = (bf16 X [B, K] @ widened int8 W [K, N]) *
-// scales, float32 sums, then one of four epilogues over a tile (EPI):
+// scales (B7: bf16 W, no scales), float32 sums, then one of five epilogues
+// over a tile (EPI):
 //   I8_SCALE   out = bf16(y)                          (int8_product)
 //   I8_RESID   out = bf16(res + y)                    (wo, wd of B10-out)
 //   I8_SWIGLU  h = bf16(silu(y_g) * y_u): the tile holds gate columns
 //              128t .. 128t + 127 and the matching up columns F + 128t ..
 //   I8_QKV     one head a 128 columns: per-head RMSNorm and rope for q / k
 //              heads, v as it is (B10-qkv)
-// Design notes at the head of the file ("B10").
-// A tile is TW = 128 or 256 int8 columns (TW-byte runs of each weight
-// row); the host picks TW from the sizes (launch_i8). Per TW:
-#define I8_TILE_CONSTANTS(TW)                                                  \
-  constexpr int QTW = TW;               /* int8 columns a tile */              \
-  constexpr int QKT = 8192 / QTW;       /* int8 k rows a stage: 8 KB a stage */ \
-  constexpr int QBOX = QTW / QBW;       /* weight boxes a stage */             \
+//   I8_ROUTER  B7 over bf16 weights, no scales: each segment's sums into a
+//              slot of the block's, then across the grid x2 = bf16(res + y)
+//              and its sums of squares (b7_x2), hn and the router logits
+//              (router_phase)
+// Design notes at the head of the file ("B10", "B7").
+// A tile is TW = 128 or 256 columns of WB-byte weights (TW * WB-byte runs
+// of each weight row); the host picks TW from the sizes (launch_i8). Per
+// TW and WB:
+#define I8_TILE_CONSTANTS(TW, WB)                                              \
+  constexpr int QTW = TW;               /* columns a tile */                   \
+  constexpr int QKT = 8192 / (QTW * WB); /* k rows a stage: 8 KB a stage */    \
+  constexpr int QBOX = QTW * WB / QBW;  /* weight boxes a stage */             \
   constexpr int QAB = QKT * 2;          /* bytes an activation row of a stage */ \
   constexpr int QCW = QTW / 32;         /* consumer warps, 32 columns each */  \
-  constexpr int QW_STAGE = QKT * QTW;   /* bytes of a weight stage */          \
+  constexpr int QW_STAGE = QKT * QTW * WB; /* bytes of a weight stage */       \
   constexpr int QEROW = QTW + 4;        /* float row of the epilogue tile */   \
   (void)QBOX; (void)QAB; (void)QCW; (void)QW_STAGE; (void)QEROW;
 constexpr int QBW = 128;                // bytes a TMA weight box row (its swizzle span)
 constexpr int I8_MAX_TILES = 4096;      // tickets a call may use
 
 constexpr int i8_threads(int TW) { return (TW / 32 + 1) * 32; }   // consumers + the producer
-enum { I8_SCALE = 0, I8_RESID = 1, I8_SWIGLU = 2, I8_QKV = 3 };
+enum { I8_SCALE = 0, I8_RESID = 1, I8_SWIGLU = 2, I8_QKV = 3, I8_ROUTER = 4, I8_ROUTER_ANY = 5 };
+// B7: I8_ROUTER at the served widths (router_phase<false>), I8_ROUTER_ANY
+// at any other (router_phase<true>)
+__host__ __device__ constexpr bool i8_b7(int EPI) { return EPI >= I8_ROUTER; }
+// bytes a weight: int8, but B7's bf16
+__host__ __device__ constexpr int i8_wbytes(int EPI) { return i8_b7(EPI) ? 2 : 1; }
+constexpr int RBW = 8;                  // B7: router columns a phase-2 block (one mma n8 block)
+constexpr int RROWS = 16;               // B7: most rows a phase-2 item (one mma m-tile)
+constexpr int RBOX = 256;               // B7: router rows a TMA box
+constexpr int B7_KC = 4096;             // B7: k rows (hn columns) a phase-2 chunk
+constexpr int B7_SQT = 32;              // B7: tiles' sums of squares staged at once
+// B7: floats of phase 2's scratch (ys): 1/rms, the warps' logits, the sums
+// of squares; whole 128 bytes, as the router columns after it are a TMA
+// destination
+constexpr int B7_SCRATCH = (RROWS + 8 * RROWS * RBW + B7_SQT * RROWS + 31) / 32 * 32;
 
 struct I8Args {
   const float* scales;   // [N] column scales
@@ -965,6 +1023,15 @@ struct I8Args {
   long long total;       // tiles * nk stages, split evenly over the grid
   int B, N, nk, ldo, half_n, H, KV, stages;
   float eps;
+  // I8_ROUTER (B7): part [grid][segs][B][QTW] the blocks' segment sums;
+  // ln2 [N]; hn [B, ldo] out; sq [tiles][B] the (row, tile) sums of
+  // squares; logits [B, NE] out; count: the grid barriers' (only grows)
+  const bf16* ln;
+  bf16* hn;
+  float* sq;
+  float* logits;
+  unsigned long long* count;
+  int NE, rpb, segs;   // rpb: rows a phase-2 item (<= RROWS); segs: slots a block
 };
 
 // the byte offset of 16-byte chunk c of row r in a tile of rb-byte rows
@@ -974,10 +1041,30 @@ __device__ __forceinline__ int swz(int r, int c, int rb) {
   return r * rb + ((c ^ (((r * rb) >> 7) & (rb / 16 - 1))) << 4);
 }
 
-template <int TW, int MT>
-constexpr int i8_smem_bytes(int stages) {
-  I8_TILE_CONSTANTS(TW)
-  return 1024 + stages * (QW_STAGE + MT * 16 * QAB) + MT * 16 * QEROW * 4 + 16 * stages;
+// shared memory of i8_stream: the ring, the epilogue tile, the ring's
+// barriers; B7 (K = the wo rows, E = its columns) instead of the epilogue
+// tile a small scratch, and a chunk of its router columns and its hn tile
+// of RROWS rows (which reuses the ring: phase 2 no longer needs it), both
+// B7_KC rows (columns) at most
+__host__ __device__ constexpr int b7_kc(int E) { return E < B7_KC ? E : B7_KC; }
+// (hn tile rows of whole 1024 columns, the threads' 8-column chunks of a
+// round, + 8: a ragged round's chunks past the K chunk land in the padding)
+__host__ __device__ constexpr int b7_hrow(int E) { return (b7_kc(E) + 1023) / 1024 * 1024 + 8; }
+__host__ __device__ constexpr int b7_hn_bytes(int E) {
+  return (RROWS * b7_hrow(E) * 2 + 127) / 128 * 128;
+}
+__host__ __device__ constexpr int b7_rs_bytes(int E) {
+  return (b7_kc(E) + RBOX - 1) / RBOX * RBOX * RBW * 2;   // whole boxes: TMA fills past E
+}
+
+template <int TW, int MT, int EPI>
+constexpr int i8_smem_bytes(int stages, int E) {
+  I8_TILE_CONSTANTS(TW, i8_wbytes(EPI))
+  const int ring = stages * (QW_STAGE + MT * 16 * QAB);
+  if (i8_b7(EPI))
+    return 1024 + (ring > b7_hn_bytes(E) ? ring : b7_hn_bytes(E)) + B7_SCRATCH * 4 +
+           b7_rs_bytes(E) + 16 * stages + 16;
+  return 1024 + ring + MT * 16 * QEROW * 4 + 16 * stages;
 }
 
 // the block whose share of the (tile, stage) sequence holds stage i: block
@@ -1014,22 +1101,316 @@ __device__ __forceinline__ void store_bf16x4(bf16* dst, const float* o) {
   *reinterpret_cast<uint2*>(dst) = v;
 }
 
+// A grid-wide barrier in two halves, so that a block can do work that
+// needs nothing from the grid between its arrival and its wait, and a
+// block that needs nothing after it can arrive and leave. *count only
+// grows, by G at each barrier; a launch reads its base at its start
+// (b7_base: no block can pass the launch's first barrier before every
+// block has started), and its barrier j ends at base + (j + 1) * G. Only a
+// cooperative launch may use it (every block resident at once), every
+// launch on the count must have the same G, and a block must wait at each
+// barrier before it arrives at the next (an early arrival would count
+// towards the barrier before). The `n` threads of named barrier 1 take
+// part; thread 0 arrives and waits for the block.
+__device__ __forceinline__ unsigned long long b7_base(const unsigned long long* count, int G) {
+  unsigned long long c;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(c) : "l"(count) : "memory");
+  // c - c % G without a 64-bit division (slow on one thread): a double
+  // quotient, corrected by one either way
+  unsigned long long q = (unsigned long long)((double)c / G);
+  if (q * G > c) --q;
+  if ((q + 1) * G <= c) ++q;
+  return q * G;
+}
+__device__ __forceinline__ void grid_arrive(unsigned long long* count, int n) {
+  bar_sync(1, n);
+  // the block's writes (ordered before thread 0's by the block barrier)
+  // before its arrival: a release fence is cumulative
+  if (threadIdx.x == 0)
+    asm volatile("fence.acq_rel.gpu;\n"
+                 "red.relaxed.gpu.global.add.u64 [%0], 1;\n" :: "l"(count) : "memory");
+}
+__device__ __forceinline__ void grid_wait(const unsigned long long* count, unsigned long long end,
+                                          int n) {
+  if (threadIdx.x == 0) {
+    const long long t0 = clock64();
+    unsigned long long now;
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(now) : "l"(count) : "memory");
+      if (now >= end) break;
+      if (clock64() - t0 > 20000000000LL) __trap();   // a lost block: fail, not hang
+    }
+  }
+  bar_sync(1, n);
+}
+
+// B7 between the wo stream and the norm, on every block of the grid: x2 =
+// bf16(x + sum) and the sum of squares of the rounded x2 of each (row,
+// tile) unit, one unit a warp (lane l: columns 4l .. 4l + 3 of the tile),
+// once the grid barrier the block has arrived at has ended. The sum adds
+// the tile's segment sums in block order: slot (b, j) holds block b's
+// segment of the j-th tile its share meets, so the tile's first block b_lo
+// gives slot (b_lo, t - its first tile) and every later block b_hi .. of
+// the tile, whose share starts in it, slot (b, 0) (a block with an empty
+// share left zeros there). The slots are read B7_PART_BATCH at a time.
+constexpr int B7_PART_BATCH = 16;
+
+__device__ void b7_x2(const I8Args& p, int G, int blk, unsigned long long end) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = p.N / 128 * p.B, nk = p.nk, total = (int)p.total;
+  grid_wait(p.count, end, 128);
+  for (int u = blk * 4 + warp; u < units; u += G * 4) {
+    const int t = u / p.B, r = u - t * p.B, col = t * 128 + 4 * lane;
+    // the tile's blocks b_lo .. b_hi (i8_block_of of its first and last
+    // stage; total * G < 2^31, the host checks)
+    const int b_lo = ((t * nk + 1) * G - 1) / total, b_hi = ((t + 1) * nk * G - 1) / total;
+    // b_lo's slot: the tiles its share (from stage s0) meets before t
+    const int s0 = b_lo * total / G;
+    int seg_lo = 0;
+    for (int k = t * nk; k > s0; k -= nk) ++seg_lo;
+    const float* base = p.part + (long long)r * 128 + 4 * lane;
+    const long long slot = (long long)p.B * 128;   // floats a slot
+    float4 v[B7_PART_BATCH];
+#pragma unroll
+    for (int i = 0; i < B7_PART_BATCH; ++i)
+      if (b_lo + i <= b_hi)
+        v[i] = __ldcg(reinterpret_cast<const float4*>(
+            base + ((long long)(b_lo + i) * p.segs + (i == 0 ? seg_lo : 0)) * slot));
+    const uint2 xv = *reinterpret_cast<const uint2*>(p.res + (long long)r * p.ldo + col);
+    float4 y = v[0];
+#pragma unroll
+    for (int i = 1; i < B7_PART_BATCH; ++i)
+      if (b_lo + i <= b_hi) {
+        y.x += v[i].x;
+        y.y += v[i].y;
+        y.z += v[i].z;
+        y.w += v[i].w;
+      }
+    // a tile over more blocks than one batch (wo of fewer stages than the grid)
+    for (int b0 = b_lo + B7_PART_BATCH; b0 <= b_hi; b0 += B7_PART_BATCH) {
+#pragma unroll
+      for (int i = 0; i < B7_PART_BATCH; ++i)
+        if (b0 + i <= b_hi)
+          v[i] = __ldcg(reinterpret_cast<const float4*>(base + (long long)(b0 + i) * p.segs * slot));
+#pragma unroll
+      for (int i = 0; i < B7_PART_BATCH; ++i)
+        if (b0 + i <= b_hi) {
+          y.x += v[i].x;
+          y.y += v[i].y;
+          y.z += v[i].z;
+          y.w += v[i].w;
+        }
+    }
+    const __nv_bfloat162* xr = reinterpret_cast<const __nv_bfloat162*>(&xv);
+    const float2 x01 = __bfloat1622float2(xr[0]), x23 = __bfloat1622float2(xr[1]);
+    const float o[4] = {x01.x + y.x, x01.y + y.y, x23.x + y.z, x23.y + y.w};
+    const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(o[0], o[1]));
+    const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(o[2], o[3]));
+    const float ss = warp_sum(lo.x * lo.x + lo.y * lo.y + hi.x * hi.x + hi.y * hi.y);
+    store_bf16x4(p.out + (long long)r * p.ldo + col, o);
+    if (lane == 0) p.sq[t * p.B + r] = ss;
+  }
+}
+
+// B7's phase 2 in block blk of i8_stream<128, MT, I8_ROUTER[_ANY]> (its 4
+// consumer warps), after x2 and the (row, tile) sums of squares of every
+// block: the block arrives at the grid barrier that orders them first, and
+// leaves if it has no phase-2 work, or does the work that needs nothing
+// from the grid before it waits for the barrier's end. Item w = (c, g) =
+// (w % bands, w / bands) takes router columns RBW * c .. + RBW and rows rpb
+// * g .. + rpb (the host picks rpb so that the items fill the grid, and
+// block blk takes items blk, blk + G, ...). For each item: its rows' 1/rms
+// from their tiles' sums of squares in tile order; then for each chunk of
+// K (B7_KC rows; one chunk where E <= B7_KC), the router columns of the
+// chunk in rs (the block's first item's first chunk prefetched by TMA onto
+// rbar during phase 1, the others loaded here); thread t owns the 8-value
+// column chunks t, t + 128, ... of the chunk, so its ln2 stays in
+// registers and no index is divided: it loads its chunks of the x2 rows
+// four rows at a time, writes hn = bf16((x2 * 1/rms) * ln2) into the hn
+// tile hs (and its band's share of the columns out: each hn element once);
+// then the logits hn @ router columns on mma.sync (warp w: k-step pairs w,
+// w + 4, ... of the chunk, a sum for each k-step of a pair, carried over
+// the chunks; rows of the m-tile past the item's are not read out) go
+// straight out, the sums added in one fixed order: one block holds each
+// logit. GEN = false (I8_ROUTER: every block has at most one item, K is
+// one chunk and E % 1024 == 0, as at every served width): the item and
+// chunk loops and the ragged round fold away at compile time.
+template <bool GEN>
+__device__ void router_phase(const I8Args& p, bf16* hs, float* ys, unsigned char* rs,
+                             uint64_t* rbar, const CUtensorMap* tr, int G, int blk,
+                             unsigned long long end) {
+  constexpr int NTH = 128, RB = 4, MAXCH = B7_KC / (8 * NTH);   // MAXCH: chunks a thread
+  grid_arrive(p.count, NTH);
+  const int bands = p.NE / RBW, items = bands * ((p.B + p.rpb - 1) / p.rpb);
+  if (blk >= items) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int E = p.N, KC = GEN ? b7_kc(E) : E, HROW = b7_hrow(E);
+  const int nkc = GEN ? (E + KC - 1) / KC : 1, tiles = E / 128, wend = GEN ? items : blk + 1;
+  // whether thread tid loads chunk q of round q of a klen-wide K chunk
+  auto has = [&](int q, int klen) {
+    return GEN ? 8 * (tid + q * NTH) < klen : q * 8 * NTH < klen;
+  };
+  float* inv = ys;                         // [RROWS]
+  float* red = ys + RROWS;                 // [4 warps][2][RROWS][RBW]
+  float* sqs = red + 8 * RROWS * RBW;      // [B7_SQT][RROWS]
+  const int mi = lane >> 3, rr = lane & 7, gq = lane >> 2, t4 = lane & 3;
+  uint4 xv[RB][MAXCH], lv[MAXCH];
+  // (a K chunk of klen columns is ceil(klen / 1024) rounds q of 128
+  // threads' 8-column chunks, the last ragged where klen % 1024 != 0: the
+  // loads of its chunks past klen are left out, and what they give lands
+  // in the hn tile's padding and is never read)
+  // the x2 rows rb .. rb + RB - 1 (of nr) of the K chunk from k0
+  auto load_rows = [&](const bf16* x2, int rb, int nr, int k0, int klen) {
+#pragma unroll
+    for (int i = 0; i < RB; ++i)
+#pragma unroll
+      for (int q = 0; q < MAXCH; ++q)
+        if (rb + i < nr && has(q, klen))
+          xv[i][q] = __ldcg(reinterpret_cast<const uint4*>(x2 + (long long)(rb + i) * p.ldo +
+                                                           k0 + 8 * (tid + q * NTH)));
+  };
+  auto load_ln = [&](int k0, int klen) {
+#pragma unroll
+    for (int q = 0; q < MAXCH; ++q)
+      if (has(q, klen))
+        lv[q] = *reinterpret_cast<const uint4*>(p.ln + k0 + 8 * (tid + q * NTH));
+  };
+  // the chunk of router columns c from k row k0 (klen rows) into rs, once
+  // every warp is past its reads of rs
+  auto load_router = [&](int c, int k0, int klen) {
+    if (tid == 0) {
+      fence_proxy_async();
+      const int boxes = (klen + RBOX - 1) / RBOX;
+      mbar_expect_tx(rbar, boxes * RBOX * RBW * 2);
+      for (int r = 0; r < boxes; ++r)
+        tma_load_2d(rs + r * RBOX * RBW * 2, tr, rbar, c * RBW, k0 + r * RBOX);
+    }
+  };
+  load_ln(0, KC);
+  grid_wait(p.count, end, NTH);
+  int ph = 0;   // rbar's phase
+  for (int w = blk; w < wend; w += G) {
+    const int g = w / bands, c = w - g * bands, r0 = g * p.rpb;
+    const int nr = p.B - r0 < p.rpb ? p.B - r0 : p.rpb;
+    // the hn columns this item writes: 8-column pieces j0 .. j1 of E / 8
+    const int h0 = 8 * (E / 8 * c / bands), h1 = 8 * (E / 8 * (c + 1) / bands);
+    const bf16* x2 = p.out + (long long)r0 * p.ldo;
+    if (w != blk) {   // not the prefetched item
+      load_router(c, 0, KC);
+      if (nkc > 1) load_ln(0, KC);
+    }
+    load_rows(x2, 0, nr, 0, KC);   // the first four rows of x2 in flight
+    // each row's sums of squares in tile order, B7_SQT tiles at a time
+    float tsum = 0.f;
+    for (int i0 = 0; i0 < tiles * RROWS; i0 += B7_SQT * RROWS) {
+      float sv[B7_SQT * RROWS / NTH];
+#pragma unroll
+      for (int j = 0; j < B7_SQT * RROWS / NTH; ++j) {   // (tile i >> 4, row i & 15)
+        const int i = i0 + tid + j * NTH;
+        if (i < tiles * RROWS && (i & 15) < nr) sv[j] = __ldcg(p.sq + (i >> 4) * p.B + r0 + (i & 15));
+      }
+#pragma unroll
+      for (int j = 0; j < B7_SQT * RROWS / NTH; ++j) {
+        const int i = i0 + tid + j * NTH;
+        if (i < tiles * RROWS && (i & 15) < nr) sqs[i - i0] = sv[j];
+      }
+      bar_sync(1, NTH);
+      if (tid < nr) {
+        const int n = tiles - i0 / RROWS < B7_SQT ? tiles - i0 / RROWS : B7_SQT;
+        for (int i = 0; i < n; ++i) tsum += sqs[i * RROWS + tid];
+      }
+      if (i0 + B7_SQT * RROWS < tiles * RROWS) bar_sync(1, NTH);   // sqs again
+    }
+    if (tid < nr) inv[tid] = rsqrtf(tsum / (float)E + p.eps);
+    bar_sync(1, NTH);
+    float acc[2][4] = {};
+    for (int kc = 0; kc < nkc; ++kc) {
+      const int k0 = kc * KC, klen = E - k0 < KC ? E - k0 : KC, nq = (klen + 8 * NTH - 1) / (8 * NTH);
+      if (kc > 0) {
+        load_router(c, k0, klen);
+        load_ln(k0, klen);
+        load_rows(x2, 0, nr, k0, klen);
+      }
+      for (int rb = 0; rb < nr; rb += RB) {
+        if (rb > 0) load_rows(x2, rb, nr, k0, klen);
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (rb + i >= nr) break;
+          const float s = inv[rb + i];
+#pragma unroll
+          for (int q = 0; q < MAXCH; ++q) {
+            if (q >= nq) break;
+            const int c8 = 8 * (tid + q * NTH);
+            float f[8], wv[8];
+            bf16x8_to_float(xv[i][q], f);
+            bf16x8_to_float(lv[q], wv);
+            __align__(16) bf16 o[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16((f[e] * s) * wv[e]);
+            const uint4 v = *reinterpret_cast<const uint4*>(o);
+            *reinterpret_cast<uint4*>(hs + (rb + i) * HROW + c8) = v;
+            if (k0 + c8 >= h0 && k0 + c8 < h1)
+              *reinterpret_cast<uint4*>(p.hn + (long long)(r0 + rb + i) * p.ldo + k0 + c8) = v;
+          }
+        }
+      }
+      mbar_wait(rbar, ph);   // the router columns
+      ph ^= 1;
+      bar_sync(1, NTH);
+      for (int kp = warp; kp < klen / 32; kp += 4) {
+        // B of two k-steps: the router's 16-byte rows kp * 32 + lane
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, rs + (kp * 32 + lane) * RBW * 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t a[4];
+          ldmatrix_x4(a, hs + (rr + 8 * (mi & 1)) * HROW + kp * 32 + 16 * h + 8 * (mi >> 1));
+          mma_bf16(acc[h], a, b + 2 * h);
+        }
+      }
+      if (kc + 1 < nkc) bar_sync(1, NTH);   // rs and hs free for the next chunk
+    }
+    // (the next item reuses rs and hs after the barrier below)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(red + ((warp * 2 + h) * RROWS + gq + 8 * e) * RBW + 2 * t4) =
+            make_float2(acc[h][2 * e], acc[h][2 * e + 1]);
+    bar_sync(1, NTH);
+    if (tid < nr * RBW) {
+      const int r = tid / RBW, j = tid % RBW;
+      float s = 0.f;
+#pragma unroll
+      for (int w2 = 0; w2 < 8; ++w2) s += red[(w2 * RROWS + r) * RBW + j];
+      p.logits[(long long)(r0 + r) * p.NE + c * RBW + j] = s;
+    }
+    // the next item's first writes to red come after its bar_syncs
+  }
+}
+
 // grid: G persistent blocks, one an SM (the host picks G from the SM
 // count), launched cooperatively; i8_threads(TW) threads
 template <int TW, int MT, int EPI>
 __global__ void __launch_bounds__(i8_threads(TW), 1)
 i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-          const __grid_constant__ I8Args p) {
-  I8_TILE_CONSTANTS(TW)
+          const __grid_constant__ CUtensorMap tr, const __grid_constant__ I8Args p) {
+  constexpr int WB = i8_wbytes(EPI);
+  I8_TILE_CONSTANTS(TW, WB)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int ST = p.stages;
   constexpr int ABYTES = MT * 16 * QAB;   // an activation stage: MT*16 rows x QKT bf16
-  unsigned char* wring = smem;                            // [ST][QBOX][QKT][QBW] int8
+  unsigned char* wring = smem;                            // [ST][QBOX][QKT][QBW] weights
   unsigned char* aring = wring + ST * QW_STAGE;           // [ST][MT*16][QKT] bf16
-  float* ys = reinterpret_cast<float*>(aring + ST * ABYTES);   // [MT*16][QEROW]
-  uint64_t* full = reinterpret_cast<uint64_t*>(ys + MT * 16 * QEROW);
+  int body = ST * (QW_STAGE + ABYTES);
+  if (i8_b7(EPI) && b7_hn_bytes(p.N) > body) body = b7_hn_bytes(p.N);   // B7's hn tile
+  float* ys = reinterpret_cast<float*>(smem + body);      // [MT*16][QEROW]; B7: [B7_SCRATCH]
+  unsigned char* rs =                                     // B7: [<= B7_KC][RBW] bf16 router columns
+      reinterpret_cast<unsigned char*>(ys + (i8_b7(EPI) ? B7_SCRATCH : MT * 16 * QEROW));
+  uint64_t* full = reinterpret_cast<uint64_t*>(rs + (i8_b7(EPI) ? b7_rs_bytes(p.N) : 0));
   uint64_t* empty = full + ST;
+  uint64_t* rbar = empty + ST;                            // B7: the router columns
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int G = gridDim.x, blk = blockIdx.x;
   const long long it0 = i8_start(blk, p.total, G), it1 = i8_start(blk + 1, p.total, G);
@@ -1037,14 +1418,17 @@ i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
   auto box_col = [&](int t, int i) {
     constexpr int HB = QBOX > 1 ? QBOX / 2 : 1;   // boxes of gate (of up) columns
     if (EPI == I8_SWIGLU) return (i < HB ? 0 : p.half_n) + t * (QTW / 2) + QBW * (i % HB);
-    return t * QTW + QBW * i;
+    return t * QTW + QBW / WB * i;
   };
+  // B7: whether this block has a phase-2 item (router_phase)
+  const bool router = i8_b7(EPI) && blk < p.NE / RBW * ((p.B + p.rpb - 1) / p.rpb);
 
   if (tid == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], QCW);
     }
+    if (i8_b7(EPI)) mbar_init(rbar, 1);
     mbar_init_fence();
   }
   __syncthreads();
@@ -1077,17 +1461,32 @@ i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
         if (++kt == p.nk) kt = 0, ++t;
         if (++s == ST) s = 0, phase ^= 1;
       }
+      if (router) {
+        // B7: the router columns of the block's first item and chunk, after
+        // the wo loads (16 bytes a row: issued first, they held the first
+        // wo stages back ~2 us), to land during the stream's tail and the
+        // barriers
+        const int bc = blk % (p.NE / RBW) * RBW, boxes = (b7_kc(p.N) + RBOX - 1) / RBOX;
+        mbar_expect_tx(rbar, boxes * RBOX * RBW * 2);
+        for (int r = 0; r < boxes; ++r)
+          tma_load_2d(rs + r * RBOX * RBW * 2, &tr, rbar, bc, r * RBOX);
+      }
     }
     return;
   }
 
-  // ---- consumers: warp w multiplies tile columns 32w .. 32w + 31 (box
-  // w / (QBW / 32), bytes 32 * (w % (QBW / 32)) of its rows) over the stage
+  // ---- consumers: warp w multiplies tile columns 32w .. 32w + 31 (the
+  // 32 * WB bytes of its rows from byte 32 * WB * w of the tile) over the stage
   const int mi = lane >> 3, rr = lane & 7;        // ldmatrix lane roles
   const int g = lane >> 2, t4 = lane & 3;         // accumulator lane roles
-  const int box = warp / (QBW / 32), chunk0 = (warp % (QBW / 32)) * 2;
+  const int box = warp * 32 * WB / QBW, chunk0 = warp * 32 * WB % QBW / 16;
   int s = 0, phase = 0;   // ring slot and phase of the next stage
   int left = (int)(it1 - it0), t = (int)(it0 / p.nk), kt0 = (int)(it0 % p.nk);
+  [[maybe_unused]] const int t_first = t;   // B7's slots
+  // B7: the grid barrier count's base for this launch (thread 0's)
+  [[maybe_unused]] unsigned long long base = 0;
+  if constexpr (i8_b7(EPI))
+    if (tid == 0) base = b7_base(p.count, G);
   while (left > 0) {
     // a segment: stages kt0 .. kt0 + len - 1 of tile t
     const int len = left < p.nk - kt0 ? left : p.nk - kt0;
@@ -1105,16 +1504,30 @@ i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
       const unsigned char* ast = aring + s * ABYTES;
 #pragma unroll
       for (int kk = 0; kk < QKT; kk += 16) {
-        // B fragments: ldmatrix.trans of the int8 box read as 16-bit pairs;
-        // matrix mi = (k half mi & 1, 16-byte chunk mi >> 1)
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, wst + swz(kk + 8 * (mi & 1) + rr, chunk0 + (mi >> 1), QBW));
-        // n8 block 2G + e holds columns 16G + 2i + e of this warp's 32
         uint32_t b[4][2];
-        widen4(r[0], b[0][0], b[1][0]);
-        widen4(r[1], b[0][1], b[1][1]);
-        widen4(r[2], b[2][0], b[3][0]);
-        widen4(r[3], b[2][1], b[3][1]);
+        if constexpr (WB == 1) {
+          // B fragments: ldmatrix.trans of the int8 box read as 16-bit
+          // pairs; matrix mi = (k half mi & 1, 16-byte chunk mi >> 1)
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, wst + swz(kk + 8 * (mi & 1) + rr, chunk0 + (mi >> 1), QBW));
+          // n8 block 2G + e holds columns 16G + 2i + e of this warp's 32
+          widen4(r[0], b[0][0], b[1][0]);
+          widen4(r[1], b[0][1], b[1][1]);
+          widen4(r[2], b[2][0], b[3][0]);
+          widen4(r[3], b[2][1], b[3][1]);
+        } else {
+          // bf16: n8 block nb holds columns 8nb .. 8nb + 7 (chunk nb);
+          // matrix mi = (k half mi & 1, n8 block 2h + (mi >> 1))
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, wst + swz(kk + 8 * (mi & 1) + rr, chunk0 + 2 * h + (mi >> 1), QBW));
+            b[2 * h][0] = r[0];
+            b[2 * h][1] = r[1];
+            b[2 * h + 1][0] = r[2];
+            b[2 * h + 1][1] = r[3];
+          }
+        }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           // A: rows m*16 .. of the activation stage
@@ -1127,6 +1540,28 @@ i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
       if (++s == ST) s = 0, phase ^= 1;
+    }
+
+    if constexpr (i8_b7(EPI)) {
+      // B7: the segment's sums into the block's slot for it (b7_x2 adds
+      // them up); thread (g, t4) holds columns 32w + 8nb + 2*t4, +1 of n8
+      // block nb, rows g and g + 8 of each m-tile
+      float* slot = p.part + (long long)(blk * p.segs + t - t_first) * p.B * QTW;
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = m * 16 + g + 8 * h, col = warp * 32 + nb * 8 + 2 * t4;
+            if (row < p.B)
+              *reinterpret_cast<float2*>(slot + row * QTW + col) =
+                  make_float2(acc[m][nb][2 * h], acc[m][nb][2 * h + 1]);
+          }
+      left -= len;
+      kt0 = 0;
+      ++t;
+      continue;
     }
 
     // ---- the segment's sums (thread (g, t4) holds columns 32w + 16G +
@@ -1320,15 +1755,31 @@ i8_stream(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtens
     kt0 = 0;
     ++t;
   }
+  if constexpr (i8_b7(EPI)) {
+    // B7: every block's segment sums, then x2 and the sums of squares of
+    // every (row, tile), then the norm and the router
+    // (a block with no stages leaves zeros in its first slot, which the
+    // tile it lies inside adds)
+    if (it0 == it1)
+      for (int i = tid; i < p.B * QTW / 4; i += QCW * 32)
+        reinterpret_cast<float4*>(p.part + (long long)blk * p.segs * p.B * QTW)[i] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    grid_arrive(p.count, QCW * 32);
+    b7_x2(p, G, blk, base + G);
+    router_phase<EPI == I8_ROUTER_ANY>(p, reinterpret_cast<bf16*>(smem), ys, rs, rbar, &tr, G,
+                                       blk, base + 2 * G);
+  }
 }
 
 // a 2-D tensor map of a [rows, cols] matrix of `dtype` (row stride ld
 // bytes), boxes of box_cols x box_rows whose rows (box_bytes = 32, 64 or
-// 128) are also the swizzle span; zeros past the matrix's end
+// 128) are also the swizzle span (16: no swizzle); zeros past the matrix's
+// end
 bool map_sw(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int rows, int cols,
             long long ld, int box_cols, int box_rows, int box_bytes) {
   const EncodeTiled enc = encode_tiled();
-  const CUtensorMapSwizzle sw = box_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+  const CUtensorMapSwizzle sw = box_bytes == 16   ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                : box_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                 : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                   : CU_TENSOR_MAP_SWIZZLE_128B;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows}, strides[1] = {(cuuint64_t)ld};
@@ -1339,18 +1790,24 @@ bool map_sw(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, int ro
                     CUDA_SUCCESS;
 }
 
-// the int8 product of x [B, K] and w [K, N] (int8, row stride N) over `grid`
-// persistent blocks with `stages` ring stages; a.out .. as I8Args
+// the product of x [B, K] and w [K, N] (int8, or B7's bf16; row stride N)
+// over `grid` persistent blocks with `stages` ring stages; a.out .. as
+// I8Args; B7 also its router [N, a.NE] (bf16)
 template <int TW, int MT, int EPI>
-int launch_i8_mt(const bf16* x, const int8_t* w, int K, int N, int grid,
-                 I8Args a, cudaStream_t st) {
-  I8_TILE_CONSTANTS(TW)
-  CUtensorMap tx, tw;
+int launch_i8_mt(const bf16* x, const void* w, int K, int N, int grid,
+                 I8Args a, cudaStream_t st, const bf16* router = nullptr) {
+  constexpr int WB = i8_wbytes(EPI);
+  I8_TILE_CONSTANTS(TW, WB)
+  CUtensorMap tx, tw, tr = {};
   if (!map_sw(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, a.B, K, (long long)K * 2, QKT, MT * 16,
               QAB) ||
-      !map_sw(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, N, QBW, QKT, QBW))
+      !map_sw(&tw, WB == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w,
+              K, N, (long long)N * WB, QBW / WB, QKT, QBW))
     return (int)cudaErrorInvalidValue;
-  const int bytes = i8_smem_bytes<TW, MT>(a.stages);
+  if (i8_b7(EPI) && !map_sw(&tr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, router, N, a.NE,
+                                  (long long)a.NE * 2, RBW, RBOX, RBW * 2))
+    return (int)cudaErrorInvalidValue;
+  const int bytes = i8_smem_bytes<TW, MT, EPI>(a.stages, N);
   if (bytes > 232448) return (int)cudaErrorInvalidValue;
   static int attr_bytes = 0;   // the opt-in above 48 KB, raised as needed
   if (bytes > attr_bytes) {
@@ -1361,7 +1818,8 @@ int launch_i8_mt(const bf16* x, const int8_t* w, int K, int N, int grid,
   a.nk = K / QKT;
   a.total = (long long)((EPI == I8_SWIGLU ? N / 2 + QTW / 2 - 1 : N + QTW - 1) /
                         (EPI == I8_SWIGLU ? QTW / 2 : QTW)) * a.nk;
-  if (grid > a.total) grid = (int)a.total;
+  // (B7 keeps the whole grid, whose size its barrier count needs)
+  if (!i8_b7(EPI) && grid > a.total) grid = (int)a.total;
   // a tile's finishing block waits for the other blocks' segments, so every
   // block must be resident at once: a cooperative launch, which the runtime
   // refuses for a grid the card cannot hold at once
@@ -1375,7 +1833,7 @@ int launch_i8_mt(const bf16* x, const int8_t* w, int K, int N, int grid,
   cfg.stream = st;
   cfg.attrs = coop;
   cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, i8_stream<TW, MT, EPI>, tx, tw, a);
+  cudaLaunchKernelEx(&cfg, i8_stream<TW, MT, EPI>, tx, tw, tr, a);
   return (int)cudaGetLastError();
 }
 
@@ -1387,12 +1845,12 @@ int launch_i8_mt(const bf16* x, const int8_t* w, int K, int N, int grid,
 int i8_tile_cols(int N, bool swiglu) { return !swiglu && N <= 51200 ? 128 : 256; }
 
 template <int TW, int EPI>
-int launch_i8_tw(const bf16* x, const int8_t* w, int K, int N, int grid, I8Args a,
-                 cudaStream_t st) {
-  if (K % (8192 / TW)) return (int)cudaErrorInvalidValue;
-  if (a.B <= 16) return launch_i8_mt<TW, 1, EPI>(x, w, K, N, grid, a, st);
-  if (a.B <= 32) return launch_i8_mt<TW, 2, EPI>(x, w, K, N, grid, a, st);
-  return launch_i8_mt<TW, 4, EPI>(x, w, K, N, grid, a, st);
+int launch_i8_tw(const bf16* x, const void* w, int K, int N, int grid, I8Args a,
+                 cudaStream_t st, const bf16* router = nullptr) {
+  if (K % (8192 / (TW * i8_wbytes(EPI)))) return (int)cudaErrorInvalidValue;
+  if (a.B <= 16) return launch_i8_mt<TW, 1, EPI>(x, w, K, N, grid, a, st, router);
+  if (a.B <= 32) return launch_i8_mt<TW, 2, EPI>(x, w, K, N, grid, a, st, router);
+  return launch_i8_mt<TW, 4, EPI>(x, w, K, N, grid, a, st, router);
 }
 
 template <int EPI>
@@ -1643,31 +2101,54 @@ int dstts_fused_out_mlp_split(const void* a, const void* x, const void* wo, cons
                  E, F, s_gu, s_d, 1, 1, eps, st);
 }
 
-// B7. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E]; router_all [L,E,NE];
-// partial f32 (>= max(s_o*E, s_r*NE)*B); outputs x2, hn [B,E] bf16 and
-// logits [B,NE] f32.
-int dstts_fused_out_router(const void* a, const void* x, const void* wo_all,
-                           const void* ln_all, const void* router_all, void* partial,
-                           void* x2, void* hn, void* logits, int layer, int B, int HD,
-                           int E, int NE, int s_o, int s_r, float eps, void* stream) {
+// B7 over up to 64 rows. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E];
+// router_all [L,E,NE] (bf16); x2, hn [B,E] bf16 and logits [B,NE] f32 out.
+// Scratch: partial f32 [grid, segs, B, 128] (each block's segment sums;
+// segs >= the most tiles a block's share meets), sq f32 [E / 128, B];
+// count: the grid barrier's u64 (it only grows). grid: the card's SMs (the
+// same on every call: the count's base needs it); `stages` ring stages;
+// phase 2's items of rpb <= RROWS rows. One cooperative launch of
+// i8_stream<128, MT, I8_ROUTER> (I8_ROUTER_ANY at widths beyond the served ones).
+int dstts_fused_out_router(const void* a, const void* x, const void* wo_all, const void* ln_all,
+                           const void* router_all, void* partial, void* sq, void* count,
+                           void* x2, void* hn, void* logits, int layer, int B, int HD, int E,
+                           int NE, int grid, int stages, int rpb, int segs, float eps,
+                           void* stream) {
+  const long long nk = HD / 32, total = (long long)E / 128 * nk;
+  if (B < 1 || B > MAX_ROWS || E < 128 || E % 128 || HD < 32 || HD % 32 || NE < RBW ||
+      NE % RBW || rpb < 1 || rpb > RROWS || grid < 1 || total * grid >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  // the most tiles a share of s = ceil(total / grid) stages meets
+  const long long s = (total + grid - 1) / grid;
+  if (segs < (s + 2 * nk - 2) / nk) return (int)cudaErrorInvalidValue;
+  const long long l = layer;
+  I8Args p = {};
+  p.res = static_cast<const bf16*>(x);
+  p.out = static_cast<bf16*>(x2);
+  p.part = static_cast<float*>(partial);
+  p.B = B;
+  p.N = E;
+  p.ldo = E;
+  p.stages = stages;
+  p.eps = eps;
+  p.ln = static_cast<const bf16*>(ln_all) + l * E;
+  p.hn = static_cast<bf16*>(hn);
+  p.sq = static_cast<float*>(sq);
+  p.logits = static_cast<float*>(logits);
+  p.count = static_cast<unsigned long long*>(count);
+  p.NE = NE;
+  p.rpb = rpb;
+  p.segs = segs;
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* Wo = static_cast<const bf16*>(wo_all) + l * HD * E;
+  const bf16* Wr = static_cast<const bf16*>(router_all) + l * E * NE;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* Wo = static_cast<const bf16*>(wo_all) + (long long)layer * HD * E;
-  const bf16* ln = static_cast<const bf16*>(ln_all) + (long long)layer * E;
-  const bf16* Wr = static_cast<const bf16*>(router_all) + (long long)layer * E * NE;
-  float* P = static_cast<float*>(partial);
-  bf16* X2 = static_cast<bf16*>(x2);
-  bf16* HN = static_cast<bf16*>(hn);
-
-  // (1) x2 = x + a @ wo
-  launch_gemm(static_cast<const bf16*>(a), Wo, P, B, HD, E, s_o, st);
-  residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
-      P, s_o, B, E, static_cast<const bf16*>(x), X2);
-  // (2) hn = rmsnorm(x2) * ln2, (3) logits = hn @ router in float32
-  norm_rows(X2, ln, B, E, eps, HN, st);
-  launch_gemm(HN, Wr, P, B, E, NE, s_r, st);
-  sum_partials<<<cdiv((long long)B * NE, 256), 256, 0, st>>>(P, s_r, (long long)B * NE,
-                                                             static_cast<float*>(logits));
-  return (int)cudaGetLastError();
+  // the served widths' phase 2 (one item a block, one K chunk, whole
+  // rounds) is compiled apart: in one kernel with the general one, B = 64
+  // took 4-12 % longer (PERF.md)
+  if (E % 1024 == 0 && E <= B7_KC && NE / RBW * ((B + rpb - 1) / rpb) <= grid)
+    return launch_i8_tw<128, I8_ROUTER>(A, Wo, HD, E, grid, p, st, Wr);
+  return launch_i8_tw<128, I8_ROUTER_ANY>(A, Wo, HD, E, grid, p, st, Wr);
 }
 
 // Grouped expert FFN, entry 1: h [S,F] = silu(x @ Wg[e]) * (x @ Wu[e]) over

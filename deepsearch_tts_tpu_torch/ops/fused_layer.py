@@ -10,7 +10,11 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
   h@wd[l].
 * :func:`fused_out_router_stacked` (B7, Qwen3-MoE) — x2 = x + a@wo[l], hn =
   rmsnorm(x2)·ln2[l], float32 router logits hn@router[l]; the expert FFN
-  follows in ``ops/moe.py``.
+  follows in ``ops/moe.py``. One cooperative launch of ``i8_stream`` over
+  bf16 weights: wo streamed as B10's products are, a grid barrier, x2
+  and its sums of squares by (row, tile), a grid barrier, then the norm
+  and the router product by items of (8 expert columns, a few rows)
+  (:func:`b7_router_plan`), each logit summed by one block.
 * :func:`fused_mlp_stacked` (B8, DeepSeek-V3 / Kimi-K2) — ``[x +] (silu(xn
   @ wg[l]) · (xn @ wu[l])) @ wd[l]`` over unpacked gate and up stacks, xn =
   rmsnorm(x)·ln[l] or x: the MLA family's dense-layer MLPs (norm and
@@ -60,6 +64,11 @@ I8_TILE = 256
 I8_STAGE_ROWS = 64
 I8_STAGES = {1: 6, 2: 6, 4: 4}
 _I8_MAX_TILES = 4096   # 128-column tiles the ticket buffer holds (csrc I8_MAX_TILES)
+B7_BAND = 8            # router columns a B7 phase-2 item (csrc RBW)
+B7_ROWS = 16           # most rows a B7 phase-2 item (csrc RROWS)
+B7_KC = 4096           # k rows a B7 phase-2 chunk (csrc B7_KC)
+# the device's tickets: the int8 product's, one a tile, then B7's grid
+# barrier count (one int64)
 _i8_tickets: dict = {}
 
 
@@ -183,7 +192,7 @@ def _lib():
         lib.dstts_fused_out_mlp_i8.restype = i
         lib.dstts_int8_matmul.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.dstts_int8_matmul.restype = i
-        lib.dstts_fused_out_router.argtypes = [p] * 9 + [i] * 7 + [f, p]
+        lib.dstts_fused_out_router.argtypes = [p] * 11 + [i] * 9 + [f, p]
         lib.dstts_fused_out_router.restype = i
         lib.dstts_fused_mlp.argtypes = [p] * 9 + [i] * 8 + [f, p]
         lib.dstts_fused_mlp.restype = i
@@ -259,16 +268,24 @@ def i8_plan(B: int, device) -> tuple[int, int]:
     return _sm_count(device), I8_STAGES[i8_m_tiles(B)]
 
 
-def i8_scratch(device, B: int, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The int8 product's scratch: float32 split-K partial sums, one
-    [B, I8_TILE] slot a block, and the device's ticket counters, one a tile
-    (zero between calls: the block that finishes a tile resets its
-    counter). The tickets are one buffer a device, so they assume that the
-    device's int8 products run on one stream, as the port's do."""
+def _tickets(device) -> torch.Tensor:
+    """The device's ticket counters (int32): one a tile of the int8
+    product (zero between calls: the block that counts on one resets it),
+    then two words of B7's grid barrier count (an int64 that only grows).
+    One buffer a device, so they assume that the device's ``i8_stream``
+    launches run on one stream, as the port's do."""
     t = _i8_tickets.get(device)
     if t is None:
-        t = _i8_tickets[device] = torch.zeros(_I8_MAX_TILES, dtype=torch.int32, device=device)
-    return torch.empty((grid, B, I8_TILE), dtype=torch.float32, device=device), t
+        t = _i8_tickets[device] = torch.zeros(_I8_MAX_TILES + 2, dtype=torch.int32,
+                                              device=device)
+    return t
+
+
+def i8_scratch(device, B: int, grid: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 product's scratch: float32 split-K partial sums, one
+    [B, I8_TILE] slot a block, and the device's tickets (:func:`_tickets`)."""
+    return (torch.empty((grid, B, I8_TILE), dtype=torch.float32, device=device),
+            _tickets(device))
 
 
 def i8_block_of(i: int, total: int, grid: int) -> int:
@@ -277,17 +294,19 @@ def i8_block_of(i: int, total: int, grid: int) -> int:
     return ((i + 1) * grid - 1) // total
 
 
-def i8_partition(tiles: int, nk: int, grid: int) -> list[list[tuple[int, int, int]]]:
+def i8_partition(tiles: int, nk: int, grid: int, *,
+                 whole_grid: bool = False) -> list[list[tuple[int, int, int]]]:
     """Each block's segments ``(tile, first stage, end stage)`` in the order
     ``i8_stream`` walks them: the tiles·nk (column tile, k stage) pairs,
     tile-major, split into ``min(grid, tiles·nk)`` runs whose lengths differ
-    by at most one. A tile met by several blocks is finished by the block
+    by at most one (``grid`` runs, some empty, with ``whole_grid``, as B7
+    launches). A tile met by several blocks is finished by the block
     that holds its first stage (``i8_block_of(t·nk)``), for which the tile
     is the last segment of its run; for every other block that meets it,
     the tile is its first segment, whose sums it leaves in its one partial
     slot."""
     total = tiles * nk
-    grid = min(grid, total)
+    grid = grid if whole_grid else min(grid, total)
     out = []
     for b in range(grid):
         it, end = b * total // grid, (b + 1) * total // grid
@@ -299,6 +318,32 @@ def i8_partition(tiles: int, nk: int, grid: int) -> list[list[tuple[int, int, in
             it += kt1 - kt0
         out.append(segs)
     return out
+
+
+def b7_tiles(E: int, HD: int) -> tuple[int, int]:
+    """(tiles, stages a tile) of B7's wo product [HD, E]: 128-column tiles
+    of bf16 weights, 8 KB ring stages of 32 k rows."""
+    return -(-E // _TILE), HD // _KT
+
+
+def b7_segs(E: int, HD: int, grid: int) -> int:
+    """Slots a block of B7's grid keeps (csrc ``segs``): the most tiles
+    that a share of ceil(tiles·nk / grid) stages meets."""
+    tiles, nk = b7_tiles(E, HD)
+    share = -(-tiles * nk // grid)
+    return (share - 2) // nk + 2
+
+
+def b7_router_plan(B: int, NE: int, grid: int) -> tuple[int, int, int]:
+    """(bands, rows an item, row groups) of B7's phase 2 over B <= 64 rows
+    on ``grid`` blocks: item w takes router columns ``B7_BAND`` * (w %
+    bands) .. and rows ``rows`` * (w // bands) .. over the whole K, so each
+    logit is summed by one block; block b takes items b, b + grid, ...;
+    ``rows`` (at most ``B7_ROWS``, one mma m-tile) is the fewest that
+    keeps bands * groups <= grid, or ``B7_ROWS`` where none does."""
+    bands = -(-NE // B7_BAND)
+    rows = next((r for r in range(1, B7_ROWS + 1) if bands * -(-B // r) <= grid), B7_ROWS)
+    return bands, rows, -(-B // rows)
 
 
 def shapes_ok(hidden: int, heads_dim: int, intermediate: int, head_dim: int) -> bool:
@@ -439,20 +484,29 @@ def fused_out_router_stacked(attn_out, x, wo_all, ln_all, router_all, layer,
     _check("wo_all", wo_all, (L, HD, E))
     _check("ln_all", ln_all, (L, E))
     _check("router_all", router_all, (L, E, NE))
-    s_o, s_r = _splits(B, E, HD), _splits(B, NE, E)
+    from .paged_attention import _sm_count
+
     dev = x.device
-    partial = torch.empty((max(s_o * E, s_r * NE) * B,), dtype=torch.float32, device=dev)
-    x2 = torch.empty((B, E), dtype=x.dtype, device=dev)
-    hn = torch.empty((B, E), dtype=x.dtype, device=dev)
+    grid = _sm_count(dev)
+    Bg = min(B, _MAX_ROWS)
+    n_part = grid * b7_segs(E, HD, grid) * Bg * _TILE
+    scratch = torch.empty((n_part + E // _TILE * Bg,), dtype=torch.float32, device=dev)
+    count = _tickets(dev)[_I8_MAX_TILES:]
+    x2hn = torch.empty((2, B, E), dtype=x.dtype, device=dev)
     logits = torch.empty((B, NE), dtype=torch.float32, device=dev)
-    err = _lib().dstts_fused_out_router(
-        attn_out.data_ptr(), x.data_ptr(), wo_all.data_ptr(), ln_all.data_ptr(),
-        router_all.data_ptr(), partial.data_ptr(), x2.data_ptr(), hn.data_ptr(),
-        logits.data_ptr(), int(layer), B, HD, E, NE, s_o, s_r, float(eps),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(err, "fused_out_router_stacked")
+    lib, stream = _lib(), torch.cuda.current_stream(dev).cuda_stream
+    for r0 in range(0, B, _MAX_ROWS):   # groups of 64 rows, one launch each
+        rows = slice(r0, r0 + _MAX_ROWS)
+        n = min(_MAX_ROWS, B - r0)
+        err = lib.dstts_fused_out_router(
+            attn_out[rows].data_ptr(), x[rows].data_ptr(), wo_all.data_ptr(), ln_all.data_ptr(),
+            router_all.data_ptr(), scratch.data_ptr(), scratch[n_part:].data_ptr(),
+            count.data_ptr(), x2hn[0, rows].data_ptr(), x2hn[1, rows].data_ptr(),
+            logits[rows].data_ptr(), int(layer), n, HD, E, NE, grid, I8_STAGES[i8_m_tiles(n)],
+            b7_router_plan(n, NE, grid)[1], b7_segs(E, HD, grid), float(eps), stream)
+        _raise_if(err, "fused_out_router_stacked")
     fused_out_router_stacked.launches += 1
-    return x2, hn, logits
+    return x2hn[0], x2hn[1], logits
 
 
 fused_out_router_stacked.launches = 0

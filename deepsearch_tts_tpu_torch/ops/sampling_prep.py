@@ -7,14 +7,21 @@ temperature; the scaled logits are written once and the row logsumexp is
 accumulated online (running max + rescaled sum), so the sampler needs no
 second [B, V] pass for it.
 
-Kernel: Triton, one program per row looping over V in ``BLOCK_V`` chunks
-with masks, so any V works (151936 = 1187·128 included, and widths that are
-not a multiple of 128 — the TPU kernel's ``V % 128`` tiling rule is gone).
-What bounds it on the H100: bytes — 4 B logits + 1 B seen read and 4 B
-scaled written per element, 9 B/elem (~88 MB at B=64, V=151936); the design
-reads and writes each element exactly once and keeps the logsumexp state in
-registers. ``triton`` is imported inside the launching function, so this
-module imports where Triton is absent.
+Kernel: Triton, over a (B, S) grid: each row is split into S chunks
+(:func:`prep_splits`, from V, B and the card's SM count) so that B·S
+programs fill the card, each chunk a multiple of ``BLOCK_V`` columns with
+masks at the row's end, so any V works (151936 = 1187·128 included, and
+widths that are not a multiple of 128 — the TPU kernel's ``V % 128`` tiling
+rule is gone). What bounds it on the H100: bytes — 4 B logits + 1 B seen
+read and 4 B scaled written per element, 9 B/elem (21.9 MB at B=16,
+V=151936); one program a row (the first port) kept 16 of 132 SMs busy at
+B = 16. A program streams its chunk once, writes ``scaled`` and its chunk's
+(max, sum of exp(x - max)); the last program of a row to finish (a
+per-row ticket it resets) merges the row's S partials in one fixed order
+into the lse, so the same logits give the same lse on every call. ``seen``
+is read as bytes through a uint8 view of the bool tensor. ``triton`` is
+imported inside the launching function, so this module imports where
+Triton is absent.
 
 For a CPU tensor the wrapper runs :func:`sampling_prep_plain`; for a CUDA
 tensor it launches the kernel or raises. ``sampling_prep.launches`` counts
@@ -25,9 +32,11 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
-BLOCK_V = 4096
+BLOCK_V = 4096         # columns a program loads at once; a chunk is a multiple
+PROGRAMS_PER_SM = 2    # programs the split aims for on each SM
 
 _kernel = None
+_tickets: dict = {}    # device → int32 [rows]: zero between calls
 
 
 def sampling_prep_plain(logits: torch.Tensor, seen: torch.Tensor,
@@ -46,15 +55,27 @@ def sampling_prep_plain(logits: torch.Tensor, seen: torch.Tensor,
     return scaled, torch.logsumexp(scaled, dim=-1, keepdim=True)
 
 
+def prep_splits(B: int, V: int, sms: int) -> tuple[int, int]:
+    """(S, chunk): each of the B rows is cut into S chunks of ``chunk``
+    columns (the last one ragged), so that B·S is about
+    ``PROGRAMS_PER_SM`` programs an SM; a chunk is a multiple of
+    ``BLOCK_V`` and at least one block. From sizes and the SM count only."""
+    want = max(1, -(-PROGRAMS_PER_SM * sms // B))
+    chunk = max(1, -(-V // want))
+    chunk = -(-chunk // BLOCK_V) * BLOCK_V
+    return -(-V // chunk), chunk
+
+
 def _build_kernel():
     import triton
     import triton.language as tl
 
     @triton.jit
     def _prep_kernel(logits_ptr, seen_ptr, pen_ptr, temp_ptr, sup_ptr,
-                     scaled_ptr, lse_ptr, V, eos_id,
-                     HAS_EOS: tl.constexpr, BLOCK: tl.constexpr):
+                     scaled_ptr, lse_ptr, part_ptr, ticket_ptr, V, CHUNK, S, eos_id,
+                     HAS_EOS: tl.constexpr, SP: tl.constexpr, BLOCK: tl.constexpr):
         row = tl.program_id(0)
+        chunk = tl.program_id(1)
         base = row.to(tl.int64) * V
         pen = tl.load(pen_ptr + row)
         temp = tl.load(temp_ptr + row)
@@ -63,8 +84,9 @@ def _build_kernel():
         # value (suppressed EOS is -1e30) and keeps exp() finite
         m = tl.full([BLOCK], -3.0e38, tl.float32)
         s = tl.zeros([BLOCK], tl.float32)
-        for start in range(0, V, BLOCK):
-            cols = start + tl.arange(0, BLOCK)
+        c0 = chunk * CHUNK
+        for off in range(0, CHUNK, BLOCK):
+            cols = c0 + off + tl.arange(0, BLOCK)
             mask = cols < V
             x = tl.load(logits_ptr + base + cols, mask=mask, other=0.0)
             seen = tl.load(seen_ptr + base + cols, mask=mask, other=0)
@@ -78,7 +100,25 @@ def _build_kernel():
             m = m_new
         mx = tl.max(m, axis=0)
         tot = tl.sum(s * tl.exp(m - mx), axis=0)
-        tl.store(lse_ptr + row, mx + tl.log(tl.maximum(tot, 1e-30)))
+        # the chunk's (max, sum) into its slot of the row's S partials
+        slot = part_ptr + (row * S + chunk) * 2
+        tl.store(slot, mx)
+        tl.store(slot + 1, tot)
+        # release the slot (every thread's stores, then one ticket
+        # increment); the row's last program acquires the others'
+        tl.debug_barrier()
+        done = tl.atomic_add(ticket_ptr + row, 1, sem="acq_rel", scope="gpu")
+        if done == S - 1:
+            tl.debug_barrier()
+            tl.store(ticket_ptr + row, 0)   # ready for the next call
+            j = tl.arange(0, SP)
+            pm = tl.load(part_ptr + (row * S + j) * 2, mask=j < S, other=-3.0e38,
+                         cache_modifier=".cg")
+            ps = tl.load(part_ptr + (row * S + j) * 2 + 1, mask=j < S, other=0.0,
+                         cache_modifier=".cg")
+            big = tl.max(pm, axis=0)
+            tl.store(lse_ptr + row,
+                     big + tl.log(tl.maximum(tl.sum(ps * tl.exp(pm - big), axis=0), 1e-30)))
 
     return _prep_kernel
 
@@ -108,15 +148,26 @@ def sampling_prep(logits: torch.Tensor, seen: torch.Tensor,
             raise ValueError(f"sampling_prep: {name} must be a contiguous {dt} "
                              f"tensor of shape {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+    from .paged_attention import _sm_count
+
+    import triton
+
+    dev = logits.device
     if _kernel is None:
         _kernel = _build_kernel()
+    S, chunk = prep_splits(B, V, _sm_count(dev))
+    SP = triton.next_power_of_2(S)
+    tickets = _tickets.get(dev)
+    if tickets is None or tickets.numel() < B:
+        tickets = _tickets[dev] = torch.zeros((max(B, 256),), dtype=torch.int32, device=dev)
     scaled = torch.empty_like(logits)
-    lse = torch.empty((B, 1), dtype=torch.float32, device=logits.device)
-    with torch.cuda.device(logits.device):
-        _kernel[(B,)](logits, seen.view(torch.uint8), penalty, temperature,
-                      suppress_eos.view(torch.uint8), scaled, lse, V,
-                      int(eos_id), HAS_EOS=eos_id >= 0, BLOCK=BLOCK_V,
-                      num_warps=8)
+    lse = torch.empty((B, 1), dtype=torch.float32, device=dev)
+    part = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _kernel[(B, S)](logits, seen.view(torch.uint8), penalty, temperature,
+                        suppress_eos.view(torch.uint8), scaled, lse, part, tickets,
+                        V, chunk, S, int(eos_id), HAS_EOS=eos_id >= 0, SP=SP,
+                        BLOCK=BLOCK_V, num_warps=8)
     sampling_prep.launches += 1
     return scaled, lse
 
