@@ -186,7 +186,7 @@ SEQS = [1, 17, 500, 4095, 64, 65, 4096, 2048, 129, 1000, 3000, 256, 7, 4000, 333
 # kv heads (G = 8), experts, top-k, expert width
 MOE_MODEL = "qwen3-30b-a3b"
 M_E, M_H, M_KV, M_NE, M_TOPK, M_F = 2048, 32, 4, 128, 8, 768
-LIBS = ("fused_layer", "attention")
+LIBS = ("fused_layer", "attention", "quant")
 LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
 # qwen3-32b widths (models/qwen3.py QWEN3_CONFIGS): the int8 slice's model
 I8_MODEL = "qwen3-32b"
@@ -205,6 +205,9 @@ STOCH_MEAN_BOUND = 1e-3
 SPEC_KW = dict(speculative="ngram", spec_k=3)
 WIN = SPEC_KW["spec_k"] + 1
 GREEDY = dict(temperature=0.0, repetition_penalty=1.0)
+# the five matrix shapes a qwen3-32b int8 build quantizes (B12)
+B12_SHAPES = {"wqkv": (Q_E, (Q_H + 2 * Q_KV) * 128), "wo": (Q_H * 128, Q_E),
+              "w_gateup": (Q_E, 2 * Q_F), "w_down": (Q_F, Q_E), "lm_head": (Q_E, V)}
 # deepseek-v3 widths (models/deepseek_v3.py DEEPSEEK_V3_CONFIGS), the MLA
 # slice's model: served at its published widths with 5 of its 61 layers,
 # under a name this script registers (3 dense + 2 MoE layers)
@@ -407,6 +410,34 @@ def phase_kernels(gen) -> dict:
             if B == SLOTS:
                 res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, **bd)
 
+    # B3 with bf16 cos / sin (read as stored: widening is exact) at B = 1,
+    # 16 and 64, and a plain output whose input norm left out one K chunk
+    # (1024 columns of the sum of squares) failing B3's bound; inputs from
+    # a generator of their own, so later phases see their old ones
+    aux = torch.Generator(device=dev).manual_seed(3)
+    for B in (1, SLOTS, 64):
+        x = (torch.randn((B, E), generator=aux, device=dev)).to(bf)
+        pos = torch.randint(0, 4000, (B,), generator=aux, device=dev)
+        cos, sin = (c.to(bf) for c in rope_angles(pos, D, 1_000_000.0))
+        kw = dict(n_heads=H, n_kv=KV, head_dim=D, eps=1e-6)
+        args3 = (x, ln1, wqkv, qn, kn, cos, sin)
+        e3 = 0.0
+        for layer in range(L):
+            got = fl.fused_qkv_stacked(*args3, layer, **kw)
+            ref = fl.fused_qkv_stacked_plain(*args3, layer, **kw)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g.float(), r.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+                e3 = max(e3, _err(g, r))
+        res["fused_qkv_stacked"]["err"] = max(res["fused_qkv_stacked"]["err"], e3)
+        fault = _qkv_norm_fault(x, ln1[0], wqkv[0], qn[0], kn[0], cos, sin, drop=1, **kw)
+        ref0 = torch.cat(fl.fused_qkv_stacked_plain(*args3, 0, **kw), 1)
+        use = _bound_use(torch.cat(fault, 1)[:, None], ref0[:, None], BF16_RTOL, BF16_ATOL,
+                         math.inf)
+        assert use > 1.0, ("B3: a norm without one K chunk passed the bound", B, use)
+        log(f"[kernel] B3 fused_qkv_stacked B={B:3d} bf16 cos/sin: max_abs_err={e3:.3e}; plain "
+            f"output with K chunk 1 of the input norm left out: {use:.1f} times the bound")
+
     # B5 over the three vocab widths at B = 1, 16, 64 (a verify step's
     # rows) and 65 (a ragged split), timed at each B; the same inputs twice
     # give the same bits (the lse merged in one fixed order), and an lse
@@ -505,6 +536,11 @@ def phase_one_layer_kernels(gen) -> tuple[dict, dict]:
               lambda: fl.fused_qkv(x, ln, wqkv, qn, kn, cos, sin, **kw),
               lambda: fl.fused_qkv_plain(x, ln, wqkv, qn, kn, cos, sin, **kw),
               2 * (E * C + B * E + E + 2 * D + B * C + B * D), 2 * B * E * C)
+        # float32 cos / sin too (not timed: the row keeps bf16's time)
+        _check_kernel(res, "fused_qkv", f"B={B} cos/sin float32",
+                      lambda: fl.fused_qkv(x, ln, wqkv, qn, kn, cos.float(), sin.float(), **kw),
+                      lambda: fl.fused_qkv_plain(x, ln, wqkv, qn, kn, cos.float(), sin.float(),
+                                                 **kw), rtol=BF16_RTOL, atol=BF16_ATOL)
         nb_out = 2 * (w_out + B * H * D + 2 * B * E + E)
         # packed first: the unpacked call's time is the one the row keeps
         check("fused_out_mlp", "packed gate|up",
@@ -514,6 +550,22 @@ def phase_one_layer_kernels(gen) -> tuple[dict, dict]:
         check("fused_out_mlp", "unpacked gate, up",
               lambda: fl.fused_out_mlp(a, x, wo, ln, wg, wu, wd),
               lambda: fl.fused_out_mlp_plain(a, x, wo, ln, wg, wu, wd), nb_out, 2 * B * w_out)
+
+    # fused_qkv at a verify step's 64 rows, cos / sin in both dtypes (inputs
+    # from a generator of their own), timed for the record
+    aux = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn((64, E), generator=aux, device=dev)).to(torch.bfloat16)
+    pos = torch.randint(0, 4000, (64,), generator=aux, device=dev)
+    for cdt in (torch.bfloat16, torch.float32):
+        cos, sin = (c.to(cdt) for c in rope_angles(pos, D, 1_000_000.0))
+        sub: dict = {}
+        _check_kernel(sub, "fused_qkv", f"B=64 cos/sin {str(cdt).split('.')[-1]}",
+                      lambda: fl.fused_qkv(x, ln, wqkv, qn, kn, cos, sin, **kw),
+                      lambda: fl.fused_qkv_plain(x, ln, wqkv, qn, kn, cos, sin, **kw),
+                      rtol=BF16_RTOL, atol=BF16_ATOL, timed=True,
+                      nbytes=2 * (E * C + 64 * E + E + 2 * D + 64 * C + 64 * D)
+                      + (2 if cdt == torch.bfloat16 else 4) * 64 * D, flop=2 * 64 * E * C)
+        res["fused_qkv"]["err"] = max(res["fused_qkv"]["err"], sub["fused_qkv"]["err"])
 
     # B11's path: its three entry points on one 16-row decode layer
     fns = (fl.fused_qkv, fl.fused_out_mlp, fl.fused_mlp)
@@ -545,6 +597,26 @@ def _x2_ulp(a, x, wo_q, wo_s):
 
     x2 = (x.float() + (a.float() @ wo_q.float()) * wo_s.float()).abs()
     return torch.exp2(torch.floor(torch.log2(x2.clamp(min=1e-30))) - 7)
+
+
+def _qkv_norm_fault(x, ln, w, qn, kn, cos, sin, *, drop: int, n_heads, n_kv, head_dim, eps):
+    """B3's plain output with an input norm whose sum of squares leaves out
+    K chunk ``drop`` (columns 1024·drop .. +1024, the chunks of 128 of the
+    norm's threads): what a kernel that lost that chunk of the norm would
+    give. The q / k heads are normalised again per head, so the fault shows
+    on the v heads."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import matmul_f32
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    xf = x.float()
+    keep = torch.ones(x.shape[1], dtype=torch.bool, device=x.device)
+    keep[1024 * drop:1024 * (drop + 1)] = False
+    inv = torch.rsqrt(xf[:, keep].square().sum(-1, keepdim=True) / x.shape[1] + eps)
+    xn = ((xf * inv) * ln.float()).to(x.dtype)
+    return fl._qkv_epilogue(matmul_f32(xn, w), x, qn, kn, cos, sin, n_heads=n_heads,
+                            n_kv=n_kv, head_dim=head_dim, eps=eps)
 
 
 def _bound_use(got, ref, rtol: float, atol: float, rms_frac: float) -> float:
@@ -1106,7 +1178,9 @@ def phase_int8_kernels(gen) -> dict:
     every layer of a four-layer stack; the product at qwen3-32b's lm_head
     shape (a half-filled last 256-column tile), at each qwen3-32b layer shape
     and at qwen3-8b's down projection and a ragged [5120, 51328] at 1, 16,
-    32, 48 and 64 rows; B12 on one qwen3-32b gate|up matrix, [5120, 51200]); a plain
+    32, 48 and 64 rows; B12 at the five qwen3-32b shapes, stochastic at
+    [5120, 51200], and on its element-load, fp16, float32 and unaligned-q
+    paths); a plain
     output with one ring stage of K or one column tile left out must fail
     each B10 check at B = 1 and 16. Returns per-kernel results, timed at
     qwen3-32b widths and the decode batch, ``int8_product`` beside
@@ -1285,21 +1359,56 @@ def phase_int8_kernels(gen) -> dict:
                     f"{'none' if tl is None else f'{tl:.4f} ms'}")
         del wq8, ws8
 
-    # B12 on one qwen3-32b gate|up matrix: round to nearest bit-equal
-    K12, N12 = Q_E, 2 * Q_F
-    w = rnd(K12, N12, scale=K12 ** -0.5)
-    check("quantize_int8", f"round to nearest [{K12}, {N12}] bf16",
-          lambda: quant.quantize_int8(w), lambda: quant.quantize_int8_plain(w),
-          timed=True, exact=True, nbytes=3 * K12 * N12 + 4 * N12, flop=6 * K12 * N12,
-          rate=F32_FLOP_S)
+    # B12 at the five qwen3-32b shapes a build quantizes: round to nearest
+    # bit-equal, timed, each with its bound (the row keeps w_gateup's); a
+    # plain version whose amax left out one cluster block's rows (its
+    # partial amax dropped in the merge) must differ from the kernel's
+    # scales. The matrices draw from a generator of their own, except
+    # w_gateup, which draws from gen as before
+    aux = torch.Generator(device=dev).manual_seed(5)
+    res["b12_shapes"] = {}
+    for wname, (K12, N12) in B12_SHAPES.items():
+        w = (torch.randn((K12, N12), generator=gen if wname == "w_gateup" else aux, device=dev)
+             * K12 ** -0.5).to(bf)
+        sub: dict = {}
+        _check_kernel(sub, "quantize_int8", f"{wname} [{K12}, {N12}] bf16, round to nearest",
+                      lambda: quant.quantize_int8(w), lambda: quant.quantize_int8_plain(w),
+                      rtol=BF16_RTOL, atol=BF16_ATOL, timed=True, exact=True,
+                      nbytes=3 * K12 * N12 + 4 * N12,
+                      flop=6 * K12 * N12, rate=F32_FLOP_S)
+        plan = quant.quant_plan(K12, N12)
+        q_k, s_k = quant.quantize_int8(w)
+        xa = w.float().abs()
+        r0, r1 = plan.rows, min(K12, 2 * plan.rows)   # cluster block 1's rows
+        amax = torch.maximum(xa[:r0].amax(0, keepdim=True), xa[r1:].amax(0, keepdim=True)
+                             if r1 < K12 else torch.zeros_like(xa[:1]))
+        s_f = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+        q_f, _ = quant.quantize_int8_plain(w, scale=s_f)
+        torch.cuda.synchronize()
+        bad_s, bad_q = int((s_f != s_k).sum()), int((q_f != q_k).sum())
+        assert plan.cs == 1 or (bad_s > 0 and bad_q > 0), (wname, "a dropped amax passed", plan)
+        sub["quantize_int8"].update(plan=plan._asdict())
+        res["b12_shapes"][wname] = sub["quantize_int8"]
+        log(f"[kernel] quantize_int8 {wname}: plan {plan._asdict()}; block 1's amax "
+            f"dropped: {bad_s} of {N12} scales and {bad_q} of q differ")
+        if wname == "w_gateup":
+            res["quantize_int8"] = dict(sub["quantize_int8"])
+            w_gu = w
+        del w, xa, q_k, s_k, q_f, s_f, amax
+    w, (K12, N12) = w_gu, B12_SHAPES["w_gateup"]
+    del w_gu
+    res["quantize_int8"]["err"] = max(v["err"] for v in res["b12_shapes"].values())
     # stochastic rounding: the round-to-nearest scales, q in {floor(x/s),
-    # floor(x/s) + 1} (clipped), unbiased, and one stream per seed
+    # floor(x/s) + 1} (clipped), unbiased, one stream per seed, and the
+    # plain version's Philox stream to the bit
     q_rn, s_rn = quant.quantize_int8(w)
     q1, s1 = quant.quantize_int8(w, seed=1, stochastic=True)
     q1b, _ = quant.quantize_int8(w, seed=1, stochastic=True)
     q2, _ = quant.quantize_int8(w, seed=2, stochastic=True)
     torch.cuda.synchronize()
     assert torch.equal(s1, s_rn), "stochastic scales differ from round-to-nearest's"
+    assert torch.equal(q1, quant.quantize_int8_plain(w, seed=1, stochastic=True)[0]), (
+        "stochastic q differs from the plain Philox model's")
     y = w.float() / s1
     lo = torch.floor(y).clamp(-127, 127)
     d = q1.float() - lo
@@ -1312,11 +1421,34 @@ def phase_int8_kernels(gen) -> dict:
     changed = float((q1 != q2).float().mean())
     assert changed > 0.1, f"another seed changed only {changed:.4f} of q"
     log(f"[kernel] quantize_int8 stochastic [{K12}, {N12}]: scales equal round to "
-        f"nearest's; q in {{floor, floor + 1}}; mean(q - x/s) {mean_err:.2e}, "
+        f"nearest's; q equal to the plain Philox model's and in {{floor, floor + 1}}; "
+        f"mean(q - x/s) {mean_err:.2e}, "
         f"mean(q - floor) - mean(frac) {mean_up:.2e} (bound {STOCH_MEAN_BOUND}); "
         f"seed 1 twice equal; seed 2 differs on {changed:.3f} of q; "
         f"{float((q1 != q_rn).float().mean()):.3f} of q differ from round to nearest")
     del w, y, lo, d, q_rn, q1, q1b, q2
+    # B12's other paths, bit for bit: rows whose stride is no multiple of 16
+    # bytes (the threads' element loads instead of TMA; a cluster of 4 at
+    # [3000, 1030], stochastic too), fp16 and float32 weights, and a q that
+    # is not 8-byte aligned (byte stores instead of 8-byte ones)
+    edge: dict = {}
+    for K12, N12, dt, stoch, offset in ((7, 130, bf, False, 0), (3000, 1030, bf, False, 0),
+                                        (3000, 1030, bf, True, 0),
+                                        (4096, 6144, torch.float16, False, 0),
+                                        (2048, 5120, torch.float32, False, 0),
+                                        (1000, 77, torch.float32, False, 0),
+                                        (5120, 1024, bf, False, 1)):
+        w = (torch.randn((K12, N12), generator=aux, device=dev) * K12 ** -0.5).to(dt)
+        buf = torch.empty(K12 * N12 + offset, dtype=torch.int8, device=dev)
+        out = (buf[offset:].view(K12, N12), torch.empty((1, N12), device=dev))
+        _check_kernel(edge, "quantize_int8", f"[{K12}, {N12}] {str(dt).split('.')[-1]}"
+                      f"{', stochastic' if stoch else ''}{', q offset 1 B' if offset else ''}",
+                      lambda: quant.quantize_int8(w, seed=3, stochastic=stoch, out=out),
+                      lambda: quant.quantize_int8_plain(w, seed=3, stochastic=stoch),
+                      rtol=BF16_RTOL, atol=BF16_ATOL, exact=True)
+    res["quantize_int8"]["err"] = max(res["quantize_int8"]["err"], edge["quantize_int8"]["err"])
+    del w, buf, out
+    _free()   # the B12 checks' ~20 GB of temporaries go back before the MLA phase
     return res
 
 
@@ -2443,13 +2575,14 @@ def main(argv=None) -> int:
     g8 = moe_res.pop("g8")
     res.update(moe_res)
     res.update(phase_int8_kernels(gen))
+    b12_shapes = res.pop("b12_shapes")
     mla_res, mla_kernels = phase_mla_kernels(gen)
     res.update(mla_res)
     _free()
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
                           "k1_b1": k1_b1, "k1_b64": k1_b64, "b11_launches": b11_launches,
-                          "card": card}))
+                          "b12_shapes": b12_shapes, "card": card}))
         return 0
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
@@ -2550,7 +2683,7 @@ def main(argv=None) -> int:
         "fused_out_mlp_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:669", i8_serve),
         "int8_product": ("cuda", fused, jsrc + "quant.py:68 int8_matmul (XLA dot_general)",
                          i8_serve),
-        "quantize_int8": ("triton", src + "quant.py", jsrc + "quant.py:24", i8_serve),
+        "quantize_int8": ("cuda", src + "csrc/quant.cu", jsrc + "quant.py:24", i8_serve),
         "fused_mlp_stacked": ("cuda", fused, jsrc + "fused_layer.py:468", mla_serve),
         "fused_mlp": ("cuda", fused, jsrc + "fused_layer.py:112", b11_path),
         "fused_qkv": ("cuda", fused, jsrc + "fused_layer.py:150", b11_path),
@@ -2579,7 +2712,7 @@ def main(argv=None) -> int:
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
-                      "card": card}))
+                      "b12_shapes": b12_shapes, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -272,12 +272,16 @@ class Engine:
         fam = get_model(model_name)
         self.cfg = cfg = fam.config
         self.forward = fam.forward
-        if quantize and not cfg.int8_weights:
+        # beyond JAX's fields the engine reads int8_weights, int8_kv, dtype
+        # and fused_decode_fits; a registry-extension config may lack them
+        # and gets no int8 and no layer fusion. The pools take torch_dtype,
+        # as JAX's take jnp_dtype
+        if quantize and not getattr(cfg, "int8_weights", False):
             from .weights import INT8_EXPERTS_NOT_PORTED
 
             raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
         if kv_quantize:
-            if not cfg.int8_kv:
+            if not getattr(cfg, "int8_kv", False):
                 # the JAX engine refuses it too (its MoE forward takes no scales)
                 raise ValueError(f"model family {model_name!r} does not support int8 KV")
             if cache_mode == "slot":
@@ -300,13 +304,15 @@ class Engine:
             # MoE: the plain versions on the CPU, the CUDA kernels where
             # their shapes fit; int8 weights, dense only, take B10; MLA:
             # where B8 takes its MLP widths, on any device, as JAX gates it)
-            layer_fusion = cfg.dtype == "bfloat16" and cfg.fused_decode_fits(self.device)
+            layer_fusion = (getattr(cfg, "dtype", None) == "bfloat16"
+                            and hasattr(cfg, "fused_decode_fits")
+                            and cfg.fused_decode_fits(self.device))
         self.layer_fusion = bool(layer_fusion)
 
-        from .weights import pack_matmul_params, random_params
+        from .weights import init_params, pack_matmul_params
 
         if params is None:
-            params = random_params(cfg, device=self.device, seed=seed, quantize=quantize)
+            params = init_params(fam, device=self.device, seed=seed, quantize=quantize)
         # single-device serving always packs QKV and gate|up (numerically the
         # identity; the fused decode functions read this layout)
         self.params = pack_matmul_params(params)

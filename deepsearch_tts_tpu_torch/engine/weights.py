@@ -457,4 +457,20 @@ def load_or_init_params(model_name: str, weights_path: str = "", seed: int = 0,
     if weights_path:
         raw = _load_safetensors_dir(weights_path)
         return fam.convert(raw, fam.config, device=device, quantize=quantize), fam.name
-    return random_params(fam.config, device=device, seed=seed, quantize=quantize), fam.name
+    return init_params(fam, device=device, seed=seed, quantize=quantize), fam.name
+
+
+def init_params(fam, device="cpu", seed: int = 0, quantize: str | None = None) -> dict:
+    """A registered family's params without a checkpoint: its own
+    ``init_params`` where the config sets ``custom_init`` (registry-extension
+    families, whose configs need not carry Qwen3's fields; JAX
+    ``weights.py:429-432``), else :func:`random_params`."""
+    cfg = fam.config
+    if not getattr(cfg, "custom_init", False):
+        return random_params(cfg, device=device, seed=seed, quantize=quantize)
+    if fam.init_params is None:
+        raise ValueError(f"model family {fam.name!r} sets custom_init but was registered "
+                         f"without init_params")
+    if quantize is not None and not getattr(cfg, "int8_weights", False):
+        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+    return fam.init_params(cfg, seed=seed, device=torch.device(device))

@@ -1,11 +1,14 @@
-"""Model registry: name → (config, forward, checkpoint converter) (port of
-``models/registry.py``).
+"""Model registry: name → (config, forward, checkpoint converter, init)
+(port of ``models/registry.py``).
 
 Every family of the JAX registry is carried: dense Qwen3, Qwen3-MoE and
 DeepSeek-V3 / Kimi-K2 (MLA). What else differs between the families (the
 weights a random init draws, whether the fused decode kernels take the
 widths) is asked of the config (``mlp_shapes``, ``fused_decode_fits``,
-``latent_cache``).
+``latent_cache``). A registry-extension family (a scripted test model, a
+plugin) whose config sets ``custom_init`` brings its own init,
+``init_params(cfg, seed=, device=)``, as in JAX
+(``engine/weights.py`` ``load_or_init_params``).
 """
 from __future__ import annotations
 
@@ -19,13 +22,15 @@ class ModelFamily:
     config: Any
     forward: Callable
     convert: Callable | None = None   # HF checkpoint → param tree (engine/weights.py)
+    init_params: Callable | None = None   # (cfg, seed=, device=) → params; read with custom_init
 
 
 MODEL_REGISTRY: dict[str, ModelFamily] = {}
 
 
-def register(name: str, config, forward, convert=None) -> None:
-    MODEL_REGISTRY[name.lower()] = ModelFamily(name.lower(), config, forward, convert)
+def register(name: str, config, forward, convert=None, init_params=None) -> None:
+    MODEL_REGISTRY[name.lower()] = ModelFamily(name.lower(), config, forward, convert,
+                                               init_params)
 
 
 def get_model(name: str) -> ModelFamily:

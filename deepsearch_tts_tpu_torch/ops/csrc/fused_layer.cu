@@ -144,6 +144,17 @@
 //   I8_ROUTER_ANY): with both in one kernel, B = 64 took 4-12 % longer.
 //   Above 64 rows the wrapper runs groups of 64.
 //
+// * B3 (and B11's fused_qkv) stays the three launches above; its epilogue
+//   reads cos / sin as float32 or bf16 (widening is exact), so B11's bf16
+//   tables need no cast launches. Three one- and two-launch designs were
+//   built and measured slower than the chain at B = 16 and 64 (PERF.md, PR
+//   11): one launch of i8_stream over bf16 weights (the input norm split
+//   over the grid behind a grid barrier, the A fragments normalised in
+//   registers; its stream alone, with the norm, the conversion and the
+//   epilogue left out, only matched the chain), the same ring loaded by
+//   the consumers with cp.async, and gemm_partial whose last block of
+//   each tile ran the epilogue.
+//
 // Interface: plain C, raw pointers, launched on the caller's stream; no
 // allocation (the wrapper passes outputs and scratch); each entry returns the
 // cudaGetLastError() code of its launches.
@@ -407,14 +418,21 @@ void launch_gemm(const bf16* X, const bf16* W, float* P, int B, int K, int N,
   else launch_gemm_mt<4>(X, W, P, B, K, N, splits, st);
 }
 
+// a cos / sin value: element i of a float32 or (is_bf16) bf16 table
+__device__ __forceinline__ float ld_cs(const void* t, int i, int is_bf16) {
+  return is_bf16 ? __bfloat162float(static_cast<const bf16*>(t)[i])
+                 : static_cast<const float*>(t)[i];
+}
+
 // B3 epilogue: one block per (row, head) of HEAD threads. q heads (< H) and
 // k heads (< H+KV) get RMSNorm with q_norm / k_norm then rotate-half RoPE;
 // v heads pass through. Sections are told apart by head index, as the TPU
-// kernel does by column (fused_layer.py:265-279).
+// kernel does by column (fused_layer.py:265-279). cos / sin [B, 64] are
+// float32, or bf16 where cs_bf16.
 __global__ void __launch_bounds__(HEAD)
 qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
              const bf16* __restrict__ qn, const bf16* __restrict__ kn,
-             const float* __restrict__ cosv, const float* __restrict__ sinv,
+             const void* __restrict__ cosv, const void* __restrict__ sinv, int cs_bf16,
              bf16* __restrict__ out, int H, int KV, float eps) {
   __shared__ float part[HEAD / 32];
   __shared__ float nrm[HEAD];
@@ -438,10 +456,12 @@ qkv_epilogue(const float* __restrict__ P, int S, int B, int C,
   __syncthreads();
   constexpr int HALF = HEAD / 2;
   float o;
+  const int jc = b * HALF + (j < HALF ? j : j - HALF);
+  const float c = ld_cs(cosv, jc, cs_bf16), sn = ld_cs(sinv, jc, cs_bf16);
   if (j < HALF) {
-    o = n * cosv[b * HALF + j] - nrm[j + HALF] * sinv[b * HALF + j];
+    o = n * c - nrm[j + HALF] * sn;
   } else {
-    o = n * cosv[b * HALF + j - HALF] + nrm[j - HALF] * sinv[b * HALF + j - HALF];
+    o = n * c + nrm[j - HALF] * sn;
   }
   out[(long long)b * C + col] = __float2bfloat16(o);
 }
@@ -1868,13 +1888,13 @@ int launch_i8(const bf16* x, const int8_t* w, int K, int N, int grid, I8Args a,
 
 // B3: xn = rmsnorm(x)·ln -> xn @ W -> qkv_epilogue
 int run_qkv(const bf16* X, const bf16* ln, const bf16* W, const bf16* qn, const bf16* kn,
-            const float* cosv, const float* sinv, float* P, bf16* XN, bf16* out, int B, int E,
-            int H, int KV, int splits, float eps, cudaStream_t st) {
+            const void* cosv, const void* sinv, int cs_bf16, float* P, bf16* XN, bf16* out,
+            int B, int E, int H, int KV, int splits, float eps, cudaStream_t st) {
   const int C = (H + 2 * KV) * HEAD;
   norm_rows(X, ln, B, E, eps, XN, st);
   launch_gemm(XN, W, P, B, E, C, splits, st);
-  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(P, splits, B, C, qn, kn, cosv, sinv, out,
-                                                     H, KV, eps);
+  qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(P, splits, B, C, qn, kn, cosv, sinv,
+                                                     cs_bf16, out, H, KV, eps);
   return (int)cudaGetLastError();
 }
 
@@ -1923,12 +1943,12 @@ int run_mlp(const bf16* X, const bf16* ln, const bf16* Wg, const bf16* Wu, const
 extern "C" {
 
 // B3. x [B,E]; ln_all [L,E]; wqkv_all [L,E,C]; qn_all/kn_all [L,128];
-// cos/sin [B,64] f32; partial [splits,B,C] f32; xn [B,E] bf16 scratch;
-// out [B,C].
+// cos/sin [B,64] f32, or bf16 where cs_bf16; partial [splits,B,C] f32; xn
+// [B,E] bf16 scratch; out [B,C].
 int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
                     const void* qn_all, const void* kn_all, const void* cosv,
                     const void* sinv, void* partial, void* xn, void* out,
-                    int layer, int B, int E, int H, int KV, int splits,
+                    int layer, int B, int E, int H, int KV, int splits, int cs_bf16,
                     float eps, void* stream) {
   const long long C = (H + 2 * KV) * HEAD;
   return run_qkv(
@@ -1936,9 +1956,8 @@ int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
       static_cast<const bf16*>(wqkv_all) + layer * E * C,
       static_cast<const bf16*>(qn_all) + (long long)layer * HEAD,
       static_cast<const bf16*>(kn_all) + (long long)layer * HEAD,
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv),
-      static_cast<float*>(partial), static_cast<bf16*>(xn), static_cast<bf16*>(out), B, E,
-      H, KV, splits, eps, static_cast<cudaStream_t>(stream));
+      cosv, sinv, cs_bf16, static_cast<float*>(partial), static_cast<bf16*>(xn),
+      static_cast<bf16*>(out), B, E, H, KV, splits, eps, static_cast<cudaStream_t>(stream));
 }
 
 // B10-qkv: B3 over int8 wq_all [L,E,C] with ws_all [L,1,C] f32 column

@@ -5,6 +5,8 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
 
 * :func:`fused_qkv_stacked` (B3, both families) — rmsnorm(x)·ln1[l] →
   x@wqkv[l] → per-head q/k RMSNorm → rotate-half RoPE (v passes through).
+  Three launches (the input norm, the split-K product, the epilogue); cos
+  / sin in float32 or bf16, read as stored.
 * :func:`fused_out_mlp_stacked` (B4, dense) — x2 = x + a@wo[l] →
   rmsnorm(x2)·ln2[l] → SwiGLU over the packed gate|up stack → out = x2 +
   h@wd[l].
@@ -182,7 +184,7 @@ def _lib():
     lib = load_library("fused_layer")
     if not getattr(lib, "_dstts_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dstts_fused_qkv.argtypes = [p] * 10 + [i] * 6 + [f, p]
+        lib.dstts_fused_qkv.argtypes = [p] * 10 + [i] * 7 + [f, p]
         lib.dstts_fused_qkv.restype = i
         lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 8 + [f, p]
         lib.dstts_fused_out_mlp.restype = i
@@ -363,7 +365,7 @@ def fused_qkv_stacked(x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer,
                       *, n_heads: int, n_kv: int, head_dim: int, eps: float = 1e-6):
     """B3: ``(q [B,H·D], k [B,K·D], v [B,K·D])`` for layer ``layer`` of the
     stacks. x [B,E]; ln_all [L,E]; wqkv_all [L,E,(H+2K)·D]; qn_all/kn_all
-    [L,D]; cos/sin [B,D/2] float32."""
+    [L,D]; cos/sin [B,D/2] float32 or bf16."""
     if x.device.type == "cpu":
         return fused_qkv_stacked_plain(x, ln_all, wqkv_all, qn_all, kn_all, cos,
                                        sin, layer, n_heads=n_heads, n_kv=n_kv,
@@ -379,7 +381,8 @@ fused_qkv_stacked.launches = 0
 
 def _launch_qkv(name, x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer, *,
                 n_heads: int, n_kv: int, head_dim: int, eps: float):
-    """B3's kernel on CUDA tensors (checks, scratch, launch)."""
+    """B3's kernels on CUDA tensors (checks, scratch, launch). cos / sin
+    may be float32 or bf16 (the epilogue widens them), both of one dtype."""
     B, E = x.shape
     L = wqkv_all.shape[0]
     D, H, K = head_dim, n_heads, n_kv
@@ -393,8 +396,9 @@ def _launch_qkv(name, x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer, *,
     _check("wqkv_all", wqkv_all, (L, E, C))
     _check("qn_all", qn_all, (L, D))
     _check("kn_all", kn_all, (L, D))
-    _check("cos", cos, (B, D // 2), torch.float32)
-    _check("sin", sin, (B, D // 2), torch.float32)
+    cs_dtype = cos.dtype if cos.dtype in (torch.float32, torch.bfloat16) else torch.float32
+    _check("cos", cos, (B, D // 2), cs_dtype)
+    _check("sin", sin, (B, D // 2), cs_dtype)
     s = _splits(B, C, E)
     partial = torch.empty((s, B, C), dtype=torch.float32, device=x.device)
     xn = torch.empty((B, E), dtype=x.dtype, device=x.device)
@@ -403,8 +407,8 @@ def _launch_qkv(name, x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer, *,
     err = _lib().dstts_fused_qkv(
         x.data_ptr(), ln_all.data_ptr(), wqkv_all.data_ptr(), qn_all.data_ptr(),
         kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(), partial.data_ptr(),
-        xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s, float(eps),
-        stream)
+        xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s,
+        int(cs_dtype == torch.bfloat16), float(eps), stream)
     _raise_if(err, name)
     HD, KD = H * D, K * D
     return out[:, :HD], out[:, HD:HD + KD], out[:, HD + KD:]
@@ -578,8 +582,8 @@ def fused_mlp_plain(x, ln_w, w_gate, w_up, w_down, *, eps: float = 1e-6,
 def fused_qkv_plain(x, ln_w, wqkv, q_norm, k_norm, cos, sin, *, n_heads: int, n_kv: int,
                     head_dim: int, eps: float = 1e-6):
     """Reference for B11 ``fused_qkv`` (``_qkv_traced_kernel``,
-    ``fused_layer.py:207``): B3's round points at L = 1, cos/sin taken in
-    float32 as the kernel casts them."""
+    ``fused_layer.py:207``): B3's round points at L = 1, cos/sin widened to
+    float32 (exact from bf16), as the kernel widens them."""
     return fused_qkv_stacked_plain(x, ln_w[None], wqkv[None], q_norm[None], k_norm[None],
                                    cos.float(), sin.float(), 0, n_heads=n_heads,
                                    n_kv=n_kv, head_dim=head_dim, eps=eps)
@@ -628,14 +632,17 @@ def fused_qkv(x, ln_w, wqkv, q_norm, k_norm, cos, sin, *, n_heads: int, n_kv: in
               head_dim: int, eps: float = 1e-6):
     """B11 ``fused_qkv``: ``(q [B,H·D], k [B,K·D], v [B,K·D])`` of one layer.
     x [B,E]; ln_w [E]; wqkv [E,(H+2K)·D]; q_norm / k_norm [D]; cos / sin
-    [B,D/2] in any float dtype (B3 takes them in float32). On the card B3's
-    kernel at L = 1."""
+    [B,D/2] in any float dtype. On the card B3's kernels at L = 1, which
+    read float32 and bf16 cos / sin as they are (other dtypes and layouts
+    are converted to contiguous float32 first)."""
     if x.device.type == "cpu":
         return fused_qkv_plain(x, ln_w, wqkv, q_norm, k_norm, cos, sin, n_heads=n_heads,
                                n_kv=n_kv, head_dim=head_dim, eps=eps)
+    if not (cos.dtype == sin.dtype and cos.dtype in (torch.float32, torch.bfloat16)
+            and cos.is_contiguous() and sin.is_contiguous()):
+        cos, sin = cos.float().contiguous(), sin.float().contiguous()
     out = _launch_qkv("fused_qkv", x, ln_w[None], wqkv[None], q_norm[None], k_norm[None],
-                      cos.float().contiguous(), sin.float().contiguous(), 0,
-                      n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps)
+                      cos, sin, 0, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, eps=eps)
     fused_qkv.launches += 1
     return out
 

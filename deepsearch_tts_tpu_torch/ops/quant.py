@@ -16,19 +16,22 @@
   param tree's big matrices → ``{q, scales}`` leaves, and the product that
   takes either kind of leaf.
 
-B12 on the card is Triton: one program per block of ``BLOCK_N`` columns
-loops over K twice, first for the column amax, then to scale, round, clip
-and store. What bounds it: bytes — it reads the matrix twice (2·2 B a bf16
-element) and writes 1 B; a one-time cost when an engine is built. The
-stochastic mode draws its bits from Triton's counter-based Philox stream
-(``tl.randint(seed, offset)``, offset = the element's flat index), so the
-same seed gives the same q. The plain version's stochastic mode draws from
-a seeded ``torch.Generator``: the two streams differ, and the mode is held
-to its properties (the round-to-nearest scales, q in {floor, floor+1} of
-x/s, mean rounding error near 0, determinism per seed), not bit for bit.
-``triton`` is imported inside the launching function.
+B12 on the card is CUDA C++ (``csrc/quant.cu``, notes there): each column
+strip ``[K, BN]`` is read once, by TMA, into the shared memory of a
+thread-block cluster whose blocks split K; the blocks merge their column
+amax through distributed shared memory, then quantize from shared memory.
+What bounds it: bytes (2 B read and 1 B written a bf16 weight); a one-time
+cost when an engine is built. :func:`quant_plan` picks the cluster size
+and the rows a block for each shape (strips of 64-byte rows). The stochastic mode
+draws its bits from Philox4x32-10 keyed by the seed at counter = the
+element's flat index (:func:`philox4x32_10`, the same generator in plain
+torch), so the plain version gives the kernel's q in both modes.
 """
 from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -44,68 +47,148 @@ QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
 # to this many rows: decode steps and the lm_head of every forward; more
 # rows (prefill) widen the weight to bf16 and take one library product
 INT8_PRODUCT_ROWS = _MAX_ROWS
-BLOCK_K, BLOCK_N = 64, 64
-_kernel = None
+
+# B12's plan (csrc/quant.cu): shared memory a block may take (the card's
+# opt-in limit), an SM holds, and the runtime reserves a block; the
+# kernel's own static shared memory (mbarriers, the warps' amax, the
+# block's amax and scales: at most 2,944 bytes), rounded up; the most
+# blocks a cluster (16: beyond the portable 8, which Hopper allows on
+# request), boxes a block, rows a box (TMA's limit a dimension) and the
+# alignment of a box in shared memory (TMA writes 128-byte aligned)
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+QUANT_STATIC = 3072
+QUANT_CLUSTERS = (1, 2, 4, 8, 16)
+QUANT_MAX_BOXES, QUANT_BOX_ROWS, QUANT_BOX_ALIGN = 16, 256, 128
+# the most blocks an SM B12's plan aims at (three: one block's loads
+# overlap the others' quantizing and stores; fewer only where a strip needs
+# it) and the bytes of a strip's row; scripts/time_qkv_b12.py --plans times
+# one to four blocks an SM by setting QUANT_PER_SM (PERF.md)
+QUANT_PER_SM, QUANT_ROW_BYTES = 3, 64
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
-def quantize_int8_plain(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False
+class QuantPlan(NamedTuple):
+    """B12's launch: strips of ``bn`` columns, each held by a cluster of
+    ``cs`` blocks; block r of a cluster takes rows ``r·rows ..`` (a whole
+    number of ``bh``-row TMA boxes) in ``smem`` bytes of dynamic shared
+    memory."""
+    bn: int
+    cs: int
+    rows: int
+    bh: int
+    smem: int
+
+    def strips(self, N: int) -> int:
+        return -(-N // self.bn)
+
+
+def quant_plan(K: int, N: int, esize: int = 2) -> QuantPlan:
+    """The least cluster size in (1, 2, 4, 8, 16) whose block's rows fit:
+    ``rows`` = ceil(K / cs) rounded up to whole boxes of at most 256 rows (a
+    multiple of 128 bytes each), times 64 bytes, within a block's share of
+    shared memory at ``QUANT_PER_SM`` blocks an SM, else at fewer (down to
+    one). Raises where no cluster of 16 holds a strip (bf16: K beyond
+    ~57,000 rows)."""
+    rb = QUANT_ROW_BYTES
+    step = QUANT_BOX_ALIGN // math.gcd(QUANT_BOX_ALIGN, rb)   # rows a box is a multiple of
+    for n in range(QUANT_PER_SM, 0, -1):
+        budget = (SMEM_BLOCK if n == 1 else SMEM_SM // n - SMEM_RESERVED) - QUANT_STATIC
+        for cs in QUANT_CLUSTERS:
+            share = -(-K // cs)
+            nbox = -(-share // QUANT_BOX_ROWS)
+            bh = -(-share // nbox)
+            bh = min(-(-bh // step) * step, QUANT_BOX_ROWS)
+            rows = nbox * bh
+            if rows * rb <= budget and (cs - 1) * rows < K:
+                return QuantPlan(rb // esize, cs, rows, bh, rows * rb)
+    raise ValueError(f"quantize_int8: a [{K}, {N}] matrix has columns too long for a "
+                     f"cluster of {QUANT_CLUSTERS[-1]} blocks")
+
+
+_M0, _M1, _W0, _W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
+_MASK = 0xFFFFFFFF
+
+
+def _mulhilo(m: int, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of the 64-bit product m · c (c: int64
+    tensor of 32-bit values) in int64 without overflow: c in 16-bit limbs."""
+    a = m * (c >> 16)            # < 2^48
+    b = m * (c & 0xFFFF)         # < 2^48
+    lo = (((a & 0xFFFF) << 16) + b) & _MASK
+    hi = (a + (b >> 16)) >> 16
+    return hi & _MASK, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 (Salmon et al., SC 2011) on int64 tensors holding
+    32-bit counter words, key (k0, k1): the four output words. B12's
+    stochastic mode takes word 0 at counter (flat index lo, hi, 0, 0) and
+    key (seed lo, seed hi), as ``csrc/quant.cu`` does."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+    return c0, c1, c2, c3
+
+
+def stochastic_uniform(K: int, N: int, seed: int, rows: slice, device) -> torch.Tensor:
+    """B12's uniforms u = (word 0 >> 8) · 2⁻²⁴ of rows ``rows`` of a [K, N]
+    matrix (float32)."""
+    r0, r1 = rows.indices(K)[:2]
+    idx = (torch.arange(r0, r1, device=device, dtype=torch.int64)[:, None] * N
+           + torch.arange(N, device=device, dtype=torch.int64))
+    zero = torch.zeros_like(idx)
+    seed = int(seed) & ((1 << 64) - 1)
+    w0 = philox4x32_10(idx & _MASK, idx >> 32, zero, zero, seed & _MASK, seed >> 32)[0]
+    return (w0 >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def quantize_int8_plain(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False,
+                        scale: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Reference for B12. Round to nearest: JAX's XLA branch
-    (``quant.py:49-55``). Stochastic: ``floor(x/s + u)``, u = bits·2⁻²⁴ with
-    24 bits from a ``torch.Generator`` seeded with ``seed``."""
+    (``quant.py:49-55``). Stochastic: ``floor(x/s + u)`` with u from
+    :func:`stochastic_uniform` (rows in chunks, so the counters of a large
+    matrix never sit in memory at once). ``scale``: use these [1, N] scales
+    instead of the amax's (a model of a wrong amax for the card's checks)."""
     xf = w.float()
-    amax = xf.abs().amax(dim=0, keepdim=True)
-    # a tensor divisor: CUDA divides by a Python scalar as a product with its
-    # reciprocal, which is not the IEEE quotient B12 computes
-    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+    if scale is None:
+        amax = xf.abs().amax(dim=0, keepdim=True)
+        # a tensor divisor: CUDA divides by a Python scalar as a product with
+        # its reciprocal, which is not the IEEE quotient B12 computes
+        scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
     y = xf / scale
     if stochastic:
-        gen = torch.Generator(device=w.device).manual_seed(int(seed))
-        bits = torch.randint(0, 1 << 24, y.shape, generator=gen, device=w.device,
-                             dtype=torch.int32)
-        q = torch.floor(y + bits.float() * 2.0 ** -24)
+        K, N = y.shape
+        q = torch.empty_like(y)
+        step = max(1, (1 << 22) // max(N, 1))
+        for r0 in range(0, K, step):
+            rows = slice(r0, min(K, r0 + step))
+            q[rows] = torch.floor(y[rows] + stochastic_uniform(K, N, seed, rows, w.device))
     else:
         q = torch.round(y)
     return q.clamp_(-127, 127).to(torch.int8), scale
 
 
-def _build_kernel():
-    import triton
-    import triton.language as tl
+def _lib():
+    from ._build import load_library
 
-    @triton.jit
-    def _quant_kernel(w_ptr, q_ptr, s_ptr, K, N, stride_k, stride_n, seed,
-                      STOCHASTIC: tl.constexpr, BK: tl.constexpr, BN: tl.constexpr):
-        cols = tl.program_id(0) * BN + tl.arange(0, BN)
-        cmask = cols < N
-        amax = tl.zeros([BN], tl.float32)
-        for k0 in range(0, K, BK):
-            rows = k0 + tl.arange(0, BK)
-            m = (rows[:, None] < K) & cmask[None, :]
-            x = tl.load(w_ptr + rows[:, None].to(tl.int64) * stride_k + cols[None, :] * stride_n,
-                        mask=m, other=0.0).to(tl.float32)
-            amax = tl.maximum(amax, tl.max(tl.abs(x), axis=0))
-        # IEEE division, so the scales equal the plain version's bit for bit
-        scale = tl.maximum(tl.math.div_rn(amax, tl.full([BN], 127.0, tl.float32)), 1e-8)
-        tl.store(s_ptr + cols, scale, mask=cmask)
-        for k0 in range(0, K, BK):
-            rows = k0 + tl.arange(0, BK)
-            m = (rows[:, None] < K) & cmask[None, :]
-            x = tl.load(w_ptr + rows[:, None].to(tl.int64) * stride_k + cols[None, :] * stride_n,
-                        mask=m, other=0.0).to(tl.float32)
-            y = tl.math.div_rn(x, scale[None, :] + tl.zeros([BK, BN], tl.float32))
-            if STOCHASTIC:
-                bits = tl.randint(seed, rows[:, None] * N + cols[None, :])
-                u = ((bits >> 8) & 0xFFFFFF).to(tl.float32) * (1.0 / 16777216.0)
-                r = tl.floor(y + u)
-            else:
-                # round half to even: exact for |y| < 2^22 (here |y| <= 127)
-                r = (y + 12582912.0) - 12582912.0
-            r = tl.minimum(tl.maximum(r, -127.0), 127.0)
-            tl.store(q_ptr + rows[:, None].to(tl.int64) * N + cols[None, :], r.to(tl.int8),
-                     mask=m)
+    lib = load_library("quant")
+    if not getattr(lib, "_dstts_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dstts_quantize_int8.argtypes = [p] * 3 + [i] * 8 + [ctypes.c_ulonglong, p]
+        lib.dstts_quantize_int8.restype = i
+        lib._dstts_typed = True
+    return lib
 
-    return _quant_kernel
+
+def _launch_quant(w, q, s, plan: QuantPlan, seed: int, stochastic: bool) -> int:
+    K, N = w.shape
+    return _lib().dstts_quantize_int8(
+        w.data_ptr(), q.data_ptr(), s.data_ptr(), K, N, _DTYPES[w.dtype], plan.cs,
+        plan.rows, plan.bh, plan.smem, int(bool(stochastic)), int(seed) & ((1 << 64) - 1),
+        torch.cuda.current_stream(w.device).cuda_stream)
 
 
 def quantize_int8(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False,
@@ -114,7 +197,6 @@ def quantize_int8(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False,
     """B12: [K, N] float → (int8 [K, N], float32 scales [1, N]) per output
     column. ``out``: a contiguous int8 [K,N] and a float32 [1,N] tensor to
     write into (views of preallocated stacks), returned."""
-    global _kernel
     K, N = w.shape
     if w.device.type == "cpu":
         q, s = quantize_int8_plain(w, seed, stochastic=stochastic)
@@ -123,12 +205,9 @@ def quantize_int8(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False,
         out[0].copy_(q)
         out[1].copy_(s)
         return out
-    if w.device.type != "cuda" or w.dtype not in (torch.bfloat16, torch.float16, torch.float32):
-        raise ValueError(f"quantize_int8: expected a float CUDA matrix, got {w.dtype} "
-                         f"on {w.device}")
-    if stochastic and K * N >= 2 ** 31:
-        raise ValueError("quantize_int8: stochastic mode numbers elements with int32 "
-                         f"offsets (K*N = {K * N})")
+    if w.device.type != "cuda" or w.dtype not in _DTYPES or not w.is_contiguous():
+        raise ValueError(f"quantize_int8: expected a contiguous float CUDA matrix, got "
+                         f"{w.dtype} on {w.device}")
     if out is None:
         out = (torch.empty((K, N), dtype=torch.int8, device=w.device),
                torch.empty((1, N), dtype=torch.float32, device=w.device))
@@ -138,12 +217,11 @@ def quantize_int8(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False,
             or q.device != w.device or s.device != w.device):
         raise ValueError("quantize_int8: out must be a contiguous int8 [K,N] and a "
                          "contiguous float32 [1,N] tensor on w's device")
-    if _kernel is None:
-        _kernel = _build_kernel()
-    with torch.cuda.device(w.device):
-        _kernel[(-(-N // BLOCK_N),)](w, q, s, K, N, w.stride(0), w.stride(1), int(seed),
-                                     STOCHASTIC=bool(stochastic), BK=BLOCK_K, BN=BLOCK_N,
-                                     num_warps=4)
+    plan = quant_plan(K, N, w.element_size())
+    err = _launch_quant(w, q, s, plan, seed, stochastic)
+    if err:
+        raise RuntimeError(f"quantize_int8: CUDA launch failed with cudaError {err} "
+                           f"(plan {plan})")
     quantize_int8.launches += 1
     return q, s
 

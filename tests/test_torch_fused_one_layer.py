@@ -81,6 +81,30 @@ def test_fused_qkv_plain_matches_jax_kernel(w):
 
 
 @pytest.mark.parametrize("w", WIDTHS)
+def test_fused_qkv_bf16_and_float32_cos_sin_match_jax(w):
+    """bf16 cos / sin (the model dtype, which the kernel reads as stored)
+    and the same tables widened to float32 give the same bits, both within
+    the bound of JAX's ``fused_qkv`` in interpret mode on the bf16 tables."""
+    B, E, F, H, K, D = w
+    rng = np.random.default_rng(2)
+    x, ln = _bf16(rng, B, E, scale=1.0), _bf16(rng, E, scale=0.1, shift=1.0)
+    wqkv = _bf16(rng, E, (H + 2 * K) * D)
+    qn, kn = _bf16(rng, D, scale=0.1, shift=0.9), _bf16(rng, D, scale=0.1, shift=1.2)
+    cos, sin = rope_angles(jnp.arange(B, dtype=jnp.int32)[:, None] * 7 + 100, D, 1e6)
+    cos, sin = (np.asarray(c[:, 0].astype(jnp.bfloat16)) for c in (cos, sin))
+    kw = dict(n_heads=H, n_kv=K, head_dim=D, eps=EPS)
+    want = jfused.fused_qkv(*map(jnp.asarray, (x, ln, wqkv, qn, kn, cos, sin)),
+                            interpret=True, **kw)
+    args = tuple(map(_t, (x, ln, wqkv, qn, kn)))
+    got_bf = tfused.fused_qkv(*args, _t(cos), _t(sin), **kw)
+    got_f32 = tfused.fused_qkv(*args, _t(cos).float(), _t(sin).float(), **kw)
+    for gb, gf, r in zip(got_bf, got_f32, want):
+        assert torch.equal(gb, gf)
+        _close(gb, r)
+    assert tfused.fused_qkv.launches == 0
+
+
+@pytest.mark.parametrize("w", WIDTHS)
 @pytest.mark.parametrize("packed", [False, True])
 def test_fused_out_mlp_plain_matches_jax_kernel(w, packed):
     B, E, F, H, K, D = w

@@ -243,6 +243,23 @@ def test_fused_split_choice_covers_k_exactly():
     assert not tfused.shapes_ok(128, 128, 256, 32)     # qwen3-test: plain only
 
 
+@pytest.mark.parametrize("B", [1, 16, 64, 80])
+@pytest.mark.parametrize("model", ["qwen3-8b", "qwen3-30b-a3b", "qwen3-test"])
+def test_fused_split_choice_at_qkv_widths(model, B):
+    """The same limits at B3's product, x [B, E] @ wqkv [E, (H + 2 KV) D],
+    of each model, beyond 64 rows too (two 64-row groups of blocks)."""
+    from deepsearch_tts_tpu_torch.models.qwen3_moe import QWEN3_MOE_CONFIGS
+
+    cfg = {**tqwen3.QWEN3_CONFIGS, **QWEN3_MOE_CONFIGS}[model]
+    k, n = cfg.hidden, (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.head_dim
+    s = tfused._splits(B, n, k)
+    assert k % (s * tfused._KT) == 0                 # whole pipeline stages a slice
+    assert 8 * B * n * s <= 2 * k * n / 4 or s == 1
+    blocks = (n // tfused._TILE) * -(-B // tfused._MAX_ROWS) * s
+    assert (blocks >= tfused._TARGET_BLOCKS or 2 * s > k // (16 * B)
+            or k % (2 * s * tfused._KT))
+
+
 # ------------------------------------------------------------------- config
 
 def test_qwen3_configs_equal_jax_fields():

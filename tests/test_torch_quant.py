@@ -106,6 +106,187 @@ def test_quantize_int8_stochastic_plain_properties():
     assert not torch.equal(q1, q_rn)
 
 
+# B12's plan and the kernel's arithmetic (csrc/quant.cu), modelled on the CPU
+
+# every shape a qwen3-32b and a qwen3-8b int8 build quantizes, and the odd
+# widths of this file's other tests
+PLAN_SHAPES = [(5120, 10240), (8192, 5120), (5120, 51200), (25600, 5120), (5120, 151936),
+               (4096, 6144), (4096, 4096), (4096, 24576), (12288, 4096), (4096, 151936),
+               (64, 96), (256, 40), (7, 130), (16, 48), (24, 16), (16, 64), (32, 16),
+               (16, 32), (96, 64)]
+
+
+# deeper columns, each at another number of blocks an SM: three up to
+# ~18,000 rows, two up to ~28,000, one up to 57,344 (clusters of 16)
+DEEP_SHAPES = [(16000, 96), (18000, 64), (18432, 130), (20000, 64), (28000, 32),
+               (30000, 40), (40000, 64), (57344, 32)]
+
+
+def _blocks_an_sm(plan) -> int:
+    """The most blocks (at most ``QUANT_PER_SM``) an SM's shared memory
+    holds at this plan's bytes a block."""
+    for n in range(tquant.QUANT_PER_SM, 0, -1):
+        budget = (tquant.SMEM_BLOCK if n == 1 else tquant.SMEM_SM // n - tquant.SMEM_RESERVED)
+        if plan.smem + tquant.QUANT_STATIC <= budget:
+            return n
+    return 0
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+@pytest.mark.parametrize("shape", PLAN_SHAPES + DEEP_SHAPES)
+def test_quant_plan_covers_every_element_once(shape, esize):
+    K, N = shape
+    plan = tquant.quant_plan(K, N, esize)
+    assert plan.bn * esize == tquant.QUANT_ROW_BYTES == 64       # rows of 64 bytes
+    assert plan.cs in tquant.QUANT_CLUSTERS
+    assert 1 <= plan.bh <= tquant.QUANT_BOX_ROWS and plan.rows % plan.bh == 0
+    assert plan.rows // plan.bh <= tquant.QUANT_MAX_BOXES
+    assert plan.bh * plan.bn * esize % tquant.QUANT_BOX_ALIGN == 0
+    assert plan.smem == plan.rows * plan.bn * esize
+    assert plan.smem + tquant.QUANT_STATIC <= tquant.SMEM_BLOCK      # 232,448
+    assert _blocks_an_sm(plan) >= 1
+    # the blocks (strip, cluster rank) cover every element of [K, N] once,
+    # and no block of a cluster is empty: a block is the product of a row
+    # range and a column strip, so the rows of the ranks and the columns of
+    # the strips must each be covered once
+    rows = np.zeros(K, dtype=np.int8)
+    for rank in range(plan.cs):
+        r0, r1 = rank * plan.rows, min(K, (rank + 1) * plan.rows)
+        assert r1 > r0
+        rows[r0:r1] += 1
+    cols = np.zeros(N, dtype=np.int8)
+    for strip in range(plan.strips(N)):
+        cols[strip * plan.bn:(strip + 1) * plan.bn] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("K,blocks", [(7, 3), (5120, 3), (18000, 3), (18432, 2), (28000, 2),
+                                      (30000, 1), (57344, 1)])
+def test_quant_plan_takes_fewer_blocks_an_sm_only_where_a_strip_needs_it(K, blocks):
+    """Three blocks an SM wherever a cluster of 16 holds the strip at a
+    third of an SM's shared memory; two, then one, only past that (and then
+    in clusters of 16); beyond 57,344 rows no plan (it raises)."""
+    plan = tquant.quant_plan(K, 64)
+    assert _blocks_an_sm(plan) == blocks
+    if blocks < tquant.QUANT_PER_SM:
+        assert plan.cs == tquant.QUANT_CLUSTERS[-1]
+    with pytest.raises(ValueError):
+        tquant.quant_plan(57345, 64)
+
+
+def test_quant_plan_fits_two_blocks_an_sm():
+    """At the default plan every qwen3-32b and qwen3-8b shape fits at least
+    two blocks an SM (w_down's 25,600 rows in a cluster of 16 blocks of
+    64-byte rows), and those of 5,120 rows or fewer three."""
+    for K, N in PLAN_SHAPES[:10]:
+        plan = tquant.quant_plan(K, N)
+        per_sm = 3 if K <= 8192 else 2
+        budget = tquant.SMEM_SM // per_sm - tquant.SMEM_RESERVED - tquant.QUANT_STATIC
+        assert plan.smem <= budget, (K, N, plan)
+
+
+def _cluster_scales(w: torch.Tensor, plan) -> torch.Tensor:
+    """The kernel's scales, in plain torch: each cluster block's column
+    amax over its rows (zeros past K, as TMA reads them), merged across the
+    cluster with max, then max(amax / 127, 1e-8)."""
+    K, N = w.shape
+    xa = w.float().abs()
+    pad = torch.zeros((plan.cs * plan.rows, plan.strips(N) * plan.bn))
+    pad[:K, :N] = xa
+    parts = pad.view(plan.cs, plan.rows, -1).amax(dim=1)      # [cs, columns]
+    amax = parts.amax(dim=0)[:N][None]
+    return torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
+
+
+@pytest.mark.parametrize("shape,scale", [((5120, 64), 0.02), ((25600, 16), 1.0), ((7, 130), 30.0),
+                                         ((300, 96), 0.1)])
+def test_cluster_amax_merge_matches_plain_and_jax(shape, scale):
+    rng = np.random.default_rng(shape[0])
+    w = _np(rng, *shape, scale=scale, dtype=BF16)
+    w[:, 3] = 0.0
+    t = _t(w)
+    K = shape[0]
+    plans = [tquant.quant_plan(*shape)]
+    for cs in tquant.QUANT_CLUSTERS:   # every cluster size whose blocks all hold rows
+        rows = -(-K // cs)
+        if (cs - 1) * rows < K:
+            plans.append(tquant.QuantPlan(32, cs, rows, rows, rows * 64))
+    want = np.asarray(jquant.quantize_int8(jnp.asarray(w), interpret=True)[1])
+    for plan in plans:
+        s = _cluster_scales(t, plan)
+        assert torch.equal(s, tquant.quantize_int8_plain(t)[1]), plan
+        np.testing.assert_array_equal(s.numpy(), want)
+
+
+def _round_quotient(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """csrc/quant.cu round_quotient in float32 torch: rint(x * RN(1/s)),
+    unless that product lies within 2^-15 of a half-integer, where the IEEE
+    quotient decides."""
+    r = 1.0 / s
+    y = x * r
+    n = torch.round(y)
+    near = (y - n).abs() >= 0.5 - 2.0 ** -15
+    return torch.where(near, torch.round(x / s), n)
+
+
+def test_divide_free_rounding_equals_the_quotients():
+    """B12's round to nearest without a division a value: equal to
+    round(x / s) on random weights and on exact and near ties."""
+    rng = np.random.default_rng(11)
+    w = _t(_np(rng, 512, 256, scale=0.05, dtype=BF16)).float()
+    s = tquant.quantize_int8_plain(w)[1]
+    assert torch.equal(_round_quotient(w, s), torch.round(w / s))
+    # exact ties k + 1/2 and their neighbours one float32 ulp either side
+    s2 = torch.tensor([2.0 ** -7, 3.0 * 2.0 ** -9, 0.0123, 1e-8])[:, None]
+    k = torch.arange(-127, 127, dtype=torch.float32)[None] + 0.5
+    x = (k * s2).float()
+    for xx in (x, torch.nextafter(x, x + 1), torch.nextafter(x, x - 1)):
+        assert torch.equal(_round_quotient(xx, s2), torch.round(xx / s2))
+
+
+def test_philox_model_known_answers():
+    """Random123's known-answer vectors for Philox4x32-10."""
+    def t(*v):
+        return [torch.tensor([c], dtype=torch.int64) for c in v]
+    for ctr, key, want in (
+            ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+            ((0xffffffff,) * 4, (0xffffffff,) * 2,
+             (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+            ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+             (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))):
+        got = tquant.philox4x32_10(*t(*ctr), *key)
+        assert [int(g[0]) for g in got] == list(want)
+
+
+def test_philox_stream_is_deterministic_per_seed_and_unbiased():
+    K, N = 300, 257
+    u1 = tquant.stochastic_uniform(K, N, 1, slice(None), "cpu")
+    assert u1.shape == (K, N) and float(u1.min()) >= 0.0 and float(u1.max()) < 1.0
+    assert torch.equal(u1, tquant.stochastic_uniform(K, N, 1, slice(None), "cpu"))
+    assert torch.equal(u1[100:200], tquant.stochastic_uniform(K, N, 1, slice(100, 200), "cpu"))
+    u2 = tquant.stochastic_uniform(K, N, 2, slice(None), "cpu")
+    assert float((u1 != u2).float().mean()) > 0.99
+    # a uniform's mean, 77,100 draws: std of the mean 0.29 / 278 = 1.0e-3
+    assert abs(float(u1.mean()) - 0.5) < 5e-3
+    # seeds past 32 bits reach the second key word
+    assert not torch.equal(u1, tquant.stochastic_uniform(K, N, 1 + (1 << 32), slice(None), "cpu"))
+    # the plain stochastic mode draws this stream: floor(x/s + u), unbiased
+    rng = np.random.default_rng(3)
+    w = _t(_np(rng, K, N, scale=0.1, dtype=BF16))
+    q, s = tquant.quantize_int8_plain(w, seed=1, stochastic=True)
+    y = w.float() / s
+    assert torch.equal(q, torch.floor(y + u1).clamp(-127, 127).to(torch.int8))
+    assert abs(float((q.float() - y).mean())) < 5e-3
+
+
+def test_quantize_int8_never_falls_back_off_cpu():
+    w = torch.zeros((64, 96), dtype=torch.bfloat16, device="meta")
+    tquant.quantize_int8.launches = 0
+    with pytest.raises(ValueError):
+        tquant.quantize_int8(w)
+    assert tquant.quantize_int8.launches == 0
+
+
 def _tree(rng, dtype=BF16):
     return {
         "embed": _np(rng, 32, 16, dtype=dtype),
