@@ -50,6 +50,22 @@ Phases, each raising on failure (non-zero exit, no final line):
    against the plain no-cache forward;
 9. release: the qwen3-8b engines and weights are dropped; less than 1 GiB
    may stay allocated on the card;
+9a. product (``--product-only`` runs it alone, after the build):
+   ``deepsearch_tts_tpu_torch.cli.deep_search.main`` on the card. First the
+   scripted scenario of ``tests/test_product_path_engine.py`` (families
+   whose greedy decode replays a token script computed by a dry run of
+   the port's agent stack; the scripts on the card): ``--mode solve
+   --backend engine --search_backend replay --temperature 0.0`` must answer
+   "Paris" after two searches, in three policy requests with prefix reuse,
+   B5 once a sample. Then B3 / B4 at the qwen3-4b aux's widths against
+   their plain versions, and qwen3-8b at full width with qwen3-4b
+   co-served as the aux (random weights from ``--seed 0``): solve, verify
+   over its rows, solve_budget_forcing (logit) over the same rows,
+   solve_bestofn and search; each mode's rows checked, B3 / B4 once a layer
+   and decode step of each fused engine, B5 once a sample, the
+   budget-forcing re-entry turns held to ``min_tokens``; the ``product``
+   line reports each mode's wall time, turns, tokens, decode rate, prefix
+   reuse, first-turn prefill and peak memory;
 10. MoE serve: phase 4 for qwen3-30b-a3b (full width, 61 GB of random bf16
     weights): decode through B3, B7 and the grouped expert kernel, whose
     counters must equal 48 x the decode steps (B3, B7) and 48 x (decode
@@ -215,6 +231,19 @@ MLA_MODEL, MLA_LAYERS = "deepseek-v3-5-layers", 5
 X_E, X_FD, X_FS, X_NE, X_TOPK = 7168, 18432, 2048, 256, 8
 X_D, X_V = 576, 512      # latent row (kv_lora_rank 512 + rope 64), value columns
 X_SCALE = 192 ** -0.5    # MLA's softmax scale, (qk_nope 128 + qk_rope 64)^-1/2
+# the product phase: cli/deep_search.py's engines (policy qwen3-8b, aux
+# qwen3-4b co-served) and the aux's widths, which B3 / B4 take when
+# fused_decode_fits holds (hidden 2560 beside n_heads x head_dim 4096)
+PRODUCT_MAIN, PRODUCT_AUX = "qwen3-8b", "qwen3-4b"
+A_E, A_H, A_KV, A_F = 2560, 32, 8, 9728
+PRODUCT_PROBLEMS, PRODUCT_PAGES = 4, 1024
+# tokens a turn: random weights make no tool call, no boxed answer and
+# (nearly) no EOS, so every trajectory runs its 7 turns (--max_search_calls
+# 2, + 5) to this length; at 256 the five modes took 685 s on an H100 at
+# 700 W (the eager engine's step is 38-69 ms with plain-attention decode)
+PRODUCT_MAX_TOKENS = 64
+PRODUCT_DIR = os.path.join(HERE, "build", "product_smoke")
+SCRIPT_LEN = 6144        # the scripted families' token script (positions)
 
 
 def log(msg: str) -> None:
@@ -2141,6 +2170,493 @@ def phase_attention_reference(params: dict, model: str = "qwen3-8b", tag: str = 
                                free[0, T0 - 1:] if replay else None)
 
 
+# ------------------------------------------------------------ product phase
+#
+# The agent pipeline of cli/deep_search.py on the card. Part 1 replays the
+# scripted scenario of tests/test_product_path_engine.py (position-scripted
+# families whose greedy decode at position p emits script[p + 1], the
+# scripts computed from a dry run of the port's own agent stack with
+# recording clients): exact answers, two searches, prefix reuse. Part 2
+# serves qwen3-8b at full width (random weights) with qwen3-4b co-served as
+# the aux through every mode; random weights make no tool calls, so part 1
+# is the check of the loop and part 2 of the engines and their kernels.
+
+
+def _tool_call_text(query: str, intent: str) -> str:
+    body = json.dumps({"name": "deep_websearch",
+                       "arguments": {"search_query": query, "search_intent": intent}},
+                      ensure_ascii=False)
+    # the leading newline of ChatTemplate's re-render of a tool-call turn:
+    # turn N+1's prompt is then a byte-exact extension of turn N's
+    return "\n<tool_call>\n" + body + "\n</tool_call>"
+
+
+SCRIPT_QUESTION = "What is the capital of France? Answer with the city name."
+SCRIPT_MAIN = [_tool_call_text("capital of France", "find the capital city of France"),
+               _tool_call_text("Paris population", "find the population of Paris"),
+               "I found it. The capital of France is \\boxed{Paris}."]
+SCRIPT_AUX = ["**Final Information**\nParis is the capital of France.",
+              "**Final Information**\nAbout 2.1 million people live in Paris proper."]
+REPLAY_STORE = {
+    "searches": {
+        "capital of France": [
+            {"id": 1, "title": "France - Factbook", "url": "https://example.org/france",
+             "site_name": "example.org", "date": "2024-01-01",
+             "snippet": "Paris is the capital and largest city of France."},
+            {"id": 2, "title": "Geography of France", "url": "https://example.org/geo",
+             "site_name": "example.org", "date": "2024-01-02",
+             "snippet": "France's capital city is Paris, on the Seine."}],
+        "Paris population": [
+            {"id": 1, "title": "Paris demographics", "url": "https://example.org/paris-pop",
+             "site_name": "example.org", "date": "2024-02-01",
+             "snippet": "The city of Paris has about 2.1 million residents within its "
+                        "administrative limits."}],
+    },
+    "pages": {
+        "https://example.org/france":
+            "France is a country in Western Europe. Paris is the capital and largest city "
+            "of France. It is known for the Eiffel Tower and the Louvre.",
+        "https://example.org/geo":
+            "Geography of France. France's capital city is Paris, on the Seine. The "
+            "country borders Belgium, Germany, and Spain.",
+        "https://example.org/paris-pop":
+            "Paris demographics. The city of Paris has about 2.1 million residents within "
+            "its administrative limits. The wider metropolitan area holds over 12 million "
+            "people.",
+    },
+}
+PRODUCT_QUESTIONS = [SCRIPT_QUESTION, "How many people live in Paris proper?",
+                     "Which river runs through Paris?", "Which countries border France?"]
+
+
+class _Recorder:
+    """A model client that plays planned replies in order and records
+    (prompt, reply) pairs."""
+
+    def __init__(self, chat_replies=(), complete_replies=()):
+        self.chat_replies, self.complete_replies = list(chat_replies), list(complete_replies)
+        self.chat_calls, self.complete_calls = [], []
+
+    async def chat(self, messages, tools=None, **opts):
+        from deepsearch_tts_tpu_torch.agents.client import ChatResponse
+        from deepsearch_tts_tpu_torch.engine.tokenizer import parse_tool_calls
+
+        out = self.chat_replies.pop(0)
+        self.chat_calls.append((json.loads(json.dumps(messages)), list(tools or []), out))
+        content, calls = parse_tool_calls(out)
+        return ChatResponse(type="tool" if calls else "normal", content=content,
+                            tool_calls=calls, finish_reason="stop")
+
+    async def complete(self, prompt, **opts):
+        from deepsearch_tts_tpu_torch.agents.client import CompletionResponse
+
+        out = self.complete_replies.pop(0)
+        self.complete_calls.append((prompt, out))
+        return CompletionResponse(out, "stop")
+
+
+def _token_script(tok, segments):
+    """Reply ids (+ EOS) written at each prompt's encoded length, on the
+    card; writes that overlap must agree."""
+    import torch
+
+    script = torch.full((SCRIPT_LEN,), ord("x"), dtype=torch.int64)
+    written: dict[int, int] = {}
+    for prompt_text, reply_text in segments:
+        p = len(tok.encode(prompt_text))
+        for off, t in enumerate(tok.encode(reply_text) + [tok.eos_id]):
+            assert written.get(p + off, t) == t, f"script conflict at position {p + off}"
+            written[p + off] = t
+            script[p + off] = t
+    return script.cuda()
+
+
+def _script_forward(params, cfg, tokens, positions, *, k_pages=None, v_pages=None,
+                    logits_indices=None, **kw):
+    """Greedy decode at absolute position ``p`` emits ``script[p + 1]``."""
+    import torch
+
+    script = params["script"]
+    pos = positions
+    if logits_indices is not None:
+        pos = torch.gather(positions, 1, logits_indices[:, None])
+    nxt = script[torch.clamp(pos + 1, 0, script.shape[0] - 1)]
+    logits = 30.0 * torch.nn.functional.one_hot(nxt, cfg.vocab_size).to(torch.float32)
+    return logits, (k_pages, v_pages)
+
+
+def _product_argv(mode: str, out: str, extra=()) -> list:
+    return ["--mode", mode, "--backend", "engine", "--search_backend", "replay",
+            "--replay_path", os.path.join(PRODUCT_DIR, "replay.json"),
+            "--output_dir", out, "--device", "cuda",
+            "--price_config_path", os.path.join(HERE, "model_config", "aihubmix_price.json"),
+            *extra]
+
+
+@contextlib.contextmanager
+def _product_probe():
+    """Records, while open, the engines ``cli/deep_search.py`` builds (its
+    ``make_clients``), every request an engine is handed (``min_tokens``
+    and result) and every prefill dispatch (engine, seconds, rows, new and
+    cached tokens)."""
+    from deepsearch_tts_tpu_torch.cli import deep_search as ds
+    from deepsearch_tts_tpu_torch.engine.engine import Engine
+
+    rec = {"engines": [], "requests": [], "prefills": []}
+    make_clients, submit, prefill = ds.make_clients, Engine.submit, Engine._prefill_group
+
+    def make(args):
+        import torch
+
+        t = time.time()
+        main, aux, engine = make_clients(args)
+        torch.cuda.synchronize()   # random weights are drawn on the card
+        rec["engines"] = [main.engine, aux.engine]
+        rec["build_s"] = time.time() - t
+        return main, aux, engine
+
+    def sub(self, req):
+        fut = submit(self, req)
+        rec["requests"].append((self, req.min_tokens, fut))
+        return fut
+
+    def pre(self, bucket, grp):
+        t = time.time()
+        prefill(self, bucket, grp)
+        rec["prefills"].append((self, time.time() - t, len(grp),
+                                sum(len(p["suffix"]) for p in grp),
+                                sum(p["cached_len"] for p in grp)))
+
+    ds.make_clients, Engine.submit, Engine._prefill_group = make, sub, pre
+    try:
+        yield rec
+    finally:
+        ds.make_clients, Engine.submit, Engine._prefill_group = make_clients, submit, prefill
+
+
+def _newest(out: str, pattern: str) -> str:
+    import glob
+
+    files = sorted(glob.glob(os.path.join(out, pattern)))
+    assert files, f"no {pattern} in {out}"
+    return files[-1]
+
+
+def phase_product_scripted() -> dict:
+    """Part 1: ``cli/deep_search.py --mode solve --backend engine
+    --search_backend replay --device cuda --temperature 0.0`` over the
+    scripted families, the scripts as CUDA tensors: the answer, the two
+    searches with their queries, the seven message roles, three engine
+    requests with prefix reuse, and B5 launched on every sample."""
+    import asyncio
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.agents.policy import PolicyAgent
+    from deepsearch_tts_tpu_torch.agents.websearch import WebSearchTool
+    from deepsearch_tts_tpu_torch.cli import deep_search as ds
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.models import registry
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    tok = ByteTokenizer()
+    out = os.path.join(PRODUCT_DIR, "scripted")
+    problems = os.path.join(PRODUCT_DIR, "scripted.json")
+    with open(problems, "w", encoding="utf-8") as f:
+        json.dump([{"Question": SCRIPT_QUESTION}], f)
+    argv = _product_argv("solve", out, [
+        "--input_path", problems, "--model_name", "script-main", "--aux_model_name",
+        "script-aux", "--engine_max_slots", "4", "--engine_page_size", "16",
+        "--engine_pages", "1025", "--engine_max_seq_len", "4096", "--temperature", "0.0",
+        "--max_tokens", "512", "--max_search_calls", "5"])
+    args = ds.build_parser().parse_args(argv)
+    # the dry run: the port's own agent stack with recording clients
+    backend, fetcher = ds.make_search(args)
+    main, aux = _Recorder(chat_replies=SCRIPT_MAIN), _Recorder(complete_replies=SCRIPT_AUX)
+    gen = {"temperature": args.temperature, "top_p": args.top_p, "min_p": args.min_p,
+           "top_k_sampling": args.top_k_sampling,
+           "repetition_penalty": args.repetition_penalty,
+           "max_tokens": min(args.max_tokens, 16384)}
+    agent = PolicyAgent(main, search_tool=WebSearchTool(backend, fetcher, aux,
+                                                        top_k=args.top_k, gen_opts=gen),
+                        max_search_calls=args.max_search_calls, gen_opts=gen)
+    assert asyncio.run(agent.solve(SCRIPT_QUESTION)).answer == "Paris"
+    scripts = {
+        "script-main": _token_script(tok, (
+            (tok.apply_chat_template(m, t, add_generation_prompt=True), o)
+            for m, t, o in main.chat_calls)),
+        "script-aux": _token_script(tok, aux.complete_calls)}
+
+    class ScriptCfg:
+        vocab_size = tok.vocab_size
+        n_layers = 1
+        n_kv_heads = 1
+        head_dim = 8
+        torch_dtype = torch.float32
+        custom_init = True
+
+    for name, script in scripts.items():
+        registry.register(name, ScriptCfg(), _script_forward,
+                          init_params=lambda cfg, *, seed, device, s=script: {"script": s})
+    sp.sampling_prep.launches = 0
+    t0 = time.time()
+    with _product_probe() as rec:
+        ds.main(argv)
+    wall = time.time() - t0
+    row, = json.load(open(_newest(out, "policy_results_*.json"), encoding="utf-8"))
+    stats = json.load(open(_newest(out, "statistics_*.json"), encoding="utf-8"))
+    assert all(e.device.type == "cuda" for e in rec["engines"]), rec["engines"]
+    assert row["pred_answer"] == "Paris", row["pred_answer"]
+    assert [w["search_query"] for w in row["web_search"]] == ["capital of France",
+                                                              "Paris population"]
+    assert "capital of France" in row["web_search"][0]["extracted_info"]
+    roles = [m["role"] for m in row["messages"]]
+    assert roles == ["system", "user", "assistant", "tool", "assistant", "tool",
+                     "assistant"], roles
+    assert "\\boxed{Paris}" in row["messages"][-1]["content"]
+    eng = stats["engine"]
+    assert eng["requests"] == 3, eng
+    assert eng["prefix_cache"]["hits"] >= 1 and eng["prefix_cache"]["tokens_reused"] > 0, eng
+    samples = sum(e.stats["decode_steps"] * e.decode_chunk_len + e.stats["prefill_dispatches"]
+                  for e in rec["engines"])
+    assert sp.sampling_prep.launches == samples > 0, (sp.sampling_prep.launches, samples)
+    res = {"wall_s": wall, "requests": eng["requests"],
+           "prefix_hits": eng["prefix_cache"]["hits"],
+           "tokens_reused": eng["prefix_cache"]["tokens_reused"],
+           "aux_requests": rec["engines"][1].stats["requests"],
+           "sampling_prep_launches": sp.sampling_prep.launches}
+    log(f"[product-scripted] solve on the card: pred_answer 'Paris', searches "
+        f"{[w['search_query'] for w in row['web_search']]}, roles {roles}; engine requests "
+        f"{res['requests']} (aux {res['aux_requests']}), prefix hits {res['prefix_hits']}, "
+        f"tokens reused {res['tokens_reused']}; B5 launches {res['sampling_prep_launches']} "
+        f"(= samples); {wall:.2f} s")
+    for name in scripts:
+        registry.MODEL_REGISTRY.pop(name)
+    return res
+
+
+def phase_product_kernels() -> dict:
+    """B3 and B4 at the aux qwen3-4b's widths (hidden 2560, q heads 32 x
+    128, F = 9728) against their plain versions, every layer of a two-layer
+    stack, at the aux engine's decode batches (B = 1, 4, 8); the inputs
+    draw from a generator of their own."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import rope_angles
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    dev, bf, L = torch.device("cuda"), torch.bfloat16, 2
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    assert fl.shapes_ok(A_E, A_H * D, A_F, D)
+    ln1, ln2 = rnd(L, A_E, scale=0.1) + 1, rnd(L, A_E, scale=0.1) + 1
+    qn, kn = rnd(L, D, scale=0.1) + 1, rnd(L, D, scale=0.1) + 1
+    wqkv = rnd(L, A_E, (A_H + 2 * A_KV) * D, scale=A_E ** -0.5)
+    wo = rnd(L, A_H * D, A_E, scale=(A_H * D) ** -0.5)
+    gateup = rnd(L, A_E, 2 * A_F, scale=A_E ** -0.5)
+    wd = rnd(L, A_F, A_E, scale=A_F ** -0.5)
+    errs = {"fused_qkv_stacked": 0.0, "fused_out_mlp_stacked": 0.0}
+    kw = dict(n_heads=A_H, n_kv=A_KV, head_dim=D, eps=1e-6)
+    for B in (1, 4, 8):
+        x, a = rnd(B, A_E), rnd(B, A_H * D)
+        pos = torch.randint(0, 4000, (B,), generator=g, device=dev)
+        cos, sin = rope_angles(pos, D, 1_000_000.0)
+        for layer in range(L):
+            got = fl.fused_qkv_stacked(x, ln1, wqkv, qn, kn, cos, sin, layer, **kw)
+            ref = fl.fused_qkv_stacked_plain(x, ln1, wqkv, qn, kn, cos, sin, layer, **kw)
+            got4 = fl.fused_out_mlp_stacked(a, x, wo, ln2, gateup, wd, layer, eps=1e-6)
+            ref4 = fl.fused_out_mlp_stacked_plain(a, x, wo, ln2, gateup, wd, layer, eps=1e-6)
+            torch.cuda.synchronize()
+            for gt, r in zip(got, ref):
+                torch.testing.assert_close(gt.float(), r.float(), rtol=BF16_RTOL, atol=BF16_ATOL)
+                errs["fused_qkv_stacked"] = max(errs["fused_qkv_stacked"], _err(gt, r))
+            torch.testing.assert_close(got4.float(), ref4.float(), rtol=BF16_RTOL,
+                                       atol=BF16_ATOL)
+            errs["fused_out_mlp_stacked"] = max(errs["fused_out_mlp_stacked"], _err(got4, ref4))
+    log(f"[product-kernels] B3 / B4 at {PRODUCT_AUX} widths (E={A_E}, H*D={A_H * D}, "
+        f"F={A_F}), B = 1, 4, 8: max_abs_err B3 {errs['fused_qkv_stacked']:.3e}, "
+        f"B4 {errs['fused_out_mlp_stacked']:.3e}")
+    return errs
+
+
+def _product_rows_ok(mode: str, rows: list, n: int) -> None:
+    """The reference trace fields each mode's rows carry (tests/test_cli.py)."""
+    assert len(rows) == n, (mode, len(rows), n)
+    for r in rows:
+        assert {"Question", "pred_answer", "messages", "web_search"} <= set(r), (mode, set(r))
+        assert r["pred_answer"] and r["messages"][0]["role"] == "system", (mode, r["messages"][:1])
+        if mode.startswith("verify"):
+            assert "confidence_score" in r and "verification_searches" in r, (mode, set(r))
+        if mode.endswith("budget_forcing"):
+            # the nudge, then the re-entry turn
+            i = max(k for k, m in enumerate(r["messages"]) if m["role"] == "user")
+            assert "additional search" in r["messages"][i]["content"], r["messages"][i]
+            assert any(m["role"] == "assistant" for m in r["messages"][i + 1:]), mode
+        if mode == "solve_bestofn":
+            assert "best_of_n" in r or r["pred_answer"].startswith("Error"), (mode, set(r))
+
+
+def _product_mode(card: str, counters: dict, mode: str, argv: list, mdir: str,
+                  n: int | None) -> dict:
+    """One mode of :func:`phase_product` through ``cli/deep_search.py``; the
+    engines it builds are gone when it returns."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.cli import deep_search as ds
+
+    _zero(counters)
+    _free()
+    held = torch.cuda.memory_allocated() / 2**30
+    assert held < 1.0, (mode, held)   # the last mode's engines are gone
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with _product_probe() as rec:
+        ds.main(argv)
+    wall = time.time() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    main, aux = rec["engines"]
+    assert main.device.type == aux.device.type == "cuda"
+    assert main.layer_fusion, "the qwen3-8b policy must run the fused decode layers"
+    if mode == "solve":
+        log(f"[product] {PRODUCT_AUX} aux: layer_fusion={aux.layer_fusion} "
+            f"({'B3 / B4' if aux.layer_fusion else 'the layer-by-layer plain decode'}; "
+            f"fused_decode_fits at hidden {aux.cfg.hidden}, q heads x head_dim "
+            f"{aux.cfg.n_heads * aux.cfg.head_dim})")
+    tel = {name: e.telemetry() for name, e in (("main", main), ("aux", aux))}
+    steps = {k: t["decode_steps"] * e.decode_chunk_len
+             for (k, t), e in zip(tel.items(), (main, aux))}
+    samples = sum(steps[k] + tel[k]["prefill_dispatches"] for k in tel)
+    fused = main.cfg.n_layers * steps["main"] + (
+        aux.cfg.n_layers * steps["aux"] if aux.layer_fusion else 0)
+    launches = {k: f.launches for k, f in counters.items()}
+    log(f"[product:{mode}] decode steps main {steps['main']} aux {steps['aux']}, "
+        f"prefill dispatches main {tel['main']['prefill_dispatches']} aux "
+        f"{tel['aux']['prefill_dispatches']}, launches {launches}")
+    assert launches["fused_qkv_stacked"] == launches["fused_out_mlp_stacked"] == fused, (
+        launches, fused)
+    assert launches["sampling_prep"] == samples > 0, (launches, samples)
+    if mode == "search":
+        assert steps["aux"] > 0 and tel["main"]["requests"] == 0, tel
+    else:
+        assert steps["main"] > 0 and main.cfg.n_layers * steps["main"] > 0
+        result = _newest(mdir, ("verifier" if mode.startswith("verify") else "policy")
+                         + "_results_*.json")
+        rows = json.load(open(result, encoding="utf-8"))
+        _product_rows_ok(mode, rows, n)
+    if mode == "solve_budget_forcing":
+        # logit budget forcing: min_tokens on each trajectory's re-entry
+        # turn only, and the engine held EOS back for those tokens
+        forced = [f.result() for e, m, f in rec["requests"] if e is main and m]
+        assert len(forced) == n and all(
+            r.completion_tokens >= 64 for r in forced), [r.completion_tokens for r in forced]
+    stats = json.load(open(_newest(mdir, "statistics_*.json"), encoding="utf-8")) \
+        if mode != "search" else {}
+    who = "aux" if mode == "search" else "main"
+    eng = (main, aux)[who == "aux"]
+    first = {"s": 0.0, "rows": 0, "tokens": 0}
+    for e, dt, g, new, cached in rec["prefills"]:
+        # the dispatches of the trajectories' first turns: the first
+        # ones of the engine that serves them, one row a trajectory
+        if e is eng and first["rows"] < (n or 1):
+            first["s"] += dt
+            first["rows"] += g
+            first["tokens"] += new + cached
+    usage = stats.get("token_usage", {}).get("main", {})
+    t = tel[who]
+    res = {
+        "wall_s": wall, "trajectories": n or 1, "build_s": rec["build_s"],
+        "policy_turns": tel["main"]["requests"], "aux_requests": tel["aux"]["requests"],
+        "prompt_tokens": usage.get("prompt_tokens", sum(
+            f.result().prompt_tokens for e, _, f in rec["requests"] if e is eng)),
+        "generated_tokens": usage.get("completion_tokens", t["decode_tokens"]),
+        "decode_tokens_per_s": t.get("decode_tokens_per_s"),
+        "tokens_reused": t.get("prefix_cache", {}).get("tokens_reused"),
+        "prefix_hits": t.get("prefix_cache", {}).get("hits"),
+        "first_turn_prefill_s": first["s"], "first_turn_prefill_share": first["s"] / wall,
+        "first_turn_prompt_tokens": first["tokens"],
+        "prefill_s": t["prefill_time_s"], "decode_s": t["decode_time_s"],
+        "peak_gib": peak, "engine": who, "launches": launches,
+        "aux_layer_fusion": aux.layer_fusion,
+    }
+    log(f"[product:{mode}] {res['wall_s']:.2f} s wall ({res['build_s']:.2f} s building "
+        f"both engines), {res['trajectories']} trajectories, policy turns "
+        f"{res['policy_turns']}, aux requests {res['aux_requests']}, prompt tokens "
+        f"{res['prompt_tokens']}, generated {res['generated_tokens']}, {who} decode "
+        f"{res['decode_tokens_per_s'] or 0:.1f} tok/s, prefix hits {res['prefix_hits']} "
+        f"({res['tokens_reused']} tokens reused), first turn's prefill "
+        f"{res['first_turn_prefill_s']:.3f} s ({100 * res['first_turn_prefill_share']:.1f} % "
+        f"of the wall), peak {peak:.2f} GiB | {card}")
+    return res
+
+
+def _product_phases(card: str) -> dict:
+    """The product phase: the scripted scenario, B3 / B4 at the aux's
+    widths, then the pipeline at full width; its results by part."""
+    import shutil
+
+    shutil.rmtree(PRODUCT_DIR, ignore_errors=True)
+    os.makedirs(PRODUCT_DIR)
+    with open(os.path.join(PRODUCT_DIR, "replay.json"), "w", encoding="utf-8") as f:
+        json.dump(REPLAY_STORE, f)
+    out = {"scripted": phase_product_scripted(),
+           "aux_width_err": phase_product_kernels()}
+    out["modes"] = phase_product(card)
+    return out
+
+
+def phase_product(card: str) -> dict:
+    """Part 2: qwen3-8b at its published widths (36 layers, bf16, random
+    weights from --seed 0) with qwen3-4b co-served as the aux, through
+    ``cli/deep_search.py`` on the card: ByteTokenizer, the replay store,
+    four problems at --concurrent_limit 4, --max_tokens 64
+    (``PRODUCT_MAX_TOKENS``), --max_search_calls 2, the CLI's default sampler, --engine_pages 1024
+    --engine_max_slots 16 (the aux half of each). The paper's pipeline in
+    order: solve, verify over its rows, solve_budget_forcing (logit, 64
+    forced tokens) over the same rows, solve_bestofn (2 samples, 2
+    problems), and search (the aux's complete through the explorer). Each
+    mode's rows are checked; B3 / B4 must count 36 a decode step of each
+    engine that runs the fused decode, B5 one a sample."""
+    import torch
+
+    problems = os.path.join(PRODUCT_DIR, "problems.json")
+    with open(problems, "w", encoding="utf-8") as f:
+        json.dump([{"Question": q, "answer": "Paris", "id": i}
+                   for i, q in enumerate(PRODUCT_QUESTIONS[:PRODUCT_PROBLEMS])], f)
+    common = ["--model_name", PRODUCT_MAIN, "--aux_model_name", PRODUCT_AUX, "--seed", "0",
+              "--concurrent_limit", "4", "--max_tokens", str(PRODUCT_MAX_TOKENS),
+              "--max_search_calls", "2",
+              "--engine_pages", str(PRODUCT_PAGES), "--engine_max_slots", str(SLOTS)]
+    solved = os.path.join(PRODUCT_DIR, "solve")
+    modes = [
+        ("solve", solved, ["--input_path", problems], PRODUCT_PROBLEMS),
+        ("verify", os.path.join(PRODUCT_DIR, "verify"), ["--input_path", None],
+         PRODUCT_PROBLEMS),
+        ("solve_budget_forcing", os.path.join(PRODUCT_DIR, "sbf"),
+         ["--input_path", None, "--budget_forcing", "logit", "--min_thinking_tokens", "64"],
+         PRODUCT_PROBLEMS),
+        ("solve_bestofn", os.path.join(PRODUCT_DIR, "bestofn"),
+         ["--input_path", problems, "--n_samples", "2", "--limit", "2"], 2),
+        ("search", os.path.join(PRODUCT_DIR, "search"),
+         ["--query", "capital of France", "--context", "find the capital city of France"],
+         None),
+    ]
+    counters = _counters(PRODUCT_MAIN)
+    out: dict = {}
+    for mode, mdir, extra, n in modes:
+        extra = [_newest(solved, "policy_results_*.json") if a is None else a for a in extra]
+        out[mode] = _product_mode(card, counters, mode,
+                                  _product_argv(mode, mdir, common + extra), mdir, n)
+    _free()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[product] engines released: {held:.3f} GiB still allocated")
+    assert held < 1.0, held
+    return out
+
+
 def _post(url: str, payload: dict, timeout: float = 600.0) -> tuple[int, dict, float]:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -2555,6 +3071,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel checks (prints "
                          "the kernel results, not the final line)")
+    ap.add_argument("--product-only", action="store_true",
+                    help="only the build and the product phase (prints the "
+                         "product line, not the final line)")
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "deepsearch_tts_tpu_torch")):
         raise SystemExit("chip_smoke: deepsearch_tts_tpu_torch/ not found next to "
@@ -2564,6 +3083,9 @@ def main(argv=None) -> int:
 
     card = phase_env()
     phase_build()
+    if opts.product_only:
+        print(json.dumps({"product": _product_phases(card), "card": card}))
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
     res.update(phase_attention_kernels(gen))
@@ -2601,6 +3123,10 @@ def main(argv=None) -> int:
     held = torch.cuda.memory_allocated() / 2**30
     log(f"[release] qwen3-8b engines and weights released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
+    # the product path, on a card that holds nothing else
+    product = _product_phases(card)
+    for name in ("fused_qkv_stacked", "fused_out_mlp_stacked"):
+        res[name]["err"] = max(res[name]["err"], product["aux_width_err"][name])
     moe_serve, engine = phase_serve(card, model=MOE_MODEL, profile=opts.profile, tag="moe")
     phase_reference(engine, plain_experts=True)
     params = _release(engine)
@@ -2713,6 +3239,7 @@ def main(argv=None) -> int:
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
                       "b12_shapes": b12_shapes, "card": card}))
+    print(json.dumps({"product": product, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
