@@ -32,22 +32,32 @@ Phases, each raising on failure (non-zero exit, no final line):
    ``torch._grouped_mm`` where this PyTorch has it; and B3 / B1 / B2 at its
    query group G = 8;
 4. serve: ``deepsearch_tts_tpu_torch.cli.serve.build_engine`` builds
-   qwen3-8b (full width, bf16, random weights from a seed) on the card; an
+   qwen3-8b (full width, bf16, random weights from a seed, the CLI's
+   defaults: the prefill lane of 16 rows on) on the card; an
    ``OpenAIServer`` on an ephemeral localhost port answers chat and
    completion requests over HTTP; the kernel launch counters, reset just
    before, must show that decode and sampling went through the kernels;
+   then the lane check: while a long greedy request decodes, six prompts of
+   at most 16 tokens over HTTP and one in-process ride the lane whole
+   (``lane_tokens`` = their prompt tokens, each activated), B3 / B4 once a
+   layer and step, B5 once a sample (a lane chunk samples its prompts'
+   first tokens in one call), the in-process stream teacher-forced through
+   the no-cache forward;
 5. reference: the same weights' paged prefill + fused decode logits against
    the plain no-cache forward on a short input;
-6. slot serve: ``Engine(cache_mode="slot")`` on the same weights, whose
-   ``attn_impl`` resolves to ``"pallas"`` on the card, over HTTP: decode
-   must run B1 once per layer and step, and a multi-turn follow-up must
-   re-enter its parked row;
+6. slot serve: ``Engine(cache_mode="slot", prefill_lane=16)`` on the same
+   weights, whose ``attn_impl`` resolves to ``"pallas"`` on the card, over
+   HTTP: decode must run B1 once per layer and step, a multi-turn
+   follow-up must re-enter its parked row, and phase 4's lane check;
 7. Pallas paged serve: ``Engine(attn_impl="pallas",
    enable_prefix_cache=False)``: fresh prefill through B2 (a ~3000-token
    prompt, timed beside phase 4's), decode through ``pallas_paged_attention``;
    then short runs with ``attn_impl="pallas2"`` and ``"clamp"``;
 8. reference: slot prefill + B1 decode, and B2 fresh prefill + B6 decode,
    against the plain no-cache forward;
+8a. ``chunk_trim`` on the same weights (``trim_min_rows=1``, after
+   ``warmup()``): three greedy requests trim a chunk and give the untrimmed
+   engine's tokens;
 9. release: the qwen3-8b engines and weights are dropped; less than 1 GiB
    may stay allocated on the card;
 9a. product (``--product-only`` runs it alone, after the build):
@@ -67,7 +77,8 @@ Phases, each raising on failure (non-zero exit, no final line):
    line reports each mode's wall time, turns, tokens, decode rate, prefix
    reuse, first-turn prefill and peak memory;
 10. MoE serve: phase 4 for qwen3-30b-a3b (full width, 61 GB of random bf16
-    weights): decode through B3, B7 and the grouped expert kernel, whose
+    weights; the lane check without teacher forcing: B3, B7 and the experts
+    over B + 16 rows): decode through B3, B7 and the grouped expert kernel, whose
     counters must equal 48 x the decode steps (B3, B7) and 48 x (decode
     steps + prefill forwards) (each expert entry, either kernel; the long
     prompt's prefill takes the prefill kernel, the decode steps the decode
@@ -80,7 +91,9 @@ Phases, each raising on failure (non-zero exit, no final line):
     re-entry;
 13. int8 kernels (run with phase 3): B10 (``fused_qkv_stacked_i8``,
     ``fused_out_mlp_stacked_i8``) at qwen3-32b and qwen3-8b widths, B = 1,
-    16 and 64 on every layer of a four-layer stack, a plain output with one
+    16 and 64 on every layer of a four-layer stack (qwen3-32b also at 65,
+    80 and 128 rows: one launch a 64-row group, timed, a ring stage left
+    out failing the bound at 80; the lm_head product at 65), a plain output with one
     ring stage of K or one column tile left out failing each check at B = 1
     and 16; B10's bare int8 product at the qwen3-32b ``lm_head`` shape
     beside ``torch._weight_int8pack_mm`` and at the layer shapes and a
@@ -93,12 +106,17 @@ Phases, each raising on failure (non-zero exit, no final line):
     the CLI's paged cache and prefix cache, over HTTP as phase 4: B12 once
     per quantized matrix at build, B10 once per layer and decode step;
 15. int8 reference: its serving logits against the no-cache forward on the
-    same int8 params with the plain int8 products;
+    same int8 params with the plain int8 products; then a decode step of 64
+    rows carrying a 16-row lane (B10 over 80 rows, the lm_head over 65)
+    held to the same step with the plain int8 products, and an
+    ``Engine(max_slots=64, prefill_lane=16)`` on those weights serving a
+    lane prompt beside a decoding request;
 16. speculative kernels (run with phase 3): B9 (``slot_window_attention``,
     K1 in its T-row mode) against its plain version on phase 3's slot pool,
     W = 4 and 8 (qwen3-8b widths) and W = 4, 8 and 16 (G = 8; 16 splits
     into two launches); B3 / B4 / B10 at 64 rows, a verify step's
-    16 x (3 + 1);
+    16 x (3 + 1); B3 / B4 (and B7 at qwen3-30b-a3b widths) also at 80 rows,
+    a lane step at 64 slots: a second 64-row group;
 17. speculative serve, after phase 6: ``Engine(cache_mode="slot",
     speculative="ngram", spec_k=3)`` on the qwen3-8b weights over HTTP,
     phase 6's requests, then a greedy full batch whose tokens per verify
@@ -141,6 +159,10 @@ Phases, each raising on failure (non-zero exit, no final line):
     through ``pallas_paged_attention``; then slot and paged prefill + K3
     decode against the no-cache forward; the weights are released and
     less than 1 GiB may stay allocated.
+
+MLA (phases 21-23) has no prefill lane, as in JAX: it is served with
+``--prefill_lane 0``. The times at row counts past 64 are printed under
+``past_64`` in the runs line.
 
 Every kernel entry of the JSON line before the last carries its bound
 (``bound_ms``: the larger of its bytes over 3.35 TB/s and its operations
@@ -219,6 +241,14 @@ F32_FLOP_S = 67e12       # float32 outside the tensor cores
 STOCH_MEAN_BOUND = 1e-3
 # the speculative engine of phases 17-19, and its verify window
 SPEC_KW = dict(speculative="ngram", spec_k=3)
+# the prefill lane: cli/serve.py's --prefill_lane default, and the prompts of
+# the lane checks (at most LANE bytes each, each with a first byte that no
+# other prompt of the smoke starts with: a parked slot row is re-entered on
+# any shared first token, and a re-entry prefills batched)
+LANE = 16
+LANE_ROWS = 64 + LANE     # a lane step's rows at the CLIs' default 64 slots
+LANE_PROMPTS = ("@ lane one", "# lane two?", "$ three", "% lane 4", "& five!", "~ six")
+LANE_GREEDY = "^ greedy lane"
 WIN = SPEC_KW["spec_k"] + 1
 GREEDY = dict(temperature=0.0, repetition_penalty=1.0)
 # the five matrix shapes a qwen3-32b int8 build quantizes (B12)
@@ -244,6 +274,12 @@ PRODUCT_PROBLEMS, PRODUCT_PAGES = 4, 1024
 PRODUCT_MAX_TOKENS = 64
 PRODUCT_DIR = os.path.join(HERE, "build", "product_smoke")
 SCRIPT_LEN = 6144        # the scripted families' token script (positions)
+
+
+# kernel times at row counts past 64 (prefill-lane and verify steps: one
+# launch a 64-row group), kept apart from the kernel line's decode-batch
+# times: "<kernel> <model> B=<rows>" -> err, ms, plain_ms, bound_ms, ...
+PAST_64: dict = {}
 
 
 def log(msg: str) -> None:
@@ -394,10 +430,15 @@ def phase_kernels(gen) -> dict:
     wd = rnd(L, FF, E, scale=FF ** -0.5)
     res = {"fused_qkv_stacked": {"err": 0.0}, "fused_out_mlp_stacked": {"err": 0.0},
            "sampling_prep": {"err": 0.0}}
-    for B in (1, 8, SLOTS, SLOTS * WIN):   # 64: a verify step's rows
-        x = rnd(B, E)
-        a = rnd(B, H * D)
-        pos = torch.randint(0, 4000, (B,), generator=gen, device=dev)
+    # 64: a verify step's rows; LANE_ROWS: a lane step's, a second 64-row
+    # group (blockIdx.z = 1), its inputs from a generator of their own so
+    # that later phases see their old inputs
+    lane_gen = torch.Generator(device=dev).manual_seed(13)
+    for B in (1, 8, SLOTS, SLOTS * WIN, LANE_ROWS):
+        g = lane_gen if B == LANE_ROWS else gen
+        x = (torch.randn((B, E), generator=g, device=dev)).to(bf)
+        a = (torch.randn((B, H * D), generator=g, device=dev)).to(bf)
+        pos = torch.randint(0, 4000, (B,), generator=g, device=dev)
         cos, sin = rope_angles(pos, D, 1_000_000.0)
         kw = dict(n_heads=H, n_kv=KV, head_dim=D, eps=1e-6)
         args3 = (x, ln1, wqkv, qn, kn, cos, sin)
@@ -438,6 +479,9 @@ def phase_kernels(gen) -> dict:
             res[name]["err"] = max(res[name]["err"], e)
             if B == SLOTS:
                 res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, **bd)
+            if B == LANE_ROWS:
+                PAST_64[f"{name} qwen3-8b B={B}"] = dict(err=e, ms=t[0], plain_ms=p[0],
+                                                         library_ms=None, **bd)
 
     # B3 with bf16 cos / sin (read as stored: widening is exact) at B = 1,
     # 16 and 64, and a plain output whose input norm left out one K chunk
@@ -1002,7 +1046,7 @@ def phase_moe_kernels(gen) -> dict:
         wo = rnd(L, M_H * D, M_E, scale=(M_H * D) ** -0.5)
         ln = rnd(L, M_E, scale=0.1) + 1
         router = rnd(L, M_E, M_NE, scale=M_E ** -0.5)
-        for B in (1, SLOTS, 64, 80):
+        for B in (1, SLOTS, 64, LANE_ROWS):
             g = gen if B == SLOTS else aux
             a = (torch.randn((B, M_H * D), generator=g, device=dev)).to(bf)
             x = (torch.randn((B, M_E), generator=g, device=dev)).to(bf)
@@ -1016,7 +1060,7 @@ def phase_moe_kernels(gen) -> dict:
                     "fused_out_router_stacked: two calls on the same inputs differ", B, layer)
             if timed and B == SLOTS:
                 _b7_faults(a, x, wo, ln, router)
-            if timed and B <= 64:
+            if timed:
                 def walk(f):
                     return lambda: [f(a, x, wo, ln, router, layer) for layer in range(L)]
 
@@ -1028,6 +1072,10 @@ def phase_moe_kernels(gen) -> dict:
                 if B == SLOTS:
                     res["fused_out_router_stacked"].update(
                         ms=t[0], plain_ms=p[0], shape=f"B={B} (8 layers walked)",
+                        library_ms=None, **bd)
+                if B == LANE_ROWS:   # two cooperative launches, one barrier count
+                    PAST_64[f"fused_out_router_stacked {MOE_MODEL} B={B}"] = dict(
+                        err=res["fused_out_router_stacked"]["err"], ms=t[0], plain_ms=p[0],
                         library_ms=None, **bd)
                 log(f"[kernel] B7 fused_out_router_stacked B={B} | device kernel "
                     f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager "
@@ -1201,6 +1249,72 @@ def _i8_fault_uses(tag: str, ref, faults: dict) -> None:
     assert min(uses.values()) > 1.0, (tag, uses)
 
 
+def _i8_past_64(res, gen, L, norms, wqkv, wo, gu, wd, kw, drop) -> None:
+    """B10's two entries at qwen3-32b widths past 64 rows (C4): 65 (a lane
+    step's lm_head rows), 80 (a lane step at 64 slots) and 128 rows, one
+    launch a 64-row group; every layer of the stack checked, the layers
+    walked for the time, each with its bound; at 80 rows a plain output
+    with one ring stage of wqkv or wd left out must fail the bound."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.models.common import rope_angles
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    ln1, ln2, qn, kn = norms
+    (wq, ws), (woq, wos), (guq, gus), (wdq, wds) = wqkv, wo, gu, wd
+    e, C, hd, f = wq.shape[1], wq.shape[2], woq.shape[1], wdq.shape[1]
+    for B in (65, LANE_ROWS, 128):
+        x = torch.randn((B, e), generator=gen, device=dev).to(bf)
+        a = torch.randn((B, hd), generator=gen, device=dev).to(bf)
+        cos, sin = rope_angles(torch.randint(0, 4000, (B,), generator=gen, device=dev),
+                               D, 1_000_000.0)
+        args_q = (x, ln1, wq, ws, qn, kn, cos, sin)
+        args_o = (a, x, woq, wos, ln2, guq, gus, wdq, wds)
+        sub: dict = {}
+        for layer in range(L):
+            label = f"{I8_MODEL} B={B} layer={layer}"
+            _check_kernel(sub, "fused_qkv_stacked_i8", label,
+                          lambda: fl.fused_qkv_stacked_i8(*args_q, layer, **kw),
+                          lambda: fl.fused_qkv_stacked_i8_plain(*args_q, layer, **kw),
+                          rtol=BF16_RTOL, atol=BF16_ATOL)
+            _check_kernel(sub, "fused_out_mlp_stacked_i8", label,
+                          lambda: fl.fused_out_mlp_stacked_i8(*args_o, layer, eps=1e-6),
+                          lambda: fl.fused_out_mlp_stacked_i8_plain(*args_o, layer, eps=1e-6),
+                          rtol=BF16_RTOL, atol=BF16_ATOL,
+                          slack=_x2_ulp(a, x, woq[layer], wos[layer]))
+        if B == LANE_ROWS:
+            ref = torch.cat(fl.fused_qkv_stacked_i8_plain(*args_q, 0, **kw), 1)
+            wf = drop(wq[0], stage=17)[None]
+            _i8_fault_uses(f"fused_qkv_stacked_i8 B={B}", ref, {
+                "stage 17 of wqkv dropped": torch.cat(fl.fused_qkv_stacked_i8_plain(
+                    x, ln1, wf, ws, qn, kn, cos, sin, 0, **kw), 1)})
+            ref = fl.fused_out_mlp_stacked_i8_plain(*args_o, 0, eps=1e-6)
+            wf = drop(wdq[0], stage=201)[None]
+            _i8_fault_uses(f"fused_out_mlp_stacked_i8 B={B}", ref, {
+                "stage 201 of wd dropped": fl.fused_out_mlp_stacked_i8_plain(
+                    a, x, woq, wos, ln2, guq, gus, wf, wds, 0, eps=1e-6)})
+            del ref, wf
+        w_o = hd * e + 3 * e * f
+        for name, fk, fp, args, k, nbytes, flop in (
+                ("fused_qkv_stacked_i8", fl.fused_qkv_stacked_i8,
+                 fl.fused_qkv_stacked_i8_plain, args_q, kw,
+                 e * C + 4 * C + 2 * (B * e + e + 2 * D + B * C) + 4 * B * D, 2 * B * e * C),
+                ("fused_out_mlp_stacked_i8", fl.fused_out_mlp_stacked_i8,
+                 fl.fused_out_mlp_stacked_i8_plain, args_o, {"eps": 1e-6},
+                 w_o + 4 * (2 * e + 2 * f) + 2 * (B * hd + 2 * B * e + e), 2 * B * w_o)):
+            t = time_ms(lambda: [fk(*args, layer, **k) for layer in range(L)], calls=L)
+            p = time_ms(lambda: [fp(*args, layer, **k) for layer in range(L)], calls=L)
+            bd = bound(nbytes, flop)
+            PAST_64[f"{name} {I8_MODEL} B={B}"] = dict(err=sub[name]["err"], ms=t[0],
+                                                       plain_ms=p[0], library_ms=None, **bd)
+            res[name]["err"] = max(res[name]["err"], sub[name]["err"])
+            log(f"[kernel] {name:26s} {I8_MODEL} B={B} ({len(fl.i8_row_groups(B))} launches) | "
+                f"device kernel {t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} "
+                f"ms plain {p[1]:.4f} ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) | "
+                f"{nbytes / t[0] / 1e6:.1f} GB/s")
+
+
 def phase_int8_kernels(gen) -> dict:
     """B10's two entries and its bare int8 product, and B12, against their
     plain versions (B10 at qwen3-32b and qwen3-8b widths, B = 1, 16 and 64,
@@ -1222,6 +1336,7 @@ def phase_int8_kernels(gen) -> dict:
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     res: dict = {}
+    gen_rows = torch.Generator(device=dev).manual_seed(17)   # the past-64 rows' inputs
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
@@ -1338,6 +1453,9 @@ def phase_int8_kernels(gen) -> dict:
                     log(f"[kernel] fused_out_mlp_stacked_i8 {model} B={B}: three "
                         f"torch._weight_int8pack_mm calls a layer {lib3:.4f} ms")
                 del pk
+        if model == I8_MODEL:
+            _i8_past_64(res, gen_rows, L, (ln1, ln2, qn, kn), (wq, ws), (woq, wos),
+                        (guq, gus), (wdq, wds), kw, drop)
         del wq, ws, woq, wos, guq, gus, wdq, wds
 
     # the bare int8 product at the lm_head shape (778 MB of int8; 593.5
@@ -1360,6 +1478,19 @@ def phase_int8_kernels(gen) -> dict:
             "tile 300 dropped": fl.int8_product_plain(x, drop(hq, tile=300), hs)})
     if lib is None:
         log("[kernel] int8_product: torch._weight_int8pack_mm has no CUDA kernel here")
+    # the lm_head of a lane step at 64 slots: 64 decode rows and the lane's
+    # row, two launches (64 + 1 rows)
+    B = 64 + 1
+    x = torch.randn((B, Q_E), generator=gen_rows, device=dev).to(bf)
+    lib = _int8pack(x, hq.t().contiguous(), hs[0].to(bf))
+    sub: dict = {}
+    _check_kernel(sub, "int8_product", f"lm_head B={B} [{Q_E}, {V32}]",
+                  lambda: fl.int8_product(x, hq, hs), lambda: fl.int8_product_plain(x, hq, hs),
+                  rtol=BF16_RTOL, atol=BF16_ATOL, timed=True,
+                  nbytes=Q_E * V32 + 4 * V32 + 2 * B * (Q_E + V32), flop=2 * B * Q_E * V32,
+                  library=lib)
+    PAST_64[f"int8_product lm_head B={B}"] = sub["int8_product"]
+    res["int8_product"]["err"] = max(res["int8_product"]["err"], sub["int8_product"]["err"])
     del hq, hs, lib
 
     # the bare product as int8_matmul runs it in a prefill of up to 64 rows,
@@ -1755,13 +1886,16 @@ def _engine(params, model: str = "qwen3-8b", **kw):
 
 def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
                      profile: bool = False, tag: str = "slot", spec: bool = False,
-                     b1_tokens: int = 0, b1_plain_ms: float | None = None) -> dict:
+                     b1_tokens: int = 0, b1_plain_ms: float | None = None,
+                     lane: bool = False) -> dict:
     """The slot engine with parking, default ``attn_impl``, over HTTP, on
     the served weights of ``model``; with ``spec`` the speculative engine
     (``SPEC_KW``), whose full-batch burst is greedy and must emit more than
     one token per verify step, and whose greedy stream is teacher-forced
     through the no-cache forward. ``b1_tokens``: one more greedy request of
-    that many tokens alone (ms per token logged beside ``b1_plain_ms``)."""
+    that many tokens alone (ms per token logged beside ``b1_plain_ms``).
+    ``lane``: the engine takes the CLI's prefill lane, and ends with
+    :func:`_lane_check`."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.weights import pack_matmul_params
@@ -1774,7 +1908,8 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     assert packed is params or all(packed["layers"][k] is t
                                    for k, t in params["layers"].items())
     t0 = time.time()
-    engine = _engine(params, model=model, cache_mode="slot", **(SPEC_KW if spec else {}))
+    engine = _engine(params, model=model, cache_mode="slot", **(SPEC_KW if spec else {}),
+                     prefill_lane=LANE if lane else 0)
     engine.warmup(prompt_lens=(64,))
     log(f"[{tag}] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
         f"{engine.attn_impl}; memory allocated "
@@ -1873,6 +2008,8 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
                 _profile_burst(chat, engine)
             if b1_tokens:
                 out["b1_ms_per_token"] = _b1_run(tag, engine, b1_tokens, b1_plain_ms)
+            if lane:
+                out["lane"] = _lane_check(tag, engine, base, counters)
 
             st1 = dict(engine.stats)
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
@@ -1889,6 +2026,67 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     finally:
         _release(engine)
     return out
+
+
+def _lane_check(tag: str, engine, base: str, counters: dict, teacher: bool = True) -> dict:
+    """The prefill lane on a serving engine: while one long greedy request
+    decodes, ``LANE_PROMPTS`` arrive over HTTP and one greedy prompt
+    in-process, each of at most ``LANE`` tokens. Every one must ride the
+    lane whole (``lane_tokens`` = their prompt tokens; only the long request
+    prefills batched) and be activated (a first token); the fused layer once
+    a layer and step (lane steps carry B + LANE rows), B5 once a sample
+    (lane chunks sample their prompts' first tokens in one call); with
+    ``teacher``, the in-process stream teacher-forced through the no-cache
+    forward."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+
+    tok = engine.tokenizer
+    st0, n0 = dict(engine.stats), {n: f.launches for n, f in counters.items()}
+    long = engine.submit(GenerationRequest(prompt_ids=tok.encode("Lane: a long answer."),
+                                           max_tokens=160, **GREEDY))
+    t0 = time.time()
+    while engine.stats["decode_steps"] == st0["decode_steps"]:   # it decodes
+        assert time.time() - t0 < 120 and not long.done()
+        time.sleep(0.002)
+    results: list = [None] * len(LANE_PROMPTS)
+
+    def post(i):
+        results[i] = _post(f"{base}/completions", {"prompt": LANE_PROMPTS[i], "max_tokens": 8})
+
+    ths = [threading.Thread(target=post, args=(i,)) for i in range(len(LANE_PROMPTS))]
+    for t in ths:
+        t.start()
+    mine_ids = tok.encode(LANE_GREEDY)
+    mine = engine.generate(GenerationRequest(prompt_ids=mine_ids, max_tokens=24, **GREEDY))
+    for t in ths:
+        t.join(timeout=600)
+    assert not long.done(), "the long request ended before the lane prompts arrived"
+    long.result(timeout=600)
+    st1 = dict(engine.stats)
+    lens = [len(tok.encode(p)) for p in LANE_PROMPTS] + [len(mine_ids)]
+    assert max(lens) <= engine.prefill_lane, lens
+    for r, n in zip(results, lens):
+        assert r is not None and r[0] == 200, r
+        u = r[1]["usage"]
+        assert u["prompt_tokens"] == n and u["completion_tokens"] >= 1, u
+    assert mine.completion_tokens >= 8, mine
+    d = {k: st1[k] - st0[k] for k in ("lane_tokens", "lane_chunks", "requests",
+                                      "prefill_rows")}
+    assert d["lane_tokens"] == sum(lens) and d["requests"] == len(lens) + 1, (d, lens)
+    assert d["prefill_rows"] == 1 and d["lane_chunks"] >= 1, d
+    steps, prefills, lanes = _steps(engine, st0, st1)
+    L = engine.cfg.n_layers
+    launches = {n: f.launches - n0[n] for n, f in counters.items()}
+    for name, n in launches.items():
+        want = (steps + prefills + lanes if name == "sampling_prep"
+                else None if name.startswith("grouped_") else L * steps)
+        assert want is None or n == want > 0, (name, n, want)
+    log(f"[{tag}] lane: {len(lens)} prompts of {lens} tokens rode it over {lanes} chunks "
+        f"(lane_tokens {d['lane_tokens']}), beside one long greedy request; {steps} steps, "
+        f"{prefills} prefill dispatch(es), launches {launches}")
+    if teacher:
+        _teacher_forced(f"{tag}-lane", engine, (mine_ids, mine))
+    return d
 
 
 def _b1_run(tag: str, engine, n: int, plain_ms: float | None) -> float:
@@ -1910,16 +2108,20 @@ def _b1_run(tag: str, engine, n: int, plain_ms: float | None) -> float:
     return ms
 
 
-def _teacher_forced(tag: str, engine) -> None:
-    """One greedy stream of ``engine`` fed whole through the no-cache
-    forward: each generated token must be that forward's argmax at its
-    position, for at least 90 % of them."""
+def _teacher_forced(tag: str, engine, stream=None) -> None:
+    """One greedy stream of ``engine`` (``stream``: a (prompt, result) it
+    already ran) fed whole through the no-cache forward: each generated
+    token must be that forward's argmax at its position, for at least 90 %
+    of them."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
 
-    prompt = engine.tokenizer.encode("Teacher forcing: the rivers of Europe, again.")
-    r = engine.generate(GenerationRequest(prompt_ids=prompt, max_tokens=48, **GREEDY))
+    if stream is None:
+        prompt = engine.tokenizer.encode("Teacher forcing: the rivers of Europe, again.")
+        r = engine.generate(GenerationRequest(prompt_ids=prompt, max_tokens=48, **GREEDY))
+    else:
+        prompt, r = stream
     ids = torch.tensor([prompt + r.token_ids], device=engine.device)
     assert len(r.token_ids) >= 8, r
     with torch.no_grad():
@@ -1930,6 +2132,134 @@ def _teacher_forced(tag: str, engine) -> None:
     log(f"[{tag}] teacher-forced greedy stream of {len(r.token_ids)} tokens: argmax "
         f"agreement with the no-cache forward {agree:.3f} (bound >= 0.9)")
     assert agree >= 0.9, agree
+
+
+def phase_int8_lane(params: dict) -> dict:
+    """The prefill lane at the CLIs' 64 slots on the qwen3-32b int8 weights
+    (C4): a step of 64 decode rows and a 16-token lane runs B10 over 80
+    rows (two launches a product) and the int8 lm_head over 65; its logits
+    are held to the same step with the plain int8 products
+    (``plain_int8``), and an ``Engine(max_slots=64, prefill_lane=16)``
+    serves a lane prompt beside a decoding request."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+    from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages, init_kv_scales
+    from deepsearch_tts_tpu_torch.models import qwen3
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    cfg, dev = qwen3.QWEN3_CONFIGS[I8_MODEL], torch.device("cuda")
+    B, L = 64, cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(19)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
+    lane = torch.randint(0, cfg.vocab_size, (LANE,), generator=gen, device=dev)
+    n_lane = LANE - 3                                  # three padding rows
+    lane_pos = torch.where(torch.arange(LANE, device=dev) < n_lane,
+                           torch.arange(LANE, device=dev), -1)
+    out = {}
+    counters = _counters(I8_MODEL)
+    logits = []
+    for plain in (False, True):
+        # one 64-token page a decode row (pages 1-64, position 0) and one for
+        # the lane (page 65), int8 with their scales, as the engine's pools
+        kp, vp = init_kv_pages(L, B + 2, 64, cfg.n_kv_heads, cfg.head_dim, dtype=torch.int8,
+                               device=dev)
+        ks, vs = init_kv_scales(L, B + 2, 64, cfg.n_kv_heads, device=dev)
+        _zero(counters)
+        with torch.no_grad():
+            lg, _ = qwen3.forward(
+                params, cfg, toks, torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                k_pages=kp, v_pages=vp, k_scales=ks, v_scales=vs,
+                page_table=torch.arange(1, B + 1, device=dev)[:, None],
+                seq_lens=torch.ones((B,), dtype=torch.int64, device=dev), fused_decode=True,
+                plain_int8=plain, lane_tokens=lane, lane_positions=lane_pos,
+                lane_table=torch.tensor([B + 1], device=dev),
+                lane_logit_row=torch.tensor(n_lane - 1, device=dev))
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in counters.items()}
+        want = ({"fused_qkv_stacked_i8": 0, "fused_out_mlp_stacked_i8": 0, "int8_product": 0}
+                if plain else {"fused_qkv_stacked_i8": L, "fused_out_mlp_stacked_i8": L,
+                               "int8_product": 1})
+        assert all(launches[n] == v for n, v in want.items()), (plain, launches, want)
+        logits.append(lg[:, 0])
+        del kp, vp, ks, vs
+    _hold_to_reference("int8-lane", f"a {B}-slot decode step with a {LANE}-row lane "
+                       f"(B10 over {B + LANE} rows, the lm_head over {B + 1})", *logits,
+                       ref="the same step with the plain int8 products")
+    # the engine at the CLIs' 64 slots: the lane prompt rides a decode step
+    from concurrent.futures import Future
+
+    from deepsearch_tts_tpu_torch.engine.engine import Engine
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    engine = Engine(I8_MODEL, ByteTokenizer(), params=params, device="cuda", quantize="int8",
+                    kv_quantize="int8", max_slots=B, prefill_lane=LANE, page_size=64,
+                    n_pages=64, max_seq_len=1024, decode_chunk_len=8)
+
+    def queue(ids, n):
+        fut = Future()
+        engine._queue.put((GenerationRequest(prompt_ids=ids, max_tokens=n, **GREEDY), fut))
+        return fut
+
+    tok = engine.tokenizer
+    with torch.no_grad():
+        long = queue(tok.encode("Lane: a long answer."), 40)
+        engine._admit()
+        engine._decode_chunk()
+        short = queue(tok.encode(LANE_GREEDY), 8)
+        engine._admit()
+        assert len(engine._lane) == 1, "the short prompt must queue for the lane"
+        _zero(counters)
+        st0 = dict(engine.stats)
+        engine._decode_chunk()
+        st1 = dict(engine.stats)
+        launches = {n: f.launches for n, f in counters.items()}
+        steps = engine.decode_chunk_len
+        assert st1["lane_tokens"] - st0["lane_tokens"] == len(tok.encode(LANE_GREEDY)), st1
+        assert launches["fused_qkv_stacked_i8"] == launches["fused_out_mlp_stacked_i8"] \
+            == L * steps and launches["int8_product"] == steps, launches
+        while not (long.done() and short.done()):
+            engine._admit()
+            engine._decode_chunk()
+    out["engine"] = {"lane_tokens": st1["lane_tokens"], "launches": launches,
+                     "short_tokens": short.result().completion_tokens}
+    log(f"[int8-lane] Engine(max_slots={B}, prefill_lane={LANE}, quantize='int8', "
+        f"kv_quantize='int8'): the lane prompt rode a decode step (lane_tokens "
+        f"{st1['lane_tokens']}); launches in that chunk {launches}; completions "
+        f"{long.result().completion_tokens} / {short.result().completion_tokens}")
+    _release(engine)
+    return out
+
+
+def phase_trim(params: dict) -> dict:
+    """``chunk_trim`` on the qwen3-8b weights: with ``trim_min_rows=1`` and
+    warmup() (which registers the two widest context buckets: 64 and 128
+    tokens at ``max_seq_len=128``), a request of 11 tokens on 8-step chunks
+    trims its second chunk; its greedy stream equals the untrimmed
+    engine's."""
+    from deepsearch_tts_tpu_torch.engine.engine import Engine, GenerationRequest
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    runs = []
+    for trim in (False, True):
+        engine = Engine("qwen3-8b", ByteTokenizer(), params=params, device="cuda",
+                        max_slots=SLOTS, max_seq_len=128, page_size=64, n_pages=16,
+                        decode_chunk_len=8, chunk_trim=trim)
+        engine.warmup(prompt_lens=(64,))
+        engine.trim_min_rows = 1
+        prompt = engine.tokenizer.encode("Trim: the rivers of Europe.")
+        reqs = [GenerationRequest(prompt_ids=prompt + [i], max_tokens=n, **GREEDY)
+                for i, n in enumerate((11, 13, 9))]
+        futs = engine.submit_many(reqs)   # one admission: the same prefill group
+        runs.append(([f.result(timeout=600).token_ids for f in futs],
+                     engine.stats["trim_chunks"], engine.stats["decode_steps"]))
+        _release(engine)
+    (plain, t0, c0), (trimmed, t1, c1) = runs
+    log(f"[trim] chunk_trim: {t1} of {c1} chunks trimmed (untrimmed engine: {t0} of {c0}); "
+        f"greedy streams equal: {plain == trimmed}")
+    assert t0 == 0 and t1 > 0, (t0, t1)
+    assert plain == trimmed, (plain, trimmed)
+    return {"trim_chunks": t1, "chunks": c1}
 
 
 def phase_spec_reference(params: dict, model: str = "qwen3-8b", tag: str = "spec-reference",
@@ -2368,7 +2698,9 @@ def phase_product_scripted() -> dict:
         "--input_path", problems, "--model_name", "script-main", "--aux_model_name",
         "script-aux", "--engine_max_slots", "4", "--engine_page_size", "16",
         "--engine_pages", "1025", "--engine_max_seq_len", "4096", "--temperature", "0.0",
-        "--max_tokens", "512", "--max_search_calls", "5"])
+        "--max_tokens", "512", "--max_search_calls", "5",
+        # the scripted families have no prefill-lane path (as in the tests)
+        "--engine_prefill_lane", "0"])
     args = ds.build_parser().parse_args(argv)
     # the dry run: the port's own agent stack with recording clients
     backend, fetcher = ds.make_search(args)
@@ -2417,8 +2749,7 @@ def phase_product_scripted() -> dict:
     eng = stats["engine"]
     assert eng["requests"] == 3, eng
     assert eng["prefix_cache"]["hits"] >= 1 and eng["prefix_cache"]["tokens_reused"] > 0, eng
-    samples = sum(e.stats["decode_steps"] * e.decode_chunk_len + e.stats["prefill_dispatches"]
-                  for e in rec["engines"])
+    samples = sum(sum(_steps(e, dict.fromkeys(e.stats, 0), e.stats)) for e in rec["engines"])
     assert sp.sampling_prep.launches == samples > 0, (sp.sampling_prep.launches, samples)
     res = {"wall_s": wall, "requests": eng["requests"],
            "prefix_hits": eng["prefix_cache"]["hits"],
@@ -2527,9 +2858,10 @@ def _product_mode(card: str, counters: dict, mode: str, argv: list, mdir: str,
             f"fused_decode_fits at hidden {aux.cfg.hidden}, q heads x head_dim "
             f"{aux.cfg.n_heads * aux.cfg.head_dim})")
     tel = {name: e.telemetry() for name, e in (("main", main), ("aux", aux))}
-    steps = {k: t["decode_steps"] * e.decode_chunk_len
-             for (k, t), e in zip(tel.items(), (main, aux))}
-    samples = sum(steps[k] + tel[k]["prefill_dispatches"] for k in tel)
+    counts = {k: _steps(e, dict.fromkeys(e.stats, 0), e.stats)
+              for k, e in (("main", main), ("aux", aux))}
+    steps = {k: c[0] for k, c in counts.items()}
+    samples = sum(sum(c) for c in counts.values())   # steps, prefills, lane chunks
     fused = main.cfg.n_layers * steps["main"] + (
         aux.cfg.n_layers * steps["aux"] if aux.layer_fusion else 0)
     launches = {k: f.launches for k, f in counters.items()}
@@ -2741,15 +3073,15 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
     K3 once per layer and decode (or verify) step, each grouped expert entry
     once per MoE layer and forward (decode steps + prefill dispatches), B5
     once per sample, the int8 product at least once per forward (the
-    lm_head; and the layer products of prefills of up to 64 rows); the
+    lm_head; and the layer products of prefills of up to
+    ``quant.INT8_PRODUCT_ROWS`` rows); the
     counters named in ``idle`` not at all."""
     L = engine.cfg.n_layers
     L_moe = L - getattr(engine.cfg, "first_k_dense", 0)   # MLA leads with dense layers
-    steps = (st1["decode_steps"] - st0["decode_steps"]) * engine.decode_chunk_len
-    prefills = st1["prefill_dispatches"] - st0["prefill_dispatches"]
+    steps, prefills, lanes = _steps(engine, st0, st1)
     launches = {n: f.launches for n, f in counters.items()}
-    log(f"[{tag}] decode steps {steps}, prefill dispatches {prefills}, sample calls "
-        f"{steps + prefills}, launches {launches}")
+    log(f"[{tag}] decode steps {steps}, prefill dispatches {prefills}, lane chunks "
+        f"{lanes}, sample calls {steps + prefills + lanes}, launches {launches}")
     # the grouped expert entries count either kernel; of those, the prefill
     # kernel's apart (a long prompt's forward takes it)
     prefill = {n + "_prefill": counters[n].prefill_launches for n in launches
@@ -2765,11 +3097,23 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
         if name == "int8_product":
             assert n >= steps + prefills > 0, (name, n, steps + prefills)
             continue
-        want = (steps + prefills if name == "sampling_prep"
+        want = (steps + prefills + lanes if name == "sampling_prep"
                 else L_moe * (steps + prefills) if name.startswith("grouped_")
                 else L * steps)
         assert n == want > 0, (name, n, want)
     return {**launches, **prefill}
+
+
+def _steps(engine, st0: dict, st1: dict) -> tuple[int, int, int]:
+    """(decode or verify steps, prefill dispatches, chunks that carried the
+    prefill lane) between two stats snapshots: a chunk is
+    ``decode_chunk_len`` steps, a trimmed one (``chunk_trim``) half that;
+    each lane chunk samples its prompts' first tokens in one call."""
+    d = {k: st1[k] - st0[k] for k in ("decode_steps", "prefill_dispatches", "trim_chunks",
+                                      "lane_chunks")}
+    chunk = engine.decode_chunk_len
+    steps = d["decode_steps"] * chunk - d["trim_chunks"] * (chunk - engine._trim_chunk)
+    return steps, d["prefill_dispatches"], d["lane_chunks"]
 
 
 def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
@@ -2788,7 +3132,9 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     args = build_parser().parse_args([
         "--model", model, "--device", "cuda", "--seed", "0",
         "--max_slots", str(SLOTS), "--page_size", "64", "--pages", "1024",
-        "--max_seq_len", "4096", "--decode_chunk", "8", "--warmup", "64"])
+        "--max_seq_len", "4096", "--decode_chunk", "8", "--warmup", "64"]
+        # the CLI's default lane; MLA has none (in JAX too)
+        + (["--prefill_lane", "0"] if model == MLA_MODEL else []))
     torch.cuda.reset_peak_memory_stats()
     quant.quantize_int8.launches = 0
     t0 = time.time()
@@ -2913,6 +3259,9 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
             out["burst_tokens"] = sum(r[1]["usage"]["completion_tokens"] for r in results)
             if profile:
                 _profile_burst(chat, engine)
+            if engine.prefill_lane:
+                out["lane"] = _lane_check(tag, engine, base, counters,
+                                          teacher=model != MOE_MODEL)
 
             st1 = dict(engine.stats)
             out["launches"] = _check_launches(tag, engine, counters, st0, st1)
@@ -2986,16 +3335,18 @@ class _RouteReplay:
         return self._patched(route)
 
 
-def _hold_to_reference(tag: str, label: str, got, want, free=None) -> None:
+def _hold_to_reference(tag: str, label: str, got, want, free=None,
+                       ref: str = "no-cache forward") -> None:
     """Serving logits ``got`` against the reference's ``want`` (one row a
-    position): min cosine > 0.99 and argmax agreement >= 0.75. ``free``:
-    the same reference without the routing replay, logged beside it."""
+    position; ``ref`` names it): min cosine > 0.99 and argmax agreement >=
+    0.75. ``free``: the same reference without the routing replay, logged
+    beside it."""
     import torch
 
     assert got.shape == want.shape and torch.isfinite(got).all(), (got.shape, want.shape)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1)
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    msg = (f"[{tag}] {label} logits vs no-cache forward: max_abs_err "
+    msg = (f"[{tag}] {label} logits vs {ref}: max_abs_err "
            f"{(got - want).abs().max().item():.4f}, min cosine {cos.min().item():.5f} "
            f"(bound > 0.99), argmax agreement {agree:.2f} (bound >= 0.75)")
     if free is not None:
@@ -3104,17 +3455,18 @@ def main(argv=None) -> int:
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
                           "k1_b1": k1_b1, "k1_b64": k1_b64, "b11_launches": b11_launches,
-                          "b12_shapes": b12_shapes, "card": card}))
+                          "b12_shapes": b12_shapes, "past_64": PAST_64, "card": card}))
         return 0
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
     params = _release(engine)
-    slot = phase_slot_serve(card, params, profile=opts.profile, b1_tokens=128)
+    slot = phase_slot_serve(card, params, profile=opts.profile, b1_tokens=128, lane=True)
     spec = phase_slot_serve(card, params, tag="spec", spec=True, b1_tokens=128,
                             b1_plain_ms=slot["b1_ms_per_token"], profile=opts.profile)
     phase_spec_reference(params)
     pallas = phase_pallas_serve(card, params, serve["long_prompt_s"])
     phase_attention_reference(params)
+    trim = phase_trim(params)
 
     # the qwen3-30b-a3b phases need the card to themselves: 61 GB of weights
     del engine, params
@@ -3147,8 +3499,10 @@ def main(argv=None) -> int:
                                    quantize="int8", kv_quantize="int8")
     # a 48-row prefill: int8_matmul's kernel at its MT=4 instance
     phase_reference(engine, tag="int8-reference", t0=48, plain_int8=True)
-    _release(engine)
+    params = _release(engine)
     del engine
+    i8_lane = phase_int8_lane(params)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
@@ -3233,12 +3587,12 @@ def main(argv=None) -> int:
     runs = {"serve": serve, "slot_serve": slot, "spec_serve": spec, "pallas_serve": pallas,
             "moe_serve": moe_serve, "moe_slot": moe_slot, "moe_spec": moe_spec,
             "int8_serve": i8_serve, "mla_serve": mla_serve, "mla_slot": mla_slot,
-            "mla_pallas": mla_pallas}
+            "mla_pallas": mla_pallas, "int8_lane": i8_lane, "trim": trim}
     log(card)   # the card's name and power limit again, beside the result lines
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
-                      "b12_shapes": b12_shapes, "card": card}))
+                      "b12_shapes": b12_shapes, "past_64": PAST_64, "card": card}))
     print(json.dumps({"product": product, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,12 +11,11 @@ serves the policy/aux models from the port's in-process engine;
 API keys (the reference shipped live keys in its defaults; deliberately not
 reproduced).
 
-The flags and defaults are the JAX CLI's, except:
+The flags and defaults are the JAX CLI's (the policy engine takes
+``--engine_prefill_lane``, the aux engine no lane, as in JAX), except:
 
 * ``--device`` (default ``cuda``) and ``--seed`` (of the random weights
   drawn when a weights path is empty) are added, as in ``cli/serve.py``;
-* ``--engine_prefill_lane`` defaults to 0: the port's engine has no
-  prefill lane yet, and any other value raises ``NotImplementedError``;
 * ``--engine_tp`` > 1 raises ``NotImplementedError`` (no tensor-parallel
   engine yet).
 
@@ -97,9 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine_page_size", type=int, default=64)
     p.add_argument("--engine_pages", type=int, default=4096)
     p.add_argument("--engine_max_seq_len", type=int, default=8192)
-    p.add_argument("--engine_prefill_lane", type=int, default=0,
-                   help="in-flight chunked prefill width (not ported yet: "
-                        "only 0 is accepted)")
+    p.add_argument("--engine_prefill_lane", type=int, default=16,
+                   help="in-flight prefill width of the policy engine: a "
+                        "prompt of at most this many tokens rides a decode "
+                        "step (0 = off)")
     p.add_argument("--engine_warmup", type=int, default=0,
                    help="pre-compile engine programs for this prompt length")
     p.add_argument("--engine_tp", type=int, default=0,

@@ -31,9 +31,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=0,
                    help="tensor-parallel ways (0 = single device; >1 is not "
                         "ported yet)")
-    p.add_argument("--prefill_lane", type=int, default=0,
-                   help="in-flight chunked prefill width (not ported yet: "
-                        "only 0 is accepted)")
+    p.add_argument("--prefill_lane", type=int, default=16,
+                   help="in-flight prefill: a prompt of at most this many "
+                        "tokens rides a decode step (0 = off; families "
+                        "without a lane path, MLA, need 0)")
     p.add_argument("--warmup", type=int, default=0, metavar="PROMPT_LEN",
                    help="build the kernels with one prefill of this prompt "
                         "length and one decode step before accepting requests")

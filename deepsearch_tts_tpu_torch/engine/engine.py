@@ -53,11 +53,27 @@ Behaviours carried over from the JAX engine:
   ``decode_chunk_len·(spec_k+1)`` positions a chunk (``_max_adv``), and
   every length guard uses that.
 
+* ``prefill_lane`` (Qwen3 families: a forward that takes ``lane_tokens``):
+  while decode runs, a queued prompt of at most ``prefill_lane`` tokens
+  with no cached prefix rides one decode step whole, as ``prefill_lane``
+  extra rows (``_plan_lane``: one prompt a step, ``LANE_MAX_ACT`` a
+  chunk); its first token is sampled after the chunk from that step's
+  lane logits and its slot activated. Everything else, and every cold
+  burst, takes batched prefill. Steps of a chunk that carry no prompt run
+  without the lane rows (JAX's one-program chunk carries padding rows on
+  them; the layers are row-wise, so the decode rows' results are the same
+  but for the card's summation order, which follows the row count).
+* ``chunk_trim``: a half-length chunk when enough rows are within half a
+  chunk of their ``max_tokens`` (JAX's gate, over the chunk wall and the
+  inter-chunk gap this loop measures), at the two widest context buckets,
+  which ``warmup()`` registers.
+
 Left out, because they are JAX dispatch machinery: pipelined dispatch from
 the device carry (and ``_can_speculate``, which decides it), admission
 injection, the compile caches and warm-program bookkeeping. Eager CUDA
 launches are already asynchronous; each decode chunk is queued step after
-step and synchronised once, when its tokens are read back. The seen mask
+step and synchronised once, when its tokens are read back, so no chunk is
+in flight when aborts apply or requests are admitted. The seen mask
 of every admitted row is rebuilt from its whole prompt, parked re-entries
 included (and so is a speculative engine's token history); JAX's
 keep/clear path for parked rows saves a host upload on the TPU and gives
@@ -66,6 +82,7 @@ raise ``NotImplementedError`` naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
+import inspect
 import queue
 import threading
 import time
@@ -204,6 +221,8 @@ class Engine:
     # cap rows x bucket per prefill forward: causal scores are [G, H, T, S]
     # float32, so long buckets at full group width would exhaust memory
     PREFILL_TOKEN_BUDGET = 8192
+    # prefill-lane prompts that may complete (sample a first token) a chunk
+    LANE_MAX_ACT = 8
 
     def __init__(
         self,
@@ -226,6 +245,7 @@ class Engine:
         kv_quantize: str | None = None,
         mesh=None,
         prefill_lane: int = 0,
+        lane_max_act: int | None = None,
         speculative: str | None = None,
         spec_k: int = 3,
         spec_ngram: int = 2,
@@ -247,9 +267,17 @@ class Engine:
         # the most positions a row advances in one decode chunk: each step
         # emits 1..spec_k+1 tokens under speculation
         self._max_adv = decode_chunk_len * (self.spec_k + 1 if speculative else 1)
+        # chunk_trim: a half-length chunk near known completions; the gate's
+        # row threshold is trim_min_rows where set (1: always trim), else
+        # amortised over the measured chunk wall and inter-chunk gap
+        self.chunk_trim = bool(chunk_trim) and decode_chunk_len >= 2
+        self._trim_chunk = max(1, decode_chunk_len // 2)
+        self.trim_min_rows: int | None = None
+        self._trim_warm: set = set()   # (page bucket, slot bucket) pairs warmup() registered
+        self._chunk_ema = 0.0   # smoothed decode-chunk wall (s)
+        self._gap_ema = 0.0     # smoothed host gap between chunks (s)
+        self._gap_from: tuple[float, float] | None = None   # (end of chunk, prefill_time_s)
         unported = [
-            (bool(prefill_lane), f"prefill_lane={prefill_lane}", "A4 (prefill lane)"),
-            (bool(chunk_trim), "chunk_trim=True", "A4 (decode-chunk trim)"),
             (mesh is not None, "mesh", "A13 (parallel serving)"),
             (ring_prefill_len is not None, "ring_prefill_len", "A13 (ring prefill)"),
         ]
@@ -272,6 +300,13 @@ class Engine:
         fam = get_model(model_name)
         self.cfg = cfg = fam.config
         self.forward = fam.forward
+        self.prefill_lane = int(prefill_lane or 0)
+        if lane_max_act:   # instance override of the class default
+            self.LANE_MAX_ACT = int(lane_max_act)
+        if self.prefill_lane and "lane_tokens" not in inspect.signature(fam.forward).parameters:
+            raise ValueError(f"model family {model_name!r} has no prefill-lane path")
+        # queued lane prompts (prepared requests, their slots reserved)
+        self._lane: list[dict] = []
         # beyond JAX's fields the engine reads int8_weights, int8_kv, dtype
         # and fused_decode_fits; a registry-extension config may lack them
         # and gets no int8 and no layer fusion. The pools take torch_dtype,
@@ -387,6 +422,7 @@ class Engine:
             "decode_steps": 0, "decode_time_s": 0.0, "prefill_time_s": 0.0,
             "preemptions": 0, "slot_steps": 0, "prefill_dispatches": 0,
             "prefill_rows": 0, "slot_park_hits": 0, "slot_park_tokens": 0,
+            "lane_tokens": 0, "lane_chunks": 0, "trim_chunks": 0,
         }
         self.spans = SpanTimer()
 
@@ -425,9 +461,12 @@ class Engine:
     def warmup(self, prompt_lens=(16,)) -> None:
         """Build the CUDA kernels and JIT the Triton kernel before serving:
         one prefill per prompt bucket and one decode step (a speculative
-        engine's verify step, on copies of its seen mask and history) on
-        dummy inputs whose positions are all padding, so no KV is written
-        and no engine state but the sampler's random stream changes. Call
+        engine's verify step, on copies of its seen mask and history; with
+        a prefill lane, also a step that carries it) on dummy inputs whose
+        positions are all padding, so no KV is written and no engine state
+        but the sampler's random stream changes. With ``chunk_trim`` it
+        registers the two widest context buckets as the ones a chunk may
+        be trimmed at, as JAX warms its half-length program there. Call
         before submitting requests."""
         dev = self.device
         for plen in prompt_lens:
@@ -451,10 +490,21 @@ class Engine:
                             tables, self._slot_bucket(1), self._samp_params(rows_r),
                             zeros, self.seen.clone(), self.hist.clone())
         else:
-            logits, _ = self._forward(zeros[:, None], torch.full((B, 1), -1, device=dev),
-                                      tables, zeros, slot_ctx=self._slot_bucket(1))
-            sample(logits[:, 0], self._samp_params(np.arange(B)),
-                   torch.zeros_like(self.seen), self.generator)
+            lanes = [{}]
+            if self.prefill_lane:
+                Tp = self.prefill_lane
+                lanes.append(dict(lane_tokens=torch.zeros((Tp,), dtype=torch.int64, device=dev),
+                                  lane_positions=torch.full((Tp,), -1, device=dev),
+                                  lane_table=tables[0], lane_logit_row=zeros[0]))
+            for lane in lanes:
+                logits, _ = self._forward(zeros[:, None], torch.full((B, 1), -1, device=dev),
+                                          tables, zeros, slot_ctx=self._slot_bucket(1), **lane)
+                n = logits.shape[0]   # B, and the lane's row
+                sample(logits[:, 0], self._samp_params(np.arange(n) % B),
+                       torch.zeros((n, self.cfg.vocab_size), dtype=torch.bool, device=dev),
+                       self.generator)
+        if self.chunk_trim:
+            self._trim_warm.update(self._decode_buckets()[-2:])
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -490,7 +540,7 @@ class Engine:
                 with torch.no_grad():
                     self._apply_aborts()
                     admitted = self._admit()
-                    if not any(s.active for s in self.slots):
+                    if not any(s.active for s in self.slots) and not self._lane:
                         if not admitted:
                             self._wake.wait(timeout=0.05)
                             self._wake.clear()
@@ -507,6 +557,7 @@ class Engine:
                         fut.set_exception(e)
                 self._deferred.clear()
                 self._resumes.clear()
+                self._lane.clear()   # their slots' futures were failed above
                 while not self._queue.empty():
                     try:
                         item = self._queue.get_nowait()
@@ -534,6 +585,14 @@ class Engine:
     def _group_cap(self, bucket: int) -> int:
         return max(1, min(self.MAX_PREFILL_GROUP,
                           self.PREFILL_TOKEN_BUDGET // max(bucket, 1)))
+
+    def _decode_buckets(self) -> list[tuple[int, int | None]]:
+        """Every (page bucket, slot bucket) pair a decode chunk reads,
+        narrowest first (both are pow2-or-cap functions of the tokens
+        needed, so powers of two and the cap reach each one)."""
+        ns = [1 << i for i in range(self.max_seq_len.bit_length())] + [self.max_seq_len]
+        return sorted({(self._page_bucket(n), self._slot_bucket(n)) for n in ns},
+                      key=lambda b: (b[0], b[1] or 0))
 
     def _slot_bucket(self, n_tokens: int) -> int | None:
         """Slot mode: the power-of-two context width from 64 covering
@@ -597,6 +656,21 @@ class Engine:
                 self._aborts.discard(s.req.request_id)
                 s.stop.finished, s.stop.finish_reason = True, "aborted"
                 self._finish_slot(s, reason="aborted")
+        # queued lane prompts: no chunk is in flight here (each is processed
+        # before the loop returns), so none was dispatched and each is freed
+        # at once, as JAX frees a never-dispatched entry (engine.py:1569-1580)
+        keep = []
+        for p in self._lane:
+            rid = p["req"].request_id
+            if rid in self._aborts:
+                self._aborts.discard(rid)
+                fut = p["slot"].future
+                self._release(p["slot"])
+                if fut is not None and not fut.done():
+                    fut.cancel()
+            else:
+                keep.append(p)
+        self._lane = keep
 
     def _admit(self) -> bool:
         """Admit queued requests with batched prefill, one forward per
@@ -640,6 +714,20 @@ class Engine:
                     fut.set_exception(e)
         if not prepared:
             return False
+        if self.prefill_lane and (any(s.active for s in self.slots) or self._lane):
+            # decode is running: whole prompts with no cached prefix that fit
+            # one step ride the lane, up to a chunk's backlog; the rest (and
+            # every cold burst) takes batched prefill (JAX engine.py:1643-1662)
+            overflow = []
+            for p in prepared:
+                if (len(self._lane) < self.decode_chunk_len and p["cached_len"] == 0
+                        and len(p["suffix"]) <= self.prefill_lane):
+                    self._lane.append(p)
+                else:
+                    overflow.append(p)
+            if not overflow:
+                return True
+            prepared = overflow
         groups: dict[int, list] = {}
         for p in prepared:
             groups.setdefault(self._bucket(max(len(p["suffix"]), 1)), []).append(p)
@@ -791,10 +879,12 @@ class Engine:
             eos_id=-1 if self.tokenizer.eos_id is None else self.tokenizer.eos_id)
 
     def _forward(self, tokens, positions, tables, seq_lens, *,
-                 logits_indices=None, fresh=False, slot_ctx=None):
+                 logits_indices=None, fresh=False, slot_ctx=None, **lane):
         """One forward over the engine's pools (updated in place, int8 KV's
         scales pools too); ``slot_ctx`` (slot mode decode: T=1, or a verify
-        window) makes it a slot decode reading that context bucket."""
+        window) makes it a slot decode reading that context bucket;
+        ``lane`` holds the ``lane_*`` arguments of a step carrying the
+        prefill lane."""
         scales = ({} if self.k_scales is None
                   else {"k_scales": self.k_scales, "v_scales": self.v_scales})
         return self.forward(
@@ -802,7 +892,26 @@ class Engine:
             k_pages=self.k_pages, v_pages=self.v_pages, page_table=tables,
             seq_lens=seq_lens, logits_indices=logits_indices, impl=self.attn_impl,
             slot_decode=slot_ctx is not None, slot_ctx=slot_ctx,
-            fresh_prefill=fresh, fused_decode=self.layer_fusion, **scales)
+            fresh_prefill=fresh, fused_decode=self.layer_fusion, **scales, **lane)
+
+    def _sample_first(self, logits, rows: np.ndarray, prompts: list) -> torch.Tensor:
+        """First tokens [G] of admitted prompts from their last position's
+        logits [G, V]; rows ``rows``'s seen masks become each prompt's token
+        presence (built on the device) plus its first token."""
+        G, V = len(rows), self.cfg.vocab_size
+        ids = [np.asarray(p, np.int64) for p in prompts]
+        ids = [i[i < V] for i in ids]
+        seen_rows = torch.zeros((G, V), dtype=torch.bool, device=self.device)
+        seen_rows[self._t(np.repeat(np.arange(G), [len(i) for i in ids])),
+                  self._t(np.concatenate(ids))] = True
+        min_toks = self._t(self.min_tokens[rows])
+        sp = self._samp_params(rows, min_tokens=min_toks,
+                               tokens_generated=torch.zeros_like(min_toks))
+        first = sample(logits, sp, seen_rows, self.generator)
+        rows_t = self._t(rows)
+        self.seen[rows_t] = seen_rows
+        self.seen[rows_t, first] = True
+        return first
 
     def _prefill_group(self, bucket: int, grp: list[dict]) -> None:
         """One batched prefill forward + first-token sample for a group of
@@ -815,7 +924,6 @@ class Engine:
         seq_lens = np.zeros((G,), np.int64)
         logits_idx = np.zeros((G,), np.int64)
         rows = np.zeros((G,), np.int64)
-        seen_r, seen_c = [], []
         for g, p in enumerate(grp):
             T = len(p["suffix"])
             tokens[g, :T] = p["suffix"]
@@ -823,33 +931,18 @@ class Engine:
             seq_lens[g] = len(p["prompt"])
             logits_idx[g] = max(T - 1, 0)
             rows[g] = p["slot"].idx
-            ids = np.asarray(p["prompt"], np.int64)
-            ids = ids[ids < self.cfg.vocab_size]
-            seen_r.append(np.full(ids.shape, g, np.int64))
-            seen_c.append(ids)
         tables = self.page_tables[rows, :P]
         with self.spans.span("prefill"):
             logits, _ = self._forward(
                 self._t(tokens), self._t(positions), self._t(tables),
                 self._t(seq_lens), logits_indices=self._t(logits_idx),
                 fresh=self.fresh_prefill)
-            # token presence of each row's whole prompt, built on the device
-            seen_rows = torch.zeros((G, self.cfg.vocab_size), dtype=torch.bool,
-                                    device=self.device)
-            seen_rows[self._t(np.concatenate(seen_r)),
-                      self._t(np.concatenate(seen_c))] = True
-            min_toks = self._t(self.min_tokens[rows])
-            sp = self._samp_params(rows, min_tokens=min_toks,
-                                   tokens_generated=torch.zeros_like(min_toks))
-            first = sample(logits[:, 0], sp, seen_rows, self.generator)
-            rows_t = self._t(rows)
-            self.seen[rows_t] = seen_rows
-            self.seen[rows_t, first] = True
+            first = self._sample_first(logits[:, 0], rows, [p["prompt"] for p in grp])
             if self.hist is not None:
                 hist_rows = np.zeros((G, self.hist.shape[1]), np.int64)
                 for g, p in enumerate(grp):
                     hist_rows[g, :len(p["prompt"])] = p["prompt"]
-                self.hist[rows_t] = self._t(hist_rows)
+                self.hist[self._t(rows)] = self._t(hist_rows)
             first_np = first.cpu().numpy()
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += G
@@ -901,8 +994,75 @@ class Engine:
         hist.scatter_(1, torch.where(emit & (posw < S), posw, S), t)
         return torch.where(act, nxt, last), lens + ncons, t, ncons
 
+    def _plan_lane(self, chunk: int) -> dict:
+        """Take queued lane prompts onto this chunk's steps (JAX
+        ``engine.py:2063-2105``): one whole prompt a step from the first
+        step, at most ``LANE_MAX_ACT`` a chunk. Each is an activation: its
+        first token is sampled from its step's lane logits after the chunk
+        and its slot activated. The prompts taken leave the queue."""
+        Tp, n = self.prefill_lane, min(chunk, self.LANE_MAX_ACT, len(self._lane))
+        taken, self._lane = self._lane[:n], self._lane[n:]
+        per_step: list[dict | None] = [None] * chunk
+        acts = []
+        for step, p in enumerate(taken):
+            take = len(p["suffix"])
+            toks = np.zeros((Tp,), np.int32)
+            pos = np.full((Tp,), -1, np.int32)
+            toks[:take] = p["suffix"]
+            pos[:take] = np.arange(take)
+            per_step[step] = {"slot": p["slot"].idx, "toks": toks, "pos": pos,
+                              "row": take - 1}
+            acts.append({"i": step, "step": step, "slot": p["slot"].idx, "p": p})
+        return {"per_step": per_step, "acts": acts,
+                "n_tokens": sum(len(p["suffix"]) for p in taken),
+                "max_tokens_needed": max((len(p["suffix"]) + 1 for p in taken), default=0)}
+
+    def _lane_arrays(self, plan: dict, chunk: int, p_cur: int) -> tuple:
+        """A lane plan as arrays (JAX ``engine.py:2107-2129``): tokens and
+        positions [chunk, Tp], page-table rows [chunk, p_cur], the logit
+        row of each step, and the activations' slots (``max_slots`` past
+        the last) and steps [LANE_MAX_ACT]."""
+        Tp, A = self.prefill_lane, self.LANE_MAX_ACT
+        toks = np.zeros((chunk, Tp), np.int32)
+        pos = np.full((chunk, Tp), -1, np.int32)
+        tabs = np.zeros((chunk, p_cur), np.int32)
+        rows = np.zeros((chunk,), np.int32)
+        for step, s in enumerate(plan["per_step"]):
+            if s is None:
+                continue
+            toks[step], pos[step], rows[step] = s["toks"], s["pos"], s["row"]
+            tabs[step] = self.page_tables[s["slot"], :p_cur]
+        act_slots = np.full((A,), self.max_slots, np.int32)
+        act_steps = np.zeros((A,), np.int32)
+        for a in plan["acts"]:
+            act_slots[a["i"]], act_steps[a["i"]] = a["slot"], a["step"]
+        return toks, pos, tabs, rows, act_slots, act_steps
+
+    def _trim(self, active: np.ndarray, buckets: tuple) -> bool:
+        """Whether this chunk runs half length (JAX ``engine.py:2327-2361``):
+        only at a bucket ``warmup()`` registered, and when the rows within
+        half a chunk of their ``max_tokens`` reach the threshold —
+        ``trim_min_rows`` where set, else the rows whose saved half chunk
+        pays the extra inter-chunk gap (``gap·max_slots / (half·step
+        wall)``, both measured by this loop), else ``max_slots // 8`` while
+        they are unmeasured."""
+        if not self.chunk_trim or buckets not in self._trim_warm:
+            return False
+        half = self._trim_chunk
+        n_near = sum(1 for s in self.slots
+                     if active[s.idx] and 0 < s.stop.max_tokens - s.stop.n_tokens <= half)
+        if self.trim_min_rows is not None:
+            thr = self.trim_min_rows
+        elif self._chunk_ema > 0.0 and self._gap_ema > 0.0:
+            step_wall = self._chunk_ema / self.decode_chunk_len
+            thr = self._gap_ema * self.max_slots / max(half * step_wall, 1e-9)
+        else:
+            thr = self.max_slots // 8
+        return n_near >= thr
+
     def _decode_chunk(self) -> None:
-        """Run one decode chunk over every slot row and fold its tokens in."""
+        """Run one decode chunk over every slot row, with the prefill lane's
+        prompts on its first steps, and fold its tokens in."""
         t0 = time.monotonic()
         chunk, adv = self.decode_chunk_len, self._max_adv
         active = np.array([s.active for s in self.slots], bool)
@@ -926,13 +1086,29 @@ class Engine:
                 new = self.allocator.alloc(extra)
                 self.page_tables[s.idx, have: have + extra] = new
                 s.pages.extend(new)
-        if not active.any():
+        plan = self._plan_lane(chunk) if self.prefill_lane else None
+        acts = plan["acts"] if plan else []
+        if not active.any() and not acts:
             return
         need = int(np.max(np.where(active, self.seq_lens, 0))) + adv + 1
+        if acts:
+            need = max(need, plan["max_tokens_needed"])
         P = self._page_bucket(need)
         slot_ctx = self._slot_bucket(need)
+        if self._trim(active, (P, slot_ctx)):
+            chunk = self._trim_chunk
+            self.stats["trim_chunks"] += 1
+        if self._gap_from is not None:
+            # the host's time between the last chunk and this one, less the
+            # prefill it ran meanwhile: what a trimmed chunk costs again
+            t_end, pf0 = self._gap_from
+            gap = (time.monotonic() - t_end) - (self.stats["prefill_time_s"] - pf0)
+            self._gap_from = None
+            if 0.0 < gap < 0.5:   # longer: the engine waited for clients
+                self._gap_ema = gap if self._gap_ema == 0.0 else 0.8 * self._gap_ema + 0.2 * gap
 
-        rows = np.arange(self.max_slots)
+        B = self.max_slots
+        rows = np.arange(B)
         spec = self.speculative is not None
         with self.spans.span("decode"):
             tables = self._t(self.page_tables[:, :P])
@@ -956,21 +1132,36 @@ class Engine:
             else:
                 samp = self._samp_params(rows, min_tokens=self._t(self.min_tokens))
                 act_i = act.long()
-                for _ in range(chunk):
+                if acts:
+                    ltok, lpos, ltab, lrow, act_slots, _ = self._lane_arrays(plan, chunk, P)
+                    ltok, lpos, ltab, lrow = map(self._t, (ltok, lpos, ltab, lrow))
+                lane_logits = []
+                for i in range(chunk):
                     sp = samp._replace(tokens_generated=lens - plens + 1)
                     pos = torch.where(act, lens, torch.full_like(lens, -1))[:, None]
+                    lane = ({} if i >= len(acts) else
+                            dict(lane_tokens=ltok[i], lane_positions=lpos[i],
+                                 lane_table=ltab[i], lane_logit_row=lrow[i]))
                     logits, _ = self._forward(last[:, None], pos, tables, lens + act_i,
-                                              slot_ctx=slot_ctx)
-                    nxt = sample(logits[:, 0], sp, self.seen, self.generator)
+                                              slot_ctx=slot_ctx, **lane)
+                    if lane:
+                        lane_logits.append(logits[B, 0])
+                    nxt = sample(logits[:B, 0], sp, self.seen, self.generator)
                     nxt = torch.where(act, nxt, last)
                     update_seen(self.seen, nxt)
                     lens = lens + act_i
                     last = nxt
                     toks.append(nxt)
+                if acts:
+                    # the first token of each prompt the lane completed
+                    act_rows = act_slots[:len(acts)].astype(np.int64)
+                    first = self._sample_first(torch.stack(lane_logits), act_rows,
+                                               [a["p"]["prompt"] for a in acts])
             # the sync point: [B, chunk] tokens, [B, chunk, K+1] under speculation
             toks_np = torch.stack(toks, dim=1).cpu().numpy()
             last_np = last.cpu().numpy()
             lens_np = lens.cpu().numpy()
+            first_np = first.cpu().numpy() if acts else None
         self.stats["slot_steps"] += int(active.sum()) * chunk
 
         n_new = 0
@@ -994,9 +1185,27 @@ class Engine:
                 self._finish_slot(s)
             elif self.seq_lens[s.idx] + adv >= self.max_seq_len:
                 self._finish_slot(s, reason="length")
+        for a in acts:   # activate the lane's prompts (JAX engine.py:2522-2541)
+            p, f = a["p"], first_np[a["i"]: a["i"] + 1]
+            s = p["slot"]
+            self.seq_lens[s.idx] = len(p["prompt"])
+            self.last_tok[s.idx] = int(f[0])
+            s.active = True
+            self._process_chunk(s, f)
+            self.stats["requests"] += 1
+            self.stats["prefill_tokens"] += len(p["suffix"])
+            if s.stop.finished or len(p["prompt"]) + 1 >= self.max_seq_len:
+                self._finish_slot(s)
+        if acts:   # one first-token sample a chunk that carried the lane
+            self.stats["lane_tokens"] += plan["n_tokens"]
+            self.stats["lane_chunks"] += 1
         self.stats["decode_tokens"] += n_new
         self.stats["decode_steps"] += 1
-        self.stats["decode_time_s"] += time.monotonic() - t0
+        busy = time.monotonic() - t0
+        self.stats["decode_time_s"] += busy
+        self._chunk_ema = busy if self._chunk_ema == 0.0 else 0.8 * self._chunk_ema + 0.2 * busy
+        if any(s.active for s in self.slots):
+            self._gap_from = (time.monotonic(), self.stats["prefill_time_s"])
 
     # ----------------------------------------------------------- host merge
 

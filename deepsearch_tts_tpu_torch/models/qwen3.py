@@ -10,7 +10,8 @@ offset into the stack.
 :func:`forward` carries the JAX function's no-cache mode and the serving
 branches the engine runs: fresh prefill, non-fresh re-prefill over a cached
 prefix, T=1 paged decode and contiguous-slot decode (T=1, or a speculative
-verify window of T tokens a row) — decode through the fused layer functions
+verify window of T tokens a row), and the prefill lane a T=1 decode step
+carries (``lane_*``) — decode through the fused layer functions
 (``ops/fused_layer.py``, a window flattened into B·T rows) when
 ``fused_decode`` is set and the weights are packed. ``impl`` selects the
 attention kernels where JAX selects its Pallas ones: flash attention for
@@ -171,6 +172,12 @@ class ServingAttention:
     Built once per serving forward: the layer-invariant index math — each
     token's pool row in layer 0 (padding → the spare row past the pool), the
     offset one layer adds to it, and the decode attention mask or slot limit.
+    ``lane`` > 0: the last ``lane`` rows of a T=1 decode batch are the
+    prefill lane (:func:`append_lane`), one whole prompt from position 0.
+    They take the fused layer and the KV write with the decode rows, and
+    attend causally within themselves on their own (unquantized) k / v,
+    never reading the pool: JAX's fresh-only lane (``qwen3.py:353-382``),
+    which also runs plain attention there.
     ``attend(l, x)`` then runs layer ``l``: q/k/v (the fused B3 or B10
     kernel on ``x`` [B·T,E] when ``fused``, else the plain chain on ``x``
     [B,T,E]), the in-place KV write (quantized, with its scales, when the
@@ -187,8 +194,9 @@ class ServingAttention:
     def __init__(self, cfg, lp: dict, positions, cos, sin, *, k_pages, v_pages,
                  page_table, seq_lens, impl: str, slot_decode: bool,
                  slot_ctx: int | None, fresh_prefill: bool, fused: bool,
-                 k_scales=None, v_scales=None, plain: bool = False):
+                 k_scales=None, v_scales=None, plain: bool = False, lane: int = 0):
         B, T = positions.shape
+        self.lane, nd = lane, B - lane   # nd: the decode rows
         L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
         self.cfg, self.lp, self.cos, self.sin, self.plain = cfg, lp, cos, sin, plain
         self.kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
@@ -200,7 +208,8 @@ class ServingAttention:
             self.ksf = k_scales.view((L * N,) + tuple(k_scales.shape[2:]))
             self.vsf = v_scales.view((L * N,) + tuple(v_scales.shape[2:]))
         if slot_decode:
-            page_table = torch.arange(B, device=positions.device)[:, None]
+            if not lane:   # with a lane, append_lane built the table
+                page_table = torch.arange(B, device=positions.device)[:, None]
             slot_ctx = min(slot_ctx or ps, ps)
         self.page_table = page_table.long()
         self.positions, self.seq_lens, self.impl = positions, seq_lens, impl
@@ -218,9 +227,9 @@ class ServingAttention:
         if (not fresh_prefill and (T == 1 or slot_decode) and not kernel_decode
                 and not self.window_kernel):
             S = slot_ctx if slot_decode else self.page_table.shape[1] * ps
-            self.decode_mask = attn_ops.context_mask(seq_lens, self.pos_c, S)
+            self.decode_mask = attn_ops.context_mask(seq_lens, self.pos_c[:nd], S)
         elif slot_decode and kernel_decode:
-            self.slot_limit = torch.minimum(seq_lens.long(), self.pos_c[:, 0].long() + 1)
+            self.slot_limit = torch.minimum(seq_lens.long(), self.pos_c[:nd, 0].long() + 1)
         if fused:
             self.cosf, self.sinf = cos.reshape(B * T, -1), sin.reshape(B * T, -1)
 
@@ -235,10 +244,22 @@ class ServingAttention:
         else:
             write_kv_slots(self.kpf, self.vpf, k, v, slots_l)
 
+    def _with_lane(self, o, q, k, v) -> torch.Tensor:
+        """The decode rows' output o, then the lane rows' causal attention
+        over their own k / v."""
+        if not self.lane:
+            return o
+        nd, Tp = o.shape[0], self.lane
+        ol = attn_ops.causal_attention(q[nd:].reshape(1, Tp, *q.shape[2:]),
+                                       k[nd:].reshape(1, Tp, *k.shape[2:]),
+                                       v[nd:].reshape(1, Tp, *v.shape[2:]))
+        return torch.cat([o, ol.reshape(Tp, 1, *ol.shape[2:])])
+
     def __call__(self, l: int, x: torch.Tensor) -> torch.Tensor:
         cfg, lp = self.cfg, self.lp
         H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         B, T = self.positions.shape
+        nd = B - self.lane
         if self.fused:
             kw = dict(n_heads=H, n_kv=K, head_dim=D, eps=cfg.rms_eps)
             w = lp["wqkv"]
@@ -261,24 +282,28 @@ class ServingAttention:
             # padded tail rows are garbage that is never read
             self._write(k, v, slots_l)
             return attn_ops.causal_attention(q, k, v, impl=self.impl)
+        qd = q[:nd]
         if self.slot_decode:
             write_kv_slots(kpf, vpf, k, v, slots_l)
             if self.slot_limit is not None:
-                return slot_attention(q[:, 0], kpf, vpf, self.slot_limit, l, n_rows=N,
-                                      slot_ctx=self.slot_ctx)[:, None]
-            if self.window_kernel:
+                o = slot_attention(qd[:, 0], kpf, vpf, self.slot_limit, l, n_rows=N,
+                                   slot_ctx=self.slot_ctx)[:, None]
+            elif self.window_kernel:
                 return slot_window_attention(q, kpf, vpf, self.seq_lens, self.positions[:, 0],
                                              l, n_rows=N, slot_ctx=self.slot_ctx)
-            rows = slice(l * N, (l + 1) * N)
-            return attn_ops.masked_context_attention(
-                q, kpf[rows, :self.slot_ctx], vpf[rows, :self.slot_ctx], self.seq_lens,
-                self.pos_c, mask=self.decode_mask)
+            else:
+                rows = slice(l * N, (l + 1) * N)
+                o = attn_ops.masked_context_attention(
+                    qd, kpf[rows, :self.slot_ctx], vpf[rows, :self.slot_ctx], self.seq_lens,
+                    self.pos_c[:nd], mask=self.decode_mask)
+            return self._with_lane(o, q, k, v)
         if self.kv_int8:
             # re-prefill and decode: the pages after the write, dequantized
             self._write(k, v, slots_l)
-            return attn_ops.paged_attention(
-                q, kpf, vpf, table_l, self.seq_lens, self.pos_c, mask=self.decode_mask,
-                k_scales=self.ksf, v_scales=self.vsf)
+            o = attn_ops.paged_attention(
+                qd, kpf, vpf, table_l[:nd], self.seq_lens, self.pos_c[:nd],
+                mask=self.decode_mask, k_scales=self.ksf, v_scales=self.vsf)
+            return self._with_lane(o, q, k, v)
         if T > 1:
             # re-prefill over a cached prefix: read the prefix BEFORE this
             # chunk's in-place write, take the chunk's K/V directly
@@ -289,8 +314,33 @@ class ServingAttention:
             return attn_ops.prefix_chunk_attention(
                 q, k_old, v_old, k, v, self.positions[:, 0], self.positions)
         write_kv_slots(kpf, vpf, k, v, slots_l)
-        return attn_ops.paged_attention(q, kpf, vpf, table_l, self.seq_lens, self.pos_c,
-                                        mask=self.decode_mask, impl=self.impl)
+        o = attn_ops.paged_attention(qd, kpf, vpf, table_l[:nd], self.seq_lens,
+                                     self.pos_c[:nd], mask=self.decode_mask, impl=self.impl)
+        return self._with_lane(o, q, k, v)
+
+
+def append_lane(tokens, positions, page_table, slot_decode: bool, lane_tokens,
+                lane_positions, lane_table):
+    """A T=1 decode batch with the prefill lane's Tp rows appended (JAX
+    ``qwen3.py:224-239``): tokens and positions [B+Tp, 1], and the page
+    table of every row — the lane rows broadcast ``lane_table``, the lane
+    slot's pages; in slot mode the decode rows take the identity and the
+    lane rows slot row ``lane_table[0]``."""
+    assert tokens.shape[1] == 1, "lane rides the decode step only"
+    Tp = lane_tokens.shape[0]
+    if slot_decode:
+        page_table = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
+        lane_table = lane_table[:1]
+    return (torch.cat([tokens, lane_tokens.reshape(Tp, 1).to(tokens.dtype)]),
+            torch.cat([positions, lane_positions.reshape(Tp, 1).to(positions.dtype)]),
+            torch.cat([page_table.long(), lane_table.long().reshape(1, -1).expand(Tp, -1)]))
+
+
+def lane_logits_rows(x: torch.Tensor, n_dec: int, lane_logit_row) -> torch.Tensor:
+    """The rows a lane step projects: the n_dec decode rows, then lane row
+    ``lane_logit_row`` (a just-completed prompt's last token)."""
+    row = torch.as_tensor(lane_logit_row, device=x.device).reshape(1).long()
+    return torch.cat([x[:n_dec], x[n_dec:].index_select(0, row)])
 
 
 def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin, plain: bool = False):
@@ -331,6 +381,10 @@ def forward(
     k_scales: torch.Tensor | None = None,   # int8 KV: [L, N, ps, K] f32 scales
     v_scales: torch.Tensor | None = None,
     plain_int8: bool = False,        # int8 products through their plain versions
+    lane_tokens: torch.Tensor | None = None,     # [Tp] prefill lane: one whole prompt
+    lane_positions: torch.Tensor | None = None,  # [Tp]; <0 = padding
+    lane_table: torch.Tensor | None = None,      # [P] lane pages / [1] its slot row
+    lane_logit_row=None,             # lane row projected as logits[B]
 ):
     """Run the decoder.
 
@@ -344,14 +398,27 @@ def forward(
     mode (pages None): full causal attention, returns ``(logits [B,T,V],
     None)``. ``plain_int8`` keeps every int8 product off the kernels (the
     unfused chain with the plain int8 product): a reference on the card.
+
+    Prefill lane (T=1 serving decode only, JAX ``qwen3.py:186-239``): the
+    lane's Tp rows ride the step (:func:`append_lane`) through the same
+    layers over B+Tp rows, write their KV through the same scatter
+    (padding to the spare row) and attend causally among themselves
+    (:class:`ServingAttention`); the logits gain one row, ``logits[B]``,
+    lane row ``lane_logit_row``'s projection.
     """
     lp = params["layers"]
     H, D = cfg.n_heads, cfg.head_dim
     eps = cfg.rms_eps
+    serving = k_pages is not None
+    B_dec = tokens.shape[0]
+    if lane_tokens is not None:
+        assert serving and not fresh_prefill, "lane rides the decode step only"
+        tokens, positions, page_table = append_lane(
+            tokens, positions, page_table, slot_decode, lane_tokens, lane_positions,
+            lane_table)
     x = params["embed"][tokens.long()]
     cos, sin = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     B, T, E = x.shape
-    serving = k_pages is not None
 
     def layer_tail(l: int, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """x + o@wo, then the MLP block, unfused."""
@@ -365,7 +432,8 @@ def forward(
             cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
-            fused=use_fused, k_scales=k_scales, v_scales=v_scales, plain=plain_int8)
+            fused=use_fused, k_scales=k_scales, v_scales=v_scales, plain=plain_int8,
+            lane=B - B_dec)
         if use_fused:
             xf = x.reshape(B * T, E)
         for l in range(cfg.n_layers):
@@ -389,6 +457,8 @@ def forward(
             x = layer_tail(l, attn_ops.causal_attention(q, k, v, impl=impl), x)
 
     x = rms_norm(x, params["final_norm"], eps)
+    if lane_tokens is not None:
+        x = lane_logits_rows(x, B_dec, lane_logit_row)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
     logits = _lm_head(params, x, plain_int8)

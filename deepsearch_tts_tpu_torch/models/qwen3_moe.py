@@ -19,8 +19,9 @@ unfused, as JAX's ``use_fused`` requires T == 1. Two differences from JAX,
 both with ``impl="pallas"``, where the port takes the dense family's
 kernels and the JAX MoE family keeps XLA attention: fresh prefill runs
 flash attention (B2), and a verify window attends through
-``slot_window_attention`` (B9). The decode-step prefill lane is not
-carried (the engine raises on ``prefill_lane``).
+``slot_window_attention`` (B9). The decode-step prefill lane is the dense
+family's (``lane_*``, JAX ``qwen3_moe.py:161-183``): its rows take B3,
+attention, B7 and the experts with the decode rows, B+Tp rows in all.
 """
 from __future__ import annotations
 
@@ -33,7 +34,14 @@ from ..ops import attention as attn_ops
 from ..ops.fused_layer import fused_out_router_stacked, shapes_ok
 from ..ops.moe import moe_capacity, moe_ragged
 from .common import dot_bf16, rms_norm, rope_angles
-from .qwen3 import ServingAttention, _fused_decode_on, _lm_head, _qkv_roped
+from .qwen3 import (
+    ServingAttention,
+    _fused_decode_on,
+    _lm_head,
+    _qkv_roped,
+    append_lane,
+    lane_logits_rows,
+)
 
 
 @dataclass(frozen=True)
@@ -140,19 +148,29 @@ def forward(
     fresh_prefill: bool = False,
     fused_decode: bool = False,
     plain_experts: bool = False,
+    lane_tokens: torch.Tensor | None = None,
+    lane_positions: torch.Tensor | None = None,
+    lane_table: torch.Tensor | None = None,
+    lane_logit_row=None,
 ):
-    """Same contract as :func:`.qwen3.forward` (serving and no-cache modes).
-    ``plain_experts`` runs the ragged expert FFN through its plain versions
-    instead of the grouped expert kernel, on any device: the no-cache
-    forward is then plain torch throughout, a reference for the kernels on
-    the card."""
+    """Same contract as :func:`.qwen3.forward` (serving and no-cache modes,
+    the prefill lane included). ``plain_experts`` runs the ragged expert
+    FFN through its plain versions instead of the grouped expert kernel, on
+    any device: the no-cache forward is then plain torch throughout, a
+    reference for the kernels on the card."""
     lp = params["layers"]
     H, D = cfg.n_heads, cfg.head_dim
     eps = cfg.rms_eps
+    serving = k_pages is not None
+    B_dec = tokens.shape[0]
+    if lane_tokens is not None:
+        assert serving and not fresh_prefill, "lane rides the decode step only"
+        tokens, positions, page_table = append_lane(
+            tokens, positions, page_table, slot_decode, lane_tokens, lane_positions,
+            lane_table)
     x = params["embed"][tokens.long()]
     cos, sin = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     B, T, E = x.shape
-    serving = k_pages is not None
 
     if serving:
         use_fused = (_fused_decode_on(fused_decode, T, fresh_prefill, lp)
@@ -161,7 +179,7 @@ def forward(
             cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
-            fused=use_fused)
+            fused=use_fused, lane=B - B_dec)
         if use_fused:
             xf = x.reshape(B, E)
         for l in range(cfg.n_layers):
@@ -188,6 +206,8 @@ def forward(
                                plain=plain_experts)
 
     x = rms_norm(x, params["final_norm"], eps)
+    if lane_tokens is not None:
+        x = lane_logits_rows(x, B_dec, lane_logit_row)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
     logits = _lm_head(params, x)

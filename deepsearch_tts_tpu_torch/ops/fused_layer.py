@@ -31,18 +31,21 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
   per-column scales ``[L,1,N]`` (``ops/quant.quantize_params`` layout),
   the scales applied to the float32 accumulators. :func:`int8_product` is
   the bare product, ``bf16((x @ w_q) * scales)``, which
-  ``ops/quant.int8_matmul`` runs at up to 64 rows. All three run one
-  kernel, ``i8_stream``: a persistent grid over a stream-K split of
+  ``ops/quant.int8_matmul`` runs at decode-sized row counts. All three run
+  one kernel, ``i8_stream``: a persistent grid over a stream-K split of
   (column tile, ring stage) pairs (``i8_partition``), the int8 widened in
   registers, split tiles summed and finished (epilogue included) inside
-  the kernel.
+  the kernel. A launch covers at most 64 rows: more rows (a prefill-lane
+  or verify step) run in the groups of :func:`i8_row_groups`, one launch
+  each, every launch streaming the whole weight.
 
 All take the FULL layer stacks plus the layer index, as the JAX kernels do.
 For a CUDA tensor the wrapper launches the hand-written Hopper kernel in
 ``csrc/fused_layer.cu`` (bf16 only) or raises; for a CPU tensor it runs the
 plain PyTorch version beside it (``*_plain``), which follows the dtype of
 ``x`` and holds the kernel's bf16 round points. Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel calls in its ``launches`` attribute: one a call that launches, also
+where a call of more than 64 rows (B7, B10) launches once a row group.
 """
 from __future__ import annotations
 
@@ -709,21 +712,40 @@ def _launch_out_mlp_split(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *, eps: f
     return out
 
 
+def i8_row_groups(B: int) -> list[slice]:
+    """The row groups B10 runs x [B, ...] in, one launch each: slices of at
+    most 64 rows (csrc MAX_ROWS) in order, covering every row once."""
+    return [slice(r0, min(r0 + _MAX_ROWS, B)) for r0 in range(0, B, _MAX_ROWS)]
+
+
 def _check_i8(B: int, K: int, N: int) -> None:
-    """Raise unless the int8 product takes x [B,K] @ w [K,N]: 1..64 rows,
-    whole ring stages, N a multiple of 128 (the last ``I8_TILE``-column
-    tile may be half full), at most ``_I8_MAX_TILES`` 128-column tiles."""
-    if not (1 <= B <= _MAX_ROWS and K % I8_STAGE_ROWS == 0 and N % _TILE == 0
+    """Raise unless the int8 product takes x [B,K] @ w [K,N]: at least one
+    row (64 a launch), whole ring stages, N a multiple of 128 (the last
+    ``I8_TILE``-column tile may be half full), at most ``_I8_MAX_TILES``
+    128-column tiles."""
+    if not (B >= 1 and K % I8_STAGE_ROWS == 0 and N % _TILE == 0
             and N // _TILE <= _I8_MAX_TILES):
-        raise ValueError(f"int8 product kernel needs 1..{_MAX_ROWS} rows, K % "
+        raise ValueError(f"int8 product kernel needs B >= 1 rows, K % "
                          f"{I8_STAGE_ROWS} == 0 and N % {_TILE} == 0, N / {_TILE} <= "
                          f"{_I8_MAX_TILES} (got B={B}, K={K}, N={N})")
+
+
+def _i8_groups(x):
+    """(row groups, persistent blocks, partial sums and tickets) of an int8
+    product over x's rows: the scratch sized for the largest group, which
+    the groups' launches reuse in stream order."""
+    from .paged_attention import _sm_count
+
+    grid = _sm_count(x.device)
+    return (i8_row_groups(x.shape[0]), grid,
+            i8_scratch(x.device, min(x.shape[0], _MAX_ROWS), grid))
 
 
 def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, layer,
                          *, n_heads: int, n_kv: int, head_dim: int, eps: float = 1e-6):
     """B10-qkv: :func:`fused_qkv_stacked` over an int8 stack. wqkv_q
-    [L,E,C] int8; wqkv_s [L,1,C] float32; the rest as B3."""
+    [L,E,C] int8; wqkv_s [L,1,C] float32; the rest as B3. Any row count:
+    one launch a group of :func:`i8_row_groups`; ``launches`` counts calls."""
     if x.device.type == "cpu":
         return fused_qkv_stacked_i8_plain(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all,
                                           cos, sin, layer, n_heads=n_heads, n_kv=n_kv,
@@ -745,16 +767,18 @@ def fused_qkv_stacked_i8(x, ln_all, wqkv_q, wqkv_s, qn_all, kn_all, cos, sin, la
     _check("cos", cos, (B, D // 2), torch.float32)
     _check("sin", sin, (B, D // 2), torch.float32)
     _check_i8(B, E, C)
-    grid, stages = i8_plan(B, x.device)
-    partial, tickets = i8_scratch(x.device, B, grid)
+    groups, grid, (partial, tickets) = _i8_groups(x)
     xn = torch.empty((B, E), dtype=x.dtype, device=x.device)
     out = torch.empty((B, C), dtype=x.dtype, device=x.device)
-    err = _lib().dstts_fused_qkv_i8(
-        x.data_ptr(), ln_all.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(),
-        qn_all.data_ptr(), kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        partial.data_ptr(), tickets.data_ptr(), xn.data_ptr(), out.data_ptr(), int(layer), B,
-        E, H, K, grid, stages, float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_if(err, "fused_qkv_stacked_i8")
+    lib, stream = _lib(), torch.cuda.current_stream(x.device).cuda_stream
+    for g in groups:
+        n = g.stop - g.start
+        err = lib.dstts_fused_qkv_i8(
+            x[g].data_ptr(), ln_all.data_ptr(), wqkv_q.data_ptr(), wqkv_s.data_ptr(),
+            qn_all.data_ptr(), kn_all.data_ptr(), cos[g].data_ptr(), sin[g].data_ptr(),
+            partial.data_ptr(), tickets.data_ptr(), xn[g].data_ptr(), out[g].data_ptr(),
+            int(layer), n, E, H, K, grid, I8_STAGES[i8_m_tiles(n)], float(eps), stream)
+        _raise_if(err, "fused_qkv_stacked_i8")
     fused_qkv_stacked_i8.launches += 1
     HD, KD = H * D, K * D
     return out[:, :HD], out[:, HD:HD + KD], out[:, HD + KD:]
@@ -767,7 +791,9 @@ def fused_out_mlp_stacked_i8(attn_out, x, wo_q, wo_s, ln_all, gateup_q, gateup_s
                              wd_s, layer, *, eps: float = 1e-6):
     """B10-out: :func:`fused_out_mlp_stacked` over int8 stacks. wo_q
     [L,H·D,E], gateup_q [L,E,2F] (gate first), wd_q [L,F,E] int8; wo_s
-    [L,1,E], gateup_s [L,1,2F], wd_s [L,1,E] float32 → [B,E]."""
+    [L,1,E], gateup_s [L,1,2F], wd_s [L,1,E] float32 → [B,E]. Any row
+    count: one launch a group of :func:`i8_row_groups`; ``launches``
+    counts calls."""
     if x.device.type == "cpu":
         return fused_out_mlp_stacked_i8_plain(attn_out, x, wo_q, wo_s, ln_all, gateup_q,
                                               gateup_s, wd_q, wd_s, layer, eps=eps)
@@ -790,17 +816,19 @@ def fused_out_mlp_stacked_i8(attn_out, x, wo_q, wo_s, ln_all, gateup_q, gateup_s
     for kd, nd in ((HD, E), (E, F2), (Fi, E)):
         _check_i8(B, kd, nd)
     dev = x.device
-    grid, stages = i8_plan(B, dev)
-    partial, tickets = i8_scratch(dev, B, grid)
+    groups, grid, (partial, tickets) = _i8_groups(x)
     x2, xn, out = (torch.empty((B, E), dtype=x.dtype, device=dev) for _ in range(3))
     h = torch.empty((B, Fi), dtype=x.dtype, device=dev)
-    err = _lib().dstts_fused_out_mlp_i8(
-        attn_out.data_ptr(), x.data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(),
-        ln_all.data_ptr(), gateup_q.data_ptr(), gateup_s.data_ptr(), wd_q.data_ptr(),
-        wd_s.data_ptr(), partial.data_ptr(), tickets.data_ptr(), x2.data_ptr(), xn.data_ptr(),
-        h.data_ptr(), out.data_ptr(), int(layer), B, HD, E, Fi, grid, stages, float(eps),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_if(err, "fused_out_mlp_stacked_i8")
+    lib, stream = _lib(), torch.cuda.current_stream(dev).cuda_stream
+    for g in groups:
+        n = g.stop - g.start
+        err = lib.dstts_fused_out_mlp_i8(
+            attn_out[g].data_ptr(), x[g].data_ptr(), wo_q.data_ptr(), wo_s.data_ptr(),
+            ln_all.data_ptr(), gateup_q.data_ptr(), gateup_s.data_ptr(), wd_q.data_ptr(),
+            wd_s.data_ptr(), partial.data_ptr(), tickets.data_ptr(), x2[g].data_ptr(),
+            xn[g].data_ptr(), h[g].data_ptr(), out[g].data_ptr(), int(layer), n, HD, E, Fi,
+            grid, I8_STAGES[i8_m_tiles(n)], float(eps), stream)
+        _raise_if(err, "fused_out_mlp_stacked_i8")
     fused_out_mlp_stacked_i8.launches += 1
     return out
 
@@ -809,8 +837,10 @@ fused_out_mlp_stacked_i8.launches = 0
 
 
 def int8_product(x, w_q, scales):
-    """B10's bare product: ``bf16((x @ w_q) * scales)``. x [B,K] bf16, B <=
-    64; w_q [K,N] int8; scales [1,N] float32 → [B,N] in x's dtype."""
+    """B10's bare product: ``bf16((x @ w_q) * scales)``. x [B,K] bf16; w_q
+    [K,N] int8; scales [1,N] float32 → [B,N] in x's dtype. Any row count:
+    one launch a group of :func:`i8_row_groups`; ``launches`` counts
+    calls."""
     if x.device.type == "cpu":
         return int8_product_plain(x, w_q, scales)
     B, Kd = x.shape
@@ -819,14 +849,16 @@ def int8_product(x, w_q, scales):
     _check("w_q", w_q, (Kd, N), torch.int8)
     _check("scales", scales, (1, N), torch.float32)
     _check_i8(B, Kd, N)
-    grid, stages = i8_plan(B, x.device)
-    partial, tickets = i8_scratch(x.device, B, grid)
+    groups, grid, (partial, tickets) = _i8_groups(x)
     out = torch.empty((B, N), dtype=x.dtype, device=x.device)
-    err = _lib().dstts_int8_matmul(
-        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), partial.data_ptr(),
-        tickets.data_ptr(), out.data_ptr(), B, Kd, N, grid, stages,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_if(err, "int8_product")
+    lib, stream = _lib(), torch.cuda.current_stream(x.device).cuda_stream
+    for g in groups:
+        n = g.stop - g.start
+        err = lib.dstts_int8_matmul(
+            x[g].data_ptr(), w_q.data_ptr(), scales.data_ptr(), partial.data_ptr(),
+            tickets.data_ptr(), out[g].data_ptr(), n, Kd, N, grid, I8_STAGES[i8_m_tiles(n)],
+            stream)
+        _raise_if(err, "int8_product")
     int8_product.launches += 1
     return out
 

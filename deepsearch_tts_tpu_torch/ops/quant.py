@@ -35,8 +35,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.common import dot_bf16, matmul_f32
-from .fused_layer import _MAX_ROWS, int8_product
+from ..models.common import dot_bf16
+from .fused_layer import _MAX_ROWS, int8_product, int8_product_plain
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "wqkv", "w_gateup",   # packed single-device serving layout
@@ -44,9 +44,15 @@ QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "w_qb", "w_kb", "w_vb", "lm_head")
 
 # int8_matmul runs B10's int8 product (ops/fused_layer.int8_product) for up
-# to this many rows: decode steps and the lm_head of every forward; more
-# rows (prefill) widen the weight to bf16 and take one library product
-INT8_PRODUCT_ROWS = _MAX_ROWS
+# to this many rows: decode, lane and verify steps, short prefills and the
+# lm_head of every forward, in row groups of 64 that each stream the whole
+# weight; more rows widen the weight to bf16 and take one library product.
+# The crossover, timed by scripts/time_int8_rows.py at qwen3-32b's products
+# on an H100 (PERF.md §6): the kernel route is faster up to 384 rows over a
+# layer's four products (1.86 against 1.99 ms) and the lm_head (1.98
+# against 3.30 ms), the widened one at 512 rows over a layer (2.48 against
+# 2.18 ms)
+INT8_PRODUCT_ROWS = 6 * _MAX_ROWS
 
 # B12's plan (csrc/quant.cu): shared memory a block may take (the card's
 # opt-in limit), an SM holds, and the runtime reserves a block; the
@@ -235,19 +241,21 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor, *,
     float32 accumulator, rounded to x's dtype (``quant.py:68-75``).
 
     On the card, up to ``INT8_PRODUCT_ROWS`` rows run B10's int8 product
-    (:func:`.fused_layer.int8_product`); more rows (prefill) widen w to bf16
-    (exact) and take one ``torch.mm`` with a float32 accumulator — XLA's
-    product in JAX, so a library call, and the only route for that many
-    rows. ``plain`` (any device) runs the kernel's plain version: a
-    reference forward off the kernel."""
+    (:func:`.fused_layer.int8_product`, one launch a group of 64 rows);
+    more rows (prefill) widen w to bf16 (exact) and take one ``torch.mm``
+    with a float32 accumulator (the kernel's plain version) — XLA's product
+    in JAX, so a library call, and the faster route for that many rows.
+    ``plain`` (any device) runs the plain version: a reference forward off
+    the kernel."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     s2 = scales.reshape(1, -1)
     if x.device.type == "cuda" and not plain and x2.shape[0] <= INT8_PRODUCT_ROWS:
         out = int8_product(x2.contiguous(), w_q, s2)
     else:
-        out = (matmul_f32(x2.to(torch.bfloat16), w_q.to(torch.bfloat16))
-               * s2.float()).to(x.dtype)
+        # the weight widened to bf16 (exact) and one float32-accumulated
+        # product: the kernel's plain version
+        out = int8_product_plain(x2, w_q, s2)
     return out.reshape(*lead, -1)
 
 

@@ -259,7 +259,9 @@ def _runner_rows(ns, tmp, mode, handler, problems, **kw):
     rows = runner.run_sync([dict(p) for p in problems], str(out))
     assert runner.last_result_file == str(out)
     prefix = runner.result_path("TS").rsplit("/", 1)[1]
-    return rows, json.loads(out.read_text()), prefix
+    # the file holds rows in completion order (both packages), which the
+    # trajectories' thread timing decides: compare it in id order
+    return rows, sorted(json.loads(out.read_text()), key=lambda r: r["id"]), prefix
 
 
 def sc_batch_runner(ns, tmp):

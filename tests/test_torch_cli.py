@@ -1,10 +1,9 @@
 """The port's ``cli/deep_search.py`` against the JAX original.
 
-``build_parser`` has JAX's flags with JAX's defaults, except the three
-logged differences (``--device`` and ``--seed`` added,
-``--engine_prefill_lane`` defaulting to 0); ``--engine_tp > 1`` and a
-prefill lane raise ``NotImplementedError`` and ``--device cuda`` without a
-card raises. ``--backend fake`` runs every mode through both CLIs on the
+``build_parser`` has JAX's flags with JAX's defaults (``--engine_prefill_lane
+16`` included), plus ``--device`` and ``--seed``; ``--engine_tp > 1``
+raises ``NotImplementedError``, an MLA model with the default lane JAX's
+``ValueError``, and ``--device cuda`` without a card raises. ``--backend fake`` runs every mode through both CLIs on the
 same inputs: the result rows and statistics (wall time left out) and the
 ``search`` mode's printed result must be equal. And the port's CLI runs
 with ``jax`` and the JAX package blocked from import.
@@ -23,7 +22,7 @@ from deepsearch_tts_tpu_torch.cli import deep_search as tds
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRICES = os.path.join(REPO, "model_config", "aihubmix_price.json")
 ADDED = {"device": "cuda", "seed": 0}
-CHANGED = {"engine_prefill_lane": (16, 0)}   # JAX's default, the port's
+CHANGED = {}   # flags whose default differs from JAX's: none
 
 
 def _actions(parser):
@@ -57,7 +56,8 @@ def test_flags_and_defaults_are_jaxs():
 
 @pytest.mark.parametrize("argv,err", [
     (["--engine_tp", "2"], NotImplementedError),
-    (["--engine_prefill_lane", "16"], NotImplementedError),
+    # MLA has no prefill-lane path, in JAX too: the default lane of 16 refuses it
+    (["--model_name", "deepseek-v3-test", "--aux_model_name", "deepseek-v3-test"], ValueError),
     (["--device", "cuda"], RuntimeError),
     (["--device", "meta"], ValueError),
 ])

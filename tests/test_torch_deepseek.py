@@ -669,8 +669,9 @@ def test_engine_refusals_match_jax():
 
 
 def test_cli_serves_deepseek_test_on_cpu():
-    """``cli/serve.py --model deepseek-v3-test --device cpu``: the engine it
-    builds answers a chat request through the OpenAI handler."""
+    """``cli/serve.py --model deepseek-v3-test --device cpu --prefill_lane
+    0`` (MLA has no lane path, in JAX too): the engine it builds answers a
+    chat request through the OpenAI handler."""
     import asyncio
 
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
@@ -678,7 +679,8 @@ def test_cli_serves_deepseek_test_on_cpu():
 
     args = build_parser().parse_args([
         "--model", CFG, "--device", "cpu", "--max_slots", "2", "--page_size", "8",
-        "--pages", "32", "--max_seq_len", "128", "--decode_chunk", "2", "--warmup", "8"])
+        "--pages", "32", "--max_seq_len", "128", "--decode_chunk", "2", "--warmup", "8",
+        "--prefill_lane", "0"])
     eng = build_engine(args)
     try:
         assert eng.latent_cache and eng.attn_impl == "xla"

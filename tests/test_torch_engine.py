@@ -4,8 +4,9 @@ Both engines run the same float32 config (registered in both registries) on
 the same params, with fused decode layers on (as
 ``tests/test_fused_layer.py:121`` runs the JAX engine), and must emit the
 same greedy token streams: three concurrent requests, a multi-turn prefix
-hit and a ``min_tokens`` request. Also: the options this slice does not
-carry raise, the OpenAI server round trip, and a subprocess that serves from
+hit and a ``min_tokens`` request. Also: the options the port does not
+carry raise, JAX's exclusions of the prefill lane and ``chunk_trim`` raise
+JAX's errors, the OpenAI server round trip, and a subprocess that serves from
 the port with ``jax`` and ``deepsearch_tts_tpu`` unimportable.
 """
 import asyncio
@@ -168,15 +169,27 @@ def test_preempted_sequence_resumes_token_identical():
         eng.shutdown()
 
 
-@pytest.mark.parametrize("kw", [
-    {"cache_mode": "slot", "chunk_trim": True}, {"prefill_lane": 16},
-    {"cache_mode": "slot", "mesh": object()}, {"chunk_trim": True},
-    {"mesh": object()}, {"ring_prefill_len": 64},
-    {"cache_mode": "slot", "prefill_lane": 16},
+@pytest.mark.parametrize("model,kw,err,match", [
+    # JAX's exclusions of the prefill lane and chunk_trim (engine.py:210-213,
+    # 239-243, 560-563)
+    ("qwen3-test", {"cache_mode": "slot", "speculative": "ngram", "prefill_lane": 16},
+     ValueError, "mutually exclusive"),
+    ("qwen3-test", {"chunk_trim": True, "prefill_lane": 16}, ValueError, "chunk_trim"),
+    ("qwen3-test", {"cache_mode": "slot", "chunk_trim": True, "speculative": "ngram"},
+     ValueError, "chunk_trim"),
+    ("deepseek-v3-test", {"prefill_lane": 16}, ValueError, "no prefill-lane path"),
+    # what the port does not carry yet
+    ("qwen3-test", {"cache_mode": "slot", "mesh": object()}, NotImplementedError, "ROADMAP.md"),
+    ("qwen3-test", {"mesh": object()}, NotImplementedError, "ROADMAP.md"),
+    ("qwen3-test", {"ring_prefill_len": 64}, NotImplementedError, "ROADMAP.md"),
 ])
-def test_unported_engine_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tengine.Engine("qwen3-test", ByteTokenizer(), device="cpu", **kw)
+def test_unported_engine_options_raise(model, kw, err, match):
+    with pytest.raises(err, match=match):
+        tengine.Engine(model, ByteTokenizer(), device="cpu", **kw)
+    # JAX refuses the same combinations with the same error type
+    if err is ValueError:
+        with pytest.raises(err, match=match):
+            jengine.Engine(model, ByteTokenizer(), **kw)
 
 
 def test_unported_models_lora_and_missing_card_raise(monkeypatch):

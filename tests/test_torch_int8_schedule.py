@@ -225,3 +225,62 @@ def test_swizzled_ldmatrix_rows_hit_distinct_banks():
             for c in range(rb // 16):
                 groups = {(swz(r0 + i, c, rb) % 128) // 16 for i in range(8)}
                 assert len(groups) == 8
+
+
+# --------------------------------------------------- row groups (ROADMAP C4)
+
+@pytest.mark.parametrize("B", [1, 16, 63, 64, 65, 80, 96, 127, 128, 129, 200, 256])
+def test_i8_row_groups_cover_every_row_once(B):
+    """B10 takes any row count as launches of at most 64 rows (csrc
+    MAX_ROWS): the groups are in order, cover each row once, and only the
+    last is short."""
+    groups = fl.i8_row_groups(B)
+    rows = np.concatenate([np.arange(B)[g] for g in groups])
+    assert np.array_equal(rows, np.arange(B))
+    sizes = [g.stop - g.start for g in groups]
+    assert all(1 <= n <= fl._MAX_ROWS for n in sizes)
+    assert sizes[:-1] == [fl._MAX_ROWS] * (len(sizes) - 1)
+    assert len(groups) == -(-B // fl._MAX_ROWS)
+    fl._check_i8(B, 5120, 151936)    # the wrappers take every count
+
+
+def _i8_stack(gen, L, K, N):
+    q = torch.randint(-127, 128, (L, K, N), dtype=torch.int8, generator=gen)
+    return q, torch.rand((L, 1, N), generator=gen) / 200
+
+
+@pytest.mark.parametrize("B", [80, 96, 128])
+def test_i8_plain_by_row_groups_equals_all_rows(B):
+    """What a launch a group computes: each of B10's three plain versions
+    applied group by group equals it over all B rows (every row's result
+    depends on that row alone)."""
+    gen = torch.Generator().manual_seed(B)
+    L, E, H, Kv, D, F = 2, 256, 2, 1, 128, 384
+    C = (H + 2 * Kv) * D
+    bf = torch.bfloat16
+    x = torch.randn((B, E), generator=gen).to(bf)
+    a = torch.randn((B, H * D), generator=gen).to(bf)
+    ln = (1 + 0.1 * torch.randn((L, E), generator=gen)).to(bf)
+    qn = (1 + 0.1 * torch.randn((L, D), generator=gen)).to(bf)
+    cos, sin = torch.rand((B, D // 2), generator=gen), torch.rand((B, D // 2), generator=gen)
+    wqkv, wo, gu, wd = (_i8_stack(gen, L, k, n) for k, n in
+                        ((E, C), (H * D, E), (E, 2 * F), (F, E)))
+    groups = fl.i8_row_groups(B)
+    kw = dict(n_heads=H, n_kv=Kv, head_dim=D, eps=1e-6)
+
+    def qkv(r):
+        return fl.fused_qkv_stacked_i8_plain(x[r], ln, *wqkv, qn, qn, cos[r], sin[r], 1, **kw)
+
+    def out(r):
+        return fl.fused_out_mlp_stacked_i8_plain(a[r], x[r], *wo, ln, *gu, *wd, 1, eps=1e-6)
+
+    def product(r):
+        return fl.int8_product_plain(x[r], wqkv[0][0], wqkv[1][0])
+
+    for fn in (qkv, out, product):
+        whole = fn(slice(None))
+        whole = whole if isinstance(whole, tuple) else (whole,)
+        parts = [fn(g) for g in groups]
+        parts = [p if isinstance(p, tuple) else (p,) for p in parts]
+        for i, w in enumerate(whole):
+            assert torch.equal(torch.cat([p[i] for p in parts]), w), (fn.__name__, i)
