@@ -76,6 +76,24 @@ Phases, each raising on failure (non-zero exit, no final line):
    budget-forcing re-entry turns held to ``min_tokens``; the ``product``
    line reports each mode's wall time, turns, tokens, decode rate, prefix
    reuse, first-turn prefill and peak memory;
+9b. eval (after the product phase; ``--product-only`` runs it too): an
+   ``OpenAIServer`` over a qwen3-8b paged engine (random weights from seed
+   0, 16 slots, 1024 pages, prefix cache, the lane of 16);
+   ``deepsearch_tts_tpu_torch.cli.evaluate.main --task qa --use_llm``
+   judges the product phase's solve rows through it: both metrics files,
+   one 8-token judge request a row, B3 / B4 36 a decode step, B5 one a
+   sample; with the engine alive, ``--task math --use_math_grader`` and
+   ``--task code`` give their known values. Then, on scripted families
+   (``--backend engine --device cuda``): ``cli/lcb_run.main`` per scenario
+   (codegen: a correct, a wrong and a sleeping program scored by two forked
+   workers while the engine threads run: pass@1 1 / 0 / 0, statuses pass /
+   fail / timeout; codeexecution and testoutput 1.0), ``cli/report.main``
+   (title, plan, sections and report equal a dry run of
+   ``generate_report``) and the in-band demo (``build_demo_session`` +
+   ``run_inband_agent``: the reply cut at ``<|end_search_query|>``, the
+   events equal a dry run's, the second call re-entering the prefix cache);
+   every engine on the card, B5 once a sample; the ``eval`` line reports
+   each part's wall seconds and peak memory;
 10. MoE serve: phase 4 for qwen3-30b-a3b (full width, 61 GB of random bf16
     weights; the lane check without teacher forcing: B3, B7 and the experts
     over B + 16 rows): decode through B3, B7 and the grouped expert kernel, whose
@@ -2680,13 +2698,10 @@ def phase_product_scripted() -> dict:
     requests with prefix reuse, and B5 launched on every sample."""
     import asyncio
 
-    import torch
-
     from deepsearch_tts_tpu_torch.agents.policy import PolicyAgent
     from deepsearch_tts_tpu_torch.agents.websearch import WebSearchTool
     from deepsearch_tts_tpu_torch.cli import deep_search as ds
     from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
-    from deepsearch_tts_tpu_torch.models import registry
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
     tok = ByteTokenizer()
@@ -2718,18 +2733,7 @@ def phase_product_scripted() -> dict:
             (tok.apply_chat_template(m, t, add_generation_prompt=True), o)
             for m, t, o in main.chat_calls)),
         "script-aux": _token_script(tok, aux.complete_calls)}
-
-    class ScriptCfg:
-        vocab_size = tok.vocab_size
-        n_layers = 1
-        n_kv_heads = 1
-        head_dim = 8
-        torch_dtype = torch.float32
-        custom_init = True
-
-    for name, script in scripts.items():
-        registry.register(name, ScriptCfg(), _script_forward,
-                          init_params=lambda cfg, *, seed, device, s=script: {"script": s})
+    _register_scripts(scripts)
     sp.sampling_prep.launches = 0
     t0 = time.time()
     with _product_probe() as rec:
@@ -2761,8 +2765,7 @@ def phase_product_scripted() -> dict:
         f"{res['requests']} (aux {res['aux_requests']}), prefix hits {res['prefix_hits']}, "
         f"tokens reused {res['tokens_reused']}; B5 launches {res['sampling_prep_launches']} "
         f"(= samples); {wall:.2f} s")
-    for name in scripts:
-        registry.MODEL_REGISTRY.pop(name)
+    _unregister(*scripts)
     return res
 
 
@@ -2986,6 +2989,476 @@ def phase_product(card: str) -> dict:
     held = torch.cuda.memory_allocated() / 2**30
     log(f"[product] engines released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
+    return out
+
+
+# --------------------------------------------------------------------- eval
+# cli/evaluate.py judges the product phase's solve rows with an LLM judge
+# over HTTP on a qwen3-8b engine at full width; cli/lcb_run.py,
+# cli/report.py and the in-band demo run with --backend engine on scripted
+# families, whose exact outcomes a dry run with recording clients fixes.
+
+EVAL_DIR = os.path.join(PRODUCT_DIR, "eval")
+# known metric values of cli/evaluate's math and code tasks (the math
+# grader takes the first four rows; the code task's second program is wrong)
+EVAL_MATH_ROWS = [
+    {"Question": "Half of one?", "answer": "0.5", "pred_answer": "\\boxed{\\frac{1}{2}}"},
+    {"Question": "Percent?", "answer": "50%", "Output": "so \\boxed{0.5}"},
+    {"Question": "Root?", "answer": "2", "pred_answer": "\\boxed{\\sqrt{4}}"},
+    {"Question": "Factor?", "answer": "(x-1)(x+1)", "pred_answer": "\\boxed{x^2-1}"},
+    {"Question": "Wrong?", "answer": "3", "pred_answer": "\\boxed{4}"},
+    {"Question": "Planet?", "answer": "5", "pred_answer": "\\boxed{Jupiter}"},
+    {"Question": "Gave up?", "answer": "7", "pred_answer": "I give up"},
+]
+EVAL_CODE_ROWS = [
+    {"Question": "double", "pred_answer": "print(int(input()) * 2)",
+     "test_cases": [{"input": "2\n", "expected_output": "4\n"}]},
+    {"Question": "double", "Output": "```python\nprint(int(input()) + 2)\n```",
+     "test_cases": [{"input": "3\n", "expected_output": "6\n"}]},
+    {"Question": "inc", "pred_answer": "def inc(x):\n    return x + 1",
+     "test_cases": [{"fn_name": "inc", "args": [1], "expected": 2}]},
+]
+JUDGE_TOKENS = 8         # cli/evaluate.py's max_tokens of a judge request
+LCB_TIMEOUT = 3          # lcb_run's --timeout (seconds a test may run)
+# codegen problems: (question, program, status); the questions differ in
+# length, so the replies' script positions do not overlap
+LCB_CODEGEN = [
+    ("Read one line from standard input and print it back unchanged.",
+     "print(input())", "pass"),
+    ("Read an integer n from standard input and print twice its value. "
+     + "Keep the program short. " * 6, "print(input())", "fail"),
+    ("Print the number 1 after a long pause. " + "Take your time over it. " * 16,
+     f"import time\ntime.sleep({10 * LCB_TIMEOUT})\nprint(1)", "timeout"),
+]
+LCB_EXEC = {"question_id": "q1", "contest_id": "c1", "contest_date": "2024-01-01",
+            "difficulty": "easy", "function_name": "f", "code": "def f(x):\n    return x + 1",
+            "input": "f(x = 1)", "output": "2", "id": "e1", "problem_id": "p1", "numsteps": 3}
+LCB_TOP = {"question_title": "Add", "question_content": "Add one.", "question_id": "q9",
+           "contest_id": "c1", "contest_date": "2024-01-01", "difficulty": "easy",
+           "starter_code": "def addOne(x):\n    ...", "function_name": "addOne", "test_id": 2,
+           "test": json.dumps([{"input": "5", "output": "6", "testtype": "functional"}])}
+REPORT_QUESTION = "How do tides work?"
+# the report's seven calls: plan, write / check a section twice, final,
+# title; lengths chosen so that no two replies' script positions overlap
+REPORT_REPLIES = [
+    json.dumps({"sections": [{"name": "Forces"}, {"name": "Cycles"}]}),
+    "## Forces\nThe moon pulls the oceans.", "OK", "## Cycles\nTwo tides a day.", "OK",
+    "# Tides\nThe moon's pull makes two tides a day.", "How Tides Work"]
+DEMO_QUESTION = "What is the capital of France?"
+DEMO_SEARCH = ("I should look this up. <|begin_search_query|>capital of France"
+               "<|end_search_query|>")
+DEMO_PAST_STOP = " and more"    # the scripted reply goes on past the stop string
+DEMO_ANSWER = "The results say Paris. \\boxed{Paris}"
+DEMO_AUX = ["find the capital city of France",
+            "**Final Information**\nParis is the capital of France."]
+# the scripted engines: the CLI flags the product phase's scripted part uses
+SCRIPTED_FLAGS = ["--device", "cuda", "--engine_max_slots", "4", "--engine_page_size", "16",
+                  "--engine_pages", "1025", "--engine_max_seq_len", "4096",
+                  "--engine_prefill_lane", "0"]
+
+
+def _register_scripts(scripts: dict) -> None:
+    """Register each ``name: script`` (a CUDA tensor) as a family whose
+    greedy decode replays it (:func:`_script_forward`)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.models import registry
+
+    class ScriptCfg:
+        vocab_size = ByteTokenizer().vocab_size
+        n_layers = 1
+        n_kv_heads = 1
+        head_dim = 8
+        torch_dtype = torch.float32
+        custom_init = True
+
+    for name, script in scripts.items():
+        registry.register(name, ScriptCfg(), _script_forward,
+                          init_params=lambda cfg, *, seed, device, s=script: {"script": s})
+
+
+def _unregister(*names) -> None:
+    from deepsearch_tts_tpu_torch.models import registry
+
+    for name in names:
+        registry.MODEL_REGISTRY.pop(name)
+
+
+def _printed(fn, argv) -> str:
+    """What ``fn(argv)`` prints (a CLI's ``main``); echoed to the log."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    out = buf.getvalue()
+    for line in out.splitlines()[-8:]:
+        log(f"    | {line[:160]}")
+    return out
+
+
+def _samples(engines) -> int:
+    """B5's calls of the ``engines`` (each once): steps, prefills, lane
+    chunks since they were built."""
+    uniq = {id(e): e for e in engines}.values()
+    return sum(sum(_steps(e, dict.fromkeys(e.stats, 0), e.stats)) for e in uniq)
+
+
+def _part_done(tag: str, t0: float, res: dict) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    res.update(wall_s=time.time() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    _free()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[eval:{tag}] {res['wall_s']:.2f} s wall, peak {res['peak_gib']:.2f} GiB, "
+        f"{held:.3f} GiB still allocated after")
+    assert held < 1.0, (tag, held)
+    return res
+
+
+def phase_eval_judge(card: str) -> dict:
+    """Full width: an ``OpenAIServer`` over a qwen3-8b paged engine (random
+    weights from seed 0, 16 slots, 1024 pages of 64, prefix cache, the lane
+    of 16); ``cli/evaluate.py --task qa --use_llm`` judges the product
+    phase's solve rows through it: both metrics files, one 8-token judge
+    request a row, B3 / B4 36 a decode step, B5 one a sample. With the
+    engine alive, ``--task math --use_math_grader`` and ``--task code``
+    give their known metric values."""
+    import shutil
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.cli import evaluate
+    from deepsearch_tts_tpu_torch.engine.engine import Engine
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    solved = os.path.join(EVAL_DIR, "policy_results_solve.json")
+    shutil.copy(_newest(os.path.join(PRODUCT_DIR, "solve"), "policy_results_*.json"), solved)
+    rows = json.load(open(solved, encoding="utf-8"))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    engine = Engine(PRODUCT_MAIN, ByteTokenizer(), device="cuda", seed=0, max_slots=SLOTS,
+                    page_size=64, n_pages=PRODUCT_PAGES, max_seq_len=CTX, prefill_lane=LANE)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    assert engine.device.type == "cuda" and engine.layer_fusion
+    counters = _counters(PRODUCT_MAIN)
+    seen = []
+    submit = Engine.submit
+
+    def sub(self, req):
+        fut = submit(self, req)
+        seen.append((req.max_tokens, fut))
+        return fut
+
+    Engine.submit = sub
+    try:
+        with _serve_http(engine) as base:
+            _zero(counters)
+            st0 = dict(engine.stats)
+            t1 = time.time()
+            _printed(evaluate.main, ["--output_path", solved, "--task", "qa", "--use_llm",
+                                     "--api_base_url", base, "--model_name", PRODUCT_MAIN])
+            judge_s = time.time() - t1
+            st1 = dict(engine.stats)
+            launches = _check_launches("eval-judge", engine, counters, st0, st1)
+            # host-only tasks with the engine (its thread and CUDA context) alive
+            math_path = os.path.join(EVAL_DIR, "math.json")
+            code_path = os.path.join(EVAL_DIR, "code.json")
+            json.dump(EVAL_MATH_ROWS, open(math_path, "w", encoding="utf-8"))
+            json.dump(EVAL_CODE_ROWS, open(code_path, "w", encoding="utf-8"))
+            t2 = time.time()
+            math = json.loads(_printed(evaluate.main, ["--output_path", math_path, "--task",
+                                                       "math", "--use_math_grader"]))
+            t3 = time.time()
+            code = json.loads(_printed(evaluate.main, ["--output_path", code_path,
+                                                       "--task", "code"]))
+            math_s, code_s = t3 - t2, time.time() - t3
+    finally:
+        Engine.submit = submit
+    per_item = json.load(open(solved + ".metrics.json", encoding="utf-8"))
+    overall = json.load(open(solved + ".metrics.overall.json", encoding="utf-8"))
+    assert len(per_item) == overall["total"] == len(rows) > 0, (len(per_item), overall)
+    assert all("llm_rationale" in r and not r["llm_rationale"].startswith(("Error",
+                                                                          "judge-error"))
+               for r in per_item), [r.get("llm_rationale") for r in per_item]
+    results = [f.result() for _, f in seen]
+    assert len(seen) == len(rows) and all(m == JUDGE_TOKENS for m, _ in seen), seen
+    assert all(r.completion_tokens == JUDGE_TOKENS or r.finish_reason == "stop"
+               for r in results), [(r.completion_tokens, r.finish_reason) for r in results]
+    steps, prefills, lanes = _steps(engine, st0, st1)
+    assert math["llm_equal"] == 4 / 7 and math["total"] == 7, math
+    assert code == {"pass@1": 2 / 3}, code
+    tel = engine.telemetry()
+    prefill_s = st1["prefill_time_s"] - st0["prefill_time_s"]
+    decode_s = st1["decode_time_s"] - st0["decode_time_s"]
+    res = {"rows": len(rows), "build_s": build_s, "judge_s": judge_s,
+           "judge_s_per_row": judge_s / len(rows), "decode_steps": steps,
+           "prefill_dispatches": prefills, "lane_chunks": lanes, "prefill_s": prefill_s,
+           "decode_s": decode_s, "decode_ms_per_step": 1e3 * decode_s / steps,
+           "completion_tokens": [r.completion_tokens for r in results],
+           "prompt_tokens": [r.prompt_tokens for r in results],
+           "prefix_hits": tel.get("prefix_cache", {}).get("hits"),
+           "llm_equal": overall["llm_equal"], "math_llm_equal": math["llm_equal"],
+           "code_pass@1": code["pass@1"], "math_task_s": math_s, "code_task_s": code_s,
+           "launches": launches}
+    log(f"[eval:judge] {len(rows)} rows judged over HTTP in {judge_s:.2f} s "
+        f"({res['judge_s_per_row']:.3f} s a row; engine built in {build_s:.2f} s): "
+        f"prompt tokens {res['prompt_tokens']}, completion tokens "
+        f"{res['completion_tokens']}, decode steps {steps} ({res['decode_ms_per_step']:.2f} "
+        f"ms a step, {decode_s:.3f} s), prefill dispatches {prefills} ({prefill_s:.3f} s), "
+        f"lane chunks {lanes}, llm_equal {overall['llm_equal']}; with the engine alive: math "
+        f"(grader) llm_equal {math['llm_equal']:.4f} in {math_s:.2f} s, code pass@1 "
+        f"{code['pass@1']:.4f} in {code_s:.2f} s | {card}")
+    _release(engine)
+    del engine, seen, results
+    return _part_done("judge", t0, res)
+
+
+def _lcb_run(scenario: str, path: str, name: str, replies: list) -> dict:
+    """``cli/lcb_run.main --backend engine`` on the scripted family ``name``
+    (one reply a problem); the metrics printed, the per-problem results
+    scored, and whether the policy engine's thread was alive while they
+    were (the unused aux engine never starts one)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.cli import lcb_run
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.evaluate import code_eval, lcb_benchmarks, lcb_prompts
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    tok = ByteTokenizer()
+    if scenario == "codegen":
+        rows, msgs = json.load(open(path, encoding="utf-8")), lcb_prompts.codegen_messages
+    else:
+        scen = {"codeexecution": "codeexecution", "testoutput": "testoutputprediction"}
+        rows = lcb_benchmarks.load_scenario_rows(path, scen[scenario])
+        msgs = {"codeexecution": lcb_prompts.code_execution_messages,
+                "testoutput": lcb_prompts.test_output_prediction_messages}[scenario]
+    _register_scripts({name: _token_script(tok, (
+        (tok.apply_chat_template(msgs(r, name), add_generation_prompt=True), out)
+        for r, out in zip(rows, replies)))})
+    fn = {"codegen": "codegen_metrics", "codeexecution": "code_execution_metrics",
+          "testoutput": "test_output_metrics"}[scenario]
+    scored = {}
+    metrics_fn = getattr(code_eval, fn)
+
+    def probe(*a, **kw):
+        th = rec["engines"][0]._thread
+        scored["thread_alive"] = th is not None and th.is_alive()
+        out = metrics_fn(*a, **kw)
+        scored["per_problem"] = out["per_problem"]
+        return out
+
+    setattr(code_eval, fn, probe)
+    sp.sampling_prep.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        with _product_probe() as rec:
+            argv = ["--input_path", path, "--scenario", scenario, "--backend", "engine",
+                    "--model_name", name, "--timeout", str(LCB_TIMEOUT),
+                    "--output_dir", os.path.join(EVAL_DIR, "lcb")] + SCRIPTED_FLAGS
+            if scenario == "codegen":
+                argv += ["--num_workers", "2"]
+            out = _printed(lcb_run.main, argv)
+    finally:
+        setattr(code_eval, fn, metrics_fn)
+        _unregister(name)
+    metrics = json.loads("".join(ln for ln in out.splitlines()
+                                 if not ln.startswith("generations")))
+    engines = rec["engines"]
+    assert [e.device.type for e in engines] == ["cuda", "cuda"], engines
+    samples = _samples(engines)
+    assert sp.sampling_prep.launches == samples > 0, (sp.sampling_prep.launches, samples)
+    assert scored["thread_alive"], scored
+    res = {"metrics": metrics, "per_problem_pass@1": [
+        code_eval.pass_at_k(p["n"], p["correct"], 1) for p in scored["per_problem"]],
+        "samples": samples, "sampling_prep_launches": sp.sampling_prep.launches,
+        "aux_layers": engines[1].cfg.n_layers}
+    if scenario == "codegen":
+        res["statuses"] = [p["details"][0][0]["status"] for p in scored["per_problem"]]
+    del rec, engines
+    return _part_done(f"lcb-{scenario}", t0, res)
+
+
+def phase_eval_lcb() -> dict:
+    """``cli/lcb_run.py --backend engine --device cuda`` per scenario on
+    scripted families (and ``deep_search``'s qwen3-4b aux, built and not
+    used, as in JAX): codegen over a correct program, a wrong one and one
+    that sleeps past ``--timeout``, scored by two forked workers while the
+    policy engine's thread runs: pass@1 1, 0, 0, statuses pass / fail /
+    timeout;
+    codeexecution and testoutput 1.0 each."""
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    paths = {s: os.path.join(EVAL_DIR, f"lcb_{s}.json") for s in
+             ("codegen", "codeexecution", "testoutput")}
+    json.dump([{"id": f"p{i}", "question_content": q,
+                "test_cases": [{"input": inp, "expected_output": want}]}
+               for i, ((q, _, _), (inp, want)) in enumerate(zip(
+                   LCB_CODEGEN, (("hello\n", "hello\n"), ("4\n", "8\n"), ("", "1\n"))))],
+              open(paths["codegen"], "w", encoding="utf-8"))
+    json.dump([LCB_EXEC], open(paths["codeexecution"], "w", encoding="utf-8"))
+    json.dump([LCB_TOP], open(paths["testoutput"], "w", encoding="utf-8"))
+    out = {
+        "codegen": _lcb_run("codegen", paths["codegen"], "script-lcb-codegen",
+                            [f"```python\n{prog}\n```" for _, prog, _ in LCB_CODEGEN]),
+        "codeexecution": _lcb_run("codeexecution", paths["codeexecution"],
+                                  "script-lcb-exec", ["assert f(x = 1) == 2\n[/ANSWER]"]),
+        "testoutput": _lcb_run("testoutput", paths["testoutput"], "script-lcb-top",
+                               ["```\nassert addOne(5) == 6\n```"]),
+    }
+    cg = out["codegen"]
+    assert cg["per_problem_pass@1"] == [1.0, 0.0, 0.0], cg
+    assert cg["statuses"] == [s for _, _, s in LCB_CODEGEN], cg
+    assert cg["metrics"] == {"pass@1": 1 / 3}, cg
+    assert out["codeexecution"]["metrics"] == {"pass@1": 1.0}, out["codeexecution"]
+    assert out["testoutput"]["metrics"] == {"pass@1": 1.0}, out["testoutput"]
+    log(f"[eval:lcb] codegen pass@1 per problem {cg['per_problem_pass@1']} (statuses "
+        f"{cg['statuses']}, scored by 2 forked workers with the engine thread alive), "
+        f"codeexecution {out['codeexecution']['metrics']}, testoutput "
+        f"{out['testoutput']['metrics']}")
+    return out
+
+
+def phase_eval_report() -> dict:
+    """``cli/report.py --backend engine --device cuda`` on a scripted family
+    (policy and aux alike): the title, plan, section names and report equal
+    a dry run of ``generate_report`` with recording clients."""
+    import asyncio
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.agents.report import generate_report
+    from deepsearch_tts_tpu_torch.agents.websearch import WebSearchTool
+    from deepsearch_tts_tpu_torch.cli import deep_search as ds
+    from deepsearch_tts_tpu_torch.cli import report
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    name, tok = "script-report", ByteTokenizer()
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    path = os.path.join(EVAL_DIR, "report.json")
+    json.dump([{"Question": REPORT_QUESTION, "id": 1}], open(path, "w", encoding="utf-8"))
+    # the dry run: report.py's search stack (an empty replay store: the CLI
+    # takes no --replay_path) with a recording client
+    ds_args = ds.build_parser().parse_args(["--search_backend", "replay"])
+    backend, fetcher = ds.make_search(ds_args)
+    rec_client = _Recorder(complete_replies=REPORT_REPLIES)
+    dry = asyncio.run(generate_report(REPORT_QUESTION, rec_client, WebSearchTool(
+        backend, fetcher, rec_client, use_explorer=False)))
+    assert not rec_client.complete_replies
+    _register_scripts({name: _token_script(tok, rec_client.complete_calls)})
+    sp.sampling_prep.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out_dir = os.path.join(EVAL_DIR, "report")
+    try:
+        with _product_probe() as rec:
+            _printed(report.main, ["--input_path", path, "--output_dir", out_dir,
+                                   "--backend", "engine", "--model_name", name,
+                                   "--aux_model_name", name] + SCRIPTED_FLAGS)
+    finally:
+        _unregister(name)
+    row, = json.load(open(_newest(out_dir, "report_results_*.json"), encoding="utf-8"))
+    assert "error" not in row, row
+    assert (row["title"], row["plan"], row["sections"], row["report"]) == (
+        dry.title, dry.plan, [s["name"] for s in dry.sections], dry.report), (row, dry)
+    engine = rec["engines"][0]
+    assert rec["engines"][1] is engine and engine.device.type == "cuda"
+    samples = _samples([engine])
+    assert sp.sampling_prep.launches == samples > 0, (sp.sampling_prep.launches, samples)
+    res = {"title": row["title"], "sections": row["sections"],
+           "requests": engine.stats["requests"], "samples": samples,
+           "prefix_hits": engine.telemetry()["prefix_cache"]["hits"]}
+    assert res["requests"] == len(rec_client.complete_calls), res
+    log(f"[eval:report] title {row['title']!r}, sections {row['sections']}, "
+        f"{res['requests']} engine requests, B5 launches {samples} (= samples)")
+    del rec, engine
+    return _part_done("report", t0, res)
+
+
+def phase_eval_demo() -> dict:
+    """The in-band demo (``build_demo_session("engine")`` +
+    ``run_inband_agent``) on scripted policy and aux families on the card:
+    the policy's first reply runs past ``<|end_search_query|>``; the events
+    (text cut at the stop string, search, result, text, final) equal a dry
+    run's, and the second policy call re-enters the first one's prefix."""
+    import asyncio
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.agents.websearch import WebSearchTool
+    from deepsearch_tts_tpu_torch.cli import deep_search as ds
+    from deepsearch_tts_tpu_torch.cli.demo import build_demo_session
+    from deepsearch_tts_tpu_torch.demo.environment import Environment
+    from deepsearch_tts_tpu_torch.demo.inband import run_inband_agent
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+
+    main_name, aux_name, tok = "script-demo-main", "script-demo-aux", ByteTokenizer()
+    extra = ["--search_backend", "replay", "--replay_path",
+             os.path.join(PRODUCT_DIR, "replay.json")] + SCRIPTED_FLAGS
+
+    async def events(session):
+        return [(e.kind, e.payload)
+                async for e in run_inband_agent(DEMO_QUESTION, *session)]
+
+    backend, fetcher = ds.make_search(ds.build_parser().parse_args(extra))
+    main = _Recorder(complete_replies=[DEMO_SEARCH, DEMO_ANSWER])
+    aux = _Recorder(complete_replies=DEMO_AUX)
+    dry = asyncio.run(events((Environment(model_name=main_name, aux_model_name=aux_name,
+                                          max_search_limit=10), main, aux,
+                              WebSearchTool(backend, fetcher, aux))))
+    assert not main.complete_replies and not aux.complete_replies
+    (p1, _), (p2, _) = main.complete_calls
+    _register_scripts({
+        main_name: _token_script(tok, [(p1, DEMO_SEARCH + DEMO_PAST_STOP), (p2, DEMO_ANSWER)]),
+        aux_name: _token_script(tok, aux.complete_calls)})
+    sp.sampling_prep.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    try:
+        with _product_probe() as rec:
+            session = build_demo_session("engine", main_name, aux_name, max_search_calls=10,
+                                         extra_args=extra)
+            got = asyncio.run(events(session))
+            ds.shutdown_engines(session[1], session[2])
+    finally:
+        _unregister(main_name, aux_name)
+    engines = rec["engines"]
+    assert [e.device.type for e in engines] == ["cuda", "cuda"], engines
+    assert got == dry, (got, dry)
+    assert [k for k, _ in got] == ["text", "search", "result", "text", "final"], got
+    assert got[0] == ("text", DEMO_SEARCH) and got[-1] == ("final", "Paris"), got
+    tel = engines[0].telemetry()
+    hit = [(new, cached) for e, _, _, new, cached in rec["prefills"] if e is engines[0]]
+    assert tel["requests"] == 2 and len(hit) == 2 and hit[1][1] > 0, (tel, hit)
+    samples = _samples(engines)
+    assert sp.sampling_prep.launches == samples > 0, (sp.sampling_prep.launches, samples)
+    res = {"events": [k for k, _ in got], "cut_reply": got[0][1],
+           "second_call_cached_tokens": hit[1][1], "second_call_new_tokens": hit[1][0],
+           "prefix_hits": tel["prefix_cache"]["hits"], "samples": samples}
+    log(f"[eval:demo] events {res['events']}, first reply cut at the stop string "
+        f"({got[0][1]!r}), second policy call {hit[1][1]} tokens from the prefix cache + "
+        f"{hit[1][0]} new, B5 launches {samples} (= samples)")
+    del rec, engines, session
+    return _part_done("demo", t0, res)
+
+
+def phase_eval(card: str) -> dict:
+    """The eval phase (after the product phase, whose solve rows and replay
+    store it reuses): the judge at full width, then LCB, report and the
+    demo on scripted families; each part's wall seconds and peak GiB."""
+    t0 = time.time()
+    out = {"judge": phase_eval_judge(card), "lcb": phase_eval_lcb(),
+           "report": phase_eval_report(), "demo": phase_eval_demo()}
+    out["wall_s"] = time.time() - t0
+    log(f"[eval] phase {out['wall_s']:.2f} s | {card}")
     return out
 
 
@@ -3423,8 +3896,8 @@ def main(argv=None) -> int:
                     help="stop after the build and the kernel checks (prints "
                          "the kernel results, not the final line)")
     ap.add_argument("--product-only", action="store_true",
-                    help="only the build and the product phase (prints the "
-                         "product line, not the final line)")
+                    help="only the build, the product phase and the eval phase "
+                         "(prints their line, not the final line)")
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "deepsearch_tts_tpu_torch")):
         raise SystemExit("chip_smoke: deepsearch_tts_tpu_torch/ not found next to "
@@ -3435,7 +3908,8 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build()
     if opts.product_only:
-        print(json.dumps({"product": _product_phases(card), "card": card}))
+        product = _product_phases(card)
+        print(json.dumps({"product": product, "eval": phase_eval(card), "card": card}))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
@@ -3479,6 +3953,7 @@ def main(argv=None) -> int:
     product = _product_phases(card)
     for name in ("fused_qkv_stacked", "fused_out_mlp_stacked"):
         res[name]["err"] = max(res[name]["err"], product["aux_width_err"][name])
+    evaluation = phase_eval(card)
     moe_serve, engine = phase_serve(card, model=MOE_MODEL, profile=opts.profile, tag="moe")
     phase_reference(engine, plain_experts=True)
     params = _release(engine)
@@ -3594,6 +4069,7 @@ def main(argv=None) -> int:
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
                       "b12_shapes": b12_shapes, "past_64": PAST_64, "card": card}))
     print(json.dumps({"product": product, "card": card}))
+    print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

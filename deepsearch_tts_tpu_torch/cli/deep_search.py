@@ -92,6 +92,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aux_weights_path", type=str, default="",
                    help="safetensors dir for the aux model engine")
     p.add_argument("--tokenizer_path", type=str, default="")
+    add_engine_flags(p)
+    p.add_argument("--limit", type=int, default=0, help="max problems (0 = all)")
+    p.add_argument("--verifier_version", type=int, default=0)
+    p.add_argument("--budget_forcing", type=str, default="text",
+                   choices=["text", "logit"],
+                   help="*_budget_forcing re-entry mechanism: 'text' = the "
+                        "reference's user nudge only; 'logit' = nudge + "
+                        "on-device EOS suppression (engine refuses EOS until "
+                        "--min_thinking_tokens are generated)")
+    p.add_argument("--min_thinking_tokens", type=int, default=512,
+                   help="forced continuation length for --budget_forcing logit")
+    p.add_argument("--n_samples", type=int, default=4,
+                   help="samples for --mode solve_bestofn (parallel scaling)")
+    return p
+
+
+def add_engine_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags of the engines :func:`make_clients` builds: every
+    ``--engine_*`` flag, ``--device`` and ``--seed``. ``cli/report.py``,
+    ``cli/lcb_run.py`` and ``cli/demo.py`` take them too, with these
+    defaults, and pass them on through :func:`engine_argv`."""
     p.add_argument("--engine_max_slots", type=int, default=64)
     p.add_argument("--engine_page_size", type=int, default=64)
     p.add_argument("--engine_pages", type=int, default=4096)
@@ -105,23 +126,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine_tp", type=int, default=0,
                    help="tensor-parallel ways for the engine (0 = single device; "
                         ">1 is not ported yet)")
-    p.add_argument("--limit", type=int, default=0, help="max problems (0 = all)")
-    p.add_argument("--verifier_version", type=int, default=0)
-    p.add_argument("--budget_forcing", type=str, default="text",
-                   choices=["text", "logit"],
-                   help="*_budget_forcing re-entry mechanism: 'text' = the "
-                        "reference's user nudge only; 'logit' = nudge + "
-                        "on-device EOS suppression (engine refuses EOS until "
-                        "--min_thinking_tokens are generated)")
-    p.add_argument("--min_thinking_tokens", type=int, default=512,
-                   help="forced continuation length for --budget_forcing logit")
-    p.add_argument("--n_samples", type=int, default=4,
-                   help="samples for --mode solve_bestofn (parallel scaling)")
     p.add_argument("--device", type=str, default="cuda",
                    help="device of the engines for --backend engine (cuda or cpu)")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used when a weights path is empty")
     return p
+
+
+def engine_argv(args) -> list[str]:
+    """``args``' engine flags (:func:`add_engine_flags`) as arguments of
+    :func:`build_parser`, values unchanged."""
+    argv = []
+    for a in add_engine_flags(argparse.ArgumentParser())._actions:
+        if a.dest != "help":
+            argv += [a.option_strings[0], str(getattr(args, a.dest))]
+    return argv
+
+
+def shutdown_engines(*clients) -> None:
+    """Shut down the engine behind each client (the aux engine too: a
+    co-served engine left running keeps its weights and KV pool on the
+    card)."""
+    for client in clients:
+        if getattr(client, "engine", None) is not None:
+            client.engine.shutdown()
 
 
 def make_clients(args):
@@ -253,11 +281,7 @@ def main(argv=None):
         if engine is not None:
             stats.engine_stats = engine.telemetry()
     finally:
-        # the aux engine too: a co-served engine left running keeps its
-        # weights and KV pool on the card after main returns
-        for client in (main_client, aux_client):
-            if getattr(client, "engine", None) is not None:
-                client.engine.shutdown()
+        shutdown_engines(main_client, aux_client)
     stats_path = stats.save(args.output_dir, ts)
     print(f"Processed {len(results)} problems -> "
           f"{getattr(runner, 'last_result_file', runner.result_path(ts))}")
