@@ -118,6 +118,24 @@ Phases, each raising on failure (non-zero exit, no final line):
     ragged one from 1 to 64 rows; and B12 (``quantize_int8``): round to
     nearest bit-equal to its plain version on a [5120, 51200] matrix,
     stochastic rounding held to its properties;
+13a. int8 MoE kernels (run with phase 3): both entries of the int8
+    grouped expert kernel (``grouped_gateup_i8`` / ``grouped_down_i8``,
+    ``csrc/moe_i8.cu``) against their plain versions at qwen3-30b-a3b
+    widths on B12-quantized expert stacks: 16 tokens x top-8 (expert 7
+    empty, expert 3 over its capacity of 8: its last rows must be 0), 64
+    and 3072 tokens, each timed beside the bf16 grouped expert kernel on
+    the same routing and, for information, bf16 ``torch._grouped_mm``;
+13b. int8 MoE serve, after the qwen3-30b-a3b weights are released:
+    ``Engine("qwen3-30b-a3b", quantize="int8", prefill_lane=16)``, paged,
+    the bf16 engine's other settings (28.8 GiB of weights, drawn and
+    quantized one expert matrix at a time: B12 12,385 launches), served as
+    phase 4 unfused (JAX's gate): the int8 grouped expert kernel twice a
+    layer and forward (96 a decode step), the bf16 expert kernels never;
+    its serving logits held to the no-cache forward with ``plain_int8`` at
+    8 tokens (no expert row can drop there) and, at 16 + 8 tokens, to the
+    same serving calls on the plain versions (a 24-token forward drops
+    rows past an expert's capacity that a one-token decode step keeps);
+    released (< 1 GiB);
 14. int8 serve, after the qwen3-30b-a3b weights are released: qwen3-32b
     (full width, random weights from seed 0 drawn and quantized one matrix
     at a time, 33.6 GB) with ``quantize="int8"`` and ``kv_quantize="int8"``,
@@ -242,7 +260,7 @@ SEQS = [1, 17, 500, 4095, 64, 65, 4096, 2048, 129, 1000, 3000, 256, 7, 4000, 333
 # kv heads (G = 8), experts, top-k, expert width
 MOE_MODEL = "qwen3-30b-a3b"
 M_E, M_H, M_KV, M_NE, M_TOPK, M_F = 2048, 32, 4, 128, 8, 768
-LIBS = ("fused_layer", "attention", "quant")
+LIBS = ("fused_layer", "attention", "quant", "moe_i8")
 LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
 # qwen3-32b widths (models/qwen3.py QWEN3_CONFIGS): the int8 slice's model
 I8_MODEL = "qwen3-32b"
@@ -405,7 +423,7 @@ def phase_build() -> None:
     occ = pa.attention_occupancy()
     log("[build] attention blocks an SM (runtime occupancy): " +
         ", ".join(f"{k} {v}" for k, v in occ.items()))
-    occ = moe.grouped_occupancy()
+    occ = {**moe.grouped_occupancy(), **moe.grouped_i8_occupancy()}
     log("[build] grouped expert blocks an SM (runtime occupancy): " +
         ", ".join(f"{k} {v}" for k, v in occ.items()))
 
@@ -1630,6 +1648,119 @@ def phase_int8_kernels(gen) -> dict:
     return res
 
 
+def phase_moe_i8_kernels() -> tuple[dict, dict]:
+    """Both entries of the int8 grouped expert kernel (``grouped_gateup_i8``,
+    ``grouped_down_i8``: ``csrc/moe_i8.cu``) against their plain versions at
+    qwen3-30b-a3b widths, on layer 1 of a two-layer expert stack quantized
+    by B12 (the layer offset): 16 tokens x top-8 with expert 7 empty and
+    expert 3 past its capacity (10 rows, cap 8: the last two rows must come
+    out 0), 64 tokens and 3072 tokens; gate|up packed, and unpacked at 16
+    tokens (MLA's layout). Each timed beside the bf16 grouped expert kernel
+    on the same routing (the bf16 weights before quantization) and, for
+    information, ``torch._grouped_mm`` in bf16: no PyTorch call takes int8
+    weights with per-column scales, so ``library_ms`` is null. Its own
+    generator: the other phases see the inputs they saw before. Returns the
+    kernel-line results (16 tokens) and every shape's numbers."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.ops import quant
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(15)
+    res: dict = {}
+    shapes: dict = {}
+    # bf16 [2, NE, E, 2F] / [2, NE, F, E] stacks, quantized one expert
+    # matrix at a time (B12); the kernels read layer 1
+    wgu_bf = (torch.randn((2, M_NE, M_E, 2 * M_F), generator=gen, device=dev)
+              * M_E ** -0.5).to(bf)
+    wd_bf = (torch.randn((2, M_NE, M_F, M_E), generator=gen, device=dev) * M_F ** -0.5).to(bf)
+    gu_all, wd_all = quant.quantize_stack(wgu_bf), quant.quantize_stack(wd_bf)
+    gu = {k: v[1] for k, v in gu_all.items()}
+    wd = {k: v[1] for k, v in wd_all.items()}
+    wgu_bf, wd_bf = wgu_bf[1], wd_bf[1]
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    for T in (SLOTS, 64, 3072):
+        logits = torch.randn((T, M_NE), generator=gen, device=dev) * 2
+        if T == SLOTS:
+            logits[:, 7] = -1e30          # an empty expert
+            logits[:10, 3] += 30.0        # 10 of 16 tokens: past the capacity of 8
+        _, top_e = moe.route_topk(logits, M_TOPK)
+        flat_e = top_e.reshape(-1)
+        order = torch.argsort(flat_e, stable=True)
+        offsets = moe.group_offsets(flat_e, M_NE)
+        xs = (torch.randn((T, M_E), generator=gen, device=dev)).to(bf)[order // M_TOPK]
+        S = T * M_TOPK
+        cap = moe.expert_capacity(S, M_NE)
+        sizes = (offsets[1:] - offsets[:-1]).long()
+        kept = int(sizes.clamp(max=cap).sum())
+        touched = int((sizes > 0).sum())
+        if T == SLOTS:
+            assert int(sizes[7]) == 0 and int(sizes[3]) == 10 and cap == 8, (sizes, cap)
+        eid = torch.repeat_interleave(torch.arange(M_NE, device=dev), sizes)
+        dropped = (torch.arange(S, device=dev) - offsets[eid].long()) >= cap
+        label = (f"T={T} x top-{M_TOPK} ({touched} experts, largest {int(sizes.max())} rows, "
+                 f"cap {cap}, {int(dropped.sum())} dropped)")
+        into = res if T == SLOTS else {}
+        h = moe.grouped_gateup_i8_plain(xs, gu, None, offsets, cap)
+        nb_gu = (touched * (M_E * 2 * M_F + 4 * 2 * M_F) + 2 * kept * M_E + 2 * S * M_F
+                 + 4 * (M_NE + 1))
+        nb_dn = (touched * (M_F * M_E + 4 * M_E) + 2 * kept * M_F + 2 * S * M_E
+                 + 4 * (M_NE + 1))
+        _check_kernel(into, "grouped_gateup_i8", label,
+                      lambda: moe.grouped_gateup_i8(xs, gu, None, offsets, cap),
+                      lambda: moe.grouped_gateup_i8_plain(xs, gu, None, offsets, cap),
+                      rtol=BF16_RTOL, atol=BF16_ATOL, timed=True, nbytes=nb_gu,
+                      flop=2 * kept * M_E * 2 * M_F, plain_graph=False)
+        _check_kernel(into, "grouped_down_i8", label,
+                      lambda: moe.grouped_down_i8(h, wd, offsets, cap),
+                      lambda: moe.grouped_down_i8_plain(h, wd, offsets, cap),
+                      rtol=BF16_RTOL, atol=BF16_ATOL, timed=True, nbytes=nb_dn,
+                      flop=2 * kept * M_F * M_E, plain_graph=False)
+        got_h = moe.grouped_gateup_i8(xs, gu, None, offsets, cap)
+        got_y = moe.grouped_down_i8(h, wd, offsets, cap)
+        assert torch.equal(got_h, moe.grouped_gateup_i8(xs, gu, None, offsets, cap))
+        assert torch.equal(got_y, moe.grouped_down_i8(h, wd, offsets, cap))
+        assert not bool(got_h[dropped].any()) and not bool(got_y[dropped].any()), \
+            "rows past the capacity must be 0"
+        if T == SLOTS:   # gate and up unpacked, as MLA's experts are
+            wg = {k: v[..., :v.shape[-1] // 2].contiguous() for k, v in gu.items()}
+            wu = {k: v[..., v.shape[-1] // 2:].contiguous() for k, v in gu.items()}
+            _check_kernel(into, "grouped_gateup_i8", label + " unpacked",
+                          lambda: moe.grouped_gateup_i8(xs, wg, wu, offsets, cap),
+                          lambda: moe.grouped_gateup_i8_plain(xs, wg, wu, offsets, cap),
+                          rtol=BF16_RTOL, atol=BF16_ATOL)
+            del wg, wu
+        # the bf16 grouped expert kernel (decode or prefill, as its wrapper
+        # chooses) and torch._grouped_mm on the same routing, for comparison
+        hb = moe.grouped_gateup(xs, wgu_bf, None, offsets)
+        ends = offsets[1:]
+        bf16_ms = (time_ms(lambda: moe.grouped_gateup(xs, wgu_bf, None, offsets), iters=20)[0],
+                   time_ms(lambda: moe.grouped_down(hb, wd_bf, offsets), iters=20)[0])
+        lib_ms = ((time_ms(lambda: grouped_mm(xs, wgu_bf, offs=ends), iters=20)[0],
+                   time_ms(lambda: grouped_mm(hb, wd_bf, offs=ends), iters=20)[0])
+                  if grouped_mm else (None, None))
+        for i, name in enumerate(("grouped_gateup_i8", "grouped_down_i8")):
+            r = into[name]
+            shapes[f"{name} T={T}"] = {**{k: r[k] for k in ("err", "ms", "plain_ms",
+                                                             "bound_ms", "bound_by")},
+                                       "bf16_kernel_ms": bf16_ms[i],
+                                       "bf16_grouped_mm_ms": lib_ms[i], "cap": cap,
+                                       "dropped": int(dropped.sum()), "experts": touched}
+            if T != SLOTS:
+                res[name]["err"] = max(res[name]["err"], r["err"])
+        log(f"[kernel] int8 experts T={T}: kernel {into['grouped_gateup_i8']['ms']:.4f} / "
+            f"{into['grouped_down_i8']['ms']:.4f} ms (bound "
+            f"{into['grouped_gateup_i8']['bound_ms']:.4f} / "
+            f"{into['grouped_down_i8']['bound_ms']:.4f}) | bf16 grouped expert kernel "
+            f"{bf16_ms[0]:.4f} / {bf16_ms[1]:.4f} ms | bf16 torch._grouped_mm "
+            + (f"{lib_ms[0]:.4f} / {lib_ms[1]:.4f} ms" if grouped_mm else "absent"))
+        del h, hb, got_h, got_y
+    del gu_all, wd_all, wgu_bf, wd_bf
+    _free()
+    return res, shapes
+
+
 def phase_mla_kernels(gen) -> tuple[dict, dict]:
     """B8 and K3 against their plain versions at deepseek-v3 widths (K3 also
     at kimi-k2's 64 heads, and at B = 1 and 64 beside SDPA), and the grouped
@@ -2097,7 +2228,8 @@ def _lane_check(tag: str, engine, base: str, counters: dict, teacher: bool = Tru
     launches = {n: f.launches - n0[n] for n, f in counters.items()}
     for name, n in launches.items():
         want = (steps + prefills + lanes if name == "sampling_prep"
-                else None if name.startswith("grouped_") else L * steps)
+                else None if name.startswith("grouped_") or name == "int8_product"
+                else L * steps)
         assert want is None or n == want > 0, (name, n, want)
     log(f"[{tag}] lane: {len(lens)} prompts of {lens} tokens rode it over {lanes} chunks "
         f"(lane_tokens {d['lane_tokens']}), beside one long greedy request; {steps} steps, "
@@ -3512,15 +3644,21 @@ def _profile_burst(chat, engine) -> None:
     log(f"[profile] engine spans {json.dumps(spans)}")
 
 
-def _counters(model: str) -> dict:
-    """The launch counters of ``model``'s fused decode path: name → wrapper
-    (B5, and B3 + B4 for qwen3-8b, B3 + B7 + the grouped expert entries for
+def _counters(model: str, int8: bool = False) -> dict:
+    """The launch counters of ``model``'s decode path: name → wrapper (B5,
+    and B3 + B4 for qwen3-8b, B3 + B7 + the grouped expert entries for
     qwen3-30b-a3b, B10's two entries + its int8 product for qwen3-32b, B8 +
-    the grouped expert entries for the MLA model)."""
+    the grouped expert entries for the MLA model; ``int8`` qwen3-30b-a3b:
+    the int8 grouped expert entries + the int8 product, and the bf16 grouped
+    expert entries, which must stay at 0)."""
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
     from deepsearch_tts_tpu_torch.ops import moe
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
+    if int8 and model == MOE_MODEL:
+        fns = [moe.grouped_gateup_i8, moe.grouped_down_i8, fl.int8_product,
+               moe.grouped_gateup, moe.grouped_down]
+        return {f.__name__: f for f in fns + [sp.sampling_prep]}
     fns = {MOE_MODEL: [fl.fused_qkv_stacked, fl.fused_out_router_stacked,
                        moe.grouped_gateup, moe.grouped_down],
            I8_MODEL: [fl.fused_qkv_stacked_i8, fl.fused_out_mlp_stacked_i8,
@@ -3558,7 +3696,7 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
     # the grouped expert entries count either kernel; of those, the prefill
     # kernel's apart (a long prompt's forward takes it)
     prefill = {n + "_prefill": counters[n].prefill_launches for n in launches
-               if n.startswith("grouped_")}
+               if hasattr(counters[n], "prefill_launches") and n not in idle}
     for name, n in prefill.items():
         assert 0 <= n <= launches[name[:-len("_prefill")]], (name, n)
     if prefill:
@@ -3593,10 +3731,11 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
                 tag: str = "serve", **quant_kw) -> tuple[dict, object]:
     """Serve ``model`` over HTTP through the port's own construction:
     ``cli/serve.py``'s ``build_engine``, or with ``quant_kw`` (``quantize``,
-    ``kv_quantize``: ``Engine`` arguments only, as in JAX) the same
-    ``Engine`` construction with them. With ``quantize`` B12's counter is
-    zeroed before the build and must count one launch per quantized
-    matrix."""
+    ``kv_quantize``, ``prefill_lane``: ``Engine`` arguments only, as in
+    JAX) the same ``Engine`` construction with them. With ``quantize`` B12's
+    counter is zeroed before the build and must count one launch per
+    quantized matrix. Every engine runs the fused decode layers but the
+    int8 MoE one, which JAX's gate leaves unfused."""
     import torch
 
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
@@ -3623,19 +3762,24 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     log(f"[{tag}] engine built (random {model} weights, warmup) in "
         f"{out['build_s']:.1f} s; layer_fusion={engine.layer_fusion}; "
         f"memory allocated {out['allocated_gib']:.2f} GiB")
-    if not engine.layer_fusion:
-        raise AssertionError(f"the {model} engine must run the fused decode layers")
+    int8_moe = bool(quant_kw.get("quantize")) and hasattr(engine.cfg, "n_experts")
+    if engine.layer_fusion == int8_moe:
+        raise AssertionError(f"the {model} engine must {'not ' * int8_moe}run the fused "
+                             f"decode layers")
     if quant_kw.get("quantize"):
         # every QUANT_KEYS matrix of the packed tree: wqkv, wo, w_gateup and
-        # w_down of each layer, and the untied lm_head
-        want = 4 * engine.cfg.n_layers + (not engine.cfg.tie_embeddings)
+        # w_down of each layer (and of each expert), and the untied lm_head
+        want = sum(v["q"][..., 0, 0].numel() for v in
+                   list(engine.params["layers"].values()) + [engine.params.get("lm_head")]
+                   if quant.is_quantized(v))
         out["quantize_launches"] = quant.quantize_int8.launches
         log(f"[{tag}] B12 quantize_int8 launches at build {quant.quantize_int8.launches} "
             f"(matrices {want}); KV pools {engine.k_pages.dtype}, scales "
             f"{None if engine.k_scales is None else engine.k_scales.dtype}")
         assert quant.quantize_int8.launches == want, (quant.quantize_int8.launches, want)
 
-    counters = _counters(model)
+    counters = _counters(model, int8=int8_moe)
+    idle = ("grouped_gateup", "grouped_down") if int8_moe else ()
     try:
         with _serve_http(engine) as base:
             # counters are zeroed right before the main path runs
@@ -3737,7 +3881,8 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
                                           teacher=model != MOE_MODEL)
 
             st1 = dict(engine.stats)
-            out["launches"] = _check_launches(tag, engine, counters, st0, st1)
+            out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
+            out["steps"] = dict(zip(("decode", "prefill", "lane"), _steps(engine, st0, st1)))
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
                                    / (st1["decode_time_s"] - st0["decode_time_s"]))
             log(f"[{tag}] {card} | TTFT median of 5 {out['ttft_s'] * 1000:.1f} ms "
@@ -3831,58 +3976,99 @@ def _hold_to_reference(tag: str, label: str, got, want, free=None,
     assert agree >= 0.75, agree
 
 
-def phase_reference(engine, tag: str = "reference", t0: int = 16, **plain_kw) -> None:
-    """Paged prefill of ``t0`` tokens + 8 fused decode steps (the serving
-    branches) vs the plain no-cache forward, on the served weights, into
-    pools like the engine's (int8 with scales under int8 KV). ``plain_kw``
-    keeps the reference off the kernels the no-cache forward would
-    otherwise run (the MoE family's grouped expert kernel, the int8
-    product)."""
+@contextlib.contextmanager
+def _blocked_drops():
+    """Tally, while the block runs, the expert-sorted rows the int8 expert
+    FFN takes and those it drops (past an expert's capacity): yields
+    ``[rows, dropped]``."""
+    from deepsearch_tts_tpu_torch.ops import moe
+
+    inner, tally = moe._expert_ffn_blocked, [0, 0]
+
+    def counted(x_sorted, w_gate, w_up, w_down, offsets, plain=False):
+        cap = moe.expert_capacity(x_sorted.shape[0], offsets.shape[0] - 1)
+        tally[0] += x_sorted.shape[0]
+        tally[1] += int((offsets[1:] - offsets[:-1] - cap).clamp(min=0).sum())
+        return inner(x_sorted, w_gate, w_up, w_down, offsets, plain)
+
+    moe._expert_ffn_blocked = counted
+    try:
+        yield tally
+    finally:
+        moe._expert_ffn_blocked = inner
+
+
+def phase_reference(engine, tag: str = "reference", t0: int = 16, steps: int = 8,
+                    same_path: bool = False, **plain_kw) -> None:
+    """Paged prefill of ``t0`` tokens + ``steps`` fused decode steps (the
+    serving branches) vs the plain no-cache forward, on the served weights,
+    into pools like the engine's (int8 with scales under int8 KV).
+    ``plain_kw`` keeps the reference off the kernels the no-cache forward
+    would otherwise run (the MoE family's grouped expert kernel, the int8
+    product). ``same_path``: the reference is instead the same serving calls
+    on those plain versions. int8 experts drop rows past an expert's
+    capacity (JAX's rule), and which rows depends on the rows a forward
+    holds: a 24-token forward can drop what a decode step of one token
+    keeps, so the no-cache forward is the reference only where no row can
+    drop (at most 8 tokens: an expert takes one row a token, cap >= 8); the
+    rows each path dropped are logged."""
     import torch
 
     from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages, init_kv_scales
 
     cfg, dev = engine.cfg, engine.device
-    T0, T = t0, t0 + 8
+    T0, T = t0, t0 + steps
     assert T <= 64, T                           # one 64-token page
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None]
     replay = _RouteReplay(cfg) if getattr(cfg, "latent_cache", False) else None
-    with torch.no_grad():
+
+    def serve(**kw_plain):
         kp, vp = init_kv_pages(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim,
                                dtype=engine.k_pages.dtype, device=dev)
-        table = torch.tensor([[1]], device=dev)
-        kw = dict(k_pages=kp, v_pages=vp, page_table=table)
+        kw = dict(k_pages=kp, v_pages=vp, page_table=torch.tensor([[1]], device=dev),
+                  **kw_plain)
         if engine.k_scales is not None:
             kw["k_scales"], kw["v_scales"] = init_kv_scales(cfg.n_layers, 2, 64,
                                                             cfg.n_kv_heads, device=dev)
-        with replay.record() if replay else contextlib.nullcontext():
-            got = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
-                                  seq_lens=torch.tensor([T0], device=dev),
-                                  logits_indices=torch.tensor([T0 - 1], device=dev),
-                                  **kw)[0][:, 0]]
-            for t in range(T0, T):
-                got.append(engine.forward(
-                    engine.params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
-                    seq_lens=torch.tensor([t + 1], device=dev), fused_decode=True,
-                    **kw)[0][:, 0])
+        out = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
+                              seq_lens=torch.tensor([T0], device=dev),
+                              logits_indices=torch.tensor([T0 - 1], device=dev), **kw)[0][:, 0]]
+        for t in range(T0, T):
+            out.append(engine.forward(
+                engine.params, cfg, toks[:, t:t + 1], pos[:, t:t + 1],
+                seq_lens=torch.tensor([t + 1], device=dev), fused_decode=True, **kw)[0][:, 0])
+        return torch.cat(out)                   # positions T0-1 .. T-1
+
+    with torch.no_grad(), _blocked_drops() as served, \
+            replay.record() if replay else contextlib.nullcontext():
+        got = serve()
+    with torch.no_grad(), _blocked_drops() as whole:
         free, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
-        ref = free
-        if replay:
-            with replay.replay():
-                ref, _ = engine.forward(engine.params, cfg, toks, pos, **plain_kw)
-            log(f"[{tag}] routing: the reference's own expert set differs from the "
-                f"serving path's on {replay.differ} of {replay.rows} (position, MoE layer) "
-                f"rows; it routes all rows as the serving path did")
-    got = torch.cat(got)                        # positions T0-1 .. T-1
+    free = ref = free[0, T0 - 1:]
+    if replay:
+        with torch.no_grad(), replay.replay():
+            ref = engine.forward(engine.params, cfg, toks, pos, **plain_kw)[0][0, T0 - 1:]
+        log(f"[{tag}] routing: the reference's own expert set differs from the "
+            f"serving path's on {replay.differ} of {replay.rows} (position, MoE layer) "
+            f"rows; it routes all rows as the serving path did")
+    if served[0] or whole[0]:
+        log(f"[{tag}] int8 expert rows past capacity: serving path {served[1]} of "
+            f"{served[0]}, no-cache forward over {T} tokens {whole[1]} of {whole[0]}")
     assert got.shape == (T - T0 + 1, cfg.vocab_size), got.shape
     # bf16 through 5-64 layers: the two paths round q/k/v at different
     # points (the fused kernels keep q/k in float32 until after norm and
     # rope); under int8 KV the serving path also attends over int8 keys and
     # values (one scale per token and head) where the reference keeps bf16
-    _hold_to_reference(tag, "serving-path", got, ref[0, T0 - 1:],
-                       free[0, T0 - 1:] if replay else None)
+    if same_path:
+        with torch.no_grad(), _blocked_drops() as plain:
+            ref = serve(**plain_kw)
+        log(f"[{tag}] the plain serving calls: {plain[1]} of {plain[0]} rows past capacity")
+        _hold_to_reference(tag, "serving-path", got, ref,
+                           ref="same serving calls on the plain versions")
+    else:
+        _hold_to_reference(tag, "serving-path", got, ref, free if replay else None)
 
 
 def main(argv=None) -> int:
@@ -3925,11 +4111,14 @@ def main(argv=None) -> int:
     b12_shapes = res.pop("b12_shapes")
     mla_res, mla_kernels = phase_mla_kernels(gen)
     res.update(mla_res)
+    moe_i8_res, moe_i8_shapes = phase_moe_i8_kernels()
+    res.update(moe_i8_res)
     _free()
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
                           "k1_b1": k1_b1, "k1_b64": k1_b64, "b11_launches": b11_launches,
-                          "b12_shapes": b12_shapes, "past_64": PAST_64, "card": card}))
+                          "b12_shapes": b12_shapes, "moe_i8_shapes": moe_i8_shapes,
+                          "past_64": PAST_64, "card": card}))
         return 0
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
@@ -3968,6 +4157,32 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
     log(f"[release] qwen3-30b-a3b engines and weights released: {held:.3f} GiB still "
+        f"allocated")
+    assert held < 1.0, held
+    # qwen3-30b-a3b with int8 weights, the routed experts included: the bf16
+    # engine's settings (paged, prefix cache, the lane of 16), unfused as in
+    # JAX; its experts on the int8 grouped expert kernel, 2 launches a layer
+    i8_moe_serve, engine = phase_serve(card, model=MOE_MODEL, profile=opts.profile,
+                                       tag="moe-int8", quantize="int8", prefill_lane=LANE)
+    steps, prefills, _ = (i8_moe_serve["steps"][k] for k in ("decode", "prefill", "lane"))
+    log(f"[moe-int8] int8 grouped expert launches: "
+        f"{i8_moe_serve['launches']['grouped_gateup_i8']} gate|up + "
+        f"{i8_moe_serve['launches']['grouped_down_i8']} down over {steps} decode steps and "
+        f"{prefills} prefill forwards ({2 * engine.cfg.n_layers} a forward); bf16 grouped "
+        f"expert launches {i8_moe_serve['launches']['grouped_gateup']} + "
+        f"{i8_moe_serve['launches']['grouped_down']}; B12 at build "
+        f"{i8_moe_serve['quantize_launches']}")
+    # at 8 tokens no expert row can drop: held to the no-cache forward; at
+    # 16 + 8, where the 24-token forward drops rows a decode step keeps, to
+    # the same serving calls on the plain versions
+    phase_reference(engine, tag="moe-int8-reference", t0=4, steps=4, plain_int8=True)
+    phase_reference(engine, tag="moe-int8-reference", same_path=True, plain_int8=True)
+    params = _release(engine)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[release] qwen3-30b-a3b int8 engine and weights released: {held:.3f} GiB still "
         f"allocated")
     assert held < 1.0, held
     i8_serve, engine = phase_serve(card, model=I8_MODEL, profile=opts.profile, tag="int8",
@@ -4014,6 +4229,7 @@ def main(argv=None) -> int:
     attn = src + "csrc/attention.cu"
     fused = src + "csrc/fused_layer.cu"
     ragged = jsrc + "moe.py:81 _expert_ffn_ragged (lax.ragged_dot)"
+    blocked = jsrc + "moe.py:56 _expert_ffn_blocked (XLA batched int8 dot_general)"
     # name: (route, source, TPU kernel it replaces, the run whose launches count)
     meta = {
         "fused_qkv_stacked": ("cuda", fused, jsrc + "fused_layer.py:244", serve),
@@ -4039,6 +4255,8 @@ def main(argv=None) -> int:
         "int8_product": ("cuda", fused, jsrc + "quant.py:68 int8_matmul (XLA dot_general)",
                          i8_serve),
         "quantize_int8": ("cuda", src + "csrc/quant.cu", jsrc + "quant.py:24", i8_serve),
+        "grouped_gateup_i8": ("cuda", src + "csrc/moe_i8.cu", blocked, i8_moe_serve),
+        "grouped_down_i8": ("cuda", src + "csrc/moe_i8.cu", blocked, i8_moe_serve),
         "fused_mlp_stacked": ("cuda", fused, jsrc + "fused_layer.py:468", mla_serve),
         "fused_mlp": ("cuda", fused, jsrc + "fused_layer.py:112", b11_path),
         "fused_qkv": ("cuda", fused, jsrc + "fused_layer.py:150", b11_path),
@@ -4061,13 +4279,15 @@ def main(argv=None) -> int:
     assert not idle, f"kernels no run of their path launched: {idle}"
     runs = {"serve": serve, "slot_serve": slot, "spec_serve": spec, "pallas_serve": pallas,
             "moe_serve": moe_serve, "moe_slot": moe_slot, "moe_spec": moe_spec,
-            "int8_serve": i8_serve, "mla_serve": mla_serve, "mla_slot": mla_slot,
+            "int8_serve": i8_serve, "moe_int8_serve": i8_moe_serve,
+            "mla_serve": mla_serve, "mla_slot": mla_slot,
             "mla_pallas": mla_pallas, "int8_lane": i8_lane, "trim": trim}
     log(card)   # the card's name and power limit again, beside the result lines
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
-                      "b12_shapes": b12_shapes, "past_64": PAST_64, "card": card}))
+                      "b12_shapes": b12_shapes, "moe_i8_shapes": moe_i8_shapes,
+                      "past_64": PAST_64, "card": card}))
     print(json.dumps({"product": product, "card": card}))
     print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"kernels": kernels}))

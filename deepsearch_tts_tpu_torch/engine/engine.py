@@ -35,9 +35,11 @@ Behaviours carried over from the JAX engine:
   path to reconcile.
 * ``min_tokens`` budget forcing (``tokens_generated = lens - prompt_lens + 1``),
   the host stop scan, finish reasons, ``abort`` and ``telemetry``.
-* ``quantize="int8"`` (dense family): the packed weights' matrices become
+* ``quantize="int8"`` (dense and Qwen3-MoE families; MLA refuses it, as
+  the JAX reference cannot serve it): the packed weights' matrices become
   int8 ``{q, scales}`` (``ops/quant.py``; random init quantizes one matrix
-  at a time as it draws), and T=1 decode takes B10. ``kv_quantize`` in
+  at a time as it draws). Dense T=1 decode takes B10; the MoE family runs
+  unfused, its experts on the int8 grouped expert kernel. ``kv_quantize`` in
   ``{"int8", "int8-force"}``: int8 KV pools plus float32 scales pools,
   paged cache and ``attn_impl="xla"`` only. JAX refuses ``"int8"`` on its
   TPU for speed (``engine.py:411-421``), a TPU measurement; here both
@@ -312,9 +314,9 @@ class Engine:
         # and gets no int8 and no layer fusion. The pools take torch_dtype,
         # as JAX's take jnp_dtype
         if quantize and not getattr(cfg, "int8_weights", False):
-            from .weights import INT8_EXPERTS_NOT_PORTED
+            from .weights import int8_refusal
 
-            raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+            raise NotImplementedError(int8_refusal(cfg))
         if kv_quantize:
             if not getattr(cfg, "int8_kv", False):
                 # the JAX engine refuses it too (its MoE forward takes no scales)
@@ -337,10 +339,14 @@ class Engine:
             # as in JAX (engine.py:278-325): on for single-device bf16
             # serving of a family with a fused decode layer (dense, ragged
             # MoE: the plain versions on the CPU, the CUDA kernels where
-            # their shapes fit; int8 weights, dense only, take B10; MLA:
-            # where B8 takes its MLP widths, on any device, as JAX gates it)
+            # their shapes fit; MLA: where B8 takes its MLP widths, on any
+            # device, as JAX gates it), and with int8 weights for the dense
+            # family only (B10): ``quantize is None or (quantize == "int8"
+            # and is_dense)``
+            is_dense = not (getattr(cfg, "latent_cache", False) or hasattr(cfg, "n_experts"))
             layer_fusion = (getattr(cfg, "dtype", None) == "bfloat16"
                             and hasattr(cfg, "fused_decode_fits")
+                            and (quantize is None or is_dense)
                             and cfg.fused_decode_fits(self.device))
         self.layer_fusion = bool(layer_fusion)
 

@@ -11,13 +11,14 @@ no checkpoint is given, is drawn on the target device from a seeded
 
 Both random init and the checkpoint converters write the packed layout
 the engine serves (``wqkv``, ``w_gateup``), one layer matrix at a time.
-``quantize="int8"`` (random init and the dense converter): every matrix
-named in ``ops/quant.QUANT_KEYS`` is drawn or read one layer matrix at a
-time, packed, and quantized by B12 (round to nearest, per column) into a
-preallocated int8 stack with its float32 scales, so the bf16 tree of a
-large model never exists whole beside its int8 copy (qwen3-32b: 65.6 GB in
-bf16, 33.6 GB int8). Per-column scales make this equal to
-``quantize_params`` of the whole bf16 tree, bit for bit.
+``quantize="int8"`` (random init and the dense and Qwen3-MoE converters):
+every matrix named in ``ops/quant.QUANT_KEYS`` is drawn or read one layer
+(or expert) matrix at a time, packed, and quantized by B12 (round to
+nearest, per column) into a preallocated int8 stack with its float32
+scales, so the bf16 tree of a large model never exists whole beside its
+int8 copy (qwen3-32b: 65.6 GB in bf16, 33.6 GB int8). Per-column scales
+make this equal to ``quantize_params`` of the whole bf16 tree, bit for bit.
+The MLA family takes no int8 weights (:data:`INT8_MLA_REFUSED`).
 """
 from __future__ import annotations
 
@@ -198,22 +199,27 @@ def convert_qwen3_moe(raw: Mapping[str, np.ndarray], cfg, device="cpu",
     layout, experts packed: ``w_gateup`` [L,NE,E,2F], gate first, and
     ``w_down`` [L,NE,F,E]). The expert stacks are filled one expert matrix
     at a time, straight into the layout the engine serves, so neither the
-    host nor the card ever holds a second copy of them."""
-    if quantize is not None:
-        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+    host nor the card ever holds a second copy of them. ``quantize="int8"``:
+    ``wqkv``, ``wo``, both expert stacks and an untied ``lm_head`` as ``{q,
+    scales}``, each expert's gate|up matrix quantized once both halves are
+    in; the router stays in ``dtype``."""
     L, NE, E, Fi = cfg.n_layers, cfg.n_experts, cfg.hidden, cfg.moe_intermediate
     dt = dtype or cfg.torch_dtype
-    params = _convert_attention(raw, cfg, device, dt)
+    params = _convert_attention(raw, cfg, device, dt, quantize)
     lp = params["layers"]
     lp["router"] = _layer_stack(raw, L, "model.layers.{}.mlp.gate.weight", dt, device)
-    lp["w_gateup"] = torch.empty((L, NE, E, 2 * Fi), dtype=dt, device=device)
-    lp["w_down"] = torch.empty((L, NE, Fi, E), dtype=dt, device=device)
-    for proj, dst in (("gate_proj", lp["w_gateup"][..., :Fi]),
-                      ("up_proj", lp["w_gateup"][..., Fi:]), ("down_proj", lp["w_down"])):
-        for i in range(L):
-            for e in range(NE):
-                dst[i, e] = _to_torch(raw[f"model.layers.{i}.mlp.experts.{e}.{proj}.weight"].T,
-                                      dt, device)
+    gateup = _Stack((L, NE, E, 2 * Fi), dt, device, quantize)
+    down = _Stack((L, NE, Fi, E), dt, device, quantize)
+    for i in range(L):
+        for e in range(NE):
+            def mat(proj):
+                return _to_torch(raw[f"model.layers.{i}.mlp.experts.{e}.{proj}.weight"].T,
+                                 dt, device)
+
+            gateup.set((i, e), slice(0, Fi), mat("gate_proj"), last=False)
+            gateup.set((i, e), slice(Fi, 2 * Fi), mat("up_proj"))
+            down.set((i, e), slice(None), mat("down_proj"))
+    lp["w_gateup"], lp["w_down"] = gateup.out, down.out
     return params
 
 
@@ -241,9 +247,9 @@ def convert_deepseek_v3(raw: Mapping[str, np.ndarray], cfg, device="cpu",
     up-projections, the rope columns of ``w_qb`` / ``w_kva``
     de-interleaved, the layers split into ``dense_layers`` (the first
     ``first_k_dense``) and ``moe_layers``. Every stack is filled one layer
-    (or expert) matrix at a time."""
+    (or expert) matrix at a time. No int8 (:data:`INT8_MLA_REFUSED`)."""
     if quantize is not None:
-        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+        raise NotImplementedError(INT8_MLA_REFUSED)
     dt = dtype or cfg.torch_dtype
     E, H, LD = cfg.hidden, cfg.n_heads, cfg.first_k_dense
     QL, KL = cfg.q_lora_rank, cfg.kv_lora_rank
@@ -311,11 +317,23 @@ def convert_deepseek_v3(raw: Mapping[str, np.ndarray], cfg, device="cpu",
     return params
 
 
-# int8 routed experts run JAX's blocked grouped matmul (ops/moe.py
-# _expert_ffn_blocked), which the port does not carry yet
-INT8_EXPERTS_NOT_PORTED = ("int8 weights of the MoE families, Qwen3-MoE and DeepSeek-V3 / "
-                           "Kimi-K2 (the int8 expert FFN, ops/moe.py _expert_ffn_blocked), "
-                           "are not ported to the torch package yet (ROADMAP.md A8)")
+# the JAX reference serves no int8 MLA model: its quantize_params turns the
+# absorbed up-projections w_kb / w_vb (QUANT_KEYS) into {q, scales} leaves,
+# which its attention reshapes as arrays
+INT8_MLA_REFUSED = (
+    "int8 weights of the MLA family (DeepSeek-V3 / Kimi-K2) are refused: the JAX reference "
+    "cannot serve them either — quantize='int8' turns w_kb / w_vb into {q, scales} leaves "
+    "that deepsearch_tts_tpu/models/deepseek_v3.py:283 (_mla_q) reshapes as arrays "
+    "(AttributeError: 'dict' object has no attribute 'reshape')")
+
+
+def int8_refusal(cfg) -> str:
+    """Why the family of ``cfg`` (its ``int8_weights`` unset) takes no int8
+    weights."""
+    if getattr(cfg, "latent_cache", False):
+        return INT8_MLA_REFUSED
+    return (f"model family config {type(cfg).__name__} sets no int8_weights: no int8 "
+            f"weights path")
 
 
 def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None) -> dict:
@@ -332,7 +350,7 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
     from ..ops.quant import QUANT_KEYS
 
     if quantize is not None and not cfg.int8_weights:
-        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+        raise NotImplementedError(int8_refusal(cfg))
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dt = cfg.torch_dtype
@@ -472,5 +490,5 @@ def init_params(fam, device="cpu", seed: int = 0, quantize: str | None = None) -
         raise ValueError(f"model family {fam.name!r} sets custom_init but was registered "
                          f"without init_params")
     if quantize is not None and not getattr(cfg, "int8_weights", False):
-        raise NotImplementedError(INT8_EXPERTS_NOT_PORTED)
+        raise NotImplementedError(int8_refusal(cfg))
     return fam.init_params(cfg, seed=seed, device=torch.device(device))

@@ -76,8 +76,9 @@ class DeepSeekV3Config:
     # the engine keeps one latent row per token in k_pages and a one-page
     # dummy v pool (engine/kvcache.py init_latent_pages)
     latent_cache: bool = True
-    # int8 routed experts are ROADMAP A8's (``_expert_ffn_blocked``); the JAX
-    # family's forward takes no KV scales
+    # no int8 weights: the JAX reference cannot serve them (its attention
+    # reshapes the quantized w_kb / w_vb leaves as arrays, deepseek_v3.py:283;
+    # engine/weights.py INT8_MLA_REFUSED); its forward takes no KV scales
     int8_weights: ClassVar[bool] = False
     int8_kv: ClassVar[bool] = False
 

@@ -15,7 +15,17 @@ FFN on hn with those logits, then ``x2 + moe_out`` — on when
 ``fused_decode``, T == 1, not fresh, ``moe_impl == "ragged"`` and the
 weights are packed. The expert FFN runs through the grouped expert kernel
 on every path. A speculative verify window (T > 1 slot decode) runs
-unfused, as JAX's ``use_fused`` requires T == 1. Two differences from JAX,
+unfused, as JAX's ``use_fused`` requires T == 1.
+
+int8 (``quantize="int8"``; ``ops/quant.py``): every ``QUANT_KEYS`` leaf is
+``{q, scales}`` — ``wqkv``, ``wo`` and the ``lm_head`` go through
+``maybe_int8_dot`` / ``int8_matmul`` (the dense family's ``_dot`` /
+``_lm_head``), the routed experts through ``_expert_ffn_blocked`` (the int8
+grouped expert kernel, with JAX's capacity rule); the router, the norms and
+the embedding stay in the model dtype. The fused layer does not run on int8
+leaves (JAX's ``use_fused`` requires a plain ``wqkv``); ``plain_int8``
+sends every int8 product, the experts included, to its plain version: a
+reference on the card. Two differences from JAX,
 both with ``impl="pallas"``, where the port takes the dense family's
 kernels and the JAX MoE family keeps XLA attention: fresh prefill runs
 flash attention (B2), and a verify window attends through
@@ -32,10 +42,13 @@ import torch
 
 from ..ops import attention as attn_ops
 from ..ops.fused_layer import fused_out_router_stacked, shapes_ok
-from ..ops.moe import moe_capacity, moe_ragged
-from .common import dot_bf16, rms_norm, rope_angles
+from ..ops.moe import _split_gateup, moe_capacity, moe_ragged
+from ..ops.quant import is_quantized
+from .common import rms_norm, rope_angles
 from .qwen3 import (
     ServingAttention,
+    _at,
+    _dot,
     _fused_decode_on,
     _lm_head,
     _qkv_roped,
@@ -62,9 +75,9 @@ class Qwen3MoeConfig:
     moe_impl: str = "ragged"
     capacity_factor: float = 1.25
     dtype: str = "bfloat16"
-    # int8 experts are ROADMAP A8's (``_expert_ffn_blocked``); the JAX
-    # family's forward takes no KV scales, so it has no int8 KV either
-    int8_weights: ClassVar[bool] = False
+    # int8 weights, the routed experts included (``_expert_ffn_blocked``);
+    # the JAX family's forward takes no KV scales, so it has no int8 KV
+    int8_weights: ClassVar[bool] = True
     int8_kv: ClassVar[bool] = False
 
     @property
@@ -110,22 +123,22 @@ def _moe_block(cfg: Qwen3MoeConfig, lp: dict, l: int, h: torch.Tensor,
                router_logits: torch.Tensor | None = None,
                plain: bool = False) -> torch.Tensor:
     """Layer ``l``'s expert MLP on h [B,T,E] (``router_logits`` [B·T,NE]
-    when B7 computed them; ``plain``: the expert FFN's plain versions)."""
+    when B7 computed them; ``plain``: the expert FFN's plain versions).
+    Expert leaves may be int8 ``{q, scales}``."""
     B, T, E = h.shape
     x = h.reshape(B * T, E)
     if "w_gateup" in lp:   # packed gate|up (engine packing)
-        w_gate, w_up = lp["w_gateup"][l], None
+        w_gate, w_up = _at(lp["w_gateup"], l), None
     else:
-        w_gate, w_up = lp["w_gate"][l], lp["w_up"][l]
+        w_gate, w_up = _at(lp["w_gate"], l), _at(lp["w_up"], l)
+    w_down = _at(lp["w_down"], l)
     if cfg.moe_impl == "ragged":
         router = lp["router"][l] if router_logits is None else None
-        out = moe_ragged(x, router, w_gate, w_up, lp["w_down"][l], cfg.top_k,
+        out = moe_ragged(x, router, w_gate, w_up, w_down, cfg.top_k,
                          cfg.norm_topk_prob, router_logits=router_logits, plain=plain)
     else:
-        if w_up is None:
-            Fi = lp["w_down"].shape[-2]
-            w_gate, w_up = w_gate[..., :Fi], w_gate[..., Fi:]
-        out = moe_capacity(x, lp["router"][l], w_gate, w_up, lp["w_down"][l],
+        w_gate, w_up = _split_gateup(w_gate, w_up)
+        out = moe_capacity(x, lp["router"][l], w_gate, w_up, w_down,
                            cfg.top_k, cfg.norm_topk_prob,
                            capacity_factor=cfg.capacity_factor)
     return out.reshape(B, T, E)
@@ -148,6 +161,7 @@ def forward(
     fresh_prefill: bool = False,
     fused_decode: bool = False,
     plain_experts: bool = False,
+    plain_int8: bool = False,
     lane_tokens: torch.Tensor | None = None,
     lane_positions: torch.Tensor | None = None,
     lane_table: torch.Tensor | None = None,
@@ -157,8 +171,10 @@ def forward(
     the prefill lane included). ``plain_experts`` runs the ragged expert
     FFN through its plain versions instead of the grouped expert kernel, on
     any device: the no-cache forward is then plain torch throughout, a
-    reference for the kernels on the card."""
+    reference for the kernels on the card. ``plain_int8`` does the same for
+    int8 weights: every int8 product and the int8 expert FFN."""
     lp = params["layers"]
+    plain = plain_experts or plain_int8
     H, D = cfg.n_heads, cfg.head_dim
     eps = cfg.rms_eps
     serving = k_pages is not None
@@ -174,12 +190,13 @@ def forward(
 
     if serving:
         use_fused = (_fused_decode_on(fused_decode, T, fresh_prefill, lp)
-                     and cfg.fused_decode_widths() is not None)
+                     and cfg.fused_decode_widths() is not None
+                     and not is_quantized(lp["wqkv"]))
         attend = ServingAttention(
             cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
-            fused=use_fused, lane=B - B_dec)
+            fused=use_fused, plain=plain_int8, lane=B - B_dec)
         if use_fused:
             xf = x.reshape(B, E)
         for l in range(cfg.n_layers):
@@ -189,28 +206,26 @@ def forward(
                     o.reshape(B, H * D).to(x.dtype), xf, lp["wo"], lp["ln2"],
                     lp["router"], l, eps=eps)
                 xf = x2 + _moe_block(cfg, lp, l, hn[:, None], router_logits=rl,
-                                     plain=plain_experts)[:, 0]
+                                     plain=plain)[:, 0]
             else:
                 o = attend(l, x)
-                x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
-                x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps),
-                                   plain=plain_experts)
+                x = x + _dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8).to(x.dtype)
+                x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain=plain)
         if use_fused:
             x = xf.reshape(B, 1, E)
     else:
         for l in range(cfg.n_layers):
-            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin)
+            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain_int8)
             o = attn_ops.causal_attention(q, k, v.to(x.dtype), impl=impl)
-            x = x + dot_bf16(o.reshape(B, T, H * D), lp["wo"][l]).to(x.dtype)
-            x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps),
-                               plain=plain_experts)
+            x = x + _dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8).to(x.dtype)
+            x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain=plain)
 
     x = rms_norm(x, params["final_norm"], eps)
     if lane_tokens is not None:
         x = lane_logits_rows(x, B_dec, lane_logit_row)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
-    logits = _lm_head(params, x)
+    logits = _lm_head(params, x, plain_int8)
     if not serving:
         return logits, None
     return logits, (k_pages, v_pages)

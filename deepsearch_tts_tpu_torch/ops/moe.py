@@ -14,8 +14,19 @@
   ``grouped_expert_tc`` (prefill: 128-row tiles on ``wgmma`` over a TMA
   ring, a persistent grid over (expert, n-tile, m-tile) items built on the
   card), chosen by :func:`grouped_prefill` from static sizes alone.
+* :func:`_expert_ffn_blocked` — the same SwiGLU over int8 ``{q, scales}``
+  expert weights (JAX ``moe.py:56``, XLA: ``lax.ragged_dot`` has no int8
+  path): each expert computes at most ``cap`` of its rows, the first in
+  sorted order (:func:`expert_capacity`, JAX's rule); the output rows past
+  it are 0. Both int8 entries, :func:`grouped_gateup_i8` and
+  :func:`grouped_down_i8`, launch ``grouped_expert_i8``
+  (``csrc/moe_i8.cu``: int8 tiles widened to bf16 in registers,
+  ``mma.sync``, the column scales on the float32 sums) at decode and
+  prefill alike. JAX's round points there: g and u stay float32 (no bf16
+  rounding before ``silu``), h is rounded to x's dtype, y too.
 * :func:`moe_capacity` — the GShard capacity-bounded one-hot dispatch, the
-  other ``moe_impl`` (plain torch; tokens past an expert's capacity drop).
+  other ``moe_impl`` (plain torch, int8 leaves too; tokens past an
+  expert's capacity drop).
 
 Round points are JAX's (``moe.py:81-128``): ``ragged_dot`` returns the
 input dtype, so g and u are rounded to it before ``silu`` is taken in
@@ -30,8 +41,8 @@ For a CUDA tensor the grouped wrappers launch a kernel or raise; for a CPU
 tensor they run their plain versions, a per-expert loop that reads the
 group offsets on the host. Each wrapper counts its launches of either
 kernel in ``launches`` and those of the prefill kernel in
-``prefill_launches``. ``_expert_ffn_blocked`` (int8 experts, ROADMAP A10) and
-``moe_ep_alltoall`` (A13) are not ported yet.
+``prefill_launches``; the int8 wrappers count theirs in ``launches``.
+``moe_ep_alltoall`` (ROADMAP A13) is not ported yet.
 """
 from __future__ import annotations
 
@@ -43,6 +54,7 @@ import ctypes
 from ..models.common import matmul_f32
 from .fused_layer import _TILE, _check, _lib, _raise_if
 from .paged_attention import _sm_count
+from .quant import is_quantized
 
 _ROWS = 64          # expert-sorted rows per block tile of the decode kernel (csrc: MAX_ROWS)
 _MAX_ROW_SPLITS = 8
@@ -77,11 +89,17 @@ def group_offsets(flat_e: torch.Tensor, n_exp: int) -> torch.Tensor:
 # ------------------------------------------------------- grouped expert FFN
 
 def _split_gateup(w_gate, w_up):
-    """(gate, up) [NE,E,F] views of either gate|up layout."""
-    if w_up is None:
-        Fi = w_gate.shape[-1] // 2
-        return w_gate[..., :Fi], w_gate[..., Fi:]
-    return w_gate, w_up
+    """(gate, up) [NE,E,F] views of either gate|up layout, plain or int8
+    ``{q, scales}`` (per-column scales: the packed leaf's halves are the
+    unpacked leaves)."""
+    if w_up is not None:
+        return w_gate, w_up
+    if is_quantized(w_gate):
+        Fi = w_gate["q"].shape[-1] // 2
+        return ({k: w_gate[k][..., :Fi] for k in ("q", "scales")},
+                {k: w_gate[k][..., Fi:] for k in ("q", "scales")})
+    Fi = w_gate.shape[-1] // 2
+    return w_gate[..., :Fi], w_gate[..., Fi:]
 
 
 def grouped_gateup_plain(x_sorted, w_gate, w_up, offsets):
@@ -237,11 +255,183 @@ def grouped_occupancy() -> dict:
     return dict(zip(names, out))
 
 
+# ------------------------------------------------ int8 grouped expert FFN
+
+# JAX's capacity factor of the blocked int8 path (moe.py:56): twice the
+# balanced load
+BLOCKED_CAPACITY_FACTOR = 2.0
+
+
+def expert_capacity(S: int, n_exp: int, capacity_factor: float = BLOCKED_CAPACITY_FACTOR
+                    ) -> int:
+    """Rows an expert computes of ``S`` expert-sorted rows on the int8 path
+    (JAX ``moe.py:64-66``): ``ceil(int(cf·S) / NE)`` rounded up to a
+    multiple of 8, at least 8. From static sizes: no host sync."""
+    cap = -(-int(capacity_factor * S) // int(n_exp))
+    return max(8, -(-cap // 8) * 8)
+
+
+def _widened(w: dict, e: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert ``e`` of an int8 ``{q [NE,K,N], scales [NE,1,N]}`` stack: q
+    widened to bf16 (exact: |q| <= 127) and the float32 scales."""
+    return w["q"][e].to(torch.bfloat16), w["scales"][e].float()
+
+
+def _capped_rows(bounds: list, e: int, cap: int) -> slice:
+    """Expert ``e``'s computed rows: its first ``cap`` rows."""
+    return slice(bounds[e], min(bounds[e + 1], bounds[e] + cap))
+
+
+def grouped_gateup_i8_plain(x_sorted, w_gate, w_up, offsets, cap: int):
+    """Reference for entry 1 of the int8 grouped expert kernel (JAX
+    ``_expert_ffn_blocked``'s gate|up half): per expert e, over its first
+    ``cap`` rows, g and u = (bf16(x) @ widened q) · scales with float32
+    accumulators (left in float32), ``h = silu(g) · u`` rounded to x's
+    dtype; rows past ``cap`` are 0."""
+    wg, wu = _split_gateup(w_gate, w_up)
+    h = x_sorted.new_zeros((x_sorted.shape[0], wg["q"].shape[-1]))
+    xb = x_sorted.to(torch.bfloat16)
+    bounds = offsets.tolist()
+    for e in range(wg["q"].shape[0]):
+        rows = _capped_rows(bounds, e, cap)
+        if rows.start >= rows.stop:
+            continue
+        (qg, sg), (qu, su) = _widened(wg, e), _widened(wu, e)
+        g = matmul_f32(xb[rows], qg) * sg
+        u = matmul_f32(xb[rows], qu) * su
+        h[rows] = (F.silu(g) * u).to(x_sorted.dtype)
+    return h
+
+
+def grouped_down_i8_plain(h, w_down, offsets, cap: int):
+    """Reference for entry 2: ``y = (bf16(h) @ widened q) · scales`` over
+    expert e's first ``cap`` rows, float32 accumulator, rounded to h's
+    dtype; rows past ``cap`` are 0."""
+    y = h.new_zeros((h.shape[0], w_down["q"].shape[-1]))
+    hb = h.to(torch.bfloat16)
+    bounds = offsets.tolist()
+    for e in range(w_down["q"].shape[0]):
+        rows = _capped_rows(bounds, e, cap)
+        if rows.start < rows.stop:
+            q, s = _widened(w_down, e)
+            y[rows] = (matmul_f32(hb[rows], q) * s).to(h.dtype)
+    return y
+
+
+def _lib_i8():
+    from ._build import load_library
+
+    lib = load_library("moe_i8")
+    if not getattr(lib, "_dstts_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dstts_grouped_gateup_i8.argtypes = [p, p, i] + [p] * 4 + [i] * 5 + [p, p]
+        lib.dstts_grouped_gateup_i8.restype = i
+        lib.dstts_grouped_down_i8.argtypes = [p, p, i, p, p] + [i] * 4 + [p, p]
+        lib.dstts_grouped_down_i8.restype = i
+        lib.dstts_grouped_i8_occupancy.argtypes = [p]
+        lib.dstts_grouped_i8_occupancy.restype = i
+        lib._dstts_typed = True
+    return lib
+
+
+def _check_i8(name: str, w: dict, shape: tuple) -> None:
+    _check(name + "['q']", w["q"], shape, dtype=torch.int8)
+    _check(name + "['scales']", w["scales"], shape[:-2] + (1, shape[-1]), dtype=torch.float32)
+
+
+def grouped_gateup_i8(x_sorted, w_gate, w_up, offsets, cap: int):
+    """Entry 1 of the int8 grouped expert kernel: h [S,F] for expert-sorted
+    rows x_sorted [S,E] (bf16), each expert's first ``cap`` rows (the rest
+    0). ``w_up=None``: ``w_gate`` is the packed ``{q [NE,E,2F], scales
+    [NE,1,2F]}`` gate|up leaf (gate first); otherwise both are ``{q
+    [NE,E,F], scales [NE,1,F]}``."""
+    if x_sorted.device.type == "cpu":
+        return grouped_gateup_i8_plain(x_sorted, w_gate, w_up, offsets, cap)
+    S, E = x_sorted.shape
+    q, s = w_gate["q"], w_gate["scales"]
+    NE = q.shape[0]
+    Fi = q.shape[-1] // 2 if w_up is None else q.shape[-1]
+    if not grouped_shapes_ok(E, Fi):
+        raise ValueError(f"int8 grouped expert kernel needs E % {_TILE} == 0 and "
+                         f"F % {_TILE // 2} == 0 (got E={E}, F={Fi})")
+    dev = x_sorted.device
+    _check("x_sorted", x_sorted, (S, E))
+    _check_i8("w_gate", w_gate, (NE, E, Fi if w_up is not None else 2 * Fi))
+    if w_up is None:
+        up_q, up_s, ldw = q.data_ptr() + Fi, s.data_ptr() + 4 * Fi, 2 * Fi
+    else:
+        _check_i8("w_up", w_up, (NE, E, Fi))
+        up_q, up_s, ldw = w_up["q"].data_ptr(), w_up["scales"].data_ptr(), Fi
+    _check_offsets(offsets, NE, dev)
+    h = torch.empty((S, Fi), dtype=x_sorted.dtype, device=dev)
+    err = _lib_i8().dstts_grouped_gateup_i8(
+        x_sorted.data_ptr(), offsets.data_ptr(), int(cap), q.data_ptr(), up_q, s.data_ptr(),
+        up_s, ldw, NE, E, Fi, _row_splits(S, NE), h.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "grouped_gateup_i8")
+    grouped_gateup_i8.launches += 1
+    return h
+
+
+grouped_gateup_i8.launches = 0
+
+
+def grouped_down_i8(h, w_down, offsets, cap: int):
+    """Entry 2: y [S,E] = (h [S,F] @ Wd[e]) · sd[e] over each expert's
+    first ``cap`` rows (the rest 0); w_down ``{q [NE,F,E], scales
+    [NE,1,E]}``."""
+    if h.device.type == "cpu":
+        return grouped_down_i8_plain(h, w_down, offsets, cap)
+    S, Fi = h.shape
+    NE, _, E = w_down["q"].shape
+    if not grouped_shapes_ok(E, Fi):
+        raise ValueError(f"int8 grouped expert kernel needs E % {_TILE} == 0 and "
+                         f"F % {_TILE // 2} == 0 (got E={E}, F={Fi})")
+    dev = h.device
+    _check("h", h, (S, Fi))
+    _check_i8("w_down", w_down, (NE, Fi, E))
+    _check_offsets(offsets, NE, dev)
+    y = torch.empty((S, E), dtype=h.dtype, device=dev)
+    err = _lib_i8().dstts_grouped_down_i8(
+        h.data_ptr(), offsets.data_ptr(), int(cap), w_down["q"].data_ptr(),
+        w_down["scales"].data_ptr(), NE, Fi, E, _row_splits(S, NE), y.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "grouped_down_i8")
+    grouped_down_i8.launches += 1
+    return y
+
+
+grouped_down_i8.launches = 0
+
+
+def grouped_i8_occupancy() -> dict:
+    """Blocks an SM holds of each int8 grouped expert entry's kernel, as the
+    CUDA runtime computes them."""
+    out = (ctypes.c_int * 2)()
+    _raise_if(_lib_i8().dstts_grouped_i8_occupancy(out), "grouped_i8_occupancy")
+    return dict(zip(("int8 gate|up", "int8 down"), out))
+
+
+def _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):
+    """Grouped SwiGLU over int8 expert weights (JAX ``moe.py:56``): each
+    expert computes its first :func:`expert_capacity` rows (of S = T·k),
+    the rows past it are 0; the int8 kernel's two entries, or with
+    ``plain`` their plain versions. ``w_up=None``: the packed gate|up
+    leaf."""
+    cap = expert_capacity(x_sorted.shape[0], offsets.shape[0] - 1)
+    gateup, down = ((grouped_gateup_i8_plain, grouped_down_i8_plain) if plain
+                    else (grouped_gateup_i8, grouped_down_i8))
+    return down(gateup(x_sorted, w_gate, w_up, offsets, cap), w_down, offsets, cap)
+
+
 def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):
     """Grouped SwiGLU over expert-sorted rows (JAX ``moe.py:81``; here the
     grouped expert kernel's two entries, or with ``plain`` their plain
-    versions on any device: a reference on the card). ``w_up=None`` means
-    ``w_gate`` is the packed [NE, E, 2F] gate|up layout."""
+    versions on any device: a reference on the card); int8 ``{q, scales}``
+    experts take :func:`_expert_ffn_blocked`, as in JAX. ``w_up=None``
+    means ``w_gate`` is the packed [NE, E, 2F] gate|up layout."""
+    if is_quantized(w_gate):
+        return _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain)
     gateup, down = ((grouped_gateup_plain, grouped_down_plain) if plain
                     else (grouped_gateup, grouped_down))
     return down(gateup(x_sorted, w_gate, w_up, offsets), w_down, offsets)
@@ -282,7 +472,11 @@ def dispatch_ragged(x, top_w, top_e, n_exp: int, w_gate, w_up, w_down, plain: bo
 
 
 def _expert_dot(xe, w):
-    """Batched per-expert ``[e,c,d] @ [e,d,f] -> [e,c,f]``, float32 out."""
+    """Batched per-expert ``[e,c,d] @ [e,d,f] -> [e,c,f]``, float32 out. An
+    int8 ``{q, scales}`` leaf multiplies bf16(xe) by q (exact in float32)
+    and applies the column scales to the float32 sums (JAX ``moe.py:40``)."""
+    if is_quantized(w):
+        return torch.bmm(xe.to(torch.bfloat16).float(), w["q"].float()) * w["scales"].float()
     return torch.bmm(xe.float(), w.float())
 
 
@@ -290,7 +484,8 @@ def moe_capacity(x, router_w, w_gate, w_up, w_down, top_k: int,
                  norm_topk_prob: bool = True, capacity_factor: float = 1.25):
     """Capacity-bounded one-hot dispatch (JAX ``moe.py:223``): each expert
     takes at most ``max(1, int(capacity_factor·T·k/NE))`` assignments in
-    token order; the rest drop (their gate weight is 0)."""
+    token order; the rest drop (their gate weight is 0). The expert weights
+    may be int8 ``{q, scales}`` leaves (:func:`_expert_dot`)."""
     T, E = x.shape
     n_exp = router_w.shape[1]
     cap = max(1, int(capacity_factor * T * top_k / n_exp))

@@ -162,8 +162,8 @@ def test_load_or_init_params_calls_the_family_init():
 
 
 def test_custom_init_family_refuses_int8():
-    """No int8 for a config without the int8 fields: the errors the MoE
-    families give."""
+    """No int8 for a config without the int8 fields (the MLA family's
+    errors name its own reason)."""
     _register()
     with pytest.raises(NotImplementedError, match="int8"):
         tengine.Engine(NAME, TOK, device="cpu", quantize="int8", **ENGINE_KW)
