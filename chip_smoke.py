@@ -13,7 +13,11 @@ Phases, each raising on failure (non-zero exit, no final line):
    JIT;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the serving path's shapes (qwen3-8b widths), with the tolerance
-   stated below, timed with CUDA events after warm-up: B3, B4, B5, then
+   stated below, timed with CUDA events after warm-up: B3, B4 (at 1, 8,
+   16, 64, 80, 128 and 256 rows; where their products take the wgmma form,
+   ``gemm_tc``, the parent's ``gemm_partial`` timed beside; at 80 rows a
+   plain output whose second 64-row group lost a gate|up k stage must fail
+   B4's bound), B5, then
    the attention kernels B1 (slot; also B = 1 over one full 4096-token row,
    the case K1's context split is for, and B = 64, where one split fills
    the card, both beside SDPA), B6 (the three paged
@@ -124,7 +128,12 @@ Phases, each raising on failure (non-zero exit, no final line):
     widths on B12-quantized expert stacks: 16 tokens x top-8 (expert 7
     empty, expert 3 over its capacity of 8: its last rows must be 0), 64
     and 3072 tokens, each timed beside the bf16 grouped expert kernel on
-    the same routing and, for information, bf16 ``torch._grouped_mm``;
+    the same routing and, for information, bf16 ``torch._grouped_mm``; at
+    3072 the prefill form (``grouped_expert_i8_tc``, counted in
+    ``prefill_launches``), packed and unpacked, beside the parent's form
+    (the decode kernel), a plain gate|up without one k stage failing the
+    bound, and a skewed 3072-token routing (an expert over 256 rows and
+    past its capacity: those rows 0, two calls bit-equal);
 13b. int8 MoE serve, after the qwen3-30b-a3b weights are released:
     ``Engine("qwen3-30b-a3b", quantize="int8", prefill_lane=16)``, paged,
     the bf16 engine's other settings (28.8 GiB of weights, drawn and
@@ -152,7 +161,8 @@ Phases, each raising on failure (non-zero exit, no final line):
     W = 4 and 8 (qwen3-8b widths) and W = 4, 8 and 16 (G = 8; 16 splits
     into two launches); B3 / B4 / B10 at 64 rows, a verify step's
     16 x (3 + 1); B3 / B4 (and B7 at qwen3-30b-a3b widths) also at 80 rows,
-    a lane step at 64 slots: a second 64-row group;
+    a lane step at 64 slots (B3 / B4: one weight pass of ``gemm_tc``; B7:
+    a second 64-row group);
 17. speculative serve, after phase 6: ``Engine(cache_mode="slot",
     speculative="ngram", spec_k=3)`` on the qwen3-8b weights over HTTP,
     phase 6's requests, then a greedy full batch whose tokens per verify
@@ -169,7 +179,8 @@ Phases, each raising on failure (non-zero exit, no final line):
     ``plain_experts``;
 20. MLA kernels (run with phase 3): B8 (``fused_mlp_stacked``) at
     deepseek-v3 widths, E = 7168 with the dense F = 18432 (norm and
-    residual) and the shared-expert F = 2048 (neither), B = 1 and 16, both
+    residual) and the shared-expert F = 2048 (neither), B = 1, 16 and 64
+    (the parent's form timed beside where the wgmma form runs), both
     layers of a two-layer stack; K3 (``latent_attention``) at D = 576 with
     deepseek-v3's 128 and kimi-k2's 64 query heads over one cache head,
     B = 16 and 4096-token rows with ragged limits and inactive rows, through
@@ -440,6 +451,40 @@ def bound(nbytes: float, flop: float, rate: float = BF16_FLOP_S) -> dict:
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations"}
 
 
+@contextlib.contextmanager
+def _parent_products():
+    """The bf16 products of B3 / B4 / B8 on the parent's form (gemm_partial,
+    a block a 64-row group) inside: ``fused_layer.TC_MIN_ROWS`` raised past
+    any row count. Yields the row count from which they take the wgmma
+    form outside."""
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    taken = fl.TC_MIN_ROWS
+    fl.TC_MIN_ROWS = 1 << 30
+    try:
+        yield taken
+    finally:
+        fl.TC_MIN_ROWS = taken
+
+
+def _b4_row_group_fault(args4, got) -> None:
+    """A plain B4 (layer 0) whose rows past 64 (a second row group of the
+    parent's form) lost the first 64-row k stage of gate|up must fail the
+    bound that the kernel's output ``got`` meets."""
+    from deepsearch_tts_tpu_torch.ops import fused_layer as fl
+
+    a, x, wo, ln2, gateup, wd = args4
+    gu = gateup[:1].clone()
+    gu[:, :64] = 0
+    fault = fl.fused_out_mlp_stacked_plain(a, x, wo, ln2, gateup, wd, 0, eps=1e-6)
+    fault[64:] = fl.fused_out_mlp_stacked_plain(a[64:], x[64:], wo[:1], ln2[:1], gu, wd[:1], 0,
+                                                eps=1e-6)
+    use = _bound_use(fault, got, BF16_RTOL, BF16_ATOL, math.inf)
+    assert use > 1.0, ("B4: a row group without a weight stage passed the bound", use)
+    log(f"[kernel] B4 fused_out_mlp_stacked B={a.shape[0]:3d} plain output whose rows past 64 "
+        f"lost gate|up's first k stage: {use:.1f} times the bound")
+
+
 def phase_kernels(gen) -> dict:
     """Each wrapper vs its plain version; returns per-kernel results."""
     import torch
@@ -466,12 +511,15 @@ def phase_kernels(gen) -> dict:
     wd = rnd(L, FF, E, scale=FF ** -0.5)
     res = {"fused_qkv_stacked": {"err": 0.0}, "fused_out_mlp_stacked": {"err": 0.0},
            "sampling_prep": {"err": 0.0}}
-    # 64: a verify step's rows; LANE_ROWS: a lane step's, a second 64-row
-    # group (blockIdx.z = 1), its inputs from a generator of their own so
-    # that later phases see their old inputs
+    # 64: a verify step's rows; LANE_ROWS: a lane step's, its inputs from a
+    # generator of their own, and 128 / 256 (a verify step at 64 slots has
+    # 64·(K+1) rows) from another, so that later phases see their old
+    # inputs. Wherever the products take the wgmma form (fl.TC_MIN_ROWS), the
+    # parent's form (gemm_partial, a block a 64-row group) is timed beside
     lane_gen = torch.Generator(device=dev).manual_seed(13)
-    for B in (1, 8, SLOTS, SLOTS * WIN, LANE_ROWS):
-        g = lane_gen if B == LANE_ROWS else gen
+    wide_gen = torch.Generator(device=dev).manual_seed(16)
+    for B in (1, 8, SLOTS, SLOTS * WIN, LANE_ROWS, 128, 256):
+        g = lane_gen if B == LANE_ROWS else wide_gen if B > LANE_ROWS else gen
         x = (torch.randn((B, E), generator=g, device=dev)).to(bf)
         a = (torch.randn((B, H * D), generator=g, device=dev)).to(bf)
         pos = torch.randint(0, 4000, (B,), generator=g, device=dev)
@@ -494,6 +542,8 @@ def phase_kernels(gen) -> dict:
             torch.testing.assert_close(got4.float(), ref4.float(), rtol=BF16_RTOL,
                                        atol=BF16_ATOL)
             e4 = max(e4, _err(got4, ref4))
+            if B == LANE_ROWS and layer == 0:
+                _b4_row_group_fault(args4, got4)
 
         def layers(f, args, **k):
             return lambda: [f(*args, layer, **k) for layer in range(L)]
@@ -502,22 +552,28 @@ def phase_kernels(gen) -> dict:
         p3 = time_ms(layers(fl.fused_qkv_stacked_plain, args3, **kw), calls=L)
         t4 = time_ms(layers(fl.fused_out_mlp_stacked, args4, eps=1e-6), calls=L)
         p4 = time_ms(layers(fl.fused_out_mlp_stacked_plain, args4, eps=1e-6), calls=L)
+        with _parent_products() as taken:
+            parent3 = (time_ms(layers(fl.fused_qkv_stacked, args3, **kw), calls=L)[0]
+                       if B >= taken else None)
+            parent4 = (time_ms(layers(fl.fused_out_mlp_stacked, args4, eps=1e-6), calls=L)[0]
+                       if B >= taken else None)
         C, W4 = (H + 2 * KV) * D, H * D * E + 3 * E * FF
         b3 = bound(2 * (E * C + B * E + E + 2 * D + B * C) + 4 * B * D, 2 * B * E * C)
         b4 = bound(2 * (W4 + B * H * D + 2 * B * E + E), 2 * B * W4)
-        for name, e, t, p, bd in (("B3 fused_qkv_stacked", e3, t3, p3, b3),
-                                  ("B4 fused_out_mlp_stacked", e4, t4, p4, b4)):
+        for name, e, t, p, bd, par in (("B3 fused_qkv_stacked", e3, t3, p3, b3, parent3),
+                                       ("B4 fused_out_mlp_stacked", e4, t4, p4, b4, parent4)):
             log(f"[kernel] {name:25s} B={B:3d} max_abs_err={e:.3e} | device "
                 f"kernel {t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel "
                 f"{t[1]:.4f} ms plain {p[1]:.4f} ms | bound {bd['bound_ms']:.4f} ms "
-                f"({bd['bound_by']})")
+                f"({bd['bound_by']})"
+                + (f" | parent's form (gemm_partial) {par:.4f} ms" if par is not None else ""))
             name = name.split()[1]
             res[name]["err"] = max(res[name]["err"], e)
             if B == SLOTS:
-                res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, **bd)
-            if B == LANE_ROWS:
+                res[name].update(ms=t[0], plain_ms=p[0], library_ms=None, parent_ms=par, **bd)
+            if B >= LANE_ROWS:
                 PAST_64[f"{name} qwen3-8b B={B}"] = dict(err=e, ms=t[0], plain_ms=p[0],
-                                                         library_ms=None, **bd)
+                                                         library_ms=None, parent_ms=par, **bd)
 
     # B3 with bf16 cos / sin (read as stored: widening is exact) at B = 1,
     # 16 and 64, and a plain output whose input norm left out one K chunk
@@ -675,6 +731,12 @@ def phase_one_layer_kernels(gen) -> tuple[dict, dict]:
                       nbytes=2 * (E * C + 64 * E + E + 2 * D + 64 * C + 64 * D)
                       + (2 if cdt == torch.bfloat16 else 4) * 64 * D, flop=2 * 64 * E * C)
         res["fused_qkv"]["err"] = max(res["fused_qkv"]["err"], sub["fused_qkv"]["err"])
+        with _parent_products() as taken:   # the parent's form where the wgmma form runs
+            if 64 >= taken:
+                par = time_ms(lambda: fl.fused_qkv(x, ln, wqkv, qn, kn, cos, sin, **kw),
+                              iters=20)[0]
+                log(f"[kernel] fused_qkv B=64 cos/sin {str(cdt).split('.')[-1]}: parent's "
+                    f"form (gemm_partial) {par:.4f} ms")
 
     # B11's path: its three entry points on one 16-row decode layer
     fns = (fl.fused_qkv, fl.fused_out_mlp, fl.fused_mlp)
@@ -1654,13 +1716,21 @@ def phase_moe_i8_kernels() -> tuple[dict, dict]:
     qwen3-30b-a3b widths, on layer 1 of a two-layer expert stack quantized
     by B12 (the layer offset): 16 tokens x top-8 with expert 7 empty and
     expert 3 past its capacity (10 rows, cap 8: the last two rows must come
-    out 0), 64 tokens and 3072 tokens; gate|up packed, and unpacked at 16
-    tokens (MLA's layout). Each timed beside the bf16 grouped expert kernel
-    on the same routing (the bf16 weights before quantization) and, for
-    information, ``torch._grouped_mm`` in bf16: no PyTorch call takes int8
-    weights with per-column scales, so ``library_ms`` is null. Its own
-    generator: the other phases see the inputs they saw before. Returns the
-    kernel-line results (16 tokens) and every shape's numbers."""
+    out 0), 64 tokens (the decode form) and 3072 tokens (the prefill form,
+    ``prefill_launches`` counting it), then 3072 tokens skewed (expert 5
+    over 256 rows and past its capacity of 384); gate|up packed, and
+    unpacked at 16 and 3072 tokens (MLA's layout); two calls bit-equal;
+    rows past the capacity 0; at 3072 a plain version without one 64-row k
+    stage of the largest expert's gate|up must fail the bound, and the
+    parent's form (the decode kernel, which took every row count before
+    the prefill form) is timed beside. Each timed beside the bf16 grouped
+    expert kernel on the same routing (the bf16 weights before
+    quantization) and, for information, ``torch._grouped_mm`` in bf16: no
+    PyTorch call takes int8 weights with per-column scales, so
+    ``library_ms`` is null. Its own generator (the skewed routing another):
+    the other phases see the inputs they saw before. Returns the
+    kernel-line results (16 tokens; ``*_prefill``: 3072 tokens) and every
+    shape's numbers."""
     import torch
 
     from deepsearch_tts_tpu_torch.ops import moe
@@ -1702,6 +1772,9 @@ def phase_moe_i8_kernels() -> tuple[dict, dict]:
         label = (f"T={T} x top-{M_TOPK} ({touched} experts, largest {int(sizes.max())} rows, "
                  f"cap {cap}, {int(dropped.sum())} dropped)")
         into = res if T == SLOTS else {}
+        prefill = moe.grouped_prefill(S, M_NE, M_E, M_F)
+        assert prefill == (T == 3072), (T, prefill)
+        n_pre = moe.grouped_gateup_i8.prefill_launches + moe.grouped_down_i8.prefill_launches
         h = moe.grouped_gateup_i8_plain(xs, gu, None, offsets, cap)
         nb_gu = (touched * (M_E * 2 * M_F + 4 * 2 * M_F) + 2 * kept * M_E + 2 * S * M_F
                  + 4 * (M_NE + 1))
@@ -1723,7 +1796,12 @@ def phase_moe_i8_kernels() -> tuple[dict, dict]:
         assert torch.equal(got_y, moe.grouped_down_i8(h, wd, offsets, cap))
         assert not bool(got_h[dropped].any()) and not bool(got_y[dropped].any()), \
             "rows past the capacity must be 0"
-        if T == SLOTS:   # gate and up unpacked, as MLA's experts are
+        ran = (moe.grouped_gateup_i8.prefill_launches + moe.grouped_down_i8.prefill_launches
+               - n_pre)
+        assert (ran > 0) == prefill, ("the prefill form's launches", T, ran)
+        if prefill:
+            _i8_prefill_extra(res, into, label, xs, h, gu, wd, offsets, cap, sizes)
+        if T in (SLOTS, 3072):   # gate and up unpacked, as MLA's experts are
             wg = {k: v[..., :v.shape[-1] // 2].contiguous() for k, v in gu.items()}
             wu = {k: v[..., v.shape[-1] // 2:].contiguous() for k, v in gu.items()}
             _check_kernel(into, "grouped_gateup_i8", label + " unpacked",
@@ -1744,21 +1822,112 @@ def phase_moe_i8_kernels() -> tuple[dict, dict]:
             r = into[name]
             shapes[f"{name} T={T}"] = {**{k: r[k] for k in ("err", "ms", "plain_ms",
                                                              "bound_ms", "bound_by")},
+                                       "parent_ms": r.get("parent_ms"),
                                        "bf16_kernel_ms": bf16_ms[i],
                                        "bf16_grouped_mm_ms": lib_ms[i], "cap": cap,
                                        "dropped": int(dropped.sum()), "experts": touched}
-            if T != SLOTS:
+            if prefill:
+                res[name + "_prefill"] = {**r, "library_ms": None}
+            elif T != SLOTS:
                 res[name]["err"] = max(res[name]["err"], r["err"])
-        log(f"[kernel] int8 experts T={T}: kernel {into['grouped_gateup_i8']['ms']:.4f} / "
+        log(f"[kernel] int8 experts T={T} ({'prefill' if prefill else 'decode'} form): kernel "
+            f"{into['grouped_gateup_i8']['ms']:.4f} / "
             f"{into['grouped_down_i8']['ms']:.4f} ms (bound "
             f"{into['grouped_gateup_i8']['bound_ms']:.4f} / "
             f"{into['grouped_down_i8']['bound_ms']:.4f}) | bf16 grouped expert kernel "
             f"{bf16_ms[0]:.4f} / {bf16_ms[1]:.4f} ms | bf16 torch._grouped_mm "
             + (f"{lib_ms[0]:.4f} / {lib_ms[1]:.4f} ms" if grouped_mm else "absent"))
         del h, hb, got_h, got_y
+    _i8_prefill_skewed(res, gu, wd)
     del gu_all, wd_all, wgu_bf, wd_bf
     _free()
     return res, shapes
+
+
+@contextlib.contextmanager
+def _i8_parent_form():
+    """The int8 grouped expert wrappers on the parent's form inside (the
+    decode kernel, which took every row count before the prefill form):
+    ``moe.PREFILL_ROWS_PER_EXPERT`` raised past any size. (The bf16
+    wrappers read it too: nothing else runs inside.)"""
+    from deepsearch_tts_tpu_torch.ops import moe
+
+    old = moe.PREFILL_ROWS_PER_EXPERT
+    moe.PREFILL_ROWS_PER_EXPERT = 1 << 30
+    try:
+        yield
+    finally:
+        moe.PREFILL_ROWS_PER_EXPERT = old
+
+
+def _i8_prefill_extra(res, into, label, xs, h, gu, wd, offsets, cap, sizes) -> None:
+    """At 3072 tokens: the parent's form timed beside the prefill form's
+    time in ``into``, and a plain gate|up without one 64-row k stage of the
+    largest expert's weights failing the bound the kernel meets."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import moe
+
+    with _i8_parent_form():
+        for name, call in (("grouped_gateup_i8",
+                            lambda: moe.grouped_gateup_i8(xs, gu, None, offsets, cap)),
+                           ("grouped_down_i8", lambda: moe.grouped_down_i8(h, wd, offsets, cap))):
+            into[name]["parent_ms"] = time_ms(call, iters=20)[0]
+    e = int(sizes.argmax())
+    q = gu["q"].clone()
+    q[e, 64:128] = 0
+    fault = moe.grouped_gateup_i8_plain(xs, {"q": q, "scales": gu["scales"]}, None, offsets, cap)
+    got = moe.grouped_gateup_i8(xs, gu, None, offsets, cap)
+    use = _bound_use(fault, got, BF16_RTOL, BF16_ATOL, math.inf)
+    assert use > 1.0, ("int8 prefill: a plain gate|up without a k stage passed the bound", use)
+    log(f"[kernel] int8 experts {label}: parent's form (the decode kernel) "
+        f"{into['grouped_gateup_i8']['parent_ms']:.4f} / "
+        f"{into['grouped_down_i8']['parent_ms']:.4f} ms; plain gate|up without k stage 1 of "
+        f"expert {e}: {use:.1f} times the bound")
+    del q, fault, got
+    torch.cuda.synchronize()
+
+
+def _i8_prefill_skewed(res, gu, wd) -> None:
+    """The prefill form on a skewed 3072-token routing (its own generator):
+    expert 5 takes 500 tokens, over one 256-row tile and past its capacity
+    of 384; packed gate|up and down against the plain versions, rows past
+    the capacity 0, two calls bit-equal, the prefill form counted."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import moe
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(17)
+    T = 3072
+    logits = torch.randn((T, M_NE), generator=gen, device=dev) * 2
+    logits[:500, 5] += 30.0
+    _, top_e = moe.route_topk(logits, M_TOPK)
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    offsets = moe.group_offsets(flat_e, M_NE)
+    xs = torch.randn((T, M_E), generator=gen, device=dev).to(bf)[order // M_TOPK]
+    S = T * M_TOPK
+    cap = moe.expert_capacity(S, M_NE)
+    sizes = (offsets[1:] - offsets[:-1]).long()
+    assert int(sizes[5]) > cap > 256, (int(sizes[5]), cap)
+    eid = torch.repeat_interleave(torch.arange(M_NE, device=dev), sizes)
+    dropped = (torch.arange(S, device=dev) - offsets[eid].long()) >= cap
+    n_pre = moe.grouped_gateup_i8.prefill_launches + moe.grouped_down_i8.prefill_launches
+    h = moe.grouped_gateup_i8_plain(xs, gu, None, offsets, cap)
+    label = f"T={T} skewed (expert 5 {int(sizes[5])} rows, cap {cap}, {int(dropped.sum())} dropped)"
+    for name, kern, plain in (
+            ("grouped_gateup_i8_prefill", lambda: moe.grouped_gateup_i8(xs, gu, None, offsets, cap),
+             lambda: h),
+            ("grouped_down_i8_prefill", lambda: moe.grouped_down_i8(h, wd, offsets, cap),
+             lambda: moe.grouped_down_i8_plain(h, wd, offsets, cap))):
+        got = kern()
+        _check_kernel(res, name, label, lambda: got, plain, rtol=BF16_RTOL, atol=BF16_ATOL)
+        assert torch.equal(got, kern()), (name, "two calls differ")
+        assert not bool(got[dropped].any()), (name, "rows past the capacity must be 0")
+    assert (moe.grouped_gateup_i8.prefill_launches + moe.grouped_down_i8.prefill_launches
+            - n_pre) == 4
+    del h, xs
 
 
 def phase_mla_kernels(gen) -> tuple[dict, dict]:
@@ -1789,16 +1958,21 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
 
     _free()   # the earlier kernel phases' tensors and graphs
     # B8: two-layer stacks (793 MB a dense layer, 88 MB a shared expert:
-    # beyond the 50 MB L2), each layer checked at B = 1 and 16; the timing
-    # walks both layers, so each call reads its weights cold as in serving
+    # beyond the 50 MB L2), each layer checked at B = 1, 16 and 64 (a
+    # verify step's rows, its inputs from a generator of their own); the
+    # timing walks both layers, so each call reads its weights cold as in
+    # serving; where the products take the wgmma form, the parent's form
+    # (gemm_partial) is timed beside
     L = 2
+    wide_gen = torch.Generator(device=dev).manual_seed(18)
     for F, norm, tag in ((X_FD, True, "dense"), (X_FS, False, "shared")):
         ln = rnd(L, X_E, scale=0.1) + 1
         wg, wu = rnd(L, X_E, F, scale=X_E ** -0.5), rnd(L, X_E, F, scale=X_E ** -0.5)
         wd = rnd(L, F, X_E, scale=F ** -0.5)
         kw = dict(eps=1e-6, norm=norm, residual=norm)
-        for B in (1, SLOTS):
-            x = rnd(B, X_E)
+        for B in (1, SLOTS, 64):
+            x = (rnd(B, X_E) if B <= SLOTS
+                 else torch.randn((B, X_E), generator=wide_gen, device=dev).to(bf))
             for layer in range(L):
                 _check_kernel(other, "fused_mlp_stacked", f"{tag} F={F} B={B} layer={layer}",
                               lambda: fl.fused_mlp_stacked(x, ln, wg, wu, wd, layer, **kw),
@@ -1810,12 +1984,15 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
 
             t = time_ms(walk(fl.fused_mlp_stacked), calls=L)
             p = time_ms(walk(fl.fused_mlp_stacked_plain), calls=L)
+            with _parent_products() as taken:
+                par = time_ms(walk(fl.fused_mlp_stacked), calls=L)[0] if B >= taken else None
             bd = bound(2 * (3 * X_E * F + 2 * B * X_E + norm * X_E), 2 * B * 3 * X_E * F)
             log(f"[kernel] B8 fused_mlp_stacked {tag} F={F} B={B} | device kernel "
                 f"{t[0]:.4f} ms plain {p[0]:.4f} ms | eager kernel {t[1]:.4f} ms plain "
                 f"{p[1]:.4f} ms | bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}) | "
-                f"{6 * X_E * F / t[0] / 1e6:.1f} GB/s")
-            r = dict(ms=t[0], plain_ms=p[0], library_ms=None, **bd,
+                f"{6 * X_E * F / t[0] / 1e6:.1f} GB/s"
+                + (f" | parent's form (gemm_partial) {par:.4f} ms" if par is not None else ""))
+            r = dict(ms=t[0], plain_ms=p[0], library_ms=None, parent_ms=par, **bd,
                      shape=f"{tag} E={X_E} F={F} B={B} ({L} layers walked)")
             if tag == "dense" and B == SLOTS:
                 res["fused_mlp_stacked"] = {"err": 0.0, **r}
@@ -4168,7 +4345,9 @@ def main(argv=None) -> int:
     log(f"[moe-int8] int8 grouped expert launches: "
         f"{i8_moe_serve['launches']['grouped_gateup_i8']} gate|up + "
         f"{i8_moe_serve['launches']['grouped_down_i8']} down over {steps} decode steps and "
-        f"{prefills} prefill forwards ({2 * engine.cfg.n_layers} a forward); bf16 grouped "
+        f"{prefills} prefill forwards ({2 * engine.cfg.n_layers} a forward), of which the "
+        f"prefill form {i8_moe_serve['launches']['grouped_gateup_i8_prefill']} + "
+        f"{i8_moe_serve['launches']['grouped_down_i8_prefill']}; bf16 grouped "
         f"expert launches {i8_moe_serve['launches']['grouped_gateup']} + "
         f"{i8_moe_serve['launches']['grouped_down']}; B12 at build "
         f"{i8_moe_serve['quantize_launches']}")
@@ -4257,6 +4436,8 @@ def main(argv=None) -> int:
         "quantize_int8": ("cuda", src + "csrc/quant.cu", jsrc + "quant.py:24", i8_serve),
         "grouped_gateup_i8": ("cuda", src + "csrc/moe_i8.cu", blocked, i8_moe_serve),
         "grouped_down_i8": ("cuda", src + "csrc/moe_i8.cu", blocked, i8_moe_serve),
+        "grouped_gateup_i8_prefill": ("cuda", src + "csrc/moe_i8.cu", blocked, i8_moe_serve),
+        "grouped_down_i8_prefill": ("cuda", src + "csrc/moe_i8.cu", blocked, i8_moe_serve),
         "fused_mlp_stacked": ("cuda", fused, jsrc + "fused_layer.py:468", mla_serve),
         "fused_mlp": ("cuda", fused, jsrc + "fused_layer.py:112", b11_path),
         "fused_qkv": ("cuda", fused, jsrc + "fused_layer.py:150", b11_path),
@@ -4267,8 +4448,10 @@ def main(argv=None) -> int:
                                    "(v = k, D = 576)", mla_pallas),
     }
     i8_serve["launches"]["quantize_int8"] = i8_serve["quantize_launches"]
-    for n in ("grouped_gateup", "grouped_down"):   # the decode kernel's: all but the prefill's
-        moe_serve["launches"][n] -= moe_serve["launches"][n + "_prefill"]
+    # the decode kernel's: all but the prefill form's
+    for run, n in ((moe_serve, "grouped_gateup"), (moe_serve, "grouped_down"),
+                   (i8_moe_serve, "grouped_gateup_i8"), (i8_moe_serve, "grouped_down_i8")):
+        run["launches"][n] -= run["launches"][n + "_prefill"]
     kernels = [{"name": n, "route": r, "source": s, "replaces": rep,
                 "launches": run["launches"][n],
                 "max_abs_err": res[n]["err"], "ms": res[n]["ms"],

@@ -14,8 +14,9 @@
 // to lax.ragged_dot (ops/moe.py:81 _expert_ffn_ragged): grouped_expert
 // (decode) and grouped_expert_tc (prefill), after the epilogue kernels.
 //
-// What bounds them on this card: at decode batch (B <= 64 rows) every
-// product here is a thin matrix product whose weights dominate the bytes:
+// What bounds them on this card: at the rows of a decode, lane or verify
+// step (B <= 256) every product here is a thin matrix product whose
+// weights dominate the bytes:
 // (H+2K)*D*E*2 B for B3 (50 MB per layer at qwen3-8b) and
 // (H*D*E + 3*E*F)*2 B for B4 (336 MB). At B rows the work is B FLOP per
 // weight byte, far below the ~295 FLOP/byte ridge, so the goal is streaming
@@ -23,18 +24,35 @@
 // (float32 FMA) was FMA-bound from B=16 on (B4 at B=16 moved 336 MB in
 // 0.33 ms); the products now run on the tensor cores.
 //
-// Design (simple first; wgmma/TMA come later):
-// * One split-K product kernel, gemm_partial<MT>, computes
-//   P[z, r, n] = sum_{k in slice z} X[r, k] * W[k, n] for all B rows
-//   (MT m-tiles of 16) and a 128-column tile. 4 warps, each owning 32
-//   columns; a 4-stage cp.async ring brings 32-row weight tiles (and the
-//   matching activation tiles) into padded shared memory, ldmatrix (.trans
-//   for the row-major weights) feeds mma.sync.m16n8k16 bf16 -> float32.
-//   Every weight byte is read once per call whatever B <= 64 is.
+// Design:
+// * Two split-K product kernels compute P[z, r, n] = sum_{k in slice z}
+//   X[r, k] * W[k, n] for the rows of a call; the wrapper (ops/fused_layer.py
+//   product_plan) takes one from the row count alone:
+//   - gemm_partial<MT> (the first design, kept where it measured faster:
+//     up to 16 rows): MT m-tiles of 16 rows (at most 64) and a 128-column
+//     tile a block, 4 warps each owning 32 columns; a 4-stage cp.async ring
+//     brings 32-row weight tiles (and the matching activation tiles) into
+//     padded shared memory, ldmatrix (.trans for the row-major weights)
+//     feeds mma.sync.m16n8k16 bf16 -> float32. Its grid has a row-group
+//     dimension: past 64 rows each 64-row group streams every weight byte
+//     again from HBM (B4 at 80 rows: 0.2639 ms, slower than its plain
+//     version), which is why gemm_tc takes over past 16 rows.
+//   - gemm_tc<MB> (past 16 rows; below "gemm_tc"): every row of a call up
+//     to 256 (a lane step's 80, a verify step's 64 (K + 1)) in one weight
+//     pass: a persistent grid over (128-column tile, k-slice) items with
+//     no row-group dimension, TMA loads of 64-row boxes of X and 64 x 128
+//     weight tiles into a 192 KB mbarrier ring, wgmma m64n128k16 with X as
+//     the K-major A operand and the weight tile as the MN-major B; the
+//     row boxes are the rows of the call rounded up to 64 (the tensor work
+//     of a box past the rows is skipped, and at these row counts the
+//     tensor cores have slack: a stage's products take well under its HBM
+//     time). The k slices are counted per weight tile (tc_splits).
 // * Few column tiles would leave most of the 132 SMs idle, so the wrapper
-//   splits K over blockIdx.y until the grid has >= 2 blocks per SM (capped so
-//   the float32 partial sums stay well below the weight bytes); an epilogue
-//   kernel reduces the partial sums.
+//   splits K over blockIdx.y (gemm_partial: until the grid has >= 2 blocks
+//   per SM, capped so the float32 partial sums stay well below the weight
+//   bytes; gemm_tc: over the items, whichever count fills the persistent
+//   blocks' rounds best for the partials' bytes); an epilogue kernel
+//   reduces the partial sums.
 // * The TPU kernels keep RMSNorm, per-head q/k norm, RoPE, residuals and
 //   SwiGLU inside VMEM-resident grid steps. Here a row kernel writes the
 //   normalised bf16 rows, and small epilogue kernels finish each product:
@@ -49,7 +67,7 @@
 //         dense-layer MLPs (E = 7168, F = 18432: 793 MB of weights a call)
 //         and shared experts (F = 2048: 88 MB), each weight byte read once.
 //   B4's sequential grid on the TPU carried x2 through VMEM; Hopper blocks
-//   cannot, so x2, xn and h ([B,E], [B,E], [B,F] bf16, under 2 MB at B=64)
+//   cannot, so x2, xn and h ([B,E], [B,E], [B,F] bf16, under 8 MB at B=256)
 //   go through device memory and stay in L2.
 // * bf16 round points match the TPU kernels: xn, x2, h and the outputs are
 //   rounded to bf16; every accumulator and the norm/rope math are float32.
@@ -410,12 +428,183 @@ void launch_gemm_mt(const bf16* X, const bf16* W, float* P, int B, int K, int N,
       X, W, P, B, K, N, K / splits);
 }
 
-// m-tiles per block: the fewest 16-row tiles that cover B (up to 4)
-void launch_gemm(const bf16* X, const bf16* W, float* P, int B, int K, int N,
-                 int splits, cudaStream_t st) {
+// ---------------------------------------------- gemm_tc: the wgmma form
+//
+// P[z, r, n] = sum over k-slice z of X[r, k] * W[k, n] for all rows r < B
+// in one pass over the weights (up to GMAX_ROWS rows a launch; notes at
+// the head of the file). A persistent grid (at most one block an SM) over
+// the items (128-column weight tile t, k-slice z), item w = z * tiles + t,
+// block b taking items b, b + grid, ...; slice z covers the 64-row k stages
+// [z * nk / splits, (z + 1) * nk / splits). One producer thread issues TMA
+// loads of each stage (the row boxes of X [B, K] and a 64 x 128 weight
+// tile, 128-byte swizzle) into an mbarrier ring and runs ahead into its
+// next item; the consumer warpgroups multiply on wgmma m64n128k16 (X
+// K-major as A, the weight tile MN-major as B) and write their float32
+// sums to P straight from the accumulators. MB 64-row boxes a stage (1, 2
+// or 4: the rows of the call rounded up to 64); box i belongs to consumer
+// warpgroup i % cw, so both take rows from 65 rows on; a box with no row
+// of the call is neither loaded nor multiplied. The ring is 192 KB
+// whatever MB is: 8, 6 or 4 stages.
+constexpr int GBK = 64;                  // k a stage: one 128-byte swizzle atom of bf16
+constexpr int GBN = 128;                 // weight columns a tile
+constexpr int GBOX = 64 * 128;           // bytes of a 64 x 64 bf16 box
+constexpr int GRING = 196608;            // bytes of the ring
+constexpr int GMAX_ROWS = 256;           // rows a launch holds
+template <int MB>
+struct GemmTc {
+  static constexpr int cw = MB < 2 ? 1 : 2;           // consumer warpgroups
+  static constexpr int subs = MB / cw;                 // 64-row boxes a consumer warpgroup
+  static constexpr int threads = (cw + 1) * 128;       // + the producer warpgroup
+  static constexpr int stage = MB * GBOX + 2 * GBOX;   // row boxes + a weight tile
+  static constexpr int stages = GRING / stage;
+  static constexpr int smem = 1024 + stages * stage + 16 * stages;
+};
+static_assert(GemmTc<4>::smem <= 232448 && GemmTc<1>::smem <= 232448,
+              "gemm_tc's shared memory exceeds a block's");
+
+// tx over X [B, K], tw over W [K, N] (bf16, 128-byte swizzle); this launch
+// takes rows row0 .. row0 + rows - 1 (rows <= 64 * MB) into P [splits, B, N]
+template <int MB>
+__global__ void __launch_bounds__(GemmTc<MB>::threads, 1)
+gemm_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+        float* __restrict__ P, int B, int row0, int rows, int N, int nk, int splits) {
+  using G = GemmTc<MB>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::stages * G::stage);
+  uint64_t* empty = full + G::stages;
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid / 128;
+  const int tiles = N / GBN, items = tiles * splits;
+  const int nbox = (rows + 63) / 64;
+  if (tid == 0) {
+    for (int s = 0; s < G::stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * G::cw);   // every consumer warp releases the stage
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == G::cw) {
+    // ---- producer: one thread issues every TMA load
+    if constexpr (G::cw == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 128 * G::cw) {
+      int it = 0;
+      for (int w = blockIdx.x; w < items; w += gridDim.x) {
+        const int t = w % tiles, z = w / tiles;
+        const int k1 = (z + 1) * nk / splits;
+        for (int kt = z * nk / splits; kt < k1; ++kt, ++it) {
+          const int s = it % G::stages;
+          if (it >= G::stages) mbar_wait(&empty[s], (it / G::stages - 1) & 1);
+          unsigned char* a = smem + s * G::stage;
+          mbar_expect_tx(&full[s], (nbox + 2) * GBOX);
+          for (int i = 0; i < nbox; ++i)
+            tma_load_2d(a + i * GBOX, &tx, &full[s], kt * GBK, row0 + 64 * i);
+          for (int c = 0; c < 2; ++c)
+            tma_load_2d(a + (MB + c) * GBOX, &tw, &full[s], t * GBN + c * 64, kt * GBK);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg multiplies boxes wg, wg + cw, ...
+    if constexpr (G::cw == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wq = (tid >> 5) & 3, c2 = (lane & 3) * 2;
+    const int mine = nbox > wg ? (nbox - wg + G::cw - 1) / G::cw : 0;   // boxes with rows
+    float acc[G::subs][64];
+    int it = 0;
+    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+      const int t = w % tiles, z = w / tiles;
+      const int k0 = z * nk / splits, k1 = (z + 1) * nk / splits;
+      for (int kt = k0; kt < k1; ++kt, ++it) {
+        const int s = it % G::stages;
+        mbar_wait(&full[s], (it / G::stages) & 1);
+        if (mine > 0) {
+          const unsigned char* a = smem + s * G::stage;
+          const unsigned char* b = a + MB * GBOX;
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < GBK / 16; ++kk) {
+            const uint64_t db = sw128_desc(b + kk * 16 * 128, GBOX, 1024);
+#pragma unroll
+            for (int j = 0; j < G::subs; ++j)
+              if (j < mine)
+                wgmma_ss_n128_tb(acc[j],
+                                 sw128_desc(a + (j * G::cw + wg) * GBOX + kk * 32, 16, 1024),
+                                 db, kt > k0 || kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();   // this stage is read: release it at once
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+#pragma unroll
+      for (int j = 0; j < G::subs; ++j) fence_regs(acc[j]);
+      // the sums: row 16*wq + lane/4 (+8) of box j*cw + wg, columns 8i + c2
+#pragma unroll
+      for (int j = 0; j < G::subs; ++j) {
+        if (j >= mine) break;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = (j * G::cw + wg) * 64 + 16 * wq + (lane >> 2) + 8 * half;
+          if (r < rows) {
+            float* dst = P + ((long long)z * B + row0 + r) * N + t * GBN + c2;
+#pragma unroll
+            for (int i = 0; i < 16; ++i)
+              *reinterpret_cast<float2*>(dst + 8 * i) =
+                  make_float2(acc[j][4 * i + 2 * half], acc[j][4 * i + 2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MB>
+void launch_gemm_tc_mb(const CUtensorMap& tx, const CUtensorMap& tw, float* P, int B, int row0,
+                       int rows, int N, int nk, int splits, int grid, cudaStream_t st) {
+  using G = GemmTc<MB>;
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(gemm_tc<MB>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::smem);
+    attr_set = true;
+  }
+  gemm_tc<MB><<<grid, G::threads, G::smem, st>>>(tx, tw, P, B, row0, rows, N, nk, splits);
+}
+
+// the wgmma form over `grid` persistent blocks (fewer where the items are
+// fewer), a launch a GMAX_ROWS rows; K % 64 == 0, N % 128 == 0, whole
+// k-slices of at least one stage
+int launch_gemm_tc(const bf16* X, const bf16* W, float* P, int B, int K, int N, int splits,
+                   int grid, cudaStream_t st) {
+  const int nk = K / GBK;
+  if (K % GBK || N % GBN || splits < 1 || splits > nk || B < 1 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  const cuuint64_t xdim[2] = {(cuuint64_t)K, (cuuint64_t)B}, xstride[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t wdim[2] = {(cuuint64_t)N, (cuuint64_t)K}, wstride[1] = {(cuuint64_t)N * 2};
+  const cuuint32_t box[2] = {64, 64};
+  if (!bf16_map(&tx, X, 2, xdim, xstride, box) || !bf16_map(&tw, W, 2, wdim, wstride, box))
+    return (int)cudaErrorInvalidValue;
+  const int g = grid < (N / GBN) * splits ? grid : (N / GBN) * splits;
+  for (int r0 = 0; r0 < B; r0 += GMAX_ROWS) {
+    const int rows = B - r0 < GMAX_ROWS ? B - r0 : GMAX_ROWS;
+    if (rows <= 64) launch_gemm_tc_mb<1>(tx, tw, P, B, r0, rows, N, nk, splits, g, st);
+    else if (rows <= 128) launch_gemm_tc_mb<2>(tx, tw, P, B, r0, rows, N, nk, splits, g, st);
+    else launch_gemm_tc_mb<4>(tx, tw, P, B, r0, rows, N, nk, splits, g, st);
+  }
+  return 0;
+}
+
+// one bf16 product into float32 partial sums P [splits, B, N]: the wgmma
+// form over `grid` blocks (grid > 0), else gemm_partial, the fewest 16-row
+// m-tiles that cover B (up to 4) and a block a 64-row group
+int launch_gemm(const bf16* X, const bf16* W, float* P, int B, int K, int N, int splits,
+                int grid, cudaStream_t st) {
+  if (grid > 0) return launch_gemm_tc(X, W, P, B, K, N, splits, grid, st);
   if (B <= 16) launch_gemm_mt<1>(X, W, P, B, K, N, splits, st);
   else if (B <= 32) launch_gemm_mt<2>(X, W, P, B, K, N, splits, st);
   else launch_gemm_mt<4>(X, W, P, B, K, N, splits, st);
+  return 0;
 }
 
 // a cos / sin value: element i of a float32 or (is_bf16) bf16 table
@@ -1889,29 +2078,30 @@ int launch_i8(const bf16* x, const int8_t* w, int K, int N, int grid, I8Args a,
 // B3: xn = rmsnorm(x)·ln -> xn @ W -> qkv_epilogue
 int run_qkv(const bf16* X, const bf16* ln, const bf16* W, const bf16* qn, const bf16* kn,
             const void* cosv, const void* sinv, int cs_bf16, float* P, bf16* XN, bf16* out,
-            int B, int E, int H, int KV, int splits, float eps, cudaStream_t st) {
+            int B, int E, int H, int KV, int splits, int grid, float eps, cudaStream_t st) {
   const int C = (H + 2 * KV) * HEAD;
   norm_rows(X, ln, B, E, eps, XN, st);
-  launch_gemm(XN, W, P, B, E, C, splits, st);
+  if (int err = launch_gemm(XN, W, P, B, E, C, splits, grid, st)) return err;
   qkv_epilogue<<<dim3(B, H + 2 * KV), HEAD, 0, st>>>(P, splits, B, C, qn, kn, cosv, sinv,
                                                      cs_bf16, out, H, KV, eps);
   return (int)cudaGetLastError();
 }
 
-// B4 over one layer's weights
+// B4 over one layer's weights; grid > 0: the products on gemm_tc
 int run_out_mlp(const bf16* A, const bf16* X, const bf16* Wo, const bf16* ln, const bf16* Wgu,
                 const bf16* Wd, float* P, bf16* X2, bf16* XN, bf16* Hh, bf16* O, int B, int HD,
-                int E, int F, int s_o, int s_gu, int s_d, float eps, cudaStream_t st) {
+                int E, int F, int s_o, int s_gu, int s_d, int grid, float eps,
+                cudaStream_t st) {
   // (1) x2 = x + a @ wo
-  launch_gemm(A, Wo, P, B, HD, E, s_o, st);
+  if (int err = launch_gemm(A, Wo, P, B, HD, E, s_o, grid, st)) return err;
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_o, B, E, X, X2);
   // (2) h = silu(xn @ Wg) * (xn @ Wu), xn = rmsnorm(x2) * ln2
   norm_rows(X2, ln, B, E, eps, XN, st);
-  launch_gemm(XN, Wgu, P, B, E, 2 * F, s_gu, st);
+  if (int err = launch_gemm(XN, Wgu, P, B, E, 2 * F, s_gu, grid, st)) return err;
   swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
       P, P + F, (long long)B * 2 * F, 2 * F, s_gu, B, F, Hh);
   // (3) out = x2 + h @ wd
-  launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
+  if (int err = launch_gemm(Hh, Wd, P, B, F, E, s_d, grid, st)) return err;
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(P, s_d, B, E, X2, O);
   return (int)cudaGetLastError();
 }
@@ -1920,7 +2110,7 @@ int run_out_mlp(const bf16* A, const bf16* X, const bf16* Wo, const bf16* ln, co
 // (silu(xn @ Wg) * (xn @ Wu)) @ Wd, xn = rmsnorm(x) * ln (norm) or x
 int run_mlp(const bf16* X, const bf16* ln, const bf16* Wg, const bf16* Wu, const bf16* Wd,
             float* P, bf16* xn, bf16* Hh, bf16* out, int B, int E, int F, int s_gu,
-            int s_d, int norm, int residual, float eps, cudaStream_t st) {
+            int s_d, int grid, int norm, int residual, float eps, cudaStream_t st) {
   const bf16* XN = X;
   if (norm) {
     norm_rows(X, ln, B, E, eps, xn, st);
@@ -1928,11 +2118,11 @@ int run_mlp(const bf16* X, const bf16* ln, const bf16* Wg, const bf16* Wu, const
   }
   // gate and up partials side by side: [s_gu, B, F] each
   const long long gsz = (long long)s_gu * B * F;
-  launch_gemm(XN, Wg, P, B, E, F, s_gu, st);
-  launch_gemm(XN, Wu, P + gsz, B, E, F, s_gu, st);
+  if (int err = launch_gemm(XN, Wg, P, B, E, F, s_gu, grid, st)) return err;
+  if (int err = launch_gemm(XN, Wu, P + gsz, B, E, F, s_gu, grid, st)) return err;
   swiglu_epilogue<<<cdiv((long long)B * F, 256), 256, 0, st>>>(
       P, P + gsz, (long long)B * F, F, s_gu, B, F, Hh);
-  launch_gemm(Hh, Wd, P, B, F, E, s_d, st);
+  if (int err = launch_gemm(Hh, Wd, P, B, F, E, s_d, grid, st)) return err;
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
       P, s_d, B, E, residual ? X : nullptr, out);
   return (int)cudaGetLastError();
@@ -1944,11 +2134,12 @@ extern "C" {
 
 // B3. x [B,E]; ln_all [L,E]; wqkv_all [L,E,C]; qn_all/kn_all [L,128];
 // cos/sin [B,64] f32, or bf16 where cs_bf16; partial [splits,B,C] f32; xn
-// [B,E] bf16 scratch; out [B,C].
+// [B,E] bf16 scratch; out [B,C]. grid > 0: the product on gemm_tc over
+// `grid` blocks, else on gemm_partial (as every entry of this kind).
 int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
                     const void* qn_all, const void* kn_all, const void* cosv,
                     const void* sinv, void* partial, void* xn, void* out,
-                    int layer, int B, int E, int H, int KV, int splits, int cs_bf16,
+                    int layer, int B, int E, int H, int KV, int splits, int grid, int cs_bf16,
                     float eps, void* stream) {
   const long long C = (H + 2 * KV) * HEAD;
   return run_qkv(
@@ -1957,7 +2148,8 @@ int dstts_fused_qkv(const void* x, const void* ln_all, const void* wqkv_all,
       static_cast<const bf16*>(qn_all) + (long long)layer * HEAD,
       static_cast<const bf16*>(kn_all) + (long long)layer * HEAD,
       cosv, sinv, cs_bf16, static_cast<float*>(partial), static_cast<bf16*>(xn),
-      static_cast<bf16*>(out), B, E, H, KV, splits, eps, static_cast<cudaStream_t>(stream));
+      static_cast<bf16*>(out), B, E, H, KV, splits, grid, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
 // B10-qkv: B3 over int8 wq_all [L,E,C] with ws_all [L,1,C] f32 column
@@ -2000,7 +2192,7 @@ int dstts_fused_out_mlp(const void* a, const void* x, const void* wo_all,
                         const void* ln_all, const void* gateup_all,
                         const void* wd_all, void* partial, void* x2, void* xn,
                         void* h, void* out, int layer, int B, int HD, int E,
-                        int F, int s_o, int s_gu, int s_d, float eps,
+                        int F, int s_o, int s_gu, int s_d, int grid, float eps,
                         void* stream) {
   const long long l = layer;
   return run_out_mlp(
@@ -2009,7 +2201,7 @@ int dstts_fused_out_mlp(const void* a, const void* x, const void* wo_all,
       static_cast<const bf16*>(gateup_all) + l * E * 2 * F,
       static_cast<const bf16*>(wd_all) + l * F * E, static_cast<float*>(partial),
       static_cast<bf16*>(x2), static_cast<bf16*>(xn), static_cast<bf16*>(h),
-      static_cast<bf16*>(out), B, HD, E, F, s_o, s_gu, s_d, eps,
+      static_cast<bf16*>(out), B, HD, E, F, s_o, s_gu, s_d, grid, eps,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -2089,14 +2281,15 @@ int dstts_int8_matmul(const void* x, const void* w_q, const void* scales, void* 
 int dstts_fused_mlp(const void* x, const void* ln_all, const void* wg_all,
                     const void* wu_all, const void* wd_all, void* partial, void* xn,
                     void* h, void* out, int layer, int B, int E, int F, int s_gu,
-                    int s_d, int norm, int residual, float eps, void* stream) {
+                    int s_d, int grid, int norm, int residual, float eps, void* stream) {
   const long long l = layer;
   return run_mlp(static_cast<const bf16*>(x), static_cast<const bf16*>(ln_all) + l * E,
                  static_cast<const bf16*>(wg_all) + l * E * F,
                  static_cast<const bf16*>(wu_all) + l * E * F,
                  static_cast<const bf16*>(wd_all) + l * F * E, static_cast<float*>(partial),
                  static_cast<bf16*>(xn), static_cast<bf16*>(h), static_cast<bf16*>(out), B,
-                 E, F, s_gu, s_d, norm, residual, eps, static_cast<cudaStream_t>(stream));
+                 E, F, s_gu, s_d, grid, norm, residual, eps,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // B11 fused_out_mlp with unpacked gate and up (fused_layer.py:975): B4's
@@ -2106,18 +2299,20 @@ int dstts_fused_mlp(const void* x, const void* ln_all, const void* wg_all,
 int dstts_fused_out_mlp_split(const void* a, const void* x, const void* wo, const void* ln,
                               const void* wg, const void* wu, const void* wd, void* partial,
                               void* x2, void* xn, void* h, void* out, int B, int HD, int E,
-                              int F, int s_o, int s_gu, int s_d, float eps, void* stream) {
+                              int F, int s_o, int s_gu, int s_d, int grid, float eps,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* P = static_cast<float*>(partial);
   bf16* X2 = static_cast<bf16*>(x2);
-  launch_gemm(static_cast<const bf16*>(a), static_cast<const bf16*>(wo), P, B, HD, E, s_o,
-              st);
+  if (int err = launch_gemm(static_cast<const bf16*>(a), static_cast<const bf16*>(wo), P, B, HD,
+                            E, s_o, grid, st))
+    return err;
   residual_epilogue<<<cdiv((long long)B * E, 256), 256, 0, st>>>(
       P, s_o, B, E, static_cast<const bf16*>(x), X2);
   return run_mlp(X2, static_cast<const bf16*>(ln), static_cast<const bf16*>(wg),
                  static_cast<const bf16*>(wu), static_cast<const bf16*>(wd), P,
                  static_cast<bf16*>(xn), static_cast<bf16*>(h), static_cast<bf16*>(out), B,
-                 E, F, s_gu, s_d, 1, 1, eps, st);
+                 E, F, s_gu, s_d, grid, 1, 1, eps, st);
 }
 
 // B7 over up to 64 rows. a [B,HD]; x [B,E]; wo_all [L,HD,E]; ln_all [L,E];
@@ -2168,6 +2363,18 @@ int dstts_fused_out_router(const void* a, const void* x, const void* wo_all, con
   if (E % 1024 == 0 && E <= B7_KC && NE / RBW * ((B + rpb - 1) / rpb) <= grid)
     return launch_i8_tw<128, I8_ROUTER>(A, Wo, HD, E, grid, p, st, Wr);
   return launch_i8_tw<128, I8_ROUTER_ANY>(A, Wo, HD, E, grid, p, st, Wr);
+}
+
+// The bf16 product of B3 / B4 / B8 alone: partial f32 [splits, B, N] =
+// x [B, K] @ w [K, N] over k-slices, on gemm_tc over `grid` blocks (grid >
+// 0) or on gemm_partial (the comparison of the two forms).
+int dstts_gemm_partial(const void* x, const void* w, void* partial, int B, int K, int N,
+                       int splits, int grid, void* stream) {
+  if (int err = launch_gemm(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                            static_cast<float*>(partial), B, K, N, splits, grid,
+                            static_cast<cudaStream_t>(stream)))
+    return err;
+  return (int)cudaGetLastError();
 }
 
 // Grouped expert FFN, entry 1: h [S,F] = silu(x @ Wg[e]) * (x @ Wu[e]) over

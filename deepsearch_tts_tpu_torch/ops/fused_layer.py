@@ -10,6 +10,15 @@ Each T=1 decode layer of a packed bf16 model runs two of them:
 * :func:`fused_out_mlp_stacked` (B4, dense) — x2 = x + a@wo[l] →
   rmsnorm(x2)·ln2[l] → SwiGLU over the packed gate|up stack → out = x2 +
   h@wd[l].
+
+  B3's, B4's and B8's products run on one of two split-K kernels, chosen
+  by :func:`product_plan` from the row count: ``gemm_partial``
+  (``mma.sync``, a block a 64-row group, so past 64 rows each group streams
+  the weight again) or ``gemm_tc`` (a persistent grid of TMA + ``wgmma``
+  blocks over (128-column tile, k-slice) items that holds up to 256 rows in
+  one weight pass: a lane step's 80 rows, a verify step's 64·(K+1); the
+  slices counted per weight tile by :func:`tc_splits`, the items walked as
+  :func:`tc_items` models them).
 * :func:`fused_out_router_stacked` (B7, Qwen3-MoE) — x2 = x + a@wo[l], hn =
   rmsnorm(x2)·ln2[l], float32 router logits hn@router[l]; the expert FFN
   follows in ``ops/moe.py``. One cooperative launch of ``i8_stream`` over
@@ -61,6 +70,13 @@ _TILE = 128        # output columns per product block (csrc: TILE)
 _KT = 32           # k rows per pipeline stage (csrc: KT)
 _MAX_ROWS = 64     # activation rows per product block (csrc: MAX_ROWS)
 _TARGET_BLOCKS = 264  # >= 2 blocks per SM on a 132-SM H100
+# the wgmma form of the bf16 products (csrc gemm_tc): rows a launch holds,
+# k rows a ring stage, and the fewest rows at which B3, B4 and B8 take it
+# (gemm_partial below: at 1 and 16 rows it measured 1-8 % faster, from 24
+# rows on gemm_tc; both forms timed in one call, PERF.md)
+TC_ROWS = 256
+TC_STAGE = 64
+TC_MIN_ROWS = 17
 # B10's int8 product (csrc i8_stream, one persistent block an SM): the widest
 # tile (columns), the k rows every product's K must be a multiple of (a
 # 128-column tile's ring stage) and ring stages by m-tiles (16-row tiles
@@ -187,9 +203,9 @@ def _lib():
     lib = load_library("fused_layer")
     if not getattr(lib, "_dstts_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dstts_fused_qkv.argtypes = [p] * 10 + [i] * 7 + [f, p]
+        lib.dstts_fused_qkv.argtypes = [p] * 10 + [i] * 8 + [f, p]
         lib.dstts_fused_qkv.restype = i
-        lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 8 + [f, p]
+        lib.dstts_fused_out_mlp.argtypes = [p] * 11 + [i] * 9 + [f, p]
         lib.dstts_fused_out_mlp.restype = i
         lib.dstts_fused_qkv_i8.argtypes = [p] * 12 + [i] * 7 + [f, p]
         lib.dstts_fused_qkv_i8.restype = i
@@ -199,10 +215,12 @@ def _lib():
         lib.dstts_int8_matmul.restype = i
         lib.dstts_fused_out_router.argtypes = [p] * 11 + [i] * 9 + [f, p]
         lib.dstts_fused_out_router.restype = i
-        lib.dstts_fused_mlp.argtypes = [p] * 9 + [i] * 8 + [f, p]
+        lib.dstts_fused_mlp.argtypes = [p] * 9 + [i] * 9 + [f, p]
         lib.dstts_fused_mlp.restype = i
-        lib.dstts_fused_out_mlp_split.argtypes = [p] * 12 + [i] * 7 + [f, p]
+        lib.dstts_fused_out_mlp_split.argtypes = [p] * 12 + [i] * 8 + [f, p]
         lib.dstts_fused_out_mlp_split.restype = i
+        lib.dstts_gemm_partial.argtypes = [p] * 3 + [i] * 5 + [p]
+        lib.dstts_gemm_partial.restype = i
         ll = ctypes.c_longlong
         lib.dstts_grouped_gateup.argtypes = [p] * 4 + [ll] + [i] * 5 + [p, p]
         lib.dstts_grouped_gateup.restype = i
@@ -242,6 +260,55 @@ def _splits(B: int, N: int, K: int) -> int:
     while base * s < _TARGET_BLOCKS and 2 * s <= cap and K % (2 * s * _KT) == 0:
         s *= 2
     return s
+
+
+def tc_splits(B: int, N: int, K: int, grid: int) -> int:
+    """K slices of one ``gemm_tc`` product x [B,K] @ w [K,N] on ``grid``
+    persistent blocks, counted per 128-column weight tile (the launch has
+    no row-group dimension): the count that minimises a block's bytes,
+    ``rounds · (its item's weight bytes) + (the float32 partials written and
+    read) / grid``, rounds = ceil(tiles·s / grid); the fewest on a tie. Each
+    slice is at least 4 whole 64-row stages (or one where K has fewer)."""
+    tiles, nk = N // _TILE, K // TC_STAGE
+    best, cost = 1, None
+    for s in range(1, max(1, nk // 4) + 1):
+        c = (-(-tiles * s // grid) * (nk / s) * TC_STAGE * _TILE * 2
+             + 8 * B * N * s / grid)
+        if cost is None or c < cost - 1e-9:
+            best, cost = s, c
+    return best
+
+
+def tc_launches(B: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each ``gemm_tc`` launch of a B-row product: one
+    launch up to ``TC_ROWS`` rows (every weight byte streamed once), then
+    one a ``TC_ROWS``-row group."""
+    return [(r0, min(TC_ROWS, B - r0)) for r0 in range(0, B, TC_ROWS)]
+
+
+def tc_items(N: int, K: int, splits: int, grid: int) -> list[list[tuple[int, int, int, int]]]:
+    """Each block's items ``(tile, slice, first stage, end stage)`` in the
+    order a ``gemm_tc`` launch walks them (csrc gemm_tc): item w = z·tiles
+    + t, block b of min(grid, items) takes w = b, b + grid, ...; slice z
+    covers the 64-row k stages [z·nk//s, (z+1)·nk//s)."""
+    tiles, nk = N // _TILE, K // TC_STAGE
+    items = tiles * splits
+    g = min(grid, items)
+    return [[(w % tiles, w // tiles, (w // tiles) * nk // splits,
+              (w // tiles + 1) * nk // splits) for w in range(b, items, g)] for b in range(g)]
+
+
+def product_plan(B: int, N: int, K: int, device) -> tuple[int, int]:
+    """(k slices, persistent blocks) of one bf16 product of B3, B4 or B8
+    at B rows: ``gemm_tc`` over the SM count with :func:`tc_splits` from
+    ``TC_MIN_ROWS`` rows on, else ``gemm_partial`` (blocks 0) with
+    :func:`_splits`."""
+    from .paged_attention import _sm_count
+
+    if B >= TC_MIN_ROWS:
+        grid = _sm_count(device)
+        return tc_splits(B, N, K, grid), grid
+    return _splits(B, N, K), 0
 
 
 def i8_tile_cols(N: int, swiglu: bool = False) -> int:
@@ -402,7 +469,7 @@ def _launch_qkv(name, x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer, *,
     cs_dtype = cos.dtype if cos.dtype in (torch.float32, torch.bfloat16) else torch.float32
     _check("cos", cos, (B, D // 2), cs_dtype)
     _check("sin", sin, (B, D // 2), cs_dtype)
-    s = _splits(B, C, E)
+    s, grid = product_plan(B, C, E, x.device)
     partial = torch.empty((s, B, C), dtype=torch.float32, device=x.device)
     xn = torch.empty((B, E), dtype=x.dtype, device=x.device)
     out = torch.empty((B, C), dtype=x.dtype, device=x.device)
@@ -410,7 +477,7 @@ def _launch_qkv(name, x, ln_all, wqkv_all, qn_all, kn_all, cos, sin, layer, *,
     err = _lib().dstts_fused_qkv(
         x.data_ptr(), ln_all.data_ptr(), wqkv_all.data_ptr(), qn_all.data_ptr(),
         kn_all.data_ptr(), cos.data_ptr(), sin.data_ptr(), partial.data_ptr(),
-        xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s,
+        xn.data_ptr(), out.data_ptr(), int(layer), B, E, H, K, s, grid,
         int(cs_dtype == torch.bfloat16), float(eps), stream)
     _raise_if(err, name)
     HD, KD = H * D, K * D
@@ -452,8 +519,9 @@ def _launch_out_mlp(name, attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer
     _check("ln_all", ln_all, (L, E))
     _check("gateup_all", gateup_all, (L, E, 2 * Fi))
     _check("wd_all", wd_all, (L, Fi, E))
-    s_o, s_gu, s_d = _splits(B, E, HD), _splits(B, 2 * Fi, E), _splits(B, E, Fi)
     dev = x.device
+    (s_o, grid), (s_gu, _), (s_d, _) = (product_plan(B, n, k, dev)
+                                        for n, k in ((E, HD), (2 * Fi, E), (E, Fi)))
     partial = torch.empty((max(s_o * E, s_gu * 2 * Fi, s_d * E) * B,),
                           dtype=torch.float32, device=dev)
     x2 = torch.empty((B, E), dtype=x.dtype, device=dev)
@@ -465,7 +533,7 @@ def _launch_out_mlp(name, attn_out, x, wo_all, ln_all, gateup_all, wd_all, layer
         attn_out.data_ptr(), x.data_ptr(), wo_all.data_ptr(), ln_all.data_ptr(),
         gateup_all.data_ptr(), wd_all.data_ptr(), partial.data_ptr(),
         x2.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(), int(layer),
-        B, HD, E, Fi, s_o, s_gu, s_d, float(eps), stream)
+        B, HD, E, Fi, s_o, s_gu, s_d, grid, float(eps), stream)
     _raise_if(err, name)
     return out
 
@@ -556,8 +624,8 @@ def _launch_mlp(name, x, ln_all, wg_all, wu_all, wd_all, layer, *, eps: float,
     _check("wg_all", wg_all, (L, E, Fi))
     _check("wu_all", wu_all, (L, E, Fi))
     _check("wd_all", wd_all, (L, Fi, E))
-    s_gu, s_d = _splits(B, Fi, E), _splits(B, E, Fi)
     dev = x.device
+    (s_gu, grid), (s_d, _) = (product_plan(B, n, k, dev) for n, k in ((Fi, E), (E, Fi)))
     partial = torch.empty((max(2 * s_gu * Fi, s_d * E) * B,), dtype=torch.float32,
                           device=dev)
     xn = torch.empty((B, E), dtype=x.dtype, device=dev) if norm else x
@@ -566,7 +634,7 @@ def _launch_mlp(name, x, ln_all, wg_all, wu_all, wd_all, layer, *, eps: float,
     err = _lib().dstts_fused_mlp(
         x.data_ptr(), ln_all.data_ptr(), wg_all.data_ptr(), wu_all.data_ptr(),
         wd_all.data_ptr(), partial.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(),
-        int(layer), B, E, Fi, s_gu, s_d, int(bool(norm)), int(bool(residual)), float(eps),
+        int(layer), B, E, Fi, s_gu, s_d, grid, int(bool(norm)), int(bool(residual)), float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, name)
     return out
@@ -696,8 +764,9 @@ def _launch_out_mlp_split(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *, eps: f
     _check("w_gate", w_gate, (E, Fi))
     _check("w_up", w_up, (E, Fi))
     _check("w_down", w_down, (Fi, E))
-    s_o, s_gu, s_d = _splits(B, E, HD), _splits(B, Fi, E), _splits(B, E, Fi)
     dev = x.device
+    (s_o, grid), (s_gu, _), (s_d, _) = (product_plan(B, n, k, dev)
+                                        for n, k in ((E, HD), (Fi, E), (E, Fi)))
     partial = torch.empty((max(s_o * E, 2 * s_gu * Fi, s_d * E) * B,), dtype=torch.float32,
                           device=dev)
     x2, xn = (torch.empty((B, E), dtype=x.dtype, device=dev) for _ in range(2))
@@ -707,7 +776,7 @@ def _launch_out_mlp_split(attn_out, x, wo, ln_w, w_gate, w_up, w_down, *, eps: f
         attn_out.data_ptr(), x.data_ptr(), wo.data_ptr(), ln_w.data_ptr(),
         w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), partial.data_ptr(),
         x2.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(), B, HD, E, Fi, s_o, s_gu,
-        s_d, float(eps), torch.cuda.current_stream(dev).cuda_stream)
+        s_d, grid, float(eps), torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, "fused_out_mlp")
     return out
 

@@ -19,11 +19,16 @@
   path): each expert computes at most ``cap`` of its rows, the first in
   sorted order (:func:`expert_capacity`, JAX's rule); the output rows past
   it are 0. Both int8 entries, :func:`grouped_gateup_i8` and
-  :func:`grouped_down_i8`, launch ``grouped_expert_i8``
-  (``csrc/moe_i8.cu``: int8 tiles widened to bf16 in registers,
-  ``mma.sync``, the column scales on the float32 sums) at decode and
-  prefill alike. JAX's round points there: g and u stay float32 (no bf16
-  rounding before ``silu``), h is rounded to x's dtype, y too.
+  :func:`grouped_down_i8` (``csrc/moe_i8.cu``), launch
+  ``grouped_expert_i8`` at decode (int8 tiles widened to bf16 in
+  registers, ``mma.sync``, the weights streamed once) or
+  ``grouped_expert_i8_tc`` at prefill (the bf16 prefill kernel's
+  persistent ``wgmma`` over a TMA ring, 256-row tiles over each expert's
+  first ``cap`` rows, the int8 stages widened into bf16 tiles by producer
+  warps), chosen by :func:`grouped_prefill` as for bf16; the column scales
+  multiply the float32 sums. JAX's round points there: g and u stay
+  float32 (no bf16 rounding before ``silu``), h is rounded to x's dtype,
+  y too.
 * :func:`moe_capacity` — the GShard capacity-bounded one-hot dispatch, the
   other ``moe_impl`` (plain torch, int8 leaves too; tokens past an
   expert's capacity drop).
@@ -39,9 +44,9 @@ CUDA reads its maximum back to size the output) and their exclusive cumsum
 stays on the device, where each kernel block reads its expert's row range.
 For a CUDA tensor the grouped wrappers launch a kernel or raise; for a CPU
 tensor they run their plain versions, a per-expert loop that reads the
-group offsets on the host. Each wrapper counts its launches of either
-kernel in ``launches`` and those of the prefill kernel in
-``prefill_launches``; the int8 wrappers count theirs in ``launches``.
+group offsets on the host. Each wrapper, bf16 or int8, counts its
+launches of either kernel in ``launches`` and those of the prefill kernel
+in ``prefill_launches``.
 ``moe_ep_alltoall`` (ROADMAP A13) is not ported yet.
 """
 from __future__ import annotations
@@ -328,6 +333,10 @@ def _lib_i8():
         lib.dstts_grouped_gateup_i8.restype = i
         lib.dstts_grouped_down_i8.argtypes = [p, p, i, p, p] + [i] * 4 + [p, p]
         lib.dstts_grouped_down_i8.restype = i
+        lib.dstts_grouped_gateup_i8_tc.argtypes = [p, p, i] + [p] * 4 + [i] * 6 + [p, p]
+        lib.dstts_grouped_gateup_i8_tc.restype = i
+        lib.dstts_grouped_down_i8_tc.argtypes = [p, p, i, p, p] + [i] * 5 + [p, p]
+        lib.dstts_grouped_down_i8_tc.restype = i
         lib.dstts_grouped_i8_occupancy.argtypes = [p]
         lib.dstts_grouped_i8_occupancy.restype = i
         lib._dstts_typed = True
@@ -344,7 +353,8 @@ def grouped_gateup_i8(x_sorted, w_gate, w_up, offsets, cap: int):
     rows x_sorted [S,E] (bf16), each expert's first ``cap`` rows (the rest
     0). ``w_up=None``: ``w_gate`` is the packed ``{q [NE,E,2F], scales
     [NE,1,2F]}`` gate|up leaf (gate first); otherwise both are ``{q
-    [NE,E,F], scales [NE,1,F]}``."""
+    [NE,E,F], scales [NE,1,F]}``. The form is :func:`grouped_prefill`'s
+    choice."""
     if x_sorted.device.type == "cpu":
         return grouped_gateup_i8_plain(x_sorted, w_gate, w_up, offsets, cap)
     S, E = x_sorted.shape
@@ -363,23 +373,30 @@ def grouped_gateup_i8(x_sorted, w_gate, w_up, offsets, cap: int):
         _check_i8("w_up", w_up, (NE, E, Fi))
         up_q, up_s, ldw = w_up["q"].data_ptr(), w_up["scales"].data_ptr(), Fi
     _check_offsets(offsets, NE, dev)
+    prefill = grouped_prefill(S, NE, E, Fi)
     h = torch.empty((S, Fi), dtype=x_sorted.dtype, device=dev)
-    err = _lib_i8().dstts_grouped_gateup_i8(
-        x_sorted.data_ptr(), offsets.data_ptr(), int(cap), q.data_ptr(), up_q, s.data_ptr(),
-        up_s, ldw, NE, E, Fi, _row_splits(S, NE), h.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if prefill:
+        err = _lib_i8().dstts_grouped_gateup_i8_tc(
+            x_sorted.data_ptr(), offsets.data_ptr(), int(cap), q.data_ptr(), up_q,
+            s.data_ptr(), up_s, ldw, NE, E, Fi, S, _sm_count(dev), h.data_ptr(), stream)
+    else:
+        err = _lib_i8().dstts_grouped_gateup_i8(
+            x_sorted.data_ptr(), offsets.data_ptr(), int(cap), q.data_ptr(), up_q,
+            s.data_ptr(), up_s, ldw, NE, E, Fi, _row_splits(S, NE), h.data_ptr(), stream)
     _raise_if(err, "grouped_gateup_i8")
     grouped_gateup_i8.launches += 1
+    grouped_gateup_i8.prefill_launches += int(prefill)
     return h
 
 
-grouped_gateup_i8.launches = 0
+grouped_gateup_i8.launches = grouped_gateup_i8.prefill_launches = 0
 
 
 def grouped_down_i8(h, w_down, offsets, cap: int):
     """Entry 2: y [S,E] = (h [S,F] @ Wd[e]) · sd[e] over each expert's
     first ``cap`` rows (the rest 0); w_down ``{q [NE,F,E], scales
-    [NE,1,E]}``."""
+    [NE,1,E]}``; the form as :func:`grouped_gateup_i8` chooses it."""
     if h.device.type == "cpu":
         return grouped_down_i8_plain(h, w_down, offsets, cap)
     S, Fi = h.shape
@@ -391,25 +408,63 @@ def grouped_down_i8(h, w_down, offsets, cap: int):
     _check("h", h, (S, Fi))
     _check_i8("w_down", w_down, (NE, Fi, E))
     _check_offsets(offsets, NE, dev)
+    prefill = grouped_prefill(S, NE, E, Fi)
     y = torch.empty((S, E), dtype=h.dtype, device=dev)
-    err = _lib_i8().dstts_grouped_down_i8(
-        h.data_ptr(), offsets.data_ptr(), int(cap), w_down["q"].data_ptr(),
-        w_down["scales"].data_ptr(), NE, Fi, E, _row_splits(S, NE), y.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    q, sc = w_down["q"].data_ptr(), w_down["scales"].data_ptr()
+    if prefill:
+        err = _lib_i8().dstts_grouped_down_i8_tc(
+            h.data_ptr(), offsets.data_ptr(), int(cap), q, sc, NE, Fi, E, S, _sm_count(dev),
+            y.data_ptr(), stream)
+    else:
+        err = _lib_i8().dstts_grouped_down_i8(
+            h.data_ptr(), offsets.data_ptr(), int(cap), q, sc, NE, Fi, E, _row_splits(S, NE),
+            y.data_ptr(), stream)
     _raise_if(err, "grouped_down_i8")
     grouped_down_i8.launches += 1
+    grouped_down_i8.prefill_launches += int(prefill)
     return y
 
 
-grouped_down_i8.launches = 0
+grouped_down_i8.launches = grouped_down_i8.prefill_launches = 0
 
 
 def grouped_i8_occupancy() -> dict:
     """Blocks an SM holds of each int8 grouped expert entry's kernel, as the
     CUDA runtime computes them."""
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * 4)()
     _raise_if(_lib_i8().dstts_grouped_i8_occupancy(out), "grouped_i8_occupancy")
-    return dict(zip(("int8 gate|up", "int8 down"), out))
+    names = ("int8 gate|up", "int8 down", "int8 prefill gate|up", "int8 prefill down")
+    return dict(zip(names, out))
+
+
+PREFILL_TILE_ROWS = 256   # expert-sorted rows a tile of either prefill kernel (csrc XBM, PBM)
+
+
+def i8_prefill_items(offsets: list, cap: int, n_tiles: int) -> list[tuple[int, int, int, int, int]]:
+    """The int8 prefill kernel's work list (csrc ``grouped_expert_i8_tc``'s
+    ``item``), from the group offsets (read on the card, a host list here)
+    and the capacity: item w → ``(expert, n-tile, m-tile, first row,
+    rows)``. Expert e owns ceil(min(rows_e, cap) / 256) m-tiles; its items
+    are n-tile-major; the item's rows are those of its tile before the
+    expert's computed end min(offsets[e+1], offsets[e] + cap). Block b of a
+    grid of G takes items b, b + G, ...; the item of an expert's last
+    m-tile also writes its rows past the capacity as zeros."""
+    from bisect import bisect_right
+
+    NE = len(offsets) - 1
+    cum = [0]
+    for e in range(NE):
+        cum.append(cum[-1] + -(-min(offsets[e + 1] - offsets[e], cap) // PREFILL_TILE_ROWS))
+    firsts = [c * n_tiles for c in cum[:NE]]
+    out = []
+    for w in range(cum[NE] * n_tiles):
+        e = bisect_right(firsts, w) - 1    # the last expert whose first item is <= w
+        nt, mt = divmod(w - firsts[e], cum[e + 1] - cum[e])
+        row0 = offsets[e] + mt * PREFILL_TILE_ROWS
+        end = min(offsets[e + 1], offsets[e] + cap)
+        out.append((e, nt, mt, row0, min(PREFILL_TILE_ROWS, end - row0)))
+    return out
 
 
 def _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):

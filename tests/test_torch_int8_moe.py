@@ -185,6 +185,35 @@ def test_expert_ffn_blocked_matches_jax(packed, skew):
     assert torch.equal(ref, got)
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_expert_ffn_blocked_matches_jax_at_prefill_rows(packed):
+    """At the row count from which the card takes the prefill form
+    (``PREFILL_ROWS_PER_EXPERT`` rows an expert on average: T=64, k=2,
+    NE=8, S=128), with expert 3 taking all 64 tokens, past cap = 32: the
+    wrappers' CPU path (the plain versions) against JAX's
+    ``_expert_ffn_blocked``, the dropped rows 0 in both at the same rows."""
+    rng = np.random.default_rng(5)
+    T, E, NE, k = 64, 32, 8, 2
+    jq = _quantized_experts(rng)
+    xs, sizes = _sorted_rows(rng, T, E, NE, k, skew=3)
+    S = T * k
+    assert S == tmoe_ops.PREFILL_ROWS_PER_EXPERT * NE
+    cap = tmoe_ops.expert_capacity(S, NE)
+    assert cap == 32 and sizes[3] == T
+    want = jmoe_ops._expert_ffn_blocked(jnp.asarray(xs), jq["w_gate"], jq["w_up"],
+                                        jq["w_down"], jnp.asarray(sizes))
+    tq = _tree(jq)
+    wg, wu = (_packed(tq), None) if packed else (tq["w_gate"], tq["w_up"])
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(sizes)]), dtype=torch.int32)
+    got = tmoe_ops._expert_ffn_blocked(_t(xs), wg, wu, tq["w_down"], offsets)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=RTOL, atol=ATOL)
+    pos = np.arange(S) - np.repeat(np.concatenate([[0], np.cumsum(sizes)[:-1]]), sizes)
+    dropped = pos >= cap
+    assert dropped.sum() == T - cap
+    assert np.array_equal(np.all(_f32(want) == 0, axis=-1), dropped)
+    assert np.array_equal(np.all(_f32(got) == 0, axis=-1), dropped)
+
+
 def test_reference_crashes_on_the_packed_int8_expert_leaf():
     """A reference behaviour: JAX's blocked path reads ``w_up=None`` (the
     packed gate|up layout of ``pack_matmul_params``) as an operand."""
