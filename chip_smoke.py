@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # everything (needs one CUDA card)
     python3 chip_smoke.py --profile       # adds profiled full-batch bursts
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
+    python3 chip_smoke.py --train-only    # build + train, moe-train, lora
 
 Phases, each raising on failure (non-zero exit, no final line):
 
@@ -62,8 +63,37 @@ Phases, each raising on failure (non-zero exit, no final line):
 8a. ``chunk_trim`` on the same weights (``trim_min_rows=1``, after
    ``warmup()``): three greedy requests trim a chunk and give the untrimmed
    engine's tokens;
+8b. lora: a fresh qwen3-8b engine with the CLI's defaults (paged, prefix
+   cache, the lane of 16) on the same weights hot-loads a rank-16 adapter
+   (``train/lora.init_lora`` on the unpacked views, B drawn from a seed,
+   saved by ``train/checkpoint.save_params``) through ``POST
+   /v1/load_lora_adapter`` on its ``OpenAIServer``: the merged leaves
+   within 1 bf16 ulp of the plain per-leaf float32 merge, the memory the
+   load allocates within the new leaves + the adapter + the merge's
+   float32 scratch + ``LORA_SLACK``, a fresh prompt's greedy output
+   changed, B3 / B4 / B5 after the load, its serving logits held to the
+   no-cache forward on the merged weights; a second engine on the same
+   tree keeps the old weights and greedy output;
 9. release: the qwen3-8b engines and weights are dropped; less than 1 GiB
-   may stay allocated on the card;
+   may stay allocated on the card; then, before 9a, the two training
+   phases (``--train-only`` runs them and 8b alone, 8b on random qwen3-8b
+   weights):
+9c. train: full SFT of qwen3-4b at its published widths (random bf16
+   weights from seed 0) through ``train/trainer.train_loop``, 5 steps of
+   B=2, T=512 on one fixed batch, the loss on each row's second half, lr
+   3e-4 under warmup-cosine decay: finite losses and grad norms, the last
+   loss below the first; the eval step on the trained params equals the
+   next train step's loss (that step timed); the 7.5 GiB checkpoint
+   written and read back onto the card bit for bit (timed); an ``Engine``
+   on the trained weights serves greedy requests through B3 / B4 / B5
+   (counters zeroed before) and its serving logits pass phase 5's check;
+9d. moe-train: Qwen3-MoE at qwen3-30b-a3b's widths, 48 -> 2 layers
+   (registered here): the loss and gradients of one batch through the
+   grouped expert kernel's prefill form (its ``autograd.Function``; the
+   counters' ``prefill_launches`` must move) are non-zero on every expert
+   with rows the loss reaches and on the router, zero on the others, and
+   equal those with ``plain_experts`` within ``BF16_RTOL`` of each leaf's
+   norm; then one optimizer step;
 9a. product (``--product-only`` runs it alone, after the build):
    ``deepsearch_tts_tpu_torch.cli.deep_search.main`` on the card. First the
    scripted scenario of ``tests/test_product_path_engine.py`` (families
@@ -4248,6 +4278,420 @@ def phase_reference(engine, tag: str = "reference", t0: int = 16, steps: int = 8
         _hold_to_reference(tag, "serving-path", got, ref, free if replay else None)
 
 
+# ------------------------------------------------------- training and LoRA
+
+# the train phase: full SFT of qwen3-4b at its published widths (36 layers,
+# E=2560, F=9728, 32/8 heads, V=151936; tied embeddings): ~8 GB of bf16
+# params, 8 GB of grads and 16 GB of bf16 Adam moments (qwen3-8b would need
+# ~64 GB before activations); one fixed seeded batch, the loss on its
+# second half (a prompt / completion split); lr >= 1e-4, as bf16 params and
+# moments round updates near 1e-5 away
+TRAIN_MODEL, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = "qwen3-4b", 2, 512, 5, 3e-4
+TRAIN_DIR = os.path.join(HERE, "build", "train_smoke")
+# the moe-train phase: qwen3-30b-a3b's published widths cut in depth only
+# (48 -> 2 layers, registered here under its own name): 2 x 511 tokens x
+# top-8 = 8176 expert rows over 128 experts, so the forward takes the
+# prefill form of the grouped expert kernel
+MOE_TRAIN_MODEL, MOE_TRAIN_LAYERS = "qwen3-30b-a3b-2-layers", 2
+# the lora phase: a rank-16 adapter on every LORA_KEYS matrix of qwen3-8b,
+# B drawn N(0, LORA_B_STD) from its own generator (B = 0 would change nothing)
+LORA_RANK, LORA_ALPHA, LORA_B_STD = 16, 32.0, 1e-2
+LORA_PROMPT = "LoRA: name one river."   # under one 64-token page: nothing cached
+# beyond the merge's own tensors, the load may allocate the cuBLAS
+# workspace of the server thread's first product (32 MiB at torch's
+# default on this card) and the allocator's rounding
+LORA_SLACK = 2**26
+
+
+def _train_batch(vocab: int):
+    """One fixed batch from seed 0: tokens [TRAIN_B, TRAIN_T], the loss
+    mask on the second half of each row."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, vocab, (TRAIN_B, TRAIN_T)).astype(np.int32)
+    mask = np.zeros((TRAIN_B, TRAIN_T), np.float32)
+    mask[:, TRAIN_T // 2:] = 1.0
+    return tokens, mask
+
+
+def _tree_bits_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_bits_equal(a[k], b[k]) for k in a)
+    return (a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+            and bool((a.view(_int_dtype(a)) == b.view(_int_dtype(b))).all()))
+
+
+def _int_dtype(t):
+    """The integer dtype of ``t``'s width, to compare tensors bit for bit."""
+    import torch
+
+    return {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+
+
+def phase_train(card: str) -> dict:
+    """Full SFT of qwen3-4b through ``train/trainer.train_loop`` (random
+    bf16 weights from seed 0, ``TRAIN_STEPS`` steps of B=2, T=512 on one
+    fixed batch): finite losses and grad norms, the last loss below the
+    first; the eval step on the trained params equals the next train
+    step's loss on them (that step timed); the checkpoint written and read
+    back bit for bit; then an ``Engine`` on the trained weights serves
+    greedy requests through B3 / B4 / B5 (counters zeroed before) and its
+    serving logits are held to the no-cache forward."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+    from deepsearch_tts_tpu_torch.models.registry import get_model
+    from deepsearch_tts_tpu_torch.train import trainer
+    from deepsearch_tts_tpu_torch.train.checkpoint import restore_params, save_params
+
+    fam = get_model(TRAIN_MODEL)
+    tokens, mask = _train_batch(fam.config.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    stamps = []
+
+    def stamp(rec):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        log(f"[train] {rec}")
+
+    t0 = time.perf_counter()
+    state, history = trainer.train_loop(
+        TRAIN_MODEL, None, iter([(tokens, mask)] * TRAIN_STEPS), total_steps=TRAIN_STEPS,
+        learning_rate=TRAIN_LR, log_every=1, seed=0, log=stamp, device="cuda")
+    loop_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    assert len(history) == TRAIN_STEPS, history
+    assert all(math.isfinite(x) for x in losses + norms), history
+    assert losses[-1] < losses[0], losses
+    # the eval step on the trained params, then one more train step on the
+    # same params: the same loss
+    eval_fn = trainer.make_eval_step(fam.forward, fam.config)
+    step_fn = trainer.make_train_step(
+        fam.forward, fam.config, trainer.make_optimizer(TRAIN_LR, TRAIN_STEPS))
+    ev = float(eval_fn(state.params, tokens, mask))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, metrics = step_fn(state, tokens, mask)
+    nxt = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1)
+    loop_ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] {card} | {TRAIN_MODEL} full SFT, B={TRAIN_B} T={TRAIN_T}, lr {TRAIN_LR}: "
+        f"losses {losses}, grad norms {norms}; eval loss on the trained params {ev!r}, "
+        f"the next train step's loss {nxt!r}; step {step_ms:.1f} ms (loop steps 2-"
+        f"{TRAIN_STEPS}: {', '.join(f'{m:.1f}' for m in loop_ms)} ms, each with its "
+        f"host read of the loss), loop {loop_s:.1f} s with init; peak memory {peak:.2f} GiB")
+    assert abs(ev - nxt) <= 1e-6 * abs(nxt), (ev, nxt)
+    # the checkpoint: write, read back onto the card, bit for bit
+    del metrics
+    state = state._replace(opt_state=None)
+    _free()
+    t2 = time.perf_counter()
+    path = save_params(TRAIN_DIR, state.params, step=TRAIN_STEPS + 1)
+    write_s = time.perf_counter() - t2
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 2**30
+    t3 = time.perf_counter()
+    back = restore_params(path, like=state.params)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t3
+    same = _tree_bits_equal(back, state.params)
+    log(f"[train] checkpoint {size:.2f} GiB written in {write_s:.2f} s, read back onto "
+        f"the card in {read_s:.2f} s; bit-equal: {same}")
+    assert same
+    del back
+    import shutil
+
+    shutil.rmtree(TRAIN_DIR)
+    _free()
+    # the trained weights served: B3 / B4 / B5, logits against the no-cache forward
+    engine = _engine(state.params, model=TRAIN_MODEL, page_size=64, n_pages=256)
+    counters = _counters(TRAIN_MODEL)
+    assert engine.layer_fusion
+    _zero(counters)
+    st0 = dict(engine.stats)
+    prompt = engine.tokenizer.encode("Trained: name three rivers of Europe.")
+    futs = engine.submit_many([GenerationRequest(prompt_ids=prompt + [i], max_tokens=24,
+                                                 **GREEDY) for i in range(4)])
+    outs = [f.result(timeout=600) for f in futs]
+    st1 = dict(engine.stats)
+    launches = _check_launches("train-serve", engine, counters, st0, st1)
+    assert all(o.completion_tokens >= 1 for o in outs), [o.completion_tokens for o in outs]
+    phase_reference(engine, tag="train-reference")
+    engine.shutdown()
+    del engine, state
+    _free()
+    return {"losses": losses, "grad_norms": norms, "eval_loss": ev, "next_loss": nxt,
+            "step_ms": step_ms, "loop_step_ms": loop_ms, "peak_gib": peak,
+            "ckpt_gib": size, "ckpt_write_s": write_s, "ckpt_read_s": read_s,
+            "serve_launches": launches}
+
+
+@contextlib.contextmanager
+def _routed_rows():
+    """Record, while the block runs, each MoE layer's expert of every
+    (token, top-k) assignment (what ``moe.group_offsets`` counts): yields
+    the list."""
+    from deepsearch_tts_tpu_torch.ops import moe
+
+    inner, seen = moe.group_offsets, []
+
+    def recorded(flat_e, n_exp):
+        seen.append(flat_e.cpu())
+        return inner(flat_e, n_exp)
+
+    moe.group_offsets = recorded
+    try:
+        yield seen
+    finally:
+        moe.group_offsets = inner
+
+
+def phase_moe_train(card: str) -> dict:
+    """One training step of Qwen3-MoE at qwen3-30b-a3b's widths, 2 layers:
+    the gradients through the grouped expert kernel (its prefill form,
+    ``prefill_launches`` must move) are non-zero on every expert that got
+    rows the loss reaches (in the last layer, rows of positions whose next
+    token is in the loss mask; in the first, every row, through attention)
+    and zero on the others, non-zero on the router, and equal the gradients
+    of the same step with the plain expert versions (``plain_experts``)
+    within ``BF16_RTOL`` of each leaf's norm; then an optimizer step."""
+    import functools
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.weights import convert_qwen3_moe, init_params
+    from deepsearch_tts_tpu_torch.models import qwen3_moe, registry
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.train import trainer
+
+    cfg = dataclasses.replace(qwen3_moe.QWEN3_MOE_CONFIGS[MOE_MODEL], n_layers=MOE_TRAIN_LAYERS)
+    registry.register(MOE_TRAIN_MODEL, cfg, qwen3_moe.forward, convert_qwen3_moe)
+    fam = registry.get_model(MOE_TRAIN_MODEL)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(fam, device="cuda", seed=0)
+    gib = sum(t.numel() * t.element_size() for t in trainer._leaves(params)) / 2**30
+    tokens, mask = _train_batch(cfg.vocab_size)
+    counters = {f.__name__: f for f in (moe.grouped_gateup, moe.grouped_down)}
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _routed_rows() as assigned:
+        loss_k, g_k = trainer.loss_and_grads(fam.forward, cfg, params, tokens, mask)
+    torch.cuda.synchronize()
+    grad_ms = 1e3 * (time.perf_counter() - t0)
+    launches = {n: (f.launches, f.prefill_launches) for n, f in counters.items()}
+    # each path timed on its second call (the first builds cuBLAS plans and
+    # loads kernels)
+    t1 = time.perf_counter()
+    trainer.loss_and_grads(fam.forward, cfg, params, tokens, mask)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for _ in range(2):
+        t3 = time.perf_counter()
+        loss_p, g_p = trainer.loss_and_grads(
+            functools.partial(fam.forward, plain_experts=True), cfg, params, tokens, mask)
+        torch.cuda.synchronize()
+    plain_ms, first_ms, grad_ms = (1e3 * (time.perf_counter() - t3), grad_ms,
+                                   1e3 * (t2 - t1))
+    # an assignment's rows reach the loss in the last layer only where the
+    # token's next one is in the loss mask
+    live = torch.from_numpy(mask[:, 1:].reshape(-1) > 0).repeat_interleave(cfg.top_k)
+    rows = [torch.bincount(e, minlength=cfg.n_experts) for e in assigned]
+    reached = rows[:-1] + [torch.bincount(assigned[-1][live], minlength=cfg.n_experts)]
+    log(f"[moe-train] {MOE_TRAIN_MODEL}: {gib:.2f} GiB of params, loss {float(loss_k)!r} "
+        f"(plain experts {float(loss_p)!r}), loss and grads {grad_ms:.1f} ms (plain experts "
+        f"{plain_ms:.1f} ms; the first call {first_ms:.1f} ms); grouped expert launches (all, "
+        f"prefill form) of the first call {launches}; expert "
+        f"rows a layer {[int(r.sum()) for r in rows]}")
+    assert len(rows) == MOE_TRAIN_LAYERS and all(int(r.sum()) == 8 * TRAIN_B * (TRAIN_T - 1)
+                                                  for r in rows), rows
+    for name, (n, n_prefill) in launches.items():
+        assert n == n_prefill == MOE_TRAIN_LAYERS, (name, n, n_prefill)
+    lp = g_k["layers"]
+    for layer, r in enumerate(reached):
+        got = r > 0
+        for key in ("w_gateup", "w_down"):
+            nz = lp[key][layer].flatten(1).abs().amax(1).cpu() > 0
+            assert torch.equal(nz, got), (key, layer, int(nz.sum()), int(got.sum()))
+        assert float(lp["router"][layer].abs().max()) > 0, layer
+    errs = {}
+    for key in sorted(lp):
+        a, b = lp[key].float(), g_p["layers"][key].float()
+        errs[key] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    for key in ("embed", "final_norm", "lm_head"):
+        a, b = g_k[key].float(), g_p[key].float()
+        errs[key] = float((a - b).norm() / b.norm().clamp(min=1e-30))
+    log(f"[moe-train] every expert with rows the loss reaches (layer 0: "
+        f"{int((reached[0] > 0).sum())}, layer 1: {int((reached[1] > 0).sum())} of "
+        f"{int((rows[1] > 0).sum())} with rows; {cfg.n_experts} experts) has non-zero "
+        f"gate|up and down gradients, the others zero; router gradients non-zero; kernel vs plain "
+        f"gradients, relative to each leaf's norm: {json.dumps(errs)} (bound {BF16_RTOL})")
+    assert all(e <= BF16_RTOL for e in errs.values()), errs
+    del g_k, g_p
+    _free()
+    opt = trainer.make_optimizer(1e-4)
+    state = trainer.TrainState(params, opt.init(params), torch.zeros((), dtype=torch.int32))
+    step_fn = trainer.make_train_step(fam.forward, cfg, opt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, metrics = step_fn(state, tokens, mask)
+    loss = float(metrics["loss"])
+    step_ms = 1e3 * (time.perf_counter() - t1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert math.isfinite(loss) and math.isfinite(float(metrics["grad_norm"])), metrics
+    log(f"[moe-train] {card} | one optimizer step {step_ms:.1f} ms, loss {loss!r}, grad "
+        f"norm {float(metrics['grad_norm'])!r}; peak memory {peak:.2f} GiB")
+    del state, params
+    _free()
+    return {"params_gib": gib, "loss": float(loss_k), "plain_loss": float(loss_p),
+            "grad_ms": grad_ms, "first_grad_ms": first_ms, "plain_grad_ms": plain_ms,
+            "step_ms": step_ms, "peak_gib": peak,
+            "grouped_launches": launches, "grad_rel_err": errs}
+
+
+def _fingerprint(t) -> int:
+    """The sum of a bf16 stack's 16-bit words, one layer at a time (a
+    change of any element changes it but for a collision)."""
+    import torch
+
+    return sum(int(m.view(torch.int16).sum(dtype=torch.int64)) for m in t)
+
+
+def _merged_ulps(new, old, ad, cols: slice) -> int:
+    """The most bf16 ulps by which columns ``cols`` of a merged leaf differ
+    from the plain per-leaf float32 merge (``train/lora.apply_lora``) of the
+    old leaf, one layer at a time."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.train.lora import apply_lora
+
+    worst = 0
+    for layer in range(new.shape[0]):
+        one = {k: (v[layer:layer + 1] if isinstance(v, torch.Tensor) else v)
+               for k, v in ad.items()}
+        ref = apply_lora({"w": old[layer:layer + 1][..., cols]}, {"w": one})["w"]
+        got = new[layer:layer + 1][..., cols]
+        worst = max(worst, int((got.view(torch.int16).int()
+                                - ref.view(torch.int16).int()).abs().max()))
+    return worst
+
+
+def phase_lora(card: str, params: dict) -> dict:
+    """Hot-load a rank-16 adapter into a fresh qwen3-8b engine with the CLI's
+    defaults (paged, prefix cache, the lane of 16) through ``POST
+    /v1/load_lora_adapter`` on its ``OpenAIServer``: the merged leaves equal
+    the plain per-leaf float32 merge within 1 bf16 ulp; the memory the load
+    allocates stays within one new copy of the merged leaves, the adapter
+    and two float32 column blocks of one matrix (``train/lora.merge_lora``'s
+    scratch); a fresh prompt's greedy output changes; B3 / B4 / B5 serve the
+    merged weights; its serving logits agree with the no-cache forward on
+    them; a second engine on the same tree keeps the old weights and
+    output."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.weights import unpack_matmul_params
+    from deepsearch_tts_tpu_torch.train.checkpoint import save_params
+    from deepsearch_tts_tpu_torch.train.lora import _PACKED, _packed_widths, init_lora
+
+    eng = _engine(params, page_size=64, n_pages=256, prefill_lane=LANE)
+    sib = _engine(params, page_size=64, n_pages=64)
+    cfg = eng.cfg
+    old = dict(eng.params["layers"])
+    sums = {k: _fingerprint(t) for k, t in old.items()}
+    lora = init_lora(unpack_matmul_params(params, cfg), rank=LORA_RANK, alpha=LORA_ALPHA,
+                     seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ads = {k: v for k, v in lora["layers"].items() if v is not None}
+    for ad in ads.values():
+        ad["b"] = (torch.randn(ad["b"].shape, generator=gen, device="cuda")
+                   * LORA_B_STD).to(ad["b"].dtype)
+    ad_bytes = sum(t.numel() * t.element_size() for ad in ads.values()
+                   for t in (ad["a"], ad["b"]))
+    path = save_params(os.path.join(HERE, "build", "lora_smoke"), lora)
+    counters = _counters("qwen3-8b")
+    greedy = dict(max_tokens=16, **GREEDY)
+    try:
+        with _serve_http(eng) as base:
+            def chat(content):
+                return _chat_text(base, content, **greedy)
+
+            before = chat(LORA_PROMPT)
+            torch.cuda.synchronize()
+            base_alloc = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            code, body, load_s = _post(f"{base}/load_lora_adapter",
+                                       {"lora_name": "smoke", "lora_path": path})
+            assert code == 200 and body["status"] == "ok", body
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base_alloc
+            new = eng.params["layers"]
+            merged = [k for k in new if new[k] is not old[k]]
+            new_bytes = sum(new[k].numel() * new[k].element_size() for k in merged)
+            widths = [(new[k].shape[-2], n) for k in merged
+                      for n in (_packed_widths(k, new[k], cfg) if k in _PACKED
+                                else [new[k].shape[-1]])]
+            # the merge's scratch: one column block's float32 W and delta,
+            # and the block's A [K, r] and B [r, n] widened to float32
+            block = max(4 * (2 * kd * n + LORA_RANK * (kd + n)) for kd, n in widths)
+            bound = new_bytes + ad_bytes + block + LORA_SLACK
+            log(f"[lora] {card} | adapter (rank {LORA_RANK}, {ad_bytes / 2**20:.1f} MiB, "
+                f"{len(ads)} leaves) loaded over HTTP in {load_s:.3f} s; merged leaves "
+                f"{merged} ({new_bytes / 2**30:.3f} GiB new); peak allocated during the load "
+                f"{peak / 2**20:.1f} MiB above the engine's, bound {bound / 2**20:.1f} MiB "
+                f"(the new leaves + the adapter + the merge's float32 scratch of "
+                f"{block / 2**20:.1f} MiB + {LORA_SLACK / 2**20:.0f} MiB)")
+            assert sorted(merged) == ["w_down", "w_gateup", "wo", "wqkv"], merged
+            assert peak <= bound, (peak, bound)
+            ulps = {}
+            for k in merged:
+                names = _PACKED.get(k, (k,))
+                widths = (_packed_widths(k, new[k], cfg) if k in _PACKED
+                          else [new[k].shape[-1]])
+                c0 = 0
+                for name, n in zip(names, widths):
+                    ulps[name] = _merged_ulps(new[k], old[k], ads[name], slice(c0, c0 + n))
+                    c0 += n
+            log(f"[lora] merged leaves vs the plain per-leaf float32 merge: most bf16 "
+                f"ulps apart {ulps} (bound 1)")
+            assert max(ulps.values()) <= 1, ulps
+            _zero(counters)
+            st0 = dict(eng.stats)
+            after = chat(LORA_PROMPT)
+            more = [chat(f"LoRA {i}: name one lake.") for i in range(3)]
+            st1 = dict(eng.stats)
+            launches = _check_launches("lora", eng, counters, st0, st1)
+    finally:
+        eng.shutdown()
+    try:
+        with _serve_http(sib) as base:
+            out_sib = _chat_text(base, LORA_PROMPT, **greedy)
+    finally:
+        sib.shutdown()
+    sib_same = (all(sib.params["layers"][k] is old[k] for k in old)
+                and {k: _fingerprint(t) for k, t in sib.params["layers"].items()} == sums)
+    log(f"[lora] greedy output of a fresh prompt before the load {before!r}, after "
+        f"{after!r}; the sibling engine on the same tree: weights unchanged {sib_same}, "
+        f"output {out_sib!r}; {len(more)} more requests served")
+    assert after != before, (before, after)
+    assert sib_same and out_sib == before, (sib_same, out_sib, before)
+    phase_reference(eng, tag="lora-reference")
+    del eng, sib, new, old
+    _free()
+    return {"load_s": load_s, "peak_mib": peak / 2**20, "bound_mib": bound / 2**20,
+            "merged_gib": new_bytes / 2**30, "ulps": ulps, "launches": launches}
+
+
+def _chat_text(base: str, content: str, **kw) -> str:
+    """The reply to one user message over HTTP at the ``/v1`` URL ``base``."""
+    code, body, _ = _post(f"{base}/chat/completions",
+                          {"messages": [{"role": "user", "content": content}], **kw})
+    assert code == 200, body
+    return body["choices"][0]["message"]["content"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4261,6 +4705,10 @@ def main(argv=None) -> int:
     ap.add_argument("--product-only", action="store_true",
                     help="only the build, the product phase and the eval phase "
                          "(prints their line, not the final line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only the build and the train, moe-train and lora phases "
+                         "(the last on random qwen3-8b weights; prints their line, "
+                         "not the final line)")
     opts = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(HERE, "deepsearch_tts_tpu_torch")):
         raise SystemExit("chip_smoke: deepsearch_tts_tpu_torch/ not found next to "
@@ -4273,6 +4721,14 @@ def main(argv=None) -> int:
     if opts.product_only:
         product = _product_phases(card)
         print(json.dumps({"product": product, "eval": phase_eval(card), "card": card}))
+        return 0
+    if opts.train_only:
+        from deepsearch_tts_tpu_torch.engine.weights import init_params
+        from deepsearch_tts_tpu_torch.models.registry import get_model
+
+        train, moe_train = phase_train(card), phase_moe_train(card)
+        lora = phase_lora(card, init_params(get_model("qwen3-8b"), device="cuda", seed=0))
+        print(json.dumps({"train": train, "moe_train": moe_train, "lora": lora, "card": card}))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
@@ -4307,6 +4763,7 @@ def main(argv=None) -> int:
     pallas = phase_pallas_serve(card, params, serve["long_prompt_s"])
     phase_attention_reference(params)
     trim = phase_trim(params)
+    lora = phase_lora(card, params)
 
     # the qwen3-30b-a3b phases need the card to themselves: 61 GB of weights
     del engine, params
@@ -4314,6 +4771,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 2**30
     log(f"[release] qwen3-8b engines and weights released: {held:.3f} GiB still allocated")
+    assert held < 1.0, held
+    # training, on a card that holds nothing else
+    train, moe_train = phase_train(card), phase_moe_train(card)
+    held = torch.cuda.memory_allocated() / 2**30
+    log(f"[release] training phases released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
     # the product path, on a card that holds nothing else
     product = _product_phases(card)
@@ -4464,7 +4926,8 @@ def main(argv=None) -> int:
             "moe_serve": moe_serve, "moe_slot": moe_slot, "moe_spec": moe_spec,
             "int8_serve": i8_serve, "moe_int8_serve": i8_moe_serve,
             "mla_serve": mla_serve, "mla_slot": mla_slot,
-            "mla_pallas": mla_pallas, "int8_lane": i8_lane, "trim": trim}
+            "mla_pallas": mla_pallas, "int8_lane": i8_lane, "trim": trim,
+            "train": train, "moe_train": moe_train, "lora": lora}
     log(card)   # the card's name and power limit again, beside the result lines
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},

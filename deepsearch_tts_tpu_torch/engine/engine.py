@@ -461,7 +461,27 @@ class Engine:
         return True
 
     def load_lora_adapter(self, lora_path: str, scale: float | None = None) -> None:
-        raise _not_ported("load_lora_adapter", "A12 (LoRA)")
+        """Hot-load a LoRA adapter by merging it into the served weights
+        (JAX ``engine.py:1141-1170``; the reference demo's vLLM
+        ``/load_lora_adapter``). The adapter is a ``train/checkpoint``
+        directory of a ``train/lora`` tree on unpacked key names;
+        ``scale`` sets every adapter's ``alpha`` to ``scale·rank``. The
+        merge (``train/lora.merge_lora``) equals JAX's unpack → apply →
+        pack, written one layer matrix at a time into new tensors, and
+        ``self.params`` is rebound to the new tree: engines built on the
+        same weights keep the old ones, and a forward already running
+        finishes on them. Nothing else the engine holds derives from the
+        weights (the attention helpers are built per forward). As in JAX,
+        the prefix cache and parked slots are not flushed: a prompt that
+        hits them reuses KV computed with the old weights. int8 weights
+        raise JAX's ``ValueError``."""
+        from ..train.checkpoint import restore_params
+        from ..train.lora import lora_to, merge_lora, rescale_lora
+
+        lora = restore_params(lora_path)
+        if scale is not None:
+            lora = rescale_lora(lora, scale)
+        self.params = merge_lora(self.params, lora_to(lora, self.device), self.cfg)
 
     @torch.no_grad()
     def warmup(self, prompt_lens=(16,)) -> None:

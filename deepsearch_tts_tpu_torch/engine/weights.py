@@ -19,6 +19,12 @@ scales, so the bf16 tree of a large model never exists whole beside its
 int8 copy (qwen3-32b: 65.6 GB in bf16, 33.6 GB int8). Per-column scales
 make this equal to ``quantize_params`` of the whole bf16 tree, bit for bit.
 The MLA family takes no int8 weights (:data:`INT8_MLA_REFUSED`).
+
+The safetensors reader has a writer beside it (:func:`save_safetensors`),
+which ``train/checkpoint.py`` saves param and LoRA trees with; the reader's
+``tensor`` returns a tensor as stored (bf16 bit for bit) and keeps the
+header's ``__metadata__``. :func:`unpack_matmul_params` inverts the
+packing (column views), as the hot-load of a LoRA adapter reads it.
 """
 from __future__ import annotations
 
@@ -34,7 +40,15 @@ import torch
 _DTYPES = {
     "F32": np.float32, "F16": np.float16, "BF16": np.uint16,  # bf16 via view
     "I64": np.int64, "I32": np.int32, "U8": np.uint8,
+    "F64": np.float64, "I16": np.int16, "I8": np.int8, "BOOL": np.bool_,
 }
+# torch dtype ↔ safetensors dtype name (the writer's, and the reader's
+# ``tensor``: bf16 is stored as its 16 bits)
+_ST_NAMES = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64", torch.int32: "I32", torch.uint8: "U8",
+             torch.float64: "F64", torch.int16: "I16", torch.int8: "I8",
+             torch.bool: "BOOL"}
+_ST_TORCH = {v: k for k, v in _ST_NAMES.items()}
 
 
 class _Checkpoint(Mapping):
@@ -43,18 +57,31 @@ class _Checkpoint(Mapping):
     so the host never holds a whole checkpoint in float32 — a qwen3-30b-a3b
     checkpoint would take 122 GB."""
 
-    def __init__(self, index: dict):
+    def __init__(self, index: dict, metadata: dict | None = None):
         self._index = index
+        self.metadata = metadata or {}   # the files' ``__metadata__`` (str → str)
 
-    def __getitem__(self, name: str) -> np.ndarray:
+    def _raw(self, name: str) -> np.ndarray:
         fname, base, meta = self._index[name]
         start, end = meta["data_offsets"]
         dt = _DTYPES[meta["dtype"]]
-        arr = np.fromfile(fname, dtype=dt, count=(end - start) // np.dtype(dt).itemsize,
-                          offset=base + start).reshape(meta["shape"])
-        if meta["dtype"] == "BF16":
+        return np.fromfile(fname, dtype=dt, count=(end - start) // np.dtype(dt).itemsize,
+                           offset=base + start).reshape(meta["shape"])
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        arr = self._raw(name)
+        if self._index[name][2]["dtype"] == "BF16":
             arr = (arr.astype(np.uint32) << 16).view(np.float32)
         return arr
+
+    def tensor(self, name: str) -> torch.Tensor:
+        """The tensor as stored, dtype included (bf16 bit for bit), on the
+        CPU."""
+        st = self._index[name][2]["dtype"]
+        arr = self._raw(name)
+        if st == "BF16":
+            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(arr).to(_ST_TORCH[st])
 
     def __iter__(self):
         return iter(self._index)
@@ -70,16 +97,43 @@ def _load_safetensors_dir(path: str) -> _Checkpoint:
     files = [f for f in os.listdir(path) if f.endswith(".safetensors")]
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {path}")
-    index = {}
+    index, metadata = {}, {}
     for fname in sorted(files):
         full = os.path.join(path, fname)
         with open(full, "rb") as f:
             (hlen,) = struct.unpack("<Q", f.read(8))
             header = json.loads(f.read(hlen).decode("utf-8"))
         for name, meta in header.items():
-            if name != "__metadata__":
+            if name == "__metadata__":
+                metadata.update(meta)
+            else:
                 index[name] = (full, 8 + hlen, meta)
-    return _Checkpoint(index)
+    return _Checkpoint(index, metadata)
+
+
+def save_safetensors(path: str, tensors: dict, metadata: dict | None = None) -> None:
+    """Write ``tensors`` (name → tensor, any device) and ``metadata`` (str →
+    str, the header's ``__metadata__``) as one safetensors file: the 8-byte
+    little-endian header length, the JSON header padded with spaces to a
+    multiple of 8, then each tensor's bytes in order (bf16 bit for bit).
+    :func:`_load_safetensors_dir` reads it back."""
+    header: dict = {"__metadata__": dict(metadata)} if metadata else {}
+    off = 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu()
+            if host.dtype == torch.bfloat16:
+                host = host.view(torch.int16)
+            f.write(host.numpy().reshape(-1).view(np.uint8))
 
 
 def _to_torch(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -448,15 +502,49 @@ def pack_matmul_params(params: dict) -> dict:
     return out
 
 
+def unpack_matmul_params(params: dict, cfg) -> dict:
+    """Inverse of :func:`pack_matmul_params` (plain-tensor weights only;
+    JAX ``weights.py:390``): ``wq`` / ``wk`` / ``wv`` and ``w_gate`` /
+    ``w_up`` as column views of the packed leaves, no copy. int8 ``{q,
+    scales}`` packed leaves raise JAX's ``ValueError``."""
+    if "layers" not in params:
+        return params
+    lp = dict(params["layers"])
+    if "wqkv" in lp:
+        w = lp.pop("wqkv")
+        if isinstance(w, dict):
+            raise ValueError("cannot unpack int8-quantized packed weights")
+        hd = cfg.n_heads * cfg.head_dim
+        kd = cfg.n_kv_heads * cfg.head_dim
+        lp["wq"], lp["wk"], lp["wv"] = (
+            w[..., :hd], w[..., hd:hd + kd], w[..., hd + kd:])
+    if "w_gateup" in lp:
+        w = lp.pop("w_gateup")
+        if isinstance(w, dict):
+            raise ValueError("cannot unpack int8-quantized packed weights")
+        Fi = w.shape[-1] // 2
+        lp["w_gate"], lp["w_up"] = w[..., :Fi], w[..., Fi:]
+    out = dict(params)
+    out["layers"] = lp
+    return out
+
+
 def params_from_jax(tree, device="cpu") -> dict:
     """The JAX package's param tree, as numpy arrays, → this port's tree.
 
     bfloat16 leaves (``ml_dtypes.bfloat16`` in numpy) are reinterpreted bit
     for bit — viewed as int16, then as ``torch.bfloat16`` — so this package
     never imports ``ml_dtypes``; other leaves keep their dtype (int8 ``{q,
-    scales}`` leaves of a quantized tree included)."""
+    scales}`` leaves of a quantized tree included). ``None`` leaves and
+    Python (or numpy) scalars pass through as Python values, so a JAX LoRA
+    tree (``train/lora.py``: ``None`` off the adapted weights, ``alpha`` and
+    ``rank`` numbers) converts too."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if tree is None or isinstance(tree, (bool, int, float)):
+        return tree      # a LoRA tree's empty leaves and its alpha / rank
+    if isinstance(tree, np.generic):
+        return tree.item()
     a = np.array(tree)   # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)

@@ -236,7 +236,22 @@ def _lib():
     return lib
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a hand-written kernel would be launched on a tensor that
+    requires grad while autograd records: the kernel writes its output
+    through raw pointers, so the result would carry no gradient and
+    training would go on without one. (The grouped expert pair has an
+    ``autograd.Function``, ``ops/moe.py``; every other kernel raises.)"""
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{name}: a hand-written kernel has no gradient; it was reached with a "
+            f"tensor that requires grad (run it under torch.no_grad(), or train through "
+            f"the plain versions)")
+
+
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype=torch.bfloat16):
+    refuse_grad(name, t)
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:

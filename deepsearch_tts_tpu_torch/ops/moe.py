@@ -46,7 +46,12 @@ For a CUDA tensor the grouped wrappers launch a kernel or raise; for a CPU
 tensor they run their plain versions, a per-expert loop that reads the
 group offsets on the host. Each wrapper, bf16 or int8, counts its
 launches of either kernel in ``launches`` and those of the prefill kernel
-in ``prefill_launches``.
+in ``prefill_launches``. Under autograd the bf16 pair runs through
+``autograd.Function``s whose backward is the plain versions'
+vector-Jacobian product (training the MoE families; JAX differentiates
+XLA's ``lax.ragged_dot``); the int8 pair, like every other kernel, raises
+when it is reached with a tensor that requires grad (int8 weights cannot
+be trained, in JAX either).
 ``moe_ep_alltoall`` (ROADMAP A13) is not ported yet.
 """
 from __future__ import annotations
@@ -107,34 +112,42 @@ def _split_gateup(w_gate, w_up):
     return w_gate[..., :Fi], w_gate[..., Fi:]
 
 
+def _expert_rows(x, offsets) -> list:
+    """x's rows split by expert (``offsets[0]`` = 0), then the rows past
+    ``offsets[-1]``: one split, so that under autograd each operand gets
+    one backward node and not one full-size gradient an expert."""
+    bounds = offsets.tolist()
+    sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+    return list(x.split(sizes + [x.shape[0] - bounds[-1]]))
+
+
 def grouped_gateup_plain(x_sorted, w_gate, w_up, offsets):
     """Reference for entry 1 of the grouped expert kernel: per expert e,
     ``h = silu(g) · u`` over its rows with g, u = x@Wg[e], x@Wu[e] rounded to
-    x's dtype (float32 accumulators) and silu in float32."""
+    x's dtype (float32 accumulators) and silu in float32; rows past the
+    last expert's are 0."""
     wg, wu = _split_gateup(w_gate, w_up)
-    h = x_sorted.new_empty((x_sorted.shape[0], wg.shape[-1]))
-    bounds = offsets.tolist()
-    for e in range(wg.shape[0]):
-        rows = slice(bounds[e], bounds[e + 1])
-        if rows.start == rows.stop:
+    dt = x_sorted.dtype
+    *chunks, rest = _expert_rows(x_sorted, offsets)
+    hs = []
+    for xs, g_w, u_w in zip(chunks, wg.unbind(0), wu.unbind(0)):
+        if xs.shape[0] == 0:
+            hs.append(xs.new_zeros((0, g_w.shape[-1])))
             continue
-        xs = x_sorted[rows]
-        g = matmul_f32(xs, wg[e]).to(x_sorted.dtype)
-        u = matmul_f32(xs, wu[e]).to(x_sorted.dtype)
-        h[rows] = (F.silu(g.float()) * u.float()).to(x_sorted.dtype)
-    return h
+        g = matmul_f32(xs, g_w).to(dt)
+        u = matmul_f32(xs, u_w).to(dt)
+        hs.append((F.silu(g.float()) * u.float()).to(dt))
+    return torch.cat(hs + [rest.new_zeros((rest.shape[0], wg.shape[-1]))])
 
 
 def grouped_down_plain(h, w_down, offsets):
     """Reference for entry 2: ``y = h @ Wd[e]`` over expert e's rows,
-    float32 accumulator, rounded to h's dtype."""
-    y = h.new_empty((h.shape[0], w_down.shape[-1]))
-    bounds = offsets.tolist()
-    for e in range(w_down.shape[0]):
-        rows = slice(bounds[e], bounds[e + 1])
-        if rows.start != rows.stop:
-            y[rows] = matmul_f32(h[rows], w_down[e]).to(h.dtype)
-    return y
+    float32 accumulator, rounded to h's dtype; rows past the last
+    expert's are 0."""
+    *chunks, rest = _expert_rows(h, offsets)
+    ys = [matmul_f32(hs, d_w).to(h.dtype) if hs.shape[0] else
+          hs.new_zeros((0, d_w.shape[-1])) for hs, d_w in zip(chunks, w_down.unbind(0))]
+    return torch.cat(ys + [rest.new_zeros((rest.shape[0], w_down.shape[-1]))])
 
 
 def grouped_shapes_ok(hidden: int, moe_intermediate: int) -> bool:
@@ -479,16 +492,65 @@ def _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = F
     return down(gateup(x_sorted, w_gate, w_up, offsets, cap), w_down, offsets, cap)
 
 
+def _plain_vjp(plain, ctx, grad_out) -> tuple:
+    """The vector-Jacobian product of ``plain`` at the inputs ``ctx``
+    saved: ``plain`` recomputed under autograd, then ``autograd.grad``
+    (None for the inputs that need none)."""
+    need = ctx.needs_input_grad
+    args = [t.detach().requires_grad_(n) if isinstance(t, torch.Tensor) and n else t
+            for t, n in zip(ctx.saved_tensors, need)]
+    wrt = [a for a, n in zip(args, need) if n]
+    with torch.enable_grad():
+        grads = iter(torch.autograd.grad(plain(*args), wrt, grad_out, allow_unused=True))
+    return tuple(next(grads) if n else None for n in need)
+
+
+class _GroupedGateUp(torch.autograd.Function):
+    """:func:`grouped_gateup` under autograd: the kernel forward (on the
+    card), and as backward the vector-Jacobian product of
+    :func:`grouped_gateup_plain` at the same inputs (JAX differentiates
+    ``lax.ragged_dot``, XLA, whose transpose is products too)."""
+
+    @staticmethod
+    def forward(ctx, x_sorted, w_gate, w_up, offsets):
+        ctx.save_for_backward(x_sorted, w_gate, w_up, offsets)
+        return grouped_gateup(x_sorted, w_gate, w_up, offsets)
+
+    @staticmethod
+    def backward(ctx, grad_h):
+        return _plain_vjp(grouped_gateup_plain, ctx, grad_h)
+
+
+class _GroupedDown(torch.autograd.Function):
+    """:func:`grouped_down` under autograd, as :class:`_GroupedGateUp`."""
+
+    @staticmethod
+    def forward(ctx, h, w_down, offsets):
+        ctx.save_for_backward(h, w_down, offsets)
+        return grouped_down(h, w_down, offsets)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        return _plain_vjp(grouped_down_plain, ctx, grad_y)
+
+
 def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):
     """Grouped SwiGLU over expert-sorted rows (JAX ``moe.py:81``; here the
-    grouped expert kernel's two entries, or with ``plain`` their plain
-    versions on any device: a reference on the card); int8 ``{q, scales}``
-    experts take :func:`_expert_ffn_blocked`, as in JAX. ``w_up=None``
-    means ``w_gate`` is the packed [NE, E, 2F] gate|up layout."""
+    grouped expert kernel's two entries — under autograd through their
+    ``autograd.Function``s, so that training gets gradients —, or with
+    ``plain`` their plain versions on any device: a reference on the card);
+    int8 ``{q, scales}`` experts take :func:`_expert_ffn_blocked`, as in
+    JAX. ``w_up=None`` means ``w_gate`` is the packed [NE, E, 2F] gate|up
+    layout."""
     if is_quantized(w_gate):
         return _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain)
-    gateup, down = ((grouped_gateup_plain, grouped_down_plain) if plain
-                    else (grouped_gateup, grouped_down))
+    if plain:
+        gateup, down = grouped_gateup_plain, grouped_down_plain
+    elif torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                         for t in (x_sorted, w_gate, w_up, w_down)):
+        gateup, down = _GroupedGateUp.apply, _GroupedDown.apply
+    else:   # serving: the kernels themselves, without autograd's dispatch
+        gateup, down = grouped_gateup, grouped_down
     return down(gateup(x_sorted, w_gate, w_up, offsets), w_down, offsets)
 
 

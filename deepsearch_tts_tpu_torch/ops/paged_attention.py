@@ -204,8 +204,9 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
     (None: keys ``< seq_len`` at T=1). Query t of row b sees keys
     ``< min(seq_len (>= 1 if min_one), q_positions[b,0] + t + 1,
     max_keys)``. Returns [B,T,H,128] bf16."""
-    from .fused_layer import _check, _raise_if
+    from .fused_layer import _check, _raise_if, refuse_grad
 
+    refuse_grad("decode_attention q", q)
     B, T, H, D = q.shape
     R, ps, K, _ = k_pool.shape
     dev = q.device

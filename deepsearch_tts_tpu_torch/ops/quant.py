@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.common import dot_bf16
-from .fused_layer import _MAX_ROWS, int8_product, int8_product_plain
+from .fused_layer import _MAX_ROWS, int8_product, int8_product_plain, refuse_grad
 
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "wqkv", "w_gateup",   # packed single-device serving layout
@@ -211,6 +211,7 @@ def quantize_int8(w: torch.Tensor, seed: int = 0, *, stochastic: bool = False,
         out[0].copy_(q)
         out[1].copy_(s)
         return out
+    refuse_grad("quantize_int8", w)
     if w.device.type != "cuda" or w.dtype not in _DTYPES or not w.is_contiguous():
         raise ValueError(f"quantize_int8: expected a contiguous float CUDA matrix, got "
                          f"{w.dtype} on {w.device}")

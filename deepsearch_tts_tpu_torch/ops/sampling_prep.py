@@ -135,6 +135,9 @@ def sampling_prep(logits: torch.Tensor, seen: torch.Tensor,
     if logits.device.type == "cpu":
         return sampling_prep_plain(logits, seen, penalty, temperature,
                                    suppress_eos, eos_id)
+    from .fused_layer import refuse_grad
+
+    refuse_grad("sampling_prep", logits, penalty, temperature)
     B, V = logits.shape
     for name, t, shape, dt in (("logits", logits, (B, V), torch.float32),
                                ("seen", seen, (B, V), torch.bool),

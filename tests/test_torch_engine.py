@@ -192,14 +192,26 @@ def test_unported_engine_options_raise(model, kw, err, match):
             jengine.Engine(model, ByteTokenizer(), **kw)
 
 
-def test_unported_models_lora_and_missing_card_raise(monkeypatch):
+def test_unported_models_lora_and_missing_card_raise(monkeypatch, tmp_path):
     # the MLA family is served, but not with int8 weights: the reference
     # cannot serve those either
     with pytest.raises(NotImplementedError, match="deepseek_v3.py:283"):
         tengine.Engine("deepseek-v3-test", ByteTokenizer(), device="cpu", quantize="int8")
+    # LoRA hot-load (ROADMAP A12) restores the adapter and merges it: a
+    # zero-B adapter gives new tensors with the old values
+    from deepsearch_tts_tpu_torch.engine.weights import unpack_matmul_params
+    from deepsearch_tts_tpu_torch.train.checkpoint import save_params
+    from deepsearch_tts_tpu_torch.train.lora import init_lora
+
     eng = tengine.Engine("qwen3-test", ByteTokenizer(), device="cpu", max_slots=1)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(FileNotFoundError):
         eng.load_lora_adapter("/nonexistent")
+    old = eng.params["layers"]
+    eng.load_lora_adapter(save_params(str(tmp_path / "lora"),
+                                      init_lora(unpack_matmul_params(eng.params, eng.cfg))))
+    for k in ("wqkv", "wo", "w_gateup", "w_down"):
+        assert eng.params["layers"][k] is not old[k]
+        assert torch.equal(eng.params["layers"][k], old[k])
     # --device cuda without a card raises; it never falls back to the CPU
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
     from deepsearch_tts_tpu_torch.device import resolve_device
