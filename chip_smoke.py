@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile       # adds profiled full-batch bursts
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
     python3 chip_smoke.py --train-only    # build + train, moe-train, lora
+    python3 chip_smoke.py --parallel-only # build + the parallel phase
 
 Phases, each raising on failure (non-zero exit, no final line):
 
@@ -236,6 +237,25 @@ Phases, each raising on failure (non-zero exit, no final line):
     through ``pallas_paged_attention``; then slot and paged prefill + K3
     decode against the no-cache forward; the weights are released and
     less than 1 GiB may stay allocated.
+24. parallel (``phase_parallel``), on the card that now holds nothing
+    else: two ranks, each a process (``parallel/launch.run_ranks``: a
+    collective timeout, every rank killed on a failure or the deadline),
+    NCCL with a card a rank, gloo with both on one card (the transfers
+    staged through host memory). qwen3-8b at full width and depth over
+    tp=2: a slot engine (K1 at 16 / 4 local heads) and a paged
+    ``attn_impl="pallas"`` engine without prefix cache (K2, B6), B5 on
+    both, each held to the tp=1 no-cache forward on the same seed-0
+    weights by a teacher-forced probe (a prefill, then one decode step a
+    token); a 4000-token fresh prompt through ring attention and through
+    Ulysses (K2 inside), held to the same forward; a burst of 16 requests
+    on each engine and a 2040-token request that ``ring_prefill_len``
+    routes, each kernel's launches counted on each rank, the ranks' greedy
+    tokens equal; qwen3-30b-a3b's widths at 2 layers over ep=2 through
+    the grouped expert kernels (both forms), held to the ep=1 forward on
+    the plain experts; then ``torchrun --nproc_per_node 2 -m
+    deepsearch_tts_tpu_torch.cli.serve --tp 2`` answers one HTTP request
+    and SIGTERM stops it. Its line names the backend, the card count and
+    what it did not run, with each rank's ms a step and peak memory.
 
 MLA (phases 21-23) has no prefill lane, as in JAX: it is served with
 ``--prefill_lane 0``. The times at row counts past 64 are printed under
@@ -422,6 +442,10 @@ def time_eager_ms(fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+# the card's memory and this process's CUDA context (phase_env)
+ENV_MEMORY: dict = {}
+
+
 def phase_env() -> str:
     import torch
 
@@ -437,6 +461,14 @@ def phase_env() -> str:
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"triton {triton.__version__} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
+    # what a process cannot use of the card: its CUDA context (total less the
+    # free memory once CUDA has initialised; parallel/plan.py's reserve)
+    free, total = torch.cuda.mem_get_info()
+    ENV_MEMORY.update(total_mib=total / 2**20, context_mib=(total - free) / 2**20)
+    log(f"[env] memory: total {total / 2**20:.0f} MiB "
+        f"({torch.cuda.get_device_properties(0).total_memory / 2**20:.0f} MiB by the "
+        f"device properties), free after CUDA init {free / 2**20:.0f} MiB: context "
+        f"{(total - free) / 2**20:.0f} MiB")
     return smi.splitlines()[0]
 
 
@@ -4192,11 +4224,11 @@ def _blocked_drops():
 
     inner, tally = moe._expert_ffn_blocked, [0, 0]
 
-    def counted(x_sorted, w_gate, w_up, w_down, offsets, plain=False):
-        cap = moe.expert_capacity(x_sorted.shape[0], offsets.shape[0] - 1)
+    def counted(x_sorted, w_gate, w_up, w_down, offsets, plain=False, n_exp=None):
+        cap = moe.expert_capacity(x_sorted.shape[0], n_exp or offsets.shape[0] - 1)
         tally[0] += x_sorted.shape[0]
         tally[1] += int((offsets[1:] - offsets[:-1] - cap).clamp(min=0).sum())
-        return inner(x_sorted, w_gate, w_up, w_down, offsets, plain)
+        return inner(x_sorted, w_gate, w_up, w_down, offsets, plain, n_exp)
 
     moe._expert_ffn_blocked = counted
     try:
@@ -4692,6 +4724,587 @@ def _chat_text(base: str, content: str, **kw) -> str:
     return body["choices"][0]["message"]["content"]
 
 
+# ------------------------------------------------------------------ parallel
+
+# the parallel phase: ranks as processes of their own
+# (parallel/launch.run_ranks; torchrun for the CLI): NCCL with a card a rank,
+# gloo with both ranks on one card (NCCL refuses two ranks on one device;
+# the collectives then stage through host memory, parallel/collectives.py)
+PAR_RANKS = 2
+# qwen3-8b at full width and depth over tp=2 (16 / 4 local heads), its long
+# fresh prompt (bucket 4096) held to the reference through ring attention and
+# Ulysses, and the prompt the scheduler's sequence-parallel gate routes
+# (bucket 2048, the gate's least)
+PAR_DENSE, PAR_LONG, PAR_RING, PAR_ROUTED = "qwen3-8b", 4000, 2048, 2040
+# the teacher-forced probe: a prefill of T0 tokens, then one decode step a
+# token, held to the tp=1 no-cache forward on the same seed-0 weights
+PAR_T0, PAR_STEPS = 16, 8
+# qwen3-30b-a3b's widths at 2 of its 48 layers over ep=2 (64 experts a rank),
+# and a prompt long enough for the prefill form of the grouped expert kernel
+PAR_MOE, PAR_MOE_LAYERS, PAR_MOE_LONG = "qwen3-30b-a3b-2-layers", 2, 3000
+PAR_BURST, PAR_BURST_TOKENS = SLOTS, 16
+PAR_TIMEOUT_S = 600.0            # the parent's deadline for the ranks
+PAR_COLLECTIVE_S = 180.0         # a rank's collective timeout
+PAR_CLI_TIMEOUT_S = 300.0        # torchrun ... cli.serve --tp 2: start and answer
+
+
+def _par_register() -> None:
+    """qwen3-30b-a3b cut to PAR_MOE_LAYERS layers, under its own name."""
+    from deepsearch_tts_tpu_torch.models import qwen3_moe, registry
+
+    cfg = dataclasses.replace(qwen3_moe.QWEN3_MOE_CONFIGS[MOE_MODEL], n_layers=PAR_MOE_LAYERS)
+    registry.register(PAR_MOE, cfg, qwen3_moe.forward, logical_axes=qwen3_moe.logical_axes)
+
+
+def _par_reference(model: str, toks, long_toks=None, **kw):
+    """The tp=1 no-cache forward over the whole seed-0 weights (drawn here,
+    freed after): logits at the probe's positions T0-1 .. T-1, and at the
+    long prompt's last position."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.weights import init_params
+    from deepsearch_tts_tpu_torch.models.registry import get_model
+
+    fam = get_model(model)
+    dev = toks.device
+    full = init_params(fam, device=dev, seed=0)
+    with torch.no_grad():
+        ref = fam.forward(full, fam.config, toks, torch.arange(toks.shape[1], device=dev)[None],
+                          **kw)[0][0, PAR_T0 - 1:]
+        long_ref = None
+        if long_toks is not None:
+            n = long_toks.shape[1]
+            long_ref = fam.forward(full, fam.config, long_toks,
+                                   torch.arange(n, device=dev)[None],
+                                   logits_indices=torch.tensor([n - 1], device=dev), **kw)[0][:, 0]
+    del full
+    _free()
+    return ref, long_ref
+
+
+def _tree_gib(tree) -> float:
+    """GiB of a param tree's tensors."""
+    if isinstance(tree, dict):
+        return sum(_tree_gib(v) for v in tree.values())
+    return tree.numel() * tree.element_size() / 2**30
+
+
+def _par_probe(eng, toks, table):
+    """The serving path's logits at the probe's positions, straight through
+    the sharded engine's forward (its pools, page table ``table``), on every
+    rank: a prefill of T0 tokens, then one T=1 decode step a token."""
+    import torch
+
+    dev = eng.device
+    T0, T = PAR_T0, PAR_T0 + PAR_STEPS
+    pos = torch.arange(T, device=dev)[None]
+
+    def t(v):
+        return torch.tensor(v, device=dev)
+
+    # a slot decode step runs every slot row (B == rows); the rows past the
+    # first are padding (position -1, length 0)
+    B = eng.max_slots if eng.cache_mode == "slot" else 1
+    with torch.no_grad():
+        out = [eng._forward(toks[:, :T0], pos[:, :T0], table, t([T0]),
+                            logits_indices=t([T0 - 1]), fresh=eng.fresh_prefill)[0][:, 0]]
+        for i in range(T0, T):
+            tk = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+            ps = torch.full((B, 1), -1, dtype=torch.int64, device=dev)
+            lens = torch.zeros((B,), dtype=torch.int64, device=dev)
+            tk[0], ps[0], lens[0] = toks[0, i], i, i + 1
+            tables = table.expand(B, -1) if B > 1 else table
+            out.append(eng._forward(tk, ps, tables, lens,
+                                    slot_ctx=eng._slot_bucket(i + 1))[0][:1, 0])
+    return torch.cat(out)
+
+
+def _par_long(eng, long_toks, seq_parallel):
+    """A fresh prefill of the long prompt (padded to its bucket) through the
+    paged engine's forward, its pages 1.., ``seq_parallel`` ("ring",
+    "ulysses" or None: K2 at the local heads): the last position's logits
+    and the rank's wall seconds."""
+    import torch
+
+    dev, n = eng.device, long_toks.shape[1]
+    T = eng._bucket(n)
+    toks = torch.zeros((1, T), dtype=torch.int64, device=dev)
+    toks[:, :n] = long_toks
+    pos = torch.full((1, T), -1, dtype=torch.int64, device=dev)
+    pos[0, :n] = torch.arange(n, device=dev)
+    table = torch.arange(1, eng._page_bucket(n) + 1, device=dev)[None]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = eng._forward(toks, pos, table, torch.tensor([n], device=dev),
+                              logits_indices=torch.tensor([n - 1], device=dev), fresh=True,
+                              seq_parallel=seq_parallel)[0][:, 0]
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0
+
+
+def _par_segment(rank: int, eng, work) -> dict:
+    """One serving segment under the mesh: rank 0 runs ``work(eng)`` (its
+    requests) and shuts the engine's scheduler down; the other ranks follow
+    it until then. Each rank reports its greedy tokens (rank 0's requests,
+    a follower's copies, in submission order), its decode steps, prefill
+    dispatches and the segment's wall seconds."""
+    st0 = dict(eng.stats)
+    eng.mirrored = []
+    t0 = time.perf_counter()
+    if rank == 0:
+        try:
+            out = work(eng)
+        finally:
+            eng.shutdown()
+    else:
+        eng.follow()
+        out = {"tokens": [f.result(timeout=60).token_ids for f in eng.mirrored]}
+    steps, prefills, lanes = _steps(eng, st0, eng.stats)
+    dt = eng.stats["decode_time_s"] - st0["decode_time_s"]
+    out.update(steps=steps, prefills=prefills, lanes=lanes, wall_s=time.perf_counter() - t0,
+               ms_per_step=1e3 * dt / max(steps, 1))
+    return out
+
+
+def _par_requests(eng, prompts, max_tokens: int, **sampler) -> dict:
+    """Rank 0: ``prompts`` submitted together, each to ``max_tokens`` tokens;
+    their tokens and the client-clock seconds."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+
+    sampler = {**GREEDY, **sampler}
+    t0 = time.perf_counter()
+    futs = eng.submit_many([GenerationRequest(prompt_ids=list(p), max_tokens=max_tokens,
+                                              **sampler) for p in prompts])
+    res = [f.result(timeout=600) for f in futs]
+    return {"tokens": [r.token_ids for r in res], "seconds": time.perf_counter() - t0}
+
+
+def _par_burst_prompts(eng) -> list:
+    return [eng.tokenizer.encode(f"Burst {i}: write a long story.") for i in range(PAR_BURST)]
+
+
+def _par_dense(rank: int, mesh) -> dict:
+    """qwen3-8b over tp=2: the slot engine (K1 at 16 / 4 local heads, B5)
+    and the paged ``attn_impl="pallas"`` engine without a prefix cache
+    (B2 and B6 at the local heads, B5), each held to the tp=1 no-cache
+    forward (teacher-forced probe); the paged engine's long fresh prompt
+    through ring attention and Ulysses (K2 inside), by the forward and by
+    the scheduler's gate (``ring_prefill_len``)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.engine import Engine
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    V = 151936
+    toks = torch.randint(0, V, (1, PAR_T0 + PAR_STEPS), generator=gen, device=dev)
+    long_toks = torch.randint(0, V, (1, PAR_LONG), generator=gen, device=dev)
+    ref = long_ref = None
+    if rank == 0:
+        ref, long_ref = _par_reference(PAR_DENSE, toks, long_toks)
+    res: dict = {}
+    tok = ByteTokenizer()
+
+    # slot engine: K1 at the local heads, B5 on the all-gathered logits;
+    # its build's peak beside the rank's share of the weights (each matrix
+    # is cut to the rank's block as it is drawn)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = Engine(PAR_DENSE, tok, device=dev, mesh=mesh, cache_mode="slot", max_slots=SLOTS,
+                 max_seq_len=CTX, decode_chunk_len=8, prefill_lane=0, seed=0)
+    res["slot_build_s"] = time.perf_counter() - t0
+    res["build_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    res["weights_gib"] = _tree_gib(eng.params)
+    assert eng.attn_impl == "pallas" and not eng.layer_fusion, (eng.attn_impl, eng.layer_fusion)
+    assert eng.fcfg.n_heads == 16 and eng.fcfg.n_kv_heads == 4, eng.fcfg
+    got = _par_probe(eng, toks, torch.zeros((1, 1), dtype=torch.int64, device=dev))
+    if rank == 0:
+        _hold_to_reference("parallel", "tp=2 slot serving-path (K1)", got, ref)
+    counters = {"slot_attention": sa.slot_attention, "sampling_prep": sp.sampling_prep}
+    _zero(counters)
+    burst = _par_segment(rank, eng, lambda e: _par_requests(e, _par_burst_prompts(e),
+                                                            PAR_BURST_TOKENS))
+    L = eng.cfg.n_layers
+    launches = {n: f.launches for n, f in counters.items()}
+    assert launches["slot_attention"] == L * burst["steps"] > 0, (launches, burst)
+    assert launches["sampling_prep"] == burst["steps"] + burst["prefills"], (launches, burst)
+    res["slot"] = {**burst, "launches": launches}
+    _release(eng)
+    del eng
+    _free()
+
+    # paged engine, attn_impl="pallas", no prefix cache: fresh prefill on K2,
+    # T=1 decode on B6; the long prompt sequence-parallel past PAR_RING
+    t0 = time.perf_counter()
+    eng = Engine(PAR_DENSE, tok, device=dev, mesh=mesh, attn_impl="pallas",
+                 enable_prefix_cache=False, ring_prefill_len=PAR_RING, page_size=64,
+                 n_pages=1024, max_slots=SLOTS, max_seq_len=CTX, decode_chunk_len=8,
+                 prefill_lane=0, seed=0)
+    res["paged_build_s"] = time.perf_counter() - t0
+    got = _par_probe(eng, toks, torch.ones((1, 1), dtype=torch.int64, device=dev))
+    if rank == 0:
+        _hold_to_reference("parallel", "tp=2 paged pallas serving-path (K2, B6)", got, ref)
+    long = {}
+    for how in ("ring", "ulysses"):
+        fa.flash_attention.launches = 0
+        logits, secs = _par_long(eng, long_toks, how)
+        long[how] = {"s": secs, "k2_launches": fa.flash_attention.launches}
+        if rank == 0:
+            _hold_to_reference("parallel", f"tp=2 {PAR_LONG}-token fresh prefill ({how})",
+                               logits, long_ref)
+    # Ulysses runs K2 at the local heads over the whole sequence; ring
+    # attention's blocks are plain torch (JAX's are XLA einsum)
+    assert long["ulysses"]["k2_launches"] == L and long["ring"]["k2_launches"] == 0, long
+    res["long_forward"] = long
+    routed = long_toks[0, :PAR_ROUTED].tolist()
+    counters = {"pallas_paged_attention": pa.pallas_paged_attention,
+                "flash_attention": fa.flash_attention, "sampling_prep": sp.sampling_prep}
+    _zero(counters)
+    sp0 = eng.sp_prefills
+
+    def work(e):
+        out = _par_requests(e, _par_burst_prompts(e), PAR_BURST_TOKENS)
+        long_req = _par_requests(e, [routed], 4)
+        out["tokens"] += long_req["tokens"]
+        out["long_s"] = long_req["seconds"]
+        return out
+
+    burst = _par_segment(rank, eng, work)
+    launches = {n: f.launches for n, f in counters.items()}
+    assert eng.sp_prefills - sp0 == 1, (eng.sp_prefills, sp0)
+    assert launches["pallas_paged_attention"] == L * burst["steps"] > 0, (launches, burst)
+    # every burst prefill is fresh and short (K2); the long one ring (no K2)
+    assert launches["flash_attention"] == L * (burst["prefills"] - 1) > 0, (launches, burst)
+    assert launches["sampling_prep"] == burst["steps"] + burst["prefills"], (launches, burst)
+    res["paged"] = {**burst, "launches": launches}
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    _release(eng)
+    del eng
+    _free()
+    return res
+
+
+def _par_moe(rank: int) -> dict:
+    """qwen3-30b-a3b's widths at 2 layers over ep=2: each rank's 64 experts
+    through the grouped expert kernels (decode and, on a long prompt, the
+    prefill form), held to the ep=1 no-cache forward on the plain experts."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.engine import Engine
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
+    from deepsearch_tts_tpu_torch.parallel.mesh import make_mesh
+
+    _par_register()
+    mesh = make_mesh(ep=PAR_RANKS, device_type="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, 151936, (1, PAR_T0 + PAR_STEPS), generator=gen, device=dev)
+    ref = None
+    if rank == 0:
+        ref, _ = _par_reference(PAR_MOE, toks, plain_experts=True)
+    t0 = time.perf_counter()
+    eng = Engine(PAR_MOE, ByteTokenizer(), device=dev, mesh=mesh, page_size=64, n_pages=1024,
+                 max_slots=SLOTS, max_seq_len=CTX, decode_chunk_len=8, prefill_lane=0, seed=0)
+    build_s = time.perf_counter() - t0
+    assert eng.params["layers"]["w_gate"].shape[1] == M_NE // PAR_RANKS, \
+        eng.params["layers"]["w_gate"].shape
+    got = _par_probe(eng, toks, torch.ones((1, 1), dtype=torch.int64, device=dev))
+    if rank == 0:
+        _hold_to_reference("parallel", "ep=2 qwen3-30b-a3b (2 layers) serving-path", got, ref)
+    counters = {"grouped_gateup": moe.grouped_gateup, "grouped_down": moe.grouped_down,
+                "sampling_prep": sp.sampling_prep}
+    _zero(counters)
+    long_prompt = torch.randint(0, 151936, (PAR_MOE_LONG,), generator=gen, device=dev).tolist()
+
+    def work(e):
+        out = _par_requests(e, _par_burst_prompts(e), PAR_BURST_TOKENS)
+        long_req = _par_requests(e, [long_prompt], 4)
+        out["tokens"] += long_req["tokens"]
+        out["long_s"] = long_req["seconds"]
+        return out
+
+    burst = _par_segment(rank, eng, work)
+    launches = {n: f.launches for n, f in counters.items()}
+    launches.update({n + "_prefill": counters[n].prefill_launches
+                     for n in ("grouped_gateup", "grouped_down")})
+    L = eng.cfg.n_layers
+    for n in ("grouped_gateup", "grouped_down"):
+        assert launches[n] == L * (burst["steps"] + burst["prefills"]) > 0, (launches, burst)
+        assert launches[n + "_prefill"] >= L, launches   # the long prompt at least
+    assert launches["sampling_prep"] == burst["steps"] + burst["prefills"], (launches, burst)
+    out = {**burst, "launches": launches, "build_s": build_s,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    _release(eng)
+    return out
+
+
+def _par_local_kernels(gen) -> dict:
+    """The kernels the mesh path runs, each against its plain version at
+    the local shape the mesh gives it (at the kernel phases' tolerances):
+    qwen3-8b over tp=2 holds 16 q and 4 kv heads a rank (K1 on the slot
+    pool, B6 on the paged pool, K2 on a fresh prefill, at the burst's and
+    the long prompt's lengths: Ulysses runs K2 at the local heads over the
+    whole sequence), and qwen3-30b-a3b over ep=2 runs the grouped expert
+    kernels over a rank's 64 experts (the decode form on a burst step's
+    rows, the prefill form on the long prompt's)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import moe
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    h, kv = H // PAR_RANKS, KV // PAR_RANKS
+    res: dict = {}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(bf)
+
+    def attn(*a, **k):
+        _check_kernel(res, *a, rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, **k)
+
+    L = 2
+    kp, vp = rnd(L * SLOTS, CTX, kv, D), rnd(L * SLOTS, CTX, kv, D)
+    q = rnd(SLOTS, h, D)
+    lim = torch.tensor(LIMITS, device=dev)
+    for layer in range(L):
+        attn("slot_attention", f"tp=2 h={h} kv={kv} B={SLOTS} layer={layer}",
+             lambda: sa.slot_attention(q, kp, vp, lim, layer, n_rows=SLOTS, slot_ctx=CTX),
+             lambda: sa.slot_attention_plain(q, kp, vp, lim, layer, n_rows=SLOTS,
+                                             slot_ctx=CTX))
+    del kp, vp
+    ps, P = 64, CTX // 64
+    NP = 1 + SLOTS * P
+    kpg, vpg = rnd(NP, ps, kv, D), rnd(NP, ps, kv, D)
+    kpg[0], vpg[0] = 0, 0
+    seq = torch.tensor(SEQS, device=dev)
+    perm = torch.randperm(NP - 1, generator=gen, device=dev)[: SLOTS * P].view(SLOTS, P)
+    table = torch.where(torch.arange(P, device=dev)[None] < ((seq + ps - 1) // ps)[:, None],
+                        perm + 1, 0)
+    q1 = rnd(SLOTS, 1, h, D)
+    attn("pallas_paged_attention", f"tp=2 h={h} kv={kv} B={SLOTS} T=1 ps={ps}",
+         lambda: pa.pallas_paged_attention(q1, kpg, vpg, table, seq, (seq - 1)[:, None]),
+         lambda: pa.pallas_paged_attention_plain(q1, kpg, vpg, table, seq, (seq - 1)[:, None]))
+    del kpg, vpg
+    for T in (32, PAR_ROUTED, 4096):   # a burst prompt, the routed one, the long bucket
+        qf, kf, vf = rnd(1, T, h, D), rnd(1, T, kv, D), rnd(1, T, kv, D)
+        attn("flash_attention", f"tp=2 h={h} kv={kv} B=1 T={T}",
+             lambda: fa.flash_attention(qf, kf, vf),
+             lambda: fa.flash_attention_plain(qf, kf, vf))
+    del qf, kf, vf
+
+    ne = M_NE // PAR_RANKS
+    wgu = rnd(ne, M_E, 2 * M_F, scale=M_E ** -0.5)
+    wd = rnd(ne, M_F, M_E, scale=M_F ** -0.5)
+    for T in (SLOTS, PAR_MOE_LONG):
+        # the rows of T tokens' top-k routed to this rank's experts
+        _, top_e = moe.route_topk(torch.randn((T, M_NE), generator=gen, device=dev), M_TOPK)
+        flat_e = top_e.reshape(-1)
+        flat_e = flat_e[flat_e < ne]
+        order = torch.argsort(flat_e, stable=True)
+        offsets = moe.group_offsets(flat_e, ne)
+        xs = rnd(flat_e.numel(), M_E)[order]
+        form = "prefill" if moe.grouped_prefill(flat_e.numel(), ne, M_E, M_F) else "decode"
+        label = f"ep=2 {ne} experts T={T} ({flat_e.numel()} rows, {form})"
+        hh = moe.grouped_gateup_plain(xs, wgu, None, offsets)
+        _check_kernel(res, "grouped_gateup", label,
+                      lambda: moe.grouped_gateup(xs, wgu, None, offsets),
+                      lambda: moe.grouped_gateup_plain(xs, wgu, None, offsets),
+                      rtol=BF16_RTOL, atol=BF16_ATOL)
+        _check_kernel(res, "grouped_down", label, lambda: moe.grouped_down(hh, wd, offsets),
+                      lambda: moe.grouped_down_plain(hh, wd, offsets),
+                      rtol=BF16_RTOL, atol=BF16_ATOL)
+        res.setdefault("forms", []).append(form)
+    assert res["forms"] == ["decode", "prefill"], res["forms"]
+    del wgu, wd
+    _free()
+    return {k: v["err"] for k, v in res.items() if isinstance(v, dict)}
+
+
+def _parallel_rank(rank: int) -> dict:
+    """One rank of the parallel phase (run by ``run_ranks``)."""
+    import torch
+    import torch.distributed as dist
+
+    from deepsearch_tts_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dense = _par_dense(rank, make_mesh(tp=PAR_RANKS, device_type="cuda"))
+    # the caching allocator's reserved-but-unallocated bytes at the peak
+    # (parallel/plan.py's reserve, beside the CUDA context)
+    dense["slack_gib"] = (torch.cuda.max_memory_reserved()
+                          - torch.cuda.max_memory_allocated()) / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    moe_res = _par_moe(rank)
+    return {"rank": rank, "device": str(torch.cuda.current_device()),
+            "backend": dist.get_backend(), "dense": dense, "moe": moe_res,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _torchrun_rank0(agent: int) -> int:
+    """The pid of torchrun's rank-0 worker: the agent's child whose
+    environment holds RANK=0."""
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != agent:
+                continue
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if b"RANK=0" in f.read().split(b"\0"):
+                    return int(pid)
+        except (OSError, ValueError, IndexError):
+            continue
+    raise AssertionError(f"no rank-0 worker under torchrun (pid {agent})")
+
+
+def _par_cli(card: str) -> dict:
+    """``torchrun --nproc_per_node 2 -m deepsearch_tts_tpu_torch.cli.serve
+    --model qwen3-8b --tp 2``: one chat request over HTTP to rank 0, then
+    SIGTERM to rank 0 alone, whose engine stops every rank; each rank must
+    exit 0, and so torchrun. The process group is killed if it outlives
+    its deadline."""
+    import signal
+
+    from deepsearch_tts_tpu_torch.parallel.launch import free_port
+
+    port, master = free_port(), free_port()
+    log_path = os.path.join(HERE, "build", "parallel_cli.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(PAR_RANKS),
+           "--master_addr", "127.0.0.1", "--master_port", str(master),
+           "-m", "deepsearch_tts_tpu_torch.cli.serve", "--model", PAR_DENSE,
+           "--tp", str(PAR_RANKS), "--port", str(port), "--pages", "512", "--max_slots", "8",
+           "--max_seq_len", "2048"]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+    base = f"http://127.0.0.1:{port}/v1"
+    try:
+        deadline = t0 + PAR_CLI_TIMEOUT_S
+        while True:
+            assert proc.poll() is None, f"torchrun exited with {proc.returncode}"
+            assert time.perf_counter() < deadline, "cli.serve --tp 2 did not start in time"
+            try:
+                with urllib.request.urlopen(base + "/models", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                time.sleep(1.0)
+        ready_s = time.perf_counter() - t0
+        status, body, secs = _post(base + "/chat/completions", {
+            "model": PAR_DENSE, "messages": [{"role": "user", "content": "Name one river."}],
+            "max_tokens": 8, **GREEDY}, timeout=PAR_CLI_TIMEOUT_S)
+        text = body["choices"][0]["message"]["content"]
+        assert status == 200 and 1 <= body["usage"]["completion_tokens"] <= 8, (status, body)
+        # SIGTERM to rank 0: its server stops and its engine's stop reaches
+        # the other ranks, which leave their follow loop; torchrun exits 0
+        # only if every rank did
+        os.kill(_torchrun_rank0(proc.pid), signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        assert rc == 0, f"torchrun ... cli.serve --tp 2 exited with {rc}"
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        try:   # no rank outlives the phase
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        with open(log_path) as f:
+            for line in f.read().splitlines()[-8:]:
+                log(f"[parallel-cli] {line}")
+    return {"ready_s": ready_s, "request_s": secs, "text_chars": len(text), "exit": rc}
+
+
+def phase_parallel(card: str) -> dict:
+    """The parallel layer on the card: PAR_RANKS ranks, each a
+    process; qwen3-8b over tp=2 and qwen3-30b-a3b's widths (2 layers) over
+    ep=2 (:func:`_parallel_rank`), the ranks' greedy tokens held equal, then
+    ``cli/serve.py --tp 2`` under torchrun answering one HTTP request."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.parallel.distributed import backend_for
+    from deepsearch_tts_tpu_torch.parallel.launch import run_ranks
+
+    cards = torch.cuda.device_count()
+    backend = backend_for("cuda", PAR_RANKS)
+    not_run = ["dp > 1 (Engine(mesh=) refuses it, ROADMAP.md C)",
+               "4-card meshes (tp=4, ep=2 x tp=2: the CPU tests run them)",
+               "int8 under a mesh (the CPU tests run it)",
+               "sharded training and the pipeline (the CPU tests hold them to JAX's)"]
+    if backend == "gloo":
+        not_run.insert(0, f"NCCL ({cards} card: both ranks on cuda:0 over gloo, the "
+                          f"collectives staged through host memory; this measures "
+                          f"correctness and local-shape kernels, not NCCL speed)")
+    local_kernels = _par_local_kernels(torch.Generator(device="cuda").manual_seed(7))
+    t0 = time.perf_counter()
+    ranks = run_ranks(_parallel_rank, PAR_RANKS, device_type="cuda",
+                      timeout_s=PAR_TIMEOUT_S, collective_timeout_s=PAR_COLLECTIVE_S)
+    ranks_s = time.perf_counter() - t0
+    # every rank sampled the same tokens from the same all-gathered logits
+    for seg in (("dense", "slot"), ("dense", "paged"), ("moe",)):
+        runs = []
+        for r in ranks:
+            node = r
+            for k in seg:
+                node = node[k]
+            runs.append(node["tokens"])
+        assert all(t == runs[0] for t in runs), (seg, runs)
+        assert runs[0] and all(len(t) > 0 for t in runs[0]), (seg, runs[0])
+    for r in ranks:
+        d, m = r["dense"], r["moe"]
+        log(f"[parallel] rank {r['rank']} ({r['backend']}, cuda:{r['device']}): qwen3-8b tp=2 "
+            f"slot {d['slot']['ms_per_step']:.2f} ms a step ({d['slot']['steps']} steps, "
+            f"launches {d['slot']['launches']}), paged pallas "
+            f"{d['paged']['ms_per_step']:.2f} ms a step (launches {d['paged']['launches']}), "
+            f"long prefill {PAR_LONG} tokens: forward ring "
+            f"{d['long_forward']['ring']['s']:.3f} s, ulysses "
+            f"{d['long_forward']['ulysses']['s']:.3f} s; "
+            f"peak {d['peak_gib']:.2f} GiB (allocator slack {d['slack_gib']:.2f} GiB; the "
+            f"slot build's {d['build_peak_gib']:.2f} GiB beside {d['weights_gib']:.2f} GiB "
+            f"of weights) | "
+            f"qwen3-30b-a3b 2 layers ep=2 "
+            f"{m['ms_per_step']:.2f} ms a step, launches {m['launches']}, peak "
+            f"{m['peak_gib']:.2f} GiB | {r['wall_s']:.1f} s")
+    cli = _par_cli(card)
+    log(f"[parallel] cli.serve --tp 2 under torchrun: ready in {cli['ready_s']:.1f} s, one "
+        f"request {cli['request_s']:.3f} s, exit {cli['exit']}")
+    r0 = ranks[0]
+    return {"backend": ranks[0]["backend"], "cards": cards, "ranks": PAR_RANKS,
+            "not_run": not_run, "ranks_s": ranks_s,
+            "per_rank": [{"rank": r["rank"], "peak_gib_dense": r["dense"]["peak_gib"],
+                          "build_peak_gib_dense": r["dense"]["build_peak_gib"],
+                          "weights_gib_dense": r["dense"]["weights_gib"],
+                          "slack_gib_dense": r["dense"]["slack_gib"],
+                          "peak_gib_moe": r["moe"]["peak_gib"],
+                          "slot_ms_per_step": r["dense"]["slot"]["ms_per_step"],
+                          "paged_ms_per_step": r["dense"]["paged"]["ms_per_step"],
+                          "moe_ms_per_step": r["moe"]["ms_per_step"]} for r in ranks],
+            "launches": {"slot": r0["dense"]["slot"]["launches"],
+                         "paged": r0["dense"]["paged"]["launches"],
+                         "moe": r0["moe"]["launches"]},
+            "long_forward_s": {k: v["s"] for k, v in r0["dense"]["long_forward"].items()},
+            "long_request_s": {"ring": r0["dense"]["paged"]["long_s"]},
+            "burst_s": {"slot": r0["dense"]["slot"]["seconds"],
+                        "paged": r0["dense"]["paged"]["seconds"],
+                        "moe": r0["moe"]["seconds"]},
+            "local_kernels_err": local_kernels, "memory": ENV_MEMORY, "cli": cli,
+            "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -4705,6 +5318,9 @@ def main(argv=None) -> int:
     ap.add_argument("--product-only", action="store_true",
                     help="only the build, the product phase and the eval phase "
                          "(prints their line, not the final line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="only the build and the parallel phase (prints its line, "
+                         "not the final line)")
     ap.add_argument("--train-only", action="store_true",
                     help="only the build and the train, moe-train and lora phases "
                          "(the last on random qwen3-8b weights; prints their line, "
@@ -4721,6 +5337,9 @@ def main(argv=None) -> int:
     if opts.product_only:
         product = _product_phases(card)
         print(json.dumps({"product": product, "eval": phase_eval(card), "card": card}))
+        return 0
+    if opts.parallel_only:
+        print(json.dumps({"parallel": phase_parallel(card), "card": card}))
         return 0
     if opts.train_only:
         from deepsearch_tts_tpu_torch.engine.weights import init_params
@@ -4863,6 +5482,8 @@ def main(argv=None) -> int:
     held = torch.cuda.memory_allocated() / 2**30
     log(f"[release] MLA engines and weights released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
+    # the parallel layer: ranks of their own on the card, which holds nothing else
+    parallel = phase_parallel(card)
 
     b11_path = {"launches": b11_launches}   # B11's own path (no serving path runs it)
     src = "deepsearch_tts_tpu_torch/ops/"
@@ -4936,6 +5557,7 @@ def main(argv=None) -> int:
                       "past_64": PAST_64, "card": card}))
     print(json.dumps({"product": product, "card": card}))
     print(json.dumps({"eval": evaluation, "card": card}))
+    print(json.dumps({"parallel": parallel, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,12 @@ its counterpart's name and layout (``models/qwen3.py``, ``ops/fused_layer.py``,
                  OpenAI-compatible server, and the host modules it needs
                  (tokenizer, stop scanner, span timer).
 * ``native/``  — the C++ radix page index of the prefix cache.
-* ``train/``   — the SFT trainer (AdamW as optax computes it), LoRA
-                 adapters and safetensors checkpoints.
+* ``train/``   — the SFT trainer (AdamW as optax computes it, on one
+                 device or a mesh), LoRA adapters and safetensors
+                 checkpoints.
+* ``parallel/``— meshes over ``torch.distributed`` ranks, the sharding
+                 rules, the explicit collectives of the sharded forward,
+                 rank launching, the memory planner and the pipeline.
 * ``cli/``     — ``serve`` entry point.
 
 This package imports ``torch`` and never ``jax``, nor anything of

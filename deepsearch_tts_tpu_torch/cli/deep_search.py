@@ -16,8 +16,11 @@ The flags and defaults are the JAX CLI's (the policy engine takes
 
 * ``--device`` (default ``cuda``) and ``--seed`` (of the random weights
   drawn when a weights path is empty) are added, as in ``cli/serve.py``;
-* ``--engine_tp`` > 1 raises ``NotImplementedError`` (no tensor-parallel
-  engine yet).
+* ``--engine_tp N`` runs under ``torchrun`` (one process a rank, as
+  ``cli/serve.py --tp``): every rank builds the sharded policy engine,
+  rank 0 runs the agents (and its aux engine, single-device as in JAX) and
+  writes the results, and the other ranks follow the policy engine's
+  scheduler until rank 0 shuts it down.
 
 JAX's persistent compile cache has no counterpart here. With ``--backend
 engine`` both engines are shut down before ``main`` returns.
@@ -125,7 +128,7 @@ def add_engine_flags(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="pre-compile engine programs for this prompt length")
     p.add_argument("--engine_tp", type=int, default=0,
                    help="tensor-parallel ways for the engine (0 = single device; "
-                        ">1 is not ported yet)")
+                        ">1 under torchrun, one process a rank)")
     p.add_argument("--device", type=str, default="cuda",
                    help="device of the engines for --backend engine (cuda or cpu)")
     p.add_argument("--seed", type=int, default=0,
@@ -178,30 +181,36 @@ def make_clients(args):
     from ..engine.tokenizer import ByteTokenizer, HFTokenizer
     from ..agents.client import EngineClient
 
-    if args.engine_tp > 1:
-        raise NotImplementedError(
-            "--engine_tp > 1 is not ported to the torch package yet (ROADMAP.md A13)")
+    from .serve import _tp_mesh
+
+    mesh = _tp_mesh(args.engine_tp, args.device)
     device = resolve_device(args.device)
     tok = (HFTokenizer(args.tokenizer_path) if args.tokenizer_path
            else ByteTokenizer())
 
     def build(name, weights_path, **kw):
-        # with weights: converted onto the device; without: params=None, so
-        # the Engine draws random weights from --seed on the device itself
+        # with weights: converted onto the device (under a mesh onto the
+        # host, each rank moving its slices to the card one matrix at a
+        # time); without: params=None, so the Engine draws random weights
+        # from --seed on the device itself
         params = None
         if weights_path:
             from ..engine.weights import load_or_init_params
 
-            params, name = load_or_init_params(name, weights_path, device=device)
+            params, name = load_or_init_params(name, weights_path,
+                                               device=device if mesh is None else "cpu")
         return Engine(name, tok, params=params, device=device, seed=args.seed,
                       page_size=args.engine_page_size,
                       max_seq_len=args.engine_max_seq_len, **kw)
 
-    engine = build(args.model_name, args.weights_path,
+    sharded = {} if mesh is None else {"mesh": mesh}
+    engine = build(args.model_name, args.weights_path, **sharded,
                    max_slots=args.engine_max_slots, n_pages=args.engine_pages,
                    prefill_lane=args.engine_prefill_lane)
     if args.engine_warmup:
         engine.warmup(prompt_lens=(args.engine_warmup,))
+    if mesh is not None and engine.multi and engine.par.rank != 0:
+        return None, None, engine   # a follower rank: no agents, no aux engine
     main = EngineClient(engine)
     if args.aux_model_name and args.aux_model_name != args.model_name:
         # co-serve a distinct aux verifier/explorer model on the same card:
@@ -245,6 +254,9 @@ def main(argv=None):
     stats = RunStatistics(args.model_name, args.aux_model_name,
                           args.price_config_path)
     main_client, aux_client, engine = make_clients(args)
+    if engine is not None and engine.multi and engine.par.rank != 0:
+        engine.follow()   # rank 0 runs the agents and writes the results
+        return
     search_backend, fetcher = make_search(args)
 
     gen_opts = {

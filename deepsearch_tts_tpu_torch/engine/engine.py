@@ -70,6 +70,22 @@ Behaviours carried over from the JAX engine:
   inter-chunk gap this loop measures), at the two widest context buckets,
   which ``warmup()`` registers.
 
+* ``mesh`` (a ``parallel.mesh.make_mesh`` ``DeviceMesh``, one process a
+  rank under ``torchrun``): the weights are sharded per the family's
+  logical axes and ``SERVING_RULES`` (quantized whole first, then sliced),
+  the pools hold the local kv heads, and the forward runs Megatron style
+  with explicit collectives (``parallel/collectives.py``). Layer fusion
+  and weight packing are off, as in JAX (``engine.py:321, 332-350``).
+  Rank 0 owns the front end (``submit`` / ``abort``); before each
+  scheduler step it broadcasts the new requests, the aborts and its stop
+  flag (and the trim gate's measured walls) to every rank, every rank
+  then runs the same host scheduler on the same inputs and samples from
+  the same all-gathered logits with the same generator, so the ranks
+  agree on every token with no second broadcast. The other ranks call
+  :meth:`follow`. ``dp > 1`` is refused (ROADMAP.md C). ``ring_prefill_len``
+  / ``sp_impl``: fresh prefills at or over that bucket run their attention
+  sequence-parallel over ``tp`` (JAX's gate, :meth:`_ring_prefill`).
+
 Left out, because they are JAX dispatch machinery: pipelined dispatch from
 the device carry (and ``_can_speculate``, which decides it), admission
 injection, the compile caches and warm-program bookkeeping. Eager CUDA
@@ -79,8 +95,7 @@ in flight when aborts apply or requests are admitted. The seen mask
 of every admitted row is rebuilt from its whole prompt, parked re-entries
 included (and so is a speculative engine's token history); JAX's
 keep/clear path for parked rows saves a host upload on the TPU and gives
-the same mask. Options of the JAX engine that the port does not carry yet
-raise ``NotImplementedError`` naming the ROADMAP.md item.
+the same mask.
 """
 from __future__ import annotations
 
@@ -196,12 +211,6 @@ def _check_speculative(speculative, cache_mode, kv_quantize, prefill_lane, spec_
             stacklevel=3)
 
 
-def _not_ported(option: str, item: str):
-    return NotImplementedError(
-        f"Engine option {option} is not ported to the torch package yet "
-        f"(ROADMAP.md {item})")
-
-
 ATTN_IMPLS = ("xla", "pallas", "pallas2", "clamp")
 
 
@@ -253,6 +262,7 @@ class Engine:
         spec_ngram: int = 2,
         chunk_trim: bool = False,
         ring_prefill_len: int | None = None,
+        sp_impl: str = "ring",
     ):
         if cache_mode not in ("paged", "slot"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
@@ -279,13 +289,11 @@ class Engine:
         self._chunk_ema = 0.0   # smoothed decode-chunk wall (s)
         self._gap_ema = 0.0     # smoothed host gap between chunks (s)
         self._gap_from: tuple[float, float] | None = None   # (end of chunk, prefill_time_s)
-        unported = [
-            (mesh is not None, "mesh", "A13 (parallel serving)"),
-            (ring_prefill_len is not None, "ring_prefill_len", "A13 (ring prefill)"),
-        ]
-        for bad, option, item in unported:
-            if bad:
-                raise _not_ported(option, item)
+        if sp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"unknown sp_impl {sp_impl!r} (ring or ulysses)")
+        self.ring_prefill_len = ring_prefill_len
+        self.sp_impl = sp_impl
+        self.sp_prefills = 0   # prefill forwards that ran sequence-parallel
         if quantize not in (None, "int8"):
             raise ValueError(f"unknown quantize {quantize!r} (None or 'int8')")
         if kv_quantize not in (None, "int8", "int8-force"):
@@ -302,6 +310,12 @@ class Engine:
         fam = get_model(model_name)
         self.cfg = cfg = fam.config
         self.forward = fam.forward
+        self.mesh, self.par = mesh, None
+        if mesh is not None:
+            self.par = _mesh_parallel(mesh, fam)
+            if layer_fusion:
+                raise ValueError("layer_fusion requires single-device serving")
+            layer_fusion = False
         self.prefill_lane = int(prefill_lane or 0)
         if lane_max_act:   # instance override of the class default
             self.LANE_MAX_ACT = int(lane_max_act)
@@ -352,17 +366,24 @@ class Engine:
 
         from .weights import init_params, pack_matmul_params
 
-        if params is None:
-            params = init_params(fam, device=self.device, seed=seed, quantize=quantize)
-        # single-device serving always packs QKV and gate|up (numerically the
-        # identity; the fused decode functions read this layout)
-        self.params = pack_matmul_params(params)
-        if quantize:
-            # after packing, as JAX (engine.py:358-366); leaves that are
-            # already int8 (a quantized init or tree) pass through
-            from ..ops.quant import QUANT_KEYS, quantize_params
+        # the config the forward runs with: under a mesh, the local heads
+        # and MLP widths
+        self.fcfg = cfg
+        if self.par is not None:
+            self.params, self.fcfg = _shard_params(params, fam, self.par, quantize,
+                                                   device=self.device, seed=seed)
+        else:
+            if params is None:
+                params = init_params(fam, device=self.device, seed=seed, quantize=quantize)
+            # single-device serving always packs QKV and gate|up (numerically
+            # the identity; the fused decode functions read this layout)
+            self.params = pack_matmul_params(params)
+            if quantize:
+                # after packing, as JAX (engine.py:358-366); leaves that are
+                # already int8 (a quantized init or tree) pass through
+                from ..ops.quant import QUANT_KEYS, quantize_params
 
-            self.params = quantize_params(self.params, keys=QUANT_KEYS)
+                self.params = quantize_params(self.params, keys=QUANT_KEYS)
         self.latent_cache = bool(getattr(cfg, "latent_cache", False))
         if self.latent_cache:
             # MLA: one latent row per token in k_pages, a one-page dummy v pool
@@ -371,12 +392,12 @@ class Engine:
                 device=self.device)
         else:
             self.k_pages, self.v_pages = init_kv_pages(
-                cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim,
+                cfg.n_layers, n_pages, page_size, self.fcfg.n_kv_heads, cfg.head_dim,
                 dtype=torch.int8 if kv_quantize else cfg.torch_dtype, device=self.device)
         self.k_scales = self.v_scales = None
         if kv_quantize:
             self.k_scales, self.v_scales = init_kv_scales(
-                cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, device=self.device)
+                cfg.n_layers, n_pages, page_size, self.fcfg.n_kv_heads, device=self.device)
         self.allocator = PageAllocator(n_pages, page_size)
         if enable_prefix_cache:
             from .prefix_cache import make_prefix_cache
@@ -415,6 +436,13 @@ class Engine:
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
         self._queue: "queue.Queue" = queue.Queue()
+        # what _admit reads: the submit queue itself, or under a multi-rank
+        # mesh the requests rank 0 broadcast (_sync)
+        self.multi = self.par is not None and self.par.world > 1
+        self._inbox: "queue.Queue" = queue.Queue() if self.multi else self._queue
+        self._abort_inbox: set[str] = set()   # rank 0's aborts not yet broadcast
+        self.mirrored: list[Future] = []   # a follower rank's copies of the requests
+        self._park_seq = 0   # parking order (the LRU of parked slot rows)
         self._deferred: list[tuple[GenerationRequest, Future]] = []
         # preempted-sequence continuations keyed by future: generated tokens
         # + stop/detok state restored at re-admission
@@ -455,8 +483,9 @@ class Engine:
     def abort(self, request_id: str) -> bool:
         """Cancel a queued or in-flight request: queued ones are dropped
         (future cancelled), active ones finish at the next chunk boundary
-        with finish_reason='aborted'."""
-        self._aborts.add(request_id)
+        with finish_reason='aborted'. Under a multi-rank mesh, on rank 0;
+        every rank applies it at the next step."""
+        (self._abort_inbox if self.multi else self._aborts).add(request_id)
         self._wake.set()
         return True
 
@@ -474,7 +503,10 @@ class Engine:
         weights (the attention helpers are built per forward). As in JAX,
         the prefix cache and parked slots are not flushed: a prompt that
         hits them reuses KV computed with the old weights. int8 weights
-        raise JAX's ``ValueError``."""
+        raise JAX's ``ValueError``; so does a sharded engine (ROADMAP.md C)."""
+        if self.par is not None:
+            raise ValueError("load_lora_adapter merges into unsharded weights; this "
+                             "engine is sharded over a mesh")
         from ..train.checkpoint import restore_params
         from ..train.lora import lora_to, merge_lora, rescale_lora
 
@@ -493,7 +525,8 @@ class Engine:
         but the sampler's random stream changes. With ``chunk_trim`` it
         registers the two widest context buckets as the ones a chunk may
         be trimmed at, as JAX warms its half-length program there. Call
-        before submitting requests."""
+        before submitting requests (under a multi-rank mesh, on every rank:
+        the forwards run the collectives and the sampler draws)."""
         dev = self.device
         for plen in prompt_lens:
             T = self._bucket(max(int(plen), 1))
@@ -541,10 +574,52 @@ class Engine:
             self._thread.start()
 
     def shutdown(self):
+        """Stop the scheduler; on rank 0 of a multi-rank mesh, every rank's
+        (at its next step)."""
         self._stopping = True
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
+
+    def follow(self) -> None:
+        """A multi-rank mesh's ranks other than 0: run the scheduler on this
+        thread, on the requests rank 0 broadcasts, until rank 0 shuts down.
+        Each request's result lands in a future in :attr:`mirrored`."""
+        if not self.multi or self.par.rank == 0:
+            raise ValueError("follow() is for the ranks other than 0 of a multi-rank mesh")
+        self._loop()
+
+    def _sync(self) -> bool:
+        """One step's control message under a multi-rank mesh: rank 0's new
+        requests (without their streaming callbacks), aborts, stop flag
+        and the trim gate's measured walls, broadcast to every rank; each
+        rank queues the requests in the same order (a follower with new
+        futures) and adopts the rest. Returns the stop flag."""
+        if self.par.rank == 0:
+            items = []
+            while True:
+                try:
+                    items.append(self._queue.get_nowait())
+                except queue.Empty:
+                    break
+            aborts = list(self._abort_inbox)
+            self._abort_inbox.difference_update(aborts)
+            stop = self._stopping   # read once: shutdown() may set it meanwhile
+            wire = [[_wire_req(r) for r, _ in item] if isinstance(item, list)
+                    else _wire_req(item[0]) for item in items]
+            self.par.broadcast((wire, aborts, stop, self._chunk_ema, self._gap_ema))
+            for item in items:
+                self._inbox.put(item)
+        else:
+            wire, aborts, stop, self._chunk_ema, self._gap_ema = self.par.broadcast(None)
+            for w in wire:
+                pairs = [(r, Future()) for r in (w if isinstance(w, list) else [w])]
+                self.mirrored.extend(f for _, f in pairs)
+                self._inbox.put(pairs if isinstance(w, list) else pairs[0])
+        self._aborts.update(aborts)
+        if stop:   # no rank tears down before all have the message
+            self.par.barrier()
+        return stop
 
     def telemetry(self) -> dict:
         out = dict(self.stats)
@@ -561,13 +636,16 @@ class Engine:
     # ------------------------------------------------------------- scheduler
 
     def _loop(self):
-        while not self._stopping:
+        while True:
             try:
+                if (self._sync() if self.multi else self._stopping):
+                    return
                 with torch.no_grad():
                     self._apply_aborts()
                     admitted = self._admit()
                     if not any(s.active for s in self.slots) and not self._lane:
-                        if not admitted:
+                        if not admitted and not (self.multi and self.par.rank):
+                            # idle (a follower waits in the next broadcast)
                             self._wake.wait(timeout=0.05)
                             self._wake.clear()
                         continue
@@ -584,14 +662,15 @@ class Engine:
                 self._deferred.clear()
                 self._resumes.clear()
                 self._lane.clear()   # their slots' futures were failed above
-                while not self._queue.empty():
-                    try:
-                        item = self._queue.get_nowait()
-                    except queue.Empty:
-                        break
-                    for _, fut in (item if isinstance(item, list) else [item]):
-                        if not fut.done():
-                            fut.set_exception(e)
+                for q in {id(self._inbox): self._inbox, id(self._queue): self._queue}.values():
+                    while not q.empty():
+                        try:
+                            item = q.get_nowait()
+                        except queue.Empty:
+                            break
+                        for _, fut in (item if isinstance(item, list) else [item]):
+                            if not fut.done():
+                                fut.set_exception(e)
                 return
 
     def _bucket(self, n: int) -> int:
@@ -710,7 +789,7 @@ class Engine:
                 req, fut = self._deferred.pop(0)
             else:
                 try:
-                    item = self._queue.get_nowait()
+                    item = self._inbox.get_nowait()
                 except queue.Empty:
                     break
                 if isinstance(item, list):  # submit_many batch
@@ -905,16 +984,22 @@ class Engine:
             eos_id=-1 if self.tokenizer.eos_id is None else self.tokenizer.eos_id)
 
     def _forward(self, tokens, positions, tables, seq_lens, *,
-                 logits_indices=None, fresh=False, slot_ctx=None, **lane):
+                 logits_indices=None, fresh=False, slot_ctx=None, seq_parallel=None,
+                 **lane):
         """One forward over the engine's pools (updated in place, int8 KV's
         scales pools too); ``slot_ctx`` (slot mode decode: T=1, or a verify
         window) makes it a slot decode reading that context bucket;
         ``lane`` holds the ``lane_*`` arguments of a step carrying the
-        prefill lane."""
+        prefill lane; ``seq_parallel`` ("ring" / "ulysses") runs a fresh
+        prefill's attention sequence-parallel over the mesh's ``tp``."""
         scales = ({} if self.k_scales is None
                   else {"k_scales": self.k_scales, "v_scales": self.v_scales})
+        if self.par is not None:
+            scales["par"] = self.par
+        if seq_parallel is not None:
+            scales["seq_parallel"] = seq_parallel
         return self.forward(
-            self.params, self.cfg, tokens, positions,
+            self.params, self.fcfg, tokens, positions,
             k_pages=self.k_pages, v_pages=self.v_pages, page_table=tables,
             seq_lens=seq_lens, logits_indices=logits_indices, impl=self.attn_impl,
             slot_decode=slot_ctx is not None, slot_ctx=slot_ctx,
@@ -939,6 +1024,15 @@ class Engine:
         self.seen[rows_t, first] = True
         return first
 
+    def _ring_prefill(self, bucket: int, fresh: bool) -> bool:
+        """Fresh prefills at/over ``ring_prefill_len`` run sequence-parallel
+        attention over the mesh's tp axis (JAX ``engine.py:990-999``)."""
+        return (fresh and self.ring_prefill_len is not None
+                and self.mesh is not None
+                and self.par.tp > 1
+                and bucket >= self.ring_prefill_len
+                and bucket % self.par.tp == 0)
+
     def _prefill_group(self, bucket: int, grp: list[dict]) -> None:
         """One batched prefill forward + first-token sample for a group of
         same-bucket requests; folds the first tokens into slot state."""
@@ -958,11 +1052,13 @@ class Engine:
             logits_idx[g] = max(T - 1, 0)
             rows[g] = p["slot"].idx
         tables = self.page_tables[rows, :P]
+        ring = self._ring_prefill(bucket, self.fresh_prefill)
+        self.sp_prefills += int(ring)
         with self.spans.span("prefill"):
             logits, _ = self._forward(
                 self._t(tokens), self._t(positions), self._t(tables),
                 self._t(seq_lens), logits_indices=self._t(logits_idx),
-                fresh=self.fresh_prefill)
+                fresh=self.fresh_prefill, seq_parallel=self.sp_impl if ring else None)
             first = self._sample_first(logits[:, 0], rows, [p["prompt"] for p in grp])
             if self.hist is not None:
                 hist_rows = np.zeros((G, self.hist.shape[1]), np.int64)
@@ -1301,7 +1397,71 @@ class Engine:
             self._parked[slot.idx] = {
                 "tokens": np.asarray(list(slot.prompt_tokens) + gen_ids, np.int64),
                 "usable": slot.prompt_len + max(len(gen_ids) - 1, 0),
-                "t": time.monotonic()}
+                "t": self._park_seq}
+            self._park_seq += 1
         self._release(slot)
         if fut is not None and not fut.done():
             fut.set_result(result)
+
+
+def _wire_req(req: GenerationRequest) -> GenerationRequest:
+    """A request as rank 0 broadcasts it: without its streaming callback
+    (rank 0's own copy keeps it)."""
+    import dataclasses
+
+    return dataclasses.replace(req, on_delta=None)
+
+
+def _mesh_parallel(mesh, fam):
+    """The engine's ``Parallel`` for ``mesh``, after JAX's checks: one
+    serving replica over ``tp`` / ``ep`` (``dp``, ``pp`` and ``fsdp`` of 1),
+    and a family whose forward takes the sharded arguments."""
+    from ..parallel.collectives import Parallel
+    from ..parallel.mesh import mesh_shape
+
+    shape = mesh_shape(mesh)
+    if shape["dp"] > 1:
+        raise ValueError(
+            f"Engine(mesh=) serves one replica over tp and ep: dp={shape['dp']} would "
+            "split the engine's rows over replicas, which the port refuses (ROADMAP.md C, "
+            "dp); run one engine per dp group")
+    if shape["pp"] > 1 or shape["fsdp"] > 1:
+        raise ValueError(f"Engine(mesh=) shards over tp and ep only (got {shape})")
+    if "par" not in inspect.signature(fam.forward).parameters:
+        raise ValueError(f"model family {fam.name!r} has no sharded forward")
+    return Parallel(mesh)
+
+
+def _shard_params(params: dict | None, fam, par, quantize: str | None, device=None,
+                  seed: int = 0) -> tuple[dict, Any]:
+    """A whole param tree → this rank's slices and the local config (JAX
+    ``engine.py:448-476``): unpacked (TP would split a packed matrix
+    unevenly across q/k/v), quantized whole where asked, then sliced per
+    the family's logical axes and ``SERVING_RULES`` — int8 scales by
+    ``quantized_logical_axes`` (a row-parallel product's replicated). Where
+    tp exceeds the kv heads, each rank keeps the kv head its q heads read
+    (``parallel/sharding.kv_heads_local``). One matrix at a time
+    (``parallel/sharding.LocalDraw``), so a rank holds its share and one
+    matrix on ``device``: ``params`` None is the random draw from ``seed``,
+    each matrix cut as it is drawn (a ``custom_init`` family's draw is made
+    whole); a given tree may lie on the host."""
+    from ..parallel.sharding import SERVING_RULES, LocalDraw, kv_heads_local, local_config
+    from .weights import init_params, random_params
+
+    cfg = fam.config
+    if fam.logical_axes is None:
+        raise ValueError(f"model family {fam.name!r} was registered without logical axes "
+                         f"to shard by")
+    latent = getattr(cfg, "latent_cache", False)
+    rep = (kv_heads_local(cfg.n_kv_heads, par.tp)[1]
+           if par.tp > 1 and not latent and hasattr(cfg, "n_kv_heads") else 1)
+    # MLA: the single latent head on every rank
+    par.kv_rep = par.tp if latent else rep
+    draw = LocalDraw(cfg, fam.logical_axes(cfg), SERVING_RULES, par.sizes, par.coords,
+                     kv_rep=rep, kv_head=par.tp_rank // rep)
+    if params is None and not getattr(cfg, "custom_init", False):
+        params = random_params(cfg, device=device, seed=seed, quantize=quantize, local=draw)
+        return params, local_config(cfg, par.tp)
+    if params is None:
+        params = init_params(fam, device=device, seed=seed)
+    return draw.place(params, device, quantize), local_config(cfg, par.tp)

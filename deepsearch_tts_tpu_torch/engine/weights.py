@@ -390,7 +390,8 @@ def int8_refusal(cfg) -> str:
             f"weights path")
 
 
-def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None) -> dict:
+def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None,
+                  local=None) -> dict:
     """Random init on ``device`` in the packed layout the engine serves
     (``wqkv``, ``w_gateup``): normal·fan_in^-½ for matrices (the
     distribution of the JAX package's ``fast_random_params``: fan_in E for
@@ -400,7 +401,14 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
     (or [V,E]) slab — a whole qwen3-30b-a3b expert stack would take 38.7 GB
     in float32 — and no host-side weight bytes at all. ``quantize="int8"``
     draws the same numbers and quantizes each matrix of ``QUANT_KEYS`` as it
-    is drawn: the result equals ``quantize_params(random_params(...))``."""
+    is drawn: the result equals ``quantize_params(random_params(...))``.
+
+    ``local`` (a ``parallel/sharding.LocalDraw``): every matrix is still
+    drawn whole, in the same order, but only this rank's block of it is
+    kept (the packed ``wqkv`` / ``w_gateup`` split into their parts first),
+    so a rank holds its share of the weights and one matrix beside it; the
+    tree is then this rank's unpacked slices, equal to ``shard_pytree`` of
+    the whole draw unpacked (and quantized whole)."""
     from ..ops.quant import QUANT_KEYS
 
     if quantize is not None and not cfg.int8_weights:
@@ -410,9 +418,11 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
     dt = cfg.torch_dtype
     E = cfg.hidden
 
-    def mk(*shape, fan_in=None, key=None):
+    def mk(path, *shape, fan_in=None):
         fan = fan_in if fan_in is not None else shape[-2]
-        st = _Stack(shape, dt, dev, quantize if key in QUANT_KEYS else None)
+        quant = quantize if path[-1] in QUANT_KEYS else None
+        st = (_Stack(shape, dt, dev, quant) if local is None
+              else local.stack(path, shape, dt, dev, quant))
         for idx in np.ndindex(*shape[:-2]):
             st.set(idx, slice(None), torch.randn(shape[-2:], generator=gen, device=dev,
                                                  dtype=torch.float32).mul_(fan ** -0.5))
@@ -425,10 +435,10 @@ def random_params(cfg, device="cpu", seed: int = 0, quantize: str | None = None)
         params = _random_mla(cfg, mk, ones, dev)
     else:
         params = {"layers": _random_layers(cfg, mk, ones),
-                  "embed": mk(cfg.vocab_size, E, fan_in=E), "final_norm": ones(E)}
+                  "embed": mk(("embed",), cfg.vocab_size, E, fan_in=E), "final_norm": ones(E)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = mk(E, cfg.vocab_size, key="lm_head")
-    return params
+        params["lm_head"] = mk(("lm_head",), E, cfg.vocab_size)
+    return params if local is None else local.finish(params)
 
 
 def _random_layers(cfg, mk, ones) -> dict:
@@ -437,11 +447,11 @@ def _random_layers(cfg, mk, ones) -> dict:
     layers = {
         "ln1": ones(L, E), "ln2": ones(L, E),
         "q_norm": ones(L, D), "k_norm": ones(L, D),
-        "wqkv": mk(L, E, (H + 2 * K) * D, key="wqkv"),
-        "wo": mk(L, H * D, E, key="wo"),
+        "wqkv": mk(("layers", "wqkv"), L, E, (H + 2 * K) * D),
+        "wo": mk(("layers", "wo"), L, H * D, E),
     }
     # the family's MLP stacks; every one has its fan_in second to last
-    layers.update({k: mk(L, *shape, key=k) for k, shape in cfg.mlp_shapes().items()})
+    layers.update({k: mk(("layers", k), L, *shape) for k, shape in cfg.mlp_shapes().items()})
     return layers
 
 
@@ -456,20 +466,23 @@ def _random_mla(cfg, mk, ones, dev) -> dict:
     NE, Fi, FS, FD = (cfg.n_routed_experts, cfg.moe_intermediate,
                       cfg.moe_intermediate * cfg.n_shared_experts, cfg.dense_intermediate)
 
-    def attn(n):
-        return {"ln1": ones(n, E), "ln2": ones(n, E), "w_qa": mk(n, E, QL),
-                "q_a_norm": ones(n, QL), "w_qb": mk(n, QL, H * (QN + QR)),
-                "w_kva": mk(n, E, KL + QR), "kv_a_norm": ones(n, KL),
-                "w_kb": mk(n, KL, H * QN), "w_vb": mk(n, KL, H * VD), "wo": mk(n, H * VD, E)}
+    def attn(g, n):
+        return {"ln1": ones(n, E), "ln2": ones(n, E), "w_qa": mk((g, "w_qa"), n, E, QL),
+                "q_a_norm": ones(n, QL), "w_qb": mk((g, "w_qb"), n, QL, H * (QN + QR)),
+                "w_kva": mk((g, "w_kva"), n, E, KL + QR), "kv_a_norm": ones(n, KL),
+                "w_kb": mk((g, "w_kb"), n, KL, H * QN), "w_vb": mk((g, "w_vb"), n, KL, H * VD),
+                "wo": mk((g, "wo"), n, H * VD, E)}
 
-    LM = L - LD
-    dense = {**attn(LD), "d_gate": mk(LD, E, FD), "d_up": mk(LD, E, FD),
-             "d_down": mk(LD, FD, E)}
-    moe = {**attn(LM), "router": mk(LM, E, NE),
+    LM, d, m = L - LD, "dense_layers", "moe_layers"
+    dense = {**attn(d, LD), "d_gate": mk((d, "d_gate"), LD, E, FD),
+             "d_up": mk((d, "d_up"), LD, E, FD), "d_down": mk((d, "d_down"), LD, FD, E)}
+    moe = {**attn(m, LM), "router": mk((m, "router"), LM, E, NE),
            "router_bias": torch.zeros((LM, NE), dtype=torch.float32, device=dev),
-           "w_gate": mk(LM, NE, E, Fi), "w_up": mk(LM, NE, E, Fi), "w_down": mk(LM, NE, Fi, E),
-           "s_gate": mk(LM, E, FS), "s_up": mk(LM, E, FS), "s_down": mk(LM, FS, E)}
-    return {"embed": mk(cfg.vocab_size, E, fan_in=E), "final_norm": ones(E),
+           "w_gate": mk((m, "w_gate"), LM, NE, E, Fi), "w_up": mk((m, "w_up"), LM, NE, E, Fi),
+           "w_down": mk((m, "w_down"), LM, NE, Fi, E),
+           "s_gate": mk((m, "s_gate"), LM, E, FS), "s_up": mk((m, "s_up"), LM, E, FS),
+           "s_down": mk((m, "s_down"), LM, FS, E)}
+    return {"embed": mk(("embed",), cfg.vocab_size, E, fan_in=E), "final_norm": ones(E),
             "dense_layers": dense, "moe_layers": moe}
 
 

@@ -116,9 +116,26 @@ def dot_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(dt), w.to(dt)).to(torch.bfloat16)
 
 
+def row_dot_bf16(x: torch.Tensor, w: torch.Tensor, par=None) -> torch.Tensor:
+    """:func:`dot_bf16` of a row-parallel product (``par``: a
+    ``parallel.collectives.Parallel`` over ``tp`` > 1 ranks, each holding
+    its rows of w and columns of x): the float32 partial sums, summed over
+    ``tp``, rounded once to bf16 — the unsharded product's rounding, in
+    another summation order."""
+    if par is None or par.tp == 1:
+        return dot_bf16(x, w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    part = matmul_f32(x.reshape(-1, x.shape[-1]).to(dt), w.to(dt))
+    return par.reduce(part).to(torch.bfloat16).reshape(*x.shape[:-1], -1)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, par=None) -> torch.Tensor:
+    """SwiGLU MLP; with ``par`` the gate / up columns and the down rows are
+    this rank's (column- then row-parallel)."""
+    if par is not None:
+        x = par.enter(x)
     g = dot_bf16(x, w_gate)
     u = dot_bf16(x, w_up)
     h = F.silu(g.float()).to(u.dtype) * u
-    return dot_bf16(h, w_down).to(x.dtype)
+    return row_dot_bf16(h, w_down, par).to(x.dtype)

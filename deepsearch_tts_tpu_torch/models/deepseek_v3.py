@@ -45,8 +45,16 @@ from ..ops import attention as attn_ops
 from ..ops.fused_layer import fused_mlp_stacked, mlp_shapes_ok
 from ..ops.moe import dispatch_ragged
 from ..ops.slot_attention import slot_attention
-from .common import apply_rope, dot_bf16, matmul_f32, rms_norm, rope_angles, swiglu
-from .qwen3 import _lm_head
+from .common import (
+    apply_rope,
+    dot_bf16,
+    matmul_f32,
+    rms_norm,
+    rope_angles,
+    row_dot_bf16,
+    swiglu,
+)
+from .qwen3 import _embed, _lm_head, _seq_attention
 
 
 @dataclass(frozen=True)
@@ -148,35 +156,75 @@ def route_v3(x, router_w, bias, cfg: DeepSeekV3Config):
     return w * cfg.routed_scaling_factor, top_e
 
 
-def _moe_v3_routed(cfg, lp: dict, l: int, x, plain: bool = False):
+def logical_axes(cfg: DeepSeekV3Config) -> dict:
+    """Tree of logical-axis tuples mirroring the params (JAX
+    ``deepseek_v3.py:181``)."""
+    attn = {
+        "ln1": ("layer", "embed"), "ln2": ("layer", "embed"),
+        "w_qa": ("layer", "embed", None), "q_a_norm": ("layer", None),
+        "w_qb": ("layer", None, "heads"),
+        "w_kva": ("layer", "embed", None), "kv_a_norm": ("layer", None),
+        "w_kb": ("layer", None, "heads"), "w_vb": ("layer", None, "heads"),
+        "wo": ("layer", "heads", "embed"),
+    }
+    dense = dict(attn, **{
+        "d_gate": ("layer", "embed", "mlp"), "d_up": ("layer", "embed", "mlp"),
+        "d_down": ("layer", "mlp", "embed"),
+    })
+    moe = dict(attn, **{
+        "router": ("layer", "embed", None), "router_bias": ("layer", None),
+        "w_gate": ("layer", "expert", "embed", "expert_mlp"),
+        "w_up": ("layer", "expert", "embed", "expert_mlp"),
+        "w_down": ("layer", "expert", "expert_mlp", "embed"),
+        "s_gate": ("layer", "embed", "mlp"), "s_up": ("layer", "embed", "mlp"),
+        "s_down": ("layer", "mlp", "embed"),
+    })
+    tree = {"embed": ("vocab", "embed"), "dense_layers": dense,
+            "moe_layers": moe, "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
+
+
+def _moe_v3_routed(cfg, lp: dict, l: int, x, plain: bool = False, par=None):
     """Layer ``l``'s routed experts on x [T,E] (``plain``: the expert FFN's
-    plain versions)."""
+    plain versions); under ``par`` this rank's experts at its MLP columns,
+    summed over ``tp`` and ``ep``."""
     w, top_e = route_v3(x, lp["router"][l], lp["router_bias"][l], cfg)
-    return dispatch_ragged(x, w, top_e, cfg.n_routed_experts, lp["w_gate"][l],
-                           lp["w_up"][l], lp["w_down"][l], plain)
+    experts = None
+    if par is not None:   # as qwen3_moe._moe_block
+        experts = par.experts(cfg.n_routed_experts)
+        w, x = par.enter_experts(w), par.enter_experts(x)
+    out = dispatch_ragged(x, w, top_e, cfg.n_routed_experts, lp["w_gate"][l],
+                          lp["w_up"][l], lp["w_down"][l], plain, experts)
+    return out if par is None else par.reduce_experts(out)
 
 
-def _moe_v3(cfg, lp: dict, l: int, h2, plain: bool = False):
+def _moe_v3(cfg, lp: dict, l: int, h2, plain: bool = False, par=None):
     """Routed + shared experts on h2 [B,T,E]."""
     B, T, E = h2.shape
     x = h2.reshape(B * T, E)
-    routed = _moe_v3_routed(cfg, lp, l, x, plain)
-    shared = swiglu(x, lp["s_gate"][l], lp["s_up"][l], lp["s_down"][l])
+    routed = _moe_v3_routed(cfg, lp, l, x, plain, par)
+    shared = swiglu(x, lp["s_gate"][l], lp["s_up"][l], lp["s_down"][l], par)
     return (routed.to(h2.dtype) + shared.to(h2.dtype)).reshape(B, T, E)
 
 
-def _dense_mlp(lp: dict, l: int, h2):
-    return swiglu(h2, lp["d_gate"][l], lp["d_up"][l], lp["d_down"][l]).to(h2.dtype)
+def _dense_mlp(lp: dict, l: int, h2, par=None):
+    return swiglu(h2, lp["d_gate"][l], lp["d_up"][l], lp["d_down"][l], par).to(h2.dtype)
 
 
-def _mla_qk(cfg, lp: dict, l: int, h, cos, sin):
+def _mla_qk(cfg, lp: dict, l: int, h, cos, sin, par=None):
     """Queries in absorbed (latent) space and this chunk's cache rows:
-    q_eff [B,T,H,KL+QR], rows [B,T,1,KL+QR]."""
+    q_eff [B,T,H,KL+QR], rows [B,T,1,KL+QR]. Under ``par``: this rank's
+    heads; the latent rows, alike on every rank, enter its heads'
+    attention through ``par.enter``."""
     B, T, _ = h.shape
     H, KL = cfg.n_heads, cfg.kv_lora_rank
     QN, QR = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     eps = cfg.rms_eps
     qa = rms_norm(dot_bf16(h, lp["w_qa"][l]), lp["q_a_norm"][l], eps)
+    if par is not None:
+        qa = par.enter(qa)
     q = dot_bf16(qa, lp["w_qb"][l]).reshape(B, T, H, QN + QR)
     q_rope = apply_rope(q[..., QN:], cos, sin)
     # absorb W_kb: q_lat[b,t,h,l] = sum_n q_nope[b,t,h,n] * W_kb[l,h,n]
@@ -187,16 +235,18 @@ def _mla_qk(cfg, lp: dict, l: int, h, cos, sin):
     latent = rms_norm(kva[..., :KL], lp["kv_a_norm"][l], eps)
     k_rope = apply_rope(kva[..., None, KL:], cos, sin)                 # [B,T,1,QR]
     rows = torch.cat([latent[..., None, :], k_rope.to(h.dtype)], dim=-1)
+    if par is not None:
+        rows = par.enter(rows)
     return q_eff, rows
 
 
-def _mla_out(cfg, lp: dict, l: int, attn_lat, dtype):
+def _mla_out(cfg, lp: dict, l: int, attn_lat, dtype, par=None):
     """Attention over latent rows [B,T,H,KL] → per-head value up-projection
-    → wo."""
+    → wo (row-parallel under ``par``)."""
     B, T, H, KL = attn_lat.shape
     w_vb = lp["w_vb"][l].reshape(KL, H, cfg.v_head_dim)
     out = torch.einsum("bthl,lhv->bthv", attn_lat.float(), w_vb.float()).to(dtype)
-    return dot_bf16(out.reshape(B, T, -1), lp["wo"][l]).to(dtype)
+    return row_dot_bf16(out.reshape(B, T, -1), lp["wo"][l], par).to(dtype)
 
 
 class LatentAttention:
@@ -218,8 +268,10 @@ class LatentAttention:
     Returns [B,T,H,kv_lora_rank]."""
 
     def __init__(self, cfg, positions, *, k_pages, page_table, seq_lens, impl: str,
-                 slot_decode: bool, slot_ctx: int | None, fresh_prefill: bool):
+                 slot_decode: bool, slot_ctx: int | None, fresh_prefill: bool,
+                 seq_attention=None):
         B, T = positions.shape
+        self.seq_attention = seq_attention
         L, N, ps = k_pages.shape[:3]
         self.cfg, self.N, self.ps = cfg, N, ps
         self.kpf = k_pages.view((L * N,) + tuple(k_pages.shape[2:]))
@@ -249,6 +301,8 @@ class LatentAttention:
         slots_l = self.slots0 + layer * self.layer_step
         if self.fresh:
             write_rows_slots(kpf, rows, slots_l)
+            if self.seq_attention is not None:
+                return self.seq_attention(q_eff, rows, rows[..., :KL], scale=scale)
             return attn_ops.causal_attention(q_eff, rows, rows[..., :KL], scale=scale)
         if self.slot_decode:
             write_rows_slots(kpf, rows, slots_l)
@@ -292,15 +346,23 @@ def forward(
     fresh_prefill: bool = False,
     fused_decode: bool = False,
     plain_experts: bool = False,
+    par=None,
+    seq_parallel: str | None = None,
 ):
     """Same contract as :func:`.qwen3.forward`, except that the cache is
     latent only: rows go into ``k_pages`` and ``v_pages`` is handed back
     untouched. Layer ``l`` of ``dense_layers`` is global layer ``l``, layer
     ``l`` of ``moe_layers`` global layer ``first_k_dense + l`` (its cache
     rows). ``plain_experts``: the routed experts through the grouped expert
-    kernel's plain versions on any device (a reference on the card)."""
+    kernel's plain versions on any device (a reference on the card).
+
+    Sharded under ``par`` as :func:`.qwen3.forward`: local q heads
+    (``w_qb`` / ``w_kb`` / ``w_vb`` column slices), ``wo`` and the MLPs'
+    down products row-parallel, the single latent row computed on every
+    rank (its weights replicated: JAX replicates the latent pool over tp),
+    the routed experts over ``ep`` × ``tp``."""
     serving = k_pages is not None
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, par)
     B, T, E = x.shape
     eps, KL, LD = cfg.rms_eps, cfg.kv_lora_rank, cfg.first_k_dense
     cos, sin = rope_angles(positions.clamp(min=0), cfg.qk_rope_head_dim, cfg.rope_theta)
@@ -310,16 +372,17 @@ def forward(
     if serving:
         attend = LatentAttention(cfg, positions, k_pages=k_pages, page_table=page_table,
                                  seq_lens=seq_lens, impl=impl, slot_decode=slot_decode,
-                                 slot_ctx=slot_ctx, fresh_prefill=fresh_prefill)
+                                 slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
+                                 seq_attention=_seq_attention(par, seq_parallel, impl))
 
     def attention(lp: dict, l: int, layer: int, x):
-        q_eff, rows = _mla_qk(cfg, lp, l, rms_norm(x, lp["ln1"][l], eps), cos, sin)
+        q_eff, rows = _mla_qk(cfg, lp, l, rms_norm(x, lp["ln1"][l], eps), cos, sin, par)
         if attend is not None:
             o = attend(layer, q_eff, rows)
         else:
             o = attn_ops.causal_attention(q_eff, rows, rows[..., :KL],
                                           scale=cfg.qk_head_dim ** -0.5)
-        return x + _mla_out(cfg, lp, l, o, x.dtype)
+        return x + _mla_out(cfg, lp, l, o, x.dtype, par)
 
     for l in range(LD):
         x = attention(dstack, l, l, x)
@@ -329,7 +392,7 @@ def forward(
             x = fused_mlp_stacked(x[:, 0], dstack["ln2"], dstack["d_gate"], dstack["d_up"],
                                   dstack["d_down"], l, eps=eps)[:, None]
         else:
-            x = x + _dense_mlp(dstack, l, rms_norm(x, dstack["ln2"][l], eps))
+            x = x + _dense_mlp(dstack, l, rms_norm(x, dstack["ln2"][l], eps), par)
     for l in range(cfg.n_layers - LD):
         x = attention(mstack, l, LD + l, x)
         h2 = rms_norm(x, mstack["ln2"][l], eps)
@@ -341,12 +404,12 @@ def forward(
                                        norm=False)
             x = x + (routed.to(x.dtype) + shared).reshape(B, T, E)
         else:
-            x = x + _moe_v3(cfg, mstack, l, h2, plain_experts)
+            x = x + _moe_v3(cfg, mstack, l, h2, plain_experts, par)
 
     x = rms_norm(x, params["final_norm"], eps)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
-    logits = _lm_head(params, x)
+    logits = _lm_head(params, x, par=par, vocab=cfg.vocab_size)
     if not serving:
         return logits, None
     return logits, (k_pages, v_pages)

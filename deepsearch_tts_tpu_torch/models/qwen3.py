@@ -49,7 +49,7 @@ from ..ops.fused_layer import (
 )
 from ..ops.quant import int8_matmul, is_quantized, maybe_int8_dot
 from ..ops.slot_attention import slot_attention, slot_window_attention
-from .common import apply_rope, matmul_f32, rms_norm, rope_angles
+from .common import apply_rope, matmul_f32, rms_norm, row_dot_bf16, rope_angles
 
 
 @dataclass(frozen=True)
@@ -123,6 +123,27 @@ def _dot(h: torch.Tensor, w, l: int, plain: bool = False) -> torch.Tensor:
     return maybe_int8_dot(h, _at(w, l), plain=plain)
 
 
+def _row_dot(h: torch.Tensor, w, l: int, plain: bool = False, par=None) -> torch.Tensor:
+    """:func:`_dot` of a row-parallel product (``wo``, ``w_down``): under
+    ``par`` (tp > 1) this rank's rows, summed over ``tp`` (plain weights as
+    float32 partials, rounded once; int8 products as their rounded
+    partials, the column scales being replicated)."""
+    if par is None or par.tp == 1:
+        return _dot(h, w, l, plain)
+    w = _at(w, l)
+    if is_quantized(w):
+        return par.reduce(maybe_int8_dot(h, w, plain=plain))
+    return row_dot_bf16(h, w, par)
+
+
+def _embed(params: dict, tokens: torch.Tensor, par=None) -> torch.Tensor:
+    """The embedding lookup; under ``par`` vocab-parallel (each rank's rows,
+    masked, summed over ``tp``)."""
+    if par is None:
+        return params["embed"][tokens.long()]
+    return par.embed(params["embed"], tokens)
+
+
 def _qkv(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor, plain: bool = False):
     B, T, _ = h.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -139,29 +160,38 @@ def _qkv(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor, plain: bool = Fals
 
 
 def _mlp(cfg: Qwen3Config, lp: dict, l: int, h: torch.Tensor,
-         plain: bool = False) -> torch.Tensor:
+         plain: bool = False, par=None) -> torch.Tensor:
     if "w_gateup" in lp:
         Fi = cfg.intermediate
         gu = _dot(h, lp["w_gateup"], l, plain)
         g, u = gu[..., :Fi], gu[..., Fi:]
     else:
+        if par is not None:
+            h = par.enter(h)
         g = _dot(h, lp["w_gate"], l, plain)
         u = _dot(h, lp["w_up"], l, plain)
-    return _dot(F.silu(g.float()).to(u.dtype) * u, lp["w_down"], l, plain)
+    return _row_dot(F.silu(g.float()).to(u.dtype) * u, lp["w_down"], l, plain, par)
 
 
-def _lm_head(params: dict, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def _lm_head(params: dict, x: torch.Tensor, plain: bool = False, par=None,
+             vocab: int | None = None) -> torch.Tensor:
     """Final projection with float32 logits (``preferred_element_type=f32``).
     An int8 head rounds its product to x's dtype first, then widens
-    (``qwen3.py:530-533``): bf16-rounded logits on a bf16 model."""
+    (``qwen3.py:530-533``): bf16-rounded logits on a bf16 model. Under
+    ``par`` the head is column-parallel: this rank's vocab columns, then
+    the logits all-gathered over ``tp`` and cut to ``vocab``."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].t()
+    if par is not None:
+        x = par.enter(x)
     x2 = x.reshape(-1, x.shape[-1])
     if is_quantized(head):
         logits = int8_matmul(x2, head["q"], head["scales"], plain=plain).float()
     else:
         logits = matmul_f32(x2, head)
+    if par is not None:
+        logits = par.gather_vocab(logits, vocab)
     return logits.reshape(*x.shape[:-1], -1)
 
 
@@ -194,8 +224,10 @@ class ServingAttention:
     def __init__(self, cfg, lp: dict, positions, cos, sin, *, k_pages, v_pages,
                  page_table, seq_lens, impl: str, slot_decode: bool,
                  slot_ctx: int | None, fresh_prefill: bool, fused: bool,
-                 k_scales=None, v_scales=None, plain: bool = False, lane: int = 0):
+                 k_scales=None, v_scales=None, plain: bool = False, lane: int = 0,
+                 seq_attention=None):
         B, T = positions.shape
+        self.seq_attention = seq_attention
         self.lane, nd = lane, B - lane   # nd: the decode rows
         L, N, ps = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
         self.cfg, self.lp, self.cos, self.sin, self.plain = cfg, lp, cos, sin, plain
@@ -281,6 +313,8 @@ class ServingAttention:
             # positions start at 0: causal attention over the chunk itself;
             # padded tail rows are garbage that is never read
             self._write(k, v, slots_l)
+            if self.seq_attention is not None:
+                return self.seq_attention(q, k, v)
             return attn_ops.causal_attention(q, k, v, impl=self.impl)
         qd = q[:nd]
         if self.slot_decode:
@@ -343,15 +377,33 @@ def lane_logits_rows(x: torch.Tensor, n_dec: int, lane_logit_row) -> torch.Tenso
     return torch.cat([x[:n_dec], x[n_dec:].index_select(0, row)])
 
 
-def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin, plain: bool = False):
+def _qkv_roped(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin, plain: bool = False,
+               par=None):
     """Layer ``l``'s plain q/k/v: rmsnorm, projection, per-head q/k norm and
-    RoPE; q and k in x's dtype, v as the projection leaves it."""
+    RoPE; q and k in x's dtype, v as the projection leaves it. Under
+    ``par`` the projections are column-parallel (the normed input enters
+    them through ``par.enter``)."""
     eps = cfg.rms_eps
     h = rms_norm(x, lp["ln1"][l], eps)
+    if par is not None:
+        h = par.enter(h)
     q, k, v = _qkv(cfg, lp, l, h, plain)
     q = apply_rope(rms_norm(q, lp["q_norm"][l], eps), cos, sin).to(x.dtype)
     k = apply_rope(rms_norm(k, lp["k_norm"][l], eps), cos, sin).to(x.dtype)
     return q, k, v
+
+
+def block(cfg, lp: dict, l: int, x: torch.Tensor, cos, sin, *, impl: str = "xla",
+          plain: bool = False, par=None) -> torch.Tensor:
+    """Decoder layer ``l`` of the stacked ``lp`` in the no-cache forward
+    (JAX ``qwen3.py:123 _block`` with full causal attention): x [B,T,E] →
+    [B,T,E]. ``parallel/pipeline.make_pp_forward`` runs it stage by stage."""
+    B, T, _ = x.shape
+    q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain, par)
+    o = attn_ops.causal_attention(q, k, v, impl=impl)
+    x = x + _row_dot(o.reshape(B, T, -1), lp["wo"], l, plain, par).to(x.dtype)
+    return x + _mlp(cfg, lp, l, rms_norm(x, lp["ln2"][l], cfg.rms_eps), plain,
+                    par).to(x.dtype)
 
 
 def _fused_decode_on(fused_decode, T, fresh_prefill, lp, slot_decode: bool = False) -> bool:
@@ -385,6 +437,8 @@ def forward(
     lane_positions: torch.Tensor | None = None,  # [Tp]; <0 = padding
     lane_table: torch.Tensor | None = None,      # [P] lane pages / [1] its slot row
     lane_logit_row=None,             # lane row projected as logits[B]
+    par=None,                        # parallel.collectives.Parallel: sharded forward
+    seq_parallel: str | None = None,  # "ring" | "ulysses": fresh prefill over tp
 ):
     """Run the decoder.
 
@@ -405,6 +459,19 @@ def forward(
     (padding to the spare row) and attend causally among themselves
     (:class:`ServingAttention`); the logits gain one row, ``logits[B]``,
     lane row ``lane_logit_row``'s projection.
+
+    Sharded (``par``, a ``parallel.collectives.Parallel``; Megatron style,
+    where JAX lets GSPMD insert the collectives): ``params`` are this
+    rank's slices (``parallel/sharding.shard_pytree`` by
+    :func:`logical_axes`), ``cfg`` the local config (``parallel/sharding.local_config``:
+    local q / kv heads and MLP width), the pools at local kv heads. The
+    embedding is vocab-parallel (masked lookup, all-reduce), ``wq`` /
+    ``wk`` / ``wv`` / ``w_gate`` / ``w_up`` column-parallel, ``wo`` /
+    ``w_down`` row-parallel with an all-reduce each, the ``lm_head``
+    column-parallel with the logits all-gathered to the whole vocab.
+    ``seq_parallel`` runs fresh prefill's attention sequence-parallel over
+    ``tp`` (:meth:`..parallel.collectives.Parallel.seq_attention`: ring or
+    Ulysses, ``impl`` as Ulysses' inner attention).
     """
     lp = params["layers"]
     H, D = cfg.n_heads, cfg.head_dim
@@ -416,14 +483,15 @@ def forward(
         tokens, positions, page_table = append_lane(
             tokens, positions, page_table, slot_decode, lane_tokens, lane_positions,
             lane_table)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, par)
     cos, sin = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     B, T, E = x.shape
 
     def layer_tail(l: int, o: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """x + o@wo, then the MLP block, unfused."""
-        x = x + _dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8).to(x.dtype)
-        return x + _mlp(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain_int8).to(x.dtype)
+        x = x + _row_dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8, par).to(x.dtype)
+        return x + _mlp(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain_int8,
+                        par).to(x.dtype)
 
     if serving:
         use_fused = (_fused_decode_on(fused_decode, T, fresh_prefill, lp, slot_decode)
@@ -433,7 +501,7 @@ def forward(
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
             fused=use_fused, k_scales=k_scales, v_scales=v_scales, plain=plain_int8,
-            lane=B - B_dec)
+            lane=B - B_dec, seq_attention=_seq_attention(par, seq_parallel, impl))
         if use_fused:
             xf = x.reshape(B * T, E)
         for l in range(cfg.n_layers):
@@ -453,20 +521,47 @@ def forward(
             x = xf.reshape(B, T, E)
     else:
         for l in range(cfg.n_layers):
-            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain_int8)
-            x = layer_tail(l, attn_ops.causal_attention(q, k, v, impl=impl), x)
+            x = block(cfg, lp, l, x, cos, sin, impl=impl, plain=plain_int8, par=par)
 
     x = rms_norm(x, params["final_norm"], eps)
     if lane_tokens is not None:
         x = lane_logits_rows(x, B_dec, lane_logit_row)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
-    logits = _lm_head(params, x, plain_int8)
+    logits = _lm_head(params, x, plain_int8, par, cfg.vocab_size)
     if not serving:
         return logits, None
     if k_scales is not None:
         return logits, (k_pages, v_pages, k_scales, v_scales)
     return logits, (k_pages, v_pages)
+
+
+def logical_axes(cfg: Qwen3Config) -> dict:
+    """Tree of logical-axis tuples mirroring the unpacked params (JAX
+    ``qwen3.py:104``): what ``parallel/sharding.shard_pytree`` slices."""
+    lax_ = {
+        "ln1": ("layer", "embed"), "ln2": ("layer", "embed"),
+        "q_norm": ("layer", None), "k_norm": ("layer", None),
+        "wq": ("layer", "embed", "heads"),
+        "wk": ("layer", "embed", "kv_heads"),
+        "wv": ("layer", "embed", "kv_heads"),
+        "wo": ("layer", "heads", "embed"),
+        "w_gate": ("layer", "embed", "mlp"),
+        "w_up": ("layer", "embed", "mlp"),
+        "w_down": ("layer", "mlp", "embed"),
+    }
+    tree = {"embed": ("vocab", "embed"), "layers": lax_, "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
+
+
+def _seq_attention(par, seq_parallel: str | None, impl: str):
+    """Fresh prefill's attention over ``tp`` (ring / Ulysses), or None."""
+    if par is None or seq_parallel is None:
+        return None
+    return lambda q, k, v, scale=None: par.seq_attention(q, k, v, seq_parallel,
+                                                          inner_impl=impl, scale=scale)
 
 
 class Qwen3(nn.Module):

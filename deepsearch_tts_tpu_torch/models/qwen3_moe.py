@@ -44,14 +44,16 @@ from ..ops import attention as attn_ops
 from ..ops.fused_layer import fused_out_router_stacked, shapes_ok
 from ..ops.moe import _split_gateup, moe_capacity, moe_ragged
 from ..ops.quant import is_quantized
-from .common import rms_norm, rope_angles
+from .common import matmul_f32, rms_norm, rope_angles
 from .qwen3 import (
     ServingAttention,
     _at,
-    _dot,
+    _embed,
     _fused_decode_on,
     _lm_head,
     _qkv_roped,
+    _row_dot,
+    _seq_attention,
     append_lane,
     lane_logits_rows,
 )
@@ -119,12 +121,37 @@ QWEN3_MOE_CONFIGS = {
 }
 
 
+def logical_axes(cfg: Qwen3MoeConfig) -> dict:
+    """Tree of logical-axis tuples mirroring the unpacked params (JAX
+    ``qwen3_moe.py:102``)."""
+    lax_ = {
+        "ln1": ("layer", "embed"), "ln2": ("layer", "embed"),
+        "q_norm": ("layer", None), "k_norm": ("layer", None),
+        "wq": ("layer", "embed", "heads"),
+        "wk": ("layer", "embed", "kv_heads"),
+        "wv": ("layer", "embed", "kv_heads"),
+        "wo": ("layer", "heads", "embed"),
+        "router": ("layer", "embed", None),
+        "w_gate": ("layer", "expert", "embed", "expert_mlp"),
+        "w_up": ("layer", "expert", "embed", "expert_mlp"),
+        "w_down": ("layer", "expert", "expert_mlp", "embed"),
+    }
+    tree = {"embed": ("vocab", "embed"), "layers": lax_, "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
+
+
 def _moe_block(cfg: Qwen3MoeConfig, lp: dict, l: int, h: torch.Tensor,
                router_logits: torch.Tensor | None = None,
-               plain: bool = False) -> torch.Tensor:
+               plain: bool = False, par=None) -> torch.Tensor:
     """Layer ``l``'s expert MLP on h [B,T,E] (``router_logits`` [B·T,NE]
     when B7 computed them; ``plain``: the expert FFN's plain versions).
-    Expert leaves may be int8 ``{q, scales}``."""
+    Expert leaves may be int8 ``{q, scales}``. Under ``par`` the stacks
+    hold this rank's experts (over ``ep``) at its MLP columns (over
+    ``tp``): the ragged dispatch runs the grouped expert kernels over the
+    rows routed to them, the capacity dispatch its slice of the global
+    dispatch, and the partial outputs are summed over ``tp`` and ``ep``."""
     B, T, E = h.shape
     x = h.reshape(B * T, E)
     if "w_gateup" in lp:   # packed gate|up (engine packing)
@@ -132,15 +159,28 @@ def _moe_block(cfg: Qwen3MoeConfig, lp: dict, l: int, h: torch.Tensor,
     else:
         w_gate, w_up = _at(lp["w_gate"], l), _at(lp["w_up"], l)
     w_down = _at(lp["w_down"], l)
+    experts = None
+    if par is not None:
+        # the router runs alike on every rank; its logits and the tokens
+        # enter this rank's experts (their gradients summed over tp and ep)
+        experts = par.experts(cfg.n_experts)
+        if router_logits is None:
+            router_logits = matmul_f32(x, lp["router"][l])
+        router_logits, x = par.enter_experts(router_logits), par.enter_experts(x)
     if cfg.moe_impl == "ragged":
         router = lp["router"][l] if router_logits is None else None
         out = moe_ragged(x, router, w_gate, w_up, w_down, cfg.top_k,
-                         cfg.norm_topk_prob, router_logits=router_logits, plain=plain)
+                         cfg.norm_topk_prob, router_logits=router_logits, plain=plain,
+                         experts=experts)
     else:
         w_gate, w_up = _split_gateup(w_gate, w_up)
         out = moe_capacity(x, lp["router"][l], w_gate, w_up, w_down,
                            cfg.top_k, cfg.norm_topk_prob,
-                           capacity_factor=cfg.capacity_factor)
+                           capacity_factor=cfg.capacity_factor, experts=experts,
+                           router_logits=router_logits,
+                           data=None if par is None else par.data)
+    if par is not None:
+        out = par.reduce_experts(out)
     return out.reshape(B, T, E)
 
 
@@ -166,9 +206,12 @@ def forward(
     lane_positions: torch.Tensor | None = None,
     lane_table: torch.Tensor | None = None,
     lane_logit_row=None,
+    par=None,
+    seq_parallel: str | None = None,
 ):
     """Same contract as :func:`.qwen3.forward` (serving and no-cache modes,
-    the prefill lane included). ``plain_experts`` runs the ragged expert
+    the prefill lane included, and sharded under ``par``: attention as the
+    dense family's, the experts over ``ep`` × ``tp``, :func:`_moe_block`). ``plain_experts`` runs the ragged expert
     FFN through its plain versions instead of the grouped expert kernel, on
     any device: the no-cache forward is then plain torch throughout, a
     reference for the kernels on the card. ``plain_int8`` does the same for
@@ -184,7 +227,7 @@ def forward(
         tokens, positions, page_table = append_lane(
             tokens, positions, page_table, slot_decode, lane_tokens, lane_positions,
             lane_table)
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, par)
     cos, sin = rope_angles(positions.clamp(min=0), D, cfg.rope_theta)
     B, T, E = x.shape
 
@@ -196,7 +239,8 @@ def forward(
             cfg, lp, positions, cos, sin, k_pages=k_pages, v_pages=v_pages,
             page_table=page_table, seq_lens=seq_lens, impl=impl,
             slot_decode=slot_decode, slot_ctx=slot_ctx, fresh_prefill=fresh_prefill,
-            fused=use_fused, plain=plain_int8, lane=B - B_dec)
+            fused=use_fused, plain=plain_int8, lane=B - B_dec,
+            seq_attention=_seq_attention(par, seq_parallel, impl))
         if use_fused:
             xf = x.reshape(B, E)
         for l in range(cfg.n_layers):
@@ -209,23 +253,26 @@ def forward(
                                      plain=plain)[:, 0]
             else:
                 o = attend(l, x)
-                x = x + _dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8).to(x.dtype)
-                x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain=plain)
+                x = x + _row_dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8,
+                                 par).to(x.dtype)
+                x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain=plain,
+                                   par=par)
         if use_fused:
             x = xf.reshape(B, 1, E)
     else:
         for l in range(cfg.n_layers):
-            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain_int8)
+            q, k, v = _qkv_roped(cfg, lp, l, x, cos, sin, plain_int8, par)
             o = attn_ops.causal_attention(q, k, v.to(x.dtype), impl=impl)
-            x = x + _dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8).to(x.dtype)
-            x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain=plain)
+            x = x + _row_dot(o.reshape(B, T, H * D), lp["wo"], l, plain_int8, par).to(x.dtype)
+            x = x + _moe_block(cfg, lp, l, rms_norm(x, lp["ln2"][l], eps), plain=plain,
+                               par=par)
 
     x = rms_norm(x, params["final_norm"], eps)
     if lane_tokens is not None:
         x = lane_logits_rows(x, B_dec, lane_logit_row)
     if logits_indices is not None:
         x = x[torch.arange(B, device=x.device), logits_indices.long()][:, None]
-    logits = _lm_head(params, x, plain_int8)
+    logits = _lm_head(params, x, plain_int8, par, cfg.vocab_size)
     if not serving:
         return logits, None
     return logits, (k_pages, v_pages)

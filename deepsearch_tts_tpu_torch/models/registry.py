@@ -23,14 +23,16 @@ class ModelFamily:
     forward: Callable
     convert: Callable | None = None   # HF checkpoint → param tree (engine/weights.py)
     init_params: Callable | None = None   # (cfg, seed=, device=) → params; read with custom_init
+    logical_axes: Callable | None = None  # cfg → logical-axis tree (sharded serving)
 
 
 MODEL_REGISTRY: dict[str, ModelFamily] = {}
 
 
-def register(name: str, config, forward, convert=None, init_params=None) -> None:
+def register(name: str, config, forward, convert=None, init_params=None,
+             logical_axes=None) -> None:
     MODEL_REGISTRY[name.lower()] = ModelFamily(name.lower(), config, forward, convert,
-                                               init_params)
+                                               init_params, logical_axes)
 
 
 def get_model(name: str) -> ModelFamily:
@@ -51,4 +53,5 @@ def _populate() -> None:
             (qwen3_moe, qwen3_moe.QWEN3_MOE_CONFIGS, weights.convert_qwen3_moe),
             (deepseek_v3, deepseek_v3.DEEPSEEK_V3_CONFIGS, weights.convert_deepseek_v3)):
         for name, cfg in configs.items():
-            MODEL_REGISTRY.setdefault(name, ModelFamily(name, cfg, mod.forward, convert))
+            MODEL_REGISTRY.setdefault(name, ModelFamily(name, cfg, mod.forward, convert,
+                                                        logical_axes=mod.logical_axes))

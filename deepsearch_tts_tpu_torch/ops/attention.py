@@ -57,9 +57,26 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     *, scale: float | None = None, impl: str = "xla") -> torch.Tensor:
+                     *, scale: float | None = None, impl: str = "xla",
+                     ring_mesh=None, ring_axis: str = "tp",
+                     inner_impl: str = "xla") -> torch.Tensor:
     """Full causal self-attention. q,k,v: [B,T,{H|K},D] → [B,T,H,D].
-    ``impl="pallas"`` runs :func:`.flash_attention.flash_attention`."""
+    ``impl="pallas"`` runs :func:`.flash_attention.flash_attention`.
+
+    ``impl="ring"`` / ``"ulysses"`` with a ``ring_mesh`` run sequence-
+    parallel attention over ``ring_axis`` (JAX ``attention.py:42-56``):
+    q, k, v are then this rank's sequence shard, as the ``shard_map`` body
+    of JAX's functions receives them (``ops/ring_attention.py``,
+    ``ops/ulysses.py``; ``inner_impl`` is Ulysses' per-rank attention)."""
+    if impl == "ring" and ring_mesh is not None:
+        from .ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mesh=ring_mesh, axis=ring_axis, scale=scale)
+    if impl == "ulysses" and ring_mesh is not None:
+        from .ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, mesh=ring_mesh, axis=ring_axis, scale=scale,
+                                 inner_impl=inner_impl)
     if impl == "pallas":
         from .flash_attention import flash_attention
 

@@ -52,7 +52,12 @@ vector-Jacobian product (training the MoE families; JAX differentiates
 XLA's ``lax.ragged_dot``); the int8 pair, like every other kernel, raises
 when it is reached with a tensor that requires grad (int8 weights cannot
 be trained, in JAX either).
-``moe_ep_alltoall`` (ROADMAP A13) is not ported yet.
+Expert parallelism (``parallel/``): ``experts=(first, count)`` restricts
+:func:`moe_ragged` / :func:`dispatch_ragged` / :func:`moe_capacity` to this
+rank's experts, whose weight stacks are the local slices; the other
+experts' rows contribute 0 and the caller sums the ranks' outputs (what
+GSPMD does with JAX's expert-sharded leaves). :func:`moe_ep_alltoall` is
+JAX's explicit all-to-all dispatch (``moe.py:131``) over an ``ep`` group.
 """
 from __future__ import annotations
 
@@ -480,13 +485,15 @@ def i8_prefill_items(offsets: list, cap: int, n_tiles: int) -> list[tuple[int, i
     return out
 
 
-def _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):
+def _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False,
+                        n_exp: int | None = None):
     """Grouped SwiGLU over int8 expert weights (JAX ``moe.py:56``): each
     expert computes its first :func:`expert_capacity` rows (of S = T·k),
     the rows past it are 0; the int8 kernel's two entries, or with
     ``plain`` their plain versions. ``w_up=None``: the packed gate|up
-    leaf."""
-    cap = expert_capacity(x_sorted.shape[0], offsets.shape[0] - 1)
+    leaf. ``n_exp``: the global expert count the capacity is taken over
+    (an expert-parallel rank's offsets cover its own experts only)."""
+    cap = expert_capacity(x_sorted.shape[0], n_exp or offsets.shape[0] - 1)
     gateup, down = ((grouped_gateup_i8_plain, grouped_down_i8_plain) if plain
                     else (grouped_gateup_i8, grouped_down_i8))
     return down(gateup(x_sorted, w_gate, w_up, offsets, cap), w_down, offsets, cap)
@@ -534,7 +541,8 @@ class _GroupedDown(torch.autograd.Function):
         return _plain_vjp(grouped_down_plain, ctx, grad_y)
 
 
-def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False):
+def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = False,
+                       n_exp: int | None = None):
     """Grouped SwiGLU over expert-sorted rows (JAX ``moe.py:81``; here the
     grouped expert kernel's two entries — under autograd through their
     ``autograd.Function``s, so that training gets gradients —, or with
@@ -543,7 +551,7 @@ def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = Fa
     JAX. ``w_up=None`` means ``w_gate`` is the packed [NE, E, 2F] gate|up
     layout."""
     if is_quantized(w_gate):
-        return _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain)
+        return _expert_ffn_blocked(x_sorted, w_gate, w_up, w_down, offsets, plain, n_exp)
     if plain:
         gateup, down = grouped_gateup_plain, grouped_down_plain
     elif torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
@@ -557,34 +565,56 @@ def _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets, plain: bool = Fa
 # ---------------------------------------------------------------- dispatch
 
 def moe_ragged(x, router_w, w_gate, w_up, w_down, top_k: int,
-               norm_topk_prob: bool = True, router_logits=None, plain: bool = False):
+               norm_topk_prob: bool = True, router_logits=None, plain: bool = False,
+               experts: tuple[int, int] | None = None):
     """x [T,E] tokens; router_w [E,NE] (None with ``router_logits`` [T,NE]
     given, as the fused decode path does); w_gate [NE,E,F] or packed
     [NE,E,2F] with ``w_up=None``; w_down [NE,F,E] → [T,E] in x's dtype.
-    ``plain``: the expert FFN's plain versions (:func:`_expert_ffn_ragged`)."""
+    ``plain``: the expert FFN's plain versions (:func:`_expert_ffn_ragged`).
+    ``experts``: this rank's (first, count) of an expert-parallel layer
+    (:func:`dispatch_ragged`)."""
     if router_logits is None:
         router_logits = matmul_f32(x, router_w)
     top_p, top_e = route_topk(router_logits, top_k, norm_topk_prob)
     return dispatch_ragged(x, top_p, top_e, router_logits.shape[1], w_gate, w_up, w_down,
-                           plain)
+                           plain, experts)
 
 
-def dispatch_ragged(x, top_w, top_e, n_exp: int, w_gate, w_up, w_down, plain: bool = False):
+def dispatch_ragged(x, top_w, top_e, n_exp: int, w_gate, w_up, w_down, plain: bool = False,
+                    experts: tuple[int, int] | None = None):
     """The dispatch half of :func:`moe_ragged`, shared by both routers (the
     Qwen3-MoE softmax and DeepSeek-V3's sigmoid group routing): sort the
     (token, expert) assignments of ``top_e`` [T,k] by expert, run the
     grouped SwiGLU over the expert-sorted rows, un-sort and sum the k rows
-    of each token weighted by ``top_w`` [T,k] (cast to x's dtype first)."""
+    of each token weighted by ``top_w`` [T,k] (cast to x's dtype first).
+
+    ``experts=(first, count)``: the weight stacks hold experts ``first ..
+    first+count-1`` only (an expert-parallel rank). Assignments to other
+    experts sort past the local ones (outside every group, so the kernels
+    skip them) and contribute 0: the result is this rank's part of the
+    sum over ranks. The capacity of int8 experts is still taken over all
+    ``n_exp`` (JAX's rule on the global layer)."""
     T, E = x.shape
     top_k = top_e.shape[1]
     flat_e = top_e.reshape(-1)
+    n_total = n_exp
+    local = None
+    if experts is not None:
+        first, n_exp = experts
+        flat_e = flat_e - first
+        local = (flat_e >= 0) & (flat_e < n_exp)
+        flat_e = torch.where(local, flat_e, n_exp)     # past every local group
     order = torch.argsort(flat_e, stable=True)         # assignments by expert
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=x.device)
     x_sorted = x[order // top_k]                        # [S, E]
-    y_sorted = _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down,
-                                  group_offsets(flat_e, n_exp), plain)
-    y = y_sorted[inv].reshape(T, top_k, E)
+    offsets = group_offsets(flat_e, n_exp + (local is not None))[:n_exp + 1]
+    y_sorted = _expert_ffn_ragged(x_sorted, w_gate, w_up, w_down, offsets.contiguous(),
+                                  plain, n_total)
+    y = y_sorted[inv]
+    if local is not None:   # the rows past the groups were never computed
+        y = torch.where(local[:, None], y, 0)
+    y = y.reshape(T, top_k, E)
     return (y * top_w.to(y.dtype)[..., None]).sum(1).to(x.dtype)
 
 
@@ -598,20 +628,39 @@ def _expert_dot(xe, w):
 
 
 def moe_capacity(x, router_w, w_gate, w_up, w_down, top_k: int,
-                 norm_topk_prob: bool = True, capacity_factor: float = 1.25):
+                 norm_topk_prob: bool = True, capacity_factor: float = 1.25,
+                 experts: tuple[int, int] | None = None, router_logits=None, data=None):
     """Capacity-bounded one-hot dispatch (JAX ``moe.py:223``): each expert
     takes at most ``max(1, int(capacity_factor·T·k/NE))`` assignments in
     token order; the rest drop (their gate weight is 0). The expert weights
-    may be int8 ``{q, scales}`` leaves (:func:`_expert_dot`)."""
+    may be int8 ``{q, scales}`` leaves (:func:`_expert_dot`).
+    ``experts=(first, count)``: the weights are those experts' only (an
+    expert-parallel rank); the dispatch is the global one, its columns of
+    the other experts dropped, and the result this rank's part of the sum
+    over ranks. ``router_logits``: x's router logits, computed already.
+    ``data=(group, index, count)``: x is data rank ``index``'s rows of a
+    batch split over ``count`` ranks (sharded training); the capacity and
+    each assignment's place in its expert's buffer are the whole batch's,
+    as JAX computes them on the global array."""
     T, E = x.shape
     n_exp = router_w.shape[1]
-    cap = max(1, int(capacity_factor * T * top_k / n_exp))
+    T_all = T * (data[2] if data is not None else 1)
+    cap = max(1, int(capacity_factor * T_all * top_k / n_exp))
     dt = x.dtype
 
-    top_p, top_e = route_topk(matmul_f32(x, router_w), top_k, norm_topk_prob)
+    if router_logits is None:
+        router_logits = matmul_f32(x, router_w)
+    top_p, top_e = route_topk(router_logits, top_k, norm_topk_prob)
     onehot = F.one_hot(top_e, n_exp)                               # [T,k,NE]
     flat = onehot.reshape(T * top_k, n_exp)
-    pos_in_expert = (torch.cumsum(flat, 0) - flat).reshape(T, top_k, n_exp)
+    pos_in_expert = torch.cumsum(flat, 0) - flat
+    if data is not None:   # the assignments of the data ranks before this one
+        from ..parallel.collectives import all_gather
+
+        group, index, _ = data
+        counts = all_gather(flat.sum(0, keepdim=True), 0, group)
+        pos_in_expert = pos_in_expert + counts[:index].sum(0)
+    pos_in_expert = pos_in_expert.reshape(T, top_k, n_exp)
     pos = (pos_in_expert * onehot).sum(-1)                         # [T,k]
     keep = pos < cap
     gates = top_p * keep
@@ -620,9 +669,76 @@ def moe_capacity(x, router_w, w_gate, w_up, w_down, top_k: int,
     disp = torch.einsum("tke,tkc->tec", onehot.to(dt), pos_oh.to(dt))
     comb = torch.einsum("tke,tkc,tk->tec", onehot.float(), pos_oh.float(),
                         gates).to(dt)
+    if experts is not None:
+        first, count = experts
+        disp, comb = disp[:, first:first + count], comb[:, first:first + count]
     xe = torch.einsum("tec,td->ecd", disp, x)                      # [NE,cap,E]
     g = _expert_dot(xe, w_gate)
     u = _expert_dot(xe, w_up)
     h = (F.silu(g) * u).to(dt)
     ye = _expert_dot(h, w_down).to(dt)
     return torch.einsum("tec,ecd->td", comb, ye).to(dt)
+
+
+def moe_ep_alltoall(x, router_w, w_gate, w_up, w_down, top_k: int, group,
+                    norm_topk_prob: bool = True, capacity_factor: float = 2.0,
+                    return_keep: bool = False):
+    """Explicit expert-parallel MoE (JAX ``moe.py:131-225``): tokens and
+    experts sharded over the ``ep`` ranks of ``group``, dispatch and return
+    by all-to-all (:func:`..parallel.collectives.all_to_all`).
+
+    Each rank calls it on its own tokens x [T_l,E] with the replicated
+    router [E,NE] and its experts' weights [NE/n, ...] (JAX's ``shard_map``
+    body): it routes its tokens, packs the assignments into fixed
+    per-destination buckets of capacity ``ceil(int(cf·T_l·k) / n)``
+    (overflow drops, in assignment order, as :func:`moe_capacity` drops),
+    exchanges them, runs its local experts' SwiGLU capacity-style (float32
+    products, h and y rounded to x's dtype), returns the results by a
+    second all-to-all and combines them with the gate weights in float32.
+    Returns [T_l,E] in x's dtype, and with ``return_keep`` also the
+    assignments kept [T_l,k] (False = dropped)."""
+    from ..parallel.collectives import all_to_all, group_size
+
+    n_ep = group_size(group)
+    n_exp = router_w.shape[1]
+    if n_exp % n_ep:
+        raise ValueError(f"{n_exp} experts do not split over {n_ep} ranks")
+    per_dev = n_exp // n_ep
+    T_l, E = x.shape
+    dev = x.device
+    cap = max(1, -(-int(capacity_factor * T_l * top_k) // n_ep))
+    top_p, top_e = route_topk(matmul_f32(x, router_w), top_k, norm_topk_prob)   # [T_l,k]
+    dest = (top_e // per_dev).reshape(-1)
+    local_e = (top_e % per_dev).reshape(-1)
+    # slot of each assignment within its destination bucket
+    oh = F.one_hot(dest, n_ep)
+    pos = (torch.cumsum(oh, 0) - oh)[torch.arange(T_l * top_k, device=dev), dest]
+    keep = pos < cap
+    slot = torch.where(keep, pos, cap)                  # cap = the drop row
+    send_x = torch.zeros((n_ep, cap + 1, E), dtype=x.dtype, device=dev)
+    send_x[dest, slot] = x.repeat_interleave(top_k, dim=0)
+    send_e = torch.full((n_ep, cap + 1), -1, dtype=torch.int64, device=dev)
+    send_e[dest, slot] = local_e
+    recv_x = all_to_all(send_x[:, :cap].contiguous(), 0, 0, group)
+    recv_e = all_to_all(send_e[:, :cap].contiguous(), 0, 0, group)
+    # recv_*: [n_ep·cap, ...] rows for this rank's experts, by source
+    rx = recv_x.reshape(n_ep * cap, E)
+    re = recv_e.reshape(n_ep * cap)
+    Cl = n_ep * cap
+    valid = re >= 0
+    rec = re.clamp(0, per_dev - 1)
+    eoh = F.one_hot(torch.where(valid, re, per_dev), per_dev + 1)[:, :per_dev]
+    epos = (torch.cumsum(eoh, 0) - eoh)[torch.arange(Cl, device=dev), rec]
+    xe = torch.zeros((per_dev, Cl + 1, E), dtype=rx.dtype, device=dev)
+    xe[rec, torch.where(valid, epos, Cl)] = rx
+    xe = xe[:, :Cl]
+    wg, wu = _split_gateup(w_gate, w_up)
+    h = (F.silu(_expert_dot(xe, wg)) * _expert_dot(xe, wu)).to(rx.dtype)
+    ye = _expert_dot(h, w_down).to(rx.dtype)                        # [pd,Cl,E]
+    ry = torch.where(valid[:, None], ye[rec, epos.clamp(max=Cl - 1)], 0).reshape(n_ep, cap, E)
+    back = all_to_all(ry.contiguous(), 0, 0, group)
+    # back[d, s]: the result for the assignment packed into bucket d slot s
+    got = back[dest, slot.clamp(max=cap - 1)]
+    got = torch.where(keep[:, None], got, 0).reshape(T_l, top_k, E)
+    out = (got.float() * top_p[..., None]).sum(1).to(x.dtype)
+    return (out, keep.reshape(T_l, top_k)) if return_keep else out

@@ -21,18 +21,35 @@ it returns holds the same tensors, which never require grad, so a trained
 tree serves as it is. Leaves are visited in sorted key order, as
 ``jax.tree.leaves`` visits them (the order of the global norm's sum).
 
-``mesh`` (JAX's sharding over a device mesh) is ROADMAP A13: anything but
-``None`` raises ``NotImplementedError``. ``device`` is explicit and the card
-is the default; the tests ask for the CPU.
+With a ``mesh`` (one process a rank, ``parallel/mesh.make_mesh``) the
+params are each rank's ``TRAIN_RULES`` slices (JAX ``trainer.py:75-130``,
+where GSPMD inserts the collectives): ``fsdp`` on the embed dims, ``tp``
+on heads, MLP columns and the vocab, ``ep`` on the experts, the batch's
+rows over ``dp`` × ``fsdp``. :class:`ShardedForward` slices the params,
+runs the family's forward on them Megatron style (``parallel/collectives.py``: the
+conjugate all-reduce pairs around the column- and row-parallel products,
+the vocab-parallel embedding and the gathered logits), all-gathers the
+FSDP leaves before it (their gradients reduce-scattered back), and after
+the backward sums each gradient over the data ranks (and ``q_norm`` /
+``k_norm``'s over ``tp``: they see only this rank's heads). It is the
+step's ``sync``: the one train step takes this rank's rows of the global
+batch, and its loss's denominator and the norm are the global batch's and
+tree's; on one device the sync (``ONE_DEVICE``) does nothing. The
+products (``dot_bf16``, ``matmul_f32``, the grouped expert pair) run on the
+local shards. ``device`` is explicit and the card is the default; the
+tests ask for the CPU.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import all_reduce
 
 
 class TrainState(NamedTuple):
@@ -73,19 +90,22 @@ def _unflatten(tree, leaves: list):
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
-                       mask: torch.Tensor) -> torch.Tensor:
+                       mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Masked mean cross-entropy. ``group``: the data ranks the batch's rows
+    are spread over; the loss is then this rank's rows' part of the global
+    batch's (the ranks' parts sum to it)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    denom = torch.clamp(mask.float().sum(), min=1.0)
+    denom = torch.clamp(all_reduce(mask.float().sum(), group), min=1.0)
     return -(ll * mask.float()).sum() / denom
 
 
-def _loss(forward, cfg, params, tokens, mask) -> torch.Tensor:
+def _loss(forward, cfg, params, tokens, mask, group=None) -> torch.Tensor:
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     positions = torch.arange(inputs.shape[1], device=inputs.device)[None, :].expand(
         inputs.shape)
     logits, _ = forward(params, cfg, inputs, positions)
-    return cross_entropy_loss(logits, targets, mask[:, 1:])
+    return cross_entropy_loss(logits, targets, mask[:, 1:], group)
 
 
 def _device_of(params) -> torch.device:
@@ -100,25 +120,47 @@ def _batch(params, tokens, mask) -> tuple[torch.Tensor, torch.Tensor]:
                             else mask, device=dev).float())
 
 
-def loss_and_grads(forward, cfg, params, tokens, mask) -> tuple[torch.Tensor, Any]:
+class _OneDevice:
+    """The step's sync on one device: the whole batch, nothing to sum."""
+    data_group = None
+
+    def local_batch(self, tokens, mask):
+        return tokens, mask
+
+    def sync_grads(self, params, grads) -> None:
+        pass
+
+    def global_norm(self, params, grads) -> torch.Tensor:
+        return global_norm(grads)
+
+
+ONE_DEVICE = _OneDevice()
+
+
+def loss_and_grads(forward, cfg, params, tokens, mask,
+                   sync=ONE_DEVICE) -> tuple[torch.Tensor, Any]:
     """(masked next-token loss, grads as a tree like ``params``) of the
     no-cache forward on ``tokens`` [B, T]: JAX's ``value_and_grad`` of the
-    step's loss. Integer (int8) leaves raise JAX's ``TypeError``."""
+    step's loss. Integer (int8) leaves raise JAX's ``TypeError``. With a
+    :class:`ShardedForward` as ``sync``, the loss is the global batch's and
+    the grads are this rank's slices of the whole batch's."""
     for t in _leaves(params):
         if not (t.is_floating_point() or t.is_complex()):
             raise TypeError(
                 f"grad requires real- or complex-valued inputs (input dtype that is a "
                 f"sub-dtype of np.inexact), but got {str(t.dtype).replace('torch.', '')}. "
                 f"int8-quantized weights cannot be trained")
-    tokens, mask = _batch(params, tokens, mask)
+    tokens, mask = sync.local_batch(*_batch(params, tokens, mask))
     leaves = [t.detach().requires_grad_(True) for t in _leaves(params)]
     with torch.enable_grad():
-        loss = _loss(forward, cfg, _unflatten(params, leaves), tokens, mask)
+        loss = _loss(forward, cfg, _unflatten(params, leaves), tokens, mask, sync.data_group)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the loss does not reach (MLA's router bias only picks experts)
     # has a zero gradient, as in JAX
-    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
-    return loss.detach(), _unflatten(params, grads)
+    grads = _unflatten(params, [torch.zeros_like(t) if g is None else g
+                                for t, g in zip(leaves, grads)])
+    sync.sync_grads(params, grads)
+    return all_reduce(loss.detach(), sync.data_group), grads
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -193,14 +235,17 @@ class AdamW:
         return AdamWState(count, state.mu, state.nu)
 
 
-def make_train_step(forward, cfg, optimizer: AdamW):
+def make_train_step(forward, cfg, optimizer: AdamW, sync=ONE_DEVICE):
     """The train step: (state, tokens [B,T], loss_mask [B,T]) → (state,
     metrics). ``tokens`` are right-shifted internally; ``grad_norm`` is the
-    norm before clipping. Params and moments are updated in place."""
+    norm before clipping. Params and moments are updated in place. With a
+    :class:`ShardedForward` as ``sync`` the step takes this rank's rows of
+    the global batch and syncs the gradients; the loss and the norm are the
+    global ones."""
 
     def train_step(state: TrainState, tokens, mask):
-        loss, grads = loss_and_grads(forward, cfg, state.params, tokens, mask)
-        gnorm = global_norm(grads)
+        loss, grads = loss_and_grads(forward, cfg, state.params, tokens, mask, sync)
+        gnorm = sync.global_norm(state.params, grads)
         opt_state = optimizer.step_(grads, state.opt_state, state.params, gnorm)
         return TrainState(state.params, opt_state, state.step + 1), {
             "loss": loss, "grad_norm": gnorm,
@@ -272,30 +317,38 @@ def init_train_state(model_name: str, mesh, *, seed: int = 0,
     engine's packed layout, ``engine/weights.init_params``), wrapped in a
     TrainState with AdamW (+ global-norm clipping and, when
     ``total_steps`` is given, warmup-cosine LR decay). ``rules`` are JAX's
-    sharding rules, read only with a mesh."""
+    sharding rules, read only with a mesh; there the family's ``forward``
+    is a :class:`ShardedForward`, the steps' ``sync``."""
     from ..device import resolve_device
     from ..engine.weights import init_params
     from ..models.registry import get_model
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (sharded training) is not ported yet: see ROADMAP.md A13 (parallel); "
-            "pass mesh=None to train on one device")
     fam = get_model(model_name)
-    params = init_params(fam, device=resolve_device(device), seed=seed)
+    if mesh is None:
+        params = init_params(fam, device=resolve_device(device), seed=seed)
+    else:
+        import dataclasses
+
+        from ..parallel.sharding import TRAIN_RULES
+
+        sharded = ShardedForward(fam, mesh, rules or TRAIN_RULES)
+        params = sharded.init(resolve_device(device), seed)
+        fam = dataclasses.replace(fam, forward=sharded, config=sharded.cfg)
     optimizer = make_optimizer(learning_rate, total_steps, warmup_steps, grad_clip)
     state = TrainState(params, optimizer.init(params),
                        torch.zeros((), dtype=torch.int32))
     return state, optimizer, fam
 
 
-def make_eval_step(forward, cfg):
-    """Held-out loss: (params, tokens, mask) → masked CE, without grad."""
+def make_eval_step(forward, cfg, sync=ONE_DEVICE):
+    """Held-out loss: (params, tokens, mask) → masked CE, without grad (with
+    a :class:`ShardedForward` as ``sync``: the global batch's)."""
 
     @torch.no_grad()
     def eval_step(params, tokens, mask):
-        tokens, mask = _batch(params, tokens, mask)
-        return _loss(forward, cfg, params, tokens, mask)
+        tokens, mask = sync.local_batch(*_batch(params, tokens, mask))
+        return all_reduce(_loss(forward, cfg, params, tokens, mask, sync.data_group),
+                          sync.data_group)
 
     return eval_step
 
@@ -315,8 +368,9 @@ def train_loop(model_name: str, mesh, train_batches, *,
     state, optimizer, fam = init_train_state(
         model_name, mesh, seed=seed, learning_rate=learning_rate,
         total_steps=total_steps, warmup_steps=warmup_steps, device=device)
-    step_fn = make_train_step(fam.forward, fam.config, optimizer)
-    eval_fn = make_eval_step(fam.forward, fam.config)
+    sync = ONE_DEVICE if mesh is None else fam.forward
+    step_fn = make_train_step(fam.forward, fam.config, optimizer, sync)
+    eval_fn = make_eval_step(fam.forward, fam.config, sync)
 
     history: list[dict] = []
     for i, (tokens, mask) in enumerate(train_batches):
@@ -335,5 +389,135 @@ def train_loop(model_name: str, mesh, train_batches, *,
                 and (i + 1) % checkpoint_every == 0:
             from .checkpoint import save_params
 
-            save_params(checkpoint_dir, state.params, step=i + 1)
+            # under a mesh each rank writes its own slices, rank<r>/
+            path = checkpoint_dir
+            if mesh is not None:
+                path = os.path.join(checkpoint_dir, f"rank{sync.par.rank}")
+            save_params(path, state.params, step=i + 1)
     return state, history
+
+
+class ShardedForward:
+    """A family's no-cache forward on this rank's ``rules`` slices of the
+    params (see the module docstring), and the train step's ``sync``: this
+    rank's rows of the batch, the data group, the gradients' sums and the
+    global norm. ``tp`` must divide the kv heads here (the serving
+    engine's one-kv-head-a-rank layout would need its gradients summed over
+    the ranks sharing a head; MLA's single latent row is computed on every
+    rank from replicated weights); ``pp`` trains through
+    ``parallel/pipeline.make_pp_forward``."""
+
+    # leaves replicated over tp that see only this rank's heads: their
+    # gradients are partial sums over tp
+    TP_PARTIAL = ("q_norm", "k_norm")
+
+    def __init__(self, fam, mesh, rules):
+        from ..parallel.collectives import Parallel
+        from ..parallel.mesh import axes_group, mesh_shape
+        from ..parallel.sharding import local_config
+
+        sizes, cfg = mesh_shape(mesh), fam.config
+        if sizes["pp"] > 1:
+            raise ValueError("a pp axis trains through parallel/pipeline.make_pp_forward")
+        if (sizes["tp"] > 1 and not getattr(cfg, "latent_cache", False)
+                and cfg.n_kv_heads % sizes["tp"]):
+            raise ValueError(f"sharded training needs tp ({sizes['tp']}) to divide the "
+                             f"{cfg.n_kv_heads} kv heads")
+        self.fam, self.mesh, self.rules = fam, mesh, rules
+        self.par = par = Parallel(mesh)
+        self.cfg = local_config(cfg, par.tp)
+        if fam.logical_axes is None:
+            raise ValueError(f"model family {fam.name!r} was registered without logical "
+                             f"axes to shard by")
+        self.axes = fam.logical_axes(cfg)
+        self.data_group = axes_group(mesh, ("dp", "fsdp"))
+        self.dp_group = axes_group(mesh, ("dp",))
+        self.fsdp_group = axes_group(mesh, ("fsdp",))
+        self.world_group = axes_group(mesh, tuple(mesh.mesh_dim_names))
+        self.n_data = par.sizes["dp"] * par.sizes["fsdp"]
+        self.data_rank = par.coords["dp"] * par.sizes["fsdp"] + par.coords["fsdp"]
+        if self.n_data > 1:   # capacity dispatch over the whole batch
+            par.data = (self.data_group, self.data_rank, self.n_data)
+
+    def shard(self, params: dict) -> dict:
+        """This rank's slices of a whole (packed or unpacked) param tree,
+        on the device of each leaf, one matrix at a time."""
+        return self._local().place(params)
+
+    def _local(self):
+        from ..parallel.sharding import LocalDraw
+
+        return LocalDraw(self.fam.config, self.axes, self.rules, self.par.sizes,
+                         self.par.coords)
+
+    def init(self, device, seed: int = 0) -> dict:
+        """This rank's slices of the random draw from ``seed``, each matrix
+        cut as it is drawn (``parallel/sharding.LocalDraw``: a rank never
+        holds the whole model); a ``custom_init`` family's draw is made
+        whole and sliced."""
+        from ..engine.weights import init_params, random_params
+
+        cfg = self.fam.config
+        if getattr(cfg, "custom_init", False):
+            return self.shard(init_params(self.fam, device=device, seed=seed))
+        return random_params(cfg, device=device, seed=seed, local=self._local())
+
+    def _specs(self, params, axes=None):
+        """(leaf, its spec) pairs in ``_leaves`` order."""
+        axes = self.axes if axes is None else axes
+        out = []
+        for k in sorted(params):
+            if isinstance(params[k], dict):
+                out += self._specs(params[k], axes[k])
+            elif params[k] is not None:
+                out.append((k, self.rules.spec(*axes[k])))
+        return out
+
+    def _fsdp_dim(self, spec) -> int | None:
+        for d, entry in enumerate(spec):
+            if entry == "fsdp" or (isinstance(entry, tuple) and "fsdp" in entry):
+                return d
+        return None
+
+    def __call__(self, params, cfg, tokens, positions, **kw):
+        """The forward on whole-over-fsdp leaves (gathered; under autograd
+        their gradients reduce-scattered back)."""
+        from ..parallel.collectives import fsdp_gather
+
+        if self.fsdp_group is not None:
+            leaves = [t if self._fsdp_dim(spec) is None
+                      else fsdp_gather(t, self._fsdp_dim(spec), self.fsdp_group)
+                      for t, (_, spec) in zip(_leaves(params), self._specs(params))]
+            params = _unflatten(params, leaves)
+        return self.fam.forward(params, cfg, tokens, positions, par=self.par, **kw)
+
+    def local_batch(self, tokens, mask):
+        """This rank's rows of the global batch (over dp × fsdp)."""
+        n = tokens.shape[0] // self.n_data
+        rows = slice(self.data_rank * n, (self.data_rank + 1) * n)
+        return tokens[rows], mask[rows]
+
+    def sync_grads(self, params, grads) -> None:
+        """Each gradient summed over the data ranks (an FSDP leaf's over
+        fsdp already, in its reduce-scatter: over dp here), and the
+        tp-partial leaves' over tp."""
+        for g, (name, spec) in zip(_leaves(grads), self._specs(params)):
+            group = (self.data_group if self.fsdp_group is None or self._fsdp_dim(spec) is None
+                     else self.dp_group)
+            g.copy_(all_reduce(g, group))
+            if name in self.TP_PARTIAL:
+                g.copy_(all_reduce(g, self.par.tp_group))
+
+    def global_norm(self, params, grads) -> torch.Tensor:
+        """The norm of the whole gradient tree: each leaf's sum of squares
+        over the ranks holding distinct slices of it (every rank's, weighted
+        by one over the ranks holding the same slice)."""
+        total = None
+        for g, (_, spec) in zip(_leaves(grads), self._specs(params)):
+            shards = 1
+            for entry in spec:
+                for ax in ((entry,) if isinstance(entry, str) else (entry or ())):
+                    shards *= self.par.sizes.get(ax, 1)
+            sq = torch.sum(g.float() * g.float()) * (shards / self.par.world)
+            total = sq if total is None else total + sq
+        return torch.sqrt(all_reduce(total, self.world_group))

@@ -1,8 +1,9 @@
 """The port's ``cli/deep_search.py`` against the JAX original.
 
 ``build_parser`` has JAX's flags with JAX's defaults (``--engine_prefill_lane
-16`` included), plus ``--device`` and ``--seed``; ``--engine_tp > 1``
-raises ``NotImplementedError``, an MLA model with the default lane JAX's
+16`` included), plus ``--device`` and ``--seed``; ``--engine_tp > 1`` in
+one process raises ``ValueError`` (its ranks come from torchrun), an MLA
+model with the default lane JAX's
 ``ValueError``, and ``--device cuda`` without a card raises. ``--backend fake`` runs every mode through both CLIs on the
 same inputs: the result rows and statistics (wall time left out) and the
 ``search`` mode's printed result must be equal. And the port's CLI runs
@@ -55,7 +56,8 @@ def test_flags_and_defaults_are_jaxs():
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--engine_tp", "2"], NotImplementedError),
+    # one process: --engine_tp's ranks come from torchrun
+    (["--engine_tp", "2"], ValueError),
     # MLA has no prefill-lane path, in JAX too: the default lane of 16 refuses it
     (["--model_name", "deepseek-v3-test", "--aux_model_name", "deepseek-v3-test"], ValueError),
     (["--device", "cuda"], RuntimeError),

@@ -169,6 +169,16 @@ def test_preempted_sequence_resumes_token_identical():
         eng.shutdown()
 
 
+class _FakeMesh:
+    """What the engine reads of a mesh before it builds anything: the axis
+    names and sizes."""
+
+    mesh_dim_names = ("dp", "pp", "fsdp", "ep", "tp")
+
+    def __init__(self, **sizes):
+        self.mesh = torch.zeros(tuple(sizes.get(a, 1) for a in self.mesh_dim_names))
+
+
 @pytest.mark.parametrize("model,kw,err,match", [
     # JAX's exclusions of the prefill lane and chunk_trim (engine.py:210-213,
     # 239-243, 560-563)
@@ -178,16 +188,19 @@ def test_preempted_sequence_resumes_token_identical():
     ("qwen3-test", {"cache_mode": "slot", "chunk_trim": True, "speculative": "ngram"},
      ValueError, "chunk_trim"),
     ("deepseek-v3-test", {"prefill_lane": 16}, ValueError, "no prefill-lane path"),
-    # what the port does not carry yet
-    ("qwen3-test", {"cache_mode": "slot", "mesh": object()}, NotImplementedError, "ROADMAP.md"),
-    ("qwen3-test", {"mesh": object()}, NotImplementedError, "ROADMAP.md"),
-    ("qwen3-test", {"ring_prefill_len": 64}, NotImplementedError, "ROADMAP.md"),
+    # what the sharded engine refuses: a mesh with dp > 1 (ROADMAP.md C), a
+    # pipeline or fsdp axis, an unknown sequence-parallel strategy
+    ("qwen3-test", {"cache_mode": "slot", "mesh": _FakeMesh(dp=2, tp=2)}, ValueError,
+     "ROADMAP.md C"),
+    ("qwen3-test", {"mesh": _FakeMesh(pp=2)}, ValueError, "tp and ep only"),
+    ("qwen3-test", {"sp_impl": "zigzag"}, ValueError, "sp_impl"),
 ])
 def test_unported_engine_options_raise(model, kw, err, match):
     with pytest.raises(err, match=match):
         tengine.Engine(model, ByteTokenizer(), device="cpu", **kw)
-    # JAX refuses the same combinations with the same error type
-    if err is ValueError:
+    # JAX refuses the same combinations with the same error type (its mesh
+    # checks are GSPMD's, so those cases are the port's own)
+    if err is ValueError and "mesh" not in kw and "sp_impl" not in kw:
         with pytest.raises(err, match=match):
             jengine.Engine(model, ByteTokenizer(), **kw)
 
@@ -221,7 +234,8 @@ def test_unported_models_lora_and_missing_card_raise(monkeypatch, tmp_path):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         build_engine(build_parser().parse_args(["--model", "qwen3-test"]))
-    with pytest.raises(NotImplementedError, match="A13"):
+    # --tp 2 in one process: the ranks come from torchrun
+    with pytest.raises(ValueError, match="torchrun"):
         build_engine(build_parser().parse_args(["--model", "qwen3-test", "--tp", "2"]))
 
 

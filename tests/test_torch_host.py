@@ -190,3 +190,10 @@ def test_port_imports_nothing_of_the_jax_package():
             if top in ("deepsearch_tts_tpu", "jax", "jaxlib"):
                 bad.append((os.path.relpath(path, REPO), mod))
     assert len(files) > 20 and not bad, bad
+    # the parallel layer's modules are among them (plan.py and sharding.py
+    # are the port's own copies, not imports of the JAX package's)
+    scanned = {os.path.relpath(p, REPO) for p in files}
+    for name in ("parallel/__init__", "parallel/mesh", "parallel/sharding",
+                 "parallel/collectives", "parallel/distributed", "parallel/launch",
+                 "parallel/plan", "parallel/pipeline", "ops/ring_attention", "ops/ulysses"):
+        assert f"deepsearch_tts_tpu_torch/{name}.py" in scanned, name

@@ -286,10 +286,20 @@ def test_train_loop_with_eval_and_checkpoints(tmp_path):
 
 
 def test_sharded_training_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        tt.init_train_state("qwen3-test", object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        tt.train_loop("qwen3-test", object(), iter(()), device="cpu")
+    """Sharded training is ported (``test_torch_parallel_train.py``); what
+    it still refuses: a pp axis (the pipeline trains through
+    ``parallel/pipeline.make_pp_forward``) and a tp that does not divide the
+    kv heads, before any process group is touched."""
+    class FakeMesh:
+        mesh_dim_names = ("dp", "pp", "fsdp", "ep", "tp")
+
+        def __init__(self, **sizes):
+            self.mesh = torch.zeros(tuple(sizes.get(a, 1) for a in self.mesh_dim_names))
+
+    with pytest.raises(ValueError, match="pipeline"):
+        tt.init_train_state("qwen3-test", FakeMesh(pp=2), device="cpu")
+    with pytest.raises(ValueError, match="kv heads"):
+        tt.train_loop("qwen3-test", FakeMesh(tp=4), iter(()), device="cpu")
 
 
 def _eq_tree(a, b):
