@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
     python3 chip_smoke.py --train-only    # build + train, moe-train, lora
     python3 chip_smoke.py --parallel-only # build + the parallel phase
+    python3 chip_smoke.py --programs-only # build + the programs phase
 
 Phases, each raising on failure (non-zero exit, no final line):
 
@@ -49,6 +50,21 @@ Phases, each raising on failure (non-zero exit, no final line):
    layer and step, B5 once a sample (a lane chunk samples its prompts'
    first tokens in one call), the in-process stream teacher-forced through
    the no-cache forward;
+4a. programs, in every serve and slot-serve phase right after the engine's
+   ``warmup()`` (``--programs-only``: seven engines built for it alone,
+   warmed to ``max_ctx=512``: qwen3-8b paged with the CLI's defaults, slot
+   and speculative slot; qwen3-30b-a3b bf16 paged and int8; qwen3-32b
+   int8 with int8 KV; deepseek-v3 at 5 layers, slot): every decode
+   program the warmup built is a captured CUDA graph; the narrowest
+   bucket's program (and its lane variant) replayed and held to the eager
+   body it captured, on copies of the same state and generator state:
+   tokens, carry, seen mask and history equal, greedy and seeded at
+   temperature 0.7, one replay moving the launch counters as one eager run
+   does; ms a chunk of each (replay, eager), the programs, their capture
+   seconds and the graph pool's MiB. The serve phases then read their
+   counters with no chunk in flight (a pipelined chunk counts at its
+   dispatch) and log the chunks pipelined, the prefill groups injected and
+   the post-warmup builds (0 required on the qwen3-8b CLI engine);
 5. reference: the same weights' paged prefill + fused decode logits against
    the plain no-cache forward on a short input;
 6. slot serve: ``Engine(cache_mode="slot", prefill_lane=16)`` on the same
@@ -129,10 +145,12 @@ Phases, each raising on failure (non-zero exit, no final line):
    events equal a dry run's, the second call re-entering the prefix cache);
    every engine on the card, B5 once a sample; the ``eval`` line reports
    each part's wall seconds and peak memory;
-10. MoE serve: phase 4 for qwen3-30b-a3b (full width, 61 GB of random bf16
-    weights; the lane check without teacher forcing: B3, B7 and the experts
+10. MoE serve: phase 4 for qwen3-30b-a3b at its published widths, cut to
+    8 of its 48 layers (``MOE_SERVE``, registered here, so that the smoke
+    keeps near its length with every engine's warmup capturing its decode
+    programs; random bf16 weights; the lane check without teacher forcing: B3, B7 and the experts
     over B + 16 rows): decode through B3, B7 and the grouped expert kernel, whose
-    counters must equal 48 x the decode steps (B3, B7) and 48 x (decode
+    counters must equal 8 x the decode steps (B3, B7) and 8 x (decode
     steps + prefill forwards) (each expert entry, either kernel; the long
     prompt's prefill takes the prefill kernel, the decode steps the decode
     one, and the kernel line counts each); peak memory logged;
@@ -166,11 +184,11 @@ Phases, each raising on failure (non-zero exit, no final line):
     bound, and a skewed 3072-token routing (an expert over 256 rows and
     past its capacity: those rows 0, two calls bit-equal);
 13b. int8 MoE serve, after the qwen3-30b-a3b weights are released:
-    ``Engine("qwen3-30b-a3b", quantize="int8", prefill_lane=16)``, paged,
-    the bf16 engine's other settings (28.8 GiB of weights, drawn and
-    quantized one expert matrix at a time: B12 12,385 launches), served as
+    ``Engine(MOE_SERVE, quantize="int8", prefill_lane=16)`` (8 of 48
+    layers), paged, the bf16 engine's other settings (weights drawn and
+    quantized one expert matrix at a time: B12 once a matrix), served as
     phase 4 unfused (JAX's gate): the int8 grouped expert kernel twice a
-    layer and forward (96 a decode step), the bf16 expert kernels never;
+    layer and forward (16 a decode step), the bf16 expert kernels never;
     its serving logits held to the no-cache forward with ``plain_int8`` at
     8 tokens (no expert row can drop there) and, at 16 + 8 tokens, to the
     same serving calls on the plain versions (a 24-token forward drops
@@ -277,6 +295,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -321,6 +340,12 @@ SEQS = [1, 17, 500, 4095, 64, 65, 4096, 2048, 129, 1000, 3000, 256, 7, 4000, 333
 # kv heads (G = 8), experts, top-k, expert width
 MOE_MODEL = "qwen3-30b-a3b"
 M_E, M_H, M_KV, M_NE, M_TOPK, M_F = 2048, 32, 4, 128, 8, 768
+# its serve phases (bf16 and int8): the published widths cut in depth, 48
+# -> 8 layers (registered here under their own name), so that the whole
+# smoke, whose every engine now captures its decode programs at warmup,
+# stays near its earlier length
+MOE_SERVE_LAYERS = 8
+MOE_SERVE = f"{MOE_MODEL}-{MOE_SERVE_LAYERS}-layers"
 LIBS = ("fused_layer", "attention", "quant", "moe_i8")
 LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
 # qwen3-32b widths (models/qwen3.py QWEN3_CONFIGS): the int8 slice's model
@@ -414,6 +439,35 @@ def time_ms(fn, calls: int = 1, iters: int = 50) -> tuple[float, float]:
         out.append(a.elapsed_time(b) / (iters * calls))
     graph.reset()   # its private memory pool goes back at once
     return out[0], out[1]
+
+
+_LAPS: dict = {}      # phase → wall seconds (``_lap``)
+_LAP_T = [0.0]
+
+
+def _lap(name: str) -> None:
+    """Log and keep the wall seconds since the previous lap."""
+    now = time.time()
+    _LAPS[name] = round(now - _LAP_T[0], 1)
+    _LAP_T[0] = now
+    log(f"[time] {name}: {_LAPS[name]} s")
+
+
+def _held_gib() -> float:
+    """GiB still allocated on the card after a phase's release, once dropped
+    tensors and graph pools are collected and torch's cuBLAS workspaces are
+    given back (torch keeps one a thread's handle and stream; each thread
+    that captures decode programs adds one on the capture stream)."""
+    import torch
+
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    log(f"[release] cuBLAS workspaces given back: {(before - held) / 2**20:.1f} MiB")
+    return held / 2**30
 
 
 def _free() -> None:
@@ -2257,7 +2311,8 @@ def _release(engine) -> dict:
     engine.shutdown()
     params = engine.params
     engine.k_pages = engine.v_pages = engine.k_scales = engine.v_scales = None
-    engine.seen = None
+    engine.seen = engine._seen_ext = engine.hist = None
+    engine._programs.clear()   # the graphs hold the graph pool
     gc.collect()
     torch.cuda.empty_cache()
     return params
@@ -2298,11 +2353,14 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     t0 = time.time()
     engine = _engine(params, model=model, cache_mode="slot", **(SPEC_KW if spec else {}),
                      prefill_lane=LANE if lane else 0)
-    engine.warmup(prompt_lens=(64,))
+    # every bucket the phase's requests reach (prompts under 128 tokens, at
+    # most 160 generated)
+    engine.warmup(prompt_lens=(64,), max_ctx=1024)
     log(f"[{tag}] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
         f"{engine.attn_impl}; memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
+    out: dict = {"programs": _check_programs(tag, engine)}
     # a speculative engine runs only verify windows: B9, never B1
     counters = {**_counters(model), "slot_attention": sa.slot_attention}
     idle = ()
@@ -2313,7 +2371,6 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     if spec:
         counters["slot_window_attention"] = sa.slot_window_attention
         idle = ("slot_attention",)
-    out: dict = {}
     try:
         with _serve_http(engine) as base:
             def chat(content, **kw):
@@ -2375,9 +2432,9 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
                 f"{r[1]['usage']['prompt_tokens']} cached_tokens {cached} "
                 f"(parked-row re-entries {hits})")
 
-            d0 = dict(engine.stats)
+            d0 = _settled(engine)
             results = _burst(chat, SLOTS, 64, **(GREEDY if spec else {}))
-            d1 = dict(engine.stats)
+            d1 = _settled(engine)
             dt = d1["decode_time_s"] - d0["decode_time_s"]
             out["burst_decode_tok_s"] = (d1["decode_tokens"] - d0["decode_tokens"]) / dt
             out["burst_step_ms"] = 1e3 * dt / ((d1["decode_steps"] - d0["decode_steps"])
@@ -2393,13 +2450,19 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
                     f"per row and verify step (phase {out['spec_tokens_per_step']:.3f})")
                 assert out["burst_spec_tokens_per_step"] > 1.0, out
             if profile:
-                _profile_burst(chat, engine)
+                out["idle_share"] = _profile_burst(chat, engine)
             if b1_tokens:
                 out["b1_ms_per_token"] = _b1_run(tag, engine, b1_tokens, b1_plain_ms)
             if lane:
                 out["lane"] = _lane_check(tag, engine, base, counters)
 
-            st1 = dict(engine.stats)
+            st1 = _settled(engine)
+            out["post_warmup_builds"] = st1["post_warmup_builds"]
+            out["pipelined_chunks"] = st1["pipelined_chunks"] - st0["pipelined_chunks"]
+            log(f"[{tag}] decode programs: {engine.telemetry()['decode_program']}; "
+                f"{out['pipelined_chunks']} chunks pipelined of "
+                f"{st1['decode_steps'] - st0['decode_steps']}; post-warmup builds "
+                f"{out['post_warmup_builds']}")
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
             log(f"[{tag}] park hits {st1['slot_park_hits'] - st0['slot_park_hits']}")
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
@@ -2429,7 +2492,8 @@ def _lane_check(tag: str, engine, base: str, counters: dict, teacher: bool = Tru
     from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
 
     tok = engine.tokenizer
-    st0, n0 = dict(engine.stats), {n: f.launches for n, f in counters.items()}
+    st0 = _settled(engine)
+    n0 = {n: f.launches for n, f in counters.items()}
     long = engine.submit(GenerationRequest(prompt_ids=tok.encode("Lane: a long answer."),
                                            max_tokens=160, **GREEDY))
     t0 = time.time()
@@ -2450,7 +2514,7 @@ def _lane_check(tag: str, engine, base: str, counters: dict, teacher: bool = Tru
         t.join(timeout=600)
     assert not long.done(), "the long request ended before the lane prompts arrived"
     long.result(timeout=600)
-    st1 = dict(engine.stats)
+    st1 = _settled(engine)
     lens = [len(tok.encode(p)) for p in LANE_PROMPTS] + [len(mine_ids)]
     assert max(lens) <= engine.prefill_lane, lens
     for r, n in zip(results, lens):
@@ -2483,11 +2547,11 @@ def _b1_run(tag: str, engine, n: int, plain_ms: float | None) -> float:
     generated token (logged beside ``plain_ms``, the plain engine's)."""
     from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
 
-    s0 = dict(engine.stats)
+    s0 = _settled(engine)
     r = engine.generate(GenerationRequest(
         prompt_ids=engine.tokenizer.encode("Alone: repeat the search results twice."),
         max_tokens=n, **GREEDY))
-    s1 = dict(engine.stats)
+    s1 = _settled(engine)
     ms = 1e3 * (s1["decode_time_s"] - s0["decode_time_s"]) / max(
         s1["decode_tokens"] - s0["decode_tokens"], 1)
     steps = s1["slot_steps"] - s0["slot_steps"]
@@ -2703,10 +2767,10 @@ def phase_moe_spec(card: str, params: dict) -> dict:
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
     from deepsearch_tts_tpu_torch.ops import slot_attention as sa
 
-    engine = _engine(params, model=MOE_MODEL, cache_mode="slot", **SPEC_KW)
-    engine.warmup(prompt_lens=(64,))
+    engine = _engine(params, model=MOE_SERVE, cache_mode="slot", **SPEC_KW)
+    engine.warmup(prompt_lens=(64,), max_ctx=512)   # 8 prompts of ~50 tokens, 32 out
     assert engine.attn_impl == "pallas", engine.attn_impl
-    counters = {**_counters(MOE_MODEL), "slot_window_attention": sa.slot_window_attention,
+    counters = {**_counters(MOE_SERVE), "slot_window_attention": sa.slot_window_attention,
                 "slot_attention": sa.slot_attention}
     idle = ("slot_attention", fl.fused_qkv_stacked.__name__,
             fl.fused_out_router_stacked.__name__)
@@ -2718,7 +2782,7 @@ def phase_moe_spec(card: str, params: dict) -> dict:
             prompt_ids=engine.tokenizer.encode(f"MoE speculative {i}: the rivers of Europe."),
             max_tokens=32, **GREEDY) for i in range(8)])
         res = [f.result(timeout=600) for f in futs]
-        st1 = dict(engine.stats)
+        st1 = _settled(engine)
         assert all(len(r.token_ids) >= 1 for r in res)
         out["launches"] = _check_launches("moe-spec", engine, counters, st0, st1, idle)
         dt = st1["decode_time_s"] - st0["decode_time_s"]
@@ -2764,7 +2828,7 @@ def phase_pallas_serve(card: str, params: dict, xla_long_s: float) -> dict:
                 f"{xla_long_s * 1000:.1f} ms on the XLA engine of phase 4")
             d0 = dict(engine.stats)
             _burst(chat, SLOTS, 64)
-            d1 = dict(engine.stats)
+            d1 = _settled(engine)
             dt = d1["decode_time_s"] - d0["decode_time_s"]
             out["burst_decode_tok_s"] = (d1["decode_tokens"] - d0["decode_tokens"]) / dt
             out["burst_step_ms"] = 1e3 * dt / ((d1["decode_steps"] - d0["decode_steps"])
@@ -2827,7 +2891,7 @@ def phase_mla_pallas(card: str, params: dict) -> dict:
                                                * (1 + i % 5)), max_tokens=32)
             for i in range(SLOTS)])
         res = [f.result(timeout=600) for f in futs]
-        st1 = dict(engine.stats)
+        st1 = _settled(engine)
         assert all(len(r.token_ids) >= 1 for r in res)
         out["launches"] = _check_launches("mla-pallas", engine, counters, st0, st1,
                                           idle=("pallas_paged_attention",))
@@ -3016,13 +3080,14 @@ def _product_argv(mode: str, out: str, extra=()) -> list:
 def _product_probe():
     """Records, while open, the engines ``cli/deep_search.py`` builds (its
     ``make_clients``), every request an engine is handed (``min_tokens``
-    and result) and every prefill dispatch (engine, seconds, rows, new and
-    cached tokens)."""
+    and result) and every prefill group read back (engine, seconds from its
+    dispatch, rows, new and cached tokens)."""
     from deepsearch_tts_tpu_torch.cli import deep_search as ds
     from deepsearch_tts_tpu_torch.engine.engine import Engine
 
     rec = {"engines": [], "requests": [], "prefills": []}
-    make_clients, submit, prefill = ds.make_clients, Engine.submit, Engine._prefill_group
+    make_clients, submit, process = (ds.make_clients, Engine.submit,
+                                     Engine._prefill_group_process)
 
     def make(args):
         import torch
@@ -3039,18 +3104,19 @@ def _product_probe():
         rec["requests"].append((self, req.min_tokens, fut))
         return fut
 
-    def pre(self, bucket, grp):
-        t = time.time()
-        prefill(self, bucket, grp)
-        rec["prefills"].append((self, time.time() - t, len(grp),
+    def pro(self, h):
+        process(self, h)
+        grp = h["grp"]
+        rec["prefills"].append((self, time.monotonic() - h["t0"], len(grp),
                                 sum(len(p["suffix"]) for p in grp),
                                 sum(p["cached_len"] for p in grp)))
 
-    ds.make_clients, Engine.submit, Engine._prefill_group = make, sub, pre
+    ds.make_clients, Engine.submit, Engine._prefill_group_process = make, sub, pro
     try:
         yield rec
     finally:
-        ds.make_clients, Engine.submit, Engine._prefill_group = make_clients, submit, prefill
+        ds.make_clients, Engine.submit, Engine._prefill_group_process = (make_clients, submit,
+                                                                         process)
 
 
 def _newest(out: str, pattern: str) -> str:
@@ -3214,7 +3280,7 @@ def _product_mode(card: str, counters: dict, mode: str, argv: list, mdir: str,
 
     _zero(counters)
     _free()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     assert held < 1.0, (mode, held)   # the last mode's engines are gone
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -3357,7 +3423,7 @@ def phase_product(card: str) -> dict:
         out[mode] = _product_mode(card, counters, mode,
                                   _product_argv(mode, mdir, common + extra), mdir, n)
     _free()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[product] engines released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
     return out
@@ -3482,7 +3548,7 @@ def _part_done(tag: str, t0: float, res: dict) -> dict:
     torch.cuda.synchronize()
     res.update(wall_s=time.time() - t0, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     _free()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[eval:{tag}] {res['wall_s']:.2f} s wall, peak {res['peak_gib']:.2f} GiB, "
         f"{held:.3f} GiB still allocated after")
     assert held < 1.0, (tag, held)
@@ -3535,7 +3601,7 @@ def phase_eval_judge(card: str) -> dict:
             _printed(evaluate.main, ["--output_path", solved, "--task", "qa", "--use_llm",
                                      "--api_base_url", base, "--model_name", PRODUCT_MAIN])
             judge_s = time.time() - t1
-            st1 = dict(engine.stats)
+            st1 = _settled(engine)
             launches = _check_launches("eval-judge", engine, counters, st0, st1)
             # host-only tasks with the engine (its thread and CUDA context) alive
             math_path = os.path.join(EVAL_DIR, "math.json")
@@ -3861,9 +3927,9 @@ def _burst(chat, n: int, max_tokens: int, **sampler) -> list:
     return results
 
 
-def _profile_burst(chat, engine) -> None:
+def _profile_burst(chat, engine) -> float:
     """One more full-batch burst under torch.profiler: device time by kernel
-    and the share of the window in which no kernel ran."""
+    and the share of the window in which no kernel ran (returned)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3881,6 +3947,7 @@ def _profile_burst(chat, engine) -> None:
             f"{e.key[:90]}")
     spans = engine.telemetry()["spans"]
     log(f"[profile] engine spans {json.dumps(spans)}")
+    return 1 - busy / wall_us
 
 
 def _counters(model: str, int8: bool = False) -> dict:
@@ -3894,6 +3961,8 @@ def _counters(model: str, int8: bool = False) -> dict:
     from deepsearch_tts_tpu_torch.ops import moe
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
+    if model == MOE_SERVE:
+        model = MOE_MODEL
     if int8 and model == MOE_MODEL:
         fns = [moe.grouped_gateup_i8, moe.grouped_down_i8, fl.int8_product,
                moe.grouped_gateup, moe.grouped_down]
@@ -3966,6 +4035,380 @@ def _steps(engine, st0: dict, st1: dict) -> tuple[int, int, int]:
     return steps, d["prefill_dispatches"], d["lane_chunks"]
 
 
+def _settled(engine) -> dict:
+    """``engine``'s stats once no chunk is in flight and no injected prefill
+    group waits: a request is answered when its chunk is read back, which
+    may come before a pipelined chunk behind it is (that chunk's launches
+    count at its dispatch). With every request answered, no chunk starts."""
+    t0 = time.time()
+    while engine._pending is not None or engine._inject_handles:
+        assert time.time() - t0 < 120, "the engine did not settle"
+        time.sleep(0.002)
+    return dict(engine.stats)
+
+
+def _pool_mib(engine):
+    """The MiB the engine's graph pool holds (None where this PyTorch's
+    memory snapshot does not name segment pools)."""
+    import torch
+
+    pool = tuple(engine._graph_pool or ())
+    sizes = [s["total_size"] for s in torch.cuda.memory_snapshot()
+             if "segment_pool_id" in s and tuple(s["segment_pool_id"]) == pool]
+    return sum(sizes) / 2**20 if sizes else None
+
+
+def _bucket_tokens(engine, P: int, s_cur) -> int:
+    """The context a decode program of page bucket ``P`` / slot bucket
+    ``s_cur`` reads, in tokens."""
+    return s_cur if s_cur is not None else min(P * engine.page_size, engine.max_seq_len)
+
+
+def _program_inputs(engine, key: tuple, seed: int, temperature: float) -> None:
+    """Inputs for decode program ``key`` in ``engine``'s static buffers:
+    rows at random lengths the key's context bucket covers with a chunk's
+    advance to spare (row 0 at the longest, so the whole bucket is read),
+    active over pages of their own (all rows but the last, or as many as
+    the paged pool holds at this width; the rest inactive on page 0),
+    random last tokens, one sampler setting (greedy at temperature 0, else
+    the request defaults); a speculative engine's token history drawn from
+    64 ids (so n-grams repeat); a lane key carries a 13-token prompt for
+    the last row on its first step."""
+    import torch
+
+    P, s_cur, lane, _, _ = key
+    bf, B, V, dev = engine._bufs, engine.max_slots, engine.cfg.vocab_size, engine.device
+    g = torch.Generator().manual_seed(seed)
+    top = _bucket_tokens(engine, P, s_cur) - engine._max_adv - 1
+    lens = torch.randint(1, top, (B,), generator=g)
+    lens[0] = top - 1
+    n_tab = B if engine.cache_mode == "slot" else min(B, (engine.n_pages - 1) // P)
+    assert n_tab >= 2 and (n_tab == B or not lane), (B, P, engine.n_pages)
+    act = torch.arange(B) < min(n_tab, B - 1)
+    bf.act.copy_(act)
+    bf.lens.copy_(lens)
+    bf.prompt_lens.copy_(lens)
+    bf.last.copy_(torch.randint(0, V, (B,), generator=g))
+    bf.min_tokens.zero_()
+    sampled = temperature > 0
+    bf.temperature.fill_(temperature)
+    bf.top_k.fill_(20 if sampled else 0)
+    bf.top_p.fill_(0.8 if sampled else 1.0)
+    bf.min_p.fill_(0.05 if sampled else 0.0)
+    bf.repetition_penalty.fill_(1.05 if sampled else 1.0)
+    bf.inj_rows.fill_(B)
+    if engine.cache_mode != "slot":
+        tab = torch.zeros((B, P), dtype=torch.int64)
+        tab[:n_tab] = 1 + torch.arange(n_tab * P).view(n_tab, P)
+        bf.tables[:, :P].copy_(tab)
+    if engine.hist is not None:
+        engine.hist.copy_(torch.randint(0, 64, tuple(engine.hist.shape), generator=g))
+    if lane:
+        n = engine.prefill_lane - 3
+        bf.ltok.copy_(torch.randint(0, V, tuple(bf.ltok.shape), generator=g))
+        bf.lpos.fill_(-1)
+        bf.lpos[0, :n] = torch.arange(n, device=dev)
+        bf.ltab.zero_()
+        if engine.cache_mode == "slot":
+            bf.ltab[0, 0] = B - 1
+        else:
+            bf.ltab[0, :P] = bf.tables[B - 1, :P]
+        bf.lrow.zero_()
+        bf.lrow[0] = n - 1
+        bf.act_slots.fill_(B)
+        bf.act_slots[0] = B - 1
+        bf.act_steps.zero_()
+
+
+def _program_state(engine) -> list:
+    """What a decode program writes: the seen mask (its spare row too), the
+    token history, the carry, and the sampler's generator state."""
+    bf = engine._bufs
+    return [t.clone() for t in (engine._seen_ext, bf.last_ext, bf.lens)] + [
+        engine.generator.get_state(),
+        None if engine.hist is None else engine.hist.clone()]
+
+
+def _program_restore(engine, st: list) -> None:
+    bf = engine._bufs
+    for t, v in zip((engine._seen_ext, bf.last_ext, bf.lens), st):
+        t.copy_(v)
+    engine.generator.set_state(st[3])
+    if st[4] is not None:
+        engine.hist.copy_(st[4])
+
+
+def _program_ms(engine, st: list, run, n: int = 3) -> float:
+    """Median wall ms of one chunk, ``run`` from state ``st`` each time."""
+    import torch
+
+    ts = []
+    for _ in range(n):
+        _program_restore(engine, st)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    return 1e3 * sorted(ts)[n // 2]
+
+
+# the port's own kernels as the profiler names them (csrc/*.cu in an
+# anonymous namespace; B5 by its Triton function's name)
+_OWN_KERNEL = re.compile(
+    r"::(decode_attention|decode_merge|flash_attention|latent_attention|rms_norm_rows"
+    r"|gemm_partial|gemm_tc|qkv_epilogue|residual_epilogue|swiglu_epilogue|grouped_expert"
+    r"|grouped_expert_tc|i8_stream|grouped_expert_i8|grouped_expert_i8_tc|quant_strip)[<(]"
+    r"|^_prep_kernel\b")
+# a kernel that each launch of these wrappers runs exactly once
+# (csrc/fused_layer.cu run_qkv, run_out_mlp, run_mlp; ops/moe.py,
+# ops/sampling_prep.py and the attention wrappers one launch a call)
+_SIGNATURES = (
+    ("B3", r"::qkv_epilogue\(", ("fused_qkv_stacked", "fused_qkv")),
+    ("B4 / B8", r"::swiglu_epilogue\(",
+     ("fused_out_mlp_stacked", "fused_mlp_stacked", "fused_mlp", "fused_out_mlp")),
+    ("B5", r"^_prep_kernel\b", ("sampling_prep",)),
+    ("grouped_expert", r"::grouped_expert(_tc)?<", ("grouped_gateup", "grouped_down")),
+    ("grouped_expert_i8", r"::grouped_expert_i8(_tc)?<",
+     ("grouped_gateup_i8", "grouped_down_i8")),
+    ("K1", r"::decode_attention<", ("slot_attention", "slot_window_attention",
+                                    "pallas_paged_attention", "pallas_paged_decode",
+                                    "pallas_paged_decode_clamp")),
+    ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent")),
+)
+# i8_stream launches a call of B7's and B10's wrappers makes for each group
+# of 64 rows (csrc/fused_layer.cu: B10's out-MLP runs its three products)
+_I8_LAUNCHES = {"fused_out_router_stacked": 1, "fused_qkv_stacked_i8": 1,
+                "fused_out_mlp_stacked_i8": 3, "int8_product": 1}
+
+
+def _traced_kernels(run) -> tuple[dict, dict]:
+    """``run()`` under torch.profiler (device activity only): (the port's
+    own kernels the card ran, by profiler name, with their counts; the
+    other device kernels' counts). A replayed graph's kernels are traced
+    one by one. The profiler drops a kernel whose device timestamps it
+    places outside its window (a run's first or last kernels), so the run
+    sits 50 ms inside the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        run()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    own, other = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith(("Memcpy", "Memset")):
+            continue
+        (own if _OWN_KERNEL.search(e.key) else other)[e.key] = e.count
+    return own, other
+
+
+def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog) -> dict:
+    """The launch counters against the card's own record: the body run
+    eagerly and the program replayed, each from state ``st`` under
+    torch.profiler. The replay runs the port's kernels the eager body ran,
+    name by name and count by count, and every signature kernel
+    (:data:`_SIGNATURES`, and B7's and B10's ``i8_stream``) appears in the
+    replay's trace exactly as often as its wrappers'
+    counters moved over that replay. A trace can lose a record but never
+    adds one: where the two traces differ, both runs are traced once more
+    and each kernel counts at its most over the two traces of its run.
+    Returns the signature counts."""
+    from deepsearch_tts_tpu_torch.engine.decode_program import launch_counters
+
+    counted = launch_counters()
+
+    def trace(run):
+        _program_restore(engine, st)
+        c0 = [getattr(f, a) for f, a in counted]
+        own, other = _traced_kernels(run)
+        return own, other, {f.__name__: getattr(f, a) - c for (f, a), c in zip(counted, c0)
+                            if a == "launches"}
+
+    runs = {"eager": [trace(prog.body)], "replay": [trace(prog)]}
+    if runs["eager"][0][0] != runs["replay"][0][0]:
+        for name, run in (("eager", prog.body), ("replay", prog)):
+            runs[name].append(trace(run))
+    merged = {}
+    for name, ts in runs.items():
+        assert all(t[2] == ts[0][2] for t in ts), (tag, key, name, [t[2] for t in ts])
+        names = set().union(*(t[0] for t in ts))
+        own = {k: max(t[0].get(k, 0) for t in ts) for k in names}
+        merged[name] = own, max(sum(t[1].values()) for t in ts), ts[0][2]
+    (e_own, e_other, e_delta), (r_own, r_other, r_delta) = merged["eager"], merged["replay"]
+    assert r_own and r_own == e_own, (tag, key, e_own, r_own)
+    assert r_delta == e_delta, (tag, key, e_delta, r_delta)
+    sigs = list(_SIGNATURES)
+    if any(r_delta.get(n) for n in _I8_LAUNCHES):
+        # every product of a decode step takes the batch's rows (each row's
+        # window under speculation)
+        rows = engine.max_slots * (engine.spec_k + 1 if key[3] else 1)
+        groups = -(-rows // 64)
+        sigs.append(("B7 / B10", r"::i8_stream<",
+                     tuple(n for n, k in _I8_LAUNCHES.items() for _ in range(k * groups))))
+    held = {}
+    for label, pat, names in sigs:
+        traced = sum(n for k, n in r_own.items() if re.search(pat, k))
+        counted_n = sum(r_delta.get(n, 0) for n in names)
+        assert traced == counted_n, (tag, key, label, traced, counted_n, r_delta)
+        if traced:
+            held[label] = traced
+    assert held.get("B5"), (tag, key, held)
+    log(f"[{tag}-programs] {key}: the replay's trace holds the port's kernels the eager "
+        f"body ran ({sum(r_own.values())} launches of {len(r_own)} kernels; other device "
+        f"kernels {r_other} replayed, {e_other} eager; traced "
+        f"{len(runs['eager'])} time(s) each), and the counters' launches equal the traced "
+        f"signature kernels {held}")
+    return held
+
+
+def _check_programs(tag: str, engine) -> dict:
+    """The decode-program layer of ``engine`` after its ``warmup()``: every
+    program built is a captured CUDA graph. The narrowest bucket's program
+    (a speculative engine's verify program; with a lane also its lane
+    variant) is replayed and held to the eager body it captured, on copies
+    of the same state and generator state: its tokens (and counts, the
+    lane's first tokens), the carry, the seen mask and the history equal,
+    greedy and seeded at temperature 0.7, and one replay moves the launch
+    counters by what one eager run does. The widest warmed bucket's program
+    is held the same way, greedy. On the greedy inputs of the narrowest and
+    the widest, :func:`_hold_counts_to_trace` holds the counters to the
+    kernels the profiler sees the replay run. Each is timed (ms a chunk,
+    the replay against the eager body: median of 3, the widest once). Logs the number of programs, their
+    capture seconds and the graph pool's MiB."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.decode_program import launch_counters
+
+    assert engine.telemetry()["decode_program"] == "graph", engine.decode_program
+    progs = engine._programs
+    assert progs and all(p.graph is not None for p in progs.values()), tag
+    spec = engine.speculative is not None
+    warmed = [v for v in engine._decode_variants() if (*v, False, spec, None) in progs]
+    # the narrowest bucket with room for rows a chunk's advance from its end
+    narrow = next(v for v in warmed if _bucket_tokens(engine, *v) > engine._max_adv + 9)
+    keys = [((*narrow, False, spec, None), (0.0, 0.7))] + (
+        [((*narrow, True, False, None), (0.0, 0.7))] if engine.prefill_lane else []) + (
+        [((*warmed[-1], False, spec, None), (0.0,))] if warmed[-1] != narrow else [])
+    pool = _pool_mib(engine)
+    out = {"programs": len(progs), "capture_s": sum(p.capture_s for p in progs.values()),
+           "pool_mib": pool, "chunks": {}}
+    counted = launch_counters()
+    names = [f"{f.__name__}.{a}" for f, a in counted]
+    saved = _program_state(engine)
+    with torch.no_grad():
+        for key, temps in keys:
+            prog = progs[key]
+            for seed, temp in enumerate(temps):
+                _program_inputs(engine, key, seed, temp)
+                st = _program_state(engine)
+                c0 = [getattr(f, a) for f, a in counted]
+                want = {k: v.clone() for k, v in prog.body().items()}
+                want_st = _program_state(engine)
+                c1 = [getattr(f, a) for f, a in counted]
+                _program_restore(engine, st)
+                got = {k: v.clone() for k, v in prog().items()}
+                got_st = _program_state(engine)
+                c2 = [getattr(f, a) for f, a in counted]
+                d_eager = {n: y - x for n, x, y in zip(names, c0, c1) if y != x}
+                d_replay = {n: y - x for n, x, y in zip(names, c1, c2) if y != x}
+                assert d_eager and d_eager == d_replay, (tag, key, d_eager, d_replay)
+                for k in want:
+                    assert torch.equal(want[k], got[k]), (tag, key, temp, k)
+                for i in (0, 1, 2, 4):
+                    assert (want_st[i] is None) == (got_st[i] is None)
+                    assert want_st[i] is None or torch.equal(want_st[i], got_st[i]), (tag, key, i)
+                if temp == 0.0:
+                    greedy_st = st
+            # the lane variant runs the narrow program's kernels and B5 once more
+            traced = None if key[2] else _hold_counts_to_trace(tag, engine, key, greedy_st, prog)
+            n = 3 if len(temps) > 1 else 1   # the wide bucket's chunk is long: timed once
+            eager_ms = _program_ms(engine, greedy_st, prog.body, n)
+            replay_ms = _program_ms(engine, greedy_st, prog, n)
+            name = "x".join(str(k) for k in key)
+            out["chunks"][name] = {"eager_ms": eager_ms, "replay_ms": replay_ms,
+                                   "launches": d_replay, "traced": traced}
+            log(f"[{tag}-programs] {key} (pages, slot_ctx, lane, spec, chunk_len): replay "
+                f"equals the eager body ({'greedy and seeded' if len(temps) > 1 else 'greedy'}"
+                f" tokens, carry, seen mask); a chunk of {engine.decode_chunk_len} steps "
+                f"{replay_ms:.3f} ms replayed, {eager_ms:.3f} ms eager; launches a chunk "
+                f"{d_replay}")
+    _program_restore(engine, saved)
+    # the static buffers go back to the host's state at the next dispatch
+    bf, B = engine._bufs, engine.max_slots
+    bf.act.zero_()
+    bf.inj_rows.fill_(B)
+    engine._dirty.update(range(B))
+    log(f"[{tag}-programs] {len(progs)} decode programs captured in "
+        f"{out['capture_s']:.2f} s; graph pool "
+        f"{'not measured' if pool is None else f'{pool:.1f} MiB'}")
+    return out
+
+
+def _register_moe_serve() -> None:
+    """qwen3-30b-a3b's published widths, ``MOE_SERVE_LAYERS`` of its 48
+    layers, registered under ``MOE_SERVE``."""
+    from deepsearch_tts_tpu_torch.engine.weights import convert_qwen3_moe
+    from deepsearch_tts_tpu_torch.models import qwen3_moe, registry
+
+    cfg = dataclasses.replace(qwen3_moe.QWEN3_MOE_CONFIGS[MOE_MODEL], n_layers=MOE_SERVE_LAYERS)
+    registry.register(MOE_SERVE, cfg, qwen3_moe.forward, convert_qwen3_moe)
+
+
+def _register_mla() -> None:
+    """deepseek-v3's published widths, 5 of its 61 layers, registered under
+    ``MLA_MODEL`` (the package's registry gains no entry of its own)."""
+    from deepsearch_tts_tpu_torch.engine.weights import convert_deepseek_v3
+    from deepsearch_tts_tpu_torch.models import deepseek_v3, registry
+
+    mla_cfg = dataclasses.replace(deepseek_v3.DEEPSEEK_V3_CONFIGS["deepseek-v3"],
+                                  n_layers=MLA_LAYERS)
+    registry.register(MLA_MODEL, mla_cfg, deepseek_v3.forward, convert_deepseek_v3)
+
+
+# the programs phase's engines: (model, Engine arguments); the paged ones
+# at the serve phases' 64-token pages
+PROGRAM_ENGINES = (
+    ("qwen3-8b", dict(prefill_lane=LANE, page_size=64, n_pages=1024)),   # the CLI defaults
+    ("qwen3-8b", dict(cache_mode="slot", prefill_lane=LANE)),
+    ("qwen3-8b", dict(cache_mode="slot", **SPEC_KW)),
+    (MOE_MODEL, dict(prefill_lane=LANE, page_size=64, n_pages=1024)),
+    (MOE_MODEL, dict(quantize="int8", prefill_lane=LANE, page_size=64, n_pages=1024)),
+    (I8_MODEL, dict(quantize="int8", kv_quantize="int8", page_size=64, n_pages=1024)),
+    (MLA_MODEL, dict(cache_mode="slot")),
+)
+
+
+def phase_programs(card: str) -> dict:
+    """``--programs-only``: the engines of ``PROGRAM_ENGINES`` built on
+    random weights from seed 0 (one model's weights shared by its engines),
+    each warmed with ``warmup(prompt_lens=(64,), max_ctx=512)`` and put
+    through :func:`_check_programs`, then released."""
+    import torch
+
+    _register_mla()
+    out, params, held = {}, None, None
+    for model, kw in PROGRAM_ENGINES:
+        if held != (model, kw.get("quantize")):
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        engine = _engine(params, model=model, seed=0, **kw)
+        params, held = engine.params, (model, kw.get("quantize"))
+        engine.warmup(prompt_lens=(64,), max_ctx=512)
+        tag = f"{model}-{'-'.join(f'{k}={v}' for k, v in kw.items() if k not in ('page_size', 'n_pages'))}"
+        log(f"[programs] {tag}: built and warmed in {time.time() - t0:.1f} s")
+        out[tag] = _check_programs(tag, engine)
+        _release(engine)
+        del engine
+    return out
+
+
 def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
                 tag: str = "serve", **quant_kw) -> tuple[dict, object]:
     """Serve ``model`` over HTTP through the port's own construction:
@@ -4005,6 +4448,7 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     if engine.layer_fusion == int8_moe:
         raise AssertionError(f"the {model} engine must {'not ' * int8_moe}run the fused "
                              f"decode layers")
+    out["programs"] = _check_programs(tag, engine)
     if quant_kw.get("quantize"):
         # every QUANT_KEYS matrix of the packed tree: wqkv, wo, w_gateup and
         # w_down of each layer (and of each expert), and the untied lm_head
@@ -4102,24 +4546,37 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
                 f"in {r[2] * 1000:.1f} ms; peak memory allocated {out['peak_gib']:.2f} GiB")
 
             # (h) a full batch: max_slots concurrent requests for decode tok/s
-            d0 = dict(engine.stats)
+            d0 = _settled(engine)
             tb = time.perf_counter()
             results = _burst(chat, SLOTS, 64)
             wall = time.perf_counter() - tb
-            d1 = dict(engine.stats)
+            d1 = _settled(engine)
             out["burst_decode_tok_s"] = ((d1["decode_tokens"] - d0["decode_tokens"])
                                          / (d1["decode_time_s"] - d0["decode_time_s"]))
             out["burst_step_ms"] = 1e3 * (d1["decode_time_s"] - d0["decode_time_s"]) / (
                 (d1["decode_steps"] - d0["decode_steps"]) * engine.decode_chunk_len)
             out["burst_wall_s"] = wall
             out["burst_tokens"] = sum(r[1]["usage"]["completion_tokens"] for r in results)
+            out["burst_pipelined_chunks"] = d1["pipelined_chunks"] - d0["pipelined_chunks"]
+            out["burst_chunks"] = d1["decode_steps"] - d0["decode_steps"]
             if profile:
-                _profile_burst(chat, engine)
+                out["idle_share"] = _profile_burst(chat, engine)
             if engine.prefill_lane:
                 out["lane"] = _lane_check(tag, engine, base, counters,
-                                          teacher=model != MOE_MODEL)
+                                          teacher=model not in (MOE_MODEL, MOE_SERVE))
 
-            st1 = dict(engine.stats)
+            st1 = _settled(engine)
+            out["post_warmup_builds"] = st1["post_warmup_builds"]
+            out["pipelined_chunks"] = st1["pipelined_chunks"] - st0["pipelined_chunks"]
+            out["injected_groups"] = st1["injected_groups"] - st0["injected_groups"]
+            log(f"[{tag}] decode programs: {engine.telemetry()['decode_program']}; "
+                f"{out['pipelined_chunks']} chunks pipelined of "
+                f"{st1['decode_steps'] - st0['decode_steps']} (the full batch: "
+                f"{out['burst_pipelined_chunks']} of {out['burst_chunks']}), "
+                f"{out['injected_groups']} prefill groups injected, post-warmup builds "
+                f"{out['post_warmup_builds']}")
+            if tag == "serve":   # the CLI's warmup covers every bucket serving reaches
+                assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
             out["steps"] = dict(zip(("decode", "prefill", "lane"), _steps(engine, st0, st1)))
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
@@ -4448,7 +4905,7 @@ def phase_train(card: str) -> dict:
     futs = engine.submit_many([GenerationRequest(prompt_ids=prompt + [i], max_tokens=24,
                                                  **GREEDY) for i in range(4)])
     outs = [f.result(timeout=600) for f in futs]
-    st1 = dict(engine.stats)
+    st1 = _settled(engine)
     launches = _check_launches("train-serve", engine, counters, st0, st1)
     assert all(o.completion_tokens >= 1 for o in outs), [o.completion_tokens for o in outs]
     phase_reference(engine, tag="train-reference")
@@ -4693,7 +5150,7 @@ def phase_lora(card: str, params: dict) -> dict:
             st0 = dict(eng.stats)
             after = chat(LORA_PROMPT)
             more = [chat(f"LoRA {i}: name one lake.") for i in range(3)]
-            st1 = dict(eng.stats)
+            st1 = _settled(eng)
             launches = _check_launches("lora", eng, counters, st0, st1)
     finally:
         eng.shutdown()
@@ -5321,6 +5778,10 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="only the build and the parallel phase (prints its line, "
                          "not the final line)")
+    ap.add_argument("--programs-only", action="store_true",
+                    help="only the build and the programs phase (seven engines' decode "
+                         "programs, replay against eager; prints its line, not the final "
+                         "line)")
     ap.add_argument("--train-only", action="store_true",
                     help="only the build and the train, moe-train and lora phases "
                          "(the last on random qwen3-8b weights; prints their line, "
@@ -5332,14 +5793,19 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     import torch
 
+    _LAP_T[0] = time.time()
     card = phase_env()
     phase_build()
+    _lap("build")
     if opts.product_only:
         product = _product_phases(card)
         print(json.dumps({"product": product, "eval": phase_eval(card), "card": card}))
         return 0
     if opts.parallel_only:
         print(json.dumps({"parallel": phase_parallel(card), "card": card}))
+        return 0
+    if opts.programs_only:
+        print(json.dumps({"programs": phase_programs(card), "card": card}))
         return 0
     if opts.train_only:
         from deepsearch_tts_tpu_torch.engine.weights import init_params
@@ -5366,6 +5832,7 @@ def main(argv=None) -> int:
     moe_i8_res, moe_i8_shapes = phase_moe_i8_kernels()
     res.update(moe_i8_res)
     _free()
+    _lap("kernels")
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
                           "k1_b1": k1_b1, "k1_b64": k1_b64, "b11_launches": b11_launches,
@@ -5375,52 +5842,61 @@ def main(argv=None) -> int:
     serve, engine = phase_serve(card, profile=opts.profile)
     phase_reference(engine)
     params = _release(engine)
+    _lap("serve")
     slot = phase_slot_serve(card, params, profile=opts.profile, b1_tokens=128, lane=True)
     spec = phase_slot_serve(card, params, tag="spec", spec=True, b1_tokens=128,
                             b1_plain_ms=slot["b1_ms_per_token"], profile=opts.profile)
     phase_spec_reference(params)
+    _lap("slot, spec")
     pallas = phase_pallas_serve(card, params, serve["long_prompt_s"])
     phase_attention_reference(params)
     trim = phase_trim(params)
+    _lap("pallas, trim")
     lora = phase_lora(card, params)
+    _lap("lora")
 
-    # the qwen3-30b-a3b phases need the card to themselves: 61 GB of weights
+    # the qwen3-30b-a3b phases need the card to themselves
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[release] qwen3-8b engines and weights released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
     # training, on a card that holds nothing else
     train, moe_train = phase_train(card), phase_moe_train(card)
-    held = torch.cuda.memory_allocated() / 2**30
+    _lap("train")
+    held = _held_gib()
     log(f"[release] training phases released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
     # the product path, on a card that holds nothing else
     product = _product_phases(card)
     for name in ("fused_qkv_stacked", "fused_out_mlp_stacked"):
         res[name]["err"] = max(res[name]["err"], product["aux_width_err"][name])
+    _lap("product")
     evaluation = phase_eval(card)
-    moe_serve, engine = phase_serve(card, model=MOE_MODEL, profile=opts.profile, tag="moe")
+    _lap("eval")
+    _register_moe_serve()
+    moe_serve, engine = phase_serve(card, model=MOE_SERVE, profile=opts.profile, tag="moe")
     phase_reference(engine, plain_experts=True)
     params = _release(engine)
     del engine
-    moe_slot = phase_slot_serve(card, params, model=MOE_MODEL, tag="moe-slot")
+    moe_slot = phase_slot_serve(card, params, model=MOE_SERVE, tag="moe-slot")
     moe_spec = phase_moe_spec(card, params)
-    phase_spec_reference(params, MOE_MODEL, tag="moe-spec-reference", plain_experts=True)
+    phase_spec_reference(params, MOE_SERVE, tag="moe-spec-reference", plain_experts=True)
+    _lap("moe")
 
     # the qwen3-32b int8 phase needs the card to itself too
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[release] qwen3-30b-a3b engines and weights released: {held:.3f} GiB still "
         f"allocated")
     assert held < 1.0, held
     # qwen3-30b-a3b with int8 weights, the routed experts included: the bf16
     # engine's settings (paged, prefix cache, the lane of 16), unfused as in
     # JAX; its experts on the int8 grouped expert kernel, 2 launches a layer
-    i8_moe_serve, engine = phase_serve(card, model=MOE_MODEL, profile=opts.profile,
+    i8_moe_serve, engine = phase_serve(card, model=MOE_SERVE, profile=opts.profile,
                                        tag="moe-int8", quantize="int8", prefill_lane=LANE)
     steps, prefills, _ = (i8_moe_serve["steps"][k] for k in ("decode", "prefill", "lane"))
     log(f"[moe-int8] int8 grouped expert launches: "
@@ -5438,10 +5914,11 @@ def main(argv=None) -> int:
     phase_reference(engine, tag="moe-int8-reference", t0=4, steps=4, plain_int8=True)
     phase_reference(engine, tag="moe-int8-reference", same_path=True, plain_int8=True)
     params = _release(engine)
+    _lap("moe-int8")
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[release] qwen3-30b-a3b int8 engine and weights released: {held:.3f} GiB still "
         f"allocated")
     assert held < 1.0, held
@@ -5452,22 +5929,18 @@ def main(argv=None) -> int:
     params = _release(engine)
     del engine
     i8_lane = phase_int8_lane(params)
+    _lap("int8")
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[release] qwen3-32b int8 engine and weights released: {held:.3f} GiB still "
         f"allocated")
     assert held < 1.0, held
 
     # MLA: deepseek-v3's published widths, 5 of its 61 layers, registered
     # here under a name of its own (the package's registry gains none)
-    from deepsearch_tts_tpu_torch.engine.weights import convert_deepseek_v3
-    from deepsearch_tts_tpu_torch.models import deepseek_v3, registry
-
-    mla_cfg = dataclasses.replace(deepseek_v3.DEEPSEEK_V3_CONFIGS["deepseek-v3"],
-                                  n_layers=MLA_LAYERS)
-    registry.register(MLA_MODEL, mla_cfg, deepseek_v3.forward, convert_deepseek_v3)
+    _register_mla()
     mla_serve, engine = phase_serve(card, model=MLA_MODEL, profile=opts.profile, tag="mla")
     phase_reference(engine, tag="mla-reference", plain_experts=True)
     params = _release(engine)
@@ -5479,11 +5952,13 @@ def main(argv=None) -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
+    held = _held_gib()
     log(f"[release] MLA engines and weights released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
+    _lap("mla")
     # the parallel layer: ranks of their own on the card, which holds nothing else
     parallel = phase_parallel(card)
+    _lap("parallel")
 
     b11_path = {"launches": b11_launches}   # B11's own path (no serving path runs it)
     src = "deepsearch_tts_tpu_torch/ops/"
@@ -5554,7 +6029,7 @@ def main(argv=None) -> int:
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
                       "b12_shapes": b12_shapes, "moe_i8_shapes": moe_i8_shapes,
-                      "past_64": PAST_64, "card": card}))
+                      "past_64": PAST_64, "phase_s": _LAPS, "card": card}))
     print(json.dumps({"product": product, "card": card}))
     print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"parallel": parallel, "card": card}))

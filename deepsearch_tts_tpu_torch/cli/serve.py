@@ -44,8 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "tokens rides a decode step (0 = off; families "
                         "without a lane path, MLA, need 0)")
     p.add_argument("--warmup", type=int, default=0, metavar="PROMPT_LEN",
-                   help="build the kernels with one prefill of this prompt "
-                        "length and one decode step before accepting requests")
+                   help="warmup() before accepting requests: the prefills of "
+                        "this prompt length and every decode program (each "
+                        "captured as a CUDA graph on the card)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights used when --weights is empty")

@@ -13,9 +13,34 @@ Behaviours carried over from the JAX engine:
   every group, as in JAX; without it, groups take fresh causal prefill.
 * Decode chunks of ``decode_chunk_len`` steps over all ``max_slots`` rows
   (inactive rows write nothing), with the page table sliced to the
-  power-of-two page bucket of the longest active row, so a step gathers the
-  context it needs and not the whole ``max_seq_len`` budget. T=1 layers run
-  the fused functions (``ops/fused_layer.py``) on packed bf16 weights.
+  ``context_buckets`` page bucket of the longest active row (``"fine"``:
+  powers of two and their 1.5x midpoints; ``True``: powers of two;
+  ``False``: the whole budget), so a step gathers the context it needs and
+  not the whole ``max_seq_len`` budget. T=1 layers run the fused functions
+  (``ops/fused_layer.py``) on packed bf16 weights.
+* The decode-program layer (``engine/decode_program.py``): a chunk is one
+  program keyed ``(page bucket, slot bucket, lane, spec, chunk_len)``, a
+  function of engine-wide static buffers; on CUDA each key is captured once
+  into one ``torch.cuda.CUDAGraph`` (one graph pool for all) and replayed
+  from then on. ``warmup()`` builds them (JAX's enumeration); a program
+  built after it counts in ``stats["post_warmup_builds"]``.
+* Pipelined dispatch (``pipeline_decode``, JAX ``engine.py:1349-1476``):
+  chunk N+1 is dispatched from chunk N's device carry before N is read
+  back, when a row certainly wants tokens past N (:meth:`_can_speculate`)
+  and too few rows complete during N (:meth:`_churn_imminent`). Rows reset
+  since the carry are told apart by per-slot epochs; rows whose host state
+  changed are patched into the static buffers before the replay. Every
+  prefill, copy and replay runs on one stream, so a chunk in flight writes
+  its KV before any re-admission's prefill overwrites it. A parked row's
+  seen mask needs no fold of the in-flight chunk's tokens (JAX's
+  ``stale``): admission rebuilds every row's mask from its whole prompt.
+* Admission injection: the newest ``n_inject`` prefill groups are
+  dispatched without a sync; their first-token tensors are copied device to
+  device into the next chunk's inject buffer, which scatters them into the
+  carry's ``last`` inside the program. After a chunk frees rows with
+  nothing queued, the loop waits 2 ms for closed-loop refills (JAX's
+  default ``refill_grace="fixed"``; its ``"adaptive"`` and ``"off"`` are
+  not ported).
 * Page allocation, LRU eviction of cached prefixes and preempt-by-requeue
   under page pressure; finished sequences insert their full pages into the
   radix prefix cache.
@@ -59,12 +84,12 @@ Behaviours carried over from the JAX engine:
   while decode runs, a queued prompt of at most ``prefill_lane`` tokens
   with no cached prefix rides one decode step whole, as ``prefill_lane``
   extra rows (``_plan_lane``: one prompt a step, ``LANE_MAX_ACT`` a
-  chunk); its first token is sampled after the chunk from that step's
-  lane logits and its slot activated. Everything else, and every cold
-  burst, takes batched prefill. Steps of a chunk that carry no prompt run
-  without the lane rows (JAX's one-program chunk carries padding rows on
-  them; the layers are row-wise, so the decode rows' results are the same
-  but for the card's summation order, which follows the row count).
+  chunk); its first token is sampled in the program from that step's lane
+  logits and its slot activated when the chunk is read back. Everything
+  else, and every cold burst, takes batched prefill. A chunk that carries
+  the lane carries its rows on every step, padding (position -1) on steps
+  with no prompt, as JAX's lane program does: one graph holds one row
+  count. A chunk with no lane prompt runs the lane-less program.
 * ``chunk_trim``: a half-length chunk when enough rows are within half a
   chunk of their ``max_tokens`` (JAX's gate, over the chunk wall and the
   inter-chunk gap this loop measures), at the two widest context buckets,
@@ -84,23 +109,21 @@ Behaviours carried over from the JAX engine:
   agree on every token with no second broadcast. The other ranks call
   :meth:`follow`. ``dp > 1`` is refused (ROADMAP.md C). ``ring_prefill_len``
   / ``sp_impl``: fresh prefills at or over that bucket run their attention
-  sequence-parallel over ``tp`` (JAX's gate, :meth:`_ring_prefill`).
+  sequence-parallel over ``tp`` (JAX's gate, :meth:`_ring_prefill`). A mesh
+  engine runs its chunks serially and eagerly (``telemetry()
+  ["decode_program"] == "eager"``): no capture, no pipelining, no
+  injection.
 
-Left out, because they are JAX dispatch machinery: pipelined dispatch from
-the device carry (and ``_can_speculate``, which decides it), admission
-injection, the compile caches and warm-program bookkeeping. Eager CUDA
-launches are already asynchronous; each decode chunk is queued step after
-step and synchronised once, when its tokens are read back, so no chunk is
-in flight when aborts apply or requests are admitted. The seen mask
-of every admitted row is rebuilt from its whole prompt, parked re-entries
-included (and so is a speculative engine's token history); JAX's
-keep/clear path for parked rows saves a host upload on the TPU and gives
-the same mask.
+The seen mask of every admitted row is rebuilt from its whole prompt,
+parked re-entries included (and so is a speculative engine's token
+history); JAX's keep/clear path for parked rows saves a host upload on the
+TPU and gives the same mask. Prefill runs eagerly (JAX compiles it).
 """
 from __future__ import annotations
 
 import inspect
 import queue
+import sys
 import threading
 import time
 import traceback
@@ -114,10 +137,10 @@ import torch
 
 from ..device import resolve_device
 from ..models.registry import get_model
+from .decode_program import DecodeBuffers, DecodeProgram, chunk_body
 from .kvcache import PageAllocator, init_kv_pages, init_kv_scales, init_latent_pages
 from .profiling import SpanTimer
-from .sampling import SamplingParams, sample, update_seen
-from .speculative import accept_drafts, ngram_draft
+from .sampling import SamplingParams, sample
 from .stopping import StopState
 from .tokenizer import IncrementalDetokenizer
 
@@ -154,9 +177,11 @@ class _Slot:
 
     def __init__(self, idx: int):
         self.idx = idx
+        self.epoch = 0
         self.reset()
 
     def reset(self):
+        self.epoch += 1   # a chunk dispatched before this reset is stale for the row
         self.req: GenerationRequest | None = None
         self.future: Future | None = None
         self.pages: list[int] = []
@@ -263,6 +288,8 @@ class Engine:
         chunk_trim: bool = False,
         ring_prefill_len: int | None = None,
         sp_impl: str = "ring",
+        context_buckets: bool | str = "fine",
+        pipeline_decode: bool = True,
     ):
         if cache_mode not in ("paged", "slot"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
@@ -287,8 +314,7 @@ class Engine:
         self.trim_min_rows: int | None = None
         self._trim_warm: set = set()   # (page bucket, slot bucket) pairs warmup() registered
         self._chunk_ema = 0.0   # smoothed decode-chunk wall (s)
-        self._gap_ema = 0.0     # smoothed host gap between chunks (s)
-        self._gap_from: tuple[float, float] | None = None   # (end of chunk, prefill_time_s)
+        self._gap_ema = 0.0     # smoothed exposed gap before a non-pipelined chunk (s)
         if sp_impl not in ("ring", "ulysses"):
             raise ValueError(f"unknown sp_impl {sp_impl!r} (ring or ulysses)")
         self.ring_prefill_len = ring_prefill_len
@@ -418,7 +444,10 @@ class Engine:
             self.page_tables[:, 0] = np.arange(B)
         self.seq_lens = np.zeros((B,), np.int32)
         self.last_tok = np.zeros((B,), np.int32)
-        self.seen = torch.zeros((B, V), dtype=torch.bool, device=self.device)
+        # one spare row past the B rows takes the seen-mask writes of the
+        # lane's padding activations (slot B), which JAX drops
+        self._seen_ext = torch.zeros((B + 1, V), dtype=torch.bool, device=self.device)
+        self.seen = self._seen_ext[:B]
         self.samp_host = {
             "temperature": np.full((B,), 0.7, np.float32),
             "top_k": np.full((B,), 20, np.int32),
@@ -457,8 +486,49 @@ class Engine:
             "preemptions": 0, "slot_steps": 0, "prefill_dispatches": 0,
             "prefill_rows": 0, "slot_park_hits": 0, "slot_park_tokens": 0,
             "lane_tokens": 0, "lane_chunks": 0, "trim_chunks": 0,
+            # chunks dispatched from the previous chunk's device carry
+            "pipelined_chunks": 0,
+            # decode programs built after warmup(): each a capture while serving
+            "post_warmup_builds": 0,
+            # prefill groups whose first tokens a chunk took on the device
+            "injected_groups": 0,
         }
         self.spans = SpanTimer()
+
+        # the decode-program layer (JAX engine.py:133-139, 512-555). A mesh
+        # engine keeps a serial eager chunk: gloo stages every transfer
+        # through host memory and rank 0 broadcasts before each step
+        if context_buckets not in (False, True, "fine"):
+            raise ValueError(f"unknown context_buckets {context_buckets!r} "
+                             "(False, True or 'fine')")
+        self.context_buckets = context_buckets
+        self.decode_program = ("eager" if self.par is not None
+                               else "graph" if self.device.type == "cuda" else "cpu")
+        self.pipeline_decode = bool(pipeline_decode) and self.par is None
+        # dispatched-but-unsynced prefill groups one chunk can take on the
+        # device: a cold burst of max_slots / MAX_PREFILL_GROUP groups
+        # never syncs a prefill before decode starts
+        self.n_inject = max(2, min(6, -(-max_slots // self.MAX_PREFILL_GROUP)))
+        # the dispatch round trip pipelining hides, the churn break-even's
+        # prior until the exposed gap is measured (0: skip on any
+        # completing row)
+        self.churn_rtt_s = 0.035
+        self._bufs = DecodeBuffers(B, self.max_pages_per_seq, decode_chunk_len, self.n_inject,
+                                   self.MAX_PREFILL_GROUP, self.prefill_lane,
+                                   self.LANE_MAX_ACT, self.device)
+        self._programs: dict[tuple, DecodeProgram] = {}
+        self._programs_params = None   # the weights tree the programs were built on
+        self._graph_pool = self._capture_stream = None
+        self._prefill_keys: set = set()   # (bucket, rows, fresh, ring) warmup() ran
+        self._warmed = False
+        # rows whose host state the static buffers do not hold yet
+        self._dirty: set[int] = set(range(B))
+        self._pending: dict | None = None    # the chunk in flight
+        self._inject_handles: list[dict] = []
+        self._last_decode_end = 0.0
+        self._prefill_clock = 0.0
+        self._gap_armed = self._gap_spec = False
+        self._gap_t0 = self._gap_pf0 = 0.0
 
     # ------------------------------------------------------------ public API
 
@@ -500,7 +570,9 @@ class Engine:
         ``self.params`` is rebound to the new tree: engines built on the
         same weights keep the old ones, and a forward already running
         finishes on them. Nothing else the engine holds derives from the
-        weights (the attention helpers are built per forward). As in JAX,
+        weights (the attention helpers are built per forward) but the decode
+        programs, which the engine builds again at its next chunk (each a
+        capture on CUDA, counted in ``post_warmup_builds``). As in JAX,
         the prefix cache and parked slots are not flushed: a prompt that
         hits them reuses KV computed with the old weights. int8 weights
         raise JAX's ``ValueError``; so does a sharded engine (ROADMAP.md C)."""
@@ -516,56 +588,76 @@ class Engine:
         self.params = merge_lora(self.params, lora_to(lora, self.device), self.cfg)
 
     @torch.no_grad()
-    def warmup(self, prompt_lens=(16,)) -> None:
-        """Build the CUDA kernels and JIT the Triton kernel before serving:
-        one prefill per prompt bucket and one decode step (a speculative
-        engine's verify step, on copies of its seen mask and history; with
-        a prefill lane, also a step that carries it) on dummy inputs whose
-        positions are all padding, so no KV is written and no engine state
-        but the sampler's random stream changes. With ``chunk_trim`` it
-        registers the two widest context buckets as the ones a chunk may
-        be trimmed at, as JAX warms its half-length program there. Call
-        before submitting requests (under a multi-rank mesh, on every rank:
-        the forwards run the collectives and the sampler draws)."""
-        dev = self.device
+    def warmup(self, prompt_lens=(16,), group_sizes=None, decode=True, fresh_variants=None,
+               max_ctx: int | None = None) -> None:
+        """Build every program serving reaches before requests arrive (JAX
+        ``engine.py:1173-1333``): one dummy prefill per (prompt bucket,
+        group rows, fresh) — ``group_sizes`` default 1, 4, 16 up to
+        ``MAX_PREFILL_GROUP`` padded up that ladder, ``fresh_variants`` the
+        one branch this engine runs — building the kernels and the Triton
+        JIT at those shapes; with ``decode``, the decode program of every
+        context bucket up to the first one that covers ``max_ctx`` (all of
+        them without it), both lane variants with a prefill lane, the
+        speculative program on a speculative engine, and with
+        ``chunk_trim`` the half-length program at the two widest, the only
+        buckets a chunk is trimmed at. On CUDA each decode program is
+        captured here. Every dummy position is padding: no KV is written,
+        the seen mask and token history are restored, and only the
+        sampler's random stream moves. Then a program built later counts
+        in ``stats["post_warmup_builds"]``. Call before submitting requests
+        (under a multi-rank mesh, on every rank: the forwards run the
+        collectives and the sampler draws)."""
+        dev, B = self.device, self.max_slots
+        if fresh_variants is None:
+            # prefix-reusing engines run the non-fresh branch for every group
+            fresh_variants = (self.fresh_prefill,)
+        if group_sizes is None:
+            group_sizes, g = [], 1
+            while g <= self.MAX_PREFILL_GROUP:
+                group_sizes.append(g)
+                g *= 4
         for plen in prompt_lens:
             T = self._bucket(max(int(plen), 1))
-            logits, _ = self._forward(
-                torch.zeros((1, T), dtype=torch.int64, device=dev),
-                torch.full((1, T), -1, dtype=torch.int64, device=dev),
-                torch.zeros((1, 1), dtype=torch.int64, device=dev),
-                torch.zeros((1,), dtype=torch.int64, device=dev),
-                logits_indices=torch.zeros((1,), dtype=torch.int64, device=dev),
-                fresh=self.fresh_prefill)
-            sample(logits[:, 0], self._samp_params(np.arange(1)),
-                   torch.zeros_like(self.seen[:1]), self.generator)
-        B = self.max_slots
-        zeros = torch.zeros((B,), dtype=torch.int64, device=dev)
-        tables = self._t(self.page_tables[:, :1])
-        if self.speculative:
-            # the verify step itself, on copies of the seen mask and history
-            rows_r = np.repeat(np.arange(B), self.spec_k + 1)
-            self._spec_step(zeros, zeros, torch.zeros((B,), dtype=torch.bool, device=dev),
-                            tables, self._slot_bucket(1), self._samp_params(rows_r),
-                            zeros, self.seen.clone(), self.hist.clone())
-        else:
-            lanes = [{}]
+            cap = self._group_cap(T)
+            for G in group_sizes:
+                Gp = self._pow2(min(G, cap), cap)
+                for fresh in fresh_variants:
+                    ring = self._ring_prefill(T, fresh)
+                    logits, _ = self._forward(
+                        torch.zeros((Gp, T), dtype=torch.int64, device=dev),
+                        torch.full((Gp, T), -1, dtype=torch.int64, device=dev),
+                        torch.zeros((Gp, 1), dtype=torch.int64, device=dev),
+                        torch.zeros((Gp,), dtype=torch.int64, device=dev),
+                        logits_indices=torch.zeros((Gp,), dtype=torch.int64, device=dev),
+                        fresh=fresh, seq_parallel=self.sp_impl if ring else None)
+                    sample(logits[:, 0], self._samp_params(np.zeros(Gp, np.int64)),
+                           torch.zeros((Gp, self.cfg.vocab_size), dtype=torch.bool,
+                                       device=dev), self.generator)
+                    self._prefill_keys.add((T, Gp, bool(fresh), ring))
+        if decode:
+            bf = self._bufs
+            seen0, act0 = self._seen_ext.clone(), bf.act.clone()
+            hist0 = None if self.hist is None else self.hist.clone()
+            bf.act.zero_()
+            bf.inj_rows.fill_(B)
             if self.prefill_lane:
-                Tp = self.prefill_lane
-                lanes.append(dict(lane_tokens=torch.zeros((Tp,), dtype=torch.int64, device=dev),
-                                  lane_positions=torch.full((Tp,), -1, device=dev),
-                                  lane_table=tables[0], lane_logit_row=zeros[0]))
-            for lane in lanes:
-                logits, _ = self._forward(zeros[:, None], torch.full((B, 1), -1, device=dev),
-                                          tables, zeros, slot_ctx=self._slot_bucket(1), **lane)
-                n = logits.shape[0]   # B, and the lane's row
-                sample(logits[:, 0], self._samp_params(np.arange(n) % B),
-                       torch.zeros((n, self.cfg.vocab_size), dtype=torch.bool, device=dev),
-                       self.generator)
-        if self.chunk_trim:
-            self._trim_warm.update(self._decode_buckets()[-2:])
+                bf.lpos.fill_(-1)
+                bf.act_slots.fill_(B)
+            variants = self._decode_variants(max_ctx)
+            keys = [(P, s, lane, self.speculative is not None, None) for P, s in variants
+                    for lane in ((False, True) if self.prefill_lane else (False,))]
+            if self.chunk_trim:
+                keys += [(P, s, False, False, self._trim_chunk) for P, s in variants[-2:]]
+                self._trim_warm.update(variants[-2:])
+            for key in keys:
+                self._program(*key)()
+            bf.act.copy_(act0)
+            self._seen_ext.copy_(seen0)
+            if hist0 is not None:
+                self.hist.copy_(hist0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        self._warmed = True
 
     def start(self):
         if self._thread is None or not self._thread.is_alive():
@@ -631,27 +723,70 @@ class Engine:
         if self.speculative and out["slot_steps"] > 0:
             # tokens emitted per row-step: 1.0 accepts no draft, spec_k+1 all
             out["spec_tokens_per_step"] = out["decode_tokens"] / out["slot_steps"]
+        if self._gap_ema > 0.0:
+            out["exposed_gap_ema_ms"] = round(self._gap_ema * 1000, 2)
+        # "graph": every chunk a replayed CUDA graph; "cpu": the body run
+        # eagerly on the CPU; "eager": a mesh engine's serial eager chunk
+        out["decode_program"] = self.decode_program
         return out
 
     # ------------------------------------------------------------- scheduler
 
     def _loop(self):
+        """The scheduler (JAX ``engine.py:1349-1476``): while the host reads
+        back chunk N, folds its tokens and admits new requests, the card
+        already runs chunk N+1, dispatched from N's device carry. Rows whose
+        host state changed in between are told apart by their epochs and
+        their results in N+1 dropped; the page and prefix-cache invariants
+        hold because the card runs everything in dispatch order (N+1's
+        writes past a finished row's end land before any re-admission's
+        prefill overwrites them, and past its last full page, which is all
+        the prefix cache keeps). Under a multi-rank mesh each iteration
+        starts with rank 0's control message (:meth:`_sync`)."""
         while True:
             try:
-                if (self._sync() if self.multi else self._stopping):
-                    return
+                stop = self._sync() if self.multi else self._stopping
                 with torch.no_grad():
-                    self._apply_aborts()
-                    admitted = self._admit()
-                    if not any(s.active for s in self.slots) and not self._lane:
-                        if not admitted and not (self.multi and self.par.rank):
-                            # idle (a follower waits in the next broadcast)
-                            self._wake.wait(timeout=0.05)
-                            self._wake.clear()
+                    if stop:
+                        # the chunk in flight is read back: no work is left
+                        # on the card and its tokens and counts are kept
+                        if self._pending is not None:
+                            self._process_decode(self._pending)
+                            self._pending = None
+                        self._drain_inject()
+                        return
+                    if self._pending is None:
+                        self._apply_aborts()
+                        admitted = self._admit(defer=True)
+                        if not any(s.active for s in self.slots) and not self._lane:
+                            self._drain_inject()   # stale handles (rows aborted)
+                            if not admitted and not (self.multi and self.par.rank):
+                                # idle (a follower waits in the next broadcast)
+                                self._wake.wait(timeout=0.05)
+                                self._wake.clear()
+                            continue
+                        self._pending = self._dispatch_decode(None)
+                        self._drain_inject()
                         continue
-                    self._decode_chunk()
+                    nxt = None
+                    if (self.pipeline_decode and not self._aborts
+                            and self._can_speculate(self._pending)
+                            and not self._churn_imminent(self._pending)):
+                        nxt = self._dispatch_decode(self._pending)
+                        if nxt is not None:
+                            self.stats["pipelined_chunks"] += 1
+                    self._drain_inject()
+                    freed_before = self._n_free()
+                    self._gap_spec = nxt is not None
+                    self._process_decode(self._pending)
+                    self._pending = nxt
+                    self._apply_aborts()
+                    self._refill_grace(self._n_free() - freed_before)
+                    self._admit(defer=True)
             except Exception as e:  # engine-step crash: fail in-flight work loudly
                 traceback.print_exc()
+                self._pending = None
+                self._inject_handles.clear()   # their slots' futures are failed below
                 for s in self.slots:
                     if s.future is not None and not s.future.done():
                         s.future.set_exception(e)
@@ -673,42 +808,143 @@ class Engine:
                                 fut.set_exception(e)
                 return
 
+    def _n_free(self) -> int:
+        return sum(1 for s in self.slots if not s.active and s.req is None)
+
+    def _refill_grace(self, n_freed: int) -> None:
+        """After a chunk freed rows with nothing queued, wait 2 ms for
+        closed-loop clients to refill them (JAX's default ``"fixed"``
+        grace, ``engine.py:1403-1446``)."""
+        if n_freed > 0 and self._queue.empty() and not self._deferred:
+            self._wake.wait(timeout=0.002)
+            self._wake.clear()
+
     def _bucket(self, n: int) -> int:
         b = 16
         while b < n:
             b *= 2
         return min(b, self.max_seq_len)
 
-    def _page_bucket(self, n_tokens: int) -> int:
-        """Power-of-two page count covering ``n_tokens`` (capped)."""
-        need = -(-n_tokens // self.page_size)
-        b = 1
-        while b < need:
-            b *= 2
-        return min(b, self.max_pages_per_seq)
+    @staticmethod
+    def _pow2(n: int, cap: int) -> int:
+        """A prefill group's rows padded up JAX's ladder (powers of 4:
+        1, 4, 16, ...), capped: the group shapes ``warmup()`` builds."""
+        g = 1
+        while g < n:
+            g *= 4
+        return min(g, cap)
 
     def _group_cap(self, bucket: int) -> int:
         return max(1, min(self.MAX_PREFILL_GROUP,
                           self.PREFILL_TOKEN_BUDGET // max(bucket, 1)))
 
-    def _decode_buckets(self) -> list[tuple[int, int | None]]:
-        """Every (page bucket, slot bucket) pair a decode chunk reads,
-        narrowest first (both are pow2-or-cap functions of the tokens
-        needed, so powers of two and the cap reach each one)."""
-        ns = [1 << i for i in range(self.max_seq_len.bit_length())] + [self.max_seq_len]
-        return sorted({(self._page_bucket(n), self._slot_bucket(n)) for n in ns},
-                      key=lambda b: (b[0], b[1] or 0))
+    def _decode_buckets(self) -> list[int]:
+        """Page-count buckets up to the per-sequence page budget (JAX
+        ``engine.py:664-684``): ``context_buckets=True`` the powers of two,
+        ``"fine"`` also their 1.5x midpoints, ``False`` the budget alone."""
+        cap = self.max_pages_per_seq
+        if not self.context_buckets:
+            return [cap]
+        fine = self.context_buckets == "fine"
+        out = set()
+        b = 1
+        while b < cap:
+            out.add(b)
+            if fine and 1 < (b * 3) // 2 < cap:
+                out.add((b * 3) // 2)
+            b *= 2
+        out.add(cap)
+        return sorted(out)
+
+    def _slot_buckets(self) -> list[int]:
+        """Token-width buckets of the slot cache (JAX ``engine.py:625-642``):
+        the same ladder from 64 tokens, capped at ``max_seq_len``."""
+        cap = self.max_seq_len
+        if not self.context_buckets:
+            return [cap]
+        fine = self.context_buckets == "fine"
+        out = set()
+        b = 64
+        while b < cap:
+            out.add(b)
+            if fine and 64 < (b * 3) // 2 < cap:
+                out.add((b * 3) // 2)
+            b *= 2
+        out.add(cap)
+        return sorted(out)
+
+    def _page_bucket(self, n_tokens: int) -> int:
+        """The page-table width a chunk needing ``n_tokens`` reads: the first
+        bucket of the ladder that covers them, as ``_dispatch_decode`` walks
+        it (JAX ``engine.py:2305-2326``); the whole budget without
+        ``context_buckets``."""
+        need = -(-n_tokens // self.page_size)
+        if self.context_buckets:
+            for b in self._decode_buckets():
+                if b >= need:
+                    return b
+        return self.max_pages_per_seq
 
     def _slot_bucket(self, n_tokens: int) -> int | None:
-        """Slot mode: the power-of-two context width from 64 covering
-        ``n_tokens`` (capped at ``max_seq_len``), which decode reads; None in
-        paged mode."""
-        if self.cache_mode != "slot":
+        """Slot mode: the context width a chunk needing ``n_tokens`` reads,
+        the first slot bucket that covers them; None (the whole row) in
+        paged mode and without ``context_buckets``."""
+        if self.cache_mode != "slot" or not self.context_buckets:
             return None
-        b = 64
-        while b < n_tokens:
-            b *= 2
-        return min(b, self.max_seq_len)
+        for b in self._slot_buckets():
+            if b >= n_tokens:
+                return b
+        return None
+
+    def _decode_variants(self, max_ctx: int | None = None) -> list[tuple[int, int | None]]:
+        """The (page bucket, slot bucket) pairs of the decode programs
+        ``warmup()`` builds, narrowest first (JAX ``engine.py:1233-1250``):
+        every bucket up to the first one that covers ``max_ctx``."""
+        if self.cache_mode == "slot":
+            buckets = self._slot_buckets() if self.context_buckets else [None]
+            if max_ctx is not None and self.context_buckets:
+                buckets = ([b for b in buckets if b < max_ctx]
+                           + [b for b in buckets if b >= max_ctx][:1])
+            return [(1, b) for b in buckets]
+        buckets = self._decode_buckets()
+        if max_ctx is not None and self.context_buckets:
+            need = -(-max_ctx // self.page_size)
+            buckets = [b for b in buckets if b < need] + [b for b in buckets if b >= need][:1]
+        return [(b, None) for b in buckets]
+
+    def _program(self, P: int, slot_ctx: int | None = None, lane: bool = False,
+                 spec: bool = False, chunk_len: int | None = None) -> DecodeProgram:
+        """The decode program of key ``(P, slot_ctx, lane, spec,
+        chunk_len)`` (JAX ``_decode_program``, ``engine.py:644-662``, plus
+        the page bucket), built on first use; one built after ``warmup()``
+        is counted and reported on stderr."""
+        if self.cache_mode != "slot":
+            slot_ctx = None
+        if self._programs and self._programs_params is not self.params:
+            # the weights were rebound (load_lora_adapter): a graph holds the
+            # old tensors' addresses, so every program is built again, in a
+            # new pool (the allocator retires a pool whose graphs are gone)
+            if self.decode_program == "graph":
+                torch.cuda.synchronize(self.device)
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self._programs.clear()
+        self._programs_params = self.params
+        key = (int(P), slot_ctx, bool(lane), bool(spec), chunk_len)
+        prog = self._programs.get(key)
+        if prog is None:
+            if self._warmed:
+                self.stats["post_warmup_builds"] += 1
+                print(f"[engine] post-warmup decode program build: "
+                      f"(pages,slot_ctx,lane,spec,chunk)={key}", file=sys.stderr)
+            capture = self.decode_program == "graph"
+            if capture and self._graph_pool is None:
+                # one pool and one capture stream for all of the engine's programs
+                self._graph_pool = torch.cuda.graph_pool_handle()
+                self._capture_stream = torch.cuda.Stream(self.device)
+            prog = self._programs[key] = DecodeProgram(
+                key, chunk_body(self, key), capture=capture, generator=self.generator,
+                pool=self._graph_pool, stream=self._capture_stream)
+        return prog
 
     def _free_slot(self) -> _Slot | None:
         """A free row; in slot mode unparked rows first, so parked KV
@@ -761,9 +997,11 @@ class Engine:
                 self._aborts.discard(s.req.request_id)
                 s.stop.finished, s.stop.finish_reason = True, "aborted"
                 self._finish_slot(s, reason="aborted")
-        # queued lane prompts: no chunk is in flight here (each is processed
-        # before the loop returns), so none was dispatched and each is freed
-        # at once, as JAX frees a never-dispatched entry (engine.py:1569-1580)
+        # queued lane prompts: a prompt leaves the queue when a chunk takes
+        # it, so none of these was dispatched and each is freed at once, as
+        # JAX frees a never-dispatched entry (engine.py:1569-1580); one
+        # that a chunk in flight carries is freed when that chunk is read
+        # back (_process_decode)
         keep = []
         for p in self._lane:
             rid = p["req"].request_id
@@ -777,9 +1015,14 @@ class Engine:
                 keep.append(p)
         self._lane = keep
 
-    def _admit(self) -> bool:
+    def _admit(self, defer: bool = False) -> bool:
         """Admit queued requests with batched prefill, one forward per
-        (prompt bucket, group of <= _group_cap rows)."""
+        (prompt bucket, group of <= _group_cap rows), every group dispatched
+        before any is read back (JAX ``engine.py:1582-1717``). ``defer``
+        (admission injection): the newest ``n_inject`` groups' rows are
+        activated without a sync; the next chunk takes their first tokens
+        on the device and :meth:`_drain_inject` reads them back after its
+        dispatch. A mesh engine syncs every group here."""
         prepared = []
         while True:
             slot = self._free_slot()
@@ -819,7 +1062,8 @@ class Engine:
                     fut.set_exception(e)
         if not prepared:
             return False
-        if self.prefill_lane and (any(s.active for s in self.slots) or self._lane):
+        if self.prefill_lane and (any(s.active for s in self.slots) or self._lane
+                                  or self._pending is not None):
             # decode is running: whole prompts with no cached prefix that fit
             # one step ride the lane, up to a chunk's backlog; the rest (and
             # every cold burst) takes batched prefill (JAX engine.py:1643-1662)
@@ -836,17 +1080,45 @@ class Engine:
         groups: dict[int, list] = {}
         for p in prepared:
             groups.setdefault(self._bucket(max(len(p["suffix"]), 1)), []).append(p)
+        handles = []
         for bucket, grp in sorted(groups.items()):
             cap = self._group_cap(bucket)
             for i in range(0, len(grp), cap):
                 sub = grp[i: i + cap]
                 try:
-                    self._prefill_group(bucket, sub)
+                    handles.append(self._prefill_group_dispatch(bucket, sub))
                 except Exception as e:  # fail this group, not the engine
                     traceback.print_exc()
                     for p in sub:
                         self._fail_prepared(p, e)
+        room = self.n_inject - len(self._inject_handles)
+        if defer and self.par is None and room > 0 and handles:
+            # the newest groups: their rows decode from the next chunk on,
+            # which takes their first tokens from the card
+            handles, injected = handles[:-room], handles[-room:]
+            for h in injected:
+                for g, p in enumerate(h["grp"]):
+                    s = p["slot"]
+                    if s.epoch == h["epochs"][g]:
+                        self.seq_lens[s.idx] = len(p["prompt"])
+                        # a row that ends at its first token stays inactive:
+                        # no chunk is queued for it ahead of the next prefill
+                        s.active = (s.stop.n_tokens + 1 < s.stop.max_tokens
+                                    and len(p["prompt"]) + 1 < self.max_seq_len)
+                        self._dirty.add(s.idx)
+            self._inject_handles.extend(injected)
+            self.stats["injected_groups"] += len(injected)
+        for h in handles:
+            self._prefill_group_process_safe(h)
         return True
+
+    def _prefill_group_process_safe(self, h: dict) -> None:
+        try:
+            self._prefill_group_process(h)
+        except Exception as e:  # fail this group, not the engine
+            traceback.print_exc()
+            for p in h["grp"]:
+                self._fail_prepared(p, e)
 
     def _preempt_slot(self, s: _Slot) -> None:
         """Evict an active sequence under page pressure without losing work:
@@ -873,6 +1145,7 @@ class Engine:
         self.allocator.free(s.pages)
         self.page_tables[s.idx, :] = s.idx if self.cache_mode == "slot" else 0
         self.seq_lens[s.idx] = 0
+        self._dirty.add(s.idx)
         s.reset()
 
     def _fail_prepared(self, p: dict, exc: Exception) -> None:
@@ -961,15 +1234,39 @@ class Engine:
         self.min_tokens[b] = (req.min_tokens if resume is None else
                               max(0, req.min_tokens - len(slot.generated)))
         self.prompt_lens[b] = len(prompt)
+        self._dirty.add(b)
         return {"slot": slot, "req": req, "suffix": prompt[cached_len:],
                 "cached_len": cached_len, "prompt": prompt,
                 "pre_gen": len(slot.generated)}
 
     # ------------------------------------------------------------ device work
 
+    def _d2h(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s value as it stands at this point of the stream, copied to
+        pinned host memory behind the work queued so far; read it after
+        :meth:`_event`'s event."""
+        if self.device.type != "cuda":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+
+    def _event(self):
+        """An event recorded behind the work queued so far (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
     def _t(self, a: np.ndarray, dtype=torch.int64) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=self.device, dtype=dtype, non_blocking=True)
+        """A host array on the engine's device, copied asynchronously from
+        pinned memory: PyTorch's pinned-memory cache records an event
+        behind each copy and hands the block out again only once that
+        event shows the copy done."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     def _samp_params(self, rows: np.ndarray, min_tokens=None,
                      tokens_generated=None) -> SamplingParams:
@@ -1033,9 +1330,11 @@ class Engine:
                 and bucket >= self.ring_prefill_len
                 and bucket % self.par.tp == 0)
 
-    def _prefill_group(self, bucket: int, grp: list[dict]) -> None:
+    def _prefill_group_dispatch(self, bucket: int, grp: list[dict]) -> dict:
         """One batched prefill forward + first-token sample for a group of
-        same-bucket requests; folds the first tokens into slot state."""
+        same-bucket requests (JAX ``engine.py:1918-2018``), queued on the
+        card without a sync; the first tokens' copy to the host starts
+        behind it. Returns the handle :meth:`_prefill_group_process` reads."""
         t0 = time.monotonic()
         G = len(grp)
         P = self._page_bucket(max(p["cached_len"] + len(p["suffix"]) for p in grp))
@@ -1054,7 +1353,7 @@ class Engine:
         tables = self.page_tables[rows, :P]
         ring = self._ring_prefill(bucket, self.fresh_prefill)
         self.sp_prefills += int(ring)
-        with self.spans.span("prefill"):
+        with self.spans.span("prefill_dispatch"):
             logits, _ = self._forward(
                 self._t(tokens), self._t(positions), self._t(tables),
                 self._t(seq_lens), logits_indices=self._t(logits_idx),
@@ -1065,16 +1364,30 @@ class Engine:
                 for g, p in enumerate(grp):
                     hist_rows[g, :len(p["prompt"])] = p["prompt"]
                 self.hist[self._t(rows)] = self._t(hist_rows)
-            first_np = first.cpu().numpy()
+            host = self._d2h(first)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += G
+        return {"grp": grp, "first": first, "host": host, "event": self._event(), "t0": t0,
+                "epochs": [p["slot"].epoch for p in grp]}
 
+    def _prefill_group_process(self, h: dict) -> None:
+        """Read one dispatched group's first tokens back and fold them into
+        slot state (JAX ``engine.py:2020-2047``); rows reset since the
+        dispatch are skipped."""
+        grp, t0 = h["grp"], h["t0"]
+        with self.spans.span("prefill_sync"):
+            if h["event"] is not None:
+                h["event"].synchronize()
+            first_np = h["host"].numpy()
         n_prefill = 0
         for g, p in enumerate(grp):
             slot, prompt = p["slot"], p["prompt"]
+            if slot.epoch != h["epochs"][g]:
+                continue   # aborted / reset between the dispatch and this sync
             b = slot.idx
             self.seq_lens[b] = len(prompt)
             self.last_tok[b] = int(first_np[g])
+            self._dirty.add(b)
             slot.active = True
             self._process_chunk(slot, first_np[g: g + 1])
             n_prefill += len(p["suffix"])
@@ -1083,38 +1396,11 @@ class Engine:
             if slot.stop.finished or len(prompt) + new_gen >= self.max_seq_len:
                 self._finish_slot(slot)
         self.stats["prefill_tokens"] += n_prefill
-        self.stats["prefill_time_s"] += time.monotonic() - t0
-
-    def _spec_step(self, last, lens, act, tables, slot_ctx, samp, plens, seen, hist):
-        """One speculative verify step (JAX ``engine.py:814-864``): draft
-        ``spec_k`` tokens a row, one forward over the window ``[last,
-        drafts]`` at positions ``lens..lens+K`` (-1 on inactive rows), one
-        sampler pass over all B·(K+1) positions, exact-match acceptance.
-        ``samp`` holds the per-row sampler params and ``min_tokens``
-        repeated per window position. Marks the emitted tokens in ``seen``
-        and ``hist`` (in place); returns ``(next last token, lens + emitted,
-        window samples [B,K+1], emitted counts [B])``."""
-        K1 = self.spec_k + 1
-        B, S = last.shape[0], self.max_seq_len
-        off = torch.arange(K1, device=last.device)[None, :]
-        draft = ngram_draft(hist[:, :S], lens, self.spec_k, n=self.spec_ngram)
-        win = torch.cat([last[:, None], draft], dim=1)
-        pos = torch.where(act[:, None], lens[:, None] + off, -1)
-        logits, _ = self._forward(win, pos, tables, lens + K1 * act.long(), slot_ctx=slot_ctx)
-        # the window sees the window-start seen set (JAX's documented
-        # approximation); tokens_generated counts each position's own
-        sp = samp._replace(tokens_generated=((lens - plens + 1)[:, None] + off).reshape(-1))
-        t = sample(logits.reshape(B * K1, -1), sp, seen.repeat_interleave(K1, dim=0),
-                   self.generator).reshape(B, K1)
-        ncons, nxt, alive = accept_drafts(t, draft, act)
-        emit = alive & act[:, None]
-        # unemitted positions re-mark a token already present: the row's
-        # first sample (emitted) or, on an inactive row, its last token
-        fill = torch.where(act, t[:, 0], last)[:, None]
-        seen.scatter_(1, torch.where(emit, t, fill), True)
-        posw = lens[:, None] + 1 + off
-        hist.scatter_(1, torch.where(emit & (posw < S), posw, S), t)
-        return torch.where(act, nxt, last), lens + ncons, t, ncons
+        # the union of [t0, now] with what is counted already: groups
+        # dispatched back to back overlap
+        now = time.monotonic()
+        self.stats["prefill_time_s"] += now - max(t0, self._prefill_clock)
+        self._prefill_clock = now
 
     def _plan_lane(self, chunk: int) -> dict:
         """Take queued lane prompts onto this chunk's steps (JAX
@@ -1134,7 +1420,8 @@ class Engine:
             pos[:take] = np.arange(take)
             per_step[step] = {"slot": p["slot"].idx, "toks": toks, "pos": pos,
                               "row": take - 1}
-            acts.append({"i": step, "step": step, "slot": p["slot"].idx, "p": p})
+            acts.append({"i": step, "step": step, "slot": p["slot"].idx, "p": p,
+                         "epoch": p["slot"].epoch})
         return {"per_step": per_step, "acts": acts,
                 "n_tokens": sum(len(p["suffix"]) for p in taken),
                 "max_tokens_needed": max((len(p["suffix"]) + 1 for p in taken), default=0)}
@@ -1160,44 +1447,168 @@ class Engine:
             act_slots[a["i"]], act_steps[a["i"]] = a["slot"], a["step"]
         return toks, pos, tabs, rows, act_slots, act_steps
 
-    def _trim(self, active: np.ndarray, buckets: tuple) -> bool:
+    def _trim(self, active: np.ndarray, buckets: tuple, done_adv=None) -> bool:
         """Whether this chunk runs half length (JAX ``engine.py:2327-2361``):
         only at a bucket ``warmup()`` registered, and when the rows within
-        half a chunk of their ``max_tokens`` reach the threshold —
+        half a chunk of their ``max_tokens`` (counting ``done_adv`` [B],
+        the tokens of the chunk in flight) reach the threshold —
         ``trim_min_rows`` where set, else the rows whose saved half chunk
         pays the extra inter-chunk gap (``gap·max_slots / (half·step
-        wall)``, both measured by this loop), else ``max_slots // 8`` while
-        they are unmeasured."""
+        wall)``: the measured exposed gap, ``churn_rtt_s`` before one is
+        measured), else ``max_slots // 8`` while no chunk is timed."""
         if not self.chunk_trim or buckets not in self._trim_warm:
             return False
         half = self._trim_chunk
-        n_near = sum(1 for s in self.slots
-                     if active[s.idx] and 0 < s.stop.max_tokens - s.stop.n_tokens <= half)
+        n_near = 0
+        for s in self.slots:
+            if active[s.idx]:
+                done = s.stop.n_tokens + (0 if done_adv is None else int(done_adv[s.idx]))
+                n_near += 0 < s.stop.max_tokens - done <= half
         if self.trim_min_rows is not None:
             thr = self.trim_min_rows
-        elif self._chunk_ema > 0.0 and self._gap_ema > 0.0:
+        elif self._chunk_ema > 0.0:
+            gap = self._gap_ema if self._gap_ema > 0.0 else self.churn_rtt_s
             step_wall = self._chunk_ema / self.decode_chunk_len
-            thr = self._gap_ema * self.max_slots / max(half * step_wall, 1e-9)
+            thr = gap * self.max_slots / max(half * step_wall, 1e-9)
         else:
             thr = self.max_slots // 8
         return n_near >= thr
 
-    def _decode_chunk(self) -> None:
-        """Run one decode chunk over every slot row, with the prefill lane's
-        prompts on its first steps, and fold its tokens in."""
-        t0 = time.monotonic()
-        chunk, adv = self.decode_chunk_len, self._max_adv
+    def _can_speculate(self, h: dict) -> bool:
+        """Worth dispatching the next chunk before reading ``h`` back (JAX
+        ``engine.py:2145-2160``)? Only if lane work is queued or some row
+        stepped in ``h`` certainly still wants tokens after it."""
+        if self._lane:
+            return True   # lane prompts keep a pipelined chunk productive
+        adv = self._max_adv
+        for s in self.slots:
+            if not s.active or not h["active"][s.idx] or h["epochs"][s.idx] != s.epoch:
+                continue
+            if (s.stop.max_tokens - s.stop.n_tokens > adv
+                    and int(self.seq_lens[s.idx]) + 2 * adv < self.max_seq_len):
+                return True
+        return False
+
+    def _churn_imminent(self, h: dict) -> bool:
+        """Will too many rows complete during ``h`` (JAX
+        ``engine.py:2162-2201``)? A pipelined chunk is dispatched before
+        ``h``'s completions are read, so each freed row rides it idle;
+        skipping exposes the gap to the whole batch. Pipeline while
+        ``n <= max_slots · rtt / chunk wall``: ``rtt`` the measured exposed
+        gap, ``churn_rtt_s`` before one is measured (``churn_rtt_s = 0``:
+        skip on any completing row), and ``n > max_slots // 16`` while no
+        chunk is timed. Rows near the length cap count as completing."""
+        adv, n = self._max_adv, 0
+        for s in self.slots:
+            if not s.active or not h["active"][s.idx] or h["epochs"][s.idx] != s.epoch:
+                continue
+            if (s.stop.max_tokens - s.stop.n_tokens <= adv
+                    or int(self.seq_lens[s.idx]) + 2 * adv >= self.max_seq_len):
+                n += 1
+        if n == 0:
+            return False
+        if self._chunk_ema <= 0.0:
+            return n > max(1, self.max_slots // 16)
+        rtt = (self._gap_ema if self._gap_ema > 0.0 and self.churn_rtt_s > 0.0
+               else self.churn_rtt_s)
+        return n > self.max_slots * rtt / self._chunk_ema
+
+    def _drain_inject(self) -> None:
+        """Read back every injected prefill group (JAX ``engine.py:2222-2236``).
+        Called after each dispatch attempt: a handle feeds at most one
+        chunk, whose carry then holds the rows' live state (a second
+        injection would overwrite it with the stale first token)."""
+        handles, self._inject_handles = self._inject_handles, []
+        for h in handles:
+            self._prefill_group_process_safe(h)
+
+    def _upload_rows(self, valid: np.ndarray) -> None:
+        """The dirty rows' host state into the static buffers, queued before
+        the replay (so after every earlier chunk): page tables, sampler
+        fields, ``min_tokens`` and ``prompt_lens`` of each, and ``last`` /
+        ``lens`` of those not ``valid`` in the carry (where the device is
+        ahead of the host)."""
+        if not self._dirty:
+            return
+        rows = np.fromiter(sorted(self._dirty), np.int64)
+        self._dirty.clear()
+        state = rows[~valid[rows]]
+        h, k, m, P = self.samp_host, len(rows), len(state), self.max_pages_per_seq
+        ints = np.concatenate([rows, self.page_tables[rows].reshape(-1), self.min_tokens[rows],
+                               self.prompt_lens[rows], h["top_k"][rows], state,
+                               self.last_tok[state], self.seq_lens[state]]).astype(np.int64)
+        flts = np.concatenate([h[f][rows] for f in ("temperature", "top_p", "min_p",
+                                                    "repetition_penalty")])
+        di, df = self._t(ints), self._t(flts, torch.float32)
+        bf = self._bufs
+        r, o = di[:k], k
+        bf.tables.index_copy_(0, r, di[o: o + k * P].view(k, P))
+        o += k * P
+        for buf in (bf.min_tokens, bf.prompt_lens, bf.top_k):
+            buf.index_copy_(0, r, di[o: o + k].to(buf.dtype))
+            o += k
+        for i, buf in enumerate((bf.temperature, bf.top_p, bf.min_p, bf.repetition_penalty)):
+            buf.index_copy_(0, r, df[i * k: (i + 1) * k])
+        if m:
+            sr = di[o: o + m]
+            bf.last.index_copy_(0, sr, di[o + m: o + 2 * m])
+            bf.lens.index_copy_(0, sr, di[o + 2 * m: o + 3 * m])
+
+    def _upload_step(self, active: np.ndarray) -> None:
+        """The chunk's active rows and the injected groups' rows in one copy
+        (row ``max_slots``: dropped; a row reset since its admission stays
+        dropped), and the groups' first tokens device to device."""
+        bf, B = self._bufs, self.max_slots
+        rows = np.full(tuple(bf.inj_rows.shape), B, np.int64)
+        for gi, h in enumerate(self._inject_handles[:self.n_inject]):
+            for g, p in enumerate(h["grp"]):
+                if p["slot"].epoch == h["epochs"][g]:
+                    rows[gi, g] = p["slot"].idx
+            bf.inj_toks[gi, :len(h["grp"])].copy_(h["first"])
+        d = self._t(np.concatenate([active.astype(np.int64), rows.reshape(-1)]))
+        bf.act.copy_(d[:B])
+        bf.inj_rows.copy_(d[B:].view(bf.inj_rows.shape))
+
+    def _upload_lane(self, plan: dict, chunk: int, P: int) -> None:
+        """A lane plan (:meth:`_lane_arrays`) into the lane buffers."""
+        arrs = self._lane_arrays(plan, chunk, P)
+        d = self._t(np.concatenate([a.reshape(-1) for a in arrs]).astype(np.int64))
+        bf, o = self._bufs, 0
+        for buf in (bf.ltok, bf.lpos, bf.ltab[:, :P], bf.lrow, bf.act_slots, bf.act_steps):
+            n = buf.numel()
+            buf.copy_(d[o: o + n].view(buf.shape))
+            o += n
+
+    def _dispatch_decode(self, carry: dict | None) -> dict | None:
+        """Dispatch one decode chunk (JAX ``engine.py:2238-2459``); returns
+        the handle :meth:`_process_decode` reads back, or None when there is
+        nothing to run or a page preemption would have to wait for
+        ``carry``'s results. ``carry`` is the chunk still in flight: rows
+        stepped in it and not reset since decode on from its device carry,
+        at lengths predicted as ``seq_lens`` + its advance."""
+        t_prep = time.monotonic()
+        chunk, adv, B = self.decode_chunk_len, self._max_adv, self.max_slots
+        valid = np.zeros((B,), bool)
+        if carry is not None:
+            for s in self.slots:
+                valid[s.idx] = (s.active and carry["active"][s.idx]
+                                and carry["epochs"][s.idx] == s.epoch)
+        carry_adv = np.where(valid, carry["adv"], 0) if carry is not None else None
+        predicted = self.seq_lens + (0 if carry_adv is None else carry_adv)
         active = np.array([s.active for s in self.slots], bool)
         # a row whose positions could leave the page budget is not stepped
-        active &= self.seq_lens + adv + 1 <= self.max_seq_len
+        active &= predicted + adv + 1 <= self.max_seq_len
         for s in self.slots:   # page headroom for this chunk (paged mode only)
             if not active[s.idx] or self.cache_mode == "slot":
                 continue
-            need_pages = -(-int(self.seq_lens[s.idx] + chunk + 1) // self.page_size)
+            need_pages = -(-int(predicted[s.idx] + adv + 1) // self.page_size)
             have = len(s.shared_pages) + len(s.pages)
             if need_pages > have:
                 extra = need_pages - have
                 if not self._ensure_pages(extra):
+                    if carry is not None:   # decide after reading the carry back
+                        self.spans.add("decode_prep", time.monotonic() - t_prep)
+                        return None
                     if sum(1 for x in self.slots if x.active) > 1:
                         self._preempt_slot(s)  # requeue behind the survivors
                     else:   # nothing else will ever free pages
@@ -1208,97 +1619,74 @@ class Engine:
                 new = self.allocator.alloc(extra)
                 self.page_tables[s.idx, have: have + extra] = new
                 s.pages.extend(new)
+                self._dirty.add(s.idx)
         plan = self._plan_lane(chunk) if self.prefill_lane else None
         acts = plan["acts"] if plan else []
         if not active.any() and not acts:
-            return
-        need = int(np.max(np.where(active, self.seq_lens, 0))) + adv + 1
+            self.spans.add("decode_prep", time.monotonic() - t_prep)
+            return None
+        need = int(np.max(np.where(active, predicted, 0))) + adv + 1
         if acts:
             need = max(need, plan["max_tokens_needed"])
-        P = self._page_bucket(need)
-        slot_ctx = self._slot_bucket(need)
-        if self._trim(active, (P, slot_ctx)):
+        P, slot_ctx = self._page_bucket(need), self._slot_bucket(need)
+        if self._trim(active, (P, slot_ctx), carry_adv):
             chunk = self._trim_chunk
             self.stats["trim_chunks"] += 1
-        if self._gap_from is not None:
-            # the host's time between the last chunk and this one, less the
-            # prefill it ran meanwhile: what a trimmed chunk costs again
-            t_end, pf0 = self._gap_from
-            gap = (time.monotonic() - t_end) - (self.stats["prefill_time_s"] - pf0)
-            self._gap_from = None
-            if 0.0 < gap < 0.5:   # longer: the engine waited for clients
-                self._gap_ema = gap if self._gap_ema == 0.0 else 0.8 * self._gap_ema + 0.2 * gap
-
-        B = self.max_slots
-        rows = np.arange(B)
         spec = self.speculative is not None
-        with self.spans.span("decode"):
-            tables = self._t(self.page_tables[:, :P])
-            last = self._t(self.last_tok)
-            lens = self._t(self.seq_lens)
-            act = self._t(active, torch.bool)
-            plens = self._t(self.prompt_lens)
-            toks, cnts = [], []
-            if spec:
-                rows_r = np.repeat(rows, self.spec_k + 1)
-                samp = self._samp_params(rows_r, min_tokens=self._t(self.min_tokens[rows_r]))
-                # invariant: hist[b, lens[b]] == last[b] (JAX engine.py:803-806)
-                self.hist[torch.arange(self.max_slots, device=self.device),
-                          lens.clamp(0, self.max_seq_len - 1)] = last
-                for _ in range(chunk):
-                    last, lens, t, ncons = self._spec_step(
-                        last, lens, act, tables, slot_ctx, samp, plens, self.seen, self.hist)
-                    toks.append(t)
-                    cnts.append(ncons)
-                cnts_np = torch.stack(cnts, dim=1).cpu().numpy()   # [B, chunk]
-            else:
-                samp = self._samp_params(rows, min_tokens=self._t(self.min_tokens))
-                act_i = act.long()
-                if acts:
-                    ltok, lpos, ltab, lrow, act_slots, _ = self._lane_arrays(plan, chunk, P)
-                    ltok, lpos, ltab, lrow = map(self._t, (ltok, lpos, ltab, lrow))
-                lane_logits = []
-                for i in range(chunk):
-                    sp = samp._replace(tokens_generated=lens - plens + 1)
-                    pos = torch.where(act, lens, torch.full_like(lens, -1))[:, None]
-                    lane = ({} if i >= len(acts) else
-                            dict(lane_tokens=ltok[i], lane_positions=lpos[i],
-                                 lane_table=ltab[i], lane_logit_row=lrow[i]))
-                    logits, _ = self._forward(last[:, None], pos, tables, lens + act_i,
-                                              slot_ctx=slot_ctx, **lane)
-                    if lane:
-                        lane_logits.append(logits[B, 0])
-                    nxt = sample(logits[:B, 0], sp, self.seen, self.generator)
-                    nxt = torch.where(act, nxt, last)
-                    update_seen(self.seen, nxt)
-                    lens = lens + act_i
-                    last = nxt
-                    toks.append(nxt)
-                if acts:
-                    # the first token of each prompt the lane completed
-                    act_rows = act_slots[:len(acts)].astype(np.int64)
-                    first = self._sample_first(torch.stack(lane_logits), act_rows,
-                                               [a["p"]["prompt"] for a in acts])
-            # the sync point: [B, chunk] tokens, [B, chunk, K+1] under speculation
-            toks_np = torch.stack(toks, dim=1).cpu().numpy()
-            last_np = last.cpu().numpy()
-            lens_np = lens.cpu().numpy()
-            first_np = first.cpu().numpy() if acts else None
+        with self.spans.span("decode_dispatch"):
+            self._upload_rows(valid)
+            self._upload_step(active)
+            if acts:
+                self._upload_lane(plan, chunk, P)
+            prog = self._program(P, slot_ctx, lane=bool(acts), spec=spec,
+                                 chunk_len=chunk if chunk != self.decode_chunk_len else None)
+            self.spans.add("decode_prep", time.monotonic() - t_prep)
+            out = prog()
+            # the outputs and the carry as this chunk leaves them, copied
+            # back behind it (the next chunk overwrites them in place)
+            host = {k: self._d2h(v) for k, v in out.items()}
+            host["last"], host["lens"] = self._d2h(self._bufs.last), self._d2h(self._bufs.lens)
         self.stats["slot_steps"] += int(active.sum()) * chunk
+        if self._gap_armed:
+            self._gap_armed = False
+            if carry is None:
+                # the host's time between the last read-back and this
+                # dispatch, less the prefill it queued meanwhile
+                gap = (time.monotonic() - self._gap_t0) - (
+                    self.spans.totals.get("prefill_dispatch", 0.0) - self._gap_pf0)
+                if 0.0 < gap < 0.5:   # longer: the engine waited for clients
+                    self._gap_ema = gap if self._gap_ema == 0.0 else 0.8 * self._gap_ema + 0.2 * gap
+                    self.spans.add("exposed_gap", gap)
+        # the chunk's busy window opens with its host prep: an eager body
+        # (CPU, mesh) runs inside the dispatch
+        return {"active": active, "chunk": chunk, "adv": adv if spec else chunk,
+                "epochs": [s.epoch for s in self.slots], "host": host,
+                "event": self._event(), "acts": acts,
+                "lane_tokens_n": plan["n_tokens"] if acts else 0, "t_dispatch": t_prep}
 
-        n_new = 0
+    def _process_decode(self, h: dict) -> None:
+        """Read one chunk back and fold its tokens in (JAX
+        ``engine.py:2461-2579``): rows stepped in it and not reset since
+        take its tokens; the lane's completed prompts are activated (one
+        aborted meanwhile is freed instead)."""
+        with self.spans.span("decode_sync"):
+            if h["event"] is not None:
+                h["event"].synchronize()
+            o = {k: v.numpy() for k, v in h["host"].items()}
+        t_merge = time.monotonic()
+        spec, adv, n_new = "cnts" in o, self._max_adv, 0
         for s in self.slots:
-            if not s.active or not active[s.idx]:
-                continue
-            self.last_tok[s.idx] = last_np[s.idx]
-            self.seq_lens[s.idx] = lens_np[s.idx]
+            if not s.active or not h["active"][s.idx] or h["epochs"][s.idx] != s.epoch:
+                continue   # finished / aborted / re-admitted since the dispatch
+            self.last_tok[s.idx] = o["last"][s.idx]
+            self.seq_lens[s.idx] = o["lens"][s.idx]
             if spec:
                 # variable emission: each step's window tokens up to its count
-                c, wins = cnts_np[s.idx], toks_np[s.idx]
+                c, wins = o["cnts"][s.idx], o["toks"][s.idx]
                 emitted = int(c.sum())
                 arr = wins[np.arange(wins.shape[1])[None, :] < c[:, None]]
             else:
-                emitted, arr = chunk, toks_np[s.idx]
+                emitted, arr = h["chunk"], o["toks"][s.idx]
             consumed = self._process_chunk(s, arr)
             n_new += consumed
             if s.stop.finished:
@@ -1307,27 +1695,56 @@ class Engine:
                 self._finish_slot(s)
             elif self.seq_lens[s.idx] + adv >= self.max_seq_len:
                 self._finish_slot(s, reason="length")
-        for a in acts:   # activate the lane's prompts (JAX engine.py:2522-2541)
-            p, f = a["p"], first_np[a["i"]: a["i"] + 1]
-            s = p["slot"]
+        for a in h["acts"]:   # the lane's prompts (JAX engine.py:2522-2541)
+            p = a["p"]
+            s, rid = p["slot"], p["req"].request_id
+            if s.epoch != a["epoch"] or s.req is None:
+                continue
+            if rid in self._aborts:   # aborted while its chunk was in flight
+                self._aborts.discard(rid)
+                fut = s.future
+                self._release(s)
+                if fut is not None and not fut.done():
+                    fut.cancel()
+                continue
+            f = o["act_first"][a["i"]: a["i"] + 1]
             self.seq_lens[s.idx] = len(p["prompt"])
             self.last_tok[s.idx] = int(f[0])
+            self._dirty.add(s.idx)
             s.active = True
             self._process_chunk(s, f)
             self.stats["requests"] += 1
             self.stats["prefill_tokens"] += len(p["suffix"])
             if s.stop.finished or len(p["prompt"]) + 1 >= self.max_seq_len:
                 self._finish_slot(s)
-        if acts:   # one first-token sample a chunk that carried the lane
-            self.stats["lane_tokens"] += plan["n_tokens"]
+        if h["acts"]:   # one first-token sample a chunk that carried the lane
+            self.stats["lane_tokens"] += h["lane_tokens_n"]
             self.stats["lane_chunks"] += 1
+        now = time.monotonic()
+        self.spans.add("decode_merge", now - t_merge)
         self.stats["decode_tokens"] += n_new
         self.stats["decode_steps"] += 1
-        busy = time.monotonic() - t0
+        # busy time is the union of [dispatch, read-back] windows, so
+        # pipelined chunks do not count their overlap twice
+        busy = now - max(h["t_dispatch"], self._last_decode_end)
         self.stats["decode_time_s"] += busy
+        self._last_decode_end = now
         self._chunk_ema = busy if self._chunk_ema == 0.0 else 0.8 * self._chunk_ema + 0.2 * busy
-        if any(s.active for s in self.slots):
-            self._gap_from = (time.monotonic(), self.stats["prefill_time_s"])
+        # arm the exposed-gap measurement when the next chunk is not
+        # pipelined and rows remain (a drained batch waits on clients)
+        if not self._gap_spec and any(s.active for s in self.slots):
+            self._gap_armed = True
+            self._gap_t0 = now
+            self._gap_pf0 = self.spans.totals.get("prefill_dispatch", 0.0)
+
+    def _decode_chunk(self) -> None:
+        """One chunk dispatched from the host state and read back, with the
+        injected groups drained in between (the serial step the tests drive
+        by hand)."""
+        h = self._dispatch_decode(None)
+        self._drain_inject()
+        if h is not None:
+            self._process_decode(h)
 
     # ----------------------------------------------------------- host merge
 

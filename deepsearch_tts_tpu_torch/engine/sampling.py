@@ -107,5 +107,5 @@ def sample(logits: torch.Tensor, params: SamplingParams, seen: torch.Tensor,
 
 def update_seen(seen: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Mark newly produced tokens [B] in the presence mask [B, V] (in place)."""
-    seen[torch.arange(tokens.shape[0], device=seen.device), tokens.long()] = True
-    return seen
+    # a scatter of the scalar: no host value is copied (a CUDA graph captures it)
+    return seen.scatter_(1, tokens.long()[:, None], True)

@@ -149,7 +149,10 @@ def route_v3(x, router_w, bias, cfg: DeepSeekV3Config):
         top_groups = grp_score.topk(cfg.topk_group, dim=-1).indices
         gmask = torch.zeros((T, G), dtype=torch.bool, device=x.device)
         gmask.scatter_(1, top_groups, True)
-        sel = sel.masked_fill(~gmask.repeat_interleave(per, dim=1), float("-inf"))
+        # each group's flag over its experts (a broadcast: a CUDA graph
+        # captures no host-side size computation)
+        sel = sel.masked_fill(~gmask[:, :, None].expand(T, G, per).reshape(T, G * per),
+                              float("-inf"))
     top_e = sel.topk(cfg.top_k, dim=-1).indices
     w = torch.gather(scores, 1, top_e)
     w = w / w.sum(-1, keepdim=True).clamp(min=1e-9)

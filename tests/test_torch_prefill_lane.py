@@ -661,9 +661,9 @@ def test_chunk_trim_min_rows_override_and_warm_buckets(dense, cache_mode):
     assert cold.stats["trim_chunks"] == 0           # no warmup: no bucket registered
     eng = _tengine(name, tp, chunk_trim=True, **kw)
     eng.warmup()
-    assert eng._trim_warm == set(eng._decode_buckets()[-2:])
+    assert eng._trim_warm == set(eng._decode_variants()[-2:])
     eng.trim_min_rows = 1
-    eng._trim_warm = set(eng._decode_buckets())     # every bucket: the run's too
+    eng._trim_warm = set(eng._decode_variants())    # every bucket: the run's too
     got = _trim_by_hand(eng)
     assert got.token_ids == want.token_ids and eng.stats["trim_chunks"] == 1
     assert eng.stats["slot_steps"] == 8 + 4
@@ -696,9 +696,11 @@ def test_chunk_trim_gate_amortises_the_gap(dense):
                                 dict(cache_mode="slot", max_seq_len=128),
                                 dict(cache_mode="slot", max_seq_len=48)])
 def test_decode_buckets_are_every_bucket_a_chunk_reads(dense, kw):
+    """The (page bucket, slot bucket) pairs ``warmup()`` builds programs
+    for are exactly those a chunk reads, narrowest first."""
     name, _, tp = dense
     eng = _tengine(name, tp, **dict(kw, n_pages=64))
     every = {(eng._page_bucket(n), eng._slot_bucket(n)) for n in range(1, eng.max_seq_len + 1)}
-    got = eng._decode_buckets()
+    got = eng._decode_variants()
     assert set(got) == every and len(got) == len(every)
     assert got[-1] == (eng._page_bucket(eng.max_seq_len), eng._slot_bucket(eng.max_seq_len))
