@@ -51,9 +51,9 @@ Phases, each raising on failure (non-zero exit, no final line):
    first tokens in one call), the in-process stream teacher-forced through
    the no-cache forward;
 4a. programs, in every serve and slot-serve phase right after the engine's
-   ``warmup()`` (``--programs-only``: seven engines built for it alone,
-   warmed to ``max_ctx=512``: qwen3-8b paged with the CLI's defaults, slot
-   and speculative slot; qwen3-30b-a3b bf16 paged and int8; qwen3-32b
+   ``warmup()`` (``--programs-only``: eight engines built for it alone,
+   warmed to ``max_ctx=512``: qwen3-8b paged with the CLI's defaults, slot,
+   speculative slot and paged ``"pallas"``; qwen3-30b-a3b bf16 paged and int8; qwen3-32b
    int8 with int8 KV; deepseek-v3 at 5 layers, slot): every decode
    program the warmup built is a captured CUDA graph; the narrowest
    bucket's program (and its lane variant) replayed and held to the eager
@@ -61,10 +61,17 @@ Phases, each raising on failure (non-zero exit, no final line):
    tokens, carry, seen mask and history equal, greedy and seeded at
    temperature 0.7, one replay moving the launch counters as one eager run
    does; ms a chunk of each (replay, eager), the programs, their capture
-   seconds and the graph pool's MiB. The serve phases then read their
-   counters with no chunk in flight (a pipelined chunk counts at its
-   dispatch) and log the chunks pipelined, the prefill groups injected and
-   the post-warmup builds (0 required on the qwen3-8b CLI engine);
+   seconds and the graph pool's MiB. Then the prefill programs (the
+   ``--programs-only`` engines and the paged ``"pallas"`` one): every one
+   a captured CUDA graph, the narrowest and the widest warmed key replayed
+   and held to its eager body on a group of the idle engine's rows (first
+   tokens greedy and seeded, the written KV bit for bit, the seen mask and
+   history), the trace check (K2, B5, both expert forms), ms a prefill
+   replayed and eager. The serve phases run the CLI's ``--warmup 64``
+   (programs, capture seconds and pool MiB logged) and warm the longer
+   prompts' prefill programs on top, then read their counters with no chunk in flight (a pipelined
+   chunk counts at its dispatch) and log the chunks pipelined, the prefill
+   groups injected and by size, and the post-warmup builds (0 required);
 5. reference: the same weights' paged prefill + fused decode logits against
    the plain no-cache forward on a short input;
 6. slot serve: ``Engine(cache_mode="slot", prefill_lane=16)`` on the same
@@ -195,8 +202,9 @@ Phases, each raising on failure (non-zero exit, no final line):
     rows past an expert's capacity that a one-token decode step keeps);
     released (< 1 GiB);
 14. int8 serve, after the qwen3-30b-a3b weights are released: qwen3-32b
-    (full width, random weights from seed 0 drawn and quantized one matrix
-    at a time, 33.6 GB) with ``quantize="int8"`` and ``kv_quantize="int8"``,
+    (full width, 16 of its 64 layers: ``I8_SERVE``, registered here;
+    random weights from seed 0 drawn and quantized one matrix at a time)
+    with ``quantize="int8"`` and ``kv_quantize="int8"``,
     the CLI's paged cache and prefix cache, over HTTP as phase 4: B12 once
     per quantized matrix at build, B10 once per layer and decode step;
 15. int8 reference: its serving logits against the no-cache forward on the
@@ -251,8 +259,10 @@ Phases, each raising on failure (non-zero exit, no final line):
     logits held to the no-cache forward with ``plain_experts``;
 22. MLA slot serve: phase 6 on the same weights, K3 through B1's entry
     once per layer and decode step, K1 (B1 at D = 128) never;
-23. MLA paged ``attn_impl="pallas"``: a short run whose decode takes K3
-    through ``pallas_paged_attention``; then slot and paged prefill + K3
+23. MLA paged ``attn_impl="pallas"``: ``warmup(prompt_lens=(64, 128))``
+    at every page width (programs and pool MiB logged), then a short run
+    whose decode takes K3 through ``pallas_paged_attention``, with no
+    post-warmup build; then slot and paged prefill + K3
     decode against the no-cache forward; the weights are released and
     less than 1 GiB may stay allocated.
 24. parallel (``phase_parallel``), on the card that now holds nothing
@@ -348,8 +358,15 @@ MOE_SERVE_LAYERS = 8
 MOE_SERVE = f"{MOE_MODEL}-{MOE_SERVE_LAYERS}-layers"
 LIBS = ("fused_layer", "attention", "quant", "moe_i8")
 LONG_TEXT = "The search returned a page about the rivers of Europe. " * 55
-# qwen3-32b widths (models/qwen3.py QWEN3_CONFIGS): the int8 slice's model
+# qwen3-32b widths (models/qwen3.py QWEN3_CONFIGS): the int8 slice's model,
+# served at 16 of its 64 layers (registered here under their own name), so
+# that the whole smoke, whose engines now capture their prefill programs
+# too, stays within its time: at 64 layers the int8 phase took 162.1 s and
+# the whole smoke 918.9 s (H100, PERF.md). A full-depth run sets both
+# names: ``c.I8_SERVE_LAYERS = 64; c.I8_SERVE = "qwen3-32b-64-layers"``
 I8_MODEL = "qwen3-32b"
+I8_SERVE_LAYERS = 16
+I8_SERVE = f"{I8_MODEL}-{I8_SERVE_LAYERS}-layers"
 Q_E, Q_H, Q_KV, Q_F = 5120, 64, 8, 25600
 # the least time of a call: bytes over the HBM rate, operations over the
 # peak rate of their type (H100 SXM5 80 GB data sheet, dense, 700 W)
@@ -2311,8 +2328,9 @@ def _release(engine) -> dict:
     engine.shutdown()
     params = engine.params
     engine.k_pages = engine.v_pages = engine.k_scales = engine.v_scales = None
-    engine.seen = engine._seen_ext = engine.hist = None
+    engine.seen = engine._seen_ext = engine.hist = engine._hist_ext = None
     engine._programs.clear()   # the graphs hold the graph pool
+    engine._prefill_programs.clear()
     gc.collect()
     torch.cuda.empty_cache()
     return params
@@ -2353,9 +2371,13 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     t0 = time.time()
     engine = _engine(params, model=model, cache_mode="slot", **(SPEC_KW if spec else {}),
                      prefill_lane=LANE if lane else 0)
-    # every bucket the phase's requests reach (prompts under 128 tokens, at
-    # most 160 generated)
+    # every bucket the phase's requests reach (at most 160 tokens generated;
+    # prompts of up to 64 tokens in groups of up to 16, the lane's and the
+    # raw completions' in groups of up to 4, the multi-turn's first turn of
+    # 350 alone; the slot cache reads one page-table width)
     engine.warmup(prompt_lens=(64,), max_ctx=1024)
+    engine.warmup(prompt_lens=(16, 32), group_sizes=(1, 4), decode=False)
+    engine.warmup(prompt_lens=(512,), group_sizes=(1,), decode=False)
     log(f"[{tag}] engine built and warmed in {time.time() - t0:.1f} s; attn_impl="
         f"{engine.attn_impl}; memory allocated "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -2462,7 +2484,9 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
             log(f"[{tag}] decode programs: {engine.telemetry()['decode_program']}; "
                 f"{out['pipelined_chunks']} chunks pipelined of "
                 f"{st1['decode_steps'] - st0['decode_steps']}; post-warmup builds "
-                f"{out['post_warmup_builds']}")
+                f"{out['post_warmup_builds']}; prefill groups "
+                f"{st1.get('prefill_group_hist')}")
+            assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
             log(f"[{tag}] park hits {st1['slot_park_hits'] - st0['slot_park_hits']}")
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
@@ -2599,9 +2623,10 @@ def phase_int8_lane(params: dict) -> dict:
     from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
     from deepsearch_tts_tpu_torch.engine.kvcache import init_kv_pages, init_kv_scales
     from deepsearch_tts_tpu_torch.models import qwen3
+    from deepsearch_tts_tpu_torch.models.registry import get_model
     from deepsearch_tts_tpu_torch.ops import fused_layer as fl
 
-    cfg, dev = qwen3.QWEN3_CONFIGS[I8_MODEL], torch.device("cuda")
+    cfg, dev = get_model(I8_SERVE).config, torch.device("cuda")
     B, L = 64, cfg.n_layers
     gen = torch.Generator(device=dev).manual_seed(19)
     toks = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device=dev)
@@ -2645,7 +2670,7 @@ def phase_int8_lane(params: dict) -> dict:
     from deepsearch_tts_tpu_torch.engine.engine import Engine
     from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
 
-    engine = Engine(I8_MODEL, ByteTokenizer(), params=params, device="cuda", quantize="int8",
+    engine = Engine(I8_SERVE, ByteTokenizer(), params=params, device="cuda", quantize="int8",
                     kv_quantize="int8", max_slots=B, prefill_lane=LANE, page_size=64,
                     n_pages=64, max_seq_len=1024, decode_chunk_len=8)
 
@@ -2698,7 +2723,7 @@ def phase_trim(params: dict) -> dict:
         engine = Engine("qwen3-8b", ByteTokenizer(), params=params, device="cuda",
                         max_slots=SLOTS, max_seq_len=128, page_size=64, n_pages=16,
                         decode_chunk_len=8, chunk_trim=trim)
-        engine.warmup(prompt_lens=(64,))
+        engine.warmup(prompt_lens=(32,))   # the three prompts: bucket 32, 4 rows
         engine.trim_min_rows = 1
         prompt = engine.tokenizer.encode("Trim: the rivers of Europe.")
         reqs = [GenerationRequest(prompt_ids=prompt + [i], max_tokens=n, **GREEDY)
@@ -2810,7 +2835,8 @@ def phase_pallas_serve(card: str, params: dict, xla_long_s: float) -> dict:
     engine = _engine(params, attn_impl="pallas", enable_prefix_cache=False,
                      page_size=64, n_pages=1024)
     engine.warmup(prompt_lens=(64,))
-    cfg, out = engine.cfg, {}
+    engine.warmup(prompt_lens=(CTX,), group_sizes=(1,), decode=False)   # the long prompt
+    cfg, out = engine.cfg, {"prefill": _check_prefill_programs("pallas", engine)}
     try:
         with _serve_http(engine) as base:
             def chat(content, **kw):
@@ -2878,8 +2904,16 @@ def phase_mla_pallas(card: str, params: dict) -> dict:
     from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
     from deepsearch_tts_tpu_torch.ops import paged_attention as pa
 
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
     engine = _engine(params, model=MLA_MODEL, attn_impl="pallas", page_size=64, n_pages=256)
-    engine.warmup(prompt_lens=(64,))
+    engine.warmup(prompt_lens=(64, 128))   # prompts of 36 to 124 tokens
+    progs = list(engine._prefill_programs.values())
+    log(f"[mla-pallas] warmup: {len(engine._programs)} decode and {len(progs)} prefill "
+        f"programs, the prefill ones captured in {sum(p.capture_s for p in progs):.2f} s; "
+        f"graph pool {_pool_mib(engine)} MiB; peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     counters = {**_counters(MLA_MODEL), "paged_attention_latent": pa.paged_attention_latent,
                 "pallas_paged_attention": pa.pallas_paged_attention}
     out: dict = {}
@@ -2895,6 +2929,8 @@ def phase_mla_pallas(card: str, params: dict) -> dict:
         assert all(len(r.token_ids) >= 1 for r in res)
         out["launches"] = _check_launches("mla-pallas", engine, counters, st0, st1,
                                           idle=("pallas_paged_attention",))
+        out["post_warmup_builds"] = st1["post_warmup_builds"] - st0["post_warmup_builds"]
+        assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
         dt = st1["decode_time_s"] - st0["decode_time_s"]
         out["step_ms"] = 1e3 * dt / ((st1["decode_steps"] - st0["decode_steps"])
                                      * engine.decode_chunk_len)
@@ -3961,8 +3997,7 @@ def _counters(model: str, int8: bool = False) -> dict:
     from deepsearch_tts_tpu_torch.ops import moe
     from deepsearch_tts_tpu_torch.ops import sampling_prep as sp
 
-    if model == MOE_SERVE:
-        model = MOE_MODEL
+    model = {MOE_SERVE: MOE_MODEL, I8_SERVE: I8_MODEL}.get(model, model)
     if int8 and model == MOE_MODEL:
         fns = [moe.grouped_gateup_i8, moe.grouped_down_i8, fl.int8_product,
                moe.grouped_gateup, moe.grouped_down]
@@ -4175,6 +4210,7 @@ _SIGNATURES = (
                                     "pallas_paged_attention", "pallas_paged_decode",
                                     "pallas_paged_decode_clamp")),
     ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent")),
+    ("K2", r"::flash_attention\(", ("flash_attention",)),
 )
 # i8_stream launches a call of B7's and B10's wrappers makes for each group
 # of 64 rows (csrc/fused_layer.cu: B10's out-MLP runs its three products)
@@ -4207,18 +4243,20 @@ def _traced_kernels(run) -> tuple[dict, dict]:
     return own, other
 
 
-def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog) -> dict:
+def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog,
+                          kind: str = "programs") -> dict:
     """The launch counters against the card's own record: the body run
     eagerly and the program replayed, each from state ``st`` under
     torch.profiler. The replay runs the port's kernels the eager body ran,
     name by name and count by count, and every signature kernel
-    (:data:`_SIGNATURES`, and B7's and B10's ``i8_stream``) appears in the
-    replay's trace exactly as often as its wrappers'
-    counters moved over that replay. A trace can lose a record but never
+    (:data:`_SIGNATURES`, and on a decode program B7's and B10's
+    ``i8_stream``, whose launches follow a product's rows) appears in the
+    replay's trace exactly as often as its wrappers' counters moved over
+    that replay. ``kind``: ``"programs"`` (decode) or ``"prefill"``. A trace can lose a record but never
     adds one: where the two traces differ, both runs are traced once more
     and each kernel counts at its most over the two traces of its run.
     Returns the signature counts."""
-    from deepsearch_tts_tpu_torch.engine.decode_program import launch_counters
+    from deepsearch_tts_tpu_torch.engine.program import launch_counters
 
     counted = launch_counters()
 
@@ -4243,7 +4281,7 @@ def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog) -> dict:
     assert r_own and r_own == e_own, (tag, key, e_own, r_own)
     assert r_delta == e_delta, (tag, key, e_delta, r_delta)
     sigs = list(_SIGNATURES)
-    if any(r_delta.get(n) for n in _I8_LAUNCHES):
+    if kind == "programs" and any(r_delta.get(n) for n in _I8_LAUNCHES):
         # every product of a decode step takes the batch's rows (each row's
         # window under speculation)
         rows = engine.max_slots * (engine.spec_k + 1 if key[3] else 1)
@@ -4258,7 +4296,7 @@ def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog) -> dict:
         if traced:
             held[label] = traced
     assert held.get("B5"), (tag, key, held)
-    log(f"[{tag}-programs] {key}: the replay's trace holds the port's kernels the eager "
+    log(f"[{tag}-{kind}] {key}: the replay's trace holds the port's kernels the eager "
         f"body ran ({sum(r_own.values())} launches of {len(r_own)} kernels; other device "
         f"kernels {r_other} replayed, {e_other} eager; traced "
         f"{len(runs['eager'])} time(s) each), and the counters' launches equal the traced "
@@ -4282,7 +4320,7 @@ def _check_programs(tag: str, engine) -> dict:
     capture seconds and the graph pool's MiB."""
     import torch
 
-    from deepsearch_tts_tpu_torch.engine.decode_program import launch_counters
+    from deepsearch_tts_tpu_torch.engine.program import launch_counters
 
     assert engine.telemetry()["decode_program"] == "graph", engine.decode_program
     progs = engine._programs
@@ -4344,8 +4382,155 @@ def _check_programs(tag: str, engine) -> dict:
     bf.inj_rows.fill_(B)
     engine._dirty.update(range(B))
     log(f"[{tag}-programs] {len(progs)} decode programs captured in "
-        f"{out['capture_s']:.2f} s; graph pool "
+        f"{out['capture_s']:.2f} s, {len(engine._prefill_programs)} prefill programs in "
+        f"{sum(p.capture_s for p in engine._prefill_programs.values()):.2f} s; graph pool "
         f"{'not measured' if pool is None else f'{pool:.1f} MiB'}")
+    out["prefill"] = _check_prefill_programs(tag, engine)
+    return out
+
+
+# the sampler settings of a prefill check: greedy, and the request defaults
+_SAMPLERS = {0.0: dict(temperature=0.0, top_k=0, top_p=1.0, min_p=0.0, repetition_penalty=1.0),
+             0.7: dict(temperature=0.7, top_k=20, top_p=0.8, min_p=0.05,
+                       repetition_penalty=1.05)}
+
+
+def _prefill_inputs(engine, key: tuple, seed: int, temperature: float) -> list:
+    """An admission group for prefill program ``key`` in ``engine``'s static
+    prefill buffers (``Engine._upload_prefill``): ``Gp - 1`` of the idle
+    engine's rows (one at ``Gp`` 1, so a wider key carries padding rows),
+    each a prompt of random ids whose suffix fills the bucket to within a
+    few tokens, on the non-fresh branch behind a cached prefix that takes
+    the row to the end of the key's context (over pages of its own in the
+    paged pool), one sampler setting. Returns what the group writes: each
+    row's pages (paged) or (row, first, end) positions (slot)."""
+    import torch
+
+    bucket, Gp, fresh, _, _ = key
+    width, W = engine._prefill_widths_of(key)
+    G, ps, V = max(1, Gp - 1), engine.page_size, engine.cfg.vocab_size
+    assert engine.cache_mode == "slot" or G * width < engine.n_pages, (key, engine.n_pages)
+    g = torch.Generator().manual_seed(seed)
+    grp, written = [], []
+    for i in range(G):
+        s = engine.slots[i]
+        n_suffix = max(1, min(bucket, W, engine.max_seq_len - 1) - 3 * i)
+        total = n_suffix if fresh else max(n_suffix, W - 1 - i)
+        cached = total - n_suffix
+        ids = torch.randint(0, V, (total,), generator=g).tolist()
+        if engine.cache_mode == "slot":
+            written.append((s.idx, cached, total))
+        else:
+            pages = list(range(1 + i * width, 1 + (i + 1) * width))
+            engine.page_tables[s.idx, :width] = pages
+            written.append(pages[cached // ps: -(-total // ps)])
+        for f, v in _SAMPLERS[temperature].items():
+            engine.samp_host[f][s.idx] = v
+        engine.min_tokens[s.idx] = 0
+        grp.append({"slot": s, "suffix": ids[cached:], "cached_len": cached, "prompt": ids})
+    engine._upload_prefill(key, grp)
+    return written
+
+
+def _written_kv(engine, written: list) -> list:
+    """Copies of the pool rows a prefill group writes (:func:`_prefill_inputs`),
+    its int8 KV's scales too; MLA's one-page dummy v pool is left out."""
+    import torch
+
+    pools = [engine.k_pages] + [t for t in (engine.v_pages, engine.k_scales, engine.v_scales)
+                                if t is not None and t.shape[1] == engine.k_pages.shape[1]]
+    if engine.cache_mode == "slot":
+        return [p[:, r, a:b].clone() for p in pools for r, a, b in written]
+    idx = torch.tensor(sorted({q for pages in written for q in pages}), device=engine.device)
+    return [p[:, idx] for p in pools]
+
+
+def _check_prefill_programs(tag: str, engine) -> dict:
+    """The prefill programs of ``engine`` after its ``warmup()``: every one
+    built is a captured CUDA graph. The narrowest and the widest warmed key
+    (by tokens, then page width) are each replayed and held to the eager
+    body it captured, on an admission group of the idle engine's rows
+    (:func:`_prefill_inputs`) from the same state and generator state:
+    first tokens greedy and seeded at temperature 0.7, the KV the group
+    writes bit for bit, the seen mask and the token history, and one replay
+    moves the launch counters by what one eager run does. On each,
+    :func:`_hold_counts_to_trace` holds the counters to the kernels the
+    profiler sees the replay run, and the replay and the eager body are
+    timed (ms a prefill: the narrowest key's median of 3, the widest's
+    greedy pair itself, whose prefill takes seconds). The host rows the
+    groups used are restored. Logs the programs, their capture seconds and
+    the keys."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.program import launch_counters
+
+    assert engine.telemetry()["prefill_program"] == "graph", engine.telemetry()
+    progs = engine._prefill_programs
+    assert progs and all(p.graph is not None for p in progs.values()), tag
+    order = sorted(progs, key=lambda k: (k[0] * k[1], k[4] or 0))
+    out = {"programs": len(progs), "capture_s": sum(p.capture_s for p in progs.values()),
+           "keys": {}}
+    counted = launch_counters()
+    names = [f"{f.__name__}.{a}" for f, a in counted]
+    host = (engine.page_tables.copy(), {k: v.copy() for k, v in engine.samp_host.items()},
+            engine.min_tokens.copy())
+    saved = _program_state(engine)
+    with torch.no_grad():
+        for key in dict.fromkeys((order[0], order[-1])):
+            prog = progs[key]
+            for seed, temp in enumerate(_SAMPLERS):
+                written = _prefill_inputs(engine, key, seed, temp)
+                st = _program_state(engine)
+                c0 = [getattr(f, a) for f, a in counted]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = prog.body()["first"].clone()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                want_kv, want_st = _written_kv(engine, written), _program_state(engine)
+                c1 = [getattr(f, a) for f, a in counted]
+                _program_restore(engine, st)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                got = prog()["first"].clone()
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                got_kv, got_st = _written_kv(engine, written), _program_state(engine)
+                c2 = [getattr(f, a) for f, a in counted]
+                d_eager = {n: y - x for n, x, y in zip(names, c0, c1) if y != x}
+                d_replay = {n: y - x for n, x, y in zip(names, c1, c2) if y != x}
+                assert d_eager and d_eager == d_replay, (tag, key, d_eager, d_replay)
+                # the group's rows: a padding row attends over nothing, so its
+                # sample (and the spare seen row it marks) follows the pool's
+                # stale contents, which the eager run rewrote
+                G = len(written)
+                assert torch.equal(want[:G], got[:G]), (tag, key, temp, want, got)
+                assert all(torch.equal(a, b) for a, b in zip(want_kv, got_kv)), (tag, key, temp)
+                for i in (0, 4):   # the seen mask, the token history
+                    assert want_st[i] is None or torch.equal(want_st[i][:engine.max_slots],
+                                                             got_st[i][:engine.max_slots]), (
+                        tag, key, temp, i)
+                if temp == 0.0:
+                    greedy_st, eager_ms, replay_ms = st, 1e3 * (t1 - t0), 1e3 * (t3 - t2)
+            traced = _hold_counts_to_trace(tag, engine, key, greedy_st, prog, "prefill")
+            if key == order[0]:
+                eager_ms = _program_ms(engine, greedy_st, prog.body)
+                replay_ms = _program_ms(engine, greedy_st, prog)
+            rows = max(1, key[1] - 1)
+            out["keys"]["x".join(str(k) for k in key)] = {
+                "rows": rows, "eager_ms": eager_ms, "replay_ms": replay_ms,
+                "launches": d_replay, "traced": traced}
+            log(f"[{tag}-prefill] {key} (bucket, rows, fresh, ring, pages): replay equals "
+                f"the eager body (greedy and seeded first tokens, the written KV bit for "
+                f"bit, seen mask, history); a prefill of {rows} row(s) {replay_ms:.3f} ms "
+                f"replayed, {eager_ms:.3f} ms eager; launches a prefill {d_replay}")
+    _program_restore(engine, saved)
+    engine.page_tables[:], engine.min_tokens[:] = host[0], host[2]
+    for k, v in host[1].items():
+        engine.samp_host[k][:] = v
+    engine._dirty.update(range(engine.max_slots))
+    log(f"[{tag}-prefill] {len(progs)} prefill programs captured in {out['capture_s']:.2f} s: "
+        f"{sorted(progs, key=lambda k: (k[0], k[1], k[4] or 0))}")
     return out
 
 
@@ -4357,6 +4542,16 @@ def _register_moe_serve() -> None:
 
     cfg = dataclasses.replace(qwen3_moe.QWEN3_MOE_CONFIGS[MOE_MODEL], n_layers=MOE_SERVE_LAYERS)
     registry.register(MOE_SERVE, cfg, qwen3_moe.forward, convert_qwen3_moe)
+
+
+def _register_i8_serve() -> None:
+    """qwen3-32b's published widths, ``I8_SERVE_LAYERS`` of its 64 layers,
+    registered under ``I8_SERVE``."""
+    from deepsearch_tts_tpu_torch.engine.weights import convert_qwen3_dense
+    from deepsearch_tts_tpu_torch.models import qwen3, registry
+
+    cfg = dataclasses.replace(qwen3.QWEN3_CONFIGS[I8_MODEL], n_layers=I8_SERVE_LAYERS)
+    registry.register(I8_SERVE, cfg, qwen3.forward, convert_qwen3_dense)
 
 
 def _register_mla() -> None:
@@ -4376,6 +4571,8 @@ PROGRAM_ENGINES = (
     ("qwen3-8b", dict(prefill_lane=LANE, page_size=64, n_pages=1024)),   # the CLI defaults
     ("qwen3-8b", dict(cache_mode="slot", prefill_lane=LANE)),
     ("qwen3-8b", dict(cache_mode="slot", **SPEC_KW)),
+    ("qwen3-8b", dict(attn_impl="pallas", enable_prefix_cache=False, page_size=64,
+                      n_pages=1024)),
     (MOE_MODEL, dict(prefill_lane=LANE, page_size=64, n_pages=1024)),
     (MOE_MODEL, dict(quantize="int8", prefill_lane=LANE, page_size=64, n_pages=1024)),
     (I8_MODEL, dict(quantize="int8", kv_quantize="int8", page_size=64, n_pages=1024)),
@@ -4386,7 +4583,8 @@ PROGRAM_ENGINES = (
 def phase_programs(card: str) -> dict:
     """``--programs-only``: the engines of ``PROGRAM_ENGINES`` built on
     random weights from seed 0 (one model's weights shared by its engines),
-    each warmed with ``warmup(prompt_lens=(64,), max_ctx=512)`` and put
+    each warmed to ``max_ctx=512`` (the decode programs, the graph pool's
+    MiB read, then the prefill programs of ``prompt_lens=(64,)``) and put
     through :func:`_check_programs`, then released."""
     import torch
 
@@ -4400,13 +4598,47 @@ def phase_programs(card: str) -> dict:
         t0 = time.time()
         engine = _engine(params, model=model, seed=0, **kw)
         params, held = engine.params, (model, kw.get("quantize"))
-        engine.warmup(prompt_lens=(64,), max_ctx=512)
+        engine.warmup(prompt_lens=(), max_ctx=512)
+        pool0 = _pool_mib(engine)
+        engine.warmup(prompt_lens=(64,), decode=False, max_ctx=512)
         tag = f"{model}-{'-'.join(f'{k}={v}' for k, v in kw.items() if k not in ('page_size', 'n_pages'))}"
-        log(f"[programs] {tag}: built and warmed in {time.time() - t0:.1f} s")
+        log(f"[programs] {tag}: built and warmed in {time.time() - t0:.1f} s; graph pool "
+            f"{pool0} MiB after the decode programs, {_pool_mib(engine)} MiB after the "
+            f"prefill programs too")
         out[tag] = _check_programs(tag, engine)
+        out[tag]["pool_mib_decode"] = pool0
         _release(engine)
         del engine
     return out
+
+
+# the prefill programs the serve phases' requests reach on the paged cache
+# (64-token pages) past the CLI's own ``--warmup 64`` (bucket 64 in groups
+# of 1, 4 and 16 at every page width, and every decode program), one
+# warmup() each: (prompt_lens, group_sizes, max_ctx). The raw completion
+# and the lane check's long request (24 and 20 tokens); the multi-turn's
+# first turn (350 tokens) and its follow-up (403 tokens, 83 past the 320
+# cached: bucket 128, 8 pages); the long prompt (3044 tokens, 48 pages)
+SERVE_PREFILLS = (((32,), (1,), 32), ((128,), (1,), 403), ((512,), (1,), 350),
+                  ((CTX,), (1,), 3044))
+
+
+def _warm_serve(tag: str, engine) -> dict:
+    """A serve phase's warmup on top of the CLI's (``--warmup 64``, which
+    ``build_engine`` ran): logs the programs it built, their capture
+    seconds and the graph pool's MiB, then warms :data:`SERVE_PREFILLS`."""
+    progs = list(engine._programs.values()) + list(engine._prefill_programs.values())
+    cli = {"decode_programs": len(engine._programs),
+           "prefill_programs": len(engine._prefill_programs),
+           "capture_s": sum(p.capture_s for p in progs), "pool_mib": _pool_mib(engine)}
+    for lens, groups, ctx in SERVE_PREFILLS:
+        engine.warmup(prompt_lens=lens, group_sizes=groups, decode=False, max_ctx=ctx)
+    cli["extra_prefill_programs"] = len(engine._prefill_programs) - cli["prefill_programs"]
+    log(f"[{tag}] the CLI's warmup (--warmup 64) built {cli['decode_programs']} decode and "
+        f"{cli['prefill_programs']} prefill programs in {cli['capture_s']:.2f} s of capture, "
+        f"graph pool {cli['pool_mib']} MiB; {cli['extra_prefill_programs']} prefill programs "
+        f"more for this phase's longer prompts, pool {_pool_mib(engine)} MiB")
+    return cli
 
 
 def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
@@ -4435,12 +4667,14 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     if quant_kw:
         engine = _engine(None, model=model, seed=args.seed, page_size=args.page_size,
                          n_pages=args.pages, **quant_kw)
-        engine.warmup(prompt_lens=(args.warmup,))
+        engine.warmup(prompt_lens=(args.warmup,))   # the CLI's warmup
     else:
         engine = build_engine(args)
+    cli_warmup = _warm_serve(tag, engine)
     torch.cuda.synchronize()
     out: dict = {"build_s": time.time() - t0,
-                 "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+                 "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+                 "cli_warmup": cli_warmup}
     log(f"[{tag}] engine built (random {model} weights, warmup) in "
         f"{out['build_s']:.1f} s; layer_fusion={engine.layer_fusion}; "
         f"memory allocated {out['allocated_gib']:.2f} GiB")
@@ -4574,9 +4808,11 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
                 f"{st1['decode_steps'] - st0['decode_steps']} (the full batch: "
                 f"{out['burst_pipelined_chunks']} of {out['burst_chunks']}), "
                 f"{out['injected_groups']} prefill groups injected, post-warmup builds "
-                f"{out['post_warmup_builds']}")
-            if tag == "serve":   # the CLI's warmup covers every bucket serving reaches
-                assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
+                f"{out['post_warmup_builds']}; prefill programs "
+                f"{engine.telemetry()['prefill_program']}, groups "
+                f"{st1.get('prefill_group_hist')}")
+            # the warmup covers every program the phase's requests reach
+            assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
             out["steps"] = dict(zip(("decode", "prefill", "lane"), _steps(engine, st0, st1)))
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
@@ -5779,9 +6015,9 @@ def main(argv=None) -> int:
                     help="only the build and the parallel phase (prints its line, "
                          "not the final line)")
     ap.add_argument("--programs-only", action="store_true",
-                    help="only the build and the programs phase (seven engines' decode "
-                         "programs, replay against eager; prints its line, not the final "
-                         "line)")
+                    help="only the build and the programs phase (eight engines' decode "
+                         "and prefill programs, replay against eager; prints its line, "
+                         "not the final line)")
     ap.add_argument("--train-only", action="store_true",
                     help="only the build and the train, moe-train and lora phases "
                          "(the last on random qwen3-8b weights; prints their line, "
@@ -5922,7 +6158,8 @@ def main(argv=None) -> int:
     log(f"[release] qwen3-30b-a3b int8 engine and weights released: {held:.3f} GiB still "
         f"allocated")
     assert held < 1.0, held
-    i8_serve, engine = phase_serve(card, model=I8_MODEL, profile=opts.profile, tag="int8",
+    _register_i8_serve()
+    i8_serve, engine = phase_serve(card, model=I8_SERVE, profile=opts.profile, tag="int8",
                                    quantize="int8", kv_quantize="int8")
     # a 48-row prefill: int8_matmul's kernel at its MT=4 instance
     phase_reference(engine, tag="int8-reference", t0=48, plain_int8=True)

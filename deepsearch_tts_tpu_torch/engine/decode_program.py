@@ -11,50 +11,17 @@ writes ``last`` and ``lens`` back in place (that write *is* the carry the
 next chunk starts from), marks the engine's seen mask (and a speculative
 engine's token history) in place and returns the chunk's tokens.
 
-:class:`DecodeProgram` holds one key ``(P, slot_ctx, lane, spec,
+:class:`~.program.Program` holds one key ``(P, slot_ctx, lane, spec,
 chunk_len)``: ``P`` the page-table width the chunk reads (JAX's jit
 specialises on it through the table's shape), ``chunk_len`` None for a full
-chunk. On CUDA its first call runs the body eagerly (building every kernel
-and every lazily allocated buffer it touches, outside any capture) and then
-captures it into a ``torch.cuda.CUDAGraph`` in the engine's one graph pool;
-every later call is a replay. On the CPU (the caller's explicit
-``device="cpu"``) and under a mesh the body runs eagerly every time.
-
-A replay launches no Python: the kernel wrappers' launch counters
-(``launches``, ``prefill_launches``) would not move. So a program records
-each counter's change while it is captured, sets the counters back (a
-capture launches nothing) and adds that change on each replay.
+chunk; on CUDA it is captured once and replayed (``program.py``).
 """
 from __future__ import annotations
-
-import contextlib
-import importlib
-import time
 
 import torch
 
 from .sampling import SamplingParams, sample, update_seen
 from .speculative import accept_drafts, ngram_draft
-
-# the modules of the kernel wrappers that count their launches
-_COUNTED = ("fused_layer", "moe", "sampling_prep", "slot_attention", "paged_attention",
-            "flash_attention", "quant")
-_counters: list | None = None
-
-
-def launch_counters() -> list[tuple[object, str]]:
-    """Every ``(wrapper, attribute)`` launch counter of the port's kernels."""
-    global _counters
-    if _counters is None:
-        out = []
-        for m in _COUNTED:
-            mod = importlib.import_module(f"..ops.{m}", __package__)
-            for fn in vars(mod).values():
-                if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
-                    out += [(fn, a) for a in ("launches", "prefill_launches")
-                            if type(getattr(fn, a, None)) is int]
-        _counters = out
-    return _counters
 
 
 class DecodeBuffers:
@@ -92,58 +59,6 @@ class DecodeBuffers:
             self.lrow = torch.zeros((chunk,), **i64)
             self.act_slots = torch.full((lane_max_act,), B, **i64)
             self.act_steps = torch.zeros((lane_max_act,), **i64)
-
-
-class DecodeProgram:
-    """One key's decode chunk: ``body()`` → the chunk's outputs, eager or
-    (``capture``) captured once on ``stream`` into a CUDA graph in ``pool``
-    with ``generator`` registered, and replayed from then on."""
-
-    def __init__(self, key: tuple, body, *, capture: bool, generator=None, pool=None,
-                 stream=None):
-        self.key, self.body = key, body
-        self.capture, self.generator, self.pool, self.stream = capture, generator, pool, stream
-        self.graph = None
-        self.out: dict | None = None
-        self.capture_s = 0.0
-        self._deltas: list = []
-
-    def __call__(self) -> dict:
-        if self.graph is not None:
-            self.graph.replay()
-            for (fn, attr), d in self._deltas:
-                setattr(fn, attr, getattr(fn, attr) + d)
-            return self.out
-        out = self.body()
-        if self.capture:
-            self._record()
-        return out
-
-    def _record(self) -> None:
-        """Capture the body. A failure raises: there is no eager fallback."""
-        counted = launch_counters()
-        before = [getattr(fn, a) for fn, a in counted]
-        g = torch.cuda.CUDAGraph()
-        g.register_generator_state(self.generator)
-        t0 = time.perf_counter()
-        # on the engine's own side stream, without torch.cuda.graph's
-        # synchronize and cache flushes (a capture runs nothing); thread_local:
-        # the server's threads keep running meanwhile
-        with torch.cuda.stream(self.stream):
-            g.capture_begin(self.pool, capture_error_mode="thread_local")
-            try:
-                out = self.body()
-            except BaseException:
-                with contextlib.suppress(Exception):
-                    g.capture_end()
-                raise
-            g.capture_end()
-        self.capture_s = time.perf_counter() - t0
-        for (fn, a), b in zip(counted, before):
-            if getattr(fn, a) != b:
-                self._deltas.append(((fn, a), getattr(fn, a) - b))
-                setattr(fn, a, b)
-        self.graph, self.out = g, out
 
 
 def chunk_body(eng, key: tuple):

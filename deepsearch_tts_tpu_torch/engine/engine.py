@@ -7,8 +7,15 @@ Behaviours carried over from the JAX engine:
   runs on a daemon thread.
 * Grouped prefill: queued requests are prepared on the host (pages, radix
   prefix match), grouped by power-of-two prompt bucket, and each group runs
-  ONE batched forward plus first-token sample (``MAX_PREFILL_GROUP`` rows,
-  ``PREFILL_TOKEN_BUDGET`` rows x bucket). Engines with prefix reuse (a
+  ONE prefill program (``engine/prefill_program.py``, JAX's ``_prefill_fn``):
+  the batched forward, the first-token sample and the seen-mask fold (and a
+  speculative engine's token-history write), its rows padded up JAX's
+  ladder 1, 4, 16 (``MAX_PREFILL_GROUP`` rows, ``PREFILL_TOKEN_BUDGET``
+  rows x bucket) with padding rows at position -1 and row ``max_slots``.
+  A program is keyed ``(bucket, Gp, fresh, ring, P)``, ``P`` the page
+  bucket the non-fresh branch gathers (JAX gathers the whole budget); on
+  CUDA each key is captured once into the graph pool and replayed, its
+  inputs written into static buffers first. Engines with prefix reuse (a
   prefix cache, or slot parking) run the non-fresh (re-prefill) branch for
   every group, as in JAX; without it, groups take fresh causal prefill.
 * Decode chunks of ``decode_chunk_len`` steps over all ``max_slots`` rows
@@ -21,9 +28,13 @@ Behaviours carried over from the JAX engine:
 * The decode-program layer (``engine/decode_program.py``): a chunk is one
   program keyed ``(page bucket, slot bucket, lane, spec, chunk_len)``, a
   function of engine-wide static buffers; on CUDA each key is captured once
-  into one ``torch.cuda.CUDAGraph`` (one graph pool for all) and replayed
-  from then on. ``warmup()`` builds them (JAX's enumeration); a program
-  built after it counts in ``stats["post_warmup_builds"]``.
+  into one ``torch.cuda.CUDAGraph`` (one graph pool for the decode and the
+  prefill programs, ``engine/program.py``) and replayed from then on.
+  ``warmup()`` builds both kinds (JAX's enumeration, with the prefill
+  programs' page widths); a program built after it counts in
+  ``stats["post_warmup_builds"]``; ``telemetry()`` names each kind's mode
+  (``decode_program``, ``prefill_program``: ``"graph"``, ``"cpu"``, or
+  ``"eager"`` under a mesh).
 * Pipelined dispatch (``pipeline_decode``, JAX ``engine.py:1349-1476``):
   chunk N+1 is dispatched from chunk N's device carry before N is read
   back, when a row certainly wants tokens past N (:meth:`_can_speculate`)
@@ -35,8 +46,9 @@ Behaviours carried over from the JAX engine:
   seen mask needs no fold of the in-flight chunk's tokens (JAX's
   ``stale``): admission rebuilds every row's mask from its whole prompt.
 * Admission injection: the newest ``n_inject`` prefill groups are
-  dispatched without a sync; their first-token tensors are copied device to
-  device into the next chunk's inject buffer, which scatters them into the
+  dispatched without a sync; their fixed-width first-token tensors (each
+  group's own copy of its program's output) are copied device to device
+  into the next chunk's inject buffer, which scatters them into the
   carry's ``last`` inside the program. After a chunk frees rows with
   nothing queued, the loop waits 2 ms for closed-loop refills (JAX's
   default ``refill_grace="fixed"``; its ``"adaptive"`` and ``"off"`` are
@@ -112,12 +124,14 @@ Behaviours carried over from the JAX engine:
   sequence-parallel over ``tp`` (JAX's gate, :meth:`_ring_prefill`). A mesh
   engine runs its chunks serially and eagerly (``telemetry()
   ["decode_program"] == "eager"``): no capture, no pipelining, no
-  injection.
+  injection; its prefill programs run their bodies eagerly too
+  (``"prefill_program" == "eager"``).
 
 The seen mask of every admitted row is rebuilt from its whole prompt,
 parked re-entries included (and so is a speculative engine's token
 history); JAX's keep/clear path for parked rows saves a host upload on the
-TPU and gives the same mask. Prefill runs eagerly (JAX compiles it).
+TPU and gives the same mask: here each row's whole prompt is uploaded with
+the group's other inputs and its presence built inside the program.
 """
 from __future__ import annotations
 
@@ -137,10 +151,11 @@ import torch
 
 from ..device import resolve_device
 from ..models.registry import get_model
-from .decode_program import DecodeBuffers, DecodeProgram, chunk_body
+from .decode_program import DecodeBuffers, chunk_body
 from .kvcache import PageAllocator, init_kv_pages, init_kv_scales, init_latent_pages
+from .prefill_program import FLOAT_FIELDS, PrefillBuffers, prefill_body
 from .profiling import SpanTimer
-from .sampling import SamplingParams, sample
+from .program import Program
 from .stopping import StopState
 from .tokenizer import IncrementalDetokenizer
 
@@ -459,9 +474,11 @@ class Engine:
         self.prompt_lens = np.zeros((B,), np.int32)
         # speculative: token history for the n-gram drafts, hist[b, q] = the
         # token at position q (valid up to seq_lens[b]), plus one spare
-        # column that takes the writes JAX drops out of bounds
-        self.hist = (torch.zeros((B, max_seq_len + 1), dtype=torch.int64, device=self.device)
-                     if speculative else None)
+        # column that takes the writes JAX drops out of bounds and one spare
+        # row that takes a prefill's padding rows
+        self._hist_ext = (torch.zeros((B + 1, max_seq_len + 1), dtype=torch.int64,
+                                      device=self.device) if speculative else None)
+        self.hist = None if self._hist_ext is None else self._hist_ext[:B]
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
         self._queue: "queue.Queue" = queue.Queue()
@@ -488,7 +505,8 @@ class Engine:
             "lane_tokens": 0, "lane_chunks": 0, "trim_chunks": 0,
             # chunks dispatched from the previous chunk's device carry
             "pipelined_chunks": 0,
-            # decode programs built after warmup(): each a capture while serving
+            # decode and prefill programs built after warmup(): each a
+            # capture while serving
             "post_warmup_builds": 0,
             # prefill groups whose first tokens a chunk took on the device
             "injected_groups": 0,
@@ -516,11 +534,17 @@ class Engine:
         self._bufs = DecodeBuffers(B, self.max_pages_per_seq, decode_chunk_len, self.n_inject,
                                    self.MAX_PREFILL_GROUP, self.prefill_lane,
                                    self.LANE_MAX_ACT, self.device)
-        self._programs: dict[tuple, DecodeProgram] = {}
+        self._pbufs = PrefillBuffers(
+            self.MAX_PREFILL_GROUP, B,
+            min(self.MAX_PREFILL_GROUP * max_seq_len, max(max_seq_len, self.PREFILL_TOKEN_BUDGET)),
+            self.max_pages_per_seq, max_seq_len, self.device)
+        self._programs: dict[tuple, Program] = {}
+        # prefill programs keyed (bucket, Gp, fresh, ring, P)
+        self._prefill_programs: dict[tuple, Program] = {}
         self._programs_params = None   # the weights tree the programs were built on
         self._graph_pool = self._capture_stream = None
         self._prefill_keys: set = set()   # (bucket, rows, fresh, ring) warmup() ran
-        self._warmed = False
+        self._warmed = False   # False inside warmup(): builds there are not counted
         # rows whose host state the static buffers do not hold yet
         self._dirty: set[int] = set(range(B))
         self._pending: dict | None = None    # the chunk in flight
@@ -591,23 +615,32 @@ class Engine:
     def warmup(self, prompt_lens=(16,), group_sizes=None, decode=True, fresh_variants=None,
                max_ctx: int | None = None) -> None:
         """Build every program serving reaches before requests arrive (JAX
-        ``engine.py:1173-1333``): one dummy prefill per (prompt bucket,
-        group rows, fresh) — ``group_sizes`` default 1, 4, 16 up to
+        ``engine.py:1173-1333``): the prefill program of every (prompt
+        bucket, group rows, fresh) — ``group_sizes`` default 1, 4, 16 up to
         ``MAX_PREFILL_GROUP`` padded up that ladder, ``fresh_variants`` the
-        one branch this engine runs — building the kernels and the Triton
-        JIT at those shapes; with ``decode``, the decode program of every
-        context bucket up to the first one that covers ``max_ctx`` (all of
-        them without it), both lane variants with a prefill lane, the
-        speculative program on a speculative engine, and with
-        ``chunk_trim`` the half-length program at the two widest, the only
-        buckets a chunk is trimmed at. On CUDA each decode program is
-        captured here. Every dummy position is padding: no KV is written,
-        the seen mask and token history are restored, and only the
-        sampler's random stream moves. Then a program built later counts
-        in ``stats["post_warmup_builds"]``. Call before submitting requests
-        (under a multi-rank mesh, on every rank: the forwards run the
-        collectives and the sampler draws)."""
-        dev, B = self.device, self.max_slots
+        one branch this engine runs — at every page-table width a prompt of
+        that bucket can read on the non-fresh branch (:meth:`_prefill_widths`:
+        from the narrowest prompt of the bucket up to the first width that
+        covers ``max_ctx``, all of them without it); with ``decode``, the
+        decode program of every context bucket up to the first one that
+        covers ``max_ctx`` (all of them without it), both lane variants
+        with a prefill lane, the speculative program on a speculative
+        engine, and with ``chunk_trim`` the half-length program at the two
+        widest, the only buckets a chunk is trimmed at. On CUDA each program
+        is captured here. Every dummy position is padding: no KV is written,
+        the seen mask and token history are restored, and only the sampler's
+        random stream moves. Then a program built later, outside a
+        ``warmup()`` call, counts in ``stats["post_warmup_builds"]``. Call
+        before submitting requests (under a multi-rank mesh, on every rank:
+        the forwards run the collectives and the sampler draws)."""
+        self._warmed = False
+        self._warmup(prompt_lens, group_sizes, decode, fresh_variants, max_ctx)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._warmed = True
+
+    def _warmup(self, prompt_lens, group_sizes, decode, fresh_variants, max_ctx) -> None:
+        B = self.max_slots
         if fresh_variants is None:
             # prefix-reusing engines run the non-fresh branch for every group
             fresh_variants = (self.fresh_prefill,)
@@ -616,6 +649,7 @@ class Engine:
             while g <= self.MAX_PREFILL_GROUP:
                 group_sizes.append(g)
                 g *= 4
+        keys = set()
         for plen in prompt_lens:
             T = self._bucket(max(int(plen), 1))
             cap = self._group_cap(T)
@@ -623,17 +657,13 @@ class Engine:
                 Gp = self._pow2(min(G, cap), cap)
                 for fresh in fresh_variants:
                     ring = self._ring_prefill(T, fresh)
-                    logits, _ = self._forward(
-                        torch.zeros((Gp, T), dtype=torch.int64, device=dev),
-                        torch.full((Gp, T), -1, dtype=torch.int64, device=dev),
-                        torch.zeros((Gp, 1), dtype=torch.int64, device=dev),
-                        torch.zeros((Gp,), dtype=torch.int64, device=dev),
-                        logits_indices=torch.zeros((Gp,), dtype=torch.int64, device=dev),
-                        fresh=fresh, seq_parallel=self.sp_impl if ring else None)
-                    sample(logits[:, 0], self._samp_params(np.zeros(Gp, np.int64)),
-                           torch.zeros((Gp, self.cfg.vocab_size), dtype=torch.bool,
-                                       device=dev), self.generator)
                     self._prefill_keys.add((T, Gp, bool(fresh), ring))
+                    keys.update((T, Gp, bool(fresh), ring, P)
+                                for P in self._prefill_widths(T, bool(fresh), max_ctx))
+        for key in self._widest_first(keys):
+            prog = self._prefill_program(key)
+            self._upload_prefill(key, [])   # every row padding
+            prog()
         if decode:
             bf = self._bufs
             seen0, act0 = self._seen_ext.clone(), bf.act.clone()
@@ -655,9 +685,6 @@ class Engine:
             self._seen_ext.copy_(seen0)
             if hist0 is not None:
                 self.hist.copy_(hist0)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self._warmed = True
 
     def start(self):
         if self._thread is None or not self._thread.is_alive():
@@ -728,6 +755,9 @@ class Engine:
         # "graph": every chunk a replayed CUDA graph; "cpu": the body run
         # eagerly on the CPU; "eager": a mesh engine's serial eager chunk
         out["decode_program"] = self.decode_program
+        # the prefill programs (JAX engine.py:1001-1106): the same mode as
+        # the decode programs, one engine-wide setting reported per kind
+        out["prefill_program"] = self.decode_program
         return out
 
     # ------------------------------------------------------------- scheduler
@@ -913,14 +943,33 @@ class Engine:
         return [(b, None) for b in buckets]
 
     def _program(self, P: int, slot_ctx: int | None = None, lane: bool = False,
-                 spec: bool = False, chunk_len: int | None = None) -> DecodeProgram:
+                 spec: bool = False, chunk_len: int | None = None) -> Program:
         """The decode program of key ``(P, slot_ctx, lane, spec,
         chunk_len)`` (JAX ``_decode_program``, ``engine.py:644-662``, plus
         the page bucket), built on first use; one built after ``warmup()``
         is counted and reported on stderr."""
         if self.cache_mode != "slot":
             slot_ctx = None
-        if self._programs and self._programs_params is not self.params:
+        key = (int(P), slot_ctx, bool(lane), bool(spec), chunk_len)
+        return self._built(self._programs, key, chunk_body, "decode",
+                           "(pages,slot_ctx,lane,spec,chunk)", free_cache=False)
+
+    def _prefill_program(self, key: tuple) -> Program:
+        """The prefill program of key ``(bucket, Gp, fresh, ring, P)`` (JAX
+        ``_prefill_fn``, ``engine.py:1001-1106``, plus the page-table width
+        ``P`` of the non-fresh branch), built on first use; one built after
+        ``warmup()`` is counted and reported on stderr. Its capture frees
+        the allocator's cache first: the eager run's wide intermediates
+        would else be held twice (``Program``)."""
+        return self._built(self._prefill_programs, key, prefill_body, "prefill",
+                           "(bucket,group,fresh,ring,pages)", free_cache=True)
+
+    def _built(self, programs: dict, key: tuple, make_body, kind: str, names: str, *,
+               free_cache: bool) -> Program:
+        """``programs[key]``, built on first use from ``make_body(self,
+        key)``: captured on CUDA (one graph pool and one capture stream for
+        all of the engine's programs), eager on the CPU and under a mesh."""
+        if (self._programs or self._prefill_programs) and self._programs_params is not self.params:
             # the weights were rebound (load_lora_adapter): a graph holds the
             # old tensors' addresses, so every program is built again, in a
             # new pool (the allocator retires a pool whose graphs are gone)
@@ -928,23 +977,65 @@ class Engine:
                 torch.cuda.synchronize(self.device)
                 self._graph_pool = torch.cuda.graph_pool_handle()
             self._programs.clear()
+            self._prefill_programs.clear()
         self._programs_params = self.params
-        key = (int(P), slot_ctx, bool(lane), bool(spec), chunk_len)
-        prog = self._programs.get(key)
+        prog = programs.get(key)
         if prog is None:
             if self._warmed:
                 self.stats["post_warmup_builds"] += 1
-                print(f"[engine] post-warmup decode program build: "
-                      f"(pages,slot_ctx,lane,spec,chunk)={key}", file=sys.stderr)
+                print(f"[engine] post-warmup {kind} program build: {names}={key}",
+                      file=sys.stderr)
             capture = self.decode_program == "graph"
             if capture and self._graph_pool is None:
-                # one pool and one capture stream for all of the engine's programs
                 self._graph_pool = torch.cuda.graph_pool_handle()
                 self._capture_stream = torch.cuda.Stream(self.device)
-            prog = self._programs[key] = DecodeProgram(
-                key, chunk_body(self, key), capture=capture, generator=self.generator,
-                pool=self._graph_pool, stream=self._capture_stream)
+            prog = programs[key] = Program(
+                key, make_body(self, key), capture=capture, generator=self.generator,
+                pool=self._graph_pool, stream=self._capture_stream, free_cache=free_cache)
         return prog
+
+    def _widest_first(self, keys) -> list:
+        """Prefill keys in the order ``warmup()`` captures them: the most
+        score elements (rows × prompt width × context) first. The programs
+        share one graph pool, whose blocks a later capture reuses only when
+        they are at least as large as it asks: widest first, the narrower
+        keys' intermediates fit in blocks the widest left free, and the
+        pool holds about the widest key's peak instead of the sum of every
+        width's."""
+        def size(key):
+            bucket, Gp, fresh, _, P = key
+            ctx = bucket if fresh else P * self.page_size
+            return Gp * bucket * ctx, Gp * bucket
+        return sorted(keys, key=size, reverse=True)
+
+    def _prefill_widths(self, bucket: int, fresh: bool, max_ctx: int | None = None) -> list:
+        """The page-table widths ``P`` of the prefill programs ``warmup()``
+        builds for ``bucket``: None on the fresh branch; else every page
+        bucket from the one that covers the bucket's narrowest prompt (one
+        token past the next narrower bucket) up to the first that covers
+        ``max_ctx`` (all of them without it), as :meth:`_decode_variants`
+        bounds the decode programs. A cached prefix makes a prompt's
+        context wider than its bucket."""
+        if fresh:
+            return [None]
+        lo, b = 1, 16
+        while b < bucket:
+            lo, b = b + 1, b * 2
+        widths = [P for P in self._decode_buckets() if P >= self._page_bucket(lo)]
+        if max_ctx is not None and self.context_buckets:
+            need = -(-max_ctx // self.page_size)
+            widths = [P for P in widths if P < need] + [P for P in widths if P >= need][:1]
+        return widths
+
+    def _prefill_widths_of(self, key: tuple) -> tuple[int, int]:
+        """Prefill program ``key``'s page-table width in pages and its
+        prompts' width in ids: ``P`` pages and their tokens on the non-fresh
+        branch; on the fresh branch the pages and the tokens of the bucket,
+        which hold a whole prompt there."""
+        bucket, _, fresh, _, P = key
+        if fresh:
+            return min(-(-bucket // self.page_size), self.max_pages_per_seq), bucket
+        return P, min(P * self.page_size, self.max_seq_len)
 
     def _free_slot(self) -> _Slot | None:
         """A free row; in slot mode unparked rows first, so parked KV
@@ -1268,18 +1359,6 @@ class Engine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _samp_params(self, rows: np.ndarray, min_tokens=None,
-                     tokens_generated=None) -> SamplingParams:
-        h = self.samp_host
-        return SamplingParams(
-            self._t(h["temperature"][rows], torch.float32),
-            self._t(h["top_k"][rows], torch.int32),
-            self._t(h["top_p"][rows], torch.float32),
-            self._t(h["min_p"][rows], torch.float32),
-            self._t(h["repetition_penalty"][rows], torch.float32),
-            min_tokens=min_tokens, tokens_generated=tokens_generated,
-            eos_id=-1 if self.tokenizer.eos_id is None else self.tokenizer.eos_id)
-
     def _forward(self, tokens, positions, tables, seq_lens, *,
                  logits_indices=None, fresh=False, slot_ctx=None, seq_parallel=None,
                  **lane):
@@ -1302,25 +1381,6 @@ class Engine:
             slot_decode=slot_ctx is not None, slot_ctx=slot_ctx,
             fresh_prefill=fresh, fused_decode=self.layer_fusion, **scales, **lane)
 
-    def _sample_first(self, logits, rows: np.ndarray, prompts: list) -> torch.Tensor:
-        """First tokens [G] of admitted prompts from their last position's
-        logits [G, V]; rows ``rows``'s seen masks become each prompt's token
-        presence (built on the device) plus its first token."""
-        G, V = len(rows), self.cfg.vocab_size
-        ids = [np.asarray(p, np.int64) for p in prompts]
-        ids = [i[i < V] for i in ids]
-        seen_rows = torch.zeros((G, V), dtype=torch.bool, device=self.device)
-        seen_rows[self._t(np.repeat(np.arange(G), [len(i) for i in ids])),
-                  self._t(np.concatenate(ids))] = True
-        min_toks = self._t(self.min_tokens[rows])
-        sp = self._samp_params(rows, min_tokens=min_toks,
-                               tokens_generated=torch.zeros_like(min_toks))
-        first = sample(logits, sp, seen_rows, self.generator)
-        rows_t = self._t(rows)
-        self.seen[rows_t] = seen_rows
-        self.seen[rows_t, first] = True
-        return first
-
     def _ring_prefill(self, bucket: int, fresh: bool) -> bool:
         """Fresh prefills at/over ``ring_prefill_len`` run sequence-parallel
         attention over the mesh's tp axis (JAX ``engine.py:990-999``)."""
@@ -1331,44 +1391,82 @@ class Engine:
                 and bucket % self.par.tp == 0)
 
     def _prefill_group_dispatch(self, bucket: int, grp: list[dict]) -> dict:
-        """One batched prefill forward + first-token sample for a group of
-        same-bucket requests (JAX ``engine.py:1918-2018``), queued on the
-        card without a sync; the first tokens' copy to the host starts
-        behind it. Returns the handle :meth:`_prefill_group_process` reads."""
+        """One prefill program for a group of same-bucket requests (JAX
+        ``engine.py:1918-2018``): the group padded up the row ladder to
+        ``Gp``, its inputs written into the static buffers and the program
+        of key ``(bucket, Gp, fresh, ring, P)`` run (replayed on CUDA),
+        queued on the card without a sync; the first tokens' copy to the
+        host starts behind it. Returns the handle
+        :meth:`_prefill_group_process` reads; its ``first`` holds
+        ``MAX_PREFILL_GROUP`` tokens of its own (a later replay of the
+        same key rewrites the program's output), which admission injection
+        copies device to device."""
         t0 = time.monotonic()
         G = len(grp)
-        P = self._page_bucket(max(p["cached_len"] + len(p["suffix"]) for p in grp))
-        tokens = np.zeros((G, bucket), np.int64)
-        positions = np.full((G, bucket), -1, np.int64)
-        seq_lens = np.zeros((G,), np.int64)
-        logits_idx = np.zeros((G,), np.int64)
-        rows = np.zeros((G,), np.int64)
-        for g, p in enumerate(grp):
-            T = len(p["suffix"])
-            tokens[g, :T] = p["suffix"]
-            positions[g, :T] = np.arange(p["cached_len"], p["cached_len"] + T)
-            seq_lens[g] = len(p["prompt"])
-            logits_idx[g] = max(T - 1, 0)
-            rows[g] = p["slot"].idx
-        tables = self.page_tables[rows, :P]
-        ring = self._ring_prefill(bucket, self.fresh_prefill)
+        Gp = self._pow2(G, self._group_cap(bucket))
+        fresh = self.fresh_prefill
+        ring = self._ring_prefill(bucket, fresh)
+        P = None if fresh else self._page_bucket(max(len(p["prompt"]) for p in grp))
+        key = (bucket, Gp, fresh, ring, P)
         self.sp_prefills += int(ring)
         with self.spans.span("prefill_dispatch"):
-            logits, _ = self._forward(
-                self._t(tokens), self._t(positions), self._t(tables),
-                self._t(seq_lens), logits_indices=self._t(logits_idx),
-                fresh=self.fresh_prefill, seq_parallel=self.sp_impl if ring else None)
-            first = self._sample_first(logits[:, 0], rows, [p["prompt"] for p in grp])
-            if self.hist is not None:
-                hist_rows = np.zeros((G, self.hist.shape[1]), np.int64)
-                for g, p in enumerate(grp):
-                    hist_rows[g, :len(p["prompt"])] = p["prompt"]
-                self.hist[self._t(rows)] = self._t(hist_rows)
+            prog = self._prefill_program(key)
+            self._upload_prefill(key, grp)
+            first = prog()["first"].clone()
             host = self._d2h(first)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_rows"] += G
+        # group-size histogram, "{bucket}x{rows}" -> dispatches (JAX's)
+        hist = self.stats.setdefault("prefill_group_hist", {})
+        hist[f"{bucket}x{G}"] = hist.get(f"{bucket}x{G}", 0) + 1
         return {"grp": grp, "first": first, "host": host, "event": self._event(), "t0": t0,
                 "epochs": [p["slot"].epoch for p in grp]}
+
+    def _upload_prefill(self, key: tuple, grp: list[dict]) -> None:
+        """Group ``grp``'s inputs (empty: every row padding) into the static
+        prefill buffers of ``key``, in two copies to the card (one of ints,
+        one of floats) queued before the program: each row's suffix tokens
+        and positions (-1 past it), page-table row, prompt length, last
+        position, slot row (``max_slots`` on padding rows), sampler fields
+        and ``min_tokens`` (a padding row repeats the last row's, as JAX's),
+        and the whole prompt's ids."""
+        bucket, Gp = key[:2]
+        width, W = self._prefill_widths_of(key)
+        G = len(grp)
+        tokens = np.zeros((Gp, bucket), np.int64)
+        positions = np.full((Gp, bucket), -1, np.int64)
+        tables = np.zeros((Gp, width), np.int64)
+        seq_lens = np.zeros((Gp,), np.int64)
+        logits_idx = np.zeros((Gp,), np.int64)
+        rows = np.full((Gp,), self.max_slots, np.int64)
+        n_ids = max((len(p["prompt"]) for p in grp), default=0)
+        ids = np.zeros((Gp, n_ids), np.int64)
+        for g, p in enumerate(grp):
+            T, prompt = len(p["suffix"]), p["prompt"]
+            tokens[g, :T] = p["suffix"]
+            positions[g, :T] = np.arange(p["cached_len"], p["cached_len"] + T)
+            tables[g] = self.page_tables[p["slot"].idx, :width]
+            seq_lens[g] = len(prompt)
+            logits_idx[g] = max(T - 1, 0)
+            rows[g] = p["slot"].idx
+            ids[g, :len(prompt)] = prompt
+        srows = rows[:G] if G else np.zeros((1,), np.int64)
+        srows = np.concatenate([srows, np.repeat(srows[-1:], Gp - len(srows))])
+        ints = np.concatenate([tokens.ravel(), positions.ravel(), tables.ravel(), seq_lens,
+                               logits_idx, rows, self.min_tokens[srows],
+                               self.samp_host["top_k"][srows], ids.ravel()]).astype(np.int64)
+        flts = np.concatenate([self.samp_host[f][srows] for f in FLOAT_FIELDS])
+        di, df = self._t(ints), self._t(flts, torch.float32)
+        b, o = self._pbufs.views(key, width, W), 0
+        for name in ("tok", "pos", "tables", "seq_lens", "logits_idx", "rows", "min_tokens",
+                     "top_k"):
+            n = b[name].numel()
+            b[name].copy_(di[o: o + n].view(b[name].shape))
+            o += n
+        # ids past a prompt's length are masked by its seq_lens in the body
+        b["ids"][:, :n_ids].copy_(di[o:].view(Gp, n_ids))
+        for i, f in enumerate(FLOAT_FIELDS):
+            b[f].copy_(df[i * Gp: (i + 1) * Gp])
 
     def _prefill_group_process(self, h: dict) -> None:
         """Read one dispatched group's first tokens back and fold them into
@@ -1564,7 +1662,7 @@ class Engine:
             for g, p in enumerate(h["grp"]):
                 if p["slot"].epoch == h["epochs"][g]:
                     rows[gi, g] = p["slot"].idx
-            bf.inj_toks[gi, :len(h["grp"])].copy_(h["first"])
+            bf.inj_toks[gi].copy_(h["first"])
         d = self._t(np.concatenate([active.astype(np.int64), rows.reshape(-1)]))
         bf.act.copy_(d[:B])
         bf.inj_rows.copy_(d[B:].view(bf.inj_rows.shape))

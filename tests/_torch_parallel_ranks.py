@@ -140,6 +140,7 @@ def engines2_rank(rank, case):
         ref.shutdown()
     eng = engine("par-f32", params, mesh)
     out["local_heads"] = (eng.fcfg.n_heads, eng.fcfg.n_kv_heads, eng.k_pages.shape[3])
+    out["programs"] = tuple(eng.telemetry()[k] for k in ("decode_program", "prefill_program"))
     out["paged"] = serve(rank, eng, prompts, 8)
     eng = engine("par-f32", params, mesh, cache_mode="slot")
     out["slot"] = serve(rank, eng, prompts, 8)

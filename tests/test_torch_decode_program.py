@@ -25,7 +25,8 @@ import torch
 from deepsearch_tts_tpu.engine import engine as jengine
 from deepsearch_tts_tpu.engine.tokenizer import ByteTokenizer
 from deepsearch_tts_tpu_torch.engine import engine as tengine
-from deepsearch_tts_tpu_torch.engine.decode_program import DecodeProgram, chunk_body
+from deepsearch_tts_tpu_torch.engine.decode_program import chunk_body
+from deepsearch_tts_tpu_torch.engine.program import Program
 
 torch.set_num_threads(1)
 
@@ -227,7 +228,7 @@ def test_program_rerun_on_new_inputs_equals_fresh_eager_run(kw):
     got = {k: v.clone() for k, v in prog().items()}
     carry = (eng._bufs.last.clone(), eng._bufs.lens.clone(), eng.seen.clone())
     _restore(eng, st)
-    want = DecodeProgram(key, chunk_body(eng, key), capture=False).body()
+    want = Program(key, chunk_body(eng, key), capture=False).body()
     assert set(got) == set(want) == set(first)
     for k in got:
         assert torch.equal(got[k], want[k]), k

@@ -1,7 +1,7 @@
 """The port's LoRA layer (``train/lora.py``, ``Engine.load_lora_adapter``)
 against the JAX package's, on the CPU.
 
-JAX's adapters (``init_lora`` with B drawn non-zero from a seed) cross
+JAX's adapters (``init_lora``'s tree, A and B drawn from a seed) cross
 over leaf for leaf through ``params_from_jax`` — ``None`` leaves and the
 ``alpha`` / ``rank`` numbers included — and merge to JAX's numbers: bf16
 within one ulp, float32 within 1e-6, on the dense, MoE (expert stacks,
@@ -69,14 +69,19 @@ def _np(tree):
 
 
 def _jax_adapter(params, seed: int = 1, rank: int = 2, alpha: float = 4.0, std: float = 0.5):
-    """JAX's ``init_lora`` with every B drawn N(0, std) from ``seed`` (numpy)."""
+    """JAX's ``init_lora`` tree with every A drawn as ``init_lora`` scales it
+    (N(0, 1/in)) and every B drawn N(0, std), both from ``seed`` (numpy):
+    ``init_lora`` keys its own A draws by ``hash(path)``, which Python
+    salts per process, so the adapter would differ from run to run."""
     lora = jlora.init_lora(params, rank=rank, alpha=alpha)
     rng = np.random.default_rng(seed)
 
     def fill(ad):
         if isinstance(ad, dict) and "a" in ad:
+            a = rng.standard_normal(ad["a"].shape).astype(np.float32) * ad["a"].shape[-2] ** -0.5
             b = rng.standard_normal(ad["b"].shape).astype(np.float32) * std
-            return {**ad, "b": jnp.asarray(b.astype(ad["b"].dtype))}
+            return {**ad, "a": jnp.asarray(a.astype(ad["a"].dtype)),
+                    "b": jnp.asarray(b.astype(ad["b"].dtype))}
         return ad
 
     return jax.tree.map(fill, lora, is_leaf=lambda v: v is None or (

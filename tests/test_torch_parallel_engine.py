@@ -112,6 +112,8 @@ def _agree(got, key):
 def test_tp2_streams_match_jax_mesh_engine_and_unsharded(runs):
     want, got2, _, _ = runs
     assert got2[0]["local_heads"] == (2, 1, 1)
+    # a mesh engine's decode and prefill programs run their bodies eagerly
+    assert all(r["programs"] == ("eager", "eager") for r in got2)
     unsharded = got2[0]["unsharded"]
     assert unsharded == want["tp2"]
     for key in ("paged", "slot"):
