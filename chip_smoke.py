@@ -25,9 +25,19 @@ Phases, each raising on failure (non-zero exit, no final line):
    the case K1's context split is for, and B = 64, where one split fills
    the card, both beside SDPA), B6 (the three paged
    entries) and B2 (flash prefill: T = 1, 127, 128, 512, 3030 at B = 1
-   and 2, 3072, and G = 2), K1 and K2 held to a bound scaled by each
-   query position's output (``ATTN_RMS_FRAC``), which a plain attention
-   missing one split or tile of the B = 1 row must fail; then B11, the one-layer forms (``fused_mlp``, ``fused_qkv``,
+   and 2, 3072, G = 2, and qwen3-14b's G = 5), K1 and K2 held to a bound
+   scaled by each query position's output (``ATTN_RMS_FRAC``), which a
+   plain attention missing one split or tile of the B = 1 row must fail;
+   K2's paged mode (``flash_attention_paged``, re-prefill over the pages
+   after the chunk's write: ``PAGED_PREFILLS``) under the same bound at the
+   CLI engine's long prompt (B = 1, 3044 tokens from 0 over 48 pages of
+   64), 1024 tokens after a 2000-token prefix (mid-page), B = 16 x 64 with
+   ragged starts, a padding row and tail padding, the slot layout (ps =
+   4096 and 3000, identity table), G = 8, G = 5, ps = 16 and ps = 48, each
+   timed beside its plain version, SDPA over the pre-gathered context with
+   a boolean mask and, at B = 1, causal SDPA (a plain attention over a
+   table with one page of the long prompt swapped must fail the bound);
+   then B11, the one-layer forms (``fused_mlp``, ``fused_qkv``,
    ``fused_out_mlp`` with packed and unpacked gate/up) at qwen3-8b widths,
    B = 1 and 16, and B11's own path: its counters set to 0, each entry
    driven once on a 16-row decode layer, the counts read (no serving path
@@ -43,8 +53,12 @@ Phases, each raising on failure (non-zero exit, no final line):
    defaults: the prefill lane of 16 rows on) on the card; an
    ``OpenAIServer`` on an ephemeral localhost port answers chat and
    completion requests over HTTP; the kernel launch counters, reset just
-   before, must show that decode and sampling went through the kernels;
-   then the lane check: while a long greedy request decodes, six prompts of
+   before, must show that decode and sampling went through the kernels, and
+   attention too (``attn_impl`` resolves to ``"pallas"`` on the card): K2's
+   paged mode once a layer and prefill dispatch, K1
+   (``pallas_paged_attention``) once a layer and decode step, so no layer
+   attends through the plain KV gather; the long prompt, TTFT and
+   the graph pool's MiB logged; then the lane check: while a long greedy request decodes, six prompts of
    at most 16 tokens over HTTP and one in-process ride the lane whole
    (``lane_tokens`` = their prompt tokens, each activated), B3 / B4 once a
    layer and step, B5 once a sample (a lane chunk samples its prompts'
@@ -66,18 +80,20 @@ Phases, each raising on failure (non-zero exit, no final line):
    a captured CUDA graph, the narrowest and the widest warmed key replayed
    and held to its eager body on a group of the idle engine's rows (first
    tokens greedy and seeded, the written KV bit for bit, the seen mask and
-   history), the trace check (K2, B5, both expert forms), ms a prefill
-   replayed and eager. The serve phases run the CLI's ``--warmup 64``
+   history), the trace check (K2, K2's paged mode, B5, both expert forms),
+   ms a prefill replayed and eager. The serve phases run the CLI's ``--warmup 64``
    (programs, capture seconds and pool MiB logged) and warm the longer
    prompts' prefill programs on top, then read their counters with no chunk in flight (a pipelined
    chunk counts at its dispatch) and log the chunks pipelined, the prefill
    groups injected and by size, and the post-warmup builds (0 required);
-5. reference: the same weights' paged prefill + fused decode logits against
-   the plain no-cache forward on a short input;
+5. reference: the same weights' paged prefill + fused decode logits (on the
+   engine's ``attn_impl``: K2's paged mode and K1) against the plain
+   no-cache forward on a short input;
 6. slot serve: ``Engine(cache_mode="slot", prefill_lane=16)`` on the same
    weights, whose ``attn_impl`` resolves to ``"pallas"`` on the card, over
-   HTTP: decode must run B1 once per layer and step, a multi-turn
-   follow-up must re-enter its parked row, and phase 4's lane check;
+   HTTP: decode must run B1 once per layer and step, every prefill K2's
+   paged mode over the slot row as one page, a multi-turn follow-up must
+   re-enter its parked row, and phase 4's lane check;
 7. Pallas paged serve: ``Engine(attn_impl="pallas",
    enable_prefix_cache=False)``: fresh prefill through B2 (a ~3000-token
    prompt, timed beside phase 4's), decode through ``pallas_paged_attention``;
@@ -99,7 +115,14 @@ Phases, each raising on failure (non-zero exit, no final line):
    no-cache forward on the merged weights; a second engine on the same
    tree keeps the old weights and greedy output;
 9. release: the qwen3-8b engines and weights are dropped; less than 1 GiB
-   may stay allocated on the card; then, before 9a, the two training
+   may stay allocated on the card; then the wide phase (``phase_wide``):
+   qwen3-14b's widths (40 / 8 heads, G = 5) at 2 layers through
+   ``build_engine`` with ``--page_size 48`` and a slot engine of 3000-key
+   rows, each resolving ``attn_impl`` to ``"pallas"``, a multi-turn
+   follow-up reusing its cached prefix, K2's paged mode once a layer and
+   prefill, K1 once a layer and decode step, the paged engine's serving
+   logits over two pages held to the no-cache forward; then, before 9a,
+   the two training
    phases (``--train-only`` runs them and 8b alone, 8b on random qwen3-8b
    weights):
 9c. train: full SFT of qwen3-4b at its published widths (random bf16
@@ -207,6 +230,8 @@ Phases, each raising on failure (non-zero exit, no final line):
     with ``quantize="int8"`` and ``kv_quantize="int8"``,
     the CLI's paged cache and prefix cache, over HTTP as phase 4: B12 once
     per quantized matrix at build, B10 once per layer and decode step;
+    ``attn_impl`` resolves to ``"xla"`` (no kernel reads int8 pages): the
+    plain gather, K1 and K2's paged mode never;
 15. int8 reference: its serving logits against the no-cache forward on the
     same int8 params with the plain int8 products; then a decode step of 64
     rows carrying a 16-row lane (B10 over 80 rows, the lm_head over 65)
@@ -255,7 +280,8 @@ Phases, each raising on failure (non-zero exit, no final line):
     random bf16 weights drawn one matrix at a time), registered from this
     script under its own name, served as phase 4 through ``build_engine``:
     B8 on the three dense MLPs and the two shared experts of every decode
-    step, the grouped expert kernel on the routed experts; its serving
+    step, the grouped expert kernel on the routed experts, K3 through B6's
+    entry once a layer and decode step (its re-prefill stays plain); its serving
     logits held to the no-cache forward with ``plain_experts``;
 22. MLA slot serve: phase 6 on the same weights, K3 through B1's entry
     once per layer and decode step, K1 (B1 at D = 128) never;
@@ -1159,7 +1185,153 @@ def phase_attention_kernels(gen) -> dict:
     qf, kf, vf = rnd(1, 1000, H, D), rnd(1, 1000, 16, D), rnd(1, 1000, 16, D)
     check("flash_attention", "G=2 B=1 T=1000", lambda: fa.flash_attention(qf, kf, vf),
           lambda: fa.flash_attention_plain(qf, kf, vf))
+    # G = 5 (qwen3-14b's 40 / 8 heads): 25 positions in 125 of a block's 128
+    # rows; 1001 positions leave one in the last block
+    qf, kf, vf = rnd(1, 1001, 40, D), rnd(1, 1001, 8, D), rnd(1, 1001, 8, D)
+    check("flash_attention", "G=5 B=1 T=1001", lambda: fa.flash_attention(qf, kf, vf),
+          lambda: fa.flash_attention_plain(qf, kf, vf))
+    del qf, kf, vf
+    _check_paged_prefills(res, gen)
     return res
+
+
+# K2's paged mode in phase 3: (label, B, T, each row's chunk start (< 0: a
+# padding row), its valid queries (fewer than T: tail padding), ps, P,
+# (query heads, kv heads), slot layout: one page of ps keys a row, the
+# identity table at layer 1 of 2). The first is the CLI engine's long
+# prompt, whose numbers the kernel line keeps; ps = 16 takes four one-page
+# boxes a tile, ps = 48 boxes of 16 keys, three a page; qwen3-14b's 40 / 8
+# heads (G = 5) fold 25 positions into 125 of a block's 128 rows; the slot
+# row of 3000 keys takes boxes of 64 that run past its end
+PAGED_PREFILLS = (
+    ("B=1 T=3044 from 0 over 48 pages of 64", 1, 3044, (0,), (3044,), 64, 48, (H, KV), False),
+    ("B=1 T=1024 after a 2000-token prefix (mid-page)", 1, 1024, (2000,), (1024,), 64, 48,
+     (H, KV), False),
+    ("B=16 T=64 ragged starts, a padding row, tail padding", 16, 64,
+     (0, 5, 64, 100, 127, 128, 300, 511, 700, 1000, 1023, 1500, 2000, 2047, 3000, -1),
+     (64, 64, 60, 64, 33, 64, 64, 1, 64, 64, 64, 50, 64, 64, 64, 0), 64, 48, (H, KV), False),
+    ("B=4 T=512 slot layout (ps=4096, identity table)", 4, 512, (0, 700, 3000, 1),
+     (512, 512, 400, 512), CTX, 1, (H, KV), True),
+    ("G=8 B=2 T=700 (300- and 0-token prefixes)", 2, 700, (300, 0), (700, 650), 64, 16,
+     (H, 4), False),
+    ("B=2 T=200 ps=16 (one-page boxes)", 2, 200, (37, 0), (200, 180), 16, 16, (H, KV), False),
+    ("B=2 T=300 ps=48 (boxes of 16)", 2, 300, (100, 0), (300, 250), 48, 16, (H, KV), False),
+    ("G=5 (qwen3-14b) B=2 T=701 (300- and 0-token prefixes)", 2, 701, (300, 0), (701, 650),
+     64, 16, (40, 8), False),
+    ("B=2 T=512 slot layout (ps=3000: boxes past the row)", 2, 512, (0, 2600), (512, 400),
+     3000, 1, (H, KV), True),
+)
+
+
+def _paged_prefill_inputs(gen, B, T, starts, valid, ps, P, heads, slot):
+    """Pools of random pages (the chunk's keys already among them), q, each
+    row's table of distinct random pages (page 0 in none; slot: rows B ..
+    2B-1 of a 2B-row pool), positions from each start for its valid queries
+    (-1 after), seq_lens."""
+    import torch
+
+    dev = torch.device("cuda")
+    h, kv = heads
+    N = 2 * B if slot else 1 + B * P
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    kp, vp, q = rnd(N, ps, kv, D), rnd(N, ps, kv, D), rnd(B, T, h, D)
+    if slot:
+        table = (B + torch.arange(B, device=dev))[:, None]
+    else:
+        table = 1 + torch.randperm(N - 1, generator=gen, device=dev)[: B * P].view(B, P)
+    pos = torch.full((B, T), -1, dtype=torch.int64, device=dev)
+    for b, (s0, n) in enumerate(zip(starts, valid)):
+        if s0 >= 0:
+            pos[b, :n] = s0 + torch.arange(n, device=dev)
+    seq = torch.tensor([s0 + n if s0 >= 0 else 0 for s0, n in zip(starts, valid)], device=dev)
+    return q, kp, vp, table, seq, pos
+
+
+def _check_paged_prefills(res: dict, gen) -> None:
+    """K2's paged mode against its plain version at :data:`PAGED_PREFILLS`
+    under the rms-scaled attention bound, each shape timed beside its plain
+    version, its bound (operations: 4·H·D a visible (query, key) pair;
+    bytes: q and out, each row's keys up to its largest limit once) and two
+    PyTorch calls over the pre-gathered context (the gather not timed):
+    SDPA with a boolean mask, and where the rows are one causal block (B =
+    1) causal SDPA (``is_causal`` from position 0, else
+    ``causal_lower_right`` over the row's keys, kv heads repeated so the
+    efficient kernel takes it), held to the same bound. ``library_ms`` is
+    the faster of the two. The plain version over the long prompt's table
+    with one page swapped for page 0 (in no row's table) must fail the
+    bound the kernel passes. ``res["flash_attention_paged"]`` keeps the long
+    prompt's numbers and the largest error of all shapes,
+    ``res["flash_attention_paged_shapes"]`` each shape's."""
+    import torch
+    from torch.nn.attention.bias import causal_lower_right
+
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {}
+    for label, B, T, starts, valid, ps, P, heads, slot in PAGED_PREFILLS:
+        q, kp, vp, table, seq, pos = _paged_prefill_inputs(gen, B, T, starts, valid, ps, P,
+                                                           heads, slot)
+        (h, kv), S = heads, P * ps
+        lim = fa.paged_key_limits(seq, pos, S)
+        kt, vt = (t[table].reshape(B, S, kv, D).transpose(1, 2) for t in (kp, vp))
+        mask = (torch.arange(S, device=q.device)[None, None] < lim[:, :, None])[:, None]
+        qt = q.transpose(1, 2)
+        one: dict = {}
+        _check_kernel(one, "flash_attention_paged", label,
+                      lambda: fa.flash_attention_paged(q, kp, vp, table, seq, pos),
+                      lambda: fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos),
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                      flop=4 * h * D * int(lim.sum()),
+                      nbytes=(int(lim.amax(1).sum()) * kv * D * 2 * 2 + 2 * B * T * h * D * 2
+                              + B * (T + P + 1) * 8),
+                      library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        r = one["flash_attention_paged"]
+        r["library_masked_ms"] = r["library_ms"]
+        if B == 1:
+            s0, n = starts[0], valid[0]
+            if s0 == 0:
+                causal = lambda: sdpa(qt, kt[:, :, :n], vt[:, :, :n], is_causal=True,  # noqa: E731
+                                      enable_gqa=True)
+            else:
+                kr, vr = (t[:, :, :s0 + n].repeat_interleave(h // kv, 1) for t in (kt, vt))
+                bias = causal_lower_right(n, s0 + n)
+                causal = lambda: sdpa(qt, kr, vr, attn_mask=bias)  # noqa: E731
+            ref = fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos)
+            use = _bound_use(causal().transpose(1, 2), ref, ATTN_RTOL, ATTN_ATOL,
+                             ATTN_RMS_FRAC)
+            assert use <= 1.0, (label, "causal SDPA", use)
+            r["library_causal_ms"] = time_ms(causal, iters=20)[0]
+            r["library_ms"] = min(r["library_masked_ms"], r["library_causal_ms"])
+            log(f"[kernel] flash_attention_paged {label}: causal SDPA "
+                f"{r['library_causal_ms']:.4f} ms (bound use {use:.3f}), masked SDPA "
+                f"{r['library_masked_ms']:.4f} ms, kernel {r['ms']:.4f} ms")
+            if label == PAGED_PREFILLS[0][0]:
+                _paged_page_fault(ref, q, kp, vp, table, seq, pos, page=P // 4)
+            del ref
+        shapes[label] = r
+        del q, kp, vp, kt, vt, mask, qt
+    res["flash_attention_paged"] = {**shapes[PAGED_PREFILLS[0][0]],
+                                    "err": max(r["err"] for r in shapes.values())}
+    res["flash_attention_paged_shapes"] = shapes
+
+
+def _paged_page_fault(ref, q, kp, vp, table, seq, pos, page: int) -> None:
+    """The rms-scaled bound sees a wrong page: the kernel's output passes
+    it, the plain version over the same table with its ``page``-th page
+    swapped for page 0 (random keys, in no row's table) fails it."""
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+
+    bad = table.clone()
+    bad[:, page] = 0
+    uses = {"kernel": _bound_use(fa.flash_attention_paged(q, kp, vp, table, seq, pos), ref,
+                                 ATTN_RTOL, ATTN_ATOL, ATTN_RMS_FRAC),
+            f"page {page} swapped": _bound_use(
+                fa.flash_attention_paged_plain(q, kp, vp, bad, seq, pos), ref, ATTN_RTOL,
+                ATTN_ATOL, ATTN_RMS_FRAC)}
+    log("[kernel] K2 paged bound over the long prompt, bound use: " +
+        ", ".join(f"{k} {u:.3f}" for k, u in uses.items()))
+    assert uses["kernel"] <= 1.0 < uses[f"page {page} swapped"], uses
 
 
 def _check_windows(check, rnd, kp, vp, h, kv, widths, timed_w=None, library_kv=None):
@@ -2336,13 +2508,106 @@ def _release(engine) -> dict:
     return params
 
 
+# the wide phase: shapes the attention kernels take beyond qwen3-8b's, at
+# qwen3-14b's published widths (40 / 8 heads: G = 5), 2 of its 40 layers,
+# registered here under its own name: the CLI's paged engine at 48-key
+# pages (K2's paged mode in boxes of 16) and a slot engine of 3000-key rows
+# (boxes of 64 past a row's end)
+WIDE_MODEL, WIDE_LAYERS, WIDE_PAGE, WIDE_ROW = "qwen3-14b-2-layers", 2, 48, 3000
+WIDE_SYSTEM = "You are a careful search assistant who cites every page. " * 6
+
+
+def _register_wide() -> None:
+    """qwen3-14b's published widths, ``WIDE_LAYERS`` of its 40 layers,
+    registered under ``WIDE_MODEL``."""
+    from deepsearch_tts_tpu_torch.engine.weights import convert_qwen3_dense
+    from deepsearch_tts_tpu_torch.models import qwen3, registry
+
+    cfg = dataclasses.replace(qwen3.QWEN3_CONFIGS["qwen3-14b"], n_layers=WIDE_LAYERS)
+    registry.register(WIDE_MODEL, cfg, qwen3.forward, convert_qwen3_dense)
+
+
+def _wide_turns(tag: str, engine, counters: dict) -> dict:
+    """A greedy prompt, then its multi-turn follow-up (the first turn's
+    prompt and answer and more): the follow-up must reuse the cached
+    prefix (a prefix hit, or a park hit on the slot engine); K2's paged
+    mode once a layer and prefill dispatch, K1 once a layer and decode
+    step, B5 once a sample."""
+    from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
+
+    tok = engine.tokenizer
+    first = tok.encode(WIDE_SYSTEM + "Which river flows through Vienna?")
+    _zero(counters)
+    st0 = _settled(engine)
+    r1 = engine.generate(GenerationRequest(prompt_ids=first, max_tokens=16, **GREEDY))
+    follow = first + r1.token_ids + tok.encode(" And which one through Budapest?")
+    r2 = engine.generate(GenerationRequest(prompt_ids=follow, max_tokens=16, **GREEDY))
+    st1 = _settled(engine)
+    assert r1.completion_tokens >= 1 and r2.completion_tokens >= 1, (r1, r2)
+    assert r2.cached_prompt_tokens > 0, r2
+    launches = _check_launches(tag, engine, counters, st0, st1)
+    log(f"[{tag}] attn_impl={engine.attn_impl}, {len(first)}-token prompt, follow-up of "
+        f"{len(follow)} tokens with {r2.cached_prompt_tokens} cached; launches {launches}")
+    return {"launches": launches, "cached_tokens": r2.cached_prompt_tokens,
+            "prompt_tokens": len(follow)}
+
+
+def phase_wide(card: str) -> dict:
+    """``WIDE_MODEL`` through ``cli/serve.py``'s ``build_engine`` at
+    ``--page_size 48`` (the prefix cache and the lane on, the CLI's
+    defaults), then a slot engine with parking of ``WIDE_ROW``-key rows on
+    the same weights: on both ``attn_impl`` resolves to ``"pallas"``, a
+    multi-turn follow-up reuses its cached prefix, and every layer of every
+    prefill and decode step attends through K2's paged mode and K1 (B6's
+    entry, B1's on the slot engine); the paged engine's serving logits over
+    two pages held to the no-cache forward (phase 5)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+    from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+
+    _register_wide()
+    out: dict = {}
+    args = build_parser().parse_args([
+        "--model", WIDE_MODEL, "--device", "cuda", "--seed", "0",
+        "--max_slots", str(SLOTS), "--page_size", str(WIDE_PAGE), "--pages", "256",
+        "--max_seq_len", "4096", "--decode_chunk", "8", "--warmup", "0"])
+    engine = build_engine(args)
+    assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
+    try:
+        counters = {**_counters("qwen3-8b"), "flash_attention_paged": fa.flash_attention_paged,
+                    "pallas_paged_attention": pa.pallas_paged_attention}
+        out["paged"] = _wide_turns("wide", engine, counters)
+        phase_reference(engine, tag="wide-reference", t0=56, steps=8)
+    finally:
+        params = _release(engine)
+    engine = _engine(params, model=WIDE_MODEL, cache_mode="slot", max_seq_len=WIDE_ROW)
+    assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
+    try:
+        counters = {**_counters("qwen3-8b"), "flash_attention_paged": fa.flash_attention_paged,
+                    "slot_attention": sa.slot_attention}
+        out["slot"] = _wide_turns("wide-slot", engine, counters)
+        assert engine.stats["slot_park_hits"] > 0, engine.stats
+    finally:
+        _release(engine)
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[wide] {card} | qwen3-14b widths (G = 5), {WIDE_LAYERS} layers: 48-key pages "
+        f"and {WIDE_ROW}-key slot rows served on the kernels")
+    return out
+
+
 def _engine(params, model: str = "qwen3-8b", **kw):
-    """``model`` on the card over the served weights, ``SLOTS`` rows."""
+    """``model`` on the card over the served weights, ``SLOTS`` rows of
+    ``CTX`` keys unless ``kw`` says otherwise."""
     from deepsearch_tts_tpu_torch.engine.engine import Engine
     from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
 
     return Engine(model, ByteTokenizer(), params=params, device="cuda",
-                  max_slots=SLOTS, max_seq_len=CTX, decode_chunk_len=8, **kw)
+                  **{"max_slots": SLOTS, "max_seq_len": CTX, "decode_chunk_len": 8, **kw})
 
 
 def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
@@ -2360,6 +2625,7 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     import torch
 
     from deepsearch_tts_tpu_torch.engine.weights import pack_matmul_params
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
     from deepsearch_tts_tpu_torch.ops import slot_attention as sa
 
     # the engine packs its params; on the served (packed) tree that is the
@@ -2383,13 +2649,17 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     assert engine.attn_impl == "pallas" and engine.layer_fusion, engine.attn_impl
     out: dict = {"programs": _check_programs(tag, engine)}
-    # a speculative engine runs only verify windows: B9, never B1
-    counters = {**_counters(model), "slot_attention": sa.slot_attention}
+    # a speculative engine runs only verify windows: B9, never B1; a parked
+    # row's re-entry (and every prefill: parking makes each non-fresh) takes
+    # K2's paged mode over the slot row as one page
+    counters = {**_counters(model), "slot_attention": sa.slot_attention,
+                "flash_attention_paged": fa.flash_attention_paged}
     idle = ()
     if model == MLA_MODEL:
-        # MLA's 576-column latent rows take K3 through B1's entry; K1 idles
+        # MLA's 576-column latent rows take K3 through B1's entry; K1 idles,
+        # and its re-prefill stays plain
         counters["slot_attention_latent"] = sa.slot_attention_latent
-        idle = ("slot_attention",)
+        idle = ("slot_attention", "flash_attention_paged")
     if spec:
         counters["slot_window_attention"] = sa.slot_window_attention
         idle = ("slot_attention",)
@@ -2556,6 +2826,7 @@ def _lane_check(tag: str, engine, base: str, counters: dict, teacher: bool = Tru
     for name, n in launches.items():
         want = (steps + prefills + lanes if name == "sampling_prep"
                 else None if name.startswith("grouped_") or name == "int8_product"
+                else L * prefills if name == "flash_attention_paged"
                 else L * steps)
         assert want is None or n == want > 0, (name, n, want)
     log(f"[{tag}] lane: {len(lens)} prompts of {lens} tokens rode it over {lanes} chunks "
@@ -2851,7 +3122,7 @@ def phase_pallas_serve(card: str, params: dict, xla_long_s: float) -> dict:
             out["long_prompt_s"] = r[2]
             log(f"[pallas] {card} | long prompt: {u['prompt_tokens']} prompt tokens "
                 f"answered in {r[2] * 1000:.1f} ms (B2 prefill) against "
-                f"{xla_long_s * 1000:.1f} ms on the XLA engine of phase 4")
+                f"{xla_long_s * 1000:.1f} ms on the CLI engine of phase 4 (K2's paged mode)")
             d0 = dict(engine.stats)
             _burst(chat, SLOTS, 64)
             d1 = _settled(engine)
@@ -4023,8 +4294,9 @@ def _zero(counters: dict) -> None:
 def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
                     idle=()) -> dict:
     """Read the counters after a phase and hold them to the phase's work:
-    B3, B4/B7, B10, B8 (MLA: 3 dense MLPs + 2 shared experts), B1, B9 and
-    K3 once per layer and decode (or verify) step, each grouped expert entry
+    B3, B4/B7, B10, B8 (MLA: 3 dense MLPs + 2 shared experts), B1, B9, K1
+    and K3 once per layer and decode (or verify) step, K2's paged mode once
+    per layer and prefill dispatch, each grouped expert entry
     once per MoE layer and forward (decode steps + prefill dispatches), B5
     once per sample, the int8 product at least once per forward (the
     lm_head; and the layer products of prefills of up to
@@ -4053,6 +4325,7 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
             continue
         want = (steps + prefills + lanes if name == "sampling_prep"
                 else L_moe * (steps + prefills) if name.startswith("grouped_")
+                else L * prefills if name == "flash_attention_paged"
                 else L * steps)
         assert n == want > 0, (name, n, want)
     return {**launches, **prefill}
@@ -4210,7 +4483,8 @@ _SIGNATURES = (
                                     "pallas_paged_attention", "pallas_paged_decode",
                                     "pallas_paged_decode_clamp")),
     ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent")),
-    ("K2", r"::flash_attention\(", ("flash_attention",)),
+    ("K2", r"::flash_attention<(false|\(bool\)0)>", ("flash_attention",)),
+    ("K2 paged", r"::flash_attention<(true|\(bool\)1)>", ("flash_attention_paged",)),
 )
 # i8_stream launches a call of B7's and B10's wrappers makes for each group
 # of 64 rows (csrc/fused_layer.cu: B10's out-MLP runs its three products)
@@ -4653,6 +4927,8 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     import torch
 
     from deepsearch_tts_tpu_torch.cli.serve import build_engine, build_parser
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
     from deepsearch_tts_tpu_torch.ops import quant
 
     args = build_parser().parse_args([
@@ -4697,6 +4973,20 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
 
     counters = _counters(model, int8=int8_moe)
     idle = ("grouped_gateup", "grouped_down") if int8_moe else ()
+    # attention: on CUDA attn_impl resolves to "pallas": K2's paged mode
+    # once a layer and prefill, K1 once a layer and decode step, so no layer
+    # of either attends through the plain gather; with int8 KV to "xla"
+    # (the gather, neither kernel); MLA's decode takes K3 through B6's
+    # entry, its re-prefill stays plain
+    paged_pallas = engine.attn_impl == "pallas" and not engine.latent_cache
+    want_impl = "xla" if quant_kw.get("kv_quantize") else "pallas"
+    assert engine.attn_impl == want_impl, (tag, engine.attn_impl, want_impl)
+    if engine.latent_cache:
+        counters["paged_attention_latent"] = pa.paged_attention_latent
+    counters["flash_attention_paged"] = fa.flash_attention_paged
+    counters["pallas_paged_attention"] = pa.pallas_paged_attention
+    if not paged_pallas:
+        idle += ("flash_attention_paged", "pallas_paged_attention")
     try:
         with _serve_http(engine) as base:
             # counters are zeroed right before the main path runs
@@ -4814,6 +5104,11 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
             # the warmup covers every program the phase's requests reach
             assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
+            log(f"[{tag}] attn_impl={engine.attn_impl}: K2 paged "
+                f"{fa.flash_attention_paged.launches} launches, K1 "
+                f"{pa.pallas_paged_attention.launches}" + (
+                    " (once a layer and prefill, once a layer and decode step: no plain "
+                    "gather)" if paged_pallas else ""))
             out["steps"] = dict(zip(("decode", "prefill", "lane"), _steps(engine, st0, st1)))
             out["decode_tok_s"] = ((st1["decode_tokens"] - st0["decode_tokens"])
                                    / (st1["decode_time_s"] - st0["decode_time_s"]))
@@ -4933,8 +5228,10 @@ def _blocked_drops():
 def phase_reference(engine, tag: str = "reference", t0: int = 16, steps: int = 8,
                     same_path: bool = False, **plain_kw) -> None:
     """Paged prefill of ``t0`` tokens + ``steps`` fused decode steps (the
-    serving branches) vs the plain no-cache forward, on the served weights,
-    into pools like the engine's (int8 with scales under int8 KV).
+    serving branches, on the engine's ``attn_impl``: K2's paged mode and K1
+    where it resolves to ``"pallas"``) vs the plain no-cache forward, on the served weights,
+    into pools like the engine's (its page size on the paged cache, 64
+    keys otherwise; int8 with scales under int8 KV).
     ``plain_kw`` keeps the reference off the kernels the no-cache forward
     would otherwise run (the MoE family's grouped expert kernel, the int8
     product). ``same_path``: the reference is instead the same serving calls
@@ -4950,19 +5247,21 @@ def phase_reference(engine, tag: str = "reference", t0: int = 16, steps: int = 8
 
     cfg, dev = engine.cfg, engine.device
     T0, T = t0, t0 + steps
-    assert T <= 64, T                           # one 64-token page
+    assert T <= 64, T
+    ps = engine.page_size if engine.cache_mode == "paged" else 64
+    n = -(-T // ps)                             # pages 1 .. n of the pools
     gen = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (1, T), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None]
     replay = _RouteReplay(cfg) if getattr(cfg, "latent_cache", False) else None
 
     def serve(**kw_plain):
-        kp, vp = init_kv_pages(cfg.n_layers, 2, 64, cfg.n_kv_heads, cfg.head_dim,
+        kp, vp = init_kv_pages(cfg.n_layers, 1 + n, ps, cfg.n_kv_heads, cfg.head_dim,
                                dtype=engine.k_pages.dtype, device=dev)
-        kw = dict(k_pages=kp, v_pages=vp, page_table=torch.tensor([[1]], device=dev),
-                  **kw_plain)
+        kw = dict(k_pages=kp, v_pages=vp, page_table=torch.arange(1, 1 + n, device=dev)[None],
+                  impl=engine.attn_impl, **kw_plain)
         if engine.k_scales is not None:
-            kw["k_scales"], kw["v_scales"] = init_kv_scales(cfg.n_layers, 2, 64,
+            kw["k_scales"], kw["v_scales"] = init_kv_scales(cfg.n_layers, 1 + n, ps,
                                                             cfg.n_kv_heads, device=dev)
         out = [engine.forward(engine.params, cfg, toks[:, :T0], pos[:, :T0],
                               seq_lens=torch.tensor([T0], device=dev),
@@ -6056,6 +6355,7 @@ def main(argv=None) -> int:
     res.update(phase_attention_kernels(gen))
     k1_b1 = res.pop("slot_attention_b1")
     k1_b64 = res.pop("slot_attention_b64")
+    k2_paged = res.pop("flash_attention_paged_shapes")
     b11_res, b11_launches = phase_one_layer_kernels(gen)
     res.update(b11_res)
     moe_res = phase_moe_kernels(gen)
@@ -6071,7 +6371,8 @@ def main(argv=None) -> int:
     _lap("kernels")
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
-                          "k1_b1": k1_b1, "k1_b64": k1_b64, "b11_launches": b11_launches,
+                          "k1_b1": k1_b1, "k1_b64": k1_b64, "k2_paged": k2_paged,
+                          "b11_launches": b11_launches,
                           "b12_shapes": b12_shapes, "moe_i8_shapes": moe_i8_shapes,
                           "past_64": PAST_64, "card": card}))
         return 0
@@ -6098,6 +6399,8 @@ def main(argv=None) -> int:
     held = _held_gib()
     log(f"[release] qwen3-8b engines and weights released: {held:.3f} GiB still allocated")
     assert held < 1.0, held
+    wide = phase_wide(card)
+    _lap("wide")
     # training, on a card that holds nothing else
     train, moe_train = phase_train(card), phase_moe_train(card)
     _lap("train")
@@ -6224,6 +6527,8 @@ def main(argv=None) -> int:
         "pallas_paged_decode_clamp": ("cuda", attn, jsrc + "paged_attention.py:239",
                                       pallas),
         "flash_attention": ("cuda", attn, jsrc + "flash_attention.py:27", pallas),
+        "flash_attention_paged": ("cuda", attn, jsrc + "attention.py:167 prefix_chunk_attention "
+                                  "(XLA)", serve),
         "fused_qkv_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:568", i8_serve),
         "fused_out_mlp_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:669", i8_serve),
         "int8_product": ("cuda", fused, jsrc + "quant.py:68 int8_matmul (XLA dot_general)",
@@ -6265,8 +6570,9 @@ def main(argv=None) -> int:
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
-                      "b12_shapes": b12_shapes, "moe_i8_shapes": moe_i8_shapes,
-                      "past_64": PAST_64, "phase_s": _LAPS, "card": card}))
+                      "k2_paged": k2_paged, "wide": wide, "b12_shapes": b12_shapes,
+                      "moe_i8_shapes": moe_i8_shapes, "past_64": PAST_64, "phase_s": _LAPS,
+                      "card": card}))
     print(json.dumps({"product": product, "card": card}))
     print(json.dumps({"eval": evaluation, "card": card}))
     print(json.dumps({"parallel": parallel, "card": card}))

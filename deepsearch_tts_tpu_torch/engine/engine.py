@@ -62,10 +62,14 @@ Behaviours carried over from the JAX engine:
   longest active row. Prefix reuse is *parking*: a finished row's KV stays
   in place, and a request whose prompt extends its tokens re-enters that
   row and prefills only the rest (token-exact match).
-* ``attn_impl``: ``None`` resolves as in JAX with the accelerator swapped
-  (:func:`resolve_attn_impl`); ``"pallas"`` runs the slot and paged decode
-  kernels and, for fresh prefill, flash attention; ``"pallas2"`` and
-  ``"clamp"`` pick the other paged decode entry points.
+* ``attn_impl``: ``None`` resolves to ``"pallas"`` on CUDA (slot and paged
+  cache; ``"xla"`` with int8 KV and for shapes no kernel takes,
+  :func:`attention_kernels_take`) and to ``"xla"`` on the CPU
+  (:func:`resolve_attn_impl`; JAX keeps its paged default on the gather
+  for a TPU measurement); ``"pallas"`` runs the slot and paged decode
+  kernels, flash attention for fresh prefill and K2's paged mode for
+  re-prefill over a cached prefix; ``"pallas2"`` and ``"clamp"`` pick the
+  other paged decode entry points.
 * Seen masks: each row's token-presence mask is rebuilt on the device from
   its whole prompt at admission and extended with every sampled token, so
   it is always presence(prompt + generated) — there is no kept/stale mask
@@ -254,13 +258,41 @@ def _check_speculative(speculative, cache_mode, kv_quantize, prefill_lane, spec_
 ATTN_IMPLS = ("xla", "pallas", "pallas2", "clamp")
 
 
-def resolve_attn_impl(attn_impl: str | None, cache_mode: str,
-                      device: torch.device) -> str:
-    """The engine's attention implementation. ``None`` resolves as the JAX
-    engine does (``engine.py:260-273``) with the accelerator swapped: the
-    slot kernel on CUDA for the slot cache, the plain gather otherwise."""
+def attention_kernels_take(cfg, cache_mode: str, page_size: int, pages: int) -> bool:
+    """Whether the port's attention kernels take an engine's static shapes
+    (``cfg`` the config its forward runs with, rows of ``pages`` pages of
+    ``page_size`` keys; the wrappers raise on any other): bf16 pools; K1
+    and K2 at head_dim 128 with at most 64 query heads a kv head (K1's rows
+    at T=1), K2's paged mode over rows of more than one page at ps a
+    multiple of 8; K3 at MLA's latent width with heads a multiple of 64,
+    over a page table at ps a multiple of 64 or 8, 16, 32."""
+    from ..ops import paged_attention as pa
+    from ..ops.flash_attention import paged_pages_ok
+
+    if getattr(cfg, "dtype", None) != "bfloat16":
+        return False
+    if getattr(cfg, "latent_cache", False):
+        return (cfg.head_dim == pa.LATENT_DIM and cfg.n_heads % pa.LATENT_HEADS == 0
+                and (cache_mode == "slot" or pa.latent_pages_ok(page_size)))
+    return (cfg.head_dim == pa.HEAD_DIM and cfg.n_heads // cfg.n_kv_heads <= pa.MAX_QUERY_ROWS
+            and paged_pages_ok(page_size, pages))
+
+
+def resolve_attn_impl(attn_impl: str | None, cache_mode: str, device: torch.device,
+                      kv_quantize: str | None = None, kernels_take: bool = True) -> str:
+    """The engine's attention implementation. ``None`` resolves to the
+    port's kernels on CUDA, for the slot and the paged cache alike, where
+    they take the engine's shapes (``kernels_take``:
+    :func:`attention_kernels_take`), and to the plain gather on the CPU,
+    for int8 KV (no kernel reads int8 pages) and for shapes no kernel takes
+    (``attn_impl="pallas"`` raises there). JAX (``engine.py:260-273``)
+    keeps its paged default on the gather for a v5e measurement (XLA's
+    fused gather + attention beat its Pallas paged kernels there); on the
+    card K1 and K2's paged mode serve both caches, and a kernel's plain
+    version serves the tests only."""
     if attn_impl is None:
-        return "pallas" if cache_mode == "slot" and device.type == "cuda" else "xla"
+        return ("pallas" if device.type == "cuda" and not kv_quantize and kernels_take
+                else "xla")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
     return attn_impl
@@ -340,7 +372,6 @@ class Engine:
         if kv_quantize not in (None, "int8", "int8-force"):
             raise ValueError(f"unknown kv_quantize {kv_quantize!r}")
         self.device = resolve_device(device)
-        self.attn_impl = resolve_attn_impl(attn_impl, cache_mode, self.device)
         self.cache_mode = cache_mode
         # slot-mode prefix reuse is parking, not sharing (engine.py:373-381)
         self._slot_park = bool(enable_prefix_cache) and cache_mode == "slot"
@@ -357,6 +388,14 @@ class Engine:
             if layer_fusion:
                 raise ValueError("layer_fusion requires single-device serving")
             layer_fusion = False
+        lcfg = cfg
+        if self.par is not None:
+            from ..parallel.sharding import local_config
+
+            lcfg = local_config(cfg, self.par.tp)
+        self.attn_impl = resolve_attn_impl(
+            attn_impl, cache_mode, self.device, kv_quantize,
+            attention_kernels_take(lcfg, cache_mode, page_size, -(-max_seq_len // page_size)))
         self.prefill_lane = int(prefill_lane or 0)
         if lane_max_act:   # instance override of the class default
             self.LANE_MAX_ACT = int(lane_max_act)

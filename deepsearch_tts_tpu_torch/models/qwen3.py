@@ -17,8 +17,12 @@ carries (``lane_*``) — decode through the fused layer functions
 attention kernels where JAX selects its Pallas ones: flash attention for
 fresh prefill and the no-cache forward, the paged kernels for T=1 paged
 decode, ``slot_attention`` for T=1 slot decode and
-``slot_window_attention`` for a slot verify window. The layer loop is a
-Python loop (the JAX ``lax.scan``); the KV pools are updated in place.
+``slot_window_attention`` for a slot verify window, and one more that JAX
+lacks (its re-prefill is XLA code whatever ``impl`` says): with
+``impl="pallas"`` re-prefill over a cached prefix (paged, or a slot row
+as one page) runs K2's paged mode (``flash_attention_paged``). The layer
+loop is a Python loop (the JAX ``lax.scan``); the KV pools are updated in
+place.
 
 int8 (``ops/quant.py``): a matrix leaf may be ``{q, scales}`` (int8 stack +
 float32 per-column scales); every product then goes through
@@ -47,6 +51,7 @@ from ..ops.fused_layer import (
     fused_qkv_stacked_i8,
     shapes_ok,
 )
+from ..ops.flash_attention import flash_attention_paged
 from ..ops.quant import int8_matmul, is_quantized, maybe_int8_dot
 from ..ops.slot_attention import slot_attention, slot_window_attention
 from .common import apply_rope, matmul_f32, rms_norm, row_dot_bf16, rope_angles
@@ -213,8 +218,10 @@ class ServingAttention:
     [B,T,E]), the in-place KV write (quantized, with its scales, when the
     scales pools are given) and one of five branches — fresh causal
     prefill, slot decode (B1 at T=1, B9 over a speculative verify window,
-    or the masked gather), re-prefill over a cached prefix, and T=1 paged
-    decode (B6 or the gather). Returns o [B,T,H,D].
+    or the masked gather), re-prefill over a cached prefix (K2's paged
+    mode over the pages after the chunk's write with ``impl="pallas"``,
+    else JAX's ``prefix_chunk_attention``), and T=1 paged decode (B6 or the
+    gather). Returns o [B,T,H,D].
 
     int8 KV follows JAX's routing (``qwen3.py:297-400``): fresh prefill
     attends over the chunk's unquantized k/v; re-prefill does not take
@@ -338,6 +345,11 @@ class ServingAttention:
                 qd, kpf, vpf, table_l[:nd], self.seq_lens, self.pos_c[:nd],
                 mask=self.decode_mask, k_scales=self.ksf, v_scales=self.vsf)
             return self._with_lane(o, q, k, v)
+        if T > 1 and self.impl == "pallas":
+            # re-prefill over a cached prefix on K2's paged mode: the pages
+            # after this chunk's write (the stored keys are the chunk's own)
+            write_kv_slots(kpf, vpf, k, v, slots_l)
+            return flash_attention_paged(q, kpf, vpf, table_l, self.seq_lens, self.positions)
         if T > 1:
             # re-prefill over a cached prefix: read the prefix BEFORE this
             # chunk's in-place write, take the chunk's K/V directly

@@ -8,7 +8,10 @@ switch selects the kernels exactly where JAX selects its Pallas ones:
 ``causal_attention(impl="pallas")`` runs flash attention (B2,
 ``ops/flash_attention.py``), and ``paged_attention`` with ``impl`` in
 ``{"pallas", "pallas2", "clamp"}`` runs the paged kernels (B6,
-``ops/paged_attention.py``) at T=1 — T>1 always stays on the gather.
+``ops/paged_attention.py``) at T=1. At T>1 this module stays on the
+gather, as in JAX; the serving layer (``models/qwen3.py``) takes K2's
+paged mode (``flash_attention.flash_attention_paged``) for re-prefill
+with ``impl="pallas"`` instead of :func:`prefix_chunk_attention`.
 
 GQA is computed by reshaping query heads into [kv_heads, group], as in JAX.
 Scores and softmax are float32; the value product takes the probabilities

@@ -14,6 +14,14 @@
 //     the slot cache and the paged cache.
 // K2  flash_attention: causal GQA prefill
 //       B2 flash_attention            (ops/flash_attention.py:73, :27)
+//     and its paged mode, flash_attention<PAGED = true>: a prefill chunk over
+//     the pages its row has after the chunk's own K/V was written, JAX's
+//     re-prefill over a cached prefix (ops/attention.py:167
+//     prefix_chunk_attention, XLA code: no Pallas kernel to replace). Query
+//     t of row b at position p = qpos[b,t] sees keys j < min(p + 1, seq_len,
+//     P*ps); a tail-padding query (p < 0) keys j < chunk_start = qpos[b,0];
+//     a row with chunk_start < 0 sees none and writes zeros. A slot row is
+//     one page of max_seq_len keys.
 // K3  latent_attention: T=1 MQA decode over MLA's latent rows (v is k), at
 //     the DeepSeek-V3 / Kimi-K2 width D = 576 (kv_lora_rank 512 + rope 64):
 //       B1 slot_attention, v_pool=None (_slot_attn_kernel_shared, :116)
@@ -82,6 +90,16 @@
 //     ptxas gives 168 registers a thread at entry, moved by setmaxnreg to
 //     24 (producer) and 240 (consumers) (NVIDIA H100 80GB HBM3, 700.00 W,
 //     CUDA 12.8).
+//   The paged mode keeps the consumers and changes the producer: K / V
+//   come through a 2-D map over the pool as (KV*D, pages*ps) in boxes that
+//   each lie in one page: 64 keys (ps a multiple of 64) or one whole page
+//   (ps = 8, 16, 32), at row table[b, j/ps]*ps + j%ps, as K3 loads them. A
+//   block reads its rows' positions and seq_len on the card (no host read,
+//   so a captured prefill replays it): its tiles end at the largest limit
+//   of its queries, a tile is masked only where it reaches a limit of one
+//   of the warp's rows, and value rows past that largest limit in the last
+//   tile (an unloaded box, stale pool rows) are zeroed in shared memory
+//   before PV. Bound by operations like K2: ~2*T*(2*chunk_start + T)*H*D.
 // * K3 sits near the card's ridge: per key it reads 1152 B once and does
 //   2*H*(576 + 512) FLOP (H = 128: 242 FLOP a byte), so it wants the
 //   tensor cores' full rate and every SM streaming. The design follows the
@@ -544,13 +562,16 @@ constexpr int FTH = 384;       // two consumer warpgroups + the producer warpgro
 constexpr int SWZ = 64;        // bf16 columns of one 128-byte swizzle atom: a TMA box's width
 constexpr int FTILE = FBN * HD * 2;   // bytes of one K or V tile (and of the Q tile)
 constexpr int FHALF = FTILE / 2;      // one 64-column half of a tile
+constexpr int FBN_PAGE = 64;   // the most keys of one paged box (a page holds whole boxes)
 static_assert(FBM == FBN, "the Q tile and a K / V tile share one size");
+static_assert(FBN % FBN_PAGE == 0, "a paged tile is whole boxes");
 
-// what the softmax of one score tile needs of its rows: their positions
-// (rows r0 and r0 + 8 of the thread), where masking starts, S, the column
-// pair of the thread and the scale in log2 units
+// what the softmax of one score tile needs of its rows: the exclusive key
+// limits of the thread's rows r0 and r0 + 8, the least limit of the warp's
+// rows (a tile wholly below it is not masked), the column pair of the
+// thread and the scale in log2 units
 struct SoftmaxRows {
-  int t0, t1, t_first, S, c2;
+  int lim0, lim1, mask_from, c2;
   float scale_log2;
 };
 
@@ -560,8 +581,7 @@ __device__ __forceinline__ float fast_exp2(float x) {   // 2^x; 2^-inf = 0
   return y;
 }
 
-// scale, mask (only a tile that reaches past the first row's position or
-// past S) and online softmax of the 64 x 128 score tile of keys kbase ..
+// scale, mask (only a tile that reaches a row's limit) and online softmax of the 64 x 128 score tile of keys kbase ..
 // kbase + 127 in registers (row r0: sc[4i], sc[4i+1]; row r0 + 8: sc[4i+2],
 // sc[4i+3]; key kbase + 8i + c2 (+1)); p leaves as bf16 pairs, pk[i] =
 // (p[2i], p[2i+1]): the wgmma A fragments of the value product; m, l are
@@ -569,7 +589,7 @@ __device__ __forceinline__ float fast_exp2(float x) {   // 2^x; 2^-inf = 0
 __device__ __forceinline__ void softmax_tile(float (&sc)[64], uint32_t (&pk)[32], float& m0,
                                              float& m1, float& l0, float& l1, float& al0,
                                              float& al1, int kbase, const SoftmaxRows& r) {
-  const bool masked = kbase + FBN - 1 > r.t_first || kbase + FBN > r.S;
+  const bool masked = kbase + FBN > r.mask_from;
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -578,7 +598,7 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], uint32_t (&pk)[32]
       float v = sc[4 * i + e] * r.scale_log2;
       if (masked) {
         const int key = kbase + 8 * i + r.c2 + (e & 1);
-        if (key > (e < 2 ? r.t0 : r.t1) || key >= r.S) v = -INFINITY;
+        if (key >= (e < 2 ? r.lim0 : r.lim1)) v = -INFINITY;
       }
       sc[4 * i + e] = v;
       if (e < 2) mx0 = fmaxf(mx0, v);
@@ -613,24 +633,37 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], uint32_t (&pk)[32]
 constexpr int flash_smem_bytes() {
   return 1024                                  // slack: the tiles start 1024-byte aligned
          + FTILE * (1 + 2 * FSTAGES)           // Q, then FSTAGES K and V tiles
-         + 8 * (1 + 3 * FSTAGES);              // mbarriers
+         + 8 * (1 + 3 * FSTAGES)               // mbarriers
+         + 16;                                 // the paged block's key limit
 }
 
-// grid (KV, B, ceil(T*G / FBM)), FTH threads, one block an SM. Block
-// (kh, b, m) holds folded rows rho = m*FBM .. +FBM-1 of kv head kh, row rho =
-// t*G + g being query head kh*G + g at position t = rho / G (the TMA box
-// (64, G, FBM/G, 1) over q as (D, H, T, B) writes them in this order). Row rho
-// sees keys j <= t, j < S (the TPU kernel's top-left mask,
-// flash_attention.py:49). Tiles are 128 rows of 256 B in two 64-column
-// halves of 128-byte swizzle atoms, as TMA writes them and wgmma reads them.
+// grid (KV, B, ceil(T / TQ)), TQ = floor(FBM / G) query positions a block,
+// FTH threads, one block an SM. Block (kh, b, m) holds positions t = m*TQ ..
+// +TQ-1 of kv head kh as tile rows r = (t - m*TQ)*G + g, query head kh*G + g
+// (the TMA box (64, G, TQ, 1) over q as (D, H, T, B) writes them in this
+// order); where G does not divide FBM (qwen3-14b: G = 5, 125 rows) the rows
+// r >= TQ*G hold no query: they see no key and are not written. Row r sees
+// keys j <= t, j < S (the TPU kernel's top-left mask, flash_attention.py:49).
+// Tiles are 128 rows of 256 B in two 64-column halves of 128-byte swizzle
+// atoms, as TMA writes them and wgmma reads them.
 // Warpgroup 2 is the producer: one thread issues every TMA load. Warpgroups
 // 0 and 1 each own 64 rows: S = Q K^T (both from shared memory), the online
 // softmax in registers (log2 units), O += P V (P from registers, V from
 // shared memory, transposed by its descriptor).
+//
+// PAGED: k and v are 2-D maps over the pools as (KV*D, pages*ps) with boxes
+// of (64, box_rows) that each lie in one page (one page a row, P = 1: boxes
+// of 64 that may run past it into keys past every limit); key j of row b is
+// pool row table[b*P + j/ps]*ps + j%ps, S = P*ps. Row r sees keys j <
+// limit(t) (see below), the block's tiles end at the largest limit of its
+// queries, and a block whose queries see no key writes zeros.
+template <bool PAGED>
 __global__ void __launch_bounds__(FTH, 1)
 flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int T, int S,
-                int H, int KV, float scale_log2) {
+                int H, int KV, float scale_log2, const long long* __restrict__ table, int P,
+                const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
+                int ps, int box_rows) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;
@@ -640,16 +673,27 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + FSTAGES;
   uint64_t* empty = v_full + FSTAGES;
+  int* lim_s = reinterpret_cast<int*>(empty + FSTAGES);   // PAGED: the block's key limit
 
   const int kh = blockIdx.x, b = blockIdx.y;
   const int m = gridDim.z - 1 - blockIdx.z;        // the longest query tiles start first
-  const int G = H / KV, TQ = FBM / G, R = T * G;
+  const int G = H / KV, TQ = FBM / G, RB = TQ * G;   // RB: the tile rows that hold a query
   const int t_first = m * TQ;
   const int t_last = min(t_first + TQ, T) - 1;
-  const int ntiles = (min(S, t_last + 1) + FBN - 1) / FBN;   // no tile above the diagonal
   const int wg = threadIdx.x / 128;
+  // PAGED: the exclusive key limit of query t: its position + 1 (a tail
+  // padding query: chunk_start), at most seq_len and S; 0 in a row whose
+  // chunk_start < 0 (a padding row) and past T
+  const long long cs = PAGED ? qpos[(long long)b * T] : 0;
+  const long long cap = PAGED ? min((long long)S, seq_len[b]) : S;
+  auto limit = [&](int t) -> int {
+    if (t >= T || cs < 0) return 0;
+    const long long p = qpos[(long long)b * T + t];
+    return (int)max(0LL, min(p >= 0 ? p + 1 : cs, cap));
+  };
 
   if (threadIdx.x == 0) {
+    *lim_s = 0;
     mbar_init(q_full, 1);
     for (int s = 0; s < FSTAGES; ++s) {
       mbar_init(&k_full[s], 1);
@@ -659,17 +703,53 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     mbar_init_fence();
   }
   __syncthreads();
+  int ntiles, tile_lim = 0;
+  if (PAGED) {
+    if (threadIdx.x < TQ) atomicMax(lim_s, limit(t_first + threadIdx.x));
+    __syncthreads();
+    tile_lim = *lim_s;
+    ntiles = (tile_lim + FBN - 1) / FBN;   // no tile past the last key a query sees
+    if (ntiles == 0) {   // no query of the block sees a key: zeros
+      for (int i = threadIdx.x; i < RB * (HD / 8); i += FTH) {
+        const int r = i / (HD / 8), t = t_first + r / G;
+        if (t < T)
+          *reinterpret_cast<uint4*>(out + (((long long)b * T + t) * H + kh * G + r % G) * HD +
+                                    (i % (HD / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
+    }
+  } else {
+    ntiles = (min(S, t_last + 1) + FBN - 1) / FBN;   // no tile above the diagonal
+  }
 
   if (wg == 2) {
     // ---- producer: registers go to the consumers; one thread issues the loads
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, FTILE);
+      mbar_expect_tx(q_full, RB * 256);   // two halves of RB rows of 128 B
       for (int h = 0; h < 2; ++h)
         tma_load_4d(qs + h * FHALF, &tq, q_full, h * SWZ, kh * G, t_first, b);
       for (int kt = 0; kt < ntiles; ++kt) {
         const int s = kt % FSTAGES;
         if (kt >= FSTAGES) mbar_wait(&empty[s], (kt / FSTAGES - 1) & 1);
+        if (PAGED) {
+          // the tile's boxes up to the block's limit, each in one page
+          const int j0 = kt * FBN;
+          const int nb = (min(FBN, tile_lim - j0) + box_rows - 1) / box_rows;
+          mbar_expect_tx(&k_full[s], nb * box_rows * 256);
+          mbar_expect_tx(&v_full[s], nb * box_rows * 256);
+          for (int kv = 0; kv < 2; ++kv) {
+            unsigned char* dst = (kv ? vs : ks) + s * FTILE;
+            for (int i = 0; i < nb; ++i) {
+              const int j = j0 + i * box_rows;
+              const int row = (int)(table[(long long)b * P + j / ps] * ps + j % ps);
+              for (int h = 0; h < 2; ++h)
+                tma_load_2d(dst + h * FHALF + i * box_rows * 128, kv ? &tv : &tk,
+                            kv ? &v_full[s] : &k_full[s], kh * HD + h * SWZ, row);
+            }
+          }
+          continue;
+        }
         mbar_expect_tx(&k_full[s], FTILE);
         for (int h = 0; h < 2; ++h)
           tma_load_3d(ks + s * FTILE + h * FHALF, &tk, &k_full[s], kh * HD + h * SWZ,
@@ -686,14 +766,20 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
     const int c2 = (lane & 3) * 2;
     const int r0 = wg * 64 + wq * 16 + (lane >> 2);   // this thread's rows r0, r0 + 8
-    const int t0 = (m * FBM + r0) / G, t1 = (m * FBM + r0 + 8) / G;
+    const int t0 = t_first + r0 / G, t1 = t_first + (r0 + 8) / G;
     float o[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
     float sc[64];
     uint32_t pk[32], pn[32];   // p of the tile in the value product, and of the next
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
-    const SoftmaxRows rows{t0, t1, t_first, S, c2, scale_log2};
+    // exclusive key limits of the thread's rows: 0 for a row that holds no
+    // query (its q row in shared memory was never loaded); a tile below
+    // the warp's least limit is not masked
+    const int lim0 = r0 >= RB ? 0 : PAGED ? limit(t0) : min(t0 + 1, S);
+    const int lim1 = r0 + 8 >= RB ? 0 : PAGED ? limit(t1) : min(t1 + 1, S);
+    const SoftmaxRows rows = {lim0, lim1, __reduce_min_sync(0xffffffffu, min(lim0, lim1)), c2,
+                              scale_log2};
 
     // S = Q K^T of tile kt into sc (asynchronous: committed, not waited)
     auto issue_qk = [&](int kt) {
@@ -759,6 +845,21 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
       for (int i = 0; i < 32; ++i) pk[i] = pn[i];
     }
+    if (PAGED && tile_lim < ntiles * FBN) {
+      // zero the value rows of the last tile past the block's limit (an
+      // unloaded box, stale pool rows: p = 0 there, but 0 * NaN is NaN);
+      // both warpgroups' value products read the whole tile
+      const int s = (ntiles - 1) % FSTAGES, valid = tile_lim - (ntiles - 1) * FBN;
+      mbar_wait(&v_full[s], ((ntiles - 1) / FSTAGES) & 1);
+      const int n = (FBN - valid) * 16;   // 16-byte pieces of both halves
+      for (int i = threadIdx.x; i < n; i += 256) {
+        const int half = i / ((FBN - valid) * 8), rem = i % ((FBN - valid) * 8);
+        *reinterpret_cast<uint4*>(vs + s * FTILE + half * FHALF + (valid + rem / 8) * 128 +
+                                  (rem % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      fence_proxy_async();   // the zeros before the value product reads them
+      bar_sync(3, 256);
+    }
     bar_sync(1 + wg, 256);
     issue_pv(ntiles - 1);
     bar_arrive(2 - wg, 256);
@@ -774,9 +875,8 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int rho = m * FBM + r0 + 8 * half;
-      if (rho >= R) continue;
-      const int t = rho / G, g = rho % G;
+      const int r = r0 + 8 * half, t = t_first + r / G, g = r % G;
+      if (r >= RB || t >= T) continue;
       bf16* orow = out + (((long long)b * T + t) * H + kh * G + g) * HD;
       const float inv = half ? inv1 : inv0;
 #pragma unroll
@@ -1130,6 +1230,36 @@ int launch_latent(const CUtensorMap& tq, const CUtensorMap& tk, const void* tabl
   return (int)cudaGetLastError();
 }
 
+// K2's q map: q [B,T,H,128] as (D, H, T, B); a box of (64 columns, G
+// heads, floor(FBM/G) positions, one batch row) is half of a tile's folded
+// rows t*G + g
+bool flash_q_map(CUtensorMap* tq, const void* q, int B, int T, int H, int G) {
+  const cuuint64_t qdim[4] = {HD, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t qstride[3] = {HD * 2, (cuuint64_t)H * HD * 2, (cuuint64_t)T * H * HD * 2};
+  const cuuint32_t qbox[4] = {SWZ, (cuuint32_t)G, (cuuint32_t)(FBM / G), 1};
+  return bf16_map(tq, q, 4, qdim, qstride, qbox);
+}
+
+template <bool PAGED>
+int launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                 void* out, int B, int T, int S, int H, int KV, float scale, const void* table,
+                 int P, const void* seq_len, const void* qpos, int ps, int box_rows,
+                 cudaStream_t st) {
+  constexpr int bytes = flash_smem_bytes();
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(flash_attention<PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    attr_set = true;
+  }
+  const int TQ = FBM / (H / KV);
+  flash_attention<PAGED><<<dim3(KV, B, (T + TQ - 1) / TQ), FTH, bytes, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), T, S, H, KV, scale * LOG2E,
+      static_cast<const long long*>(table), P, static_cast<const long long*>(seq_len),
+      static_cast<const long long*>(qpos), ps, box_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1193,42 +1323,57 @@ int dstts_latent_attention(const void* q, const void* pool, const void* table, i
 }
 
 // K2 (B2). q, out [B,T,H,128]; k, v [B,S,KV,128]; all bf16, contiguous,
-// 16-byte aligned. 128 % (H / KV) == 0. The TMA tensor maps are encoded here
+// 16-byte aligned. H / KV <= 128. The TMA tensor maps are encoded here
 // on each call and passed by value (__grid_constant__), so a captured CUDA
 // graph replays them with the same tensors.
 int dstts_flash_attention(const void* q, const void* k, const void* v, void* out,
                           int B, int T, int S, int H, int KV, float scale, void* stream) {
-  if (KV < 1 || H % KV || FBM % (H / KV) || T < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  const int G = H / KV;
+  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || S < 1) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  // q as (D, H, T, B): a box of (64 columns, G heads, FBM/G positions, one
-  // batch row) is half of a tile's folded rows t*G + g
-  const cuuint64_t qdim[4] = {HD, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t qstride[3] = {HD * 2, (cuuint64_t)H * HD * 2, (cuuint64_t)T * H * HD * 2};
-  const cuuint32_t qbox[4] = {SWZ, (cuuint32_t)G, (cuuint32_t)(FBM / G), 1};
   // k, v as (KV*D, S, B): kv head kh's keys are columns kh*D .. kh*D + 127;
   // a tile past S reads zeros in every batch row, not the next row's keys
   const cuuint64_t kdim[3] = {(cuuint64_t)KV * HD, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t kstride[2] = {(cuuint64_t)KV * HD * 2, (cuuint64_t)S * KV * HD * 2};
   const cuuint32_t kbox[3] = {SWZ, FBN, 1};
-  if (!bf16_map(&tq, q, 4, qdim, qstride, qbox) || !bf16_map(&tk, k, 3, kdim, kstride, kbox) ||
+  if (!flash_q_map(&tq, q, B, T, H, H / KV) || !bf16_map(&tk, k, 3, kdim, kstride, kbox) ||
       !bf16_map(&tv, v, 3, kdim, kstride, kbox))
     return (int)cudaErrorInvalidValue;
-  constexpr int bytes = flash_smem_bytes();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaFuncSetAttribute(flash_attention, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    attr_set = true;
-  }
-  flash_attention<<<dim3(KV, B, (T * G + FBM - 1) / FBM), FTH, bytes,
-                    static_cast<cudaStream_t>(stream)>>>(tq, tk, tv, static_cast<bf16*>(out), T,
-                                                         S, H, KV, scale * LOG2E);
-  return (int)cudaGetLastError();
+  return launch_flash<false>(tq, tk, tv, out, B, T, S, H, KV, scale, nullptr, 0, nullptr,
+                             nullptr, 0, 0, static_cast<cudaStream_t>(stream));
+}
+
+// K2's paged mode (JAX's prefix_chunk_attention after the chunk's write).
+// q, out [B,T,H,128] bf16 contiguous; k, v pools [R,ps,KV,128] bf16
+// contiguous; table [B,P] int64 (pool pages, the layer offset applied);
+// seq_len [B] int64; qpos [B,T] int64 contiguous, qpos[b,0] the chunk's
+// start. With P > 1 pages a row, ps a multiple of 8 (boxes of the largest of
+// 64, 32, 16 and 8 keys that divides ps); one page a row (a slot row) takes
+// any ps. H / KV <= 128. The TMA tensor maps are encoded here on each call
+// and passed by value.
+int dstts_flash_attention_paged(const void* q, const void* k, const void* v, const void* table,
+                                int P, const void* seq_len, const void* qpos, void* out, int B,
+                                int T, int H, int KV, long long R, int ps, float scale,
+                                void* stream) {
+  int box_rows = FBN_PAGE;
+  while (P > 1 && box_rows >= 8 && ps % box_rows) box_rows /= 2;
+  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || P < 1 || box_rows < 8 ||
+      (long long)P * ps > INT32_MAX || R * ps > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  // the pools as (KV*D, R*ps): kv head kh's keys are columns kh*D .. kh*D + 127
+  const cuuint64_t kdim[2] = {(cuuint64_t)KV * HD, (cuuint64_t)R * ps};
+  const cuuint64_t kstride[1] = {(cuuint64_t)KV * HD * 2};
+  const cuuint32_t kbox[2] = {SWZ, (cuuint32_t)box_rows};
+  if (!flash_q_map(&tq, q, B, T, H, H / KV) || !bf16_map(&tk, k, 2, kdim, kstride, kbox) ||
+      !bf16_map(&tv, v, 2, kdim, kstride, kbox))
+    return (int)cudaErrorInvalidValue;
+  return launch_flash<true>(tq, tk, tv, out, B, T, P * ps, H, KV, scale, table, P, seq_len, qpos,
+                            ps, box_rows, static_cast<cudaStream_t>(stream));
 }
 
 // Blocks an SM can hold, as the runtime computes them from each kernel's
-// registers, threads and shared memory: out[0..5] = K1 (1, 2 and 4 m-tiles),
-// K2, K3 (bf16 p, float32 p).
+// registers, threads and shared memory: out[0..6] = K1 (1, 2 and 4 m-tiles),
+// K2, K3 (bf16 p, float32 p), K2's paged mode.
 int dstts_attention_occupancy(int* out) {
   // the opt-in above 48 KB first: without it a block of this size fits nowhere
   cudaFuncSetAttribute(decode_attention<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1237,7 +1382,9 @@ int dstts_attention_occupancy(int* out) {
                        decode_smem_bytes());
   cudaFuncSetAttribute(decode_attention<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        decode_smem_bytes());
-  cudaFuncSetAttribute(flash_attention, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncSetAttribute(flash_attention<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       flash_smem_bytes());
+  cudaFuncSetAttribute(flash_attention<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        flash_smem_bytes());
   cudaFuncSetAttribute(latent_attention<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        latent_smem_bytes());
@@ -1249,12 +1396,14 @@ int dstts_attention_occupancy(int* out) {
                                                 decode_smem_bytes());
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], decode_attention<4>, NTH,
                                                 decode_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], flash_attention, FTH,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], flash_attention<false>, FTH,
                                                 flash_smem_bytes());
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], latent_attention<false>, LTH,
                                                 latent_smem_bytes());
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], latent_attention<true>, LTH,
                                                 latent_smem_bytes());
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[6], flash_attention<true>, FTH,
+                                                flash_smem_bytes());
   return (int)cudaGetLastError();
 }
 

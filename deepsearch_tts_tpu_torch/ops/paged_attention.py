@@ -164,6 +164,9 @@ def _lib():
         lib.dstts_decode_attention.restype = i
         lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
         lib.dstts_flash_attention.restype = i
+        lib.dstts_flash_attention_paged.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, ll, i,
+                                                    f, p]
+        lib.dstts_flash_attention_paged.restype = i
         lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, ll,
                                                i, f, i, i, i, p, p, p]
         lib.dstts_latent_attention.restype = i
@@ -179,10 +182,10 @@ def attention_occupancy() -> dict:
     ``-Xptxas -v`` report gives the registers)."""
     from .fused_layer import _raise_if
 
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     _raise_if(_lib().dstts_attention_occupancy(out), "attention_occupancy")
     names = ("K1 (1 m-tile)", "K1 (2 m-tiles)", "K1 (4 m-tiles)", "K2", "K3 (bf16 p)",
-             "K3 (float32 p)")
+             "K3 (float32 p)", "K2 paged")
     return dict(zip(names, out))
 
 
@@ -259,6 +262,12 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
 
 # ------------------------------------------------------------------- kernel K3
 
+def latent_pages_ok(ps: int) -> bool:
+    """Whether K3 takes pages of ``ps`` keys under a page table: a 64-key
+    tile is whole pages, or whole boxes of a page of 8, 16 or 32 keys."""
+    return ps % KEY_TILE == 0 or (KEY_TILE % ps == 0 and ps % 8 == 0)
+
+
 def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int = 0,
                           q_positions=None, min_one=False, max_keys: int | None = None,
                           scale=None, p_bf16=False):
@@ -286,7 +295,7 @@ def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int
     _check_index("seq_lens", seq_lens, (B,), dev)
     P = 1
     if page_table is not None:
-        if ps % KEY_TILE and (KEY_TILE % ps or ps % 8):
+        if not latent_pages_ok(ps):
             raise ValueError(f"latent attention kernel over a page table needs ps % "
                              f"{KEY_TILE} == 0 or ps a multiple of 8 dividing {KEY_TILE} "
                              f"(got ps={ps})")

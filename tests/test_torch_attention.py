@@ -11,6 +11,8 @@ of float32 sums differs); one bf16 case per kernel at rtol 5e-2 / atol
 (``tests/test_kernels.py:131,166``). The CUDA kernels themselves are held
 against the plain versions on the card by ``chip_smoke.py``.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -23,6 +25,7 @@ from deepsearch_tts_tpu.ops import paged_attention as jpaged
 from deepsearch_tts_tpu.ops import slot_attention as jslot
 from deepsearch_tts_tpu_torch.engine import engine as tengine
 from deepsearch_tts_tpu_torch.engine import kvcache as tkv
+from deepsearch_tts_tpu_torch.models import registry as tregistry
 from deepsearch_tts_tpu_torch.ops import attention as tattn
 from deepsearch_tts_tpu_torch.ops import flash_attention as tflash
 from deepsearch_tts_tpu_torch.ops import paged_attention as tpaged
@@ -242,12 +245,59 @@ def test_flash_attention_plain_bf16_and_top_left_mask():
 
 @pytest.mark.parametrize("cache_mode,device,want", [
     ("slot", "cuda", "pallas"), ("slot", "cpu", "xla"),
-    ("paged", "cuda", "xla"), ("paged", "cpu", "xla"),
+    ("paged", "cuda", "pallas"), ("paged", "cpu", "xla"),
 ])
 def test_attn_impl_resolves_like_jax(cache_mode, device, want):
-    """``attn_impl=None``: the slot kernel on the accelerator for the slot
-    cache, the plain gather otherwise (``engine.py:260-273``)."""
+    """``attn_impl=None``: the kernels on the accelerator for the slot cache
+    (as JAX, ``engine.py:260-273``) and for the paged cache too (JAX keeps
+    its paged default on the gather for a TPU measurement; on the card K1
+    and K2's paged mode serve it), the plain gather on the CPU."""
     assert tengine.resolve_attn_impl(None, cache_mode, torch.device(device)) == want
     assert tengine.resolve_attn_impl("clamp", cache_mode, torch.device(device)) == "clamp"
     with pytest.raises(ValueError, match="attn_impl"):
         tengine.resolve_attn_impl("flash", cache_mode, torch.device(device))
+
+
+@pytest.mark.parametrize("kv_quantize", ["int8", "int8-force"])
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_attn_impl_with_int8_kv_resolves_to_the_gather(device, kv_quantize):
+    """No kernel reads int8 pages: with ``kv_quantize`` ``None`` resolves to
+    the gather on either device, and an explicit kernel stays explicit
+    (``Engine`` refuses it)."""
+    dev = torch.device(device)
+    assert tengine.resolve_attn_impl(None, "paged", dev, kv_quantize) == "xla"
+    assert tengine.resolve_attn_impl("pallas", "paged", dev, kv_quantize) == "pallas"
+
+
+@pytest.mark.parametrize("model,cache_mode,page_size,max_seq_len,want", [
+    ("qwen3-8b", "paged", 64, 4096, True),
+    ("qwen3-14b", "paged", 64, 4096, True),      # G = 5: K2 folds 25 positions a block
+    ("qwen3-14b", "slot", 3000, 3000, True),     # a slot row: one page of any length
+    ("qwen3-8b", "paged", 48, 4096, True),       # boxes of 16 keys
+    ("qwen3-8b", "paged", 24, 4096, True),       # boxes of 8 keys
+    ("qwen3-8b", "paged", 100, 4096, False),     # no box of 8 lies in one page
+    ("qwen3-8b", "paged", 4, 4096, False),
+    ("qwen3-8b", "paged", 100, 100, True),       # one page a row
+    ("qwen3-32b", "paged", 64, 4096, True),
+    ("qwen3-30b-a3b", "paged", 64, 4096, True),
+    ("qwen3-test", "paged", 64, 4096, False),    # head_dim 32
+    ("qwen3-test", "slot", 4096, 4096, False),
+    ("deepseek-v3", "paged", 64, 4096, True),
+    ("deepseek-v3", "paged", 48, 4096, False),   # K3 over a page table
+    ("deepseek-v3", "slot", 3000, 3000, True),
+    ("deepseek-v3-test", "slot", 4096, 4096, False),
+])
+def test_attention_kernels_take_the_engine_shapes(model, cache_mode, page_size, max_seq_len,
+                                                  want):
+    """``attn_impl=None`` resolves to the kernels on CUDA only for shapes
+    their wrappers take, so a configuration the plain gather served keeps
+    serving: qwen3-14b's 40 / 8 heads, page sizes that are a multiple of 8,
+    any slot length; the plain gather elsewhere (the CPU as before)."""
+    cfg = tregistry.get_model(model).config
+    pages = -(-max_seq_len // page_size)
+    assert tengine.attention_kernels_take(cfg, cache_mode, page_size, pages) is want
+    impl = tengine.resolve_attn_impl(None, cache_mode, torch.device("cuda"), None, want)
+    assert impl == ("pallas" if want else "xla")
+    assert tengine.resolve_attn_impl(None, cache_mode, torch.device("cpu"), None, want) == "xla"
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    assert not tengine.attention_kernels_take(f32, cache_mode, page_size, pages)
