@@ -1150,10 +1150,17 @@ def phase_attention_kernels(gen) -> dict:
     flop6 = 4 * H * D * int(seq.sum())
     q1 = rnd(SLOTS, 1, H, D)
     qpos1 = (seq - 1)[:, None]
+    # the yardstick: SDPA over the pre-gathered context (the gather not
+    # timed), each row's keys masked past its seq_len, as K2's paged mode is
+    # measured
+    kg6, vg6 = (t[table].reshape(SLOTS, P * ps, KV, D).transpose(1, 2) for t in (kpg, vpg))
+    mask6 = (torch.arange(P * ps, device=dev)[None] < seq[:, None])[:, None, None]
+    qt1 = q1.transpose(1, 2)
+    lib6 = lambda: sdpa(qt1, kg6, vg6, attn_mask=mask6, enable_gqa=True)  # noqa: E731
     check("pallas_paged_attention", f"B={SLOTS} T=1 ps={ps} P={P}",
           lambda: pa.pallas_paged_attention(q1, kpg, vpg, table, seq, qpos1),
           lambda: pa.pallas_paged_attention_plain(q1, kpg, vpg, table, seq, qpos1),
-          timed=True, nbytes=read, flop=flop6)
+          timed=True, nbytes=read, flop=flop6, library=lib6)
     # chunks: T=4 (16 query rows a block) and T=16 (64, the most K1 holds)
     for T in (4, 16):
         seqT = seq.clamp(min=T)
@@ -1166,8 +1173,8 @@ def phase_attention_kernels(gen) -> dict:
         fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
         check(name, f"B={SLOTS} T=1 ps={ps} P={P}",
               lambda: fk(q1, kpg, vpg, table, seq), lambda: fp(q1, kpg, vpg, table, seq),
-              timed=True, nbytes=read, flop=flop6)
-    del kp, vp, kpg, vpg
+              timed=True, nbytes=read, flop=flop6, library=lib6)
+    del kp, vp, kpg, vpg, kg6, vg6
 
     # B2: causal prefill: one query, a ragged 127 (one partial tile), lengths
     # that are not a multiple of the tile (3030), and the timed 3072
@@ -1202,7 +1209,10 @@ def phase_attention_kernels(gen) -> dict:
 # prompt, whose numbers the kernel line keeps; ps = 16 takes four one-page
 # boxes a tile, ps = 48 boxes of 16 keys, three a page; qwen3-14b's 40 / 8
 # heads (G = 5) fold 25 positions into 125 of a block's 128 rows; the slot
-# row of 3000 keys takes boxes of 64 that run past its end
+# row of 3000 keys takes boxes of 64 that run past its end; the last two are
+# a multi-turn follow-up padded as Engine._bucket pads it (a power of two):
+# few units of ~24 key tiles each, which the plan cuts into pieces, and at
+# T=512 six blocks of 32 positions of tail padding that take no item
 PAGED_PREFILLS = (
     ("B=1 T=3044 from 0 over 48 pages of 64", 1, 3044, (0,), (3044,), 64, 48, (H, KV), False),
     ("B=1 T=1024 after a 2000-token prefix (mid-page)", 1, 1024, (2000,), (1024,), 64, 48,
@@ -1220,6 +1230,10 @@ PAGED_PREFILLS = (
      64, 16, (40, 8), False),
     ("B=2 T=512 slot layout (ps=3000: boxes past the row)", 2, 512, (0, 2600), (512, 400),
      3000, 1, (H, KV), True),
+    ("B=1 T=128: 100 new tokens after a 3000-token prefix", 1, 128, (3000,), (100,), 64,
+     CTX // 64, (H, KV), False),
+    ("B=1 T=512: 300 new tokens after a 3000-token prefix", 1, 512, (3000,), (300,), 64,
+     CTX // 64, (H, KV), False),
 )
 
 
@@ -1249,9 +1263,12 @@ def _paged_prefill_inputs(gen, B, T, starts, valid, ps, P, heads, slot):
 
 def _check_paged_prefills(res: dict, gen) -> None:
     """K2's paged mode against its plain version at :data:`PAGED_PREFILLS`
-    under the rms-scaled attention bound, each shape timed beside its plain
-    version, its bound (operations: 4·H·D a visible (query, key) pair;
-    bytes: q and out, each row's keys up to its largest limit once) and two
+    under the rms-scaled attention bound (whole tail-padding blocks: zeros
+    in both), the plan kernel first held to its host model
+    (:func:`_check_paged_plan`), each shape timed beside its plain
+    version, its bound (operations: 4·H·D a visible (query, key) pair of a
+    real query, padding queries uncounted; bytes: q and out, each row's
+    keys up to its largest limit once) and two
     PyTorch calls over the pre-gathered context (the gather not timed):
     SDPA with a boolean mask, and where the rows are one causal block (B =
     1) causal SDPA (``is_causal`` from position 0, else
@@ -1273,7 +1290,8 @@ def _check_paged_prefills(res: dict, gen) -> None:
         q, kp, vp, table, seq, pos = _paged_prefill_inputs(gen, B, T, starts, valid, ps, P,
                                                            heads, slot)
         (h, kv), S = heads, P * ps
-        lim = fa.paged_key_limits(seq, pos, S)
+        lim = fa.paged_key_limits(seq, pos, S, h // kv)
+        _check_paged_plan(label, seq, pos, S, h // kv, kv)
         kt, vt = (t[table].reshape(B, S, kv, D).transpose(1, 2) for t in (kp, vp))
         mask = (torch.arange(S, device=q.device)[None, None] < lim[:, :, None])[:, None]
         qt = q.transpose(1, 2)
@@ -1282,7 +1300,7 @@ def _check_paged_prefills(res: dict, gen) -> None:
                       lambda: fa.flash_attention_paged(q, kp, vp, table, seq, pos),
                       lambda: fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos),
                       rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
-                      flop=4 * h * D * int(lim.sum()),
+                      flop=4 * h * D * int(lim[pos >= 0].sum()),
                       nbytes=(int(lim.amax(1).sum()) * kv * D * 2 * 2 + 2 * B * T * h * D * 2
                               + B * (T + P + 1) * 8),
                       library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
@@ -1290,15 +1308,16 @@ def _check_paged_prefills(res: dict, gen) -> None:
         r["library_masked_ms"] = r["library_ms"]
         if B == 1:
             s0, n = starts[0], valid[0]
+            qn = qt[:, :, :n].contiguous()      # the real queries
             if s0 == 0:
-                causal = lambda: sdpa(qt, kt[:, :, :n], vt[:, :, :n], is_causal=True,  # noqa: E731
+                causal = lambda: sdpa(qn, kt[:, :, :n], vt[:, :, :n], is_causal=True,  # noqa: E731
                                       enable_gqa=True)
             else:
                 kr, vr = (t[:, :, :s0 + n].repeat_interleave(h // kv, 1) for t in (kt, vt))
                 bias = causal_lower_right(n, s0 + n)
-                causal = lambda: sdpa(qt, kr, vr, attn_mask=bias)  # noqa: E731
+                causal = lambda: sdpa(qn, kr, vr, attn_mask=bias)  # noqa: E731
             ref = fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos)
-            use = _bound_use(causal().transpose(1, 2), ref, ATTN_RTOL, ATTN_ATOL,
+            use = _bound_use(causal().transpose(1, 2), ref[:, :n], ATTN_RTOL, ATTN_ATOL,
                              ATTN_RMS_FRAC)
             assert use <= 1.0, (label, "causal SDPA", use)
             r["library_causal_ms"] = time_ms(causal, iters=20)[0]
@@ -1314,6 +1333,42 @@ def _check_paged_prefills(res: dict, gen) -> None:
     res["flash_attention_paged"] = {**shapes[PAGED_PREFILLS[0][0]],
                                     "err": max(r["err"] for r in shapes.values())}
     res["flash_attention_paged_shapes"] = shapes
+
+
+def _check_paged_plan(label: str, seq, pos, S: int, G: int, kv: int) -> None:
+    """``flash_paged_plan`` on the card against its host model
+    (``flash_attention.paged_plan``) at this card's SM count and the
+    wrapper's split gate: the header (items, C, split units, the work
+    counter at 0, the split threshold), each unit's key limit and partial
+    slot base, the split units, and the items as a multiset (equal
+    lengths come in any order) in non-increasing length."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops.paged_attention import _sm_count
+
+    B, T = pos.shape
+    sms = _sm_count(pos.device)
+    split = fa.paged_splits_allowed(B, T, G, kv, S, sms)
+    got = fa.paged_plan_cuda(seq, pos, S, G, kv, split)
+    want = fa.paged_plan(seq, pos, S, G, kv, sms, split)
+    nqb = want["nqb"]
+    items = [((b * nqb + m) * kv + kh, k0, kend, slot)
+             for b, m, kh, z, k0, kend, slot in want["items"]]
+    assert got["hdr"][:5].tolist() == [len(items), want["C"], len(want["split_units"]), 0,
+                                       want["thr"]], (label, got["hdr"].tolist())
+    assert got["ulim"].tolist() == want["ulim"], label
+    assert got["sbase"].tolist() == want["sbase"], label
+    split = [(u, sum(1 for it in want["items"] if it[0] * nqb + it[1] == u) // kv,
+              want["sbase"][u], 0) for u in want["split_units"]]
+    assert [tuple(x) for x in got["split_units"].tolist()] == split, label
+    recs = [tuple(x) for x in got["items"].tolist()]
+    assert sorted(recs) == sorted(items), label
+    order = [-(-(kend - k0) // fa.KEY_TILE) for _, k0, kend, _ in recs]
+    assert order == sorted(order, reverse=True), label
+    log(f"[kernel] flash_paged_plan {label}: {len(recs)} items (C = {want['C']} tiles, "
+        f"{len(want['split_units'])} split units, {len(want['zero_units'])} zero units) "
+        f"equal to the host model")
 
 
 def _paged_page_fault(ref, q, kp, vp, table, seq, pos, page: int) -> None:
@@ -4464,7 +4519,8 @@ def _program_ms(engine, st: list, run, n: int = 3) -> float:
 # the port's own kernels as the profiler names them (csrc/*.cu in an
 # anonymous namespace; B5 by its Triton function's name)
 _OWN_KERNEL = re.compile(
-    r"::(decode_attention|decode_merge|flash_attention|latent_attention|rms_norm_rows"
+    r"::(decode_attention|decode_merge|flash_attention|flash_paged_plan|flash_paged_merge"
+    r"|latent_attention|rms_norm_rows"
     r"|gemm_partial|gemm_tc|qkv_epilogue|residual_epilogue|swiglu_epilogue|grouped_expert"
     r"|grouped_expert_tc|i8_stream|grouped_expert_i8|grouped_expert_i8_tc|quant_strip)[<(]"
     r"|^_prep_kernel\b")
@@ -4485,6 +4541,8 @@ _SIGNATURES = (
     ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent")),
     ("K2", r"::flash_attention<(false|\(bool\)0)>", ("flash_attention",)),
     ("K2 paged", r"::flash_attention<(true|\(bool\)1)>", ("flash_attention_paged",)),
+    ("K2 paged plan", r"::flash_paged_plan\(", ("flash_attention_paged",)),
+    ("K2 paged merge", r"::flash_paged_merge\(", ("paged_merge",)),
 )
 # i8_stream launches a call of B7's and B10's wrappers makes for each group
 # of 64 rows (csrc/fused_layer.cu: B10's out-MLP runs its three products)

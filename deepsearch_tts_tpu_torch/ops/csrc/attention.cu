@@ -19,9 +19,10 @@
 //     re-prefill over a cached prefix (ops/attention.py:167
 //     prefix_chunk_attention, XLA code: no Pallas kernel to replace). Query
 //     t of row b at position p = qpos[b,t] sees keys j < min(p + 1, seq_len,
-//     P*ps); a tail-padding query (p < 0) keys j < chunk_start = qpos[b,0];
-//     a row with chunk_start < 0 sees none and writes zeros. A slot row is
-//     one page of max_seq_len keys.
+//     P*ps); a tail-padding query (p < 0) keys j < chunk_start = qpos[b,0],
+//     unless every query of its block of floor(128/G) positions is padding:
+//     such a block, and a row with chunk_start < 0, sees none and writes
+//     zeros. A slot row is one page of max_seq_len keys.
 // K3  latent_attention: T=1 MQA decode over MLA's latent rows (v is k), at
 //     the DeepSeek-V3 / Kimi-K2 width D = 576 (kv_lora_rank 512 + rope 64):
 //       B1 slot_attention, v_pool=None (_slot_attn_kernel_shared, :116)
@@ -61,45 +62,70 @@
 // * K2 is bound by tensor-core operations: ~2*T^2*H*D for causal attention
 //   (77 GFLOP a layer at T=3072, qwen3-8b). Hopper reaches its full rate
 //   only through wgmma, fed from shared memory by TMA:
-//   - a block holds 128 folded query rows (row = t*G + g: the G query heads
-//     of one kv head, so each K / V tile is read once per group) on two
-//     consumer warpgroups of 64 rows, one wgmma m64 tile each, plus a
-//     producer warpgroup whose one thread issues every TMA load and gives
-//     its registers to the consumers (setmaxnreg 24 / 240);
+//   - one persistent block an SM walks items, a (row, kv head, block of
+//     floor(128/G) query positions) each: 128 folded query rows (row =
+//     t*G + g: the G query heads of one kv head, so each K / V tile is read
+//     once per group) on two consumer warpgroups of 64 rows, one wgmma m64
+//     tile each, plus a producer warpgroup (setmaxnreg 24 / 240) whose
+//     first warp takes the items from a counter, longest first (dense: the
+//     last query blocks first), and issues every TMA load;
 //   - the Q tile is two TMA boxes of a 4-D map over q as (D, H, T, B), box
-//     (64, G, 128/G, 1), hence 128 % G == 0; K and V tiles (128 keys x 128
-//     columns, two 64-column boxes each under 128-byte swizzle, of 3-D maps
-//     over k and v as (KV*D, S, B), so past S each batch row reads zeros,
-//     never the next row's keys) come through
-//     a 3-stage ring with full barriers for K and V and an empty barrier a
-//     stage, so loads run ahead of the math without a block-wide barrier;
+//     (64, G, floor(128/G), 1); K and V tiles (128 keys x 128 columns, two
+//     64-column boxes each under 128-byte swizzle, of 3-D maps over k and v
+//     as (KV*D, S, B), so past S each batch row reads zeros, never the next
+//     row's keys) come through a 3-stage ring with full barriers for K and
+//     V and an empty barrier a stage, continued across items, so the next
+//     item's tiles load under the current one's math;
+//   - the producer writes each item (and its positions' key limits) into
+//     one of two shared slots with full / empty barriers, and its Q once
+//     the consumers' last QK of the item before is done (q_empty): the
+//     consumers meet no global read, atomic or block barrier between items;
 //   - S = Q K^T takes both operands from shared memory (K-major, 128-byte
 //     swizzle descriptors); O += P V takes P from registers as bf16 and V
 //     from shared memory transposed by its descriptor (MN-major); S and O
 //     are float32 registers (64 + 64 a thread);
 //   - the online softmax runs in registers with exp2 (ex2.approx), log2(e)
 //     folded into the scale; only diagonal and ragged tiles are masked, and
-//     tiles above the diagonal are never loaded; the longest query tiles
-//     start first;
+//     tiles above the diagonal are never loaded;
 //   - each warpgroup issues tile kt+1's QK before tile kt's PV and runs the
 //     softmax of kt+1 while PV kt is on the tensor cores; the two consumer
 //     warpgroups take turns issuing products (named barriers 1 and 2), so
 //     one's softmax runs under the other's products;
-//   - shared memory: Q 32 KB + 3 stages of K and V (192 KB) = 224 KB, one
-//     block an SM (12 warps), as the runtime's occupancy query reports;
-//     ptxas gives 168 registers a thread at entry, moved by setmaxnreg to
-//     24 (producer) and 240 (consumers) (NVIDIA H100 80GB HBM3, 700.00 W,
+//   - O leaves as 8-byte stores (lanes q and q^1 trade one word a column
+//     pair); the next item's QK waits only for its tiles;
+//   - shared memory: Q 32 KB + 3 stages of K and V (192 KB) + two item
+//     slots (1 KB) = 225 KB, one block an SM (12 warps), as the runtime's
+//     occupancy query reports; ptxas gives 168 registers a thread at entry
+//     (the paged mode: an 88-byte stack, 116 bytes of spill stores, its
+//     producer at 24), moved by setmaxnreg to 24 (producer) and 240
+//     (consumers); the plan kernel 42 registers and 17 KB of static shared
+//     memory, the merge 80 registers (NVIDIA H100 80GB HBM3, 700.00 W,
 //     CUDA 12.8).
-//   The paged mode keeps the consumers and changes the producer: K / V
+//   The paged mode serves a multi-turn follow-up: a short chunk after a
+//   long cached prefix, its tail padded to a power of two, rows of ragged
+//   lengths. Its work is set by each unit's prefix, not by its place in
+//   the chunk, so the plan kernel (flash_paged_plan, one block) turns
+//   positions and seq_len on the card (no host read: a captured prefill
+//   replays it) into each unit's key limit and the items longest first by
+//   real key tiles (a counting sort); units with no key (a padding row, a
+//   block of tail padding) take no item and the producer warpgroup's other
+//   warps write their zeros. Where the wrapper's static gate allows it
+//   (fewer than 4 units an SM, rows of more than 2 key tiles), a unit
+//   longer than an SM's mean load is cut into key ranges of about C = W /
+//   (2 SMs) tiles, each a float32 partial (m, l, O) in its own slot, and
+//   flash_paged_merge combines them. The attention kernel and the merge
+//   are programmatic dependent launches: their blocks start under the
+//   kernel before and wait (griddepcontrol) only where they read its
+//   output. K / V
 //   come through a 2-D map over the pool as (KV*D, pages*ps) in boxes that
-//   each lie in one page: 64 keys (ps a multiple of 64) or one whole page
-//   (ps = 8, 16, 32), at row table[b, j/ps]*ps + j%ps, as K3 loads them. A
-//   block reads its rows' positions and seq_len on the card (no host read,
-//   so a captured prefill replays it): its tiles end at the largest limit
-//   of its queries, a tile is masked only where it reaches a limit of one
-//   of the warp's rows, and value rows past that largest limit in the last
-//   tile (an unloaded box, stale pool rows) are zeroed in shared memory
-//   before PV. Bound by operations like K2: ~2*T*(2*chunk_start + T)*H*D.
+//   each lie in one page (64 keys, or 32 / 16 / 8 where ps is a multiple of
+//   those), at pool row table[b, j/ps]*ps + j%ps: the producer warp loads
+//   32 boxes' rows with one coalesced read of the table and hands them out
+//   by shuffle. Value rows past an item's key end in its last tile (an
+//   unloaded box, stale pool rows) are zeroed in shared memory by each
+//   consumer warpgroup itself (the same zeros; each meets only its own
+//   warps). Bound by operations like K2: ~4*H*D a visible (query, key)
+//   pair of a real query.
 // * K3 sits near the card's ridge: per key it reads 1152 B once and does
 //   2*H*(576 + 512) FLOP (H = 128: 242 FLOP a byte), so it wants the
 //   tensor cores' full rate and every SM streaming. The design follows the
@@ -555,7 +581,7 @@ int launch_decode(const void* q, long long q_bstride, const void* k, const void*
 
 // ------------------------------------------------------------------- K2
 
-constexpr int FBM = 128;       // folded query rows a block: two consumer warpgroups x 64
+constexpr int FBM = 128;       // folded query rows an item: two consumer warpgroups x 64
 constexpr int FBN = 128;       // keys a K / V tile
 constexpr int FSTAGES = 3;     // K / V ring depth
 constexpr int FTH = 384;       // two consumer warpgroups + the producer warpgroup
@@ -563,8 +589,189 @@ constexpr int SWZ = 64;        // bf16 columns of one 128-byte swizzle atom: a T
 constexpr int FTILE = FBN * HD * 2;   // bytes of one K or V tile (and of the Q tile)
 constexpr int FHALF = FTILE / 2;      // one 64-column half of a tile
 constexpr int FBN_PAGE = 64;   // the most keys of one paged box (a page holds whole boxes)
+constexpr int META = 8 + FBM;  // ints of an item's slot: row, query block, kv head, first
+                               // key, tiles, key end, partial slot; then its positions' limits
+constexpr int PLAN_HDR = 8;    // the plan's header: items, C, split units, the work counter,
+                               // the split threshold
+constexpr int PLAN_TH = 1024;  // threads of the plan kernel
+constexpr int PLAN_SMEM_UNITS = 32768;   // units whose limits the plan keeps in shared memory
+constexpr int PIECE_MIN = 2;   // a piece of a split unit holds at least this many tiles
+constexpr int PIECES_PER_SM = 2;      // pieces hold at most W / (PIECES_PER_SM * SMs) tiles
+constexpr int ORDER_BUCKETS = 4096;   // the plan's counting sort (longer items share the last)
+constexpr int MERGE_TH = 256;  // merge threads: 8 rows x 32 lanes of 4 columns
+constexpr int MERGE_BATCH = 4; // pieces whose partials a merge thread loads at once
 static_assert(FBM == FBN, "the Q tile and a K / V tile share one size");
 static_assert(FBN % FBN_PAGE == 0, "a paged tile is whole boxes");
+
+// the paged mode's plan in its int32 workspace: the header; the split
+// units, each (u, pieces, first partial slot, 0) for unit u = b*nqb + m
+// (query block m of row b); per unit its key limit and its first partial
+// slot (-1: not split); then (16-byte aligned) the items longest first,
+// each (u*KV + kh, first key, key end, partial slot or -1)
+struct Plan {
+  int *hdr, *ulim, *sbase;
+  int4 *slist, *items;
+  __device__ Plan(int* ws, int U)
+      : hdr(ws), ulim(ws + PLAN_HDR + 4 * U), sbase(ulim + U),
+        slist(reinterpret_cast<int4*>(ws + PLAN_HDR)),
+        items(reinterpret_cast<int4*>(ws + ((PLAN_HDR + 6 * U + 3) & ~3))) {}
+};
+static_assert(PLAN_HDR % 4 == 0, "the split units' records start 16-byte aligned");
+
+// a unit of `tiles` key tiles in z pieces of `per` tiles (the last one may
+// hold fewer, none is empty): floor(tiles / C) pieces, at least 2, of about
+// C tiles or more where it holds more than `thr`, else one (so the pieces
+// of all units number at most W / C, and an SM's share of them is whole
+// pieces); ops/flash_attention.py unit_pieces
+__device__ __forceinline__ void unit_pieces(int tiles, int C, int thr, int& z, int& per) {
+  if (tiles <= thr) {
+    z = tiles > 0;
+    per = tiles;
+    return;
+  }
+  z = max(2, tiles / C);
+  per = (tiles + z - 1) / z;
+  z = (tiles + per - 1) / per;
+}
+
+// exclusive prefix sum of v over the warp's lanes in order, `total` the sum
+__device__ __forceinline__ int warp_scan(int v, int& total) {
+  const int lane = threadIdx.x & 31;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  total = __shfl_sync(0xffffffffu, x, 31);
+  return x - v;
+}
+
+// one block of PLAN_TH threads: the paged mode's plan (ops/flash_attention.py
+// paged_plan is its model). A query's limit is its position + 1, or
+// chunk_start for a tail-padding query of a unit that holds a real query,
+// else 0 (a whole tail-padding block, a padding row), at most seq_len and
+// S. A unit ends at ulim, the largest min(max(p + 1, chunk_start), cap) of
+// its real queries (p >= 0, chunk_start >= 0; cap = min(seq_len, S)): the
+// largest limit of its queries where positions follow chunk_start, and 0
+// for a unit with no key to see (the attention kernel writes its zeros).
+// W = KV * the units' tiles summed.
+// With `split`, a unit longer than thr = max(C, ceil(W / sms)) tiles (more
+// than an SM's mean load) is cut into max(2, tiles / C) pieces, C =
+// max(PIECE_MIN, ceil(W / (PIECES_PER_SM * sms))) (a split unit's pieces
+// take partial slots in unit order); every other unit is one piece. The items,
+// one a (piece, kv head), go into `items` longest first by a counting sort
+// over their tile counts; the work counter is reset here, so a captured
+// call replays with it.
+__global__ void __launch_bounds__(PLAN_TH)
+flash_paged_plan(const long long* __restrict__ qpos, const long long* __restrict__ seq_len,
+                 int B, int T, int S, int TQ, int KV, int sms, int split, int* __restrict__ ws) {
+  __shared__ int hist[ORDER_BUCKETS];
+  __shared__ int s_c[2];            // C, thr
+  extern __shared__ int s_ulim[];   // [U] where U <= PLAN_SMEM_UNITS
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nqb = (T + TQ - 1) / TQ, U = B * nqb, BT = B * T;
+  const int nb = min((S + FBN - 1) / FBN + 1, ORDER_BUCKETS);   // tile counts 0 .. nb - 1
+  const Plan pl(ws, U);
+  grid_dep_launch();   // the attention kernel's blocks may take their SMs and set up
+  int* ulim = U <= PLAN_SMEM_UNITS ? s_ulim : pl.ulim;
+  for (int i = tid; i < U; i += PLAN_TH) ulim[i] = 0;
+  for (int i = tid; i < nb; i += PLAN_TH) hist[i] = 0;
+  __syncthreads();
+  // a query's position, its row's chunk start and seq_len: three loads in
+  // flight, those of the thread's next query issued before this one's atomic
+  auto load = [&](int i, long long& p, long long& cs, long long& cap) {
+    const int b = i / T;
+    p = i < BT ? qpos[i] : -1;
+    cs = i < BT ? qpos[(long long)b * T] : -1;
+    cap = i < BT ? min((long long)S, seq_len[b]) : 0;
+  };
+  long long np, ncs, ncap;
+  load(tid, np, ncs, ncap);
+  for (int i0 = 0; i0 < BT; i0 += PLAN_TH) {   // the same trip count in every warp
+    const int i = i0 + tid, b = i / T;
+    const long long p = np, cs = ncs, cap = ncap;
+    if (i0 + PLAN_TH < BT) load(i + PLAN_TH, np, ncs, ncap);
+    int u = -1, l = 0;
+    if (p >= 0 && cs >= 0) {
+      l = (int)max(0LL, min(max(p + 1, cs), cap));
+      if (l > 0) u = b * nqb + (i - b * T) / TQ;
+    }
+    // one atomic a unit a warp: the largest limit of the warp's queries of it
+    const unsigned peers = __match_any_sync(0xffffffffu, u);
+    const int lm = (int)__reduce_max_sync(peers, (unsigned)l);
+    if (u >= 0 && lane == __ffs(peers) - 1) atomicMax(&ulim[u], lm);
+  }
+  __syncthreads();
+  if (tid < 32) {
+    // warp 0: W, the pieces and slots of each unit, the buckets' starts
+    int w = 0;
+    for (int u = lane; u < U; u += 32) w += (ulim[u] + FBN - 1) / FBN;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) w += __shfl_xor_sync(0xffffffffu, w, o);
+    const long long W = (long long)w * KV, pieces = (long long)PIECES_PER_SM * sms;
+    const int C = (int)max((long long)PIECE_MIN, (W + pieces - 1) / pieces);
+    const int thr = split ? (int)max((long long)C, (W + sms - 1) / sms) : nb;
+    int slots = 0, nsplit = 0;
+    for (int base = 0; base < U; base += 32) {
+      const int u = base + lane;
+      int t = 0, z = 0, per = 0;
+      if (u < U) {
+        t = (ulim[u] + FBN - 1) / FBN;
+        unit_pieces(t, C, thr, z, per);
+      }
+      int tot_slots, tot_split;
+      const int e_slot = warp_scan(z > 1 ? z : 0, tot_slots);
+      const int e_split = warp_scan(z > 1 ? 1 : 0, tot_split);
+      if (u < U) {
+        pl.ulim[u] = ulim[u];
+        pl.sbase[u] = z > 1 ? slots + e_slot : -1;
+        if (z > 1) pl.slist[nsplit + e_split] = make_int4(u, z, slots + e_slot, 0);
+        if (z > 1) atomicAdd(&hist[min(per, nb - 1)], (z - 1) * KV);
+        if (t) atomicAdd(&hist[min(t - (z - 1) * per, nb - 1)], KV);
+      }
+      slots += tot_slots;
+      nsplit += tot_split;
+    }
+    __syncwarp();
+    int n_items = 0;   // each bucket's first item, the longest bucket first
+    for (int base = 0; base < nb; base += 32) {
+      const int c = nb - 1 - (base + lane);
+      int tot;
+      const int e = warp_scan(c >= 0 ? hist[c] : 0, tot);
+      if (c >= 0) hist[c] = n_items + e;
+      n_items += tot;
+    }
+    if (lane == 0) {
+      pl.hdr[0] = n_items;
+      pl.hdr[1] = s_c[0] = C;
+      pl.hdr[2] = nsplit;
+      pl.hdr[3] = 0;
+      pl.hdr[4] = s_c[1] = thr;
+    }
+  }
+  __syncthreads();
+  // a warp a unit: its z * KV items, one bucket atomic for the lanes that
+  // share a length
+  const int C = s_c[0], thr = s_c[1];
+  for (int u = tid >> 5; u < U; u += PLAN_TH / 32) {
+    const int ul = ulim[u], t = (ul + FBN - 1) / FBN, sb = pl.sbase[u];
+    int z, per;
+    unit_pieces(t, C, thr, z, per);
+    for (int k0 = 0; k0 < z * KV; k0 += 32) {
+      const int k = k0 + lane, zi = k / KV, kh = k - zi * KV;
+      const int c = k < z * KV ? min(min(per, t - zi * per), nb - 1) : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, c);
+      const int leader = __ffs(peers) - 1;
+      int at = 0;
+      if (lane == leader && c >= 0) at = atomicAdd(&hist[c], __popc(peers));
+      at = __shfl_sync(0xffffffffu, at, leader) + __popc(peers & ((1u << lane) - 1));
+      if (c >= 0)
+        pl.items[at] = make_int4(u * KV + kh, zi * per * FBN, min((zi + 1) * per * FBN, ul),
+                                 z > 1 ? (sb + zi) * KV + kh : -1);
+    }
+  }
+}
 
 // what the softmax of one score tile needs of its rows: the exclusive key
 // limits of the thread's rows r0 and r0 + 8, the least limit of the warp's
@@ -633,131 +840,206 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], uint32_t (&pk)[32]
 constexpr int flash_smem_bytes() {
   return 1024                                  // slack: the tiles start 1024-byte aligned
          + FTILE * (1 + 2 * FSTAGES)           // Q, then FSTAGES K and V tiles
-         + 8 * (1 + 3 * FSTAGES)               // mbarriers
-         + 16;                                 // the paged block's key limit
+         + 8 * (2 + 3 * FSTAGES + 4)           // mbarriers
+         + 4 * 2 * META;                       // two item slots
 }
+static_assert(flash_smem_bytes() <= 232448, "K2's shared memory exceeds a block's");
 
-// grid (KV, B, ceil(T / TQ)), TQ = floor(FBM / G) query positions a block,
-// FTH threads, one block an SM. Block (kh, b, m) holds positions t = m*TQ ..
-// +TQ-1 of kv head kh as tile rows r = (t - m*TQ)*G + g, query head kh*G + g
+// one persistent block an SM, FTH threads. An item is (row b, kv head kh,
+// query block m, keys [k0, kend)): positions t = m*TQ .. +TQ-1, TQ =
+// floor(FBM / G), as tile rows r = (t - m*TQ)*G + g, query head kh*G + g
 // (the TMA box (64, G, TQ, 1) over q as (D, H, T, B) writes them in this
 // order); where G does not divide FBM (qwen3-14b: G = 5, 125 rows) the rows
 // r >= TQ*G hold no query: they see no key and are not written. Row r sees
-// keys j <= t, j < S (the TPU kernel's top-left mask, flash_attention.py:49).
-// Tiles are 128 rows of 256 B in two 64-column halves of 128-byte swizzle
-// atoms, as TMA writes them and wgmma reads them.
-// Warpgroup 2 is the producer: one thread issues every TMA load. Warpgroups
-// 0 and 1 each own 64 rows: S = Q K^T (both from shared memory), the online
-// softmax in registers (log2 units), O += P V (P from registers, V from
-// shared memory, transposed by its descriptor).
-//
+// keys j < its limit (dense: j <= t, j < S, the TPU kernel's top-left mask,
+// flash_attention.py:49; PAGED: the plan's). Tiles are 128 rows of 256 B in
+// two 64-column halves of 128-byte swizzle atoms, as TMA writes them and
+// wgmma reads them.
+// Warp 8 (the producer warpgroup's first) takes items from the work
+// counter: dense, index i is query block nqb - 1 - i / (B*KV) (the longest
+// first) of row (i % (B*KV)) / KV; PAGED, the plan's i-th item. It writes
+// the item and its positions' limits into one of two slots, issues its Q
+// once the consumers' last QK of the item before is done, and its K / V
+// tiles into the ring as stages free up; a paged tile's boxes take their
+// pool rows from a register of the warp (32 boxes a coalesced load of the
+// table). Warps 9-11 write zeros over the units with no key (PAGED).
+// Warpgroups 0 and 1 each own 64 rows: S = Q K^T (both from shared
+// memory), the online softmax in registers (log2 units), O += P V (P from
+// registers, V from shared memory, transposed by its descriptor); an
+// unsplit item's O leaves normalised as bf16 (8-byte stores), a piece of a
+// split unit's as float32 partials (unnormalised O, m in log2 units, l) in
+// partial slot `slot` for flash_paged_merge.
 // PAGED: k and v are 2-D maps over the pools as (KV*D, pages*ps) with boxes
 // of (64, box_rows) that each lie in one page (one page a row, P = 1: boxes
 // of 64 that may run past it into keys past every limit); key j of row b is
-// pool row table[b*P + j/ps]*ps + j%ps, S = P*ps. Row r sees keys j <
-// limit(t) (see below), the block's tiles end at the largest limit of its
-// queries, and a block whose queries see no key writes zeros.
+// pool row table[b*P + j/ps]*ps + j%ps, S = P*ps.
 template <bool PAGED>
 __global__ void __launch_bounds__(FTH, 1)
 flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int T, int S,
-                int H, int KV, float scale_log2, const long long* __restrict__ table, int P,
-                const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
-                int ps, int box_rows) {
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int B, int T,
+                int S, int H, int KV, float scale_log2, const long long* __restrict__ table,
+                int P, int ps, int box_rows, const long long* __restrict__ qpos,
+                const long long* __restrict__ seq_len, int* __restrict__ ws,
+                float* __restrict__ o_part, float* __restrict__ ml_part) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;
   unsigned char* ks = qs + FTILE;                  // [FSTAGES] K tiles
   unsigned char* vs = ks + FSTAGES * FTILE;        // [FSTAGES] V tiles
   uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + FSTAGES * FTILE);
-  uint64_t* k_full = q_full + 1;
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
   uint64_t* v_full = k_full + FSTAGES;
   uint64_t* empty = v_full + FSTAGES;
-  int* lim_s = reinterpret_cast<int*>(empty + FSTAGES);   // PAGED: the block's key limit
+  uint64_t* meta_full = empty + FSTAGES;
+  uint64_t* meta_empty = meta_full + 2;
+  int* meta = reinterpret_cast<int*>(meta_empty + 2);   // [2][META]
 
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int m = gridDim.z - 1 - blockIdx.z;        // the longest query tiles start first
   const int G = H / KV, TQ = FBM / G, RB = TQ * G;   // RB: the tile rows that hold a query
-  const int t_first = m * TQ;
-  const int t_last = min(t_first + TQ, T) - 1;
+  const int nqb = (T + TQ - 1) / TQ;
   const int wg = threadIdx.x / 128;
-  // PAGED: the exclusive key limit of query t: its position + 1 (a tail
-  // padding query: chunk_start), at most seq_len and S; 0 in a row whose
-  // chunk_start < 0 (a padding row) and past T
-  const long long cs = PAGED ? qpos[(long long)b * T] : 0;
-  const long long cap = PAGED ? min((long long)S, seq_len[b]) : S;
-  auto limit = [&](int t) -> int {
-    if (t >= T || cs < 0) return 0;
-    const long long p = qpos[(long long)b * T + t];
-    return (int)max(0LL, min(p >= 0 ? p + 1 : cs, cap));
-  };
-
   if (threadIdx.x == 0) {
-    *lim_s = 0;
     mbar_init(q_full, 1);
+    mbar_init(q_empty, 256);       // every consumer thread, once its last QK of an item is done
     for (int s = 0; s < FSTAGES; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 256);   // every consumer thread releases the stage
     }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&meta_full[s], 32);    // every lane of the producer warp, after its writes
+      mbar_init(&meta_empty[s], 256);  // every consumer thread, once it has read the slot
+    }
     mbar_init_fence();
   }
   __syncthreads();
-  int ntiles, tile_lim = 0;
-  if (PAGED) {
-    if (threadIdx.x < TQ) atomicMax(lim_s, limit(t_first + threadIdx.x));
-    __syncthreads();
-    tile_lim = *lim_s;
-    ntiles = (tile_lim + FBN - 1) / FBN;   // no tile past the last key a query sees
-    if (ntiles == 0) {   // no query of the block sees a key: zeros
-      for (int i = threadIdx.x; i < RB * (HD / 8); i += FTH) {
-        const int r = i / (HD / 8), t = t_first + r / G;
-        if (t < T)
-          *reinterpret_cast<uint4*>(out + (((long long)b * T + t) * H + kh * G + r % G) * HD +
-                                    (i % (HD / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
-      }
-      return;
-    }
-  } else {
-    ntiles = (min(S, t_last + 1) + FBN - 1) / FBN;   // no tile above the diagonal
-  }
 
   if (wg == 2) {
-    // ---- producer: registers go to the consumers; one thread issues the loads
+    // ---- producer warpgroup: registers go to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
-    if (threadIdx.x == 256) {
-      mbar_expect_tx(q_full, RB * 256);   // two halves of RB rows of 128 B
-      for (int h = 0; h < 2; ++h)
-        tma_load_4d(qs + h * FHALF, &tq, q_full, h * SWZ, kh * G, t_first, b);
-      for (int kt = 0; kt < ntiles; ++kt) {
-        const int s = kt % FSTAGES;
-        if (kt >= FSTAGES) mbar_wait(&empty[s], (kt / FSTAGES - 1) & 1);
-        if (PAGED) {
-          // the tile's boxes up to the block's limit, each in one page
-          const int j0 = kt * FBN;
-          const int nb = (min(FBN, tile_lim - j0) + box_rows - 1) / box_rows;
-          mbar_expect_tx(&k_full[s], nb * box_rows * 256);
-          mbar_expect_tx(&v_full[s], nb * box_rows * 256);
-          for (int kv = 0; kv < 2; ++kv) {
-            unsigned char* dst = (kv ? vs : ks) + s * FTILE;
-            for (int i = 0; i < nb; ++i) {
-              const int j = j0 + i * box_rows;
-              const int row = (int)(table[(long long)b * P + j / ps] * ps + j % ps);
-              for (int h = 0; h < 2; ++h)
-                tma_load_2d(dst + h * FHALF + i * box_rows * 128, kv ? &tv : &tk,
-                            kv ? &v_full[s] : &k_full[s], kh * HD + h * SWZ, row);
-            }
-          }
-          continue;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const Plan pl(ws, B * nqb);
+    if (PAGED) grid_dep_wait();   // the plan's items (the consumers read only shared memory)
+    if (warp == 0) {
+      const int n_items = PAGED ? pl.hdr[0] : B * KV * nqb;
+      int* counter = PAGED ? pl.hdr + 3 : ws;
+      int g = 0;      // K / V tiles issued by this block: the ring position
+      int rows = 0;   // this lane's box of the current 32: its pool row
+      int nxt = blockIdx.x;   // the first item is the block's own; the rest from the counter
+      for (int it = 0;; ++it) {
+        const int idx = __shfl_sync(0xffffffffu, nxt, 0);
+        // the next item's index, in flight while this one's loads are issued
+        if (lane == 0 && idx < n_items) nxt = gridDim.x + atomicAdd(counter, 1);
+        int* mt = meta + (it & 1) * META;
+        if (it >= 2) mbar_wait(&meta_empty[it & 1], ((it >> 1) - 1) & 1);
+        if (idx >= n_items) {   // no work left: the consumers stop at b = -1
+          if (lane == 0) mt[0] = -1;
+          mbar_arrive(&meta_full[it & 1]);
+          break;
         }
-        mbar_expect_tx(&k_full[s], FTILE);
-        for (int h = 0; h < 2; ++h)
-          tma_load_3d(ks + s * FTILE + h * FHALF, &tk, &k_full[s], kh * HD + h * SWZ,
-                      kt * FBN, b);
-        mbar_expect_tx(&v_full[s], FTILE);
-        for (int h = 0; h < 2; ++h)
-          tma_load_3d(vs + s * FTILE + h * FHALF, &tv, &v_full[s], kh * HD + h * SWZ,
-                      kt * FBN, b);
+        int b, m, kh, k0, kend, slot;
+        if (PAGED) {
+          const int4 rec = pl.items[idx];
+          const int u = rec.x / KV;
+          kh = rec.x - u * KV;
+          b = u / nqb;
+          m = u - b * nqb;
+          k0 = rec.y;
+          kend = rec.z;
+          slot = rec.w;
+        } else {
+          m = nqb - 1 - idx / (B * KV);
+          b = (idx % (B * KV)) / KV;
+          kh = idx % KV;
+          k0 = 0;
+          kend = min(S, min(m * TQ + TQ, T));   // no tile above the diagonal
+          slot = -1;
+        }
+        const int nt = (kend - k0 + FBN - 1) / FBN;
+        auto issue_q = [&]() {
+          mbar_expect_tx(q_full, RB * 256);   // two halves of RB rows of 128 B
+          for (int h = 0; h < 2; ++h)
+            tma_load_4d(qs + h * FHALF, &tq, q_full, h * SWZ, kh * G, m * TQ, b);
+        };
+        if (lane == 0 && it == 0) issue_q();   // the block's first q under the limits' loads
+        if (PAGED) {   // the item's first 32 boxes' pool rows, loaded beside the limits
+          const int j = k0 + lane * box_rows;
+          rows = j < kend ? (int)(table[(long long)b * P + j / ps] * ps + j % ps) : 0;
+        }
+        if (lane == 0) {
+          mt[0] = b;
+          mt[1] = m;
+          mt[2] = kh;
+          mt[3] = k0;
+          mt[4] = nt;
+          mt[5] = kend;
+          mt[6] = slot;
+        }
+        // the limits of the item's positions (PAGED: the plan's rule; every
+        // unit with an item holds a real query, so padding sees chunk_start)
+        long long cs = 0, cap = S;
+        if (PAGED) {
+          if (lane == 0) cs = qpos[(long long)b * T];
+          if (lane == 1) cap = min(cap, seq_len[b]);
+          cs = __shfl_sync(0xffffffffu, cs, 0);
+          cap = __shfl_sync(0xffffffffu, cap, 1);
+        }
+        for (int i = lane; i < TQ; i += 32) {
+          const int t = m * TQ + i;
+          const long long p = PAGED && t < T ? qpos[(long long)b * T + t] : t;
+          mt[8 + i] = t >= T ? 0 : (int)max(0LL, min(p >= 0 ? p + 1 : cs, cap));
+        }
+        mbar_arrive(&meta_full[it & 1]);
+        if (lane == 0 && it > 0) {
+          mbar_wait(q_empty, (it - 1) & 1);
+          issue_q();
+        }
+        for (int kt = 0; kt < nt; ++kt, ++g) {
+          const int s = g % FSTAGES, j0 = k0 + kt * FBN;
+          if (g >= FSTAGES) mbar_wait(&empty[s], (g / FSTAGES - 1) & 1);
+          if (PAGED) {
+            // the tile's boxes up to the item's key end, each in one page
+            const int box0 = kt * (FBN / box_rows);
+            if (kt > 0 && (box0 & 31) == 0) {   // the next 32 boxes' pool rows
+              const int j = k0 + (box0 + lane) * box_rows;
+              rows = j < kend ? (int)(table[(long long)b * P + j / ps] * ps + j % ps) : 0;
+            }
+            const int nb = (min(FBN, kend - j0) + box_rows - 1) / box_rows;
+            if (lane == 0) {
+              mbar_expect_tx(&k_full[s], nb * box_rows * 256);
+              mbar_expect_tx(&v_full[s], nb * box_rows * 256);
+            }
+            for (int i = 0; i < nb; ++i) {
+              const int row = __shfl_sync(0xffffffffu, rows, (box0 + i) & 31);
+              if (lane == 0) {
+                for (int h = 0; h < 2; ++h) {
+                  const int off = s * FTILE + h * FHALF + i * box_rows * 128;
+                  tma_load_2d(ks + off, &tk, &k_full[s], kh * HD + h * SWZ, row);
+                  tma_load_2d(vs + off, &tv, &v_full[s], kh * HD + h * SWZ, row);
+                }
+              }
+            }
+          } else if (lane == 0) {
+            mbar_expect_tx(&k_full[s], FTILE);
+            for (int h = 0; h < 2; ++h)
+              tma_load_3d(ks + s * FTILE + h * FHALF, &tk, &k_full[s], kh * HD + h * SWZ, j0, b);
+            mbar_expect_tx(&v_full[s], FTILE);
+            for (int h = 0; h < 2; ++h)
+              tma_load_3d(vs + s * FTILE + h * FHALF, &tv, &v_full[s], kh * HD + h * SWZ, j0, b);
+          }
+        }
+      }
+    } else if (PAGED) {
+      // zeros over the units that take no item (no query of theirs sees a
+      // key): each block its share of each such unit's rows
+      const int zt = threadIdx.x - 288;
+      for (int u = 0; u < B * nqb; ++u) {
+        if (pl.ulim[u]) continue;
+        const int b = u / nqb, t0 = (u - b * nqb) * TQ, t1 = min(t0 + TQ, T);
+        uint4* dst = reinterpret_cast<uint4*>(out + ((long long)b * T + t0) * H * HD);
+        const long long n = (long long)(t1 - t0) * H * (HD / 8);
+        const long long i0 = n * blockIdx.x / gridDim.x, i1 = n * (blockIdx.x + 1) / gridDim.x;
+        for (long long i = i0 + zt; i < i1; i += 96) dst[i] = make_uint4(0u, 0u, 0u, 0u);
       }
     }
   } else {
@@ -766,25 +1048,15 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
     const int c2 = (lane & 3) * 2;
     const int r0 = wg * 64 + wq * 16 + (lane >> 2);   // this thread's rows r0, r0 + 8
-    const int t0 = t_first + r0 / G, t1 = t_first + (r0 + 8) / G;
     float o[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
     float sc[64];
     uint32_t pk[32], pn[32];   // p of the tile in the value product, and of the next
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
-    // exclusive key limits of the thread's rows: 0 for a row that holds no
-    // query (its q row in shared memory was never loaded); a tile below
-    // the warp's least limit is not masked
-    const int lim0 = r0 >= RB ? 0 : PAGED ? limit(t0) : min(t0 + 1, S);
-    const int lim1 = r0 + 8 >= RB ? 0 : PAGED ? limit(t1) : min(t1 + 1, S);
-    const SoftmaxRows rows = {lim0, lim1, __reduce_min_sync(0xffffffffu, min(lim0, lim1)), c2,
-                              scale_log2};
+    int g0 = 0;                // the ring position of the item's first tile
 
-    // S = Q K^T of tile kt into sc (asynchronous: committed, not waited)
-    auto issue_qk = [&](int kt) {
-      const unsigned char* kst = ks + (kt % FSTAGES) * FTILE;
-      mbar_wait(&k_full[kt % FSTAGES], (kt / FSTAGES) & 1);
+    // S = Q K^T of ring tile g into sc (asynchronous: committed, not waited)
+    auto issue_qk = [&](int g) {
+      const unsigned char* kst = ks + (g % FSTAGES) * FTILE;
+      mbar_wait(&k_full[g % FSTAGES], (g / FSTAGES) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {   // steps 4..7 in the second 64-column half
@@ -795,94 +1067,213 @@ flash_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wgmma_commit();
     };
 
-    // O += P V of tile kt (asynchronous): V is [keys][columns] in shared
+    // O += P V of ring tile g (asynchronous): V is [keys][columns] in shared
     // memory (MN-major): its two 64-column halves lie 16 KB apart (LBO),
     // 8-key groups 1 KB apart (SBO)
-    auto issue_pv = [&](int kt) {
-      mbar_wait(&v_full[kt % FSTAGES], (kt / FSTAGES) & 1);
+    auto issue_pv = [&](int g) {
+      mbar_wait(&v_full[g % FSTAGES], (g / FSTAGES) & 1);
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < FBN / 16; ++j)
         wgmma_rs_tb(o, pk[4 * j], pk[4 * j + 1], pk[4 * j + 2], pk[4 * j + 3],
-                    sw128_desc(vs + (kt % FSTAGES) * FTILE + j * 16 * 128, FHALF, 1024));
+                    sw128_desc(vs + (g % FSTAGES) * FTILE + j * 16 * 128, FHALF, 1024));
       wgmma_commit();
     };
 
     // ping-pong: warpgroup wg issues its products between bar_sync(1 + wg)
     // and bar_arrive(2 - wg), so the two take turns on the tensor cores and
     // one's softmax runs under the other's products; warpgroup 1 lets
-    // warpgroup 0 go first. Both run the same tiles, so turns pair up.
+    // warpgroup 0 go first. Both run the same items and tiles, so turns pair
+    // up across items.
     if (wg == 1) bar_arrive(1, 256);
-    mbar_wait(q_full, 0);
-    bar_sync(1 + wg, 256);
-    issue_qk(0);
-    bar_arrive(2 - wg, 256);
-    wgmma_wait<0>();
-    fence_regs(sc);
-    softmax_tile(sc, pk, m0, m1, l0, l1, al0, al1, 0, rows);
-    // every tile but the last: the QK of tile kt+1 is issued before the PV
-    // of tile kt, and the softmax of kt+1 runs while PV kt is on the tensor
-    // cores (no branch inside, so ptxas sees which group each wait retires)
-    for (int kt = 0; kt + 1 < ntiles; ++kt) {
+    for (int it = 0;; ++it) {
+      const int* mt = meta + (it & 1) * META;
+      mbar_wait(&meta_full[it & 1], (it >> 1) & 1);
+      const int b = mt[0];
+      if (b < 0) break;
+      const int m = mt[1], kh = mt[2], k0 = mt[3], nt = mt[4], kend = mt[5], slot = mt[6];
+      // exclusive key limits of the thread's rows: 0 for a row that holds no
+      // query (its q row in shared memory was never loaded); a tile below
+      // the warp's least limit is not masked
+      const int lim0 = r0 < RB ? mt[8 + r0 / G] : 0;
+      const int lim1 = r0 + 8 < RB ? mt[8 + (r0 + 8) / G] : 0;
+      mbar_arrive(&meta_empty[it & 1]);
+      const SoftmaxRows rows = {lim0, lim1, __reduce_min_sync(0xffffffffu, min(lim0, lim1)),
+                                c2, scale_log2};
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] = 0.f;
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
+
+      mbar_wait(q_full, it & 1);
       bar_sync(1 + wg, 256);
-      issue_qk(kt + 1);
-      issue_pv(kt);
+      issue_qk(g0);
       bar_arrive(2 - wg, 256);
-      wgmma_wait<1>();
+      wgmma_wait<0>();
       fence_regs(sc);
-      softmax_tile(sc, pn, m0, m1, l0, l1, al0, al1, (kt + 1) * FBN, rows);
+      softmax_tile(sc, pk, m0, m1, l0, l1, al0, al1, k0, rows);
+      // every tile but the last: the QK of tile kt+1 is issued before the PV
+      // of tile kt, and the softmax of kt+1 runs while PV kt is on the tensor
+      // cores (no branch inside, so ptxas sees which group each wait retires)
+      for (int kt = 0; kt + 1 < nt; ++kt) {
+        bar_sync(1 + wg, 256);
+        issue_qk(g0 + kt + 1);
+        issue_pv(g0 + kt);
+        bar_arrive(2 - wg, 256);
+        wgmma_wait<1>();
+        fence_regs(sc);
+        softmax_tile(sc, pn, m0, m1, l0, l1, al0, al1, k0 + (kt + 1) * FBN, rows);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pk);   // pk stays untouched until the product that reads it is done
+        mbar_arrive(&empty[(g0 + kt) % FSTAGES]);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          o[4 * i] *= al0;
+          o[4 * i + 1] *= al0;
+          o[4 * i + 2] *= al1;
+          o[4 * i + 3] *= al1;
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pk[i] = pn[i];
+      }
+      mbar_arrive(q_empty);   // the item's every QK is done: the next item's q may load
+      const int gl = g0 + nt - 1;   // the last tile's ring position
+      if (PAGED && kend < k0 + nt * FBN) {
+        // zero the value rows of the last tile past the item's key end (an
+        // unloaded box, stale pool rows: p = 0 there, but 0 * NaN is NaN).
+        // Both warpgroups' value products read the whole tile, so each
+        // writes all of them (the same zeros) and meets only its own warps
+        const int s = gl % FSTAGES, valid = kend - (k0 + (nt - 1) * FBN);
+        mbar_wait(&v_full[s], (gl / FSTAGES) & 1);
+        const int n = (FBN - valid) * 16;   // 16-byte pieces of both halves
+        for (int i = threadIdx.x & 127; i < n; i += 128) {
+          const int half = i / ((FBN - valid) * 8), rem = i % ((FBN - valid) * 8);
+          *reinterpret_cast<uint4*>(vs + s * FTILE + half * FHALF + (valid + rem / 8) * 128 +
+                                    (rem % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
+        }
+        fence_proxy_async();   // the zeros before the value product reads them
+        bar_sync(3 + wg, 128);
+      }
+      bar_sync(1 + wg, 256);
+      issue_pv(gl);
+      bar_arrive(2 - wg, 256);
       wgmma_wait<0>();
       fence_regs(o);
-      fence_regs(pk);   // pk stays untouched until the product that reads it is done
-      mbar_arrive(&empty[kt % FSTAGES]);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        o[4 * i] *= al0;
-        o[4 * i + 1] *= al0;
-        o[4 * i + 2] *= al1;
-        o[4 * i + 3] *= al1;
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) pk[i] = pn[i];
-    }
-    if (PAGED && tile_lim < ntiles * FBN) {
-      // zero the value rows of the last tile past the block's limit (an
-      // unloaded box, stale pool rows: p = 0 there, but 0 * NaN is NaN);
-      // both warpgroups' value products read the whole tile
-      const int s = (ntiles - 1) % FSTAGES, valid = tile_lim - (ntiles - 1) * FBN;
-      mbar_wait(&v_full[s], ((ntiles - 1) / FSTAGES) & 1);
-      const int n = (FBN - valid) * 16;   // 16-byte pieces of both halves
-      for (int i = threadIdx.x; i < n; i += 256) {
-        const int half = i / ((FBN - valid) * 8), rem = i % ((FBN - valid) * 8);
-        *reinterpret_cast<uint4*>(vs + s * FTILE + half * FHALF + (valid + rem / 8) * 128 +
-                                  (rem % 8) * 16) = make_uint4(0u, 0u, 0u, 0u);
-      }
-      fence_proxy_async();   // the zeros before the value product reads them
-      bar_sync(3, 256);
-    }
-    bar_sync(1 + wg, 256);
-    issue_pv(ntiles - 1);
-    bar_arrive(2 - wg, 256);
-    wgmma_wait<0>();
-    fence_regs(o);
-    mbar_arrive(&empty[(ntiles - 1) % FSTAGES]);
+      mbar_arrive(&empty[gl % FSTAGES]);
+      g0 += nt;
 
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      if (PAGED && slot >= 0) {
+        // a piece of a split unit: its float32 partial rows for the merge
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half, t = m * TQ + r / G;
+          if (r >= RB || t >= T) continue;
+          const long long pr = (long long)slot * FBM + r;
+          float* prow = o_part + pr * HD + c2;
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            *reinterpret_cast<float2*>(prow + 8 * i) =
+                make_float2(o[4 * i + 2 * half], o[4 * i + 2 * half + 1]);
+          if ((lane & 3) == 0)
+            *reinterpret_cast<float2*>(ml_part + 2 * pr) =
+                make_float2(half ? m1 : m0, half ? l1 : l0);
+        }
+      } else {
+        // normalised bf16, 8-byte stores: lanes q and q ^ 1 trade one word
+        // of each pair of 8-column groups, so that the even lane holds 4
+        // columns of the first group and the odd lane 4 of the second
+        const bool odd = lane & 1;
+        const int col = odd ? 8 + c2 - 2 : c2;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + 8 * half, t = m * TQ + r / G;
+          const bool ok = r < RB && t < T;
+          bf16* orow = out + (((long long)b * T + t) * H + kh * G + r % G) * HD;
+          const float inv = 1.f / fmaxf(half ? l1 : l0, 1e-30f);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const uint32_t we = pack_bf16(o[8 * j + 2 * half] * inv,
+                                          o[8 * j + 2 * half + 1] * inv);
+            const uint32_t wo = pack_bf16(o[8 * j + 4 + 2 * half] * inv,
+                                          o[8 * j + 4 + 2 * half + 1] * inv);
+            const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? we : wo, 1);
+            if (ok)
+              *reinterpret_cast<uint2*>(orow + 16 * j + col) =
+                  odd ? make_uint2(got, wo) : make_uint2(we, got);
+          }
+        }
+      }
     }
-    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  }
+}
+
+// a persistent grid of MERGE_TH threads a block: each split unit's rows of
+// out from its pieces' partials, 16 rows a work item of (split unit, kv
+// head, row group), a warp two of them (rows r and r + 8), 4 columns a
+// lane; one pass over the pieces with a running maximum, the loads of
+// MERGE_BATCH pieces of both rows issued at once; a piece with m = -inf (no
+// key of that row in it) weighs nothing
+__global__ void __launch_bounds__(MERGE_TH)
+flash_paged_merge(const float* __restrict__ o_part, const float* __restrict__ ml_part,
+                  int* __restrict__ ws, bf16* __restrict__ out, int B, int T, int H, int KV) {
+  const int G = H / KV, TQ = FBM / G, RB = TQ * G, nqb = (T + TQ - 1) / TQ;
+  const Plan pl(ws, B * nqb);
+  grid_dep_wait();   // the attention kernel's partials
+  const int groups = (RB + 15) / 16, n = pl.hdr[2] * KV * groups;
+  const int lane = threadIdx.x & 31;
+  for (int w = blockIdx.x; w < n; w += gridDim.x) {
+    const int uk = w / groups, kh = uk % KV;
+    const int4 su = pl.slist[uk / KV];   // (u, pieces, first slot)
+    const int u = su.x, z = su.y;
+    const int r0 = (w % groups) * 16 + (threadIdx.x >> 5);
+    const int b = u / nqb;
+    const long long step = (long long)KV * FBM;   // from one piece's rows to the next's
+    const long long p0 = ((long long)su.z * KV + kh) * FBM + r0;
+    float M[2] = {-INFINITY, -INFINITY}, L[2] = {0.f, 0.f};
+    float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+    for (int z0 = 0; z0 < z; z0 += MERGE_BATCH) {
+      float2 ml[2][MERGE_BATCH];
+      float4 ov[2][MERGE_BATCH];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + 8 * half, t = t_first + r / G, g = r % G;
-      if (r >= RB || t >= T) continue;
-      bf16* orow = out + (((long long)b * T + t) * H + kh * G + g) * HD;
-      const float inv = half ? inv1 : inv0;
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i + c2) = __floats2bfloat162_rn(
-            o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
+        for (int j = 0; j < MERGE_BATCH; ++j) {
+          const long long pr = p0 + 8 * h + (long long)min(z0 + j, z - 1) * step;
+          ml[h][j] = reinterpret_cast<const float2*>(ml_part)[pr];
+          ov[h][j] = reinterpret_cast<const float4*>(o_part + pr * HD)[lane];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < MERGE_BATCH; ++j) {
+          if (z0 + j >= z || ml[h][j].x == -INFINITY) continue;
+          const float mn = fmaxf(M[h], ml[h][j].x);
+          const float a = exp2f(M[h] - mn), wz = exp2f(ml[h][j].x - mn);   // M = -inf: a = 0
+          M[h] = mn;
+          L[h] = L[h] * a + ml[h][j].y * wz;
+          acc[h].x = acc[h].x * a + ov[h][j].x * wz;
+          acc[h].y = acc[h].y * a + ov[h][j].y * wz;
+          acc[h].z = acc[h].z * a + ov[h][j].z * wz;
+          acc[h].w = acc[h].w * a + ov[h][j].w * wz;
+        }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, t = (u - b * nqb) * TQ + r / G;
+      if (r >= RB || t >= T) continue;   // no partial there: a row that holds no query
+      const float inv = 1.f / fmaxf(L[h], 1e-30f);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[h].x * inv, acc[h].y * inv);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[h].z * inv, acc[h].w * inv);
+      uint2 pair;
+      pair.x = *reinterpret_cast<const uint32_t*>(&lo);
+      pair.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(out + (((long long)b * T + t) * H + kh * G + r % G) * HD +
+                                4 * lane) = pair;
     }
   }
 }
@@ -1240,11 +1631,32 @@ bool flash_q_map(CUtensorMap* tq, const void* q, int B, int T, int H, int G) {
   return bf16_map(tq, q, 4, qdim, qstride, qbox);
 }
 
+// a launch that may begin (early: allowed and PDL) while the kernel
+// before it on the stream still runs (programmatic dependent launch; the
+// kernel waits, grid_dep_wait, before it reads what that one wrote); graph
+// capture keeps the edge
+constexpr int PDL = 1;
+template <typename... Params, typename... Args>
+cudaError_t launch_after(bool early, void (*kernel)(Params...), int grid, int block, int smem,
+                         cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(block);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = early && PDL;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
 template <bool PAGED>
 int launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                  void* out, int B, int T, int S, int H, int KV, float scale, const void* table,
-                 int P, const void* seq_len, const void* qpos, int ps, int box_rows,
-                 cudaStream_t st) {
+                 int P, int ps, int box_rows, const void* qpos, const void* seq_len, void* ws,
+                 void* o_part, void* ml_part, int grid, cudaStream_t st) {
   constexpr int bytes = flash_smem_bytes();
   static bool attr_set = false;  // the opt-in above 48 KB, once per process
   if (!attr_set) {
@@ -1252,11 +1664,12 @@ int launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap
                          bytes);
     attr_set = true;
   }
-  const int TQ = FBM / (H / KV);
-  flash_attention<PAGED><<<dim3(KV, B, (T + TQ - 1) / TQ), FTH, bytes, st>>>(
-      tq, tk, tv, static_cast<bf16*>(out), T, S, H, KV, scale * LOG2E,
-      static_cast<const long long*>(table), P, static_cast<const long long*>(seq_len),
-      static_cast<const long long*>(qpos), ps, box_rows);
+  // PAGED: early, under the plan, which its producer warpgroup waits for
+  launch_after(PAGED, flash_attention<PAGED>, grid, FTH, bytes, st, tq, tk, tv,
+               static_cast<bf16*>(out), B, T, S, H, KV, scale * LOG2E,
+               static_cast<const long long*>(table), P, ps, box_rows,
+               static_cast<const long long*>(qpos), static_cast<const long long*>(seq_len),
+               static_cast<int*>(ws), static_cast<float*>(o_part), static_cast<float*>(ml_part));
   return (int)cudaGetLastError();
 }
 
@@ -1323,12 +1736,16 @@ int dstts_latent_attention(const void* q, const void* pool, const void* table, i
 }
 
 // K2 (B2). q, out [B,T,H,128]; k, v [B,S,KV,128]; all bf16, contiguous,
-// 16-byte aligned. H / KV <= 128. The TMA tensor maps are encoded here
-// on each call and passed by value (__grid_constant__), so a captured CUDA
-// graph replays them with the same tensors.
+// 16-byte aligned. H / KV <= 128. counter: one int32 of scratch, zeroed
+// here (a memset on the stream) before the persistent grid of
+// min(items, sms) blocks takes items from it. The TMA tensor maps are
+// encoded here on each call and passed by value (__grid_constant__), so a
+// captured CUDA graph replays them with the same tensors.
 int dstts_flash_attention(const void* q, const void* k, const void* v, void* out,
-                          int B, int T, int S, int H, int KV, float scale, void* stream) {
-  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || S < 1) return (int)cudaErrorInvalidValue;
+                          int B, int T, int S, int H, int KV, float scale, void* counter,
+                          int sms, void* stream) {
+  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || S < 1 || sms < 1)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   // k, v as (KV*D, S, B): kv head kh's keys are columns kh*D .. kh*D + 127;
   // a tile past S reads zeros in every batch row, not the next row's keys
@@ -1338,8 +1755,33 @@ int dstts_flash_attention(const void* q, const void* k, const void* v, void* out
   if (!flash_q_map(&tq, q, B, T, H, H / KV) || !bf16_map(&tk, k, 3, kdim, kstride, kbox) ||
       !bf16_map(&tv, v, 3, kdim, kstride, kbox))
     return (int)cudaErrorInvalidValue;
-  return launch_flash<false>(tq, tk, tv, out, B, T, S, H, KV, scale, nullptr, 0, nullptr,
-                             nullptr, 0, 0, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int TQ = FBM / (H / KV), items = B * KV * ((T + TQ - 1) / TQ);
+  cudaMemsetAsync(counter, 0, sizeof(int), st);
+  return launch_flash<false>(tq, tk, tv, out, B, T, S, H, KV, scale, nullptr, 0, 0, 0, nullptr,
+                             nullptr, counter, nullptr, nullptr, items < sms ? items : sms, st);
+}
+
+// K2's paged mode's plan alone (flash_paged_plan): qpos [B,T] int64
+// contiguous, seq_len [B] int64; ws int32 of the size
+// ops/flash_attention.py paged_plan_sizes gives; split: may cut the units
+// longer than an SM's mean load into pieces (fewer than 2 * PIECES_PER_SM *
+// sms of them).
+int dstts_flash_paged_plan(const void* qpos, const void* seq_len, int B, int T, int S, int G,
+                           int KV, int sms, int split, void* ws, void* stream) {
+  if (G < 1 || G > FBM || T < 1 || KV < 1 || S < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(flash_paged_plan, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         PLAN_SMEM_UNITS * 4);
+    attr_set = true;
+  }
+  const int U = B * ((T + FBM / G - 1) / (FBM / G));
+  flash_paged_plan<<<1, PLAN_TH, U <= PLAN_SMEM_UNITS ? U * 4 : 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(qpos), static_cast<const long long*>(seq_len), B, T, S,
+      FBM / G, KV, sms, split, static_cast<int*>(ws));
+  return (int)cudaGetLastError();
 }
 
 // K2's paged mode (JAX's prefix_chunk_attention after the chunk's write).
@@ -1348,16 +1790,20 @@ int dstts_flash_attention(const void* q, const void* k, const void* v, void* out
 // seq_len [B] int64; qpos [B,T] int64 contiguous, qpos[b,0] the chunk's
 // start. With P > 1 pages a row, ps a multiple of 8 (boxes of the largest of
 // 64, 32, 16 and 8 keys that divides ps); one page a row (a slot row) takes
-// any ps. H / KV <= 128. The TMA tensor maps are encoded here on each call
-// and passed by value.
+// any ps. H / KV <= 128. ws: the plan's int32 workspace; with split,
+// o_part [slots*128, 128] and ml_part [slots*128, 2] float32 take the
+// pieces' partials (slots = 2 * PIECES_PER_SM * sms) and
+// dstts_flash_paged_merge must follow. Launches the plan, then the
+// persistent grid of sms blocks. The TMA tensor maps are encoded here on
+// each call and passed by value.
 int dstts_flash_attention_paged(const void* q, const void* k, const void* v, const void* table,
                                 int P, const void* seq_len, const void* qpos, void* out, int B,
-                                int T, int H, int KV, long long R, int ps, float scale,
-                                void* stream) {
+                                int T, int H, int KV, long long R, int ps, float scale, void* ws,
+                                void* o_part, void* ml_part, int sms, int split, void* stream) {
   int box_rows = FBN_PAGE;
   while (P > 1 && box_rows >= 8 && ps % box_rows) box_rows /= 2;
-  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || P < 1 || box_rows < 8 ||
-      (long long)P * ps > INT32_MAX || R * ps > INT32_MAX)
+  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || P < 1 || box_rows < 8 || sms < 1 ||
+      (long long)P * ps > INT32_MAX || R * ps > INT32_MAX || (split && (!o_part || !ml_part)))
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   // the pools as (KV*D, R*ps): kv head kh's keys are columns kh*D .. kh*D + 127
@@ -1367,8 +1813,24 @@ int dstts_flash_attention_paged(const void* q, const void* k, const void* v, con
   if (!flash_q_map(&tq, q, B, T, H, H / KV) || !bf16_map(&tk, k, 2, kdim, kstride, kbox) ||
       !bf16_map(&tv, v, 2, kdim, kstride, kbox))
     return (int)cudaErrorInvalidValue;
-  return launch_flash<true>(tq, tk, tv, out, B, T, P * ps, H, KV, scale, table, P, seq_len, qpos,
-                            ps, box_rows, static_cast<cudaStream_t>(stream));
+  const int err = dstts_flash_paged_plan(qpos, seq_len, B, T, P * ps, H / KV, KV, sms, split, ws,
+                                         stream);
+  if (err) return err;
+  return launch_flash<true>(tq, tk, tv, out, B, T, P * ps, H, KV, scale, table, P, ps, box_rows,
+                            qpos, seq_len, ws, o_part, ml_part, sms,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The merge of K2's paged mode: out's rows of the split units that the
+// plan in ws lists, from o_part / ml_part (dstts_flash_attention_paged's,
+// same shapes); a persistent grid of 4 * sms blocks.
+int dstts_flash_paged_merge(const void* o_part, const void* ml_part, void* ws, void* out, int B,
+                            int T, int H, int KV, int sms, void* stream) {
+  if (KV < 1 || H % KV || H / KV > FBM || T < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  launch_after(true, flash_paged_merge, 4 * sms, MERGE_TH, 0, static_cast<cudaStream_t>(stream),
+               static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+               static_cast<int*>(ws), static_cast<bf16*>(out), B, T, H, KV);
+  return (int)cudaGetLastError();
 }
 
 // Blocks an SM can hold, as the runtime computes them from each kernel's

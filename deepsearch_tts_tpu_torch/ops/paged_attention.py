@@ -162,11 +162,15 @@ def _lib():
         lib.dstts_decode_attention.argtypes = [p, ll, p, p, p, i, ll, p, p, i, i, i,
                                                p, i, i, i, i, i, f, i, i, i, p, p, p]
         lib.dstts_decode_attention.restype = i
-        lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
+        lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p, i, p]
         lib.dstts_flash_attention.restype = i
         lib.dstts_flash_attention_paged.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, ll, i,
-                                                    f, p]
+                                                    f, p, p, p, i, i, p]
         lib.dstts_flash_attention_paged.restype = i
+        lib.dstts_flash_paged_plan.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
+        lib.dstts_flash_paged_plan.restype = i
+        lib.dstts_flash_paged_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.dstts_flash_paged_merge.restype = i
         lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, ll,
                                                i, f, i, i, i, p, p, p]
         lib.dstts_latent_attention.restype = i
