@@ -37,6 +37,14 @@ Phases, each raising on failure (non-zero exit, no final line):
    timed beside its plain version, SDPA over the pre-gathered context with
    a boolean mask and, at B = 1, causal SDPA (a plain attention over a
    table with one page of the long prompt swapped must fail the bound);
+   K1's and K2's int8 modes at qwen3-32b's 64 / 8 heads over int8 pages
+   of 64 keys and their scales (``_check_int8_decode``: B = 16 rows of the
+   B6 lengths through all three entries and K1's own 19,280-key rows;
+   ``I8_PREFILLS``: the long prompt, the ragged 16 x 64 group and 100
+   tokens after 3000 cached; first ``widen_kv_pages``' bf16 pages equal
+   to the plain dequantization bit for bit) under the same bound, each
+   timed beside its plain version, its bound and SDPA over the
+   pre-dequantized context;
    then B11, the one-layer forms (``fused_mlp``, ``fused_qkv``,
    ``fused_out_mlp`` with packed and unpacked gate/up) at qwen3-8b widths,
    B = 1 and 16, and B11's own path: its counters set to 0, each entry
@@ -230,8 +238,9 @@ Phases, each raising on failure (non-zero exit, no final line):
     with ``quantize="int8"`` and ``kv_quantize="int8"``,
     the CLI's paged cache and prefix cache, over HTTP as phase 4: B12 once
     per quantized matrix at build, B10 once per layer and decode step;
-    ``attn_impl`` resolves to ``"xla"`` (no kernel reads int8 pages): the
-    plain gather, K1 and K2's paged mode never;
+    ``attn_impl`` resolves to ``"pallas"``: K2's int8 paged mode once per
+    layer and prefill, K1's int8 mode once per layer and decode step, no
+    plain gather (the programs check finds both in the replays' traces);
 15. int8 reference: its serving logits against the no-cache forward on the
     same int8 params with the plain int8 products; then a decode step of 64
     rows carrying a 16-row lane (B10 over 80 rows, the lm_head over 65)
@@ -1199,7 +1208,82 @@ def phase_attention_kernels(gen) -> dict:
           lambda: fa.flash_attention_plain(qf, kf, vf))
     del qf, kf, vf
     _check_paged_prefills(res, gen)
+    _check_int8_decode(res, gen)
+    _check_paged_prefills(res, gen, I8_PREFILLS, "flash_attention_paged_i8")
     return res
+
+
+def _int8_pools(gen, n: int, ps: int, kv: int):
+    """int8 K and V pages [n, ps, kv, D] and their float32 scales [n, ps, kv]:
+    random rows quantized as the engine writes them (``quantize_kv_rows``)."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.engine.kvcache import quantize_kv_rows
+
+    kp, ks = quantize_kv_rows(torch.randn((n, ps, kv, D), generator=gen, device="cuda"))
+    vp, vs = quantize_kv_rows(torch.randn((n, ps, kv, D), generator=gen, device="cuda"))
+    return kp, vp, ks, vs
+
+
+def _check_int8_decode(res: dict, gen) -> None:
+    """K1's int8 mode against its plain version (``paged_int8_plain``)
+    at qwen3-32b's widths (64 / 8 heads, D = 128) over int8 pages of 64
+    keys, 64 pages a row, B = 16, T = 1: the B6 rows' ragged lengths
+    (:data:`SEQS`, 19,613 keys) through all three entries, and K1's own
+    rows (:data:`LIMITS`, 19,280 keys, two rows with none) through
+    ``pallas_paged_attention``, under the rms-scaled attention bound. Each
+    timed beside the plain version, its bound (bytes: each row's int8 keys
+    and values and their scales once, q, out, the table) and SDPA over the
+    pre-dequantized context (the gather and the dequantization not
+    timed). ``res["decode_attention_i8"]`` keeps the SEQS shape's numbers
+    and the largest error, ``res["decode_attention_i8_shapes"]`` each's."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+    from deepsearch_tts_tpu_torch.ops.attention import dequant_context
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ps, P = 64, CTX // 64
+    NP = 1 + SLOTS * P
+    kp, vp, ks, vs = _int8_pools(gen, NP, ps, Q_KV)
+    sc = dict(k_scales=ks, v_scales=vs)
+    q1 = torch.randn((SLOTS, 1, Q_H, D), generator=gen, device=dev).to(torch.bfloat16)
+    perm = torch.randperm(NP - 1, generator=gen, device=dev)[: SLOTS * P].view(SLOTS, P)
+    shapes = {}
+    for tag, lens in (("SEQS", SEQS), ("LIMITS", LIMITS)):
+        seq = torch.tensor(lens, device=dev)
+        used = (seq + ps - 1) // ps
+        table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
+        qpos = (seq - 1).clamp(min=0)[:, None]
+        keys = int(seq.sum())
+        label = f"B={SLOTS} T=1 ps={ps} P={P} {keys} keys ({tag})"
+        kd, vd = (dequant_context(p, sc_, table, torch.bfloat16).transpose(1, 2)
+                  for p, sc_ in ((kp, ks), (vp, vs)))
+        mask = (torch.arange(P * ps, device=dev)[None] < seq[:, None])[:, None, None]
+        qt = q1.transpose(1, 2)
+        one: dict = {}
+        _check_kernel(one, "decode_attention_i8", label,
+                      lambda: pa.pallas_paged_attention(q1, kp, vp, table, seq, qpos, **sc),
+                      lambda: pa.pallas_paged_attention_plain(q1, kp, vp, table, seq, qpos,
+                                                              **sc),
+                      rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                      nbytes=(keys * Q_KV * (D + 4) * 2 + 2 * SLOTS * Q_H * D * 2
+                              + SLOTS * (P + 2) * 8),
+                      flop=4 * Q_H * D * keys,
+                      library=lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True))
+        if tag == "SEQS":
+            for name in ("pallas_paged_decode", "pallas_paged_decode_clamp"):
+                fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
+                _check_kernel(one, "decode_attention_i8", f"{label} via {name}",
+                              lambda: fk(q1, kp, vp, table, seq, **sc),
+                              lambda: fp(q1, kp, vp, table, seq, **sc),
+                              rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC)
+        shapes[label] = one["decode_attention_i8"]
+        del kd, vd
+    first = next(iter(shapes.values()))
+    res["decode_attention_i8"] = {**first, "err": max(r["err"] for r in shapes.values())}
+    res["decode_attention_i8_shapes"] = shapes
 
 
 # K2's paged mode in phase 3: (label, B, T, each row's chunk start (< 0: a
@@ -1261,7 +1345,15 @@ def _paged_prefill_inputs(gen, B, T, starts, valid, ps, P, heads, slot):
     return q, kp, vp, table, seq, pos
 
 
-def _check_paged_prefills(res: dict, gen) -> None:
+# K2's int8 paged mode in phase 3: PAGED_PREFILLS' long prompt, ragged
+# group and short follow-up after a 3000-token prefix at qwen3-32b's heads
+I8_PREFILLS = tuple((label, B, T, starts, valid, ps, P, (Q_H, Q_KV), slot)
+                    for label, B, T, starts, valid, ps, P, _, slot in
+                    (PAGED_PREFILLS[0], PAGED_PREFILLS[2], PAGED_PREFILLS[9]))
+
+
+def _check_paged_prefills(res: dict, gen, shapes_in=PAGED_PREFILLS,
+                          name: str = "flash_attention_paged") -> None:
     """K2's paged mode against its plain version at :data:`PAGED_PREFILLS`
     under the rms-scaled attention bound (whole tail-padding blocks: zeros
     in both), the plan kernel first held to its host model
@@ -1276,35 +1368,53 @@ def _check_paged_prefills(res: dict, gen) -> None:
     efficient kernel takes it), held to the same bound. ``library_ms`` is
     the faster of the two. The plain version over the long prompt's table
     with one page swapped for page 0 (in no row's table) must fail the
-    bound the kernel passes. ``res["flash_attention_paged"]`` keeps the long
-    prompt's numbers and the largest error of all shapes,
-    ``res["flash_attention_paged_shapes"]`` each shape's."""
+    bound the kernel passes. ``res[name]`` keeps the first shape's (the
+    long prompt's) numbers and the largest error of all shapes,
+    ``res[name + "_shapes"]`` each shape's. ``name``
+    ``"flash_attention_paged_i8"``: the int8 paged mode at ``shapes_in``
+    (:data:`I8_PREFILLS`), over the same pages quantized as the engine
+    writes them, with their scales (the bytes: int8 keys and values and
+    their scales; the library calls over the pre-dequantized context),
+    its first launch (``widen_kv_pages``) held to the plain
+    dequantization of every page below each row's ``seq_lens`` bit for
+    bit."""
     import torch
     from torch.nn.attention.bias import causal_lower_right
 
+    from deepsearch_tts_tpu_torch.engine.kvcache import quantize_kv_rows
     from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+    from deepsearch_tts_tpu_torch.ops.attention import dequant_context
 
+    int8 = name.endswith("_i8")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = {}
-    for label, B, T, starts, valid, ps, P, heads, slot in PAGED_PREFILLS:
+    for label, B, T, starts, valid, ps, P, heads, slot in shapes_in:
         q, kp, vp, table, seq, pos = _paged_prefill_inputs(gen, B, T, starts, valid, ps, P,
                                                            heads, slot)
         (h, kv), S = heads, P * ps
         lim = fa.paged_key_limits(seq, pos, S, h // kv)
         _check_paged_plan(label, seq, pos, S, h // kv, kv)
-        kt, vt = (t[table].reshape(B, S, kv, D).transpose(1, 2) for t in (kp, vp))
+        sc, key_bytes = {}, kv * D * 2 * 2
+        if int8:
+            (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+            sc, key_bytes = dict(k_scales=ks, v_scales=vs), kv * (D + 4) * 2
+            _check_widen(label, kp, vp, ks, vs, table, seq)
+            kt, vt = (dequant_context(p, s, table, torch.bfloat16).transpose(1, 2)
+                      for p, s in ((kp, ks), (vp, vs)))
+        else:
+            kt, vt = (t[table].reshape(B, S, kv, D).transpose(1, 2) for t in (kp, vp))
         mask = (torch.arange(S, device=q.device)[None, None] < lim[:, :, None])[:, None]
         qt = q.transpose(1, 2)
         one: dict = {}
-        _check_kernel(one, "flash_attention_paged", label,
-                      lambda: fa.flash_attention_paged(q, kp, vp, table, seq, pos),
-                      lambda: fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos),
+        _check_kernel(one, name, label,
+                      lambda: fa.flash_attention_paged(q, kp, vp, table, seq, pos, **sc),
+                      lambda: fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos, **sc),
                       rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
                       flop=4 * h * D * int(lim[pos >= 0].sum()),
-                      nbytes=(int(lim.amax(1).sum()) * kv * D * 2 * 2 + 2 * B * T * h * D * 2
+                      nbytes=(int(lim.amax(1).sum()) * key_bytes + 2 * B * T * h * D * 2
                               + B * (T + P + 1) * 8),
                       library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
-        r = one["flash_attention_paged"]
+        r = one[name]
         r["library_masked_ms"] = r["library_ms"]
         if B == 1:
             s0, n = starts[0], valid[0]
@@ -1316,23 +1426,41 @@ def _check_paged_prefills(res: dict, gen) -> None:
                 kr, vr = (t[:, :, :s0 + n].repeat_interleave(h // kv, 1) for t in (kt, vt))
                 bias = causal_lower_right(n, s0 + n)
                 causal = lambda: sdpa(qn, kr, vr, attn_mask=bias)  # noqa: E731
-            ref = fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos)
+            ref = fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos, **sc)
             use = _bound_use(causal().transpose(1, 2), ref[:, :n], ATTN_RTOL, ATTN_ATOL,
                              ATTN_RMS_FRAC)
             assert use <= 1.0, (label, "causal SDPA", use)
             r["library_causal_ms"] = time_ms(causal, iters=20)[0]
             r["library_ms"] = min(r["library_masked_ms"], r["library_causal_ms"])
-            log(f"[kernel] flash_attention_paged {label}: causal SDPA "
+            log(f"[kernel] {name} {label}: causal SDPA "
                 f"{r['library_causal_ms']:.4f} ms (bound use {use:.3f}), masked SDPA "
                 f"{r['library_masked_ms']:.4f} ms, kernel {r['ms']:.4f} ms")
-            if label == PAGED_PREFILLS[0][0]:
+            if not int8 and label == PAGED_PREFILLS[0][0]:
                 _paged_page_fault(ref, q, kp, vp, table, seq, pos, page=P // 4)
             del ref
         shapes[label] = r
         del q, kp, vp, kt, vt, mask, qt
-    res["flash_attention_paged"] = {**shapes[PAGED_PREFILLS[0][0]],
-                                    "err": max(r["err"] for r in shapes.values())}
-    res["flash_attention_paged_shapes"] = shapes
+    res[name] = {**shapes[shapes_in[0][0]], "err": max(r["err"] for r in shapes.values())}
+    res[name + "_shapes"] = shapes
+
+
+def _check_widen(label: str, kp, vp, ks, vs, table, seq) -> None:
+    """``widen_kv_pages`` against ``(int8.float() * scale).to(bf16)`` of
+    the table's pages: equal bit for bit on every page that holds a key
+    below its row's ``seq_lens``, and its table ``b·P + p``."""
+    import torch
+
+    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
+
+    B, P = table.shape
+    ps = kp.shape[1]
+    kw, vw, wt = fa.widen_kv_pages(kp, vp, ks, vs, table, seq)
+    need = torch.arange(P, device=seq.device)[None] * ps < seq[:, None]
+    for w, pool, s in ((kw, kp, ks), (vw, vp, vs)):
+        want = (pool[table].float() * s[table][..., None]).to(torch.bfloat16)
+        assert torch.equal(w.view(B, P, *w.shape[1:])[need], want[need]), label
+    assert torch.equal(wt, torch.arange(B * P, device=wt.device).view(B, P)), label
+    log(f"[kernel] widen_kv_pages {label}: {int(need.sum())} pages bit for bit")
 
 
 def _check_paged_plan(label: str, seq, pos, S: int, G: int, kv: int) -> None:
@@ -2441,6 +2569,11 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
     table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
     qpos = (seq - 1)[:, None]
     nkeys = int(seq.sum())
+    # the yardstick: SDPA over the pre-gathered latent context (the gather
+    # not timed), heads as query rows, each row's keys masked past its
+    # seq_len, as the B1 sibling above
+    kg = pages[table].reshape(SLOTS, P * ps, 1, X_D).transpose(1, 2)   # [B, 1, S, 576]
+    maskg = (torch.arange(P * ps, device=dev)[None] < seq[:, None])[:, None, None]
     for h, model in ((128, "deepseek-v3"), (64, "kimi-k2")):
         q1 = rnd(SLOTS, 1, h, X_D)
         io = nkeys * X_D * 2 + SLOTS * h * (X_D + X_V) * 2 + SLOTS * (P + 2) * 8
@@ -2455,13 +2588,15 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
                        lambda: fk(q1, pages, pages, table, seq, *extra, scale=X_SCALE,
                                   v_width=X_V),
                        lambda: fp(q1, pages, pages, table, seq, *extra, scale=X_SCALE,
-                                  v_width=X_V), timed=timed, nbytes=io, flop=flop)
+                                  v_width=X_V), timed=timed, nbytes=io, flop=flop,
+                       library=lambda: sdpa(q1, kg, kg[..., :X_V], attn_mask=maskg,
+                                            scale=X_SCALE))
             if h == 64 and name == "pallas_paged_attention":
                 other["paged_attention_latent H=64"] = {
                     "ms": time_ms(lambda: fk(q1, pages, pages, table, seq, *extra,
                                              scale=X_SCALE, v_width=X_V), iters=20)[0],
                     **bound(io, flop)}
-    del pages
+    del pages, kg
     _free()
     for name in ("slot_attention_latent", "paged_attention_latent"):
         res[name]["err"] = max(res[name]["err"], other.pop(name)["err"])
@@ -4342,8 +4477,9 @@ def _zero(counters: dict) -> None:
     """Set every launch counter of ``counters`` (name → wrapper) to 0."""
     for f in counters.values():
         f.launches = 0
-        if hasattr(f, "prefill_launches"):
-            f.prefill_launches = 0
+        for a in ("prefill_launches", "i8_launches"):
+            if hasattr(f, a):
+                setattr(f, a, 0)
 
 
 def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
@@ -4520,7 +4656,7 @@ def _program_ms(engine, st: list, run, n: int = 3) -> float:
 # anonymous namespace; B5 by its Triton function's name)
 _OWN_KERNEL = re.compile(
     r"::(decode_attention|decode_merge|flash_attention|flash_paged_plan|flash_paged_merge"
-    r"|latent_attention|rms_norm_rows"
+    r"|latent_attention|widen_kv_pages|rms_norm_rows"
     r"|gemm_partial|gemm_tc|qkv_epilogue|residual_epilogue|swiglu_epilogue|grouped_expert"
     r"|grouped_expert_tc|i8_stream|grouped_expert_i8|grouped_expert_i8_tc|quant_strip)[<(]"
     r"|^_prep_kernel\b")
@@ -4538,9 +4674,12 @@ _SIGNATURES = (
     ("K1", r"::decode_attention<", ("slot_attention", "slot_window_attention",
                                     "pallas_paged_attention", "pallas_paged_decode",
                                     "pallas_paged_decode_clamp")),
+    ("K1 int8", r"::decode_attention<\d+, ?(true|\(bool\)1)>",
+     ("pallas_paged_attention_i8", "pallas_paged_decode_i8", "pallas_paged_decode_clamp_i8")),
     ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent")),
     ("K2", r"::flash_attention<(false|\(bool\)0)>", ("flash_attention",)),
     ("K2 paged", r"::flash_attention<(true|\(bool\)1)>", ("flash_attention_paged",)),
+    ("K2 paged int8", r"::widen_kv_pages\(", ("flash_attention_paged_i8",)),
     ("K2 paged plan", r"::flash_paged_plan\(", ("flash_attention_paged",)),
     ("K2 paged merge", r"::flash_paged_merge\(", ("paged_merge",)),
 )
@@ -4596,8 +4735,10 @@ def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog,
         _program_restore(engine, st)
         c0 = [getattr(f, a) for f, a in counted]
         own, other = _traced_kernels(run)
-        return own, other, {f.__name__: getattr(f, a) - c for (f, a), c in zip(counted, c0)
-                            if a == "launches"}
+        # a wrapper's launches by its name, those of its int8 mode as name_i8
+        return own, other, {f.__name__ + ("_i8" if a == "i8_launches" else ""): getattr(f, a) - c
+                            for (f, a), c in zip(counted, c0)
+                            if a in ("launches", "i8_launches")}
 
     runs = {"eager": [trace(prog.body)], "replay": [trace(prog)]}
     if runs["eager"][0][0] != runs["replay"][0][0]:
@@ -5033,12 +5174,12 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     idle = ("grouped_gateup", "grouped_down") if int8_moe else ()
     # attention: on CUDA attn_impl resolves to "pallas": K2's paged mode
     # once a layer and prefill, K1 once a layer and decode step, so no layer
-    # of either attends through the plain gather; with int8 KV to "xla"
-    # (the gather, neither kernel); MLA's decode takes K3 through B6's
-    # entry, its re-prefill stays plain
+    # of either attends through the plain gather; with int8 KV the same
+    # counts through their int8 modes (and none through the bf16 ones);
+    # MLA's decode takes K3 through B6's entry, its re-prefill stays plain
     paged_pallas = engine.attn_impl == "pallas" and not engine.latent_cache
-    want_impl = "xla" if quant_kw.get("kv_quantize") else "pallas"
-    assert engine.attn_impl == want_impl, (tag, engine.attn_impl, want_impl)
+    kv_int8 = bool(quant_kw.get("kv_quantize"))
+    assert engine.attn_impl == "pallas", (tag, engine.attn_impl)
     if engine.latent_cache:
         counters["paged_attention_latent"] = pa.paged_attention_latent
     counters["flash_attention_paged"] = fa.flash_attention_paged
@@ -5162,9 +5303,18 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
             # the warmup covers every program the phase's requests reach
             assert out["post_warmup_builds"] == 0, out["post_warmup_builds"]
             out["launches"] = _check_launches(tag, engine, counters, st0, st1, idle)
+            i8 = {"decode_attention_i8": pa.pallas_paged_attention.i8_launches,
+                  "flash_attention_paged_i8": fa.flash_attention_paged.i8_launches}
+            base = {"decode_attention_i8": "pallas_paged_attention",
+                    "flash_attention_paged_i8": "flash_attention_paged"}
+            want_i8 = {n: out["launches"][b] if kv_int8 else 0 for n, b in base.items()}
+            assert i8 == want_i8, (tag, i8, want_i8)
+            out["launches"].update(i8)
             log(f"[{tag}] attn_impl={engine.attn_impl}: K2 paged "
                 f"{fa.flash_attention_paged.launches} launches, K1 "
                 f"{pa.pallas_paged_attention.launches}" + (
+                    f" (of which K2's int8 paged mode {i8['flash_attention_paged_i8']}, K1's "
+                    f"int8 mode {i8['decode_attention_i8']})" if kv_int8 else "") + (
                     " (once a layer and prefill, once a layer and decode step: no plain "
                     "gather)" if paged_pallas else ""))
             out["steps"] = dict(zip(("decode", "prefill", "lane"), _steps(engine, st0, st1)))
@@ -6414,6 +6564,8 @@ def main(argv=None) -> int:
     k1_b1 = res.pop("slot_attention_b1")
     k1_b64 = res.pop("slot_attention_b64")
     k2_paged = res.pop("flash_attention_paged_shapes")
+    k1_i8 = res.pop("decode_attention_i8_shapes")
+    k2_paged_i8 = res.pop("flash_attention_paged_i8_shapes")
     b11_res, b11_launches = phase_one_layer_kernels(gen)
     res.update(b11_res)
     moe_res = phase_moe_kernels(gen)
@@ -6430,6 +6582,7 @@ def main(argv=None) -> int:
     if opts.kernels_only:
         print(json.dumps({"kernels": res, "g8": g8, "mla_kernels": mla_kernels,
                           "k1_b1": k1_b1, "k1_b64": k1_b64, "k2_paged": k2_paged,
+                          "k1_i8": k1_i8, "k2_paged_i8": k2_paged_i8,
                           "b11_launches": b11_launches,
                           "b12_shapes": b12_shapes, "moe_i8_shapes": moe_i8_shapes,
                           "past_64": PAST_64, "card": card}))
@@ -6587,6 +6740,10 @@ def main(argv=None) -> int:
         "flash_attention": ("cuda", attn, jsrc + "flash_attention.py:27", pallas),
         "flash_attention_paged": ("cuda", attn, jsrc + "attention.py:167 prefix_chunk_attention "
                                   "(XLA)", serve),
+        "decode_attention_i8": ("cuda", attn, jsrc + "attention.py:122 paged_attention's int8 "
+                                "branch, T = 1 (XLA)", i8_serve),
+        "flash_attention_paged_i8": ("cuda", attn, jsrc + "attention.py:122 paged_attention's "
+                                     "int8 branch, T > 1 (XLA)", i8_serve),
         "fused_qkv_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:568", i8_serve),
         "fused_out_mlp_stacked_i8": ("cuda", fused, jsrc + "fused_layer.py:669", i8_serve),
         "int8_product": ("cuda", fused, jsrc + "quant.py:68 int8_matmul (XLA dot_general)",
@@ -6628,7 +6785,8 @@ def main(argv=None) -> int:
     print(json.dumps({**{name: {k: v for k, v in run.items() if k != "launches"}
                          for name, run in runs.items()},
                       "g8": g8, "mla_kernels": mla_kernels, "k1_b1": k1_b1, "k1_b64": k1_b64,
-                      "k2_paged": k2_paged, "wide": wide, "b12_shapes": b12_shapes,
+                      "k2_paged": k2_paged, "k1_i8": k1_i8, "k2_paged_i8": k2_paged_i8,
+                      "wide": wide, "b12_shapes": b12_shapes,
                       "moe_i8_shapes": moe_i8_shapes, "past_64": PAST_64, "phase_s": _LAPS,
                       "card": card}))
     print(json.dumps({"product": product, "card": card}))

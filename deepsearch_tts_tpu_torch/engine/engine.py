@@ -63,13 +63,14 @@ Behaviours carried over from the JAX engine:
   in place, and a request whose prompt extends its tokens re-enters that
   row and prefills only the rest (token-exact match).
 * ``attn_impl``: ``None`` resolves to ``"pallas"`` on CUDA (slot and paged
-  cache; ``"xla"`` with int8 KV and for shapes no kernel takes,
+  cache, bf16 and int8 KV; ``"xla"`` for shapes no kernel takes,
   :func:`attention_kernels_take`) and to ``"xla"`` on the CPU
   (:func:`resolve_attn_impl`; JAX keeps its paged default on the gather
   for a TPU measurement); ``"pallas"`` runs the slot and paged decode
   kernels, flash attention for fresh prefill and K2's paged mode for
-  re-prefill over a cached prefix; ``"pallas2"`` and ``"clamp"`` pick the
-  other paged decode entry points.
+  re-prefill over a cached prefix (with int8 KV: K1's and K2's int8
+  modes); ``"pallas2"`` and ``"clamp"`` pick the other paged decode entry
+  points.
 * Seen masks: each row's token-presence mask is rebuilt on the device from
   its whole prompt at admission and extended with every sampled token, so
   it is always presence(prompt + generated) — there is no kept/stale mask
@@ -82,7 +83,8 @@ Behaviours carried over from the JAX engine:
   at a time as it draws). Dense T=1 decode takes B10; the MoE family runs
   unfused, its experts on the int8 grouped expert kernel. ``kv_quantize`` in
   ``{"int8", "int8-force"}``: int8 KV pools plus float32 scales pools,
-  paged cache and ``attn_impl="xla"`` only. JAX refuses ``"int8"`` on its
+  paged cache only, any ``attn_impl`` (JAX takes ``"xla"`` only: its
+  kernels read its int32-packed pages as bf16). JAX refuses ``"int8"`` on its
   TPU for speed (``engine.py:411-421``), a TPU measurement; here both
   spellings are accepted, as JAX accepts them on the CPU.
 * ``speculative="ngram"`` (slot cache only): each decode step drafts
@@ -261,7 +263,9 @@ ATTN_IMPLS = ("xla", "pallas", "pallas2", "clamp")
 def attention_kernels_take(cfg, cache_mode: str, page_size: int, pages: int) -> bool:
     """Whether the port's attention kernels take an engine's static shapes
     (``cfg`` the config its forward runs with, rows of ``pages`` pages of
-    ``page_size`` keys; the wrappers raise on any other): bf16 pools; K1
+    ``page_size`` keys; the wrappers raise on any other): bf16 pools (and
+    the int8 pools of int8 KV, at the same shapes, through K1's and K2's
+    int8 modes); K1
     and K2 at head_dim 128 with at most 64 query heads a kv head (K1's rows
     at T=1), K2's paged mode over rows of more than one page at ps a
     multiple of 8; K3 at MLA's latent width with heads a multiple of 64,
@@ -279,20 +283,20 @@ def attention_kernels_take(cfg, cache_mode: str, page_size: int, pages: int) -> 
 
 
 def resolve_attn_impl(attn_impl: str | None, cache_mode: str, device: torch.device,
-                      kv_quantize: str | None = None, kernels_take: bool = True) -> str:
+                      kernels_take: bool = True) -> str:
     """The engine's attention implementation. ``None`` resolves to the
-    port's kernels on CUDA, for the slot and the paged cache alike, where
-    they take the engine's shapes (``kernels_take``:
-    :func:`attention_kernels_take`), and to the plain gather on the CPU,
-    for int8 KV (no kernel reads int8 pages) and for shapes no kernel takes
-    (``attn_impl="pallas"`` raises there). JAX (``engine.py:260-273``)
-    keeps its paged default on the gather for a v5e measurement (XLA's
-    fused gather + attention beat its Pallas paged kernels there); on the
-    card K1 and K2's paged mode serve both caches, and a kernel's plain
-    version serves the tests only."""
+    port's kernels on CUDA, for the slot and the paged cache alike and for
+    bf16 and int8 KV alike, where they take the engine's shapes
+    (``kernels_take``: :func:`attention_kernels_take`), and to the plain
+    gather on the CPU and for shapes no kernel takes (``attn_impl="pallas"``
+    raises there). JAX (``engine.py:260-273``) keeps its paged default on
+    the gather for a v5e measurement (XLA's fused gather + attention beat
+    its Pallas paged kernels there) and refuses its kernels with int8 KV
+    (they read its int32-packed pages as bf16); on the card K1 and K2's
+    paged mode serve both caches, their int8 modes the int8 pools the port
+    keeps unpacked, and a kernel's plain version serves the tests only."""
     if attn_impl is None:
-        return ("pallas" if device.type == "cuda" and not kv_quantize and kernels_take
-                else "xla")
+        return "pallas" if device.type == "cuda" and kernels_take else "xla"
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r} (one of {ATTN_IMPLS})")
     return attn_impl
@@ -394,7 +398,7 @@ class Engine:
 
             lcfg = local_config(cfg, self.par.tp)
         self.attn_impl = resolve_attn_impl(
-            attn_impl, cache_mode, self.device, kv_quantize,
+            attn_impl, cache_mode, self.device,
             attention_kernels_take(lcfg, cache_mode, page_size, -(-max_seq_len // page_size)))
         self.prefill_lane = int(prefill_lane or 0)
         if lane_max_act:   # instance override of the class default
@@ -417,11 +421,9 @@ class Engine:
                 raise ValueError(f"model family {model_name!r} does not support int8 KV")
             if cache_mode == "slot":
                 raise ValueError("int8 KV requires the paged cache mode")
-            if self.attn_impl != "xla":
-                # JAX's Pallas decode ignores the scales and reads the
-                # int32-packed pages as bf16 (attention.py:88-109)
-                raise ValueError(f"int8 KV attends through the gather (attn_impl='xla'), "
-                                 f"not attn_impl={self.attn_impl!r}")
+            # JAX refuses its kernels here (they read its int32-packed pages
+            # as bf16, attention.py:88-109); the port's pools are unpacked
+            # int8 and K1 / K2 have int8 modes, so any attn_impl serves
         self.tokenizer = tokenizer
         self.max_slots = max_slots
         self.page_size = page_size

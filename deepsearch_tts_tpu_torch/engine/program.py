@@ -41,7 +41,7 @@ def launch_counters() -> list[tuple[object, str]]:
             mod = importlib.import_module(f"..ops.{m}", __package__)
             for fn in vars(mod).values():
                 if callable(fn) and getattr(fn, "__module__", None) == mod.__name__:
-                    out += [(fn, a) for a in ("launches", "prefill_launches")
+                    out += [(fn, a) for a in ("launches", "prefill_launches", "i8_launches")
                             if type(getattr(fn, a, None)) is int]
         _counters = out
     return _counters

@@ -31,7 +31,8 @@ on any device), and the fused T=1 layer takes B10 (``*_i8``) when ``wqkv``
 is quantized. int8 KV: given ``k_scales`` / ``v_scales`` pools, each
 layer's k/v rows are quantized and written with their scales; fresh
 prefill attends over the chunk's unquantized k/v, and re-prefill and decode
-read the dequantized pages through ``paged_attention``'s gather.
+read the dequantized pages: through K2's and K1's int8 modes with
+``impl="pallas"``, else through ``paged_attention``'s gather.
 """
 from __future__ import annotations
 
@@ -226,7 +227,11 @@ class ServingAttention:
     int8 KV follows JAX's routing (``qwen3.py:297-400``): fresh prefill
     attends over the chunk's unquantized k/v; re-prefill does not take
     ``prefix_chunk_attention`` but reads the pages after the write, like
-    T=1 decode, through ``paged_attention``'s gather."""
+    T=1 decode, through ``paged_attention``'s int8 branch: with
+    ``impl="pallas"`` on K2's int8 paged mode (T > 1) and K1's int8 mode
+    through B6's entry (T = 1; ``"pallas2"`` / ``"clamp"`` take theirs at
+    T = 1), else the gather. The lane's rows keep their causal attention
+    over the unquantized k / v (``qwen3.py:377-380``)."""
 
     def __init__(self, cfg, lp: dict, positions, cos, sin, *, k_pages, v_pages,
                  page_table, seq_lens, impl: str, slot_decode: bool,
@@ -341,9 +346,13 @@ class ServingAttention:
         if self.kv_int8:
             # re-prefill and decode: the pages after the write, dequantized
             self._write(k, v, slots_l)
+            if T > 1 and self.impl == "pallas":
+                return flash_attention_paged(q, kpf, vpf, table_l, self.seq_lens,
+                                             self.positions, k_scales=self.ksf,
+                                             v_scales=self.vsf)
             o = attn_ops.paged_attention(
                 qd, kpf, vpf, table_l[:nd], self.seq_lens, self.pos_c[:nd],
-                mask=self.decode_mask, k_scales=self.ksf, v_scales=self.vsf)
+                mask=self.decode_mask, impl=self.impl, k_scales=self.ksf, v_scales=self.vsf)
             return self._with_lane(o, q, k, v)
         if T > 1 and self.impl == "pallas":
             # re-prefill over a cached prefix on K2's paged mode: the pages

@@ -25,7 +25,11 @@ scores, several times over, on top of the weights and the KV pool.
 int8 KV: :func:`paged_attention` given the scales pools gathers the int8
 pages and their scales, dequantizes in float32, rounds to q's dtype and
 runs :func:`masked_context_attention` (``attention.py:122-135``; plain XLA
-code in JAX too — no TPU kernel reads int8 KV).
+code in JAX, whose Pallas kernels read its int32-packed pages as bf16 and
+are never given them). With ``impl`` in ``{"pallas", "pallas2", "clamp"}``
+a T=1 call passes the scales to the B6 entry, which runs K1's int8 mode
+(the port packs no int8 pages); the serving layer takes K2's int8 paged
+mode for re-prefill.
 """
 from __future__ import annotations
 
@@ -106,6 +110,18 @@ def gather_kv_rows(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return pool[table.long()]
 
 
+def dequant_context(pages: torch.Tensor, scales: torch.Tensor, page_table: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """The ``[B, P·ps, K, D]`` context of the table's int8 pages in
+    ``dtype``: ``(int8.float() * scale).to(dtype)``, JAX's dequantization
+    (``attention.py:134-135``)."""
+    B, P = page_table.shape
+    _, ps, K, D = pages.shape
+    x = gather_kv_rows(pages, page_table).reshape(B, P * ps, K, D)
+    s = gather_kv_rows(scales, page_table).reshape(B, P * ps, K, 1)
+    return (x.float() * s).to(dtype)
+
+
 def paged_attention(
     q: torch.Tensor,            # [B, T, H, D] current-chunk queries
     k_pages: torch.Tensor,      # [N, ps, K, D] pages (flattened all-layer pool)
@@ -130,15 +146,14 @@ def paged_attention(
     ``mask`` is :func:`context_mask` of the same arguments, when the caller
     already has it (it is the same for every layer). ``v_width``: only the
     first ``v_width`` columns of v and of the output (MLA's latent pool,
-    passed as both k and v: the gather then reads them alone)."""
-    if k_scales is not None and impl != "xla":
-        # JAX's Pallas branch ignores the scales and reads int32-packed
-        # pages (attention.py:88-109): no kernel reads int8 KV
-        raise ValueError(f"int8 KV attention runs the gather (impl='xla'), not {impl!r}")
+    passed as both k and v: the gather then reads them alone). With
+    ``k_scales`` / ``v_scales`` the pages are int8: a kernel ``impl`` at T=1
+    hands the scales to the B6 entry (K1's int8 mode), the gather
+    dequantizes them."""
     if impl in ("pallas", "pallas2", "clamp") and q.shape[1] == 1:
         from . import paged_attention as pa
 
-        kw = dict(scale=scale, v_width=v_width)
+        kw = dict(scale=scale, v_width=v_width, k_scales=k_scales, v_scales=v_scales)
         if impl == "clamp":
             return pa.pallas_paged_decode_clamp(q, k_pages, v_pages, page_table,
                                                 seq_lens, **kw)
@@ -149,13 +164,12 @@ def paged_attention(
     B, T, H, D = q.shape
     _, ps, K, _ = k_pages.shape
     S = page_table.shape[1] * ps
-    k_ctx = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D)
-    v_ctx = gather_kv_rows(v_pages[..., :v_width], page_table).reshape(B, S, K, -1)
     if k_scales is not None:
-        ks = gather_kv_rows(k_scales, page_table).reshape(B, S, K, 1)
-        vs = gather_kv_rows(v_scales, page_table).reshape(B, S, K, 1)
-        k_ctx = (k_ctx.float() * ks).to(q.dtype)
-        v_ctx = (v_ctx.float() * vs).to(q.dtype)
+        k_ctx = dequant_context(k_pages, k_scales, page_table, q.dtype)
+        v_ctx = dequant_context(v_pages, v_scales, page_table, q.dtype)
+    else:
+        k_ctx = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D)
+        v_ctx = gather_kv_rows(v_pages[..., :v_width], page_table).reshape(B, S, K, -1)
     return masked_context_attention(q, k_ctx, v_ctx, seq_lens, q_positions,
                                     scale=scale, mask=mask)
 

@@ -23,6 +23,17 @@
 //     unless every query of its block of floor(128/G) positions is padding:
 //     such a block, and a row with chunk_start < 0, sees none and writes
 //     zeros. A slot row is one page of max_seq_len keys.
+// K1 and K2's paged mode also read int8 pages: the int8 branch of JAX's
+//     paged_attention (ops/attention.py:122-139, XLA code: a gather, then
+//     (int8.float() * scale).to(bf16), then masked_context_attention), the
+//     int8-KV engine's decode and re-prefill. Each pool row holds D int8
+//     and one float32 scale a (slot, kv head) in a pool of its own. K1
+//     (decode_attention<MT, true>) widens each landed int8 stage into the
+//     bf16 stage its products read; K2's int8 paged mode is widen_kv_pages
+//     (the rows' pages into bf16 scratch pages) and then the bf16 paged
+//     mode over them. Both widen with dequant16, the plain path's values
+//     bit for bit, so only the accumulation order differs from the plain
+//     version.
 // K3  latent_attention: T=1 MQA decode over MLA's latent rows (v is k), at
 //     the DeepSeek-V3 / Kimi-K2 width D = 576 (kv_lora_rank 512 + rope 64):
 //       B1 slot_attention, v_pool=None (_slot_attn_kernel_shared, :116)
@@ -168,6 +179,29 @@
 // longer needs. Value rows past the limit are zeroed in shared memory
 // before PV: they weigh p = 0 but may hold anything (a never-written slot,
 // an unloaded box).
+// * The int8 modes widen every value (~3.5 instructions: a byte permute
+//   into 2^23, a subtract, a float32 product with the row's scale, half a
+//   bf16 pack).
+//   - K1 (int8): 64-key stages of int8 K and V (128 B a row) and their 64
+//     scales (4-byte cp.async) come through a ring of DSTAGES_I8 beside one
+//     bf16 stage; after each stage lands, the MT warps that share a part of
+//     the keys widen that part into the bf16 stage behind a named barrier of
+//     their own (__syncwarp at MT = 1), and the products read it as a bf16
+//     stage. 85.5 KB, two blocks an SM; 162 / 168 / 168 registers at MT =
+//     1 / 2 / 4. It takes what bf16 K1 takes (0.0567 against 0.0563 ms at
+//     qwen3-32b's heads over 19,613 keys, bound 0.0125), so halving the
+//     bytes bought nothing; what holds it is not measured (a four-stage
+//     ring, which would hide more load latency, gave 0.0567 too).
+//   - K2 (int8 paged): widen_kv_pages writes each row's pages below its
+//     seq_len as bf16 into scratch pages b*P + p (a thread one 16-byte
+//     piece of K and one of V), then the bf16 paged mode runs over them
+//     unchanged. The widening moves 3x the int8 bytes (~19 MB at 3044 keys
+//     and 8 kv heads: 0.011 ms) and the scratch is B*P bf16 pages; widening
+//     inside the persistent kernel (producer warps 9-11 turning int8 TMA
+//     stages into the swizzled tiles) ran at 1.9x this design's time
+//     (0.6433 against 0.3319 ms over the 3044-token prompt at qwen3-32b's
+//     heads).
+//     NVIDIA H100 80GB HBM3, 700.00 W, CUDA 12.8.
 //
 // Numerics. Scores are float32 and the scale D^-1/2 (times log2 e) is
 // applied to them: the TPU kernels scale q in float32 first, which agrees
@@ -175,7 +209,9 @@
 // operand) and, when p_bf16 is set, in K1 — the B1 round point
 // (slot_attention.py:98); B9 rounds p like B1 (slot_attention.py:178). The
 // B6 kernels keep p in float32 (paged_attention.py:106): K1 with p_bf16 = 0
-// runs PV on bf16(p) and on its bf16 remainder, as K3 does. K1 rounds p
+// runs PV on bf16(p) and on its bf16 remainder, as K3 does. K1's int8 mode
+// runs with p_bf16 (the int8 branch's masked_context_attention takes p in
+// the value dtype, bf16). K1 rounds p
 // relative to the running maximum of its own split and warp, not of the
 // whole row: a rounding of another p, within the attention tolerance. The
 // softmax sum always uses the unrounded p. Masked keys get p = 0 exactly;
@@ -206,6 +242,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // K1
 constexpr int DBK = 64;        // keys per stage
 constexpr int DSTAGES = 3;     // cp.async ring depth
+constexpr int DSTAGES_I8 = 3;  // its depth over int8 pages
 constexpr int DROWS = 64;      // query rows a block holds at most: 4 m-tiles of 16
 
 // 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros
@@ -219,6 +256,17 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+// 4-byte global -> shared copy (an int8 row's scale); src_bytes = 0 writes zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+// one arrival on `bar` once every cp.async this thread issued before has landed
+// (the barrier's count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
@@ -248,14 +296,40 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// int8 KV: bytes i, i + 1 of w (four int8 with the sign bit flipped, x + 128)
+// as the bf16 pair round(float(x) * s): the byte permute puts x + 128 in the
+// low mantissa of 2^23 and one subtract gives float(x) exactly, then one
+// float32 product and round to nearest even, the plain path's
+// (int8.float() * scale).to(bf16) bit for bit
+__device__ __forceinline__ uint32_t dequant_pair(uint32_t w, int i, float s) {
+  uint32_t a, b;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(a) : "r"(w), "r"(0x4B000000u), "r"(0x7440 | i));
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(b) : "r"(w), "r"(0x4B000000u), "r"(0x7440 | (i + 1)));
+  return pack_bf16((__uint_as_float(a) - 8388736.f) * s, (__uint_as_float(b) - 8388736.f) * s);
+}
+// sixteen int8 of one row (scale s) -> sixteen bf16 in order (lo: 0-7, hi: 8-15)
+__device__ __forceinline__ void dequant16(const uint4& v, float s, uint4& lo, uint4& hi) {
+  const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                         v.w ^ 0x80808080u};
+  lo = make_uint4(dequant_pair(w[0], 0, s), dequant_pair(w[0], 2, s),
+                  dequant_pair(w[1], 0, s), dequant_pair(w[1], 2, s));
+  hi = make_uint4(dequant_pair(w[2], 0, s), dequant_pair(w[2], 2, s),
+                  dequant_pair(w[3], 0, s), dequant_pair(w[3], 2, s));
+}
+
 // ------------------------------------------------------------------- K1
 
+constexpr int DWIDE = 2 * DBK * ROW * (int)sizeof(bf16);   // one K/V stage in bf16
+constexpr int DI8 = 2 * DBK * HD + 2 * DBK * 4;   // one int8 K/V stage and its scales
+// bf16: the K/V ring (q staged in it first); int8: one bf16 stage that the
+// warps widen their keys into (q staged in it first), then the int8 ring
+template <bool I8>
 constexpr int decode_smem_bytes() {
-  return DSTAGES * 2 * DBK * ROW * (int)sizeof(bf16);   // K/V ring (q staged in it first)
+  return I8 ? DWIDE + DSTAGES_I8 * DI8 : DSTAGES * DWIDE;
 }
 constexpr int OROW = HD + 4;   // merge buffer row (floats)
-static_assert(DROWS * OROW * 4 + 2 * DROWS * 4 <= decode_smem_bytes(),
-              "the merge buffers must fit in the ring");
+static_assert(DROWS * OROW * 4 + 2 * DROWS * 4 <= DWIDE,
+              "the merge buffers must fit in one bf16 stage");
 static_assert(DROWS <= DBK, "the q tile is staged in one K buffer of the ring");
 
 // grid (B, KV, splits), NTH threads. Query rows of the block: r = t*G + g for
@@ -271,10 +345,17 @@ static_assert(DROWS <= DBK, "the q tile is staged in one K buffer of the ring");
 // m-tile); their (m, l, O) meet in shared memory at the end. With one split
 // the block writes out; with more it writes its unnormalised O and (m, l)
 // (m in log2 units) to o_part / ml_part, and decode_merge finishes.
-template <int MT>
+// I8: the pools hold int8 rows and ks / vs their float32 scales
+// ([R, ps, KV]); a stage lands as int8 (and its 64 keys' scales) in its own
+// ring, and the warps that share a part of the keys widen that part into
+// one bf16 stage (dequant16: the plain path's dequantization bit for bit)
+// behind a barrier of their own before the products read it as they read a
+// bf16 stage.
+template <int MT, bool I8>
 __global__ void __launch_bounds__(NTH)
 decode_attention(const bf16* __restrict__ q, long long q_bstride,
-                 const bf16* __restrict__ kp, const bf16* __restrict__ vp,
+                 const unsigned char* __restrict__ kp, const unsigned char* __restrict__ vp,
+                 const float* __restrict__ ks, const float* __restrict__ vs,
                  const long long* __restrict__ table, int P, long long row_offset,
                  const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
                  int qpos_stride, int min_one, int max_keys, bf16* __restrict__ out, int T,
@@ -284,7 +365,9 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
   constexpr int KW = DBK / KP;    // keys of a stage per warp
   constexpr int NB = KW / 8;      // its n-blocks of 8 keys
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* kvs = reinterpret_cast<bf16*>(smem);   // [DSTAGES][2][DBK][ROW]
+  constexpr int RS = I8 ? DSTAGES_I8 : DSTAGES;   // ring stages
+  bf16* kvs = reinterpret_cast<bf16*>(smem);   // bf16: [RS][2][DBK][ROW]; int8: [2][DBK][ROW]
+  unsigned char* i8s = smem + DWIDE;           // int8: [RS] of K, V [DBK][HD], scales [2][DBK]
 
   const int b = blockIdx.x, kh = blockIdx.y, z = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -311,7 +394,8 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
   }
 
   // q tile, zero-padded to MT*16 rows, staged in the last stage's K buffer
-  bf16* qs = kvs + (DSTAGES - 1) * 2 * DBK * ROW;
+  // (int8: in the bf16 stage, which no warp widens into before q is read)
+  bf16* qs = kvs + (I8 ? 0 : (RS - 1) * 2 * DBK * ROW);
   for (int i = tid; i < MT * 16 * (HD / 8); i += NTH) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
     const bool ok = r < R;
@@ -323,30 +407,56 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
 
   const long long kv_row = (long long)KV * HD;   // elements between slots
   auto load_tile = [&](int stage, int kt) {
-    bf16* kd = kvs + stage * 2 * DBK * ROW;
-    bf16* vd = kd + DBK * ROW;
-    for (int i = tid; i < DBK * (HD / 8); i += NTH) {
-      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    if (!I8) {
+      bf16* kd = kvs + stage * 2 * DBK * ROW;
+      bf16* vd = kd + DBK * ROW;
+      const bf16* kb = reinterpret_cast<const bf16*>(kp);
+      const bf16* vb = reinterpret_cast<const bf16*>(vp);
+      for (int i = tid; i < DBK * (HD / 8); i += NTH) {
+        const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+        const int j = k0 + kt * DBK + r;
+        const bool ok = j < k1;                   // keys past the split load as zeros
+        long long off = 0;
+        if (ok) {
+          const long long page = table ? table[(long long)b * P + j / ps] : row_offset + b;
+          off = (page * ps + j % ps) * kv_row + (long long)kh * HD + c;
+        }
+        cp_async16(kd + r * ROW + c, kb + off, ok ? 16 : 0);
+        cp_async16(vd + r * ROW + c, vb + off, ok ? 16 : 0);
+      }
+      return;
+    }
+    // int8: 64 keys of 128 bytes each of K and V, then their 64 scales each
+    unsigned char* kd = i8s + stage * DI8;
+    unsigned char* vd = kd + DBK * HD;
+    float* sd = reinterpret_cast<float*>(vd + DBK * HD);   // [2][DBK]
+    for (int i = tid; i < DBK * (HD / 16); i += NTH) {
+      const int r = i / (HD / 16), c = (i % (HD / 16)) * 16;
       const int j = k0 + kt * DBK + r;
-      const bool ok = j < k1;                   // keys past the split load as zeros
+      const bool ok = j < k1;
       long long off = 0;
       if (ok) {
         const long long page = table ? table[(long long)b * P + j / ps] : row_offset + b;
         off = (page * ps + j % ps) * kv_row + (long long)kh * HD + c;
       }
-      cp_async16(kd + r * ROW + c, kp + off, ok ? 16 : 0);
-      cp_async16(vd + r * ROW + c, vp + off, ok ? 16 : 0);
+      cp_async16(kd + r * HD + c, kp + off, ok ? 16 : 0);
+      cp_async16(vd + r * HD + c, vp + off, ok ? 16 : 0);
+      if (c == 0) {   // the row's scales, one a (slot, kv head)
+        const long long so = off / HD;
+        cp_async4(sd + r, ks + so, ok ? 4 : 0);
+        cp_async4(sd + DBK + r, vs + so, ok ? 4 : 0);
+      }
     }
   };
 #pragma unroll
-  for (int s = 0; s < DSTAGES - 1; ++s) {
+  for (int s = 0; s < RS - 1; ++s) {
     if (s < ntiles) load_tile(s, s);
     cp_async_commit();
   }
 
   const int mt = warp % MT, kpart = warp / MT;
   const int mi = lane >> 3, rr = lane & 7, c2 = (lane & 3) * 2;
-  cp_async_wait<DSTAGES - 1>();   // the q group
+  cp_async_wait<RS - 1>();   // the q group
   __syncthreads();
   uint32_t qf[HD / 16][4];
 #pragma unroll
@@ -365,14 +475,34 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   for (int kt = 0; kt < ntiles; ++kt) {
-    cp_async_wait<DSTAGES - 2>();
+    cp_async_wait<RS - 2>();
     __syncthreads();   // tile kt landed for every thread; tile kt-1's stage is free
     {
-      const int nt = kt + DSTAGES - 1;
-      if (nt < ntiles) load_tile(nt % DSTAGES, nt);
+      const int nt = kt + RS - 1;
+      if (nt < ntiles) load_tile(nt % RS, nt);
       cp_async_commit();
     }
-    const bf16* kst = kvs + (kt % DSTAGES) * 2 * DBK * ROW + kpart * KW * ROW;
+    if (I8) {
+      // the MT warps of key part kpart widen its KW keys of K and V (16
+      // int8 a piece) into the bf16 stage: rows kpart*KW .. of each half;
+      // each warp passed the barrier above after its products of the stage
+      // before, so no warp still reads these rows
+      const unsigned char* src = i8s + (kt % RS) * DI8;
+      const float* sc = reinterpret_cast<const float*>(src + 2 * DBK * HD);
+      for (int i = mt * 32 + lane; i < 2 * KW * (HD / 16); i += MT * 32) {
+        const int isv = i / (KW * (HD / 16)), rem = i % (KW * (HD / 16));
+        const int r = kpart * KW + rem / (HD / 16), c = (rem % (HD / 16)) * 16;
+        uint4 lo, hi;
+        dequant16(*reinterpret_cast<const uint4*>(src + isv * DBK * HD + r * HD + c),
+                  sc[isv * DBK + r], lo, hi);
+        bf16* d = kvs + isv * DBK * ROW + r * ROW + c;
+        *reinterpret_cast<uint4*>(d) = lo;
+        *reinterpret_cast<uint4*>(d + 8) = hi;
+      }
+      if (MT == 1) __syncwarp();
+      else bar_sync(1 + kpart, MT * 32);
+    }
+    const bf16* kst = kvs + (I8 ? 0 : (kt % RS) * 2 * DBK * ROW) + kpart * KW * ROW;
     const bf16* vst = kst + DBK * ROW;
 
     // S = Q K^T over this warp's KW keys
@@ -551,22 +681,24 @@ decode_merge(const float* __restrict__ o_part, const float* __restrict__ ml_part
       __float2bfloat16(acc / fmaxf(L, 1e-30f));
 }
 
-template <int MT>
+template <int MT, bool I8>
 int launch_decode(const void* q, long long q_bstride, const void* k, const void* v,
-                  const void* table, int P, long long row_offset, const void* seq_len,
-                  const void* qpos, int qpos_stride, int min_one, int max_keys, void* out,
-                  int B, int T, int H, int KV, int ps, float scale, int p_bf16, int splits,
-                  int chunk, void* o_part, void* ml_part, cudaStream_t st) {
-  constexpr int bytes = decode_smem_bytes();
+                  const void* ks, const void* vs, const void* table, int P,
+                  long long row_offset, const void* seq_len, const void* qpos, int qpos_stride,
+                  int min_one, int max_keys, void* out, int B, int T, int H, int KV, int ps,
+                  float scale, int p_bf16, int splits, int chunk, void* o_part, void* ml_part,
+                  cudaStream_t st) {
+  constexpr int bytes = decode_smem_bytes<I8>();
   static bool attr_set = false;  // the opt-in above 48 KB, once per process
   if (!attr_set) {
-    cudaFuncSetAttribute(decode_attention<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(decode_attention<MT, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          bytes);
     attr_set = true;
   }
-  decode_attention<MT><<<dim3(B, KV, splits), NTH, bytes, st>>>(
-      static_cast<const bf16*>(q), q_bstride, static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const long long*>(table), P, row_offset,
+  decode_attention<MT, I8><<<dim3(B, KV, splits), NTH, bytes, st>>>(
+      static_cast<const bf16*>(q), q_bstride, static_cast<const unsigned char*>(k),
+      static_cast<const unsigned char*>(v), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const long long*>(table), P, row_offset,
       static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos),
       qpos_stride, min_one, max_keys, static_cast<bf16*>(out), T, H, KV, ps,
       scale * LOG2E, p_bf16, chunk, static_cast<float*>(o_part),
@@ -1278,6 +1410,39 @@ flash_paged_merge(const float* __restrict__ o_part, const float* __restrict__ ml
   }
 }
 
+// K2's int8 paged mode, its first launch: grid (B*P, pieces / WIDEN_TH).
+// Block (b*P + p, y) widens 16-byte pieces y*WIDEN_TH .. of page p of row b
+// (pool page table[b*P + p]: ps slots of KV rows of 128 int8, one float32
+// scale a row), one of K and one of V a thread, into bf16 page b*P + p of
+// kw / vw with dequant16 (the plain path's values bit for bit), where the
+// page holds a key below the row's seq_len: the paged mode after it reads
+// no other page. Block (b*P + p, 0) writes b*P + p into wtable, the table
+// the bf16 paged mode then runs over kw / vw with.
+constexpr int WIDEN_TH = 256;
+__global__ void __launch_bounds__(WIDEN_TH)
+widen_kv_pages(const unsigned char* __restrict__ k, const unsigned char* __restrict__ v,
+               const float* __restrict__ ksc, const float* __restrict__ vsc,
+               const long long* __restrict__ table, const long long* __restrict__ seq_len,
+               int P, int ps, int KV, bf16* __restrict__ kw, bf16* __restrict__ vw,
+               long long* __restrict__ wtable) {
+  const int bp = blockIdx.x, b = bp / P, p = bp - b * P;
+  if (blockIdx.y == 0 && threadIdx.x == 0) wtable[bp] = bp;
+  const long long rows = (long long)ps * KV;   // (slot, kv head) rows of a page
+  const int i = blockIdx.y * WIDEN_TH + threadIdx.x;   // the thread's 16-byte piece
+  if ((long long)p * ps >= seq_len[b] || i >= rows * (HD / 16)) return;
+  const long long src = table[bp] * rows, dst = (long long)bp * rows * HD / 8 + 2 * i;
+  const float ks = ksc[src + i / (HD / 16)], vs = vsc[src + i / (HD / 16)];
+  const uint4 kx = reinterpret_cast<const uint4*>(k + src * HD)[i];
+  const uint4 vx = reinterpret_cast<const uint4*>(v + src * HD)[i];
+  uint4 lo, hi;
+  dequant16(kx, ks, lo, hi);
+  reinterpret_cast<uint4*>(kw)[dst] = lo;
+  reinterpret_cast<uint4*>(kw)[dst + 1] = hi;
+  dequant16(vx, vs, lo, hi);
+  reinterpret_cast<uint4*>(vw)[dst] = lo;
+  reinterpret_cast<uint4*>(vw)[dst + 1] = hi;
+}
+
 // ------------------------------------------------------------------- K3
 
 constexpr int LDK = 576;            // latent row: kv_lora_rank 512 + rope 64
@@ -1673,9 +1838,46 @@ int launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap
   return (int)cudaGetLastError();
 }
 
+// blocks of `kernel` an SM holds (occupancy query)
+template <typename Kernel>
+void occupancy(int* out, Kernel kernel, int threads, int bytes) {
+  // the opt-in above 48 KB first: without it a block of this size fits nowhere
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, bytes);
+}
+
 }  // namespace
 
 extern "C" {
+
+// K1's int8 mode: k, v [R,ps,KV,128] int8 with ks, vs [R,ps,KV] float32, one
+// scale a (slot, kv head); the rest as dstts_decode_attention. ks == null:
+// bf16 pools (dstts_decode_attention).
+int dstts_decode_attention_i8(const void* q, long long q_bstride, const void* k,
+                              const void* v, const void* ks, const void* vs, const void* table,
+                              int P, long long row_offset, const void* seq_len,
+                              const void* qpos, int qpos_stride, int min_one, int max_keys,
+                              void* out, int B, int T, int H, int KV, int ps, float scale,
+                              int p_bf16, int splits, int chunk, void* o_part, void* ml_part,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = T * (H / KV);
+  // m-tiles of 16 rows: the smallest instance that covers the block's R rows
+  using Launch = int (*)(const void*, long long, const void*, const void*, const void*,
+                         const void*, const void*, int, long long, const void*, const void*,
+                         int, int, int, void*, int, int, int, int, int, float, int, int, int,
+                         void*, void*, cudaStream_t);
+  if (R > DROWS || splits < 1 || chunk % DBK || (ks == nullptr) != (vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Launch launch =
+      ks ? (R <= 16 ? &launch_decode<1, true> : R <= 32 ? &launch_decode<2, true>
+                                                        : &launch_decode<4, true>)
+         : (R <= 16 ? &launch_decode<1, false> : R <= 32 ? &launch_decode<2, false>
+                                                         : &launch_decode<4, false>);
+  return launch(q, q_bstride, k, v, ks, vs, table, P, row_offset, seq_len, qpos, qpos_stride,
+                min_one, max_keys, out, B, T, H, KV, ps, scale, p_bf16, splits, chunk,
+                o_part, ml_part, st);
+}
 
 // K1 (B1 / B6). q [B,T,H,128] bf16 with batch stride q_bstride (elements;
 // the other dimensions contiguous); out [B,T,H,128] bf16; k, v [R,ps,KV,128]
@@ -1691,19 +1893,10 @@ int dstts_decode_attention(const void* q, long long q_bstride, const void* k,
                            int min_one, int max_keys, void* out, int B, int T, int H,
                            int KV, int ps, float scale, int p_bf16, int splits, int chunk,
                            void* o_part, void* ml_part, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int R = T * (H / KV);
-  // m-tiles of 16 rows: the smallest instance that covers the block's R rows
-  using Launch = int (*)(const void*, long long, const void*, const void*, const void*,
-                         int, long long, const void*, const void*, int, int, int, void*,
-                         int, int, int, int, int, float, int, int, int, void*, void*,
-                         cudaStream_t);
-  if (R > DROWS || splits < 1 || chunk % DBK) return (int)cudaErrorInvalidValue;
-  const Launch launch =
-      R <= 16 ? &launch_decode<1> : R <= 32 ? &launch_decode<2> : &launch_decode<4>;
-  return launch(q, q_bstride, k, v, table, P, row_offset, seq_len, qpos, qpos_stride,
-                min_one, max_keys, out, B, T, H, KV, ps, scale, p_bf16, splits, chunk,
-                o_part, ml_part, st);
+  return dstts_decode_attention_i8(q, q_bstride, k, v, nullptr, nullptr, table, P, row_offset,
+                                   seq_len, qpos, qpos_stride, min_one, max_keys, out, B, T, H,
+                                   KV, ps, scale, p_bf16, splits, chunk, o_part, ml_part,
+                                   stream);
 }
 
 // K3 (B1's shared variant and B6 at MLA's latent width). q [B,H,576] bf16
@@ -1821,6 +2014,25 @@ int dstts_flash_attention_paged(const void* q, const void* k, const void* v, con
                             static_cast<cudaStream_t>(stream));
 }
 
+// K2's int8 paged mode, the widening (widen_kv_pages): k, v [R,ps,KV,128]
+// int8 with ksc, vsc [R,ps,KV] float32; table [B,P] int64 (pool pages);
+// seq_len [B] int64; kw, vw [B*P,ps,KV,128] bf16 scratch; wtable [B,P]
+// int64. dstts_flash_attention_paged over kw, vw and wtable follows.
+int dstts_widen_kv_pages(const void* k, const void* v, const void* ksc, const void* vsc,
+                         const void* table, const void* seq_len, int B, int P, int ps, int KV,
+                         void* kw, void* vw, void* wtable, void* stream) {
+  const long long pieces = (long long)ps * KV * (HD / 16);   // a page's K (or V) in 16 B
+  const long long gy = (pieces + WIDEN_TH - 1) / WIDEN_TH;
+  if (B < 1 || P < 1 || ps < 1 || KV < 1 || (long long)B * P > INT32_MAX || gy > 65535)
+    return (int)cudaErrorInvalidValue;
+  widen_kv_pages<<<dim3(B * P, (unsigned)gy), WIDEN_TH, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(k), static_cast<const unsigned char*>(v),
+      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+      static_cast<const long long*>(table), static_cast<const long long*>(seq_len), P, ps, KV,
+      static_cast<bf16*>(kw), static_cast<bf16*>(vw), static_cast<long long*>(wtable));
+  return (int)cudaGetLastError();
+}
+
 // The merge of K2's paged mode: out's rows of the split units that the
 // plan in ws lists, from o_part / ml_part (dstts_flash_attention_paged's,
 // same shapes); a persistent grid of 4 * sms blocks.
@@ -1834,38 +2046,20 @@ int dstts_flash_paged_merge(const void* o_part, const void* ml_part, void* ws, v
 }
 
 // Blocks an SM can hold, as the runtime computes them from each kernel's
-// registers, threads and shared memory: out[0..6] = K1 (1, 2 and 4 m-tiles),
-// K2, K3 (bf16 p, float32 p), K2's paged mode.
+// registers, threads and shared memory: out[0..9] = K1 (1, 2 and 4
+// m-tiles), K2, K3 (bf16 p, float32 p), K2's paged mode, K1's int8 mode (1,
+// 2 and 4 m-tiles).
 int dstts_attention_occupancy(int* out) {
-  // the opt-in above 48 KB first: without it a block of this size fits nowhere
-  cudaFuncSetAttribute(decode_attention<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       decode_smem_bytes());
-  cudaFuncSetAttribute(decode_attention<2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       decode_smem_bytes());
-  cudaFuncSetAttribute(decode_attention<4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       decode_smem_bytes());
-  cudaFuncSetAttribute(flash_attention<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       flash_smem_bytes());
-  cudaFuncSetAttribute(flash_attention<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       flash_smem_bytes());
-  cudaFuncSetAttribute(latent_attention<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       latent_smem_bytes());
-  cudaFuncSetAttribute(latent_attention<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       latent_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], decode_attention<1>, NTH,
-                                                decode_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], decode_attention<2>, NTH,
-                                                decode_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], decode_attention<4>, NTH,
-                                                decode_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], flash_attention<false>, FTH,
-                                                flash_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[4], latent_attention<false>, LTH,
-                                                latent_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], latent_attention<true>, LTH,
-                                                latent_smem_bytes());
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[6], flash_attention<true>, FTH,
-                                                flash_smem_bytes());
+  occupancy(&out[0], decode_attention<1, false>, NTH, decode_smem_bytes<false>());
+  occupancy(&out[1], decode_attention<2, false>, NTH, decode_smem_bytes<false>());
+  occupancy(&out[2], decode_attention<4, false>, NTH, decode_smem_bytes<false>());
+  occupancy(&out[3], flash_attention<false>, FTH, flash_smem_bytes());
+  occupancy(&out[4], latent_attention<false>, LTH, latent_smem_bytes());
+  occupancy(&out[5], latent_attention<true>, LTH, latent_smem_bytes());
+  occupancy(&out[6], flash_attention<true>, FTH, flash_smem_bytes());
+  occupancy(&out[7], decode_attention<1, true>, NTH, decode_smem_bytes<true>());
+  occupancy(&out[8], decode_attention<2, true>, NTH, decode_smem_bytes<true>());
+  occupancy(&out[9], decode_attention<4, true>, NTH, decode_smem_bytes<true>());
   return (int)cudaGetLastError();
 }
 

@@ -41,12 +41,22 @@ is its model on the host); where few units would leave the card idle the
 longest are cut into pieces whose float32 partials a merge kernel combines
 (:func:`paged_merge`). ``flash_attention_paged.launches`` and
 ``paged_merge.launches`` count the launches.
+
+Over int8 pages (``Engine(kv_quantize="int8")``) the paged mode takes the
+pools' float32 scales (``k_scales`` / ``v_scales``, [N,ps,K]) and reads each
+key and value as JAX's int8 branch of ``paged_attention`` dequantizes it
+(``ops/attention.py:122-139``: ``(int8.float() * scale).to(q.dtype)``).
+On the card this int8 paged mode is :func:`widen_kv_pages`, which widens
+the pages of each row's keys into bf16 scratch pages, bit for bit the plain
+path's values, then the bf16 paged mode over them; its plain version
+gathers, dequantizes and attends as above.
+``flash_attention_paged.i8_launches`` counts the widening launches.
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import NEG_INF, _query_blocks, gather_kv_rows
+from .attention import NEG_INF, _query_blocks, dequant_context, gather_kv_rows
 
 HEAD_DIM = 128
 TILE_ROWS = 128     # folded query rows t·G + g of one K2 item (csrc: FBM)
@@ -144,17 +154,24 @@ def paged_key_limits(seq_lens, q_positions, S: int, group: int = 1):
 
 
 def flash_attention_paged_plain(q, k_pages, v_pages, page_table, seq_lens, q_positions, *,
-                                scale: float | None = None):
+                                scale: float | None = None, k_scales=None, v_scales=None):
     """Reference for K2's paged mode: q [B,T,H,D] over the pages [N,ps,K,D]
     of the ``[B,P]`` table (layer offset applied) after the chunk's write,
     each query's keys ``< paged_key_limits(...)``; JAX's round points
-    (``prefix_chunk_attention``) in query blocks."""
+    (``prefix_chunk_attention``) in query blocks. With ``k_scales`` /
+    ``v_scales`` the int8 pages dequantized in q's dtype first (the int8
+    branch of JAX's ``paged_attention``, whose ``masked_context_attention``
+    has the same round points)."""
     B, T, H, D = q.shape
     _, ps, K, _ = k_pages.shape
     S = page_table.shape[1] * ps
     scale = scale if scale is not None else D ** -0.5
-    k = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D)
-    v = gather_kv_rows(v_pages, page_table).reshape(B, S, K, D)
+    if k_scales is not None:
+        k = dequant_context(k_pages, k_scales, page_table, q.dtype)
+        v = dequant_context(v_pages, v_scales, page_table, q.dtype)
+    else:
+        k = gather_kv_rows(k_pages, page_table).reshape(B, S, K, D)
+        v = gather_kv_rows(v_pages, page_table).reshape(B, S, K, D)
     lim = paged_key_limits(seq_lens, q_positions, S, H // K)          # [B,T]
     key = torch.arange(S, device=q.device)
 
@@ -263,7 +280,8 @@ def paged_plan(seq_lens, q_positions, S: int, G: int, KV: int, sms: int, split: 
             "zero_units": [(u // nqb, u % nqb) for u, ul in enumerate(ulim) if ul == 0]}
 
 
-def _paged_args(q, k_pages, v_pages, page_table, seq_lens, q_positions):
+def _paged_args(q, k_pages, v_pages, page_table, seq_lens, q_positions, k_scales=None,
+                v_scales=None):
     """Checks the paged mode's inputs; returns them as the kernel takes them."""
     from .fused_layer import _check, refuse_grad
     from .paged_attention import _check_index
@@ -280,8 +298,14 @@ def _paged_args(q, k_pages, v_pages, page_table, seq_lens, q_positions):
                          f"page a row (got ps={ps}, {page_table.shape[1]} pages)")
     q = q.contiguous()
     _check("q", q, (B, T, H, D))
-    _check("k_pages", k_pages, (R, ps, K, D))
-    _check("v_pages", v_pages, (R, ps, K, D))
+    pool_dtype = torch.bfloat16 if k_scales is None else torch.int8
+    _check("k_pages", k_pages, (R, ps, K, D), pool_dtype)
+    _check("v_pages", v_pages, (R, ps, K, D), pool_dtype)
+    if k_scales is not None:
+        _check("k_scales", k_scales, (R, ps, K), torch.float32)
+        _check("v_scales", v_scales, (R, ps, K), torch.float32)
+        if k_scales.device != dev or v_scales.device != dev:
+            raise ValueError("paged flash attention: q and the scales must share a device")
     if k_pages.device != dev or v_pages.device != dev:
         raise ValueError("paged flash attention: q and the pools must share a device")
     page_table, q_positions = page_table.long().contiguous(), q_positions.long().contiguous()
@@ -322,7 +346,7 @@ def paged_plan_cuda(seq_lens, q_positions, S: int, G: int, KV: int, split: bool)
 
 
 def flash_attention_paged(q, k_pages, v_pages, page_table, seq_lens, q_positions, *,
-                          scale: float | None = None):
+                          scale: float | None = None, k_scales=None, v_scales=None):
     """K2's paged mode: [B,T,H,D] queries of one prefill chunk over their
     rows' pages [N,ps,K,D] (``page_table`` [B,P], layer offset applied;
     the chunk's K/V already written), per-query key limits as
@@ -330,15 +354,20 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, seq_lens, q_positions
     head_dim 128, ``G <= 128``, and with more than one page a row ps a
     multiple of 8 (:func:`paged_pages_ok`). Three launches where
     :func:`paged_splits_allowed` (the plan, the attention kernel,
-    :func:`paged_merge`), else two; nothing is read back to the host."""
+    :func:`paged_merge`), else two; nothing is read back to the host. With
+    ``k_scales`` / ``v_scales`` ([N,ps,K] float32) over int8 pools: the
+    int8 paged mode, :func:`widen_kv_pages` first (one launch more), then
+    the same launches over its bf16 scratch pages."""
     if q.device.type == "cpu":
         return flash_attention_paged_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                           q_positions, scale=scale)
+                                           q_positions, scale=scale, k_scales=k_scales,
+                                           v_scales=v_scales)
     from .fused_layer import _raise_if
     from .paged_attention import _lib, _sm_count
 
     q, page_table, seq_lens, q_positions = _paged_args(q, k_pages, v_pages, page_table,
-                                                       seq_lens, q_positions)
+                                                       seq_lens, q_positions, k_scales,
+                                                       v_scales)
     B, T, H, D = q.shape
     R, ps, K, _ = k_pages.shape
     dev, P = q.device, page_table.shape[1]
@@ -353,19 +382,65 @@ def flash_attention_paged(q, k_pages, v_pages, page_table, seq_lens, q_positions
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = (None if o_part is None else o_part.data_ptr(),
+             None if ml_part is None else ml_part.data_ptr())
+    if k_scales is not None:
+        # int8 pages: the rows' pages widened into bf16 scratch pages b·P + p
+        k_pages, v_pages, page_table = widen_kv_pages(k_pages, v_pages, k_scales, v_scales,
+                                                      page_table, seq_lens)
+        R = B * P
     err = _lib().dstts_flash_attention_paged(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(), P,
         seq_lens.data_ptr(), q_positions.data_ptr(), out.data_ptr(), B, T, H, K, R, ps,
-        float(scale), ws.data_ptr(), None if o_part is None else o_part.data_ptr(),
-        None if ml_part is None else ml_part.data_ptr(), sms, int(split), stream)
+        float(scale), ws.data_ptr(), *parts, sms, int(split), stream)
     _raise_if(err, "flash_attention_paged")
     flash_attention_paged.launches += 1
+    flash_attention_paged.i8_launches += k_scales is not None
     if split:
         paged_merge(o_part, ml_part, ws, out, K, sms)
     return out
 
 
-flash_attention_paged.launches = 0
+flash_attention_paged.launches = flash_attention_paged.i8_launches = 0
+def widen_kv_pages_plain(k_pages, v_pages, k_scales, v_scales, page_table, seq_lens):
+    """Reference for :func:`widen_kv_pages`: every page of the table
+    dequantized to bf16 as the plain path does (the kernel writes only the
+    pages that hold a key below ``seq_lens``; the paged mode reads no
+    other), as pages ``b·P + p``, and their table."""
+    B, P = page_table.shape
+    _, ps, K, D = k_pages.shape
+    kw, vw = (dequant_context(pages, sc, page_table, torch.bfloat16).reshape(B * P, ps, K, D)
+              for pages, sc in ((k_pages, k_scales), (v_pages, v_scales)))
+    return kw, vw, torch.arange(B * P, device=k_pages.device).view(B, P)
+
+
+def widen_kv_pages(k_pages, v_pages, k_scales, v_scales, page_table, seq_lens):
+    """``widen_kv_pages``, the first launch of K2's int8 paged mode: the
+    int8 pages [N,ps,K,D] that hold each row's keys below ``seq_lens``,
+    dequantized as the plain path does (``(int8.float() * scale)`` rounded
+    to bf16), into bf16 scratch pages ``b·P + p`` ([B·P,ps,K,D] for K and
+    for V), and the table of them ([B,P] int64). Pages past a row's keys
+    are left unwritten: the paged mode reads none of them. The scratch is
+    allocated on each call (in a captured prefill, once, in the graph's
+    pool). On the CPU: :func:`widen_kv_pages_plain`."""
+    if k_pages.device.type == "cpu":
+        return widen_kv_pages_plain(k_pages, v_pages, k_scales, v_scales, page_table, seq_lens)
+    from .fused_layer import _raise_if
+    from .paged_attention import _lib
+
+    B, P = page_table.shape
+    _, ps, K, D = k_pages.shape
+    dev = k_pages.device
+    kw = torch.empty((B * P, ps, K, D), dtype=torch.bfloat16, device=dev)
+    vw = torch.empty_like(kw)
+    wt = torch.empty((B, P), dtype=torch.long, device=dev)
+    err = _lib().dstts_widen_kv_pages(
+        k_pages.data_ptr(), v_pages.data_ptr(), k_scales.contiguous().data_ptr(),
+        v_scales.contiguous().data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(), B, P, ps,
+        K, kw.data_ptr(), vw.data_ptr(), wt.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "widen_kv_pages")
+    return kw, vw, wt
 
 
 def paged_merge(o_part, ml_part, ws, out, KV: int, sms: int) -> None:

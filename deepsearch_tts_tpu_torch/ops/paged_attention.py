@@ -23,6 +23,17 @@ scores and softmax, and p kept in float32 for the value product
 (``paged_attention.py:106``). Each wrapper counts its kernel launches in
 its ``launches`` attribute.
 
+int8 KV (``Engine(kv_quantize="int8")``): each entry takes the int8 pools'
+float32 scales (``k_scales`` / ``v_scales``, [N,ps,K]) and then computes
+the int8 branch of JAX's ``paged_attention`` (``ops/attention.py:122-139``:
+XLA code there, no Pallas kernel reads int8 pages): each key and value
+dequantized as ``(int8.float() * scale).to(q.dtype)``, the masked softmax
+in float32, p in the value dtype. On the card that is K1's int8 mode, which
+reads the int8 rows and their scales and dequantizes them bit for bit as
+the plain path does; its plain version (:func:`paged_int8_plain`) gathers,
+dequantizes and attends. ``launches`` counts every K1 launch of an entry,
+``i8_launches`` those of the int8 mode.
+
 MLA (``models/deepseek_v3.py``) calls the entries with the latent pool as
 both k and v (``v_pages is k_pages``) at D = 576 and keeps the first
 ``v_width`` = 512 columns. K1 is written for D = 128 and 64 query rows a
@@ -39,7 +50,7 @@ import functools
 
 import torch
 
-from .attention import NEG_INF, gather_kv_rows
+from .attention import NEG_INF, dequant_context, gather_kv_rows, masked_context_attention
 
 HEAD_DIM = 128        # head width the kernels are written for
 MAX_QUERY_ROWS = 64   # T·H/K query rows one K1 block holds
@@ -79,29 +90,59 @@ def _paged_plain(q, k_pages, v_pages, page_table, seq_lens, qpos0, scale, v_widt
     return out.reshape(B, T, H, -1).to(q.dtype)
 
 
+def paged_int8_plain(q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens,
+                     q_positions, *, scale=None):
+    """Plain version of K1's int8 mode: the int8 branch of JAX's
+    ``paged_attention`` (``ops/attention.py:122-139``), the table's int8
+    pages dequantized in q's dtype, query t of row b over keys ``<
+    min(seq_len, q_positions[b, t] + 1)`` (``masked_context_attention``:
+    float32 scores and softmax, p in the value dtype). A query that sees no
+    key is 0, as in the kernel (JAX averages the row's values there, a row
+    no decode step reads)."""
+    k = dequant_context(k_pages, k_scales, page_table, q.dtype)
+    v = dequant_context(v_pages, v_scales, page_table, q.dtype)
+    out = masked_context_attention(q, k, v, seq_lens, q_positions, scale=scale)
+    seen = torch.minimum(seq_lens.long()[:, None], q_positions.long() + 1) > 0   # [B,T]
+    return torch.where(seen[:, :, None, None], out, torch.zeros_like(out))
+
+
+def _i8_positions(q, qpos0):
+    """[B, T] positions of a chunk that starts at ``qpos0``."""
+    return qpos0.long()[:, None] + torch.arange(q.shape[1], device=q.device)
+
+
 def pallas_paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                 q_positions, *, scale=None, v_width=None):
-    """Reference for :func:`pallas_paged_attention` (``_paged_kernel``)."""
+                                 q_positions, *, scale=None, v_width=None, k_scales=None,
+                                 v_scales=None):
+    """Reference for :func:`pallas_paged_attention` (``_paged_kernel``;
+    with the scales pools :func:`paged_int8_plain`)."""
+    if k_scales is not None:
+        return paged_int8_plain(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                                seq_lens, _i8_positions(q, q_positions[:, 0]), scale=scale)
     return _paged_plain(q, k_pages, v_pages, page_table, seq_lens,
                         q_positions[:, 0], scale, v_width)
 
 
 def pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens, *,
-                              scale=None, v_width=None):
+                              scale=None, v_width=None, k_scales=None, v_scales=None):
     """Reference for :func:`pallas_paged_decode` (``_paged_decode_kernel``):
-    T=1, keys ``< seq_len``."""
+    T=1, keys ``< seq_len`` (with the scales pools :func:`paged_int8_plain`)."""
     if q.shape[1] != 1:
         raise ValueError(f"the paged decode entries take T=1, got T={q.shape[1]}")
+    if k_scales is not None:
+        return paged_int8_plain(q, k_pages, v_pages, k_scales, v_scales, page_table,
+                                seq_lens, _i8_positions(q, seq_lens - 1), scale=scale)
     return _paged_plain(q, k_pages, v_pages, page_table, seq_lens,
                         seq_lens.long() - 1, scale, v_width)
 
 
 def pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table, seq_lens, *,
-                                    scale=None, v_width=None):
+                                    scale=None, v_width=None, k_scales=None, v_scales=None):
     """Reference for :func:`pallas_paged_decode_clamp`
     (``_clamped_decode_kernel``): the same math as the decode kernel."""
     return pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                     scale=scale, v_width=v_width)
+                                     scale=scale, v_width=v_width, k_scales=k_scales,
+                                     v_scales=v_scales)
 
 
 # ----------------------------------------------------- K1's split of the context
@@ -162,11 +203,16 @@ def _lib():
         lib.dstts_decode_attention.argtypes = [p, ll, p, p, p, i, ll, p, p, i, i, i,
                                                p, i, i, i, i, i, f, i, i, i, p, p, p]
         lib.dstts_decode_attention.restype = i
+        lib.dstts_decode_attention_i8.argtypes = [p, ll, p, p, p, p, p, i, ll, p, p, i, i, i,
+                                                  p, i, i, i, i, i, f, i, i, i, p, p, p]
+        lib.dstts_decode_attention_i8.restype = i
         lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p, i, p]
         lib.dstts_flash_attention.restype = i
         lib.dstts_flash_attention_paged.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, ll, i,
                                                     f, p, p, p, i, i, p]
         lib.dstts_flash_attention_paged.restype = i
+        lib.dstts_widen_kv_pages.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p, p, p]
+        lib.dstts_widen_kv_pages.restype = i
         lib.dstts_flash_paged_plan.argtypes = [p, p, i, i, i, i, i, i, i, p, p]
         lib.dstts_flash_paged_plan.restype = i
         lib.dstts_flash_paged_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
@@ -186,10 +232,11 @@ def attention_occupancy() -> dict:
     ``-Xptxas -v`` report gives the registers)."""
     from .fused_layer import _raise_if
 
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 10)()
     _raise_if(_lib().dstts_attention_occupancy(out), "attention_occupancy")
     names = ("K1 (1 m-tile)", "K1 (2 m-tiles)", "K1 (4 m-tiles)", "K2", "K3 (bf16 p)",
-             "K3 (float32 p)", "K2 paged")
+             "K3 (float32 p)", "K2 paged", "K1 int8 (1 m-tile)", "K1 int8 (2 m-tiles)",
+             "K1 int8 (4 m-tiles)")
     return dict(zip(names, out))
 
 
@@ -203,14 +250,17 @@ def _check_index(name: str, t: torch.Tensor, shape: tuple, dev) -> None:
 
 def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
                           row_offset: int = 0, q_positions=None, min_one=False,
-                          max_keys: int | None = None, scale=None, p_bf16=False):
+                          max_keys: int | None = None, scale=None, p_bf16=False,
+                          k_scales=None, v_scales=None):
     """Launch K1. q [B,T,H,128] bf16 (any batch stride, the rest
     contiguous); pools [R,ps,K,128] bf16 (``v_pool`` may be ``k_pool``);
     ``page_table`` [B,P] int64 (None: the identity table, row
     ``row_offset + b``); seq_lens [B] int64; ``q_positions`` [B,T] int64
     (None: keys ``< seq_len`` at T=1). Query t of row b sees keys
     ``< min(seq_len (>= 1 if min_one), q_positions[b,0] + t + 1,
-    max_keys)``. Returns [B,T,H,128] bf16."""
+    max_keys)``. Returns [B,T,H,128] bf16. With ``k_scales`` / ``v_scales``
+    ([R,ps,K] float32) K1's int8 mode: the pools are int8 and each row is
+    dequantized with its scale as the plain path does."""
     from .fused_layer import _check, _raise_if, refuse_grad
 
     refuse_grad("decode_attention q", q)
@@ -224,8 +274,14 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
         raise ValueError(f"q: expected a CUDA bfloat16 tensor, got {q.dtype} on {dev}")
     if q.stride(3) != 1 or q.stride(2) != D or (T > 1 and q.stride(1) != H * D):
         raise ValueError(f"q: dimensions 1-3 must be contiguous, got strides {q.stride()}")
-    _check("k_pool", k_pool, (R, ps, K, D))
-    _check("v_pool", v_pool, (R, ps, K, D))
+    pool_dtype = torch.bfloat16 if k_scales is None else torch.int8
+    _check("k_pool", k_pool, (R, ps, K, D), pool_dtype)
+    _check("v_pool", v_pool, (R, ps, K, D), pool_dtype)
+    if k_scales is not None:
+        _check("k_scales", k_scales, (R, ps, K), torch.float32)
+        _check("v_scales", v_scales, (R, ps, K), torch.float32)
+        if k_scales.device != dev or v_scales.device != dev:
+            raise ValueError("decode attention: q and the scales must share a device")
     if v_pool.device != dev or k_pool.device != dev:
         raise ValueError("decode attention: q and the pools must share a device")
     _check_index("seq_lens", seq_lens, (B,), dev)
@@ -251,8 +307,14 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
         rows = B * K * splits * T * (H // K)
         o_part = torch.empty((rows, D), dtype=torch.float32, device=dev)
         ml_part = torch.empty((rows, 2), dtype=torch.float32, device=dev)
-    err = _lib().dstts_decode_attention(
-        q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
+    pools = (k_pool.data_ptr(), v_pool.data_ptr())
+    if k_scales is None:
+        launch = _lib().dstts_decode_attention
+    else:
+        launch = _lib().dstts_decode_attention_i8
+        pools += (k_scales.data_ptr(), v_scales.data_ptr())
+    err = launch(
+        q.data_ptr(), q.stride(0), *pools,
         None if page_table is None else page_table.data_ptr(), P, int(row_offset),
         seq_lens.data_ptr(), None if q_positions is None else q_positions.data_ptr(),
         qpos_stride, int(bool(min_one)), int(max_keys), out.data_ptr(), B, T, H, K,
@@ -366,61 +428,62 @@ paged_attention_latent.launches = 0
 
 # ------------------------------------------------------------------- wrappers
 
+def _k1_entry(entry, q, k_pages, v_pages, page_table, seq_lens, q_positions, scale,
+              v_width, k_scales, v_scales):
+    """A CUDA call of a B6 entry: K3 at the latent width, else K1 (its int8
+    mode with the scales pools, p in the value dtype as JAX's int8 branch
+    has it); counts the launch on ``entry``."""
+    if k_scales is None and _latent_kernel(q, k_pages, v_pages, v_width):
+        return paged_attention_latent(q, k_pages, page_table, seq_lens, q_positions,
+                                      scale=scale, v_width=v_width)
+    out = decode_attention_cuda(
+        q, k_pages, v_pages, seq_lens.long(), page_table=page_table.long().contiguous(),
+        q_positions=None if q_positions is None else q_positions.long(), scale=scale,
+        p_bf16=k_scales is not None, k_scales=k_scales, v_scales=v_scales)
+    entry.launches += 1
+    entry.i8_launches += k_scales is not None
+    return out[..., :v_width]
+
+
 def pallas_paged_attention(q, k_pages, v_pages, page_table, seq_lens, q_positions,
-                           *, scale=None, v_width=None):
+                           *, scale=None, v_width=None, k_scales=None, v_scales=None):
     """B6 ``pallas_paged_attention``: q [B,T,H,D] over pages [N,ps,K,D] of
     the ``[B,P]`` table (layer offset applied), query t at position
     ``q_positions[b,0] + t``, keys ``< seq_lens[b]``. Returns [B,T,H,D]
     (``v_width``: the first ``v_width`` columns). With ``v_pages is
-    k_pages`` at the latent width, :func:`paged_attention_latent` (K3)."""
+    k_pages`` at the latent width, :func:`paged_attention_latent` (K3);
+    with ``k_scales`` / ``v_scales`` over int8 pages, K1's int8 mode."""
     if q.device.type == "cpu":
         return pallas_paged_attention_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                            q_positions, scale=scale, v_width=v_width)
-    if _latent_kernel(q, k_pages, v_pages, v_width):
-        return paged_attention_latent(q, k_pages, page_table, seq_lens, q_positions,
-                                      scale=scale, v_width=v_width)
-    out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
-                                page_table=page_table.long().contiguous(),
-                                q_positions=q_positions.long(), scale=scale)
-    pallas_paged_attention.launches += 1
-    return out[..., :v_width]
-
-
-pallas_paged_attention.launches = 0
+                                            q_positions, scale=scale, v_width=v_width,
+                                            k_scales=k_scales, v_scales=v_scales)
+    return _k1_entry(pallas_paged_attention, q, k_pages, v_pages, page_table, seq_lens,
+                     q_positions, scale, v_width, k_scales, v_scales)
 
 
 def pallas_paged_decode(q, k_pages, v_pages, page_table, seq_lens, *, scale=None,
-                        v_width=None):
+                        v_width=None, k_scales=None, v_scales=None):
     """B6 ``pallas_paged_decode``: T=1, keys ``< seq_lens[b]``."""
     if q.device.type == "cpu":
         return pallas_paged_decode_plain(q, k_pages, v_pages, page_table, seq_lens,
-                                         scale=scale, v_width=v_width)
-    if _latent_kernel(q, k_pages, v_pages, v_width):
-        return paged_attention_latent(q, k_pages, page_table, seq_lens, scale=scale,
-                                      v_width=v_width)
-    out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
-                                page_table=page_table.long().contiguous(), scale=scale)
-    pallas_paged_decode.launches += 1
-    return out[..., :v_width]
-
-
-pallas_paged_decode.launches = 0
+                                         scale=scale, v_width=v_width, k_scales=k_scales,
+                                         v_scales=v_scales)
+    return _k1_entry(pallas_paged_decode, q, k_pages, v_pages, page_table, seq_lens, None,
+                     scale, v_width, k_scales, v_scales)
 
 
 def pallas_paged_decode_clamp(q, k_pages, v_pages, page_table, seq_lens, *,
-                              scale=None, v_width=None):
+                              scale=None, v_width=None, k_scales=None, v_scales=None):
     """B6 ``pallas_paged_decode_clamp``: T=1, keys ``< seq_lens[b]``; every
     K1 (K3) block reads exactly its row's used pages, the TPU kernel's clamp."""
     if q.device.type == "cpu":
         return pallas_paged_decode_clamp_plain(q, k_pages, v_pages, page_table,
-                                               seq_lens, scale=scale, v_width=v_width)
-    if _latent_kernel(q, k_pages, v_pages, v_width):
-        return paged_attention_latent(q, k_pages, page_table, seq_lens, scale=scale,
-                                      v_width=v_width)
-    out = decode_attention_cuda(q, k_pages, v_pages, seq_lens.long(),
-                                page_table=page_table.long().contiguous(), scale=scale)
-    pallas_paged_decode_clamp.launches += 1
-    return out[..., :v_width]
+                                               seq_lens, scale=scale, v_width=v_width,
+                                               k_scales=k_scales, v_scales=v_scales)
+    return _k1_entry(pallas_paged_decode_clamp, q, k_pages, v_pages, page_table, seq_lens,
+                     None, scale, v_width, k_scales, v_scales)
 
 
-pallas_paged_decode_clamp.launches = 0
+pallas_paged_attention.launches = pallas_paged_attention.i8_launches = 0
+pallas_paged_decode.launches = pallas_paged_decode.i8_launches = 0
+pallas_paged_decode_clamp.launches = pallas_paged_decode_clamp.i8_launches = 0

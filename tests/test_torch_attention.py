@@ -261,12 +261,29 @@ def test_attn_impl_resolves_like_jax(cache_mode, device, want):
 @pytest.mark.parametrize("kv_quantize", ["int8", "int8-force"])
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 def test_attn_impl_with_int8_kv_resolves_to_the_gather(device, kv_quantize):
-    """No kernel reads int8 pages: with ``kv_quantize`` ``None`` resolves to
-    the gather on either device, and an explicit kernel stays explicit
-    (``Engine`` refuses it)."""
+    """int8 KV resolves as bf16 pools do, now that K1 and K2 have int8
+    modes: ``None`` to the kernels on CUDA where they take the shapes and to
+    the gather on the CPU or where they do not; an explicit kernel stays
+    explicit. On the CPU an engine with ``kv_quantize`` builds int8 pools
+    and their scales with ``None`` (the gather) and with ``"pallas"`` (the
+    kernels' plain versions) alike."""
+    from deepsearch_tts_tpu_torch.engine.tokenizer import ByteTokenizer
+
     dev = torch.device(device)
-    assert tengine.resolve_attn_impl(None, "paged", dev, kv_quantize) == "xla"
-    assert tengine.resolve_attn_impl("pallas", "paged", dev, kv_quantize) == "pallas"
+    want = "pallas" if device == "cuda" else "xla"
+    assert tengine.resolve_attn_impl(None, "paged", dev) == want
+    assert tengine.resolve_attn_impl(None, "paged", dev, False) == "xla"
+    assert tengine.resolve_attn_impl("pallas", "paged", dev) == "pallas"
+    if device == "cpu":
+        for impl in (None, "pallas"):
+            eng = tengine.Engine("qwen3-test", ByteTokenizer(), device="cpu", max_slots=1,
+                                 kv_quantize=kv_quantize, attn_impl=impl)
+            try:
+                assert eng.attn_impl == (impl or "xla")
+                assert eng.k_pages.dtype == torch.int8
+                assert eng.k_scales.dtype == torch.float32
+            finally:
+                eng.shutdown()
 
 
 @pytest.mark.parametrize("model,cache_mode,page_size,max_seq_len,want", [
@@ -296,8 +313,8 @@ def test_attention_kernels_take_the_engine_shapes(model, cache_mode, page_size, 
     cfg = tregistry.get_model(model).config
     pages = -(-max_seq_len // page_size)
     assert tengine.attention_kernels_take(cfg, cache_mode, page_size, pages) is want
-    impl = tengine.resolve_attn_impl(None, cache_mode, torch.device("cuda"), None, want)
+    impl = tengine.resolve_attn_impl(None, cache_mode, torch.device("cuda"), want)
     assert impl == ("pallas" if want else "xla")
-    assert tengine.resolve_attn_impl(None, cache_mode, torch.device("cpu"), None, want) == "xla"
+    assert tengine.resolve_attn_impl(None, cache_mode, torch.device("cpu"), want) == "xla"
     f32 = dataclasses.replace(cfg, dtype="float32")
     assert not tengine.attention_kernels_take(f32, cache_mode, page_size, pages)

@@ -499,11 +499,11 @@ def test_paged_attention_int8_matches_jax(dtype, tol, T):
                                 _t(qpos).long(), k_scales=_t(ks), v_scales=_t(vs))
     assert got.dtype == _t(q).dtype and tuple(got.shape) == want.shape
     np.testing.assert_allclose(_f32(got), _f32(want), **tol)
-    if T == 1:     # no kernel reads int8 KV: the kernel switch refuses scales
-        with pytest.raises(ValueError, match="int8 KV"):
-            tattn.paged_attention(_t(q), _t(kq), _t(vq), _t(table).long(), _t(seq).long(),
-                                  _t(qpos).long(), impl="pallas", k_scales=_t(ks),
-                                  v_scales=_t(vs))
+    if T == 1:     # the kernel switch hands the scales to K1's int8 mode (its plain version)
+        got = tattn.paged_attention(_t(q), _t(kq), _t(vq), _t(table).long(), _t(seq).long(),
+                                    _t(qpos).long(), impl="pallas", k_scales=_t(ks),
+                                    v_scales=_t(vs))
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol)
 
 
 # ---------------------------------------------------------------- weights
@@ -661,11 +661,92 @@ def test_int8_fused_engine_greedy_streams_match_jax():
         te.shutdown()
 
 
+I8KV_KW = dict(vocab_size=256, hidden=128, n_layers=2, n_heads=4, n_kv_heads=2,
+               head_dim=128, intermediate=256, tie_embeddings=True, dtype="float32")
+
+
+def _by_hand(eng, first, later, n_first=16, n_later=6):
+    """``first`` decodes alone for one chunk, then the ``later`` prompts
+    arrive (a lane engine takes them whole on its decode steps): the
+    engine's scheduler driven by hand. Returns the results in order."""
+    from concurrent.futures import Future
+
+    def queue(prompts, n):
+        futs = []
+        for p in prompts:
+            fut = Future()
+            eng._queue.put((tengine.GenerationRequest(**_greedy(p, n)), fut))
+            futs.append(fut)
+        return futs
+
+    futs, chunks = queue([first], n_first), 0
+    while not all(f.done() for f in futs):
+        if chunks == 1:
+            futs += queue(later, n_later)
+        eng._admit()
+        if any(s.active for s in eng.slots) or eng._lane:
+            eng._decode_chunk()
+        chunks += 1
+        assert chunks < 200
+    return [f.result(timeout=0) for f in futs]
+
+
+def _int8_kv_kernel_streams(quantize):
+    """The port's int8-KV engine on its kernels' path (``attn_impl=
+    "pallas"``: K2's int8 paged mode for re-prefill, K1's int8 mode for
+    decode; their plain versions on the CPU) on a head_dim-128 config they
+    take (G = 2, 8-key pages), against JAX's int8-KV engine on the gather:
+    concurrent greedy requests, a prefix-cache follow-up, and prompts that
+    ride the port's prefill lane (its rows attend over their unquantized
+    k / v) against JAX's lane-less engine."""
+    name = f"qwen3-i8kv-kernels-{quantize}"
+    jcfg, tcfg = jqwen3.Qwen3Config(**I8KV_KW), tqwen3.Qwen3Config(**I8KV_KW)
+    jregistry.register(name, jcfg, jqwen3.init_params, jqwen3.forward,
+                       lambda: jqwen3.logical_axes(jcfg))
+    tregistry.register(name, tcfg, tqwen3.forward)
+    jp = jqwen3.init_params(jcfg, jax.random.PRNGKey(3))
+    tp = tweights.params_from_jax(jax.tree.map(np.asarray, jp))
+    kw = dict(max_slots=4, page_size=8, n_pages=64, max_seq_len=128, decode_chunk_len=4,
+              seed=0, quantize=quantize, layer_fusion=False)
+    tok = ByteTokenizer()
+    je = jengine.Engine(name, tok, params=jp, kv_quantize="int8-force", **kw)
+    te = tengine.Engine(name, tok, params=tp, device="cpu", kv_quantize="int8",
+                        attn_impl="pallas", **kw)
+    tl = tengine.Engine(name, tok, params=tp, device="cpu", kv_quantize="int8",
+                        attn_impl="pallas", prefill_lane=16, **kw)
+    try:
+        assert te.attn_impl == tl.attn_impl == "pallas" and te.k_pages.dtype == torch.int8
+        assert tengine.attention_kernels_take(dataclasses.replace(tcfg, dtype="bfloat16"),
+                                              "paged", 8, 16)
+        rng = np.random.default_rng(4)
+        first = list(rng.integers(0, 256, 21))
+        reqs = [_greedy(first, 8), _greedy(rng.integers(0, 256, 11), 8)]
+        jres, tres = _both((je, te), reqs)
+        for j, t in zip(jres, tres):
+            assert len(t.token_ids) >= 6 and t.token_ids == j.token_ids
+        follow = first + tres[0].token_ids + [5, 6, 7, 8, 9, 10, 11, 12, 13]
+        jres, tres = _both((je, te), [_greedy(follow, 8)])
+        assert tres[0].cached_prompt_tokens == jres[0].cached_prompt_tokens > 0
+        assert tres[0].token_ids == jres[0].token_ids
+        later = [list(range(30, 30 + n)) for n in (5, 9, 14)]
+        got = _by_hand(tl, list(range(1, 7)), later)
+        assert tl.stats["lane_tokens"] == 5 + 9 + 14
+        jfuts = [je.submit(jengine.GenerationRequest(**_greedy(list(range(1, 7)), 16)))]
+        jfuts += [je.submit(jengine.GenerationRequest(**_greedy(p, 6))) for p in later]
+        want = [f.result(timeout=600) for f in jfuts]
+        assert [r.token_ids for r in got] == [r.token_ids for r in want]
+    finally:
+        je.shutdown()
+        te.shutdown()
+        tl.shutdown()
+
+
 @pytest.mark.parametrize("quantize", [None, "int8"])
 def test_int8_kv_engine_greedy_streams_match_jax(quantize):
     """kv_quantize: int8 pools and scales in both engines, fused decode on,
     covering a prefix-cache re-prefill (which reads the int8 pages through
-    paged_attention, not prefix_chunk_attention)."""
+    paged_attention, not prefix_chunk_attention); then the port's engine
+    on the kernels' path (:func:`_int8_kv_kernel_streams`)."""
     je, te = _engine_pair(f"qwen3-i8kv-parity-{quantize}", *_f32_cfgs("qwen3-test"),
                           dict(kv_quantize="int8-force", layer_fusion=True, quantize=quantize),
                           dict(kv_quantize="int8", layer_fusion=True, quantize=quantize))
@@ -684,6 +765,7 @@ def test_int8_kv_engine_greedy_streams_match_jax(quantize):
     finally:
         je.shutdown()
         te.shutdown()
+    _int8_kv_kernel_streams(quantize)
 
 
 def test_engine_takes_a_quantized_tree_unchanged():
@@ -709,6 +791,19 @@ def test_engine_takes_a_quantized_tree_unchanged():
     ("qwen3-moe-test", dict(kv_quantize="int8"), ValueError, "int8 KV"),
 ])
 def test_int8_refusals(model, kw, exc, match):
+    """What the port refuses around int8. A kernel ``attn_impl`` with int8 KV
+    is no longer among it (JAX refuses it: its kernels read its int32-packed
+    pages as bf16; K1 and K2 have int8 modes over the port's unpacked
+    pools): the engine builds with it, int8 pools and their scales, and only
+    an unknown ``attn_impl`` is refused."""
+    if kw.get("attn_impl") and kw.get("kv_quantize"):
+        eng = tengine.Engine(model, ByteTokenizer(), device="cpu", max_slots=1, **kw)
+        try:
+            assert eng.attn_impl == kw["attn_impl"]
+            assert eng.k_pages.dtype == torch.int8 and eng.k_scales.dtype == torch.float32
+        finally:
+            eng.shutdown()
+        kw = dict(kw, attn_impl="flash")
     with pytest.raises(exc, match=match):
         tengine.Engine(model, ByteTokenizer(), device="cpu", max_slots=1, **kw)
     if exc is NotImplementedError:
