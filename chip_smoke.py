@@ -7,6 +7,7 @@
     python3 chip_smoke.py --train-only    # build + train, moe-train, lora
     python3 chip_smoke.py --parallel-only # build + the parallel phase
     python3 chip_smoke.py --programs-only # build + the programs phase
+    python3 chip_smoke.py --mla-only      # build + MLA kernels + MLA serve phases
 
 Phases, each raising on failure (non-zero exit, no final line):
 
@@ -279,7 +280,17 @@ Phases, each raising on failure (non-zero exit, no final line):
     table) and through the three B6 entries over a shuffled table of
     64-token pages, and at B = 1 over one full 4096-key row and B = 64,
     each beside SDPA, under the rms-scaled bound (a plain attention missing
-    a split of the B = 1 row must fail it); the grouped expert kernels at
+    a split of the B = 1 row must fail it); K3's prefill mode
+    (``latent_prefill``: MLA's prefills over the pool after the chunk's
+    write) at ``LATENT_PREFILLS``, 128 and 64 heads (the 3044-token prompt,
+    the 4096 bucket, 100 and 300 tokens after a 3000-token prefix, a
+    ragged 16 x 64 group with tail padding, 15 slot rows x 64 over
+    4096-key rows, 16 verify windows of 4 (split and merged), pages of 16
+    and of 32) under the same bound, each timed beside its plain version,
+    its bound and one SDPA call over the pre-gathered context (causal at B
+    = 1; the kernels SDPA ran are logged; a plain attention over the long
+    prompt's table with one page swapped must fail the bound); the grouped
+    expert kernels at
     E = 7168, F = 2048, 256 experts, top-8, gate and up unpacked: the decode
     kernel at 16 tokens, the prefill kernel at 3072 (also packed, beside
     ``torch._grouped_mm``);
@@ -290,16 +301,22 @@ Phases, each raising on failure (non-zero exit, no final line):
     script under its own name, served as phase 4 through ``build_engine``:
     B8 on the three dense MLPs and the two shared experts of every decode
     step, the grouped expert kernel on the routed experts, K3 through B6's
-    entry once a layer and decode step (its re-prefill stays plain); its serving
-    logits held to the no-cache forward with ``plain_experts``;
+    entry once a layer and decode step, its prefills (re-prefills over the
+    prefix cache) through K3's prefill mode once a layer and prefill; its
+    serving logits held to the no-cache forward with ``plain_experts``;
 22. MLA slot serve: phase 6 on the same weights, K3 through B1's entry
-    once per layer and decode step, K1 (B1 at D = 128) never;
-23. MLA paged ``attn_impl="pallas"``: ``warmup(prompt_lens=(64, 128))``
-    at every page width (programs and pool MiB logged), then a short run
-    whose decode takes K3 through ``pallas_paged_attention``, with no
-    post-warmup build; then slot and paged prefill + K3
-    decode against the no-cache forward; the weights are released and
-    less than 1 GiB may stay allocated.
+    once per layer and decode step, K1 (B1 at D = 128) never, its prefills
+    (the slot row as one page) through K3's prefill mode;
+23. MLA paged ``attn_impl="pallas"`` without prefix cache:
+    ``warmup(prompt_lens=(64, 128))`` (programs and pool MiB logged), its
+    narrowest and widest prefill programs replayed as phase 4's, then a
+    short run whose fresh prefills take K3's prefill mode and whose decode
+    takes K3 through ``pallas_paged_attention``, with no post-warmup build;
+    then slot and paged prefill + K3 decode against the no-cache forward;
+    the weights are released and less than 1 GiB may stay allocated. In
+    phases 21-23 every replayed prefill program launches K3's prefill mode
+    once a layer (its counter and the replay's trace), and
+    ``LatentAttention`` calls no plain attention function on the card.
 24. parallel (``phase_parallel``), on the card that now holds nothing
     else: two ranks, each a process (``parallel/launch.run_ranks``: a
     collective timeout, every rank killed on a failure or the deadline),
@@ -1318,6 +1335,30 @@ PAGED_PREFILLS = (
      CTX // 64, (H, KV), False),
     ("B=1 T=512: 300 new tokens after a 3000-token prefix", 1, 512, (3000,), (300,), 64,
      CTX // 64, (H, KV), False),
+)
+
+# K3's prefill mode in phase 20 (MLA's prefills: ``latent_prefill``), each
+# at deepseek-v3's 128 and kimi-k2's 64 query heads over one 576-column
+# latent head: (label, B, T, starts, valid, ps, P, slot); slot: rows B ..
+# 2B-1 of a 2B-row pool of CTX keys a row, no table (``row_offset``)
+LATENT_PREFILLS = (
+    ("B=1 T=3044 from 0 over 48 pages of 64", 1, 3044, (0,), (3044,), 64, 48, False),
+    ("B=1 T=4096 from 0 over 64 pages of 64 (the 4096 bucket)", 1, 4096, (0,), (4096,),
+     64, 64, False),
+    ("B=1 T=128: 100 new tokens after a 3000-token prefix", 1, 128, (3000,), (100,), 64,
+     CTX // 64, False),
+    ("B=1 T=512: 300 new tokens after a 3000-token prefix", 1, 512, (3000,), (300,), 64,
+     CTX // 64, False),
+    ("B=16 T=64 ragged starts, a padding row, tail padding", 16, 64,
+     (0, 5, 64, 100, 127, 128, 300, 511, 700, 1000, 1023, 1500, 2000, 2047, 3000, -1),
+     (64, 64, 60, 64, 33, 64, 64, 1, 64, 64, 64, 50, 64, 64, 64, 0), 64, 48, False),
+    ("B=15 T=64 slot rows of 4096 keys", 15, 64, tuple(range(0, 3000, 200)), (64,) * 15, CTX,
+     1, True),
+    ("B=16 T=4 verify windows over slot rows (split, merged)", 16, 4,
+     tuple(max(x - 4, -1) for x in LIMITS), tuple(4 if x > 4 else 0 for x in LIMITS), CTX, 1,
+     True),
+    ("B=2 T=200 ps=16", 2, 200, (37, 0), (200, 180), 16, 16, False),
+    ("B=2 T=300 ps=32", 2, 300, (100, 0), (300, 250), 32, 16, False),
 )
 
 
@@ -2418,6 +2459,120 @@ def _i8_prefill_skewed(res, gu, wd) -> None:
     del h, xs
 
 
+def _latent_prefill_inputs(gen, B, T, starts, valid, ps, P, H, slot):
+    """A latent pool of random rows (the chunk's rows already among them),
+    q [B, T, H, 576], each row's table of distinct random pages (page 0 in
+    none; slot: no table, rows B .. 2B-1 of a 2B-row pool), positions from
+    each start for its valid queries (-1 after), seq_lens."""
+    import torch
+
+    dev = torch.device("cuda")
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)  # noqa: E731
+    N = 2 * B if slot else 1 + B * P
+    pool, q = rnd(N, ps, 1, X_D), rnd(B, T, H, X_D)
+    table = None if slot else 1 + torch.randperm(N - 1, generator=gen, device=dev)[
+        : B * P].view(B, P)
+    pos = torch.full((B, T), -1, dtype=torch.int64, device=dev)
+    for b, (s0, n) in enumerate(zip(starts, valid)):
+        if s0 >= 0:
+            pos[b, :n] = s0 + torch.arange(n, device=dev)
+    seq = torch.tensor([s0 + n if s0 >= 0 else 0 for s0, n in zip(starts, valid)], device=dev)
+    return q, pool, table, seq, pos
+
+
+def _sdpa_kernels(fn) -> str:
+    """The device kernels one call of ``fn`` runs (torch.profiler), by
+    name: which backend SDPA took."""
+    own, other = _traced_kernels(fn)
+    return ", ".join(sorted(set(own) | set(other)))
+
+
+def _latent_page_fault(q, pool, table, seq, pos, page: int) -> None:
+    """The rms-scaled bound sees a wrong latent page: K3's prefill mode
+    passes it, the plain version over the same table with its ``page``-th
+    page swapped for page 0 (random rows, in no row's table) fails it."""
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+
+    kw = dict(scale=X_SCALE)
+    ref = pa.latent_prefill_plain(q, pool, seq, pos, page_table=table, **kw)
+    bad = table.clone()
+    bad[:, page] = 0
+    uses = {"kernel": _bound_use(pa.latent_prefill(q, pool, seq, pos, page_table=table, **kw),
+                                 ref, ATTN_RTOL, ATTN_ATOL, ATTN_RMS_FRAC),
+            f"page {page} swapped": _bound_use(
+                pa.latent_prefill_plain(q, pool, seq, pos, page_table=bad, **kw), ref,
+                ATTN_RTOL, ATTN_ATOL, ATTN_RMS_FRAC)}
+    log("[kernel] K3 prefill bound over the long prompt, bound use: " +
+        ", ".join(f"{k} {u:.3f}" for k, u in uses.items()))
+    assert uses["kernel"] <= 1.0 < uses[f"page {page} swapped"], uses
+
+
+def _check_latent_prefills(res: dict, other: dict, gen) -> None:
+    """K3's prefill mode (``latent_prefill``) against its plain version at
+    :data:`LATENT_PREFILLS`, at 128 and 64 heads, under the rms-scaled
+    attention bound (padding queries: zeros in both), each shape timed
+    beside its plain version, its bound (operations: 2·H·(576 + 512) a
+    visible (query, key) pair of a real query; bytes: q, out, and each
+    row's latent keys up to its largest limit once) and one SDPA call over
+    the pre-gathered context (the gather not timed): q as [B, H, T, 576]
+    over the latent rows broadcast to every head, causal (``is_causal`` from
+    position 0, ``causal_lower_right`` after a prefix) at B = 1, else with
+    each query's key mask; the kernels SDPA ran are logged once a shape.
+    The plain version over the long prompt's table with one page swapped
+    must fail the bound the kernel passes (:func:`_latent_page_fault`).
+    ``res["latent_prefill"]`` keeps the 3044-token prompt's numbers at 128
+    heads and the largest error of all shapes, ``other["latent_prefill
+    shapes"]`` every shape's."""
+    import torch
+    from torch.nn.attention.bias import causal_lower_right
+
+    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes, err = {}, 0.0
+    for label, B, T, starts, valid, ps, P, slot in LATENT_PREFILLS:
+        for H, model in ((128, "deepseek-v3"), (64, "kimi-k2")):
+            q, pool, table, seq, pos = _latent_prefill_inputs(gen, B, T, starts, valid, ps, P,
+                                                              H, slot)
+            kw = dict(page_table=table, row_offset=B if slot else 0, scale=X_SCALE)
+            S = ps if slot else P * ps
+            lim = pa.latent_key_limits(seq, pos, S)
+            ctx = pa._latent_context(pool, B, table, kw["row_offset"])   # [B, S, 1, 576]
+            kt = ctx.transpose(1, 2).expand(B, H, S, X_D)
+            mask = (torch.arange(S, device=q.device)[None, None] < lim[:, :, None])[:, None]
+            qt = q.transpose(1, 2)
+            if B == 1:
+                s0, n = starts[0], valid[0]
+                qn, kn = qt[:, :, :n], kt[:, :, :s0 + n]
+                causal = (dict(is_causal=True) if s0 == 0
+                          else dict(attn_mask=causal_lower_right(n, s0 + n)))
+                library = lambda: sdpa(qn, kn, kn[..., :X_V], scale=X_SCALE, **causal)  # noqa: E731
+            else:
+                library = lambda: sdpa(qt, kt, kt[..., :X_V], attn_mask=mask, scale=X_SCALE)  # noqa: E731
+            one: dict = {}
+            real = int(lim[pos >= 0].sum())
+            _check_kernel(one, "latent_prefill", f"{label} {model} H={H}",
+                          lambda: pa.latent_prefill(q, pool, seq, pos, **kw),
+                          lambda: pa.latent_prefill_plain(q, pool, seq, pos, **kw),
+                          rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
+                          flop=2 * H * (X_D + X_V) * real,
+                          nbytes=(int(lim.amax(1).sum()) * X_D * 2
+                                  + B * T * H * (X_D + X_V) * 2 + B * (T + P + 1) * 8),
+                          library=library)
+            r = one["latent_prefill"]
+            if label == LATENT_PREFILLS[0][0] and H == 128:
+                _latent_page_fault(q, pool, table, seq, pos, page=P // 4)
+            r["sdpa_kernels"] = _sdpa_kernels(library)
+            log(f"[kernel] latent_prefill {label} {model} H={H}: SDPA ran {r['sdpa_kernels']}")
+            shapes[f"{label} H={H}"] = r
+            err = max(err, r["err"])
+            del q, pool, table, ctx, kt, mask, qt
+        _free()
+    first = f"{LATENT_PREFILLS[0][0]} H=128"
+    res["latent_prefill"] = {**shapes[first], "err": err}
+    other["latent_prefill shapes"] = shapes
+
+
 def phase_mla_kernels(gen) -> tuple[dict, dict]:
     """B8 and K3 against their plain versions at deepseek-v3 widths (K3 also
     at kimi-k2's 64 heads, and at B = 1 and 64 beside SDPA), and the grouped
@@ -2600,6 +2755,7 @@ def phase_mla_kernels(gen) -> tuple[dict, dict]:
     _free()
     for name in ("slot_attention_latent", "paged_attention_latent"):
         res[name]["err"] = max(res[name]["err"], other.pop(name)["err"])
+    _check_latent_prefills(res, other, gen)
     res["slot_attention_latent"]["err"] = max(
         res["slot_attention_latent"]["err"], *(other[f"slot_attention_latent B={n}"]["err"]
                                                for n in (1, n64)))
@@ -2817,6 +2973,7 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     from deepsearch_tts_tpu_torch.engine.weights import pack_matmul_params
     from deepsearch_tts_tpu_torch.ops import flash_attention as fa
     from deepsearch_tts_tpu_torch.ops import slot_attention as sa
+    from deepsearch_tts_tpu_torch.ops.paged_attention import latent_prefill
 
     # the engine packs its params; on the served (packed) tree that is the
     # identity (MLA's two-stack tree is handed back whole), so the same
@@ -2847,9 +3004,11 @@ def phase_slot_serve(card: str, params: dict, model: str = "qwen3-8b",
     idle = ()
     if model == MLA_MODEL:
         # MLA's 576-column latent rows take K3 through B1's entry; K1 idles,
-        # and its re-prefill stays plain
+        # and its prefills (the slot row as one page) take K3's prefill mode
         counters["slot_attention_latent"] = sa.slot_attention_latent
+        counters["latent_prefill"] = latent_prefill
         idle = ("slot_attention", "flash_attention_paged")
+        _latent_prefill_programs(tag, engine, out["programs"])
     if spec:
         counters["slot_window_attention"] = sa.slot_window_attention
         idle = ("slot_attention",)
@@ -3358,27 +3517,34 @@ def phase_pallas_serve(card: str, params: dict, xla_long_s: float) -> dict:
 
 
 def phase_mla_pallas(card: str, params: dict) -> dict:
-    """The MLA model's paged engine with ``attn_impl="pallas"``: 16
-    concurrent requests whose decode takes K3 through
-    ``pallas_paged_attention`` (the pool as k and v) once per layer and
-    step, K1 never; B8 and the grouped expert kernel as in phase 21."""
+    """The MLA model's paged engine with ``attn_impl="pallas"`` and no
+    prefix cache: 16 concurrent requests whose fresh prefills take K3's
+    prefill mode and whose decode takes K3 through ``pallas_paged_attention``
+    (the pool as k and v), each once per layer and prefill or step, K1
+    never; B8 and the grouped expert kernel as in phase 21. Its prefill
+    programs are replayed and held as phase 21's are."""
     from deepsearch_tts_tpu_torch.engine.engine import GenerationRequest
     from deepsearch_tts_tpu_torch.ops import paged_attention as pa
 
     import torch
 
     torch.cuda.reset_peak_memory_stats()
-    engine = _engine(params, model=MLA_MODEL, attn_impl="pallas", page_size=64, n_pages=256)
+    engine = _engine(params, model=MLA_MODEL, attn_impl="pallas", page_size=64, n_pages=256,
+                     enable_prefix_cache=False)
     engine.warmup(prompt_lens=(64, 128))   # prompts of 36 to 124 tokens
+    assert engine.fresh_prefill
     progs = list(engine._prefill_programs.values())
     log(f"[mla-pallas] warmup: {len(engine._programs)} decode and {len(progs)} prefill "
         f"programs, the prefill ones captured in {sum(p.capture_s for p in progs):.2f} s; "
         f"graph pool {_pool_mib(engine)} MiB; peak memory allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     counters = {**_counters(MLA_MODEL), "paged_attention_latent": pa.paged_attention_latent,
-                "pallas_paged_attention": pa.pallas_paged_attention}
-    out: dict = {}
+                "pallas_paged_attention": pa.pallas_paged_attention,
+                "latent_prefill": pa.latent_prefill}
+    out: dict = {"pool_mib": _pool_mib(engine)}
     try:
+        out["prefill_programs"] = _check_prefill_programs("mla-pallas", engine)
+        _latent_prefill_programs("mla-pallas", engine, {"prefill": out["prefill_programs"]})
         _zero(counters)
         st0 = dict(engine.stats)
         futs = engine.submit_many([GenerationRequest(
@@ -4486,8 +4652,9 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
                     idle=()) -> dict:
     """Read the counters after a phase and hold them to the phase's work:
     B3, B4/B7, B10, B8 (MLA: 3 dense MLPs + 2 shared experts), B1, B9, K1
-    and K3 once per layer and decode (or verify) step, K2's paged mode once
-    per layer and prefill dispatch, each grouped expert entry
+    and K3 once per layer and decode (or verify) step, K2's paged mode and
+    K3's prefill mode once per layer and prefill dispatch, each grouped
+    expert entry
     once per MoE layer and forward (decode steps + prefill dispatches), B5
     once per sample, the int8 product at least once per forward (the
     lm_head; and the layer products of prefills of up to
@@ -4516,7 +4683,7 @@ def _check_launches(tag: str, engine, counters: dict, st0: dict, st1: dict,
             continue
         want = (steps + prefills + lanes if name == "sampling_prep"
                 else L_moe * (steps + prefills) if name.startswith("grouped_")
-                else L * prefills if name == "flash_attention_paged"
+                else L * prefills if name in ("flash_attention_paged", "latent_prefill")
                 else L * steps)
         assert n == want > 0, (name, n, want)
     return {**launches, **prefill}
@@ -4656,7 +4823,7 @@ def _program_ms(engine, st: list, run, n: int = 3) -> float:
 # anonymous namespace; B5 by its Triton function's name)
 _OWN_KERNEL = re.compile(
     r"::(decode_attention|decode_merge|flash_attention|flash_paged_plan|flash_paged_merge"
-    r"|latent_attention|widen_kv_pages|rms_norm_rows"
+    r"|latent_attention|latent_prefill_plan|widen_kv_pages|rms_norm_rows"
     r"|gemm_partial|gemm_tc|qkv_epilogue|residual_epilogue|swiglu_epilogue|grouped_expert"
     r"|grouped_expert_tc|i8_stream|grouped_expert_i8|grouped_expert_i8_tc|quant_strip)[<(]"
     r"|^_prep_kernel\b")
@@ -4676,7 +4843,8 @@ _SIGNATURES = (
                                     "pallas_paged_decode_clamp")),
     ("K1 int8", r"::decode_attention<\d+, ?(true|\(bool\)1)>",
      ("pallas_paged_attention_i8", "pallas_paged_decode_i8", "pallas_paged_decode_clamp_i8")),
-    ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent")),
+    ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent",
+                                    "latent_prefill")),
     ("K2", r"::flash_attention<(false|\(bool\)0)>", ("flash_attention",)),
     ("K2 paged", r"::flash_attention<(true|\(bool\)1)>", ("flash_attention_paged",)),
     ("K2 paged int8", r"::widen_kv_pages\(", ("flash_attention_paged_i8",)),
@@ -4775,6 +4943,55 @@ def _hold_counts_to_trace(tag: str, engine, key: tuple, st: list, prog,
         f"{len(runs['eager'])} time(s) each), and the counters' launches equal the traced "
         f"signature kernels {held}")
     return held
+
+
+def _latent_prefill_programs(tag: str, engine, programs: dict) -> None:
+    """Every prefill program :func:`_check_prefill_programs` replayed on an
+    MLA engine launched K3's prefill mode once a layer: its counter moved by
+    ``n_layers`` over one replay, and the replay's trace holds as many K3
+    launches (``latent_attention<``; a prefill runs no decode)."""
+    L = engine.cfg.n_layers
+    for key, r in programs["prefill"]["keys"].items():
+        n = r["launches"].get("latent_prefill.launches", 0)
+        assert n == L and r["traced"].get("K3") == L, (tag, key, n, r["traced"])
+    log(f"[{tag}] K3's prefill mode: {L} launches a replayed prefill program, as many K3 "
+        f"kernels in each replay's trace ({sorted(programs['prefill']['keys'])})")
+
+
+@contextlib.contextmanager
+def _mla_plain_attention(tag: str):
+    """While the block runs, count ``LatentAttention``'s calls of the plain
+    attention functions (``ops/attention.py``: the causal, masked and
+    re-prefill attentions and the page gather) on CUDA tensors, through the
+    module ``models/deepseek_v3.py`` calls them by; on exit there must be
+    none (its decode goes to the kernels through ``paged_attention`` and
+    ``slot_attention``, whose launches ``_check_launches`` holds)."""
+    import types
+
+    import torch
+
+    from deepsearch_tts_tpu_torch.models import deepseek_v3 as ds
+
+    real, calls = ds.attn_ops, {}
+
+    def counted(name):
+        fn = getattr(real, name)
+
+        def call(*a, **k):
+            if any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+                calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **k)
+        return call
+
+    names = ("causal_attention", "masked_context_attention", "prefix_chunk_attention",
+             "gather_kv_rows")
+    ds.attn_ops = types.SimpleNamespace(**{**vars(real), **{n: counted(n) for n in names}})
+    try:
+        yield calls
+    finally:
+        ds.attn_ops = real
+    assert not calls, (tag, "LatentAttention ran plain attention on the card", calls)
+    log(f"[{tag}] LatentAttention's plain attention calls on the card: 0 ({', '.join(names)})")
 
 
 def _check_programs(tag: str, engine) -> dict:
@@ -5176,12 +5393,15 @@ def phase_serve(card: str, model: str = "qwen3-8b", profile: bool = False,
     # once a layer and prefill, K1 once a layer and decode step, so no layer
     # of either attends through the plain gather; with int8 KV the same
     # counts through their int8 modes (and none through the bf16 ones);
-    # MLA's decode takes K3 through B6's entry, its re-prefill stays plain
+    # MLA's decode takes K3 through B6's entry, its prefills K3's prefill
+    # mode (``latent_prefill``) once a layer and prefill
     paged_pallas = engine.attn_impl == "pallas" and not engine.latent_cache
     kv_int8 = bool(quant_kw.get("kv_quantize"))
     assert engine.attn_impl == "pallas", (tag, engine.attn_impl)
     if engine.latent_cache:
         counters["paged_attention_latent"] = pa.paged_attention_latent
+        counters["latent_prefill"] = pa.latent_prefill
+        _latent_prefill_programs(tag, engine, out["programs"])
     counters["flash_attention_paged"] = fa.flash_attention_paged
     counters["pallas_paged_attention"] = pa.pallas_paged_attention
     if not paged_pallas:
@@ -6505,6 +6725,33 @@ def phase_parallel(card: str) -> dict:
             "card": card}
 
 
+def _mla_phases(card: str, profile: bool) -> dict:
+    """Phases 21-23 on one set of weights, then their release: deepseek-v3's
+    published widths, 5 of its 61 layers, registered here under a name of
+    its own (the package's registry gains none)."""
+    import torch
+
+    _register_mla()
+    with _mla_plain_attention("mla"):
+        mla_serve, engine = phase_serve(card, model=MLA_MODEL, profile=profile, tag="mla")
+    phase_reference(engine, tag="mla-reference", plain_experts=True)
+    params = _release(engine)
+    del engine
+    with _mla_plain_attention("mla-slot"):
+        mla_slot = phase_slot_serve(card, params, model=MLA_MODEL, tag="mla-slot")
+    with _mla_plain_attention("mla-pallas"):
+        mla_pallas = phase_mla_pallas(card, params)
+    phase_attention_reference(params, MLA_MODEL, tag="mla-attention-reference",
+                              plain_experts=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = _held_gib()
+    log(f"[release] MLA engines and weights released: {held:.3f} GiB still allocated")
+    assert held < 1.0, held
+    return {"mla_serve": mla_serve, "mla_slot": mla_slot, "mla_pallas": mla_pallas}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
@@ -6525,6 +6772,9 @@ def main(argv=None) -> int:
                     help="only the build and the programs phase (eight engines' decode "
                          "and prefill programs, replay against eager; prints its line, "
                          "not the final line)")
+    ap.add_argument("--mla-only", action="store_true",
+                    help="only the build, the MLA kernel phase and the MLA serve phases "
+                         "(prints their line, not the final line)")
     ap.add_argument("--train-only", action="store_true",
                     help="only the build and the train, moe-train and lora phases "
                          "(the last on random qwen3-8b weights; prints their line, "
@@ -6557,6 +6807,12 @@ def main(argv=None) -> int:
         train, moe_train = phase_train(card), phase_moe_train(card)
         lora = phase_lora(card, init_params(get_model("qwen3-8b"), device="cuda", seed=0))
         print(json.dumps({"train": train, "moe_train": moe_train, "lora": lora, "card": card}))
+        return 0
+    if opts.mla_only:
+        mla_res, mla_kernels = phase_mla_kernels(torch.Generator(device="cuda").manual_seed(0))
+        _free()
+        print(json.dumps({"kernels": mla_res, "mla_kernels": mla_kernels,
+                          **_mla_phases(card, opts.profile), "card": card}))
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     res = phase_kernels(gen)
@@ -6689,23 +6945,8 @@ def main(argv=None) -> int:
         f"allocated")
     assert held < 1.0, held
 
-    # MLA: deepseek-v3's published widths, 5 of its 61 layers, registered
-    # here under a name of its own (the package's registry gains none)
-    _register_mla()
-    mla_serve, engine = phase_serve(card, model=MLA_MODEL, profile=opts.profile, tag="mla")
-    phase_reference(engine, tag="mla-reference", plain_experts=True)
-    params = _release(engine)
-    del engine
-    mla_slot = phase_slot_serve(card, params, model=MLA_MODEL, tag="mla-slot")
-    mla_pallas = phase_mla_pallas(card, params)
-    phase_attention_reference(params, MLA_MODEL, tag="mla-attention-reference",
-                              plain_experts=True)
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = _held_gib()
-    log(f"[release] MLA engines and weights released: {held:.3f} GiB still allocated")
-    assert held < 1.0, held
+    mla = _mla_phases(card, opts.profile)
+    mla_serve, mla_slot, mla_pallas = mla["mla_serve"], mla["mla_slot"], mla["mla_pallas"]
     _lap("mla")
     # the parallel layer: ranks of their own on the card, which holds nothing else
     parallel = phase_parallel(card)
@@ -6761,6 +7002,8 @@ def main(argv=None) -> int:
                                   "_slot_attn_kernel_shared (D = 576)", mla_slot),
         "paged_attention_latent": ("cuda", attn, jsrc + "paged_attention.py:49 _paged_kernel "
                                    "(v = k, D = 576)", mla_pallas),
+        "latent_prefill": ("cuda", attn, jsrc + "attention.py:167 prefix_chunk_attention "
+                           "(XLA), D = 576", mla_serve),
     }
     i8_serve["launches"]["quantize_int8"] = i8_serve["quantize_launches"]
     # the decode kernel's: all but the prefill form's

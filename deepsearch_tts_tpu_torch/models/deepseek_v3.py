@@ -44,6 +44,7 @@ from ..engine.kvcache import kv_slots, write_rows_slots
 from ..ops import attention as attn_ops
 from ..ops.fused_layer import fused_mlp_stacked, mlp_shapes_ok
 from ..ops.moe import dispatch_ragged
+from ..ops.paged_attention import latent_prefill
 from ..ops.slot_attention import slot_attention
 from .common import (
     apply_rope,
@@ -268,7 +269,12 @@ class LatentAttention:
       write, and the chunk's own rows, as k and v;
     * paged T=1: :func:`.attention.paged_attention` (the gather, or B6 → K3
       on the card under ``"pallas"`` / ``"pallas2"`` / ``"clamp"``).
-    Returns [B,T,H,kv_lora_rank]."""
+    With ``impl="pallas"`` the three prefill branches (fresh, re-prefill,
+    a slot window at T>1) write the rows first and attend over the pool
+    through :func:`.paged_attention.latent_prefill` (K3's prefill mode on
+    the card; the sequence-parallel fresh prefill stays as it is): the
+    same keys as JAX's functions for every real query, 0 for a padding
+    query. Returns [B,T,H,kv_lora_rank]."""
 
     def __init__(self, cfg, positions, *, k_pages, page_table, seq_lens, impl: str,
                  slot_decode: bool, slot_ctx: int | None, fresh_prefill: bool,
@@ -290,10 +296,12 @@ class LatentAttention:
         self.layer_step = (positions >= 0).long() * (N * ps)
         kernel_decode = T == 1 and impl in (("pallas",) if slot_decode
                                             else ("pallas", "pallas2", "clamp"))
+        self.prefill_kernel = impl == "pallas" and (fresh_prefill or T > 1)
         self.decode_mask = self.slot_limit = None
         if slot_decode and kernel_decode:
             self.slot_limit = torch.minimum(seq_lens.long(), self.pos_c[:, 0].long() + 1)
-        elif not fresh_prefill and (T == 1 or slot_decode) and not kernel_decode:
+        elif (not fresh_prefill and (T == 1 or slot_decode) and not kernel_decode
+              and not self.prefill_kernel):
             S = slot_ctx if slot_decode else self.page_table.shape[1] * ps
             self.decode_mask = attn_ops.context_mask(seq_lens, self.pos_c, S)
 
@@ -302,6 +310,13 @@ class LatentAttention:
         KL, D = self.cfg.kv_lora_rank, self.cfg.head_dim
         kpf, N, ps, scale = self.kpf, self.N, self.ps, self.scale
         slots_l = self.slots0 + layer * self.layer_step
+        if self.prefill_kernel and self.seq_attention is None:
+            # the chunk's rows first, then its queries over the pool
+            write_rows_slots(kpf, rows, slots_l)
+            rows_of = (dict(row_offset=layer * N, max_keys=self.slot_ctx) if self.slot_decode
+                       else dict(page_table=self.page_table + layer * N))
+            return latent_prefill(q_eff, kpf, self.seq_lens, self.positions, scale=scale,
+                                  v_width=KL, **rows_of)
         if self.fresh:
             write_rows_slots(kpf, rows, slots_l)
             if self.seq_attention is not None:

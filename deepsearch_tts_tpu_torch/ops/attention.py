@@ -11,7 +11,10 @@ switch selects the kernels exactly where JAX selects its Pallas ones:
 ``ops/paged_attention.py``) at T=1. At T>1 this module stays on the
 gather, as in JAX; the serving layer (``models/qwen3.py``) takes K2's
 paged mode (``flash_attention.flash_attention_paged``) for re-prefill
-with ``impl="pallas"`` instead of :func:`prefix_chunk_attention`.
+with ``impl="pallas"`` instead of :func:`prefix_chunk_attention`, and
+MLA's (``models/deepseek_v3.py``) K3's prefill mode
+(``paged_attention.latent_prefill``) for its fresh prefill, re-prefill and
+slot windows.
 
 GQA is computed by reshaping query heads into [kv_heads, group], as in JAX.
 Scores and softmax are float32; the value product takes the probabilities

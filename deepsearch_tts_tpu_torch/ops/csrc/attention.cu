@@ -40,6 +40,15 @@
 //       B6's three entries above when the pool is both k and v
 //     (models/deepseek_v3.py:381-389, :409-413). Only the first 512 columns
 //     of the value product are computed: MLA keeps [..., :kv_lora_rank].
+//     Its prefill mode (prefill = 1, T > 1 positions a row) serves MLA's
+//     three prefill branches, all XLA code in JAX (no Pallas kernel to
+//     replace): the fresh prefill (models/deepseek_v3.py:368-372,
+//     ops/attention.py:39 causal_attention), a slot window at T > 1
+//     (:373-397, ops/attention.py:205 masked_context_attention) and the
+//     re-prefill over a cached prefix (:398-408, ops/attention.py:167
+//     prefix_chunk_attention), each over the pool after the chunk's rows
+//     were written: query t of row b at position p sees keys j < min(p + 1,
+//     seq_len, max_keys), a padding query (p < 0) none (zeros).
 //
 // What bounds them on this card, and what the design does about it:
 //
@@ -170,6 +179,28 @@
 //     ptxas gives 168 registers a thread at entry, moved by setmaxnreg to
 //     24 (producer) and 240 (consumers) (NVIDIA H100 80GB HBM3, 700.00 W,
 //     CUDA 12.8).
+//   The prefill mode is bound by operations: 2*H*(576 + 512) a visible
+//   (query, key) pair of a real query (1.29 TFLOP a layer over a
+//   3044-token prompt at H = 128: 1.305 ms). Its item is K3's block, one
+//   query position's 64 heads over a chunk of its keys (the tile that
+//   fills K3's shared memory and two warpgroups' O registers), so each
+//   72 KB key tile feeds only 64 query rows and a layer loads ~19 GB of
+//   tiles at T = 4096: the design keeps them in L2 by order. A 1-D grid of
+//   B*T*(H/64)*splits items in the order the hardware hands blocks out:
+//   the table rows longest first (latent_prefill_plan, one block: each
+//   row's largest key limit, then its rank, from positions and seq_len on
+//   the card: no host read, so a captured prefill replays it; skipped for
+//   one row), each row's positions from the last (the longest) down, a
+//   position's head blocks and splits together. The blocks on the card at
+//   one moment are then ~66 neighbouring positions of one row at 128 heads,
+//   which walk the same prefix from key 0 in step: each tile comes from
+//   HBM about once a wave and from L2 for the rest. The context is split
+//   (latent_splits over the B*T query rows, decode_merge<512> after) only
+//   where the items cannot fill the card (B*T*H/64 < SMs: a verify
+//   window, a few tokens after a long prefix at 64 heads); a longer
+//   prefill balances by dynamic block order, its items are never split.
+//   p is rounded to bf16 (JAX's masked_context_attention / prefix_chunk
+//   round points), K3's B1 instance.
 //
 // Numerics of K3: float32 scores scaled after the product, float32 softmax
 // sum. With p_bf16 (B1) PV takes p rounded to bf16; without it (B6, float32
@@ -1465,11 +1496,18 @@ constexpr int latent_smem_bytes() {
 }
 static_assert(latent_smem_bytes() <= 232448, "K3's shared memory exceeds a block's");
 
-// grid (B, H / LHB, splits), LTH threads, one block an SM. Block (b, hb, z)
-// holds query heads hb*64 .. hb*64 + 63 of row b, which all see keys
-//   j < limit = min(seq_len[b] (>= 1 if min_one), qpos[b*qpos_stride] + 1
+// LTH threads, one block an SM. Block (bt, hb, z) holds query heads hb*64
+// .. hb*64 + 63 of query row bt, of table row b = bt / T, which all see keys
+//   j < limit = min(seq_len[b] (>= 1 if min_one), qpos[bt*qpos_stride] + 1
 //               (qpos not null), max_keys),
-// and walks keys [z*chunk, (z+1)*chunk) of them in 64-key tiles. Key j is
+// and walks keys [z*chunk, (z+1)*chunk) of them in 64-key tiles. Decode (T =
+// 1): grid (B, H / LHB, splits), block (b, hb, z). Prefill mode (prefill):
+// a 1-D grid over the B*T*(H/LHB)*splits items in the order the hardware
+// hands blocks out, z fastest, then hb, then the query row: the k-th row of
+// that order is position T-1 - k%T of table row rowof[k/T] (rowof null: row
+// k/T), so each row's positions run from the last, the longest, down, and
+// the rows go in the plan's order (latent_prefill_plan: longest row first).
+// A query at a padding position (qpos < 0) sees no key and writes zeros. Key j is
 // row page*ps + j % ps of the pool seen as [R*ps, 576], page = table[b*P +
 // j/ps] (table == nullptr: row_offset + b, a slot row: a tile is 64
 // consecutive rows, TMA boxes of 64 keys); a paged tile is 64 / box_rows
@@ -1494,8 +1532,9 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const long long* __restrict__ table, int P, long long row_offset,
                  const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
                  int qpos_stride, int min_one, int max_keys, bf16* __restrict__ out, int H,
-                 int ps, int box_rows, float scale_log2, int chunk, float* __restrict__ o_part,
-                 float* __restrict__ ml_part) {
+                 int ps, int box_rows, float scale_log2, int splits, int chunk,
+                 float* __restrict__ o_part, float* __restrict__ ml_part, int T, int prefill,
+                 const int* __restrict__ rowof) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* qs = smem;                                 // LCH boxes of 64 heads
@@ -1506,12 +1545,19 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   uint64_t* k_full = q_full + 1;
   uint64_t* empty = k_full + LSTAGES;
 
-  const int b = blockIdx.x, h0 = blockIdx.y * LHB, z = blockIdx.z, splits = gridDim.z;
+  int bt = blockIdx.x, hb = blockIdx.y, z = blockIdx.z;
+  if (prefill) {
+    const int HB = H / LHB, k = blockIdx.x / (splits * HB), r = k / T;
+    z = blockIdx.x % splits;
+    hb = blockIdx.x / splits % HB;
+    bt = (rowof ? rowof[r] : r) * T + (T - 1 - k % T);
+  }
+  const int b = bt / T, h0 = hb * LHB;
   const int tid = threadIdx.x;
   long long lim = seq_len[b];
   if (min_one) lim = lim > 1 ? lim : 1;
   if (qpos) {
-    const long long v = qpos[(long long)b * qpos_stride] + 1;
+    const long long v = qpos[(long long)bt * qpos_stride] + 1;
     lim = lim < v ? lim : v;
   }
   lim = lim < max_keys ? lim : max_keys;
@@ -1519,7 +1565,7 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int k0 = z * chunk;
   const int k1 = min(k0 + chunk, nkeys);
   const int ntiles = k1 > k0 ? (k1 - k0 + LBK - 1) / LBK : 0;
-  const long long prow = ((long long)b * splits + z) * H + h0;   // the block's partial rows
+  const long long prow = ((long long)bt * splits + z) * H + h0;   // the block's partial rows
   if (ntiles == 0) {   // no key here: an empty partial for the merge, or (unsplit) zeros
     if (splits > 1) {
       for (int r = tid; r < LHB; r += LTH) {
@@ -1528,7 +1574,7 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       }
     } else {
       for (int i = tid; i < LHB * LDV / 2; i += LTH)
-        reinterpret_cast<__nv_bfloat162*>(out + ((long long)b * H + h0) * LDV)[i] =
+        reinterpret_cast<__nv_bfloat162*>(out + ((long long)bt * H + h0) * LDV)[i] =
             __floats2bfloat162_rn(0.f, 0.f);
     }
     return;
@@ -1551,7 +1597,7 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     if (tid == 256) {
       mbar_expect_tx(q_full, LTILE);
       for (int c = 0; c < LCH; ++c)
-        tma_load_2d(qs + c * LBOX, &tq, q_full, c * SWZ, b * H + h0);
+        tma_load_2d(qs + c * LBOX, &tq, q_full, c * SWZ, bt * H + h0);
       for (int kt = 0; kt < ntiles; ++kt) {
         const int s = kt % LSTAGES;
         if (kt >= LSTAGES) mbar_wait(&empty[s], (kt / LSTAGES - 1) & 1);
@@ -1740,7 +1786,7 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       const long long col0 = 256 * wg + c2;
       if (splits == 1) {
         const float inv = 1.f / fmaxf(half ? l1 : l0, 1e-30f);
-        bf16* orow = out + ((long long)b * H + h0 + r) * LDV + col0;
+        bf16* orow = out + ((long long)bt * H + h0 + r) * LDV + col0;
 #pragma unroll
         for (int i = 0; i < 32; ++i)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = __floats2bfloat162_rn(
@@ -1760,12 +1806,47 @@ latent_attention(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
+// K3's prefill mode, the plan: rowof[r] = the table row of rank r, rows by
+// their longest query's key limit (min(qpos + 1, seq_len, S), 0 for a
+// padding query), the longest first, ties by row index. One block: each
+// thread takes queries in turn (a row's largest limit by a shared-memory
+// atomic), then one thread a row counts the rows ahead of it. Only what a
+// captured prefill replays is read: positions and seq_len on the card.
+constexpr int LPLAN_TH = 1024;     // threads of the plan kernel
+constexpr int LPLAN_ROWS = 4096;   // table rows the plan takes (shared memory)
+__global__ void __launch_bounds__(LPLAN_TH)
+latent_prefill_plan(const long long* __restrict__ qpos, const long long* __restrict__ seq_len,
+                    int B, int T, int S, int* __restrict__ rowof) {
+  __shared__ int rmax[LPLAN_ROWS];
+  const int tid = threadIdx.x;
+  for (int b = tid; b < B; b += LPLAN_TH) rmax[b] = 0;
+  __syncthreads();
+  for (long long i = tid; i < (long long)B * T; i += LPLAN_TH) {
+    const int b = (int)(i / T);
+    long long l = qpos[i] + 1;
+    l = l < seq_len[b] ? l : seq_len[b];
+    l = l < S ? l : S;
+    if (l > 0) atomicMax(&rmax[b], (int)l);
+  }
+  __syncthreads();
+  for (int b = tid; b < B; b += LPLAN_TH) {
+    const int m = rmax[b];
+    int rank = 0;
+    for (int c = 0; c < B; ++c) rank += rmax[c] > m || (rmax[c] == m && c < b);
+    rowof[rank] = b;
+  }
+}
+
+// decode (T = 1, prefill 0): grid (B, H / LHB, splits); prefill: the plan
+// (rowof not null: more than one table row), then a 1-D grid of
+// B*T*(H/LHB)*splits items; with splits > 1 decode_merge<LDV> over the B*T
+// query rows
 template <bool F32P>
 int launch_latent(const CUtensorMap& tq, const CUtensorMap& tk, const void* table, int P,
                   long long row_offset, const void* seq_len, const void* qpos, int qpos_stride,
-                  int min_one, int max_keys, void* out, int B, int H, int ps, int box_rows,
-                  float scale, int splits, int chunk, void* o_part, void* ml_part,
-                  cudaStream_t st) {
+                  int min_one, int max_keys, void* out, int B, int T, int prefill, void* rowof,
+                  int H, int ps, int box_rows, float scale, int splits, int chunk, void* o_part,
+                  void* ml_part, cudaStream_t st) {
   constexpr int bytes = latent_smem_bytes();
   static bool attr_set = false;  // the opt-in above 48 KB, once per process
   if (!attr_set) {
@@ -1773,13 +1854,20 @@ int launch_latent(const CUtensorMap& tq, const CUtensorMap& tk, const void* tabl
                          bytes);
     attr_set = true;
   }
-  latent_attention<F32P><<<dim3(B, H / LHB, splits), LTH, bytes, st>>>(
+  if (prefill && rowof)
+    latent_prefill_plan<<<1, LPLAN_TH, 0, st>>>(static_cast<const long long*>(qpos),
+                                                 static_cast<const long long*>(seq_len), B, T,
+                                                 max_keys, static_cast<int*>(rowof));
+  const dim3 grid = prefill ? dim3((unsigned)((long long)B * T * (H / LHB) * splits))
+                            : dim3(B, H / LHB, splits);
+  latent_attention<F32P><<<grid, LTH, bytes, st>>>(
       tq, tk, static_cast<const long long*>(table), P, row_offset,
       static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos), qpos_stride,
-      min_one, max_keys, static_cast<bf16*>(out), H, ps, box_rows, scale * LOG2E, chunk,
-      static_cast<float*>(o_part), static_cast<float*>(ml_part));
+      min_one, max_keys, static_cast<bf16*>(out), H, ps, box_rows, scale * LOG2E, splits, chunk,
+      static_cast<float*>(o_part), static_cast<float*>(ml_part), T, prefill,
+      static_cast<const int*>(rowof));
   if (splits > 1) {
-    decode_merge<LDV><<<dim3(H, 1, B), LDV, 0, st>>>(
+    decode_merge<LDV><<<dim3(H, 1, B * T), LDV, 0, st>>>(
         static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
         static_cast<bf16*>(out), 1, H, 1, splits);
   }
@@ -1899,33 +1987,42 @@ int dstts_decode_attention(const void* q, long long q_bstride, const void* k,
                                    stream);
 }
 
-// K3 (B1's shared variant and B6 at MLA's latent width). q [B,H,576] bf16
-// contiguous; pool [R,ps,1,576] bf16 contiguous; table [B,P] int64 or null
-// (identity: page row_offset + b); seq_len [B] int64; qpos int64 with
-// stride qpos_stride or null; out [B,H,512] bf16 (the value columns only).
-// H % 64 == 0; with a table, ps % 64 == 0 or ps a multiple of 8 dividing
-// 64. p_bf16: p rounded to bf16 for PV (B1), else float32 p (B6). The
-// context is cut into `splits` chunks of `chunk` keys (a multiple of 64),
-// one block each; with splits > 1, o_part [B,splits,H,512] and ml_part
-// [B,splits,H,2] are float32 scratch that decode_merge<512> reduces. The
-// TMA tensor maps are encoded here on each call (passed by value).
+// K3 (B1's shared variant and B6 at MLA's latent width) and its prefill
+// mode. q [B,T,H,576] bf16 contiguous (decode: T = 1); pool [R,ps,1,576]
+// bf16 contiguous; table [B,P] int64 or null (identity: page row_offset +
+// b); seq_len [B] int64; qpos int64 with stride qpos_stride (decode) or
+// null, [B,T] contiguous (prefill: qpos_stride 1); out [B,T,H,512] bf16 (the
+// value columns only). H % 64 == 0; with a table, ps % 64 == 0 or ps a
+// multiple of 8 dividing 64. p_bf16: p rounded to bf16 for PV (B1, the
+// prefill mode), else float32 p (B6). The context is cut into `splits`
+// chunks of `chunk` keys (a multiple of 64), one block each; with splits >
+// 1, o_part [B*T,splits,H,512] and ml_part [B*T,splits,H,2] are float32
+// scratch that decode_merge<512> reduces. prefill: rowof is int32 [B]
+// scratch for the plan (needed where B > 1). The TMA tensor maps are
+// encoded here on each call (passed by value).
 int dstts_latent_attention(const void* q, const void* pool, const void* table, int P,
                            long long row_offset, const void* seq_len, const void* qpos,
-                           int qpos_stride, int min_one, int max_keys, void* out, int B, int H,
-                           long long R, int ps, float scale, int p_bf16, int splits, int chunk,
-                           void* o_part, void* ml_part, void* stream) {
+                           int qpos_stride, int min_one, int max_keys, void* out, int B, int T,
+                           int prefill, void* rowof, int H, long long R, int ps, float scale,
+                           int p_bf16, int splits, int chunk, void* o_part, void* ml_part,
+                           void* stream) {
   const int box_rows = !table || ps % LBK == 0 ? LBK : (LBK % ps == 0 && ps % 8 == 0 ? ps : 0);
-  if (H % LHB || splits < 1 || chunk % LBK || box_rows == 0) return (int)cudaErrorInvalidValue;
+  if (H % LHB || splits < 1 || chunk % LBK || box_rows == 0 || T < 1 || (!prefill && T != 1) ||
+      (prefill && (!qpos || (B > 1 && !rowof) || B > LPLAN_ROWS)) ||
+      (splits > 1 && (long long)B * T > 65535) || (long long)B * T * H > INT32_MAX ||
+      (long long)B * T * (H / LHB) * splits > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk;
-  const cuuint64_t qdim[2] = {LDK, (cuuint64_t)B * H}, kdim[2] = {LDK, (cuuint64_t)R * ps};
+  const cuuint64_t qdim[2] = {LDK, (cuuint64_t)B * T * H}, kdim[2] = {LDK, (cuuint64_t)R * ps};
   const cuuint64_t stride[1] = {LDK * 2};
   const cuuint32_t qbox[2] = {SWZ, LHB}, kbox[2] = {SWZ, (cuuint32_t)box_rows};
   if (!bf16_map(&tq, q, 2, qdim, stride, qbox) || !bf16_map(&tk, pool, 2, kdim, stride, kbox))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (p_bf16 ? &launch_latent<false> : &launch_latent<true>)(
-      tq, tk, table, P, row_offset, seq_len, qpos, qpos_stride, min_one, max_keys, out, B, H,
-      ps, box_rows, scale, splits, chunk, o_part, ml_part, st);
+      tq, tk, table, P, row_offset, seq_len, qpos, qpos_stride, min_one, max_keys, out, B, T,
+      prefill, B > 1 ? rowof : nullptr, H, ps, box_rows, scale, splits, chunk, o_part, ml_part,
+      st);
 }
 
 // K2 (B2). q, out [B,T,H,128]; k, v [B,S,KV,128]; all bf16, contiguous,

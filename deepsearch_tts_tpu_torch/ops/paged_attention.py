@@ -42,6 +42,17 @@ calls take K3 (``latent_attention`` in ``csrc/attention.cu``) through
 :func:`paged_attention_latent`, which counts them; K3 computes only the
 ``v_width`` columns, 64 query heads a block on ``wgmma`` over TMA tiles,
 the context split as :func:`latent_splits` chooses.
+
+MLA's prefills (a fresh prefill, a re-prefill over a cached prefix, a slot
+window at T > 1: XLA code in JAX, ``causal_attention``,
+``prefix_chunk_attention`` and ``masked_context_attention``) call
+:func:`latent_prefill` with ``impl="pallas"``, over the pool after the
+chunk's rows were written. On the card that is K3's prefill mode: K3's
+block for each (row, position, head block) item, in an order the plan
+kernel sets on the card (rows longest first, each row's positions from the
+last down, so the blocks running together share their key tiles in L2);
+its plain version, :func:`latent_prefill_plain`, gathers and masks by
+:func:`latent_key_limits`; :func:`latent_prefill_order` models the order.
 """
 from __future__ import annotations
 
@@ -217,8 +228,8 @@ def _lib():
         lib.dstts_flash_paged_plan.restype = i
         lib.dstts_flash_paged_merge.argtypes = [p, p, p, p, i, i, i, i, i, p]
         lib.dstts_flash_paged_merge.restype = i
-        lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, ll,
-                                               i, f, i, i, i, p, p, p]
+        lib.dstts_latent_attention.argtypes = [p, p, p, i, ll, p, p, i, i, i, p, i, i, i, p,
+                                               i, ll, i, f, i, i, i, p, p, p]
         lib.dstts_latent_attention.restype = i
         lib.dstts_attention_occupancy.argtypes = [p]
         lib.dstts_attention_occupancy.restype = i
@@ -387,8 +398,9 @@ def latent_attention_cuda(q, pool, seq_lens, *, page_table=None, row_offset: int
         q.data_ptr(), pool.data_ptr(), None if page_table is None else page_table.data_ptr(),
         P, int(row_offset), seq_lens.data_ptr(),
         None if q_positions is None else q_positions.data_ptr(), qpos_stride,
-        int(bool(min_one)), int(max_keys), out.data_ptr(), B, H, R, ps, float(scale),
-        int(bool(p_bf16)), splits, chunk, None if o_part is None else o_part.data_ptr(),
+        int(bool(min_one)), int(max_keys), out.data_ptr(), B, 1, 0, None, H, R, ps,
+        float(scale), int(bool(p_bf16)), splits, chunk,
+        None if o_part is None else o_part.data_ptr(),
         None if ml_part is None else ml_part.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, "latent_attention")
@@ -424,6 +436,150 @@ def paged_attention_latent(q, pool, page_table, seq_lens, q_positions=None, *,
 
 
 paged_attention_latent.launches = 0
+
+
+# ------------------------------------------------------ K3's prefill mode
+
+def latent_key_limits(seq_lens, q_positions, max_keys: int):
+    """[B, T] exclusive key limit of each query of K3's prefill mode: query
+    t of row b at position p sees keys ``< min(p + 1, seq_lens[b],
+    max_keys)``; a padding query (p < 0) sees none (0)."""
+    lim = torch.minimum(q_positions.long() + 1, seq_lens.long()[:, None])
+    return lim.clamp(min=0, max=int(max_keys))
+
+
+def _latent_context(pool, B: int, page_table, row_offset: int):
+    """[B, S, 1, D]: the table's pages of ``pool`` gathered, or (no table)
+    the slot rows ``row_offset .. row_offset + B - 1``."""
+    if page_table is None:
+        return pool[row_offset: row_offset + B]
+    P, (ps, K, D) = page_table.shape[1], pool.shape[1:]
+    return gather_kv_rows(pool, page_table).reshape(B, P * ps, K, D)
+
+
+def latent_prefill_plain(q, pool, seq_lens, q_positions, *, page_table=None,
+                         row_offset: int = 0, max_keys: int | None = None, scale=None,
+                         v_width: int = LATENT_V):
+    """Plain version of K3's prefill mode: the latent rows of the ``[B, P]``
+    table's pages of ``pool`` [R, ps, 1, D] (no table: slot row
+    ``row_offset + b``), read after the chunk's rows were written, as k and
+    their first ``v_width`` columns as v; query t of row b over the keys
+    below :func:`latent_key_limits` (and below ``max_keys``). JAX's round
+    points (``masked_context_attention``: q·scale in q's dtype, float32
+    scores and softmax, p in the value dtype, a float32 sum); a query that
+    sees no key gives 0 (JAX's three functions average stale rows or attend
+    the prefix there, for padding queries only). Returns [B, T, H,
+    v_width]."""
+    B = q.shape[0]
+    ctx = _latent_context(pool, B, page_table, row_offset)
+    S = ctx.shape[1] if max_keys is None else min(int(max_keys), ctx.shape[1])
+    ctx = ctx[:, :S]
+    lim = latent_key_limits(seq_lens, q_positions, S)
+    mask = (torch.arange(S, device=q.device)[None, None] < lim[:, :, None])[:, None, None]
+    out = masked_context_attention(q, ctx, ctx[..., :v_width], seq_lens, q_positions,
+                                   scale=scale, mask=mask)
+    return torch.where((lim > 0)[:, :, None, None], out, torch.zeros_like(out))
+
+
+def latent_prefill_order(q_positions, seq_lens, max_keys: int, heads: int, splits: int = 1):
+    """Host model of the prefill mode's launch order: the items (b, t, head
+    block, split) in the order of the kernel's 1-D grid. The plan
+    (``latent_prefill_plan`` in ``csrc/attention.cu``) ranks the table rows
+    by their longest query's key limit, the longest first (ties by row);
+    each row's positions run from the last down (positions rise along a
+    chunk, so its longest query first), each position's head blocks and
+    splits together."""
+    lim = latent_key_limits(seq_lens, q_positions, max_keys).tolist()
+    B, T = len(lim), len(lim[0])
+    rows = sorted(range(B), key=lambda b: (-max(lim[b]), b)) if B > 1 else [0]
+    return [(b, t, h, z) for b in rows for t in reversed(range(T))
+            for h in range(heads // LATENT_HEADS) for z in range(splits)]
+
+
+def latent_prefill_cuda(q, pool, seq_lens, q_positions, *, page_table=None,
+                        row_offset: int = 0, max_keys: int | None = None, scale=None):
+    """Launch K3's prefill mode. q [B,T,H,576] bf16 contiguous (H a multiple
+    of 64); pool [R,ps,1,576] bf16, k and v; ``page_table`` [B,P] int64 (ps
+    as :func:`latent_pages_ok`) or None (slot rows ``row_offset + b``);
+    seq_lens [B] int64; q_positions [B,T] int64 contiguous. The context is
+    split as :func:`latent_splits` says for the ``B·T`` query rows (only
+    where their head blocks cannot fill the card). Returns [B,T,H,512]
+    bf16."""
+    from .fused_layer import _check, _raise_if
+
+    B, T, H, D = q.shape
+    R, ps, K, _ = pool.shape
+    dev = q.device
+    if D != LATENT_DIM or K != 1 or H % LATENT_HEADS:
+        raise ValueError(f"latent prefill kernel needs D={LATENT_DIM}, one cache head "
+                         f"and H % {LATENT_HEADS} == 0 (got D={D}, K={K}, H={H})")
+    _check("q", q, (B, T, H, D))
+    _check("pool", pool, (R, ps, 1, D))
+    if pool.device != dev:
+        raise ValueError("latent prefill: q and the pool must share a device")
+    _check_index("seq_lens", seq_lens, (B,), dev)
+    _check_index("q_positions", q_positions, (B, T), dev)
+    if not q_positions.is_contiguous():
+        raise ValueError("q_positions: must be contiguous")
+    P, S = 1, ps
+    if page_table is not None:
+        if not latent_pages_ok(ps):
+            raise ValueError(f"latent prefill kernel over a page table needs ps % {KEY_TILE} "
+                             f"== 0 or ps a multiple of 8 dividing {KEY_TILE} (got ps={ps})")
+        P = page_table.shape[1]
+        _check_index("page_table", page_table, (B, P), dev)
+        if not page_table.is_contiguous():
+            raise ValueError("page_table: must be contiguous")
+        S = P * ps
+    elif row_offset + B > R:
+        raise ValueError(f"latent prefill: slot rows {row_offset} .. {row_offset + B - 1} "
+                         f"past the pool's {R}")
+    S = S if max_keys is None else min(int(max_keys), S)
+    scale = scale if scale is not None else D ** -0.5
+    splits, chunk = latent_splits(B * T, H // LATENT_HEADS, S, _sm_count(dev))
+    out = torch.empty((B, T, H, LATENT_V), dtype=q.dtype, device=dev)
+    o_part = ml_part = None
+    if splits > 1:
+        o_part = torch.empty((B * T * splits * H, LATENT_V), dtype=torch.float32, device=dev)
+        ml_part = torch.empty((B * T * splits * H, 2), dtype=torch.float32, device=dev)
+    rowof = torch.empty((B,), dtype=torch.int32, device=dev) if B > 1 else None
+    err = _lib().dstts_latent_attention(
+        q.data_ptr(), pool.data_ptr(), None if page_table is None else page_table.data_ptr(),
+        P, int(row_offset), seq_lens.data_ptr(), q_positions.data_ptr(), 1, 0, int(S),
+        out.data_ptr(), B, T, 1, None if rowof is None else rowof.data_ptr(), H, R, ps,
+        float(scale), 1, splits, chunk, None if o_part is None else o_part.data_ptr(),
+        None if ml_part is None else ml_part.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "latent_attention (prefill)")
+    return out
+
+
+def latent_prefill(q, pool, seq_lens, q_positions, *, page_table=None, row_offset: int = 0,
+                   max_keys: int | None = None, scale=None, v_width: int = LATENT_V):
+    """MLA's prefill attention over the latent pool after the chunk's rows
+    were written (``models/deepseek_v3.py`` ``LatentAttention``: fresh
+    prefill, re-prefill over a cached prefix, a slot window): q [B,T,H,D],
+    the ``[B,P]`` table's pages of ``pool`` (None: slot rows ``row_offset +
+    b``, keys below ``max_keys``), query t at ``q_positions[b,t]`` over
+    keys ``< min(p + 1, seq_lens[b])``. Returns [B,T,H,v_width]. On the CPU
+    :func:`latent_prefill_plain`; on the card K3's prefill mode, which
+    computes the first ``LATENT_V`` columns (``v_width`` must be that), or
+    a ValueError for what it cannot take."""
+    if q.device.type == "cpu":
+        return latent_prefill_plain(q, pool, seq_lens, q_positions, page_table=page_table,
+                                    row_offset=row_offset, max_keys=max_keys, scale=scale,
+                                    v_width=v_width)
+    if v_width != LATENT_V:
+        raise ValueError(f"the latent prefill kernel takes v_width={LATENT_V} (got {v_width})")
+    out = latent_prefill_cuda(
+        q, pool, seq_lens.long(), q_positions.long().contiguous(),
+        page_table=None if page_table is None else page_table.long().contiguous(),
+        row_offset=row_offset, max_keys=max_keys, scale=scale)
+    latent_prefill.launches += 1
+    return out
+
+
+latent_prefill.launches = 0
 
 
 # ------------------------------------------------------------------- wrappers

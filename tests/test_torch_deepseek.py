@@ -619,14 +619,32 @@ def _engine_pair(**kw):
 
 @pytest.mark.parametrize("kw", [dict(page_size=4, n_pages=128),
                                 dict(cache_mode="slot", attn_impl="pallas"),
-                                dict(cache_mode="slot", speculative="ngram", spec_k=3)],
-                         ids=["paged", "slot", "speculative"])
-def test_engine_greedy_streams_match_jax(kw):
+                                dict(cache_mode="slot", speculative="ngram", spec_k=3),
+                                dict(page_size=8, n_pages=64, attn_impl="pallas"),
+                                dict(page_size=16, n_pages=32, attn_impl="pallas"),
+                                dict(page_size=8, n_pages=64, attn_impl="pallas",
+                                     enable_prefix_cache=False),
+                                dict(cache_mode="slot", speculative="ngram", spec_k=3,
+                                     attn_impl="pallas")],
+                         ids=["paged", "slot", "speculative", "paged_pallas_ps8",
+                              "paged_pallas_ps16", "fresh_pallas", "speculative_pallas"])
+def test_engine_greedy_streams_match_jax(kw, monkeypatch):
     """Two concurrent requests, then a follow-up that extends the first
     conversation: a prefix-cache hit (paged) or a parked-row re-entry
     (slot, through B1's shared variant; speculative, whose 4-token verify
     windows take the masked gather, as in JAX); float32, so greedy streams
-    on this random-init model have no near-ties and must be equal."""
+    on this random-init model have no near-ties and must be equal. With
+    ``attn_impl="pallas"`` every prefill of the port (a re-prefill after
+    the hit, a slot prefill, a fresh prefill without the prefix cache) and
+    every verify window attend through ``latent_prefill`` (K3's prefill
+    mode on the card, its plain version here)."""
+    calls = []
+
+    def counted(q, *a, **k):
+        calls.append(q.shape[1])
+        return tpa.latent_prefill(q, *a, **k)
+
+    monkeypatch.setattr(tds, "latent_prefill", counted)
     je, te = _engine_pair(**kw)
     try:
         assert not te.layer_fusion and te.latent_cache
@@ -646,7 +664,13 @@ def test_engine_greedy_streams_match_jax(kw):
             assert t.token_ids == j.token_ids
             assert (t.finish_reason, t.prompt_tokens, t.cached_prompt_tokens) == (
                 j.finish_reason, j.prompt_tokens, j.cached_prompt_tokens)
-        assert out[1][-1].cached_prompt_tokens > 0
+        assert out[1][-1].cached_prompt_tokens > 0 or not kw.get("enable_prefix_cache", True)
+        # every prefill forward (and verify window) of a "pallas" engine
+        # attends through latent_prefill, once a layer; no other engine's
+        assert bool(calls) == (kw.get("attn_impl") == "pallas"), len(calls)
+        assert len(calls) % te.cfg.n_layers == 0
+        if kw.get("speculative") and calls:
+            assert calls.count(kw["spec_k"] + 1) > 0   # the verify windows
     finally:
         je.shutdown()
         te.shutdown()
