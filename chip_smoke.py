@@ -39,8 +39,11 @@ Phases, each raising on failure (non-zero exit, no final line):
    a boolean mask and, at B = 1, causal SDPA (a plain attention over a
    table with one page of the long prompt swapped must fail the bound);
    K1's and K2's int8 modes at qwen3-32b's 64 / 8 heads over int8 pages
-   of 64 keys and their scales (``_check_int8_decode``: B = 16 rows of the
-   B6 lengths through all three entries and K1's own 19,280-key rows;
+   of 64 keys and their scales (``_check_int8_decode``: K1's int8 mode,
+   ``decode_i8``, at B = 16 rows of the B6 lengths through all three entries,
+   K1's own 19,278-key rows, one 4096-key row and 16 of them, each timed;
+   pages of 8, 16 and 48 keys, qwen3-14b's G = 5, a chunk of 4, a row with
+   no key under ``min_one``; its plan kernel against the host model;
    ``I8_PREFILLS``: the long prompt, the ragged 16 x 64 group and 100
    tokens after 3000 cached; first ``widen_kv_pages``' bf16 pages equal
    to the plain dequantization bit for bit) under the same bound, each
@@ -1243,17 +1246,25 @@ def _int8_pools(gen, n: int, ps: int, kv: int):
 
 
 def _check_int8_decode(res: dict, gen) -> None:
-    """K1's int8 mode against its plain version (``paged_int8_plain``)
-    at qwen3-32b's widths (64 / 8 heads, D = 128) over int8 pages of 64
-    keys, 64 pages a row, B = 16, T = 1: the B6 rows' ragged lengths
-    (:data:`SEQS`, 19,613 keys) through all three entries, and K1's own
-    rows (:data:`LIMITS`, 19,280 keys, two rows with none) through
-    ``pallas_paged_attention``, under the rms-scaled attention bound. Each
-    timed beside the plain version, its bound (bytes: each row's int8 keys
-    and values and their scales once, q, out, the table) and SDPA over the
-    pre-dequantized context (the gather and the dequantization not
-    timed). ``res["decode_attention_i8"]`` keeps the SEQS shape's numbers
-    and the largest error, ``res["decode_attention_i8_shapes"]`` each's."""
+    """K1's int8 mode (``decode_i8``: its plan kernel, then the persistent
+    grid) against its plain version (``paged_int8_plain``) under the
+    rms-scaled attention bound, at qwen3-32b's widths (64 / 8 heads, D =
+    128) over int8 pages: B = 16, T = 1, 64 pages of 64 keys a row, the B6
+    rows' ragged lengths (:data:`SEQS`, 19,613 keys) through all three
+    entries and K1's own rows (:data:`LIMITS`, 19,280 keys, two rows with
+    none) through ``pallas_paged_attention``, B = 1 over one 4096-key row
+    and B = 16 rows of 4096 keys, each timed beside the plain version, its
+    bound (bytes: each row's int8 keys and values and their scales once, q,
+    out, the table) and SDPA over the pre-dequantized context (the gather
+    and the dequantization not timed); untimed: pages of 8, 16 and 48 keys,
+    qwen3-14b's G = 5, a chunk of T = 4 (32 query rows a kv head: two
+    query groups of 16), a row with no key under ``min_one`` (it sees key
+    0). The plan kernel alone against its host model
+    (``paged_attention.decode_i8_plan``) at SEQS and LIMITS: the same
+    pieces, longest first, and its counters reset.
+    ``res["decode_attention_i8"]`` keeps the SEQS shape's numbers and the
+    largest error, ``res["decode_attention_i8_shapes"]`` each timed
+    shape's."""
     import torch
 
     from deepsearch_tts_tpu_torch.ops import paged_attention as pa
@@ -1261,46 +1272,91 @@ def _check_int8_decode(res: dict, gen) -> None:
 
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ps, P = 64, CTX // 64
-    NP = 1 + SLOTS * P
-    kp, vp, ks, vs = _int8_pools(gen, NP, ps, Q_KV)
-    sc = dict(k_scales=ks, v_scales=vs)
-    q1 = torch.randn((SLOTS, 1, Q_H, D), generator=gen, device=dev).to(torch.bfloat16)
-    perm = torch.randperm(NP - 1, generator=gen, device=dev)[: SLOTS * P].view(SLOTS, P)
+    occ = pa.attention_occupancy()
+    log(f"[kernel] decode_i8 blocks an SM (runtime occupancy): 8 rows an item "
+        f"{occ['K1 int8 (8 rows an item)']}, 16 rows "
+        f"{occ['K1 int8 (16 rows an item)']} "
+        f"(the grid takes {pa.I8_BLOCKS_PER_SM[8]} / {pa.I8_BLOCKS_PER_SM[16]})")
     shapes = {}
+
+    def case(tag, lens, ps=64, heads=(Q_H, Q_KV), T=1, timed=False, min_one=False,
+             entries=("pallas_paged_attention",)):
+        h, kv = heads
+        B, P = len(lens), -(-CTX // ps)
+        NP = 1 + B * P
+        kp, vp, ks, vs = _int8_pools(gen, NP, ps, kv)
+        sc = dict(k_scales=ks, v_scales=vs)
+        q = torch.randn((B, T, h, D), generator=gen, device=dev).to(torch.bfloat16)
+        perm = torch.randperm(NP - 1, generator=gen, device=dev)[: B * P].view(B, P)
+        seq = torch.tensor(lens, device=dev)
+        used = (seq.clamp(min=1) + ps - 1) // ps
+        table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
+        qpos = (seq - T).clamp(min=0)[:, None] + torch.arange(T, device=dev)[None]
+        keys = int(seq.sum())
+        label = f"B={B} T={T} H={h} KV={kv} ps={ps} P={P} {keys} keys ({tag})"
+        one: dict = {}
+        if min_one:   # the decode form (no positions): a row of length 0 sees key 0
+            seq1 = seq.clamp(min=1)
+            _check_kernel(one, "decode_attention_i8", label + " min_one",
+                          lambda: pa.decode_attention_cuda(q, kp, vp, seq, page_table=table,
+                                                           min_one=True, **sc),
+                          lambda: pa.paged_int8_plain(q, kp, vp, ks, vs, table, seq1,
+                                                      (seq1 - 1)[:, None]),
+                          rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC)
+            entries = ()
+        kw = {}
+        if timed and entries:
+            kd, vd = (dequant_context(p_, s_, table, torch.bfloat16).transpose(1, 2)
+                      for p_, s_ in ((kp, ks), (vp, vs)))
+            mask = (torch.arange(P * ps, device=dev)[None] < seq[:, None])[:, None, None]
+            qt = q.transpose(1, 2)
+            kw = dict(timed=True, flop=4 * h * D * keys * T,
+                      nbytes=(keys * kv * (D + 4) * 2 + 2 * B * T * h * D * 2
+                              + B * (P + 2) * 8),
+                      library=lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True))
+        for i, name in enumerate(entries):
+            fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
+            args = (q, kp, vp, table, seq) + ((qpos,) if name == "pallas_paged_attention" else ())
+            _check_kernel(one, "decode_attention_i8",
+                          label + ("" if i == 0 else f" via {name}"),
+                          lambda: fk(*args, **sc), lambda: fp(*args, **sc),
+                          rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC,
+                          **(kw if i == 0 else {}))
+        r = res.setdefault("decode_attention_i8", {"err": 0.0})
+        r["err"] = max(r["err"], one["decode_attention_i8"]["err"])
+        if timed:
+            shapes[label] = one["decode_attention_i8"]
+            if tag == "SEQS":
+                res["decode_attention_i8"] = {**one["decode_attention_i8"], "err": r["err"]}
+
+    entries = ("pallas_paged_attention", "pallas_paged_decode", "pallas_paged_decode_clamp")
+    case("SEQS", SEQS, timed=True, entries=entries)
+    case("LIMITS", LIMITS, timed=True)
+    case("one full row", [CTX], timed=True)
+    case("16 full rows", [CTX] * SLOTS, timed=True)
+    for ps in (8, 16, 48):
+        case(f"pages of {ps}", SEQS[:8], ps=ps)
+    case("qwen3-14b G=5", SEQS, heads=(40, 8), entries=entries)
+    case("a chunk of 4", [4, 100, 2048, 4096], T=4)
+    case("a row with no key", [0, 1, 700, 64], min_one=True)
+    res["decode_attention_i8"]["err"] = max(
+        res["decode_attention_i8"]["err"], *(r["err"] for r in shapes.values()))
+    res["decode_attention_i8_shapes"] = shapes
+    # the plan kernel against its host model
     for tag, lens in (("SEQS", SEQS), ("LIMITS", LIMITS)):
         seq = torch.tensor(lens, device=dev)
-        used = (seq + ps - 1) // ps
-        table = torch.where(torch.arange(P, device=dev)[None] < used[:, None], perm + 1, 0)
         qpos = (seq - 1).clamp(min=0)[:, None]
-        keys = int(seq.sum())
-        label = f"B={SLOTS} T=1 ps={ps} P={P} {keys} keys ({tag})"
-        kd, vd = (dequant_context(p, sc_, table, torch.bfloat16).transpose(1, 2)
-                  for p, sc_ in ((kp, ks), (vp, vs)))
-        mask = (torch.arange(P * ps, device=dev)[None] < seq[:, None])[:, None, None]
-        qt = q1.transpose(1, 2)
-        one: dict = {}
-        _check_kernel(one, "decode_attention_i8", label,
-                      lambda: pa.pallas_paged_attention(q1, kp, vp, table, seq, qpos, **sc),
-                      lambda: pa.pallas_paged_attention_plain(q1, kp, vp, table, seq, qpos,
-                                                              **sc),
-                      rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC, timed=True,
-                      nbytes=(keys * Q_KV * (D + 4) * 2 + 2 * SLOTS * Q_H * D * 2
-                              + SLOTS * (P + 2) * 8),
-                      flop=4 * Q_H * D * keys,
-                      library=lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True))
-        if tag == "SEQS":
-            for name in ("pallas_paged_decode", "pallas_paged_decode_clamp"):
-                fk, fp = getattr(pa, name), getattr(pa, name + "_plain")
-                _check_kernel(one, "decode_attention_i8", f"{label} via {name}",
-                              lambda: fk(q1, kp, vp, table, seq, **sc),
-                              lambda: fp(q1, kp, vp, table, seq, **sc),
-                              rtol=ATTN_RTOL, atol=ATTN_ATOL, rms_frac=ATTN_RMS_FRAC)
-        shapes[label] = one["decode_attention_i8"]
-        del kd, vd
-    first = next(iter(shapes.values()))
-    res["decode_attention_i8"] = {**first, "err": max(r["err"] for r in shapes.values())}
-    res["decode_attention_i8_shapes"] = shapes
+        got = pa.decode_i8_plan_cuda(seq, qpos, T=1, G=Q_H // Q_KV, KV=Q_KV, max_keys=CTX)
+        want = pa.decode_i8_plan(seq.cpu(), qpos.cpu(), T=1, G=Q_H // Q_KV, KV=Q_KV,
+                                 sms=pa._sm_count(dev), max_keys=CTX)
+        lengths = [-(-(k1 - k0) // pa.KEY_TILE) for _, k0, k1, _ in got["items"]]
+        assert (got["C"], got["W"], got["rows"]) == (want["C"], want["W"], want["rows"]), tag
+        assert sorted(got["items"]) == sorted(want["items"]), tag
+        assert lengths == sorted(lengths, reverse=True), tag
+        assert got["counter"] == 0 and not any(got["cnt"]), tag
+        log(f"[kernel] decode_i8_plan {tag}: equal to its host model: W = {got['W']} tiles, "
+            f"C = {got['C']}, {len(got['items'])} pieces longest first "
+            f"({sum(z > 1 for *_, z, _ in got['rows'])} of {len(got['rows'])} rows split)")
 
 
 # K2's paged mode in phase 3: (label, B, T, each row's chunk start (< 0: a
@@ -4822,7 +4878,8 @@ def _program_ms(engine, st: list, run, n: int = 3) -> float:
 # the port's own kernels as the profiler names them (csrc/*.cu in an
 # anonymous namespace; B5 by its Triton function's name)
 _OWN_KERNEL = re.compile(
-    r"::(decode_attention|decode_merge|flash_attention|flash_paged_plan|flash_paged_merge"
+    r"::(decode_attention|decode_merge|decode_i8|decode_i8_plan|flash_attention|flash_paged_plan"
+    r"|flash_paged_merge"
     r"|latent_attention|latent_prefill_plan|widen_kv_pages|rms_norm_rows"
     r"|gemm_partial|gemm_tc|qkv_epilogue|residual_epilogue|swiglu_epilogue|grouped_expert"
     r"|grouped_expert_tc|i8_stream|grouped_expert_i8|grouped_expert_i8_tc|quant_strip)[<(]"
@@ -4838,10 +4895,12 @@ _SIGNATURES = (
     ("grouped_expert", r"::grouped_expert(_tc)?<", ("grouped_gateup", "grouped_down")),
     ("grouped_expert_i8", r"::grouped_expert_i8(_tc)?<",
      ("grouped_gateup_i8", "grouped_down_i8")),
-    ("K1", r"::decode_attention<", ("slot_attention", "slot_window_attention",
-                                    "pallas_paged_attention", "pallas_paged_decode",
-                                    "pallas_paged_decode_clamp")),
-    ("K1 int8", r"::decode_attention<\d+, ?(true|\(bool\)1)>",
+    ("K1", r"::decode_(attention|i8)<", ("slot_attention", "slot_window_attention",
+                                         "pallas_paged_attention", "pallas_paged_decode",
+                                         "pallas_paged_decode_clamp")),
+    ("K1 int8", r"::decode_i8<",
+     ("pallas_paged_attention_i8", "pallas_paged_decode_i8", "pallas_paged_decode_clamp_i8")),
+    ("K1 int8 plan", r"::decode_i8_plan\(",
      ("pallas_paged_attention_i8", "pallas_paged_decode_i8", "pallas_paged_decode_clamp_i8")),
     ("K3", r"::latent_attention<", ("slot_attention_latent", "paged_attention_latent",
                                     "latent_prefill")),

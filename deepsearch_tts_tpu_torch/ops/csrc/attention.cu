@@ -27,13 +27,14 @@
 //     paged_attention (ops/attention.py:122-139, XLA code: a gather, then
 //     (int8.float() * scale).to(bf16), then masked_context_attention), the
 //     int8-KV engine's decode and re-prefill. Each pool row holds D int8
-//     and one float32 scale a (slot, kv head) in a pool of its own. K1
-//     (decode_attention<MT, true>) widens each landed int8 stage into the
-//     bf16 stage its products read; K2's int8 paged mode is widen_kv_pages
-//     (the rows' pages into bf16 scratch pages) and then the bf16 paged
-//     mode over them. Both widen with dequant16, the plain path's values
-//     bit for bit, so only the accumulation order differs from the plain
-//     version.
+//     and one float32 scale a (slot, kv head) in a pool of its own. K1's
+//     int8 mode is a kernel of its own, decode_i8 (a plan kernel, then a
+//     persistent grid), which widens each key and value in registers
+//     straight into its products' fragments; K2's int8 paged mode is
+//     widen_kv_pages (the rows' pages into bf16 scratch pages) and then the
+//     bf16 paged mode over them. Both widen with the plain path's
+//     arithmetic, its values bit for bit, so only the accumulation order
+//     differs from the plain version.
 // K3  latent_attention: T=1 MQA decode over MLA's latent rows (v is k), at
 //     the DeepSeek-V3 / Kimi-K2 width D = 576 (kv_lora_rank 512 + rope 64):
 //       B1 slot_attention, v_pool=None (_slot_attn_kernel_shared, :116)
@@ -213,16 +214,53 @@
 // * The int8 modes widen every value (~3.5 instructions: a byte permute
 //   into 2^23, a subtract, a float32 product with the row's scale, half a
 //   bf16 pack).
-//   - K1 (int8): 64-key stages of int8 K and V (128 B a row) and their 64
-//     scales (4-byte cp.async) come through a ring of DSTAGES_I8 beside one
-//     bf16 stage; after each stage lands, the MT warps that share a part of
-//     the keys widen that part into the bf16 stage behind a named barrier of
-//     their own (__syncwarp at MT = 1), and the products read it as a bf16
-//     stage. 85.5 KB, two blocks an SM; 162 / 168 / 168 registers at MT =
-//     1 / 2 / 4. It takes what bf16 K1 takes (0.0567 against 0.0563 ms at
-//     qwen3-32b's heads over 19,613 keys, bound 0.0125), so halving the
-//     bytes bought nothing; what holds it is not measured (a four-stage
-//     ring, which would hide more load latency, gave 0.0567 too).
+//   - K1's int8 mode, decode_i8. Its parent (K1's split-context kernel
+//     with an int8 ring widened into a bf16 stage) took bf16 K1's
+//     time; its timeline (scripts/time_k1_i8.py, PERF.md) put 2.9 us on each
+//     64-key tile (1.3 of table reads and copy issue: each thread read the
+//     page table before each cp.async; 1.0 of widening; 0.5 of products),
+//     12-13 tiles and a 4-us prologue in series (the static split) and 5-10
+//     us in the merge launch. The design answers each:
+//     . key ranges from the rows' real lengths, on the card: decode_i8_plan
+//       (one block: warp 0 plans, every warp writes items) reads seq_len and
+//       the positions, cuts each (row group, kv head)'s visible tiles into
+//       balanced pieces, ceil(t / C) of them with C = W / blocks (t / C
+//       rounded where ceil's pieces longer than C / 2 would outnumber the
+//       blocks: rows of one length), and lists them longest first; the
+//       persistent grid (3 blocks an SM) takes them from a counter, a block
+//       its next piece only once its current one's tiles are all issued, so
+//       the blocks that drew short pieces take more; a split unit's last
+//       piece to finish (a counter the plan zeroes) merges the pieces'
+//       partials itself: no merge launch. Sizes come from static shapes (B,
+//       KV, the SM count): no host read, a captured call replays;
+//     . loads off the compute warps: a producer warp reads the page table
+//       32 pages a load, issues each tile's K and V as TMA boxes of 64 / 32
+//       / 16 / 8 keys, each in one page, of 2-D maps over the int8 pools as
+//       (KV*128 B, pages*ps rows) under 128-byte swizzle, and the tile's 64
+//       scales of each by cp.async (zeros past the piece's end, so those
+//       keys widen to 0), into a 3-stage full / empty mbarrier ring that
+//       runs on across pieces; it loads each piece's q rows and key limits
+//       into one of two slots;
+//     . the widening in registers: 4 consumer warps, warp w keys 16w ..
+//       16w + 15 of each tile. Both products put the 16 keys (or value
+//       columns) on mma.sync m16n8k16's rows and the queries on its n = 8
+//       columns, so G = 8 fills the tile (the parent padded 8 query rows to
+//       16: half its mma issue was padding). K's A fragment is widened from
+//       two 16-byte loads of each of its two key rows, conflict-free under
+//       the swizzle (the head dimension permuted, and q's B fragment with
+//       it), V's from one 16-byte load of each of four value rows, each
+//       value with its own row's scale (dequant_cross); p becomes the value
+//       product's B fragment by movmatrix.trans. No bf16 stage in shared
+//       memory and no block barrier in the tile loop.
+//     71.5 KB of shared memory (92.3 KB at 16 query rows an item), 3 blocks
+//     an SM (2), as the runtime's occupancy query reports; ptxas gives 128
+//     registers (168, with 44 bytes of spills, at 16 rows), the plan 40 and
+//     33 KB. At qwen3-32b's heads over 19,613 keys (SEQS) 0.0274 ms against
+//     the parent's 0.0557 and bf16 K1's 0.0562 in the same call (bound
+//     0.0125, SDPA 0.0976; NVIDIA H100 80GB HBM3, 700.00 W, CUDA 12.8). What
+//     holds it, by its timeline: the plan, ~3.8 us before any load; the
+//     first tile ~3 us after it; ~14 us of streaming at ~3 TB/s; a unit's
+//     merge, ~2 us more on its last piece, in the tail.
 //   - K2 (int8 paged): widen_kv_pages writes each row's pages below its
 //     seq_len as bf16 into scratch pages b*P + p (a thread one 16-byte
 //     piece of K and one of V), then the bf16 paged mode runs over them
@@ -241,8 +279,8 @@
 // (slot_attention.py:98); B9 rounds p like B1 (slot_attention.py:178). The
 // B6 kernels keep p in float32 (paged_attention.py:106): K1 with p_bf16 = 0
 // runs PV on bf16(p) and on its bf16 remainder, as K3 does. K1's int8 mode
-// runs with p_bf16 (the int8 branch's masked_context_attention takes p in
-// the value dtype, bf16). K1 rounds p
+// rounds p to bf16 (the int8 branch's masked_context_attention takes p in
+// the value dtype, bf16). K1 (and its int8 mode) rounds p
 // relative to the running maximum of its own split and warp, not of the
 // whole row: a rounding of another p, within the attention tolerance. The
 // softmax sum always uses the unrounded p. Masked keys get p = 0 exactly;
@@ -273,7 +311,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 // K1
 constexpr int DBK = 64;        // keys per stage
 constexpr int DSTAGES = 3;     // cp.async ring depth
-constexpr int DSTAGES_I8 = 3;  // its depth over int8 pages
 constexpr int DROWS = 64;      // query rows a block holds at most: 4 m-tiles of 16
 
 // 16-byte global -> shared copy; src_bytes = 0 fills the destination with zeros
@@ -351,13 +388,8 @@ __device__ __forceinline__ void dequant16(const uint4& v, float s, uint4& lo, ui
 // ------------------------------------------------------------------- K1
 
 constexpr int DWIDE = 2 * DBK * ROW * (int)sizeof(bf16);   // one K/V stage in bf16
-constexpr int DI8 = 2 * DBK * HD + 2 * DBK * 4;   // one int8 K/V stage and its scales
-// bf16: the K/V ring (q staged in it first); int8: one bf16 stage that the
-// warps widen their keys into (q staged in it first), then the int8 ring
-template <bool I8>
-constexpr int decode_smem_bytes() {
-  return I8 ? DWIDE + DSTAGES_I8 * DI8 : DSTAGES * DWIDE;
-}
+// the K/V ring (q staged in it first)
+constexpr int decode_smem_bytes() { return DSTAGES * DWIDE; }
 constexpr int OROW = HD + 4;   // merge buffer row (floats)
 static_assert(DROWS * OROW * 4 + 2 * DROWS * 4 <= DWIDE,
               "the merge buffers must fit in one bf16 stage");
@@ -376,17 +408,10 @@ static_assert(DROWS <= DBK, "the q tile is staged in one K buffer of the ring");
 // m-tile); their (m, l, O) meet in shared memory at the end. With one split
 // the block writes out; with more it writes its unnormalised O and (m, l)
 // (m in log2 units) to o_part / ml_part, and decode_merge finishes.
-// I8: the pools hold int8 rows and ks / vs their float32 scales
-// ([R, ps, KV]); a stage lands as int8 (and its 64 keys' scales) in its own
-// ring, and the warps that share a part of the keys widen that part into
-// one bf16 stage (dequant16: the plain path's dequantization bit for bit)
-// behind a barrier of their own before the products read it as they read a
-// bf16 stage.
-template <int MT, bool I8>
+template <int MT>
 __global__ void __launch_bounds__(NTH)
 decode_attention(const bf16* __restrict__ q, long long q_bstride,
-                 const unsigned char* __restrict__ kp, const unsigned char* __restrict__ vp,
-                 const float* __restrict__ ks, const float* __restrict__ vs,
+                 const bf16* __restrict__ kp, const bf16* __restrict__ vp,
                  const long long* __restrict__ table, int P, long long row_offset,
                  const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
                  int qpos_stride, int min_one, int max_keys, bf16* __restrict__ out, int T,
@@ -396,9 +421,8 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
   constexpr int KW = DBK / KP;    // keys of a stage per warp
   constexpr int NB = KW / 8;      // its n-blocks of 8 keys
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int RS = I8 ? DSTAGES_I8 : DSTAGES;   // ring stages
-  bf16* kvs = reinterpret_cast<bf16*>(smem);   // bf16: [RS][2][DBK][ROW]; int8: [2][DBK][ROW]
-  unsigned char* i8s = smem + DWIDE;           // int8: [RS] of K, V [DBK][HD], scales [2][DBK]
+  constexpr int RS = DSTAGES;   // ring stages
+  bf16* kvs = reinterpret_cast<bf16*>(smem);   // [RS][2][DBK][ROW]
 
   const int b = blockIdx.x, kh = blockIdx.y, z = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -425,8 +449,7 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
   }
 
   // q tile, zero-padded to MT*16 rows, staged in the last stage's K buffer
-  // (int8: in the bf16 stage, which no warp widens into before q is read)
-  bf16* qs = kvs + (I8 ? 0 : (RS - 1) * 2 * DBK * ROW);
+  bf16* qs = kvs + (RS - 1) * 2 * DBK * ROW;
   for (int i = tid; i < MT * 16 * (HD / 8); i += NTH) {
     const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
     const bool ok = r < R;
@@ -438,45 +461,19 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
 
   const long long kv_row = (long long)KV * HD;   // elements between slots
   auto load_tile = [&](int stage, int kt) {
-    if (!I8) {
-      bf16* kd = kvs + stage * 2 * DBK * ROW;
-      bf16* vd = kd + DBK * ROW;
-      const bf16* kb = reinterpret_cast<const bf16*>(kp);
-      const bf16* vb = reinterpret_cast<const bf16*>(vp);
-      for (int i = tid; i < DBK * (HD / 8); i += NTH) {
-        const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-        const int j = k0 + kt * DBK + r;
-        const bool ok = j < k1;                   // keys past the split load as zeros
-        long long off = 0;
-        if (ok) {
-          const long long page = table ? table[(long long)b * P + j / ps] : row_offset + b;
-          off = (page * ps + j % ps) * kv_row + (long long)kh * HD + c;
-        }
-        cp_async16(kd + r * ROW + c, kb + off, ok ? 16 : 0);
-        cp_async16(vd + r * ROW + c, vb + off, ok ? 16 : 0);
-      }
-      return;
-    }
-    // int8: 64 keys of 128 bytes each of K and V, then their 64 scales each
-    unsigned char* kd = i8s + stage * DI8;
-    unsigned char* vd = kd + DBK * HD;
-    float* sd = reinterpret_cast<float*>(vd + DBK * HD);   // [2][DBK]
-    for (int i = tid; i < DBK * (HD / 16); i += NTH) {
-      const int r = i / (HD / 16), c = (i % (HD / 16)) * 16;
+    bf16* kd = kvs + stage * 2 * DBK * ROW;
+    bf16* vd = kd + DBK * ROW;
+    for (int i = tid; i < DBK * (HD / 8); i += NTH) {
+      const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
       const int j = k0 + kt * DBK + r;
-      const bool ok = j < k1;
+      const bool ok = j < k1;                   // keys past the split load as zeros
       long long off = 0;
       if (ok) {
         const long long page = table ? table[(long long)b * P + j / ps] : row_offset + b;
         off = (page * ps + j % ps) * kv_row + (long long)kh * HD + c;
       }
-      cp_async16(kd + r * HD + c, kp + off, ok ? 16 : 0);
-      cp_async16(vd + r * HD + c, vp + off, ok ? 16 : 0);
-      if (c == 0) {   // the row's scales, one a (slot, kv head)
-        const long long so = off / HD;
-        cp_async4(sd + r, ks + so, ok ? 4 : 0);
-        cp_async4(sd + DBK + r, vs + so, ok ? 4 : 0);
-      }
+      cp_async16(kd + r * ROW + c, kp + off, ok ? 16 : 0);
+      cp_async16(vd + r * ROW + c, vp + off, ok ? 16 : 0);
     }
   };
 #pragma unroll
@@ -513,27 +510,7 @@ decode_attention(const bf16* __restrict__ q, long long q_bstride,
       if (nt < ntiles) load_tile(nt % RS, nt);
       cp_async_commit();
     }
-    if (I8) {
-      // the MT warps of key part kpart widen its KW keys of K and V (16
-      // int8 a piece) into the bf16 stage: rows kpart*KW .. of each half;
-      // each warp passed the barrier above after its products of the stage
-      // before, so no warp still reads these rows
-      const unsigned char* src = i8s + (kt % RS) * DI8;
-      const float* sc = reinterpret_cast<const float*>(src + 2 * DBK * HD);
-      for (int i = mt * 32 + lane; i < 2 * KW * (HD / 16); i += MT * 32) {
-        const int isv = i / (KW * (HD / 16)), rem = i % (KW * (HD / 16));
-        const int r = kpart * KW + rem / (HD / 16), c = (rem % (HD / 16)) * 16;
-        uint4 lo, hi;
-        dequant16(*reinterpret_cast<const uint4*>(src + isv * DBK * HD + r * HD + c),
-                  sc[isv * DBK + r], lo, hi);
-        bf16* d = kvs + isv * DBK * ROW + r * ROW + c;
-        *reinterpret_cast<uint4*>(d) = lo;
-        *reinterpret_cast<uint4*>(d + 8) = hi;
-      }
-      if (MT == 1) __syncwarp();
-      else bar_sync(1 + kpart, MT * 32);
-    }
-    const bf16* kst = kvs + (I8 ? 0 : (kt % RS) * 2 * DBK * ROW) + kpart * KW * ROW;
+    const bf16* kst = kvs + (kt % RS) * 2 * DBK * ROW + kpart * KW * ROW;
     const bf16* vst = kst + DBK * ROW;
 
     // S = Q K^T over this warp's KW keys
@@ -712,24 +689,22 @@ decode_merge(const float* __restrict__ o_part, const float* __restrict__ ml_part
       __float2bfloat16(acc / fmaxf(L, 1e-30f));
 }
 
-template <int MT, bool I8>
+template <int MT>
 int launch_decode(const void* q, long long q_bstride, const void* k, const void* v,
-                  const void* ks, const void* vs, const void* table, int P,
-                  long long row_offset, const void* seq_len, const void* qpos, int qpos_stride,
-                  int min_one, int max_keys, void* out, int B, int T, int H, int KV, int ps,
-                  float scale, int p_bf16, int splits, int chunk, void* o_part, void* ml_part,
-                  cudaStream_t st) {
-  constexpr int bytes = decode_smem_bytes<I8>();
+                  const void* table, int P, long long row_offset, const void* seq_len,
+                  const void* qpos, int qpos_stride, int min_one, int max_keys, void* out, int B,
+                  int T, int H, int KV, int ps, float scale, int p_bf16, int splits, int chunk,
+                  void* o_part, void* ml_part, cudaStream_t st) {
+  constexpr int bytes = decode_smem_bytes();
   static bool attr_set = false;  // the opt-in above 48 KB, once per process
   if (!attr_set) {
-    cudaFuncSetAttribute(decode_attention<MT, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(decode_attention<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          bytes);
     attr_set = true;
   }
-  decode_attention<MT, I8><<<dim3(B, KV, splits), NTH, bytes, st>>>(
-      static_cast<const bf16*>(q), q_bstride, static_cast<const unsigned char*>(k),
-      static_cast<const unsigned char*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const long long*>(table), P, row_offset,
+  decode_attention<MT><<<dim3(B, KV, splits), NTH, bytes, st>>>(
+      static_cast<const bf16*>(q), q_bstride, static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const long long*>(table), P, row_offset,
       static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos),
       qpos_stride, min_one, max_keys, static_cast<bf16*>(out), T, H, KV, ps,
       scale * LOG2E, p_bf16, chunk, static_cast<float*>(o_part),
@@ -1474,6 +1449,688 @@ widen_kv_pages(const unsigned char* __restrict__ k, const unsigned char* __restr
   reinterpret_cast<uint4*>(vw)[dst + 1] = hi;
 }
 
+// ------------------------------------------------------- K1's int8 mode
+
+constexpr int IBK = 64;              // keys a tile
+constexpr int ISTAGES = 3;           // ring depth: a stage holds a tile's K, V and scales
+constexpr int ICW = 4;               // consumer warps: warp w takes keys 16w .. 16w + 15
+constexpr int ITH = 32 * (ICW + 1);  // + the producer warp
+constexpr int IKB = IBK * HD;        // bytes of a tile's int8 K (or V)
+constexpr int I8_PIECES = 1;         // pieces of about W / (I8_PIECES * blocks) key tiles,
+constexpr int I8_MIN_TILES = 2;      // and at least this many
+constexpr int IPLAN_TH = 512;        // threads of the plan kernel
+constexpr int IBUCKETS = 2048;       // the plan's counting sort (longer pieces share the last)
+constexpr int IPLAN_HDR = 8;         // items, C, the work counter, W
+constexpr int IPLAN_SMEM_ROWS = 1024;   // row groups whose records the plan keeps in shared memory
+constexpr int IMETA = 8 + 16;        // an item's slot: b, kv head, query group, first key, key
+                                     // end, tiles, partial slot, unit; its rows' key limits
+constexpr int IOROW = HD + 4;        // merge buffer row (floats)
+constexpr int I8_MERGE_BATCH = 10;   // pieces whose partials a merging thread loads at once
+static_assert(IPLAN_HDR % 4 == 0, "the row records start 16-byte aligned");
+
+// resident blocks an SM: 3 with 8 query rows an item (73 KB of shared
+// memory, <= 136 registers), 2 with 16
+template <int NQ>
+constexpr int i8_blocks_per_sm() { return NQ == 1 ? 3 : 2; }
+
+template <int NQ>
+constexpr int i8_smem_bytes() {
+  return 1024                                   // slack: the ring starts 1024-byte aligned
+         + 2 * ISTAGES * IKB                    // K and V stages (128-byte swizzled)
+         + ISTAGES * 2 * IBK * 4                // their scales
+         + 2 * 8 * NQ * HD * 2                  // two q slots
+         + ICW * 8 * NQ * (IOROW + 2) * 4       // the warps' partials (O, then m, l)
+         + 2 * IMETA * 4                        // two item slots
+         + 8 * (2 * ISTAGES + 4);               // mbarriers
+}
+static_assert(3 * (i8_smem_bytes<1>() + 1024) <= 233472, "three blocks an SM");
+static_assert(2 * (i8_smem_bytes<2>() + 1024) <= 233472, "two blocks an SM");
+
+// the plan in its int32 workspace: the header; per row group rw = b*QG + qg
+// (lim, tiles, z, slot base or -1); per unit u = rw*KV + kh the count of its
+// pieces done (split units); per row group the first place of its longer and
+// of its shorter pieces within their buckets; then (16-byte aligned) the
+// items longest first, each (u, first key, key end, partial slot or -1)
+struct I8Plan {
+  int* hdr;
+  int4* rows;
+  int* cnt;
+  int2* offs;
+  int4* items;
+  __device__ I8Plan(int* ws, int RW, int U)
+      : hdr(ws), rows(reinterpret_cast<int4*>(ws + IPLAN_HDR)), cnt(ws + IPLAN_HDR + 4 * RW),
+        offs(reinterpret_cast<int2*>(ws + IPLAN_HDR + 4 * RW + U + (U & 1))),
+        items(reinterpret_cast<int4*>(ws + ((IPLAN_HDR + 6 * RW + U + (U & 1) + 3) & ~3))) {}
+};
+
+// a query at chunk position t of a row: keys j < min(seq_len, q0 + t + 1, max_keys)
+__device__ __forceinline__ int i8_limit(long long sl, long long q0, int t, int max_keys) {
+  long long v = q0 + t + 1;
+  v = v < sl ? v : sl;
+  v = v < max_keys ? v : (long long)max_keys;
+  return v > 0 ? (int)v : 0;
+}
+
+// the pieces of a unit of t tiles: none where t = 0, else ceil(t / C), or
+// (round) t / C rounded to the nearest, at least 1; piece zi holds tiles
+// zi*t/z .. (zi+1)*t/z - 1, so a unit's pieces differ by one tile at most
+// (its last piece is no straggler that finishes after the rest);
+// ops/paged_attention.py i8_pieces
+__device__ __forceinline__ int i8_pieces(int t, int C, bool round) {
+  return t == 0 ? 0 : round ? max(1, (2 * t + C) / (2 * C)) : (t + C - 1) / C;
+}
+
+// of a unit's ceil(t / C) pieces, those longer than C / 2
+__device__ __forceinline__ int i8_long_pieces(int t, int C) {
+  const int z = i8_pieces(t, C, false), lo = z ? t / z : 0, hi = t - lo * z;
+  return (2 * (lo + 1) > C ? hi : 0) + (2 * lo > C ? z - hi : 0);
+}
+
+// one block of IPLAN_TH threads: the int8 mode's plan
+// (ops/paged_attention.py decode_i8_plan is its model). Row group rw = b*QG
+// + qg holds the query rows qg*RQ .. of row b (r = t*G + g); it ends at the
+// key limit of its last query (the widest), lim, and takes t = ceil(lim /
+// 64) tiles for each kv head: W = KV * the groups' tiles summed. C =
+// max(I8_MIN_TILES, ceil(W / (I8_PIECES * nblocks))); a group is cut into
+// ceil(t / C) pieces (i8_pieces), but where more pieces longer than C / 2
+// than blocks would come of that (a second wave of long pieces: rows of one
+// length), into t / C rounded (one wave); their float32 partials take slots in
+// group order; a group with no key takes none (the attention kernel's
+// producer warps write its zeros); the items, one a (piece, kv head), go
+// into the list longest first by a counting sort over their tile counts.
+// The work counter and the
+// units' piece counts are reset here, so a captured call replays with
+// them; nothing is read on the host.
+__global__ void __launch_bounds__(IPLAN_TH)
+decode_i8_plan(const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
+               int qpos_stride, int min_one, int max_keys, int B, int T, int G, int KV, int RQ,
+               int nblocks, int* __restrict__ ws) {
+  constexpr int NW = IPLAN_TH / 32;
+  __shared__ int hist[IBUCKETS];
+  __shared__ int4 s_rows[IPLAN_SMEM_ROWS];
+  __shared__ int2 s_offs[IPLAN_SMEM_ROWS];
+  __shared__ int s_nb;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int R = T * G, QG = (R + RQ - 1) / RQ, RW = B * QG;
+  const I8Plan pl(ws, RW, RW * KV);
+  grid_dep_launch();   // the attention kernel's blocks may take their SMs and set up
+  const bool in_smem = RW <= IPLAN_SMEM_ROWS;
+  int4* rows = in_smem ? s_rows : pl.rows;
+  int2* offs = in_smem ? s_offs : pl.offs;
+  if (wid == 0) {
+    // warp 0 plans (no block barrier on its way), a row group a lane in turn:
+    // each group's key limit and tiles; W, C
+    int w = 0;
+    for (int rw = lane; rw < RW; rw += 32) {
+      const int b = rw / QG, qg = rw - b * QG;
+      long long sl = seq_len[b];
+      if (min_one) sl = sl > 1 ? sl : 1;
+      const long long q0 = qpos ? qpos[(long long)b * qpos_stride] : sl - 1;
+      const int lim = i8_limit(sl, q0, (min(qg * RQ + RQ, R) - 1) / G, max_keys);
+      rows[rw] = make_int4(lim, (lim + IBK - 1) / IBK, 0, -1);
+      w += (lim + IBK - 1) / IBK;
+    }
+    const long long W = (long long)__reduce_add_sync(0xffffffffu, (unsigned)w) * KV;
+    const long long per_block = (long long)I8_PIECES * nblocks;
+    const int C = (int)max((long long)I8_MIN_TILES, (W + per_block - 1) / per_block);
+    const int nb = min(2 * C + 1, IBUCKETS);   // tile counts 1 .. < 1.5 C
+    for (int i = lane; i < nb; i += 32) hist[i] = 0;
+    // rounded piece counts where ceil's long pieces would outnumber the blocks
+    int nlong = 0;
+    for (int rw = lane; rw < RW; rw += 32) nlong += i8_long_pieces(rows[rw].y, C);
+    const bool round =
+        (long long)__reduce_add_sync(0xffffffffu, (unsigned)nlong) * KV > nblocks;
+    __syncwarp();
+    // each group's pieces and (split groups) first partial slot, in group
+    // order; t % z pieces of ceil(t / z) tiles, the rest of floor(t / z):
+    // each kind's first place within its bucket
+    int carry = 0;
+    for (int base = 0; base < RW; base += 32) {
+      const int rw = base + lane;
+      int4 r = make_int4(0, 0, 0, -1);
+      if (rw < RW) {
+        r = rows[rw];
+        r.z = i8_pieces(r.y, C, round);
+      }
+      int tot;
+      const int e = warp_scan(r.z > 1 ? r.z : 0, tot);
+      if (rw < RW) {
+        if (r.z > 1) r.w = carry + e;
+        rows[rw] = r;
+        const int lo = r.z ? r.y / r.z : 0, hi = r.y - lo * r.z;
+        offs[rw] = make_int2(hi ? atomicAdd(&hist[min(lo + 1, nb - 1)], hi * KV) : 0,
+                             lo ? atomicAdd(&hist[min(lo, nb - 1)], (r.z - hi) * KV) : 0);
+      }
+      carry += tot;
+    }
+    __syncwarp();
+    int n = 0;   // each bucket's first item, the longest bucket first
+    for (int base = 0; base < nb; base += 32) {
+      const int c = nb - 1 - (base + lane);
+      int t;
+      const int e = warp_scan(c >= 0 ? hist[c] : 0, t);
+      if (c >= 0) hist[c] = n + e;
+      n += t;
+    }
+    if (lane == 0) {
+      s_nb = nb;
+      pl.hdr[0] = n;
+      pl.hdr[1] = C;
+      pl.hdr[2] = 0;
+      pl.hdr[3] = (int)min(W, (long long)INT32_MAX);
+    }
+  }
+  __syncthreads();
+  const int nb = s_nb;
+  // a warp a row group: its z * KV items, (piece zi, kv head kh) a lane,
+  // each at its bucket's start + its kind's place + its rank among the
+  // group's pieces of that kind
+  for (int rw = wid; rw < RW; rw += NW) {
+    const int4 r = rows[rw];
+    const int2 of = offs[rw];
+    if (lane == 0 && in_smem) pl.rows[rw] = r;
+    for (int k = lane; k < KV; k += 32) pl.cnt[rw * KV + k] = 0;
+    const int lo = r.z ? r.y / r.z : 0;
+    for (int k = lane; k < r.z * KV; k += 32) {
+      const int zi = k / KV, kh = k - zi * KV;
+      const int t0 = zi * r.y / r.z, t1 = (zi + 1) * r.y / r.z;   // the piece's tiles
+      const int longer = t0 - zi * lo;   // the longer pieces before this one
+      const int at = t1 - t0 > lo ? hist[min(lo + 1, nb - 1)] + of.x + longer * KV + kh
+                                  : hist[min(lo, nb - 1)] + of.y + (zi - longer) * KV + kh;
+      pl.items[at] = make_int4(rw * KV + kh, t0 * IBK, min(t1 * IBK, r.x),
+                               r.z > 1 ? (r.w + zi) * KV + kh : -1);
+    }
+  }
+}
+
+// the bf16 pair (round(float(x0) * s0), round(float(x1) * s1)) of byte i of
+// w0 and of w1 (int8 with the sign bit flipped, x + 128): dequant_pair's
+// arithmetic with the pair's bytes from two rows, so each value is the plain
+// path's (int8.float() * scale).to(bf16) bit for bit
+__device__ __forceinline__ uint32_t dequant_cross(uint32_t w0, uint32_t w1, int i, float s0,
+                                                  float s1) {
+  uint32_t a, b;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(a) : "r"(w0), "r"(0x4B000000u), "r"(0x7440 | i));
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(b) : "r"(w1), "r"(0x4B000000u), "r"(0x7440 | i));
+  return pack_bf16((__uint_as_float(a) - 8388736.f) * s0, (__uint_as_float(b) - 8388736.f) * s1);
+}
+
+// atomicAdd at gpu scope with acquire-release order: after a block barrier,
+// one thread's call publishes the block's earlier writes and, where it sees
+// the others' count, lets the block read theirs after the next barrier
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// the 8x8 b16 matrix whose fragment (row lane / 4, columns 2 (lane % 4), +1)
+// this thread holds, transposed, in the same fragment layout
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// a persistent grid of ITH threads a block (i8_blocks_per_sm an SM),
+// launched early under the plan. An item (the plan's) is a piece of keys
+// [k0, k1) of row b, kv head kh, query group qg: the RQ = 8*NQ query rows
+// qg*RQ .. (r = t*G + g, query head kh*G + g; rows past R = T*G hold none).
+// Warp ICW, the producer: waits for the plan (griddepcontrol); takes the
+// block's first item, and each next one from the work counter once the
+// current one's tiles are all issued; writes each item's meta and its rows'
+// key limits into one of two slots, with its q rows (cp.async); keeps 32
+// page-table entries of the row, one a lane; for each 64-key tile, as a
+// stage frees up, its keys' scales of K and V (cp.async, zeros past k1) and
+// its K and V as TMA boxes of box_rows keys (each in one page) of 2-D maps
+// over the int8 pools as (KV*128 bytes, pages*ps rows) under 128-byte
+// swizzle; a stage's full barrier takes 32 cp.async arrivals and the boxes'
+// bytes. With no item left it writes the zeros of the row groups that see
+// no key (no item), its block's share.
+// Warps 0..ICW-1, the consumers: warp w takes tile rows 16w .. 16w + 15 of
+// every tile and keeps its own running (m, l, O) of the item's queries.
+// Both products run on mma.sync m16n8k16 with the keys (or the value
+// columns) as the 16 rows and the queries as the 8 columns, so a query
+// group of 8 fills the n tile (G = 8 wastes nothing; NQ = 2 for 16):
+//   S^T = K Q^T: the A fragment is dequantized in registers from 32
+//     consecutive bytes of key rows g and g + 8 (lane = 4g + c, bytes 32c
+//     .. 32c + 31, two 16-byte loads conflict-free under the swizzle); the
+//     head dimension is permuted (k-step kk, columns 2c, 2c+1, 2c+8, 2c+9 =
+//     dims 32c + 4kk + 0..3), and q's B fragment with it: words 2kk, 2kk+1
+//     of q row g's dims 32c .. 32c + 31;
+//   softmax over the keys in registers (log2 units), p rounded to bf16 and
+//     turned into the B fragment of the value product by movmatrix.trans;
+//   O^T += V^T P^T: the A fragment is dequantized from one 16-byte load of
+//     each of the value rows 2c, 2c+1, 2c+8, 2c+9 (dims 16g .. 16g + 15:
+//     m-tile mt takes dims 16g + 2mt and 16g + 2mt + 1 as its rows g, g+8),
+//     each byte with its own row's scale (dequant_cross).
+// At an item's end the warps' partials meet in shared memory, a thread 8
+// columns of a row: an unsplit item writes out, a piece of a split unit its
+// float32 partial (unnormalised O, m in log2 units, l) in slot `pslot`, and
+// the last of the unit's pieces to finish (a counter the plan zeroes)
+// merges the unit's partials into out.
+template <int NQ>
+__global__ void __launch_bounds__(ITH, i8_blocks_per_sm<NQ>())
+decode_i8(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+          const bf16* __restrict__ q, long long q_bstride, const float* __restrict__ ksc,
+          const float* __restrict__ vsc, const long long* __restrict__ table, int P, int ps,
+          int box_rows, const long long* __restrict__ seq_len, const long long* __restrict__ qpos,
+          int qpos_stride, int min_one, int max_keys, bf16* __restrict__ out, int B, int T, int H,
+          int KV, float scale_log2, int* __restrict__ ws, float* __restrict__ o_part,
+          float* __restrict__ ml_part) {
+  constexpr int RQ = 8 * NQ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ int s_last;
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* kring = smem;                                      // [ISTAGES][IBK][128]
+  unsigned char* vring = kring + ISTAGES * IKB;
+  float* scs = reinterpret_cast<float*>(vring + ISTAGES * IKB);      // [ISTAGES][2][IBK]
+  bf16* qsl = reinterpret_cast<bf16*>(scs + ISTAGES * 2 * IBK);      // [2][RQ][HD]
+  float* mbuf = reinterpret_cast<float*>(qsl + 2 * RQ * HD);         // [ICW][RQ][IOROW]
+  float* mlb = mbuf + ICW * RQ * IOROW;                               // [ICW][RQ][2]
+  int* meta = reinterpret_cast<int*>(mlb + ICW * RQ * 2);             // [2][IMETA]
+  uint64_t* full = reinterpret_cast<uint64_t*>(meta + 2 * IMETA);
+  uint64_t* empty = full + ISTAGES;
+  uint64_t* meta_full = empty + ISTAGES;
+  uint64_t* meta_empty = meta_full + 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = H / KV, R = T * G, QG = (R + RQ - 1) / RQ;
+  const I8Plan pl(ws, B * QG, B * QG * KV);
+  if (tid == 0) {
+    for (int s = 0; s < ISTAGES; ++s) {
+      mbar_init(&full[s], 33);        // 32 lanes' scale copies + the boxes' expect_tx
+      mbar_init(&empty[s], ICW);      // each consumer warp, once it holds the stage
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&meta_full[s], 64);   // 32 lanes' writes + their q copies
+      mbar_init(&meta_empty[s], ICW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == ICW) {
+    // ---- producer
+    grid_dep_wait();   // the plan
+    const int n_items = pl.hdr[0];
+    int* counter = pl.hdr + 2;
+    int idx = blockIdx.x;   // the block's first item; the rest from the counter
+    int g = 0;              // tiles issued: the ring position
+    for (int it = 0;; ++it) {
+      const int slot = it & 1;
+      int* mt = meta + slot * IMETA;
+      if (it >= 2) mbar_wait(&meta_empty[slot], ((it >> 1) - 1) & 1);
+      if (idx >= n_items) {   // no work left: the consumers stop at b = -1
+        if (lane == 0) mt[0] = -1;
+        cp_async_mbar_arrive(&meta_full[slot]);
+        mbar_arrive(&meta_full[slot]);
+        break;
+      }
+      const int4 item = pl.items[idx];
+      const int u = item.x, k0 = item.y, k1 = item.z;
+      const int rw = u / KV, kh = u - rw * KV, b = rw / QG, qg = rw - b * QG;
+      const int nt = (k1 - k0 + IBK - 1) / IBK;
+      long long sl = seq_len[b];
+      if (min_one) sl = sl > 1 ? sl : 1;
+      const long long q0 = qpos ? qpos[(long long)b * qpos_stride] : sl - 1;
+      // the window: pages wb .. wb + 31 of row b, one a lane (0 past k1)
+      int wb = k0 / ps;
+      long long win = 0;
+      if ((wb + lane) * (long long)ps < k1) win = table[(long long)b * P + wb + lane];
+      if (lane == 0) {
+        mt[0] = b;
+        mt[1] = kh;
+        mt[2] = qg;
+        mt[3] = k0;
+        mt[4] = k1;
+        mt[5] = nt;
+        mt[6] = item.w;
+        mt[7] = u;
+      }
+      if (lane < RQ) {
+        const int r = qg * RQ + lane;
+        mt[8 + lane] = r < R ? i8_limit(sl, q0, r / G, max_keys) : 0;
+      }
+      bf16* qd = qsl + slot * RQ * HD;
+#pragma unroll
+      for (int i = 0; i < RQ * (HD / 8) / 32; ++i) {   // 16 bytes a copy; rows past R: zeros
+        const int p = lane + 32 * i, r = p / (HD / 8), c = (p % (HD / 8)) * 8;
+        const int ra = qg * RQ + r;
+        const bool ok = ra < R;
+        const int t = ok ? ra / G : 0, gq = ok ? ra % G : 0;
+        cp_async16(qd + r * HD + c, q + b * q_bstride + ((long long)t * H + kh * G + gq) * HD + c,
+                   ok ? 16 : 0);
+      }
+      cp_async_mbar_arrive(&meta_full[slot]);
+      mbar_arrive(&meta_full[slot]);
+      for (int kt = 0; kt < nt; ++kt, ++g) {
+        const int s = g % ISTAGES, j0 = k0 + kt * IBK, jn = min(IBK, k1 - j0);
+        if ((j0 + jn - 1) / ps >= wb + 32) {   // the next 32 pages
+          wb = j0 / ps;
+          win = (wb + lane) * (long long)ps < k1 ? table[(long long)b * P + wb + lane] : 0;
+        }
+        if (g >= ISTAGES) mbar_wait(&empty[s], ((g / ISTAGES) - 1) & 1);
+        float* sd = scs + s * 2 * IBK;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // keys lane and lane + 32 of the tile
+          const int kk = lane + 32 * h, j = j0 + kk;
+          const bool ok = kk < jn;
+          const long long pg = __shfl_sync(0xffffffffu, win, ok ? j / ps - wb : 0);
+          const long long so = (pg * ps + (ok ? j % ps : 0)) * KV + kh;
+          cp_async4(sd + kk, ksc + so, ok ? 4 : 0);
+          cp_async4(sd + IBK + kk, vsc + so, ok ? 4 : 0);
+        }
+        cp_async_mbar_arrive(&full[s]);
+        const int nbox = (jn + box_rows - 1) / box_rows, jb = j0 + lane * box_rows;
+        const long long pb = __shfl_sync(0xffffffffu, win, lane < nbox ? jb / ps - wb : 0);
+        if (lane == 0) mbar_expect_tx(&full[s], 2u * nbox * box_rows * HD);
+        __syncwarp();
+        if (lane < nbox) {
+          const int row = (int)(pb * ps + jb % ps);
+          tma_load_2d(kring + s * IKB + lane * box_rows * HD, &tk, &full[s], kh * HD, row);
+          tma_load_2d(vring + s * IKB + lane * box_rows * HD, &tv, &full[s], kh * HD, row);
+        }
+      }
+      // the next item, taken once this one's tiles are all issued (the
+      // block is then a few tiles from free): a block that drew a short
+      // piece comes back sooner and takes more, so the pieces balance
+      int nxt = 0;
+      if (lane == 0) nxt = gridDim.x + atomicAdd(counter, 1);
+      idx = __shfl_sync(0xffffffffu, nxt, 0);
+    }
+    // zeros over the row groups with no key (no item): each block its share
+    // of each such group's 16-byte pieces of out (the groups' limits read
+    // 32 a load)
+    for (int base = 0; base < B * QG; base += 32) {
+      unsigned keyless =
+          __ballot_sync(0xffffffffu, base + lane < B * QG && pl.rows[base + lane].x == 0);
+      for (; keyless; keyless &= keyless - 1) {
+        const int rw = base + __ffs(keyless) - 1, b = rw / QG, qg = rw - b * QG;
+        const long long n = (long long)min(RQ, R - qg * RQ) * KV * (HD / 8);
+        const long long i1 = n * (blockIdx.x + 1) / gridDim.x;
+        for (long long i = n * blockIdx.x / gridDim.x + lane; i < i1; i += 32) {
+          const int r = (int)(i / (KV * (HD / 8))), rem = (int)(i % (KV * (HD / 8)));
+          const int ra = qg * RQ + r, kh = rem / (HD / 8);
+          *reinterpret_cast<uint4*>(out + (((long long)b * T + ra / G) * H + kh * G + ra % G) *
+                                              HD + (rem % (HD / 8)) * 8) =
+              make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  const int w = warp, gq = lane >> 2, c = lane & 3;
+  const int kr = 16 * w + gq;      // key rows kr, kr + 8 (kr % 8 == gq)
+  const int vr = 16 * w + 2 * c;   // value rows vr, vr + 1, vr + 8, vr + 9 (vr % 8 == 2c)
+  int g0 = 0;                      // the ring position of the item's first tile
+  for (int it = 0;; ++it) {
+    const int slot = it & 1;
+    const int* mt = meta + slot * IMETA;
+    mbar_wait(&meta_full[slot], (it >> 1) & 1);
+    const int b = mt[0];
+    if (b < 0) break;
+    const int kh = mt[1], qg = mt[2], k0 = mt[3], nt = mt[5], pslot = mt[6], u = mt[7];
+    int lim[NQ][2];
+    uint32_t qf[NQ][16];   // q row 8j + gq, dims 32c .. 32c + 31 as bf16 pairs
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      lim[j][0] = mt[8 + 8 * j + 2 * c];
+      lim[j][1] = mt[8 + 8 * j + 2 * c + 1];
+      const uint4* qr =
+          reinterpret_cast<const uint4*>(qsl + (slot * RQ + 8 * j + gq) * HD + 32 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 x = qr[i];
+        qf[j][4 * i] = x.x;
+        qf[j][4 * i + 1] = x.y;
+        qf[j][4 * i + 2] = x.z;
+        qf[j][4 * i + 3] = x.w;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&meta_empty[slot]);
+    float o[8][NQ][4];
+#pragma unroll
+    for (int mi = 0; mi < 8; ++mi)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[mi][j][i] = 0.f;
+    float m[NQ][2], l[NQ][2];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) m[j][0] = m[j][1] = -INFINITY, l[j][0] = l[j][1] = 0.f;
+
+    for (int kt = 0; kt < nt; ++kt) {
+      const int gg = g0 + kt, s = gg % ISTAGES;
+      mbar_wait(&full[s], (gg / ISTAGES) & 1);
+      const unsigned char* kst = kring + s * IKB;
+      const unsigned char* vst = vring + s * IKB;
+      const float* sd = scs + s * 2 * IBK;
+      uint4 ka[2], kb[2], va[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ka[h] = *reinterpret_cast<const uint4*>(kst + kr * HD + ((2 * c + h) ^ gq) * 16);
+        kb[h] = *reinterpret_cast<const uint4*>(kst + (kr + 8) * HD + ((2 * c + h) ^ gq) * 16);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = vr + (i & 1) + 8 * (i >> 1);
+        va[i] = *reinterpret_cast<const uint4*>(vst + r * HD + (gq ^ (2 * c + (i & 1))) * 16);
+      }
+      const float sk0 = sd[kr], sk1 = sd[kr + 8];
+      const float sv[4] = {sd[IBK + vr], sd[IBK + vr + 1], sd[IBK + vr + 8], sd[IBK + vr + 9]};
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);   // the stage is in registers
+
+      // S^T = K Q^T over the warp's 16 keys
+      float sc[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t x0 = word_of(ka[kk >> 2], kk & 3) ^ 0x80808080u;
+        const uint32_t x1 = word_of(kb[kk >> 2], kk & 3) ^ 0x80808080u;
+        const uint32_t a[4] = {dequant_pair(x0, 0, sk0), dequant_pair(x1, 0, sk1),
+                               dequant_pair(x0, 2, sk0), dequant_pair(x1, 2, sk1)};
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const uint32_t bq[2] = {qf[j][2 * kk], qf[j][2 * kk + 1]};
+          mma_bf16(sc[j], a, bq);
+        }
+      }
+      // mask, online softmax (log2 units) of each query column over the
+      // keys: rows kr (sc[.][0..1]) and kr + 8 (sc[.][2..3])
+      const int key = k0 + kt * IBK + kr;
+      float al[NQ][2];
+      uint32_t pb[NQ][2];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float v0 = key < lim[j][e] ? sc[j][e] * scale_log2 : -INFINITY;
+          const float v1 = key + 8 < lim[j][e] ? sc[j][2 + e] * scale_log2 : -INFINITY;
+          float mx = fmaxf(v0, v1);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          const float mn = fmaxf(m[j][e], mx);
+          // a query with no key yet keeps m = -inf; 2^(-inf - 0) = 0 leaves it empty
+          const float ms = mn == -INFINITY ? 0.f : mn;
+          al[j][e] = fast_exp2(m[j][e] - ms);
+          m[j][e] = mn;
+          const float p0 = fast_exp2(v0 - ms), p1 = fast_exp2(v1 - ms);
+          l[j][e] = l[j][e] * al[j][e] + p0 + p1;   // this thread's keys; reduced at the end
+          sc[j][e] = p0;
+          sc[j][2 + e] = p1;
+        }
+        pb[j][0] = movmatrix_trans(pack_bf16(sc[j][0], sc[j][1]));   // keys 2c, 2c+1; query gq
+        pb[j][1] = movmatrix_trans(pack_bf16(sc[j][2], sc[j][3]));   // keys 2c+8, 2c+9
+      }
+      bool grew = false;   // a running maximum moved: rescale (x 1 changes nothing)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) grew |= al[j][0] != 1.f || al[j][1] != 1.f;
+      if (__any_sync(0xffffffffu, grew)) {
+#pragma unroll
+        for (int mi = 0; mi < 8; ++mi)
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            o[mi][j][0] *= al[j][0];
+            o[mi][j][1] *= al[j][1];
+            o[mi][j][2] *= al[j][0];
+            o[mi][j][3] *= al[j][1];
+          }
+      }
+      // O^T += V^T P^T: m-tile mi holds dims 16gq + 2mi (row gq) and + 1 (row gq + 8)
+      uint32_t y[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        y[i][0] = va[i].x ^ 0x80808080u;
+        y[i][1] = va[i].y ^ 0x80808080u;
+        y[i][2] = va[i].z ^ 0x80808080u;
+        y[i][3] = va[i].w ^ 0x80808080u;
+      }
+#pragma unroll
+      for (int mi = 0; mi < 8; ++mi) {
+        const int wi = mi >> 1, by = 2 * (mi & 1);
+        const uint32_t a[4] = {dequant_cross(y[0][wi], y[1][wi], by, sv[0], sv[1]),
+                               dequant_cross(y[0][wi], y[1][wi], by + 1, sv[0], sv[1]),
+                               dequant_cross(y[2][wi], y[3][wi], by, sv[2], sv[3]),
+                               dequant_cross(y[2][wi], y[3][wi], by + 1, sv[2], sv[3])};
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) mma_bf16(o[mi][j], a, pb[j]);
+      }
+    }
+    g0 += nt;
+
+    // the warps' partials meet: query 8j + 2c + e's dims 16gq .. 16gq + 15
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float lv = l[j][e];
+        lv += __shfl_xor_sync(0xffffffffu, lv, 4);
+        lv += __shfl_xor_sync(0xffffffffu, lv, 8);
+        lv += __shfl_xor_sync(0xffffffffu, lv, 16);
+        const int qr = 8 * j + 2 * c + e;
+        float* row = mbuf + (w * RQ + qr) * IOROW + 16 * gq;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float4*>(row + 4 * i) =
+              make_float4(o[2 * i][j][e], o[2 * i][j][2 + e], o[2 * i + 1][j][e],
+                          o[2 * i + 1][j][2 + e]);
+        if (gq == 0) {
+          mlb[(w * RQ + qr) * 2] = m[j][e];
+          mlb[(w * RQ + qr) * 2 + 1] = lv;
+        }
+      }
+    bar_sync(1, 32 * ICW);
+    // thread: 8 columns (segment seg) of rows r = tid / 16, + 8
+    const int seg = tid & 15;
+    for (int r = tid >> 4; r < RQ; r += 8) {
+      const int ra = qg * RQ + r;
+      if (ra >= R) continue;   // no query in this row
+      float M = -INFINITY, L = 0.f, acc[8];
+#pragma unroll
+      for (int k = 0; k < ICW; ++k) M = fmaxf(M, mlb[(k * RQ + r) * 2]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+      if (M != -INFINITY) {
+#pragma unroll
+        for (int k = 0; k < ICW; ++k) {
+          const float wt = fast_exp2(mlb[(k * RQ + r) * 2] - M);   // 0 for a warp with no key
+          const float4* src =
+              reinterpret_cast<const float4*>(mbuf + (k * RQ + r) * IOROW + 8 * seg);
+          const float4 x0 = src[0], x1 = src[1];
+          L += mlb[(k * RQ + r) * 2 + 1] * wt;
+          acc[0] += x0.x * wt;
+          acc[1] += x0.y * wt;
+          acc[2] += x0.z * wt;
+          acc[3] += x0.w * wt;
+          acc[4] += x1.x * wt;
+          acc[5] += x1.y * wt;
+          acc[6] += x1.z * wt;
+          acc[7] += x1.w * wt;
+        }
+      }
+      if (pslot < 0) {
+        const float inv = 1.f / fmaxf(L, 1e-30f);
+        *reinterpret_cast<uint4*>(out + (((long long)b * T + ra / G) * H + kh * G + ra % G) * HD +
+                                  8 * seg) =
+            make_uint4(pack_bf16(acc[0] * inv, acc[1] * inv),
+                       pack_bf16(acc[2] * inv, acc[3] * inv),
+                       pack_bf16(acc[4] * inv, acc[5] * inv),
+                       pack_bf16(acc[6] * inv, acc[7] * inv));
+      } else {
+        const long long pr = (long long)pslot * RQ + r;
+        float4* dst = reinterpret_cast<float4*>(o_part + pr * HD + 8 * seg);
+        dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        if (seg == 0) reinterpret_cast<float2*>(ml_part)[pr] = make_float2(M, L);
+      }
+    }
+    if (pslot >= 0) {
+      // the unit's last piece to finish merges its pieces' partials, the
+      // loads of I8_MERGE_BATCH pieces at once, with a running maximum; one
+      // thread's fence after the barrier releases the block's partials
+      bar_sync(1, 32 * ICW);
+      const int4 rr = pl.rows[u / KV];   // (lim, tiles, z, first slot)
+      if (tid == 0) s_last = atom_add_acq_rel(&pl.cnt[u], 1) == rr.z - 1;
+      bar_sync(1, 32 * ICW);
+      if (s_last) {
+        for (int r = tid >> 4; r < RQ; r += 8) {
+          const int ra = qg * RQ + r;
+          if (ra >= R) continue;
+          float M = -INFINITY, L = 0.f, acc[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+          for (int z0 = 0; z0 < rr.z; z0 += I8_MERGE_BATCH) {
+            float2 ml[I8_MERGE_BATCH];
+            float4 ov[I8_MERGE_BATCH][2];
+#pragma unroll
+            for (int j = 0; j < I8_MERGE_BATCH; ++j) {
+              const long long pr = ((long long)(rr.w + min(z0 + j, rr.z - 1)) * KV + kh) * RQ + r;
+              ml[j] = __ldcg(reinterpret_cast<const float2*>(ml_part) + pr);
+              ov[j][0] = __ldcg(reinterpret_cast<const float4*>(o_part + pr * HD + 8 * seg));
+              ov[j][1] = __ldcg(reinterpret_cast<const float4*>(o_part + pr * HD + 8 * seg) + 1);
+            }
+#pragma unroll
+            for (int j = 0; j < I8_MERGE_BATCH; ++j) {
+              if (z0 + j >= rr.z || ml[j].x == -INFINITY) continue;   // no key of it there
+              const float mn = fmaxf(M, ml[j].x);
+              const float a = fast_exp2(M - mn), wz = fast_exp2(ml[j].x - mn);   // M = -inf: 0
+              M = mn;
+              L = L * a + ml[j].y * wz;
+              acc[0] = acc[0] * a + ov[j][0].x * wz;
+              acc[1] = acc[1] * a + ov[j][0].y * wz;
+              acc[2] = acc[2] * a + ov[j][0].z * wz;
+              acc[3] = acc[3] * a + ov[j][0].w * wz;
+              acc[4] = acc[4] * a + ov[j][1].x * wz;
+              acc[5] = acc[5] * a + ov[j][1].y * wz;
+              acc[6] = acc[6] * a + ov[j][1].z * wz;
+              acc[7] = acc[7] * a + ov[j][1].w * wz;
+            }
+          }
+          const float inv = 1.f / fmaxf(L, 1e-30f);
+          *reinterpret_cast<uint4*>(out + (((long long)b * T + ra / G) * H + kh * G + ra % G) *
+                                              HD + 8 * seg) =
+              make_uint4(pack_bf16(acc[0] * inv, acc[1] * inv),
+                         pack_bf16(acc[2] * inv, acc[3] * inv),
+                         pack_bf16(acc[4] * inv, acc[5] * inv),
+                         pack_bf16(acc[6] * inv, acc[7] * inv));
+        }
+      }
+    }
+    bar_sync(1, 32 * ICW);   // the merge buffers are free again
+  }
+}
+
 // ------------------------------------------------------------------- K3
 
 constexpr int LDK = 576;            // latent row: kv_lora_rank 512 + rope 64
@@ -1926,6 +2583,35 @@ int launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap
   return (int)cudaGetLastError();
 }
 
+// K1's int8 mode: the plan (one block), then the persistent grid of
+// sms * i8_blocks_per_sm blocks, early under the plan (its producer waits)
+template <int NQ>
+int launch_decode_i8(const CUtensorMap& tk, const CUtensorMap& tv, const void* q,
+                     long long q_bstride, const void* ks, const void* vs, const void* table,
+                     int P, int ps, int box_rows, const void* seq_len, const void* qpos,
+                     int qpos_stride, int min_one, int max_keys, void* out, int B, int T, int H,
+                     int KV, float scale, void* ws, void* o_part, void* ml_part, int sms,
+                     cudaStream_t st) {
+  constexpr int bytes = i8_smem_bytes<NQ>();
+  static bool attr_set = false;  // the opt-in above 48 KB, once per process
+  if (!attr_set) {
+    cudaFuncSetAttribute(decode_i8<NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    attr_set = true;
+  }
+  const int nblocks = sms * i8_blocks_per_sm<NQ>();
+  decode_i8_plan<<<1, IPLAN_TH, 0, st>>>(
+      static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos), qpos_stride,
+      min_one, max_keys, B, T, H / KV, KV, 8 * NQ, nblocks, static_cast<int*>(ws));
+  launch_after(true, decode_i8<NQ>, nblocks, ITH, bytes, st, tk, tv, static_cast<const bf16*>(q),
+               q_bstride, static_cast<const float*>(ks), static_cast<const float*>(vs),
+               static_cast<const long long*>(table), P, ps, box_rows,
+               static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos),
+               qpos_stride, min_one, max_keys, static_cast<bf16*>(out), B, T, H, KV,
+               scale * LOG2E, static_cast<int*>(ws), static_cast<float*>(o_part),
+               static_cast<float*>(ml_part));
+  return (int)cudaGetLastError();
+}
+
 // blocks of `kernel` an SM holds (occupancy query)
 template <typename Kernel>
 void occupancy(int* out, Kernel kernel, int threads, int bytes) {
@@ -1938,33 +2624,57 @@ void occupancy(int* out, Kernel kernel, int threads, int bytes) {
 
 extern "C" {
 
-// K1's int8 mode: k, v [R,ps,KV,128] int8 with ks, vs [R,ps,KV] float32, one
-// scale a (slot, kv head); the rest as dstts_decode_attention. ks == null:
-// bf16 pools (dstts_decode_attention).
-int dstts_decode_attention_i8(const void* q, long long q_bstride, const void* k,
-                              const void* v, const void* ks, const void* vs, const void* table,
-                              int P, long long row_offset, const void* seq_len,
-                              const void* qpos, int qpos_stride, int min_one, int max_keys,
-                              void* out, int B, int T, int H, int KV, int ps, float scale,
-                              int p_bf16, int splits, int chunk, void* o_part, void* ml_part,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int R = T * (H / KV);
-  // m-tiles of 16 rows: the smallest instance that covers the block's R rows
-  using Launch = int (*)(const void*, long long, const void*, const void*, const void*,
-                         const void*, const void*, int, long long, const void*, const void*,
-                         int, int, int, void*, int, int, int, int, int, float, int, int, int,
-                         void*, void*, cudaStream_t);
-  if (R > DROWS || splits < 1 || chunk % DBK || (ks == nullptr) != (vs == nullptr))
+// K1's int8 mode (B6 over int8 pages: the int8 branch of JAX's
+// paged_attention). q [B,T,H,128] bf16 with batch stride q_bstride (the
+// other dimensions contiguous); k, v pools [R,ps,KV,128] int8 with ks, vs
+// [R,ps,KV] float32, one scale a (slot, kv head), all contiguous; table
+// [B,P] int64 (pool pages); seq_len [B] int64; qpos int64 with stride
+// qpos_stride or null. Query t of row b sees keys j < min(seq_len (>= 1 if
+// min_one), qpos[b*qpos_stride] + t + 1, max_keys, P*ps). T*H/KV <= 64;
+// with P > 1, ps a multiple of 8 (boxes of the largest of 64, 32, 16, 8
+// keys that divides it); one page a row takes any ps. ws, o_part, ml_part:
+// int32 / float32 scratch of the sizes ops/paged_attention.py i8_plan_sizes
+// gives for the SM count sms (static shapes only). Launches the plan, then
+// the persistent grid. The TMA tensor maps are encoded here on each call
+// and passed by value.
+int dstts_decode_i8(const void* q, long long q_bstride, const void* k, const void* v,
+                    const void* ks, const void* vs, const void* table, int P, long long R,
+                    const void* seq_len, const void* qpos, int qpos_stride, int min_one,
+                    int max_keys, void* out, int B, int T, int H, int KV, int ps, float scale,
+                    void* ws, void* o_part, void* ml_part, int sms, void* stream) {
+  int box_rows = IBK;
+  while (P > 1 && box_rows >= 8 && ps % box_rows) box_rows /= 2;
+  const int rows = KV > 0 && H % KV == 0 ? T * (H / KV) : 0;
+  if (B < 1 || T < 1 || rows < 1 || rows > DROWS || !table || P < 1 || box_rows < 8 || sms < 1 ||
+      !ws || !o_part || !ml_part || !ks || !vs || R * ps > INT32_MAX ||
+      (long long)P * ps > INT32_MAX || (long long)B * P > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const Launch launch =
-      ks ? (R <= 16 ? &launch_decode<1, true> : R <= 32 ? &launch_decode<2, true>
-                                                        : &launch_decode<4, true>)
-         : (R <= 16 ? &launch_decode<1, false> : R <= 32 ? &launch_decode<2, false>
-                                                         : &launch_decode<4, false>);
-  return launch(q, q_bstride, k, v, ks, vs, table, P, row_offset, seq_len, qpos, qpos_stride,
-                min_one, max_keys, out, B, T, H, KV, ps, scale, p_bf16, splits, chunk,
-                o_part, ml_part, st);
+  CUtensorMap tk, tv;
+  // the pools as (KV*128 bytes, R*ps rows): kv head kh's keys are bytes kh*128 ..
+  if (!u8_map(&tk, k, (cuuint64_t)KV * HD, (cuuint64_t)(R * ps), box_rows) ||
+      !u8_map(&tv, v, (cuuint64_t)KV * HD, (cuuint64_t)(R * ps), box_rows))
+    return (int)cudaErrorInvalidValue;
+  max_keys = max_keys < P * ps ? max_keys : P * ps;
+  return (rows <= 8 ? &launch_decode_i8<1> : &launch_decode_i8<2>)(
+      tk, tv, q, q_bstride, ks, vs, table, P, ps, box_rows, seq_len, qpos, qpos_stride, min_one,
+      max_keys, out, B, T, H, KV, scale, ws, o_part, ml_part, sms,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K1's int8 mode's plan alone (decode_i8_plan), as dstts_decode_i8 launches
+// it, into ws.
+int dstts_decode_i8_plan(const void* seq_len, const void* qpos, int qpos_stride, int min_one,
+                         int max_keys, int B, int T, int H, int KV, int sms, void* ws,
+                         void* stream) {
+  const int rows = KV > 0 && H % KV == 0 ? T * (H / KV) : 0;
+  if (B < 1 || T < 1 || rows < 1 || rows > DROWS || sms < 1 || !ws)
+    return (int)cudaErrorInvalidValue;
+  const int NQ = rows <= 8 ? 1 : 2;
+  decode_i8_plan<<<1, IPLAN_TH, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(seq_len), static_cast<const long long*>(qpos), qpos_stride,
+      min_one, max_keys, B, T, H / KV, KV, 8 * NQ,
+      sms * (NQ == 1 ? i8_blocks_per_sm<1>() : i8_blocks_per_sm<2>()), static_cast<int*>(ws));
+  return (int)cudaGetLastError();
 }
 
 // K1 (B1 / B6). q [B,T,H,128] bf16 with batch stride q_bstride (elements;
@@ -1981,10 +2691,13 @@ int dstts_decode_attention(const void* q, long long q_bstride, const void* k,
                            int min_one, int max_keys, void* out, int B, int T, int H,
                            int KV, int ps, float scale, int p_bf16, int splits, int chunk,
                            void* o_part, void* ml_part, void* stream) {
-  return dstts_decode_attention_i8(q, q_bstride, k, v, nullptr, nullptr, table, P, row_offset,
-                                   seq_len, qpos, qpos_stride, min_one, max_keys, out, B, T, H,
-                                   KV, ps, scale, p_bf16, splits, chunk, o_part, ml_part,
-                                   stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int R = T * (H / KV);
+  if (R > DROWS || splits < 1 || chunk % DBK) return (int)cudaErrorInvalidValue;
+  // m-tiles of 16 rows: the smallest instance that covers the block's R rows
+  return (R <= 16 ? &launch_decode<1> : R <= 32 ? &launch_decode<2> : &launch_decode<4>)(
+      q, q_bstride, k, v, table, P, row_offset, seq_len, qpos, qpos_stride, min_one, max_keys,
+      out, B, T, H, KV, ps, scale, p_bf16, splits, chunk, o_part, ml_part, st);
 }
 
 // K3 (B1's shared variant and B6 at MLA's latent width) and its prefill
@@ -2143,20 +2856,19 @@ int dstts_flash_paged_merge(const void* o_part, const void* ml_part, void* ws, v
 }
 
 // Blocks an SM can hold, as the runtime computes them from each kernel's
-// registers, threads and shared memory: out[0..9] = K1 (1, 2 and 4
-// m-tiles), K2, K3 (bf16 p, float32 p), K2's paged mode, K1's int8 mode (1,
-// 2 and 4 m-tiles).
+// registers, threads and shared memory: out[0..8] = K1 (1, 2 and 4
+// m-tiles), K2, K3 (bf16 p, float32 p), K2's paged mode, K1's int8 mode (8
+// and 16 query rows an item).
 int dstts_attention_occupancy(int* out) {
-  occupancy(&out[0], decode_attention<1, false>, NTH, decode_smem_bytes<false>());
-  occupancy(&out[1], decode_attention<2, false>, NTH, decode_smem_bytes<false>());
-  occupancy(&out[2], decode_attention<4, false>, NTH, decode_smem_bytes<false>());
+  occupancy(&out[0], decode_attention<1>, NTH, decode_smem_bytes());
+  occupancy(&out[1], decode_attention<2>, NTH, decode_smem_bytes());
+  occupancy(&out[2], decode_attention<4>, NTH, decode_smem_bytes());
   occupancy(&out[3], flash_attention<false>, FTH, flash_smem_bytes());
   occupancy(&out[4], latent_attention<false>, LTH, latent_smem_bytes());
   occupancy(&out[5], latent_attention<true>, LTH, latent_smem_bytes());
   occupancy(&out[6], flash_attention<true>, FTH, flash_smem_bytes());
-  occupancy(&out[7], decode_attention<1, true>, NTH, decode_smem_bytes<true>());
-  occupancy(&out[8], decode_attention<2, true>, NTH, decode_smem_bytes<true>());
-  occupancy(&out[9], decode_attention<4, true>, NTH, decode_smem_bytes<true>());
+  occupancy(&out[7], decode_i8<1>, ITH, i8_smem_bytes<1>());
+  occupancy(&out[8], decode_i8<2>, ITH, i8_smem_bytes<2>());
   return (int)cudaGetLastError();
 }
 

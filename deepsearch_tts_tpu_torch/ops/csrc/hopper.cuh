@@ -134,6 +134,19 @@ bool bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dim
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// a 2-D int8 tensor map with 128-byte swizzle: cols bytes a row (a multiple
+// of 16), rows rows; boxes of 128 bytes x box_rows (zeros past the end)
+bool u8_map(CUtensorMap* map, const void* ptr, cuuint64_t cols, cuuint64_t rows,
+            cuuint32_t box_rows) {
+  const EncodeTiled enc = encode_tiled();
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {cols};
+  const cuuint32_t box[2] = {128, box_rows}, ones[2] = {1, 1};
+  return enc && enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
+                    box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ----------------------------------------------------------------- wgmma
 
 // wgmma shared-memory descriptor of a tile stored in 128-byte swizzle atoms

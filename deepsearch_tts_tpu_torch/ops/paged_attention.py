@@ -28,11 +28,15 @@ float32 scales (``k_scales`` / ``v_scales``, [N,ps,K]) and then computes
 the int8 branch of JAX's ``paged_attention`` (``ops/attention.py:122-139``:
 XLA code there, no Pallas kernel reads int8 pages): each key and value
 dequantized as ``(int8.float() * scale).to(q.dtype)``, the masked softmax
-in float32, p in the value dtype. On the card that is K1's int8 mode, which
-reads the int8 rows and their scales and dequantizes them bit for bit as
-the plain path does; its plain version (:func:`paged_int8_plain`) gathers,
-dequantizes and attends. ``launches`` counts every K1 launch of an entry,
-``i8_launches`` those of the int8 mode.
+in float32, p in the value dtype. On the card that is K1's int8 mode,
+``decode_i8`` (:func:`decode_i8_cuda`): a one-block plan kernel cuts each
+row's visible keys, read from ``seq_lens`` on the card, into pieces
+(:func:`decode_i8_plan` is its model), and a persistent grid takes them
+longest first, a producer warp feeding each block's consumer warps by TMA;
+it dequantizes bit for bit as the plain path does. Its plain version
+(:func:`paged_int8_plain`) gathers, dequantizes and attends. ``launches``
+counts every K1 launch of an entry, ``i8_launches`` those of the int8
+mode.
 
 MLA (``models/deepseek_v3.py``) calls the entries with the latent pool as
 both k and v (``v_pages is k_pages``) at D = 576 and keeps the first
@@ -72,6 +76,9 @@ LATENT_DIM = 576      # K3's row: DeepSeek-V3 / Kimi-K2 kv_lora_rank 512 + rope 
 LATENT_V = 512        # K3's value columns (kv_lora_rank)
 LATENT_HEADS = 64     # query heads one K3 block holds: one wgmma m64 tile
 LATENT_MIN_CHUNK_TILES = 4   # a K3 split holds at least 256 keys
+I8_PIECES = 1         # K1's int8 mode: pieces of about W / (I8_PIECES * blocks) key tiles
+I8_MIN_TILES = 2      # and at least this many (csrc: I8_PIECES, I8_MIN_TILES)
+I8_BLOCKS_PER_SM = {8: 3, 16: 2}   # its resident blocks an SM by query rows an item
 
 
 # ----------------------------------------------------------------- plain torch
@@ -192,6 +199,114 @@ def latent_splits(B: int, head_tiles: int, s_max: int, sms: int) -> tuple[int, i
     return _context_splits(B * head_tiles, sms, s_max, LATENT_MIN_CHUNK_TILES)
 
 
+# ------------------------------------------------ K1's int8 mode: its plan
+
+def i8_item_rows(rows: int) -> int:
+    """Query rows one item of K1's int8 mode holds (csrc ``8 * NQ``): one
+    mma n tile of 8 where a kv head's ``T·G`` rows fit in it, else 16."""
+    return 8 if rows <= 8 else 16
+
+
+def i8_plan_sizes(B: int, T: int, G: int, KV: int, sms: int) -> dict:
+    """Static sizes of K1's int8 mode for ``B`` rows of ``T`` queries, ``G``
+    query heads a kv head, ``KV`` kv heads, ``sms`` SMs: the query rows of
+    an item, the row groups a row (``groups``), the units (row group × kv
+    head), the persistent grid's blocks, the most partial slots and items
+    the plan can make, and the plan's int32 workspace. From sizes only: no
+    tensor is read, so a captured call replays with them."""
+    rows = i8_item_rows(T * G)
+    groups = -(-T * G // rows)
+    units = B * groups * KV
+    blocks = sms * I8_BLOCKS_PER_SM[rows]
+    slots = 2 * I8_PIECES * blocks      # split pieces: < 4 W / (3 C) <= 2 * I8_PIECES * blocks
+    items = units + slots               # pieces: <= units + W / C
+    head = (8 + 6 * B * groups + units + units % 2 + 3) // 4 * 4
+    return dict(rows=rows, groups=groups, units=units, blocks=blocks, slots=slots,
+                items=items, ws_ints=head + 4 * items)
+
+
+def i8_pieces(t: int, C: int, round_: bool = False) -> int:
+    """Pieces of a unit of ``t`` key tiles: none where ``t`` is 0, else
+    ``ceil(t / C)``, or (``round_``) ``t / C`` rounded to the nearest, at
+    least 1. Piece ``zi`` holds tiles ``zi·t//z .. (zi+1)·t//z - 1``
+    (:func:`i8_piece_tiles`), so a unit's pieces differ by one tile at
+    most."""
+    if t == 0:
+        return 0
+    return max(1, (2 * t + C) // (2 * C)) if round_ else -(-t // C)
+
+
+def i8_long_pieces(t: int, C: int) -> int:
+    """Of a unit's ``ceil(t / C)`` pieces, those longer than ``C / 2``."""
+    z = i8_pieces(t, C)
+    lo = t // z if z else 0
+    hi = t - lo * z
+    return (hi if 2 * (lo + 1) > C else 0) + (z - hi if 2 * lo > C else 0)
+
+
+def i8_piece_tiles(t: int, z: int, zi: int) -> tuple[int, int]:
+    """The first tile and the tile past the last of piece ``zi`` of ``z``."""
+    return zi * t // z, (zi + 1) * t // z
+
+
+def i8_row_limits(seq_lens, q_positions, T: int, G: int, *, min_one: bool = False,
+                  max_keys: int) -> list[list[int]]:
+    """[B][T·G] key limit of each folded query row r = t·G + g: query t of
+    row b sees keys ``< min(seq_len (>= 1 with min_one), q_positions[b, 0]
+    + t + 1, max_keys)`` (no ``q_positions``: ``seq_len - 1`` in its
+    place). A host model: it reads the tensors."""
+    out = []
+    for b, sl in enumerate(int(x) for x in seq_lens.tolist()):
+        sl = max(sl, 1) if min_one else sl
+        q0 = sl - 1 if q_positions is None else int(q_positions[b, 0])
+        out.append([max(0, min(q0 + r // G + 1, sl, max_keys)) for r in range(T * G)])
+    return out
+
+
+def decode_i8_plan(seq_lens, q_positions, *, T: int, G: int, KV: int, sms: int,
+                   min_one: bool = False, max_keys: int) -> dict:
+    """Host model of ``decode_i8_plan`` (``csrc/attention.cu``), the plan of
+    K1's int8 mode, which the card computes from ``seq_lens`` /
+    ``q_positions`` on the card. Row group ``rw = b·groups + qg`` (query
+    rows ``qg·rows ..`` of row b) ends at its last query's key limit,
+    ``lim``, and takes ``t = ceil(lim / 64)`` tiles a kv head; ``W`` = KV ×
+    the groups' tiles; ``C = max(I8_MIN_TILES, ceil(W / (I8_PIECES ·
+    blocks)))``; a group is cut into :func:`i8_pieces` balanced pieces,
+    ``ceil(t / C)`` of them, or ``t / C`` rounded where the ceil pieces
+    longer than ``C / 2`` would outnumber the blocks (their second wave would
+    be long pieces: rows of one length); a split group's pieces take partial
+    slots ``(sbase + zi)·KV + kh`` in group order, and a group with no key
+    takes none. Returns ``C``, ``W``, ``round``, the groups' ``(lim, t, z,
+    sbase)`` and the items ``(unit, first key, key end, slot or -1)``, unit
+    = rw·KV + kh, longest first (the kernel orders pieces of one length as
+    its atomics fall; here by unit, then piece)."""
+    sz = i8_plan_sizes(len(seq_lens), T, G, KV, sms)
+    rows, groups = sz["rows"], sz["groups"]
+    lims = i8_row_limits(seq_lens, q_positions, T, G, min_one=min_one, max_keys=max_keys)
+    R = T * G
+    glim = [lims[b][min(qg * rows + rows, R) - 1] for b in range(len(lims))
+            for qg in range(groups)]
+    W = KV * sum(-(-x // KEY_TILE) for x in glim)
+    C = max(I8_MIN_TILES, -(-W // (I8_PIECES * sz["blocks"])))
+    nb = min(2 * C + 1, 2048)
+    round_ = KV * sum(i8_long_pieces(-(-x // KEY_TILE), C) for x in glim) > sz["blocks"]
+    recs, slot = [], 0
+    for lim in glim:
+        t = -(-lim // KEY_TILE)
+        z = i8_pieces(t, C, round_)
+        recs.append((lim, t, z, slot if z > 1 else -1))
+        slot += z if z > 1 else 0
+    items = []
+    for u in range(len(glim) * KV):
+        lim, t, z, sb = recs[u // KV]
+        for zi in range(z):
+            t0, t1 = i8_piece_tiles(t, z, zi)
+            items.append((min(t1 - t0, nb - 1), (u, t0 * KEY_TILE, min(t1 * KEY_TILE, lim),
+                                                 (sb + zi) * KV + u % KV if z > 1 else -1)))
+    items.sort(key=lambda x: -x[0])
+    return dict(C=C, W=W, round=round_, rows=recs, items=[it for _, it in items], sizes=sz)
+
+
 # ------------------------------------------------------------------- kernel K1
 
 @functools.lru_cache(maxsize=None)
@@ -214,9 +329,11 @@ def _lib():
         lib.dstts_decode_attention.argtypes = [p, ll, p, p, p, i, ll, p, p, i, i, i,
                                                p, i, i, i, i, i, f, i, i, i, p, p, p]
         lib.dstts_decode_attention.restype = i
-        lib.dstts_decode_attention_i8.argtypes = [p, ll, p, p, p, p, p, i, ll, p, p, i, i, i,
-                                                  p, i, i, i, i, i, f, i, i, i, p, p, p]
-        lib.dstts_decode_attention_i8.restype = i
+        lib.dstts_decode_i8.argtypes = [p, ll, p, p, p, p, p, i, ll, p, p, i, i, i, p, i, i, i,
+                                         i, i, f, p, p, p, i, p]
+        lib.dstts_decode_i8.restype = i
+        lib.dstts_decode_i8_plan.argtypes = [p, p, i, i, i, i, i, i, i, i, p, p]
+        lib.dstts_decode_i8_plan.restype = i
         lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p, i, p]
         lib.dstts_flash_attention.restype = i
         lib.dstts_flash_attention_paged.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, ll, i,
@@ -243,11 +360,11 @@ def attention_occupancy() -> dict:
     ``-Xptxas -v`` report gives the registers)."""
     from .fused_layer import _raise_if
 
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 9)()
     _raise_if(_lib().dstts_attention_occupancy(out), "attention_occupancy")
     names = ("K1 (1 m-tile)", "K1 (2 m-tiles)", "K1 (4 m-tiles)", "K2", "K3 (bf16 p)",
-             "K3 (float32 p)", "K2 paged", "K1 int8 (1 m-tile)", "K1 int8 (2 m-tiles)",
-             "K1 int8 (4 m-tiles)")
+             "K3 (float32 p)", "K2 paged", "K1 int8 (8 rows an item)",
+             "K1 int8 (16 rows an item)")
     return dict(zip(names, out))
 
 
@@ -270,29 +387,23 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
     (None: keys ``< seq_len`` at T=1). Query t of row b sees keys
     ``< min(seq_len (>= 1 if min_one), q_positions[b,0] + t + 1,
     max_keys)``. Returns [B,T,H,128] bf16. With ``k_scales`` / ``v_scales``
-    ([R,ps,K] float32) K1's int8 mode: the pools are int8 and each row is
-    dequantized with its scale as the plain path does."""
+    ([R,ps,K] float32) K1's int8 mode (:func:`decode_i8_cuda`, which needs
+    ``page_table`` and rounds p to bf16)."""
     from .fused_layer import _check, _raise_if, refuse_grad
 
+    if k_scales is not None:
+        if page_table is None:
+            raise ValueError("K1's int8 mode needs a page table")
+        return decode_i8_cuda(q, k_pool, v_pool, k_scales, v_scales, seq_lens, page_table,
+                              q_positions=q_positions, min_one=min_one, max_keys=max_keys,
+                              scale=scale)
     refuse_grad("decode_attention q", q)
     B, T, H, D = q.shape
     R, ps, K, _ = k_pool.shape
     dev = q.device
-    if D != HEAD_DIM or H % K or T * (H // K) > MAX_QUERY_ROWS:
-        raise ValueError(f"decode attention kernel needs head_dim={HEAD_DIM} and "
-                         f"T*H/K <= {MAX_QUERY_ROWS} (got D={D}, T={T}, H={H}, K={K})")
-    if dev.type != "cuda" or q.dtype != torch.bfloat16:
-        raise ValueError(f"q: expected a CUDA bfloat16 tensor, got {q.dtype} on {dev}")
-    if q.stride(3) != 1 or q.stride(2) != D or (T > 1 and q.stride(1) != H * D):
-        raise ValueError(f"q: dimensions 1-3 must be contiguous, got strides {q.stride()}")
-    pool_dtype = torch.bfloat16 if k_scales is None else torch.int8
-    _check("k_pool", k_pool, (R, ps, K, D), pool_dtype)
-    _check("v_pool", v_pool, (R, ps, K, D), pool_dtype)
-    if k_scales is not None:
-        _check("k_scales", k_scales, (R, ps, K), torch.float32)
-        _check("v_scales", v_scales, (R, ps, K), torch.float32)
-        if k_scales.device != dev or v_scales.device != dev:
-            raise ValueError("decode attention: q and the scales must share a device")
+    _check_q(q, K)
+    _check("k_pool", k_pool, (R, ps, K, D))
+    _check("v_pool", v_pool, (R, ps, K, D))
     if v_pool.device != dev or k_pool.device != dev:
         raise ValueError("decode attention: q and the pools must share a device")
     _check_index("seq_lens", seq_lens, (B,), dev)
@@ -302,12 +413,7 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
         _check_index("page_table", page_table, (B, P), dev)
         if not page_table.is_contiguous():
             raise ValueError("page_table: must be contiguous")
-    qpos_stride = 0
-    if q_positions is not None:
-        _check_index("q_positions", q_positions, (B, T), dev)
-        qpos_stride = q_positions.stride(0)
-    elif T != 1:
-        raise ValueError("decode attention without q_positions takes T=1")
+    qpos_stride = _check_qpos(q_positions, B, T, dev)
     if max_keys is None:
         max_keys = P * ps
     scale = scale if scale is not None else D ** -0.5
@@ -318,14 +424,8 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
         rows = B * K * splits * T * (H // K)
         o_part = torch.empty((rows, D), dtype=torch.float32, device=dev)
         ml_part = torch.empty((rows, 2), dtype=torch.float32, device=dev)
-    pools = (k_pool.data_ptr(), v_pool.data_ptr())
-    if k_scales is None:
-        launch = _lib().dstts_decode_attention
-    else:
-        launch = _lib().dstts_decode_attention_i8
-        pools += (k_scales.data_ptr(), v_scales.data_ptr())
-    err = launch(
-        q.data_ptr(), q.stride(0), *pools,
+    err = _lib().dstts_decode_attention(
+        q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(),
         None if page_table is None else page_table.data_ptr(), P, int(row_offset),
         seq_lens.data_ptr(), None if q_positions is None else q_positions.data_ptr(),
         qpos_stride, int(bool(min_one)), int(max_keys), out.data_ptr(), B, T, H, K,
@@ -335,6 +435,108 @@ def decode_attention_cuda(q, k_pool, v_pool, seq_lens, *, page_table=None,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_if(err, "decode_attention")
     return out
+
+
+def _check_q(q, K: int) -> None:
+    """K1's q: [B,T,H,128] CUDA bf16, dimensions 1-3 contiguous, T·H/K <= 64."""
+    B, T, H, D = q.shape
+    if D != HEAD_DIM or H % K or T * (H // K) > MAX_QUERY_ROWS:
+        raise ValueError(f"decode attention kernel needs head_dim={HEAD_DIM} and "
+                         f"T*H/K <= {MAX_QUERY_ROWS} (got D={D}, T={T}, H={H}, K={K})")
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError(f"q: expected a CUDA bfloat16 tensor, got {q.dtype} on {q.device}")
+    if q.stride(3) != 1 or q.stride(2) != D or (T > 1 and q.stride(1) != H * D):
+        raise ValueError(f"q: dimensions 1-3 must be contiguous, got strides {q.stride()}")
+
+
+def _check_qpos(q_positions, B: int, T: int, dev) -> int:
+    """``q_positions`` [B,T] int64 on ``dev`` (or None at T=1); its row stride."""
+    if q_positions is not None:
+        _check_index("q_positions", q_positions, (B, T), dev)
+        return q_positions.stride(0)
+    if T != 1:
+        raise ValueError("decode attention without q_positions takes T=1")
+    return 0
+
+
+def decode_i8_cuda(q, k_pool, v_pool, k_scales, v_scales, seq_lens, page_table, *,
+                   q_positions=None, min_one=False, max_keys: int | None = None, scale=None):
+    """Launch K1's int8 mode: its plan kernel, then the persistent
+    ``decode_i8`` grid. q [B,T,H,128] bf16 (any batch stride, the rest
+    contiguous); pools [R,ps,K,128] int8 with ``k_scales`` / ``v_scales``
+    [R,ps,K] float32; ``page_table`` [B,P] int64 (with P > 1, ps a multiple
+    of 8); seq_lens [B] int64; ``q_positions`` [B,T] int64 (None: keys ``<
+    seq_len`` at T=1). Query t of row b sees keys ``< min(seq_len (>= 1 if
+    min_one), q_positions[b,0] + t + 1, max_keys)``; one that sees none is
+    0. p is rounded to bf16 (the int8 branch's value dtype). The scratch
+    comes from :func:`i8_plan_sizes` (static sizes; nothing is read on the
+    host). Returns [B,T,H,128] bf16."""
+    from .fused_layer import _check, _raise_if, refuse_grad
+
+    refuse_grad("decode_attention q", q)
+    B, T, H, D = q.shape
+    R, ps, K, _ = k_pool.shape
+    dev = q.device
+    _check_q(q, K)
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        _check(name, t, (R, ps, K, D), torch.int8)
+    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+        _check(name, t, (R, ps, K), torch.float32)
+    if any(t.device != dev for t in (k_pool, v_pool, k_scales, v_scales)):
+        raise ValueError("decode attention: q, the pools and the scales must share a device")
+    _check_index("seq_lens", seq_lens, (B,), dev)
+    P = page_table.shape[1]
+    _check_index("page_table", page_table, (B, P), dev)
+    if not page_table.is_contiguous():
+        raise ValueError("page_table: must be contiguous")
+    if P > 1 and ps % 8:
+        raise ValueError(f"K1's int8 mode over more than one page a row needs ps a multiple "
+                         f"of 8 (got ps={ps})")
+    qpos_stride = _check_qpos(q_positions, B, T, dev)
+    max_keys = P * ps if max_keys is None else min(int(max_keys), P * ps)
+    scale = scale if scale is not None else D ** -0.5
+    sms = _sm_count(dev)
+    sz = i8_plan_sizes(B, T, H // K, K, sms)
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=dev)
+    ws = torch.empty((sz["ws_ints"],), dtype=torch.int32, device=dev)
+    o_part = torch.empty((sz["slots"] * sz["rows"], D), dtype=torch.float32, device=dev)
+    ml_part = torch.empty((sz["slots"] * sz["rows"], 2), dtype=torch.float32, device=dev)
+    err = _lib().dstts_decode_i8(
+        q.data_ptr(), q.stride(0), k_pool.data_ptr(), v_pool.data_ptr(), k_scales.data_ptr(),
+        v_scales.data_ptr(), page_table.data_ptr(), P, R, seq_lens.data_ptr(),
+        None if q_positions is None else q_positions.data_ptr(), qpos_stride,
+        int(bool(min_one)), max_keys, out.data_ptr(), B, T, H, K, ps, float(scale),
+        ws.data_ptr(), o_part.data_ptr(), ml_part.data_ptr(), sms,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_if(err, "decode_i8")
+    return out
+
+
+def decode_i8_plan_cuda(seq_lens, q_positions, *, T: int, G: int, KV: int,
+                        min_one: bool = False, max_keys: int) -> dict:
+    """The plan kernel of K1's int8 mode alone on the card (what
+    :func:`decode_i8_cuda` launches first), read back and parsed as
+    :func:`decode_i8_plan` returns it (the items in the kernel's order), to
+    hold the kernel to its model."""
+    from .fused_layer import _raise_if
+
+    dev = seq_lens.device
+    B = seq_lens.shape[0]
+    sms = _sm_count(dev)
+    sz = i8_plan_sizes(B, T, G, KV, sms)
+    ws = torch.zeros((sz["ws_ints"],), dtype=torch.int32, device=dev)
+    qpos_stride = 0 if q_positions is None else q_positions.stride(0)
+    _raise_if(_lib().dstts_decode_i8_plan(
+        seq_lens.data_ptr(), None if q_positions is None else q_positions.data_ptr(),
+        qpos_stride, int(bool(min_one)), int(max_keys), B, T, G * KV, KV, sms, ws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "decode_i8_plan")
+    w = ws.cpu().tolist()
+    RW = B * sz["groups"]
+    head = (8 + 6 * RW + sz["units"] + sz["units"] % 2 + 3) // 4 * 4
+    rows = [tuple(w[8 + 4 * i: 12 + 4 * i]) for i in range(RW)]
+    items = [tuple(w[head + 4 * i: head + 4 * i + 4]) for i in range(w[0])]
+    return dict(C=w[1], W=w[3], rows=rows, items=items, counter=w[2],
+                cnt=w[8 + 4 * RW: 8 + 4 * RW + sz["units"]], sizes=sz)
 
 
 # ------------------------------------------------------------------- kernel K3
@@ -586,9 +788,9 @@ latent_prefill.launches = 0
 
 def _k1_entry(entry, q, k_pages, v_pages, page_table, seq_lens, q_positions, scale,
               v_width, k_scales, v_scales):
-    """A CUDA call of a B6 entry: K3 at the latent width, else K1 (its int8
-    mode with the scales pools, p in the value dtype as JAX's int8 branch
-    has it); counts the launch on ``entry``."""
+    """A CUDA call of a B6 entry: K3 at the latent width, else K1 (with the
+    scales pools its int8 mode, :func:`decode_i8_cuda`, p in the value dtype
+    as JAX's int8 branch has it); counts the launch on ``entry``."""
     if k_scales is None and _latent_kernel(q, k_pages, v_pages, v_width):
         return paged_attention_latent(q, k_pages, page_table, seq_lens, q_positions,
                                       scale=scale, v_width=v_width)

@@ -6,8 +6,7 @@ modes beside a parent commit's kernels, in one process on one card.
     python3 scripts/time_attention_i8.py --prepare REV   (in a git checkout:
                                                          REV's sources into
                                                          build/attn_parent/)
-    python3 scripts/time_attention_i8.py [--no-parent] [--variant NAME]
-                                                         (needs one CUDA card
+    python3 scripts/time_attention_i8.py [--no-parent]  (needs one CUDA card
                                                          and nvcc)
 
 ``--prepare`` writes ``attention.cu`` and ``hopper.cuh`` of commit REV
@@ -33,11 +32,9 @@ and qwen3-32b's heads over the B6 rows, dense K2 at B = 1, T = 3072
 (qwen3-8b's heads) and K2's paged mode at every
 ``chip_smoke.PAGED_PREFILLS`` shape, each held to its plain version, then
 timed as the tree's kernel and the parent's (the same wrappers over the
-parent's library) in the order parent, tree, tree, parent. ``--variant
-NAME`` also builds a copy of the tree with one line changed (``VARIANTS``:
-K1's int8 ring four or five stages deep, ``k1ring4`` / ``k1ring5``) and
-times both int8 modes on it beside the tree: tree, copy, copy, tree.
-One JSON line last.
+parent's library) in the order parent, tree, tree, parent. One JSON line
+last. ``scripts/time_k1_i8.py`` times K1's int8 mode against a parent's
+and takes its timeline.
 """
 from __future__ import annotations
 
@@ -53,13 +50,6 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 PARENT = os.path.join(ROOT, "build", "attn_parent")
-VARIANT = os.path.join(ROOT, "build", "attn_variant")
-CSRC = os.path.join(ROOT, "deepsearch_tts_tpu_torch", "ops", "csrc")
-# copies of the tree with one line changed, timed beside it (--variant)
-VARIANTS = {
-    "k1ring4": [("constexpr int DSTAGES_I8 = 3;", "constexpr int DSTAGES_I8 = 4;")],
-    "k1ring5": [("constexpr int DSTAGES_I8 = 3;", "constexpr int DSTAGES_I8 = 5;")],
-}
 # the C entries the bf16 wrappers call, which the parent must have
 BF16_ENTRIES = ("dstts_decode_attention", "dstts_flash_attention", "dstts_flash_attention_paged",
                 "dstts_flash_paged_plan", "dstts_flash_paged_merge")
@@ -95,34 +85,6 @@ def build_parent(tree_lib) -> ctypes.CDLL:
     return lib
 
 
-def build_variant(name: str) -> ctypes.CDLL:
-    """nvcc of a copy of the tree's attention.cu with ``VARIANTS[name]``
-    applied (the headers from the tree), typed by the wrappers."""
-    from deepsearch_tts_tpu_torch.ops import _build
-    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
-
-    with open(os.path.join(CSRC, "attention.cu")) as f:
-        src = f.read()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise SystemExit(f"time_attention_i8 ({name}): line not found once: {old}")
-        src = src.replace(old, new)
-    src = src.replace('#include "hopper.cuh"', f'#include "{os.path.join(CSRC, "hopper.cuh")}"')
-    os.makedirs(VARIANT, exist_ok=True)
-    path, so = os.path.join(VARIANT, f"{name}.cu"), os.path.join(VARIANT, f"lib{name}.so")
-    with open(path, "w") as f:
-        f.write(src)
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise SystemExit(f"time_attention_i8: nvcc failed on {name}\n{r.stderr[-4000:]}")
-    tree = _build._libs["attention"]
-    _build._libs["attention"] = ctypes.CDLL(so)
-    lib = pa._lib()
-    _build._libs["attention"] = tree
-    return lib
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--prepare", metavar="REV",
@@ -130,8 +92,6 @@ def main() -> int:
                          "(git show) and stop")
     ap.add_argument("--no-parent", action="store_true",
                     help="the int8 modes only, no parent build or bf16 timing")
-    ap.add_argument("--variant", choices=sorted(VARIANTS),
-                    help="also time the int8 modes on a copy of the tree with one line changed")
     opts = ap.parse_args()
     if opts.prepare:
         prepare(opts.prepare)
@@ -161,11 +121,6 @@ def main() -> int:
     result = {"card": card, "k1_i8": res["decode_attention_i8_shapes"],
               "k2_paged_i8": res["flash_attention_paged_i8_shapes"]}
     result["widen"] = time_widen(cs, gen)
-    if opts.variant:
-        result["variant"] = {"name": opts.variant, **time_variant(cs, pa, _build, tree,
-                                                                  build_variant(opts.variant),
-                                                                  gen)}
-        print(f"[variant] {json.dumps(result['variant'])}", flush=True)
     if opts.no_parent:
         print(json.dumps(result))
         return 0
@@ -262,56 +217,6 @@ def time_widen(cs, gen) -> dict:
         out[label] = row
         print(f"[widen] K2 int8 {label}: {json.dumps(row)}", flush=True)
         del q, kp, vp, ref
-    return out
-
-
-def time_variant(cs, pa, _build, tree, copy, gen) -> dict:
-    """K1's int8 mode at the smoke's two decode shapes and K2's int8 paged
-    mode at ``I8_PREFILLS`` on the tree and on the copy, each held to the
-    plain version, timed tree, copy, copy, tree."""
-    import torch
-
-    from deepsearch_tts_tpu_torch.engine.kvcache import quantize_kv_rows
-    from deepsearch_tts_tpu_torch.ops import flash_attention as fa
-
-    def turns(fn, ref) -> dict:
-        row, ms = {}, {"tree": [], "copy": []}
-        for name, lib in (("tree", tree), ("copy", copy)):
-            _build._libs["attention"] = lib
-            row[f"{name}_bound_use"] = round(cs._bound_use(fn(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL,
-                                                           cs.ATTN_RMS_FRAC), 3)
-            assert row[f"{name}_bound_use"] <= 1.0, row
-        for name in ("tree", "copy", "copy", "tree"):
-            _build._libs["attention"] = tree if name == "tree" else copy
-            ms[name].append(cs.time_ms(fn, iters=20)[0])
-        _build._libs["attention"] = tree
-        return {**row, **{f"{k}_ms": round(float(np.mean(v)), 4) for k, v in ms.items()},
-                "ms": ms}
-
-    out = {}
-    for label, B, T, starts, valid, ps, P, heads, slot in cs.I8_PREFILLS:
-        q, kp, vp, table, seq, pos = cs._paged_prefill_inputs(gen, B, T, starts, valid, ps, P,
-                                                              heads, slot)
-        (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
-        args = (q, kp, vp, table, seq, pos)
-        ref = fa.flash_attention_paged_plain(*args, k_scales=ks, v_scales=vs)
-        out[f"K2 int8 {label}"] = turns(
-            lambda: fa.flash_attention_paged(*args, k_scales=ks, v_scales=vs), ref)
-        del q, kp, vp, ref
-    ps, P = 64, cs.CTX // 64
-    NP = 1 + cs.SLOTS * P
-    kp, vp, ks, vs = cs._int8_pools(gen, NP, ps, cs.Q_KV)
-    q = torch.randn((cs.SLOTS, 1, cs.Q_H, cs.D), generator=gen, device="cuda").to(torch.bfloat16)
-    perm = torch.randperm(NP - 1, generator=gen, device="cuda")[: cs.SLOTS * P].view(cs.SLOTS, P)
-    for tag, lens in (("SEQS", cs.SEQS), ("LIMITS", cs.LIMITS)):
-        seq = torch.tensor(lens, device="cuda")
-        used = (seq + ps - 1) // ps
-        table = torch.where(torch.arange(P, device="cuda")[None] < used[:, None], perm + 1, 0)
-        qpos = (seq - 1).clamp(min=0)[:, None]
-        args = (q, kp, vp, table, seq, qpos)
-        ref = pa.pallas_paged_attention_plain(*args, k_scales=ks, v_scales=vs)
-        out[f"K1 int8 {tag}"] = turns(
-            lambda: pa.pallas_paged_attention(*args, k_scales=ks, v_scales=vs), ref)
     return out
 
 
