@@ -44,11 +44,12 @@ Phases, each raising on failure (non-zero exit, no final line):
    K1's own 19,278-key rows, one 4096-key row and 16 of them, each timed;
    pages of 8, 16 and 48 keys, qwen3-14b's G = 5, a chunk of 4, a row with
    no key under ``min_one``; its plan kernel against the host model;
-   ``I8_PREFILLS``: the long prompt, the ragged 16 x 64 group and 100
-   tokens after 3000 cached; first ``widen_kv_pages``' bf16 pages equal
-   to the plain dequantization bit for bit) under the same bound, each
-   timed beside its plain version, its bound and SDPA over the
-   pre-dequantized context;
+   ``I8_PREFILLS`` and ``I8_BUCKET``: the long prompt, the ragged 16 x 64
+   group, 100 tokens after 3000 cached and the 4096 bucket's 64 pages;
+   first ``widen_kv_pages``' bf16 pages equal to the plain dequantization
+   bit for bit, the widening and the bf16 paged mode over the pages
+   unquantized timed beside it) under the same bound, each timed beside
+   its plain version, its bound and SDPA over the pre-dequantized context;
    then B11, the one-layer forms (``fused_mlp``, ``fused_qkv``,
    ``fused_out_mlp`` with packed and unpacked gate/up) at qwen3-8b widths,
    B = 1 and 16, and B11's own path: its counters set to 0, each entry
@@ -1229,7 +1230,7 @@ def phase_attention_kernels(gen) -> dict:
     del qf, kf, vf
     _check_paged_prefills(res, gen)
     _check_int8_decode(res, gen)
-    _check_paged_prefills(res, gen, I8_PREFILLS, "flash_attention_paged_i8")
+    _check_paged_prefills(res, gen, I8_PREFILLS + (I8_BUCKET,), "flash_attention_paged_i8")
     return res
 
 
@@ -1447,6 +1448,10 @@ def _paged_prefill_inputs(gen, B, T, starts, valid, ps, P, heads, slot):
 I8_PREFILLS = tuple((label, B, T, starts, valid, ps, P, (Q_H, Q_KV), slot)
                     for label, B, T, starts, valid, ps, P, _, slot in
                     (PAGED_PREFILLS[0], PAGED_PREFILLS[2], PAGED_PREFILLS[9]))
+# the int8 engine's one-row prefill program at the 4096 bucket: the long
+# prompt's 3044 tokens padded to 4096 over the bucket's 64 pages
+I8_BUCKET = ("B=1 T=4096 bucket: 3044 tokens from 0 over 64 pages", 1, 4096, (0,), (3044,), 64,
+             64, (Q_H, Q_KV), False)
 
 
 def _check_paged_prefills(res: dict, gen, shapes_in=PAGED_PREFILLS,
@@ -1469,12 +1474,14 @@ def _check_paged_prefills(res: dict, gen, shapes_in=PAGED_PREFILLS,
     long prompt's) numbers and the largest error of all shapes,
     ``res[name + "_shapes"]`` each shape's. ``name``
     ``"flash_attention_paged_i8"``: the int8 paged mode at ``shapes_in``
-    (:data:`I8_PREFILLS`), over the same pages quantized as the engine
-    writes them, with their scales (the bytes: int8 keys and values and
-    their scales; the library calls over the pre-dequantized context),
-    its first launch (``widen_kv_pages``) held to the plain
-    dequantization of every page below each row's ``seq_lens`` bit for
-    bit."""
+    (:data:`I8_PREFILLS` and :data:`I8_BUCKET`), over the same pages
+    quantized as the engine writes them, with their scales (the bytes:
+    int8 keys and values and their scales; the library calls over the
+    pre-dequantized context), its first launch (``widen_kv_pages``) held
+    to the plain dequantization of every page below each row's
+    ``seq_lens`` bit for bit and timed alone (``r["widen_ms"]``), the bf16
+    paged mode over the pages before quantization timed beside it
+    (``r["bf16_paged_ms"]``)."""
     import torch
     from torch.nn.attention.bias import causal_lower_right
 
@@ -1493,9 +1500,11 @@ def _check_paged_prefills(res: dict, gen, shapes_in=PAGED_PREFILLS,
         _check_paged_plan(label, seq, pos, S, h // kv, kv)
         sc, key_bytes = {}, kv * D * 2 * 2
         if int8:
+            bf16_ms = time_ms(lambda: fa.flash_attention_paged(q, kp, vp, table, seq, pos),
+                              iters=20)[0]
             (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
             sc, key_bytes = dict(k_scales=ks, v_scales=vs), kv * (D + 4) * 2
-            _check_widen(label, kp, vp, ks, vs, table, seq)
+            widen_ms = _check_widen(label, kp, vp, ks, vs, table, seq)
             kt, vt = (dequant_context(p, s, table, torch.bfloat16).transpose(1, 2)
                       for p, s in ((kp, ks), (vp, vs)))
         else:
@@ -1513,6 +1522,10 @@ def _check_paged_prefills(res: dict, gen, shapes_in=PAGED_PREFILLS,
                       library=lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True))
         r = one[name]
         r["library_masked_ms"] = r["library_ms"]
+        if int8:
+            r["widen_ms"], r["bf16_paged_ms"] = widen_ms, bf16_ms
+            log(f"[kernel] {name} {label}: the widening alone {widen_ms:.4f} ms, the bf16 "
+                f"paged mode over the pages unquantized {bf16_ms:.4f} ms")
         if B == 1:
             s0, n = starts[0], valid[0]
             qn = qt[:, :, :n].contiguous()      # the real queries
@@ -1541,10 +1554,11 @@ def _check_paged_prefills(res: dict, gen, shapes_in=PAGED_PREFILLS,
     res[name + "_shapes"] = shapes
 
 
-def _check_widen(label: str, kp, vp, ks, vs, table, seq) -> None:
+def _check_widen(label: str, kp, vp, ks, vs, table, seq) -> float:
     """``widen_kv_pages`` against ``(int8.float() * scale).to(bf16)`` of
     the table's pages: equal bit for bit on every page that holds a key
-    below its row's ``seq_lens``, and its table ``b·P + p``."""
+    below its row's ``seq_lens``, and its table ``b·P + p``. Returns its
+    time alone (ms)."""
     import torch
 
     from deepsearch_tts_tpu_torch.ops import flash_attention as fa
@@ -1558,6 +1572,7 @@ def _check_widen(label: str, kp, vp, ks, vs, table, seq) -> None:
         assert torch.equal(w.view(B, P, *w.shape[1:])[need], want[need]), label
     assert torch.equal(wt, torch.arange(B * P, device=wt.device).view(B, P)), label
     log(f"[kernel] widen_kv_pages {label}: {int(need.sum())} pages bit for bit")
+    return time_ms(lambda: fa.widen_kv_pages(kp, vp, ks, vs, table, seq), iters=20)[0]
 
 
 def _check_paged_plan(label: str, seq, pos, S: int, G: int, kv: int) -> None:

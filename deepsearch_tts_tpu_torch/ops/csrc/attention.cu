@@ -269,7 +269,12 @@
 //     inside the persistent kernel (producer warps 9-11 turning int8 TMA
 //     stages into the swizzled tiles) ran at 1.9x this design's time
 //     (0.6433 against 0.3319 ms over the 3044-token prompt at qwen3-32b's
-//     heads).
+//     heads). A kernel of its own that read the int8 pages by TMA, widened
+//     each 64-key stage to fp16 on three warps and folded the scales into
+//     the softmax ran at 1.6x (0.5256 against 0.3251 ms; slower at every
+//     timed shape): each item widens its own tiles (~19,000 128-key tiles
+//     at the long prompt, against 48 pages widened once and read back from
+//     L2 here), and the consumers waited for widened tiles.
 //     NVIDIA H100 80GB HBM3, 700.00 W, CUDA 12.8.
 //
 // Numerics. Scores are float32 and the scale D^-1/2 (times log2 e) is

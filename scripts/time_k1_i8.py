@@ -12,12 +12,11 @@ in one process on one card, and where each block's time goes.
                                                      and nvcc)
 
 ``--prepare`` writes ``attention.cu`` and ``hopper.cuh`` of commit REV
-(``git show``) into ``build/k1_parent/`` (ignored by git); the run builds
+into ``build/k1_parent/`` (``scripts/kernel_copies.py``); the run builds
 them there with the port's nvcc flags, so it also runs in a copy without
-``.git``. The parent's int8 mode is the split-context kernel
-``decode_attention<MT, true>`` behind ``dstts_decode_attention_i8``,
-launched here with the splits :func:`paged_attention.decode_splits`
-gives, as its wrapper did.
+``.git``. The parent must have the tree's C entries of K1's int8 mode
+(``dstts_decode_i8``, ``dstts_decode_i8_plan``: since ``decode_i8``); its
+mode runs through the tree's wrappers over the parent's library.
 
 Shapes (qwen3-32b's 64 / 8 heads, D = 128, int8 pages and their float32
 scales made as ``chip_smoke._int8_pools`` makes them): B = 16 over the
@@ -34,27 +33,17 @@ the pre-dequantized context. ``--variant NAME`` also builds a copy of the
 tree with one choice changed (``VARIANTS``) and times it in the same
 turns (parent, tree, copy, copy, tree, parent).
 
-Unless ``--no-trace``, stamped copies run each shape once more:
-
-* the parent (``PARENT_EDITS``): per block, ``%globaltimer`` at its start
-  and end and ``clock64`` by thread 0 (warp 0) at its prologue's end (q
-  staged, the ring's first stages issued) and, for every key tile, at the
-  loop's top, after the copy wait, after the block barrier, after the next
-  tile's table reads and copy issue, after its widening, after the
-  widening's barrier and after the products; the merge kernel's blocks'
-  start and end. Cycles are turned into time by each block's own
-  clock / timer ratio.
-* the tree (``TREE_EDITS``): the plan kernel's start and end; per
-  persistent block, its start and, per item, the producer's item fetch,
-  the consumers' item start (meta and q landed), their first tile ready,
-  their last product and their stores; per tile (consumer warp 0) the
-  stage wait and the tile's work.
-
-From them, in microseconds: the span (first start to last end), the busy
-share of the SMs, the critical block (the one that ends last) and its
-tiles, the mean of each per-tile step, the prologue and epilogue, the
-merge's gap and span. Prints the card's name and power limit first and one
-JSON line last.
+Unless ``--no-trace``, stamped copies of the tree and of the parent
+(``TREE_EDITS``, applied to both: a parent whose kernel text differs stops
+the script with the text it did not find) run each shape once more,
+replayed from a captured graph: the plan kernel's start and end; per
+persistent block, its start and, per item, the producer's item fetch, the
+consumers' item start (meta and q landed), their first tile ready, their
+last product and their stores; per tile (consumer warp 0) the stage wait
+and the tile's work. From them, in microseconds: the span, the busy share
+of the block slots, the per-item and per-tile means, the last block's
+items. Prints the card's name and power limit first and one JSON line
+last.
 """
 from __future__ import annotations
 
@@ -67,14 +56,14 @@ import sys
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-CSRC = os.path.join(ROOT, "deepsearch_tts_tpu_torch", "ops", "csrc")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import kernel_copies as kc  # noqa: E402
+
+ROOT, CSRC = kc.ROOT, kc.CSRC
 PARENT = os.path.join(ROOT, "build", "k1_parent")
 OUT = os.path.join(ROOT, "build", "k1_time")
-NBLK, MAXT, NTS = 1024, 64, 7      # blocks, tiles a block, per-tile stamps (parent)
-TILE_STAMPS = ("top", "copy landed", "block barrier", "table + copy issued", "widened",
-               "widen barrier", "products done")
+TOOL = "time_k1_i8"
+NBLK = 1024        # blocks stamped
 GTIME = (
     "__device__ __forceinline__ long long gtime() {\n  long long t;\n"
     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n  return t;\n}\n"
@@ -83,77 +72,8 @@ GTIME = (
     "__device__ __forceinline__ int smid() {\n  int s;\n"
     "  asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(s));\n  return s;\n}\n")
 K1_MARK = "// ------------------------------------------------------------------- K1\n"
-
-# ---- the parent: one block a (row, kv head, split)
-P_DEFS = GTIME + (
-    f"__device__ long long g_tile[{NTS}][{NBLK}][{MAXT}];\n"
-    f"__device__ long long g_blk[6][{NBLK}];   // t0, c0, t1, c1, prologue end, epilogue start\n"
-    f"__device__ int g_nt[{NBLK}];\n__device__ int g_sm[{NBLK}];\n"
-    f"__device__ long long g_merge[2][{NBLK}];\n")
-P_BLK = "(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z))"
-P_ON = f"(I8 && threadIdx.x == 0 && {P_BLK} < {NBLK})"
-
-
-def _tile(k: int) -> str:
-    return f"    if ({P_ON} && kt < {MAXT}) g_tile[{k}][{P_BLK}][kt] = ctick();\n"
-
-
-P_END = (f"  if ({P_ON}) {{ g_blk[2][{P_BLK}] = gtime(); g_blk[3][{P_BLK}] = ctick(); }}\n")
-PARENT_EDITS = [
-    (K1_MARK, P_DEFS + K1_MARK),
-    ("  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
-     "  const int G = H / KV, R = T * G;\n",
-     "  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;\n"
-     "  const long long st_t0 = gtime(), st_c0 = ctick();\n"
-     "  const int G = H / KV, R = T * G;\n"),
-    ("  const long long prow = ((long long)(b * KV + kh) * splits + z) * R;   // partial rows\n",
-     "  const long long prow = ((long long)(b * KV + kh) * splits + z) * R;   // partial rows\n"
-     f"  if ({P_ON}) {{ g_blk[0][{P_BLK}] = st_t0; g_blk[1][{P_BLK}] = st_c0; "
-     f"g_nt[{P_BLK}] = ntiles; g_sm[{P_BLK}] = smid(); }}\n"),
-    ("    }\n    return;\n  }\n\n  // q tile, zero-padded",
-     "    }\n" + P_END + "    return;\n  }\n\n  // q tile, zero-padded"),
-    ("  __syncthreads();   // the q buffer is the ring's last stage from here on\n",
-     "  __syncthreads();   // the q buffer is the ring's last stage from here on\n"
-     f"  if ({P_ON}) g_blk[4][{P_BLK}] = ctick();\n"),
-    ("  for (int kt = 0; kt < ntiles; ++kt) {\n    cp_async_wait<RS - 2>();\n"
-     "    __syncthreads();   // tile kt landed for every thread; tile kt-1's stage is free\n",
-     "  for (int kt = 0; kt < ntiles; ++kt) {\n" + _tile(0) + "    cp_async_wait<RS - 2>();\n"
-     + _tile(1) + "    __syncthreads();   // tile kt landed for every thread; tile kt-1's "
-     "stage is free\n" + _tile(2)),
-    ("      if (nt < ntiles) load_tile(nt % RS, nt);\n      cp_async_commit();\n    }\n",
-     "      if (nt < ntiles) load_tile(nt % RS, nt);\n      cp_async_commit();\n    }\n"
-     + _tile(3)),
-    ("      if (MT == 1) __syncwarp();\n      else bar_sync(1 + kpart, MT * 32);\n    }\n",
-     _tile(4) + "      if (MT == 1) __syncwarp();\n      else bar_sync(1 + kpart, MT * 32);\n"
-     "    }\n" + _tile(5)),
-    ("    }\n  }\n  cp_async_wait<0>();\n  __syncthreads();   // every warp is done with the ring: "
-     "it holds the merge buffers now\n",
-     "    }\n" + _tile(6) + "  }\n  cp_async_wait<0>();\n  __syncthreads();   // every warp is "
-     "done with the ring: it holds the merge buffers now\n" +
-     f"  if ({P_ON}) g_blk[5][{P_BLK}] = ctick();\n"),
-    ("  }\n}\n\n// grid (R, KV, B), D threads: out row r",
-     "  }\n" + P_END + "}\n\n// grid (R, KV, B), D threads: out row r"),
-    ("  const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;\n",
-     "  const int r = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;\n"
-     f"  if (d == 0 && {P_BLK} < {NBLK}) g_merge[0][{P_BLK}] = gtime();\n"),
-    ("      __float2bfloat16(acc / fmaxf(L, 1e-30f));\n}\n",
-     "      __float2bfloat16(acc / fmaxf(L, 1e-30f));\n"
-     f"  if (d == 0 && {P_BLK} < {NBLK}) g_merge[1][{P_BLK}] = gtime();\n}}\n"),
-]
-P_READER = (
-    "int trace_read(long long* tile, long long* blk, int* nt, int* sm, long long* merge) {\n"
-    "  int e = (int)cudaMemcpyFromSymbol(tile, g_tile, sizeof(g_tile));\n"
-    "  if (!e) e = (int)cudaMemcpyFromSymbol(blk, g_blk, sizeof(g_blk));\n"
-    "  if (!e) e = (int)cudaMemcpyFromSymbol(nt, g_nt, sizeof(g_nt));\n"
-    "  if (!e) e = (int)cudaMemcpyFromSymbol(sm, g_sm, sizeof(g_sm));\n"
-    "  return e ? e : (int)cudaMemcpyFromSymbol(merge, g_merge, sizeof(g_merge));\n}\n"
-    "int trace_clear() {\n"
-    f"  static long long z[{NTS} * {NBLK} * {MAXT}];\n  static int zi[{NBLK}];\n"
-    "  int e = (int)cudaMemcpyToSymbol(g_tile, z, sizeof(g_tile));\n"
-    "  if (!e) e = (int)cudaMemcpyToSymbol(g_blk, z, sizeof(g_blk));\n"
-    "  if (!e) e = (int)cudaMemcpyToSymbol(g_merge, z, sizeof(g_merge));\n"
-    "  return e ? e : (int)cudaMemcpyToSymbol(g_nt, zi, sizeof(g_nt));\n}\n")
-PARENT_EDITS.append(('}  // extern "C"', P_READER + '}  // extern "C"'))
+# the C entries of K1's wrappers, typed as the tree's on every other library
+K1_ENTRIES = ("dstts_decode_attention", "dstts_decode_i8", "dstts_decode_i8_plan")
 
 # ---- the tree: a persistent block, stamps a (block, item) and a (block, tile)
 MAXIT, MAXG = 64, 256
@@ -243,80 +163,6 @@ VARIANTS = {
 }
 
 
-def prepare(rev: str) -> None:
-    os.makedirs(PARENT, exist_ok=True)
-    for name in ("attention.cu", "hopper.cuh"):
-        src = subprocess.run(["git", "show", f"{rev}:deepsearch_tts_tpu_torch/ops/csrc/{name}"],
-                             cwd=ROOT, capture_output=True, text=True, check=True).stdout
-        with open(os.path.join(PARENT, name), "w") as f:
-            f.write(src)
-    with open(os.path.join(PARENT, "REV"), "w") as f:
-        f.write(rev + "\n")
-    print(f"time_k1_i8: {rev}'s attention.cu and hopper.cuh in {PARENT}")
-
-
-def build(src_dir: str, tag: str, edits=None) -> tuple:
-    """nvcc of ``src_dir``/attention.cu (with ``edits`` applied) into
-    build/k1_time/lib<tag>.so; returns (the library, ptxas' lines)."""
-    from deepsearch_tts_tpu_torch.ops import _build
-
-    with open(os.path.join(src_dir, "attention.cu")) as f:
-        src = f.read()
-    for old, new in edits or ():
-        if src.count(old) != 1:
-            raise SystemExit(f"time_k1_i8 ({tag}): kernel text not found once:\n{old}")
-        src = src.replace(old, new, 1)
-    src = src.replace('#include "hopper.cuh"',
-                      f'#include "{os.path.join(src_dir, "hopper.cuh")}"')
-    os.makedirs(OUT, exist_ok=True)
-    path, so = os.path.join(OUT, f"{tag}.cu"), os.path.join(OUT, f"lib{tag}.so")
-    with open(path, "w") as f:
-        f.write(src)
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise SystemExit(f"time_k1_i8: nvcc failed on {tag}\n{r.stderr[-4000:]}")
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib = ctypes.CDLL(so)
-    if src_dir == PARENT:
-        lib.dstts_decode_attention_i8.argtypes = [p, ll, p, p, p, p, p, i, ll, p, p, i, i, i,
-                                                  p, i, i, i, i, i, f, i, i, i, p, p, p]
-        lib.dstts_decode_attention_i8.restype = i
-    if hasattr(lib, "trace_clear"):
-        lib.trace_clear.restype = i
-    notes = [ln.strip() for ln in (r.stdout + r.stderr).splitlines()
-             if any(w in ln for w in ("registers", "spill", "Compiling entry"))]
-    return lib, notes
-
-
-def parent_i8(lib, q, kp, vp, ks, vs, table, seq, qpos):
-    """The parent's int8 mode through its own C entry, with the splits its
-    wrapper chose (``decode_splits``)."""
-    import torch
-
-    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
-
-    B, T, H, D = q.shape
-    R, ps, K, _ = kp.shape
-    P = table.shape[1]
-    splits, chunk = pa.decode_splits(B, K, P * ps, pa._sm_count(q.device))
-    out = torch.empty_like(q)
-    rows = B * K * splits * T * (H // K)
-    o_part = torch.empty((rows, D), dtype=torch.float32, device=q.device)
-    ml_part = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
-
-    def run():
-        err = lib.dstts_decode_attention_i8(
-            q.data_ptr(), q.stride(0), kp.data_ptr(), vp.data_ptr(), ks.data_ptr(),
-            vs.data_ptr(), table.data_ptr(), P, 0, seq.data_ptr(), qpos.data_ptr(),
-            qpos.stride(0), 0, P * ps, out.data_ptr(), B, T, H, K, ps, D ** -0.5, 1, splits,
-            chunk, o_part.data_ptr(), ml_part.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-        assert err == 0, err
-        return out
-    return run, splits, chunk
-
-
 def replay_once(lib, run) -> None:
     """``run`` captured in a CUDA graph (as the engine's decode programs run
     it, and as the times are taken), the stamps cleared, one replay."""
@@ -335,79 +181,6 @@ def replay_once(lib, run) -> None:
     graph.replay()
     torch.cuda.synchronize()
     graph.reset()
-
-
-def parent_timeline(lib, run) -> dict:
-    """One stamped replay of the parent's int8 mode: where its blocks' time
-    goes (module docstring)."""
-    import torch
-
-    from deepsearch_tts_tpu_torch.ops import paged_attention as pa
-
-    replay_once(lib, run)
-    tile = (ctypes.c_longlong * (NTS * NBLK * MAXT))()
-    blk = (ctypes.c_longlong * (6 * NBLK))()
-    nt, sm = (ctypes.c_int * NBLK)(), (ctypes.c_int * NBLK)()
-    merge = (ctypes.c_longlong * (2 * NBLK))()
-    assert lib.trace_read(tile, blk, nt, sm, merge) == 0
-    tl = np.array(tile, dtype=np.int64).reshape(NTS, NBLK, MAXT)
-    bk = np.array(blk, dtype=np.int64).reshape(6, NBLK)
-    nt, sm = np.array(nt), np.array(sm)
-    mg = np.array(merge, dtype=np.int64).reshape(2, NBLK)
-    ran = bk[0] > 0
-    work = ran & (nt > 0)
-    t0 = bk[0][ran].min()
-    end = bk[2][ran].max()
-    dur = (bk[2] - bk[0]) / 1e3                          # us
-    # cycles a ns from the blocks that ran long enough to read it well
-    long_ = work & (dur > 2.0)
-    ghz = float(np.median(((bk[3] - bk[1]) / (bk[2] - bk[0]))[long_])) if long_.any() else 1.755
-    us = lambda cyc: cyc / ghz / 1e3   # noqa: E731
-    steps = {}
-    names = ("wait for the copy", "block barrier", "table reads + copy issue", "widening",
-             "widen barrier", "products")
-    mask = np.zeros((NBLK, MAXT), dtype=bool)
-    for b in np.nonzero(work)[0]:
-        mask[b, :min(nt[b], MAXT)] = True
-    first = mask & (np.arange(MAXT)[None] == 0)
-    rest = mask & ~first
-    for k, name in enumerate(names):
-        d = us(tl[k + 1] - tl[k]).astype(float)
-        steps[name] = {"mean_us": round(float(d[mask].mean()), 3),
-                       "first_tile_us": round(float(d[first].mean()), 3),
-                       "later_tiles_us": round(float(d[rest].mean()), 3) if rest.any() else None}
-    per_tile = us(tl[6] - tl[0]).astype(float)
-    crit = int(np.argmax(np.where(ran, bk[2], 0)))
-    longest = int(np.argmax(np.where(work, bk[2] - bk[0], 0)))
-    busy = np.zeros(int(sm.max()) + 1)
-    np.add.at(busy, sm[work], dur[work])
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    span = (end - t0) / 1e3
-    res = {
-        "clock_ghz": round(ghz, 3),
-        "span_us": round(float(span), 2),
-        "blocks": int(ran.sum()), "blocks_with_keys": int(work.sum()),
-        "tiles": int(nt[work].sum()),
-        "slot_busy_share": round(float(busy.sum() / (n_sms * pa.BLOCKS_PER_SM * span)), 4),
-        "block_us_mean": round(float(dur[work].mean()), 2),
-        "critical_block": {"tiles": int(nt[crit]),
-                           "start_us": round(float((bk[0][crit] - t0) / 1e3), 2),
-                           "us": round(float(dur[crit]), 2)},
-        "longest_block": {"tiles": int(nt[longest]), "us": round(float(dur[longest]), 2),
-                          "start_us": round(float((bk[0][longest] - t0) / 1e3), 2)},
-        "prologue_us": round(float(us(bk[4] - bk[1])[work].mean()), 3),
-        "tile_us": round(float(per_tile[mask].mean()), 3),
-        "steps": steps,
-        "epilogue_us": round(float((dur - us(bk[5] - bk[1]))[work].mean()), 3),
-        "start_spread_us": round(float((bk[0][work].max() - t0) / 1e3), 2),
-    }
-    used = mg[0] > 0
-    if used.any():
-        res["merge"] = {"blocks": int(used.sum()),
-                        "gap_us": round(float((mg[0][used].min() - end) / 1e3), 2),
-                        "span_us": round(float((mg[1][used].max() - mg[0][used].min()) / 1e3), 2),
-                        "end_us": round(float((mg[1][used].max() - t0) / 1e3), 2)}
-    return res
 
 
 def shapes(cs, gen):
@@ -450,56 +223,57 @@ def main() -> int:
                     help="also time a copy of the tree with one choice changed (repeatable)")
     opts = ap.parse_args()
     if opts.prepare:
-        prepare(opts.prepare)
+        kc.prepare(opts.prepare, PARENT, TOOL)
         return 0
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("time_k1_i8: needs a CUDA card")
-    if not os.path.exists(os.path.join(PARENT, "attention.cu")):
-        raise SystemExit(f"time_k1_i8: no parent sources in {PARENT}: run --prepare REV in a "
-                         "git checkout first")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+        raise SystemExit(f"{TOOL}: needs a CUDA card")
+    rev = kc.parent_rev(PARENT, TOOL)
+    card = kc.card()
     print(card, flush=True)
-    with open(os.path.join(PARENT, "REV")) as f:
-        rev = f.read().strip()
     from concurrent.futures import ThreadPoolExecutor
 
     import chip_smoke as cs
     from deepsearch_tts_tpu_torch.ops import _build
     from deepsearch_tts_tpu_torch.ops import paged_attention as pa
 
-    jobs = {"parent": (PARENT, "parent", None)}
+    jobs = {"parent": (PARENT, OUT, "parent", None, TOOL)}
     if not opts.no_trace:
-        jobs["parent_stamped"] = (PARENT, "parent_stamped", PARENT_EDITS)
+        jobs["parent_stamped"] = (PARENT, OUT, "parent_stamped", TREE_EDITS, TOOL)
         if not opts.parent_only:
-            jobs["tree_stamped"] = (CSRC, "tree_stamped", TREE_EDITS)
+            jobs["tree_stamped"] = (CSRC, OUT, "tree_stamped", TREE_EDITS, TOOL)
     for name in opts.variant:
-        jobs[name] = (CSRC, name, VARIANTS[name])
+        jobs[name] = (CSRC, OUT, name, VARIANTS[name], TOOL)
     with ThreadPoolExecutor(len(jobs) + 1) as ex:
         tree_f = ex.submit(_build.load_library, "attention")
-        built = {k: ex.submit(build, *v) for k, v in jobs.items()}
-        tree_lib = tree_f.result()
-        libs = {k: f.result() for k, f in built.items()}
+        built = {k: ex.submit(kc.build, *v) for k, v in jobs.items()}
+        tree_f.result()
+        built = {k: f.result() for k, f in built.items()}
     for line in _build.build_log.get("attention", "").splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry")):
             print(f"[build] tree: {line.strip()}", flush=True)
-    for k, (_, notes) in libs.items():
+    for k, (_, notes) in built.items():
         if k == "parent" or k in opts.variant:
             for ln in notes:
                 print(f"[build] {k}: {ln}", flush=True)
     print("[build] tree blocks an SM: " + json.dumps(pa.attention_occupancy()), flush=True)
-    typed = pa._lib()
-    for key in [*opts.variant, "tree_stamped"]:   # the wrappers' entries typed as the tree's
-        if key not in libs:
-            continue
-        lib = libs[key][0]
-        for name in ("dstts_decode_attention", "dstts_decode_i8", "dstts_decode_i8_plan"):
-            fn, ref = getattr(lib, name), getattr(typed, name)
-            fn.argtypes, fn.restype = ref.argtypes, ref.restype
-        lib._dstts_typed = True
+    tree_lib = pa._lib()
+    libs = {"tree": tree_lib, **{k: kc.typed_as(lib, tree_lib, K1_ENTRIES)
+                                 for k, (lib, _) in built.items()}}
+    for k in ("parent_stamped", "tree_stamped"):
+        if k in libs:
+            libs[k].trace_clear.restype = ctypes.c_int
+
+    def on(name: str, fn):
+        """``fn`` with the wrappers launching library ``name``'s kernels."""
+        def run():
+            _build._libs["attention"] = libs[name]
+            try:
+                return fn()
+            finally:
+                _build._libs["attention"] = tree_lib
+        return run
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -512,7 +286,6 @@ def main() -> int:
         sc = dict(k_scales=ks, v_scales=vs)
         ref = pa.pallas_paged_attention_plain(q, kp, vp, table, seq, qpos, **sc)
         ref_bf = pa.pallas_paged_attention_plain(q, kb, vb, table, seq, qpos)
-        par, splits, chunk = parent_i8(libs["parent"][0], q, kp, vp, ks, vs, table, seq, qpos)
         tree = lambda: pa.pallas_paged_attention(q, kp, vp, table, seq, qpos, **sc)  # noqa: E731
         bf = lambda: pa.pallas_paged_attention(q, kb, vb, table, seq, qpos)  # noqa: E731
         keys = int(seq.sum())
@@ -522,21 +295,15 @@ def main() -> int:
         mask = (torch.arange(P * ps, device="cuda")[None] < seq[:, None])[:, None, None]
         qt = q.transpose(1, 2)
         lib_fn = lambda: sdpa(qt, kd, vd, attn_mask=mask, enable_gqa=True)  # noqa: E731
-        row = {"keys": keys, "parent_splits": [splits, chunk],
-               **cs.bound(nbytes, 4 * cs.Q_H * cs.D * keys),
+        row = {"keys": keys, **cs.bound(nbytes, 4 * cs.Q_H * cs.D * keys),
                "bf16_bound_ms": keys * cs.Q_KV * cs.D * 2 * 2 / cs.HBM_BYTES_S * 1e3}
-        use = {"parent": cs._bound_use(par(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC),
-               "bf16": cs._bound_use(bf(), ref_bf, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)}
-        runs = {"parent": par, "bf16": bf}
+        runs = {"parent": on("parent", tree), "bf16": bf}
         if not opts.parent_only:
-            use["tree"] = cs._bound_use(tree(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)
             runs["tree"] = tree
-            for name in opts.variant:   # the wrappers launch the copy
-                _build._libs["attention"] = libs[name][0]
-                use[name] = cs._bound_use(tree(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL,
-                                          cs.ATTN_RMS_FRAC)
-                _build._libs["attention"] = tree_lib
-                runs[name] = tree
+            for name in opts.variant:
+                runs[name] = on(name, tree)
+        use = {k: cs._bound_use(f(), ref_bf if k == "bf16" else ref, cs.ATTN_RTOL,
+                                cs.ATTN_ATOL, cs.ATTN_RMS_FRAC) for k, f in runs.items()}
         row["bound_use"] = {k: round(v, 3) for k, v in use.items()}
         assert max(use.values()) <= 1.0, (label, use)
         ms = {k: [] for k in runs}
@@ -544,22 +311,14 @@ def main() -> int:
         for k in order:
             if k not in runs:
                 continue
-            if k in opts.variant:
-                _build._libs["attention"] = libs[k][0]
             ms[k].append(cs.time_ms(runs[k], iters=20)[0])
-            _build._libs["attention"] = tree_lib
             ms["bf16"].append(cs.time_ms(bf, iters=20)[0])
         row["ms"] = {k: [round(x, 4) for x in v] for k, v in ms.items()}
         row.update({f"{k}_ms": round(float(np.mean(v)), 4) for k, v in ms.items()})
         row["sdpa_ms"] = round(cs.time_ms(lib_fn, iters=20)[0], 4)
-        if "parent_stamped" in libs:
-            stamped, _, _ = parent_i8(libs["parent_stamped"][0], q, kp, vp, ks, vs, table, seq,
-                                      qpos)
-            row["parent_timeline"] = parent_timeline(libs["parent_stamped"][0], stamped)
-        if "tree_stamped" in libs and TREE_EDITS:
-            _build._libs["attention"] = libs["tree_stamped"][0]
-            row["tree_timeline"] = tree_timeline(libs["tree_stamped"][0], tree)
-            _build._libs["attention"] = tree_lib
+        for k in ("parent_stamped", "tree_stamped"):
+            if k in libs:
+                row[k.replace("stamped", "timeline")] = tree_timeline(libs[k], on(k, tree))
         result["shapes"][label] = row
         print(f"[k1-i8] {label}: {json.dumps(row)}", flush=True)
         del kp, vp, kb, vb, kd, vd, ref, ref_bf

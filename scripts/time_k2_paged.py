@@ -10,18 +10,17 @@ in one process on one card, and where each block's time goes.
                                                     (needs one CUDA card and nvcc)
 
 ``--prepare`` writes ``attention.cu`` and ``hopper.cuh`` of commit REV
-(``git show``) into ``build/k2_parent/`` (ignored by git); the timing run
+into ``build/k2_parent/`` (``scripts/kernel_copies.py``); the timing run
 builds them there with the port's nvcc flags, so it also runs in a copy
-without ``.git``. The parent's C entries are those of K2 before the
-persistent grid: ``dstts_flash_attention(q, k, v, out, B, T, S, H, KV,
-scale, stream)`` and ``dstts_flash_attention_paged(q, k, v, table, P,
-seq_len, qpos, out, B, T, H, KV, R, ps, scale, stream)``.
+without ``.git``. The parent must have the tree's bf16 C entries of K2
+(``dstts_flash_attention``, ``dstts_flash_attention_paged``, the plan and
+merge entries: since the persistent paged grid); its kernels run through
+the tree's wrappers over the parent's library.
 
 For every ``PAGED_PREFILLS`` shape of ``chip_smoke.py`` (random bf16 pages
 from seed 0, as the smoke makes them) and for dense K2 at B=1 T=3072
 (qwen3-8b's 32 / 8 heads): the tree's kernel is held to its plain version
-under the smoke's rms-scaled bound (the parent's on the real queries: it
-kept JAX's tail-padding rule), then both are timed as CUDA-graph replays
+under the smoke's rms-scaled bound, then both are timed as CUDA-graph replays
 between CUDA events in the order parent, tree, tree, parent, beside the
 shape's bound (operations of the real queries' visible pairs, bytes of q,
 out and each row's keys up to its largest limit). ``--variant NAME`` also
@@ -31,18 +30,18 @@ times a copy of the tree with one choice changed (``VARIANTS``: pieces of
 turns: parent, tree, copy, copy, tree, parent.
 
 Unless ``--no-trace``, copies of both sources with ``%globaltimer`` stamps
-(a copy made by replacing lines of the kernel; a change there stops the
-script with the line it did not find) run each shape once more and give,
-per block (the tree: per item of its persistent blocks), its start, its
-first K tile ready, its last value product done and its stores issued, with
-its SM (``%smid``). From them, in microseconds: the span (first start to
+(``TREE_EDITS``, made by replacing lines of the kernel; a change there
+stops the script with the line it did not find) run each shape once more
+and give, per item of the persistent blocks, its start, its first K tile
+ready, its last value product done and its stores issued, with its SM
+(``%smid``). From them, in microseconds: the span (first start to
 last store), the SMs' busy share of it (the sum of the blocks' or items'
 start-to-store times an SM over the span: 1 - the idle share), the mean
 wait from a start to its first K tile, the mean time from the last value
 product to the stores issued, the mean time from one item's stores to the
 block's next item, and items a block; for the tree, also the plan kernel's
-phases (thread 0 after each of its block-wide barriers). The stamps cost a little
-time themselves. Prints the card's name and power limit first and one JSON
+phases (thread 0 after each of its block-wide barriers). The stamps cost a
+little time themselves. Prints the card's name and power limit first and one JSON
 line last.
 """
 from __future__ import annotations
@@ -51,16 +50,23 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-CSRC = os.path.join(ROOT, "deepsearch_tts_tpu_torch", "ops", "csrc")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import kernel_copies as kc  # noqa: E402
+
+ROOT, CSRC = kc.ROOT, kc.CSRC
 PARENT = os.path.join(ROOT, "build", "k2_parent")
 OUT = os.path.join(ROOT, "build", "k2_time")
+TOOL = "time_k2_paged"
+# the C entries K2's wrappers call, typed as the tree's on every other library
+K2_ENTRIES = ("dstts_flash_attention", "dstts_flash_attention_paged", "dstts_flash_paged_plan",
+              "dstts_flash_paged_merge")
+# flash_attention<PAGED>: its stamps' anchors are searched past its signature
+# (the int8 kernel after it repeats some of its lines)
+_K2 = "flash_attention(const __grid_constant__ CUtensorMap tq"
 NBLK, MAXIT, NST = 1024, 64, 4
 STAMPS = ("start", "first K ready", "last PV done", "stores issued")
 PLAN_STAMPS = ("start", "zeroed", "unit limits", "pieces and buckets", "items written")
@@ -102,8 +108,8 @@ def _plan_at(k: int) -> str:
     return f"  if (threadIdx.x == 0) g_plan[{k}] = gtime();\n"
 
 
-# the tree: a persistent block, stamps a (block, item); the plan kernel's
-# phases (thread 0, after each block-wide barrier)
+# a persistent block, stamps a (block, item); the plan kernel's phases
+# (thread 0, after each block-wide barrier): the tree's and the parent's
 TREE_EDITS = [
     ("  const int tid = threadIdx.x, lane = tid & 31;\n",
      "  const int tid = threadIdx.x, lane = tid & 31;\n" + _plan_at(0)),
@@ -118,117 +124,18 @@ TREE_EDITS = [
      STAMP_DEFS + "// ------------------------------------------------------------------- K1\n"),
     ("      mbar_arrive(&meta_empty[it & 1]);\n",
      "      mbar_arrive(&meta_empty[it & 1]);\n      " + _at(0, "it") +
-     f"      if (threadIdx.x == 0 && blockIdx.x < {NBLK}) g_sm[blockIdx.x] = smid();\n"),
+     f"      if (threadIdx.x == 0 && blockIdx.x < {NBLK}) g_sm[blockIdx.x] = smid();\n", _K2),
     ("      bar_sync(1 + wg, 256);\n      issue_qk(g0);\n",
      "      mbar_wait(&k_full[g0 % FSTAGES], (g0 / FSTAGES) & 1);\n      " + _at(1, "it") +
-     "      bar_sync(1 + wg, 256);\n      issue_qk(g0);\n"),
+     "      bar_sync(1 + wg, 256);\n      issue_qk(g0);\n", _K2),
     ("      mbar_arrive(&empty[gl % FSTAGES]);\n      g0 += nt;\n",
-     "      mbar_arrive(&empty[gl % FSTAGES]);\n      " + _at(2, "it") + "      g0 += nt;\n"),
+     "      mbar_arrive(&empty[gl % FSTAGES]);\n      " + _at(2, "it") + "      g0 += nt;\n", _K2),
     ("                  odd ? make_uint2(got, wo) : make_uint2(we, got);\n          }\n"
      "        }\n      }\n",
      "                  odd ? make_uint2(got, wo) : make_uint2(we, got);\n          }\n"
-     "        }\n      }\n      " + _at(3, "it")),
+     "        }\n      }\n      " + _at(3, "it"), _K2),
     ('}  // extern "C"', READER + '}  // extern "C"'),
 ]
-# the parent: one block a (kv head, row, query block), one stamp set a block
-PBLK = "(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z))"
-PARENT_EDITS = [
-    ("// ------------------------------------------------------------------- K1\n",
-     STAMP_DEFS + "// ------------------------------------------------------------------- K1\n"),
-    ("  const int m = gridDim.z - 1 - blockIdx.z;        // the longest query tiles start first\n",
-     "  const int m = gridDim.z - 1 - blockIdx.z;        // the longest query tiles start first\n"
-     "  " + _at(0, "0", PBLK) +
-     f"  if (threadIdx.x == 0 && {PBLK} < {NBLK}) g_sm[{PBLK}] = smid();\n"),
-    ("    mbar_wait(q_full, 0);\n    bar_sync(1 + wg, 256);\n    issue_qk(0);\n",
-     "    mbar_wait(q_full, 0);\n    mbar_wait(&k_full[0], 0);\n    " + _at(1, "0", PBLK) +
-     "    bar_sync(1 + wg, 256);\n    issue_qk(0);\n"),
-    ("    mbar_arrive(&empty[(ntiles - 1) % FSTAGES]);\n",
-     "    mbar_arrive(&empty[(ntiles - 1) % FSTAGES]);\n    " + _at(2, "0", PBLK)),
-    ("            o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);\n    }\n",
-     "            o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);\n    }\n    " +
-     _at(3, "0", PBLK)),
-    ('}  // extern "C"', READER + '}  // extern "C"'),
-]
-
-
-def prepare(rev: str) -> None:
-    os.makedirs(PARENT, exist_ok=True)
-    for name in ("attention.cu", "hopper.cuh"):
-        src = subprocess.run(["git", "show", f"{rev}:deepsearch_tts_tpu_torch/ops/csrc/{name}"],
-                             cwd=ROOT, capture_output=True, text=True, check=True).stdout
-        with open(os.path.join(PARENT, name), "w") as f:
-            f.write(src)
-    with open(os.path.join(PARENT, "REV"), "w") as f:
-        f.write(rev + "\n")
-    print(f"time_k2_paged: {rev}'s attention.cu and hopper.cuh in {PARENT}")
-
-
-def build(src_dir: str, tag: str, edits=None) -> ctypes.CDLL:
-    """nvcc of ``src_dir``/attention.cu (with ``edits`` applied) into
-    build/k2_time/lib<tag>.so."""
-    from deepsearch_tts_tpu_torch.ops import _build
-
-    with open(os.path.join(src_dir, "attention.cu")) as f:
-        src = f.read()
-    for old, new in edits or ():
-        if src.count(old) != 1:
-            raise SystemExit(f"time_k2_paged ({tag}): kernel line not found once:\n{old}")
-        src = src.replace(old, new, 1)
-    src = src.replace('#include "hopper.cuh"',
-                      f'#include "{os.path.join(src_dir, "hopper.cuh")}"')
-    os.makedirs(OUT, exist_ok=True)
-    path, so = os.path.join(OUT, f"{tag}.cu"), os.path.join(OUT, f"lib{tag}.so")
-    with open(path, "w") as f:
-        f.write(src)
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, path],
-                       capture_output=True, text=True)
-    if r.returncode:
-        raise SystemExit(f"time_k2_paged: nvcc failed on {tag}\n{r.stderr[-4000:]}")
-    lib = ctypes.CDLL(so)
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    if src_dir == PARENT:
-        lib.dstts_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
-        lib.dstts_flash_attention_paged.argtypes = [p, p, p, p, i, p, p, p, i, i, i, i, ll, i,
-                                                    f, p]
-    if any("trace_read" in new for _, new in edits or ()):
-        lib.trace_read.argtypes = [p, p]
-        lib.trace_plan.argtypes = [p]
-    return lib
-
-
-def parent_paged(lib, q, kp, vp, table, seq, pos):
-    import torch
-
-    out = torch.empty_like(q)
-    B, T, H, D = q.shape
-    R, ps, K, _ = kp.shape
-    table, pos = table.long().contiguous(), pos.long().contiguous()
-
-    def run():
-        err = lib.dstts_flash_attention_paged(
-            q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(), table.shape[1],
-            seq.data_ptr(), pos.data_ptr(), out.data_ptr(), B, T, H, K, R, ps, D ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
-        assert err == 0, err
-        return out
-    return run
-
-
-def parent_dense(lib, q, k, v):
-    import torch
-
-    out = torch.empty_like(q)
-    B, T, H, D = q.shape
-
-    def run():
-        err = lib.dstts_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                        B, T, k.shape[1], H, k.shape[2], D ** -0.5,
-                                        torch.cuda.current_stream().cuda_stream)
-        assert err == 0, err
-        return out
-    return run
-
-
 def stamps(lib, run) -> dict:
     """One stamped run: span, busy share, first-K wait, tail, items a block."""
     import torch
@@ -289,34 +196,45 @@ def main() -> int:
                     help="also time a copy of the tree with one choice changed")
     opts = ap.parse_args()
     if opts.prepare:
-        prepare(opts.prepare)
+        kc.prepare(opts.prepare, PARENT, TOOL)
         return 0
     import torch
 
     if not torch.cuda.is_available():
-        raise SystemExit("time_k2_paged: needs a CUDA card")
-    if not os.path.exists(os.path.join(PARENT, "attention.cu")):
-        raise SystemExit(f"time_k2_paged: no parent sources in {PARENT}: run --prepare REV "
-                         "in a git checkout first")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+        raise SystemExit(f"{TOOL}: needs a CUDA card")
+    rev = kc.parent_rev(PARENT, TOOL)
+    card = kc.card()
     print(card, flush=True)
-    with open(os.path.join(PARENT, "REV")) as f:
-        rev = f.read().strip()
     import chip_smoke as cs
     from deepsearch_tts_tpu_torch.ops import _build
     from deepsearch_tts_tpu_torch.ops import flash_attention as fa
 
-    parent = build(PARENT, "parent")
-    real_lib = _build.load_library("attention")
+    jobs = {"parent": (PARENT, OUT, "parent", None, TOOL)}
     if opts.variant:
-        pieces_lib = build(CSRC, opts.variant, VARIANTS[opts.variant])
-    tree_src = CSRC
-    traced = {}
+        jobs["copy"] = (CSRC, OUT, opts.variant, VARIANTS[opts.variant], TOOL)
     if not opts.no_trace:
-        traced = {"tree": build(tree_src, "tree_stamped", TREE_EDITS),
-                  "parent": build(PARENT, "parent_stamped", PARENT_EDITS)}
+        jobs["tree_stamped"] = (CSRC, OUT, "tree_stamped", TREE_EDITS, TOOL)
+        jobs["parent_stamped"] = (PARENT, OUT, "parent_stamped", TREE_EDITS, TOOL)
+    real_lib = _build.load_library("attention")
+    from deepsearch_tts_tpu_torch.ops.paged_attention import _lib
+
+    tree_lib = _lib()
+    libs = {k: kc.typed_as(kc.build(*v)[0], tree_lib, K2_ENTRIES) for k, v in jobs.items()}
+    for k in ("tree_stamped", "parent_stamped"):
+        if k in libs:
+            libs[k].trace_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            libs[k].trace_plan.argtypes = [ctypes.c_void_p]
+
+    def on(name: str, fn):
+        """``fn`` with the wrappers launching library ``name``'s kernels."""
+        def run():
+            _build._libs["attention"] = libs[name]
+            try:
+                return fn()
+            finally:
+                _build._libs["attention"] = real_lib
+        return run
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     D = cs.D
     result: dict = {"card": card, "parent": rev, "shapes": {}}
@@ -325,13 +243,15 @@ def main() -> int:
         order = ["parent", "tree", "copy", "copy", "tree", "parent"]
         ms = {k: [] for k in runs}
         for k in order:
-            if k not in runs:
-                continue
-            if k == "copy":   # the wrapper launches the copy
-                _build._libs["attention"] = pieces_lib
-            ms[k].append(cs.time_ms(runs[k], iters=20)[0])
-            _build._libs["attention"] = real_lib
+            if k in runs:
+                ms[k].append(cs.time_ms(runs[k], iters=20)[0])
         return {k: [round(x, 4) for x in v] for k, v in ms.items()}
+
+    def traces(row: dict, fn) -> None:
+        """One stamped run of each library's kernels (the wrappers launch them)."""
+        for k in ("tree", "parent"):
+            if f"{k}_stamped" in libs:
+                row[f"{k}_trace"] = stamps(libs[f"{k}_stamped"], on(f"{k}_stamped", fn))
 
     for label, B, T, starts, valid, ps, P, (h, kv), slot in cs.PAGED_PREFILLS:
         q, kp, vp, table, seq, pos = cs._paged_prefill_inputs(gen, B, T, starts, valid, ps, P,
@@ -341,31 +261,19 @@ def main() -> int:
         real = pos >= 0
         ref = fa.flash_attention_paged_plain(q, kp, vp, table, seq, pos)
         tree = lambda: fa.flash_attention_paged(q, kp, vp, table, seq, pos)  # noqa: E731
-        par = parent_paged(parent, q, kp, vp, table, seq, pos)
-        use = cs._bound_use(tree(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)
-        ref_real = torch.where(real[..., None, None], ref, 0)
-        use_p = cs._bound_use(torch.where(real[..., None, None], par(), 0), ref_real,
-                              cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)
-        assert use <= 1.0 and use_p <= 1.0, (label, use, use_p)
+        runs = {"parent": on("parent", tree), "tree": tree}
+        if opts.variant:
+            runs["copy"] = on("copy", tree)
+        use = {k: cs._bound_use(f(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)
+               for k, f in runs.items()}
+        assert max(use.values()) <= 1.0, (label, use)
         nbytes = (int(lim.amax(1).sum()) * kv * D * 2 * 2 + 2 * B * T * h * D * 2
                   + B * (T + P + 1) * 8)
-        runs = {"parent": par, "tree": tree}
-        if opts.variant:
-            _build._libs["attention"] = pieces_lib
-            use_c = cs._bound_use(tree(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)
-            _build._libs["attention"] = real_lib
-            assert use_c <= 1.0, (label, "copy", use_c)
-            runs["copy"] = tree
-        row = {"bound_use": round(use, 3), "parent_bound_use_real": round(use_p, 3),
+        row = {"bound_use": {k: round(v, 3) for k, v in use.items()},
                **cs.bound(nbytes, 4 * h * D * int(lim[real].sum())), "ms": timed(runs)}
         row["tree_ms"] = round(float(np.mean(row["ms"]["tree"])), 4)
         row["parent_ms"] = round(float(np.mean(row["ms"]["parent"])), 4)
-        if traced:   # the wrappers launch the stamped copy for one run
-            _build._libs["attention"] = traced["tree"]
-            row["tree_trace"] = stamps(traced["tree"], tree)
-            _build._libs["attention"] = real_lib
-            row["parent_trace"] = stamps(traced["parent"], parent_paged(
-                traced["parent"], q, kp, vp, table, seq, pos))
+        traces(row, tree)
         result["shapes"][label] = row
         print(f"[k2-paged] {label}: {json.dumps(row)}", flush=True)
         del q, kp, vp, ref
@@ -376,25 +284,20 @@ def main() -> int:
     v = torch.randn((B, T, KV, D), generator=gen, device="cuda").to(torch.bfloat16)
     ref = fa.flash_attention_plain(q, k, v)
     tree = lambda: fa.flash_attention(q, k, v)  # noqa: E731
-    par = parent_dense(parent, q, k, v)
+    runs = {"parent": on("parent", tree), "tree": tree}
     uses = [cs._bound_use(f(), ref, cs.ATTN_RTOL, cs.ATTN_ATOL, cs.ATTN_RMS_FRAC)
-            for f in (tree, par)]
+            for f in runs.values()]
     assert max(uses) <= 1.0, uses
-    row = {"bound_use": round(uses[0], 3),
+    row = {"bound_use": [round(u, 3) for u in uses],
            **cs.bound(2 * B * T * D * (2 * H + 2 * KV), 4 * B * H * D * T * (T + 1) // 2),
-           "ms": timed({"parent": par, "tree": tree})}
+           "ms": timed(runs)}
     row["tree_ms"] = round(float(np.mean(row["ms"]["tree"])), 4)
     row["parent_ms"] = round(float(np.mean(row["ms"]["parent"])), 4)
-    if traced:
-        _build._libs["attention"] = traced["tree"]
-        row["tree_trace"] = stamps(traced["tree"], tree)
-        _build._libs["attention"] = real_lib
-        row["parent_trace"] = stamps(traced["parent"], parent_dense(traced["parent"], q, k, v))
+    traces(row, tree)
     result["dense B=1 T=3072"] = row
     print(f"[k2-dense] B=1 T=3072: {json.dumps(row)}", flush=True)
     print(json.dumps(result))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())
